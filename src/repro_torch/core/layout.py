@@ -1,0 +1,115 @@
+"""The paper's blocked layouts (§4) as torch tensor permutations.
+
+Feature maps are ``[N, C/Cb, H, W, Cb]`` — H×W matrices of channel
+"pencils" of length ``Cb`` — and weights ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
+Cob]``.  Both hold exactly the elements of the unblocked tensors: zero
+memory overhead.  Pencils are chosen as the reference chooses them (target
+128 lanes), so a blocked tensor of the port compares element for element
+with the JAX package's.  On the GPU ``Cob`` is the fastest dimension of
+every output store, so neighbouring threads write neighbouring addresses.
+"""
+from __future__ import annotations
+
+import dataclasses
+import warnings
+
+import torch
+
+__all__ = [
+    "BlockedConvLayout", "nhwc_to_blocked", "blocked_to_nhwc",
+    "hwio_to_blocked", "blocked_to_hwio", "largest_divisor_leq", "divisors",
+    "choose_pencil",
+]
+
+
+def divisors(n: int) -> list[int]:
+    """All divisors of ``n``, ascending, from the prime factorization."""
+    if n <= 0:
+        raise ValueError(f"need positive dim, got {n}")
+    factors: dict[int, int] = {}
+    m, p = n, 2
+    while p * p <= m:
+        while m % p == 0:
+            factors[p] = factors.get(p, 0) + 1
+            m //= p
+        p += 1 if p == 2 else 2
+    if m > 1:
+        factors[m] = factors.get(m, 0) + 1
+    divs = [1]
+    for prime, mult in factors.items():
+        divs = [d * prime ** e for d in divs for e in range(mult + 1)]
+    return sorted(divs)
+
+
+def largest_divisor_leq(n: int, cap: int) -> int:
+    """Largest divisor of ``n`` that is ``<= cap`` (>=1)."""
+    if n <= 0:
+        raise ValueError(f"need positive dim, got {n}")
+    if cap >= n:
+        return n
+    best = 1
+    for d in divisors(n):
+        if d > cap:
+            break
+        best = d
+    return best
+
+
+def choose_pencil(n: int, cap: int, *, min_util: float = 0.25) -> int:
+    """Largest divisor of ``n`` that is ``<= cap``; warns when it fills less
+    than ``min_util`` of the achievable width (e.g. a prime channel count)."""
+    target = min(n, cap)
+    d = largest_divisor_leq(n, cap)
+    if d < min_util * target:
+        warnings.warn(
+            f"channel pencil {d} for C={n} (cap {cap}) fills {d}/{target} "
+            "lanes", UserWarning, stacklevel=2)
+    return d
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedConvLayout:
+    """Channel pencils of one dense conv layer (the paper's ``C_i,b`` /
+    ``C_o,b``).  Narrow layers take smaller divisors: VGG-16's first conv
+    has ``Cib = 3``."""
+
+    cb_in: int
+    cb_out: int
+
+    @staticmethod
+    def choose(ci: int, co: int, lane: int = 128,
+               min_util: float = 0.25) -> "BlockedConvLayout":
+        return BlockedConvLayout(
+            cb_in=choose_pencil(ci, lane, min_util=min_util),
+            cb_out=choose_pencil(co, lane, min_util=min_util))
+
+
+def nhwc_to_blocked(x: torch.Tensor, cb: int) -> torch.Tensor:
+    """``[N, H, W, C] -> [N, C/Cb, H, W, Cb]`` (contiguous)."""
+    n, h, w, c = x.shape
+    if c % cb:
+        raise ValueError(f"C={c} not divisible by block {cb}")
+    return x.reshape(n, h, w, c // cb, cb).permute(0, 3, 1, 2, 4).contiguous()
+
+
+def blocked_to_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`nhwc_to_blocked`."""
+    n, cblk, h, w, cb = x.shape
+    return x.permute(0, 2, 3, 1, 4).reshape(n, h, w, cblk * cb)
+
+
+def hwio_to_blocked(w: torch.Tensor, cib: int, cob: int) -> torch.Tensor:
+    """``[Hf, Wf, Ci, Co] -> [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]``."""
+    hf, wf, ci, co = w.shape
+    if ci % cib or co % cob:
+        raise ValueError(
+            f"Ci={ci}/Co={co} not divisible by blocks {cib}/{cob}")
+    w = w.reshape(hf, wf, ci // cib, cib, co // cob, cob)
+    return w.permute(4, 2, 0, 1, 3, 5).contiguous()
+
+
+def blocked_to_hwio(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hwio_to_blocked`."""
+    coblk, ciblk, hf, wf, cib, cob = w.shape
+    w = w.permute(2, 3, 1, 4, 0, 5)
+    return w.reshape(hf, wf, ciblk * cib, coblk * cob)
