@@ -10,14 +10,15 @@ and no phase catches its own failure:
    power limit as ``nvidia-smi --query-gpu=name,power.limit`` reports them;
 2. build every CUDA kernel from ``src/repro_torch/csrc`` (nvcc, sm_90a);
 3. hold each kernel against its plain PyTorch version on the card: every
-   distinct VGG-16 layer shape at batch 8 and 224x224 entry, a small
-   gelu + residual shape at stride 2 with ``Cib = 3``, a gelu + residual +
-   GAP shape, and the GAP finalize kernel;
+   distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
+   entries give (the server's two buckets), a small gelu + residual shape
+   at stride 2 with ``Cib = 3``, a gelu + residual + GAP shape, and the GAP
+   finalize kernel;
 4. the full VGG-16 forward (13 convs, 224x224, batch 8) through the
    kernels, with its launch counts, against the plain path's logits;
 5. the main path: ``ConvServer`` on buckets 160x160 and 224x224 at batch 8
    serving 24 ragged requests drawn from ``--seed``; every request must end
-   OK with the logits of a direct forward of its padded image;
+   OK with the logits of the plain PyTorch forward of its padded image;
 6. per-layer times (CUDA events after warm-up): kernel, plain version,
    cuDNN ``F.conv2d`` (f32, TF32 off) and the f32 bound.
 
@@ -52,6 +53,7 @@ HBM_BYTES_PER_S = 3.35e12
 KERNEL_SOURCE = "src/repro_torch/csrc/direct_conv2d_fwd.cu"
 TPU_KERNEL = "src/repro/kernels/direct_conv2d.py:102"
 BATCH, ENTRY = 8, 224
+BUCKETS = ((160, 160), (224, 224))
 
 
 def fail(msg: str) -> None:
@@ -110,11 +112,11 @@ def main(argv=None) -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers
+    from repro_torch.core import conv2d_common
     from repro_torch.core.blocking import choose_blocking
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.direct_conv import direct_conv_blocked
     from repro_torch.core.layout import nhwc_to_blocked
-    from repro_torch.kernels import conv2d_common
     from repro_torch.kernels._build import build
     from repro_torch.kernels.direct_conv2d import (LAUNCHES,
                                                    direct_conv2d_blocked,
@@ -140,11 +142,11 @@ def main(argv=None) -> int:
 
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
-    for res in build().values():
-        print(f"[build] {res.name}: {res.seconds:.1f} s -> {res.path.name}")
-        for line in res.log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build]   {line.strip()}")
+    res = build("direct_conv2d_fwd")
+    print(f"[build] {res.name}: {res.seconds:.1f} s -> {res.path.name}")
+    for line in res.log.splitlines():
+        if "registers" in line or "spill" in line:
+            print(f"[build]   {line.strip()}")
     print(f"[build] total {time.perf_counter() - t0:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -161,14 +163,21 @@ def main(argv=None) -> int:
         return x, w, b, r, spec
 
     # -- 3. kernels vs plain versions --------------------------------------
-    layers, h = [], ENTRY
-    for ci, co, s in vgg16_layers():
-        layers.append((ci, co, s, h))
-        h = ConvSpec.make(1, h, h, ci, co, 3, 3, s, "SAME").ho
+    def layer_shapes(entry):
+        out, h = [], entry
+        for ci, co, s in vgg16_layers():
+            out.append((ci, co, s, h))
+            h = ConvSpec.make(1, h, h, ci, co, 3, 3, s, "SAME").ho
+        return out
+
+    layers = layer_shapes(ENTRY)
     shapes = sorted(set(layers), key=layers.index)
+    # every shape the server's buckets give the kernel, with its own tiles
+    served_layers = [sh for bh, _ in BUCKETS for sh in layer_shapes(bh)]
+    checked = sorted(set(served_layers), key=served_layers.index)
     max_err = {"direct_conv2d_fwd": 0.0, "gap_finalize": 0.0}
     with torch.no_grad():
-        for ci, co, s, h in shapes:
+        for ci, co, s, h in checked:
             x, w, b, _, _ = operands(BATCH, ci, co, h, s)
             got = direct_conv2d_blocked(x, w, b, s, "SAME", "relu")
             want = direct_conv_blocked(x, w, s, "SAME", b, "relu")
@@ -234,7 +243,7 @@ def main(argv=None) -> int:
     print(f"[vgg16] forward ms: kernels {fwd_ms:.3f} plain {fwd_plain_ms:.3f}")
 
     # -- 5. the main path: ConvServer --------------------------------------
-    server = ConvServer(model, [(160, 160), (224, 224)], BATCH, device=dev)
+    server = ConvServer(model, list(BUCKETS), BATCH, device=dev)
     server.warmup()
     rng = np.random.default_rng(args.seed)
     reqs = []
@@ -260,13 +269,13 @@ def main(argv=None) -> int:
         err = 0.0
         for r in reqs:
             img = torch.from_numpy(server.bucketer.pad(r.image, r.bucket))
-            want = model(img[None].to(dev))[0].cpu().numpy()
+            want = plain_forward(img[None].to(dev))[0].cpu().numpy()
             err = max(err, float(np.abs(r.logits - want).max()
                                  / max(np.abs(want).max(), 1e-30)))
-    print(f"[serve] logits vs direct forward of the padded image: max "
-          f"rel-to-max err {err:.3e} (tol {LOGIT_RTOL:g})")
+    print(f"[serve] logits vs plain PyTorch forward of the padded image: "
+          f"max rel-to-max err {err:.3e} (tol {LOGIT_RTOL:g})")
     if not err <= LOGIT_RTOL:
-        fail("served logits differ from a direct forward")
+        fail("served logits differ from the plain forward")
     lat = server.latencies() * 1e3
     print(f"[serve] {len(reqs)} requests OK, {health['steps']} steps, "
           f"latency p50 {np.percentile(lat, 50):.3f} ms p99 "

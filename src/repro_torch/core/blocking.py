@@ -27,8 +27,8 @@ from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.core.layout import divisors, largest_divisor_leq
-from repro_torch.kernels.conv2d_common import halo_dims
+from repro_torch.core.conv2d_common import halo_dims
+from repro_torch.core.layout import divisors
 
 __all__ = ["MachineModel", "H100_SXM", "Blocking", "tile_positions",
            "smem_bytes", "choose_blocking"]
@@ -81,33 +81,25 @@ def smem_bytes(hob: int, wob: int, chunk: int, cob: int, hf: int, wf: int,
 
 
 def choose_blocking(hi: int, wi: int, ci: int, co: int, hf: int, wf: int,
-                    stride: int = 1, machine: MachineModel = H100_SXM,
-                    cob: int | None = None, cib: int | None = None,
-                    hob: int | None = None, wob: int | None = None,
+                    stride: int, cob: int, cib: int,
+                    machine: MachineModel = H100_SXM,
                     gap: bool = False) -> Blocking:
-    """Pick (Cob, Cib, Hob, Wob, chunk) for a VALID conv over a padded
-    ``hi x wi`` input (the kernel masks the pads instead of copying).
+    """Pick (Hob, Wob, chunk) for a VALID conv over a padded ``hi x wi``
+    input (the kernel masks the pads instead of copying), with the channel
+    pencils ``cob``/``cib`` of the operands' layout.
 
-    ``cob``/``cib`` pin the channel pencils to the operands' layout (the
-    wrapper passes them); ``hob``/``wob`` pin a spatial tile, which must
-    divide ``Ho``/``Wo``.  The default tile is the whole map; it shrinks to
-    the largest row count that fits the register tile and shared memory,
-    then (at one row) to the largest column count.  ``chunk`` is then the
-    largest divisor of ``cib`` whose staging fits the budget.
+    The tile is the whole map if it fits the register tile and shared
+    memory; else the largest row count that divides ``Ho`` and fits; else
+    (at one row) the largest column count that divides ``Wo``.  ``chunk``
+    is then the largest divisor of ``cib`` whose staging fits the budget.
     """
     ho = (hi - hf) // stride + 1
     wo = (wi - wf) // stride + 1
     if ho <= 0 or wo <= 0:
         raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
-    cob = largest_divisor_leq(co, 128) if cob is None else cob
-    cib = largest_divisor_leq(ci, 128) if cib is None else cib
     if co % cob or ci % cib:
         raise ValueError(f"pencils cob={cob}/cib={cib} must divide "
                          f"co={co}/ci={ci}")
-    if hob is not None and (hob < 1 or ho % hob):
-        raise ValueError(f"hob={hob} must divide Ho={ho}")
-    if wob is not None and (wob < 1 or wo % wob):
-        raise ValueError(f"wob={wob} must divide Wo={wo}")
     cap = tile_positions(cob, machine)
 
     def fits(h: int, w: int, chunk: int = 1) -> bool:
@@ -115,22 +107,16 @@ def choose_blocking(hi: int, wi: int, ci: int, co: int, hf: int, wf: int,
                 and smem_bytes(h, w, chunk, cob, hf, wf, stride, machine,
                                gap) <= machine.smem_budget)
 
-    def largest_fitting(extent: int, pinned, fit) -> int | None:
-        if pinned is not None:
-            return pinned if fit(pinned) else None
+    def largest_fitting(extent: int, fit) -> int | None:
         return next((d for d in reversed(divisors(extent)) if fit(d)), None)
 
-    w_first = wo if wob is None else wob
-    h = largest_fitting(ho, hob, lambda d: fits(d, w_first))
-    if h is not None:
-        w = w_first
-    else:                               # one row still too wide: tile columns
-        h = 1 if hob is None else hob
-        w = largest_fitting(wo, wob, lambda d: fits(h, d))
+    h, w = largest_fitting(ho, lambda d: fits(d, wo)), wo
+    if h is None:                       # one row still too wide: tile columns
+        h, w = 1, largest_fitting(wo, lambda d: fits(1, d))
     if w is None:
         raise ValueError(
             f"no tile fits: filter {hf}x{wf}, stride {stride}, cob={cob} "
             f"needs more than {machine.smem_budget} bytes of shared memory "
-            f"or {cap} register-tile positions even at hob={h}, wob=1")
-    chunk = largest_fitting(cib, None, lambda c: fits(h, w, c))
+            f"or {cap} register-tile positions even at hob=1, wob=1")
+    chunk = largest_fitting(cib, lambda c: fits(h, w, c))
     return Blocking(cob=cob, cib=cib, hob=h, wob=w, chunk=chunk)

@@ -2,10 +2,11 @@
 
 These are the pieces of the reference's shared Pallas machinery
 (``repro/kernels/conv2d_common.py``) that carry arithmetic, written on
-tensors.  The plain version of the forward kernel
-(``core.direct_conv.direct_conv_blocked``) is built from them, and the CUDA
-kernel (``csrc/direct_conv2d_fwd.cu``) performs the same steps in the same
-order:
+tensors.  They live in ``core`` because the plain version of the forward
+kernel (``core.direct_conv.direct_conv_blocked``) and the blocking model
+(``core.blocking``) are built from them; ``kernels`` imports them from
+here.  The CUDA kernel (``csrc/direct_conv2d_fwd.cu``) performs the same
+steps in the same order:
 
 * ``halo_dims`` — input rows/cols feeding one ``hob x wob`` output tile;
 * ``tap_windows`` — one strided view per filter tap: the rows of the

@@ -19,12 +19,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.conv2d_common import (apply_activation, epilogue,
+                                            gap_finalize, gap_partials,
+                                            tap_windows)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import resolve_precision
-from repro_torch.kernels.conv2d_common import (apply_activation, epilogue,
-                                               gap_finalize, gap_partials,
-                                               tap_windows)
 
 __all__ = ["apply_activation", "pad_blocked", "bias_to_blocked",
            "direct_conv_blocked", "conv_spec"]

@@ -1,11 +1,10 @@
 """Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
 
-Each ``csrc/*.cu`` file has a plain C interface and becomes one shared
+Each ``csrc/<name>.cu`` file has a plain C interface and becomes one shared
 library, compiled for ``sm_90a`` at first use into ``src/repro_torch/build``
 (listed in ``.gitignore``).  A library's file name carries a hash of its
 source and flags, so an edited source is rebuilt and a stale one is never
-loaded.  All sources that need building are compiled in parallel, one
-``nvcc`` process each.  Nothing here runs at import time.
+loaded.  Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -53,38 +52,27 @@ def _target(src: Path) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
-def build() -> Dict[str, BuildResult]:
-    """Compile every ``csrc/*.cu`` whose library is missing, in parallel.
+def build(name: str) -> BuildResult:
+    """Compile ``csrc/<name>.cu`` unless its library is already built.
 
-    -> ``{stem: BuildResult}`` for every source.  Raises ``RuntimeError``
-    with nvcc's output when a compile fails."""
-    sources = sorted(CSRC.glob("*.cu"))
+    Raises ``RuntimeError`` with nvcc's output when the compile fails."""
+    src = CSRC / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(f"no CUDA source {src}")
+    target = _target(src)
+    if target.exists():
+        return BuildResult(name, target, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    results: Dict[str, BuildResult] = {}
-    jobs = []
-    for src in sources:
-        target = _target(src)
-        if target.exists():
-            results[src.stem] = BuildResult(src.stem, target, 0.0, "")
-            continue
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, target, tmp, proc, time.perf_counter()))
-    failures = []
-    for src, target, tmp, proc, t0 in jobs:
-        log, _ = proc.communicate()
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"{src.name}:\n{log}")
-            continue
-        os.replace(tmp, target)          # atomic: a reader never sees half
-        results[src.stem] = BuildResult(src.stem, target, seconds, log)
-    if failures:
-        raise RuntimeError("nvcc failed\n" + "\n".join(failures))
-    return results
+    tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}")
+    os.replace(tmp, target)              # atomic: a reader never sees half
+    return BuildResult(name, target, time.perf_counter() - t0, proc.stdout)
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -92,12 +80,5 @@ def library(name: str) -> ctypes.CDLL:
     use, once per process)."""
     lib = _loaded.get(name)
     if lib is None:
-        src = CSRC / f"{name}.cu"
-        if not src.exists():
-            raise FileNotFoundError(f"no CUDA source {src}")
-        target = _target(src)
-        if not target.exists():
-            build()
-        lib = ctypes.CDLL(str(target))
-        _loaded[name] = lib
+        lib = _loaded[name] = ctypes.CDLL(str(build(name).path))
     return lib

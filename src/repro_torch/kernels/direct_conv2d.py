@@ -10,8 +10,9 @@
   parameters of ``core.blocking.choose_blocking``, or raises.  There is no
   fallback from one to the other.
 
-The wrapper checks device, dtype (f32 in this slice), shapes and contiguity
-and raises on anything the kernel does not take.  This slice is inference
+The wrapper checks device, dtype (f32 in this slice), shapes, contiguity
+and the 16-byte alignment of the operands read with float4 loads, and
+raises on anything the kernel does not take.  This slice is inference
 only: on CUDA it refuses inputs that require grad while grad mode is on
 rather than return a result autograd cannot see through.
 
@@ -27,12 +28,12 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import conv2d_common
 from repro_torch.core.blocking import H100_SXM, choose_blocking, smem_bytes
 from repro_torch.core.direct_conv import conv_spec, direct_conv_blocked
 from repro_torch.core.errors import KernelLaunchError
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
-from repro_torch.kernels import conv2d_common
 from repro_torch.kernels._build import library
 
 __all__ = ["LAUNCHES", "reset_launches", "direct_conv2d_blocked",
@@ -87,7 +88,11 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _require(t: torch.Tensor, name: str, device: torch.device) -> None:
+def _require(t: torch.Tensor, name: str, device: torch.device,
+             vector_loads: bool = False) -> None:
+    """Raise on an operand the kernel cannot take.  ``vector_loads``: the
+    kernel reads it with float4 loads, so it must start on 16 bytes (a
+    contiguous view at an odd storage offset would fault on the card)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x is on {device}")
     if t.dtype != torch.float32:
@@ -96,6 +101,9 @@ def _require(t: torch.Tensor, name: str, device: torch.device) -> None:
             "operands (bf16 pencils are queued)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if vector_loads and t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary (the "
+                         "kernel reads it with float4 loads); pass a copy")
 
 
 def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
@@ -134,7 +142,7 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     operands = {"x": x, "w": w, "bias": bias, "residual": residual}
     for name, t in operands.items():
         if t is not None:
-            _require(t, name, x.device)
+            _require(t, name, x.device, vector_loads=name in ("x", "w"))
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands.values()):
         raise RuntimeError(

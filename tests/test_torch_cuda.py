@@ -81,3 +81,7 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         direct_conv2d_blocked(x.transpose(2, 3), w, b, 1, "SAME")
     with pytest.raises(ValueError, match="is on"):
         direct_conv2d_blocked(x, w, b.cpu(), 1, "SAME")
+    offset = torch.empty(x.numel() + 1, device=cuda)[1:].view_as(x)
+    offset.copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        direct_conv2d_blocked(offset, w, b, 1, "SAME")

@@ -11,10 +11,11 @@ import numpy as np  # noqa: E402
 
 from repro.core.direct_conv import direct_conv_blocked as jax_direct_conv  # noqa: E402
 from repro.kernels.direct_conv2d import direct_conv2d_blocked_pallas  # noqa: E402
+from repro_torch.core import conv2d_common  # noqa: E402
 from repro_torch.core.direct_conv import (bias_to_blocked,  # noqa: E402
                                           direct_conv_blocked, pad_blocked)
-from repro_torch.kernels import conv2d_common  # noqa: E402
 from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
+                                               _require,
                                                direct_conv2d_blocked,
                                                gap_finalize)
 
@@ -142,6 +143,19 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         direct_conv_blocked(x, wt, 1, "SAME", groups=2)
     with pytest.raises(NotImplementedError, match="kernel zoo"):
         direct_conv_blocked(x, wt, 1, "SAME", dilation=2)
+
+
+def test_float4_operands_must_be_16_byte_aligned():
+    # the CUDA path's operand check; a contiguous view one float into its
+    # storage is contiguous but would fault under the kernel's float4 loads
+    base = torch.zeros(4 * 8 + 4)
+    view = base[1:33].view(1, 1, 4, 1, 8)
+    assert view.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        _require(view, "x", view.device, vector_loads=True)
+    _require(view, "residual", view.device)           # scalar loads: fine
+    _require(base[4:].view(1, 1, 4, 1, 8), "x", view.device,
+             vector_loads=True)
 
 
 def test_bf16_policy_casts_operands_and_sums_in_f32():

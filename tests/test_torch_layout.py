@@ -134,13 +134,16 @@ def test_blocking_fits_the_cta(hi, ci, co, stride):
 
 
 def test_blocking_pins_and_misfit():
-    blk = blocking.choose_blocking(10, 10, 8, 8, 3, 3, hob=2, wob=4)
-    assert (blk.hob, blk.wob) == (2, 4)
+    # the operands' layout pins the pencils, which must divide the channels
+    blk = blocking.choose_blocking(10, 10, 8, 8, 3, 3, 1, cob=8, cib=8)
+    assert (blk.cob, blk.cib, blk.hob, blk.wob, blk.chunk) == (8, 8, 8, 8, 8)
     with pytest.raises(ValueError, match="must divide"):
-        blocking.choose_blocking(10, 10, 8, 8, 3, 3, hob=3)
+        blocking.choose_blocking(10, 10, 8, 8, 3, 3, 1, cob=3, cib=8)
     tiny = blocking.MachineModel("tiny", threads=32, lanes=8, positions=1,
                                  smem_budget=2048)
     with pytest.raises(ValueError, match="no tile fits"):
-        blocking.choose_blocking(10, 10, 8, 64, 3, 3, machine=tiny)
-    small = blocking.choose_blocking(34, 34, 8, 8, 3, 3, machine=tiny)
+        blocking.choose_blocking(10, 10, 8, 64, 3, 3, 1, cob=64, cib=8,
+                                 machine=tiny)
+    small = blocking.choose_blocking(34, 34, 8, 8, 3, 3, 1, cob=8, cib=8,
+                                     machine=tiny)
     assert (small.hob, small.wob) == (1, 32)
