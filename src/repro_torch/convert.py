@@ -1,4 +1,4 @@
-"""Parameters of the reference package -> parameters of the port.
+"""Parameters of the reference package <-> parameters of the port.
 
 The reference's ``BlockedCNN`` keeps its parameters as a tree
 ``{"conv{i}": {"w": [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob], "b": [Co/Cob,
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.core.device import resolve_device
 
-__all__ = ["params_from_jax"]
+__all__ = ["params_from_jax", "params_to_numpy"]
 
 
 def _tensor(leaf, device: torch.device) -> torch.Tensor:
@@ -40,3 +40,22 @@ def params_from_jax(tree: Mapping[str, Any],
         out[f"convs.{i}.b"] = _tensor(layer["b"], dev)
     out["head"] = _tensor(tree["head"], dev)
     return out
+
+
+def params_to_numpy(model: torch.nn.Module) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_jax`: a ``BlockedCNN``'s
+    parameters as the reference's tree of f32 numpy arrays."""
+    sd = model.state_dict()
+    n_convs = sum(1 for k in sd if k.startswith("convs.") and k.endswith(".w"))
+    if set(sd) != ({f"convs.{i}.{p}" for i in range(n_convs) for p in "wb"}
+                   | {"head"}):
+        raise ValueError(f"not a BlockedCNN state_dict: keys {sorted(sd)}")
+
+    def leaf(t: torch.Tensor) -> np.ndarray:
+        return t.detach().to("cpu", torch.float32).numpy().copy()
+
+    tree: Dict[str, Any] = {
+        f"conv{i}": {"w": leaf(sd[f"convs.{i}.w"]),
+                     "b": leaf(sd[f"convs.{i}.b"])} for i in range(n_convs)}
+    tree["head"] = leaf(sd["head"])
+    return tree

@@ -15,7 +15,14 @@ steps in the same order:
   all in f32, then **one** downcast;
 * ``gap_partials`` / ``gap_finalize`` — the global-average-pool rider: f32
   per-tile sums of the *stored* values, then the tiles summed in index
-  order and scaled by the f32 reciprocal of ``Ho*Wo``.
+  order and scaled by the f32 reciprocal of ``Ho*Wo``;
+* ``cotangent_prologue`` — the backward kernels' ``dz = g * act'(z)``
+  (``csrc/direct_conv2d_bwd.cu`` forms it as it stages ``g``);
+* ``blocked_global_avg_pool`` — the unfused GAP of a stored map, which the
+  training path applies after the activation, as the reference's custom VJP
+  leaves it to XLA;
+* ``wgrad_reduce`` — the wgrad kernel's second pass: its per-split partial
+  sums added in split order.
 """
 from __future__ import annotations
 
@@ -26,7 +33,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ACTIVATIONS", "apply_activation", "halo_dims", "tap_windows",
-           "epilogue", "gap_partials", "gap_finalize"]
+           "epilogue", "gap_partials", "gap_finalize", "cotangent_prologue",
+           "blocked_global_avg_pool", "wgrad_reduce"]
 
 # Epilogue activations.  "gelu" is the reference's ``jax.nn.gelu``, whose
 # default is the tanh approximation; the CUDA epilogue uses the same formula.
@@ -104,3 +112,48 @@ def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
         acc = acc + partials[:, :, t]
     inv_hw = float(np.float32(1.0) / np.float32(hw))
     return (acc * inv_hw).reshape(n, coblk * cob)
+
+
+def cotangent_prologue(g: torch.Tensor, z: Optional[torch.Tensor],
+                       activation: Optional[str]) -> torch.Tensor:
+    """``dz = g * act'(z)`` on a cotangent ``g`` and the saved
+    pre-activation ``z`` of the same shape, in f32 (f64 for f64 operands),
+    returned at ``g``'s dtype.  relu' is 1 where ``z > 0``, 0 where
+    ``z < 0`` and 1/2 at 0, as the VJP of the reference's relu
+    (``jnp.maximum(z, 0)``) splits the tie; gelu is the tanh form, whose
+    derivative is written out the way the CUDA kernel computes it.  Linear,
+    or no ``z``, returns ``g`` unchanged."""
+    if z is None or activation in (None, "linear"):
+        return g
+    dt = torch.promote_types(z.dtype, torch.float32)
+    zf, gf = z.to(dt), g.to(dt)
+    if activation == "relu":
+        dz = torch.where(zf > 0, gf, torch.where(zf == 0, 0.5 * gf,
+                                                 torch.zeros_like(gf)))
+    elif activation == "gelu":
+        k, a = 0.7978845608028654, 0.044715          # sqrt(2 / pi)
+        z2 = zf * zf
+        t = torch.tanh(k * (zf + a * z2 * zf))
+        dz = gf * (0.5 * (1.0 + t)
+                   + 0.5 * zf * (1.0 - t * t) * k * (1.0 + 3.0 * a * z2))
+    else:
+        raise ValueError(f"unknown activation {activation!r}; "
+                         f"have {sorted(k for k in ACTIVATIONS if k)}")
+    return dz.to(g.dtype)
+
+
+def blocked_global_avg_pool(xb: torch.Tensor) -> torch.Tensor:
+    """GAP on the blocked layout: ``[N, C/Cb, H, W, Cb] -> [N, C]``, the
+    mean taken in f32 (f64 for f64 maps) and returned at the map's dtype."""
+    n, cblk, _, _, cb = xb.shape
+    acc = torch.promote_types(xb.dtype, torch.float32)
+    return xb.to(acc).mean(dim=(2, 3)).reshape(n, cblk * cb).to(xb.dtype)
+
+
+def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
+    """``[splits, cols]`` partial sums of the wgrad kernel -> ``[cols]``:
+    the rows summed in index order."""
+    acc = partials[0]
+    for k in range(1, partials.shape[0]):
+        acc = acc + partials[k]
+    return acc

@@ -8,6 +8,14 @@ activation, residual, one downcast) and the optional GAP rider.  The CPU
 path of every layer runs it, and ``chip_smoke.py`` holds the CUDA kernel
 against it on the card.
 
+``direct_conv_dgrad_blocked`` and ``direct_conv_wgrad_blocked`` are the
+plain versions of the two backward kernels: the transposes of that tap
+loop (what ``jax.vjp`` of the reference gives), tap by tap, with the
+``dz = g * act'(z)`` prologue and ``db``.  They accumulate in f32, or in
+f64 for f64 operands, so that the CPU can check gradients numerically and
+``chip_smoke.py`` can hold the wgrad kernel's long sums against f64.
+They pad and crop copies freely: they are references, not the main path.
+
 Only dense geometry is served in this slice: grouped, dilated and
 depthwise-lane convolutions raise ``NotImplementedError`` naming the kernel
 zoo slice that brings them.
@@ -19,7 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.conv2d_common import (apply_activation, epilogue,
+from repro_torch.core.blocking import dgrad_extents
+from repro_torch.core.conv2d_common import (apply_activation,
+                                            cotangent_prologue, epilogue,
                                             gap_finalize, gap_partials,
                                             tap_windows)
 from repro_torch.core.convspec import ConvSpec
@@ -27,7 +37,9 @@ from repro_torch.core.padding import Padding
 from repro_torch.core.precision import resolve_precision
 
 __all__ = ["apply_activation", "pad_blocked", "bias_to_blocked",
-           "direct_conv_blocked", "conv_spec"]
+           "direct_conv_blocked", "direct_conv_preactivation",
+           "direct_conv_dgrad_blocked", "direct_conv_wgrad_blocked",
+           "conv_spec", "backward_spec"]
 
 
 def pad_blocked(x: torch.Tensor, ph, pw) -> torch.Tensor:
@@ -73,6 +85,29 @@ def conv_spec(x: torch.Tensor, w: torch.Tensor, stride: int,
     return spec
 
 
+def _acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
+    dt = torch.float32
+    for t in tensors:
+        dt = torch.promote_types(dt, t.dtype)
+    return dt
+
+
+def _accumulate(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
+                dtype: torch.dtype) -> torch.Tensor:
+    """``sum_taps x_win @ w[tap]`` in ``dtype`` -> ``[N, Co/Cob, Ho, Wo,
+    Cob]``."""
+    xp = pad_blocked(x, *spec.pads).to(dtype)
+    wd = w.to(dtype)
+    acc = None
+    for (dh, dw), win in tap_windows(xp, spec.hf, spec.wf, spec.ho, spec.wo,
+                                     spec.stride):
+        # [N, Ci/Cib, Ho, Wo, Cib] x [Co/Cob, Ci/Cib, Cib, Cob]
+        #   -> [N, Co/Cob, Ho, Wo, Cob]
+        term = torch.einsum("nchwb,ocbk->nohwk", win, wd[:, :, dh, dw])
+        acc = term if acc is None else acc + term
+    return acc
+
+
 def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                         padding: Padding = "VALID",
                         bias: Optional[torch.Tensor] = None,
@@ -99,18 +134,105 @@ def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
         if residual is not None:
             residual = residual.to(op)
     out_dtype = x.dtype
-    xp = pad_blocked(x, *spec.pads).to(torch.float32)
-    w32 = w.to(torch.float32)
-    acc = None
-    for (dh, dw), win in tap_windows(xp, spec.hf, spec.wf, spec.ho, spec.wo,
-                                     spec.stride):
-        # [N, Ci/Cib, Ho, Wo, Cib] x [Co/Cob, Ci/Cib, Cib, Cob]
-        #   -> [N, Co/Cob, Ho, Wo, Cob]
-        term = torch.einsum("nchwb,ocbk->nohwk", win, w32[:, :, dh, dw])
-        acc = term if acc is None else acc + term
+    acc = _accumulate(x, w, spec, torch.float32)
     out = epilogue(acc, bias, activation, residual, out_dtype)
     if gap:
         pooled = gap_finalize(gap_partials(out, spec.ho, spec.wo),
                               spec.ho * spec.wo)
         return pooled.to(out_dtype)
     return out
+
+
+def direct_conv_preactivation(x: torch.Tensor, w: torch.Tensor,
+                              stride: int = 1, padding: Padding = "VALID",
+                              bias: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """The training forward's ``z = conv(x, w) + b``, the forward kernel's
+    plain version with a linear epilogue, accumulated in f32 (f64 for f64
+    operands) and returned in that dtype."""
+    spec = conv_spec(x, w, stride, padding)
+    dt = _acc_dtype(x, w)
+    z = _accumulate(x, w, spec, dt)
+    if bias is not None:
+        z = z + bias.to(dt)[None, :, None, None, :]
+    return z
+
+
+def backward_spec(n: int, hi: int, wi: int, w_shape, stride: int,
+                  padding: Padding, g: torch.Tensor,
+                  z: Optional[torch.Tensor]) -> ConvSpec:
+    """The forward's geometry for weights of ``w_shape`` over an ``hi x wi``
+    input, checked against the cotangent ``g`` (and the saved
+    pre-activation ``z``) that the backward is handed."""
+    coblk, ciblk, hf, wf, cib, cob = w_shape
+    spec = ConvSpec.make(n, hi, wi, ciblk * cib, coblk * cob, hf, wf,
+                         stride=stride, padding=padding)
+    want = (n, coblk, spec.ho, spec.wo, cob)
+    if g.dim() != 5 or tuple(g.shape) != want:
+        raise ValueError(f"cotangent shape {tuple(g.shape)} != the forward's "
+                         f"output {want}")
+    if z is not None and tuple(z.shape) != want:
+        raise ValueError(f"pre-activation shape {tuple(z.shape)} != {want}")
+    return spec
+
+
+def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
+                              input_hw, stride: int = 1,
+                              padding: Padding = "VALID",
+                              z: Optional[torch.Tensor] = None,
+                              activation: Optional[str] = None
+                              ) -> torch.Tensor:
+    """Input gradient of ``act(conv(x, w) + b)`` given the raw cotangent
+    ``g [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (None
+    when the activation is linear) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi,
+    Cib]`` at the unpadded ``input_hw``.
+
+    ``dz = g * act'(z)``; every tap adds ``dz @ w[tap]^T`` into the padded
+    input rows it read (a strided view), over the dgrad extents; the pads
+    are then cropped, and rows past the extents stay zero.
+    """
+    hi, wi = input_hw
+    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
+    dt = _acc_dtype(g, w)
+    dz = cotangent_prologue(g, z, activation).to(dt)
+    wd = w.to(dt)
+    eh, ew = dgrad_extents(spec.ho, spec.wo, spec.hf, spec.wf, spec.stride)
+    n, ciblk, cib = g.shape[0], w.shape[1], w.shape[4]
+    dxp = torch.zeros((n, ciblk, eh, ew, cib), dtype=dt, device=g.device)
+    for (dh, dw), win in tap_windows(dxp, spec.hf, spec.wf, spec.ho, spec.wo,
+                                     spec.stride):
+        # [N, Co/Cob, Ho, Wo, Cob] x [Co/Cob, Ci/Cib, Cib, Cob]
+        #   -> [N, Ci/Cib, Ho, Wo, Cib], into the view of dxp
+        win.add_(torch.einsum("nohwk,ocbk->nchwb", dz, wd[:, :, dh, dw]))
+    (pt, pb), (pl, pr) = spec.pads
+    dxp = pad_blocked(dxp, (0, spec.padded_hi - eh), (0, spec.padded_wi - ew))
+    return dxp[:, :, pt:pt + hi, pl:pl + wi, :].to(g.dtype)
+
+
+def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
+                              wf: int, stride: int = 1,
+                              padding: Padding = "VALID",
+                              z: Optional[torch.Tensor] = None,
+                              activation: Optional[str] = None,
+                              with_db: bool = False):
+    """Weight (and bias) gradient of ``act(conv(x, w) + b)`` given the
+    forward's unpadded input ``x``, the raw cotangent ``g`` and the saved
+    pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob],
+    db [Co/Cob, Cob] or None)``, both f32 (f64 for f64 operands).
+
+    ``dz = g * act'(z)``; each tap's block is ``x_win^T @ dz`` contracted
+    over ``(N, Ho, Wo)``; ``db`` sums ``dz`` over the same positions.
+    """
+    n, ciblk, hi, wi, cib = x.shape
+    coblk, cob = g.shape[1], g.shape[4]
+    w_shape = (coblk, ciblk, hf, wf, cib, cob)
+    spec = backward_spec(n, hi, wi, w_shape, stride, padding, g, z)
+    dt = _acc_dtype(x, g)
+    dz = cotangent_prologue(g, z, activation).to(dt)
+    xp = pad_blocked(x, *spec.pads).to(dt)
+    dw = torch.empty(w_shape, dtype=dt, device=x.device)
+    for (dh, dwi), win in tap_windows(xp, hf, wf, spec.ho, spec.wo,
+                                      spec.stride):
+        dw[:, :, dh, dwi] = torch.einsum("nchwb,nohwk->ocbk", win, dz)
+    db = dz.sum(dim=(0, 2, 3)) if with_db else None
+    return dw, db

@@ -1,20 +1,29 @@
-"""Wrapper of the CUDA forward kernel of the blocked direct convolution.
+"""Wrappers of the CUDA kernels of the blocked direct convolution, and its
+autograd.
 
 ``direct_conv2d_blocked`` is the port of the reference's
-``direct_conv2d_blocked_pallas`` forward (``_fwd_kernel``,
-``repro/kernels/direct_conv2d.py:102``):
+``direct_conv2d_blocked_pallas`` (``repro/kernels/direct_conv2d.py``):
 
-* a CPU tensor runs the plain PyTorch version
-  (``core.direct_conv.direct_conv_blocked``);
-* a CUDA tensor launches ``csrc/direct_conv2d_fwd.cu`` with the launch
-  parameters of ``core.blocking.choose_blocking``, or raises.  There is no
-  fallback from one to the other.
+* under ``torch.no_grad``/``inference_mode``, or when no operand requires
+  grad, it runs the fused inference kernel (``_fwd_kernel``, ``:102``):
+  ``csrc/direct_conv2d_fwd.cu`` on a CUDA tensor, the plain PyTorch version
+  (``core.direct_conv.direct_conv_blocked``) on a CPU tensor;
+* with grad mode on and an operand that requires grad it enters
+  ``DirectConv2dFunction``, the counterpart of the reference's custom VJP
+  (``_conv``/``_conv_fwd``/``_conv_bwd``, ``:655-790``).  Its forward runs
+  the forward kernel with a linear epilogue to get the pre-activation ``z``
+  and applies the activation, the residual and the GAP in f32 torch ops, as
+  the reference leaves them to XLA; its backward runs
+  ``direct_conv2d_dgrad`` (``_dgrad_kernel``, ``:138``) and
+  ``direct_conv2d_wgrad`` (``_wgrad_kernel``, ``:175``) from
+  ``csrc/direct_conv2d_bwd.cu`` with the ``dz = g * act'(z)`` prologue and
+  ``db``.  It saves ``x`` itself (unpadded, no copy), ``w`` and, unless the
+  activation is linear, ``z``.
 
-The wrapper checks device, dtype (f32 in this slice), shapes, contiguity
-and the 16-byte alignment of the operands read with float4 loads, and
-raises on anything the kernel does not take.  This slice is inference
-only: on CUDA it refuses inputs that require grad while grad mode is on
-rather than return a result autograd cannot see through.
+Every wrapper takes its plain version only because the tensor lies on the
+CPU; a CUDA tensor launches the kernel or raises.  There is no fallback.
+The wrappers check device, dtype (f32 on the card in this slice), shapes,
+contiguity and the 16-byte alignment of operands read with float4 loads.
 
 ``LAUNCHES`` counts the kernels launched (a plain integer per kernel, bumped
 where the launch happens and nowhere else), so a run can show that it went
@@ -23,23 +32,35 @@ through them; ``reset_launches`` sets them to 0.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import conv2d_common
-from repro_torch.core.blocking import H100_SXM, choose_blocking, smem_bytes
-from repro_torch.core.direct_conv import conv_spec, direct_conv_blocked
+from repro_torch.core.blocking import (H100_SXM, choose_blocking,
+                                       choose_dgrad_blocking,
+                                       choose_wgrad_blocking,
+                                       dgrad_smem_bytes, smem_bytes,
+                                       wgrad_smem_bytes)
+from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.direct_conv import (backward_spec, conv_spec,
+                                          direct_conv_blocked,
+                                          direct_conv_dgrad_blocked,
+                                          direct_conv_preactivation,
+                                          direct_conv_wgrad_blocked)
 from repro_torch.core.errors import KernelLaunchError
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels._build import library
 
 __all__ = ["LAUNCHES", "reset_launches", "direct_conv2d_blocked",
-           "gap_finalize"]
+           "gap_finalize", "direct_conv2d_dgrad", "direct_conv2d_wgrad",
+           "wgrad_partials", "wgrad_reduce", "DirectConv2dFunction"]
 
-LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0}
+LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
+            "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
+            "wgrad_reduce": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -50,31 +71,53 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    """The built kernel library with its C signatures declared; checks that
-    its register-tile geometry is the one the blocking model assumes."""
-    lib = library("direct_conv2d_fwd")
-    if lib.direct_conv2d_fwd.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.direct_conv2d_fwd.argtypes = [ptr] * 6 + [i32] * 19 + [ptr]
-        lib.direct_conv2d_fwd.restype = i32
-        lib.gap_finalize.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float,
-                                     ptr]
-        lib.gap_finalize.restype = i32
+def _library(name: str, declare) -> ctypes.CDLL:
+    """The built library ``name`` with its C signatures declared by
+    ``declare(lib)`` on first use; checks that its register-tile geometry
+    is the one the blocking model assumes."""
+    lib = library(name)
+    geometry = getattr(lib, f"{name}_geometry")
+    if geometry.argtypes is None:
+        i32 = ctypes.c_int
+        declare(lib, ctypes.c_void_p, i32)
         lib.cuda_error_name.argtypes = [i32]
         lib.cuda_error_name.restype = ctypes.c_char_p
-        lib.direct_conv2d_fwd_geometry.argtypes = [ctypes.POINTER(i32)] * 3
-        lib.direct_conv2d_fwd_geometry.restype = None
+        geometry.argtypes = [ctypes.POINTER(i32)] * 3
+        geometry.restype = None
         geo = [i32(), i32(), i32()]
-        lib.direct_conv2d_fwd_geometry(*(ctypes.byref(g) for g in geo))
+        geometry(*(ctypes.byref(g) for g in geo))
         m = H100_SXM
         built = tuple(g.value for g in geo)
         if built != (m.threads, m.lanes, m.positions):
             raise RuntimeError(
-                f"kernel register tile (threads, lanes, positions)={built} "
-                f"differs from the blocking model's "
+                f"{name}: kernel register tile (threads, lanes, positions)="
+                f"{built} differs from the blocking model's "
                 f"{(m.threads, m.lanes, m.positions)}")
     return lib
+
+
+def _declare_fwd(lib, ptr, i32) -> None:
+    lib.direct_conv2d_fwd.argtypes = [ptr] * 6 + [i32] * 19 + [ptr]
+    lib.direct_conv2d_fwd.restype = i32
+    lib.gap_finalize.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
+    lib.gap_finalize.restype = i32
+
+
+def _declare_bwd(lib, ptr, i32) -> None:
+    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
+    lib.direct_conv2d_dgrad.restype = i32
+    lib.direct_conv2d_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
+    lib.direct_conv2d_wgrad.restype = i32
+    lib.wgrad_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32, ptr]
+    lib.wgrad_reduce.restype = i32
+
+
+def _lib() -> ctypes.CDLL:
+    return _library("direct_conv2d_fwd", _declare_fwd)
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    return _library("direct_conv2d_bwd", _declare_bwd)
 
 
 def _check(err: int, lib: ctypes.CDLL, name: str) -> None:
@@ -106,24 +149,42 @@ def _require(t: torch.Tensor, name: str, device: torch.device,
                          "kernel reads it with float4 loads); pass a copy")
 
 
+def _check_activation(activation: Optional[str]) -> None:
+    if activation not in _ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}; "
+                         f"have {sorted(k for k in _ACT_CODES if k)}")
+
+
+def _cuda_device(t: torch.Tensor) -> torch.device:
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return t.device
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
 def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           stride: int = 1, padding: Padding = "VALID",
                           activation: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
                           gap: bool = False, precision=F32) -> torch.Tensor:
-    """Blocked direct convolution with the fused epilogue.
+    """Blocked direct convolution with the fused epilogue, differentiable.
 
     x: ``[N, Ci/Cib, Hi, Wi, Cib]``; w: ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
     Cob]``; bias: ``[Co/Cob, Cob]`` or None; residual: ``[N, Co/Cob, Ho,
     Wo, Cob]`` or None, added after the activation -> the output map, or
     with ``gap=True`` the pooled ``[N, Co]`` features.  ``padding`` is
     TF-SAME aware; on CUDA the pads are masked loads, never a padded copy.
+
+    With grad mode on and an operand that requires grad the call goes
+    through ``DirectConv2dFunction`` (the training path, f32 policy only);
+    otherwise it runs the fused inference kernel.
     """
     spec = conv_spec(x, w, stride, padding)
-    if activation not in _ACT_CODES:
-        raise ValueError(f"unknown activation {activation!r}; "
-                         f"have {sorted(k for k in _ACT_CODES if k)}")
+    _check_activation(activation)
     n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
     if bias is not None and tuple(bias.shape) != (coblk, cob):
         raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
@@ -131,24 +192,34 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     if residual is not None and tuple(residual.shape) != out_shape:
         raise ValueError(f"residual shape {tuple(residual.shape)} != "
                          f"output shape {out_shape}")
+    operands = (x, w, bias, residual)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in operands):
+        if resolve_precision(precision).op_dtype != torch.float32:
+            raise NotImplementedError(
+                "the training path runs the f32 policy only (bf16 arrives "
+                "with the bf16 kernels)")
+        return DirectConv2dFunction.apply(x, w, bias, residual, spec,
+                                          activation, gap)
     if x.device.type == "cpu":
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, residual=residual, gap=gap)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
     if resolve_precision(precision).op_dtype != torch.float32:
         raise NotImplementedError(
             "the CUDA kernel of this slice runs the f32 policy only")
+    return _fwd_cuda(x, w, bias, residual, spec, activation, gap)
+
+
+def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+              residual: Optional[torch.Tensor], spec: ConvSpec,
+              activation: Optional[str], gap: bool) -> torch.Tensor:
+    """Launch the forward kernel on CUDA operands."""
+    dev = _cuda_device(x)
     operands = {"x": x, "w": w, "bias": bias, "residual": residual}
     for name, t in operands.items():
         if t is not None:
-            _require(t, name, x.device, vector_loads=name in ("x", "w"))
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in operands.values()):
-        raise RuntimeError(
-            "direct_conv2d_blocked on CUDA is inference-only in this slice: "
-            "call it under torch.no_grad() (the autograd path arrives with "
-            "the training slice)")
+            _require(t, name, dev, vector_loads=name in ("x", "w"))
+    n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
     if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
 
@@ -158,12 +229,13 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     smem = smem_bytes(blk.hob, blk.wob, blk.chunk, cob, spec.hf, spec.wf,
                       spec.stride, H100_SXM, gap)
     n_tiles = (spec.ho // blk.hob) * (spec.wo // blk.wob)
-    out = torch.empty(out_shape, device=x.device, dtype=torch.float32)
-    partials = (torch.empty((n, coblk, n_tiles, cob), device=x.device,
+    out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
+                      dtype=torch.float32)
+    partials = (torch.empty((n, coblk, n_tiles, cob), device=dev,
                             dtype=torch.float32) if gap else None)
     lib = _lib()
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
         err = lib.direct_conv2d_fwd(
             _ptr(x), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
             _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], x.shape[4],
@@ -198,3 +270,209 @@ def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
         LAUNCHES["gap_finalize"] += 1
     _check(err, lib, "gap_finalize")
     return pooled
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _backward_operands(g: torch.Tensor, z: Optional[torch.Tensor],
+                       activation: Optional[str]) -> None:
+    _check_activation(activation)
+    if g.dim() != 5:
+        raise ValueError(f"expected a cotangent [N, Co/Cob, Ho, Wo, Cob], got "
+                         f"{tuple(g.shape)}")
+    if z is None and activation not in (None, "linear"):
+        raise ValueError(f"activation {activation!r} needs the saved "
+                         "pre-activation z")
+
+
+def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
+                        input_hw: Tuple[int, int], stride: int = 1,
+                        padding: Padding = "VALID",
+                        z: Optional[torch.Tensor] = None,
+                        activation: Optional[str] = None) -> torch.Tensor:
+    """Input gradient of ``act(conv(x, w) + b)``: the raw cotangent ``g
+    [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (same shape;
+    None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
+    at the unpadded ``input_hw``, with ``dz = g * act'(z)`` formed as ``g``
+    is staged.  ``stride``/``padding`` are the forward's."""
+    _backward_operands(g, z, activation)
+    hi, wi = input_hw
+    if g.device.type == "cpu":
+        return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
+                                         activation)
+    dev = _cuda_device(g)
+    n, coblk, ho, wo, cob = g.shape
+    _, ciblk, hf, wf, cib, _ = w.shape
+    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
+    _require(g, "g", dev, vector_loads=True)
+    _require(w, "w", dev)
+    if z is not None:
+        _require(z, "z", dev, vector_loads=True)
+    if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
+    blk = choose_dgrad_blocking(hi, wi, hf, wf, stride, cib, cob)
+    smem = dgrad_smem_bytes(blk.hob, blk.wob, blk.chunk, cib, hf, wf, stride)
+    dx = torch.empty((n, ciblk, hi, wi, cib), device=dev, dtype=torch.float32)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.direct_conv2d_dgrad(
+            _ptr(g), _ptr(z), _ptr(w), _ptr(dx), n, coblk, cob, ho, wo, ciblk,
+            cib, hi, wi, hf, wf, stride, spec.pads[0][0], spec.pads[1][0],
+            blk.hob, blk.wob, blk.hwin, blk.wwin, blk.chunk, blk.ldw,
+            _ACT_CODES[activation], smem, stream)
+        LAUNCHES["direct_conv2d_dgrad"] += 1
+    _check(err, lib, "direct_conv2d_dgrad")
+    return dx
+
+
+def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
+                        stride: int = 1, padding: Padding = "VALID",
+                        z: Optional[torch.Tensor] = None,
+                        activation: Optional[str] = None,
+                        with_db: bool = False):
+    """Weight (and bias) gradient of ``act(conv(x, w) + b)``: the forward's
+    unpadded input ``x``, the raw cotangent ``g`` and the saved
+    pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
+    db [Co/Cob, Cob] f32 or None)``.
+
+    On CUDA the wgrad kernel (``wgrad_partials``) writes one partial sum per
+    position share into a ``[splits, |dw| + |db|]`` f32 workspace
+    (``torch.empty``) and ``wgrad_reduce`` adds the shares in order; no
+    atomics, so two runs give identical bits."""
+    _backward_operands(g, z, activation)
+    if x.device.type == "cpu":
+        return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
+                                         activation, with_db)
+    ws = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
+                        with_db)
+    out = wgrad_reduce(ws)
+    coblk, cob, ciblk, cib = g.shape[1], g.shape[4], x.shape[1], x.shape[4]
+    dw_shape = (coblk, ciblk, hf, wf, cib, cob)
+    dw_size = coblk * ciblk * hf * wf * cib * cob
+    dw = out[:dw_size].view(dw_shape)
+    db = out[dw_size:].view(coblk, cob) if with_db else None
+    return dw, db
+
+
+def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
+                   stride: int = 1, padding: Padding = "VALID",
+                   z: Optional[torch.Tensor] = None,
+                   activation: Optional[str] = None,
+                   with_db: bool = False) -> torch.Tensor:
+    """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
+    ``[splits, |dw| + |db|]`` of per-share partial sums (``splits`` from
+    ``choose_wgrad_blocking``), each row laid out as ``dw`` then ``db``."""
+    _backward_operands(g, z, activation)
+    dev = _cuda_device(x)
+    n, ciblk, hi, wi, cib = x.shape
+    _, coblk, ho, wo, cob = g.shape
+    spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
+                         padding, g, z)
+    _require(x, "x", dev, vector_loads=True)
+    _require(g, "g", dev, vector_loads=True)
+    if z is not None:
+        _require(z, "z", dev, vector_loads=True)
+    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
+    blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                                cob)
+    smem = wgrad_smem_bytes(blk.hob, blk.wob, cib, cob, hf, wf, stride)
+    cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
+                                                  else 0)
+    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.direct_conv2d_wgrad(
+            _ptr(x), _ptr(g), _ptr(z), _ptr(ws), n, ciblk, hi, wi, cib, coblk,
+            cob, ho, wo, hf, wf, stride, spec.pads[0][0], spec.pads[1][0],
+            blk.hob, blk.wob, blk.taps, blk.tap_groups, blk.splits,
+            _ACT_CODES[activation], int(with_db), smem, stream)
+        LAUNCHES["direct_conv2d_wgrad"] += 1
+    _check(err, lib, "direct_conv2d_wgrad")
+    return ws
+
+
+def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
+    """``[splits, cols]`` f32 partial sums -> ``[cols]``, the rows added in
+    index order (the wgrad kernel's second pass)."""
+    if partials.dim() != 2:
+        raise ValueError(f"partials must be [splits, cols], got "
+                         f"{tuple(partials.shape)}")
+    if partials.device.type == "cpu":
+        return conv2d_common.wgrad_reduce(partials)
+    dev = _cuda_device(partials)
+    _require(partials, "partials", dev)
+    splits, cols = partials.shape
+    out = torch.empty((cols,), device=dev, dtype=torch.float32)
+    lib = _bwd_lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.wgrad_reduce(_ptr(partials), _ptr(out), cols, splits,
+                               stream)
+        LAUNCHES["wgrad_reduce"] += 1
+    _check(err, lib, "wgrad_reduce")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# autograd: the reference's custom VJP
+# ---------------------------------------------------------------------------
+
+class DirectConv2dFunction(torch.autograd.Function):
+    """``act(conv(x, w) + b) + r`` (pooled with ``gap``) with the backward
+    kernels as its VJP.
+
+    Forward: the forward kernel with a linear epilogue gives ``z``; the
+    activation, the residual add and the GAP (the mean of the map) follow
+    in f32 torch ops.  Saved: ``x`` (unpadded; the reference saves its
+    padded copy), ``w`` and ``z`` unless the activation is linear.
+    Backward: with GAP the pooled cotangent is spread over the map divided
+    by ``Ho * Wo``; ``dres = g``; dgrad (skipped when ``x`` needs no grad,
+    as for the images at the first layer) and wgrad take the raw ``g`` and
+    ``z`` and form ``dz = g * act'(z)`` themselves; ``db`` comes from the
+    wgrad pass.  On CPU tensors the wrappers run their plain versions, in
+    the operands' dtype when that is wider than f32, so gradcheck can run
+    in f64."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, residual, spec: ConvSpec,
+                activation: Optional[str], gap: bool):
+        if x.device.type == "cpu":
+            z = direct_conv_preactivation(x, w, spec.stride, spec.pads, bias)
+        else:
+            z = _fwd_cuda(x, w, bias, None, spec, None, False)
+        linear = activation in (None, "linear")
+        out = z if linear else conv2d_common.apply_activation(z, activation)
+        if residual is not None:
+            out = out + residual
+        if gap:
+            out = conv2d_common.blocked_global_avg_pool(out)
+        ctx.save_for_backward(x, w, None if linear else z)
+        ctx.spec, ctx.activation, ctx.gap = spec, activation, gap
+        ctx.has_bias = bias is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, z = ctx.saved_tensors
+        spec = ctx.spec
+        if ctx.gap:
+            n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
+            g = (g.reshape(n, coblk, 1, 1, cob) / (spec.ho * spec.wo)).expand(
+                n, coblk, spec.ho, spec.wo, cob)
+        g = g.contiguous()
+        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
+        dx = dw = db = None
+        if need_x:
+            dx = direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
+                                     spec.pads, z, ctx.activation)
+        if need_w or need_b:
+            dw, db = direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
+                                         spec.pads, z, ctx.activation,
+                                         with_db=ctx.has_bias)
+        return (dx, dw if need_w else None, db if need_b else None,
+                g if need_r else None, None, None, None)

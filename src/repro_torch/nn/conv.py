@@ -5,13 +5,15 @@
 weights are stored in the paper's kernel layout ``[Co/Cob, Ci/Cib, Hf, Wf,
 Cib, Cob]`` and its bias as pencils ``[Co/Cob, Cob]``; bias, activation,
 residual and GAP are fused into the kernel's epilogue.  Each call goes
-straight to ``kernels.direct_conv2d.direct_conv2d_blocked``: the CUDA kernel
-for tensors on the GPU, the plain version for tensors on the CPU.  The
-reference's dispatcher (``repro/nn/conv.py:251-312``) is not ported in this
-slice; dense convs are the only geometry served.
+straight to ``kernels.direct_conv2d.direct_conv2d_blocked``: the CUDA kernels
+for tensors on the GPU, the plain versions for tensors on the CPU.  The
+reference's dispatcher (``repro/nn/conv.py:251-312``) is not ported yet;
+dense convs are the only geometry.
 
-This slice serves, it does not train: parameters are created with
-``requires_grad=False``.  The training slice brings the autograd path.
+Parameters are trainable.  With grad mode on, a call goes through the
+autograd path (forward kernel, then the dgrad and wgrad kernels in the
+backward); under ``torch.no_grad``/``inference_mode``, as the server runs
+it, through the fused inference kernel.
 """
 from __future__ import annotations
 
@@ -21,21 +23,18 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from repro_torch.core.conv2d_common import blocked_global_avg_pool
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedConvLayout, nhwc_to_blocked
 from repro_torch.core.padding import Padding
 from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
 from repro_torch.nn.module import ParamSpec, init_tree
 
-__all__ = ["BlockedConv2D", "BlockedCNN"]
+__all__ = ["BlockedConv2D", "BlockedCNN", "blocked_global_avg_pool"]
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
     return generator if generator is not None else torch.Generator().manual_seed(0)
-
-
-def _frozen(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)
 
 
 class BlockedConv2D(nn.Module):
@@ -46,17 +45,19 @@ class BlockedConv2D(nn.Module):
 
     def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
                  stride: int = 1, padding: Padding = "SAME",
-                 activation: Optional[str] = "relu", *,
+                 activation: Optional[str] = "relu", *, lane: int = 128,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
+        """``lane`` is the channel-pencil target (the reference's ``lane``):
+        128 for real widths, smaller for toy nets."""
         super().__init__()
         self.ci, self.co, self.hf, self.wf = ci, co, hf, wf
         self.stride, self.padding, self.activation = stride, padding, activation
-        self.layout = BlockedConvLayout.choose(ci, co)
+        self.layout = BlockedConvLayout.choose(ci, co, lane)
         params = init_tree(self.specs(), _generator(generator),
                            resolve_device(device))
-        self.w = _frozen(params["w"])
-        self.b = _frozen(params["b"])
+        self.w = nn.Parameter(params["w"])
+        self.b = nn.Parameter(params["b"])
 
     @property
     def in_pencil(self) -> int:
@@ -117,7 +118,7 @@ class BlockedCNN(nn.Module):
         self.n_classes = n_classes
         head = init_tree(ParamSpec((convs[-1].co, n_classes)),
                          _generator(generator), dev)
-        self.head = _frozen(head)
+        self.head = nn.Parameter(head)
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """``[N, H, W, C]`` images -> ``[N, n_classes]`` logits."""

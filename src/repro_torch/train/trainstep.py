@@ -1,0 +1,78 @@
+"""The train step of a ``BlockedCNN``, the port of the ``BlockedCNN`` branch
+of ``repro/train/trainstep.py`` (``make_loss_fn``, ``make_train_step``).
+
+The loss is the f32 cross-entropy of the class logits.  Gradients come from
+autograd, which runs every conv's backward through the dgrad and wgrad
+kernels on the card (``kernels.direct_conv2d.DirectConv2dFunction``) and
+through their plain versions on the CPU.  With ``accum_steps > 1`` the batch
+is split along dim 0 into microbatches whose gradients are averaged, as the
+reference's ``lax.scan`` does.
+"""
+from __future__ import annotations
+
+from typing import Callable, Dict, Mapping, Tuple
+
+import torch
+
+from repro_torch.nn.conv import BlockedCNN
+from repro_torch.train.losses import cross_entropy
+from repro_torch.train.optimizer import AdamW, OptState
+
+__all__ = ["make_loss_fn", "make_train_step"]
+
+Batch = Mapping[str, torch.Tensor]
+
+
+def make_loss_fn(model: BlockedCNN
+                 ) -> Callable[[Batch], Tuple[torch.Tensor, Dict]]:
+    """-> ``loss_fn(batch) -> (loss, metrics)`` for a batch with NHWC
+    ``images`` and integer ``targets``."""
+    def loss_fn(batch: Batch):
+        logits = model(batch["images"]).to(torch.float32)
+        loss, metrics = cross_entropy(logits[:, None, :],
+                                      batch["targets"][:, None],
+                                      model.n_classes)
+        return loss, metrics
+    return loss_fn
+
+
+def make_train_step(model: BlockedCNN, optimizer: AdamW,
+                    accum_steps: int = 1
+                    ) -> Callable[[OptState, Batch], Tuple[torch.Tensor, Dict]]:
+    """-> ``train_step(opt_state, batch) -> (loss, metrics)``.
+
+    The step updates ``model``'s parameters and ``opt_state`` (the moments
+    and the step count, as made by ``optimizer.init(dict(
+    model.named_parameters()))``) **in place**; it returns the loss (mean
+    over microbatches) and the metrics ``nll``, ``accuracy``, ``tokens``,
+    ``grad_norm`` and ``lr``.  The parameters' ``.grad`` hold the averaged
+    gradients after the call."""
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+    loss_fn = make_loss_fn(model)
+    params = dict(model.named_parameters())
+
+    def train_step(opt_state: OptState, batch: Batch):
+        n = batch["images"].shape[0]
+        if n % accum_steps:
+            raise ValueError(f"batch {n} does not split into {accum_steps} "
+                             "microbatches")
+        for p in params.values():
+            p.grad = None
+        m = n // accum_steps
+        stats = []
+        for k in range(accum_steps):
+            micro = {key: v[k * m:(k + 1) * m] for key, v in batch.items()}
+            loss, metrics = loss_fn(micro)
+            loss.backward()
+            stats.append(dict(metrics, loss=loss.detach()))
+        if accum_steps > 1:
+            for p in params.values():
+                p.grad.div_(accum_steps)
+        metrics = {key: torch.stack([s[key].detach() for s in stats]).mean()
+                   for key in stats[0]}
+        grads = {name: p.grad for name, p in params.items()}
+        metrics.update(optimizer.update(grads, opt_state, params))
+        return metrics.pop("loss"), metrics
+
+    return train_step

@@ -22,6 +22,7 @@ from repro.nn import conv as jconv  # noqa: E402
 import repro_torch  # noqa: E402
 from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
+from repro_torch.launch import train_conv  # noqa: E402
 from repro_torch.launch.conv_serve import ConvServer  # noqa: E402
 from repro_torch.nn.conv import BlockedConv2D  # noqa: E402
 from repro_torch.serve.scheduler import ConvRequest, Outcome  # noqa: E402
@@ -200,6 +201,10 @@ def test_default_device_entry_points_refuse_the_cpu(models):
         ConvServer(port, [(16, 16)], batch=2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         params_from_jax(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_conv.dense_model()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_conv.main(["--steps", "1"])
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):

@@ -1,4 +1,4 @@
-"""The CUDA forward kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 Marked ``gpu``; each test skips (inside the fixture) when no CUDA device is
 visible.  On a machine with one:
@@ -9,10 +9,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.direct_conv import direct_conv_blocked  # noqa: E402
+from repro_torch.core import conv2d_common  # noqa: E402
+from repro_torch.core.direct_conv import (  # noqa: E402
+    direct_conv_blocked, direct_conv_dgrad_blocked, direct_conv_wgrad_blocked)
 from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_blocked,
-                                               reset_launches)
+                                               direct_conv2d_dgrad,
+                                               direct_conv2d_wgrad,
+                                               reset_launches, wgrad_reduce)
+from repro_torch.nn.conv import BlockedCNN, BlockedConv2D  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -63,15 +68,87 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
         want = direct_conv_blocked(x, w, stride, "SAME", b, act, residual=r,
                                    gap=gap)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"direct_conv2d_fwd": 2, "gap_finalize": 2 * gap}
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "gap_finalize": 2 * gap,
+                        "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
+                        "wgrad_reduce": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
 
 
+# (n, ci, co, h, cib, cob, stride, activation, padding)
+BWD_CASES = [
+    (2, 16, 16, 9, 8, 16, 1, "relu", "SAME"),
+    (2, 16, 24, 10, 16, 8, 2, "gelu", "SAME"),      # asymmetric (0, 1) pads
+    (2, 3, 16, 11, 3, 16, 2, "relu", "SAME"),       # Cib = 3, odd extent
+    (1, 8, 12, 10, 8, 12, 2, None, "VALID"),        # rows past the extents
+    (2, 128, 128, 14, 128, 128, 1, "relu", "SAME"),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding", BWD_CASES)
+def test_backward_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
+                                               stride, act, padding):
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    # the plain conv may return a permuted layout; the kernels take
+    # contiguous operands
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=cuda)
+    zz = None if act is None else z
+    reset_launches()
+    dx = direct_conv2d_dgrad(g, w, (h, h), stride, padding, zz, act)
+    dw, db = direct_conv2d_wgrad(x, g, 3, 3, stride, padding, zz, act,
+                                 with_db=True)
+    dw2, db2 = direct_conv2d_wgrad(x, g, 3, 3, stride, padding, zz, act,
+                                   with_db=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["direct_conv2d_dgrad"] == 1
+    assert LAUNCHES["direct_conv2d_wgrad"] == LAUNCHES["wgrad_reduce"] == 2
+    want_dx = direct_conv_dgrad_blocked(g, w, (h, h), stride, padding, zz,
+                                        act)
+    torch.testing.assert_close(dx, want_dx, **TOL)
+    # wgrad sums n*Ho*Wo products per element: compare with f64 sums
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), g.double(), 3, 3, stride, padding,
+        None if zz is None else zz.double(), act, with_db=True)
+    torch.testing.assert_close(dw.double(), want_dw, **TOL)
+    torch.testing.assert_close(db.double(), want_db, **TOL)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
+
+
+def test_wgrad_reduce_sums_rows_in_order(cuda):
+    parts = torch.randn((7, 1001), device=cuda)
+    reset_launches()
+    got = wgrad_reduce(parts)
+    torch.cuda.synchronize()
+    assert LAUNCHES["wgrad_reduce"] == 1
+    assert torch.equal(got, conv2d_common.wgrad_reduce(parts))
+
+
+def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
+    gen = torch.Generator().manual_seed(0)
+    convs = [BlockedConv2D(8, 16, stride=1, lane=8, device=cuda,
+                           generator=gen),
+             BlockedConv2D(16, 16, stride=2, lane=8, device=cuda,
+                           generator=gen)]
+    model = BlockedCNN(convs, 4, device=cuda, generator=gen)
+    images = torch.randn((2, 12, 12, 8), device=cuda)
+    reset_launches()
+    loss = model(images).square().sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    # the first layer's dx is not needed: the images do not require grad
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "gap_finalize": 0,
+                        "direct_conv2d_dgrad": 1, "direct_conv2d_wgrad": 2,
+                        "wgrad_reduce": 2}
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())
+
+
 def test_kernel_refuses_what_it_does_not_take(cuda):
     x, w, b, _ = _operands(cuda, 1, 8, 8, 6, 8, 8, 1, False)
-    with pytest.raises(RuntimeError, match="inference-only"):
-        direct_conv2d_blocked(x, w.requires_grad_(), b, 1, "SAME")
+    with pytest.raises(NotImplementedError, match="f32 policy"):
+        direct_conv2d_blocked(x, w.requires_grad_(), b, 1, "SAME",
+                              precision="bf16")
     w = w.detach()
     with pytest.raises(NotImplementedError, match="f32"):
         direct_conv2d_blocked(x.bfloat16(), w.bfloat16(), None, 1, "SAME")

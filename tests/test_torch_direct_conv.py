@@ -179,3 +179,209 @@ def test_pad_and_bias_helpers():
     assert bias_to_blocked(torch.arange(8.0), 4).shape == (2, 4)
     with pytest.raises(ValueError):
         bias_to_blocked(torch.arange(6.0), 4)
+
+
+# ---------------------------------------------------------------------------
+# the backward: plain dgrad / wgrad and the autograd path against jax.vjp of
+# the reference's direct_conv_blocked.  f32 on both sides; each gradient
+# sums at most N*Ho*Wo = 512 (wgrad) or 9*Co = 144 (dgrad) products of O(1)
+# terms, so the two orders of summation stay within rtol = atol = 1e-5.
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.kernels.conv2d_common import (  # noqa: E402
+    cotangent_prologue as jax_prologue)
+from repro.nn.conv import (  # noqa: E402
+    blocked_global_avg_pool as jax_gap)
+from repro_torch.core.blocking import dgrad_extents  # noqa: E402
+from repro_torch.core.direct_conv import (  # noqa: E402
+    direct_conv_dgrad_blocked, direct_conv_preactivation,
+    direct_conv_wgrad_blocked)
+from repro_torch.kernels.direct_conv2d import (  # noqa: E402
+    direct_conv2d_dgrad, direct_conv2d_wgrad, wgrad_reduce)
+
+BWD_TOL = {"rtol": 1e-5, "atol": 1e-5}
+
+# (n, ci, co, h, w, cib, cob, stride, padding, activation, residual, gap)
+BWD_CASES = [
+    (2, 4, 8, 8, 8, 4, 8, 1, "SAME", "relu", False, False),
+    (2, 4, 8, 8, 8, 4, 8, 2, "SAME", "relu", False, False),   # pads (0, 1)
+    (2, 8, 8, 9, 7, 4, 4, 2, "SAME", "gelu", False, False),   # odd extents
+    (2, 4, 4, 6, 6, 2, 4, 1, "SAME", None, False, False),
+    (2, 8, 16, 8, 8, 8, 8, 1, "SAME", "gelu", True, False),
+    (2, 8, 16, 10, 10, 4, 16, 2, "SAME", "relu", True, True),
+    (2, 3, 8, 16, 16, 3, 8, 2, "SAME", "relu", False, True),  # Cib = 3
+    (2, 3, 8, 11, 11, 3, 8, 2, "SAME", "gelu", True, False),  # Cib = 3
+    (2, 4, 8, 10, 10, 4, 8, 2, "VALID", "relu", False, False),  # past E
+    (1, 4, 4, 7, 9, 4, 4, 1, ((2, 0), (0, 1)), "gelu", False, False),
+]
+
+
+def _jax_vjp(x, wt, b, r, stride, padding, act, gap):
+    """-> (output, cotangent -> [dx, dw, db(, dres)]) of the reference."""
+    def f(x_, w_, b_, *r_):
+        return jax_direct_conv(x_, w_, stride, padding, b_, act,
+                               residual=r_[0] if r_ else None, gap=gap)
+    args = [_j(x), _j(wt), _j(b)] + ([_j(r)] if r is not None else [])
+    out, vjp = jax.vjp(f, *args)
+    return np.asarray(out), lambda ct: [np.asarray(t) for t in vjp(_j(ct))]
+
+
+@pytest.mark.parametrize("n,ci,co,h,w,cib,cob,stride,padding,act,res,gap",
+                         BWD_CASES)
+def test_autograd_path_matches_jax_vjp(n, ci, co, h, w, cib, cob, stride,
+                                       padding, act, res, gap):
+    x, wt, b, r = _operands(4, n, ci, co, h, w, cib, cob, stride, res)
+    if padding == "VALID":
+        r = None
+    out_j, vjp = _jax_vjp(x, wt, b, r, stride, padding, act, gap)
+    ct = np.random.default_rng(5).normal(size=out_j.shape).astype(np.float32)
+    grads_j = vjp(ct)
+    ins = [torch.from_numpy(a).requires_grad_()
+           for a in (x, wt, b) + ((r,) if r is not None else ())]
+    before = dict(LAUNCHES)
+    out = direct_conv2d_blocked(ins[0], ins[1], ins[2], stride, padding, act,
+                                residual=ins[3] if r is not None else None,
+                                gap=gap)
+    out.backward(torch.from_numpy(ct))
+    assert LAUNCHES == before            # the CPU runs the plain versions
+    np.testing.assert_allclose(out.detach().numpy(), out_j, **BWD_TOL)
+    for name, t, want in zip(("dx", "dw", "db", "dres"), ins, grads_j):
+        np.testing.assert_allclose(t.grad.numpy(), want, err_msg=name,
+                                   **BWD_TOL)
+
+
+@pytest.mark.parametrize("case", [0, 1, 2, 6, 8, 9])
+@pytest.mark.parametrize("prologue", [False, True])
+def test_plain_dgrad_and_wgrad_match_jax_vjp(case, prologue):
+    n, ci, co, h, w, cib, cob, stride, padding, act, _, _ = BWD_CASES[case]
+    act = act if prologue else None
+    x, wt, b, _ = _operands(6, n, ci, co, h, w, cib, cob, stride, False)
+    z = direct_conv_preactivation(_t(x), _t(wt), stride, padding, _t(b))
+    g = np.random.default_rng(7).normal(size=tuple(z.shape)).astype(
+        np.float32)
+    dx_j, dw_j, db_j = _jax_vjp(x, wt, b, None, stride, padding, act,
+                                False)[1](g)
+    zz = z if prologue else None
+    dx = direct_conv2d_dgrad(_t(g), _t(wt), (h, w), stride, padding, zz, act)
+    dw, db = direct_conv2d_wgrad(_t(x), _t(g), 3, 3, stride, padding, zz, act,
+                                 with_db=True)
+    assert dx.shape == x.shape and dw.dtype == torch.float32
+    np.testing.assert_allclose(dx.numpy(), dx_j, **BWD_TOL)
+    np.testing.assert_allclose(dw.numpy(), dw_j, **BWD_TOL)
+    np.testing.assert_allclose(db.numpy(), db_j, **BWD_TOL)
+    dw_nodb, none = direct_conv_wgrad_blocked(_t(x), _t(g), 3, 3, stride,
+                                              padding, zz, act)
+    assert none is None and torch.equal(dw_nodb, dw)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_autograd_path_matches_streamed_pallas_grad(stride):
+    # the Pallas custom VJP (dgrad + wgrad kernels, streamed route) in
+    # interpret mode: [2, 2, 8, 8, 4] with a 3x3 Cb = 4 filter, relu
+    x, wt, b, _ = _operands(8, 2, 8, 8, 8, 8, 4, 4, stride, False)
+    ct = np.random.default_rng(9).normal(
+        size=(2, 2, 8 // stride, 8 // stride, 4)).astype(np.float32)
+
+    def loss(x_, w_, b_):
+        out = direct_conv2d_blocked_pallas(x_, w_, b_, stride=stride,
+                                           padding="SAME", activation="relu",
+                                           stream=True, interpret=True)
+        return (out * _j(ct)).sum()
+    want = jax.grad(loss, argnums=(0, 1, 2))(_j(x), _j(wt), _j(b))
+    ins = [torch.from_numpy(a).requires_grad_() for a in (x, wt, b)]
+    out = direct_conv2d_blocked(*ins[:3], stride, "SAME", "relu")
+    (out * torch.from_numpy(ct)).sum().backward()
+    for t, wj in zip(ins, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(wj), **BWD_TOL)
+
+
+@pytest.mark.parametrize("stride,act,res,gap,cib", [
+    (1, "relu", False, False, 4), (2, "gelu", True, False, 4),
+    (2, "relu", True, True, 3), (1, None, False, True, 2),
+    (2, "gelu", False, True, 3)])
+def test_autograd_function_gradcheck_f64(stride, act, res, gap, cib):
+    rng = np.random.default_rng(10)
+
+    def f64(*shape, scale=1.0):
+        return torch.from_numpy(scale * rng.normal(size=shape)).requires_grad_()
+    x = f64(2, 2, 7, 6, cib)
+    w = f64(2, 2, 3, 3, cib, 4, scale=0.3)
+    b = f64(2, 4)
+    ho, wo = -(-7 // stride), -(-6 // stride)
+    ins = (x, w, b) + ((f64(2, 2, ho, wo, 4),) if res else ())
+
+    def fn(x_, w_, b_, *r_):
+        return direct_conv2d_blocked(x_, w_, b_, stride, "SAME", act,
+                                     residual=r_[0] if r_ else None, gap=gap,
+                                     precision=None)
+    assert torch.autograd.gradcheck(fn, ins)
+
+
+def test_first_layer_skips_dgrad_when_the_input_needs_no_grad(monkeypatch):
+    import repro_torch.kernels.direct_conv2d as kernels
+    calls = []
+    dgrad = kernels.direct_conv2d_dgrad
+    monkeypatch.setattr(kernels, "direct_conv2d_dgrad",
+                        lambda *a, **k: calls.append(1) or dgrad(*a, **k))
+    x, wt, b, _ = _operands(11, 2, 3, 8, 8, 8, 3, 8, 1, False)
+    w = torch.from_numpy(wt).requires_grad_()
+    direct_conv2d_blocked(_t(x), w, _t(b), 1, "SAME", "relu").sum().backward()
+    assert w.grad is not None and w.grad.shape == w.shape and not calls
+    xg = torch.from_numpy(x).requires_grad_()
+    direct_conv2d_blocked(xg, w, _t(b), 1, "SAME", "relu").sum().backward()
+    assert len(calls) == 1 and xg.grad.shape == xg.shape
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", None, "linear"])
+def test_cotangent_prologue_matches_jax(act):
+    z = np.linspace(-4, 4, 97).astype(np.float32)
+    z[48] = 0.0                                   # relu'(0) = 0
+    g = np.random.default_rng(12).normal(size=97).astype(np.float32)
+    want = np.asarray(jax_prologue(_j(g), _j(z), act))
+    got = conv2d_common.cotangent_prologue(_t(g), _t(z), act)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    assert conv2d_common.cotangent_prologue(_t(g), None, "relu") is not None
+
+
+def test_dgrad_rows_past_the_extents_are_exactly_zero():
+    # VALID, stride 2, 10 rows: the forward reads rows 0..8 only
+    assert dgrad_extents(4, 4, 3, 3, 2) == (9, 9)
+    g = torch.randn(1, 1, 4, 4, 4, generator=torch.Generator().manual_seed(0))
+    w = torch.randn(1, 1, 3, 3, 4, 4)
+    dx = direct_conv_dgrad_blocked(g, w, (10, 10), 2, "VALID")
+    assert (dx[:, :, 9] == 0).all() and (dx[:, :, :, 9] == 0).all()
+    assert (dx[:, :, :9, :9] != 0).any()
+
+
+def test_blocked_global_avg_pool_matches_jax():
+    x = np.random.default_rng(13).normal(size=(2, 3, 5, 4, 8)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        conv2d_common.blocked_global_avg_pool(_t(x)).numpy(),
+        np.asarray(jax_gap(_j(x))), rtol=1e-6, atol=1e-7)
+
+
+def test_wgrad_reduce_adds_rows_in_order_and_checks_shapes():
+    parts = torch.randn(5, 7, generator=torch.Generator().manual_seed(1))
+    want = (((parts[0] + parts[1]) + parts[2]) + parts[3]) + parts[4]
+    assert torch.equal(wgrad_reduce(parts), want)
+    with pytest.raises(ValueError, match="splits"):
+        wgrad_reduce(parts[0])
+
+
+def test_backward_wrappers_reject_mismatched_operands():
+    x, wt, b, _ = _operands(14, 1, 4, 8, 6, 6, 4, 8, 1, False)
+    g = torch.zeros(1, 1, 6, 6, 8)
+    with pytest.raises(ValueError, match="unknown activation"):
+        direct_conv2d_dgrad(g, _t(wt), (6, 6), 1, "SAME", g, "swish")
+    with pytest.raises(ValueError, match="pre-activation"):
+        direct_conv2d_dgrad(g, _t(wt), (6, 6), 1, "SAME", None, "relu")
+    with pytest.raises(ValueError, match="cotangent shape"):
+        direct_conv2d_dgrad(g, _t(wt), (7, 6), 1, "VALID")
+    with pytest.raises(ValueError, match="cotangent shape"):
+        direct_conv2d_wgrad(_t(x), g[:, :, :5], 3, 3, 1, "SAME")
+    with pytest.raises(NotImplementedError, match="f32 policy"):
+        direct_conv2d_blocked(_t(x), _t(wt).requires_grad_(), _t(b), 1,
+                              "SAME", precision="bf16")

@@ -147,3 +147,56 @@ def test_blocking_pins_and_misfit():
     small = blocking.choose_blocking(34, 34, 8, 8, 3, 3, 1, cob=8, cib=8,
                                      machine=tiny)
     assert (small.hob, small.wob) == (1, 32)
+
+
+@pytest.mark.parametrize("hi,ci,co,stride", [
+    (224, 3, 64, 1), (224, 64, 64, 1), (224, 64, 128, 2), (112, 128, 128, 1),
+    (56, 256, 512, 2), (28, 512, 512, 1), (14, 512, 512, 1), (11, 3, 16, 2)])
+def test_backward_blocking_fits_the_cta(hi, ci, co, stride):
+    m = blocking.H100_SXM
+    cob, cib = min(co, 128), min(ci, 128)
+    d = blocking.choose_dgrad_blocking(hi, hi, 3, 3, stride, cib, cob)
+    # dgrad tiles the unpadded input; lanes are the Cib pencil
+    assert hi % d.hob == 0 and hi % d.wob == 0 and cob % d.chunk == 0
+    assert d.hob * d.wob <= blocking.tile_positions(cib, m)
+    assert blocking.dgrad_smem_bytes(d.hob, d.wob, d.chunk, cib, 3, 3,
+                                     stride) <= m.smem_budget
+    assert d.ldw % 4 == 0 or cib % 4
+    ho = -(-hi // stride)
+    wg = blocking.choose_wgrad_blocking(8, ho, ho, 3, 3, stride, ci // cib,
+                                        cib, co // cob, cob)
+    assert ho % wg.hob == 0 and ho % wg.wob == 0
+    assert blocking.wgrad_smem_bytes(wg.hob, wg.wob, cib, cob, 3, 3,
+                                     stride) <= m.smem_budget
+    # every tap has its threads, and a CTA holds no more than it has
+    groups = -(-cib // m.lanes) * -(-cob // m.lanes)
+    assert wg.taps * groups <= m.threads and wg.taps * wg.tap_groups >= 9
+    assert 1 <= wg.splits <= wg.tiles == 8 * (ho // wg.hob) * (ho // wg.wob)
+    base = wg.tap_groups * (ci // cib) * (co // cob)
+    assert wg.splits <= max(1, -(-2 * m.ctas_per_sm * m.sms // base))
+
+
+def test_dgrad_window_covers_every_tap_a_tile_reaches():
+    # a dx tile's rows reach cotangent rows (i + pad - dh) / s for the taps
+    # that divide; the kernel stages hwin rows from floor((i0 + pad - 2) /
+    # s): check that they hold every row reached, for every tile phase
+    for stride in (1, 2, 3):
+        for hob in (1, 2, 5, 8):
+            hwin, _ = blocking.dgrad_window(hob, 1, 3, 3, stride)
+            for pad in (0, 1, 2):
+                for i0 in range(0, 4 * hob, hob):
+                    lo = (i0 + pad - 2) // stride
+                    reach = [(i + pad - dh) // stride
+                             for i in range(i0, i0 + hob) for dh in range(3)
+                             if (i + pad - dh) % stride == 0]
+                    assert lo <= min(reach) and max(reach) < lo + hwin
+
+
+def test_wgrad_blocking_misfit_raises():
+    tiny = blocking.MachineModel("tiny", threads=256, lanes=8, positions=8,
+                                 smem_budget=1024)
+    with pytest.raises(ValueError, match="no wgrad tile fits"):
+        blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64,
+                                       machine=tiny)
+    with pytest.raises(ValueError, match="thread"):
+        blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 256, 1, 256)
