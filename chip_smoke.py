@@ -36,9 +36,30 @@ and no phase catches its own failure:
 9. backward times: per layer, dgrad, wgrad and the wgrad reduce against
    their plain versions, ``aten.convolution_backward`` and the f32 bound;
    the train step against the plain path's; the step's peak device memory
-   beside the bytes it must hold.
+   beside the bytes it must hold;
+10. the separable kernels' forwards against their plain versions at batch
+    8 on every distinct MobileNet v1 layer shape of both buckets
+    (depthwise at pencils 32, 64 and 128, strides 1 and 2; pointwise, the
+    last leg with its GAP), plus small gelu + residual + dilation-2
+    depthwise and gelu + residual + GAP pointwise shapes;
+11. the third main path: the full MobileNet v1 forward (224x224, batch 8)
+    with its launch counts against the plain forward's logits, then
+    ``ConvServer`` on buckets 160 and 224 serving 24 ragged requests, each
+    OK with the plain logits of its padded image, and no backward launch;
+12. the separable backward kernels against their plain versions at batch
+    32 on every distinct MobileNet shape (both wgrads against f64 sums and
+    twice, bit for bit), and the autograd path of a small gelu block with
+    a residual against torch autograd through the plain forward;
+13. the fourth main path: three AdamW steps of the full-width MobileNet v1
+    at batch 32, 224x224, held to phase 8's rules, with the launch counts
+    of a step;
+14. per-leg forward (batch 8), dgrad and wgrad (batch 32) times of the
+    depthwise and pointwise legs: eager and as a CUDA-graph replay (device
+    alone), beside the plain version, the library call and the bound; the
+    train step against the plain trainer's; the step's peak device memory
+    beside the bytes it must hold.
 
-The line before the last is one JSON object ``{"kernels": [...]}``; the
+``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints neither.
 """
@@ -101,7 +122,22 @@ TPU_DGRAD = "src/repro/kernels/direct_conv2d.py:138"
 TPU_WGRAD = "src/repro/kernels/direct_conv2d.py:175"
 BATCH, ENTRY = 8, 224
 BUCKETS = ((160, 160), (224, 224))
-SOURCES = ("direct_conv2d_fwd", "direct_conv2d_bwd")
+SOURCES = ("direct_conv2d_fwd", "direct_conv2d_bwd", "conv2d_pointwise",
+           "conv2d_depthwise")
+# MobileNet v1: served at batch 8, trained at batch 32
+MB_BATCH, MB_TRAIN_BATCH = 8, 32
+PW_SOURCE = "src/repro_torch/csrc/conv2d_pointwise.cu"
+DW_SOURCE = "src/repro_torch/csrc/conv2d_depthwise.cu"
+# the TPU kernel each new kernel replaces; the depthwise dgrad is the
+# reference's forward body run on the dilated, padded cotangent
+TPU_SEPARABLE = {
+    "conv2d_pointwise_fwd": "src/repro/kernels/conv2d_pointwise.py:56",
+    "conv2d_pointwise_dgrad": "src/repro/kernels/conv2d_pointwise.py:87",
+    "conv2d_pointwise_wgrad": "src/repro/kernels/conv2d_pointwise.py:114",
+    "conv2d_depthwise_fwd": "src/repro/kernels/conv2d_depthwise.py:72",
+    "conv2d_depthwise_dgrad": "src/repro/kernels/conv2d_depthwise.py:72",
+    "conv2d_depthwise_wgrad": "src/repro/kernels/conv2d_depthwise.py:105",
+}
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -143,6 +179,32 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 10) -> float:
+    """Device time of one call: ``iters`` calls captured in a CUDA graph
+    and replayed between two events, so the host's launch overhead (the
+    Python wrappers, ctypes) is not in it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
@@ -173,10 +235,648 @@ def compare_scaled(label: str, got, want, scale, rel: float) -> float:
     return err.max().item()
 
 
+def plain_cnn_forward(x, m):
+    """A ``BlockedCNN``'s forward through the plain conv, dense or
+    depthwise (a pointwise leg is a dense 1x1 conv), differentiable by
+    torch autograd and independent of the port's plain dgrad and wgrad."""
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    from repro_torch.core.layout import nhwc_to_blocked
+    from repro_torch.nn.conv import DepthwiseSeparableBlock
+    hb = nhwc_to_blocked(x, m.convs[0].in_pencil)
+    last = len(m.convs) - 1
+    for i, layer in enumerate(m.convs):
+        legs = ((layer.dw, layer.pw)
+                if isinstance(layer, DepthwiseSeparableBlock) else (layer,))
+        for leg in legs:
+            hb = direct_conv_blocked(hb, leg.w, leg.stride, leg.padding,
+                                     leg.b, leg.activation, groups=leg.groups,
+                                     dilation=leg.dilation,
+                                     gap=i == last and leg is legs[-1])
+    return hb @ m.head
+
+
+def reset_all_launches() -> None:
+    from repro_torch.kernels import conv2d_depthwise, conv2d_pointwise
+    from repro_torch.kernels import direct_conv2d
+    for mod in (direct_conv2d, conv2d_depthwise, conv2d_pointwise):
+        mod.reset_launches()
+
+
+def all_launches() -> dict:
+    from repro_torch.kernels import conv2d_depthwise, conv2d_pointwise
+    from repro_torch.kernels import direct_conv2d
+    return {**direct_conv2d.LAUNCHES, **conv2d_depthwise.LAUNCHES,
+            **conv2d_pointwise.LAUNCHES}
+
+
+def mobilenet_phases(args, dev, t_start):
+    """Phases 10-14: the separable family and MobileNet v1.  -> (the new
+    kernels' entries of the ``{"kernels": [...]}`` line, the launches of
+    MobileNet's two main-path runs, serving and training, per kernel)."""
+    from repro_torch.configs.cnn import (MOBILENET_V1_BLOCKS,
+                                         MOBILENET_V1_CONV1,
+                                         mobilenet_v1_blocked)
+    from repro_torch.core import conv2d_common
+    from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
+                                           choose_pointwise_wgrad_blocking,
+                                           choose_wgrad_blocking)
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                              direct_conv_dgrad_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.kernels import conv2d_depthwise as dwk
+    from repro_torch.kernels import conv2d_pointwise as pwk
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.nn.conv import DepthwiseSeparableBlock
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    from repro_torch.train.losses import cross_entropy
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainstep import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
+
+    def stamp(phase):
+        print(f"[time] phase {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def blocks(entry):
+        """(ci, co, stride, h) of the 13 blocks: h the depthwise leg's
+        input extent."""
+        h = ConvSpec.make(1, entry, entry, *MOBILENET_V1_CONV1[:2], 3, 3,
+                          MOBILENET_V1_CONV1[2], "SAME").ho
+        out = []
+        for ci, co, s in MOBILENET_V1_BLOCKS:
+            out.append((ci, co, s, h))
+            h = -(-h // s)
+        return out
+
+    def dw_operands(n, c, h, s, dil=1, cb=None, residual=False):
+        cb = cb or min(c, 128)
+        x = torch.randn((n, c // cb, h, h, cb), device=dev, generator=gen)
+        w = torch.randn((c // cb, 1, 3, 3, 1, cb), device=dev,
+                        generator=gen) / 3
+        b = 0.1 * torch.randn((c // cb, cb), device=dev, generator=gen)
+        spec = ConvSpec.make(n, h, h, c, c, 3, 3, s, "SAME", groups=c,
+                             dilation=dil)
+        r = (torch.randn((n, c // cb, spec.ho, spec.wo, cb), device=dev,
+                         generator=gen) if residual else None)
+        return x, w, b, r, spec
+
+    def pw_operands(n, ci, co, h, cib=None, cob=None, residual=False):
+        cib, cob = cib or min(ci, 128), cob or min(co, 128)
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
+        w = torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=dev,
+                        generator=gen) / ci ** 0.5
+        b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
+        r = (torch.randn((n, co // cob, h, h, cob), device=dev,
+                         generator=gen) if residual else None)
+        return x, w, b, r
+
+    err = {k: 0.0 for k in pwk.LAUNCHES} | {k: 0.0 for k in dwk.LAUNCHES}
+
+    def track(kernel, value):
+        err[kernel] = max(err[kernel], value)
+
+    # -- 10. the new forward kernels vs their plain versions ----------------
+    served_blocks = [b for bh, _ in BUCKETS for b in blocks(bh)]
+    last_pw = {(ci, co, -(-h // s)) for ci, co, s, h in
+               (blocks(bh)[-1] for bh, _ in BUCKETS)}
+    dw_shapes = sorted({(ci, s, h) for ci, _, s, h in served_blocks})
+    pw_shapes = sorted({(ci, co, -(-h // s)) for ci, co, s, h in
+                        served_blocks})
+    with torch.no_grad():
+        for c, s, h in dw_shapes:
+            x, w, b, _, _ = dw_operands(MB_BATCH, c, h, s)
+            got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", "relu")
+            want = direct_conv_blocked(x, w, s, "SAME", b, "relu", groups=c)
+            torch.cuda.synchronize()
+            track("conv2d_depthwise_fwd", compare(
+                f"dwconv {c} Cb={min(c, 128)} {h}x{h} s{s} n{MB_BATCH} relu",
+                got, want, **TOL))
+        for ci, co, h in pw_shapes:
+            gap = (ci, co, h) in last_pw
+            x, w, b, _ = pw_operands(MB_BATCH, ci, co, h)
+            got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", "relu",
+                                               gap=gap)
+            want = direct_conv_blocked(x, w, 1, "VALID", b, "relu", gap=gap)
+            torch.cuda.synchronize()
+            track("conv2d_pointwise_fwd", compare(
+                f"pwconv {ci}->{co} {h}x{h} n{MB_BATCH} relu"
+                f"{'+gap' if gap else ''}", got, want, **TOL))
+        for n, c, h, cb, s, gap in ((2, 24, 13, 8, 1, True),
+                                    (2, 48, 12, 16, 2, False)):
+            x, w, b, r, _ = dw_operands(n, c, h, s, 2, cb, residual=True)
+            got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", "gelu",
+                                               residual=r, gap=gap,
+                                               dilation=2)
+            want = direct_conv_blocked(x, w, s, "SAME", b, "gelu", groups=c,
+                                       dilation=2, residual=r, gap=gap)
+            torch.cuda.synchronize()
+            track("conv2d_depthwise_fwd", compare(
+                f"dwconv {c} Cb={cb} {h}x{h} s{s} dilation 2 n{n} "
+                f"gelu+residual{'+gap' if gap else ''}", got, want, **TOL))
+        x, w, b, r = pw_operands(2, 24, 40, 9, 8, 8, residual=True)
+        got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "SAME", "gelu",
+                                           residual=r, gap=True)
+        want = direct_conv_blocked(x, w, 1, "VALID", b, "gelu", residual=r,
+                                   gap=True)
+        torch.cuda.synchronize()
+        track("conv2d_pointwise_fwd", compare(
+            "pwconv 24->40 Cib=Cob=8 9x9 n2 gelu+residual+gap", got, want,
+            **TOL))
+    stamp(10)
+
+    # -- 11. the third main path: MobileNet v1 served ------------------------
+    model = mobilenet_v1_blocked(
+        1000, device=dev, generator=torch.Generator().manual_seed(args.seed + 2))
+    images = torch.randn((MB_BATCH, ENTRY, ENTRY, 3),
+                         generator=torch.Generator().manual_seed(args.seed + 3)
+                         ).to(dev)
+    one_forward = {"direct_conv2d_fwd": 1, "gap_finalize": 1,
+                   "conv2d_depthwise_fwd": 13, "conv2d_pointwise_fwd": 13}
+    with torch.no_grad():
+        reset_all_launches()
+        logits = model(images)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in all_launches().items() if v}
+        print(f"[mobilenet] forward n{MB_BATCH} {ENTRY}x{ENTRY}: launches "
+              f"{counts}")
+        if counts != one_forward:
+            fail(f"expected {one_forward}, got {counts}")
+        ref = plain_cnn_forward(images, model)
+        compare("mobilenet logits vs plain path", logits, ref,
+                atol=LOGIT_RTOL * ref.abs().max().item(), rtol=0.0)
+        fwd_ms = time_ms(lambda: model(images), iters=10)
+        fwd_graph_ms = graph_ms(lambda: model(images))
+        fwd_plain_ms = time_ms(lambda: plain_cnn_forward(images, model),
+                               iters=10)
+    print(f"[mobilenet] forward n{MB_BATCH} ms: kernels {fwd_ms:.3f} (device "
+          f"alone, CUDA graph replay: {fwd_graph_ms:.3f}) plain "
+          f"{fwd_plain_ms:.3f}")
+
+    server = ConvServer(model, list(BUCKETS), MB_BATCH, device=dev)
+    server.warmup()
+    rng = np.random.default_rng(args.seed + 2)
+    reqs = []
+    for rid in range(24):
+        hh, ww = (int(v) for v in rng.integers(96, ENTRY + 1, size=2))
+        reqs.append(ConvRequest(rid, rng.standard_normal(
+            (hh, ww, 3), dtype=np.float32)))
+    reset_all_launches()
+    for r in reqs:
+        server.submit(r)
+    server.run()
+    torch.cuda.synchronize()
+    served = all_launches()
+    backward = {k: v for k, v in served.items()
+                if ("dgrad" in k or "wgrad" in k) and v}
+    if backward:
+        fail(f"the server launched backward kernels: {backward}")
+    health = server.health()
+    print(f"[mobilenet-serve] launches {served} health {json.dumps(health)}")
+    bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
+    if bad:
+        fail(f"requests not OK: {bad}")
+    n_fwd = served["gap_finalize"]
+    if n_fwd == 0 or any(served[k] != v * n_fwd for k, v in
+                         one_forward.items()):
+        fail(f"server forwards did not all run the kernels: {served}")
+    with torch.no_grad():
+        worst = 0.0
+        for r in reqs:
+            img = torch.from_numpy(server.bucketer.pad(r.image, r.bucket))
+            want = plain_cnn_forward(img[None].to(dev), model)[0].cpu().numpy()
+            worst = max(worst, float(np.abs(r.logits - want).max()
+                                     / max(np.abs(want).max(), 1e-30)))
+    print(f"[mobilenet-serve] logits vs plain PyTorch forward of the padded "
+          f"image: max rel-to-max err {worst:.3e} (tol {LOGIT_RTOL:g})")
+    if not worst <= LOGIT_RTOL:
+        fail("served logits differ from the plain forward")
+    lat = server.latencies() * 1e3
+    print(f"[mobilenet-serve] {len(reqs)} requests OK, {health['steps']} "
+          f"steps, latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+          f"{np.percentile(lat, 99):.3f} ms, occupancy "
+          f"{server.occupancy():.3f}")
+    del server
+    stamp(11)
+
+    # -- 12. the new backward kernels vs their plain versions ----------------
+    train_blocks = blocks(ENTRY)
+    n = MB_TRAIN_BATCH
+    bwd = {}          # per distinct leg: the operands phase 14 times
+    for c, s, h in sorted({(ci, s, h) for ci, _, s, h in train_blocks}):
+        x, w, b, _, spec = dw_operands(n, c, h, s)
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, s, "SAME", b, groups=c).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        bwd[("dw", c, s, h)] = (x, w, z, g, spec)
+        tag = f"{c} Cb={min(c, 128)} {h}x{h} s{s} n{n} relu"
+        got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", z, "relu")
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu",
+                                         groups=c)
+        torch.cuda.synchronize()
+        track("conv2d_depthwise_dgrad", compare(f"dw dgrad {tag}", got, want,
+                                                **TOL))
+        del got, want
+        dw, db = dwk.depthwise_wgrad(x, g, 3, 3, s, "SAME", z, "relu", True)
+        dw2, db2 = dwk.depthwise_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
+                                       True)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"dw wgrad {tag}: two runs differ")
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
+            True, groups=c)
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), 3, 3, s, "SAME",
+            with_db=True, groups=c)
+        track("conv2d_depthwise_wgrad", max(
+            compare_scaled(f"dw wgrad dw {tag} (2 runs identical)", dw,
+                           want_dw, abs_dw, WGRAD_REL),
+            compare_scaled(f"dw wgrad db {tag}", db, want_db, abs_db,
+                           WGRAD_REL)))
+        del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+    for ci, co, h in sorted({(ci, co, -(-h // s))
+                             for ci, co, s, h in train_blocks}):
+        x, w, b, _ = pw_operands(n, ci, co, h)
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        bwd[("pw", ci, co, h)] = (x, w, z, g, None)
+        tag = f"{ci}->{co} {h}x{h} n{n} relu"
+        got = pwk.pointwise_dgrad(g, w, z, "relu")
+        want = direct_conv_dgrad_blocked(g, w, (h, h), 1, "VALID", z, "relu")
+        torch.cuda.synchronize()
+        track("conv2d_pointwise_dgrad", compare(f"pw dgrad {tag}", got, want,
+                                                **TOL))
+        del got, want
+        dw, db = pwk.pointwise_wgrad(x, g, z, "relu", True)
+        dw2, db2 = pwk.pointwise_wgrad(x, g, z, "relu", True)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"pw wgrad {tag}: two runs differ")
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), g.double(), 1, 1, 1, "VALID", z.double(), "relu",
+            True)
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), 1, 1, 1, "VALID",
+            with_db=True)
+        track("conv2d_pointwise_wgrad", max(
+            compare_scaled(f"pw wgrad dw {tag} (2 runs identical)", dw,
+                           want_dw, abs_dw, WGRAD_REL),
+            compare_scaled(f"pw wgrad db {tag}", db, want_db, abs_db,
+                           WGRAD_REL)))
+        del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+
+    # the autograd path of a small gelu block at stride 2 with a residual,
+    # against torch autograd through the plain forward
+    block = DepthwiseSeparableBlock(16, 24, stride=2, activation="gelu",
+                                    lane=8, device=dev,
+                                    generator=torch.Generator().manual_seed(5))
+    x = torch.randn((2, 2, 11, 11, 8), device=dev, generator=gen)
+    r = torch.randn((2, 3, 6, 6, 8), device=dev, generator=gen)
+    ct = torch.randn(r.shape, device=dev, generator=gen)
+    params = [block.dw.w, block.dw.b, block.pw.w, block.pw.b]
+
+    def grads_of(forward):
+        ins = [x.clone().requires_grad_(), r.clone().requires_grad_()]
+        for p in params:
+            p.grad = None
+        forward(*ins).backward(ct)
+        return [t.grad for t in ins] + [p.grad.clone() for p in params]
+
+    got = grads_of(lambda x_, r_: block(x_, residual=r_))
+    want = grads_of(lambda x_, r_: direct_conv_blocked(
+        direct_conv_blocked(x_, block.dw.w, 2, "SAME", block.dw.b, "gelu",
+                            groups=16), block.pw.w, 1, "VALID", block.pw.b,
+        "gelu", residual=r_))
+    torch.cuda.synchronize()
+    for name, gk, gp in zip(("dx", "dres", "dw.w", "dw.b", "pw.w", "pw.b"),
+                            got, want):
+        kernel = {"dx": "conv2d_depthwise_dgrad", "dres": None,
+                  "dw.w": "conv2d_depthwise_wgrad",
+                  "dw.b": "conv2d_depthwise_wgrad"}.get(
+                      name, "conv2d_pointwise_wgrad")
+        e = compare(f"autograd {name} block 16->24 11x11 s2 n2 gelu+residual "
+                    "vs plain autograd", gk, gp, **TOL)
+        if kernel:
+            track(kernel, e)
+    stamp(12)
+
+    # -- 13. the fourth main path: MobileNet v1 trained ---------------------
+    train_model = mobilenet_v1_blocked(
+        1000, device=dev, generator=torch.Generator().manual_seed(args.seed + 4))
+    plain_model = copy.deepcopy(train_model)
+    start = {k: p.detach().clone() for k, p in train_model.named_parameters()}
+    lr = cosine_schedule(TRAIN_LR, 1, 3)
+    opt = AdamW(lr=lr)
+    state = opt.init(dict(train_model.named_parameters()))
+    plain_state = opt.init(dict(plain_model.named_parameters()))
+    step = make_train_step(train_model, opt)
+    plain_params = dict(plain_model.named_parameters())
+
+    def plain_step(st, bt):
+        for p in plain_params.values():
+            p.grad = None
+        logits_p = plain_cnn_forward(bt["images"], plain_model)
+        loss_p, _ = cross_entropy(logits_p[:, None, :],
+                                  bt["targets"][:, None], 1000)
+        loss_p.backward()
+        opt.update({k: p.grad for k, p in plain_params.items()}, st,
+                   plain_params)
+        return loss_p.detach()
+
+    rng = np.random.default_rng(args.seed + 4)
+    train_batches = [
+        {"images": torch.from_numpy(rng.standard_normal(
+            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+         "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
+        for _ in range(3)]
+    one_step = {"direct_conv2d_fwd": 1, "direct_conv2d_wgrad": 1,
+                "wgrad_reduce": 27, "conv2d_depthwise_fwd": 13,
+                "conv2d_depthwise_dgrad": 13, "conv2d_depthwise_wgrad": 13,
+                "conv2d_pointwise_fwd": 13, "conv2d_pointwise_dgrad": 13,
+                "conv2d_pointwise_wgrad": 13}
+    losses, plain_losses = [], []
+    reset_all_launches()
+    for k, bt in enumerate(train_batches):
+        loss, _ = step(state, bt)
+        torch.cuda.synchronize()
+        if k == 0:
+            per_step = {key: v for key, v in all_launches().items() if v}
+            grads = {name: p.grad.clone()
+                     for name, p in train_model.named_parameters()}
+        losses.append(loss.item())
+        plain_losses.append(plain_step(plain_state, bt).item())
+        if k == 0:
+            print(f"[mobilenet-train] launches in one step: {per_step}")
+            if per_step != one_step:
+                fail(f"a train step launched {per_step}, expected {one_step}")
+            ratios = {}
+            for name, p in plain_params.items():
+                e = (grads[name] - p.grad).abs().max().item()
+                ratios[name] = e / max(p.grad.abs().max().item(), 1e-30)
+            print("[mobilenet-train] step-1 gradients vs plain autograd, "
+                  "max-err/max-value per tensor: " + " ".join(
+                      f"{key}={v:.2e}" for key, v in ratios.items()))
+            over = {key: v for key, v in ratios.items() if not v <= GRAD_RTOL}
+            if over:
+                fail(f"step-1 gradients beyond {GRAD_RTOL:g}: {over}")
+            print(f"[mobilenet-train] all {len(ratios)} gradients within "
+                  f"{GRAD_RTOL:g} of their largest value -> ok")
+            if not abs(losses[0] - plain_losses[0]) <= 1e-4 * abs(
+                    plain_losses[0]):
+                fail(f"step-1 loss {losses[0]} != plain {plain_losses[0]}")
+    trained = all_launches()
+    print(f"[mobilenet-train] MobileNet v1 n{n} {ENTRY}x{ENTRY} 1000 classes, "
+          f"AdamW cosine: losses {losses} plain path {plain_losses}")
+    print(f"[mobilenet-train] launches in 3 steps: {trained}")
+    if any(not np.isfinite(v) for v in losses):
+        fail("non-finite loss")
+    lr_sum = sum(lr(t) for t in (1, 2, 3))
+    far, n_el, worst, apart, moved = 0, 0, 0.0, 0.0, 0.0
+    for name, p in train_model.named_parameters():
+        d = (p.detach() - plain_params[name].detach()).abs()
+        far += int((d > PARAM_STEP * lr_sum).sum())
+        n_el += d.numel()
+        worst = max(worst, d.max().item())
+        apart += d.square().sum().item()
+        moved += (plain_params[name].detach()
+                  - start[name]).square().sum().item()
+    print(f"[mobilenet-train] parameters after 3 steps vs the plain trainer: "
+          f"{far} of {n_el} elements differ by more than {PARAM_STEP:g} * "
+          f"sum(lr)={lr_sum:g}, largest difference {worst:.3e}, |kernel - "
+          f"plain| / |plain - start| = {(apart / moved) ** 0.5:.3e} (tol: at "
+          f"most {PARAM_FRAC:g} of elements, none above 2.1 * sum(lr))")
+    if far > PARAM_FRAC * n_el or worst > 2.1 * lr_sum:
+        fail("the kernel trainer drifted from the plain trainer")
+    del grads, start
+    stamp(13)
+
+    # -- 14. times: per leg, the step, the forward; peak memory --------------
+    def nchw(t):
+        b_, cblk, hh, ww, cb = t.shape
+        return t.permute(0, 1, 4, 2, 3).reshape(b_, cblk * cb, hh, ww)
+
+    def oihw(w, groups):
+        if groups > 1:       # [C/Cb, 1, 3, 3, 1, Cb] -> [C, 1, 3, 3]
+            return w.permute(0, 5, 1, 2, 3, 4).reshape(-1, 1, 3, 3)
+        return w.permute(0, 5, 1, 4, 2, 3).reshape(
+            w.shape[0] * w.shape[5], w.shape[1] * w.shape[4], w.shape[2],
+            w.shape[3])
+
+    fwd_rows, bwd_rows = {}, {}
+    device = {}       # per leg and kind: the kernel's time in a CUDA graph
+    with torch.no_grad():
+        for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
+                               blocks(ENTRY)}):
+            x, w, b, _, spec = dw_operands(MB_BATCH, c, h, s)
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous()
+            wl, bl = oihw(w, c).contiguous(), b.reshape(-1)
+            kernel = lambda: dwk.depthwise_conv2d_blocked(  # noqa: E731
+                x, w, b, s, "SAME", "relu")
+            device[("dw", c, s, h, "fwd")] = graph_ms(kernel)
+            fwd_rows[("dw", c, s, h)] = (
+                time_ms(kernel),
+                time_ms(lambda: direct_conv_blocked(x, w, s, "SAME", b,
+                                                    "relu", groups=c)),
+                time_ms(lambda: F.conv2d(xp, wl, bl, stride=s, groups=c)),
+                *bound(spec.flops(), 4 * (x.numel() + w.numel() + b.numel()
+                                          + MB_BATCH * c * spec.ho
+                                          * spec.wo)))
+        for ci, co, h in sorted({(ci, co, -(-h // s)) for ci, co, s, h in
+                                 blocks(ENTRY)}):
+            gap = (ci, co, h) == (1024, 1024, 7)
+            x, w, b, _ = pw_operands(MB_BATCH, ci, co, h)
+            xl, wl, bl = nchw(x).contiguous(), oihw(w, 1).contiguous(), \
+                b.reshape(-1)
+            out_elems = MB_BATCH * co * (1 if gap else h * h)
+            kernel = lambda: pwk.pointwise_conv2d_blocked(  # noqa: E731
+                x, w, b, 1, "VALID", "relu", gap=gap)
+            device[("pw", ci, co, h, "fwd")] = graph_ms(kernel)
+            fwd_rows[("pw", ci, co, h)] = (
+                time_ms(kernel),
+                time_ms(lambda: direct_conv_blocked(x, w, 1, "VALID", b,
+                                                    "relu", gap=gap)),
+                time_ms(lambda: F.conv2d(xl, wl, bl)),
+                *bound(2 * MB_BATCH * h * h * ci * co,
+                       4 * (x.numel() + w.numel() + b.numel() + out_elems)))
+    for key, (x, w, z, g, spec) in bwd.items():
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        dzl = nchw(dz).contiguous()
+        if key[0] == "dw":
+            _, c, s, h = key
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous()
+            wl = oihw(w, c).contiguous()
+            flops = spec.flops()
+            bwd_rows[key] = {
+                "dgrad": (
+                    time_ms(lambda: dwk.depthwise_dgrad(g, w, (h, h), s,
+                                                        "SAME", z, "relu")),
+                    time_ms(lambda: direct_conv_dgrad_blocked(
+                        g, w, (h, h), s, "SAME", z, "relu", groups=c)),
+                    time_ms(lambda: torch.ops.aten.convolution_backward(
+                        dzl, xp, wl, None, [s, s], [0, 0], [1, 1], False,
+                        [0, 0], c, [True, False, False])),
+                    *bound(flops, 4 * (2 * g.numel() + w.numel()
+                                       + x.numel()))),
+                "wgrad": (
+                    time_ms(lambda: dwk.depthwise_wgrad_partials(
+                        x, g, 3, 3, s, "SAME", z, "relu", True)),
+                    time_ms(lambda: direct_conv_wgrad_blocked(
+                        x, g, 3, 3, s, "SAME", z, "relu", True, groups=c)),
+                    time_ms(lambda: torch.ops.aten.convolution_backward(
+                        dzl, xp, wl, None, [s, s], [0, 0], [1, 1], False,
+                        [0, 0], c, [False, True, False])),
+                    *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
+                                       + c)))}
+        else:
+            _, ci, co, h = key
+            xl, wl = nchw(x).contiguous(), oihw(w, 1).contiguous()
+            flops = 2 * n * h * h * ci * co
+            bwd_rows[key] = {
+                "dgrad": (
+                    time_ms(lambda: pwk.pointwise_dgrad(g, w, z, "relu")),
+                    time_ms(lambda: direct_conv_dgrad_blocked(
+                        g, w, (h, h), 1, "VALID", z, "relu")),
+                    time_ms(lambda: torch.ops.aten.convolution_backward(
+                        dzl, xl, wl, None, [1, 1], [0, 0], [1, 1], False,
+                        [0, 0], 1, [True, False, False])),
+                    *bound(flops, 4 * (2 * g.numel() + w.numel()
+                                       + x.numel()))),
+                "wgrad": (
+                    time_ms(lambda: pwk.pointwise_wgrad_partials(
+                        x, g, z, "relu", True)),
+                    time_ms(lambda: direct_conv_wgrad_blocked(
+                        x, g, 1, 1, 1, "VALID", z, "relu", True)),
+                    time_ms(lambda: torch.ops.aten.convolution_backward(
+                        dzl, xl, wl, None, [1, 1], [0, 0], [1, 1], False,
+                        [0, 0], 1, [False, True, False])),
+                    *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
+                                       + co)))}
+        if key[0] == "dw":
+            device[key + ("dgrad",)] = graph_ms(lambda: dwk.depthwise_dgrad(
+                g, w, (h, h), s, "SAME", z, "relu"))
+            device[key + ("wgrad",)] = graph_ms(
+                lambda: dwk.depthwise_wgrad_partials(x, g, 3, 3, s, "SAME", z,
+                                                     "relu", True))
+        else:
+            device[key + ("dgrad",)] = graph_ms(lambda: pwk.pointwise_dgrad(
+                g, w, z, "relu"))
+            device[key + ("wgrad",)] = graph_ms(
+                lambda: pwk.pointwise_wgrad_partials(x, g, z, "relu", True))
+        del dz, dzl
+
+    # sums over the 13 legs of each kind, in the network's order
+    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in pwk.LAUNCHES} | \
+        {k: [0.0, 0.0, 0.0, 0.0] for k in dwk.LAUNCHES}
+    device_sums = {k: 0.0 for k in sums}
+    kinds = {k: [] for k in sums}
+    for i, (ci, co, s, h) in enumerate(blocks(ENTRY)):
+        ho = -(-h // s)
+        legs = (("dw", ("dw", ci, s, h), "conv2d_depthwise", ci, h, s),
+                ("pw", ("pw", ci, co, ho), "conv2d_pointwise", co, ho, 1))
+        for leg, key, kernel, cout, ext, st in legs:
+            rows = {"fwd": fwd_rows[key], **bwd_rows[key]}
+            for kind, (k_ms, p_ms, l_ms, b_ms, b_by) in rows.items():
+                name = f"{kernel}_{kind}"
+                for j, v in enumerate((k_ms, p_ms, l_ms, b_ms)):
+                    sums[name][j] += v
+                d_ms = device[key + (kind,)]
+                device_sums[name] += d_ms
+                kinds[name].append((b_ms, b_by))
+                print(f"[mb-layer] block{i + 1} {leg} {kind} {ci}->{cout} "
+                      f"in {ext}x{ext} s{st} "
+                      f"n{MB_BATCH if kind == 'fwd' else n}: kernel_ms "
+                      f"{k_ms:.4f} device_ms {d_ms:.4f} plain_ms {p_ms:.4f} "
+                      f"library_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
+                      f"bound/kernel {b_ms / k_ms:.3f}")
+    for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
+        print(f"[mb-layer] all 13 {name}: kernel_ms {k_ms:.4f} device_ms "
+              f"{device_sums[name]:.4f} plain_ms {p_ms:.4f} library_ms "
+              f"{l_ms:.4f} bound_ms {b_ms:.4f} ({mostly(kinds[name])})")
+    del bwd, fwd_rows
+
+    def timed_step(fn, st, bt):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(st, bt)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    k_times, p_times = [], []
+    for k in range(4):              # plain, kernel, kernel, plain, ...
+        bt = train_batches[k % 3]
+        if k % 3 == 0:
+            p_times.append(timed_step(plain_step, plain_state, bt))
+            k_times.append(timed_step(step, state, bt))
+        else:
+            k_times.append(timed_step(step, state, bt))
+            p_times.append(timed_step(plain_step, plain_state, bt))
+    print(f"[mobilenet-train] step ms n{n} (host clock, synchronized): "
+          f"kernels {k_times} plain {p_times}; median kernels "
+          f"{np.median(k_times):.3f} plain {np.median(p_times):.3f}")
+
+    # peak device memory of one kernel step, against what it must hold
+    del plain_model, plain_state, plain_params
+    torch.cuda.empty_cache()
+    params = list(train_model.parameters())
+    p_bytes = 4 * sum(p.numel() for p in params)
+    state_bytes = 3 * p_bytes + sum(4 * p.grad.numel() for p in params
+                                    if p.grad is not None)
+    other = torch.cuda.memory_allocated() - state_bytes
+    torch.cuda.reset_peak_memory_stats()
+    step(state, train_batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - other
+    ci0, co0, s0 = MOBILENET_V1_CONV1
+    h0 = -(-ENTRY // s0)
+    saved = 4 * n * (ci0 * ENTRY * ENTRY + co0 * h0 * h0)
+    ws_max = 4 * choose_wgrad_blocking(n, h0, h0, 3, 3, s0, 1, ci0, 1,
+                                       co0).splits * (9 * ci0 * co0 + co0)
+    for ci, co, s, h in blocks(ENTRY):
+        ho = -(-h // s)
+        cb, cob = min(ci, 128), min(co, 128)
+        # depthwise leg: x and z; pointwise leg: its x and z
+        saved += 4 * n * (ci * h * h + ci * ho * ho + ci * ho * ho
+                          + co * ho * ho)
+        dws = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3, 3,
+                                              s).splits
+        pws = choose_pointwise_wgrad_blocking(n, ho * ho, ci // cb, cb,
+                                              co // cob, cob).splits
+        ws_max = max(ws_max, 4 * dws * (10 * ci), 4 * pws * (ci * co + co))
+    must = 4 * p_bytes + saved + ws_max
+    print(f"[mobilenet-train] peak device memory of one step: "
+          f"{peak / 2**20:.1f} MiB; it must hold {must / 2**20:.1f} MiB = "
+          f"parameters, gradients and 2 Adam moments "
+          f"{4 * p_bytes / 2**20:.1f} + saved x and z {saved / 2**20:.1f} + "
+          f"largest wgrad workspace {ws_max / 2**20:.1f}")
+    stamp(14)
+
+    sources = {"conv2d_pointwise": PW_SOURCE, "conv2d_depthwise": DW_SOURCE}
+    entries = []
+    for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
+        family, kind = name.rsplit("_", 1)
+        entries.append({
+            "name": name, "route": "cuda", "source": sources[family],
+            "replaces": TPU_SEPARABLE[name],
+            "launches": served[name] + trained[name],
+            "max_abs_err": err[name], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": mostly(kinds[name]),
+            "library_ms": l_ms})
+    counts = {k: served[k] + trained[k] for k in served}
+    return entries, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "runs on a CUDA device only", file=sys.stderr)
@@ -194,7 +894,6 @@ def main(argv=None) -> int:
     from repro_torch.core.direct_conv import (direct_conv_blocked,
                                               direct_conv_dgrad_blocked,
                                               direct_conv_wgrad_blocked)
-    from repro_torch.core.layout import nhwc_to_blocked
     from repro_torch.kernels._build import build
     from repro_torch.kernels.direct_conv2d import (LAUNCHES,
                                                    direct_conv2d_blocked,
@@ -236,6 +935,7 @@ def main(argv=None) -> int:
                     or "spill" in line:
                 print(f"[build]   {line.strip()}")
     print(f"[build] total {time.perf_counter() - t0:.1f} s")
+    print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
@@ -305,17 +1005,6 @@ def main(argv=None) -> int:
     cpu_gen = torch.Generator().manual_seed(args.seed)
     model = vgg16_blocked(1000, device=dev, generator=cpu_gen)
     images = torch.randn((BATCH, ENTRY, ENTRY, 3), generator=cpu_gen).to(dev)
-    last = len(model.convs) - 1
-
-    def plain_forward(x, m=model):
-        """The VGG-16 forward through the plain conv; differentiable by
-        torch autograd (einsum per tap), independent of the port's plain
-        dgrad and wgrad."""
-        hb = nhwc_to_blocked(x, m.convs[0].in_pencil)
-        for i, c in enumerate(m.convs):
-            hb = direct_conv_blocked(hb, c.w, c.stride, c.padding, c.b,
-                                     c.activation, gap=(i == last))
-        return hb @ m.head
 
     with torch.no_grad():
         reset_launches()
@@ -325,12 +1014,13 @@ def main(argv=None) -> int:
         print(f"[vgg16] forward n{BATCH} {ENTRY}x{ENTRY}: launches {counts}")
         if counts != {"direct_conv2d_fwd": 13, "gap_finalize": 1}:
             fail(f"expected 13 conv launches and 1 GAP finalize, got {counts}")
-        ref = plain_forward(images)
+        ref = plain_cnn_forward(images, model)
         scale = ref.abs().max().item()
         compare("vgg16 logits vs plain path", logits, ref,
                 atol=LOGIT_RTOL * scale, rtol=0.0)
         fwd_ms = time_ms(lambda: model(images), iters=5)
-        fwd_plain_ms = time_ms(lambda: plain_forward(images), iters=5)
+        fwd_plain_ms = time_ms(lambda: plain_cnn_forward(images, model),
+                               iters=5)
     print(f"[vgg16] forward ms: kernels {fwd_ms:.3f} plain {fwd_plain_ms:.3f}")
 
     # -- 5. the main path: ConvServer --------------------------------------
@@ -363,7 +1053,7 @@ def main(argv=None) -> int:
         err = 0.0
         for r in reqs:
             img = torch.from_numpy(server.bucketer.pad(r.image, r.bucket))
-            want = plain_forward(img[None].to(dev))[0].cpu().numpy()
+            want = plain_cnn_forward(img[None].to(dev), model)[0].cpu().numpy()
             err = max(err, float(np.abs(r.logits - want).max()
                                  / max(np.abs(want).max(), 1e-30)))
     print(f"[serve] logits vs plain PyTorch forward of the padded image: "
@@ -375,6 +1065,8 @@ def main(argv=None) -> int:
           f"latency p50 {np.percentile(lat, 50):.3f} ms p99 "
           f"{np.percentile(lat, 99):.3f} ms, occupancy "
           f"{server.occupancy():.3f}")
+
+    print(f"[time] phase 5 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 6. per-layer times ------------------------------------------------
     rows, timed = [], {}
@@ -498,6 +1190,8 @@ def main(argv=None) -> int:
           f"the rows summed in order -> ok")
     del parts, got, want
 
+    print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
+
     # -- 8. the second main path: VGG-16 training ---------------------------
     train_model = vgg16_blocked(
         1000, device=dev, generator=torch.Generator().manual_seed(args.seed + 1))
@@ -514,7 +1208,7 @@ def main(argv=None) -> int:
     def plain_step(st, bt):
         for p in plain_params.values():
             p.grad = None
-        logits_p = plain_forward(bt["images"], plain_model)
+        logits_p = plain_cnn_forward(bt["images"], plain_model)
         loss_p, _ = cross_entropy(logits_p[:, None, :],
                                   bt["targets"][:, None], 1000)
         loss_p.backward()
@@ -701,15 +1395,27 @@ def main(argv=None) -> int:
           f"{saved / 2**20:.1f} + largest wgrad workspace "
           f"{ws_max / 2**20:.1f}")
 
+    print(f"[time] phase 9 done at {time.perf_counter() - t_start:.1f} s")
+    del train_model, state, train_batches, bwd_ops, step, params
+    torch.cuda.empty_cache()
+
+    mb_entries, mb_counts = mobilenet_phases(args, dev, t_start)
+
+    # launches of each main-path run: VGG-16 served and trained, MobileNet
+    # v1 served and trained
+    launches = {k: served[k] + train_counts[k] + mb_counts[k]
+                for k in served}
+    print(f"[launches] VGG-16 served {served} trained {train_counts}; "
+          f"MobileNet v1 served and trained {mb_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
-         "launches": served["direct_conv2d_fwd"],
+         "launches": launches["direct_conv2d_fwd"],
          "max_abs_err": max_err["direct_conv2d_fwd"], "ms": tot[0],
          "plain_ms": tot[1], "bound_ms": tot[3], "bound_by": conv_by,
          "library_ms": tot[2]},
         {"name": "gap_finalize", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": served["gap_finalize"],
+         "replaces": TPU_KERNEL, "launches": launches["gap_finalize"],
          "max_abs_err": max_err["gap_finalize"], "ms": g_ms,
          "plain_ms": gp_ms, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None},
@@ -720,10 +1426,11 @@ def main(argv=None) -> int:
         k_ms, p_ms, l_ms, b_ms = sums[kind]
         kernels.append({
             "name": name, "route": "cuda", "source": BWD_SOURCE,
-            "replaces": tpu, "launches": train_counts[name],
+            "replaces": tpu, "launches": launches[name],
             "max_abs_err": bwd_err[name], "ms": k_ms, "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": mostly(kinds[kind]),
             "library_ms": l_ms})
+    kernels.extend(mb_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,6 @@
-"""VGG-16 (Simonyan & Zisserman 2014, Table 1, configuration D) as a dense
+"""The CNNs of the port's main paths: VGG-16 and MobileNet v1.
+
+VGG-16 (Simonyan & Zisserman 2014, Table 1, configuration D) as a dense
 ``BlockedCNN``.
 
 The 13 convs run at the published widths ``64,64 | 128,128 | 256x3 |
@@ -12,8 +14,27 @@ The 13 convs run at the published widths ``64,64 | 128,128 | 256x3 |
    ``512 -> n_classes`` linear head.
 
 Every conv's output extent and FLOP count equal VGG-16's: about 15.35 GMAC
-(30.7 GFLOP) of convs per 224x224 image.  ``width_div`` divides every width
-and exists only so that tests can build the same stack narrow.
+(30.7 GFLOP) of convs per 224x224 image.
+
+MobileNet v1 (Howard et al. 2017, arXiv:1704.04861, Table 1: width
+multiplier 1.0, resolution 224) as a ``BlockedCNN`` of one dense conv and
+13 ``DepthwiseSeparableBlock``s: ``conv1`` 3x3 stride 2, 3 -> 32, then the
+blocks of ``MOBILENET_V1_BLOCKS``, each a 3x3 depthwise conv and a 1x1
+pointwise conv with ReLU after each (ReLU, not ReLU6, as the paper
+writes).  The last block's pointwise conv pools in its epilogue, and a
+``1024 -> n_classes`` head follows.  569 M multiply-adds per 224x224 image
+and 4.2 M parameters at 1000 classes.  Three reductions:
+
+1. batch norm is folded into each conv's bias (the port trains without
+   it);
+2. the fully connected layer is the port's head, a ``torch.matmul``
+   outside any kernel;
+3. the last depthwise conv runs at stride 1: Table 1 prints "s2" at 7x7
+   input and 7x7 output, a known erratum; TF-slim's ``mobilenet_v1`` uses
+   stride 1 there.
+
+``width_div`` divides every width of either network and exists only so
+that tests can build the same stack narrow.
 """
 from __future__ import annotations
 
@@ -21,9 +42,12 @@ from typing import List, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.nn.conv import BlockedCNN, BlockedConv2D
+from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,
+                                 DepthwiseSeparableBlock)
 
-__all__ = ["VGG16_WIDTHS", "VGG16_STRIDE2", "vgg16_layers", "vgg16_blocked"]
+__all__ = ["VGG16_WIDTHS", "VGG16_STRIDE2", "vgg16_layers", "vgg16_blocked",
+           "MOBILENET_V1_CONV1", "MOBILENET_V1_BLOCKS", "mobilenet_v1_layers",
+           "mobilenet_v1_blocked"]
 
 VGG16_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
 # first conv of stages 2-5: where VGG-16 max-pools, these convs stride
@@ -54,3 +78,44 @@ def vgg16_blocked(n_classes: int = 1000, width_div: int = 1, *,
                            activation="relu", device=device, generator=gen)
              for ci, co, s in vgg16_layers(width_div)]
     return BlockedCNN(convs, n_classes, device=device, generator=gen)
+
+
+# conv1: (ci, co, stride); then the 13 separable blocks as (ci, co, stride)
+MOBILENET_V1_CONV1 = (3, 32, 2)
+MOBILENET_V1_BLOCKS = ((32, 64, 1), (64, 128, 2), (128, 128, 1),
+                       (128, 256, 2), (256, 256, 1), (256, 512, 2),
+                       *((512, 512, 1),) * 5, (512, 1024, 2),
+                       (1024, 1024, 1))
+
+
+def mobilenet_v1_layers(width_div: int = 1
+                        ) -> List[Tuple[str, int, int, int]]:
+    """``conv1`` and the 13 blocks as ``(kind, ci, co, stride)``, kind
+    ``"conv"`` or ``"separable"``; the image's 3 channels are never
+    divided."""
+    widths = [co for _, co, _ in MOBILENET_V1_BLOCKS]
+    if width_div < 1 or any(c % width_div for c in widths + [32]):
+        raise ValueError(f"width_div={width_div} must divide every width")
+    ci0, co0, s0 = MOBILENET_V1_CONV1
+    layers = [("conv", ci0, co0 // width_div, s0)]
+    for ci, co, s in MOBILENET_V1_BLOCKS:
+        layers.append(("separable", ci // width_div, co // width_div, s))
+    return layers
+
+
+def mobilenet_v1_blocked(n_classes: int = 1000, width_div: int = 1, *,
+                         lane: int = 128,
+                         device: Union[str, torch.device] = "cuda",
+                         generator: Optional[torch.Generator] = None
+                         ) -> BlockedCNN:
+    """MobileNet v1 with random weights drawn from ``generator`` (seed 0
+    when None), on ``device``.  Every conv is 3x3 SAME with ReLU, except
+    the blocks' 1x1 pointwise legs."""
+    gen = generator if generator is not None else torch.Generator().manual_seed(0)
+    layers = []
+    for kind, ci, co, s in mobilenet_v1_layers(width_div):
+        cls = BlockedConv2D if kind == "conv" else DepthwiseSeparableBlock
+        layers.append(cls(ci, co, 3, 3, stride=s, padding="SAME",
+                          activation="relu", lane=lane, device=device,
+                          generator=gen))
+    return BlockedCNN(layers, n_classes, device=device, generator=gen)

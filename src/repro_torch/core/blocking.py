@@ -16,12 +16,23 @@ TPU VMEM.  On the H100 the scarce resources of one CTA are different:
   96 KB so that two CTAs share one SM, as the kernel's launch bound
   (two CTAs of 256 threads, at most 128 registers each) asks.
 
+Every chooser is a pure function of its arguments and is cached by them,
+so a layer pays for its search once, not at every launch.
+
 The reference's rules are kept: ``hob``/``wob`` divide ``Ho``/``Wo`` (so a
 tile never straddles the map's edge) and the tile shrinks rows first, then
 columns.  Where the reference halves a dim until it fits, this model takes
 the largest divisor that fits, which is never smaller.  ``MachineModel``'s
 ``threads``/``lanes``/``positions`` must equal the compiled kernels'
 constants; the kernel wrappers check them against the built libraries.
+
+The separable family has choosers of its own: ``choose_pointwise_blocking``
+(the channel matmul of ``csrc/conv2d_pointwise.cu``, forward and dgrad),
+``choose_pointwise_wgrad_blocking``, ``choose_depthwise_blocking`` (the
+tap kernel of ``csrc/conv2d_depthwise.cu``, forward and dgrad) and
+``choose_depthwise_wgrad_blocking``.  Each sizes its CTA tile so that the
+grid fills the card where the map allows it (``MachineModel.wave``), and
+the wgrads split their position reductions as the dense wgrad does.
 
 The backward kernels (``csrc/direct_conv2d_bwd.cu``) reuse the vocabulary:
 
@@ -39,6 +50,7 @@ The backward kernels (``csrc/direct_conv2d_bwd.cu``) reuse the vocabulary:
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 from repro_torch.core.conv2d_common import halo_dims
 from repro_torch.core.layout import divisors
@@ -46,7 +58,13 @@ from repro_torch.core.layout import divisors
 __all__ = ["MachineModel", "H100_SXM", "Blocking", "tile_positions",
            "smem_bytes", "choose_blocking", "dgrad_extents", "dgrad_window",
            "DgradBlocking", "dgrad_smem_bytes", "choose_dgrad_blocking",
-           "WgradBlocking", "wgrad_smem_bytes", "choose_wgrad_blocking"]
+           "WgradBlocking", "wgrad_smem_bytes", "choose_wgrad_blocking",
+           "PointwiseBlocking", "pointwise_smem_bytes",
+           "choose_pointwise_blocking", "PointwiseWgradBlocking",
+           "pointwise_wgrad_smem_bytes", "choose_pointwise_wgrad_blocking",
+           "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DepthwiseBlocking", "depthwise_smem_bytes",
+           "choose_depthwise_blocking", "DepthwiseWgradBlocking",
+           "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +76,11 @@ class MachineModel:
     smem_budget: int      # shared-memory bytes one CTA may stage
     sms: int = 132        # streaming multiprocessors
     ctas_per_sm: int = 2  # resident CTAs the kernels' launch bounds ask for
+
+    @property
+    def wave(self) -> int:
+        """CTAs the card holds at once: the grid size that fills it."""
+        return self.sms * self.ctas_per_sm
 
 
 H100_SXM = MachineModel(
@@ -120,6 +143,7 @@ def _fit_tile(ho: int, wo: int, cap: int, pencil: int, stage, budget: int,
     return h, w, largest_fitting(pencil, lambda c: fits(h, w, c))
 
 
+@functools.lru_cache(maxsize=4096)
 def choose_blocking(hi: int, wi: int, ci: int, co: int, hf: int, wf: int,
                     stride: int, cob: int, cib: int,
                     machine: MachineModel = H100_SXM,
@@ -206,6 +230,7 @@ def dgrad_smem_bytes(hob: int, wob: int, chunk: int, cib: int, hf: int,
                 + chunk)
 
 
+@functools.lru_cache(maxsize=4096)
 def choose_dgrad_blocking(hi: int, wi: int, hf: int, wf: int, stride: int,
                           cib: int, cob: int,
                           machine: MachineModel = H100_SXM) -> DgradBlocking:
@@ -258,6 +283,7 @@ def wgrad_smem_bytes(hob: int, wob: int, cib: int, cob: int, hf: int,
 WGRAD_MAX_POSITIONS = 256
 
 
+@functools.lru_cache(maxsize=4096)
 def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, coblk: int,
                           cob: int, machine: MachineModel = H100_SXM
@@ -302,8 +328,302 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
             "shared memory even at 1x1")
     _, h, w = best
     tiles = n * (ho // h) * (wo // w)
-    base = tap_groups * ciblk * coblk
-    target = 2 * machine.ctas_per_sm * machine.sms
-    splits = max(1, min(tiles, -(-target // base)))
+    splits = _splits(tiles, tap_groups * ciblk * coblk, machine)
     return WgradBlocking(hob=h, wob=w, taps=taps, tap_groups=tap_groups,
                          tiles=tiles, splits=splits)
+
+
+def _splits(tiles: int, base: int, machine: MachineModel) -> int:
+    """Position shares of a split reduction: enough that the grid holds the
+    card's resident CTAs twice over, never more shares than tiles."""
+    return max(1, min(tiles, -(-2 * machine.wave // base)))
+
+
+# ---------------------------------------------------------------------------
+# pointwise (1x1, stride 1): the channel matmul
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class PointwiseBlocking:
+    """Launch parameters of the channel-matmul kernel (the pointwise forward,
+    and its dgrad with the pencils' roles swapped).  A CTA computes
+    ``positions`` consecutive positions of one image for the whole output
+    pencil, contracting the input pencils ``chunk`` channels at a time;
+    each image has ``tiles`` position tiles, the last one ragged.  The
+    staged input rows are ``ldx`` floats apart, the staged weight rows
+    ``ldw`` (padded when the dgrad writes them transposed)."""
+    positions: int
+    chunk: int
+    tiles: int
+    ldx: int
+    ldw: int
+
+
+def _pad_row(n: int) -> int:
+    # four floats of padding move neighbouring staged rows four banks
+    # apart and keep a row's float4 accesses aligned
+    return n + 4 if n % 4 == 0 else n
+
+
+def pointwise_smem_bytes(positions: int, chunk: int, ob: int,
+                         machine: MachineModel = H100_SXM,
+                         gap: bool = False, transposed: bool = False) -> int:
+    """Dynamic shared memory of one channel-matmul CTA: the staged weight
+    chunk ``[chunk, ldw]`` and input rows ``[positions, ldx]`` (f32); with
+    ``gap`` at least the ``[position groups, ob]`` partial sums."""
+    ldw = _pad_row(ob) if transposed else ob
+    stage = 4 * (chunk * ldw + positions * _pad_row(chunk))
+    if gap:
+        stage = max(stage, 4 * (machine.threads // -(-ob // machine.lanes))
+                    * ob)
+    return stage
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_pointwise_blocking(n: int, hw: int, kb: int, oblk: int, ob: int,
+                              machine: MachineModel = H100_SXM,
+                              gap: bool = False, transposed: bool = False
+                              ) -> PointwiseBlocking:
+    """Tile a channel matmul over ``n`` images of ``hw`` positions with an
+    input pencil ``kb`` (the contraction) and ``oblk`` output pencils of
+    ``ob`` lanes; ``transposed`` for the dgrad, which stages the weight
+    transposed.
+
+    A thread holds 8, 4 or 2 positions of 8 lanes (the kernel is compiled
+    for each), so a CTA tile is that many times its position groups, or
+    the whole map when it is smaller.  The largest tile whose grid ``n *
+    tiles * oblk`` still fills the card (``machine.wave`` CTAs) is taken;
+    where none does, as on 7x7 and 14x14 maps, two positions a thread, the
+    fewest that keep the FMAs ahead of the shared-memory reads.  ``chunk``
+    is then the largest divisor of ``kb`` that fits the budget.
+    """
+    if hw <= 0 or n <= 0:
+        raise ValueError(f"empty map: n={n}, hw={hw}")
+    groups = tile_positions(ob, machine) // machine.positions
+    sizes = [min(hw, groups * k) for k in (8, 4, 2)]
+    positions = next((p for p in sizes
+                      if n * -(-hw // p) * oblk >= machine.wave), sizes[-1])
+    chunk = next((c for c in reversed(divisors(kb))
+                  if pointwise_smem_bytes(positions, c, ob, machine, gap,
+                                          transposed)
+                  <= machine.smem_budget), None)
+    if chunk is None:
+        raise ValueError(f"no channel chunk fits: {positions} positions x "
+                         f"ob={ob} need more than {machine.smem_budget} "
+                         "bytes of shared memory")
+    return PointwiseBlocking(
+        positions=positions, chunk=chunk, tiles=-(-hw // positions),
+        ldx=_pad_row(chunk), ldw=_pad_row(ob) if transposed else ob)
+
+
+@dataclasses.dataclass(frozen=True)
+class PointwiseWgradBlocking:
+    """Launch parameters of the pointwise wgrad.  A CTA owns one ``[Cib,
+    Cob]`` block; its threads split into ``pgroups`` position groups of
+    ``8 x 8`` register tiles each (one group at 128 x 128), which walk a
+    contiguous share of the ``tiles`` position tiles (``positions`` of one
+    image each, the last one of an image ragged), ``splits`` shares per
+    block.  The groups' sums meet in shared memory in group order; the
+    shares' in a ``[splits, |dw| + |db|]`` workspace."""
+    positions: int
+    pgroups: int
+    tiles: int
+    splits: int
+
+
+PW_WGRAD_MAX_POSITIONS = 64
+
+
+def pointwise_wgrad_smem_bytes(positions: int, cib: int, cob: int,
+                               pgroups: int) -> int:
+    """The staged x rows (rounded up to 16 bytes) and dz rows of one tile,
+    or the position groups' partial ``[Cib, Cob]`` blocks and ``db`` rows
+    when those are larger (they reuse the staging buffer)."""
+    stage = -(-positions * cib // 4) * 4 + positions * cob
+    return 4 * max(stage, pgroups * (cib * cob + cob))
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_pointwise_wgrad_blocking(n: int, hw: int, ciblk: int, cib: int,
+                                    coblk: int, cob: int,
+                                    machine: MachineModel = H100_SXM
+                                    ) -> PointwiseWgradBlocking:
+    """Tile the pointwise weight gradient: ``PW_WGRAD_MAX_POSITIONS`` (or
+    fewer, to fit the budget) positions a tile; splits as the dense
+    wgrad's."""
+    groups = -(-cib // machine.lanes) * -(-cob // machine.lanes)
+    if groups > machine.threads:
+        raise ValueError(f"cib={cib} x cob={cob} needs {groups} thread "
+                         f"groups; a CTA has {machine.threads} threads")
+    pgroups = machine.threads // groups
+    positions = min(hw, PW_WGRAD_MAX_POSITIONS)
+    while pointwise_wgrad_smem_bytes(positions, cib, cob, pgroups) \
+            > machine.smem_budget:
+        if positions == 1:
+            raise ValueError(f"no pointwise wgrad tile fits: cib={cib}, "
+                             f"cob={cob}")
+        positions //= 2
+    tiles = n * -(-hw // positions)
+    return PointwiseWgradBlocking(
+        positions=positions, pgroups=pgroups, tiles=tiles,
+        splits=_splits(tiles, ciblk * coblk, machine))
+
+
+# ---------------------------------------------------------------------------
+# depthwise: the per-lane tap loop
+# ---------------------------------------------------------------------------
+
+# filter taps one depthwise thread holds in registers (5x5)
+DW_MAX_TAPS = 25
+# the most positions of a tile that one depthwise thread computes: bounds a
+# tile at (threads // Cb) * DW_THREAD_POSITIONS positions
+DW_THREAD_POSITIONS = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseBlocking:
+    """Launch parameters of the depthwise tap kernel: a ``hob x wob`` tile
+    of the output (forward) or of the unpadded input gradient (dgrad) per
+    CTA, over a staged ``hwin x wwin`` window of the input (forward) or of
+    the cotangent (dgrad), the whole ``Cb`` pencil at once."""
+    hob: int
+    wob: int
+    hwin: int
+    wwin: int
+
+
+def depthwise_smem_bytes(hwin: int, wwin: int, cb: int,
+                         machine: MachineModel = H100_SXM,
+                         gap: bool = False) -> int:
+    """The staged f32 window; with ``gap`` at least the ``[position groups,
+    Cb]`` partial sums."""
+    stage = 4 * hwin * wwin * cb
+    if gap:
+        stage = max(stage, 4 * (machine.threads // cb) * cb)
+    return stage
+
+
+def _depthwise_groups(cb: int, machine: MachineModel) -> int:
+    if cb > machine.threads:
+        raise ValueError(f"pencil Cb={cb} wider than a CTA's "
+                         f"{machine.threads} threads")
+    return machine.threads // cb
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
+                              hf: int, wf: int, stride: int = 1,
+                              dilation=(1, 1),
+                              machine: MachineModel = H100_SXM,
+                              dgrad: bool = False,
+                              gap: bool = False) -> DepthwiseBlocking:
+    """Tile the depthwise forward over its ``ho x wo`` output or, with
+    ``dgrad``, the input gradient over the unpadded ``ho x wo`` input.
+
+    A thread holds one lane and up to ``DW_THREAD_POSITIONS`` positions,
+    so a tile has at most ``(threads // Cb) * DW_THREAD_POSITIONS``
+    positions;
+    its window must fit the shared-memory budget.  Tiles divide the grid.
+    Among the tiles that give every thread a position, the largest whose
+    grid ``n * cblk * tiles`` fills the card (``machine.wave``) is taken,
+    ties to the smaller window; where none does, the one with the most
+    CTAs."""
+    groups = _depthwise_groups(cb, machine)
+    cap = groups * DW_THREAD_POSITIONS
+    hf_eff = (hf - 1) * dilation[0] + 1
+    wf_eff = (wf - 1) * dilation[1] + 1
+
+    def window(h: int, w: int) -> tuple[int, int]:
+        if dgrad:
+            return dgrad_window(h, w, hf_eff, wf_eff, stride)
+        return halo_dims(h, w, hf, wf, stride, dilation)
+
+    fits = []
+    for h in divisors(ho):
+        for w in divisors(wo):
+            win = window(h, w)
+            if h * w <= cap and depthwise_smem_bytes(
+                    *win, cb, machine, gap) <= machine.smem_budget:
+                fits.append((h, w, win))
+    if not fits:
+        raise ValueError(
+            f"no depthwise tile fits: Cb={cb}, filter {hf}x{wf}, stride "
+            f"{stride}, dilation {dilation} needs more than "
+            f"{machine.smem_budget} bytes of shared memory even at 1x1")
+
+    def grid(h: int, w: int) -> int:
+        return n * cblk * (ho // h) * (wo // w)
+
+    # tiles that give every thread a position, where the map has any
+    busy = [f for f in fits if f[0] * f[1] >= groups] or fits
+    full = [f for f in busy if grid(f[0], f[1]) >= machine.wave]
+    if full:
+        h, w, win = max(full, key=lambda f: (f[0] * f[1],
+                                             -f[2][0] * f[2][1]))
+    else:
+        h, w, win = max(busy, key=lambda f: (grid(f[0], f[1]),
+                                             -f[2][0] * f[2][1]))
+    return DepthwiseBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseWgradBlocking:
+    """Launch parameters of the depthwise wgrad: a CTA holds one pencil's
+    ``[Hf*Wf, Cb]`` tap sums, a lane and its taps per thread, and walks a
+    contiguous share of the ``tiles`` position tiles (``hob x wob`` outputs
+    of one image); ``splits`` shares per pencil block.  The position
+    groups' sums meet in shared memory in group order; the shares' in a
+    ``[splits, |dw| + |db|]`` workspace."""
+    hob: int
+    wob: int
+    tiles: int
+    splits: int
+
+
+DW_WGRAD_MAX_POSITIONS = 256
+
+
+def depthwise_wgrad_smem_bytes(hob: int, wob: int, cb: int, hf: int, wf: int,
+                               stride: int, dilation=(1, 1),
+                               machine: MachineModel = H100_SXM) -> int:
+    """The halo'd f32 x window (rounded up to 16 bytes) and the cotangent
+    tile, or the position groups' ``[Hf*Wf + 1, Cb]`` partial sums when
+    those are larger (they reuse the staging buffer)."""
+    hib, wib = halo_dims(hob, wob, hf, wf, stride, dilation)
+    stage = -(-hib * wib * cb // 4) * 4 + hob * wob * cb
+    red = _depthwise_groups(cb, machine) * (hf * wf + 1) * cb
+    return 4 * max(stage, red)
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
+                                    cb: int, hf: int, wf: int,
+                                    stride: int = 1, dilation=(1, 1),
+                                    machine: MachineModel = H100_SXM
+                                    ) -> DepthwiseWgradBlocking:
+    """Tile the depthwise weight gradient: the ``hob x wob`` (dividing ``Ho
+    x Wo``) with the most positions, up to ``DW_WGRAD_MAX_POSITIONS``,
+    that fits the budget, ties to the smaller window; splits as the dense
+    wgrad's."""
+    if hf * wf > DW_MAX_TAPS:
+        raise ValueError(f"filter {hf}x{wf} has more than {DW_MAX_TAPS} taps")
+    best = None
+    for h in divisors(ho):
+        for w in divisors(wo):
+            if h * w > DW_WGRAD_MAX_POSITIONS:
+                continue
+            smem = depthwise_wgrad_smem_bytes(h, w, cb, hf, wf, stride,
+                                              dilation, machine)
+            if smem > machine.smem_budget:
+                continue
+            key = (h * w, -smem)
+            if best is None or key > best[0]:
+                best = (key, h, w)
+    if best is None:
+        raise ValueError(
+            f"no depthwise wgrad tile fits: Cb={cb}, filter {hf}x{wf}, "
+            f"stride {stride} needs more than {machine.smem_budget} bytes")
+    _, h, w = best
+    tiles = n * (ho // h) * (wo // w)
+    return DepthwiseWgradBlocking(hob=h, wob=w, tiles=tiles,
+                                  splits=_splits(tiles, cblk, machine))

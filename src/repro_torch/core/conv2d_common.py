@@ -38,10 +38,16 @@ __all__ = ["ACTIVATIONS", "apply_activation", "halo_dims", "tap_windows",
 
 # Epilogue activations.  "gelu" is the reference's ``jax.nn.gelu``, whose
 # default is the tanh approximation; the CUDA epilogue uses the same formula.
+# "relu" is the reference's ``jnp.maximum(z, 0)``: the same values as
+# ``torch.relu``, and under autograd the same derivative at ``z == 0``, 1/2
+# (torch.relu's is 0), so that torch autograd through the plain versions
+# agrees with the kernels' ``cotangent_prologue`` where a pre-activation is
+# exactly 0, as a depthwise channel whose input was all cut by the previous
+# relu is.
 ACTIVATIONS = {
     None: lambda x: x,
     "linear": lambda x: x,
-    "relu": torch.relu,
+    "relu": lambda x: torch.maximum(x, x.new_zeros(())),
     "gelu": lambda x: F.gelu(x, approximate="tanh"),
 }
 
@@ -55,22 +61,26 @@ def apply_activation(x: torch.Tensor, name: Optional[str]) -> torch.Tensor:
     return fn(x)
 
 
-def halo_dims(hob: int, wob: int, hf: int, wf: int,
-              stride: int = 1) -> Tuple[int, int]:
-    """Input rows/cols feeding one (hob x wob) output tile, halo included."""
-    return (hob - 1) * stride + hf, (wob - 1) * stride + wf
+def halo_dims(hob: int, wob: int, hf: int, wf: int, stride: int = 1,
+              dilation: Tuple[int, int] = (1, 1)) -> Tuple[int, int]:
+    """Input rows/cols feeding one (hob x wob) output tile, halo included
+    (the filter's dilated extent)."""
+    return ((hob - 1) * stride + (hf - 1) * dilation[0] + 1,
+            (wob - 1) * stride + (wf - 1) * dilation[1] + 1)
 
 
 def tap_windows(xp: torch.Tensor, hf: int, wf: int, ho: int, wo: int,
-                stride: int = 1,
+                stride: int = 1, dilation: Tuple[int, int] = (1, 1),
                 ) -> Iterator[Tuple[Tuple[int, int], torch.Tensor]]:
     """Yield ``((dh, dw), view)`` for every filter tap of a padded blocked
     map ``[..., Hi, Wi, Cb]``; each view is ``[..., Ho, Wo, Cb]`` and shares
-    storage with ``xp`` (a strided slice, no copy)."""
+    storage with ``xp`` (a strided slice, no copy).  Tap ``(dh, dw)``
+    starts at ``(dh * dilation[0], dw * dilation[1])``."""
     for dh in range(hf):
         for dw in range(wf):
-            yield (dh, dw), xp[..., dh:dh + (ho - 1) * stride + 1:stride,
-                               dw:dw + (wo - 1) * stride + 1:stride, :]
+            h0, w0 = dh * dilation[0], dw * dilation[1]
+            yield (dh, dw), xp[..., h0:h0 + (ho - 1) * stride + 1:stride,
+                               w0:w0 + (wo - 1) * stride + 1:stride, :]
 
 
 def epilogue(acc: torch.Tensor, bias: Optional[torch.Tensor],

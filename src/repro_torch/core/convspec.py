@@ -9,6 +9,7 @@ Cob]`` with ``Cig = Ci // groups``; dense convs are ``groups=1``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple, Union
 
 from repro_torch.core.padding import Padding, normalize_padding, out_size
@@ -65,11 +66,16 @@ class ConvSpec:
     def make(cls, n: int, hi: int, wi: int, ci: int, co: int, hf: int,
              wf: int, stride: int = 1, padding: Padding = "VALID",
              groups: int = 1, dilation: Dilation = 1) -> "ConvSpec":
-        """Normalize ``padding``/``dilation`` and build the frozen spec."""
-        dh, dw = as_dilation(dilation)
-        pads = normalize_padding(padding, (hf - 1) * dh + 1,
-                                 (wf - 1) * dw + 1, stride, hi, wi)
-        return cls(n, hi, wi, ci, co, hf, wf, stride, pads, groups, (dh, dw))
+        """Normalize ``padding``/``dilation`` and build the frozen spec.
+
+        Specs are cached by their arguments (a spec is frozen), so a layer
+        that builds one at every call pays for it once."""
+        if not isinstance(padding, (str, int)):
+            padding = tuple(tuple(p) for p in padding)
+        if not isinstance(dilation, int):
+            dilation = tuple(dilation)
+        return _make(cls, n, hi, wi, ci, co, hf, wf, stride, padding, groups,
+                     dilation)
 
     @property
     def hf_eff(self) -> int:
@@ -103,10 +109,34 @@ class ConvSpec:
 
     @property
     def is_dense(self) -> bool:
-        """Ungrouped and undilated: the only geometry this slice serves."""
+        """Ungrouped and undilated: the geometry of the dense kernels."""
         return self.groups == 1 and self.dilation == (1, 1)
+
+    @property
+    def is_grouped(self) -> bool:
+        return self.groups > 1
+
+    @property
+    def is_depthwise(self) -> bool:
+        """One channel per group, multiplier 1: MobileNet's dw conv."""
+        return self.groups > 1 and self.groups == self.ci == self.co
+
+    @property
+    def is_pointwise(self) -> bool:
+        """1x1 dense stride-1 unpadded conv: a pure channel matmul."""
+        return (self.hf == 1 and self.wf == 1 and self.stride == 1
+                and self.groups == 1 and self.pads == ((0, 0), (0, 0)))
 
     def flops(self) -> int:
         """MACs x2; each output channel contracts ``cig`` inputs per tap."""
         return (2 * self.n * self.ho * self.wo * self.hf * self.wf
                 * self.cig * self.co)
+
+
+@functools.lru_cache(maxsize=4096)
+def _make(cls, n, hi, wi, ci, co, hf, wf, stride, padding, groups,
+          dilation) -> ConvSpec:
+    dh, dw = as_dilation(dilation)
+    pads = normalize_padding(padding, (hf - 1) * dh + 1, (wf - 1) * dw + 1,
+                             stride, hi, wi)
+    return cls(n, hi, wi, ci, co, hf, wf, stride, pads, groups, (dh, dw))

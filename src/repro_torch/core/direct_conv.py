@@ -1,24 +1,27 @@
 """Zero-memory-overhead direct convolution (paper §3), plain PyTorch.
 
-``direct_conv_blocked`` is the plain version of the forward kernel: the tap
-loop of the reference (``repro/core/direct_conv.py``) as one
-``torch.einsum`` per filter tap over a strided view of the padded blocked
-input, accumulated in f32, followed by the fused epilogue (bias,
-activation, residual, one downcast) and the optional GAP rider.  The CPU
-path of every layer runs it, and ``chip_smoke.py`` holds the CUDA kernel
-against it on the card.
+``direct_conv_blocked`` is the plain version of the forward kernels: the
+tap loop of the reference (``repro/core/direct_conv.py``) as one product
+per filter tap over a strided view of the padded blocked input,
+accumulated in f32, followed by the fused epilogue (bias, activation,
+residual, one downcast) and the optional GAP rider.  Per tap, a dense conv
+contracts the Cib pencil (``torch.einsum``); a depthwise conv (``groups ==
+C``, weight ``[C/Cb, 1, Hf, Wf, 1, Cb]``, the reference's depthwise-lanes
+geometry) multiplies each lane by its own tap weight.  Filter dilation
+strides the tap origins.  The CPU path of every layer runs it, and
+``chip_smoke.py`` holds the CUDA kernels against it on the card.
 
 ``direct_conv_dgrad_blocked`` and ``direct_conv_wgrad_blocked`` are the
-plain versions of the two backward kernels: the transposes of that tap
-loop (what ``jax.vjp`` of the reference gives), tap by tap, with the
-``dz = g * act'(z)`` prologue and ``db``.  They accumulate in f32, or in
-f64 for f64 operands, so that the CPU can check gradients numerically and
-``chip_smoke.py`` can hold the wgrad kernel's long sums against f64.
-They pad and crop copies freely: they are references, not the main path.
+plain versions of the backward kernels, dense and depthwise: the
+transposes of that tap loop (what ``jax.vjp`` of the reference gives), tap
+by tap, with the ``dz = g * act'(z)`` prologue and ``db``.  They
+accumulate in f32, or in f64 for f64 operands, so that the CPU can check
+gradients numerically and ``chip_smoke.py`` can hold the wgrad kernels'
+long sums against f64.  They pad and crop copies freely: they are
+references, not the main path.
 
-Only dense geometry is served in this slice: grouped, dilated and
-depthwise-lane convolutions raise ``NotImplementedError`` naming the kernel
-zoo slice that brings them.
+Grouped convolutions with more than one input channel per group raise
+``NotImplementedError``: they belong to the grouped/dilated dense slice.
 """
 from __future__ import annotations
 
@@ -58,30 +61,46 @@ def bias_to_blocked(bias: torch.Tensor, cb_out: int) -> torch.Tensor:
     return bias.reshape(-1, cb_out)
 
 
+def _geometry(n: int, hi: int, wi: int, w_shape, stride: int,
+              padding: Padding, groups: int, dilation) -> ConvSpec:
+    """The spec of a conv with blocked weights of ``w_shape``: dense
+    ``[Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]`` or, with ``groups > 1``,
+    depthwise ``[C/Cb, 1, Hf, Wf, 1, Cb]``."""
+    coblk, ciblk_w, hf, wf, cib_w, cob = w_shape
+    co = coblk * cob
+    ci = co if groups > 1 else ciblk_w * cib_w
+    spec = ConvSpec.make(n, hi, wi, ci, co, hf, wf, stride=stride,
+                         padding=padding, groups=groups, dilation=dilation)
+    if spec.is_grouped and not spec.is_depthwise:
+        raise NotImplementedError(
+            f"groups={groups} with {spec.cig} input channels per group: "
+            "grouped convolutions arrive with the grouped/dilated slice of "
+            "the kernel zoo")
+    if spec.is_depthwise and (ciblk_w, cib_w) != (1, 1):
+        raise ValueError(f"a depthwise weight is [C/Cb, 1, Hf, Wf, 1, Cb]; "
+                         f"got {tuple(w_shape)}")
+    if spec.ho <= 0 or spec.wo <= 0:
+        raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
+    return spec
+
+
 def conv_spec(x: torch.Tensor, w: torch.Tensor, stride: int,
               padding: Padding, groups: int = 1,
               dilation=1) -> ConvSpec:
-    """The dense conv geometry of blocked operands; raises on the geometry
-    this slice does not serve and on operands that do not chain."""
+    """The conv geometry of blocked operands, dense or depthwise; raises on
+    grouped geometry and on operands that do not chain."""
     if x.dim() != 5 or w.dim() != 6:
         raise ValueError(f"expected x [N, Ci/Cib, H, W, Cib] and w [Co/Cob, "
                          f"Ci/Cib, Hf, Wf, Cib, Cob]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
     n, ciblk, hi, wi, cib = x.shape
-    coblk, ciblk_w, hf, wf, cib_w, cob = w.shape
-    spec = ConvSpec.make(n, hi, wi, ciblk * cib, coblk * cob, hf, wf,
-                         stride=stride, padding=padding, groups=groups,
-                         dilation=dilation)
-    if not spec.is_dense:
-        raise NotImplementedError(
-            f"groups={spec.groups}, dilation={spec.dilation}: grouped, "
-            "dilated and depthwise convolutions arrive with the kernel zoo "
-            "slice of the port")
-    if (ciblk_w, cib_w) != (ciblk, cib):
-        raise ValueError(f"weight input blocks {(ciblk_w, cib_w)} do not "
-                         f"match the map's {(ciblk, cib)}")
-    if spec.ho <= 0 or spec.wo <= 0:
-        raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
+    spec = _geometry(n, hi, wi, w.shape, stride, padding, groups, dilation)
+    # a depthwise conv keeps the map's pencil; a dense one contracts it
+    want = (w.shape[0], w.shape[5]) if spec.is_depthwise else \
+        (w.shape[1], w.shape[4])
+    if want != (ciblk, cib):
+        raise ValueError(f"weight input blocks {want} do not match the "
+                         f"map's {(ciblk, cib)}")
     return spec
 
 
@@ -94,16 +113,19 @@ def _acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
 
 def _accumulate(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
                 dtype: torch.dtype) -> torch.Tensor:
-    """``sum_taps x_win @ w[tap]`` in ``dtype`` -> ``[N, Co/Cob, Ho, Wo,
-    Cob]``."""
+    """``sum_taps x_win @ w[tap]`` (dense) or ``x_win * w[tap]`` (depthwise)
+    in ``dtype`` -> ``[N, Co/Cob, Ho, Wo, Cob]``."""
     xp = pad_blocked(x, *spec.pads).to(dtype)
     wd = w.to(dtype)
     acc = None
     for (dh, dw), win in tap_windows(xp, spec.hf, spec.wf, spec.ho, spec.wo,
-                                     spec.stride):
-        # [N, Ci/Cib, Ho, Wo, Cib] x [Co/Cob, Ci/Cib, Cib, Cob]
-        #   -> [N, Co/Cob, Ho, Wo, Cob]
-        term = torch.einsum("nchwb,ocbk->nohwk", win, wd[:, :, dh, dw])
+                                     spec.stride, spec.dilation):
+        if spec.is_depthwise:
+            term = win * wd[:, 0, dh, dw, 0][None, :, None, None, :]
+        else:
+            # [N, Ci/Cib, Ho, Wo, Cib] x [Co/Cob, Ci/Cib, Cib, Cob]
+            #   -> [N, Co/Cob, Ho, Wo, Cob]
+            term = torch.einsum("nchwb,ocbk->nohwk", win, wd[:, :, dh, dw])
         acc = term if acc is None else acc + term
     return acc
 
@@ -118,14 +140,16 @@ def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     """Direct convolution on blocked layouts with the fused epilogue.
 
     x: ``[N, Ci/Cib, Hi, Wi, Cib]``; w: ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
-    Cob]``; bias: ``[Co/Cob, Cob]`` or None; residual: the output's shape or
-    None -> ``[N, Co/Cob, Ho, Wo, Cob]`` in the operand dtype, or with
-    ``gap=True`` the pooled ``[N, Co]`` features.
+    Cob]``, or ``[C/Cb, 1, Hf, Wf, 1, Cb]`` with ``groups == C``
+    (depthwise); bias: ``[Co/Cob, Cob]`` or None; residual: the output's
+    shape or None -> ``[N, Co/Cob, Ho, Wo, Cob]`` in the operand dtype, or
+    with ``gap=True`` the pooled ``[N, Co]`` features.
 
-    ``padding`` is TF-SAME aware (asymmetric at stride 2).  ``precision``
-    casts the operands once; the contraction then runs on f32 copies of the
-    cast values, so a bf16 policy is bf16 operands with an f32 sum.  The
-    pooled features are the f32 mean of the *stored* (downcast) map.
+    ``padding`` is TF-SAME aware (asymmetric at stride 2), against the
+    dilated filter extent.  ``precision`` casts the operands once; the
+    products then run on f32 copies of the cast values, so a bf16 policy is
+    bf16 operands with an f32 sum.  The pooled features are the f32 mean
+    of the *stored* (downcast) map.
     """
     spec = conv_spec(x, w, stride, padding, groups, dilation)
     if precision is not None:
@@ -145,12 +169,12 @@ def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
 
 def direct_conv_preactivation(x: torch.Tensor, w: torch.Tensor,
                               stride: int = 1, padding: Padding = "VALID",
-                              bias: Optional[torch.Tensor] = None
-                              ) -> torch.Tensor:
-    """The training forward's ``z = conv(x, w) + b``, the forward kernel's
+                              bias: Optional[torch.Tensor] = None,
+                              groups: int = 1, dilation=1) -> torch.Tensor:
+    """The training forward's ``z = conv(x, w) + b``, the forward kernels'
     plain version with a linear epilogue, accumulated in f32 (f64 for f64
     operands) and returned in that dtype."""
-    spec = conv_spec(x, w, stride, padding)
+    spec = conv_spec(x, w, stride, padding, groups, dilation)
     dt = _acc_dtype(x, w)
     z = _accumulate(x, w, spec, dt)
     if bias is not None:
@@ -160,14 +184,13 @@ def direct_conv_preactivation(x: torch.Tensor, w: torch.Tensor,
 
 def backward_spec(n: int, hi: int, wi: int, w_shape, stride: int,
                   padding: Padding, g: torch.Tensor,
-                  z: Optional[torch.Tensor]) -> ConvSpec:
+                  z: Optional[torch.Tensor], groups: int = 1,
+                  dilation=1) -> ConvSpec:
     """The forward's geometry for weights of ``w_shape`` over an ``hi x wi``
     input, checked against the cotangent ``g`` (and the saved
     pre-activation ``z``) that the backward is handed."""
-    coblk, ciblk, hf, wf, cib, cob = w_shape
-    spec = ConvSpec.make(n, hi, wi, ciblk * cib, coblk * cob, hf, wf,
-                         stride=stride, padding=padding)
-    want = (n, coblk, spec.ho, spec.wo, cob)
+    spec = _geometry(n, hi, wi, w_shape, stride, padding, groups, dilation)
+    want = (n, w_shape[0], spec.ho, spec.wo, w_shape[5])
     if g.dim() != 5 or tuple(g.shape) != want:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != the forward's "
                          f"output {want}")
@@ -180,30 +203,42 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
                               input_hw, stride: int = 1,
                               padding: Padding = "VALID",
                               z: Optional[torch.Tensor] = None,
-                              activation: Optional[str] = None
-                              ) -> torch.Tensor:
+                              activation: Optional[str] = None,
+                              groups: int = 1, dilation=1) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)`` given the raw cotangent
     ``g [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (None
     when the activation is linear) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi,
-    Cib]`` at the unpadded ``input_hw``.
+    Cib]`` at the unpadded ``input_hw``; dense, or depthwise with ``groups
+    == C``.
 
-    ``dz = g * act'(z)``; every tap adds ``dz @ w[tap]^T`` into the padded
-    input rows it read (a strided view), over the dgrad extents; the pads
-    are then cropped, and rows past the extents stay zero.
+    ``dz = g * act'(z)``; every tap adds ``dz @ w[tap]^T`` (depthwise:
+    ``dz * w[tap]``) into the padded input rows it read (a strided view),
+    over the dgrad extents; the pads are then cropped, and rows past the
+    extents stay zero.
     """
     hi, wi = input_hw
-    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
+    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z,
+                         groups, dilation)
     dt = _acc_dtype(g, w)
     dz = cotangent_prologue(g, z, activation).to(dt)
     wd = w.to(dt)
-    eh, ew = dgrad_extents(spec.ho, spec.wo, spec.hf, spec.wf, spec.stride)
-    n, ciblk, cib = g.shape[0], w.shape[1], w.shape[4]
-    dxp = torch.zeros((n, ciblk, eh, ew, cib), dtype=dt, device=g.device)
+    eh, ew = dgrad_extents(spec.ho, spec.wo, spec.hf_eff, spec.wf_eff,
+                           spec.stride)
+    n = g.shape[0]
+    if spec.is_depthwise:
+        dx_blocks = (g.shape[1], g.shape[4])
+    else:
+        dx_blocks = (w.shape[1], w.shape[4])
+    dxp = torch.zeros((n, dx_blocks[0], eh, ew, dx_blocks[1]), dtype=dt,
+                      device=g.device)
     for (dh, dw), win in tap_windows(dxp, spec.hf, spec.wf, spec.ho, spec.wo,
-                                     spec.stride):
-        # [N, Co/Cob, Ho, Wo, Cob] x [Co/Cob, Ci/Cib, Cib, Cob]
-        #   -> [N, Ci/Cib, Ho, Wo, Cib], into the view of dxp
-        win.add_(torch.einsum("nohwk,ocbk->nchwb", dz, wd[:, :, dh, dw]))
+                                     spec.stride, spec.dilation):
+        if spec.is_depthwise:
+            win.add_(dz * wd[:, 0, dh, dw, 0][None, :, None, None, :])
+        else:
+            # [N, Co/Cob, Ho, Wo, Cob] x [Co/Cob, Ci/Cib, Cib, Cob]
+            #   -> [N, Ci/Cib, Ho, Wo, Cib], into the view of dxp
+            win.add_(torch.einsum("nohwk,ocbk->nchwb", dz, wd[:, :, dh, dw]))
     (pt, pb), (pl, pr) = spec.pads
     dxp = pad_blocked(dxp, (0, spec.padded_hi - eh), (0, spec.padded_wi - ew))
     return dxp[:, :, pt:pt + hi, pl:pl + wi, :].to(g.dtype)
@@ -214,25 +249,35 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
                               padding: Padding = "VALID",
                               z: Optional[torch.Tensor] = None,
                               activation: Optional[str] = None,
-                              with_db: bool = False):
+                              with_db: bool = False, groups: int = 1,
+                              dilation=1):
     """Weight (and bias) gradient of ``act(conv(x, w) + b)`` given the
     forward's unpadded input ``x``, the raw cotangent ``g`` and the saved
-    pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob],
-    db [Co/Cob, Cob] or None)``, both f32 (f64 for f64 operands).
+    pre-activation ``z`` -> ``(dw, db [Co/Cob, Cob] or None)``, both f32
+    (f64 for f64 operands); ``dw`` is ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
+    Cob]``, or ``[C/Cb, 1, Hf, Wf, 1, Cb]`` with ``groups == C``.
 
     ``dz = g * act'(z)``; each tap's block is ``x_win^T @ dz`` contracted
-    over ``(N, Ho, Wo)``; ``db`` sums ``dz`` over the same positions.
+    over ``(N, Ho, Wo)`` (depthwise: ``x_win * dz`` summed per lane);
+    ``db`` sums ``dz`` over the same positions.
     """
     n, ciblk, hi, wi, cib = x.shape
     coblk, cob = g.shape[1], g.shape[4]
-    w_shape = (coblk, ciblk, hf, wf, cib, cob)
-    spec = backward_spec(n, hi, wi, w_shape, stride, padding, g, z)
+    if groups > 1:
+        w_shape = (coblk, 1, hf, wf, 1, cob)
+    else:
+        w_shape = (coblk, ciblk, hf, wf, cib, cob)
+    spec = backward_spec(n, hi, wi, w_shape, stride, padding, g, z, groups,
+                         dilation)
     dt = _acc_dtype(x, g)
     dz = cotangent_prologue(g, z, activation).to(dt)
     xp = pad_blocked(x, *spec.pads).to(dt)
     dw = torch.empty(w_shape, dtype=dt, device=x.device)
     for (dh, dwi), win in tap_windows(xp, hf, wf, spec.ho, spec.wo,
-                                      spec.stride):
-        dw[:, :, dh, dwi] = torch.einsum("nchwb,nohwk->ocbk", win, dz)
+                                      spec.stride, spec.dilation):
+        if spec.is_depthwise:
+            dw[:, 0, dh, dwi, 0] = (win * dz).sum(dim=(0, 2, 3))
+        else:
+            dw[:, :, dh, dwi] = torch.einsum("nchwb,nohwk->ocbk", win, dz)
     db = dz.sum(dim=(0, 2, 3)) if with_db else None
     return dw, db

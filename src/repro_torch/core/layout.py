@@ -55,9 +55,19 @@ def largest_divisor_leq(n: int, cap: int) -> int:
     return best
 
 
-def choose_pencil(n: int, cap: int, *, min_util: float = 0.25) -> int:
+def choose_pencil(n: int, cap: int, *, min_util: float = 0.25,
+                  groups: int = 1) -> int:
     """Largest divisor of ``n`` that is ``<= cap``; warns when it fills less
-    than ``min_util`` of the achievable width (e.g. a prime channel count)."""
+    than ``min_util`` of the achievable width (e.g. a prime channel count).
+
+    ``groups > 1`` makes both the divisor and the check per group: the
+    pencil divides ``n // groups``, so no pencil straddles a group of the
+    block-diagonal weight, and the achievable width is ``min(n // groups,
+    cap)``."""
+    if groups > 1:
+        if n % groups:
+            raise ValueError(f"groups={groups} must divide C={n}")
+        n //= groups
     target = min(n, cap)
     d = largest_divisor_leq(n, cap)
     if d < min_util * target:
@@ -69,19 +79,33 @@ def choose_pencil(n: int, cap: int, *, min_util: float = 0.25) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class BlockedConvLayout:
-    """Channel pencils of one dense conv layer (the paper's ``C_i,b`` /
+    """Channel pencils of one conv layer (the paper's ``C_i,b`` /
     ``C_o,b``).  Narrow layers take smaller divisors: VGG-16's first conv
-    has ``Cib = 3``."""
+    has ``Cib = 3``.  ``cb_w`` is the weight's input pencil when it differs
+    from ``cb_in``: a depthwise weight has input extent ``Cig = 1``, so it
+    is ``[C/Cb, 1, Hf, Wf, 1, Cb]`` while the maps keep the full pencil."""
 
     cb_in: int
     cb_out: int
+    cb_w: int | None = None
+
+    @property
+    def cb_weight(self) -> int:
+        return self.cb_in if self.cb_w is None else self.cb_w
 
     @staticmethod
-    def choose(ci: int, co: int, lane: int = 128,
-               min_util: float = 0.25) -> "BlockedConvLayout":
+    def choose(ci: int, co: int, lane: int = 128, min_util: float = 0.25,
+               groups: int = 1) -> "BlockedConvLayout":
+        """Pencils for a (possibly grouped) conv: per group for a grouped
+        conv; for a depthwise conv (``groups == ci == co``) every lane is
+        its own group, so the maps keep the full-channel pencil and only
+        the weight's input pencil collapses to 1."""
+        if groups > 1 and groups == ci == co:        # depthwise
+            cb = choose_pencil(ci, lane, min_util=min_util)
+            return BlockedConvLayout(cb_in=cb, cb_out=cb, cb_w=1)
         return BlockedConvLayout(
-            cb_in=choose_pencil(ci, lane, min_util=min_util),
-            cb_out=choose_pencil(co, lane, min_util=min_util))
+            cb_in=choose_pencil(ci, lane, min_util=min_util, groups=groups),
+            cb_out=choose_pencil(co, lane, min_util=min_util, groups=groups))
 
 
 def nhwc_to_blocked(x: torch.Tensor, cb: int) -> torch.Tensor:

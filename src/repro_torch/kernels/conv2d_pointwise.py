@@ -1,0 +1,325 @@
+"""Wrappers of the CUDA pointwise (1x1) kernels, and their autograd.
+
+``pointwise_conv2d_blocked`` is the port of the reference's
+``pointwise_conv2d_blocked_pallas`` (``repro/kernels/conv2d_pointwise.py:
+426``): a 1x1 stride-1 unpadded conv, a channel matmul at every position,
+with the fused epilogue (bias, activation, residual, GAP).  Like the
+reference it refuses any other geometry.
+
+* Under ``torch.no_grad``/``inference_mode``, or when no operand requires
+  grad, it runs the fused inference kernel (``_pw_fwd_kernel``, ``:56``):
+  ``csrc/conv2d_pointwise.cu`` on a CUDA tensor.  With ``gap`` the
+  kernel's per-tile partial sums go to the dense family's
+  ``gap_finalize``.
+* With grad mode on and an operand that requires grad it enters
+  ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
+  ``_pwconv`` / ``_pwconv_fwd`` / ``_pwconv_bwd`` (``:351-420``), with this
+  family's kernels: ``pointwise_dgrad`` (``_pw_dgrad_kernel``, ``:87``: the
+  same channel-matmul kernel with the weight read transposed) and
+  ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``, and the dense
+  family's ``wgrad_reduce``), with the ``dz = g * act'(z)`` prologue and
+  ``db``.
+
+A 1x1 stride-1 conv is a dense conv, so the plain versions are the dense
+ones of ``core.direct_conv`` at that geometry: the CPU path runs them, and
+the tests and ``chip_smoke.py`` hold the kernels against them.
+
+Every wrapper takes its plain version only because the tensor lies on the
+CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
+launches of this module's kernels; ``gap_finalize`` and ``wgrad_reduce``
+count in ``kernels.direct_conv2d.LAUNCHES``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.core.blocking import (H100_SXM, choose_pointwise_blocking,
+                                       choose_pointwise_wgrad_blocking,
+                                       pointwise_smem_bytes,
+                                       pointwise_wgrad_smem_bytes)
+from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                          direct_conv_dgrad_blocked,
+                                          direct_conv_preactivation,
+                                          direct_conv_wgrad_blocked)
+from repro_torch.core.padding import Padding, normalize_padding
+from repro_torch.core.precision import F32, resolve_precision
+from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
+                                               _backward_operands, _check,
+                                               _check_activation,
+                                               _cuda_device, _library, _ptr,
+                                               _require, gap_finalize,
+                                               wgrad_reduce)
+from repro_torch.kernels.conv_autograd import BlockedConvFunction
+
+__all__ = ["LAUNCHES", "reset_launches", "pointwise_conv2d_blocked",
+           "pointwise_dgrad", "pointwise_wgrad", "pointwise_wgrad_partials"]
+
+LAUNCHES = {"conv2d_pointwise_fwd": 0, "conv2d_pointwise_dgrad": 0,
+            "conv2d_pointwise_wgrad": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _declare(lib, ptr, i32) -> None:
+    lib.conv2d_pointwise_matmul.argtypes = [ptr] * 7 + [i32] * 13 + [ptr]
+    lib.conv2d_pointwise_matmul.restype = i32
+    lib.conv2d_pointwise_wgrad.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
+    lib.conv2d_pointwise_wgrad.restype = i32
+
+
+def _lib() -> ctypes.CDLL:
+    return _library("conv2d_pointwise", _declare)
+
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+    """x ``[N, Ci/Cib, H, W, Cib]`` and a 1x1 weight ``[Co/Cob, Ci/Cib, 1,
+    1, Cib, Cob]`` that chains with it."""
+    if x.dim() != 5 or w.dim() != 6:
+        raise ValueError(f"expected x [N, Ci/Cib, H, W, Cib] and w [Co/Cob, "
+                         f"Ci/Cib, 1, 1, Cib, Cob]; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    if w.shape[2:4] != (1, 1):
+        raise ValueError(f"pointwise kernel needs a 1x1 filter, got "
+                         f"{w.shape[2]}x{w.shape[3]}")
+    if (w.shape[1], w.shape[4]) != (x.shape[1], x.shape[4]):
+        raise ValueError(f"weight input blocks {(w.shape[1], w.shape[4])} do "
+                         f"not match the map's {(x.shape[1], x.shape[4])}")
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+
+def pointwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
+                             bias: Optional[torch.Tensor] = None,
+                             stride: int = 1, padding: Padding = "VALID",
+                             activation: Optional[str] = None,
+                             residual: Optional[torch.Tensor] = None,
+                             gap: bool = False,
+                             precision=F32) -> torch.Tensor:
+    """Fused 1x1-as-matmul blocked conv, differentiable.
+
+    x: ``[N, Ci/Cib, H, W, Cib]``; w: ``[Co/Cob, Ci/Cib, 1, 1, Cib, Cob]``;
+    bias: ``[Co/Cob, Cob]`` or None; residual: the output's shape or None,
+    added after the activation -> ``[N, Co/Cob, H, W, Cob]``, or with
+    ``gap=True`` the pooled ``[N, Co]`` features.  Only pointwise geometry
+    is served, stride 1 and zero pads (SAME on a 1x1 filter is zero pads);
+    anything else raises, as the reference's entry point does.
+    """
+    _check_operands(x, w)
+    pads = normalize_padding(padding, 1, 1, stride, x.shape[2], x.shape[3])
+    if stride != 1 or pads != ((0, 0), (0, 0)):
+        raise ValueError(
+            f"pointwise fast path serves stride=1, zero-pad only; got "
+            f"stride={stride}, padding={padding!r}: route the direct conv "
+            "instead")
+    _check_activation(activation)
+    n, _, h, wd, _ = x.shape
+    coblk, cob = w.shape[0], w.shape[5]
+    if bias is not None and tuple(bias.shape) != (coblk, cob):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
+    if residual is not None and tuple(residual.shape) != (n, coblk, h, wd,
+                                                           cob):
+        raise ValueError(f"residual shape {tuple(residual.shape)} != output "
+                         f"shape {(n, coblk, h, wd, cob)}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, bias, residual)):
+        if resolve_precision(precision).op_dtype != torch.float32:
+            raise NotImplementedError(
+                "the training path runs the f32 policy only")
+        spec = ConvSpec.make(n, h, wd, x.shape[1] * x.shape[4], coblk * cob,
+                             1, 1)
+        return BlockedConvFunction.apply(x, w, bias, residual, _Pointwise,
+                                         spec, activation, gap)
+    if x.device.type == "cpu":
+        return direct_conv_blocked(x, w, 1, "VALID", bias, activation,
+                                   precision, residual=residual, gap=gap)
+    if resolve_precision(precision).op_dtype != torch.float32:
+        raise NotImplementedError(
+            "the CUDA kernel of this slice runs the f32 policy only")
+    return _fwd_cuda(x, w, bias, residual, activation, gap)
+
+
+def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+              residual: Optional[torch.Tensor], activation: Optional[str],
+              gap: bool) -> torch.Tensor:
+    """Launch the channel-matmul kernel forward on CUDA operands."""
+    dev = _cuda_device(x)
+    for name, t in (("x", x), ("w", w), ("bias", bias),
+                    ("residual", residual)):
+        if t is not None:
+            _require(t, name, dev, vector_loads=name in ("x", "w"))
+    n, ciblk, h, wd, cib = x.shape
+    coblk, cob = w.shape[0], w.shape[5]
+    if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
+    hw = h * wd
+    blk = choose_pointwise_blocking(n, hw, cib, coblk, cob, gap=gap)
+    smem = pointwise_smem_bytes(blk.positions, blk.chunk, cob, H100_SXM, gap)
+    out = torch.empty((n, coblk, h, wd, cob), device=dev, dtype=torch.float32)
+    partials = (torch.empty((n, coblk, blk.tiles, cob), device=dev,
+                            dtype=torch.float32) if gap else None)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.conv2d_pointwise_matmul(
+            _ptr(x), None, _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
+            _ptr(partials), 0, n, ciblk, cib, coblk, cob, hw, blk.positions,
+            blk.chunk, blk.ldx, blk.ldw, _ACT_CODES[activation], smem, stream)
+        LAUNCHES["conv2d_pointwise_fwd"] += 1
+    _check(err, lib, "conv2d_pointwise_fwd")
+    if gap:
+        return gap_finalize(partials, hw)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+def _check_backward(g: torch.Tensor, w: torch.Tensor,
+                    z: Optional[torch.Tensor]) -> None:
+    if w.dim() != 6 or w.shape[2:4] != (1, 1):
+        raise ValueError(f"expected a 1x1 weight [Co/Cob, Ci/Cib, 1, 1, Cib, "
+                         f"Cob], got {tuple(w.shape)}")
+    if (g.shape[1], g.shape[4]) != (w.shape[0], w.shape[5]):
+        raise ValueError(f"cotangent blocks {(g.shape[1], g.shape[4])} do not "
+                         f"match the weight's {(w.shape[0], w.shape[5])}")
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
+                         f"{tuple(g.shape)}")
+
+
+def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
+                    z: Optional[torch.Tensor] = None,
+                    activation: Optional[str] = None) -> torch.Tensor:
+    """Input gradient of ``act(x @ w + b)``: the raw cotangent ``g [N,
+    Co/Cob, H, W, Cob]``, the saved pre-activation ``z`` (None for a
+    linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, H, W, Cib]``, with ``dz
+    = g * act'(z)`` formed as ``g`` is staged."""
+    _backward_operands(g, z, activation)
+    _check_backward(g, w, z)
+    if g.device.type == "cpu":
+        return direct_conv_dgrad_blocked(g, w, g.shape[2:4], 1, "VALID", z,
+                                         activation)
+    dev = _cuda_device(g)
+    _require(g, "g", dev, vector_loads=True)
+    _require(w, "w", dev)
+    if z is not None:
+        _require(z, "z", dev, vector_loads=True)
+    n, coblk, h, wd, cob = g.shape
+    ciblk, cib = w.shape[1], w.shape[4]
+    if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
+    hw = h * wd
+    blk = choose_pointwise_blocking(n, hw, cob, ciblk, cib, transposed=True)
+    smem = pointwise_smem_bytes(blk.positions, blk.chunk, cib, H100_SXM,
+                                transposed=True)
+    dx = torch.empty((n, ciblk, h, wd, cib), device=dev, dtype=torch.float32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.conv2d_pointwise_matmul(
+            _ptr(g), _ptr(z), _ptr(w), None, None, _ptr(dx), None, 1, n,
+            coblk, cob, ciblk, cib, hw, blk.positions, blk.chunk, blk.ldx,
+            blk.ldw, _ACT_CODES[activation], smem, stream)
+        LAUNCHES["conv2d_pointwise_dgrad"] += 1
+    _check(err, lib, "conv2d_pointwise_dgrad")
+    return dx
+
+
+def pointwise_wgrad(x: torch.Tensor, g: torch.Tensor,
+                    z: Optional[torch.Tensor] = None,
+                    activation: Optional[str] = None,
+                    with_db: bool = False):
+    """Weight (and bias) gradient of ``act(x @ w + b)`` -> ``(dw [Co/Cob,
+    Ci/Cib, 1, 1, Cib, Cob] f32, db [Co/Cob, Cob] f32 or None)``.  On CUDA
+    the wgrad kernel (``pointwise_wgrad_partials``) writes one partial sum
+    per position share and ``wgrad_reduce`` adds the shares in order: two
+    runs give identical bits."""
+    _backward_operands(g, z, activation)
+    if x.device.type == "cpu":
+        _check_wgrad(x, g, z)
+        return direct_conv_wgrad_blocked(x, g, 1, 1, 1, "VALID", z,
+                                         activation, with_db)
+    out = wgrad_reduce(pointwise_wgrad_partials(x, g, z, activation,
+                                                with_db))
+    ciblk, cib, coblk, cob = x.shape[1], x.shape[4], g.shape[1], g.shape[4]
+    dw_size = coblk * ciblk * cib * cob
+    dw = out[:dw_size].view(coblk, ciblk, 1, 1, cib, cob)
+    db = out[dw_size:].view(coblk, cob) if with_db else None
+    return dw, db
+
+
+def _check_wgrad(x: torch.Tensor, g: torch.Tensor,
+                 z: Optional[torch.Tensor]) -> None:
+    if x.dim() != 5 or (x.shape[0], x.shape[2], x.shape[3]) != (
+            g.shape[0], g.shape[2], g.shape[3]):
+        raise ValueError(f"x {tuple(x.shape)} and the cotangent "
+                         f"{tuple(g.shape)} must share N, H and W")
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
+                         f"{tuple(g.shape)}")
+
+
+def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
+                             z: Optional[torch.Tensor] = None,
+                             activation: Optional[str] = None,
+                             with_db: bool = False) -> torch.Tensor:
+    """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
+    ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then ``db``."""
+    _backward_operands(g, z, activation)
+    _check_wgrad(x, g, z)
+    dev = _cuda_device(x)
+    _require(x, "x", dev, vector_loads=True)
+    _require(g, "g", dev, vector_loads=True)
+    if z is not None:
+        _require(z, "z", dev, vector_loads=True)
+    n, ciblk, h, wd, cib = x.shape
+    coblk, cob = g.shape[1], g.shape[4]
+    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
+    hw = h * wd
+    blk = choose_pointwise_wgrad_blocking(n, hw, ciblk, cib, coblk, cob)
+    smem = pointwise_wgrad_smem_bytes(blk.positions, cib, cob, blk.pgroups)
+    cols = coblk * ciblk * cib * cob + (coblk * cob if with_db else 0)
+    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
+    lib = _lib()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.conv2d_pointwise_wgrad(
+            _ptr(x), _ptr(g), _ptr(z), _ptr(ws), n, ciblk, cib, coblk, cob,
+            hw, blk.positions, blk.splits, _ACT_CODES[activation],
+            int(with_db), smem, stream)
+        LAUNCHES["conv2d_pointwise_wgrad"] += 1
+    _check(err, lib, "conv2d_pointwise_wgrad")
+    return ws
+
+
+# ---------------------------------------------------------------------------
+# autograd: the reference's custom VJP
+# ---------------------------------------------------------------------------
+
+class _Pointwise:
+    """The pointwise family's kernels for ``BlockedConvFunction``."""
+
+    @staticmethod
+    def preactivation(x, w, bias, spec: ConvSpec) -> torch.Tensor:
+        if x.device.type == "cpu":
+            return direct_conv_preactivation(x, w, 1, "VALID", bias)
+        return _fwd_cuda(x, w, bias, None, None, False)
+
+    @staticmethod
+    def dgrad(g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
+        return pointwise_dgrad(g, w, z, activation)
+
+    @staticmethod
+    def wgrad(x, g, spec: ConvSpec, z, activation, with_db: bool):
+        return pointwise_wgrad(x, g, z, activation, with_db)

@@ -9,16 +9,14 @@ autograd.
   ``csrc/direct_conv2d_fwd.cu`` on a CUDA tensor, the plain PyTorch version
   (``core.direct_conv.direct_conv_blocked``) on a CPU tensor;
 * with grad mode on and an operand that requires grad it enters
-  ``DirectConv2dFunction``, the counterpart of the reference's custom VJP
-  (``_conv``/``_conv_fwd``/``_conv_bwd``, ``:655-790``).  Its forward runs
-  the forward kernel with a linear epilogue to get the pre-activation ``z``
-  and applies the activation, the residual and the GAP in f32 torch ops, as
-  the reference leaves them to XLA; its backward runs
+  ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of the
+  reference's custom VJP (``_conv``/``_conv_fwd``/``_conv_bwd``,
+  ``:655-790``), with the dense family's kernels: the forward kernel with a
+  linear epilogue gives the pre-activation ``z``, and the backward runs
   ``direct_conv2d_dgrad`` (``_dgrad_kernel``, ``:138``) and
   ``direct_conv2d_wgrad`` (``_wgrad_kernel``, ``:175``) from
   ``csrc/direct_conv2d_bwd.cu`` with the ``dz = g * act'(z)`` prologue and
-  ``db``.  It saves ``x`` itself (unpadded, no copy), ``w`` and, unless the
-  activation is linear, ``z``.
+  ``db``.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  There is no fallback.
@@ -53,10 +51,11 @@ from repro_torch.core.errors import KernelLaunchError
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels._build import library
+from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "direct_conv2d_blocked",
            "gap_finalize", "direct_conv2d_dgrad", "direct_conv2d_wgrad",
-           "wgrad_partials", "wgrad_reduce", "DirectConv2dFunction"]
+           "wgrad_partials", "wgrad_reduce"]
 
 LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
             "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
@@ -71,28 +70,29 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _library(name: str, declare) -> ctypes.CDLL:
+def _library(name: str, declare, geometry=None) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
-    ``declare(lib)`` on first use; checks that its register-tile geometry
-    is the one the blocking model assumes."""
+    ``declare(lib, ptr, i32)`` on first use; checks that the register-tile
+    geometry it was compiled with, ``<name>_geometry``, is ``geometry``
+    (the blocking model's ``(threads, lanes, positions)`` by default)."""
     lib = library(name)
-    geometry = getattr(lib, f"{name}_geometry")
-    if geometry.argtypes is None:
+    get_geometry = getattr(lib, f"{name}_geometry")
+    if get_geometry.argtypes is None:
         i32 = ctypes.c_int
         declare(lib, ctypes.c_void_p, i32)
         lib.cuda_error_name.argtypes = [i32]
         lib.cuda_error_name.restype = ctypes.c_char_p
-        geometry.argtypes = [ctypes.POINTER(i32)] * 3
-        geometry.restype = None
+        get_geometry.argtypes = [ctypes.POINTER(i32)] * 3
+        get_geometry.restype = None
         geo = [i32(), i32(), i32()]
-        geometry(*(ctypes.byref(g) for g in geo))
+        get_geometry(*(ctypes.byref(g) for g in geo))
         m = H100_SXM
+        want = geometry or (m.threads, m.lanes, m.positions)
         built = tuple(g.value for g in geo)
-        if built != (m.threads, m.lanes, m.positions):
+        if built != want:
             raise RuntimeError(
                 f"{name}: kernel register tile (threads, lanes, positions)="
-                f"{built} differs from the blocking model's "
-                f"{(m.threads, m.lanes, m.positions)}")
+                f"{built} differs from the blocking model's {want}")
     return lib
 
 
@@ -180,7 +180,7 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     TF-SAME aware; on CUDA the pads are masked loads, never a padded copy.
 
     With grad mode on and an operand that requires grad the call goes
-    through ``DirectConv2dFunction`` (the training path, f32 policy only);
+    through ``BlockedConvFunction`` (the training path, f32 policy only);
     otherwise it runs the fused inference kernel.
     """
     spec = conv_spec(x, w, stride, padding)
@@ -199,8 +199,8 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
             raise NotImplementedError(
                 "the training path runs the f32 policy only (bf16 arrives "
                 "with the bf16 kernels)")
-        return DirectConv2dFunction.apply(x, w, bias, residual, spec,
-                                          activation, gap)
+        return BlockedConvFunction.apply(x, w, bias, residual, _Dense, spec,
+                                         activation, gap)
     if x.device.type == "cpu":
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, residual=residual, gap=gap)
@@ -422,57 +422,22 @@ def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
 # autograd: the reference's custom VJP
 # ---------------------------------------------------------------------------
 
-class DirectConv2dFunction(torch.autograd.Function):
-    """``act(conv(x, w) + b) + r`` (pooled with ``gap``) with the backward
-    kernels as its VJP.
-
-    Forward: the forward kernel with a linear epilogue gives ``z``; the
-    activation, the residual add and the GAP (the mean of the map) follow
-    in f32 torch ops.  Saved: ``x`` (unpadded; the reference saves its
-    padded copy), ``w`` and ``z`` unless the activation is linear.
-    Backward: with GAP the pooled cotangent is spread over the map divided
-    by ``Ho * Wo``; ``dres = g``; dgrad (skipped when ``x`` needs no grad,
-    as for the images at the first layer) and wgrad take the raw ``g`` and
-    ``z`` and form ``dz = g * act'(z)`` themselves; ``db`` comes from the
-    wgrad pass.  On CPU tensors the wrappers run their plain versions, in
-    the operands' dtype when that is wider than f32, so gradcheck can run
-    in f64."""
+class _Dense:
+    """The dense family's kernels for ``BlockedConvFunction``."""
 
     @staticmethod
-    def forward(ctx, x, w, bias, residual, spec: ConvSpec,
-                activation: Optional[str], gap: bool):
+    def preactivation(x, w, bias, spec: ConvSpec) -> torch.Tensor:
         if x.device.type == "cpu":
-            z = direct_conv_preactivation(x, w, spec.stride, spec.pads, bias)
-        else:
-            z = _fwd_cuda(x, w, bias, None, spec, None, False)
-        linear = activation in (None, "linear")
-        out = z if linear else conv2d_common.apply_activation(z, activation)
-        if residual is not None:
-            out = out + residual
-        if gap:
-            out = conv2d_common.blocked_global_avg_pool(out)
-        ctx.save_for_backward(x, w, None if linear else z)
-        ctx.spec, ctx.activation, ctx.gap = spec, activation, gap
-        ctx.has_bias = bias is not None
-        return out
+            return direct_conv_preactivation(x, w, spec.stride, spec.pads,
+                                             bias)
+        return _fwd_cuda(x, w, bias, None, spec, None, False)
 
     @staticmethod
-    def backward(ctx, g):
-        x, w, z = ctx.saved_tensors
-        spec = ctx.spec
-        if ctx.gap:
-            n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
-            g = (g.reshape(n, coblk, 1, 1, cob) / (spec.ho * spec.wo)).expand(
-                n, coblk, spec.ho, spec.wo, cob)
-        g = g.contiguous()
-        need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
-        dx = dw = db = None
-        if need_x:
-            dx = direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
-                                     spec.pads, z, ctx.activation)
-        if need_w or need_b:
-            dw, db = direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
-                                         spec.pads, z, ctx.activation,
-                                         with_db=ctx.has_bias)
-        return (dx, dw if need_w else None, db if need_b else None,
-                g if need_r else None, None, None, None)
+    def dgrad(g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
+        return direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
+                                   spec.pads, z, activation)
+
+    @staticmethod
+    def wgrad(x, g, spec: ConvSpec, z, activation, with_db: bool):
+        return direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
+                                   spec.pads, z, activation, with_db)

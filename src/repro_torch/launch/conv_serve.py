@@ -65,7 +65,7 @@ class ConvServer:
         """Run every bucket once on a zero batch, so that the first request's
         latency is service time, not the kernel build or the allocator's
         first growth."""
-        ci = self.model.convs[0].ci
+        ci = self.model.in_channels
         for bh, bw in self.bucketer.buckets:
             self._forward(np.zeros((self.batch, bh, bw, ci), np.float32))
 

@@ -1,17 +1,21 @@
-"""Train the toy dense ``BlockedCNN`` of ``examples/train_conv_net.py
---model dense`` with the port.
+"""Train a toy ``BlockedCNN`` of ``examples/train_conv_net.py`` with the
+port.
 
-    python -m repro_torch.launch.train_conv [--steps 150] [--device cuda]
+    python -m repro_torch.launch.train_conv [--model dense|separable]
+                                            [--steps 150] [--device cuda]
                                             [--seed 0]
 
-The model is the example's: ``conv 8->16 (relu, SAME) -> conv 16->32 (relu,
-SAME, stride 2) -> GAP -> linear 32->8``, channel pencil ``CB = 8``.  The
+The models are the example's ``MODELS``, channel pencil ``CB = 8``:
+``dense`` is ``conv 8->16 (relu, SAME) -> conv 16->32 (relu, SAME, stride
+2) -> GAP -> linear 32->8``; ``separable`` is the same widths and strides
+as two ``DepthwiseSeparableBlock``s (3x3 depthwise, then 1x1 pointwise,
+relu after each).  The
 task is the example's too: 16x16 images of noise with one of 8 fixed 3x3
 stamps at a random position, the class being the stamp, made with numpy
 from ``--seed``.  AdamW runs with a cosine schedule (peak 1e-2, 10 warm-up
 steps) and no weight decay.  On ``cuda`` (the default) every conv runs
-through the forward, dgrad and wgrad kernels; ``--device cpu`` runs their
-plain versions.  At the end the trained parameters classify a fresh batch
+through its family's forward, dgrad and wgrad kernels (dense, or depthwise
+and pointwise); ``--device cpu`` runs their plain versions.  At the end the trained parameters classify a fresh batch
 through the fused inference path.
 """
 from __future__ import annotations
@@ -24,11 +28,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.nn.conv import BlockedCNN, BlockedConv2D
+from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,
+                                 DepthwiseSeparableBlock)
 from repro_torch.train.optimizer import AdamW, cosine_schedule
 from repro_torch.train.trainstep import make_train_step
 
-__all__ = ["CB", "N_CLASSES", "dense_model", "make_batch", "main"]
+__all__ = ["CB", "N_CLASSES", "MODELS", "dense_model", "separable_model",
+           "make_batch", "main"]
 
 CB = 8            # channel pencil of the toy net
 N_CLASSES = 8
@@ -49,6 +55,23 @@ def dense_model(device: Union[str, torch.device] = "cuda",
     return BlockedCNN(convs, N_CLASSES, device=device, generator=generator)
 
 
+def separable_model(device: Union[str, torch.device] = "cuda",
+                    generator: Optional[torch.Generator] = None
+                    ) -> BlockedCNN:
+    """The example's ``MODELS["separable"]``, with weights from
+    ``generator``."""
+    blocks = [DepthwiseSeparableBlock(8, 16, 3, 3, stride=1, padding="SAME",
+                                      activation="relu", lane=CB,
+                                      device=device, generator=generator),
+              DepthwiseSeparableBlock(16, 32, 3, 3, stride=2, padding="SAME",
+                                      activation="relu", lane=CB,
+                                      device=device, generator=generator)]
+    return BlockedCNN(blocks, N_CLASSES, device=device, generator=generator)
+
+
+MODELS = {"dense": dense_model, "separable": separable_model}
+
+
 def make_batch(rng: np.random.Generator, n: int = 128
                ) -> Tuple[np.ndarray, np.ndarray]:
     """A class-specific 3x3 stamp at a random position plus background
@@ -64,6 +87,7 @@ def make_batch(rng: np.random.Generator, n: int = 128
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(MODELS), default="dense")
     ap.add_argument("--steps", type=int, default=150)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
@@ -71,7 +95,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
-    model = dense_model(dev, torch.Generator().manual_seed(args.seed))
+    model = MODELS[args.model](dev, torch.Generator().manual_seed(args.seed))
     opt = AdamW(lr=cosine_schedule(1e-2, 10, args.steps), weight_decay=0.0)
     state = opt.init(dict(model.named_parameters()))
     step = make_train_step(model, opt)
@@ -85,7 +109,8 @@ def main(argv=None) -> int:
     for s in range(args.steps):
         loss, metrics = step(state, batch())
         if (s + 1) % 25 == 0 or s + 1 == args.steps:
-            print(f"[dense/{dev.type}] step {s + 1}: loss={float(loss):.4f} "
+            print(f"[{args.model}/{dev.type}] step {s + 1}: "
+                  f"loss={float(loss):.4f} "
                   f"acc={float(metrics['accuracy']):.2f}")
     b = batch()
     with torch.inference_mode():

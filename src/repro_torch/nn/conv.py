@@ -2,18 +2,27 @@
 
 ``BlockedConv2D`` keeps its input and output in the paper layout
 ``[N, C/Cb, H, W, Cb]``, so stacked layers chain with no repacking.  Its
-weights are stored in the paper's kernel layout ``[Co/Cob, Ci/Cib, Hf, Wf,
-Cib, Cob]`` and its bias as pencils ``[Co/Cob, Cob]``; bias, activation,
-residual and GAP are fused into the kernel's epilogue.  Each call goes
-straight to ``kernels.direct_conv2d.direct_conv2d_blocked``: the CUDA kernels
-for tensors on the GPU, the plain versions for tensors on the CPU.  The
-reference's dispatcher (``repro/nn/conv.py:251-312``) is not ported yet;
-dense convs are the only geometry.
+weights are stored in the paper's kernel layout ``[Co/Cob, Cig/Cib, Hf, Wf,
+Cib, Cob]`` (a depthwise layer's is ``[C/Cb, 1, Hf, Wf, 1, Cb]``) and its
+bias as pencils ``[Co/Cob, Cob]``; bias, activation, residual and GAP are
+fused into the kernel's epilogue.
+
+Each call routes by geometry, as the reference's prior-tier dispatcher
+ranks its candidates (``repro/core/dispatch.py:185-189``): a pointwise
+layer (1x1, stride 1, no pads) goes to
+``kernels.conv2d_pointwise.pointwise_conv2d_blocked``, a depthwise layer
+(``groups == ci == co``) to ``kernels.conv2d_depthwise
+.depthwise_conv2d_blocked``, and a dense layer to
+``kernels.direct_conv2d.direct_conv2d_blocked``: the CUDA kernels for
+tensors on the GPU, the plain versions for tensors on the CPU.  The
+measured dispatcher is not ported yet.  Grouped layers with more than one
+input channel per group, and dilated dense layers, raise
+``NotImplementedError``: no kernel of the port runs them yet.
 
 Parameters are trainable.  With grad mode on, a call goes through the
-autograd path (forward kernel, then the dgrad and wgrad kernels in the
-backward); under ``torch.no_grad``/``inference_mode``, as the server runs
-it, through the fused inference kernel.
+family's autograd path (forward kernel, then the dgrad and wgrad kernels
+in the backward); under ``torch.no_grad``/``inference_mode``, as the
+server runs it, through the fused inference kernel.
 """
 from __future__ import annotations
 
@@ -24,13 +33,17 @@ import torch
 from torch import nn
 
 from repro_torch.core.conv2d_common import blocked_global_avg_pool
+from repro_torch.core.convspec import ConvSpec, as_dilation
 from repro_torch.core.device import resolve_device
 from repro_torch.core.layout import BlockedConvLayout, nhwc_to_blocked
 from repro_torch.core.padding import Padding
+from repro_torch.kernels.conv2d_depthwise import depthwise_conv2d_blocked
+from repro_torch.kernels.conv2d_pointwise import pointwise_conv2d_blocked
 from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
 from repro_torch.nn.module import ParamSpec, init_tree
 
-__all__ = ["BlockedConv2D", "BlockedCNN", "blocked_global_avg_pool"]
+__all__ = ["BlockedConv2D", "DepthwiseSeparableBlock", "BlockedCNN",
+           "blocked_global_avg_pool"]
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -38,14 +51,17 @@ def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
 
 
 class BlockedConv2D(nn.Module):
-    """Dense conv whose maps, weights and bias live in the blocked layouts.
+    """Conv whose maps, weights and bias live in the blocked layouts.
 
     In: ``[N, Ci/Cib, H, W, Cib]`` -> out: ``[N, Co/Cob, Ho, Wo, Cob]``.
+    ``groups == ci == co`` makes it depthwise; dilation is served on
+    depthwise layers.
     """
 
     def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
                  stride: int = 1, padding: Padding = "SAME",
-                 activation: Optional[str] = "relu", *, lane: int = 128,
+                 activation: Optional[str] = "relu", *, groups: int = 1,
+                 dilation=1, lane: int = 128,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         """``lane`` is the channel-pencil target (the reference's ``lane``):
@@ -53,7 +69,18 @@ class BlockedConv2D(nn.Module):
         super().__init__()
         self.ci, self.co, self.hf, self.wf = ci, co, hf, wf
         self.stride, self.padding, self.activation = stride, padding, activation
-        self.layout = BlockedConvLayout.choose(ci, co, lane)
+        self.groups, self.dilation = groups, as_dilation(dilation)
+        self.layout = BlockedConvLayout.choose(ci, co, lane, groups=groups)
+        if groups > 1 and not groups == ci == co:
+            raise NotImplementedError(
+                f"groups={groups} with {ci // groups} input channels per "
+                "group: grouped convolutions arrive with the grouped/dilated "
+                "slice of the kernel zoo")
+        if groups == 1 and self.dilation != (1, 1):
+            raise NotImplementedError(
+                f"dilation={self.dilation} on a dense conv: the dense "
+                "kernels' dilated taps arrive with the grouped/dilated slice "
+                "of the kernel zoo")
         params = init_tree(self.specs(), _generator(generator),
                            resolve_device(device))
         self.w = nn.Parameter(params["w"])
@@ -69,34 +96,93 @@ class BlockedConv2D(nn.Module):
 
     def specs(self):
         lay = self.layout
-        fan_in = self.hf * self.wf * self.ci
+        cig = self.ci // self.groups
+        fan_in = self.hf * self.wf * cig
         return {
-            "w": ParamSpec((self.co // lay.cb_out, self.ci // lay.cb_in,
-                            self.hf, self.wf, lay.cb_in, lay.cb_out),
+            "w": ParamSpec((self.co // lay.cb_out, cig // lay.cb_weight,
+                            self.hf, self.wf, lay.cb_weight, lay.cb_out),
                            init="normal", scale=1.0 / math.sqrt(fan_in)),
             "b": ParamSpec((self.co // lay.cb_out, lay.cb_out), init="zeros"),
         }
+
+    def spec(self, n: int, hi: int, wi: int) -> ConvSpec:
+        """The layer's geometry over an ``n x hi x wi`` input."""
+        return ConvSpec.make(n, hi, wi, self.ci, self.co, self.hf, self.wf,
+                             self.stride, self.padding, self.groups,
+                             self.dilation)
 
     def forward(self, xb: torch.Tensor, residual: Optional[torch.Tensor] = None,
                 gap: bool = False) -> torch.Tensor:
         """``residual`` is skip-added after the activation in the epilogue;
         ``gap=True`` returns the pooled ``[N, Co]`` features instead of the
         map, whose values the kernel pools as it stores them."""
+        spec = self.spec(xb.shape[0], xb.shape[2], xb.shape[3])
+        if spec.is_pointwise:
+            return pointwise_conv2d_blocked(xb, self.w, self.b, self.stride,
+                                            self.padding, self.activation,
+                                            residual=residual, gap=gap)
+        if spec.is_depthwise:
+            return depthwise_conv2d_blocked(xb, self.w, self.b, self.stride,
+                                            self.padding, self.activation,
+                                            residual=residual, gap=gap,
+                                            dilation=self.dilation)
         return direct_conv2d_blocked(xb, self.w, self.b, self.stride,
                                      self.padding, self.activation,
                                      residual=residual, gap=gap)
 
 
+class DepthwiseSeparableBlock(nn.Module):
+    """Depthwise conv + pointwise (1x1) conv, chained in the blocked layout.
+
+    The MobileNet factorization on the paper's layout, as the reference's
+    block (``repro/nn/conv.py:363-425``): the depthwise leg filters each
+    channel spatially (``groups == ci``, weight ``Cig = 1``), the pointwise
+    leg mixes channels.  Both legs share the full-lane channel pencil, so
+    the block's interior boundary is repack-free.  The activation follows
+    each leg; a residual and the GAP ride the pointwise leg, the block's
+    output.  Parameters: ``dw.w``, ``dw.b``, ``pw.w``, ``pw.b``, drawn in
+    that order.
+    """
+
+    def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
+                 stride: int = 1, padding: Padding = "SAME",
+                 activation: Optional[str] = "relu", *, dilation=1,
+                 lane: int = 128, device: Union[str, torch.device] = "cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        gen = _generator(generator)
+        self.ci, self.co = ci, co
+        self.dw = BlockedConv2D(ci, ci, hf, wf, stride, padding, activation,
+                                groups=ci, dilation=dilation, lane=lane,
+                                device=device, generator=gen)
+        self.pw = BlockedConv2D(ci, co, 1, 1, 1, "VALID", activation,
+                                lane=lane, device=device, generator=gen)
+
+    @property
+    def in_pencil(self) -> int:
+        return self.dw.in_pencil
+
+    @property
+    def out_pencil(self) -> int:
+        return self.pw.out_pencil
+
+    def forward(self, xb: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                gap: bool = False) -> torch.Tensor:
+        return self.pw(self.dw(xb), residual=residual, gap=gap)
+
+
 class BlockedCNN(nn.Module):
     """conv -> ... -> conv -> GAP -> linear head, chained in blocked layout.
 
-    NHWC images are blocked once at entry; every layer boundary after that
-    stays in ``[N, C/Cb, H, W, Cb]``.  The last conv pools in its epilogue,
-    so its map is consumed as it is stored, and the head is a plain
-    ``torch.matmul`` outside any kernel (the reference left it to XLA).
+    Layers are ``BlockedConv2D``s or ``DepthwiseSeparableBlock``s, mixed
+    freely.  NHWC images are blocked once at entry; every layer boundary
+    after that stays in ``[N, C/Cb, H, W, Cb]``.  The last layer pools in
+    its epilogue, so its map is consumed as it is stored, and the head is a
+    plain ``torch.matmul`` outside any kernel (the reference left it to
+    XLA).
     """
 
-    def __init__(self, convs: Sequence[BlockedConv2D], n_classes: int, *,
+    def __init__(self, convs: Sequence[nn.Module], n_classes: int, *,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -111,14 +197,19 @@ class BlockedCNN(nn.Module):
                     f"pencil mismatch: {a.out_pencil} -> {b.in_pencil}; "
                     "layers must agree on the channel block to chain")
         for c in convs:
-            if c.w.device.type != dev.type:
-                raise ValueError(f"conv parameters are on {c.w.device}, the "
-                                 f"model on {dev}")
+            for p in c.parameters():
+                if p.device.type != dev.type:
+                    raise ValueError(f"layer parameters are on {p.device}, "
+                                     f"the model on {dev}")
         self.convs = nn.ModuleList(convs)
         self.n_classes = n_classes
         head = init_tree(ParamSpec((convs[-1].co, n_classes)),
                          _generator(generator), dev)
         self.head = nn.Parameter(head)
+
+    @property
+    def in_channels(self) -> int:
+        return self.convs[0].ci
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         """``[N, H, W, C]`` images -> ``[N, n_classes]`` logits."""

@@ -3,7 +3,7 @@ of ``repro/train/trainstep.py`` (``make_loss_fn``, ``make_train_step``).
 
 The loss is the f32 cross-entropy of the class logits.  Gradients come from
 autograd, which runs every conv's backward through the dgrad and wgrad
-kernels on the card (``kernels.direct_conv2d.DirectConv2dFunction``) and
+kernels on the card (``kernels.conv_autograd.BlockedConvFunction``) and
 through their plain versions on the CPU.  With ``accum_steps > 1`` the batch
 is split along dim 0 into microbatches whose gradients are averaged, as the
 reference's ``lax.scan`` does.

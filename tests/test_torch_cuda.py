@@ -17,7 +17,10 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
                                                reset_launches, wgrad_reduce)
-from repro_torch.nn.conv import BlockedCNN, BlockedConv2D  # noqa: E402
+from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
+from repro_torch.kernels import conv2d_pointwise as pwk  # noqa: E402
+from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,  # noqa: E402
+                                 DepthwiseSeparableBlock)
 
 pytestmark = pytest.mark.gpu
 
@@ -162,3 +165,126 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     offset.copy_(x)
     with pytest.raises(ValueError, match="16-byte"):
         direct_conv2d_blocked(offset, w, b, 1, "SAME")
+
+
+# (n, ci, co, h, cib, cob, activation, residual, gap)
+PW_CASES = [
+    (2, 32, 64, 28, 32, 64, "relu", False, False),
+    (2, 12, 20, 9, 4, 4, "gelu", True, False),        # Cob not a multiple of 8
+    (3, 1024, 1024, 7, 128, 128, "relu", False, True),
+    (2, 16, 24, 5, 8, 8, "gelu", True, True),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,act,res,gap", PW_CASES)
+def test_pointwise_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
+                                                act, res, gap):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda, generator=g)
+    w = torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=cuda,
+                    generator=g) / ci ** 0.5
+    b = torch.randn((co // cob, cob), device=cuda, generator=g)
+    r = (torch.randn((n, co // cob, h, h, cob), device=cuda, generator=g)
+         if res else None)
+    pwk.reset_launches()
+    with torch.no_grad():
+        got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", act,
+                                           residual=r, gap=gap)
+    want = direct_conv_blocked(x, w, 1, "VALID", b, act, residual=r, gap=gap)
+    z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
+    ct = torch.randn(z.shape, device=cuda, generator=g)
+    dx = pwk.pointwise_dgrad(ct, w, z, act)
+    dw, db = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
+    dw2, db2 = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
+    torch.cuda.synchronize()
+    assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 1,
+                            "conv2d_pointwise_dgrad": 1,
+                            "conv2d_pointwise_wgrad": 2}
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
+        ct, w, (h, h), 1, "VALID", z, act), **TOL)
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), ct.double(), 1, 1, 1, "VALID", z.double(), act,
+        with_db=True)
+    torch.testing.assert_close(dw.double(), want_dw, **TOL)
+    torch.testing.assert_close(db.double(), want_db, **TOL)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
+
+
+# (n, c, h, cb, stride, dilation, activation, residual, gap)
+DW_CASES = [
+    (2, 32, 28, 32, 1, 1, "relu", False, False),
+    (2, 64, 28, 64, 2, 1, "relu", False, False),      # TF-SAME pads (0, 1)
+    (2, 256, 14, 128, 2, 1, "relu", True, True),
+    (2, 24, 13, 8, 1, 2, "gelu", True, True),         # dilation 2
+    (2, 6, 9, 3, 2, 1, None, False, False),           # Cb = 3, odd extent
+    (2, 16, 11, 8, 3, 1, "relu", False, False),       # the generic stride
+]
+
+
+@pytest.mark.parametrize("n,c,h,cb,s,dil,act,res,gap", DW_CASES)
+def test_depthwise_kernels_match_plain_versions(cuda, n, c, h, cb, s, dil,
+                                                act, res, gap):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((n, c // cb, h, h, cb), device=cuda, generator=g)
+    w = torch.randn((c // cb, 1, 3, 3, 1, cb), device=cuda, generator=g) / 3
+    b = torch.randn((c // cb, cb), device=cuda, generator=g)
+    z = direct_conv_blocked(x, w, s, "SAME", b, groups=c,
+                            dilation=dil).contiguous()
+    r = torch.randn(z.shape, device=cuda, generator=g) if res else None
+    dwk.reset_launches()
+    with torch.no_grad():
+        got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", act,
+                                           residual=r, gap=gap, dilation=dil)
+    want = direct_conv_blocked(x, w, s, "SAME", b, act, groups=c,
+                               dilation=dil, residual=r, gap=gap)
+    ct = torch.randn(z.shape, device=cuda, generator=g)
+    zz = None if act is None else z
+    dx = dwk.depthwise_dgrad(ct, w, (h, h), s, "SAME", zz, act, dil)
+    dw, db = dwk.depthwise_wgrad(x, ct, 3, 3, s, "SAME", zz, act, True, dil)
+    dw2, db2 = dwk.depthwise_wgrad(x, ct, 3, 3, s, "SAME", zz, act, True, dil)
+    torch.cuda.synchronize()
+    assert dwk.LAUNCHES == {"conv2d_depthwise_fwd": 1,
+                            "conv2d_depthwise_dgrad": 1,
+                            "conv2d_depthwise_wgrad": 2}
+    torch.testing.assert_close(got, want, **TOL)
+    torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
+        ct, w, (h, h), s, "SAME", zz, act, c, dil), **TOL)
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), ct.double(), 3, 3, s, "SAME",
+        None if zz is None else zz.double(), act, True, c, dil)
+    torch.testing.assert_close(dw.double(), want_dw, **TOL)
+    torch.testing.assert_close(db.double(), want_db, **TOL)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
+
+
+def test_separable_model_runs_through_the_kernels(cuda):
+    gen = torch.Generator().manual_seed(0)
+    blocks = [DepthwiseSeparableBlock(8, 16, stride=1, lane=8, device=cuda,
+                                      generator=gen),
+              DepthwiseSeparableBlock(16, 16, stride=2, lane=8, device=cuda,
+                                      generator=gen)]
+    model = BlockedCNN(blocks, 4, device=cuda, generator=gen)
+    images = torch.randn((2, 12, 12, 8), device=cuda)
+    for mod in (pwk, dwk):
+        mod.reset_launches()
+    reset_launches()
+    with torch.no_grad():
+        model(images)
+    torch.cuda.synchronize()
+    assert pwk.LAUNCHES["conv2d_pointwise_fwd"] == 2
+    assert dwk.LAUNCHES["conv2d_depthwise_fwd"] == 2
+    assert LAUNCHES["gap_finalize"] == 1
+    loss = model(images).square().sum()
+    loss.backward()
+    torch.cuda.synchronize()
+    # the first block's dx is not needed: the images do not require grad
+    assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 4,
+                            "conv2d_pointwise_dgrad": 2,
+                            "conv2d_pointwise_wgrad": 2}
+    assert dwk.LAUNCHES == {"conv2d_depthwise_fwd": 4,
+                            "conv2d_depthwise_dgrad": 1,
+                            "conv2d_depthwise_wgrad": 2}
+    assert LAUNCHES["wgrad_reduce"] == 4
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in model.parameters())

@@ -18,6 +18,7 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                _require,
                                                direct_conv2d_blocked,
                                                gap_finalize)
+from repro_torch.nn.conv import BlockedConv2D  # noqa: E402
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 
@@ -141,8 +142,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         direct_conv2d_blocked(x[0], wt, b, 1, "SAME")
     with pytest.raises(NotImplementedError, match="kernel zoo"):
         direct_conv_blocked(x, wt, 1, "SAME", groups=2)
+    # the plain conv computes dilation (the depthwise kernels take it); the
+    # dense kernels do not, so a dilated dense layer is refused
     with pytest.raises(NotImplementedError, match="kernel zoo"):
-        direct_conv_blocked(x, wt, 1, "SAME", dilation=2)
+        BlockedConv2D(4, 8, dilation=2, device="cpu")
 
 
 def test_float4_operands_must_be_16_byte_aligned():

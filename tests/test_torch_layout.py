@@ -200,3 +200,115 @@ def test_wgrad_blocking_misfit_raises():
                                        machine=tiny)
     with pytest.raises(ValueError, match="thread"):
         blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 256, 1, 256)
+
+
+# ---------------------------------------------------------------------------
+# the separable family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,cap,groups", [
+    (64, 128, 1), (64, 128, 4), (96, 16, 3), (1024, 128, 8), (30, 8, 5)])
+def test_grouped_pencils_match_reference(n, cap, groups):
+    assert layout.choose_pencil(n, cap, groups=groups) == \
+        jlayout.choose_pencil(n, cap, groups=groups)
+    with pytest.raises(ValueError, match="must divide"):
+        layout.choose_pencil(n + 1, cap, groups=2 if n % 2 == 0 else 3)
+
+
+@pytest.mark.parametrize("ci,co,lane,groups", [
+    (32, 32, 128, 32), (1024, 1024, 128, 1024), (12, 12, 8, 12),
+    (32, 64, 128, 1), (64, 128, 8, 4)])
+def test_depthwise_layout_and_weight_shapes_match_reference(ci, co, lane,
+                                                            groups):
+    from repro.nn import conv as jconv
+    from repro_torch.nn.conv import BlockedConv2D
+    a = layout.BlockedConvLayout.choose(ci, co, lane, groups=groups)
+    b = jlayout.BlockedConvLayout.choose(ci, co, lane, groups=groups)
+    assert (a.cb_in, a.cb_out, a.cb_w, a.cb_weight) == \
+        (b.cb_in, b.cb_out, b.cb_w, b.cb_weight)
+    if groups in (1, ci):                 # what the port's layers build
+        want = jconv.BlockedConv2D(ci, co, groups=groups,
+                                   lane=lane).specs()["w"].shape
+        got = BlockedConv2D(ci, co, groups=groups, lane=lane,
+                            device="cpu").w.shape
+        assert tuple(got) == tuple(want)
+    spec = convspec.ConvSpec.make(2, 8, 8, ci, co, 3, 3, groups=groups)
+    ref = jconvspec.ConvSpec.make(2, 8, 8, ci, co, 3, 3, groups=groups)
+    assert (spec.is_grouped, spec.is_depthwise, spec.is_pointwise) == \
+        (ref.is_grouped, ref.is_depthwise, ref.is_pointwise)
+    one = convspec.ConvSpec.make(2, 8, 8, ci, co, 1, 1, padding="SAME")
+    assert one.is_pointwise and one.is_pointwise == jconvspec.ConvSpec.make(
+        2, 8, 8, ci, co, 1, 1, padding="SAME").is_pointwise
+
+
+def _mobilenet_shapes():
+    """Every distinct (ci, co, stride, input extent) of MobileNet's blocks
+    at the server's two entries."""
+    from repro_torch.configs.cnn import MOBILENET_V1_BLOCKS
+    shapes = []
+    for entry in (224, 160):
+        h = -(-entry // 2)
+        for ci, co, s in MOBILENET_V1_BLOCKS:
+            shapes.append((ci, co, s, h))
+            h = -(-h // s)
+    return sorted(set(shapes))
+
+
+@pytest.mark.parametrize("n", [8, 32])
+def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
+    m = blocking.H100_SXM
+    for ci, co, s, h in _mobilenet_shapes():
+        cb, cob = min(ci, 128), min(co, 128)
+        ho = -(-h // s)
+        for dgrad in (False, True):
+            ext = h if dgrad else ho
+            d = blocking.choose_depthwise_blocking(n, ci // cb, ext, ext, cb,
+                                                   3, 3, s, dgrad=dgrad)
+            assert ext % d.hob == 0 and ext % d.wob == 0
+            assert d.hob * d.wob <= (m.threads // cb) * \
+                blocking.DW_THREAD_POSITIONS
+            assert blocking.depthwise_smem_bytes(d.hwin, d.wwin, cb, m) \
+                <= m.smem_budget
+            want = (blocking.dgrad_window(d.hob, d.wob, 3, 3, s) if dgrad
+                    else (s * (d.hob - 1) + 3, s * (d.wob - 1) + 3))
+            assert (d.hwin, d.wwin) == want
+        wg = blocking.choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb,
+                                                      3, 3, s)
+        assert ho % wg.hob == 0 and ho % wg.wob == 0
+        assert blocking.depthwise_wgrad_smem_bytes(
+            wg.hob, wg.wob, cb, 3, 3, s) <= m.smem_budget
+        assert 1 <= wg.splits <= wg.tiles == n * (ho // wg.hob) * (
+            ho // wg.wob)
+        hw = ho * ho
+        for kb, oblk, ob, tr in ((cb, co // cob, cob, False),
+                                 (cob, ci // cb, cb, True)):
+            for gap in (False, True):
+                p = blocking.choose_pointwise_blocking(n, hw, kb, oblk, ob,
+                                                       gap=gap, transposed=tr)
+                groups = m.threads // -(-ob // m.lanes)
+                assert p.positions <= min(hw, groups * m.positions)
+                assert p.positions == hw or p.positions % groups == 0
+                assert p.tiles == -(-hw // p.positions) and kb % p.chunk == 0
+                assert blocking.pointwise_smem_bytes(
+                    p.positions, p.chunk, ob, m, gap, tr) <= m.smem_budget
+        pw = blocking.choose_pointwise_wgrad_blocking(n, hw, ci // cb, cb,
+                                                      co // cob, cob)
+        assert pw.pgroups * -(-cb // 8) * -(-cob // 8) <= m.threads
+        assert blocking.pointwise_wgrad_smem_bytes(
+            pw.positions, cb, cob, pw.pgroups) <= m.smem_budget
+        assert 1 <= pw.splits <= pw.tiles == n * -(-hw // pw.positions)
+
+
+def test_separable_choosers_fill_the_card_where_the_map_allows():
+    m = blocking.H100_SXM
+    # 112x112 legs: the largest tiles already give a full wave
+    d = blocking.choose_depthwise_blocking(8, 1, 112, 112, 32, 3, 3, 1)
+    assert (d.hob, d.wob) == (16, 16) and 8 * 49 >= m.wave
+    # 7x7x1024: every thread keeps a position, the grid grows instead
+    d = blocking.choose_depthwise_blocking(8, 8, 7, 7, 128, 3, 3, 1)
+    assert d.hob * d.wob >= m.threads // 128 and 8 * 8 * 49 // (
+        d.hob * d.wob) >= m.wave
+    p = blocking.choose_pointwise_blocking(8, 49, 128, 8, 128)
+    assert p.positions == 32                  # two per thread, 128 CTAs
+    with pytest.raises(ValueError, match="taps"):
+        blocking.choose_depthwise_wgrad_blocking(1, 1, 8, 8, 8, 7, 7)

@@ -289,3 +289,100 @@ def test_train_conv_runs_on_the_cpu_when_asked(capsys):
     assert train_conv.main(["--device", "cpu", "--steps", "3"]) == 0
     out = capsys.readouterr().out
     assert "[dense/cpu] step 3:" in out and "fused inference path" in out
+
+
+# ---------------------------------------------------------------------------
+# the separable family
+# ---------------------------------------------------------------------------
+
+def _spec_tree(specs, seed):
+    """Seeded numpy parameters for a nested tree of the reference's
+    ``ParamSpec``s (dense layers and depthwise-separable blocks)."""
+    rng = np.random.default_rng(seed)
+
+    def draw(name, spec):
+        if isinstance(spec, dict):
+            return {k: draw(k, v) for k, v in spec.items()}
+        if name == "b":
+            return (0.05 * rng.normal(size=spec.shape)).astype(np.float32)
+        fan_in = np.prod(spec.shape[1:5]) if name == "w" else spec.shape[0]
+        return (rng.normal(size=spec.shape) * np.sqrt(2.0 / fan_in)).astype(
+            np.float32)
+
+    return {k: draw(k, v) for k, v in specs.items()}
+
+
+def _flat(tree, prefix=""):
+    """A nested tree's leaves under dotted names."""
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flat(v, name + "."))
+        else:
+            out[name] = np.asarray(v)
+    return out
+
+
+def test_toy_separable_training_matches_the_jax_example():
+    steps = 5
+    ex = _example()
+    jmodel = ex.MODELS["separable"]
+    tree = _spec_tree(jmodel.specs(), seed=14)
+    rng = np.random.default_rng(15)
+    batches = [train_conv.make_batch(rng, 32) for _ in range(steps)]
+
+    loss_fn = ex.make_loss(jmodel, ConvContext(impl="jnp"))
+    j_opt = jopt.AdamW(lr=jopt.cosine_schedule(1e-2, 10, steps),
+                       weight_decay=0.0)
+    jp = _tree_j(tree)
+    js = j_opt.init(jp)
+
+    @jax.jit
+    def jstep(p, st, x, y):
+        (loss, _), g = jax.value_and_grad(loss_fn, has_aux=True)(p, x, y)
+        p, st, _ = j_opt.update(g, st, p)
+        return p, st, loss
+
+    model = train_conv.separable_model("cpu")
+    model.load_state_dict(params_from_jax(tree, device="cpu"))
+    opt = AdamW(lr=cosine_schedule(1e-2, 10, steps), weight_decay=0.0)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt)
+    tol = ex.PARITY_TOL["f32"]
+    for x, y in batches:
+        jp, js, want = jstep(jp, js, jnp.asarray(x), jnp.asarray(y))
+        loss, _ = step(state, {"images": torch.from_numpy(x),
+                               "targets": torch.from_numpy(y)})
+        assert abs(loss.item() - float(want)) < tol + tol * abs(float(want))
+    got, want = _flat(params_to_numpy(model)), _flat(jp)
+    assert set(got) == set(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w, rtol=1e-4, atol=1e-5,
+                                   err_msg=name)
+
+
+def test_params_round_trip_on_a_nested_tree():
+    ex = _example()
+    jmodel = ex.MODELS["separable"]
+    tree = _spec_tree(jmodel.specs(), seed=16)
+    model = train_conv.separable_model("cpu")
+    sd = params_from_jax(tree, device="cpu")
+    assert set(sd) == set(model.state_dict()) == {
+        f"convs.{i}.{leg}.{p}" for i in range(2) for leg in ("dw", "pw")
+        for p in "wb"} | {"head"}
+    model.load_state_dict(sd)
+    back = params_to_numpy(model)
+    assert set(back) == set(tree)
+    for name, leaf in _flat(tree).items():
+        np.testing.assert_array_equal(_flat(back)[name], leaf)
+    broken = dict(tree, conv1={"dw": tree["conv1"]["dw"]})
+    with pytest.raises(ValueError, match="not a BlockedCNN"):
+        params_from_jax(broken, device="cpu")
+
+
+def test_train_conv_trains_the_separable_net_on_the_cpu(capsys):
+    assert train_conv.main(["--model", "separable", "--device", "cpu",
+                            "--steps", "3"]) == 0
+    out = capsys.readouterr().out
+    assert "[separable/cpu] step 3:" in out and "fused inference path" in out
