@@ -57,7 +57,25 @@ and no phase catches its own failure:
     depthwise and pointwise legs: eager and as a CUDA-graph replay (device
     alone), beside the plain version, the library call and the bound; the
     train step against the plain trainer's; the step's peak device memory
-    beside the bytes it must hold.
+    beside the bytes it must hold;
+15. the streamed (halo-ring) kernels against their plain versions: the
+    forward at every distinct VGG-16 shape of both buckets at batch 8
+    (also against the window kernel: bit for bit where both choosers take
+    the same channel chunk, else within 1e-5 of max|y|, with a count of
+    each), a small gelu + residual + GAP shape at stride 2 with ``Cib =
+    3``, and the dgrad and wgrad at 224 with the relu prologue and ``db``
+    (the wgrad against f64 sums, twice, bit for bit); each layer's streamed
+    tiles are printed;
+16. the fifth and sixth main paths: VGG-16 through ``ConvServer(context=
+    ConvContext(stream=True))``, 24 requests each OK with the plain logits,
+    then three AdamW steps at batch 8 on the streamed route held to phase
+    8's rules; both runs launch the streamed kernels and no window forward,
+    dgrad or wgrad;
+17. per-layer and summed times of the three streamed kernels, eager and as
+    a CUDA-graph replay, beside the window kernels, the plain versions,
+    cuDNN (TF32 off) and the f32 bound; the streamed train step against the
+    window step and the plain step; its peak device memory beside the bytes
+    it must hold.
 
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -71,6 +89,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -123,7 +142,7 @@ TPU_WGRAD = "src/repro/kernels/direct_conv2d.py:175"
 BATCH, ENTRY = 8, 224
 BUCKETS = ((160, 160), (224, 224))
 SOURCES = ("direct_conv2d_fwd", "direct_conv2d_bwd", "conv2d_pointwise",
-           "conv2d_depthwise")
+           "conv2d_depthwise", "conv2d_stream")
 # MobileNet v1: served at batch 8, trained at batch 32
 MB_BATCH, MB_TRAIN_BATCH = 8, 32
 PW_SOURCE = "src/repro_torch/csrc/conv2d_pointwise.cu"
@@ -138,6 +157,10 @@ TPU_SEPARABLE = {
     "conv2d_depthwise_dgrad": "src/repro/kernels/conv2d_depthwise.py:72",
     "conv2d_depthwise_wgrad": "src/repro/kernels/conv2d_depthwise.py:105",
 }
+STREAM_SOURCE = "src/repro_torch/csrc/conv2d_stream.cu"
+# the streamed forward's TPU kernel is also its dgrad (transpose=True)
+TPU_STREAM = "src/repro/kernels/conv2d_stream.py:78"
+TPU_STREAM_WGRAD = "src/repro/kernels/conv2d_stream.py:306"
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -255,18 +278,158 @@ def plain_cnn_forward(x, m):
     return hb @ m.head
 
 
+def _kernel_modules():
+    from repro_torch.kernels import (conv2d_depthwise, conv2d_pointwise,
+                                     conv2d_stream, direct_conv2d)
+    return direct_conv2d, conv2d_depthwise, conv2d_pointwise, conv2d_stream
+
+
 def reset_all_launches() -> None:
-    from repro_torch.kernels import conv2d_depthwise, conv2d_pointwise
-    from repro_torch.kernels import direct_conv2d
-    for mod in (direct_conv2d, conv2d_depthwise, conv2d_pointwise):
+    for mod in _kernel_modules():
         mod.reset_launches()
 
 
 def all_launches() -> dict:
-    from repro_torch.kernels import conv2d_depthwise, conv2d_pointwise
-    from repro_torch.kernels import direct_conv2d
-    return {**direct_conv2d.LAUNCHES, **conv2d_depthwise.LAUNCHES,
-            **conv2d_pointwise.LAUNCHES}
+    out = {}
+    for mod in _kernel_modules():
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def lockstep_train(tag, train_model, n, batch_seed, want_step, dev,
+                   context=None):
+    """Three AdamW steps (cosine, peak ``TRAIN_LR``) of ``train_model``
+    through ``make_train_step`` under ``context``, in lockstep with a
+    plain-path trainer from the same start on the same ``n``-image batches
+    (drawn from ``batch_seed``).  Fails unless one step launches
+    ``want_step``, step 1's loss and every gradient agree with torch
+    autograd through the plain forward (``GRAD_RTOL``), and the parameters
+    after step 3 agree with the plain trainer's (``PARAM_FRAC``,
+    ``PARAM_STEP``).  -> a namespace: the model, both steps and states, the
+    optimizer, the batches and the launches of the three steps."""
+    from repro_torch.train.losses import cross_entropy
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainstep import make_train_step
+
+    plain_model = copy.deepcopy(train_model)
+    start = {k: p.detach().clone() for k, p in train_model.named_parameters()}
+    lr = cosine_schedule(TRAIN_LR, 1, 3)
+    opt = AdamW(lr=lr)
+    state = opt.init(dict(train_model.named_parameters()))
+    plain_state = opt.init(dict(plain_model.named_parameters()))
+    step = make_train_step(train_model, opt, context=context)
+    plain_params = dict(plain_model.named_parameters())
+
+    def plain_step(st, bt):
+        for p in plain_params.values():
+            p.grad = None
+        logits_p = plain_cnn_forward(bt["images"], plain_model)
+        loss_p, _ = cross_entropy(logits_p[:, None, :],
+                                  bt["targets"][:, None], 1000)
+        loss_p.backward()
+        opt.update({k: p.grad for k, p in plain_params.items()}, st,
+                   plain_params)
+        return loss_p.detach()
+
+    rng = np.random.default_rng(batch_seed)
+    batches = [
+        {"images": torch.from_numpy(rng.standard_normal(
+            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+         "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
+        for _ in range(3)]
+    losses, plain_losses = [], []
+    reset_all_launches()
+    for k, bt in enumerate(batches):
+        loss, _ = step(state, bt)
+        torch.cuda.synchronize()
+        if k == 0:
+            per_step = {key: v for key, v in all_launches().items() if v}
+            grads = {name: p.grad.clone()
+                     for name, p in train_model.named_parameters()}
+        losses.append(loss.item())
+        plain_losses.append(plain_step(plain_state, bt).item())
+        if k == 0:
+            print(f"[{tag}] launches in one step: {per_step}")
+            if per_step != want_step:
+                fail(f"a train step launched {per_step}, expected "
+                     f"{want_step}")
+            ratios = {}
+            for name, p in plain_params.items():
+                e = (grads[name] - p.grad).abs().max().item()
+                ratios[name] = e / max(p.grad.abs().max().item(), 1e-30)
+            print(f"[{tag}] step-1 gradients vs plain autograd, max-err/"
+                  "max-value per tensor: " + " ".join(
+                      f"{key}={v:.2e}" for key, v in ratios.items()))
+            over = {key: v for key, v in ratios.items() if not v <= GRAD_RTOL}
+            if over:
+                fail(f"step-1 gradients beyond {GRAD_RTOL:g}: {over}")
+            print(f"[{tag}] all {len(ratios)} gradients within "
+                  f"{GRAD_RTOL:g} of their largest value -> ok")
+            if not abs(losses[0] - plain_losses[0]) <= 1e-4 * abs(
+                    plain_losses[0]):
+                fail(f"step-1 loss {losses[0]} != plain {plain_losses[0]}")
+    counts = all_launches()
+    print(f"[{tag}] n{n} {ENTRY}x{ENTRY} 1000 classes, AdamW cosine: losses "
+          f"{losses} plain path {plain_losses}")
+    print(f"[{tag}] launches in 3 steps: {counts}")
+    if any(not np.isfinite(v) for v in losses):
+        fail("non-finite loss")
+    lr_sum = sum(lr(t) for t in (1, 2, 3))
+    far, n_el, worst, apart, moved = 0, 0, 0.0, 0.0, 0.0
+    for name, p in train_model.named_parameters():
+        d = (p.detach() - plain_params[name].detach()).abs()
+        far += int((d > PARAM_STEP * lr_sum).sum())
+        n_el += d.numel()
+        worst = max(worst, d.max().item())
+        apart += d.square().sum().item()
+        moved += (plain_params[name].detach()
+                  - start[name]).square().sum().item()
+    print(f"[{tag}] parameters after 3 steps vs the plain trainer: {far} of "
+          f"{n_el} elements differ by more than {PARAM_STEP:g} * sum(lr)="
+          f"{lr_sum:g}, largest difference {worst:.3e}, |kernel - plain| / "
+          f"|plain - start| = {(apart / moved) ** 0.5:.3e} (tol: at most "
+          f"{PARAM_FRAC:g} of elements, none above 2.1 * sum(lr))")
+    if far > PARAM_FRAC * n_el or worst > 2.1 * lr_sum:
+        fail("the kernel trainer drifted from the plain trainer")
+    return types.SimpleNamespace(
+        model=train_model, step=step, state=state, opt=opt,
+        plain_step=plain_step, plain_state=plain_state, batches=batches,
+        counts=counts)
+
+
+def timed_steps(tag, runs, batches):
+    """Host-clock ms of four steps of each ``(name, step, state)`` of
+    ``runs`` (each ending in a synchronize), taken in turns: first to last,
+    then last to first twice, then first to last.  -> {name: [ms]}."""
+    times = {name: [] for name, _, _ in runs}
+    for k in range(4):
+        for name, fn, st in (runs if k % 3 == 0 else runs[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(st, batches[k % 3])
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"[{tag}] step ms (host clock, synchronized): " + " ".join(
+        f"{name} {t}" for name, t in times.items()) + "; median " + " ".join(
+        f"{name} {np.median(t):.3f}" for name, t in times.items()))
+    return times
+
+
+def step_peak_bytes(tr):
+    """Peak device memory of one step of ``tr``'s kernel trainer beyond
+    what other phases hold (the plain trainer is dropped first).  -> (peak,
+    bytes of the parameters)."""
+    tr.plain_step = tr.plain_state = None
+    torch.cuda.empty_cache()
+    params = list(tr.model.parameters())
+    p_bytes = 4 * sum(p.numel() for p in params)
+    state_bytes = 3 * p_bytes + sum(4 * p.grad.numel() for p in params
+                                    if p.grad is not None)
+    other = torch.cuda.memory_allocated() - state_bytes
+    torch.cuda.reset_peak_memory_stats()
+    tr.step(tr.state, tr.batches[0])
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - other, p_bytes
 
 
 def mobilenet_phases(args, dev, t_start):
@@ -289,9 +452,6 @@ def mobilenet_phases(args, dev, t_start):
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.nn.conv import DepthwiseSeparableBlock
     from repro_torch.serve.scheduler import ConvRequest, Outcome
-    from repro_torch.train.losses import cross_entropy
-    from repro_torch.train.optimizer import AdamW, cosine_schedule
-    from repro_torch.train.trainstep import make_train_step
 
     gen = torch.Generator(device=dev).manual_seed(args.seed + 10)
 
@@ -566,93 +726,15 @@ def mobilenet_phases(args, dev, t_start):
     stamp(12)
 
     # -- 13. the fourth main path: MobileNet v1 trained ---------------------
-    train_model = mobilenet_v1_blocked(
-        1000, device=dev, generator=torch.Generator().manual_seed(args.seed + 4))
-    plain_model = copy.deepcopy(train_model)
-    start = {k: p.detach().clone() for k, p in train_model.named_parameters()}
-    lr = cosine_schedule(TRAIN_LR, 1, 3)
-    opt = AdamW(lr=lr)
-    state = opt.init(dict(train_model.named_parameters()))
-    plain_state = opt.init(dict(plain_model.named_parameters()))
-    step = make_train_step(train_model, opt)
-    plain_params = dict(plain_model.named_parameters())
-
-    def plain_step(st, bt):
-        for p in plain_params.values():
-            p.grad = None
-        logits_p = plain_cnn_forward(bt["images"], plain_model)
-        loss_p, _ = cross_entropy(logits_p[:, None, :],
-                                  bt["targets"][:, None], 1000)
-        loss_p.backward()
-        opt.update({k: p.grad for k, p in plain_params.items()}, st,
-                   plain_params)
-        return loss_p.detach()
-
-    rng = np.random.default_rng(args.seed + 4)
-    train_batches = [
-        {"images": torch.from_numpy(rng.standard_normal(
-            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
-         "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
-        for _ in range(3)]
     one_step = {"direct_conv2d_fwd": 1, "direct_conv2d_wgrad": 1,
                 "wgrad_reduce": 27, "conv2d_depthwise_fwd": 13,
                 "conv2d_depthwise_dgrad": 13, "conv2d_depthwise_wgrad": 13,
                 "conv2d_pointwise_fwd": 13, "conv2d_pointwise_dgrad": 13,
                 "conv2d_pointwise_wgrad": 13}
-    losses, plain_losses = [], []
-    reset_all_launches()
-    for k, bt in enumerate(train_batches):
-        loss, _ = step(state, bt)
-        torch.cuda.synchronize()
-        if k == 0:
-            per_step = {key: v for key, v in all_launches().items() if v}
-            grads = {name: p.grad.clone()
-                     for name, p in train_model.named_parameters()}
-        losses.append(loss.item())
-        plain_losses.append(plain_step(plain_state, bt).item())
-        if k == 0:
-            print(f"[mobilenet-train] launches in one step: {per_step}")
-            if per_step != one_step:
-                fail(f"a train step launched {per_step}, expected {one_step}")
-            ratios = {}
-            for name, p in plain_params.items():
-                e = (grads[name] - p.grad).abs().max().item()
-                ratios[name] = e / max(p.grad.abs().max().item(), 1e-30)
-            print("[mobilenet-train] step-1 gradients vs plain autograd, "
-                  "max-err/max-value per tensor: " + " ".join(
-                      f"{key}={v:.2e}" for key, v in ratios.items()))
-            over = {key: v for key, v in ratios.items() if not v <= GRAD_RTOL}
-            if over:
-                fail(f"step-1 gradients beyond {GRAD_RTOL:g}: {over}")
-            print(f"[mobilenet-train] all {len(ratios)} gradients within "
-                  f"{GRAD_RTOL:g} of their largest value -> ok")
-            if not abs(losses[0] - plain_losses[0]) <= 1e-4 * abs(
-                    plain_losses[0]):
-                fail(f"step-1 loss {losses[0]} != plain {plain_losses[0]}")
-    trained = all_launches()
-    print(f"[mobilenet-train] MobileNet v1 n{n} {ENTRY}x{ENTRY} 1000 classes, "
-          f"AdamW cosine: losses {losses} plain path {plain_losses}")
-    print(f"[mobilenet-train] launches in 3 steps: {trained}")
-    if any(not np.isfinite(v) for v in losses):
-        fail("non-finite loss")
-    lr_sum = sum(lr(t) for t in (1, 2, 3))
-    far, n_el, worst, apart, moved = 0, 0, 0.0, 0.0, 0.0
-    for name, p in train_model.named_parameters():
-        d = (p.detach() - plain_params[name].detach()).abs()
-        far += int((d > PARAM_STEP * lr_sum).sum())
-        n_el += d.numel()
-        worst = max(worst, d.max().item())
-        apart += d.square().sum().item()
-        moved += (plain_params[name].detach()
-                  - start[name]).square().sum().item()
-    print(f"[mobilenet-train] parameters after 3 steps vs the plain trainer: "
-          f"{far} of {n_el} elements differ by more than {PARAM_STEP:g} * "
-          f"sum(lr)={lr_sum:g}, largest difference {worst:.3e}, |kernel - "
-          f"plain| / |plain - start| = {(apart / moved) ** 0.5:.3e} (tol: at "
-          f"most {PARAM_FRAC:g} of elements, none above 2.1 * sum(lr))")
-    if far > PARAM_FRAC * n_el or worst > 2.1 * lr_sum:
-        fail("the kernel trainer drifted from the plain trainer")
-    del grads, start
+    tr = lockstep_train("mobilenet-train", mobilenet_v1_blocked(
+        1000, device=dev, generator=torch.Generator().manual_seed(
+            args.seed + 4)), n, args.seed + 4, one_step, dev)
+    trained = tr.counts
     stamp(13)
 
     # -- 14. times: per leg, the step, the forward; peak memory --------------
@@ -801,38 +883,13 @@ def mobilenet_phases(args, dev, t_start):
               f"{l_ms:.4f} bound_ms {b_ms:.4f} ({mostly(kinds[name])})")
     del bwd, fwd_rows
 
-    def timed_step(fn, st, bt):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(st, bt)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    k_times, p_times = [], []
-    for k in range(4):              # plain, kernel, kernel, plain, ...
-        bt = train_batches[k % 3]
-        if k % 3 == 0:
-            p_times.append(timed_step(plain_step, plain_state, bt))
-            k_times.append(timed_step(step, state, bt))
-        else:
-            k_times.append(timed_step(step, state, bt))
-            p_times.append(timed_step(plain_step, plain_state, bt))
-    print(f"[mobilenet-train] step ms n{n} (host clock, synchronized): "
-          f"kernels {k_times} plain {p_times}; median kernels "
-          f"{np.median(k_times):.3f} plain {np.median(p_times):.3f}")
+    timed_steps(f"mobilenet-train n{n}", [
+        ("plain", tr.plain_step, tr.plain_state),
+        ("kernels", tr.step, tr.state)], tr.batches)
 
     # peak device memory of one kernel step, against what it must hold
-    del plain_model, plain_state, plain_params
-    torch.cuda.empty_cache()
-    params = list(train_model.parameters())
-    p_bytes = 4 * sum(p.numel() for p in params)
-    state_bytes = 3 * p_bytes + sum(4 * p.grad.numel() for p in params
-                                    if p.grad is not None)
-    other = torch.cuda.memory_allocated() - state_bytes
-    torch.cuda.reset_peak_memory_stats()
-    step(state, train_batches[0])
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - other
+    peak, p_bytes = step_peak_bytes(tr)
+    del tr
     ci0, co0, s0 = MOBILENET_V1_CONV1
     h0 = -(-ENTRY // s0)
     saved = 4 * n * (ci0 * ENTRY * ENTRY + co0 * h0 * h0)
@@ -872,6 +929,353 @@ def mobilenet_phases(args, dev, t_start):
     return entries, counts
 
 
+def stream_phases(args, dev, t_start):
+    """Phases 15-17: the streamed (halo-ring) kernels and VGG-16 served and
+    trained through them.  -> (the streamed kernels' entries of the
+    ``{"kernels": [...]}`` line, the launches of the two main-path runs,
+    serving and training, per kernel)."""
+    from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers
+    from repro_torch.core import conv2d_common
+    from repro_torch.core.blocking import (choose_blocking,
+                                           choose_stream_blocking,
+                                           choose_stream_dgrad_blocking,
+                                           choose_stream_wgrad_blocking)
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                              direct_conv_dgrad_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.kernels import conv2d_stream as stk
+    from repro_torch.kernels.direct_conv2d import (direct_conv2d_blocked,
+                                                   direct_conv2d_dgrad,
+                                                   direct_conv2d_wgrad,
+                                                   wgrad_partials)
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    from repro_torch.train.trainstep import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 20)
+    streamed = ConvContext(stream=True)
+    window_kernels = ("direct_conv2d_fwd", "direct_conv2d_dgrad",
+                      "direct_conv2d_wgrad")
+
+    def stamp(phase):
+        print(f"[time] phase {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def operands(n, ci, co, h, s, residual=False):
+        cib, cob = min(ci, 128), min(co, 128)
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
+        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
+                        generator=gen) / (9 * ci) ** 0.5
+        b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
+        r = (torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=dev,
+                         generator=gen) if residual else None)
+        return x, w, b, r, spec
+
+    def layer_shapes(entry):
+        out, h = [], entry
+        for ci, co, s in vgg16_layers():
+            out.append((ci, co, s, h))
+            h = ConvSpec.make(1, h, h, ci, co, 3, 3, s, "SAME").ho
+        return out
+
+    def distinct(seq):
+        return sorted(set(seq), key=seq.index)
+
+    layers = layer_shapes(ENTRY)
+    shapes = distinct(layers)
+    checked = distinct([sh for bh, _ in BUCKETS for sh in layer_shapes(bh)])
+    err = dict.fromkeys(stk.LAUNCHES, 0.0)
+
+    # -- 15. the streamed kernels vs their plain versions and the window ----
+    bitwise, close = [], []
+    with torch.no_grad():
+        for ci, co, s, h in checked:
+            x, w, b, _, spec = operands(BATCH, ci, co, h, s)
+            cib, cob = min(ci, 128), min(co, 128)
+            got = direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                        stream=True)
+            win = direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                        stream=False)
+            want = direct_conv_blocked(x, w, s, "SAME", b, "relu")
+            torch.cuda.synchronize()
+            tag = f"{ci}->{co} {h}x{h} s{s} n{BATCH} relu"
+            err["conv2d_stream_fwd"] = max(
+                err["conv2d_stream_fwd"],
+                compare(f"stream fwd {tag}", got, want, **TOL))
+            sb = choose_stream_blocking(BATCH, spec.padded_hi,
+                                        spec.padded_wi, ci, co, 3, 3, s,
+                                        cob, cib)
+            wb = choose_blocking(spec.padded_hi, spec.padded_wi, ci, co, 3, 3,
+                                 s, cob=cob, cib=cib)
+            same = torch.equal(got, win)
+            diff = (got - win).abs().max().item()
+            scale = want.abs().max().item()
+            print(f"[stream] fwd {tag}: band {sb.hob}x{sb.wob} hso "
+                  f"{sb.hso} ({sb.n_strips} strips) chunk {sb.chunk} ring "
+                  f"{sb.ring_rows}x{sb.ring_cols}; window tile "
+                  f"{wb.hob}x{wb.wob} chunk {wb.chunk}; vs window: "
+                  + ("bit for bit" if same else
+                     f"max diff {diff:.3e} = {diff / scale:.2e} of max|y|"))
+            if sb.chunk == wb.chunk and not same:
+                fail(f"stream fwd {tag}: the same chunk as the window "
+                     "kernel, yet not bit for bit")
+            if not diff <= 1e-5 * scale:
+                fail(f"stream fwd {tag}: {diff:.3e} from the window kernel")
+            (bitwise if same else close).append(tag)
+        print(f"[stream] forward vs window kernel: {len(bitwise)} of "
+              f"{len(checked)} VGG-16 shapes bit for bit, {len(close)} "
+              "within 1e-5 of max|y| (other channel chunks)")
+        for n, ci, co, h, s in ((2, 3, 64, 20, 2), (2, 64, 128, 28, 1)):
+            x, w, b, r, _ = operands(n, ci, co, h, s, residual=True)
+            got = direct_conv2d_blocked(x, w, b, s, "SAME", "gelu",
+                                        residual=r, gap=True, stream=True)
+            want = direct_conv_blocked(x, w, s, "SAME", b, "gelu",
+                                       residual=r, gap=True)
+            torch.cuda.synchronize()
+            err["conv2d_stream_fwd"] = max(
+                err["conv2d_stream_fwd"], compare(
+                    f"stream fwd {ci}->{co} {h}x{h} s{s} n{n} "
+                    "gelu+residual+gap", got, want, **TOL))
+
+    bwd_ops = {}
+    for ci, co, s, h in shapes:
+        x, w, b, _, spec = operands(BATCH, ci, co, h, s)
+        cib, cob = min(ci, 128), min(co, 128)
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, s, "SAME", b).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        bwd_ops[(ci, co, s, h)] = (x, w, z, g, spec)
+        tag = f"{ci}->{co} {h}x{h} s{s} n{BATCH} relu"
+        db_ = choose_stream_dgrad_blocking(BATCH, h, h, 3, 3, s, ci // cib,
+                                           cib, cob, prologue=True)
+        wg = choose_stream_wgrad_blocking(BATCH, spec.ho, spec.wo, 3, 3, s,
+                                          ci // cib, cib, co // cob, cob,
+                                          prologue=True)
+        print(f"[stream] bwd {tag}: dgrad band {db_.hob}x{db_.wob} hso "
+              f"{db_.hso} ({db_.n_strips} strips) chunk {db_.chunk} ring "
+              f"{db_.ring_rows}x{db_.ring_cols}; wgrad strip "
+              f"{wg.hso}x{wg.wob} ring {wg.ring_rows}x{wg.ring_cols} taps "
+              f"{wg.taps}x{wg.tap_groups} items {wg.items} splits "
+              f"{wg.splits}")
+        if ci != 3:        # conv1_1's dx is never needed: no dgrad there
+            got = direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu",
+                                      stream=True)
+            want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z,
+                                             "relu")
+            torch.cuda.synchronize()
+            err["conv2d_stream_dgrad"] = max(
+                err["conv2d_stream_dgrad"],
+                compare(f"stream dgrad {tag}", got, want, **TOL))
+            del got, want
+        dw, db = direct_conv2d_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
+                                     with_db=True, stream=True)
+        dw2, db2 = direct_conv2d_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
+                                       with_db=True, stream=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"stream wgrad {tag}: two runs differ")
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
+            with_db=True)
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), 3, 3, s, "SAME",
+            with_db=True)
+        err["conv2d_stream_wgrad"] = max(
+            err["conv2d_stream_wgrad"],
+            compare_scaled(f"stream wgrad dw {tag} (2 runs identical)", dw,
+                           want_dw, abs_dw, WGRAD_REL),
+            compare_scaled(f"stream wgrad db {tag}", db, want_db, abs_db,
+                           WGRAD_REL))
+        del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+    stamp(15)
+
+    # -- 16. the fifth and sixth main paths: VGG-16 on the streamed route --
+    model = vgg16_blocked(1000, device=dev, generator=torch.Generator()
+                          .manual_seed(args.seed + 2))
+    server = ConvServer(model, list(BUCKETS), BATCH, device=dev,
+                        context=streamed)
+    server.warmup()
+    rng = np.random.default_rng(args.seed + 2)
+    reqs = []
+    for rid in range(24):
+        hh, ww = (int(v) for v in rng.integers(96, ENTRY + 1, size=2))
+        reqs.append(ConvRequest(rid, rng.standard_normal(
+            (hh, ww, 3), dtype=np.float32)))
+    reset_all_launches()
+    for r in reqs:
+        server.submit(r)
+    server.run()
+    torch.cuda.synchronize()
+    served = all_launches()
+    print(f"[stream-serve] launches {({k: v for k, v in served.items() if v})}"
+          f" health {json.dumps(server.health())}")
+    n_fwd = served["gap_finalize"]
+    if any(served[k] for k in window_kernels) or n_fwd == 0 or \
+            served["conv2d_stream_fwd"] != 13 * n_fwd or \
+            served["conv2d_stream_dgrad"] or served["conv2d_stream_wgrad"]:
+        fail(f"the streamed server did not run 13 streamed forwards a "
+             f"batch and nothing else: {served}")
+    bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
+    if bad:
+        fail(f"requests not OK: {bad}")
+    with torch.no_grad():
+        worst = 0.0
+        for r in reqs:
+            img = torch.from_numpy(server.bucketer.pad(r.image, r.bucket))
+            want = plain_cnn_forward(img[None].to(dev), model)[0].cpu().numpy()
+            worst = max(worst, float(np.abs(r.logits - want).max()
+                                     / max(np.abs(want).max(), 1e-30)))
+    print(f"[stream-serve] {len(reqs)} requests OK; logits vs the plain "
+          f"forward of the padded image: max rel-to-max err {worst:.3e} "
+          f"(tol {LOGIT_RTOL:g})")
+    if not worst <= LOGIT_RTOL:
+        fail("served logits differ from the plain forward")
+    del server, model
+
+    tr = lockstep_train(
+        "stream-train", vgg16_blocked(1000, device=dev, generator=torch
+                                      .Generator().manual_seed(args.seed + 3)),
+        BATCH, args.seed + 3, {"conv2d_stream_fwd": 13,
+                               "conv2d_stream_dgrad": 12,
+                               "conv2d_stream_wgrad": 13, "wgrad_reduce": 13},
+        dev, context=streamed)
+    trained = tr.counts
+    stamp(16)
+
+    # -- 17. times: per layer, the step; peak memory ------------------------
+    rows = {}
+    with torch.no_grad():
+        for key in shapes:
+            ci, co, s, h = key
+            x, w, z, g, spec = bwd_ops[key]
+            b = 0.1 * torch.randn((co // min(co, 128), min(co, 128)),
+                                  device=dev, generator=gen)
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(BATCH, ci, h, h),
+                       (pl, pr, pt, pb)).contiguous()
+            w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
+                      .contiguous())
+            dz = conv2d_common.cotangent_prologue(g, z, "relu")
+            dz_nchw = (dz.permute(0, 1, 4, 2, 3)
+                       .reshape(BATCH, co, spec.ho, spec.wo).contiguous())
+            flops = spec.flops()
+            row = {}
+
+            def both(fn):
+                return time_ms(fn), graph_ms(fn)
+
+            row["fwd"] = (
+                *both(lambda: direct_conv2d_blocked(
+                    x, w, b, s, "SAME", "relu", stream=True)),
+                *both(lambda: direct_conv2d_blocked(
+                    x, w, b, s, "SAME", "relu", stream=False)),
+                time_ms(lambda: direct_conv_blocked(x, w, s, "SAME", b,
+                                                    "relu")),
+                time_ms(lambda: F.conv2d(xp, w_oihw, b.reshape(co),
+                                         stride=s)),
+                *bound(flops, 4 * (x.numel() + w.numel() + b.numel()
+                                   + z.numel())))
+            if ci != 3:
+                row["dgrad"] = (
+                    *both(lambda: direct_conv2d_dgrad(
+                        g, w, (h, h), s, "SAME", z, "relu", stream=True)),
+                    *both(lambda: direct_conv2d_dgrad(
+                        g, w, (h, h), s, "SAME", z, "relu", stream=False)),
+                    time_ms(lambda: direct_conv_dgrad_blocked(
+                        g, w, (h, h), s, "SAME", z, "relu")),
+                    time_ms(lambda: torch.ops.aten.convolution_backward(
+                        dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1],
+                        False, [0, 0], 1, [True, False, False])),
+                    *bound(flops, 4 * (2 * g.numel() + w.numel()
+                                       + x.numel())))
+            row["wgrad"] = (
+                *both(lambda: stk.stream_wgrad_partials(
+                    x, g, 3, 3, s, "SAME", z, "relu", with_db=True)),
+                *both(lambda: wgrad_partials(x, g, 3, 3, s, "SAME", z,
+                                             "relu", with_db=True)),
+                time_ms(lambda: direct_conv_wgrad_blocked(
+                    x, g, 3, 3, s, "SAME", z, "relu", with_db=True)),
+                time_ms(lambda: torch.ops.aten.convolution_backward(
+                    dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                    [0, 0], 1, [False, True, False])),
+                *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
+                                   + co)))
+            rows[key] = row
+            del xp, w_oihw, dz, dz_nchw
+    names = {"fwd": "conv2d_stream_fwd", "dgrad": "conv2d_stream_dgrad",
+             "wgrad": "conv2d_stream_wgrad"}
+    sums = {kind: [0.0] * 7 for kind in names}
+    kinds = {kind: [] for kind in names}
+    for lname, key in zip(LAYER_NAMES, layers):
+        ci, co, s, h = key
+        for kind in names:
+            if kind not in rows[key]:
+                continue
+            v = rows[key][kind]
+            for i in range(7):
+                sums[kind][i] += v[i]
+            kinds[kind].append((v[6], v[7]))
+            print(f"[stream-time] {lname} {kind} {ci}->{co} in {h}x{h} s{s} "
+                  f"n{BATCH}: stream_ms {v[0]:.4f} stream_device_ms "
+                  f"{v[1]:.4f} window_ms {v[2]:.4f} window_device_ms "
+                  f"{v[3]:.4f} plain_ms {v[4]:.4f} library_ms {v[5]:.4f} "
+                  f"bound_ms {v[6]:.4f} ({v[7]}) bound/stream_device "
+                  f"{v[6] / v[1]:.3f}")
+    for kind, v in sums.items():
+        print(f"[stream-time] all {len(kinds[kind])} {kind}: stream_ms "
+              f"{v[0]:.4f} stream_device_ms {v[1]:.4f} window_ms {v[2]:.4f} "
+              f"window_device_ms {v[3]:.4f} plain_ms {v[4]:.4f} library_ms "
+              f"{v[5]:.4f} bound_ms {v[6]:.4f} ({mostly(kinds[kind])})")
+    del bwd_ops
+
+    window_step = make_train_step(tr.model, tr.opt)
+    window_state = tr.opt.init(dict(tr.model.named_parameters()))
+    timed_steps("stream-train", [("plain", tr.plain_step, tr.plain_state),
+                                 ("window", window_step, window_state),
+                                 ("stream", tr.step, tr.state)], tr.batches)
+    del window_step, window_state
+    peak, p_bytes = step_peak_bytes(tr)
+    saved, ws_max, hh = 0, 0, ENTRY
+    for (ci, co, s), c in zip(vgg16_layers(), tr.model.convs):
+        ho = -(-hh // s)
+        saved += 4 * BATCH * (ci * hh * hh + co * ho * ho)    # x and z
+        wg = choose_stream_wgrad_blocking(
+            BATCH, ho, ho, 3, 3, s, ci // c.in_pencil, c.in_pencil,
+            co // c.out_pencil, c.out_pencil, prologue=True)
+        ws_max = max(ws_max, 4 * wg.splits * (9 * ci * co + co))
+        hh = ho
+    must = 4 * p_bytes + saved + ws_max
+    print(f"[stream-train] peak device memory of one step: "
+          f"{peak / 2**20:.1f} MiB; it must hold {must / 2**20:.1f} MiB = "
+          f"parameters, gradients and 2 Adam moments "
+          f"{4 * p_bytes / 2**20:.1f} + saved x and z {saved / 2**20:.1f} + "
+          f"largest wgrad workspace {ws_max / 2**20:.1f}")
+    if peak > must:
+        fail("the streamed step held more than its parameters, moments, "
+             "saved maps and workspace: a padded, dilated or dz copy?")
+    del tr
+    torch.cuda.empty_cache()
+    stamp(17)
+
+    tpu = {"conv2d_stream_fwd": TPU_STREAM, "conv2d_stream_dgrad": TPU_STREAM,
+           "conv2d_stream_wgrad": TPU_STREAM_WGRAD}
+    entries = []
+    for kind, name in names.items():
+        v = sums[kind]
+        entries.append({
+            "name": name, "route": "cuda", "source": STREAM_SOURCE,
+            "replaces": tpu[name], "launches": served[name] + trained[name],
+            "max_abs_err": err[name], "ms": v[0], "plain_ms": v[4],
+            "bound_ms": v[6], "bound_by": mostly(kinds[kind]),
+            "library_ms": v[5]})
+    counts = {k: served[k] + trained[k] for k in served}
+    return entries, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -905,9 +1309,6 @@ def main(argv=None) -> int:
                                                    wgrad_reduce)
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.serve.scheduler import ConvRequest, Outcome
-    from repro_torch.train.losses import cross_entropy
-    from repro_torch.train.optimizer import AdamW, cosine_schedule
-    from repro_torch.train.trainstep import make_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1193,95 +1594,13 @@ def main(argv=None) -> int:
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 8. the second main path: VGG-16 training ---------------------------
-    train_model = vgg16_blocked(
-        1000, device=dev, generator=torch.Generator().manual_seed(args.seed + 1))
-    plain_model = copy.deepcopy(train_model)
-    start = {k: p.detach().clone()
-             for k, p in train_model.named_parameters()}
-    lr = cosine_schedule(TRAIN_LR, 1, 3)
-    opt = AdamW(lr=lr)
-    state = opt.init(dict(train_model.named_parameters()))
-    plain_state = opt.init(dict(plain_model.named_parameters()))
-    step = make_train_step(train_model, opt)
-    plain_params = dict(plain_model.named_parameters())
-
-    def plain_step(st, bt):
-        for p in plain_params.values():
-            p.grad = None
-        logits_p = plain_cnn_forward(bt["images"], plain_model)
-        loss_p, _ = cross_entropy(logits_p[:, None, :],
-                                  bt["targets"][:, None], 1000)
-        loss_p.backward()
-        opt.update({k: p.grad for k, p in plain_params.items()}, st,
-                   plain_params)
-        return loss_p.detach()
-
-    rng = np.random.default_rng(args.seed)
-
-    def batch():
-        return {"images": torch.from_numpy(rng.standard_normal(
-                    (BATCH, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
-                "targets": torch.from_numpy(
-                    rng.integers(0, 1000, BATCH)).to(dev)}
-
-    train_batches = [batch() for _ in range(3)]
-    losses, plain_losses = [], []
-    reset_launches()
-    for k, bt in enumerate(train_batches):
-        loss, _ = step(state, bt)
-        torch.cuda.synchronize()
-        if k == 0:
-            per_step = dict(LAUNCHES)
-            grads = {n: p.grad.clone()
-                     for n, p in train_model.named_parameters()}
-        losses.append(loss.item())
-        plain_losses.append(plain_step(plain_state, bt).item())
-        if k == 0:
-            print(f"[train] launches in one step: {per_step}")
-            want = {"direct_conv2d_fwd": 13, "gap_finalize": 0,
-                    "direct_conv2d_dgrad": 12, "direct_conv2d_wgrad": 13,
-                    "wgrad_reduce": 13}
-            if per_step != want:
-                fail(f"a train step launched {per_step}, expected {want}")
-            ratios = {}
-            for name, p in plain_params.items():
-                err = (grads[name] - p.grad).abs().max().item()
-                ratios[name] = err / max(p.grad.abs().max().item(), 1e-30)
-            print("[train] step-1 gradients vs plain autograd, max-err/"
-                  "max-value per tensor: " + " ".join(
-                      f"{k}={v:.2e}" for k, v in ratios.items()))
-            bad = {k: v for k, v in ratios.items() if not v <= GRAD_RTOL}
-            if bad:
-                fail(f"step-1 gradients beyond {GRAD_RTOL:g}: {bad}")
-            print(f"[train] all {len(ratios)} gradients within "
-                  f"{GRAD_RTOL:g} of their largest value -> ok")
-            if not abs(losses[0] - plain_losses[0]) <= 1e-4 * abs(
-                    plain_losses[0]):
-                fail(f"step-1 loss {losses[0]} != plain {plain_losses[0]}")
-    train_counts = dict(LAUNCHES)
-    print(f"[train] VGG-16 n{BATCH} {ENTRY}x{ENTRY} 1000 classes, AdamW "
-          f"cosine: losses {losses} plain path {plain_losses}")
-    print(f"[train] launches in 3 steps: {train_counts}")
-    if any(not np.isfinite(v) for v in losses):
-        fail("non-finite loss")
-    lr_sum = sum(lr(t) for t in (1, 2, 3))
-    far, n_el, worst, apart, moved = 0, 0, 0.0, 0.0, 0.0
-    for name, p in train_model.named_parameters():
-        d = (p.detach() - plain_params[name].detach()).abs()
-        far += int((d > PARAM_STEP * lr_sum).sum())
-        n_el += d.numel()
-        worst = max(worst, d.max().item())
-        apart += d.square().sum().item()
-        moved += (plain_params[name].detach()
-                  - start[name]).square().sum().item()
-    print(f"[train] parameters after 3 steps vs the plain trainer: {far} of "
-          f"{n_el} elements differ by more than {PARAM_STEP:g} * sum(lr)="
-          f"{lr_sum:g}, largest difference {worst:.3e}, |kernel - plain| / "
-          f"|plain - start| = {(apart / moved) ** 0.5:.3e} (tol: at most "
-          f"{PARAM_FRAC:g} of elements, none above 2.1 * sum(lr))")
-    if far > PARAM_FRAC * n_el or worst > 2.1 * lr_sum:
-        fail("the kernel trainer drifted from the plain trainer")
-    del grads, start
+    tr = lockstep_train(
+        "train", vgg16_blocked(1000, device=dev, generator=torch.Generator()
+                               .manual_seed(args.seed + 1)),
+        BATCH, args.seed, {"direct_conv2d_fwd": 13, "direct_conv2d_dgrad": 12,
+                           "direct_conv2d_wgrad": 13, "wgrad_reduce": 13},
+        dev)
+    train_counts = tr.counts
 
     # -- 9. backward times -------------------------------------------------
     brows = {}
@@ -1347,40 +1666,13 @@ def main(argv=None) -> int:
               f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
               f"{b_ms:.4f} ({mostly(kinds[kind])})")
 
-    def timed_step(fn, st, bt):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(st, bt)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    k_times, p_times = [], []
-    for k in range(4):              # plain, kernel, kernel, plain, ...
-        bt = train_batches[k % 3]
-        if k % 3 == 0:
-            p_times.append(timed_step(plain_step, plain_state, bt))
-            k_times.append(timed_step(step, state, bt))
-        else:
-            k_times.append(timed_step(step, state, bt))
-            p_times.append(timed_step(plain_step, plain_state, bt))
-    print(f"[train] step ms (host clock, synchronized): kernels {k_times} "
-          f"plain {p_times}; median kernels {np.median(k_times):.3f} plain "
-          f"{np.median(p_times):.3f}")
+    timed_steps("train", [("plain", tr.plain_step, tr.plain_state),
+                          ("kernels", tr.step, tr.state)], tr.batches)
 
     # peak device memory of one kernel step, against what it must hold
-    del plain_model, plain_state, plain_params
-    torch.cuda.empty_cache()
-    params = list(train_model.parameters())
-    p_bytes = 4 * sum(p.numel() for p in params)
-    state_bytes = 3 * p_bytes + sum(4 * p.grad.numel() for p in params
-                                    if p.grad is not None)
-    other = torch.cuda.memory_allocated() - state_bytes
-    torch.cuda.reset_peak_memory_stats()
-    step(state, train_batches[0])
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated() - other
+    peak, p_bytes = step_peak_bytes(tr)
     saved, ws_max, hh = 0, 0, ENTRY
-    for (ci, co, s), c in zip(vgg16_layers(), train_model.convs):
+    for (ci, co, s), c in zip(vgg16_layers(), tr.model.convs):
         ho = -(-hh // s)
         saved += 4 * BATCH * (ci * hh * hh + co * ho * ho)    # x and z
         wb = choose_wgrad_blocking(BATCH, ho, ho, 3, 3, s,
@@ -1396,17 +1688,19 @@ def main(argv=None) -> int:
           f"{ws_max / 2**20:.1f}")
 
     print(f"[time] phase 9 done at {time.perf_counter() - t_start:.1f} s")
-    del train_model, state, train_batches, bwd_ops, step, params
+    del tr, bwd_ops
     torch.cuda.empty_cache()
 
     mb_entries, mb_counts = mobilenet_phases(args, dev, t_start)
+    st_entries, st_counts = stream_phases(args, dev, t_start)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
-    # v1 served and trained
-    launches = {k: served[k] + train_counts[k] + mb_counts[k]
-                for k in served}
+    # v1 served and trained, VGG-16 served and trained on the streamed route
+    launches = {k: served.get(k, 0) + train_counts[k] + mb_counts[k]
+                + st_counts[k] for k in st_counts}
     print(f"[launches] VGG-16 served {served} trained {train_counts}; "
-          f"MobileNet v1 served and trained {mb_counts}")
+          f"MobileNet v1 served and trained {mb_counts}; VGG-16 on the "
+          f"streamed route served and trained {st_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -1431,6 +1725,7 @@ def main(argv=None) -> int:
             "bound_ms": b_ms, "bound_by": mostly(kinds[kind]),
             "library_ms": l_ms})
     kernels.extend(mb_entries)
+    kernels.extend(st_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,11 @@ tap kernel of ``csrc/conv2d_depthwise.cu``, forward and dgrad) and
 grid fills the card where the map allows it (``MachineModel.wave``), and
 the wgrads split their position reductions as the dense wgrad does.
 
+The streamed (halo-ring) kernels of ``csrc/conv2d_stream.cu`` have choosers
+of their own (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
+``choose_stream_wgrad_blocking``; see their section below).  Every chooser
+raises ``SmemMisfitError`` when nothing fits.
+
 The backward kernels (``csrc/direct_conv2d_bwd.cu``) reuse the vocabulary:
 
 * **dgrad** (``choose_dgrad_blocking``) is the forward's schedule on the
@@ -53,9 +58,11 @@ import dataclasses
 import functools
 
 from repro_torch.core.conv2d_common import halo_dims
+from repro_torch.core.errors import TransientError
 from repro_torch.core.layout import divisors
 
-__all__ = ["MachineModel", "H100_SXM", "Blocking", "tile_positions",
+__all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
+           "tile_positions",
            "smem_bytes", "choose_blocking", "dgrad_extents", "dgrad_window",
            "DgradBlocking", "dgrad_smem_bytes", "choose_dgrad_blocking",
            "WgradBlocking", "wgrad_smem_bytes", "choose_wgrad_blocking",
@@ -64,7 +71,22 @@ __all__ = ["MachineModel", "H100_SXM", "Blocking", "tile_positions",
            "pointwise_wgrad_smem_bytes", "choose_pointwise_wgrad_blocking",
            "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DepthwiseBlocking", "depthwise_smem_bytes",
            "choose_depthwise_blocking", "DepthwiseWgradBlocking",
-           "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking"]
+           "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking",
+           "STREAM_STRIPS", "StreamBlocking", "stream_ring_rows",
+           "stream_gap_floats",
+           "stream_smem_bytes",
+           "choose_stream_blocking", "choose_stream_dgrad_blocking",
+           "StreamWgradBlocking", "stream_wgrad_smem_bytes",
+           "choose_stream_wgrad_blocking"]
+
+
+class SmemMisfitError(TransientError, ValueError):
+    """A blocking model found no tile that fits one CTA's shared memory (or
+    register tile) at the smallest admissible size: the counterpart of the
+    reference's ``VmemMisfitError``.  Still a ``ValueError``, so callers
+    that caught the old error keep working; a distinct type so that the
+    router (``core.dispatch.route_stream``) can tell a capacity misfit,
+    which the other kernel family may still serve, from a bad argument."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,8 +124,9 @@ def tile_positions(cob: int, machine: MachineModel) -> int:
     """Output positions one CTA's register tile holds for a ``cob`` pencil."""
     groups = -(-cob // machine.lanes)
     if groups > machine.threads:
-        raise ValueError(f"cob={cob} needs {groups} channel groups; a CTA has "
-                         f"{machine.threads} threads")
+        raise SmemMisfitError(
+            f"cob={cob} needs {groups} channel groups; a CTA has "
+            f"{machine.threads} threads")
     return (machine.threads // groups) * machine.positions
 
 
@@ -137,9 +160,9 @@ def _fit_tile(ho: int, wo: int, cap: int, pencil: int, stage, budget: int,
     if h is None:                       # one row still too wide: tile columns
         h, w = 1, largest_fitting(wo, lambda d: fits(1, d))
     if w is None:
-        raise ValueError(
-            f"no tile fits the {what}: needs more than {budget} bytes of shared "
-            f"memory or {cap} register-tile positions even at 1x1")
+        raise SmemMisfitError(
+            f"no tile fits the {what}: needs more than {budget} bytes of "
+            f"shared memory or {cap} register-tile positions even at 1x1")
     return h, w, largest_fitting(pencil, lambda c: fits(h, w, c))
 
 
@@ -306,8 +329,9 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
     lanes, threads = machine.lanes, machine.threads
     groups = -(-cib // lanes) * -(-cob // lanes)
     if groups > threads:
-        raise ValueError(f"cib={cib} x cob={cob} needs {groups} thread "
-                         f"groups; a CTA has {threads} threads")
+        raise SmemMisfitError(
+            f"cib={cib} x cob={cob} needs {groups} thread "
+            f"groups; a CTA has {threads} threads")
     taps = min(hf * wf, threads // groups)
     tap_groups = -(-hf * wf // taps)
     best = None
@@ -322,7 +346,7 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
             if best is None or key > best[0]:
                 best = (key, h, w)
     if best is None:
-        raise ValueError(
+        raise SmemMisfitError(
             f"no wgrad tile fits: cib={cib}, cob={cob}, filter {hf}x{wf}, "
             f"stride {stride} needs more than {machine.smem_budget} bytes of "
             "shared memory even at 1x1")
@@ -408,9 +432,9 @@ def choose_pointwise_blocking(n: int, hw: int, kb: int, oblk: int, ob: int,
                                           transposed)
                   <= machine.smem_budget), None)
     if chunk is None:
-        raise ValueError(f"no channel chunk fits: {positions} positions x "
-                         f"ob={ob} need more than {machine.smem_budget} "
-                         "bytes of shared memory")
+        raise SmemMisfitError(
+            f"no channel chunk fits: {positions} positions x ob={ob} need "
+            f"more than {machine.smem_budget} bytes of shared memory")
     return PointwiseBlocking(
         positions=positions, chunk=chunk, tiles=-(-hw // positions),
         ldx=_pad_row(chunk), ldw=_pad_row(ob) if transposed else ob)
@@ -453,15 +477,16 @@ def choose_pointwise_wgrad_blocking(n: int, hw: int, ciblk: int, cib: int,
     wgrad's."""
     groups = -(-cib // machine.lanes) * -(-cob // machine.lanes)
     if groups > machine.threads:
-        raise ValueError(f"cib={cib} x cob={cob} needs {groups} thread "
-                         f"groups; a CTA has {machine.threads} threads")
+        raise SmemMisfitError(
+            f"cib={cib} x cob={cob} needs {groups} thread "
+            f"groups; a CTA has {machine.threads} threads")
     pgroups = machine.threads // groups
     positions = min(hw, PW_WGRAD_MAX_POSITIONS)
     while pointwise_wgrad_smem_bytes(positions, cib, cob, pgroups) \
             > machine.smem_budget:
         if positions == 1:
-            raise ValueError(f"no pointwise wgrad tile fits: cib={cib}, "
-                             f"cob={cob}")
+            raise SmemMisfitError(f"no pointwise wgrad tile fits: "
+                                  f"cib={cib}, cob={cob}")
         positions //= 2
     tiles = n * -(-hw // positions)
     return PointwiseWgradBlocking(
@@ -505,8 +530,9 @@ def depthwise_smem_bytes(hwin: int, wwin: int, cb: int,
 
 def _depthwise_groups(cb: int, machine: MachineModel) -> int:
     if cb > machine.threads:
-        raise ValueError(f"pencil Cb={cb} wider than a CTA's "
-                         f"{machine.threads} threads")
+        raise SmemMisfitError(
+            f"pencil Cb={cb} wider than a CTA's "
+            f"{machine.threads} threads")
     return machine.threads // cb
 
 
@@ -546,7 +572,7 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
                     *win, cb, machine, gap) <= machine.smem_budget:
                 fits.append((h, w, win))
     if not fits:
-        raise ValueError(
+        raise SmemMisfitError(
             f"no depthwise tile fits: Cb={cb}, filter {hf}x{wf}, stride "
             f"{stride}, dilation {dilation} needs more than "
             f"{machine.smem_budget} bytes of shared memory even at 1x1")
@@ -620,10 +646,294 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
             if best is None or key > best[0]:
                 best = (key, h, w)
     if best is None:
-        raise ValueError(
+        raise SmemMisfitError(
             f"no depthwise wgrad tile fits: Cb={cb}, filter {hf}x{wf}, "
             f"stride {stride} needs more than {machine.smem_budget} bytes")
     _, h, w = best
     tiles = n * (ho // h) * (wo // w)
     return DepthwiseWgradBlocking(hob=h, wob=w, tiles=tiles,
                                   splits=_splits(tiles, cblk, machine))
+
+
+# ---------------------------------------------------------------------------
+# streamed (halo-ring) kernels: csrc/conv2d_stream.cu
+# ---------------------------------------------------------------------------
+#
+# The streamed forward and dgrad keep the window kernels' register tile
+# (``positions x lanes`` f32 sums a thread), so one CTA owns a *band* of at
+# most ``tile_positions`` output positions, ``hob x wob``.  Per channel
+# chunk the band's input rows reach shared memory as strips of ``hso``
+# output rows through a circular row buffer of ``ring_rows`` rows, filled by
+# ``cp.async``: the rows of strip k+1 are in flight while strip k's taps run,
+# and the ``Hf - stride`` halo rows shared by two strips are copied from
+# device memory once per chunk.  The ring holds the rows of two consecutive
+# strips: those of a window of ``2 * hso`` output rows (or of the band, when
+# it is one strip).  The weight chunk is staged once per chunk.
+#
+# The wgrad gives each CTA the window wgrad's tap group and walks a share of
+# ``(image, column tile, strip)`` items; per item it rings a halo'd x strip
+# (``hso`` output rows' input rows, ``wob`` columns) and a disjoint
+# cotangent strip, each with its ``z`` when the activation needs the
+# prologue.
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+# strip counts a streamed band is compiled for (csrc/conv2d_stream.cu
+# kStrips): strip k of a band owns slots [k * 8 / n, (k + 1) * 8 / n) of a
+# thread's register tile
+STREAM_STRIPS = (1, 2)
+
+
+def stream_ring_rows(hob: int, hso: int, hf: int, stride: int,
+                     dgrad: bool = False) -> int:
+    """Rows of the circular buffer: the input (forward) or cotangent
+    (dgrad) rows that feed ``min(2 * hso, hob)`` output rows of the band."""
+    rows = min(2 * hso, hob)
+    if dgrad:
+        return dgrad_window(rows, 1, hf, 1, stride)[0]
+    return (rows - 1) * stride + hf
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamBlocking:
+    """Launch parameters of the streamed forward or dgrad: a ``hob x wob``
+    band of the output (forward) or of the unpadded input gradient (dgrad)
+    per CTA, streamed as ``n_strips`` strips of ``hso`` rows through a ring
+    of ``ring_rows x ring_cols`` cells of ``chunk`` channels; the staged
+    weight rows are ``ldw`` floats apart."""
+    hob: int
+    wob: int
+    hso: int
+    chunk: int
+    ring_rows: int
+    ring_cols: int
+    ldw: int
+
+    @property
+    def n_strips(self) -> int:
+        return self.hob // self.hso
+
+
+def stream_gap_floats(cob: int, machine: MachineModel) -> int:
+    """The forward's GAP partial sums, ``[position groups, Cob]`` f32."""
+    return machine.threads // -(-cob // machine.lanes) * cob
+
+
+def stream_smem_bytes(ring_rows: int, ring_cols: int, chunk: int, ldw: int,
+                      hf: int, wf: int, dgrad: bool = False,
+                      prologue: bool = False, gap_floats: int = 0) -> int:
+    """Dynamic shared memory of one streamed CTA, in the kernel's layout:
+    the weight chunk ``[Hf*Wf, chunk, ldw]``, the ring ``[ring_rows,
+    ring_cols, chunk]`` (twice in the dgrad with the prologue: ``z`` is
+    ringed beside the cotangent), each rounded up to 16 bytes, and in the
+    dgrad one zero run of ``chunk`` floats for the taps the stride skips.
+    The forward's GAP partial sums (``gap_floats``) reuse the buffer."""
+    ring = _round4(ring_rows * ring_cols * chunk)
+    floats = _round4(hf * wf * chunk * ldw) + ring
+    if dgrad:
+        floats += (ring if prologue else 0) + chunk
+    return 4 * max(floats, gap_floats)
+
+
+def _stream_band(n_oblk: int, oh: int, ow: int, lanes: int, pencil: int,
+                 machine: MachineModel, hso: int | None, smem, what: str):
+    """Pick a band ``(hob, wob, hso, chunk)`` of an ``oh x ow`` grid.
+
+    Bands divide the grid and fit the register tile; a band is one or two
+    strips (``STREAM_STRIPS``), so ``hso`` is ``hob`` or ``hob / 2`` (or
+    pinned); ``chunk`` is the largest divisor of ``pencil`` whose ``smem(
+    hob, wob, hso, chunk)`` fits the budget.  A band that fills less than
+    half the register tile wastes the FMAs' operand reads (on the H100 a
+    streamed forward at 2 of 8 slots a thread ran 4x slower than at 7), so
+    bands at least half the tile come first, where the map has them; among
+    those, the fullest whose grid ``n_oblk * bands`` fills the card
+    (``machine.wave``), else the one with the most CTAs; ties to two strips
+    (the ring then has a next strip to copy while one computes) and then
+    to the wider band."""
+    cap = tile_positions(lanes, machine)
+    cands = []
+    for h in divisors(oh):
+        for strips in STREAM_STRIPS:
+            s = h // strips
+            if h % strips or (hso is not None and s != hso):
+                continue
+            for w in divisors(ow):
+                if h * w > cap:
+                    continue
+                chunk = next((c for c in reversed(divisors(pencil))
+                              if smem(h, w, s, c) <= machine.smem_budget),
+                             None)
+                if chunk is not None:
+                    cands.append((h, w, s, chunk))
+    if not cands:
+        if hso is not None and oh % hso:
+            raise ValueError(f"hso={hso} must divide the rows {oh}")
+        raise SmemMisfitError(
+            f"no streamed band fits the {what}: needs more than "
+            f"{machine.smem_budget} bytes of shared memory or {cap} "
+            "register-tile positions even at 1x1")
+
+    def fill(c) -> int:
+        return c[0] * c[1]
+
+    def grid(c) -> int:
+        return n_oblk * (oh // c[0]) * (ow // c[1])
+
+    def ties(c):
+        return c[0] // c[2], c[1]
+
+    busy = [c for c in cands if 2 * fill(c) >= cap] or [
+        c for c in cands if fill(c) == max(map(fill, cands))]
+    full = [c for c in busy if grid(c) >= machine.wave]
+    if full:
+        return max(full, key=lambda c: (fill(c),) + ties(c))
+    return max(busy, key=lambda c: (grid(c), fill(c)) + ties(c))
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_stream_blocking(n: int, hi: int, wi: int, ci: int, co: int,
+                           hf: int, wf: int, stride: int, cob: int, cib: int,
+                           machine: MachineModel = H100_SXM,
+                           gap: bool = False,
+                           hso: int | None = None) -> StreamBlocking:
+    """Tile the streamed forward of ``n`` images over a padded ``hi x wi``
+    input (the kernel masks the pads), with the pencils ``cob``/``cib`` of
+    the operands' layout; ``hso`` pins the strip height (it must divide the
+    band).  Bands are sized to fill the card (``_stream_band``), unlike
+    the reference's default of the whole map in one grid step: CTAs run in
+    parallel here, and a whole-map band would give conv1_x of VGG-16 at
+    batch 8 only 8 CTAs."""
+    ho = (hi - hf) // stride + 1
+    wo = (wi - wf) // stride + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
+    if co % cob or ci % cib:
+        raise ValueError(f"pencils cob={cob}/cib={cib} must divide "
+                         f"co={co}/ci={ci}")
+    if hso is not None and hso < 1:
+        raise ValueError(f"hso={hso} must be >= 1")
+    gap_floats = stream_gap_floats(cob, machine) if gap else 0
+
+    def smem(h, w, s, c):
+        return stream_smem_bytes(stream_ring_rows(h, s, hf, stride),
+                                 halo_dims(h, w, hf, wf, stride)[1], c, cob,
+                                 hf, wf, gap_floats=gap_floats)
+
+    h, w, s, chunk = _stream_band(
+        n * (co // cob), ho, wo, cob, cib, machine, hso, smem,
+        f"streamed forward (filter {hf}x{wf}, stride {stride}, cob={cob})")
+    return StreamBlocking(hob=h, wob=w, hso=s, chunk=chunk,
+                          ring_rows=stream_ring_rows(h, s, hf, stride),
+                          ring_cols=halo_dims(h, w, hf, wf, stride)[1],
+                          ldw=cob)
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_stream_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
+                                 stride: int, ciblk: int, cib: int, cob: int,
+                                 machine: MachineModel = H100_SXM,
+                                 prologue: bool = False,
+                                 hso: int | None = None) -> StreamBlocking:
+    """Tile the streamed input gradient over the unpadded ``hi x wi``
+    input: the forward's rules with the pencils' roles swapped (the
+    register tile's lanes are Cib, the chunk divides Cob), a ring of
+    cotangent rows in the cotangent's own coordinates (``dgrad_window``),
+    with ``z`` ringed beside it when ``prologue``."""
+    if hso is not None and hso < 1:
+        raise ValueError(f"hso={hso} must be >= 1")
+    ldw = _dgrad_ldw(cib)
+
+    def smem(h, w, s, c):
+        return stream_smem_bytes(
+            stream_ring_rows(h, s, hf, stride, dgrad=True),
+            dgrad_window(h, w, hf, wf, stride)[1], c, ldw, hf, wf,
+            dgrad=True, prologue=prologue)
+
+    h, w, s, chunk = _stream_band(
+        n * ciblk, hi, wi, cib, cob, machine, hso, smem,
+        f"streamed dgrad (filter {hf}x{wf}, stride {stride}, cib={cib})")
+    return StreamBlocking(
+        hob=h, wob=w, hso=s, chunk=chunk,
+        ring_rows=stream_ring_rows(h, s, hf, stride, dgrad=True),
+        ring_cols=dgrad_window(h, w, hf, wf, stride)[1], ldw=ldw)
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamWgradBlocking:
+    """Launch parameters of the streamed wgrad.  A CTA holds ``taps`` filter
+    taps' ``[Cib, Cob]`` blocks in its register tile (``tap_groups`` CTAs
+    cover the filter, as in the window wgrad) and walks a contiguous share
+    of the ``items`` (image, column tile, strip) items, ``splits`` shares
+    per (tap group, Ci block, Co block).  An item is ``hso`` output rows x
+    ``wob`` columns; its x rows go through a ring of ``ring_rows`` rows of
+    ``ring_cols`` columns, its cotangent rows through two slots."""
+    hso: int
+    wob: int
+    taps: int
+    tap_groups: int
+    items: int
+    splits: int
+    ring_rows: int
+    ring_cols: int
+
+
+def stream_wgrad_smem_bytes(hso: int, wob: int, cib: int, cob: int, hf: int,
+                            wf: int, stride: int,
+                            prologue: bool = False) -> int:
+    """The x ring ``[hin + hso * stride, wib, Cib]`` (rounded up to 16
+    bytes) and two cotangent slots ``[hso * wob, Cob]`` (four with the
+    prologue's ``z``)."""
+    hin, wib = halo_dims(hso, wob, hf, wf, stride)
+    ring = _round4((hin + hso * stride) * wib * cib)
+    return 4 * (ring + (4 if prologue else 2) * hso * wob * cob)
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_stream_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
+                                 stride: int, ciblk: int, cib: int,
+                                 coblk: int, cob: int,
+                                 machine: MachineModel = H100_SXM,
+                                 prologue: bool = False,
+                                 hso: int | None = None
+                                 ) -> StreamWgradBlocking:
+    """Tile the streamed weight gradient: taps as the window wgrad's; the
+    item ``hso x wob`` (dividing ``Ho x Wo``) with the most positions, up
+    to ``WGRAD_MAX_POSITIONS``, that fits the budget, ties to two strips or
+    more per column and then to less shared memory; splits as the window
+    wgrad's.  ``hso`` pins the strip height."""
+    lanes, threads = machine.lanes, machine.threads
+    groups = -(-cib // lanes) * -(-cob // lanes)
+    if groups > threads:
+        raise SmemMisfitError(f"cib={cib} x cob={cob} needs {groups} thread "
+                              f"groups; a CTA has {threads} threads")
+    if hso is not None and (hso < 1 or ho % hso):
+        raise ValueError(f"hso={hso} must divide Ho={ho}")
+    taps = min(hf * wf, threads // groups)
+    tap_groups = -(-hf * wf // taps)
+    best = None
+    for s in ([hso] if hso is not None else divisors(ho)):
+        for w in divisors(wo):
+            if s * w > WGRAD_MAX_POSITIONS:
+                continue
+            smem = stream_wgrad_smem_bytes(s, w, cib, cob, hf, wf, stride,
+                                           prologue)
+            if smem > machine.smem_budget:
+                continue
+            key = (s * w, ho // s >= 2, -smem)
+            if best is None or key > best[0]:
+                best = (key, s, w)
+    if best is None:
+        raise SmemMisfitError(
+            f"no streamed wgrad strip fits: cib={cib}, cob={cob}, filter "
+            f"{hf}x{wf}, stride {stride} needs more than "
+            f"{machine.smem_budget} bytes of shared memory even at 1x1")
+    _, s, w = best
+    items = n * (wo // w) * (ho // s)
+    hin, wib = halo_dims(s, w, hf, wf, stride)
+    return StreamWgradBlocking(
+        hso=s, wob=w, taps=taps, tap_groups=tap_groups, items=items,
+        splits=_splits(items, tap_groups * ciblk * coblk, machine),
+        ring_rows=hin + s * stride, ring_cols=wib)

@@ -1,0 +1,758 @@
+// Streamed (halo-ring) blocked direct convolution, f32 — hand-written for
+// Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of src/repro/kernels/conv2d_stream.py:
+//   `_stream_conv_kernel` (:78; pallas_call :238 in `stream_forward`, and
+//       :284 in `stream_dgrad`, its transposed form)  -> stream_conv_kernel
+//   `_stream_wgrad_kernel` (:306; pallas_call :384 in `stream_wgrad`)
+//                                                     -> stream_wgrad_kernel
+// They compute what the window kernels compute (direct_conv2d_fwd.cu,
+// direct_conv2d_bwd.cu), on the same blocked layouts and unpadded operands:
+//
+//   x    [N, Ci/Cib, Hi, Wi, Cib]        unpadded; the copies zero-fill pads
+//   w    [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]
+//   g, z [N, Co/Cob, Ho, Wo, Cob]        cotangent, saved pre-activation
+//   out  [N, Co/Cob, Ho, Wo, Cob]        forward (+ GAP partials per band)
+//   dx   [N, Ci/Cib, Hi, Wi, Cib]        dgrad, at the input's shape
+//   ws   [splits, |dw| + |db|]           wgrad partial sums, summed by
+//                                        `wgrad_reduce` in split order
+//
+// What differs is how the input reaches shared memory.  On the TPU the
+// streamed kernels keep the operands in HBM and drive their own DMA: the
+// weight tile is copied once per grid step, and the band's rows arrive as
+// strips through a 2-slot ring, strip k+1 in flight while strip k computes,
+// the `Hf - stride` halo rows moved slot to slot instead of re-read.  Here:
+//
+// * One CTA per (band of hob x wob output positions, output channel block,
+//   image).  The band is at most the window kernel's register tile (8
+//   positions x 8 lanes a thread), and the accumulators stay there.  A band
+//   is one or two strips (kStrips); strip s owns slots [s * kSlots, (s + 1)
+//   * kSlots) of every thread's tile, so a strip's FMAs run over a fixed
+//   range of registers with no per-slot predicate.  The loop order is the
+//   window kernel's: reduction block, channel chunk, then strips; per
+//   output element the sum runs over (block, chunk, dh, dw, channel) in
+//   the window kernel's order, so where both pick the same chunk the two
+//   forwards agree bit for bit.
+// * Per chunk the weight chunk is staged once, and the band's input rows
+//   arrive as strips of `hso` output rows through a circular row buffer of
+//   `ring_rows` rows (row r of the band lives in slot r % ring_rows), filled
+//   by `cp.async`: 16-byte copies where rows are aligned, 4-byte copies
+//   otherwise (Cib = 3), the zero-fill form (src-size 0) for pad rows and
+//   columns.  The rows of strip k+1 are issued (one commit group) before
+//   strip k's taps run, and waited for (`cp.async.wait_group 0` and one
+//   `__syncthreads`) before strip k+1's.  The halo rows two strips share
+//   are copied from device memory once per chunk; nothing moves between
+//   slots.
+// * The dgrad form (kDgrad) streams the cotangent rows in the cotangent's
+//   own coordinates: a thread's dx position takes, per tap, the cotangent
+//   cell the stride divides exactly, else a run of zeros; ring rows outside
+//   the map are zero-filled.  So no dilated or padded cotangent exists.
+//   With an activation, `z` is ringed beside `g` and dz = g * act'(z) is
+//   formed in place once a strip's fresh rows land: no dz tensor either.
+// * The wgrad (stream_wgrad_kernel) holds one tap group's [Cib, Cob] blocks
+//   in registers (8 x 8 a thread, as the window wgrad) and walks a
+//   contiguous share of (image, column tile, strip) items: per item a
+//   halo'd x strip through a circular row buffer (fresh rows only, while
+//   the column tile continues) and a disjoint dz strip through two slots,
+//   the next item's copies in flight while this one computes.  db rides the
+//   CTAs of Ci block 0 and tap group 0.
+//
+// What bounds them on this card: the f32 FMA rate (VGG-16's convs do
+// 2*9*Ci FLOPs per output element for a few bytes; the H100's f32 ridge is
+// ~20 FLOP/byte), in practice the shared-memory reads feeding the FMAs.  A
+// strip holds half a thread's positions, so each weight read from shared
+// memory feeds half as many FMAs as in the window kernel; the design buys
+// copies that overlap the FMAs and halo rows read once.  The weight chunk
+// and a chunk's first strip are still waited for unoverlapped.  No tensor
+// cores (wgmma), TMA or persistent CTAs.
+//
+// C interface for ctypes: pointers and the stream as void*, ints as int; each
+// entry point returns cudaGetLastError() after its launch (0 on success).
+
+#include <cuda_runtime.h>
+#include <stddef.h>
+
+namespace {
+
+constexpr int kThreads = 256;   // threads per CTA
+constexpr int kLanes = 8;       // register-tile columns of one thread
+constexpr int kPositions = 8;   // fwd/dgrad: positions of one thread
+constexpr int kMinBlocksPerSm = 2;
+static_assert(kLanes == 8, "the float4 pair reads assume 8 lanes");
+
+constexpr int kActRelu = 1;
+constexpr int kActGelu = 2;
+
+__device__ __forceinline__ float activate(float v, int act) {
+  if (act == kActRelu) {
+    return v < 0.0f ? 0.0f : v;
+  }
+  if (act == kActGelu) {
+    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
+    return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
+  }
+  return v;
+}
+
+// dz = g * act'(z), as direct_conv2d_bwd.cu's (relu' = 1/2 at z == 0, the
+// reference's jnp.maximum)
+__device__ __forceinline__ float prologue(float g, float z, int act) {
+  if (act == kActRelu) {
+    return z > 0.0f ? g : (z == 0.0f ? 0.5f * g : 0.0f);
+  }
+  if (act == kActGelu) {
+    const float k = 0.7978845608028654f;
+    const float a = 0.044715f;
+    const float z2 = z * z;
+    const float t = tanhf(k * (z + a * z2 * z));
+    return g * (0.5f * (1.0f + t)
+                + 0.5f * z * (1.0f - t * t) * k * (1.0f + 3.0f * a * z2));
+  }
+  return g;
+}
+
+__device__ __forceinline__ int floordiv(int a, int b) {
+  const int q = a / b;
+  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
+
+__device__ __forceinline__ void load8(const float* p, float* v) {
+  const float4 lo = *reinterpret_cast<const float4*>(p);
+  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
+  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
+}
+
+// cp.async: `valid` false copies no byte and zero-fills the destination
+// (src-size 0); `src` must still be a global address.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Issue the copies of map rows [lo, hi) (band-relative; absolute row =
+// row0 + r) into the ring: row r goes to slot r % ring_rows, `cols` cells
+// from column col0, `chunk` channels from channel c0 of a `pencil`-wide
+// map of `rows` x `width` cells.  Cells outside the map are zero-filled.
+// `vec`: 16-byte copies (chunk, pencil and the map's start 16-byte aligned).
+__device__ __forceinline__ void stage_rows(
+    float* ring, int ring_rows, const float* map, int rows, int width,
+    int pencil, int row0, int lo, int hi, int col0, int cols, int c0,
+    int chunk, bool vec) {
+  const int unit = vec ? 4 : 1;
+  const int per_cell = chunk / unit;
+  const int per_row = cols * per_cell;
+  const int total = (hi - lo) * per_row;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = lo + i / per_row;
+    const int rem = i - (r - lo) * per_row;
+    const int col = rem / per_cell;
+    const int c = (rem - col * per_cell) * unit;
+    const int ih = row0 + r;
+    const int iw = col0 + col;
+    const bool ok = ih >= 0 && ih < rows && iw >= 0 && iw < width;
+    const float* src =
+        ok ? map + ((size_t)ih * width + iw) * pencil + c0 + c : map;
+    float* dst = ring + ((r % ring_rows) * cols + col) * chunk + c;
+    if (vec) {
+      cp_async16(dst, src, ok);
+    } else {
+      cp_async4(dst, src, ok);
+    }
+  }
+}
+
+// dz = g * act'(z) in place over ring rows [lo, hi)
+__device__ __forceinline__ void ring_prologue(float* gring, const float* zring,
+                                              int ring_rows, int lo, int hi,
+                                              int row_floats, int act) {
+  const int total = (hi - lo) * row_floats;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int r = lo + i / row_floats;
+    const int e = (r % ring_rows) * row_floats + i % row_floats;
+    gring[e] = prologue(gring[e], zring[e], act);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward / dgrad
+// ---------------------------------------------------------------------------
+
+// Generic names: the CTA owns a band of an oh x ow output grid (the conv's
+// output, or dx) with `lanes` channels (Cob, or Cib), and contracts `rblk`
+// blocks of `rpen` channels (Cib, or Cob) of an ih x iw input map (x, or g).
+// kVecW: lanes is a multiple of kLanes (two float4 weight reads a step).
+// kStrips: the band's strips (hob / hso).  Slot k of a thread's register
+// tile belongs to strip k / kSlots, so a strip's FMAs run over a fixed,
+// compile-time range of kSlots slots (no per-slot predicates), and each
+// strip holds up to kSlots * (position groups) positions.
+template <bool kDgrad, bool kVecW, int kStrips>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
+                   const float* __restrict__ w,
+                   const float* __restrict__ bias,
+                   const float* __restrict__ residual,
+                   float* __restrict__ out, float* __restrict__ partials,
+                   int rblk, int ih, int iw, int rpen, int oblk, int lanes,
+                   int oh, int ow, int hf, int wf, int stride, int pad_top,
+                   int pad_left, int hob, int wob, int hso, int ring_rows,
+                   int ring_cols, int chunk, int ldw, int act) {
+  constexpr int kSlots = kPositions / kStrips;
+  static_assert(kSlots * kStrips == kPositions, "strips split the tile");
+  extern __shared__ __align__(16) float smem[];
+  const int tiles_w = ow / wob;
+  const int n_tiles = (oh / hob) * tiles_w;
+  const int tile = blockIdx.x;
+  const int o_b = blockIdx.y;
+  const int n = blockIdx.z;
+  const int i0 = (tile / tiles_w) * hob;   // band origin in the output grid
+  const int j0 = (tile % tiles_w) * wob;
+  const int taps = hf * wf;
+  const int R = ring_rows;
+  const int WW = ring_cols;
+
+  const int ncg = (lanes + kLanes - 1) / kLanes;
+  const int npg = kThreads / ncg;
+  const int t = threadIdx.x;
+  const int cg = t % ncg;
+  const int pg = t / ncg;
+  const bool computes = pg < npg;
+  const int l0 = cg * kLanes;
+
+  // band-relative input row 0 and column 0, in the input map's coordinates
+  int row0, col0;
+  if constexpr (kDgrad) {
+    row0 = floordiv(i0 + pad_top - (hf - 1), stride);
+    col0 = floordiv(j0 + pad_left - (wf - 1), stride);
+  } else {
+    row0 = i0 * stride - pad_top;
+    col0 = j0 * stride - pad_left;
+  }
+
+  const int ring_floats = round4(R * WW * chunk);
+  float* w_s = smem;                                   // [taps, chunk, ldw]
+  float* ring = smem + round4(taps * chunk * ldw);     // [R, WW, chunk]
+  float* zring = (kDgrad && zin != nullptr) ? ring + ring_floats : nullptr;
+  float* zeros = ring + ring_floats * (zring != nullptr ? 2 : 1);  // [chunk]
+  if constexpr (kDgrad) {
+    for (int i = t; i < chunk; i += kThreads) zeros[i] = 0.0f;
+  }
+  const int zero_off = (int)(zeros - ring);
+
+  float acc[kPositions][kLanes];
+#pragma unroll
+  for (int k = 0; k < kPositions; ++k) {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) acc[k][j] = 0.0f;
+  }
+
+  // the ring rows [lo, hi) that strip s reads
+  auto strip_rows = [&](int s, int& lo, int& hi) {
+    if constexpr (kDgrad) {
+      lo = floordiv(i0 + s * hso + pad_top - (hf - 1), stride) - row0;
+      hi = floordiv(i0 + (s + 1) * hso - 1 + pad_top, stride) - row0 + 1;
+    } else {
+      lo = s * hso * stride;
+      hi = lo + (hso - 1) * stride + hf;
+    }
+  };
+
+  const bool vec_in = chunk % 4 == 0 && rpen % 4 == 0;
+  const bool vec_w = !kDgrad && lanes % 4 == 0;
+  const int strip_pos = hso * wob;
+  // the band position of slot k of this thread, or -1 (a slot past its
+  // strip computes on a valid offset and is never stored)
+  auto slot_position = [&](int k) {
+    const int q = pg + (k % kSlots) * npg;
+    return q < strip_pos ? (k / kSlots) * strip_pos + q : -1;
+  };
+
+  for (int rb = 0; rb < rblk; ++rb) {
+    const size_t map = (size_t)(n * rblk + rb) * ih * iw * rpen;
+    const float* in_b = in + map;
+    const float* z_b = zring != nullptr ? zin + map : nullptr;
+    const float* w_b =
+        kDgrad ? w + (size_t)(rb * oblk + o_b) * taps * lanes * rpen
+               : w + (size_t)(o_b * rblk + rb) * taps * rpen * lanes;
+    for (int c0 = 0; c0 < rpen; c0 += chunk) {
+      // every thread is done with the previous chunk's weights and ring
+      __syncthreads();
+      if constexpr (kDgrad) {
+        // transposed: w_s[tap][c][l] = w[tap][l][c0 + c]; neighbouring
+        // threads copy neighbouring c (coalesced reads)
+        for (int i = t; i < taps * lanes * chunk; i += kThreads) {
+          const int c = i % chunk;
+          const int rest = i / chunk;
+          const int l = rest % lanes;
+          const int tap = rest / lanes;
+          cp_async4(w_s + (tap * chunk + c) * ldw + l,
+                    w_b + ((size_t)tap * lanes + l) * rpen + c0 + c, true);
+        }
+      } else {
+        // per tap one contiguous run of chunk * lanes floats
+        const int run = chunk * lanes;
+        const int unit = vec_w ? 4 : 1;
+        for (int i = t * unit; i < taps * run; i += kThreads * unit) {
+          const int tap = i / run;
+          const float* src = w_b + ((size_t)tap * rpen + c0) * lanes + i % run;
+          if (vec_w) {
+            cp_async16(w_s + i, src, true);
+          } else {
+            cp_async4(w_s + i, src, true);
+          }
+        }
+      }
+      int lo, hi;
+      strip_rows(0, lo, hi);
+      stage_rows(ring, R, in_b, ih, iw, rpen, row0, lo, hi, col0, WW, c0,
+                 chunk, vec_in);
+      if (z_b != nullptr) {
+        stage_rows(zring, R, z_b, ih, iw, rpen, row0, lo, hi, col0, WW, c0,
+                   chunk, vec_in);
+      }
+      cp_async_commit();
+      int fresh_lo = lo;
+
+#pragma unroll
+      for (int s = 0; s < kStrips; ++s) {
+        cp_async_wait_all();
+        __syncthreads();            // strip s has landed, for every thread
+        if (zring != nullptr) {
+          ring_prologue(ring, zring, R, fresh_lo, hi, WW * chunk, act);
+          __syncthreads();
+        }
+        const int s_lo = lo;
+        if (s + 1 < kStrips) {      // strip s+1's fresh rows, in flight
+          int nlo, nhi;
+          strip_rows(s + 1, nlo, nhi);
+          fresh_lo = nlo > hi ? nlo : hi;
+          stage_rows(ring, R, in_b, ih, iw, rpen, row0, fresh_lo, nhi, col0,
+                     WW, c0, chunk, vec_in);
+          if (z_b != nullptr) {
+            stage_rows(zring, R, z_b, ih, iw, rpen, row0, fresh_lo, nhi,
+                       col0, WW, c0, chunk, vec_in);
+          }
+          cp_async_commit();
+          lo = nlo;
+          hi = nhi;
+        }
+        if (!computes) continue;
+        // per slot of strip s, the ring row (less the strip's first) and
+        // column of tap (0, 0); for the dgrad the numerators of tap (0, 0)
+        // against the strip's first row and column
+        const int base = s_lo % R;
+        bool on[kSlots];
+        int prow[kSlots], pcol[kSlots];
+#pragma unroll
+        for (int kk = 0; kk < kSlots; ++kk) {
+          const int p = slot_position(s * kSlots + kk);
+          on[kk] = p >= 0;
+          const int r = on[kk] ? p / wob : 0;
+          const int c = on[kk] ? p - r * wob : 0;
+          if constexpr (kDgrad) {
+            prow[kk] = i0 + r + pad_top - stride * (row0 + s_lo);
+            pcol[kk] = j0 + c + pad_left - stride * col0;
+          } else {
+            prow[kk] = r * stride - s_lo;
+            pcol[kk] = c * stride;
+          }
+        }
+        for (int dh = 0; dh < hf; ++dh) {
+          for (int dw = 0; dw < wf; ++dw) {
+            int off[kSlots];
+#pragma unroll
+            for (int kk = 0; kk < kSlots; ++kk) {
+              if constexpr (kDgrad) {
+                const int uh = prow[kk] - dh;
+                const int uw = pcol[kk] - dw;
+                int slot = base + uh / stride;
+                if (slot >= R) slot -= R;
+                off[kk] = (on[kk] && uh % stride == 0 && uw % stride == 0)
+                              ? (slot * WW + uw / stride) * chunk
+                              : zero_off;
+              } else {
+                int slot = base + prow[kk] + dh;
+                if (slot >= R) slot -= R;
+                off[kk] = on[kk] ? (slot * WW + pcol[kk] + dw) * chunk : 0;
+              }
+            }
+            const float* wt = w_s + (dh * wf + dw) * chunk * ldw + l0;
+#pragma unroll 4
+            for (int c = 0; c < chunk; ++c) {
+              float wv[kLanes];
+              if constexpr (kVecW) {
+                load8(wt + c * ldw, wv);
+              } else {
+#pragma unroll
+                for (int j = 0; j < kLanes; ++j) {
+                  wv[j] = (l0 + j < lanes) ? wt[c * ldw + j] : 0.0f;
+                }
+              }
+              float xv[kSlots];
+#pragma unroll
+              for (int kk = 0; kk < kSlots; ++kk) xv[kk] = ring[off[kk] + c];
+#pragma unroll
+              for (int kk = 0; kk < kSlots; ++kk) {
+#pragma unroll
+                for (int j = 0; j < kLanes; ++j) {
+                  acc[s * kSlots + kk][j] =
+                      fmaf(xv[kk], wv[j], acc[s * kSlots + kk][j]);
+                }
+              }
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (kDgrad) {
+    if (computes) {
+#pragma unroll
+      for (int k = 0; k < kPositions; ++k) {
+        const int p = slot_position(k);
+        if (p >= 0) {
+          const size_t o = (((size_t)(n * oblk + o_b) * oh + i0 + p / wob)
+                            * ow + j0 + p % wob) * lanes + l0;
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) {
+            if (l0 + j < lanes) out[o + j] = acc[k][j];
+          }
+        }
+      }
+    }
+  } else {
+    // the window kernel's epilogue: acc + b, activation, + residual, one
+    // store; acc keeps the stored values for the GAP rider
+    if (computes) {
+      float bv[kLanes];
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        bv[j] = (bias != nullptr && l0 + j < lanes)
+                    ? bias[o_b * lanes + l0 + j] : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kPositions; ++k) {
+        const int p = slot_position(k);
+        if (p >= 0) {
+          const size_t o = (((size_t)(n * oblk + o_b) * oh + i0 + p / wob)
+                            * ow + j0 + p % wob) * lanes + l0;
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) {
+            if (l0 + j < lanes) {
+              float v = acc[k][j];
+              if (bias != nullptr) v += bv[j];
+              v = activate(v, act);
+              if (residual != nullptr) v += residual[o + j];
+              out[o + j] = v;
+              acc[k][j] = v;
+            } else {
+              acc[k][j] = 0.0f;
+            }
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < kLanes; ++j) acc[k][j] = 0.0f;
+        }
+      }
+    }
+    if (partials != nullptr) {
+      __syncthreads();                        // the ring is free now
+      float* red = smem;                      // [npg, lanes]
+      if (computes) {
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) {
+          if (l0 + j < lanes) {
+            float sum = 0.0f;
+#pragma unroll
+            for (int k = 0; k < kPositions; ++k) sum += acc[k][j];
+            red[pg * lanes + l0 + j] = sum;
+          }
+        }
+      }
+      __syncthreads();
+      for (int co = t; co < lanes; co += kThreads) {
+        float sum = 0.0f;
+        for (int g = 0; g < npg; ++g) sum += red[g * lanes + co];
+        partials[((size_t)(n * oblk + o_b) * n_tiles + tile) * lanes + co] =
+            sum;
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// wgrad
+// ---------------------------------------------------------------------------
+
+// kVecX / kVecD: Cib / Cob is a multiple of kLanes (two float4 reads).
+template <bool kVecX, bool kVecD>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+stream_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+                    const float* __restrict__ z, float* __restrict__ ws,
+                    int n_img, int ciblk, int hi, int wi, int cib, int coblk,
+                    int cob, int ho, int wo, int hf, int wf, int stride,
+                    int pad_top, int pad_left, int hso, int wob,
+                    int ring_rows, int taps, int tap_groups, int splits,
+                    int act, int with_db) {
+  extern __shared__ __align__(16) float smem[];
+  const int tg = blockIdx.x % tap_groups;
+  const int split = blockIdx.x / tap_groups;
+  const int ci_b = blockIdx.y;
+  const int co_b = blockIdx.z;
+  const int hin = (hso - 1) * stride + hf;
+  const int wib = (wob - 1) * stride + wf;
+  const int R = ring_rows;
+  const int strips = ho / hso;
+  const int tiles_w = wo / wob;
+  const int items = n_img * tiles_w * strips;
+  const int first = (int)((long long)items * split / splits);
+  const int last = (int)((long long)items * (split + 1) / splits);
+
+  // thread -> (tap, Cib lane group, Cob lane group), as the window wgrad
+  const int ncig = (cib + kLanes - 1) / kLanes;
+  const int ncog = (cob + kLanes - 1) / kLanes;
+  const int groups = ncig * ncog;
+  const int t = threadIdx.x;
+  const int tl = t / groups;
+  const int cig = (t % groups) / ncog;
+  const int cog = t % ncog;
+  const int tap = tg * taps + tl;
+  const bool active = tl < taps && tap < hf * wf;
+  const int dh = active ? tap / wf : 0;
+  const int dw = active ? tap % wf : 0;
+  const int ci0 = cig * kLanes;
+  const int co0 = cog * kLanes;
+  const bool db_duty = with_db && active && ci_b == 0 && tg == 0 && tl == 0 &&
+                       cig == 0;
+
+  const int strip_floats = hso * wob * cob;
+  float* xring = smem;                                   // [R, wib, cib]
+  float* dring = smem + round4(R * wib * cib);           // [2, hso*wob, cob]
+  float* zring = z != nullptr ? dring + 2 * strip_floats : nullptr;
+
+  float acc[kLanes][kLanes];
+#pragma unroll
+  for (int i = 0; i < kLanes; ++i) {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) acc[i][j] = 0.0f;
+  }
+  float dbacc[kLanes];
+#pragma unroll
+  for (int j = 0; j < kLanes; ++j) dbacc[j] = 0.0f;
+
+  const bool vec_x = cib % 4 == 0;
+  const bool vec_d = cob % 4 == 0;
+
+  // Issue item `it`'s copies: its x rows [lo, s*hso*stride + hin) (band-
+  // relative, row 0 at input row -pad_top) and its cotangent strip into
+  // slot `buf`.
+  auto issue = [&](int it, int lo, int buf) {
+    const int n = it / (tiles_w * strips);
+    const int tw = (it / strips) % tiles_w;
+    const int s = it % strips;
+    const float* xb = x + (size_t)(n * ciblk + ci_b) * hi * wi * cib;
+    stage_rows(xring, R, xb, hi, wi, cib, -pad_top, lo,
+               s * hso * stride + hin, tw * wob * stride - pad_left, wib, 0,
+               cib, vec_x);
+    const size_t map = (size_t)(n * coblk + co_b) * ho * wo * cob;
+    // the cotangent strip: rows [s*hso, (s+1)*hso), cols [tw*wob, +wob), all
+    // in the map; the ring stage with ring_rows = hso maps row r to r % hso
+    stage_rows(dring + buf * strip_floats, hso, g + map, ho, wo, cob, 0,
+               s * hso, (s + 1) * hso, tw * wob, wob, 0, cob, vec_d);
+    if (z != nullptr) {
+      stage_rows(zring + buf * strip_floats, hso, z + map, ho, wo, cob, 0,
+                 s * hso, (s + 1) * hso, tw * wob, wob, 0, cob, vec_d);
+    }
+    cp_async_commit();
+  };
+
+  if (first < last) issue(first, (first % strips) * hso * stride, 0);
+  for (int it = first; it < last; ++it) {
+    const int buf = (it - first) & 1;
+    const int s = it % strips;
+    const int lo = s * hso * stride;
+    cp_async_wait_all();
+    __syncthreads();                // item it has landed, for every thread
+    float* d_s = dring + buf * strip_floats;
+    if (z != nullptr) {
+      for (int i = t; i < strip_floats; i += kThreads) {
+        d_s[i] = prologue(d_s[i], zring[buf * strip_floats + i], act);
+      }
+      __syncthreads();
+    }
+    // the next item continues this column tile: only its fresh rows, in
+    // flight while this one computes; else it starts a column tile and is
+    // issued after the compute (its rows would overwrite this item's)
+    const bool next = it + 1 < last;
+    const bool same_band = next && (it + 1) % strips != 0;
+    if (same_band) {
+      const int fresh = hso * stride > hin ? hso * stride : hin;
+      issue(it + 1, lo + fresh, buf ^ 1);
+    }
+    if (active) {
+      const int base = lo % R;
+      for (int ph = 0; ph < hso; ++ph) {
+        int slot = base + ph * stride + dh;
+        if (slot >= R) slot -= R;
+        const float* xr = xring + (slot * wib + dw) * cib + ci0;
+        const float* dr = d_s + ph * wob * cob + co0;
+        for (int pw = 0; pw < wob; ++pw) {
+          float xv[kLanes], dv[kLanes];
+          const float* xp = xr + pw * stride * cib;
+          const float* dp = dr + pw * cob;
+          if constexpr (kVecX) {
+            load8(xp, xv);
+          } else {
+#pragma unroll
+            for (int i = 0; i < kLanes; ++i) {
+              xv[i] = (ci0 + i < cib) ? xp[i] : 0.0f;
+            }
+          }
+          if constexpr (kVecD) {
+            load8(dp, dv);
+          } else {
+#pragma unroll
+            for (int j = 0; j < kLanes; ++j) {
+              dv[j] = (co0 + j < cob) ? dp[j] : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < kLanes; ++i) {
+#pragma unroll
+            for (int j = 0; j < kLanes; ++j) {
+              acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
+            }
+          }
+          if (db_duty) {
+#pragma unroll
+            for (int j = 0; j < kLanes; ++j) dbacc[j] += dv[j];
+          }
+        }
+      }
+    }
+    if (next && !same_band) {
+      __syncthreads();              // every thread is done with the ring
+      issue(it + 1, 0, buf ^ 1);
+    }
+  }
+
+  if (!active) return;
+  const size_t dw_size = (size_t)coblk * ciblk * hf * wf * cib * cob;
+  float* row = ws + (size_t)split * (dw_size + (with_db ? coblk * cob : 0));
+  const size_t base =
+      (((size_t)(co_b * ciblk + ci_b) * hf * wf + tap) * cib + ci0) * cob + co0;
+#pragma unroll
+  for (int i = 0; i < kLanes; ++i) {
+    if (ci0 + i < cib) {
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        if (co0 + j < cob) row[base + (size_t)i * cob + j] = acc[i][j];
+      }
+    }
+  }
+  if (db_duty) {
+#pragma unroll
+    for (int j = 0; j < kLanes; ++j) {
+      if (co0 + j < cob) row[dw_size + co_b * cob + co0 + j] = dbacc[j];
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// The compiled register-tile geometry, for the wrapper's blocking model.
+void conv2d_stream_geometry(int* threads, int* lanes, int* positions) {
+  *threads = kThreads;
+  *lanes = kLanes;
+  *positions = kPositions;
+}
+
+// Forward (dgrad = 0) or dgrad (dgrad = 1); see stream_conv_kernel for the
+// generic names.  Grid: (bands, oblk, n).
+int conv2d_stream_conv(const void* in, const void* z, const void* w,
+                       const void* bias, const void* residual, void* out,
+                       void* partials, int dgrad, int n, int rblk, int ih,
+                       int iw, int rpen, int oblk, int lanes, int oh, int ow,
+                       int hf, int wf, int stride, int pad_top, int pad_left,
+                       int hob, int wob, int hso, int ring_rows,
+                       int ring_cols, int chunk, int ldw, int act,
+                       int smem_bytes, void* stream) {
+  const bool vec = lanes % kLanes == 0;
+  const int strips = hob / hso;
+  if (hob % hso != 0 || (strips != 1 && strips != 2)) {
+    return (int)cudaErrorInvalidValue;    // compiled for 1 or 2 strips
+  }
+  auto pick = [&](auto one, auto two) { return strips == 1 ? one : two; };
+  auto kernel =
+      dgrad ? (vec ? pick(stream_conv_kernel<true, true, 1>,
+                          stream_conv_kernel<true, true, 2>)
+                   : pick(stream_conv_kernel<true, false, 1>,
+                          stream_conv_kernel<true, false, 2>))
+            : (vec ? pick(stream_conv_kernel<false, true, 1>,
+                          stream_conv_kernel<false, true, 2>)
+                   : pick(stream_conv_kernel<false, false, 1>,
+                          stream_conv_kernel<false, false, 2>));
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((oh / hob) * (ow / wob), oblk, n);
+  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)in, (const float*)z, (const float*)w, (const float*)bias,
+      (const float*)residual, (float*)out, (float*)partials, rblk, ih, iw,
+      rpen, oblk, lanes, oh, ow, hf, wf, stride, pad_top, pad_left, hob, wob,
+      hso, ring_rows, ring_cols, chunk, ldw, act);
+  return (int)cudaGetLastError();
+}
+
+int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
+                        int n, int ciblk, int hi, int wi, int cib, int coblk,
+                        int cob, int ho, int wo, int hf, int wf, int stride,
+                        int pad_top, int pad_left, int hso, int wob,
+                        int ring_rows, int taps, int tap_groups, int splits,
+                        int act, int with_db, int smem_bytes, void* stream) {
+  const bool vx = cib % kLanes == 0;
+  const bool vd = cob % kLanes == 0;
+  auto kernel = vx ? (vd ? stream_wgrad_kernel<true, true>
+                         : stream_wgrad_kernel<true, false>)
+                   : (vd ? stream_wgrad_kernel<false, true>
+                         : stream_wgrad_kernel<false, false>);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(tap_groups * splits, ciblk, coblk);
+  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)g, (const float*)z, (float*)ws, n, ciblk,
+      hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top, pad_left, hso,
+      wob, ring_rows, taps, tap_groups, splits, act, with_db);
+  return (int)cudaGetLastError();
+}
+
+const char* cuda_error_name(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+}  // extern "C"

@@ -18,8 +18,20 @@ autograd.
   ``csrc/direct_conv2d_bwd.cu`` with the ``dz = g * act'(z)`` prologue and
   ``db``.
 
+Each of the three takes ``stream=``, ``hso=`` and ``machine=``: the dense
+family has window kernels (here) and streamed halo-ring kernels
+(``kernels.conv2d_stream``, ``csrc/conv2d_stream.cu``), and which one a
+direction launches is decided before the launch, by the rules of the
+reference's ``_resolve_stream``/``_forward_impl`` (``:232-279``):
+``stream=True``/``False`` forces a family, a ``KernelRoute`` pins each
+direction, ``hso`` (the streamed strip height) implies the streamed
+family, and None asks the blocking models (``core.dispatch.route_stream``:
+the window model first).  The training path resolves all three directions
+at the forward and carries the ``KernelRoute`` into its backward.
+
 Every wrapper takes its plain version only because the tensor lies on the
-CPU; a CUDA tensor launches the kernel or raises.  There is no fallback.
+CPU; a CUDA tensor launches the kernel or raises.  There is no fallback:
+no route switches after a launch fails.
 The wrappers check device, dtype (f32 on the card in this slice), shapes,
 contiguity and the 16-byte alignment of operands read with float4 loads.
 
@@ -30,18 +42,22 @@ through them; ``reset_launches`` sets them to 0.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import conv2d_common
-from repro_torch.core.blocking import (H100_SXM, choose_blocking,
+from repro_torch.core.blocking import (H100_SXM, MachineModel,
+                                       choose_blocking,
                                        choose_dgrad_blocking,
                                        choose_wgrad_blocking,
                                        dgrad_smem_bytes, smem_bytes,
                                        wgrad_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
+                                       route_stream)
 from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_blocked,
                                           direct_conv_dgrad_blocked,
@@ -53,7 +69,8 @@ from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
-__all__ = ["LAUNCHES", "reset_launches", "direct_conv2d_blocked",
+__all__ = ["LAUNCHES", "reset_launches", "check_machine",
+           "direct_conv2d_blocked",
            "gap_finalize", "direct_conv2d_dgrad", "direct_conv2d_wgrad",
            "wgrad_partials", "wgrad_reduce"]
 
@@ -149,6 +166,27 @@ def _require(t: torch.Tensor, name: str, device: torch.device,
                          "kernel reads it with float4 loads); pass a copy")
 
 
+def check_machine(machine: MachineModel) -> None:
+    """The kernels are compiled for ``H100_SXM``'s register tile and CTA
+    size; a machine model may differ from it only in ``smem_budget``,
+    ``sms`` and ``ctas_per_sm``."""
+    m = H100_SXM
+    if (machine.threads, machine.lanes, machine.positions) != (
+            m.threads, m.lanes, m.positions):
+        raise ValueError(
+            f"machine {machine.name!r}: (threads, lanes, positions)="
+            f"{(machine.threads, machine.lanes, machine.positions)}, but the "
+            f"kernels are compiled for {(m.threads, m.lanes, m.positions)}; "
+            "only smem_budget, sms and ctas_per_sm may differ")
+
+
+def _stream_kernels():
+    # imported at first use: kernels.conv2d_stream imports this module's
+    # launch helpers
+    from repro_torch.kernels import conv2d_stream
+    return conv2d_stream
+
+
 def _check_activation(activation: Optional[str]) -> None:
     if activation not in _ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}; "
@@ -170,7 +208,9 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
                           stride: int = 1, padding: Padding = "VALID",
                           activation: Optional[str] = None,
                           residual: Optional[torch.Tensor] = None,
-                          gap: bool = False, precision=F32) -> torch.Tensor:
+                          gap: bool = False, precision=F32, *,
+                          stream: Stream = None, hso: Optional[int] = None,
+                          machine: MachineModel = H100_SXM) -> torch.Tensor:
     """Blocked direct convolution with the fused epilogue, differentiable.
 
     x: ``[N, Ci/Cib, Hi, Wi, Cib]``; w: ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
@@ -181,10 +221,13 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
 
     With grad mode on and an operand that requires grad the call goes
     through ``BlockedConvFunction`` (the training path, f32 policy only);
-    otherwise it runs the fused inference kernel.
+    otherwise it runs the fused inference kernel.  ``stream``/``hso``
+    route it between the window and the streamed kernels (module
+    docstring); ``machine`` is the model their tiles are fitted to.
     """
     spec = conv_spec(x, w, stride, padding)
     _check_activation(activation)
+    check_machine(machine)
     n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
     if bias is not None and tuple(bias.shape) != (coblk, cob):
         raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
@@ -199,21 +242,58 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
             raise NotImplementedError(
                 "the training path runs the f32 policy only (bf16 arrives "
                 "with the bf16 kernels)")
-        return BlockedConvFunction.apply(x, w, bias, residual, _Dense, spec,
+        route = _resolve_route(stream, hso, spec, x.shape[4], cob, machine,
+                              activation)
+        family = _Dense(route, machine, hso)
+        return BlockedConvFunction.apply(x, w, bias, residual, family, spec,
                                          activation, gap)
+    if _routed("fwd", stream, hso, spec, x.shape[4], cob, machine, gap=gap):
+        return _stream_kernels().stream_forward(
+            x, w, bias, stride, padding, activation, residual, gap, hso=hso,
+            machine=machine, precision=precision)
     if x.device.type == "cpu":
+        # the window model's checks, as on the card
+        choose_blocking(spec.padded_hi, spec.padded_wi, spec.ci, spec.co,
+                        spec.hf, spec.wf, spec.stride, cob=cob,
+                        cib=x.shape[4], machine=machine, gap=gap)
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, residual=residual, gap=gap)
     if resolve_precision(precision).op_dtype != torch.float32:
         raise NotImplementedError(
             "the CUDA kernel of this slice runs the f32 policy only")
-    return _fwd_cuda(x, w, bias, residual, spec, activation, gap)
+    return _fwd_cuda(x, w, bias, residual, spec, activation, gap, machine)
+
+
+def _routed(direction: str, stream: Stream, hso: Optional[int],
+            spec: ConvSpec, cib: int, cob: int, machine: MachineModel,
+            gap: bool = False, prologue: bool = False) -> bool:
+    """True when this direction launches the streamed kernel."""
+    flag = resolve_stream(stream, hso, direction)
+    if flag is None:
+        flag = route_stream(direction, spec, cib, cob, machine, gap=gap,
+                            prologue=prologue)
+    return flag
+
+
+def _resolve_route(stream: Stream, hso: Optional[int], spec: ConvSpec,
+                  cib: int, cob: int, machine: MachineModel,
+                  activation: Optional[str]) -> KernelRoute:
+    """The training path's route, every direction resolved: an explicit
+    bool forces all three, a ``KernelRoute`` pins each, None probes each
+    direction's models on its own; ``hso`` pins the forward only (strip
+    heights are per-kernel model choices)."""
+    prologue = activation not in (None, "linear")
+    return KernelRoute(**{
+        d: _routed(d, stream, hso if d == "fwd" else None, spec, cib, cob,
+                   machine, prologue=prologue)
+        for d in ("fwd", "dgrad", "wgrad")})
 
 
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
-              activation: Optional[str], gap: bool) -> torch.Tensor:
-    """Launch the forward kernel on CUDA operands."""
+              activation: Optional[str], gap: bool,
+              machine: MachineModel = H100_SXM) -> torch.Tensor:
+    """Launch the window forward kernel on CUDA operands."""
     dev = _cuda_device(x)
     operands = {"x": x, "w": w, "bias": bias, "residual": residual}
     for name, t in operands.items():
@@ -225,9 +305,9 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
 
     blk = choose_blocking(spec.padded_hi, spec.padded_wi, spec.ci, spec.co,
                           spec.hf, spec.wf, spec.stride, cob=cob,
-                          cib=x.shape[4], gap=gap)
+                          cib=x.shape[4], machine=machine, gap=gap)
     smem = smem_bytes(blk.hob, blk.wob, blk.chunk, cob, spec.hf, spec.wf,
-                      spec.stride, H100_SXM, gap)
+                      spec.stride, machine, gap)
     n_tiles = (spec.ho // blk.hob) * (spec.wo // blk.wob)
     out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
                       dtype=torch.float32)
@@ -291,28 +371,38 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
                         input_hw: Tuple[int, int], stride: int = 1,
                         padding: Padding = "VALID",
                         z: Optional[torch.Tensor] = None,
-                        activation: Optional[str] = None) -> torch.Tensor:
+                        activation: Optional[str] = None, *,
+                        stream: Stream = None, hso: Optional[int] = None,
+                        machine: MachineModel = H100_SXM) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)``: the raw cotangent ``g
     [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (same shape;
     None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
     at the unpadded ``input_hw``, with ``dz = g * act'(z)`` formed as ``g``
-    is staged.  ``stride``/``padding`` are the forward's."""
+    is staged.  ``stride``/``padding`` are the forward's; ``stream``,
+    ``hso`` and ``machine`` route it as the forward."""
     _backward_operands(g, z, activation)
+    check_machine(machine)
     hi, wi = input_hw
+    n, coblk, ho, wo, cob = g.shape
+    _, ciblk, hf, wf, cib, _ = w.shape
+    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
+    prologue = z is not None and activation not in (None, "linear")
+    if _routed("dgrad", stream, hso, spec, cib, cob, machine,
+               prologue=prologue):
+        return _stream_kernels().stream_dgrad(
+            g, w, input_hw, stride, padding, z, activation, hso=hso,
+            machine=machine)
+    blk = choose_dgrad_blocking(hi, wi, hf, wf, stride, cib, cob, machine)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation)
     dev = _cuda_device(g)
-    n, coblk, ho, wo, cob = g.shape
-    _, ciblk, hf, wf, cib, _ = w.shape
-    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     _require(g, "g", dev, vector_loads=True)
     _require(w, "w", dev)
     if z is not None:
         _require(z, "z", dev, vector_loads=True)
     if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
-    blk = choose_dgrad_blocking(hi, wi, hf, wf, stride, cib, cob)
     smem = dgrad_smem_bytes(blk.hob, blk.wob, blk.chunk, cib, hf, wf, stride)
     dx = torch.empty((n, ciblk, hi, wi, cib), device=dev, dtype=torch.float32)
     lib = _bwd_lib()
@@ -332,7 +422,9 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                         stride: int = 1, padding: Padding = "VALID",
                         z: Optional[torch.Tensor] = None,
                         activation: Optional[str] = None,
-                        with_db: bool = False):
+                        with_db: bool = False, *, stream: Stream = None,
+                        hso: Optional[int] = None,
+                        machine: MachineModel = H100_SXM):
     """Weight (and bias) gradient of ``act(conv(x, w) + b)``: the forward's
     unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
@@ -341,13 +433,27 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     On CUDA the wgrad kernel (``wgrad_partials``) writes one partial sum per
     position share into a ``[splits, |dw| + |db|]`` f32 workspace
     (``torch.empty``) and ``wgrad_reduce`` adds the shares in order; no
-    atomics, so two runs give identical bits."""
+    atomics, so two runs give identical bits.  ``stream``, ``hso`` and
+    ``machine`` route it as the forward."""
     _backward_operands(g, z, activation)
+    check_machine(machine)
+    n, ciblk, hi, wi, cib = x.shape
+    cob = g.shape[4]
+    spec = backward_spec(n, hi, wi, (g.shape[1], ciblk, hf, wf, cib, cob),
+                         stride, padding, g, z)
+    prologue = z is not None and activation not in (None, "linear")
+    if _routed("wgrad", stream, hso, spec, cib, cob, machine,
+               prologue=prologue):
+        return _stream_kernels().stream_wgrad(
+            x, g, hf, wf, stride, padding, z, activation, with_db, hso=hso,
+            machine=machine)
     if x.device.type == "cpu":
+        choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, stride, ciblk,
+                              cib, g.shape[1], cob, machine)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
                                          activation, with_db)
     ws = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
-                        with_db)
+                        with_db, machine)
     out = wgrad_reduce(ws)
     coblk, cob, ciblk, cib = g.shape[1], g.shape[4], x.shape[1], x.shape[4]
     dw_shape = (coblk, ciblk, hf, wf, cib, cob)
@@ -361,7 +467,8 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                    stride: int = 1, padding: Padding = "VALID",
                    z: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
-                   with_db: bool = False) -> torch.Tensor:
+                   with_db: bool = False,
+                   machine: MachineModel = H100_SXM) -> torch.Tensor:
     """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
     ``[splits, |dw| + |db|]`` of per-share partial sums (``splits`` from
     ``choose_wgrad_blocking``), each row laid out as ``dw`` then ``db``."""
@@ -378,7 +485,7 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
     blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                                cob)
+                                cob, machine)
     smem = wgrad_smem_bytes(blk.hob, blk.wob, cib, cob, hf, wf, stride)
     cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
                                                   else 0)
@@ -422,22 +529,38 @@ def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
 # autograd: the reference's custom VJP
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
 class _Dense:
-    """The dense family's kernels for ``BlockedConvFunction``."""
+    """The dense family's kernels for ``BlockedConvFunction``, each
+    direction on the kernel its ``route`` resolved (the window kernels
+    here, or the streamed ones; ``hso`` pins the streamed forward's
+    strips)."""
+    route: KernelRoute
+    machine: MachineModel = H100_SXM
+    hso: Optional[int] = None
 
-    @staticmethod
-    def preactivation(x, w, bias, spec: ConvSpec) -> torch.Tensor:
+    def preactivation(self, x, w, bias, spec: ConvSpec) -> torch.Tensor:
+        if self.route.fwd:
+            streamed = _stream_kernels()
+            streamed.stream_blocking(x, w, spec, False, self.hso,
+                                     self.machine)
+            if x.device.type != "cpu":
+                return streamed.stream_forward(
+                    x, w, bias, spec.stride, spec.pads, hso=self.hso,
+                    machine=self.machine)
         if x.device.type == "cpu":
             return direct_conv_preactivation(x, w, spec.stride, spec.pads,
                                              bias)
-        return _fwd_cuda(x, w, bias, None, spec, None, False)
+        return _fwd_cuda(x, w, bias, None, spec, None, False, self.machine)
 
-    @staticmethod
-    def dgrad(g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
+    def dgrad(self, g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
         return direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
-                                   spec.pads, z, activation)
+                                   spec.pads, z, activation,
+                                   stream=self.route.dgrad,
+                                   machine=self.machine)
 
-    @staticmethod
-    def wgrad(x, g, spec: ConvSpec, z, activation, with_db: bool):
+    def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
-                                   spec.pads, z, activation, with_db)
+                                   spec.pads, z, activation, with_db,
+                                   stream=self.route.wgrad,
+                                   machine=self.machine)

@@ -22,6 +22,7 @@ from typing import Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.context import ConvContext, as_context
 from repro_torch.core.device import resolve_device
 from repro_torch.nn.conv import BlockedCNN
 from repro_torch.serve.scheduler import (ConvRequest, Outcome, SlotPool,
@@ -34,13 +35,18 @@ class ConvServer:
     """Continuous-batching front door over one device.
 
     ``clock`` is injectable: wall time (``time.monotonic``) gives real
-    latencies, a deterministic counter makes tests exact.
+    latencies, a deterministic counter makes tests exact.  ``context`` (a
+    ``ConvContext``) runs every forward the server makes, warm-up included,
+    as it says: ``ConvContext(stream=True)`` serves through the streamed
+    kernels.
     """
 
     def __init__(self, model: BlockedCNN, buckets: Sequence[Tuple[int, int]],
                  batch: int, *, device: Union[str, torch.device] = "cuda",
-                 clock=time.monotonic, max_queue: Optional[int] = None):
+                 clock=time.monotonic, max_queue: Optional[int] = None,
+                 context: Optional[ConvContext] = None):
         self.device = resolve_device(device)
+        self.context = as_context(context)
         if model.head.device.type != self.device.type:
             raise ValueError(f"model is on {model.head.device}, the server "
                              f"on {self.device}")
@@ -59,7 +65,7 @@ class ConvServer:
     def _forward(self, imgs: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(imgs).to(self.device, torch.float32)
         with torch.inference_mode():
-            return self.model(x).cpu().numpy()
+            return self.model(x, context=self.context).cpu().numpy()
 
     def warmup(self):
         """Run every bucket once on a zero batch, so that the first request's

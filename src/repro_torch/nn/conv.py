@@ -19,6 +19,15 @@ measured dispatcher is not ported yet.  Grouped layers with more than one
 input channel per group, and dilated dense layers, raise
 ``NotImplementedError``: no kernel of the port runs them yet.
 
+A dense layer runs on the window kernels or on the streamed halo-ring
+kernels (``kernels.conv2d_stream``): the layer's ``stream`` field, or a
+``ConvContext``'s, forces one family (a bool for all three directions, a
+``KernelRoute`` per direction), and None lets the blocking models decide
+(``core.dispatch.route_stream``).  As in the reference the override acts
+inside the dense family only: pointwise and depthwise legs ignore a
+context's ``stream``, and an explicit ``stream=True`` on such a layer
+raises.  ``machine`` is the model the dense family's tiles are fitted to.
+
 Parameters are trainable.  With grad mode on, a call goes through the
 family's autograd path (forward kernel, then the dgrad and wgrad kernels
 in the backward); under ``torch.no_grad``/``inference_mode``, as the
@@ -32,11 +41,15 @@ from typing import Optional, Sequence, Union
 import torch
 from torch import nn
 
+from repro_torch.core.blocking import H100_SXM, MachineModel
+from repro_torch.core.context import ConvContext, as_context
 from repro_torch.core.conv2d_common import blocked_global_avg_pool
 from repro_torch.core.convspec import ConvSpec, as_dilation
 from repro_torch.core.device import resolve_device
+from repro_torch.core.dispatch import KernelRoute, Stream
 from repro_torch.core.layout import BlockedConvLayout, nhwc_to_blocked
 from repro_torch.core.padding import Padding
+from repro_torch.core.precision import F32
 from repro_torch.kernels.conv2d_depthwise import depthwise_conv2d_blocked
 from repro_torch.kernels.conv2d_pointwise import pointwise_conv2d_blocked
 from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
@@ -61,11 +74,13 @@ class BlockedConv2D(nn.Module):
     def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
                  stride: int = 1, padding: Padding = "SAME",
                  activation: Optional[str] = "relu", *, groups: int = 1,
-                 dilation=1, lane: int = 128,
+                 dilation=1, lane: int = 128, stream: Stream = None,
+                 machine: MachineModel = H100_SXM,
                  device: Union[str, torch.device] = "cuda",
                  generator: Optional[torch.Generator] = None):
         """``lane`` is the channel-pencil target (the reference's ``lane``):
-        128 for real widths, smaller for toy nets."""
+        128 for real widths, smaller for toy nets.  ``stream`` and
+        ``machine`` route a dense layer (module docstring)."""
         super().__init__()
         self.ci, self.co, self.hf, self.wf = ci, co, hf, wf
         self.stride, self.padding, self.activation = stride, padding, activation
@@ -81,6 +96,16 @@ class BlockedConv2D(nn.Module):
                 f"dilation={self.dilation} on a dense conv: the dense "
                 "kernels' dilated taps arrive with the grouped/dilated slice "
                 "of the kernel zoo")
+        self.stream, self.machine = stream, machine
+        geometry = ConvSpec.make(1, hf, wf, ci, co, hf, wf, stride, padding,
+                                 groups, self.dilation)
+        forced = (any(stream.get(d) for d in ("fwd", "dgrad", "wgrad"))
+                  if isinstance(stream, KernelRoute) else bool(stream))
+        if forced and (geometry.is_pointwise or geometry.is_depthwise):
+            kind = "pointwise" if geometry.is_pointwise else "depthwise"
+            raise ValueError(
+                "the streamed halo-ring kernels are dense-only: stream="
+                f"{stream!r} on a {kind} layer")
         params = init_tree(self.specs(), _generator(generator),
                            resolve_device(device))
         self.w = nn.Parameter(params["w"])
@@ -112,23 +137,32 @@ class BlockedConv2D(nn.Module):
                              self.dilation)
 
     def forward(self, xb: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                gap: bool = False) -> torch.Tensor:
+                gap: bool = False,
+                context: Optional[ConvContext] = None) -> torch.Tensor:
         """``residual`` is skip-added after the activation in the epilogue;
         ``gap=True`` returns the pooled ``[N, Co]`` features instead of the
-        map, whose values the kernel pools as it stores them."""
+        map, whose values the kernel pools as it stores them.  ``context``
+        overrides the layer's ``stream`` and ``machine`` and sets the
+        precision policy (f32 by default)."""
+        ctx = as_context(context)
+        precision = ctx.resolve_precision_for(F32)
         spec = self.spec(xb.shape[0], xb.shape[2], xb.shape[3])
         if spec.is_pointwise:
             return pointwise_conv2d_blocked(xb, self.w, self.b, self.stride,
                                             self.padding, self.activation,
-                                            residual=residual, gap=gap)
+                                            residual=residual, gap=gap,
+                                            precision=precision)
         if spec.is_depthwise:
             return depthwise_conv2d_blocked(xb, self.w, self.b, self.stride,
                                             self.padding, self.activation,
                                             residual=residual, gap=gap,
+                                            precision=precision,
                                             dilation=self.dilation)
-        return direct_conv2d_blocked(xb, self.w, self.b, self.stride,
-                                     self.padding, self.activation,
-                                     residual=residual, gap=gap)
+        return direct_conv2d_blocked(
+            xb, self.w, self.b, self.stride, self.padding, self.activation,
+            residual=residual, gap=gap, precision=precision,
+            stream=ctx.resolve_stream_for(self.stream),
+            machine=ctx.resolve_machine_for(self.machine))
 
 
 class DepthwiseSeparableBlock(nn.Module):
@@ -167,8 +201,10 @@ class DepthwiseSeparableBlock(nn.Module):
         return self.pw.out_pencil
 
     def forward(self, xb: torch.Tensor, residual: Optional[torch.Tensor] = None,
-                gap: bool = False) -> torch.Tensor:
-        return self.pw(self.dw(xb), residual=residual, gap=gap)
+                gap: bool = False,
+                context: Optional[ConvContext] = None) -> torch.Tensor:
+        return self.pw(self.dw(xb, context=context), residual=residual,
+                       gap=gap, context=context)
 
 
 class BlockedCNN(nn.Module):
@@ -211,10 +247,12 @@ class BlockedCNN(nn.Module):
     def in_channels(self) -> int:
         return self.convs[0].ci
 
-    def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
-        """``[N, H, W, C]`` images -> ``[N, n_classes]`` logits."""
+    def forward(self, x_nhwc: torch.Tensor,
+                context: Optional[ConvContext] = None) -> torch.Tensor:
+        """``[N, H, W, C]`` images -> ``[N, n_classes]`` logits; ``context``
+        reaches every layer."""
         h = nhwc_to_blocked(x_nhwc, self.convs[0].in_pencil)
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
-            h = conv(h, gap=(i == last))
+            h = conv(h, gap=(i == last), context=context)
         return torch.matmul(h, self.head.to(h.dtype))

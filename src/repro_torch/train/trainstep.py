@@ -4,16 +4,21 @@ of ``repro/train/trainstep.py`` (``make_loss_fn``, ``make_train_step``).
 The loss is the f32 cross-entropy of the class logits.  Gradients come from
 autograd, which runs every conv's backward through the dgrad and wgrad
 kernels on the card (``kernels.conv_autograd.BlockedConvFunction``) and
-through their plain versions on the CPU.  With ``accum_steps > 1`` the batch
+through their plain versions on the CPU.  ``context`` (a ``ConvContext``,
+the counterpart of the reference's ``TrainSettings.context``) reaches every
+layer of the forward, and through the autograd functions the backward: with
+``ConvContext(stream=True)`` the streamed forward, dgrad and wgrad kernels
+carry the step.  With ``accum_steps > 1`` the batch
 is split along dim 0 into microbatches whose gradients are averaged, as the
 reference's ``lax.scan`` does.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.core.context import ConvContext, as_context
 from repro_torch.nn.conv import BlockedCNN
 from repro_torch.train.losses import cross_entropy
 from repro_torch.train.optimizer import AdamW, OptState
@@ -23,12 +28,14 @@ __all__ = ["make_loss_fn", "make_train_step"]
 Batch = Mapping[str, torch.Tensor]
 
 
-def make_loss_fn(model: BlockedCNN
+def make_loss_fn(model: BlockedCNN, context: Optional[ConvContext] = None
                  ) -> Callable[[Batch], Tuple[torch.Tensor, Dict]]:
     """-> ``loss_fn(batch) -> (loss, metrics)`` for a batch with NHWC
-    ``images`` and integer ``targets``."""
+    ``images`` and integer ``targets``, the model run under ``context``."""
+    ctx = as_context(context)
+
     def loss_fn(batch: Batch):
-        logits = model(batch["images"]).to(torch.float32)
+        logits = model(batch["images"], context=ctx).to(torch.float32)
         loss, metrics = cross_entropy(logits[:, None, :],
                                       batch["targets"][:, None],
                                       model.n_classes)
@@ -37,7 +44,8 @@ def make_loss_fn(model: BlockedCNN
 
 
 def make_train_step(model: BlockedCNN, optimizer: AdamW,
-                    accum_steps: int = 1
+                    accum_steps: int = 1,
+                    context: Optional[ConvContext] = None
                     ) -> Callable[[OptState, Batch], Tuple[torch.Tensor, Dict]]:
     """-> ``train_step(opt_state, batch) -> (loss, metrics)``.
 
@@ -49,7 +57,7 @@ def make_train_step(model: BlockedCNN, optimizer: AdamW,
     gradients after the call."""
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
-    loss_fn = make_loss_fn(model)
+    loss_fn = make_loss_fn(model, context)
     params = dict(model.named_parameters())
 
     def train_step(opt_state: OptState, batch: Batch):

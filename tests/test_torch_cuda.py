@@ -17,7 +17,12 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
                                                reset_launches, wgrad_reduce)
+from repro_torch.core.blocking import (choose_blocking,  # noqa: E402
+                                       choose_stream_blocking)
+from repro_torch.core.context import ConvContext  # noqa: E402
+from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
+from repro_torch.kernels import conv2d_stream as stk  # noqa: E402
 from repro_torch.kernels import conv2d_pointwise as pwk  # noqa: E402
 from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,  # noqa: E402
                                  DepthwiseSeparableBlock)
@@ -288,3 +293,101 @@ def test_separable_model_runs_through_the_kernels(cuda):
     assert LAUNCHES["wgrad_reduce"] == 4
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
+
+
+# (n, ci, co, h, cib, cob, stride, activation, residual, gap, hso)
+STREAM_CASES = [
+    (2, 3, 64, 20, 3, 64, 2, "gelu", True, False, None),     # Cib = 3
+    (2, 3, 64, 17, 3, 64, 1, "relu", False, True, 1),
+    (2, 64, 128, 28, 64, 128, 1, "gelu", True, True, None),
+    (2, 64, 128, 28, 64, 128, 2, "relu", False, False, 2),   # (0, 1) pads
+    (3, 24, 12, 9, 8, 12, 2, None, False, True, None),       # Cob % 8 != 0
+    (2, 128, 128, 14, 128, 128, 1, "relu", False, False, None),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,res,gap,hso",
+                         STREAM_CASES)
+def test_stream_kernels_match_plain_and_window(cuda, n, ci, co, h, cib, cob,
+                                               stride, act, res, gap, hso):
+    x, w, b, r = _operands(cuda, n, ci, co, h, cib, cob, stride, res)
+    stk.reset_launches()
+    reset_launches()
+    with torch.no_grad():
+        got = direct_conv2d_blocked(x, w, b, stride, "SAME", act, residual=r,
+                                    gap=gap, stream=True, hso=hso)
+        window = direct_conv2d_blocked(x, w, b, stride, "SAME", act,
+                                       residual=r, gap=gap, stream=False)
+        want = direct_conv_blocked(x, w, stride, "SAME", b, act, residual=r,
+                                   gap=gap)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, **TOL)
+    # the same sums in the same order where both choosers take the same
+    # channel chunk (and, with GAP, the same tile)
+    spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
+    sblk = choose_stream_blocking(n, spec.padded_hi, spec.padded_wi, ci, co,
+                                  3, 3, stride, cob, cib, gap=gap, hso=hso)
+    wblk = choose_blocking(spec.padded_hi, spec.padded_wi, ci, co, 3, 3,
+                           stride, cob, cib, gap=gap)
+    same = sblk.chunk == wblk.chunk and (
+        not gap or (sblk.hob, sblk.wob) == (wblk.hob, wblk.wob))
+    if same:
+        assert torch.equal(got, window)
+    else:
+        scale = want.abs().max()
+        assert (got - window).abs().max() <= 1e-5 * scale
+    z = direct_conv_blocked(x, w, stride, "SAME", b).contiguous()
+    ct = torch.randn(z.shape, device=cuda)
+    zz = None if act is None else z
+    dx = direct_conv2d_dgrad(ct, w, (h, h), stride, "SAME", zz, act,
+                             stream=True)
+    dx_win = direct_conv2d_dgrad(ct, w, (h, h), stride, "SAME", zz, act)
+    dw, db = direct_conv2d_wgrad(x, ct, 3, 3, stride, "SAME", zz, act,
+                                 with_db=True, stream=True)
+    dw2, db2 = direct_conv2d_wgrad(x, ct, 3, 3, stride, "SAME", zz, act,
+                                   with_db=True, stream=True)
+    torch.cuda.synchronize()
+    assert stk.LAUNCHES == {"conv2d_stream_fwd": 1, "conv2d_stream_dgrad": 1,
+                            "conv2d_stream_wgrad": 2}
+    assert LAUNCHES["direct_conv2d_fwd"] == 1        # the window forward
+    assert LAUNCHES["direct_conv2d_dgrad"] == 1      # the window dgrad
+    assert LAUNCHES["direct_conv2d_wgrad"] == 0
+    want_dx = direct_conv_dgrad_blocked(ct, w, (h, h), stride, "SAME", zz,
+                                        act)
+    torch.testing.assert_close(dx, want_dx, **TOL)
+    torch.testing.assert_close(dx, dx_win, **TOL)
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), ct.double(), 3, 3, stride, "SAME",
+        None if zz is None else zz.double(), act, with_db=True)
+    torch.testing.assert_close(dw.double(), want_dw, **TOL)
+    torch.testing.assert_close(db.double(), want_db, **TOL)
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
+
+
+def test_stream_context_trains_a_two_layer_model_on_the_stream_kernels(
+        cuda):
+    gen = torch.Generator().manual_seed(0)
+    convs = [BlockedConv2D(8, 16, stride=1, lane=8, device=cuda,
+                           generator=gen),
+             BlockedConv2D(16, 16, stride=2, lane=8, device=cuda,
+                           generator=gen)]
+    model = BlockedCNN(convs, 4, device=cuda, generator=gen)
+    images = torch.randn((2, 12, 12, 8), device=cuda)
+    grads = []
+    for ctx in (ConvContext(stream=True), None):
+        for p in model.parameters():
+            p.grad = None
+        stk.reset_launches()
+        reset_launches()
+        model(images, context=ctx).square().sum().backward()
+        torch.cuda.synchronize()
+        grads.append([p.grad.clone() for p in model.parameters()])
+        if ctx is not None:
+            assert stk.LAUNCHES == {"conv2d_stream_fwd": 2,
+                                    "conv2d_stream_dgrad": 1,
+                                    "conv2d_stream_wgrad": 2}
+            assert LAUNCHES == {"direct_conv2d_fwd": 0, "gap_finalize": 0,
+                                "direct_conv2d_dgrad": 0,
+                                "direct_conv2d_wgrad": 0, "wgrad_reduce": 2}
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **TOL)
