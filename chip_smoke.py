@@ -75,7 +75,34 @@ and no phase catches its own failure:
     a CUDA-graph replay, beside the window kernels, the plain versions,
     cuDNN (TF32 off) and the f32 bound; the streamed train step against the
     window step and the plain step; its peak device memory beside the bytes
-    it must hold.
+    it must hold;
+18. the language models' kernels against their plain versions: flash
+    attention (``csrc/flash_attention.cu``) at h2o-danube-1.8b's prefill
+    shape (B 2, S 2048, 32 q-heads over 8 KV heads, Dh 80) in f32 and bf16,
+    a window that bites (S 1024, window 256), softcap 50, non-causal, MQA,
+    Dh 128, ragged S 1000, ``kv_valid`` with positions that are not
+    ``arange``, and the TPU kernel's ``[B, H, S, Dh]`` entry on strided
+    views; the causal conv1d (``csrc/conv1d_depthwise.cu``) at
+    mamba2-780m's shape (B 2, L 2048, 3328 channels, K 4, bias) on the
+    strided ``in_proj`` slice, a contiguous tensor, a ragged L and the
+    blocked layout, f32 and bf16;
+19. h2o-danube-1.8b at full width and depth, weights from ``--seed`` (the
+    attention projections rescaled to a fan-in over the contracted size,
+    ``condition_attention``): (a) ``make_prefill_step`` at B 2, S 2048 in
+    f32 through the kernels (24 flash launches) against the plain path,
+    (b) ``decode_step`` over the first 32 tokens against the prefill, (d)
+    the ``ContinuousBatcher`` (batch 4, cache 128) answering 8 requests of
+    8-48 prompt tokens and 16 new tokens each, every first token against
+    the kernel prefill's argmax where the top-2 gap clears (a)'s
+    tolerance; (c) the published bf16 config's prefill against its plain
+    path under the rule of PERF.md section 6, and (d) again in bf16;
+20. mamba2-780m, the same checks (48 conv1d launches a forward);
+21. times: each kernel at its model's shape, eager and as a CUDA-graph
+    replay, beside its plain version, the library call
+    (``scaled_dot_product_attention``, ``F.conv1d``) and the bound; per
+    model, prefill ms and tokens/s in f32 and bf16, the plain path's
+    prefill, decode ms a step at batch 4, and peak device memory beside
+    the parameter and cache bytes.
 
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -142,7 +169,8 @@ TPU_WGRAD = "src/repro/kernels/direct_conv2d.py:175"
 BATCH, ENTRY = 8, 224
 BUCKETS = ((160, 160), (224, 224))
 SOURCES = ("direct_conv2d_fwd", "direct_conv2d_bwd", "conv2d_pointwise",
-           "conv2d_depthwise", "conv2d_stream")
+           "conv2d_depthwise", "conv2d_stream", "flash_attention",
+           "conv1d_depthwise")
 # MobileNet v1: served at batch 8, trained at batch 32
 MB_BATCH, MB_TRAIN_BATCH = 8, 32
 PW_SOURCE = "src/repro_torch/csrc/conv2d_pointwise.cu"
@@ -161,6 +189,24 @@ STREAM_SOURCE = "src/repro_torch/csrc/conv2d_stream.cu"
 # the streamed forward's TPU kernel is also its dgrad (transpose=True)
 TPU_STREAM = "src/repro/kernels/conv2d_stream.py:78"
 TPU_STREAM_WGRAD = "src/repro/kernels/conv2d_stream.py:306"
+# the language models (phases 18-21)
+FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
+CONV1D_SOURCE = "src/repro_torch/csrc/conv1d_depthwise.cu"
+TPU_FLASH = "src/repro/kernels/flash_attention.py:33"
+TPU_CONV1D = "src/repro/kernels/conv1d_depthwise.py:27"
+LM_BATCH, LM_SEQ = 2, 2048             # the prefill: batch 2, 2048 tokens
+SERVE_BATCH, SERVE_CACHE = 4, 128      # the batcher's slots and cache
+SERVE_REQUESTS, SERVE_NEW = 8, 16      # requests, new tokens each
+DECODE_CHECK = 32                      # decode steps held to the prefill
+# a kernel vs its plain version in the working dtype: the same f32 sums in
+# another order (attention: 2048 terms of O(1), then the softmax), plus one
+# bf16 ulp for bf16 outputs (see compare_lm)
+KERNEL_REL, KERNEL_ABS = 1e-5, 1e-6
+# decode vs the prefill's logits: the reference's own tolerance
+# (tests/test_decode_consistency.py)
+DECODE_TOL = 2e-3
+# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
+PEAK_BF16_FLOPS = 989e12
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -1276,6 +1322,480 @@ def stream_phases(args, dev, t_start):
     return entries, counts
 
 
+def plain_lm_kernels():
+    """Within this context the language models run the plain versions of
+    their kernels on the card (the same model's plain path): the name each
+    layer calls is pointed at the plain version, and restored after."""
+    import contextlib
+    from repro_torch.core.direct_conv import direct_conv1d_depthwise
+    from repro_torch.kernels.flash_attention import attend_plain
+    from repro_torch.nn import attention, ssm
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = attention.attend, ssm.conv1d_depthwise
+        attention.attend, ssm.conv1d_depthwise = (
+            attend_plain, direct_conv1d_depthwise)
+        try:
+            yield
+        finally:
+            attention.attend, ssm.conv1d_depthwise = saved
+    return ctx()
+
+
+def bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def compare_lm(label: str, got, want) -> float:
+    """Kernel vs plain version, both in the working dtype: within
+    ``KERNEL_REL * max|want| + KERNEL_ABS`` (the same f32 sums in another
+    order), and for bf16 one bf16 ulp more (the plain version rounds its f32
+    result once, the kernel too, to neighbouring values at worst).  -> max
+    abs error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: {tuple(got.shape)} {got.dtype} != "
+             f"{tuple(want.shape)} {want.dtype}")
+    g, w = got.double(), want.double()
+    if not torch.isfinite(g).all():
+        fail(f"{label}: non-finite output")
+    err = (g - w).abs()
+    bound = KERNEL_REL * w.abs().max() + KERNEL_ABS
+    if want.dtype == torch.bfloat16:
+        bound = bound + bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    ok = bool((err <= bound).all())
+    rel = (err.max() / w.abs().max().clamp_min(1e-30)).item()
+    print(f"[check] {label}: max_abs_err={err.max().item():.3e} "
+          f"rel-to-max={rel:.3e} worst err/bound="
+          f"{(err / bound).max().item():.3f} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    return err.max().item()
+
+
+def condition_attention(model) -> None:
+    """Rescale each attention layer's projections, in place, to a fan-in
+    over the size they contract: d_model for q, k and v, heads * head_dim
+    for o.  The port's init is the reference's ``ParamSpec`` rule, whose
+    fan-in is the second-to-last axis: the heads axis of the [D, H, Dh]
+    projections (q at std 1/sqrt(32) instead of 1/sqrt(2560) in danube).
+    Scores then have a standard deviation of ~160, every softmax is an
+    argmax, and f32 rounding differences of 1e-7 flip argmaxes from layer
+    to layer, so no two correct implementations agree on 24 layers; at the
+    rescaled init scores are O(1), as in a trained model."""
+    with torch.no_grad():
+        for layer in model.layers:
+            attn = getattr(layer, "attn", None)
+            if attn is None:
+                continue
+            d, hp, kv = attn.d_model, attn.padded_heads, attn.n_kv_heads
+            attn.q.w.mul_((hp / d) ** 0.5)
+            attn.k.w.mul_((kv / d) ** 0.5)
+            attn.v.w.mul_((kv / d) ** 0.5)
+            attn.o.w.mul_(hp ** -0.5)
+
+
+def lm_phases(args, dev, t_start):
+    """Phases 18-21: the flash-attention and conv1d kernels, and
+    h2o-danube-1.8b and mamba2-780m at full width and depth, prefilled and
+    served.  -> (the two kernels' entries of the ``{"kernels": [...]}``
+    line, their launches in the main-path runs)."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.direct_conv import direct_conv1d_depthwise
+    from repro_torch.core.layout import (blocked_to_bld, bld_to_blocked,
+                                         kd_to_blocked, largest_divisor_leq)
+    from repro_torch.kernels import conv1d_depthwise as c1k
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.nn.models import build_model
+    from repro_torch.serve.decode import make_serve_step
+    from repro_torch.serve.scheduler import ContinuousBatcher, Request
+    from repro_torch.train.trainstep import make_prefill_step
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 30)
+    err = {"flash_attention": 0.0, "conv1d_depthwise": 0.0}
+    bf16_rel = {"flash_attention": 0.0, "conv1d_depthwise": 0.0}
+
+    def stamp(phase):
+        print(f"[time] phase {phase} done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def reset():
+        fak.reset_launches()
+        c1k.reset_launches()
+
+    def counts():
+        return {**fak.LAUNCHES, **c1k.LAUNCHES}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, device=dev, generator=gen).to(dtype)
+
+    def record(name, label, got, want):
+        e = compare_lm(label, got, want)
+        err[name] = max(err[name], e)
+        if want.dtype == torch.bfloat16:
+            bf16_rel[name] = max(bf16_rel[name], e / want.double().abs()
+                                 .max().clamp_min(1e-30).item())
+
+    # -- 18. the kernels vs their plain versions ----------------------------
+    danube, mamba = get_config("h2o-danube-1.8b"), get_config("mamba2-780m")
+    hq, hkv, dh = danube.n_heads, danube.n_kv_heads, danube.head_dim
+    # b, s, kv heads, groups, dh, dtype, causal, window, cap, kv_valid,
+    # position stride (0: arange)
+    flash_cases = [
+        ("danube prefill", LM_BATCH, LM_SEQ, hkv, hq // hkv, dh,
+         torch.float32, True, None, None, None, 0),
+        ("danube prefill", LM_BATCH, LM_SEQ, hkv, hq // hkv, dh,
+         torch.bfloat16, True, None, None, None, 0),
+        ("window 256", 1, 1024, hkv, hq // hkv, dh, torch.float32, True,
+         256, None, None, 0),
+        ("softcap 50", 1, 1024, 4, 2, 128, torch.bfloat16, True, None, 50.0,
+         None, 0),
+        ("non-causal", 1, 512, 4, 2, 64, torch.float32, False, None, None,
+         None, 0),
+        ("MQA", 1, 1024, 1, 8, 128, torch.bfloat16, True, None, None, None,
+         0),
+        ("Dh 128", 1, 1024, 8, 4, 128, torch.float32, True, None, None, None,
+         0),
+        ("ragged S 1000", 2, 1000, hkv, hq // hkv, dh, torch.float32, True,
+         None, None, None, 0),
+        ("kv_valid, positions 3i+7, softcap", 2, 700, 2, 4, dh,
+         torch.float32, True, None, 50.0, (2200, 333), 3),
+    ]
+    with torch.no_grad():
+        for (label, b, s, nkv, g, d, dtype, causal, window, cap, kv_valid,
+             off) in flash_cases:
+            q = randn((b, s, nkv, g, d), dtype)
+            k, v = randn((b, s, nkv, d), dtype), randn((b, s, nkv, d), dtype)
+            # positions arange(s), or off * arange(s) + 7 (not arange)
+            qp = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
+                b, s)
+            if off:
+                qp = off * qp + 7
+            kw = dict(q_positions=qp, kv_positions=qp, causal=causal,
+                      window=window, cap=cap, scale=d ** -0.5,
+                      kv_valid=None if kv_valid is None else
+                      torch.tensor(kv_valid, device=dev))
+            got = fak.attend(q, k, v, **kw)
+            want = fak.attend_plain(q, k, v, **kw)
+            torch.cuda.synchronize()
+            record("flash_attention",
+                   f"flash {label} B{b} S{s} KV{nkv} G{g} Dh{d} "
+                   f"{str(dtype)[6:]}", got, want)
+            del q, k, v, got, want
+        # the TPU kernel's [B, H, S, Dh] entry, on strided views
+        q = randn((LM_BATCH, 512, hq, dh), torch.bfloat16).transpose(1, 2)
+        k = randn((LM_BATCH, 512, hkv, dh), torch.bfloat16).transpose(1, 2)
+        v = randn((LM_BATCH, 512, hkv, dh), torch.bfloat16).transpose(1, 2)
+        record("flash_attention", "flash_attention [B,H,S,Dh] views bf16",
+               fak.flash_attention(q, k, v, scale=dh ** -0.5),
+               fak.flash_attention_plain(q, k, v, scale=dh ** -0.5))
+
+        cd, kt = mamba.ssm.conv_dim(mamba.d_model), mamba.ssm.d_conv
+        di = mamba.ssm.d_inner(mamba.d_model)
+        width = 2 * di + 2 * mamba.ssm.n_groups * mamba.ssm.d_state + \
+            mamba.ssm.n_heads(mamba.d_model)
+        for dtype in (torch.float32, torch.bfloat16):
+            zx = randn((LM_BATCH, LM_SEQ, width), dtype)
+            w, bias = randn((kt, cd), dtype), randn((cd,), dtype)
+            for label, x in (("in_proj slice", zx[:, :, di:di + cd]),
+                             ("contiguous",
+                              zx[:, :, di:di + cd].contiguous()),
+                             (f"ragged L {LM_SEQ - 48}",
+                              zx[:, :LM_SEQ - 48, di:di + cd])):
+                record("conv1d_depthwise",
+                       f"conv1d {label} {tuple(x.shape)} stride "
+                       f"{x.stride(1)} {str(dtype)[6:]}",
+                       c1k.conv1d_depthwise(x, w, bias),
+                       direct_conv1d_depthwise(x, w, bias))
+            db = largest_divisor_leq(cd, 128)     # the reference's pencil
+            xb = bld_to_blocked(zx[:, :, di:di + cd], db).contiguous()
+            got = blocked_to_bld(c1k.conv1d_depthwise_blocked(
+                xb, kd_to_blocked(w, db)))
+            record("conv1d_depthwise", f"conv1d blocked [B, D/{db}, L, {db}] "
+                   f"{str(dtype)[6:]}", got,
+                   direct_conv1d_depthwise(zx[:, :, di:di + cd], w, None))
+            del zx, xb, got
+        torch.cuda.synchronize()
+    print(f"[lm] phase 18 bf16 error relative to max|plain|: {bf16_rel}")
+    stamp(18)
+
+    # -- 19-20. the models -------------------------------------------------
+    launches = {"flash_attention": 0, "conv1d_depthwise": 0}
+    model_times = {}
+    rng = np.random.default_rng(args.seed)
+
+    def serve(arch, tag, model, prefill, prompts, tol):
+        """19(d)/20(d): the ContinuousBatcher answers ``prompts`` at batch
+        SERVE_BATCH, cache SERVE_CACHE, SERVE_NEW new tokens each; every
+        request must complete, and each first token must equal the argmax
+        of the kernel prefill's last-position logits of its prompt
+        wherever their top-2 gap exceeds ``tol``.  The prompts' prefills
+        are main-path launches.  -> (first tokens checked, skipped)."""
+        reset()
+        batcher = ContinuousBatcher(model, batch=SERVE_BATCH,
+                                    cache_len=SERVE_CACHE)
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+                for i, p in enumerate(prompts)]
+        t0 = time.perf_counter()
+        for r in reqs:
+            batcher.submit(r)
+        done = batcher.run()
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+        if len(done) != len(reqs) or any(
+                len(r.out_tokens) != SERVE_NEW for r in reqs):
+            fail(f"{arch} {tag}: {len(done)} of {len(reqs)} requests served")
+        checked = skipped = 0
+        for r in reqs:
+            lg = prefill({"tokens": torch.from_numpy(
+                r.prompt.astype(np.int64))[None].to(dev)})[0, -1]
+            top2 = torch.topk(lg, 2).values
+            gap = (top2[0] - top2[1]).item()
+            if gap <= tol:
+                skipped += 1
+                continue
+            checked += 1
+            if int(lg.argmax()) != r.out_tokens[0]:
+                fail(f"{arch} {tag}: request {r.rid}'s first token "
+                     f"{r.out_tokens[0]} != the prefill argmax "
+                     f"{int(lg.argmax())} (top-2 gap {gap:.4f} > {tol:.4f})")
+        torch.cuda.synchronize()
+        got = counts()
+        for k in launches:
+            launches[k] += got[k]
+        print(f"[{arch}] (d) {tag} ContinuousBatcher batch {SERVE_BATCH} "
+              f"cache {SERVE_CACHE}: {len(done)}/{len(reqs)} requests of "
+              f"{[len(p) for p in prompts]} prompt tokens, {SERVE_NEW} new "
+              f"each, {batcher.decode_steps} decode steps in {serve_s:.2f} "
+              f"s; first token = the kernel prefill's argmax for {checked}, "
+              f"{skipped} with a top-2 gap within {tol:.4f}; launches (the "
+              f"prompts' prefills) {got}")
+        return checked, skipped
+
+    def run_model(phase, arch, kernel, per_forward):
+        cfg16 = get_config(arch)
+        cfg32 = dataclasses.replace(cfg16, dtype="float32",
+                                    param_dtype="float32")
+        toks = torch.from_numpy(rng.integers(
+            0, cfg16.vocab_size, (LM_BATCH, LM_SEQ), dtype=np.int64)).to(dev)
+        batch = {"tokens": toks}
+        want = {"flash_attention": per_forward if kernel == "flash_attention"
+                else 0,
+                "conv1d_depthwise": per_forward
+                if kernel == "conv1d_depthwise" else 0}
+        t0 = time.perf_counter()
+        model = build_model(cfg32, dev, torch.Generator().manual_seed(
+            args.seed))
+        condition_attention(model)
+        n_par = sum(p.numel() for p in model.parameters())
+        print(f"[{arch}] f32 model: {n_par} parameters (config n_params "
+              f"{cfg16.n_params()}), drawn in "
+              f"{time.perf_counter() - t0:.1f} s")
+        # (a) f32 prefill through the kernels vs the plain path
+        prefill = make_prefill_step(model, cfg32)
+        reset()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"[{arch}] (a) f32 prefill B{LM_BATCH} S{LM_SEQ}: launches "
+              f"{got}")
+        if got != want:
+            fail(f"{arch}: expected launches {want} a forward, got {got}")
+        for k in launches:
+            launches[k] += got[k]
+        with plain_lm_kernels():
+            reset()
+            plain = prefill(batch)
+            torch.cuda.synchronize()
+            if any(counts().values()):
+                fail(f"{arch}: the plain path launched {counts()}")
+        scale = plain.abs().max().item()
+        compare(f"{arch} (a) f32 prefill logits vs plain path", logits,
+                plain, atol=LOGIT_RTOL * scale, rtol=0.0)
+        times = {"f32_prefill_ms": time_ms(lambda: prefill(batch), iters=3,
+                                           warmup=1)}
+        with plain_lm_kernels():
+            times["f32_plain_prefill_ms"] = time_ms(lambda: prefill(batch),
+                                                    iters=2, warmup=1)
+        del plain
+        # (b) decode against the forward, f32 cache
+        step = make_serve_step(model)
+        cache = model.init_cache(LM_BATCH, DECODE_CHECK,
+                                 dtype=torch.float32)
+        dec = []
+        for t in range(DECODE_CHECK):
+            lg, cache = step(cache, toks[:, t:t + 1], t)
+            dec.append(lg[:, 0])
+        dec = torch.stack(dec, dim=1)
+        compare(f"{arch} (b) decode_step x{DECODE_CHECK} vs prefill logits",
+                dec, logits[:, :DECODE_CHECK], atol=DECODE_TOL,
+                rtol=DECODE_TOL)
+        # (d) in f32 first, where the tolerance of (a) is tight enough to
+        # check nearly every first token
+        prompts = [rng.integers(0, cfg16.vocab_size, (int(n),),
+                                dtype=np.int32)
+                   for n in rng.integers(8, 49, SERVE_REQUESTS)]
+        checked, _ = serve(arch, "f32", model, prefill, prompts,
+                           LOGIT_RTOL * scale)
+        if checked == 0:
+            fail(f"{arch}: no f32 request's first token could be checked")
+        del model, prefill, logits, dec, cache, step
+        torch.cuda.empty_cache()
+
+        # (c) the published bf16 config through the kernels vs its plain path
+        model = build_model(cfg16, dev, torch.Generator().manual_seed(
+            args.seed))
+        condition_attention(model)
+        p_bytes = sum(p.numel() * p.element_size()
+                      for p in model.parameters())
+        prefill = make_prefill_step(model, cfg16)
+        reset()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        logits = prefill(batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = counts()
+        if got != want:
+            fail(f"{arch}: expected launches {want} a bf16 forward, got "
+                 f"{got}")
+        for k in launches:
+            launches[k] += got[k]
+        with plain_lm_kernels():
+            plain = prefill(batch)
+        rel = cfg16.n_layers * max(bf16_rel[kernel], 2.0 ** -8)
+        tol_c = rel * plain.abs().max().item()
+        print(f"[{arch}] (c) bf16 rule: |kernel - plain| <= n_layers "
+              f"{cfg16.n_layers} * max(phase-18 bf16 rel err "
+              f"{bf16_rel[kernel]:.3e}, 2^-8) = {rel:.4f} of max|plain logit| "
+              f"= {tol_c:.4f}")
+        compare(f"{arch} (c) bf16 prefill logits vs plain path", logits,
+                plain, atol=tol_c, rtol=0.0)
+        times["bf16_prefill_ms"] = time_ms(lambda: prefill(batch), iters=3,
+                                           warmup=1)
+        with plain_lm_kernels():
+            times["bf16_plain_prefill_ms"] = time_ms(lambda: prefill(batch),
+                                                     iters=2, warmup=1)
+        times["bf16_prefill_peak_mib"] = peak / 2 ** 20
+        times["bf16_prefill_peak_above_params_mib"] = (peak - base) / 2 ** 20
+        times["param_mib"] = p_bytes / 2 ** 20
+        del plain, logits
+        torch.cuda.empty_cache()
+
+        # (d) the ContinuousBatcher serves the requests, bf16
+        serve(arch, "bf16", model, prefill, prompts, tol_c)
+
+        # decode ms a step at batch 4 against a cache of SERVE_CACHE
+        step = make_serve_step(model)
+        cache = model.init_cache(SERVE_BATCH, SERVE_CACHE)
+        c_bytes = sum(t.numel() * t.element_size()
+                      for entry in cache for t in entry)
+        tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int64, device=dev)
+        state = {"cache": cache, "pos": 0}
+
+        def one():
+            _, state["cache"] = step(state["cache"], tok, state["pos"])
+            state["pos"] += 1
+        times["bf16_decode_ms"] = time_ms(one, iters=20, warmup=3)
+        times["cache_mib"] = c_bytes / 2 ** 20
+        for key in ("f32", "bf16"):
+            times[f"{key}_prefill_tok_s"] = (LM_BATCH * LM_SEQ * 1e3
+                                             / times[f"{key}_prefill_ms"])
+        model_times[arch] = times
+        print(f"[{arch}] times " + json.dumps(times))
+        del model, prefill, step, state, cache
+        torch.cuda.empty_cache()
+        stamp(phase)
+
+    run_model(19, "h2o-danube-1.8b", "flash_attention", danube.n_layers)
+    run_model(20, "mamba2-780m", "conv1d_depthwise", mamba.n_layers)
+
+    # -- 21. per-kernel times at the models' shapes --------------------------
+    rows = {}
+    with torch.no_grad():
+        for dtype, peak in ((torch.float32, PEAK_F32_FLOPS),
+                            (torch.bfloat16, PEAK_BF16_FLOPS)):
+            b, s = LM_BATCH, LM_SEQ
+            q = randn((b, s, hkv, hq // hkv, dh), dtype)
+            k, v = randn((b, s, hkv, dh), dtype), randn((b, s, hkv, dh), dtype)
+            pos = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
+                b, s).contiguous()
+            kw = dict(q_positions=pos, kv_positions=pos, scale=dh ** -0.5)
+            # SDPA on [B, H, S, Dh] views of the same tensors
+            qh = q.reshape(b, s, hq, dh).transpose(1, 2)
+            kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, scale=dh ** -0.5,
+                    enable_gqa=True)
+            try:
+                library()
+            except TypeError:            # a torch without enable_gqa
+                kh = kh.repeat_interleave(hq // hkv, dim=1)
+                vh = vh.repeat_interleave(hq // hkv, dim=1)
+                print("[lm-time] SDPA has no enable_gqa here: K/V repeated "
+                      "before timing")
+
+                def library():
+                    return F.scaled_dot_product_attention(
+                        qh, kh, vh, is_causal=True, scale=dh ** -0.5)
+            pairs = s * (s + 1) // 2
+            nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+            t_ops = 4 * b * hq * dh * pairs / peak
+            t_bytes = nbytes / HBM_BYTES_PER_S
+            rows[("flash_attention", dtype)] = (
+                time_ms(lambda: fak.attend(q, k, v, **kw)),
+                graph_ms(lambda: fak.attend(q, k, v, **kw)),
+                time_ms(lambda: fak.attend_plain(q, k, v, **kw), iters=3),
+                time_ms(library), max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes")
+            del q, k, v, qh, kh, vh
+
+            zx = randn((b, s, width), dtype)
+            x = zx[:, :, di:di + cd]
+            w, bias = randn((kt, cd), dtype), randn((cd,), dtype)
+            xt = x.transpose(1, 2).contiguous()           # [B, D, L]
+            wt = w.t().reshape(cd, 1, kt).contiguous()
+            nbytes = (2 * x.numel() + w.numel() + bias.numel()) * \
+                x.element_size()
+            rows[("conv1d_depthwise", dtype)] = (
+                time_ms(lambda: c1k.conv1d_depthwise(x, w, bias)),
+                graph_ms(lambda: c1k.conv1d_depthwise(x, w, bias)),
+                time_ms(lambda: direct_conv1d_depthwise(x, w, bias)),
+                time_ms(lambda: F.conv1d(xt, wt, bias, padding=kt - 1,
+                                         groups=cd)),
+                nbytes / HBM_BYTES_PER_S * 1e3, "bytes")
+            del zx, x, xt
+    where = {"flash_attention": f"danube B{LM_BATCH} S{LM_SEQ} H{hq} "
+             f"KV{hkv} Dh{dh} causal",
+             "conv1d_depthwise": f"mamba2 B{LM_BATCH} L{LM_SEQ} D{cd} "
+             f"K{kt} (in_proj slice)"}
+    for (name, dtype), v in rows.items():
+        print(f"[lm-time] {name} {str(dtype)[6:]} at {where[name]}"
+              f": ms {v[0]:.4f} device_ms {v[1]:.4f} plain_ms {v[2]:.4f} "
+              f"library_ms {v[3]:.4f} bound_ms {v[4]:.4f} ({v[5]}) "
+              f"share of bound {v[4] / v[1]:.3f}")
+    stamp(21)
+
+    source = {"flash_attention": (FLASH_SOURCE, TPU_FLASH),
+              "conv1d_depthwise": (CONV1D_SOURCE, TPU_CONV1D)}
+    entries = []
+    for name, (src, tpu) in source.items():
+        v = rows[(name, torch.bfloat16)]     # the published configs' dtype
+        entries.append({
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "launches": launches[name], "max_abs_err": err[name],
+            "ms": v[0], "plain_ms": v[2], "bound_ms": v[4], "bound_by": v[5],
+            "library_ms": v[3]})
+    print(f"[lm] launches of the main-path runs (f32 and bf16 prefills, the "
+          f"served requests' prefills): {launches}")
+    return entries, launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1693,6 +2213,7 @@ def main(argv=None) -> int:
 
     mb_entries, mb_counts = mobilenet_phases(args, dev, t_start)
     st_entries, st_counts = stream_phases(args, dev, t_start)
+    lm_entries, lm_counts = lm_phases(args, dev, t_start)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -1726,6 +2247,7 @@ def main(argv=None) -> int:
             "library_ms": l_ms})
     kernels.extend(mb_entries)
     kernels.extend(st_entries)
+    kernels.extend(lm_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,9 @@ reference (``core.layout``, ``kernels.direct_conv2d``, ``nn.conv``, ...)
 but every module is the port's own copy.
 
 Entry points (``nn.conv.BlockedCNN``, ``configs.cnn.vgg16_blocked``,
-``launch.conv_serve.ConvServer``, ``convert.params_from_jax``) default to
-``device="cuda"`` and raise when no GPU is visible; the CPU runs only when
+``launch.conv_serve.ConvServer``, ``nn.models.build_model`` for the
+language models, ``serve.scheduler.ContinuousBatcher`` over one,
+``convert.params_from_jax``) default to ``device="cuda"`` and raise when no GPU is visible; the CPU runs only when
 the caller passes ``device="cpu"``, where each kernel wrapper computes its
 plain PyTorch version instead of launching.
 """

@@ -42,7 +42,8 @@ from repro_torch.core.precision import resolve_precision
 __all__ = ["apply_activation", "pad_blocked", "bias_to_blocked",
            "direct_conv_blocked", "direct_conv_preactivation",
            "direct_conv_dgrad_blocked", "direct_conv_wgrad_blocked",
-           "conv_spec", "backward_spec"]
+           "conv_spec", "backward_spec",
+           "direct_conv1d_depthwise"]
 
 
 def pad_blocked(x: torch.Tensor, ph, pw) -> torch.Tensor:
@@ -281,3 +282,27 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
             dw[:, :, dh, dwi] = torch.einsum("nchwb,nohwk->ocbk", win, dz)
     db = dz.sum(dim=(0, 2, 3)) if with_db else None
     return dw, db
+
+
+def direct_conv1d_depthwise(x: torch.Tensor, w: torch.Tensor,
+                            bias: Optional[torch.Tensor] = None,
+                            causal: bool = True) -> torch.Tensor:
+    """Causal depthwise conv1d (the Mamba short conv), direct form: the
+    plain version of ``csrc/conv1d_depthwise.cu`` and the port of the
+    reference's ``direct_conv1d_depthwise`` (``repro/core/direct_conv.py``).
+
+    x: [B, L, D], w: [K, D].  out[b, l, d] = sum_k w[k, d] * x[b, l - K + 1
+    + k, d] (+ bias[d]).  Taps are added in ascending k, then the bias, in
+    f32; the result is cast to x's dtype once."""
+    b, l, d = x.shape
+    k = w.shape[0]
+    if causal:
+        xp = F.pad(x, (0, 0, k - 1, 0))
+    else:
+        xp = F.pad(x, (0, 0, (k - 1) // 2, k - 1 - (k - 1) // 2))
+    acc = torch.zeros((b, l, d), dtype=torch.float32, device=x.device)
+    for i in range(k):
+        acc = acc + xp[:, i:i + l, :].float() * w[i].float()
+    if bias is not None:
+        acc = acc + bias.float()
+    return acc.to(x.dtype)

@@ -18,7 +18,7 @@ import torch
 __all__ = [
     "BlockedConvLayout", "nhwc_to_blocked", "blocked_to_nhwc",
     "hwio_to_blocked", "blocked_to_hwio", "largest_divisor_leq", "divisors",
-    "choose_pencil",
+    "choose_pencil", "bld_to_blocked", "blocked_to_bld", "kd_to_blocked",
 ]
 
 
@@ -137,3 +137,29 @@ def blocked_to_hwio(w: torch.Tensor) -> torch.Tensor:
     coblk, ciblk, hf, wf, cib, cob = w.shape
     w = w.permute(2, 3, 1, 4, 0, 5)
     return w.reshape(hf, wf, ciblk * cib, coblk * cob)
+
+
+# ---------------------------------------------------------------------------
+# 1-D sequences (the Mamba conv):  [B, L, D]  <->  [B, D/Db, L, Db]
+# ---------------------------------------------------------------------------
+
+def bld_to_blocked(x: torch.Tensor, db: int) -> torch.Tensor:
+    """``[B, L, D] -> [B, D/Db, L, Db]``, a view (no copy)."""
+    b, l, d = x.shape
+    if d % db:
+        raise ValueError(f"D={d} not divisible by block {db}")
+    return x.reshape(b, l, d // db, db).permute(0, 2, 1, 3)
+
+
+def blocked_to_bld(x: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`bld_to_blocked`."""
+    b, dblk, l, db = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, l, dblk * db)
+
+
+def kd_to_blocked(w: torch.Tensor, db: int) -> torch.Tensor:
+    """Depthwise taps ``[K, D] -> [K, D/Db, Db]``."""
+    k, d = w.shape
+    if d % db:
+        raise ValueError(f"D={d} not divisible by block {db}")
+    return w.reshape(k, d // db, db)

@@ -199,6 +199,19 @@ def _cuda_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
+def _no_autograd(kernel: str, *ts: Optional[torch.Tensor]) -> None:
+    """Raise when grad mode is on and an operand requires grad: ``kernel``
+    has no backward yet (the language models' kernels, whose gradients
+    come with LM training), and must not return a tensor that silently
+    has none."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in ts):
+        raise NotImplementedError(
+            f"{kernel} has no backward kernel yet: training the language "
+            "models is the LM-training slice (ROADMAP queue A item 13); call "
+            "it under torch.no_grad()")
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------

@@ -1,0 +1,279 @@
+"""Wrappers of the flash-attention kernel, and its plain version.
+
+``csrc/flash_attention.cu`` replaces the reference's Pallas kernel
+``flash_attention_pallas`` (``repro/kernels/flash_attention.py``) and
+computes the reference's chunked online-softmax ``attend``
+(``repro/nn/attention.py:49``), mask and arithmetic: GQA without repeated
+K/V, f32 ``m``/``l``/``acc``, the optional tanh softcap, the causal and
+window masks on explicit positions, and ``kv_valid``.  Two entry points:
+
+* :func:`flash_attention` on ``[B, H, Sq, Dh]`` / ``[B, KV, Skv, Dh]``, the
+  counterpart of ``flash_attention_pallas`` (whose causal iota mask is
+  ``attend``'s with ``positions = arange``);
+* :func:`attend` on the grouped ``[B, Sq, KV, G, Dh]`` / ``[B, Skv, KV,
+  Dh]``, the counterpart of ``attend``.
+
+Both launch one kernel on the tensors' strided views, with no transpose or
+repeat copy (the kernel takes q/out strides for (batch, seq, kv head,
+group) and k/v strides for (batch, seq, kv head)).  On a CPU tensor they
+compute the plain version, :func:`attend_plain`, the port of the
+reference's chunked scan (``chunk``, the ``-10**9`` padding position,
+``compact_probs``); a CUDA tensor launches the kernel or raises.  The
+kernel takes f32 or bf16, any head dim ``Dh <= 256`` that is a multiple of
+8, 16-byte-aligned (f32) or 8-byte-aligned (bf16) operands whose strides
+are multiples of 4 elements, and keeps its scores in f32 registers, so
+``compact_probs=True`` (bf16 score storage, a plain-path option) raises on
+CUDA.  There is no backward: under autograd with an operand that requires
+grad both entry points raise ``NotImplementedError``.
+
+``LAUNCHES["flash_attention"]`` counts launches; ``reset_launches`` sets it
+to 0.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.direct_conv2d import (_check, _cuda_device, _library,
+                                               _no_autograd)
+
+__all__ = ["LAUNCHES", "reset_launches", "NEG_INF", "attend",
+           "attend_plain", "flash_attention", "flash_attention_plain",
+           "MAX_HEAD_DIM"]
+
+NEG_INF = -1e30
+LAUNCHES = {"flash_attention": 0}
+THREADS, BLOCK_Q, BLOCK_K = 256, 64, 64
+MAX_HEAD_DIM = 256
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _declare(lib, ptr, i32) -> None:
+    lib.flash_attention_fwd.argtypes = ([ptr] * 9 + [ctypes.c_float] * 2
+                                        + [ptr])
+    lib.flash_attention_fwd.restype = i32
+
+
+def _lib() -> ctypes.CDLL:
+    return _library("flash_attention", _declare,
+                    (THREADS, BLOCK_Q, BLOCK_K))
+
+
+# ---------------------------------------------------------------------------
+# the plain version: the reference's chunked online softmax
+# ---------------------------------------------------------------------------
+
+def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                 q_positions: torch.Tensor, kv_positions: torch.Tensor,
+                 causal: bool = True, window: Optional[int] = None,
+                 cap: Optional[float] = None, scale: float,
+                 kv_valid: Optional[torch.Tensor] = None,
+                 chunk: int = 2048,
+                 compact_probs: bool = False) -> torch.Tensor:
+    """q: [B,Sq,KV,G,Dh] grouped; k/v: [B,Skv,KV,Dh] -> [B,Sq,KV,G,Dh].
+
+    Scans KV in chunks with an online softmax: peak memory O(Sq * chunk)
+    instead of O(Sq * Skv).  ``compact_probs`` keeps the [.., C]-sized
+    scores and probabilities in bf16 storage, m, l and acc in f32."""
+    b, sq, nkv, g, dh = q.shape
+    skv = k.shape[1]
+    chunk = min(chunk, skv)
+    n_chunks = -(-skv // chunk)
+    pad = n_chunks * chunk - skv
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
+                                               value=-(10 ** 9))
+    kc = k.reshape(b, n_chunks, chunk, nkv, dh)
+    vc = v.reshape(b, n_chunks, chunk, nkv, dh)
+    pc = kv_positions.reshape(b, n_chunks, chunk)
+    sdt = torch.bfloat16 if compact_probs else torch.float32
+    qf = q if compact_probs else q.float()
+
+    m = torch.full((b, sq, nkv, g), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, sq, nkv, g), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, sq, nkv, g, dh), dtype=torch.float32,
+                      device=q.device)
+    for i in range(n_chunks):
+        kb, vb, pb = kc[:, i], vc[:, i], pc[:, i]
+        kb = kb if compact_probs else kb.float()
+        vb = vb if compact_probs else vb.float()
+        # the scale in the scores' dtype, made on the device (no host sync)
+        s = torch.einsum("bskgd,bckd->bskgc", qf.to(sdt), kb.to(sdt)) \
+            * torch.full((), scale, dtype=sdt, device=q.device)
+        if cap is not None:
+            s = cap * torch.tanh(s / cap)
+        valid = pb[:, None, :] >= 0                                # [B,Sq,C]
+        if kv_valid is not None:
+            valid = valid & (pb[:, None, :] < kv_valid[:, None, None])
+        if causal:
+            valid = valid & (pb[:, None, :] <= q_positions[:, :, None])
+        if window is not None:
+            valid = valid & (pb[:, None, :] > q_positions[:, :, None] - window)
+        s = s.masked_fill(~valid[:, :, None, None, :], NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1).float())
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None].to(sdt))
+        l = l * alpha + p.sum(dim=-1, dtype=torch.float32)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bskgc,bckd->bskgd", p, vb.to(sdt)).float()
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-37)
+    return out.to(q.dtype)
+
+
+def _arange_positions(b: int, s: int, device) -> torch.Tensor:
+    return torch.arange(s, dtype=torch.int32,
+                        device=device)[None].expand(b, s).contiguous()
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, scale: float, causal: bool = True,
+                          cap: Optional[float] = None) -> torch.Tensor:
+    """The TPU kernel's function through :func:`attend_plain`: q [B, H, Sq,
+    Dh], k/v [B, KV, Skv, Dh] -> like q, positions ``arange``."""
+    b, h, sq, dh = q.shape
+    nkv, skv = k.shape[1], k.shape[2]
+    qg = q.permute(0, 2, 1, 3).reshape(b, sq, nkv, h // nkv, dh)
+    out = attend_plain(qg, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
+                       q_positions=_arange_positions(b, sq, q.device),
+                       kv_positions=_arange_positions(b, skv, q.device),
+                       causal=causal, cap=cap, scale=scale)
+    return out.reshape(b, sq, h, dh).permute(0, 2, 1, 3)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def _launch(q, k, v, out, q_strides, k_strides, v_strides, o_strides, *,
+            kv_heads: int, groups: int, sq: int, skv: int,
+            q_positions, kv_positions, kv_valid, causal: bool,
+            window: Optional[int], cap: Optional[float],
+            scale: float) -> None:
+    """One launch; ``*_strides`` in elements: q/out (batch, seq, kv head,
+    group), k/v (batch, seq, kv head)."""
+    dev = _cuda_device(q)
+    dh = q.shape[-1]
+    if q.dtype not in _DTYPES:
+        raise NotImplementedError(f"q is {q.dtype}: the kernel takes f32 or "
+                                  "bf16")
+    for t, name in ((k, "k"), (v, "v")):
+        if t.device != dev or t.dtype != q.dtype:
+            raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
+                             f"{q.dtype} on {dev}")
+        if t.shape[-1] != dh:
+            raise ValueError(f"{name}'s head dim {t.shape[-1]} != q's {dh}")
+    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head dim {dh}: the kernel takes multiples of 8 up to "
+            f"{MAX_HEAD_DIM}")
+    align = 16 if q.dtype == torch.float32 else 8
+    for t, st, name in ((q, q_strides, "q"), (k, k_strides, "k"),
+                        (v, v_strides, "v"), (out, o_strides, "out")):
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+        if t.data_ptr() % align or any(s % 4 for s in st):
+            raise ValueError(
+                f"{name} is misaligned for the kernel's vector loads (base "
+                f"on {align} bytes, strides in multiples of 4 elements)")
+    b = q.shape[0]
+    qp = q_positions.to(device=dev, dtype=torch.int32).contiguous()
+    kp = kv_positions.to(device=dev, dtype=torch.int32).contiguous()
+    if tuple(qp.shape) != (b, sq) or tuple(kp.shape) != (b, skv):
+        raise ValueError(f"positions {tuple(qp.shape)}/{tuple(kp.shape)} != "
+                         f"{(b, sq)}/{(b, skv)}")
+    kvv = None
+    if kv_valid is not None:
+        kvv = kv_valid.to(device=dev, dtype=torch.int32).contiguous()
+        if tuple(kvv.shape) != (b,):
+            raise ValueError(f"kv_valid shape {tuple(kvv.shape)} != ({b},)")
+    lib = _lib()
+    strides = (ctypes.c_longlong * 14)(*q_strides, *k_strides, *v_strides,
+                                       *o_strides)
+    ints = (ctypes.c_int * 11)(
+        b, kv_heads, groups, sq, skv, dh, int(causal), int(window is not None),
+        0 if window is None else int(window), int(cap is not None),
+        int(q.dtype == torch.bfloat16))
+    err = lib.flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        qp.data_ptr(), kp.data_ptr(), None if kvv is None else kvv.data_ptr(),
+        strides, ints, float(scale), 0.0 if cap is None else float(cap),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _check(err, lib, "flash_attention")
+    LAUNCHES["flash_attention"] += 1
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           q_positions: torch.Tensor, kv_positions: torch.Tensor,
+           causal: bool = True, window: Optional[int] = None,
+           cap: Optional[float] = None, scale: float,
+           kv_valid: Optional[torch.Tensor] = None, chunk: int = 2048,
+           compact_probs: bool = False) -> torch.Tensor:
+    """q: [B,Sq,KV,G,Dh] grouped; k/v: [B,Skv,KV,Dh] -> [B,Sq,KV,G,Dh] in
+    q's dtype.  ``q_positions`` [B, Sq], ``kv_positions`` [B, Skv] (int),
+    ``kv_valid`` [B] or None.  ``chunk`` is the plain version's KV chunk;
+    the kernel stages 64-key blocks whatever it is."""
+    if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape or \
+            k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
+        raise ValueError(f"expected q [B,Sq,KV,G,Dh] and k/v [B,Skv,KV,Dh], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _no_autograd("flash attention", q, k, v)
+    if q.device.type == "cpu":
+        return attend_plain(q, k, v, q_positions=q_positions,
+                            kv_positions=kv_positions, causal=causal,
+                            window=window, cap=cap, scale=scale,
+                            kv_valid=kv_valid, chunk=chunk,
+                            compact_probs=compact_probs)
+    if compact_probs:
+        raise NotImplementedError("the kernel keeps scores in f32 registers; "
+                                  "compact_probs is a plain-path option")
+    b, sq, nkv, g, _ = q.shape
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(q, k, v, out, q.stride()[:4], k.stride()[:3], v.stride()[:3],
+            out.stride()[:4], kv_heads=nkv, groups=g, sq=sq,
+            skv=k.shape[1], q_positions=q_positions,
+            kv_positions=kv_positions, kv_valid=kv_valid, causal=causal,
+            window=window, cap=cap, scale=scale)
+    return out
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    scale: float, causal: bool = True,
+                    cap: Optional[float] = None) -> torch.Tensor:
+    """q: [B, H, Sq, Dh]; k/v: [B, KV, Skv, Dh] (KV divides H) -> like q.
+    Causality by position, ``arange`` on both sides (the TPU kernel's
+    mask).  Sq and Skv need not be multiples of any block."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape or \
+            k.shape[0] != q.shape[0] or q.shape[1] % k.shape[1]:
+        raise ValueError(f"expected q [B,H,Sq,Dh] and k/v [B,KV,Skv,Dh] with "
+                         f"KV | H, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    _no_autograd("flash attention", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, causal=causal,
+                                     cap=cap)
+    b, h, sq, _ = q.shape
+    nkv, skv = k.shape[1], k.shape[2]
+    g = h // nkv
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    sb, sh, ss, _ = q.stride()
+    ob, oh, os_, _ = out.stride()
+    _launch(q, k, v, out, (sb, ss, g * sh, sh),
+            (k.stride(0), k.stride(2), k.stride(1)),
+            (v.stride(0), v.stride(2), v.stride(1)), (ob, os_, g * oh, oh),
+            kv_heads=nkv, groups=g, sq=sq, skv=skv,
+            q_positions=_arange_positions(b, sq, q.device),
+            kv_positions=_arange_positions(b, skv, q.device),
+            kv_valid=None, causal=causal, window=None, cap=cap, scale=scale)
+    return out

@@ -2,8 +2,10 @@
 
 A layer describes its parameters as ``{name: ParamSpec}``; ``init_tree``
 draws them in the dict's order from one explicit generator.  Draws happen on
-the CPU and the result moves to ``device``, so a seed gives the same numbers
-on every device.  The reference initializes from ``jax.random`` keys, which
+the CPU in f32 and the result moves to ``device`` in the spec's ``dtype``, so
+a seed gives the same numbers on every device (and a bf16 parameter is the
+f32 draw rounded once, as the reference casts it).  ``ParamSpec`` carries no
+sharding ``axes``: there is no mesh in the port yet.  The reference initializes from ``jax.random`` keys, which
 give other numbers; tests that compare the two packages feed both the same
 numpy parameters instead (``repro_torch.convert.params_from_jax``).
 """
@@ -15,7 +17,7 @@ from typing import Any, Dict, Tuple, Union
 
 import torch
 
-__all__ = ["ParamSpec", "init_tree"]
+__all__ = ["ParamSpec", "init_tree", "register_tree"]
 
 SpecTree = Union["ParamSpec", Dict[str, Any]]
 
@@ -23,13 +25,16 @@ SpecTree = Union["ParamSpec", Dict[str, Any]]
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "fan_in"            # fan_in | normal | zeros
+    init: str = "fan_in"            # fan_in | normal | zeros | ones
     scale: float = 1.0              # multiplier (normal: stddev)
+    dtype: torch.dtype = torch.float32
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     if spec.init == "zeros":
         return torch.zeros(spec.shape)
+    if spec.init == "ones":
+        return torch.ones(spec.shape)
     if spec.init == "normal":
         return spec.scale * torch.randn(spec.shape, generator=gen)
     if spec.init == "fan_in":
@@ -42,7 +47,26 @@ def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
 def init_tree(specs: SpecTree, gen: torch.Generator,
               device: Union[str, torch.device] = "cpu") -> Any:
     """Draw every spec of a (nested) dict from ``gen`` (a CPU generator), in
-    the dict's order, as f32 tensors on ``device``."""
+    the dict's order, as tensors of each spec's dtype on ``device``."""
     if isinstance(specs, ParamSpec):
-        return _init_one(specs, gen).to(device=device, dtype=torch.float32)
+        return _init_one(specs, gen).to(device=device, dtype=specs.dtype)
     return {k: init_tree(v, gen, device) for k, v in specs.items()}
+
+
+def register_tree(module: torch.nn.Module, specs: Dict[str, Any],
+                  gen: torch.Generator,
+                  device: Union[str, torch.device] = "cpu") -> None:
+    """Draw ``specs`` (see :func:`init_tree`) and register them on
+    ``module``: a leaf as a parameter named by its key, a nested dict as a
+    child module of the same name, so that ``state_dict`` keys follow the
+    reference's parameter paths (``q.w``, ``norm.w``, ...).  The parameters
+    do not require grad: the language models are served, not trained, until
+    their training slice."""
+    for name, spec in specs.items():
+        if isinstance(spec, ParamSpec):
+            module.register_parameter(name, torch.nn.Parameter(
+                init_tree(spec, gen, device), requires_grad=False))
+        else:
+            child = torch.nn.Module()
+            register_tree(child, spec, gen, device)
+            module.add_module(name, child)

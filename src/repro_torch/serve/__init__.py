@@ -1,1 +1,2 @@
-"""Request scheduling for the conv serving tier."""
+"""Serving: continuous batching and decoding of token requests, and slot
+scheduling for the conv serving tier."""

@@ -1,6 +1,20 @@
-"""Bucketed slot scheduling for image requests (host-side, numpy).
+"""Slot scheduling: continuous batching of token requests, and bucketed
+slots for image requests.
 
-A port of the conv half of ``repro/serve/scheduler.py``: :class:`ConvRequest`
+:class:`ContinuousBatcher` is the port of the reference's LM batcher: a
+fixed decode batch of B slots; a finished request (EOS, ``max_new_tokens``
+or the cache's end) frees its slot and the next queued request prefills into
+it token by token through the decode path.  Slots at different positions
+share the batched decode step by being stepped in groups of equal position,
+as the reference groups them.  Unlike the reference, a group's step commits
+the new cache rows of its own slots only: the reference writes every slot's
+cache on every group's step, which overwrites an earlier position of a slot
+that is ahead of the group and advances the SSM state of every other slot
+once more per group, so out-of-step slots decode from a corrupted cache
+there (ROADMAP §C).  Slots in step (the common case) get the reference's
+results.
+
+The conv half: :class:`ConvRequest`
 carries an arbitrary-size image, :class:`SpatialBucketer` maps it onto one of
 a small set of ``(H, W)`` buckets (pad on entry, slice on exit), and
 :class:`SlotPool` does the per-bucket slot admission and occupancy
@@ -14,11 +28,13 @@ from __future__ import annotations
 import dataclasses
 import enum
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["Outcome", "ConvRequest", "SpatialBucketer", "SlotPool"]
+__all__ = ["Request", "ContinuousBatcher", "Outcome", "ConvRequest",
+           "SpatialBucketer", "SlotPool"]
 
 
 class Outcome(enum.Enum):
@@ -168,3 +184,123 @@ class SlotPool:
         if not samples:
             return 0.0
         return float(np.mean(samples))
+
+
+# ---------------------------------------------------------------------------
+# Continuous batching of token requests
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray                   # [S] int32
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ContinuousBatcher:
+    """Continuous batching over ``model.decode_step`` (an ``nn.models.LM``)
+    with ``batch`` slots and a ``cache_len``-deep cache; ``sampler(logits)
+    -> [B]`` tokens (greedy by default)."""
+
+    def __init__(self, model, batch: int, cache_len: int,
+                 sampler: Optional[Callable] = None):
+        from repro_torch.serve.decode import greedy, make_serve_step
+        self.model = model
+        self.batch, self.cache_len = batch, cache_len
+        self.serve_step = make_serve_step(model)
+        self.sampler = sampler or greedy
+        self.device = model.device
+        self.cache = model.init_cache(batch, cache_len)
+        self.slots: List[Optional[Request]] = [None] * batch
+        # per slot: position and last token; idle slots run a dummy token
+        self.pos = np.zeros(batch, np.int64)
+        self.last = np.zeros(batch, np.int32)
+        self.remaining_prompt: List[deque] = [deque() for _ in range(batch)]
+        self.queue: deque = deque()
+        self.completed: List[Request] = []
+        self.decode_steps = 0            # batched decode steps run
+
+    # -- queue management ------------------------------------------------
+    def submit(self, req: Request) -> None:
+        self.queue.append(req)
+
+    def _fill_slots(self) -> None:
+        for b in range(self.batch):
+            if self.slots[b] is None and self.queue:
+                req = self.queue.popleft()
+                self.slots[b] = req
+                self.remaining_prompt[b] = deque(req.prompt.tolist())
+                # the slot's cache still holds its previous occupant: zero it
+                self.cache = _zero_slot(self.cache, b)
+                self.pos[b] = 0
+                self.last[b] = self.remaining_prompt[b].popleft()
+
+    # -- one engine step ---------------------------------------------------
+    def step(self) -> bool:
+        """One round: each group of slots at one position runs one batched
+        decode step; prefilling slots consume prompt tokens, decoding slots
+        sample.  -> False when there was nothing to run."""
+        self._fill_slots()
+        if all(s is None for s in self.slots):
+            return False
+        groups: Dict[int, List[int]] = {}
+        for b, req in enumerate(self.slots):
+            if req is not None:
+                groups.setdefault(int(self.pos[b]), []).append(b)
+        for pos, bs in sorted(groups.items()):
+            toks = torch.from_numpy(self.last[:, None].copy()).to(self.device)
+            logits, new_cache = self.serve_step(self.cache, toks, pos)
+            self.decode_steps += 1
+            keep = torch.zeros(self.batch, dtype=torch.bool)
+            keep[bs] = True
+            keep = keep.to(self.device)
+            self.cache = _commit_rows(new_cache, self.cache, keep)
+            nxt = self.sampler(logits).cpu().numpy()
+            for b in bs:
+                req = self.slots[b]
+                self.pos[b] += 1
+                if self.remaining_prompt[b]:
+                    self.last[b] = self.remaining_prompt[b].popleft()
+                else:
+                    tok = int(nxt[b])
+                    req.out_tokens.append(tok)
+                    self.last[b] = tok
+                    if ((req.eos_id is not None and tok == req.eos_id)
+                            or len(req.out_tokens) >= req.max_new_tokens
+                            or self.pos[b] >= self.cache_len - 1):
+                        req.done = True
+                        self.completed.append(req)
+                        self.slots[b] = None
+        return True
+
+    def run(self, max_steps: int = 10 ** 6) -> List[Request]:
+        steps = 0
+        while (self.queue or any(self.slots)) and steps < max_steps:
+            self.step()
+            steps += 1
+        return self.completed
+
+
+def _map_cache(fn, *caches):
+    """Apply ``fn`` leaf by leaf to per-layer caches of the same structure
+    (lists of ``KVCache``/``MambaCache`` named tuples)."""
+    return [type(entries[0])(*(fn(*leaves) for leaves in zip(*entries)))
+            for entries in zip(*caches)]
+
+
+def _zero_slot(cache, b: int):
+    """Zero slot ``b``'s rows of every cache leaf ([B, ...]), in place."""
+    def zero(leaf):
+        leaf[b].zero_()
+        return leaf
+    return _map_cache(zero, cache)
+
+
+def _commit_rows(new, old, keep: torch.Tensor):
+    """Each leaf of ``new`` where ``keep[b]`` is set, else ``old``'s."""
+    def pick(n, o):
+        return torch.where(keep.view(-1, *([1] * (n.dim() - 1))), n, o)
+    return _map_cache(pick, new, old)

@@ -1,5 +1,8 @@
 """The train step of a ``BlockedCNN``, the port of the ``BlockedCNN`` branch
-of ``repro/train/trainstep.py`` (``make_loss_fn``, ``make_train_step``).
+of ``repro/train/trainstep.py`` (``make_loss_fn``, ``make_train_step``), and
+the language models' full-sequence forward (``forward``,
+``make_prefill_step``, inference only: training a language model is a later
+slice, ROADMAP queue A item 13).
 
 The loss is the f32 cross-entropy of the class logits.  Gradients come from
 autograd, which runs every conv's backward through the dgrad and wgrad
@@ -18,14 +21,43 @@ from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core.context import ConvContext, as_context
 from repro_torch.nn.conv import BlockedCNN
+from repro_torch.nn.models import LM
 from repro_torch.train.losses import cross_entropy
 from repro_torch.train.optimizer import AdamW, OptState
 
-__all__ = ["make_loss_fn", "make_train_step"]
+__all__ = ["forward", "make_loss_fn", "make_train_step",
+           "make_prefill_step"]
 
 Batch = Mapping[str, torch.Tensor]
+
+
+def forward(model: LM, batch: Batch, *, train: bool = False,
+            chunk: int = 2048):
+    """A language model's forward over ``batch["tokens"]`` -> (logits,
+    aux), inference only: ``train=True`` raises until the LM-training
+    slice."""
+    if train:
+        raise NotImplementedError(
+            "training a language model is not ported yet (ROADMAP queue A "
+            "item 13); forward runs with train=False")
+    return model(batch["tokens"], chunk=chunk)
+
+
+def make_prefill_step(model: LM, cfg: ModelConfig, chunk: int = 2048
+                      ) -> Callable[[Batch], torch.Tensor]:
+    """Full-sequence forward (inference prefill): ``prefill_step(batch) ->
+    logits`` for every position, without autograd."""
+    if model.cfg != cfg:
+        raise ValueError(f"model is {model.cfg.name}, cfg is {cfg.name}")
+
+    def prefill_step(batch: Batch) -> torch.Tensor:
+        with torch.no_grad():
+            logits, _ = forward(model, batch, train=False, chunk=chunk)
+        return logits
+    return prefill_step
 
 
 def make_loss_fn(model: BlockedCNN, context: Optional[ConvContext] = None

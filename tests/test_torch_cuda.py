@@ -391,3 +391,165 @@ def test_stream_context_trains_a_two_layer_model_on_the_stream_kernels(
                                 "direct_conv2d_wgrad": 0, "wgrad_reduce": 2}
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the language models' kernels: flash attention and the causal conv1d
+# ---------------------------------------------------------------------------
+
+def _bf16_ulp(x):
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.abs().clamp_min(2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def _agree(got, want):
+    """Within 1e-5 of max|want| + 1e-6: both compute the same f32 sums in
+    another order.  bf16: the plain version computes in f32 from the same
+    bf16 inputs and rounds once, so the two may also round to neighbouring
+    bf16 values: one bf16 ulp more."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    g, w = got.double(), want.double()
+    assert torch.isfinite(g).all()
+    err = (g - w).abs()
+    bound = 1e-5 * w.abs().max() + 1e-6
+    if want.dtype == torch.bfloat16:
+        bound = bound + _bf16_ulp(torch.maximum(g.abs(), w.abs()))
+    assert bool((err <= bound).all()), float((err - bound).max())
+
+
+def _attend_operands(dev, b, sq, skv, nkv, g, dh, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((b, sq, nkv, g, dh), device=dev, generator=gen)
+    k = torch.randn((b, skv, nkv, dh), device=dev, generator=gen)
+    v = torch.randn((b, skv, nkv, dh), device=dev, generator=gen)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+# b, sq, skv, kv, g, dh, causal, window, cap, kv_valid, q offset
+ATTEND_GPU_CASES = [
+    (2, 200, 200, 4, 2, 80, True, None, None, None, 0),      # danube's Dh
+    (1, 256, 256, 2, 4, 128, True, 48, None, None, 0),       # window bites
+    (2, 130, 130, 2, 2, 16, True, None, 50.0, None, 0),      # softcap
+    (1, 100, 100, 2, 2, 64, False, None, None, None, 0),     # non-causal
+    (1, 97, 97, 1, 8, 32, True, None, None, None, 0),        # MQA, ragged
+    (2, 70, 150, 2, 2, 256, True, None, None, (150, 91), 80),  # kv_valid
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ATTEND_GPU_CASES)
+def test_flash_attention_kernel_matches_plain_version(cuda, case, dtype):
+    from repro_torch.kernels import flash_attention as fak
+    b, sq, skv, nkv, g, dh, causal, window, cap, kv_valid, off = case
+    q, k, v = _attend_operands(cuda, b, sq, skv, nkv, g, dh, dtype)
+    qp = (torch.arange(sq, device=cuda) + off)[None].expand(b, sq)
+    kp = torch.arange(skv, device=cuda)[None].expand(b, skv)
+    kvv = None if kv_valid is None else torch.tensor(kv_valid, device=cuda)
+    kw = dict(q_positions=qp, kv_positions=kp, causal=causal, window=window,
+              cap=cap, scale=dh ** -0.5, kv_valid=kvv)
+    fak.reset_launches()
+    got = fak.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fak.LAUNCHES["flash_attention"] == 1
+    _agree(got, fak.attend_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_tpu_layout_reads_strided_views(cuda, dtype):
+    """[B, H, S, Dh] views of [B, S, H, Dh] tensors: no copy is made."""
+    from repro_torch.kernels import flash_attention as fak
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    qs = torch.randn((2, 150, 8, 80), device=cuda, generator=gen).to(dtype)
+    ks = torch.randn((2, 150, 2, 80), device=cuda, generator=gen).to(dtype)
+    vs = torch.randn((2, 150, 2, 80), device=cuda, generator=gen).to(dtype)
+    q, k, v = (t.permute(0, 2, 1, 3) for t in (qs, ks, vs))
+    got = fak.flash_attention(q, k, v, scale=0.1, causal=True)
+    _agree(got, fak.flash_attention_plain(q, k, v, scale=0.1, causal=True))
+
+
+def test_flash_attention_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels import flash_attention as fak
+    q, k, v = _attend_operands(cuda, 1, 8, 8, 1, 1, 12, torch.float32)
+    pos = torch.arange(8, device=cuda)[None]
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fak.attend(q, k, v, q_positions=pos, kv_positions=pos, scale=1.0)
+    q, k, v = _attend_operands(cuda, 1, 8, 8, 1, 1, 16, torch.float32)
+    buf = torch.zeros(q.numel() + 1, device=cuda)
+    q_odd = buf[1:].view(q.shape)
+    with pytest.raises(ValueError, match="misaligned"):
+        fak.attend(q_odd, k, v, q_positions=pos, kv_positions=pos, scale=1.0)
+
+
+# b, l, d, k, column offset in a wider row (None: contiguous), dtype
+CONV1D_GPU_CASES = [
+    (2, 300, 3328, 4, 3072, torch.float32),     # mamba2's xBC slice
+    (2, 300, 3328, 4, 3072, torch.bfloat16),
+    (2, 129, 160, 4, None, torch.float32),      # reduced width, ragged L
+    (1, 77, 161, 3, 5, torch.float32),          # odd D and offset: 1 lane
+    (1, 77, 161, 8, 5, torch.bfloat16),
+    (3, 64, 96, 1, None, torch.bfloat16),
+]
+
+
+@pytest.mark.parametrize("b,l,d,k,off,dtype", CONV1D_GPU_CASES)
+def test_conv1d_kernel_matches_plain_version(cuda, b, l, d, k, off, dtype):
+    from repro_torch.core.direct_conv import direct_conv1d_depthwise
+    from repro_torch.kernels import conv1d_depthwise as c1k
+    gen = torch.Generator(device=cuda).manual_seed(l)
+    width = d if off is None else off + d + 40
+    wide = torch.randn((b, l, width), device=cuda, generator=gen).to(dtype)
+    x = wide if off is None else wide[:, :, off:off + d]
+    w = torch.randn((k, d), device=cuda, generator=gen).to(dtype)
+    bias = torch.randn((d,), device=cuda, generator=gen).to(dtype)
+    c1k.reset_launches()
+    got = c1k.conv1d_depthwise(x, w, bias)
+    torch.cuda.synchronize()
+    assert c1k.LAUNCHES["conv1d_depthwise"] == 1
+    _agree(got, direct_conv1d_depthwise(x, w, bias))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_blocked_kernel_matches_plain_version(cuda, dtype):
+    from repro_torch.core.direct_conv import direct_conv1d_depthwise
+    from repro_torch.core.layout import (blocked_to_bld, bld_to_blocked,
+                                         kd_to_blocked)
+    from repro_torch.kernels import conv1d_depthwise as c1k
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((2, 200, 3328), device=cuda, generator=gen).to(dtype)
+    w = torch.randn((4, 3328), device=cuda, generator=gen).to(dtype)
+    xb = bld_to_blocked(x, 128).contiguous()
+    got = c1k.conv1d_depthwise_blocked(xb, kd_to_blocked(w, 128))
+    _agree(blocked_to_bld(got), direct_conv1d_depthwise(x, w, None))
+
+
+@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "mamba2-780m"])
+def test_reduced_lm_prefill_runs_through_the_kernels(cuda, arch):
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.kernels import conv1d_depthwise as c1k
+    from repro_torch.kernels import flash_attention as fak
+    from repro_torch.nn.models import build_model
+    from repro_torch.train.trainstep import make_prefill_step
+    cfg = reduced_config(arch)
+    gpu = build_model(cfg, cuda, torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, "cpu", torch.Generator().manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 40),
+                         generator=torch.Generator().manual_seed(1))
+    fak.reset_launches()
+    c1k.reset_launches()
+    got = make_prefill_step(gpu, cfg)({"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    n_attn = sum(k.mixer == "attn" for k in cfg.layer_kinds()) * (
+        cfg.n_layers // cfg.period)
+    assert fak.LAUNCHES["flash_attention"] == n_attn
+    assert c1k.LAUNCHES["conv1d_depthwise"] == cfg.n_layers - n_attn
+    want = make_prefill_step(cpu, cfg)({"tokens": toks})
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_serve_launcher_runs_on_the_card(cuda):
+    from repro_torch.launch.serve import main
+    assert main(["--arch", "h2o-danube-1.8b", "--reduced", "--requests",
+                 "4", "--max-new", "4"]) == 0
+    assert main(["--arch", "mamba2-780m", "--reduced", "--requests", "3",
+                 "--max-new", "3"]) == 0
