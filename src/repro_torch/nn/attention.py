@@ -8,9 +8,10 @@ rope, and calls ``kernels.flash_attention.attend`` on the grouped layout
 online softmax on the CPU.  ``Attention.decode`` is one token against a
 ring-buffer KV cache (``_decode_update_and_attend``, the reference's
 single-device ``flash_decode``); it stays plain torch, as the reference
-computes it with jnp outside any Pallas kernel.  The decode path is
-functional: it returns a new cache and leaves the old one as it was, so a
-server can keep some slots' caches (``serve.scheduler``).
+computes it with jnp outside any Pallas kernel.  Decode writes the new
+token's K/V row into the ring cache in place and returns that cache: a
+server that steps some slots keeps the others' rows itself
+(``serve.scheduler``).
 
 Not ported yet (ROADMAP queue A item 13): cross-attention (``cross=True``,
 ``from_kv``) with the encoder-decoder, and sharding (padded heads,
@@ -49,11 +50,10 @@ def _decode_update_and_attend(q, k_new, v_new, ck, cv, pos: int, *,
                               window: Optional[int], cap, scale):
     """q: [B,KV,G,Dh]; k_new/v_new: [B,KV,Dh]; ck/cv: [B, W, KV, Dh] ring
     buffers; pos: the index of the token being written.  -> (out
-    [B,KV,G,Dh], new ck, new cv); ck and cv are not modified."""
+    [B,KV,G,Dh], ck, cv), with the new row written into ck and cv in
+    place."""
     w_total = ck.shape[1]
     slot = pos % w_total
-    ck = ck.clone()
-    cv = cv.clone()
     ck[:, slot] = k_new.to(ck.dtype)
     cv[:, slot] = v_new.to(cv.dtype)
 
@@ -77,7 +77,8 @@ def _decode_update_and_attend(q, k_new, v_new, ck, cv, pos: int, *,
 
 def flash_decode(q, k_new, v_new, cache: KVCache, pos: int, *, window, cap,
                  scale) -> Tuple[torch.Tensor, KVCache]:
-    """One decode step against a ring cache on one device."""
+    """One decode step against a ring cache on one device; the cache is
+    updated in place."""
     out, ck, cv = _decode_update_and_attend(
         q, k_new, v_new, cache.k, cache.v, pos, window=window, cap=cap,
         scale=scale)
@@ -114,10 +115,12 @@ class Attention(SpecModule):
     def specs(self):
         d, dh = self.d_model, self.head_dim
         hp, kv = self.padded_heads, self.n_kv_heads
-        s = {"q": {"w": ParamSpec((d, hp, dh))},
-             "k": {"w": ParamSpec((d, kv, dh))},
-             "v": {"w": ParamSpec((d, kv, dh))},
-             "o": {"w": ParamSpec((hp, dh, d))}}
+        # fan-in over the contracted size, so that scores start O(1) (the
+        # reference's rule takes the heads axis: ROADMAP section C)
+        s = {"q": {"w": ParamSpec((d, hp, dh), fan_in=d)},
+             "k": {"w": ParamSpec((d, kv, dh), fan_in=d)},
+             "v": {"w": ParamSpec((d, kv, dh), fan_in=d)},
+             "o": {"w": ParamSpec((hp, dh, d), fan_in=hp * dh)}}
         if self.use_bias:
             s["q"]["b"] = ParamSpec((hp, dh), init="zeros")
             s["k"]["b"] = ParamSpec((kv, dh), init="zeros")

@@ -144,7 +144,9 @@ class LM(torch.nn.Module):
 
     def decode_step(self, cache: List, tokens: torch.Tensor, pos: int):
         """tokens: [B, 1]; pos: the global position -> (f32 logits [B, 1,
-        padded_vocab], new cache).  ``cache`` is not modified."""
+        padded_vocab], new cache).  Attention layers write the token's K/V
+        into their ``cache`` entries in place; Mamba layers return new
+        states."""
         x = self._embed(tokens)
         if self.cfg.learned_pos:
             x = x + self.pos.to(self.dtype)[pos][None, None]

@@ -5,7 +5,10 @@ draws them in the dict's order from one explicit generator.  Draws happen on
 the CPU in f32 and the result moves to ``device`` in the spec's ``dtype``, so
 a seed gives the same numbers on every device (and a bf16 parameter is the
 f32 draw rounded once, as the reference casts it).  ``ParamSpec`` carries no
-sharding ``axes``: there is no mesh in the port yet.  The reference initializes from ``jax.random`` keys, which
+sharding ``axes``: there is no mesh in the port yet.  ``fan_in`` overrides
+the reference's rule (the second-to-last axis) where that axis is not what
+the weight contracts, as in attention's ``[D, H, Dh]`` projections.  The
+reference initializes from ``jax.random`` keys, which
 give other numbers; tests that compare the two packages feed both the same
 numpy parameters instead (``repro_torch.convert.params_from_jax``).
 """
@@ -13,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -28,6 +31,7 @@ class ParamSpec:
     init: str = "fan_in"            # fan_in | normal | zeros | ones
     scale: float = 1.0              # multiplier (normal: stddev)
     dtype: torch.dtype = torch.float32
+    fan_in: Optional[int] = None    # None: the second-to-last axis
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
@@ -38,7 +42,8 @@ def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     if spec.init == "normal":
         return spec.scale * torch.randn(spec.shape, generator=gen)
     if spec.init == "fan_in":
-        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        fan_in = spec.fan_in or (spec.shape[-2] if len(spec.shape) >= 2
+                                 else spec.shape[-1])
         std = spec.scale / math.sqrt(max(fan_in, 1))
         return std * torch.randn(spec.shape, generator=gen)
     raise ValueError(f"unknown init {spec.init!r}")

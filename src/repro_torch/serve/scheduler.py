@@ -6,8 +6,10 @@ fixed decode batch of B slots; a finished request (EOS, ``max_new_tokens``
 or the cache's end) frees its slot and the next queued request prefills into
 it token by token through the decode path.  Slots at different positions
 share the batched decode step by being stepped in groups of equal position,
-as the reference groups them.  Unlike the reference, a group's step commits
-the new cache rows of its own slots only: the reference writes every slot's
+as the reference groups them.  Unlike the reference, a group's step leaves
+the other groups' slots as they were: it copies their cache rows before the
+step and writes them back after it, and copies nothing when every slot is
+in step.  The reference writes every slot's
 cache on every group's step, which overwrites an earlier position of a slot
 that is ahead of the group and advances the SSM state of every other slot
 once more per group, so out-of-step slots decode from a corrupted cache
@@ -251,13 +253,14 @@ class ContinuousBatcher:
             if req is not None:
                 groups.setdefault(int(self.pos[b]), []).append(b)
         for pos, bs in sorted(groups.items()):
+            # the step runs every row; the other groups' slots keep theirs
+            others = [b for p, g in groups.items() if p != pos for b in g]
+            held = _take_rows(self.cache, others) if others else None
             toks = torch.from_numpy(self.last[:, None].copy()).to(self.device)
-            logits, new_cache = self.serve_step(self.cache, toks, pos)
+            logits, self.cache = self.serve_step(self.cache, toks, pos)
             self.decode_steps += 1
-            keep = torch.zeros(self.batch, dtype=torch.bool)
-            keep[bs] = True
-            keep = keep.to(self.device)
-            self.cache = _commit_rows(new_cache, self.cache, keep)
+            if held is not None:
+                _put_rows(self.cache, *held)
             nxt = self.sampler(logits).cpu().numpy()
             for b in bs:
                 req = self.slots[b]
@@ -299,8 +302,17 @@ def _zero_slot(cache, b: int):
     return _map_cache(zero, cache)
 
 
-def _commit_rows(new, old, keep: torch.Tensor):
-    """Each leaf of ``new`` where ``keep[b]`` is set, else ``old``'s."""
-    def pick(n, o):
-        return torch.where(keep.view(-1, *([1] * (n.dim() - 1))), n, o)
-    return _map_cache(pick, new, old)
+def _take_rows(cache, rows: List[int]):
+    """A copy of slots ``rows`` of every cache leaf ([B, ...]).  -> (the
+    row index, the copies)."""
+    idx = torch.tensor(rows, device=cache[0][0].device)
+    return idx, _map_cache(lambda leaf: leaf.index_select(0, idx), cache)
+
+
+def _put_rows(cache, idx: torch.Tensor, rows) -> None:
+    """Write ``rows`` (from :func:`_take_rows`) back into ``cache`` in place,
+    in each leaf's dtype (a step may have promoted a Mamba conv ring)."""
+    def put(leaf, held):
+        leaf.index_copy_(0, idx, held.to(leaf.dtype))
+        return leaf
+    _map_cache(put, cache, rows)

@@ -430,6 +430,35 @@ def test_lm_specs_match_reference(arch):
         assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name
 
 
+def test_attention_init_fans_in_over_the_contracted_size():
+    """Unlike the reference (fan-in over the heads axis of [D, H, Dh]), the
+    port draws q/k/v at std 1/sqrt(d_model) and o at 1/sqrt(H * Dh), so
+    that full-width scores start O(1)."""
+    from repro_torch.nn.attention import Attention
+    from repro_torch.nn.layers import Init
+    attn = Attention(512, 8, 2, 32, Init(torch.Generator().manual_seed(0),
+                                         torch.device("cpu")))
+    for name, fan_in in (("q", 512), ("k", 512), ("v", 512), ("o", 256)):
+        std = getattr(attn, name).w.std().item()
+        assert abs(std * fan_in ** 0.5 - 1.0) < 0.05, (name, std)
+
+
+def test_decode_writes_the_new_kv_row_in_place():
+    from repro_torch.nn.attention import (_decode_update_and_attend,
+                                          init_kv_cache)
+    gen = torch.Generator().manual_seed(3)
+    cache = init_kv_cache(2, 8, 2, 16, dtype=torch.float32)
+    q = torch.randn((2, 2, 3, 16), generator=gen)
+    k_new, v_new = (torch.randn((2, 2, 16), generator=gen) for _ in "kv")
+    _, ck, cv = _decode_update_and_attend(q, k_new, v_new, cache.k, cache.v,
+                                          10, window=None, cap=None,
+                                          scale=0.25)
+    assert ck is cache.k and cv is cache.v
+    assert torch.equal(cache.k[:, 10 % 8], k_new)
+    assert torch.equal(cache.v[:, 10 % 8], v_new)
+    assert not cache.k[:, :2].any() and not cache.k[:, 3:].any()
+
+
 @pytest.mark.parametrize("arch,what", [
     ("mixtral-8x22b", "MoE"), ("qwen3-moe-235b-a22b", "MoE"),
     ("jamba-v0.1-52b", "MoE"), ("llama-3.2-vision-11b", "cross-attention"),
