@@ -87,11 +87,13 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _library(name: str, declare, geometry=None) -> ctypes.CDLL:
+def _library(name: str, declare, geometry=None,
+             more_geometries=()) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
     ``declare(lib, ptr, i32)`` on first use; checks that the register-tile
     geometry it was compiled with, ``<name>_geometry``, is ``geometry``
-    (the blocking model's ``(threads, lanes, positions)`` by default)."""
+    (the blocking model's ``(threads, lanes, positions)`` by default), and
+    each ``(symbol, geometry)`` of ``more_geometries`` likewise."""
     lib = library(name)
     get_geometry = getattr(lib, f"{name}_geometry")
     if get_geometry.argtypes is None:
@@ -99,17 +101,18 @@ def _library(name: str, declare, geometry=None) -> ctypes.CDLL:
         declare(lib, ctypes.c_void_p, i32)
         lib.cuda_error_name.argtypes = [i32]
         lib.cuda_error_name.restype = ctypes.c_char_p
-        get_geometry.argtypes = [ctypes.POINTER(i32)] * 3
-        get_geometry.restype = None
-        geo = [i32(), i32(), i32()]
-        get_geometry(*(ctypes.byref(g) for g in geo))
         m = H100_SXM
-        want = geometry or (m.threads, m.lanes, m.positions)
-        built = tuple(g.value for g in geo)
-        if built != want:
-            raise RuntimeError(
-                f"{name}: kernel register tile (threads, lanes, positions)="
-                f"{built} differs from the blocking model's {want}")
+        for symbol, want in ((f"{name}_geometry", geometry or (
+                m.threads, m.lanes, m.positions)), *more_geometries):
+            get = getattr(lib, symbol)
+            get.argtypes = [ctypes.POINTER(i32)] * 3
+            get.restype = None
+            geo = [i32(), i32(), i32()]
+            get(*(ctypes.byref(g) for g in geo))
+            built = tuple(g.value for g in geo)
+            if built != tuple(want):
+                raise RuntimeError(f"{name}: {symbol} reports {built}; "
+                                   f"the wrapper expects {tuple(want)}")
     return lib
 
 

@@ -18,13 +18,22 @@ repeat copy (the kernel takes q/out strides for (batch, seq, kv head,
 group) and k/v strides for (batch, seq, kv head)).  On a CPU tensor they
 compute the plain version, :func:`attend_plain`, the port of the
 reference's chunked scan (``chunk``, the ``-10**9`` padding position,
-``compact_probs``); a CUDA tensor launches the kernel or raises.  The
-kernel takes f32 or bf16, any head dim ``Dh <= 256`` that is a multiple of
-8, 16-byte-aligned (f32) or 8-byte-aligned (bf16) operands whose strides
-are multiples of 4 elements, and keeps its scores in f32 registers, so
+``compact_probs``); a CUDA tensor launches the kernel or raises.  Two
+kernels: f32 runs on CUDA cores (``flash_fwd_kernel``), bf16 on the tensor
+cores (``flash_fwd_wgmma``: wgmma, TMA-fed K/V tiles shared by the G query
+heads of a KV head).  Both take any head dim ``Dh <= 256`` that is a
+multiple of 8 and keep their scores in f32 registers, so
 ``compact_probs=True`` (bf16 score storage, a plain-path option) raises on
-CUDA.  There is no backward: under autograd with an operand that requires
-grad both entry points raise ``NotImplementedError``.
+CUDA.  :func:`check_operands` states what else each takes: f32 needs
+16-byte bases and strides in multiples of 4 elements (float4 loads); bf16
+needs 16-byte bases, strides in positive multiples of 8 elements (TMA's
+16 bytes) and G <= 128.  A row that sees no key gets what the reference
+gives it: every key it scans has p = 1, so the sum of v over the Skv keys
+divided by Skv rounded up to the scan's ``chunk`` (:func:`scanned_keys`).
+``kv_valid`` reaches the kernels folded into the key positions: a key at
+or past it takes the padding position, which no mask admits.
+There is no backward: under autograd with an operand that requires grad
+both entry points raise ``NotImplementedError``.
 
 ``LAUNCHES["flash_attention"]`` counts launches; ``reset_launches`` sets it
 to 0.
@@ -40,13 +49,19 @@ from repro_torch.kernels.direct_conv2d import (_check, _cuda_device, _library,
                                                _no_autograd)
 
 __all__ = ["LAUNCHES", "reset_launches", "NEG_INF", "attend",
-           "attend_plain", "flash_attention", "flash_attention_plain",
-           "MAX_HEAD_DIM"]
+           "attend_plain", "check_operands", "flash_attention",
+           "flash_attention_plain", "scanned_keys", "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
+PAD_POSITION = -(10 ** 9)   # the reference's position of padding keys
 LAUNCHES = {"flash_attention": 0}
+# the f32 kernel: threads per CTA, q rows per CTA, keys per staged block
 THREADS, BLOCK_Q, BLOCK_K = 256, 64, 64
+# the bf16 kernel: threads per CTA, rows per CTA (G heads x 128 // G
+# positions), keys per K/V tile
+BF16_THREADS, BF16_ROWS, BF16_BLOCK_K = 288, 128, 64
 MAX_HEAD_DIM = 256
+PLAIN_CHUNK = 2048          # the reference's KV chunk
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -56,14 +71,15 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.flash_attention_fwd.argtypes = ([ptr] * 9 + [ctypes.c_float] * 2
+    lib.flash_attention_fwd.argtypes = ([ptr] * 8 + [ctypes.c_float] * 2
                                         + [ptr])
     lib.flash_attention_fwd.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    return _library("flash_attention", _declare,
-                    (THREADS, BLOCK_Q, BLOCK_K))
+    return _library("flash_attention", _declare, (THREADS, BLOCK_Q, BLOCK_K),
+                    (("flash_attention_wgmma_geometry",
+                      (BF16_THREADS, BF16_ROWS, BF16_BLOCK_K)),))
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +91,7 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True, window: Optional[int] = None,
                  cap: Optional[float] = None, scale: float,
                  kv_valid: Optional[torch.Tensor] = None,
-                 chunk: int = 2048,
+                 chunk: int = PLAIN_CHUNK,
                  compact_probs: bool = False) -> torch.Tensor:
     """q: [B,Sq,KV,G,Dh] grouped; k/v: [B,Skv,KV,Dh] -> [B,Sq,KV,G,Dh].
 
@@ -91,7 +107,7 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
         kv_positions = torch.nn.functional.pad(kv_positions, (0, pad),
-                                               value=-(10 ** 9))
+                                               value=PAD_POSITION)
     kc = k.reshape(b, n_chunks, chunk, nkv, dh)
     vc = v.reshape(b, n_chunks, chunk, nkv, dh)
     pc = kv_positions.reshape(b, n_chunks, chunk)
@@ -131,6 +147,14 @@ def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+def scanned_keys(skv: int, chunk: int) -> int:
+    """The keys :func:`attend_plain` scans: Skv rounded up to its chunk.
+    A row that sees no key averages v over that many (the padding's v is
+    0)."""
+    c = max(1, min(chunk, skv))
+    return -(-skv // c) * c
+
+
 def _arange_positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32,
                         device=device)[None].expand(b, s).contiguous()
@@ -155,59 +179,93 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # the kernel
 # ---------------------------------------------------------------------------
 
+def check_operands(dtype: torch.dtype, head_dim: int, groups: int,
+                   operands) -> None:
+    """Raise unless the CUDA kernel of ``dtype`` takes these operands.
+
+    A function of shapes, strides and addresses alone, so that the rules
+    are testable without a card.  ``operands``: ``(name, address, sizes,
+    strides, last_stride)`` per operand, ``sizes`` and ``strides`` (in
+    elements) over the indices the kernel steps: (batch, seq, kv head,
+    group) for q and out, (batch, seq, kv head) for k and v.  f32 reads
+    float4s: bases on 16 bytes, strides in multiples of 4 elements.  bf16
+    reads through TMA tensor maps: bases on 16 bytes, the stride of every
+    index longer than 1 a positive multiple of 8 elements (16 bytes), and
+    at most ``BF16_ROWS`` query heads a KV head (one CTA's rows)."""
+    if dtype not in _DTYPES:
+        raise NotImplementedError(f"q is {dtype}: the kernel takes f32 or "
+                                  "bf16")
+    if head_dim % 8 or not 8 <= head_dim <= MAX_HEAD_DIM:
+        raise NotImplementedError(
+            f"head dim {head_dim}: the kernel takes multiples of 8 up to "
+            f"{MAX_HEAD_DIM}")
+    bf16 = dtype == torch.bfloat16
+    if bf16 and groups > BF16_ROWS:
+        raise NotImplementedError(
+            f"{groups} query heads a KV head: the bf16 kernel takes up to "
+            f"{BF16_ROWS}")
+    mult = 8 if bf16 else 4
+    for name, address, sizes, strides, last in operands:
+        if last != 1:
+            raise ValueError(f"{name}'s head dim must be contiguous")
+        if address % 16:
+            raise ValueError(f"{name} is misaligned: it starts "
+                             f"{address % 16} bytes past 16")
+        bad = [s for n, s in zip(sizes, strides)
+               if (n > 1 or not bf16) and (s % mult or (bf16 and s <= 0))]
+        if bad:
+            raise ValueError(
+                f"{name}'s strides {tuple(strides)} (elements) must be "
+                f"{'positive ' if bf16 else ''}multiples of {mult} for the "
+                f"{'TMA tiles' if bf16 else 'vector loads'} of the "
+                f"{str(dtype)[6:]} kernel")
+
+
 def _launch(q, k, v, out, q_strides, k_strides, v_strides, o_strides, *,
             kv_heads: int, groups: int, sq: int, skv: int,
             q_positions, kv_positions, kv_valid, causal: bool,
             window: Optional[int], cap: Optional[float],
-            scale: float) -> None:
+            scale: float, chunk: int) -> None:
     """One launch; ``*_strides`` in elements: q/out (batch, seq, kv head,
-    group), k/v (batch, seq, kv head)."""
+    group), k/v (batch, seq, kv head); ``chunk``: the plain version's, which
+    sets the average a row that sees no key gets."""
     dev = _cuda_device(q)
     dh = q.shape[-1]
-    if q.dtype not in _DTYPES:
-        raise NotImplementedError(f"q is {q.dtype}: the kernel takes f32 or "
-                                  "bf16")
     for t, name in ((k, "k"), (v, "v")):
         if t.device != dev or t.dtype != q.dtype:
             raise ValueError(f"{name} is {t.dtype} on {t.device}; q is "
                              f"{q.dtype} on {dev}")
         if t.shape[-1] != dh:
             raise ValueError(f"{name}'s head dim {t.shape[-1]} != q's {dh}")
-    if dh % 8 or not 8 <= dh <= MAX_HEAD_DIM:
-        raise NotImplementedError(
-            f"head dim {dh}: the kernel takes multiples of 8 up to "
-            f"{MAX_HEAD_DIM}")
-    align = 16 if q.dtype == torch.float32 else 8
-    for t, st, name in ((q, q_strides, "q"), (k, k_strides, "k"),
-                        (v, v_strides, "v"), (out, o_strides, "out")):
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name}'s head dim must be contiguous")
-        if t.data_ptr() % align or any(s % 4 for s in st):
-            raise ValueError(
-                f"{name} is misaligned for the kernel's vector loads (base "
-                f"on {align} bytes, strides in multiples of 4 elements)")
     b = q.shape[0]
+    q_sizes = (b, sq, kv_heads, groups)
+    check_operands(q.dtype, dh, groups, (
+        ("q", q.data_ptr(), q_sizes, q_strides, q.stride(-1)),
+        ("k", k.data_ptr(), (b, skv, kv_heads), k_strides, k.stride(-1)),
+        ("v", v.data_ptr(), (b, skv, kv_heads), v_strides, v.stride(-1)),
+        ("out", out.data_ptr(), q_sizes, o_strides, out.stride(-1))))
     qp = q_positions.to(device=dev, dtype=torch.int32).contiguous()
     kp = kv_positions.to(device=dev, dtype=torch.int32).contiguous()
     if tuple(qp.shape) != (b, sq) or tuple(kp.shape) != (b, skv):
         raise ValueError(f"positions {tuple(qp.shape)}/{tuple(kp.shape)} != "
                          f"{(b, sq)}/{(b, skv)}")
-    kvv = None
     if kv_valid is not None:
-        kvv = kv_valid.to(device=dev, dtype=torch.int32).contiguous()
+        # the kernels read kv_valid through the key positions: a key at or
+        # past it takes the padding position, which no mask admits
+        kvv = kv_valid.to(device=dev, dtype=torch.int32)
         if tuple(kvv.shape) != (b,):
             raise ValueError(f"kv_valid shape {tuple(kvv.shape)} != ({b},)")
+        kp = torch.where(kp < kvv[:, None], kp, PAD_POSITION)
     lib = _lib()
     strides = (ctypes.c_longlong * 14)(*q_strides, *k_strides, *v_strides,
                                        *o_strides)
-    ints = (ctypes.c_int * 11)(
+    ints = (ctypes.c_int * 12)(
         b, kv_heads, groups, sq, skv, dh, int(causal), int(window is not None),
         0 if window is None else int(window), int(cap is not None),
-        int(q.dtype == torch.bfloat16))
+        int(q.dtype == torch.bfloat16), scanned_keys(skv, chunk))
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qp.data_ptr(), kp.data_ptr(), None if kvv is None else kvv.data_ptr(),
-        strides, ints, float(scale), 0.0 if cap is None else float(cap),
+        qp.data_ptr(), kp.data_ptr(), strides, ints, float(scale), 0.0 if cap is None else float(cap),
         torch.cuda.current_stream(dev).cuda_stream)
     _check(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
@@ -217,12 +275,15 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            q_positions: torch.Tensor, kv_positions: torch.Tensor,
            causal: bool = True, window: Optional[int] = None,
            cap: Optional[float] = None, scale: float,
-           kv_valid: Optional[torch.Tensor] = None, chunk: int = 2048,
+           kv_valid: Optional[torch.Tensor] = None,
+           chunk: int = PLAIN_CHUNK,
            compact_probs: bool = False) -> torch.Tensor:
     """q: [B,Sq,KV,G,Dh] grouped; k/v: [B,Skv,KV,Dh] -> [B,Sq,KV,G,Dh] in
     q's dtype.  ``q_positions`` [B, Sq], ``kv_positions`` [B, Skv] (int),
     ``kv_valid`` [B] or None.  ``chunk`` is the plain version's KV chunk;
-    the kernel stages 64-key blocks whatever it is."""
+    the kernels stage blocks of ``BLOCK_K`` (f32) or ``BF16_BLOCK_K``
+    (bf16) keys whatever it is, and read it only for the rows that see no
+    key."""
     if q.dim() != 5 or k.dim() != 4 or v.shape != k.shape or \
             k.shape[0] != q.shape[0] or k.shape[2] != q.shape[2]:
         raise ValueError(f"expected q [B,Sq,KV,G,Dh] and k/v [B,Skv,KV,Dh], "
@@ -244,7 +305,7 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             out.stride()[:4], kv_heads=nkv, groups=g, sq=sq,
             skv=k.shape[1], q_positions=q_positions,
             kv_positions=kv_positions, kv_valid=kv_valid, causal=causal,
-            window=window, cap=cap, scale=scale)
+            window=window, cap=cap, scale=scale, chunk=chunk)
     return out
 
 
@@ -275,5 +336,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             kv_heads=nkv, groups=g, sq=sq, skv=skv,
             q_positions=_arange_positions(b, sq, q.device),
             kv_positions=_arange_positions(b, skv, q.device),
-            kv_valid=None, causal=causal, window=None, cap=cap, scale=scale)
+            kv_valid=None, causal=causal, window=None, cap=cap, scale=scale,
+            chunk=PLAIN_CHUNK)
     return out

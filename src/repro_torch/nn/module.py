@@ -7,7 +7,9 @@ a seed gives the same numbers on every device (and a bf16 parameter is the
 f32 draw rounded once, as the reference casts it).  ``ParamSpec`` carries no
 sharding ``axes``: there is no mesh in the port yet.  ``fan_in`` overrides
 the reference's rule (the second-to-last axis) where that axis is not what
-the weight contracts, as in attention's ``[D, H, Dh]`` projections.  The
+the weight contracts, as in attention's ``[D, H, Dh]`` projections.
+``log_uniform`` and ``softplus_inv_log_uniform`` draw Mamba-2's ``a_log``
+and ``dt_bias`` as the published model does, from ``bounds``.  The
 reference initializes from ``jax.random`` keys, which
 give other numbers; tests that compare the two packages feed both the same
 numpy parameters instead (``repro_torch.convert.params_from_jax``).
@@ -28,10 +30,12 @@ SpecTree = Union["ParamSpec", Dict[str, Any]]
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: Tuple[int, ...]
-    init: str = "fan_in"            # fan_in | normal | zeros | ones
+    # fan_in | normal | zeros | ones | log_uniform | softplus_inv_log_uniform
+    init: str = "fan_in"
     scale: float = 1.0              # multiplier (normal: stddev)
     dtype: torch.dtype = torch.float32
     fan_in: Optional[int] = None    # None: the second-to-last axis
+    bounds: Optional[Tuple[float, float]] = None   # the two *uniform inits
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
@@ -46,6 +50,17 @@ def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
                                  else spec.shape[-1])
         std = spec.scale / math.sqrt(max(fan_in, 1))
         return std * torch.randn(spec.shape, generator=gen)
+    if spec.init == "log_uniform":
+        # log(u), u uniform in [low, high]
+        low, high = spec.bounds
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float64)
+        return torch.log(low + (high - low) * u).float()
+    if spec.init == "softplus_inv_log_uniform":
+        # softplus^-1(t), t log-uniform in [low, high]
+        low, high = spec.bounds
+        u = torch.rand(spec.shape, generator=gen, dtype=torch.float64)
+        t = torch.exp(math.log(low) + (math.log(high) - math.log(low)) * u)
+        return (t + torch.log(-torch.expm1(-t))).float()
     raise ValueError(f"unknown init {spec.init!r}")
 
 

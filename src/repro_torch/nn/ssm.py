@@ -98,10 +98,12 @@ def ssd_chunked(x, dt, a, b, c, d_skip=None, chunk: int = 256,
     xb = xf * dtf[..., None]                                  # dt-scaled input
     qdt = torch.bfloat16 if compact else torch.float32
     ldecay = ldecay.to(qdt)
-    # intra-chunk: Y1[i] = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) xb_j
+    # intra-chunk: Y1[i] = sum_{j<=i} (C_i . B_j) exp(cs_i - cs_j) xb_j;
+    # cb and ldecay are stored in qdt, the contraction is f32 over the
+    # stored values (the reference's preferred_element_type=f32)
     cb = torch.einsum("bzign,bzjgn->bzijg", cf.to(qdt), bf.to(qdt))
-    y1 = torch.einsum("bzijg,bzijgr,bzjgrp->bzigrp", cb, ldecay,
-                      xb.to(qdt)).float()
+    y1 = torch.einsum("bzijg,bzijgr,bzjgrp->bzigrp", cb.float(),
+                      ldecay.float(), xb.to(qdt).float())
 
     # chunk states: S_z = sum_j exp(cs_last - cs_j) B_j (x) xb_j
     tail = torch.exp(cs[:, :, -1:] - cs)                      # [Bt,nc,Q,G,R]
@@ -170,8 +172,14 @@ class Mamba2(SpecModule):
             "in_proj": {"w": ParamSpec((d, 2 * di + 2 * gn + h))},
             "conv_w": ParamSpec((self.cfg.d_conv, cd)),
             "conv_b": ParamSpec((cd,), init="zeros"),
-            "a_log": ParamSpec((h,), init="zeros"),        # A = -exp(a_log)
-            "dt_bias": ParamSpec((h,), init="zeros"),
+            # A = -exp(a_log) and dt = softplus(x + dt_bias), drawn as the
+            # published Mamba-2 draws them (A in [1, 16], dt in [1e-3,
+            # 1e-1]); the reference starts both at 0 (A = -1), which makes
+            # the bf16 model drift from the f32 one ~5x more (ROADMAP C)
+            "a_log": ParamSpec((h,), init="log_uniform",
+                               bounds=(1.0, 16.0)),
+            "dt_bias": ParamSpec((h,), init="softplus_inv_log_uniform",
+                                 bounds=(1e-3, 1e-1)),
             "d_skip": ParamSpec((h,), init="ones"),
             "norm": {"w": ParamSpec((di,), init="ones")},
             "out_proj": {"w": ParamSpec((di, d))},

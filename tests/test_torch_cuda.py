@@ -468,6 +468,96 @@ def test_flash_attention_tpu_layout_reads_strided_views(cuda, dtype):
     _agree(got, fak.flash_attention_plain(q, k, v, scale=0.1, causal=True))
 
 
+# the bf16 tensor-core kernel at every phase-18 case of chip_smoke.py, and
+# G = 6 and 7 (no power of two: a CTA's 128 rows hold 21 x 6 or 18 x 7),
+# G = 1, Dh 64, 80 and 128: label, b, s, kv, g, dh, causal, window, cap,
+# kv_valid, position stride (0: arange; else stride * i + 7).  In the G 6
+# window case, batch 1's rows past position 150 + 64 see no key and take
+# the reference's average of v.
+BF16_FLASH_CASES = [
+    ("danube prefill", 2, 2048, 8, 4, 80, True, None, None, None, 0),
+    ("window 256", 1, 1024, 8, 4, 80, True, 256, None, None, 0),
+    ("softcap 50", 1, 1024, 4, 2, 128, True, None, 50.0, None, 0),
+    ("non-causal", 1, 512, 4, 2, 64, False, None, None, None, 0),
+    ("MQA", 1, 1024, 1, 8, 128, True, None, None, None, 0),
+    ("Dh 128", 1, 1024, 8, 4, 128, True, None, None, None, 0),
+    ("G 7 (deepseek-coder)", 1, 1024, 8, 7, 128, True, None, None, None, 0),
+    ("ragged S 1000", 2, 1000, 8, 4, 80, True, None, None, None, 0),
+    ("kv_valid, positions 3i+7, softcap", 2, 700, 2, 4, 80, True, None,
+     50.0, (2200, 333), 3),
+    ("G 6, Dh 64, ragged", 2, 333, 2, 6, 64, True, None, None, None, 0),
+    ("G 7, Dh 80, window", 1, 500, 2, 7, 80, True, 100, None, None, 0),
+    ("G 6, Dh 128, positions 2i+7, window, kv_valid", 2, 260, 1, 6, 128,
+     True, 64, None, (300, 150), 2),
+    ("G 1, Dh 80, non-causal", 1, 300, 3, 1, 80, False, None, 30.0, None, 0),
+]
+
+
+@pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=lambda c: c[0])
+def test_flash_attention_bf16_kernel_matches_plain_version(cuda, case):
+    from repro_torch.kernels import flash_attention as fak
+    _, b, s, nkv, g, dh, causal, window, cap, kv_valid, stride = case
+    q, k, v = _attend_operands(cuda, b, s, s, nkv, g, dh, torch.bfloat16,
+                               seed=s + g)
+    pos = torch.arange(s, device=cuda, dtype=torch.int32)[None].expand(b, s)
+    if stride:
+        pos = stride * pos + 7
+    kw = dict(q_positions=pos, kv_positions=pos, causal=causal,
+              window=window, cap=cap, scale=dh ** -0.5,
+              kv_valid=None if kv_valid is None else
+              torch.tensor(kv_valid, device=cuda))
+    fak.reset_launches()
+    got = fak.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fak.LAUNCHES["flash_attention"] == 1
+    _agree(got, fak.attend_plain(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("chunk", [2048, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_rows_that_see_no_key_match_plain_version(
+        cuda, dtype, chunk):
+    """kv_valid and a window leave most rows of batch 1 no key, whole CTAs
+    of them (no block visited) and rows of CTAs that do see keys: each gets
+    the reference's sum of v over the keys scanned at ``chunk`` (120 keys
+    at 2048, 128 at 64)."""
+    from repro_torch.kernels import flash_attention as fak
+    b, s, nkv, g, dh = 2, 120, 2, 3, 64
+    q, k, v = _attend_operands(cuda, b, s, s, nkv, g, dh, dtype, seed=5)
+    pos = torch.arange(s, device=cuda, dtype=torch.int32)[None].expand(b, s)
+    kw = dict(q_positions=pos, kv_positions=pos, causal=True, window=16,
+              cap=None, scale=dh ** -0.5, chunk=chunk,
+              kv_valid=torch.tensor((120, 40), device=cuda))
+    fak.reset_launches()
+    got = fak.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fak.LAUNCHES["flash_attention"] == 1
+    want = fak.attend_plain(q, k, v, **kw)
+    _agree(got, want)
+    avg = v[1].float().sum(dim=0) / fak.scanned_keys(s, chunk)
+    _agree(got[1, 56:], avg[None, :, None].expand(s - 56, nkv, g, dh).to(
+        dtype))
+
+
+def test_flash_attention_bf16_kernel_raises_on_what_it_refuses(cuda):
+    """A bf16 operand off TMA's 16-byte rule raises; nothing is launched and
+    nothing falls back to another kernel or the plain version."""
+    from repro_torch.kernels import flash_attention as fak
+    q, k, v = _attend_operands(cuda, 1, 64, 64, 2, 4, 80, torch.bfloat16)
+    pos = torch.arange(64, device=cuda)[None]
+    wide = torch.zeros((1, 64, 2, 84), device=cuda, dtype=torch.bfloat16)
+    k_odd = wide[..., :80]                 # row stride 84: 168 bytes
+    fak.reset_launches()
+    with pytest.raises(ValueError, match="multiples of 8"):
+        fak.attend(q, k_odd, v, q_positions=pos, kv_positions=pos,
+                   scale=1.0)
+    buf = torch.zeros(q.numel() + 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="misaligned"):
+        fak.attend(buf[4:].view(q.shape), k, v, q_positions=pos,
+                   kv_positions=pos, scale=1.0)
+    assert fak.LAUNCHES["flash_attention"] == 0
+
+
 def test_flash_attention_refuses_what_it_does_not_take(cuda):
     from repro_torch.kernels import flash_attention as fak
     q, k, v = _attend_operands(cuda, 1, 8, 8, 1, 1, 12, torch.float32)

@@ -155,6 +155,35 @@ def test_attend_plain_matches_reference(case):
     _close(got, want, 1e-5, f"{case}")
 
 
+@pytest.mark.parametrize("chunk", [2048, 7])
+def test_attend_rows_that_see_no_key_average_v_over_the_scan(chunk):
+    """A row that sees no key (kv_valid and a window leave it nothing): the
+    reference gives every scanned key p = 1, so the row is the sum of v over
+    the Skv keys over ``scanned_keys`` (Skv rounded up to the chunk, the
+    zero padding counted), the value the CUDA kernels write for it."""
+    b, sq, nkv, g, dh = 2, 20, 2, 3, 8
+    rng = np.random.default_rng(chunk)
+    q = rng.normal(size=(b, sq, nkv, g, dh)).astype(np.float32)
+    k = rng.normal(size=(b, sq, nkv, dh)).astype(np.float32)
+    v = rng.normal(size=(b, sq, nkv, dh)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(sq, dtype=np.int32), (b, sq))
+    kvv = np.asarray([20, 8], np.int32)
+    kw = dict(causal=True, window=3, cap=None, scale=dh ** -0.5, chunk=chunk)
+    want = np.asarray(jax_attend(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), q_positions=jnp.asarray(pos),
+                                 kv_positions=jnp.asarray(pos),
+                                 kv_valid=jnp.asarray(kvv), **kw))
+    got = fak.attend(_t(q), _t(k), _t(v),
+                     q_positions=torch.from_numpy(pos.copy()),
+                     kv_positions=torch.from_numpy(pos.copy()),
+                     kv_valid=torch.from_numpy(kvv), **kw)
+    _close(got, want, 1e-5)
+    # batch 1's rows at positions >= 8 + 3 see no key
+    avg = v[1].sum(axis=0) / fak.scanned_keys(sq, chunk)       # [KV, Dh]
+    unseen = np.broadcast_to(avg[None, :, None], (sq - 11, nkv, g, dh))
+    np.testing.assert_allclose(want[1, 11:], unseen, rtol=1e-5, atol=1e-6)
+
+
 def test_attend_refuses_autograd():
     q = torch.zeros((1, 4, 1, 1, 8), requires_grad=True)
     k = torch.zeros((1, 4, 1, 8))
@@ -243,6 +272,29 @@ def test_ssd_chunked_matches_reference_and_naive(g):
     naive = tssm.ssd_naive(*args, d_skip=torch.from_numpy(dsk))
     _close(got, want, 1e-5, "chunked vs reference")
     _close(naive, want, 1e-5, "naive vs reference")
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_ssd_chunked_compact_matches_reference(g):
+    """``compact=True`` stores C.B and the decay matrix in bf16 and
+    contracts the intra-chunk output in f32, as the reference does.  B and
+    C lie on a grid of 1/4 in [-2, 2], so every C.B sum is exact in f32 and
+    both sides round the same value to bf16; what is left is f32 summation
+    order, within 1e-5 of max|y|.  An intra-chunk output rounded to bf16
+    is off by ~2e-3."""
+    rng = np.random.default_rng(g + 10)
+    bt, l, h, p, n, chunk = 2, 32, 4, 8, 16, 8
+    x = rng.normal(size=(bt, l, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.normal(size=(bt, l, h)))).astype(np.float32)
+    a = -np.exp(rng.normal(size=(h,))).astype(np.float32)
+    b, c = (rng.integers(-8, 9, size=(bt, l, g, n)).astype(np.float32) / 4
+            for _ in range(2))
+    want = jssm.ssd_chunked(*map(jnp.asarray, (x, dt, a, b, c)),
+                            chunk=chunk, compact=True)
+    got = tssm.ssd_chunked(*(torch.from_numpy(t) for t in (x, dt, a, b, c)),
+                           chunk=chunk, compact=True)
+    assert got.dtype == torch.float32
+    _close(got, want, 1e-5, "compact chunked vs reference")
 
 
 # ---------------------------------------------------------------------------
@@ -415,7 +467,9 @@ def test_port_model_holds_reference_parameter_count(arch, models):
 @pytest.mark.parametrize("arch", LM_ARCHS + ("gemma2-27b",))
 def test_lm_specs_match_reference(arch):
     """The port's spec tree is the reference's: the same paths, shapes,
-    inits, scales and dtypes (gemma2: local/global periods, post-norms)."""
+    inits, scales and dtypes (gemma2: local/global periods, post-norms),
+    except Mamba-2's ``a_log``/``dt_bias``, which the port draws as the
+    published model does where the reference starts them at 0."""
     cfg = reduced_config(arch)
     want = jax_build_model(jreduced.reduced_config(arch), PX).specs()
     got = build_model(cfg, "cpu").specs()
@@ -426,8 +480,41 @@ def test_lm_specs_match_reference(arch):
     assert set(flat_g) == set(flat_w)
     for path, w in flat_w.items():
         g = flat_g[path]
-        assert (g.shape, g.init, g.scale) == (w.shape, w.init, w.scale), path
+        if path[-1].key in MAMBA2_PUBLISHED_INIT:
+            assert w.init == "zeros", path
+            assert (g.shape, g.init, g.bounds) == (
+                w.shape, *MAMBA2_PUBLISHED_INIT[path[-1].key]), path
+        else:
+            assert (g.shape, g.init, g.scale) == (w.shape, w.init,
+                                                  w.scale), path
         assert str(g.dtype).removeprefix("torch.") == np.dtype(w.dtype).name
+
+
+# the port's Mamba-2 init where it departs from the reference's zeros
+MAMBA2_PUBLISHED_INIT = {"a_log": ("log_uniform", (1.0, 16.0)),
+                         "dt_bias": ("softplus_inv_log_uniform",
+                                     (1e-3, 1e-1))}
+
+
+def test_mamba2_init_draws_a_and_dt_as_published():
+    """A = exp(a_log) uniform in [1, 16], dt = softplus(dt_bias)
+    log-uniform in [1e-3, 1e-1], from the generator (two seeds differ)."""
+    from repro_torch.configs.registry import get_config as port_config
+    from repro_torch.nn.layers import Init
+    from repro_torch.nn.ssm import Mamba2
+    cfg = port_config("mamba2-780m")
+
+    def draw(seed):
+        return Mamba2(cfg.d_model, cfg.ssm, Init(
+            torch.Generator().manual_seed(seed), torch.device("cpu")))
+    m = draw(0)
+    a = torch.exp(m.a_log.double())
+    dt = torch.nn.functional.softplus(m.dt_bias.double())
+    assert m.a_log.shape == (cfg.ssm.n_heads(cfg.d_model),)
+    assert a.min() >= 1 - 1e-6 and a.max() <= 16 + 1e-5
+    assert dt.min() >= 1e-3 * (1 - 1e-5) and dt.max() <= 1e-1 * (1 + 1e-5)
+    assert a.max() - a.min() > 5 and dt.max() / dt.min() > 10
+    assert not torch.equal(m.a_log, draw(1).a_log)
 
 
 def test_attention_init_fans_in_over_the_contracted_size():
@@ -480,3 +567,96 @@ def test_build_model_needs_a_gpu_unless_asked_for_the_cpu():
         main(["--arch", "mamba2-780m", "--reduced"])
     assert main(["--arch", "mamba2-780m", "--reduced", "--device", "cpu",
                  "--requests", "3", "--batch", "2", "--max-new", "2"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# what the CUDA flash kernels take: a function of shapes, strides and bases
+# ---------------------------------------------------------------------------
+
+def _flash_operands(b=2, s=64, kv=8, g=4, dh=80, base=0, q_strides=None,
+                    k_strides=None):
+    """The wrapper's operand list for contiguous [B, S, KV, G, Dh] q/out
+    and [B, S, KV, Dh] k/v, with ``q_strides``/``k_strides`` (elements)
+    overriding the contiguous ones."""
+    qs = q_strides or (s * kv * g * dh, kv * g * dh, g * dh, dh)
+    ks = k_strides or (s * kv * dh, kv * dh, dh)
+    return [("q", base, (b, s, kv, g), qs, 1),
+            ("k", 0, (b, s, kv), ks, 1), ("v", 0, (b, s, kv), ks, 1),
+            ("out", 0, (b, s, kv, g), qs, 1)]
+
+
+def test_flash_params_ab_pads_the_kernel_parameters():
+    """The measurement script's variants: the source as it is, and with
+    unused bytes appended to ``HParams`` and the 512-byte assert relaxed;
+    without a card it refuses to run."""
+    from repro_torch.launch import flash_params_ab as ab
+    src = (ab._build.CSRC / "flash_attention.cu").read_text()
+    assert ab.variant_source(0) == src
+    padded = ab.variant_source(16)
+    assert "long long pad_[2];" in padded and ab._ASSERT not in padded
+    assert ab._ASSERT in src and ab._BYTES == 512
+    if not torch.cuda.is_available():
+        assert ab.main([]) == 1
+
+
+def test_flash_kernels_take_the_model_layouts():
+    """danube's q/k/v, [B, H, S, Dh] views, G = 7 at Dh 128, G = 1 (MQA's
+    counterpart) and the f32 kernel's multiples of 4 all pass."""
+    fak.check_operands(torch.bfloat16, 80, 4, _flash_operands())
+    s, h = 100, 32                   # [B, H, S, Dh] views of [B, S, H, Dh]
+    fak.check_operands(torch.bfloat16, 80, 4, _flash_operands(
+        s=s, q_strides=(s * h * 80, h * 80, 4 * 80, 80),
+        k_strides=(s * 8 * 80, 8 * 80, 80)))
+    fak.check_operands(torch.bfloat16, 128, 7, _flash_operands(g=7, dh=128))
+    fak.check_operands(torch.bfloat16, 64, 1, _flash_operands(g=1, dh=64))
+    # an index of extent 1 is never stepped: its stride does not matter
+    fak.check_operands(torch.bfloat16, 64, 1, _flash_operands(
+        b=1, kv=1, g=1, dh=64, q_strides=(3, 64, 5, 7),
+        k_strides=(3, 64, 5)))
+    fak.check_operands(torch.float32, 12 * 8, 4, _flash_operands(
+        dh=96, q_strides=(4, 4, 4, 4)))
+
+
+@pytest.mark.parametrize("what,dtype,kwargs,err,match", [
+    ("stride of 4 bf16 elements", torch.bfloat16,
+     dict(q_strides=(64 * 32 * 84, 32 * 84, 4 * 84 + 4, 84)), ValueError,
+     "multiples of 8"),
+    ("k's sequence stride odd", torch.bfloat16,
+     dict(k_strides=(64 * 8 * 80, 8 * 80 + 2, 80)), ValueError,
+     "multiples of 8"),
+    ("a zero stride on an index of extent > 1", torch.bfloat16,
+     dict(k_strides=(64 * 8 * 80, 0, 80)), ValueError, "positive"),
+    ("f32 strides of 2", torch.float32,
+     dict(q_strides=(64 * 32 * 80, 32 * 80, 4 * 80, 82)), ValueError,
+     "multiples of 4"),
+    ("base 8 bytes past 16", torch.bfloat16, dict(base=8), ValueError,
+     "misaligned"),
+    ("base 4 bytes past 16, f32", torch.float32, dict(base=4), ValueError,
+     "misaligned"),
+])
+def test_flash_kernels_refuse_strides_and_bases(what, dtype, kwargs, err,
+                                                match):
+    with pytest.raises(err, match=match):
+        fak.check_operands(dtype, 80, 4, _flash_operands(**kwargs))
+
+
+@pytest.mark.parametrize("dh", [4, 12, 260, 264, 0])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_kernels_refuse_head_dims(dh, dtype):
+    """Head dims that are no multiple of 8, or above 256."""
+    with pytest.raises(NotImplementedError, match="head dim"):
+        fak.check_operands(dtype, dh, 4, _flash_operands(dh=max(dh, 8)))
+
+
+def test_flash_kernels_refuse_a_contiguity_break_and_too_many_heads():
+    ops = _flash_operands()
+    ops[1] = ("k", 0, (2, 64, 8), (64 * 8 * 80, 8 * 80, 80), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fak.check_operands(torch.bfloat16, 80, 4, ops)
+    with pytest.raises(NotImplementedError, match="query heads"):
+        fak.check_operands(torch.bfloat16, 64, fak.BF16_ROWS + 1,
+                           _flash_operands(g=fak.BF16_ROWS + 1, dh=64))
+    fak.check_operands(torch.float32, 64, fak.BF16_ROWS + 1,
+                       _flash_operands(g=fak.BF16_ROWS + 1, dh=64))
+    with pytest.raises(NotImplementedError, match="f32 or bf16"):
+        fak.check_operands(torch.float16, 64, 4, _flash_operands(dh=64))
