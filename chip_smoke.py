@@ -12,7 +12,9 @@ and no phase catches its own failure:
    started together; sm_90a), printing each kernel's registers and spills,
    and the count of ``HGMMA`` (wgmma) instructions in each function of the
    flash-attention library's SASS where the toolkit has ``cuobjdump``: the
-   bf16 kernel must have some;
+   bf16 kernel must have some; each instance of the two phase-split dgrad
+   kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
+   spill nothing;
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
@@ -27,7 +29,8 @@ and no phase catches its own failure:
    cuDNN ``F.conv2d`` (f32, TF32 off) and the f32 bound;
 7. the backward kernels against their plain versions at batch 8 on every
    distinct VGG-16 layer shape of a 224x224 entry: dgrad with the relu
-   prologue (all but conv1_1's shape), wgrad with the prologue and ``db``
+   prologue (all but conv1_1's shape; its tile printed), wgrad with the
+   prologue and ``db``
    (all 10; against f64 sums, twice, bit for bit), the autograd path on a
    small gelu + residual conv at stride 2 with ``Cib = 3`` against torch
    autograd through the plain forward, and the wgrad reduce alone;
@@ -37,7 +40,13 @@ and no phase catches its own failure:
    gradient against torch autograd through the plain forward, and the
    parameters after step 3 against a plain-path trainer run in lockstep;
 9. backward times: per layer, dgrad, wgrad and the wgrad reduce against
-   their plain versions, ``aten.convolution_backward`` and the f32 bound;
+   their plain versions, ``aten.convolution_backward`` and the bound (the
+   wgrads' at the f32 peak; the dgrads' at the 3xTF32 split's, the f32 FMA
+   bound printed beside it); per dgrad layer its stride, phase count and
+   tiles, its MACs by phase (the kernel library's own count of the launch
+   must equal the blocking model's, and its MACs the function's), the
+   tensor-core MACs its tiles issue with their padding share, eager and
+   CUDA-graph times and the library time;
    the train step against the plain path's; the step's peak device memory
    beside the bytes it must hold;
 10. the separable kernels' forwards against their plain versions at batch
@@ -76,7 +85,8 @@ and no phase catches its own failure:
     dgrad or wgrad;
 17. per-layer and summed times of the three streamed kernels, eager and as
     a CUDA-graph replay, beside the window kernels, the plain versions,
-    cuDNN (TF32 off) and the f32 bound; the streamed train step against the
+    cuDNN (TF32 off) and the bound (the dgrad's as in phase 9, with its
+    phases, MACs and issued MACs); the streamed train step against the
     window step and the plain step; its peak device memory beside the bytes
     it must hold;
 18. the language models' kernels against their plain versions: flash
@@ -98,9 +108,11 @@ and no phase catches its own failure:
     ``decode_step`` over the first 32 tokens against the prefill; (d) the
     ``ContinuousBatcher`` (batch 4, cache 128) answering 8 requests of 8-48
     prompt tokens and 16 new tokens each, with no kernel launch while it
-    serves, every first token against the kernel prefill's argmax where
-    the top-2 gap clears twice the decode path's measured distance from
-    the prefill (and (a)'s tolerance); (c) the published bf16 config's
+    serves, every first token checked against the kernel prefill: its
+    argmax where the top-2 gap clears a tolerance (twice the decode path's
+    measured distance from the prefill, and (a)'s tolerance), else a logit
+    within that tolerance of the max (with the count of vocabulary tokens
+    that band admits); (c) the published bf16 config's
     prefill against its plain path, within 4 times a control's reading
     (the plain path with the kernel's sums in another order) and each
     layer's call again on its own bf16 inputs, its device time split by
@@ -233,8 +245,13 @@ EXACT_MULT = 4
 # times the reading of a control, the plain path with the kernel's own sums
 # in another order (see lm_phases)
 BF16_CONTROL_MULT = 4
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak
+# NVIDIA H100 SXM data sheet: dense bf16 and TF32 tensor-core peaks
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
+# the dgrad kernels' functions (csrc/dgrad_tile.cuh), whose 3xTF32 split
+# executes three TF32 products for each of the function's MACs
+DGRAD_KERNELS = {"direct_conv2d_bwd": "dgrad_kernel",
+                 "conv2d_stream": "stream_dgrad_kernel"}
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -302,10 +319,18 @@ def graph_ms(fn, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / HBM_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def dgrad_bound(flops: float, nbytes: float):
+    """The dgrads' bound: the function's FLOPs at the better of the f32 FMA
+    peak and the 3xTF32 split's (three TF32 products a MAC on the tensor
+    cores), against its bytes -> (ms, kind, the f32 FMA bound's ms)."""
+    f32 = bound(flops, nbytes)
+    return (*min(f32, bound(3 * flops, nbytes, PEAK_TF32_FLOPS)), f32[0])
 
 
 def device_split(fn, top: int = 8):
@@ -334,8 +359,9 @@ def device_split(fn, top: int = 8):
 
 
 def hgmma_counts(lib: Path):
-    """HGMMA (wgmma) instructions per function in ``lib``'s SASS, by
-    ``cuobjdump -sass``; None when the toolkit has no cuobjdump."""
+    """Tensor-core instructions per function in ``lib``'s SASS, by
+    ``cuobjdump -sass``, as (HGMMA: wgmma, HMMA: mma.sync); None when the
+    toolkit has no cuobjdump."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -348,10 +374,57 @@ def hgmma_counts(lib: Path):
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = 0
+            counts[fn] = [0, 0]
         elif fn is not None and "HGMMA" in line:
-            counts[fn] += 1
-    return counts
+            counts[fn][0] += 1
+        elif fn is not None and "HMMA" in line:
+            counts[fn][1] += 1
+    return {fn: tuple(n) for fn, n in counts.items()}
+
+
+def ptxas_report(log: str) -> dict:
+    """Per compiled function in an ``nvcc -Xptxas -v`` log: (registers,
+    spill store bytes, spill load bytes)."""
+    import re
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            out[fn] = [0, int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def dgrad_work(g, w, z, h: int, stride: int, streamed: bool):
+    """A 3x3 SAME relu dgrad of ``g``, ``w``, ``z`` over an ``h x h``
+    input as its kernel splits it -> (phases, its ``DgradPlan``, the
+    function's MACs).  Fails unless the kernel library's own count of the
+    launch (``*_dgrad_plan``, the C++ tile geometry) equals the blocking
+    model's (``core.blocking.dgrad_plan``), and its MACs by phase equal the
+    function's."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.kernels.direct_conv2d import dgrad_plans
+    kernel, model = dgrad_plans(g, w, (h, h), stride, "SAME", z, "relu",
+                                streamed=streamed)
+    route = "streamed" if streamed else "window"
+    if kernel != model:
+        fail(f"{route} dgrad at {h}x{h} s{stride}: the kernel's plan "
+             f"{kernel} != the blocking model's {model}")
+    fn_macs = ConvSpec.make(g.shape[0], h, h, w.shape[1] * w.shape[4],
+                            g.shape[1] * g.shape[4], 3, 3, stride,
+                            "SAME").flops() // 2
+    if kernel.function_macs != fn_macs:
+        fail(f"{route} dgrad at {h}x{h} s{stride}: its phases take "
+             f"{kernel.function_macs} MACs, the function {fn_macs}")
+    return stride * stride, kernel, fn_macs
 
 
 def mostly(rows) -> str:
@@ -1174,9 +1247,10 @@ def stream_phases(args, dev, t_start):
         wg = choose_stream_wgrad_blocking(BATCH, spec.ho, spec.wo, 3, 3, s,
                                           ci // cib, cib, co // cob, cob,
                                           prologue=True)
-        print(f"[stream] bwd {tag}: dgrad band {db_.hob}x{db_.wob} hso "
-              f"{db_.hso} ({db_.n_strips} strips) chunk {db_.chunk} ring "
-              f"{db_.ring_rows}x{db_.ring_cols}; wgrad strip "
+        print(f"[stream] bwd {tag}: dgrad band {db_.th}x{db_.tw} phase "
+              f"positions ({db_.strips} strips of {db_.hso} rows, a "
+              f"consumer warpgroup each) lanes {db_.lanes} chunk "
+              f"{db_.chunk} window {db_.hwin}x{db_.wwin}; wgrad strip "
               f"{wg.hso}x{wg.wob} ring {wg.ring_rows}x{wg.ring_cols} taps "
               f"{wg.taps}x{wg.tap_groups} items {wg.items} splits "
               f"{wg.splits}")
@@ -1310,8 +1384,8 @@ def stream_phases(args, dev, t_start):
                     time_ms(lambda: torch.ops.aten.convolution_backward(
                         dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1],
                         False, [0, 0], 1, [True, False, False])),
-                    *bound(flops, 4 * (2 * g.numel() + w.numel()
-                                       + x.numel())))
+                    *dgrad_bound(flops, 4 * (2 * g.numel() + w.numel()
+                                             + x.numel())))
             row["wgrad"] = (
                 *both(lambda: stk.stream_wgrad_partials(
                     x, g, 3, 3, s, "SAME", z, "relu", with_db=True)),
@@ -1330,8 +1404,27 @@ def stream_phases(args, dev, t_start):
              "wgrad": "conv2d_stream_wgrad"}
     sums = {kind: [0.0] * 7 for kind in names}
     kinds = {kind: [] for kind in names}
+    dg = {"macs": 0, "issued": 0, "f32": 0.0}
     for lname, key in zip(LAYER_NAMES, layers):
         ci, co, s, h = key
+        if "dgrad" in rows[key]:
+            v = rows[key]["dgrad"]
+            x, w, z, g, _ = bwd_ops[key]
+            phases, plan, macs = dgrad_work(g, w, z, h, s, streamed=True)
+            dg["macs"] += macs
+            dg["issued"] += plan.issued_macs
+            dg["f32"] += v[8]
+            print(f"[stream-time] {lname} dgrad phases: stride {s}, {phases} "
+                  f"phase(s), {plan.tiles} tiles, function MACs by phase "
+                  f"{plan.function_macs} (the function's), tensor-core MACs "
+                  f"issued {plan.issued_macs} (three products each; "
+                  f"padding {100 * plan.padding_share:.1f} %); stream "
+                  f"eager_ms {v[0]:.4f} graph_ms {v[1]:.4f} "
+                  f"({macs / 1e6 / v[1]:.1f} function GMAC/s on the device), "
+                  f"window eager_ms {v[2]:.4f} graph_ms {v[3]:.4f}, "
+                  f"library_ms {v[5]:.4f}; bound_ms {v[6]:.4f} (3xTF32), f32 "
+                  f"FMA bound_ms {v[8]:.4f}, issued MACs at the TF32 peak "
+                  f"{2 * plan.issued_macs / PEAK_TF32_FLOPS * 1e3:.4f} ms")
         for kind in names:
             if kind not in rows[key]:
                 continue
@@ -1350,6 +1443,12 @@ def stream_phases(args, dev, t_start):
               f"{v[0]:.4f} stream_device_ms {v[1]:.4f} window_ms {v[2]:.4f} "
               f"window_device_ms {v[3]:.4f} plain_ms {v[4]:.4f} library_ms "
               f"{v[5]:.4f} bound_ms {v[6]:.4f} ({mostly(kinds[kind])})")
+    print(f"[stream-time] all {len(kinds['dgrad'])} dgrad phases: function "
+          f"MACs by phase {dg['macs']}, tensor-core MACs issued "
+          f"{dg['issued']} (padding "
+          f"{100 * (1 - 3 * dg['macs'] / dg['issued']):.1f} %); bound_ms "
+          f"{sums['dgrad'][6]:.4f} (3xTF32), f32 FMA bound_ms "
+          f"{dg['f32']:.4f}")
     del bwd_ops
 
     window_step = make_train_step(tr.model, tr.opt)
@@ -1645,13 +1744,15 @@ def lm_phases(args, dev, t_start):
     def serve(arch, tag, model, prefill, prompts, tol):
         """19(d)/20(d): the ContinuousBatcher answers ``prompts`` at batch
         SERVE_BATCH, cache SERVE_CACHE, SERVE_NEW new tokens each; every
-        request must complete, and each first token must equal the argmax
-        of the kernel prefill's last-position logits of its prompt
-        wherever their top-2 gap exceeds ``tol``.  The batcher feeds
-        prompts token by token through ``decode_step``, as the reference
-        does, so serving launches neither kernel; the checking prefills'
-        launches are no main-path launches.  -> (first tokens checked,
-        skipped)."""
+        request must complete, and every first token is checked against
+        the kernel prefill's last-position logits of its prompt: where
+        their top-2 gap exceeds ``tol`` it must be the argmax, else its
+        logit must lie within ``tol`` of the maximum (a near tie that the
+        decode path may break either way).  The batcher feeds prompts
+        token by token through ``decode_step``, as the reference does, so
+        serving launches neither kernel; the checking prefills' launches
+        are no main-path launches.  -> (first tokens checked by argmax,
+        checked by distance from the max)."""
         batcher = ContinuousBatcher(model, batch=SERVE_BATCH,
                                     cache_len=SERVE_CACHE)
         reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
@@ -1670,28 +1771,39 @@ def lm_phases(args, dev, t_start):
         if len(done) != len(reqs) or any(
                 len(r.out_tokens) != SERVE_NEW for r in reqs):
             fail(f"{arch} {tag}: {len(done)} of {len(reqs)} requests served")
-        checked = skipped = 0
-        for r in reqs:
+        by_argmax = by_distance = 0
+        bands = []          # per request checked by distance: vocabulary
+        for r in reqs:      # tokens within tol of the max, what it admits
             lg = prefill({"tokens": torch.from_numpy(
-                r.prompt.astype(np.int64))[None].to(dev)})[0, -1]
+                r.prompt.astype(np.int64))[None].to(dev)})[0, -1].double()
             top2 = torch.topk(lg, 2).values
             gap = (top2[0] - top2[1]).item()
-            if gap <= tol:
-                skipped += 1
+            tok = r.out_tokens[0]
+            if gap > tol:
+                by_argmax += 1
+                if int(lg.argmax()) != tok:
+                    fail(f"{arch} {tag}: request {r.rid}'s first token "
+                         f"{tok} != the prefill argmax {int(lg.argmax())} "
+                         f"(top-2 gap {gap:.4f} > {tol:.4f})")
                 continue
-            checked += 1
-            if int(lg.argmax()) != r.out_tokens[0]:
-                fail(f"{arch} {tag}: request {r.rid}'s first token "
-                     f"{r.out_tokens[0]} != the prefill argmax "
-                     f"{int(lg.argmax())} (top-2 gap {gap:.4f} > {tol:.4f})")
+            by_distance += 1
+            bands.append(int((lg >= top2[0] - tol).sum()))
+            short = (top2[0] - lg[tok]).item()
+            if not short <= tol:
+                fail(f"{arch} {tag}: request {r.rid}'s first token {tok} "
+                     f"has a prefill logit {short:.4f} below the max "
+                     f"(tolerance {tol:.4f}, top-2 gap {gap:.4f})")
         print(f"[{arch}] (d) {tag} ContinuousBatcher batch {SERVE_BATCH} "
               f"cache {SERVE_CACHE}: {len(done)}/{len(reqs)} requests of "
               f"{[len(p) for p in prompts]} prompt tokens, {SERVE_NEW} new "
               f"each, {batcher.decode_steps} decode steps in {serve_s:.2f} "
-              f"s, launches while serving {served}; first token = the "
-              f"kernel prefill's argmax for {checked}, {skipped} with a "
-              f"top-2 gap within {tol:.4f}")
-        return checked, skipped
+              f"s, launches while serving {served}; all {len(reqs)} first "
+              f"tokens checked: {by_argmax} = the kernel prefill's argmax "
+              f"(top-2 gap above {tol:.4f}), {by_distance} within "
+              f"{tol:.4f} of its max (gap within it), admitting "
+              f"{bands} of the {lg.numel()} vocabulary tokens "
+              f"(largest {max(bands, default=0)})")
+        return by_argmax, by_distance
 
     def decode_logits(model, toks, steps, dtype=None):
         """decode_step's logits over the first ``steps`` tokens of ``toks``,
@@ -1707,7 +1819,8 @@ def lm_phases(args, dev, t_start):
         return torch.stack(dec, dim=1)
 
     def tie_threshold(arch, tag, model, toks, logits, gate):
-        """The top-2 gap above which (d) checks a first token: the served
+        """The top-2 gap above which (d) holds a first token to the argmax,
+        and below which to a logit within it of the max: the served
         token comes from decode_step with the batcher's cache, so at least
         twice the distance of its logits from the kernel prefill's, measured
         over the longest prompt's length, and at least ``gate``."""
@@ -1891,11 +2004,12 @@ def lm_phases(args, dev, t_start):
                                 dtype=np.int32)
                    for n in rng.integers(8, SERVE_PROMPT_MAX + 1,
                                          SERVE_REQUESTS)]
-        checked, _ = serve(arch, "f32", model, prefill, prompts,
-                           tie_threshold(arch, "f32", model, toks, logits,
-                                         LOGIT_RTOL * scale))
-        if checked == 0:
-            fail(f"{arch}: no f32 request's first token could be checked")
+        by_argmax, _ = serve(arch, "f32", model, prefill, prompts,
+                             tie_threshold(arch, "f32", model, toks, logits,
+                                           LOGIT_RTOL * scale))
+        if by_argmax == 0:
+            fail(f"{arch}: no f32 request's first token cleared the tie "
+                 "threshold for the argmax check")
         del model, prefill, logits, dec
         torch.cuda.empty_cache()
 
@@ -2093,7 +2207,8 @@ def main(argv=None) -> int:
     from repro_torch.core import conv2d_common
     from repro_torch.core.blocking import choose_blocking
     from repro_torch.core.convspec import ConvSpec
-    from repro_torch.core.blocking import choose_wgrad_blocking
+    from repro_torch.core.blocking import (choose_dgrad_blocking,
+                                           choose_wgrad_blocking)
     from repro_torch.core.direct_conv import (direct_conv_blocked,
                                               direct_conv_dgrad_blocked,
                                               direct_conv_wgrad_blocked)
@@ -2141,11 +2256,33 @@ def main(argv=None) -> int:
         print("[build] no cuobjdump in this toolkit: the HGMMA count of the "
               "flash-attention SASS is not taken")
     else:
-        for fn, n in hgmma.items():
+        for fn, (n, _) in hgmma.items():
             print(f"[build] HGMMA instructions {n:4d} in {fn}")
-        wgmma = {fn: n for fn, n in hgmma.items() if FLASH_BF16_KERNEL in fn}
+        wgmma = {fn: n for fn, (n, _) in hgmma.items()
+                 if FLASH_BF16_KERNEL in fn}
         if not wgmma or not all(wgmma.values()):
             fail(f"the bf16 flash kernel's SASS holds no HGMMA: {wgmma}")
+    # the phase-split dgrads: tensor-core instructions and no spills in
+    # every compiled instance (the main paths take lanes 64 and 128)
+    for res in built:
+        kernel = DGRAD_KERNELS.get(res.name)
+        if kernel is None:
+            continue
+        ptx = {fn: v for fn, v in ptxas_report(res.log).items()
+               if kernel in fn and "wgrad" not in fn}
+        tc = hgmma_counts(res.path)
+        for fn, (regs, st, ld) in sorted(ptx.items()):
+            n_tc = ("not taken" if tc is None else
+                    "HGMMA {} HMMA {}".format(*tc.get(fn, (0, 0))))
+            print(f"[build] {res.name} {fn}: tensor-core instructions "
+                  f"{n_tc}, {regs} registers, spill stores {st} B, spill "
+                  f"loads {ld} B")
+            if st or ld:
+                fail(f"{fn} spills ({st} B stores, {ld} B loads)")
+            if tc is not None and not any(tc.get(fn, (0, 0))):
+                fail(f"{fn}'s SASS holds no tensor-core instruction")
+        if not ptx:
+            fail(f"{res.name}: no {kernel} instance in the ptxas report")
     print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f} s")
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -2338,6 +2475,13 @@ def main(argv=None) -> int:
         bwd_ops[(ci, co, s, h)] = (x, w, z, g, spec)
         tag = f"{ci}->{co} {h}x{h} s{s} n{BATCH} relu"
         if ci != 3:        # conv1_1's dx is never needed: no dgrad there
+            cib, cob = min(ci, 128), min(co, 128)
+            dblk = choose_dgrad_blocking(BATCH, h, h, 3, 3, s, ci // cib,
+                                         cib, cob, prologue=True)
+            print(f"[bwd] dgrad {tag}: tile {dblk.th}x{dblk.tw} phase "
+                  f"positions, {dblk.wgs} consumer warpgroup(s), lanes "
+                  f"{dblk.lanes}, chunk {dblk.chunk}, window "
+                  f"{dblk.hwin}x{dblk.wwin}")
             got = direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu")
             want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z,
                                              "relu")
@@ -2431,15 +2575,20 @@ def main(argv=None) -> int:
         flops = spec.flops()
         row = {}
         if ci != 3:
+            def dgrad():
+                return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu")
+            d_bound = dgrad_bound(flops, 4 * (2 * g.numel() + w.numel()
+                                              + x.numel()))
             row["dgrad"] = (
-                time_ms(lambda: direct_conv2d_dgrad(g, w, (h, h), s, "SAME",
-                                                    z, "relu")),
+                time_ms(dgrad),
                 time_ms(lambda: direct_conv_dgrad_blocked(
                     g, w, (h, h), s, "SAME", z, "relu")),
                 time_ms(lambda: torch.ops.aten.convolution_backward(
                     dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1],
                     False, [0, 0], 1, [True, False, False])),
-                *bound(flops, 4 * (2 * g.numel() + w.numel() + x.numel())))
+                *d_bound[:2])
+            row["dgrad_f32_bound"] = d_bound[2]
+            row["dgrad_graph"] = graph_ms(dgrad)
         row["wgrad"] = (
             time_ms(lambda: wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu",
                                            with_db=True)),
@@ -2460,9 +2609,30 @@ def main(argv=None) -> int:
         del ws, xp, w_oihw, dz, dz_nchw
     sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ("dgrad", "wgrad", "reduce")}
     kinds = {k: [] for k in sums}
+    dg_sum = {"graph": 0.0, "macs": 0, "issued": 0, "f32": 0.0}
     for name, key in zip(LAYER_NAMES, layers):
         ci, co, s, h = key
         row = brows[key]
+        if "dgrad" in row:
+            k_ms, _, l_ms, b_ms, _ = row["dgrad"]
+            f32_ms = row["dgrad_f32_bound"]
+            x, w, z, g, _ = bwd_ops[key]
+            phases, plan, macs = dgrad_work(g, w, z, h, s, streamed=False)
+            dg_sum["graph"] += row["dgrad_graph"]
+            dg_sum["macs"] += macs
+            dg_sum["issued"] += plan.issued_macs
+            dg_sum["f32"] += f32_ms
+            print(f"[bwd] {name} dgrad phases: stride {s}, {phases} "
+                  f"phase(s), {plan.tiles} tiles, function MACs by phase "
+                  f"{plan.function_macs} (the function's), tensor-core MACs "
+                  f"issued {plan.issued_macs} (three products each; padding "
+                  f"{100 * plan.padding_share:.1f} %); eager_ms {k_ms:.4f} "
+                  f"graph_ms {row['dgrad_graph']:.4f} library_ms "
+                  f"{l_ms:.4f}; {macs / 1e6 / row['dgrad_graph']:.1f} "
+                  f"function GMAC/s on the device; bound_ms {b_ms:.4f} "
+                  f"(3xTF32), f32 FMA bound_ms {f32_ms:.4f}, issued MACs at "
+                  f"the TF32 peak "
+                  f"{2 * plan.issued_macs / PEAK_TF32_FLOPS * 1e3:.4f} ms")
         for kind in ("dgrad", "wgrad", "reduce"):
             if kind not in row:
                 continue
@@ -2479,6 +2649,14 @@ def main(argv=None) -> int:
         print(f"[bwd] all {len(kinds[kind])} {kind}: kernel_ms {k_ms:.4f} "
               f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
               f"{b_ms:.4f} ({mostly(kinds[kind])})")
+    print(f"[bwd] all {len(kinds['dgrad'])} dgrad phases: function MACs "
+          f"by phase {dg_sum['macs']}, tensor-core MACs issued "
+          f"{dg_sum['issued']} (padding "
+          f"{100 * (1 - 3 * dg_sum['macs'] / dg_sum['issued']):.1f} %); "
+          f"eager_ms {sums['dgrad'][0]:.4f} graph_ms {dg_sum['graph']:.4f} "
+          f"library_ms {sums['dgrad'][2]:.4f}; bound_ms "
+          f"{sums['dgrad'][3]:.4f} (3xTF32), f32 FMA bound_ms "
+          f"{dg_sum['f32']:.4f}")
 
     timed_steps("train", [("plain", tr.plain_step, tr.plain_state),
                           ("kernels", tr.step, tr.state)], tr.batches)

@@ -39,14 +39,14 @@ of their own (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
 ``choose_stream_wgrad_blocking``; see their section below).  Every chooser
 raises ``SmemMisfitError`` when nothing fits.
 
-The backward kernels (``csrc/direct_conv2d_bwd.cu``) reuse the vocabulary:
+The backward kernels reuse the vocabulary:
 
-* **dgrad** (``choose_dgrad_blocking``) is the forward's schedule on the
-  input grid: a CTA owns a ``hob x wob`` tile of the *unpadded* input
-  gradient and the Cib pencil as its register-tile lanes, and contracts the
-  Cob pencil.  It stages a window of the cotangent in its own coordinates
-  (``dgrad_window``; at stride 2 a dx tile reaches about half as many
-  cotangent rows) plus a transposed weight chunk ``[Hf*Wf, chunk, Cib]``.
+* **dgrad** (``choose_dgrad_blocking``, ``choose_stream_dgrad_blocking``)
+  tiles the phase-split tensor-core dgrad of ``csrc/dgrad_tile.cuh``: dx is
+  split by its phase against the stride (``dgrad_phase_axes``), and a CTA
+  of one or two warpgroups owns a tile of one phase, 64-row wgmma tiles of
+  its positions by all Cib lanes, contracting (reachable tap, Cob) a
+  ``chunk`` at a time through a two-stage ring (see its section below);
 * **wgrad** (``choose_wgrad_blocking``) gives each CTA a few taps'
   ``[Cib, Cob]`` blocks as its register tile and a share of the
   ``N x Ho/Hob x Wo/Wob`` position tiles; the shares' partial sums go to a
@@ -64,7 +64,10 @@ from repro_torch.core.layout import divisors
 __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
            "tile_positions",
            "smem_bytes", "choose_blocking", "dgrad_extents", "dgrad_window",
-           "DgradBlocking", "dgrad_smem_bytes", "choose_dgrad_blocking",
+           "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
+           "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
+           "dgrad_smem_bytes", "dgrad_tiles", "DgradPlan", "dgrad_plan",
+           "dgrad_candidates", "choose_dgrad_blocking",
            "WgradBlocking", "wgrad_smem_bytes", "choose_wgrad_blocking",
            "PointwiseBlocking", "pointwise_smem_bytes",
            "choose_pointwise_blocking", "PointwiseWgradBlocking",
@@ -98,6 +101,9 @@ class MachineModel:
     smem_budget: int      # shared-memory bytes one CTA may stage
     sms: int = 132        # streaming multiprocessors
     ctas_per_sm: int = 2  # resident CTAs the kernels' launch bounds ask for
+    # the most one CTA may use at one CTA an SM (the H100's 227 KB): the
+    # tensor-core dgrad's budget
+    smem_block: int = 232448
 
     @property
     def wave(self) -> int:
@@ -222,52 +228,285 @@ def dgrad_window(hob: int, wob: int, hf: int, wf: int,
             (wob + wf - 2) // stride + extra)
 
 
+# The phase-split tensor-core dgrad (csrc/dgrad_tile.cuh).  dx rows with
+# (i + pad) % s == ph take exactly the taps dh = ph + s*t from cotangent row
+# q - t (i + pad = s*q + ph), so each phase (ph, pw) is a stride-1
+# correlation over the taps it reaches.  A CTA owns th x tw positions of
+# one phase: one to three consumer warpgroups (DGRAD_CONSUMERS), each one
+# 64-row wgmma tile (DGRAD_ROWS) of positions by the Cib lanes (padded up
+# to a compiled width), and a producer warpgroup that stages through TMA;
+# per stage they contract `chunk` Cob channels of one Co block over the
+# phase's taps, from a window of the cotangent and the weights split in
+# TF32 halves.
+
+DGRAD_ROWS = 64                       # rows of one wgmma tile
+DGRAD_LANES = (8, 16, 32, 64, 128)    # compiled wgmma widths
+DGRAD_CONSUMERS = 3                   # the most consumer warpgroups a CTA
+# the cost model of the tile search (``dgrad_candidates``), in cycles of one
+# SM: the H100's dense TF32 rate in MACs a cycle (495e12 / 2 / 132 /
+# 1.83e9), the share of it one to three consumer warpgroups keep busy, and
+# a stage's cycles outside the wgmmas: a fixed part (a copy group's latency,
+# the barriers) and per staged float of each of the producer's 128 threads.
+# The shares and cycle counts were set by hand while the kernels came up,
+# against timings of probe copies that are not kept.  What holds them to
+# the card now is ``python -m repro_torch.launch.dgrad_tiles_ab``, which
+# times the candidates: on an H100 80GB HBM3 at 700 W the tiles chosen at
+# VGG-16's 12 dgrads summed 5.329 ms (window) and 6.602 ms (streamed),
+# against 5.177 and 6.487 for the fastest tile measured at each layer.
+# tests/test_torch_dgrad_phases.py pins those tiles, so a change here that
+# moves one shows.
+DGRAD_MACS_PER_CYCLE = 1024
+DGRAD_WG_EFFICIENCY = {1: 0.4, 2: 0.55, 3: 0.65}
+DGRAD_STAGE_CYCLES = 3000
+DGRAD_SPLIT_CYCLES = 2      # a weight split into TF32 halves
+DGRAD_PROLOGUE_CYCLES = 2   # dz = g * act'(z)
+DGRAD_BOX_CYCLES = 200      # one TMA box of window rows (streamed)
+
+
+@dataclasses.dataclass(frozen=True)
+class PhaseAxis:
+    """One axis of a stride phase: the dx rows ``first + s*a`` (``a <
+    extent``) take taps ``phase + s*t`` (``t < taps``) from cotangent rows
+    ``q0 + a - t``."""
+    phase: int
+    first: int
+    extent: int
+    q0: int
+    taps: int
+
+
+def dgrad_phase_axes(extent: int, f: int, stride: int,
+                     pad: int) -> tuple[PhaseAxis, ...]:
+    """The ``stride`` phases of one axis of an unpadded input of ``extent``
+    rows, filter ``f``, leading pad ``pad`` (the kernels' ``phase_axis``)."""
+    out = []
+    for ph in range(stride):
+        first = (ph - pad) % stride
+        out.append(PhaseAxis(
+            phase=ph, first=first,
+            extent=-(-(extent - first) // stride) if first < extent else 0,
+            q0=(first + pad - ph) // stride,
+            taps=(f - 1 - ph) // stride + 1 if ph < f else 0))
+    return tuple(out)
+
+
+def dgrad_lanes(cib: int) -> int:
+    """The wgmma width the kernels take for a ``cib`` pencil."""
+    lanes = next((n for n in DGRAD_LANES if cib <= n), None)
+    if lanes is None:
+        raise SmemMisfitError(f"cib={cib} is wider than the dgrad tile's "
+                              f"widest wgmma, {DGRAD_LANES[-1]} lanes")
+    return lanes
+
+
+def dgrad_smem_bytes(hf: int, wf: int, stride: int, lanes: int, chunk: int,
+                     hwin: int, wwin: int, prologue: bool,
+                     streamed: bool = False) -> int:
+    """Dynamic shared memory of one dgrad CTA (``dgrad_tile::smem_bytes``):
+    128 bytes to align the base; per slot of the two-slot ring the weights
+    of the most taps a phase reaches, ``chunk x lanes``, and their small
+    halves, and a ``hwin``-row cotangent window of ``wwin`` cells of
+    ``chunk + 4`` floats a row (the streamed kernel's rows padded to 128
+    bytes, which boxes of several rows need them to be already; the window
+    kernel's whole window one box, padded to 128 bytes), with ``z`` beside
+    it with the prologue; one
+    int per k8 step of a stage (rounded up to an even count); an 8-byte
+    mbarrier per slot and copy group."""
+    taps = -(-hf // stride) * -(-wf // stride)
+    row = wwin * (chunk + 4)
+    window = (hwin * -(-row // 32) * 32 if streamed
+              else -(-hwin * row // 32) * 32)
+    return (128 + 4 * (2 * (2 * taps * chunk * lanes
+                            + (2 if prologue else 1) * window)
+                       + -(-taps * chunk // 16) * 2)
+            + 8 * 2 * DGRAD_CONSUMERS)
+
+
 @dataclasses.dataclass(frozen=True)
 class DgradBlocking:
-    """Launch parameters of one dgrad: a ``hob x wob`` tile of the unpadded
-    input gradient per CTA, the Cob pencil contracted ``chunk`` channels at
-    a time over a ``hwin x wwin`` cotangent window; the staged weight chunk
-    ``[Hf*Wf, chunk, ldw]`` pads each Cib row to ``ldw`` floats."""
-    hob: int
-    wob: int
+    """Launch parameters of one dgrad.  A CTA of ``wgs`` consumer
+    warpgroups (and a producer) owns ``th x tw`` positions of one phase;
+    the window kernel's tile is one m-tile of ``64 * wgs`` rows, the
+    streamed kernel's band ``strips = wgs`` strips of ``hso`` rows, one
+    warpgroup's 64-row m-tile each, ``mstride`` positions apart.  Its
+    columns are the ``lanes`` wgmma width, and a stage contracts ``chunk``
+    Cob channels over a ``hwin x wwin`` cotangent window."""
+    th: int
+    tw: int
+    strips: int
+    wgs: int
+    lanes: int
     chunk: int
+    mstride: int
     hwin: int
     wwin: int
-    ldw: int
+
+    @property
+    def hso(self) -> int:
+        return self.th // self.strips
 
 
-def _dgrad_ldw(cib: int) -> int:
-    # the staged weight is written transposed (channel runs of cob become
-    # columns of cib): four floats of padding spread a column over the
-    # banks and keep the float4 reads of a row aligned
-    return cib + 4 if cib % 4 == 0 else cib
+def dgrad_tiles(blk: DgradBlocking, hi: int, wi: int, hf: int, wf: int,
+                stride: int, pads) -> list[tuple[PhaseAxis, PhaseAxis, int,
+                                                 int]]:
+    """The CTAs of one image and Ci block, in grid order (``tile_of``):
+    ``(row axis, column axis, a0, b0)``, phase by phase, row-major."""
+    (pt, _), (pl, _) = pads
+    rows = dgrad_phase_axes(hi, hf, stride, pt)
+    cols = dgrad_phase_axes(wi, wf, stride, pl)
+    out = []
+    for r in rows:
+        for c in cols:
+            for a0 in range(0, r.extent, blk.th):
+                for b0 in range(0, c.extent, blk.tw):
+                    out.append((r, c, a0, b0))
+    return out
 
 
-def dgrad_smem_bytes(hob: int, wob: int, chunk: int, cib: int, hf: int,
-                     wf: int, stride: int) -> int:
-    """Dynamic shared memory of one dgrad CTA: the f32 weight chunk, the
-    cotangent window, and one zero run of ``chunk`` floats that the taps a
-    stride skips read instead of the window."""
-    hwin, wwin = dgrad_window(hob, wob, hf, wf, stride)
-    return 4 * (hf * wf * chunk * _dgrad_ldw(cib) + hwin * wwin * chunk
-                + chunk)
+@dataclasses.dataclass(frozen=True)
+class DgradPlan:
+    """What one dgrad launch runs (``dgrad_tile::plan`` is its C++ twin):
+    ``tiles``, the grid's x extent; ``function_macs``, the function's MACs
+    as the phases split them (positions x reachable taps x Cib x Co, over
+    the images and Ci blocks); ``issued_macs``, the tensor-core MACs the
+    tiles issue: each consumer warpgroup's whole 64-row m-tile over its
+    phase's taps, Cob padded to k8 slices in every Co block, the ``lanes``
+    width, three products each."""
+    tiles: int
+    function_macs: int
+    issued_macs: int
+
+    @property
+    def padding_share(self) -> float:
+        """The share of the issued MACs that are no product of a function
+        MAC: m-tile rows past the tile or the phase, lanes past Cib,
+        channels past Cob."""
+        if not self.issued_macs:
+            return 0.0
+        return 1 - 3 * self.function_macs / self.issued_macs
+
+
+def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
+               wf: int, stride: int, pads, ciblk: int, cib: int, coblk: int,
+               cob: int) -> DgradPlan:
+    """What a launch of the tiles ``blk`` runs over ``n`` images of an
+    unpadded ``hi x wi`` input with leading pads ``pads``."""
+    (pt, _), (pl, _) = pads
+    tiles = dgrad_tiles(blk, hi, wi, hf, wf, stride, pads)
+    cells = sum(r.extent * c.extent * r.taps * c.taps
+                for r in dgrad_phase_axes(hi, hf, stride, pt)
+                for c in dgrad_phase_axes(wi, wf, stride, pl))
+    tile_taps = sum(r.taps * c.taps for r, c, _, _ in tiles)
+    kpad = -(-cob // 8) * 8
+    return DgradPlan(
+        tiles=len(tiles),
+        function_macs=n * ciblk * cells * cib * coblk * cob,
+        issued_macs=(n * ciblk * tile_taps * DGRAD_ROWS * blk.wgs * blk.lanes
+                     * coblk * kpad * 3))
+
+
+def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
+                     stride: int, ciblk: int, cib: int, cob: int,
+                     machine: MachineModel, prologue: bool, streamed: bool,
+                     hso: int | None = None):
+    """The tiles the search weighs, each as ``(key, DgradBlocking)``, the
+    least key the choice: for each consumer count (the streamed band's
+    strips: two or three, one a warpgroup) and tile width, the tallest
+    tile (or strip) that fits its 64-row m-tiles, balanced over the phase's
+    rows, and the largest ``chunk`` (a multiple of 8 dividing Cob rounded up
+    to 8) whose shared memory fits ``machine.smem_block``.  The key's cost
+    estimates the busiest SM's cycles: ``ceil(grid / sms)`` CTAs of
+    ``stages`` stages, each the longer of the consumers' three-product
+    wgmmas over a phase's taps on average (at ``DGRAD_MACS_PER_CYCLE``, the
+    share ``DGRAD_WG_EFFICIENCY`` of it they keep busy) and the rest of a
+    stage: a fixed part, the producer's split and prologue, and in the
+    streamed kernel its TMA boxes of window rows; ties go to more rows a
+    CTA, a larger chunk, then a smaller window."""
+    lanes = dgrad_lanes(cib)
+    mh, mw = -(-hf // stride), -(-wf // stride)
+    hp, wp = -(-hi // stride), -(-wi // stride)
+    kpad = -(-cob // 8) * 8
+    chunks = [c for c in range(kpad, 0, -8) if kpad % c == 0]
+    out = []
+    counts = range(2, DGRAD_CONSUMERS + 1) if streamed else range(
+        1, DGRAD_CONSUMERS + 1)
+    for wgs in counts:
+        rows = DGRAD_ROWS * wgs
+        for tw in range(1, min(wp, rows) + 1):
+            if streamed:                  # wgs strips of sh rows
+                sh = hso if hso is not None else min(-(-hp // wgs),
+                                                     DGRAD_ROWS // tw)
+                if sh < 1 or sh * tw > DGRAD_ROWS:
+                    continue
+                if hso is None:           # balance the bands over the rows
+                    sh = -(-hp // (wgs * -(-hp // (wgs * sh))))
+                th, mstride = wgs * sh, sh * tw
+            else:
+                th = min(hp, rows // tw)
+                if th < 1:
+                    continue
+                th = -(-hp // -(-hp // th))
+                mstride = rows
+            hwin, wwin = th + mh - 1, tw + mw - 1
+            chunk = next((c for c in chunks if dgrad_smem_bytes(
+                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed)
+                <= machine.smem_block), None)
+            if chunk is None:
+                continue
+            tiles = stride * stride * -(-hp // th) * -(-wp // tw)
+            taps = hf * wf / (stride * stride)    # a phase's, on average
+            mma = (3 * rows * taps * chunk * lanes / DGRAD_MACS_PER_CYCLE
+                   / DGRAD_WG_EFFICIENCY[wgs])
+            cells = hwin * wwin * chunk
+            other = DGRAD_STAGE_CYCLES + (
+                DGRAD_SPLIT_CYCLES * taps * chunk * lanes
+                + (DGRAD_PROLOGUE_CYCLES * cells if prologue else 0)
+            ) / DGRAD_ROWS / 2
+            if streamed:    # its TMA boxes of window rows, g's and z's
+                # a box of sh rows lands on 128 bytes only where a row
+                # fills whole 128-byte lines (wwin cells of chunk + 4 = 4
+                # mod 8 floats: wwin a multiple of 8); else one box a row
+                boxes = (-(-(sh + mh - 1) // sh) + wgs - 1
+                         if (tw + mw - 1) % 8 == 0 else hwin)
+                other += DGRAD_BOX_CYCLES * boxes * (2 if prologue else 1)
+            cost = (-(-tiles * ciblk * n // machine.sms) * (kpad // chunk)
+                    * max(mma, other))
+            out.append(((cost, -rows, -chunk, hwin * wwin, tiles),
+                        DgradBlocking(
+                            th=th, tw=tw, strips=wgs if streamed else 1,
+                            wgs=wgs, lanes=lanes, chunk=chunk,
+                            mstride=mstride, hwin=hwin, wwin=wwin)))
+    return out
+
+
+def _dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int, stride: int,
+                    ciblk: int, cib: int, cob: int, machine: MachineModel,
+                    prologue: bool, streamed: bool, hso: int | None,
+                    what: str) -> DgradBlocking:
+    """The least-cost tile of ``dgrad_candidates``."""
+    found = dgrad_candidates(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
+                             machine, prologue, streamed, hso)
+    if not found:
+        if hso is not None and hso > DGRAD_ROWS:
+            raise ValueError(f"hso={hso} phase rows do not fit a strip of "
+                             f"at most {DGRAD_ROWS} positions")
+        raise SmemMisfitError(
+            f"no {what} tile fits: filter {hf}x{wf}, stride {stride}, "
+            f"cib={cib}, cob={cob} need more than {machine.smem_block} bytes "
+            "of shared memory even at one position")
+    return min(found, key=lambda kb: kb[0])[1]
 
 
 @functools.lru_cache(maxsize=4096)
-def choose_dgrad_blocking(hi: int, wi: int, hf: int, wf: int, stride: int,
-                          cib: int, cob: int,
-                          machine: MachineModel = H100_SXM) -> DgradBlocking:
-    """Tile the input gradient of a conv over an unpadded ``hi x wi`` input
-    with the forward's rules, the pencils' roles swapped: the register
-    tile's lanes are Cib, the contraction chunk divides Cob."""
-    h, w, chunk = _fit_tile(
-        hi, wi, tile_positions(cib, machine), cob,
-        lambda h, w, c: dgrad_smem_bytes(h, w, c, cib, hf, wf, stride),
-        machine.smem_budget,
-        f"dgrad (filter {hf}x{wf}, stride {stride}, cib={cib})")
-    hwin, wwin = dgrad_window(h, w, hf, wf, stride)
-    return DgradBlocking(hob=h, wob=w, chunk=chunk, hwin=hwin, wwin=wwin,
-                         ldw=_dgrad_ldw(cib))
+def choose_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
+                          stride: int, ciblk: int, cib: int, cob: int,
+                          machine: MachineModel = H100_SXM,
+                          prologue: bool = False) -> DgradBlocking:
+    """Tile the window dgrad of ``n`` images over an unpadded ``hi x wi``
+    input (``_dgrad_blocking``): a CTA stages the whole cotangent window of
+    its ``th x tw`` tile a stage, with ``z`` beside it when ``prologue``."""
+    return _dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
+                           machine, prologue, False, None, "dgrad")
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +898,7 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
 # streamed (halo-ring) kernels: csrc/conv2d_stream.cu
 # ---------------------------------------------------------------------------
 #
-# The streamed forward and dgrad keep the window kernels' register tile
+# The streamed forward keeps the window forward's register tile
 # (``positions x lanes`` f32 sums a thread), so one CTA owns a *band* of at
 # most ``tile_positions`` output positions, ``hob x wob``.  Per channel
 # chunk the band's input rows reach shared memory as strips of ``hso``
@@ -669,6 +908,11 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
 # device memory once per chunk.  The ring holds the rows of two consecutive
 # strips: those of a window of ``2 * hso`` output rows (or of the band, when
 # it is one strip).  The weight chunk is staged once per chunk.
+#
+# The streamed dgrad is the phase-split tensor-core tile of the window
+# dgrad (above), streamed: its band is one or two strips of ``hso`` phase
+# rows, each strip one m-tile, and a stage's cotangent rows arrive strip by
+# strip (``choose_stream_dgrad_blocking``).
 #
 # The wgrad gives each CTA the window wgrad's tap group and walks a share of
 # ``(image, column tile, strip)`` items; per item it rings a halo'd x strip
@@ -687,23 +931,18 @@ def _round4(n: int) -> int:
 STREAM_STRIPS = (1, 2)
 
 
-def stream_ring_rows(hob: int, hso: int, hf: int, stride: int,
-                     dgrad: bool = False) -> int:
-    """Rows of the circular buffer: the input (forward) or cotangent
-    (dgrad) rows that feed ``min(2 * hso, hob)`` output rows of the band."""
-    rows = min(2 * hso, hob)
-    if dgrad:
-        return dgrad_window(rows, 1, hf, 1, stride)[0]
-    return (rows - 1) * stride + hf
+def stream_ring_rows(hob: int, hso: int, hf: int, stride: int) -> int:
+    """Rows of the circular buffer: the input rows that feed ``min(2 *
+    hso, hob)`` output rows of the band."""
+    return (min(2 * hso, hob) - 1) * stride + hf
 
 
 @dataclasses.dataclass(frozen=True)
 class StreamBlocking:
-    """Launch parameters of the streamed forward or dgrad: a ``hob x wob``
-    band of the output (forward) or of the unpadded input gradient (dgrad)
-    per CTA, streamed as ``n_strips`` strips of ``hso`` rows through a ring
-    of ``ring_rows x ring_cols`` cells of ``chunk`` channels; the staged
-    weight rows are ``ldw`` floats apart."""
+    """Launch parameters of the streamed forward: a ``hob x wob`` band of
+    the output per CTA, streamed as ``n_strips`` strips of ``hso`` rows
+    through a ring of ``ring_rows x ring_cols`` cells of ``chunk``
+    channels; the staged weight rows are ``ldw`` floats apart."""
     hob: int
     wob: int
     hso: int
@@ -723,18 +962,13 @@ def stream_gap_floats(cob: int, machine: MachineModel) -> int:
 
 
 def stream_smem_bytes(ring_rows: int, ring_cols: int, chunk: int, ldw: int,
-                      hf: int, wf: int, dgrad: bool = False,
-                      prologue: bool = False, gap_floats: int = 0) -> int:
-    """Dynamic shared memory of one streamed CTA, in the kernel's layout:
-    the weight chunk ``[Hf*Wf, chunk, ldw]``, the ring ``[ring_rows,
-    ring_cols, chunk]`` (twice in the dgrad with the prologue: ``z`` is
-    ringed beside the cotangent), each rounded up to 16 bytes, and in the
-    dgrad one zero run of ``chunk`` floats for the taps the stride skips.
-    The forward's GAP partial sums (``gap_floats``) reuse the buffer."""
-    ring = _round4(ring_rows * ring_cols * chunk)
-    floats = _round4(hf * wf * chunk * ldw) + ring
-    if dgrad:
-        floats += (ring if prologue else 0) + chunk
+                      hf: int, wf: int, gap_floats: int = 0) -> int:
+    """Dynamic shared memory of one streamed forward CTA, in the kernel's
+    layout: the weight chunk ``[Hf*Wf, chunk, ldw]`` and the ring
+    ``[ring_rows, ring_cols, chunk]``, each rounded up to 16 bytes.  The
+    GAP partial sums (``gap_floats``) reuse the buffer."""
+    floats = (_round4(hf * wf * chunk * ldw)
+              + _round4(ring_rows * ring_cols * chunk))
     return 4 * max(floats, gap_floats)
 
 
@@ -836,29 +1070,16 @@ def choose_stream_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
                                  stride: int, ciblk: int, cib: int, cob: int,
                                  machine: MachineModel = H100_SXM,
                                  prologue: bool = False,
-                                 hso: int | None = None) -> StreamBlocking:
-    """Tile the streamed input gradient over the unpadded ``hi x wi``
-    input: the forward's rules with the pencils' roles swapped (the
-    register tile's lanes are Cib, the chunk divides Cob), a ring of
-    cotangent rows in the cotangent's own coordinates (``dgrad_window``),
-    with ``z`` ringed beside it when ``prologue``."""
+                                 hso: int | None = None) -> DgradBlocking:
+    """Tile the streamed dgrad over the unpadded ``hi x wi`` input
+    (``_dgrad_blocking``): a band of two or three strips of ``hso`` phase
+    rows (``hso`` pins it), each one consumer warpgroup's m-tile, whose
+    cotangent rows arrive strip by strip, with ``z`` beside them when
+    ``prologue``."""
     if hso is not None and hso < 1:
         raise ValueError(f"hso={hso} must be >= 1")
-    ldw = _dgrad_ldw(cib)
-
-    def smem(h, w, s, c):
-        return stream_smem_bytes(
-            stream_ring_rows(h, s, hf, stride, dgrad=True),
-            dgrad_window(h, w, hf, wf, stride)[1], c, ldw, hf, wf,
-            dgrad=True, prologue=prologue)
-
-    h, w, s, chunk = _stream_band(
-        n * ciblk, hi, wi, cib, cob, machine, hso, smem,
-        f"streamed dgrad (filter {hf}x{wf}, stride {stride}, cib={cib})")
-    return StreamBlocking(
-        hob=h, wob=w, hso=s, chunk=chunk,
-        ring_rows=stream_ring_rows(h, s, hf, stride, dgrad=True),
-        ring_cols=dgrad_window(h, w, hf, wf, stride)[1], ldw=ldw)
+    return _dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
+                           machine, prologue, True, hso, "streamed dgrad")
 
 
 @dataclasses.dataclass(frozen=True)

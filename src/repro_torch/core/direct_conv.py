@@ -18,7 +18,10 @@ by tap, with the ``dz = g * act'(z)`` prologue and ``db``.  They
 accumulate in f32, or in f64 for f64 operands, so that the CPU can check
 gradients numerically and ``chip_smoke.py`` can hold the wgrad kernels'
 long sums against f64.  They pad and crop copies freely: they are
-references, not the main path.
+references, not the main path.  ``direct_conv_dgrad_phased`` computes the
+dense dgrad the way the CUDA dgrad kernels split it, phase by phase against
+the stride (``core.blocking.dgrad_phase_axes``); only the tests use it, to
+hold that geometry to the reference.
 
 Grouped convolutions with more than one input channel per group raise
 ``NotImplementedError``: they belong to the grouped/dilated dense slice.
@@ -30,7 +33,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.blocking import dgrad_extents
+from repro_torch.core.blocking import dgrad_extents, dgrad_phase_axes
 from repro_torch.core.conv2d_common import (apply_activation,
                                             cotangent_prologue, epilogue,
                                             gap_finalize, gap_partials,
@@ -41,7 +44,8 @@ from repro_torch.core.precision import resolve_precision
 
 __all__ = ["apply_activation", "pad_blocked", "bias_to_blocked",
            "direct_conv_blocked", "direct_conv_preactivation",
-           "direct_conv_dgrad_blocked", "direct_conv_wgrad_blocked",
+           "direct_conv_dgrad_blocked", "direct_conv_dgrad_phased",
+           "direct_conv_wgrad_blocked",
            "conv_spec", "backward_spec",
            "direct_conv1d_depthwise"]
 
@@ -243,6 +247,52 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
     (pt, pb), (pl, pr) = spec.pads
     dxp = pad_blocked(dxp, (0, spec.padded_hi - eh), (0, spec.padded_wi - ew))
     return dxp[:, :, pt:pt + hi, pl:pl + wi, :].to(g.dtype)
+
+
+def direct_conv_dgrad_phased(g: torch.Tensor, w: torch.Tensor, input_hw,
+                             stride: int = 1, padding: Padding = "VALID",
+                             z: Optional[torch.Tensor] = None,
+                             activation: Optional[str] = None) -> torch.Tensor:
+    """The dense input gradient (as ``direct_conv_dgrad_blocked``), split by
+    stride phase as the CUDA kernels split it: the dx rows ``first + s*a``
+    of a phase take taps ``phase + s*t`` from cotangent rows ``q0 + a - t``
+    (``dgrad_phase_axes``), cells outside the map read as 0, and each phase
+    is written once, so no stride hole is read and no dilated or padded
+    cotangent exists."""
+    hi, wi = input_hw
+    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
+    if spec.is_grouped:
+        raise NotImplementedError("the phase split is the dense dgrad's")
+    dt = _acc_dtype(g, w)
+    dz = cotangent_prologue(g, z, activation).to(dt)
+    wd = w.to(dt)
+    (pt, _), (pl, _) = spec.pads
+    n, ciblk, cib = g.shape[0], w.shape[1], w.shape[4]
+    dx = torch.zeros((n, ciblk, hi, wi, cib), dtype=dt, device=g.device)
+
+    def taps_of(ax, f, extent):
+        # per tap: (filter index, cotangent index of each phase row, mask)
+        out = []
+        for t in range(ax.taps):
+            o = ax.q0 + torch.arange(ax.extent, device=g.device) - t
+            ok = (o >= 0) & (o < extent)
+            out.append((ax.phase + stride * t, o.clamp(0, extent - 1), ok))
+        return out
+
+    for r in dgrad_phase_axes(hi, spec.hf, stride, pt):
+        for c in dgrad_phase_axes(wi, spec.wf, stride, pl):
+            if not (r.extent and c.extent):
+                continue
+            acc = dx.new_zeros((n, ciblk, r.extent, c.extent, cib))
+            for dh, oh, okh in taps_of(r, spec.hf, spec.ho):
+                for dw, ow, okw in taps_of(c, spec.wf, spec.wo):
+                    cells = dz[:, :, oh][:, :, :, ow]
+                    cells = cells * (okh[:, None] & okw[None, :]).to(dt)[
+                        None, None, :, :, None]
+                    acc += torch.einsum("nohwk,ocbk->nchwb", cells,
+                                        wd[:, :, dh, dw])
+            dx[:, :, r.first::stride, c.first::stride] = acc
+    return dx.to(g.dtype)
 
 
 def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,

@@ -124,8 +124,8 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
                                           cib, machine, gap)
     elif direction == "dgrad":
         def window():
-            return choose_dgrad_blocking(spec.hi, spec.wi, hf, wf, s, cib,
-                                         cob, machine)
+            return choose_dgrad_blocking(n, spec.hi, spec.wi, hf, wf, s,
+                                         ciblk, cib, cob, machine, prologue)
 
         def streamed():
             return choose_stream_dgrad_blocking(n, spec.hi, spec.wi, hf, wf,

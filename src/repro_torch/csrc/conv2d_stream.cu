@@ -2,8 +2,10 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/conv2d_stream.py:
-//   `_stream_conv_kernel` (:78; pallas_call :238 in `stream_forward`, and
-//       :284 in `stream_dgrad`, its transposed form)  -> stream_conv_kernel
+//   `_stream_conv_kernel` (:78; pallas_call :238 in `stream_forward`)
+//                                                     -> stream_conv_kernel
+//   the same kernel in its transposed form (pallas_call :284 in
+//       `stream_dgrad`)                               -> stream_dgrad_kernel
 //   `_stream_wgrad_kernel` (:306; pallas_call :384 in `stream_wgrad`)
 //                                                     -> stream_wgrad_kernel
 // They compute what the window kernels compute (direct_conv2d_fwd.cu,
@@ -23,17 +25,17 @@
 // strips through a 2-slot ring, strip k+1 in flight while strip k computes,
 // the `Hf - stride` halo rows moved slot to slot instead of re-read.  Here:
 //
-// * One CTA per (band of hob x wob output positions, output channel block,
-//   image).  The band is at most the window kernel's register tile (8
-//   positions x 8 lanes a thread), and the accumulators stay there.  A band
-//   is one or two strips (kStrips); strip s owns slots [s * kSlots, (s + 1)
-//   * kSlots) of every thread's tile, so a strip's FMAs run over a fixed
-//   range of registers with no per-slot predicate.  The loop order is the
-//   window kernel's: reduction block, channel chunk, then strips; per
-//   output element the sum runs over (block, chunk, dh, dw, channel) in
-//   the window kernel's order, so where both pick the same chunk the two
-//   forwards agree bit for bit.
-// * Per chunk the weight chunk is staged once, and the band's input rows
+// * The forward: one CTA per (band of hob x wob output positions, output
+//   channel block, image).  The band is at most the window kernel's
+//   register tile (8 positions x 8 lanes a thread), and the accumulators
+//   stay there.  A band is one or two strips (kStrips); strip s owns slots
+//   [s * kSlots, (s + 1) * kSlots) of every thread's tile, so a strip's FMAs
+//   run over a fixed range of registers with no per-slot predicate.  The
+//   loop order is the window kernel's: reduction block, channel chunk, then
+//   strips; per output element the sum runs over (block, chunk, dh, dw,
+//   channel) in the window kernel's order, so where both pick the same
+//   chunk the two forwards agree bit for bit.
+//   Per chunk the weight chunk is staged once, and the band's input rows
 //   arrive as strips of `hso` output rows through a circular row buffer of
 //   `ring_rows` rows (row r of the band lives in slot r % ring_rows), filled
 //   by `cp.async`: 16-byte copies where rows are aligned, 4-byte copies
@@ -43,12 +45,19 @@
 //   `__syncthreads`) before strip k+1's.  The halo rows two strips share
 //   are copied from device memory once per chunk; nothing moves between
 //   slots.
-// * The dgrad form (kDgrad) streams the cotangent rows in the cotangent's
-//   own coordinates: a thread's dx position takes, per tap, the cotangent
-//   cell the stride divides exactly, else a run of zeros; ring rows outside
-//   the map are zero-filled.  So no dilated or padded cotangent exists.
-//   With an activation, `z` is ringed beside `g` and dz = g * act'(z) is
-//   formed in place once a strip's fresh rows land: no dz tensor either.
+// * The dgrad (stream_dgrad_kernel) is the phase-split tensor-core tile of
+//   dgrad_tile.cuh (dx split by its phase against the stride, each phase an
+//   implicit GEMM over the taps it reaches, 3xTF32 wgmma), streamed: one
+//   CTA per (band of two or three strips of hso x tw positions of one
+//   phase, Ci block, image), one consumer warpgroup per strip and a
+//   producer warpgroup.  Per stage (Co block, Cob chunk) the band's
+//   cotangent rows, in the cotangent's own coordinates, reach a two-slot
+//   ring by TMA with `z` beside them, one copy group per strip: the weight
+//   chunk and strip 0's rows, then each later strip's fresh rows (those the
+//   strip before does not share), so strip k computes while strip k+1's
+//   rows are in flight, and the next stage's groups are in flight while
+//   this one computes.  dz = g * act'(z) is formed in place once a group
+//   lands; each halo row is read from device memory once per stage.
 // * The wgrad (stream_wgrad_kernel) holds one tap group's [Cib, Cob] blocks
 //   in registers (8 x 8 a thread, as the window wgrad) and walks a
 //   contiguous share of (image, column tile, strip) items: per item a
@@ -57,26 +66,32 @@
 //   the next item's copies in flight while this one computes.  db rides the
 //   CTAs of Ci block 0 and tap group 0.
 //
-// What bounds them on this card: the f32 FMA rate (VGG-16's convs do
-// 2*9*Ci FLOPs per output element for a few bytes; the H100's f32 ridge is
-// ~20 FLOP/byte), in practice the shared-memory reads feeding the FMAs.  A
-// strip holds half a thread's positions, so each weight read from shared
-// memory feeds half as many FMAs as in the window kernel; the design buys
-// copies that overlap the FMAs and halo rows read once.  The weight chunk
-// and a chunk's first strip are still waited for unoverlapped.  No tensor
-// cores (wgmma), TMA or persistent CTAs.
+// What bounds them on this card: the forward and wgrad, the f32 FMA rate
+// (VGG-16's convs do 2*9*Ci FLOPs per output element for a few bytes; the
+// H100's f32 ridge is ~20 FLOP/byte), in practice the shared-memory reads
+// feeding the FMAs; a strip holds half a thread's positions, so each
+// weight read from shared memory feeds half as many FMAs as in the window
+// kernel.  No tensor cores, TMA or persistent CTAs in either.  The dgrad,
+// the TF32 tensor-core rate spent three times over by the split, held
+// below it by the producer's per-stage passes and barriers (dgrad_tile.cuh,
+// direct_conv2d_bwd.cu).
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int; each
 // entry point returns cudaGetLastError() after its launch (0 on success).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "dgrad_tile.cuh"
+
 namespace {
+
+namespace dt = dgrad_tile;
 
 constexpr int kThreads = 256;   // threads per CTA
 constexpr int kLanes = 8;       // register-tile columns of one thread
-constexpr int kPositions = 8;   // fwd/dgrad: positions of one thread
+constexpr int kPositions = 8;   // forward: positions of one thread
 constexpr int kMinBlocksPerSm = 2;
 static_assert(kLanes == 8, "the float4 pair reads assume 8 lanes");
 
@@ -94,27 +109,8 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
-// dz = g * act'(z), as direct_conv2d_bwd.cu's (relu' = 1/2 at z == 0, the
-// reference's jnp.maximum)
-__device__ __forceinline__ float prologue(float g, float z, int act) {
-  if (act == kActRelu) {
-    return z > 0.0f ? g : (z == 0.0f ? 0.5f * g : 0.0f);
-  }
-  if (act == kActGelu) {
-    const float k = 0.7978845608028654f;
-    const float a = 0.044715f;
-    const float z2 = z * z;
-    const float t = tanhf(k * (z + a * z2 * z));
-    return g * (0.5f * (1.0f + t)
-                + 0.5f * z * (1.0f - t * t) * k * (1.0f + 3.0f * a * z2));
-  }
-  return g;
-}
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
-}
+// dz = g * act'(z), as the dgrad tile forms it
+using dt::prologue;
 
 __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
@@ -183,34 +179,21 @@ __device__ __forceinline__ void stage_rows(
   }
 }
 
-// dz = g * act'(z) in place over ring rows [lo, hi)
-__device__ __forceinline__ void ring_prologue(float* gring, const float* zring,
-                                              int ring_rows, int lo, int hi,
-                                              int row_floats, int act) {
-  const int total = (hi - lo) * row_floats;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int r = lo + i / row_floats;
-    const int e = (r % ring_rows) * row_floats + i % row_floats;
-    gring[e] = prologue(gring[e], zring[e], act);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward / dgrad
+// forward
 // ---------------------------------------------------------------------------
 
-// Generic names: the CTA owns a band of an oh x ow output grid (the conv's
-// output, or dx) with `lanes` channels (Cob, or Cib), and contracts `rblk`
-// blocks of `rpen` channels (Cib, or Cob) of an ih x iw input map (x, or g).
+// Generic names: the CTA owns a band of an oh x ow output grid with `lanes`
+// channels (Cob), and contracts `rblk` blocks of `rpen` channels (Cib) of
+// an ih x iw input map (x).
 // kVecW: lanes is a multiple of kLanes (two float4 weight reads a step).
 // kStrips: the band's strips (hob / hso).  Slot k of a thread's register
 // tile belongs to strip k / kSlots, so a strip's FMAs run over a fixed,
 // compile-time range of kSlots slots (no per-slot predicates), and each
 // strip holds up to kSlots * (position groups) positions.
-template <bool kDgrad, bool kVecW, int kStrips>
+template <bool kVecW, int kStrips>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
-                   const float* __restrict__ w,
+stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ w,
                    const float* __restrict__ bias,
                    const float* __restrict__ residual,
                    float* __restrict__ out, float* __restrict__ partials,
@@ -241,24 +224,11 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
   const int l0 = cg * kLanes;
 
   // band-relative input row 0 and column 0, in the input map's coordinates
-  int row0, col0;
-  if constexpr (kDgrad) {
-    row0 = floordiv(i0 + pad_top - (hf - 1), stride);
-    col0 = floordiv(j0 + pad_left - (wf - 1), stride);
-  } else {
-    row0 = i0 * stride - pad_top;
-    col0 = j0 * stride - pad_left;
-  }
+  const int row0 = i0 * stride - pad_top;
+  const int col0 = j0 * stride - pad_left;
 
-  const int ring_floats = round4(R * WW * chunk);
   float* w_s = smem;                                   // [taps, chunk, ldw]
   float* ring = smem + round4(taps * chunk * ldw);     // [R, WW, chunk]
-  float* zring = (kDgrad && zin != nullptr) ? ring + ring_floats : nullptr;
-  float* zeros = ring + ring_floats * (zring != nullptr ? 2 : 1);  // [chunk]
-  if constexpr (kDgrad) {
-    for (int i = t; i < chunk; i += kThreads) zeros[i] = 0.0f;
-  }
-  const int zero_off = (int)(zeros - ring);
 
   float acc[kPositions][kLanes];
 #pragma unroll
@@ -269,17 +239,12 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
 
   // the ring rows [lo, hi) that strip s reads
   auto strip_rows = [&](int s, int& lo, int& hi) {
-    if constexpr (kDgrad) {
-      lo = floordiv(i0 + s * hso + pad_top - (hf - 1), stride) - row0;
-      hi = floordiv(i0 + (s + 1) * hso - 1 + pad_top, stride) - row0 + 1;
-    } else {
-      lo = s * hso * stride;
-      hi = lo + (hso - 1) * stride + hf;
-    }
+    lo = s * hso * stride;
+    hi = lo + (hso - 1) * stride + hf;
   };
 
   const bool vec_in = chunk % 4 == 0 && rpen % 4 == 0;
-  const bool vec_w = !kDgrad && lanes % 4 == 0;
+  const bool vec_w = lanes % 4 == 0;
   const int strip_pos = hso * wob;
   // the band position of slot k of this thread, or -1 (a slot past its
   // strip computes on a valid offset and is never stored)
@@ -291,46 +256,26 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
   for (int rb = 0; rb < rblk; ++rb) {
     const size_t map = (size_t)(n * rblk + rb) * ih * iw * rpen;
     const float* in_b = in + map;
-    const float* z_b = zring != nullptr ? zin + map : nullptr;
-    const float* w_b =
-        kDgrad ? w + (size_t)(rb * oblk + o_b) * taps * lanes * rpen
-               : w + (size_t)(o_b * rblk + rb) * taps * rpen * lanes;
+    const float* w_b = w + (size_t)(o_b * rblk + rb) * taps * rpen * lanes;
     for (int c0 = 0; c0 < rpen; c0 += chunk) {
       // every thread is done with the previous chunk's weights and ring
       __syncthreads();
-      if constexpr (kDgrad) {
-        // transposed: w_s[tap][c][l] = w[tap][l][c0 + c]; neighbouring
-        // threads copy neighbouring c (coalesced reads)
-        for (int i = t; i < taps * lanes * chunk; i += kThreads) {
-          const int c = i % chunk;
-          const int rest = i / chunk;
-          const int l = rest % lanes;
-          const int tap = rest / lanes;
-          cp_async4(w_s + (tap * chunk + c) * ldw + l,
-                    w_b + ((size_t)tap * lanes + l) * rpen + c0 + c, true);
-        }
-      } else {
-        // per tap one contiguous run of chunk * lanes floats
-        const int run = chunk * lanes;
-        const int unit = vec_w ? 4 : 1;
-        for (int i = t * unit; i < taps * run; i += kThreads * unit) {
-          const int tap = i / run;
-          const float* src = w_b + ((size_t)tap * rpen + c0) * lanes + i % run;
-          if (vec_w) {
-            cp_async16(w_s + i, src, true);
-          } else {
-            cp_async4(w_s + i, src, true);
-          }
+      // per tap one contiguous run of chunk * lanes floats
+      const int run = chunk * lanes;
+      const int unit = vec_w ? 4 : 1;
+      for (int i = t * unit; i < taps * run; i += kThreads * unit) {
+        const int tap = i / run;
+        const float* src = w_b + ((size_t)tap * rpen + c0) * lanes + i % run;
+        if (vec_w) {
+          cp_async16(w_s + i, src, true);
+        } else {
+          cp_async4(w_s + i, src, true);
         }
       }
       int lo, hi;
       strip_rows(0, lo, hi);
       stage_rows(ring, R, in_b, ih, iw, rpen, row0, lo, hi, col0, WW, c0,
                  chunk, vec_in);
-      if (z_b != nullptr) {
-        stage_rows(zring, R, z_b, ih, iw, rpen, row0, lo, hi, col0, WW, c0,
-                   chunk, vec_in);
-      }
       cp_async_commit();
       int fresh_lo = lo;
 
@@ -338,10 +283,6 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
       for (int s = 0; s < kStrips; ++s) {
         cp_async_wait_all();
         __syncthreads();            // strip s has landed, for every thread
-        if (zring != nullptr) {
-          ring_prologue(ring, zring, R, fresh_lo, hi, WW * chunk, act);
-          __syncthreads();
-        }
         const int s_lo = lo;
         if (s + 1 < kStrips) {      // strip s+1's fresh rows, in flight
           int nlo, nhi;
@@ -349,18 +290,13 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
           fresh_lo = nlo > hi ? nlo : hi;
           stage_rows(ring, R, in_b, ih, iw, rpen, row0, fresh_lo, nhi, col0,
                      WW, c0, chunk, vec_in);
-          if (z_b != nullptr) {
-            stage_rows(zring, R, z_b, ih, iw, rpen, row0, fresh_lo, nhi,
-                       col0, WW, c0, chunk, vec_in);
-          }
           cp_async_commit();
           lo = nlo;
           hi = nhi;
         }
         if (!computes) continue;
         // per slot of strip s, the ring row (less the strip's first) and
-        // column of tap (0, 0); for the dgrad the numerators of tap (0, 0)
-        // against the strip's first row and column
+        // column of tap (0, 0)
         const int base = s_lo % R;
         bool on[kSlots];
         int prow[kSlots], pcol[kSlots];
@@ -370,32 +306,17 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
           on[kk] = p >= 0;
           const int r = on[kk] ? p / wob : 0;
           const int c = on[kk] ? p - r * wob : 0;
-          if constexpr (kDgrad) {
-            prow[kk] = i0 + r + pad_top - stride * (row0 + s_lo);
-            pcol[kk] = j0 + c + pad_left - stride * col0;
-          } else {
-            prow[kk] = r * stride - s_lo;
-            pcol[kk] = c * stride;
-          }
+          prow[kk] = r * stride - s_lo;
+          pcol[kk] = c * stride;
         }
         for (int dh = 0; dh < hf; ++dh) {
           for (int dw = 0; dw < wf; ++dw) {
             int off[kSlots];
 #pragma unroll
             for (int kk = 0; kk < kSlots; ++kk) {
-              if constexpr (kDgrad) {
-                const int uh = prow[kk] - dh;
-                const int uw = pcol[kk] - dw;
-                int slot = base + uh / stride;
-                if (slot >= R) slot -= R;
-                off[kk] = (on[kk] && uh % stride == 0 && uw % stride == 0)
-                              ? (slot * WW + uw / stride) * chunk
-                              : zero_off;
-              } else {
-                int slot = base + prow[kk] + dh;
-                if (slot >= R) slot -= R;
-                off[kk] = on[kk] ? (slot * WW + pcol[kk] + dw) * chunk : 0;
-              }
+              int slot = base + prow[kk] + dh;
+              if (slot >= R) slot -= R;
+              off[kk] = on[kk] ? (slot * WW + pcol[kk] + dw) * chunk : 0;
             }
             const float* wt = w_s + (dh * wf + dw) * chunk * ldw + l0;
 #pragma unroll 4
@@ -427,79 +348,202 @@ stream_conv_kernel(const float* __restrict__ in, const float* __restrict__ zin,
     }
   }
 
-  if constexpr (kDgrad) {
-    if (computes) {
+  // the window kernel's epilogue: acc + b, activation, + residual, one
+  // store; acc keeps the stored values for the GAP rider
+  if (computes) {
+    float bv[kLanes];
 #pragma unroll
-      for (int k = 0; k < kPositions; ++k) {
-        const int p = slot_position(k);
-        if (p >= 0) {
-          const size_t o = (((size_t)(n * oblk + o_b) * oh + i0 + p / wob)
-                            * ow + j0 + p % wob) * lanes + l0;
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            if (l0 + j < lanes) out[o + j] = acc[k][j];
-          }
-        }
-      }
+    for (int j = 0; j < kLanes; ++j) {
+      bv[j] = (bias != nullptr && l0 + j < lanes)
+                  ? bias[o_b * lanes + l0 + j] : 0.0f;
     }
-  } else {
-    // the window kernel's epilogue: acc + b, activation, + residual, one
-    // store; acc keeps the stored values for the GAP rider
-    if (computes) {
-      float bv[kLanes];
 #pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        bv[j] = (bias != nullptr && l0 + j < lanes)
-                    ? bias[o_b * lanes + l0 + j] : 0.0f;
-      }
-#pragma unroll
-      for (int k = 0; k < kPositions; ++k) {
-        const int p = slot_position(k);
-        if (p >= 0) {
-          const size_t o = (((size_t)(n * oblk + o_b) * oh + i0 + p / wob)
-                            * ow + j0 + p % wob) * lanes + l0;
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            if (l0 + j < lanes) {
-              float v = acc[k][j];
-              if (bias != nullptr) v += bv[j];
-              v = activate(v, act);
-              if (residual != nullptr) v += residual[o + j];
-              out[o + j] = v;
-              acc[k][j] = v;
-            } else {
-              acc[k][j] = 0.0f;
-            }
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) acc[k][j] = 0.0f;
-        }
-      }
-    }
-    if (partials != nullptr) {
-      __syncthreads();                        // the ring is free now
-      float* red = smem;                      // [npg, lanes]
-      if (computes) {
+    for (int k = 0; k < kPositions; ++k) {
+      const int p = slot_position(k);
+      if (p >= 0) {
+        const size_t o = (((size_t)(n * oblk + o_b) * oh + i0 + p / wob)
+                          * ow + j0 + p % wob) * lanes + l0;
 #pragma unroll
         for (int j = 0; j < kLanes; ++j) {
           if (l0 + j < lanes) {
-            float sum = 0.0f;
-#pragma unroll
-            for (int k = 0; k < kPositions; ++k) sum += acc[k][j];
-            red[pg * lanes + l0 + j] = sum;
+            float v = acc[k][j];
+            if (bias != nullptr) v += bv[j];
+            v = activate(v, act);
+            if (residual != nullptr) v += residual[o + j];
+            out[o + j] = v;
+            acc[k][j] = v;
+          } else {
+            acc[k][j] = 0.0f;
           }
         }
-      }
-      __syncthreads();
-      for (int co = t; co < lanes; co += kThreads) {
-        float sum = 0.0f;
-        for (int g = 0; g < npg; ++g) sum += red[g * lanes + co];
-        partials[((size_t)(n * oblk + o_b) * n_tiles + tile) * lanes + co] =
-            sum;
+      } else {
+#pragma unroll
+        for (int j = 0; j < kLanes; ++j) acc[k][j] = 0.0f;
       }
     }
   }
+  if (partials != nullptr) {
+    __syncthreads();                        // the ring is free now
+    float* red = smem;                      // [npg, lanes]
+    if (computes) {
+#pragma unroll
+      for (int j = 0; j < kLanes; ++j) {
+        if (l0 + j < lanes) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int k = 0; k < kPositions; ++k) sum += acc[k][j];
+          red[pg * lanes + l0 + j] = sum;
+        }
+      }
+    }
+    __syncthreads();
+    for (int co = t; co < lanes; co += kThreads) {
+      float sum = 0.0f;
+      for (int g = 0; g < npg; ++g) sum += red[g * lanes + co];
+      partials[((size_t)(n * oblk + o_b) * n_tiles + tile) * lanes + co] =
+          sum;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dgrad
+// ---------------------------------------------------------------------------
+
+// N: the wgmma width (Cib padded up).  A CTA's band is `strips` strips
+// (two or three) of hso x tw positions, one 64-row m-tile each (mstride =
+// hso * tw), computed by one consumer warpgroup each; one producer
+// warpgroup stages them.  A stage is one copy group per strip: the weights
+// and window rows [0, hso + T - 1) for strip 0, then each later strip's
+// fresh rows [k * hso + T - 1, (k + 1) * hso + T - 1) (T = ceil(Hf / s),
+// the most row taps of a phase), so strip k runs while strip k + 1's rows
+// are in flight.
+template <int N>
+__global__ void __launch_bounds__(dt::kMaxThreads, 1)
+stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
+                    const __grid_constant__ CUtensorMap tmg,
+                    const __grid_constant__ CUtensorMap tmz,
+                    float* __restrict__ dx, dt::Geometry geo) {
+  extern __shared__ __align__(16) float smem[];
+  const dt::Tile t = dt::tile_of(geo, blockIdx.x);
+  const int ci_b = blockIdx.y;
+  const int n = blockIdx.z;
+  const int nth = blockDim.x;
+  const int strips = nth / dt::kWarpgroup - 1;
+  const int pair = 2 * dt::kWarpgroup;  // one consumer and the producer
+  const dt::Smem m = dt::carve<N>(smem, geo);
+  const int taps = t.r.taps * t.c.taps;
+  const int steps = taps * geo.chunk / 8;
+  const int per_block = dt::kpad(geo) / geo.chunk;
+  const int stages = taps > 0 ? geo.coblk * per_block : 0;
+  const int mh = dt::max_taps(geo.hf, geo.stride) - 1;
+  const int hso = geo.th / strips;
+  // window rows of copy group k: strip 0's all, a later strip's fresh ones
+  auto lo_of = [&](int k) { return k == 0 ? 0 : k * hso + mh; };
+  auto hi_of = [&](int k) { return (k + 1) * hso + mh; };
+  dt::step_shifts(m.shifts, geo, t);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < dt::kSlots * dt::kMaxGroups; ++i) {
+      dt::mbar_init(&m.bars[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= strips * dt::kWarpgroup) {   // the producer warpgroup
+    const int tid = threadIdx.x - strips * dt::kWarpgroup;
+    const int o_h = t.r.q0 + t.a0 - mh;
+    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
+    auto issue_stage = [&](int s) {     // warp 0: stage s's copies
+      const int slot = s & 1;
+      const int co_b = s / per_block;
+      const int c0 = (s % per_block) * geo.chunk;
+      uint64_t* bars = &m.bars[slot * dt::kMaxGroups];
+      if (tid == 0) {
+        for (int k = 0; k < strips; ++k) {
+          dt::mbar_expect_tx(&bars[k],
+                             (k == 0 ? dt::weight_bytes<N>(geo, t) : 0)
+                                 + dt::row_bytes(geo, lo_of(k), hi_of(k)));
+        }
+      }
+      __syncwarp();
+      for (int k = 0; k < strips; ++k) {
+        if (k == 0) {
+          dt::issue_weights<N>(&tmw, m.big + slot * m.wst, &bars[k], geo, t,
+                               co_b, ci_b, c0, tid, 32);
+        }
+        dt::issue_rows(&tmg, &tmz, m.win + slot * m.cst,
+                       m.zwin + slot * m.cst, &bars[k], geo, n, co_b, c0,
+                       o_h, o_w, lo_of(k), hi_of(k), tid, 32);
+      }
+    };
+    if (tid < 32 && stages > 0) issue_stage(0);
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s & 1;
+      for (int k = 0; k < strips; ++k) {
+        dt::mbar_wait(&m.bars[slot * dt::kMaxGroups + k], (s >> 1) & 1);
+        if (k == 0) {
+          dt::split_weights(m.big + slot * m.wst, m.small + slot * m.wst,
+                            taps * geo.chunk * N, tid, dt::kWarpgroup);
+        }
+        if (geo.prologue) {
+          dt::prologue_rows(m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
+                            lo_of(k), hi_of(k), tid, dt::kWarpgroup);
+        }
+        dt::fence_proxy_async();
+        dt::bar_arrive(dt::kBarFull + slot * dt::kMaxGroups + k, pair);
+      }
+      if (s + 1 < stages) {
+        // the other slot once every strip is done with stage s - 1
+        if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
+        if (tid < 32) issue_stage(s + 1);
+      }
+    }
+    return;
+  }
+
+  const int strip = threadIdx.x / dt::kWarpgroup;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  int off[2];
+  dt::row_offsets(off, geo, strip, 0);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s & 1;
+    dt::bar_sync(dt::kBarFull + slot * dt::kMaxGroups + strip, pair);
+    dt::mma_stage<N>(acc, m.win + slot * m.cst, off, m.shifts, steps,
+                     m.big + slot * m.wst, m.small + slot * m.wst);
+    if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
+  }
+  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, strip, 0);
+}
+
+// The streamed dgrad's launch geometry: bands of `wgs` strips of hso x tw
+// phase positions, one m-tile each.  A strip's rows land as boxes of hso
+// rows where a window row fills whole 128-byte lines (each box lands on 128
+// bytes), else row by row.
+dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
+                            int cib, int hi, int wi, int hf, int wf,
+                            int stride, int pad_top, int pad_left, int hso,
+                            int tw, int wgs, int chunk, int act,
+                            bool prologue) {
+  const int wwin = tw + (wf - 1) / stride;
+  const int rows = wwin * (chunk + 4) % 32 == 0 ? hso : 1;
+  return dt::Geometry{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                      stride, pad_top, pad_left, wgs * hso, tw, hso * tw,
+                      chunk, act, prologue, rows};
+}
+
+// The compiled dgrad instances: wgmma widths 8, 16, 32, 64 and 128.
+dt::Kernel pick_dgrad(int lanes) {
+  switch (lanes) {
+    case 8: return stream_dgrad_kernel<8>;
+    case 16: return stream_dgrad_kernel<16>;
+    case 32: return stream_dgrad_kernel<32>;
+    case 64: return stream_dgrad_kernel<64>;
+    case 128: return stream_dgrad_kernel<128>;
+  }
+  return nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -691,41 +735,68 @@ void conv2d_stream_geometry(int* threads, int* lanes, int* positions) {
   *positions = kPositions;
 }
 
-// Forward (dgrad = 0) or dgrad (dgrad = 1); see stream_conv_kernel for the
-// generic names.  Grid: (bands, oblk, n).
-int conv2d_stream_conv(const void* in, const void* z, const void* w,
-                       const void* bias, const void* residual, void* out,
-                       void* partials, int dgrad, int n, int rblk, int ih,
-                       int iw, int rpen, int oblk, int lanes, int oh, int ow,
-                       int hf, int wf, int stride, int pad_top, int pad_left,
-                       int hob, int wob, int hso, int ring_rows,
-                       int ring_cols, int chunk, int ldw, int act,
-                       int smem_bytes, void* stream) {
+// The forward; see stream_conv_kernel for the generic names.  Grid:
+// (bands, oblk, n).
+int conv2d_stream_conv(const void* in, const void* w, const void* bias,
+                       const void* residual, void* out, void* partials, int n,
+                       int rblk, int ih, int iw, int rpen, int oblk, int lanes,
+                       int oh, int ow, int hf, int wf, int stride,
+                       int pad_top, int pad_left, int hob, int wob, int hso,
+                       int ring_rows, int ring_cols, int chunk, int ldw,
+                       int act, int smem_bytes, void* stream) {
   const bool vec = lanes % kLanes == 0;
   const int strips = hob / hso;
   if (hob % hso != 0 || (strips != 1 && strips != 2)) {
     return (int)cudaErrorInvalidValue;    // compiled for 1 or 2 strips
   }
   auto pick = [&](auto one, auto two) { return strips == 1 ? one : two; };
-  auto kernel =
-      dgrad ? (vec ? pick(stream_conv_kernel<true, true, 1>,
-                          stream_conv_kernel<true, true, 2>)
-                   : pick(stream_conv_kernel<true, false, 1>,
-                          stream_conv_kernel<true, false, 2>))
-            : (vec ? pick(stream_conv_kernel<false, true, 1>,
-                          stream_conv_kernel<false, true, 2>)
-                   : pick(stream_conv_kernel<false, false, 1>,
-                          stream_conv_kernel<false, false, 2>));
+  auto kernel = vec ? pick(stream_conv_kernel<true, 1>,
+                           stream_conv_kernel<true, 2>)
+                    : pick(stream_conv_kernel<false, 1>,
+                           stream_conv_kernel<false, 2>);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((oh / hob) * (ow / wob), oblk, n);
   kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)in, (const float*)z, (const float*)w, (const float*)bias,
+      (const float*)in, (const float*)w, (const float*)bias,
       (const float*)residual, (float*)out, (float*)partials, rblk, ih, iw,
       rpen, oblk, lanes, oh, ow, hf, wf, stride, pad_top, pad_left, hob, wob,
       hso, ring_rows, ring_cols, chunk, ldw, act);
   return (int)cudaGetLastError();
+}
+
+// The dgrad: bands of `wgs` strips (two or three) of hso x tw phase
+// positions, one consumer warpgroup each, the wgmma width `lanes`, `chunk`
+// Cob channels a stage.
+int conv2d_stream_dgrad(const void* g, const void* z, const void* w, void* dx,
+                        int n, int coblk, int cob, int ho, int wo, int ciblk,
+                        int cib, int hi, int wi, int hf, int wf, int stride,
+                        int pad_top, int pad_left, int hso, int tw, int wgs,
+                        int lanes, int chunk, int act, void* stream) {
+  const dt::Geometry geo = dgrad_geometry(
+      coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
+      pad_left, hso, tw, wgs, chunk, act, z != nullptr);
+  if (wgs < 2 || hso * tw > dt::kRows) return (int)cudaErrorInvalidValue;
+  return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
+                    (const float*)w, (float*)dx, n, geo, wgs, lanes,
+                    (cudaStream_t)stream);
+}
+
+// What conv2d_stream_dgrad runs with the same arguments (dgrad_tile::plan):
+// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued.
+int conv2d_stream_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
+                             int ciblk, int cib, int hi, int wi, int hf,
+                             int wf, int stride, int pad_top, int pad_left,
+                             int hso, int tw, int wgs, int lanes, int chunk,
+                             long long* out) {
+  if (wgs < 2 || hso * tw > dt::kRows || stride < 1 || hso < 1 || tw < 1)
+    return (int)cudaErrorInvalidValue;
+  dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                          stride, pad_top, pad_left, hso, tw, wgs, chunk, 0,
+                          false),
+           n, wgs, lanes, out);
+  return 0;
 }
 
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,

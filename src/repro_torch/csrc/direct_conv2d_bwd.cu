@@ -13,24 +13,31 @@
 //   dx  [N, Ci/Cib, Hi, Wi, Cib]   written at the unpadded shape
 //   dw  [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32, db [Co/Cob, Cob] f32
 //
-// with dz = g * act'(z) (relu, tanh-gelu) formed as each element of g is
-// staged in shared memory — the reference's `cotangent_prologue`.
+// with dz = g * act'(z) (relu, tanh-gelu) formed once per staged element of
+// g — the reference's `cotangent_prologue`.
 //
-// dgrad:  dx[n,i,j,c] = sum_{co,dh,dw} dz[n, (i+pt-dh)/s, (j+pl-dw)/s, co]
-//                                      * w[dh,dw,c,co]
-// where a term counts only if the division is exact and the index lies in
-// [0, Ho) x [0, Wo).  The reference builds a stride-dilated, halo-padded
-// copy of g (and of z), writes dx at the padded extents and crops it.  Here
-// masks replace all three copies, as the forward masks its pads: the staged
-// cotangent window is zero outside the map, and a tap that the stride skips
-// for a position reads a run of zeros in shared memory instead.  So dx rows
-// that no output reads (past the dgrad extents) come out exactly 0.
-// Schedule: the forward's, on the input grid.  One CTA per (dx tile of
-// hob x wob positions, Ci block, image); the Co blocks and Cob chunks loop
-// inside the CTA; each thread holds kPositions dx positions x kLanes Cib
-// lanes in f32 registers.  Per chunk the CTA stages the weight chunk
-// transposed to [tap, chunk, Cib] (so a thread reads its 8 lanes as two
-// float4) and the cotangent window [hwin, wwin, chunk].
+// dgrad (`dgrad_kernel`): the reference runs a stride-1 conv with mirrored
+// taps over a stride-dilated, halo-padded copy of the cotangent and crops
+// dx; at stride 2 three of every four of its taps read a stride hole.  Here
+// dx is split by its phase against the stride, and each phase is an
+// implicit GEMM over only the taps it reaches, on the tensor cores in
+// 3xTF32 (f32 accuracy): the core is dgrad_tile.cuh, which says how.  This
+// kernel is its window form: one CTA per (tile of th x tw positions of one
+// phase, Ci block, image), all phases in one grid; one to three consumer
+// warpgroups of 64 rows each run the wgmmas, and a producer warpgroup
+// stages each stage (Co block, chunk of Cob channels) as one TMA copy
+// group, the phase's weight chunk and the whole cotangent window of the
+// tile (z beside it), a stage ahead in a two-slot ring, then splits the
+// weights and forms dz.
+//
+// What bounds it on this card: the function does 2*9*Ci*Co FLOPs per input
+// position for a few bytes, far above the ridge, so the tensor cores' TF32
+// rate, which the three-product split spends three times over (the f32
+// FMA rate that bound the earlier kernel is 67 TFLOP/s; TF32 wgmma 495).
+// In practice the producer's passes (the split and the prologue, once per
+// stage for the whole window) and the per-stage barriers hold it below
+// that, most at stride 2, where a phase's few taps give a stage few wgmmas
+// while its window costs what a stride-1 window does.
 //
 // wgrad:  dw[dh,dw,c,co] = sum_{n,oh,ow} x[n, oh*s+dh-pt, ow*s+dw-pl, c]
 //                                        * dz[n,oh,ow,co],  db[co] = sum dz
@@ -44,59 +51,32 @@
 // Each share's sums go to its row of an f32 workspace [splits, |dw| + |db|];
 // `wgrad_reduce` then sums the rows in split order.  No atomics: two runs
 // give identical bits.  db rides the CTAs of Ci block 0 and tap group 0 only,
-// so it is summed once per Co block (the reference's `ci == 0` pass).
-//
-// What bounds these on this card.  Both do the forward's 2*9*Ci*Co FLOPs per
-// position against a few bytes of traffic, far above the H100's f32 ridge
-// (~20 FLOP/byte), so the bound is the f32 FMA rate, and in practice the
-// shared-memory reads feeding the FMAs.  The design's answer is the same
-// register tile as the forward: per step a thread reads 8 + 8 floats and
-// does 64 FMAs, with warp-wide broadcasts of the operand its neighbours
-// share.  Known costs, left for later work: at stride 2 three of four
-// dgrad taps read zeros (splitting dx by its parity against the stride
-// removes them); wgrad CTAs of one position tile stage the same window once
-// per tap group; nothing uses the tensor cores (wgmma), TMA or persistent
-// CTAs.
+// so it is summed once per Co block (the reference's `ci == 0` pass).  It
+// does the forward's FLOPs on plain f32 FMAs, bound in practice by the
+// shared-memory reads that feed them; its CTAs of one position tile stage
+// the same window once per tap group.
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int; each
 // entry point returns cudaGetLastError() after its launch (0 on success).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "dgrad_tile.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;   // threads per CTA
+namespace dt = dgrad_tile;
+
+constexpr int kThreads = 256;   // wgrad: threads per CTA
 constexpr int kLanes = 8;       // register-tile columns of one thread
-constexpr int kPositions = 8;   // dgrad: dx positions of one thread
+constexpr int kPositions = 8;   // the forward's positions of one thread
 constexpr int kMinBlocksPerSm = 2;
 static_assert(kLanes == 8, "the float4 pair reads assume 8 lanes");
 
-constexpr int kActRelu = 1;
-constexpr int kActGelu = 2;
-
-// dz = g * act'(z), in f32; the reference takes act' from the activation's
-// own VJP, this is the same derivative written out (relu is
-// jnp.maximum(z, 0) there, whose VJP splits the tie at z == 0)
-__device__ __forceinline__ float prologue(float g, float z, int act) {
-  if (act == kActRelu) {
-    return z > 0.0f ? g : (z == 0.0f ? 0.5f * g : 0.0f);
-  }
-  if (act == kActGelu) {
-    const float k = 0.7978845608028654f;  // sqrt(2 / pi)
-    const float a = 0.044715f;
-    const float z2 = z * z;
-    const float t = tanhf(k * (z + a * z2 * z));
-    return g * (0.5f * (1.0f + t)
-                + 0.5f * z * (1.0f - t * t) * k * (1.0f + 3.0f * a * z2));
-  }
-  return g;
-}
-
-__device__ __forceinline__ int floordiv(int a, int b) {
-  const int q = a / b;
-  return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
-}
+// dz = g * act'(z), as the dgrad tile forms it
+using dt::prologue;
 
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 lo = *reinterpret_cast<const float4*>(p);
@@ -131,155 +111,117 @@ __device__ __forceinline__ void stage_dz(float* dst, const float* g,
 // dgrad
 // ---------------------------------------------------------------------------
 
-// kVecW: Cib is a multiple of kLanes, so a thread's lanes are two aligned
-// float4 reads of the staged (transposed) weight row.
-template <bool kVecW>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-dgrad_kernel(const float* __restrict__ g, const float* __restrict__ z,
-             const float* __restrict__ w, float* __restrict__ dx,
-             int coblk, int cob, int ho, int wo, int ciblk, int cib, int hi,
-             int wi, int hf, int wf, int stride, int pad_top, int pad_left,
-             int hob, int wob, int hwin, int wwin, int chunk, int ldw,
-             int act) {
+// N: the wgmma width (Cib padded up).  A CTA is `wgs` consumer warpgroups,
+// each 64 rows of the tile (position p in warpgroup p / 64; mstride = 64 *
+// wgs), and one producer warpgroup that stages, splits and forms dz one
+// stage ahead of them: a stage is one copy group, the weights and the
+// whole cotangent window of the tile.
+template <int N>
+__global__ void __launch_bounds__(dt::kMaxThreads, 1)
+dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
+             const __grid_constant__ CUtensorMap tmg,
+             const __grid_constant__ CUtensorMap tmz, float* __restrict__ dx,
+             dt::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
-  const int tiles_w = wi / wob;
-  const int tile = blockIdx.x;
+  const dt::Tile t = dt::tile_of(geo, blockIdx.x);
   const int ci_b = blockIdx.y;
   const int n = blockIdx.z;
-  const int i0 = (tile / tiles_w) * hob;
-  const int j0 = (tile % tiles_w) * wob;
-  const int npos = hob * wob;
-
-  // thread -> (position group, Cib lane group), as the forward's tile
-  const int ncg = (cib + kLanes - 1) / kLanes;
-  const int npg = kThreads / ncg;
-  const int t = threadIdx.x;
-  const int cg = t % ncg;
-  const int pg = t / ncg;
-  const bool computes = pg < npg;
-  const int c_lo = cg * kLanes;
-
-  // the window's origin in cotangent coordinates
-  const int oh_lo = floordiv(i0 + pad_top - (hf - 1), stride);
-  const int ow_lo = floordiv(j0 + pad_left - (wf - 1), stride);
-
-  float* w_s = smem;                               // [hf*wf, chunk, ldw]
-  float* d_s = smem + hf * wf * chunk * ldw;       // [hwin, wwin, chunk]
-  const int zero_off = hwin * wwin * chunk;        // + [chunk] zeros
-  for (int i = t; i < chunk; i += kThreads) d_s[zero_off + i] = 0.0f;
-
-  // per position: its numerator (i + pt) - s * oh_lo, >= hf - 1 >= dh; -1
-  // for the slots past the tile
-  int ah[kPositions], aw[kPositions];
-#pragma unroll
-  for (int k = 0; k < kPositions; ++k) {
-    const int p = pg + k * npg;
-    if (p < npos) {
-      ah[k] = i0 + p / wob + pad_top - stride * oh_lo;
-      aw[k] = j0 + p % wob + pad_left - stride * ow_lo;
-    } else {
-      ah[k] = -1;
-      aw[k] = -1;
+  const int nth = blockDim.x;
+  const int consumers = nth - dt::kWarpgroup;
+  const dt::Smem m = dt::carve<N>(smem, geo);
+  const int taps = t.r.taps * t.c.taps;
+  const int steps = taps * geo.chunk / 8;
+  const int per_block = dt::kpad(geo) / geo.chunk;
+  const int stages = taps > 0 ? geo.coblk * per_block : 0;
+  dt::step_shifts(m.shifts, geo, t);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < dt::kSlots; ++i) {
+      dt::mbar_init(&m.bars[i * dt::kMaxGroups], 1);
     }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float acc[kPositions][kLanes];
-#pragma unroll
-  for (int k = 0; k < kPositions; ++k) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) acc[k][j] = 0.0f;
-  }
-
-  const int taps = hf * wf;
-  const bool vec_d = chunk % 4 == 0 && cob % 4 == 0;
-  const int unit = vec_d ? 4 : 1;
-  const int units = chunk / unit;
-  for (int co_b = 0; co_b < coblk; ++co_b) {
-    const size_t map = (size_t)(n * coblk + co_b) * ho * wo * cob;
-    const float* gb = g + map;
-    const float* zb = z != nullptr ? z + map : nullptr;
-    const float* wb = w + (size_t)(co_b * ciblk + ci_b) * taps * cib * cob;
-    for (int c0 = 0; c0 < cob; c0 += chunk) {
-      // weight chunk, transposed: w_s[tap][c][ci] = w[tap][ci][c0 + c];
-      // neighbouring threads read neighbouring c (coalesced)
-      for (int i = t; i < taps * cib * chunk; i += kThreads) {
-        const int c = i % chunk;
-        const int rest = i / chunk;
-        const int ci = rest % cib;
-        const int tap = rest / cib;
-        w_s[(tap * chunk + c) * ldw + ci] =
-            __ldg(wb + ((size_t)tap * cib + ci) * cob + c0 + c);
+  if (threadIdx.x >= consumers) {       // the producer warpgroup
+    const int tid = threadIdx.x - consumers;
+    const int rows = dt::hwin(geo);
+    const int o_h = t.r.q0 + t.a0 - (dt::max_taps(geo.hf, geo.stride) - 1);
+    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
+    auto issue_stage = [&](int s) {     // warp 0: stage s's copies
+      const int slot = s & 1;
+      const int co_b = s / per_block;
+      const int c0 = (s % per_block) * geo.chunk;
+      uint64_t* bar = &m.bars[slot * dt::kMaxGroups];
+      if (tid == 0) {
+        dt::mbar_expect_tx(bar, dt::weight_bytes<N>(geo, t)
+                                    + dt::row_bytes(geo, 0, rows));
       }
-      // cotangent window, prologue applied, zero outside the map
-      for (int i = t; i < hwin * wwin * units; i += kThreads) {
-        const int cell = i / units;
-        const int c = (i % units) * unit;
-        const int oh = oh_lo + cell / wwin;
-        const int ow = ow_lo + cell % wwin;
-        float* dst = d_s + cell * chunk + c;
-        if (oh >= 0 && oh < ho && ow >= 0 && ow < wo) {
-          stage_dz(dst, gb, zb, ((size_t)oh * wo + ow) * cob + c0 + c, vec_d,
-                   act);
-        } else {
-          for (int e = 0; e < unit; ++e) dst[e] = 0.0f;
-        }
+      __syncwarp();
+      dt::issue_weights<N>(&tmw, m.big + slot * m.wst, bar, geo, t, co_b,
+                           ci_b, c0, tid, 32);
+      dt::issue_rows(&tmg, &tmz, m.win + slot * m.cst,
+                     m.zwin + slot * m.cst, bar, geo, n, co_b, c0, o_h, o_w,
+                     0, rows, tid, 32);
+    };
+    if (tid < 32 && stages > 0) issue_stage(0);
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s & 1;
+      dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
+      dt::split_weights(m.big + slot * m.wst, m.small + slot * m.wst,
+                        taps * geo.chunk * N, tid, dt::kWarpgroup);
+      if (geo.prologue) {
+        dt::prologue_rows(m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
+                          0, rows, tid, dt::kWarpgroup);
       }
-      __syncthreads();
-      if (computes) {
-        for (int dh = 0; dh < hf; ++dh) {
-          for (int dw = 0; dw < wf; ++dw) {
-            int off[kPositions];
-#pragma unroll
-            for (int k = 0; k < kPositions; ++k) {
-              const int uh = ah[k] - dh;
-              const int uw = aw[k] - dw;
-              const bool hit = ah[k] >= 0 && uh % stride == 0 &&
-                               uw % stride == 0;
-              off[k] = hit ? ((uh / stride) * wwin + uw / stride) * chunk
-                           : zero_off;
-            }
-            const float* wt = w_s + (dh * wf + dw) * chunk * ldw + c_lo;
-#pragma unroll 4
-            for (int c = 0; c < chunk; ++c) {
-              float wv[kLanes];
-              if constexpr (kVecW) {
-                load8(wt + c * ldw, wv);
-              } else {
-#pragma unroll
-                for (int j = 0; j < kLanes; ++j) {
-                  wv[j] = (c_lo + j < cib) ? wt[c * ldw + j] : 0.0f;
-                }
-              }
-#pragma unroll
-              for (int k = 0; k < kPositions; ++k) {
-                const float dv = d_s[off[k] + c];
-#pragma unroll
-                for (int j = 0; j < kLanes; ++j) {
-                  acc[k][j] = fmaf(dv, wv[j], acc[k][j]);
-                }
-              }
-            }
-          }
-        }
-      }
-      __syncthreads();
-    }
-  }
-
-  if (computes) {
-#pragma unroll
-    for (int k = 0; k < kPositions; ++k) {
-      const int p = pg + k * npg;
-      if (p < npos) {
-        const size_t o = (((size_t)(n * ciblk + ci_b) * hi + i0 + p / wob)
-                          * wi + j0 + p % wob) * cib + c_lo;
-#pragma unroll
-        for (int j = 0; j < kLanes; ++j) {
-          if (c_lo + j < cib) dx[o + j] = acc[k][j];
-        }
+      dt::fence_proxy_async();
+      dt::bar_arrive(dt::kBarFull + slot * dt::kMaxGroups, nth);
+      if (s + 1 < stages) {
+        // the other slot once the consumers are done with stage s - 1
+        if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
+        if (tid < 32) issue_stage(s + 1);
       }
     }
+    return;
   }
+
+  const int q0 = threadIdx.x / dt::kWarpgroup * dt::kRows;
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  int off[2];
+  dt::row_offsets(off, geo, 0, q0);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s & 1;
+    dt::bar_sync(dt::kBarFull + slot * dt::kMaxGroups, nth);
+    dt::mma_stage<N>(acc, m.win + slot * m.cst, off, m.shifts, steps,
+                     m.big + slot * m.wst, m.small + slot * m.wst);
+    if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
+  }
+  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, 0, q0);
+}
+
+// The window dgrad's launch geometry: tiles of th x tw phase positions, one
+// m-tile of 64 * wgs rows, the whole window one TMA box.
+dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
+                            int cib, int hi, int wi, int hf, int wf,
+                            int stride, int pad_top, int pad_left, int th,
+                            int tw, int wgs, int chunk, int act,
+                            bool prologue) {
+  return dt::Geometry{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                      stride, pad_top, pad_left, th, tw, dt::kRows * wgs,
+                      chunk, act, prologue, th + (hf - 1) / stride};
+}
+
+// The compiled dgrad instances: wgmma widths 8, 16, 32, 64 and 128.
+dt::Kernel pick_dgrad(int lanes) {
+  switch (lanes) {
+    case 8: return dgrad_kernel<8>;
+    case 16: return dgrad_kernel<16>;
+    case 32: return dgrad_kernel<32>;
+    case 64: return dgrad_kernel<64>;
+    case 128: return dgrad_kernel<128>;
+  }
+  return nullptr;
 }
 
 // ---------------------------------------------------------------------------
@@ -476,22 +418,36 @@ void direct_conv2d_bwd_geometry(int* threads, int* lanes, int* positions) {
   *positions = kPositions;
 }
 
+// Tiles of th x tw phase positions, `wgs` consumer warpgroups a CTA, the
+// wgmma width `lanes`, `chunk` Cob channels a stage.
 int direct_conv2d_dgrad(const void* g, const void* z, const void* w, void* dx,
                         int n, int coblk, int cob, int ho, int wo, int ciblk,
                         int cib, int hi, int wi, int hf, int wf, int stride,
-                        int pad_top, int pad_left, int hob, int wob, int hwin,
-                        int wwin, int chunk, int ldw, int act, int smem_bytes,
-                        void* stream) {
-  auto kernel = cib % kLanes == 0 ? dgrad_kernel<true> : dgrad_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((hi / hob) * (wi / wob), ciblk, n);
-  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)z, (const float*)w, (float*)dx, coblk,
-      cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top, pad_left, hob,
-      wob, hwin, wwin, chunk, ldw, act);
-  return (int)cudaGetLastError();
+                        int pad_top, int pad_left, int th, int tw, int wgs,
+                        int lanes, int chunk, int act, void* stream) {
+  const dt::Geometry geo = dgrad_geometry(
+      coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
+      pad_left, th, tw, wgs, chunk, act, z != nullptr);
+  if (th * tw > dt::kRows * wgs) return (int)cudaErrorInvalidValue;
+  return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
+                    (const float*)w, (float*)dx, n, geo, wgs, lanes,
+                    (cudaStream_t)stream);
+}
+
+// What direct_conv2d_dgrad runs with the same arguments (dgrad_tile::plan):
+// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued.
+int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
+                             int ciblk, int cib, int hi, int wi, int hf,
+                             int wf, int stride, int pad_top, int pad_left,
+                             int th, int tw, int wgs, int lanes, int chunk,
+                             long long* out) {
+  if (th * tw > dt::kRows * wgs || stride < 1 || th < 1 || tw < 1)
+    return (int)cudaErrorInvalidValue;
+  dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                          stride, pad_top, pad_left, th, tw, wgs, chunk, 0,
+                          false),
+           n, wgs, lanes, out);
+  return 0;
 }
 
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` file has a plain C interface and becomes one shared
 library, compiled for ``sm_90a`` at first use into ``src/repro_torch/build``
 (listed in ``.gitignore``).  A library's file name carries a hash of its
-source and flags, so an edited source is rebuilt and a stale one is never
-loaded.  Nothing here runs at import time.
+source, of every shared header ``csrc/*.cuh`` and of the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.
+Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -35,7 +36,8 @@ class BuildResult:
     name: str          # source stem, e.g. "direct_conv2d_fwd"
     path: Path         # the shared library
     seconds: float     # wall time of this build (0.0 when it was cached)
-    log: str           # nvcc's output (ptxas register/shared-memory report)
+    log: str           # nvcc's output (ptxas register/shared-memory report),
+                       # kept beside the library for a cached build
 
 
 def _nvcc() -> str:
@@ -47,9 +49,13 @@ def _nvcc() -> str:
 
 
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+    """The library built from ``src``: its name hashes the source, every
+    header in ``CSRC`` (a source may include any of them) and the flags."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> BuildResult:
@@ -60,8 +66,10 @@ def build(name: str) -> BuildResult:
     if not src.exists():
         raise FileNotFoundError(f"no CUDA source {src}")
     target = _target(src)
+    log = target.with_suffix(".log")
     if target.exists():
-        return BuildResult(name, target, 0.0, "")
+        return BuildResult(name, target, 0.0,
+                           log.read_text() if log.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
@@ -71,7 +79,10 @@ def build(name: str) -> BuildResult:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}")
-    os.replace(tmp, target)              # atomic: a reader never sees half
+    log_tmp = log.with_name(f"{log.name}.{os.getpid()}.tmp")
+    log_tmp.write_text(proc.stdout)
+    os.replace(log_tmp, log)             # the log first: a built library
+    os.replace(tmp, target)              # has one; atomic, never half seen
     return BuildResult(name, target, time.perf_counter() - t0, proc.stdout)
 
 

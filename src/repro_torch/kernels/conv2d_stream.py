@@ -2,9 +2,11 @@
 
 The port of ``repro/kernels/conv2d_stream.py``: ``stream_forward``
 (``_stream_conv_kernel``, ``:78``, launched at ``:238``), ``stream_dgrad``
-(the same kernel in its transposed form, ``:284``) and ``stream_wgrad``
-(``_stream_wgrad_kernel``, ``:306``, launched at ``:384``), all in
-``csrc/conv2d_stream.cu``.  They compute the dense family's functions:
+(that kernel's transposed use, ``:284``; here ``stream_dgrad_kernel``, the
+phase-split tensor-core tile of ``csrc/dgrad_tile.cuh`` fed strip by
+strip) and ``stream_wgrad`` (``_stream_wgrad_kernel``, ``:306``, launched
+at ``:384``), all in ``csrc/conv2d_stream.cu``.  They compute the dense
+family's functions:
 
 * ``stream_forward``: ``act(conv(x, w) + b) + r``, pooled with ``gap``;
 * ``stream_dgrad``: ``dx`` of that conv from the raw cotangent ``g`` and the
@@ -13,9 +15,10 @@ The port of ``repro/kernels/conv2d_stream.py``: ``stream_forward``
 * ``stream_wgrad``: ``(dw, db)``, the kernel's per-share partial sums added
   in split order by the dense family's ``wgrad_reduce``.
 
-Unlike the reference they take the port's **unpadded** operands: pads,
-the cotangent's stride holes and halos are zero-filled copies, so no padded,
-dilated or ``dz`` tensor exists.  Tiles come from the streamed blocking
+Unlike the reference they take the port's **unpadded** operands: pads and
+halos are zero-filled copies, and the dgrad reads no stride hole (each
+phase takes only the taps it reaches), so no padded, dilated or ``dz``
+tensor exists.  Tiles come from the streamed blocking
 models (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
 ``choose_stream_wgrad_blocking``); ``hso`` pins the strip height.
 
@@ -52,7 +55,8 @@ from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
                                                _require, check_machine,
-                                               gap_finalize, wgrad_reduce)
+                                               dgrad_launch, gap_finalize,
+                                               wgrad_reduce)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
@@ -67,8 +71,13 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_stream_conv.argtypes = [ptr] * 7 + [i32] * 24 + [ptr]
+    lib.conv2d_stream_conv.argtypes = [ptr] * 6 + [i32] * 23 + [ptr]
     lib.conv2d_stream_conv.restype = i32
+    lib.conv2d_stream_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.conv2d_stream_dgrad.restype = i32
+    lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.conv2d_stream_dgrad_plan.restype = i32
     lib.conv2d_stream_wgrad.argtypes = [ptr] * 4 + [i32] * 23 + [ptr]
     lib.conv2d_stream_wgrad.restype = i32
 
@@ -142,8 +151,8 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = lib.conv2d_stream_conv(
-            _ptr(x), None, _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
-            _ptr(partials), 0, n, x.shape[1], x.shape[2], x.shape[3], cib,
+            _ptr(x), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
+            _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], cib,
             coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf, stride,
             spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.hso,
             blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
@@ -178,26 +187,10 @@ def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation)
-    dev = _cuda_device(g)
-    _require(g, "g", dev, vector_loads=True)
-    _require(w, "w", dev)
-    if prologue:
-        _require(z, "z", dev, vector_loads=True)
-    if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
-    smem = stream_smem_bytes(blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
-                             hf, wf, dgrad=True, prologue=prologue)
-    dx = torch.empty((n, ciblk, hi, wi, cib), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_stream_conv(
-            _ptr(g), _ptr(z) if prologue else None, _ptr(w), None, None,
-            _ptr(dx), None, 1, n, coblk, ho, wo, cob, ciblk, cib, hi, wi, hf,
-            wf, stride, spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob,
-            blk.hso, blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
-            _ACT_CODES[activation], smem, stream)
-        LAUNCHES["conv2d_stream_dgrad"] += 1
+    err, dx = dgrad_launch(lib.conv2d_stream_dgrad, blk.hso, blk, g, w, spec,
+                           z if prologue else None, activation)
+    LAUNCHES["conv2d_stream_dgrad"] += 1
     _check(err, lib, "conv2d_stream_dgrad")
     return dx
 

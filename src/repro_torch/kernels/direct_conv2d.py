@@ -49,12 +49,12 @@ import numpy as np
 import torch
 
 from repro_torch.core import conv2d_common
-from repro_torch.core.blocking import (H100_SXM, MachineModel,
-                                       choose_blocking,
+from repro_torch.core.blocking import (H100_SXM, DgradBlocking, DgradPlan,
+                                       MachineModel, choose_blocking,
                                        choose_dgrad_blocking,
-                                       choose_wgrad_blocking,
-                                       dgrad_smem_bytes, smem_bytes,
-                                       wgrad_smem_bytes)
+                                       choose_stream_dgrad_blocking,
+                                       choose_wgrad_blocking, dgrad_plan,
+                                       smem_bytes, wgrad_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
                                        route_stream)
@@ -71,8 +71,8 @@ from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "check_machine",
            "direct_conv2d_blocked",
-           "gap_finalize", "direct_conv2d_dgrad", "direct_conv2d_wgrad",
-           "wgrad_partials", "wgrad_reduce"]
+           "gap_finalize", "direct_conv2d_dgrad", "dgrad_plans",
+           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_reduce"]
 
 LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
             "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
@@ -124,8 +124,11 @@ def _declare_fwd(lib, ptr, i32) -> None:
 
 
 def _declare_bwd(lib, ptr, i32) -> None:
-    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
+    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
     lib.direct_conv2d_dgrad.restype = i32
+    lib.direct_conv2d_dgrad_plan.argtypes = [i32] * 19 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.direct_conv2d_dgrad_plan.restype = i32
     lib.direct_conv2d_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
     lib.direct_conv2d_wgrad.restype = i32
     lib.wgrad_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32, ptr]
@@ -172,7 +175,7 @@ def _require(t: torch.Tensor, name: str, device: torch.device,
 def check_machine(machine: MachineModel) -> None:
     """The kernels are compiled for ``H100_SXM``'s register tile and CTA
     size; a machine model may differ from it only in ``smem_budget``,
-    ``sms`` and ``ctas_per_sm``."""
+    ``smem_block``, ``sms`` and ``ctas_per_sm``."""
     m = H100_SXM
     if (machine.threads, machine.lanes, machine.positions) != (
             m.threads, m.lanes, m.positions):
@@ -180,7 +183,7 @@ def check_machine(machine: MachineModel) -> None:
             f"machine {machine.name!r}: (threads, lanes, positions)="
             f"{(machine.threads, machine.lanes, machine.positions)}, but the "
             f"kernels are compiled for {(m.threads, m.lanes, m.positions)}; "
-            "only smem_budget, sms and ctas_per_sm may differ")
+            "only smem_budget, smem_block, sms and ctas_per_sm may differ")
 
 
 def _stream_kernels():
@@ -395,7 +398,9 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
     at the unpadded ``input_hw``, with ``dz = g * act'(z)`` formed as ``g``
     is staged.  ``stride``/``padding`` are the forward's; ``stream``,
-    ``hso`` and ``machine`` route it as the forward."""
+    ``hso`` and ``machine`` route it as the forward.  On CUDA: the
+    phase-split tensor-core kernel (``csrc/dgrad_tile.cuh``), all phases in
+    one launch."""
     _backward_operands(g, z, activation)
     check_machine(machine)
     hi, wi = input_hw
@@ -408,30 +413,88 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
         return _stream_kernels().stream_dgrad(
             g, w, input_hw, stride, padding, z, activation, hso=hso,
             machine=machine)
-    blk = choose_dgrad_blocking(hi, wi, hf, wf, stride, cib, cob, machine)
+    blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
+                                machine, prologue)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation)
+    err, dx = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th, blk, g,
+                           w, spec, z if prologue else None, activation)
+    LAUNCHES["direct_conv2d_dgrad"] += 1
+    _check(err, _bwd_lib(), "direct_conv2d_dgrad")
+    return dx
+
+
+def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
+                 w: torch.Tensor, spec: ConvSpec, z: Optional[torch.Tensor],
+                 activation: Optional[str]):
+    """Call a phase-split dgrad kernel's C ``entry`` (the window one, whose
+    ``rows`` are the tile's ``th``, or the streamed one, whose ``rows`` are
+    a strip's ``hso``) with the tiles ``blk`` on CUDA operands, ``z`` only
+    with the prologue -> ``(CUDA error code, dx)``; the caller counts the
+    launch."""
     dev = _cuda_device(g)
     _require(g, "g", dev, vector_loads=True)
-    _require(w, "w", dev)
+    _require(w, "w", dev, vector_loads=True)
     if z is not None:
         _require(z, "z", dev, vector_loads=True)
+    n, coblk, ho, wo, cob = g.shape
+    _, ciblk, hf, wf, cib, _ = w.shape
+    if cob % 4:
+        raise ValueError(f"cob={cob}: the dgrad kernels' TMA copies take "
+                         "Cob pencils of a multiple of 4 channels")
     if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
-    smem = dgrad_smem_bytes(blk.hob, blk.wob, blk.chunk, cib, hf, wf, stride)
-    dx = torch.empty((n, ciblk, hi, wi, cib), device=dev, dtype=torch.float32)
-    lib = _bwd_lib()
+    dx = torch.empty((n, ciblk, spec.hi, spec.wi, cib), device=dev,
+                     dtype=torch.float32)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.direct_conv2d_dgrad(
-            _ptr(g), _ptr(z), _ptr(w), _ptr(dx), n, coblk, cob, ho, wo, ciblk,
-            cib, hi, wi, hf, wf, stride, spec.pads[0][0], spec.pads[1][0],
-            blk.hob, blk.wob, blk.hwin, blk.wwin, blk.chunk, blk.ldw,
-            _ACT_CODES[activation], smem, stream)
-        LAUNCHES["direct_conv2d_dgrad"] += 1
-    _check(err, lib, "direct_conv2d_dgrad")
-    return dx
+        err = entry(_ptr(g), _ptr(z), _ptr(w), _ptr(dx),
+                    *_dgrad_ints(rows, blk, g.shape, w.shape, spec),
+                    _ACT_CODES[activation], stream)
+    return err, dx
+
+
+def _dgrad_ints(rows: int, blk: DgradBlocking, g_shape, w_shape,
+                spec: ConvSpec) -> tuple:
+    """The geometry arguments of a dgrad kernel's C entries."""
+    n, coblk, ho, wo, cob = g_shape
+    _, ciblk, hf, wf, cib, _ = w_shape
+    return (n, coblk, cob, ho, wo, ciblk, cib, spec.hi, spec.wi, hf, wf,
+            spec.stride, spec.pads[0][0], spec.pads[1][0], rows, blk.tw,
+            blk.wgs, blk.lanes, blk.chunk)
+
+
+def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
+                input_hw: Tuple[int, int], stride: int = 1,
+                padding: Padding = "VALID", z: Optional[torch.Tensor] = None,
+                activation: Optional[str] = None, *, streamed: bool = False,
+                machine: MachineModel = H100_SXM
+                ) -> Tuple[DgradPlan, DgradPlan]:
+    """What one launch of the window dgrad kernel (with ``streamed``, the
+    streamed one) runs on these operands, tiled as its wrapper tiles them
+    by default: ``(the kernel library's own count, its *_plan entry;
+    core.blocking.dgrad_plan's)``.  Reads the built library; launches
+    nothing."""
+    hi, wi = input_hw
+    n, coblk, _, _, cob = g.shape
+    _, ciblk, hf, wf, cib, _ = w.shape
+    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
+    prologue = z is not None and activation not in (None, "linear")
+    if streamed:
+        blk = choose_stream_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk,
+                                           cib, cob, machine, prologue)
+        entry = _stream_kernels()._lib().conv2d_stream_dgrad_plan
+        rows = blk.hso
+    else:
+        blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib,
+                                    cob, machine, prologue)
+        entry, rows = _bwd_lib().direct_conv2d_dgrad_plan, blk.th
+    out = (ctypes.c_longlong * 3)()
+    if entry(*_dgrad_ints(rows, blk, g.shape, w.shape, spec), out):
+        raise ValueError(f"the dgrad kernel refuses the tiles {blk}")
+    return DgradPlan(*out), dgrad_plan(blk, n, hi, wi, hf, wf, stride,
+                                       spec.pads, ciblk, cib, coblk, cob)
 
 
 def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,

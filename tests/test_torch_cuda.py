@@ -16,7 +16,8 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_blocked,
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
-                                               reset_launches, wgrad_reduce)
+                                               dgrad_plans, reset_launches,
+                                               wgrad_reduce)
 from repro_torch.core.blocking import (choose_blocking,  # noqa: E402
                                        choose_stream_blocking)
 from repro_torch.core.context import ConvContext  # noqa: E402
@@ -121,6 +122,110 @@ def test_backward_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
     torch.testing.assert_close(dw.double(), want_dw, **TOL)
     torch.testing.assert_close(db.double(), want_db, **TOL)
     assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
+
+
+# (n, ci, co, h, cib, cob, stride, activation, padding): the phase-split
+# tensor-core dgrads (csrc/dgrad_tile.cuh) at strides 1 and 2, odd extents,
+# Cib = 3, 64 and 128, relu, gelu and linear prologues, rows past the dgrad
+# extents (VALID), Cob % 8 != 0
+DGRAD_CASES = [
+    (2, 64, 64, 14, 64, 64, 1, "relu", "SAME"),
+    (2, 64, 128, 14, 64, 128, 2, "relu", "SAME"),
+    (2, 128, 128, 9, 128, 128, 1, "gelu", "SAME"),    # odd hi
+    (2, 128, 256, 11, 128, 128, 2, None, "SAME"),     # odd hi, stride 2
+    (2, 256, 128, 7, 128, 128, 1, "relu", "SAME"),    # two Ci blocks
+    (2, 3, 64, 20, 3, 64, 2, "gelu", "SAME"),         # Cib = 3
+    (1, 8, 12, 10, 8, 12, 2, None, "VALID"),          # rows past the extents
+    (3, 16, 24, 9, 16, 24, 2, "relu", "VALID"),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         DGRAD_CASES)
+def test_dgrad_kernels_match_plain_version_and_each_other(
+        cuda, n, ci, co, h, cib, cob, stride, act, padding):
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(1))
+    zz = None if act is None else z
+    want = direct_conv_dgrad_blocked(g, w, (h, h), stride, padding, zz, act)
+    reset_launches()
+    stk.reset_launches()
+    runs = {route: [direct_conv2d_dgrad(g, w, (h, h), stride, padding, zz,
+                                        act, stream=route)
+                    for _ in range(2)] for route in (False, True)}
+    torch.cuda.synchronize()
+    assert LAUNCHES["direct_conv2d_dgrad"] == 2
+    assert stk.LAUNCHES["conv2d_stream_dgrad"] == 2
+    for route, (dx, again) in runs.items():
+        torch.testing.assert_close(dx, want, **TOL)
+        assert torch.equal(dx, again)          # no atomics: the same bits
+        if padding == "VALID":
+            # rows and columns the forward never read come out exactly 0
+            ext = (h - 3) // stride * stride + 3
+            assert (dx[:, :, ext:] == 0).all() and \
+                (dx[:, :, :, ext:] == 0).all()
+    torch.testing.assert_close(runs[True][0], runs[False][0], **TOL)
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         DGRAD_CASES)
+def test_dgrad_kernel_plans_match_the_blocking_model(
+        cuda, n, ci, co, h, cib, cob, stride, act, padding):
+    # the kernels' own count of a launch (tiles, MACs by phase, tensor-core
+    # MACs issued; dgrad_tile::plan) against core.blocking.dgrad_plan
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=cuda)
+    zz = None if act is None else z
+    for streamed in (False, True):
+        kernel, model = dgrad_plans(g, w, (h, h), stride, padding, zz, act,
+                                    streamed=streamed)
+        assert kernel == model
+        assert kernel.issued_macs >= 3 * kernel.function_macs > 0
+
+
+def test_dgrad_kernels_refuse_a_cob_not_a_multiple_of_4(cuda):
+    # the TMA copies need 16-byte strides of g, z and w; the CPU path
+    # takes any pencil
+    x, w, _, _ = _operands(cuda, 1, 8, 6, 8, 8, 6, 1, False)
+    z = direct_conv_blocked(x, w, 1, "SAME").contiguous()
+    g = torch.randn(z.shape, device=cuda)
+    for route in (False, True):
+        with pytest.raises(ValueError, match="multiple of 4"):
+            direct_conv2d_dgrad(g, w, (8, 8), 1, "SAME", z, "relu",
+                                stream=route)
+    direct_conv2d_dgrad(g.cpu(), w.cpu(), (8, 8), 1, "SAME", z.cpu(), "relu")
+
+
+def test_dgrad_kernels_run_from_a_fresh_thread(cuda):
+    # autograd runs a backward on a thread of its own: the kernels' tensor
+    # maps must encode on a thread where the device's context is not yet
+    # current
+    import threading
+    x, w, _, _ = _operands(cuda, 2, 3, 64, 20, 3, 64, 2, False)
+    z = direct_conv_blocked(x, w, 2, "SAME").contiguous()
+    g = torch.randn(z.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(2))
+    want = direct_conv_dgrad_blocked(g, w, (20, 20), 2, "SAME", z, "gelu")
+    out = {}
+
+    def run():
+        try:
+            for route in (False, True):
+                out[route] = direct_conv2d_dgrad(g, w, (20, 20), 2, "SAME", z,
+                                                 "gelu", stream=route)
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in out, out.get("error")
+    for route in (False, True):
+        torch.testing.assert_close(out[route], want, **TOL)
 
 
 def test_wgrad_reduce_sums_rows_in_order(cuda):

@@ -155,13 +155,22 @@ def test_blocking_pins_and_misfit():
 def test_backward_blocking_fits_the_cta(hi, ci, co, stride):
     m = blocking.H100_SXM
     cob, cib = min(co, 128), min(ci, 128)
-    d = blocking.choose_dgrad_blocking(hi, hi, 3, 3, stride, cib, cob)
-    # dgrad tiles the unpadded input; lanes are the Cib pencil
-    assert hi % d.hob == 0 and hi % d.wob == 0 and cob % d.chunk == 0
-    assert d.hob * d.wob <= blocking.tile_positions(cib, m)
-    assert blocking.dgrad_smem_bytes(d.hob, d.wob, d.chunk, cib, 3, 3,
-                                     stride) <= m.smem_budget
-    assert d.ldw % 4 == 0 or cib % 4
+    for prologue in (False, True):
+        d = blocking.choose_dgrad_blocking(8, hi, hi, 3, 3, stride,
+                                           ci // cib, cib, cob, m, prologue)
+        # a tile of one phase of the unpadded input: 64-row wgmma tiles of
+        # its positions by the Cib lanes, padded up to a compiled width
+        assert d.lanes in blocking.DGRAD_LANES and cib <= d.lanes
+        assert d.lanes < 2 * cib or d.lanes == 8
+        assert d.strips == 1 and 1 <= d.wgs <= blocking.DGRAD_CONSUMERS
+        assert d.th * d.tw <= d.mstride == 64 * d.wgs
+        assert d.th <= -(-hi // stride) and d.tw <= -(-hi // stride)
+        assert d.chunk % 8 == 0 and -(-cob // 8) * 8 % d.chunk == 0
+        assert (d.hwin, d.wwin) == (d.th + -(-3 // stride) - 1,
+                                    d.tw + -(-3 // stride) - 1)
+        assert blocking.dgrad_smem_bytes(3, 3, stride, d.lanes, d.chunk,
+                                         d.hwin, d.wwin, prologue) \
+            <= m.smem_block
     ho = -(-hi // stride)
     wg = blocking.choose_wgrad_blocking(8, ho, ho, 3, 3, stride, ci // cib,
                                         cib, co // cob, cob)
@@ -178,8 +187,9 @@ def test_backward_blocking_fits_the_cta(hi, ci, co, stride):
 
 def test_dgrad_window_covers_every_tap_a_tile_reaches():
     # a dx tile's rows reach cotangent rows (i + pad - dh) / s for the taps
-    # that divide; the kernel stages hwin rows from floor((i0 + pad - 2) /
-    # s): check that they hold every row reached, for every tile phase
+    # that divide; the depthwise dgrad kernel stages hwin rows from
+    # floor((i0 + pad - 2) / s): check that they hold every row reached, for
+    # every tile phase
     for stride in (1, 2, 3):
         for hob in (1, 2, 5, 8):
             hwin, _ = blocking.dgrad_window(hob, 1, 3, 3, stride)

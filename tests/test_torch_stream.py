@@ -40,6 +40,7 @@ from repro_torch.core.dispatch import (KernelRoute,  # noqa: E402
                                        resolve_stream, route_stream,
                                        stream_flag)
 from repro_torch.core.errors import TransientError  # noqa: E402
+from repro_torch.core.padding import normalize_padding  # noqa: E402
 from repro_torch.kernels import conv2d_stream  # noqa: E402
 from repro_torch.kernels import direct_conv2d  # noqa: E402
 from repro_torch.kernels.direct_conv2d import (  # noqa: E402
@@ -53,7 +54,7 @@ from repro_torch.train.trainstep import make_train_step  # noqa: E402
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 TINY = MachineModel(name="tiny", threads=256, lanes=8, positions=8,
-                    smem_budget=1024)
+                    smem_budget=1024, smem_block=1024)
 
 
 def _t(a):
@@ -247,18 +248,24 @@ def test_stream_dgrad_blocking_at_every_vgg16_shape(entry):
         cib, cob = min(ci, 128), min(co, 128)
         blk = blocking.choose_stream_dgrad_blocking(
             n, h, h, 3, 3, s, ci // cib, cib, cob, prologue=True)
-        assert blk.hob % blk.hso == 0 and h % blk.hob == 0 and h % blk.wob == 0
-        assert cob % blk.chunk == 0 and blk.n_strips in blocking.STREAM_STRIPS
-        smem = blocking.stream_smem_bytes(
-            blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw, 3, 3,
-            dgrad=True, prologue=True)
-        assert smem <= H100_SXM.smem_budget
-        assert (blk.ring_rows, blk.ring_cols) == (
-            blocking.stream_ring_rows(blk.hob, blk.hso, 3, s, dgrad=True),
-            blocking.dgrad_window(blk.hob, blk.wob, 3, 3, s)[1])
-        grid = n * (ci // cib) * (h // blk.hob) * (h // blk.wob)
-        assert grid >= min(H100_SXM.wave,
-                           _most_ctas(n * (ci // cib), h, h, cib))
+        # a band of two or three strips of hso phase rows, each one
+        # consumer warpgroup's 64-row m-tile
+        assert blk.strips == blk.wgs and 2 <= blk.wgs <= \
+            blocking.DGRAD_CONSUMERS and blk.th == blk.strips * blk.hso
+        assert blk.mstride == blk.hso * blk.tw <= 64
+        assert blk.lanes == blocking.dgrad_lanes(cib) and cob % blk.chunk == 0
+        hp = -(-h // s)
+        assert blk.th < hp + blk.strips and blk.tw <= hp   # bands may overhang
+        smem = blocking.dgrad_smem_bytes(3, 3, s, blk.lanes, blk.chunk,
+                                         blk.hwin, blk.wwin, True, True)
+        assert smem <= H100_SXM.smem_block
+        assert (blk.hwin, blk.wwin) == (blk.th + -(-3 // s) - 1,
+                                        blk.tw + -(-3 // s) - 1)
+        # the grid fills the card where the map has the positions for it
+        pads = normalize_padding("SAME", 3, 3, s, h, h)
+        grid = n * (ci // cib) * len(blocking.dgrad_tiles(
+            blk, h, h, 3, 3, s, pads))
+        assert grid >= min(H100_SXM.sms, n * (ci // cib) * h * h // 128)
 
 
 @pytest.mark.parametrize("entry", [224, 160])
@@ -286,7 +293,7 @@ def test_stream_choosers_raise_smem_misfit_on_a_tiny_machine():
     with pytest.raises(SmemMisfitError, match="no streamed band fits"):
         blocking.choose_stream_blocking(1, 10, 10, 64, 64, 3, 3, 1, 64, 64,
                                         TINY)
-    with pytest.raises(SmemMisfitError, match="no streamed band fits"):
+    with pytest.raises(SmemMisfitError, match="no streamed dgrad tile fits"):
         blocking.choose_stream_dgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 64,
                                               TINY)
     with pytest.raises(SmemMisfitError, match="no streamed wgrad strip fits"):
