@@ -14,7 +14,8 @@ and no phase catches its own failure:
    flash-attention library's SASS where the toolkit has ``cuobjdump``: the
    bf16 kernel must have some; each instance of the two phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
-   spill nothing;
+   spill nothing, and each instance of the two wgrad kernels
+   (``csrc/wgrad_tile.cuh``) HGMMA (wgmma) instructions and no spill;
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
@@ -30,8 +31,8 @@ and no phase catches its own failure:
 7. the backward kernels against their plain versions at batch 8 on every
    distinct VGG-16 layer shape of a 224x224 entry: dgrad with the relu
    prologue (all but conv1_1's shape; its tile printed), wgrad with the
-   prologue and ``db``
-   (all 10; against f64 sums, twice, bit for bit), the autograd path on a
+   prologue and ``db`` (all 10, its tiles printed; against f64 sums, twice,
+   bit for bit; the worst err/bound printed), the autograd path on a
    small gelu + residual conv at stride 2 with ``Cib = 3`` against torch
    autograd through the plain forward, and the wgrad reduce alone;
 8. the second main path: three AdamW steps (cosine schedule) of the
@@ -41,8 +42,12 @@ and no phase catches its own failure:
    parameters after step 3 against a plain-path trainer run in lockstep;
 9. backward times: per layer, dgrad, wgrad and the wgrad reduce against
    their plain versions, ``aten.convolution_backward`` and the bound (the
-   wgrads' at the f32 peak; the dgrads' at the 3xTF32 split's, the f32 FMA
-   bound printed beside it); per dgrad layer its stride, phase count and
+   dgrads' and wgrads' at the 3xTF32 split's, the f32 FMA bound printed
+   beside it); per wgrad layer its tiles, the function's MACs, the
+   tensor-core MACs its tiles issue with their padding share, its shared
+   memory, eager and CUDA-graph times and the library time (the kernel
+   library's own plan, ``*_wgrad_plan``, must equal
+   ``core.blocking.wgrad_plan``); per dgrad layer its stride, phase count and
    tiles, its MACs by phase (the kernel library's own count of the launch
    must equal the blocking model's, and its MACs the function's), the
    tensor-core MACs its tiles issue with their padding share, eager and
@@ -76,8 +81,8 @@ and no phase catches its own failure:
     the same channel chunk, else within 1e-5 of max|y|, with a count of
     each), a small gelu + residual + GAP shape at stride 2 with ``Cib =
     3``, and the dgrad and wgrad at 224 with the relu prologue and ``db``
-    (the wgrad against f64 sums, twice, bit for bit); each layer's streamed
-    tiles are printed;
+    (the wgrad against f64 sums, twice, bit for bit, the worst err/bound
+    printed); each layer's streamed tiles are printed;
 16. the fifth and sixth main paths: VGG-16 through ``ConvServer(context=
     ConvContext(stream=True))``, 24 requests each OK with the plain logits,
     then three AdamW steps at batch 8 on the streamed route held to phase
@@ -85,8 +90,10 @@ and no phase catches its own failure:
     dgrad or wgrad;
 17. per-layer and summed times of the three streamed kernels, eager and as
     a CUDA-graph replay, beside the window kernels, the plain versions,
-    cuDNN (TF32 off) and the bound (the dgrad's as in phase 9, with its
-    phases, MACs and issued MACs); the streamed train step against the
+    cuDNN (TF32 off) and the bound (the dgrad's and wgrad's as in phase 9,
+    with the dgrad's phases, MACs and issued MACs, and both wgrads' plans
+    checked against the model, their issued MACs and padding); the
+    streamed train step against the
     window step and the plain step; its peak device memory beside the bytes
     it must hold;
 18. the language models' kernels against their plain versions: flash
@@ -252,6 +259,9 @@ PEAK_TF32_FLOPS = 495e12
 # executes three TF32 products for each of the function's MACs
 DGRAD_KERNELS = {"direct_conv2d_bwd": "dgrad_kernel",
                  "conv2d_stream": "stream_dgrad_kernel"}
+# the wgrad kernels' functions (csrc/wgrad_tile.cuh), 3xTF32 as the dgrads
+WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
+                 "conv2d_stream": "stream_wgrad_kernel"}
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -325,10 +335,11 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
                                        else "bytes")
 
 
-def dgrad_bound(flops: float, nbytes: float):
-    """The dgrads' bound: the function's FLOPs at the better of the f32 FMA
-    peak and the 3xTF32 split's (three TF32 products a MAC on the tensor
-    cores), against its bytes -> (ms, kind, the f32 FMA bound's ms)."""
+def tf32x3_bound(flops: float, nbytes: float):
+    """The tensor-core dgrads' and wgrads' bound: the function's FLOPs at
+    the better of the f32 FMA peak and the 3xTF32 split's (three TF32
+    products a MAC on the tensor cores), against its bytes -> (ms, kind,
+    the f32 FMA bound's ms)."""
     f32 = bound(flops, nbytes)
     return (*min(f32, bound(3 * flops, nbytes, PEAK_TF32_FLOPS)), f32[0])
 
@@ -427,21 +438,57 @@ def dgrad_work(g, w, z, h: int, stride: int, streamed: bool):
     return stride * stride, kernel, fn_macs
 
 
+def wgrad_work(x, g, z, h: int, stride: int, streamed: bool):
+    """A 3x3 SAME relu wgrad of ``x``, ``g``, ``z`` over an ``h x h`` input
+    as its kernel tiles it -> (its ``WgradPlan``, the function's MACs).
+    Fails unless the kernel library's own count of the launch
+    (``*_wgrad_plan``, the C++ tile geometry) equals the blocking model's
+    (``core.blocking.wgrad_plan``), and its MACs equal the function's."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.kernels.direct_conv2d import wgrad_plans
+    kernel, model = wgrad_plans(x, g, 3, 3, stride, "SAME", z, "relu",
+                                streamed=streamed)
+    route = "streamed" if streamed else "window"
+    if kernel != model:
+        fail(f"{route} wgrad at {h}x{h} s{stride}: the kernel's plan "
+             f"{kernel} != the blocking model's {model}")
+    fn_macs = ConvSpec.make(x.shape[0], h, h, x.shape[1] * x.shape[4],
+                            g.shape[1] * g.shape[4], 3, 3, stride,
+                            "SAME").flops() // 2
+    if kernel.function_macs != fn_macs:
+        fail(f"{route} wgrad at {h}x{h} s{stride}: its tiles take "
+             f"{kernel.function_macs} MACs, the function {fn_macs}")
+    return kernel, fn_macs
+
+
+def tiles_text(blk) -> str:
+    """A wgrad blocking as one phrase of a log line."""
+    return (f"tiles of {blk.th}x{blk.tw} output positions (K {blk.kpos}), "
+            f"{blk.wgs} consumer warpgroup(s) of {blk.mpw} m-tile(s), lanes "
+            f"{blk.lanes}, {blk.groups} m-tile group(s) x {blk.splits} "
+            f"share(s), window {blk.hwin}x{blk.wwin}")
+
+
 def mostly(rows) -> str:
     """The kind of bound that makes up most of the summed ``(ms, kind)``."""
     by_ops = sum(ms for ms, kind in rows if kind == "operations")
     return "operations" if 2 * by_ops >= sum(ms for ms, _ in rows) else "bytes"
 
 
+# the worst err/bound of each compare_scaled label, for the phases' summaries
+RATIOS = {}
+
+
 def compare_scaled(label: str, got, want, scale, rel: float) -> float:
     """Check ``|got - want| <= rel * scale`` elementwise (all f64); -> max
-    abs error."""
+    abs error.  The worst err/bound goes to ``RATIOS[label]``."""
     if got.shape != want.shape:
         fail(f"{label}: shape {tuple(got.shape)} != {tuple(want.shape)}")
     if not torch.isfinite(got).all():
         fail(f"{label}: non-finite output")
     err = (got.double() - want).abs()
     ratio = (err / (rel * scale).clamp_min(1e-300)).max().item()
+    RATIOS[label] = ratio
     ok = bool((err <= rel * scale).all())
     print(f"[check] {label}: max_abs_err={err.max().item():.3e} worst "
           f"err/bound={ratio:.3f} tol=|err| <= {rel:g} * sum|terms| -> "
@@ -1087,7 +1134,8 @@ def mobilenet_phases(args, dev, t_start):
     h0 = -(-ENTRY // s0)
     saved = 4 * n * (ci0 * ENTRY * ENTRY + co0 * h0 * h0)
     ws_max = 4 * choose_wgrad_blocking(n, h0, h0, 3, 3, s0, 1, ci0, 1,
-                                       co0).splits * (9 * ci0 * co0 + co0)
+                                       co0, prologue=True).splits * (
+        9 * ci0 * co0 + co0)
     for ci, co, s, h in blocks(ENTRY):
         ho = -(-h // s)
         cb, cob = min(ci, 128), min(co, 128)
@@ -1250,10 +1298,9 @@ def stream_phases(args, dev, t_start):
         print(f"[stream] bwd {tag}: dgrad band {db_.th}x{db_.tw} phase "
               f"positions ({db_.strips} strips of {db_.hso} rows, a "
               f"consumer warpgroup each) lanes {db_.lanes} chunk "
-              f"{db_.chunk} window {db_.hwin}x{db_.wwin}; wgrad strip "
-              f"{wg.hso}x{wg.wob} ring {wg.ring_rows}x{wg.ring_cols} taps "
-              f"{wg.taps}x{wg.tap_groups} items {wg.items} splits "
-              f"{wg.splits}")
+              f"{db_.chunk} window {db_.hwin}x{db_.wwin}; wgrad strips of "
+              f"{wg.hso} rows down each column, {wg.items} items, "
+              f"{tiles_text(wg)}")
         if ci != 3:        # conv1_1's dx is never needed: no dgrad there
             got = direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu",
                                       stream=True)
@@ -1285,6 +1332,12 @@ def stream_phases(args, dev, t_start):
             compare_scaled(f"stream wgrad db {tag}", db, want_db, abs_db,
                            WGRAD_REL))
         del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+    worst = {k: max(v for lab, v in RATIOS.items()
+                    if lab.startswith(f"stream wgrad {k} ")) for k in ("dw",
+                                                                    "db")}
+    print(f"[stream] wgrad worst err/bound over {len(shapes)} shapes: dw "
+          f"{worst['dw']:.3f} db {worst['db']:.3f} (tol 1; 3xTF32 tensor "
+          "cores, two runs bit for bit)")
     stamp(15)
 
     # -- 16. the fifth and sixth main paths: VGG-16 on the streamed route --
@@ -1384,7 +1437,7 @@ def stream_phases(args, dev, t_start):
                     time_ms(lambda: torch.ops.aten.convolution_backward(
                         dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1],
                         False, [0, 0], 1, [True, False, False])),
-                    *dgrad_bound(flops, 4 * (2 * g.numel() + w.numel()
+                    *tf32x3_bound(flops, 4 * (2 * g.numel() + w.numel()
                                              + x.numel())))
             row["wgrad"] = (
                 *both(lambda: stk.stream_wgrad_partials(
@@ -1396,8 +1449,8 @@ def stream_phases(args, dev, t_start):
                 time_ms(lambda: torch.ops.aten.convolution_backward(
                     dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
                     [0, 0], 1, [False, True, False])),
-                *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
-                                   + co)))
+                *tf32x3_bound(flops, 4 * (x.numel() + 2 * g.numel()
+                                          + w.numel() + co)))
             rows[key] = row
             del xp, w_oihw, dz, dz_nchw
     names = {"fwd": "conv2d_stream_fwd", "dgrad": "conv2d_stream_dgrad",
@@ -1405,11 +1458,30 @@ def stream_phases(args, dev, t_start):
     sums = {kind: [0.0] * 7 for kind in names}
     kinds = {kind: [] for kind in names}
     dg = {"macs": 0, "issued": 0, "f32": 0.0}
+    wg = {"macs": 0, "issued": 0, "window_issued": 0, "f32": 0.0}
     for lname, key in zip(LAYER_NAMES, layers):
         ci, co, s, h = key
+        v = rows[key]["wgrad"]
+        x, w, z, g, _ = bwd_ops[key]
+        plan, macs = wgrad_work(x, g, z, h, s, streamed=True)
+        wplan, _ = wgrad_work(x, g, z, h, s, streamed=False)
+        wg["macs"] += macs
+        wg["issued"] += plan.issued_macs
+        wg["window_issued"] += wplan.issued_macs
+        wg["f32"] += v[8]
+        print(f"[stream-time] {lname} wgrad tiles: stream {plan.tiles} "
+              f"items, tensor-core MACs issued {plan.issued_macs} (padding "
+              f"{100 * plan.padding_share:.1f} %); window {wplan.tiles} "
+              f"tiles, issued {wplan.issued_macs} (padding "
+              f"{100 * wplan.padding_share:.1f} %); function MACs {macs} "
+              f"(both plans the blocking model's); stream eager_ms "
+              f"{v[0]:.4f} graph_ms {v[1]:.4f} "
+              f"({macs / 1e6 / v[1]:.1f} function GMAC/s on the device), "
+              f"window eager_ms {v[2]:.4f} graph_ms {v[3]:.4f}, library_ms "
+              f"{v[5]:.4f}; bound_ms {v[6]:.4f} (3xTF32), f32 FMA bound_ms "
+              f"{v[8]:.4f}")
         if "dgrad" in rows[key]:
             v = rows[key]["dgrad"]
-            x, w, z, g, _ = bwd_ops[key]
             phases, plan, macs = dgrad_work(g, w, z, h, s, streamed=True)
             dg["macs"] += macs
             dg["issued"] += plan.issued_macs
@@ -1449,6 +1521,16 @@ def stream_phases(args, dev, t_start):
           f"{100 * (1 - 3 * dg['macs'] / dg['issued']):.1f} %); bound_ms "
           f"{sums['dgrad'][6]:.4f} (3xTF32), f32 FMA bound_ms "
           f"{dg['f32']:.4f}")
+    print(f"[stream-time] all {len(kinds['wgrad'])} wgrad tiles: function "
+          f"MACs {wg['macs']}, tensor-core MACs issued {wg['issued']} "
+          f"streamed (padding "
+          f"{100 * (1 - 3 * wg['macs'] / wg['issued']):.1f} %), "
+          f"{wg['window_issued']} window (padding "
+          f"{100 * (1 - 3 * wg['macs'] / wg['window_issued']):.1f} %); "
+          f"stream graph_ms {sums['wgrad'][1]:.4f}, window graph_ms "
+          f"{sums['wgrad'][3]:.4f}, library_ms {sums['wgrad'][5]:.4f}; "
+          f"bound_ms {sums['wgrad'][6]:.4f} (3xTF32), f32 FMA bound_ms "
+          f"{wg['f32']:.4f}")
     del bwd_ops
 
     window_step = make_train_step(tr.model, tr.opt)
@@ -2262,15 +2344,18 @@ def main(argv=None) -> int:
                  if FLASH_BF16_KERNEL in fn}
         if not wgmma or not all(wgmma.values()):
             fail(f"the bf16 flash kernel's SASS holds no HGMMA: {wgmma}")
-    # the phase-split dgrads: tensor-core instructions and no spills in
-    # every compiled instance (the main paths take lanes 64 and 128)
-    for res in built:
-        kernel = DGRAD_KERNELS.get(res.name)
-        if kernel is None:
-            continue
+    # the phase-split dgrads and the wgrads: tensor-core instructions and no
+    # spills in every compiled instance (the main paths take lanes 64 and
+    # 128)
+    sass = {res.name: hgmma_counts(res.path) for res in built
+            if res.name in DGRAD_KERNELS or res.name in WGRAD_KERNELS}
+    for res, kernel in [(res, tiles[res.name]) for res in built
+                        for tiles in (DGRAD_KERNELS, WGRAD_KERNELS)
+                        if res.name in tiles]:
+        wgrad = kernel in WGRAD_KERNELS.values()
         ptx = {fn: v for fn, v in ptxas_report(res.log).items()
-               if kernel in fn and "wgrad" not in fn}
-        tc = hgmma_counts(res.path)
+               if kernel in fn and (wgrad or "wgrad" not in fn)}
+        tc = sass[res.name]
         for fn, (regs, st, ld) in sorted(ptx.items()):
             n_tc = ("not taken" if tc is None else
                     "HGMMA {} HMMA {}".format(*tc.get(fn, (0, 0))))
@@ -2281,6 +2366,8 @@ def main(argv=None) -> int:
                 fail(f"{fn} spills ({st} B stores, {ld} B loads)")
             if tc is not None and not any(tc.get(fn, (0, 0))):
                 fail(f"{fn}'s SASS holds no tensor-core instruction")
+            if tc is not None and wgrad and not tc.get(fn, (0, 0))[0]:
+                fail(f"{fn}'s SASS holds no HGMMA (wgmma)")
         if not ptx:
             fail(f"{res.name}: no {kernel} instance in the ptxas report")
     print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f} s")
@@ -2490,6 +2577,11 @@ def main(argv=None) -> int:
                 bwd_err["direct_conv2d_dgrad"],
                 compare(f"dgrad {tag}", got, want, **TOL))
             del got, want
+        cib, cob = min(ci, 128), min(co, 128)
+        wblk = choose_wgrad_blocking(BATCH, spec.ho, spec.wo, 3, 3, s,
+                                     ci // cib, cib, co // cob, cob,
+                                     prologue=True)
+        print(f"[bwd] wgrad {tag}: {tiles_text(wblk)}")
         dw, db = direct_conv2d_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
                                      with_db=True)
         dw2, db2 = direct_conv2d_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
@@ -2511,6 +2603,11 @@ def main(argv=None) -> int:
             compare_scaled(f"wgrad db {tag}", db, want_db, abs_db,
                            WGRAD_REL))
         del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+    worst = {k: max(v for lab, v in RATIOS.items()
+                    if lab.startswith(f"wgrad {k} ")) for k in ("dw", "db")}
+    print(f"[bwd] wgrad worst err/bound over {len(shapes)} shapes: dw "
+          f"{worst['dw']:.3f} db {worst['db']:.3f} (tol 1; 3xTF32 tensor "
+          "cores, two runs bit for bit)")
 
     # the autograd path on a small gelu + residual conv, stride 2, Cib = 3,
     # against torch autograd through the plain forward
@@ -2537,7 +2634,7 @@ def main(argv=None) -> int:
     # the reduce alone, on the workspace shape of conv4_2
     ci, co, s, h = layers[8]
     wb = choose_wgrad_blocking(BATCH, h, h, 3, 3, s, ci // 128, 128,
-                               co // 128, 128)
+                               co // 128, 128, prologue=True)
     parts = torch.randn((wb.splits, 9 * ci * co + co), device=dev,
                         generator=gen)
     got = wgrad_reduce(parts)
@@ -2577,7 +2674,7 @@ def main(argv=None) -> int:
         if ci != 3:
             def dgrad():
                 return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu")
-            d_bound = dgrad_bound(flops, 4 * (2 * g.numel() + w.numel()
+            d_bound = tf32x3_bound(flops, 4 * (2 * g.numel() + w.numel()
                                               + x.numel()))
             row["dgrad"] = (
                 time_ms(dgrad),
@@ -2589,16 +2686,22 @@ def main(argv=None) -> int:
                 *d_bound[:2])
             row["dgrad_f32_bound"] = d_bound[2]
             row["dgrad_graph"] = graph_ms(dgrad)
+        def wgrad():
+            return wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu",
+                                  with_db=True)
+        w_bound = tf32x3_bound(flops, 4 * (x.numel() + 2 * g.numel()
+                                           + w.numel() + co))
         row["wgrad"] = (
-            time_ms(lambda: wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu",
-                                           with_db=True)),
+            time_ms(wgrad),
             time_ms(lambda: direct_conv_wgrad_blocked(
                 x, g, 3, 3, s, "SAME", z, "relu", with_db=True)),
             time_ms(lambda: torch.ops.aten.convolution_backward(
                 dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
                 [0, 0], 1, [False, True, False])),
-            *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel() + co)))
-        ws = wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu", with_db=True)
+            *w_bound[:2])
+        row["wgrad_f32_bound"] = w_bound[2]
+        row["wgrad_graph"] = graph_ms(wgrad)
+        ws = wgrad()
         row["reduce"] = (
             time_ms(lambda: wgrad_reduce(ws), iters=20),
             time_ms(lambda: conv2d_common.wgrad_reduce(ws), iters=20),
@@ -2610,13 +2713,29 @@ def main(argv=None) -> int:
     sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ("dgrad", "wgrad", "reduce")}
     kinds = {k: [] for k in sums}
     dg_sum = {"graph": 0.0, "macs": 0, "issued": 0, "f32": 0.0}
+    wg_sum = dict(dg_sum)
     for name, key in zip(LAYER_NAMES, layers):
         ci, co, s, h = key
         row = brows[key]
+        x, w, z, g, _ = bwd_ops[key]
+        plan, macs = wgrad_work(x, g, z, h, s, streamed=False)
+        k_ms, _, l_ms, b_ms, _ = row["wgrad"]
+        wg_sum["graph"] += row["wgrad_graph"]
+        wg_sum["macs"] += macs
+        wg_sum["issued"] += plan.issued_macs
+        wg_sum["f32"] += row["wgrad_f32_bound"]
+        print(f"[bwd] {name} wgrad tiles: {plan.tiles} tiles, function MACs "
+              f"{plan.function_macs} (the function's), tensor-core MACs "
+              f"issued {plan.issued_macs} (three products each; padding "
+              f"{100 * plan.padding_share:.1f} %), shared memory "
+              f"{plan.smem} B; eager_ms {k_ms:.4f} graph_ms "
+              f"{row['wgrad_graph']:.4f} library_ms {l_ms:.4f}; "
+              f"{macs / 1e6 / row['wgrad_graph']:.1f} function GMAC/s on the "
+              f"device; bound_ms {b_ms:.4f} (3xTF32), f32 FMA bound_ms "
+              f"{row['wgrad_f32_bound']:.4f}")
         if "dgrad" in row:
             k_ms, _, l_ms, b_ms, _ = row["dgrad"]
             f32_ms = row["dgrad_f32_bound"]
-            x, w, z, g, _ = bwd_ops[key]
             phases, plan, macs = dgrad_work(g, w, z, h, s, streamed=False)
             dg_sum["graph"] += row["dgrad_graph"]
             dg_sum["macs"] += macs
@@ -2657,6 +2776,13 @@ def main(argv=None) -> int:
           f"library_ms {sums['dgrad'][2]:.4f}; bound_ms "
           f"{sums['dgrad'][3]:.4f} (3xTF32), f32 FMA bound_ms "
           f"{dg_sum['f32']:.4f}")
+    print(f"[bwd] all {len(kinds['wgrad'])} wgrad tiles: function MACs "
+          f"{wg_sum['macs']}, tensor-core MACs issued {wg_sum['issued']} "
+          f"(padding {100 * (1 - 3 * wg_sum['macs'] / wg_sum['issued']):.1f}"
+          f" %); eager_ms {sums['wgrad'][0]:.4f} graph_ms "
+          f"{wg_sum['graph']:.4f} library_ms {sums['wgrad'][2]:.4f}; "
+          f"bound_ms {sums['wgrad'][3]:.4f} (3xTF32), f32 FMA bound_ms "
+          f"{wg_sum['f32']:.4f}")
 
     timed_steps("train", [("plain", tr.plain_step, tr.plain_state),
                           ("kernels", tr.step, tr.state)], tr.batches)
@@ -2669,7 +2795,8 @@ def main(argv=None) -> int:
         saved += 4 * BATCH * (ci * hh * hh + co * ho * ho)    # x and z
         wb = choose_wgrad_blocking(BATCH, ho, ho, 3, 3, s,
                                    ci // c.in_pencil, c.in_pencil,
-                                   co // c.out_pencil, c.out_pencil)
+                                   co // c.out_pencil, c.out_pencil,
+                                   prologue=True)
         ws_max = max(ws_max, 4 * wb.splits * (9 * ci * co + co))
         hh = ho
     must = 4 * p_bytes + saved + ws_max

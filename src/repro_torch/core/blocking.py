@@ -47,9 +47,12 @@ The backward kernels reuse the vocabulary:
   of one or two warpgroups owns a tile of one phase, 64-row wgmma tiles of
   its positions by all Cib lanes, contracting (reachable tap, Cob) a
   ``chunk`` at a time through a two-stage ring (see its section below);
-* **wgrad** (``choose_wgrad_blocking``) gives each CTA a few taps'
-  ``[Cib, Cob]`` blocks as its register tile and a share of the
-  ``N x Ho/Hob x Wo/Wob`` position tiles; the shares' partial sums go to a
+* **wgrad** (``choose_wgrad_blocking``, ``choose_stream_wgrad_blocking``)
+  tiles the tensor-core wgrad of ``csrc/wgrad_tile.cuh``: an implicit GEMM
+  whose rows are the (tap, c) pairs in 64-row m-tiles, whose columns are
+  Cob and whose K runs over output positions; a CTA of one to three
+  consumer warpgroups shares each staged tile among its m-tiles and walks
+  a share of the position tiles, and the shares' partial sums go to a
   workspace that a second pass reduces in split order.
 """
 from __future__ import annotations
@@ -68,7 +71,11 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
            "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
            "dgrad_smem_bytes", "dgrad_tiles", "DgradPlan", "dgrad_plan",
            "dgrad_candidates", "choose_dgrad_blocking",
-           "WgradBlocking", "wgrad_smem_bytes", "choose_wgrad_blocking",
+           "WGRAD_ROWS", "WGRAD_CONSUMERS", "WGRAD_THREADS",
+           "WGRAD_MAX_POSITIONS", "WGRAD_MPW", "WGRAD_WORKSPACE_BYTES",
+           "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "WgradBlocking",
+           "StreamWgradBlocking", "wgrad_smem_bytes", "WgradPlan",
+           "wgrad_plan", "wgrad_candidates", "choose_wgrad_blocking",
            "PointwiseBlocking", "pointwise_smem_bytes",
            "choose_pointwise_blocking", "PointwiseWgradBlocking",
            "pointwise_wgrad_smem_bytes", "choose_pointwise_wgrad_blocking",
@@ -79,7 +86,6 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
            "stream_gap_floats",
            "stream_smem_bytes",
            "choose_stream_blocking", "choose_stream_dgrad_blocking",
-           "StreamWgradBlocking", "stream_wgrad_smem_bytes",
            "choose_stream_wgrad_blocking"]
 
 
@@ -513,87 +519,272 @@ def choose_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
 # weight gradient (wgrad)
 # ---------------------------------------------------------------------------
 
+# The tensor-core wgrad tile (csrc/wgrad_tile.cuh): an implicit GEMM in
+# 3xTF32 whose rows are the (tap, c) pairs, tap-major, in m-tiles of 64
+# (WGRAD_ROWS), whose columns are Cob padded to a compiled wgmma width, and
+# whose K runs over output positions, one tile of th x tw positions a stage.
+# A CTA of one to three consumer warpgroups (WGRAD_CONSUMERS), each holding
+# one or two m-tiles (WGRAD_MPW; two only up to 64 lanes, whose
+# accumulators fit a thread's registers), and a producer warpgroup shares
+# each staged x window and dz tile among its m-tiles; `groups` CTAs cover
+# the m-tiles, and `splits` of each walk contiguous shares of the tiles.
+
+WGRAD_ROWS = 64                 # rows of one wgmma tile (kRows)
+WGRAD_CONSUMERS = 3             # the most consumer warpgroups a CTA
+WGRAD_THREADS = 128 * (WGRAD_CONSUMERS + 1)   # kMaxThreads
+WGRAD_MAX_POSITIONS = 64        # output positions of one stage
+WGRAD_MPW = (1, 2)              # m-tiles a consumer warpgroup holds
+# the largest split workspace the choosers take, [splits, |dw| + |db|] f32:
+# the 36.0 MiB that VGG-16's 512 x 512 layers took before the tensor-core
+# tile, four shares of a 3x3 layer's dw and db
+WGRAD_WORKSPACE_BYTES = 4 * 4 * (9 * 512 * 512 + 512)
+# the cost model of the tile search (``wgrad_candidates``), in cycles of one
+# SM: the dense TF32 rate in MACs a cycle (as the dgrad's), the share of it
+# one to three consumer warpgroups keep busy, and a stage's producer side: a
+# fixed part (a cp.async round trip, the barriers), the staged bytes at an
+# SM's share of the L2's rate, and the dz pass per element of a thread.
+# Set by hand; ``python -m repro_torch.launch.wgrad_tiles_ab`` times the
+# candidates on the card, and tests/test_torch_wgrad_tiles.py pins the
+# tiles chosen at VGG-16's layers.
+WGRAD_MACS_PER_CYCLE = 1024
+WGRAD_WG_EFFICIENCY = {1: 0.5, 2: 0.6, 3: 0.65}
+WGRAD_STAGE_CYCLES = 1500
+WGRAD_BYTES_PER_CYCLE = 20
+WGRAD_TRANSFORM_CYCLES = 12
+# the card's memory rate in bytes a cycle of the whole card (3.35e12 /
+# 1.83e9), for the workspace the shares write and the reduce reads
+WGRAD_CARD_BYTES_PER_CYCLE = 1830
+
+
+def wgrad_lanes(cob: int) -> int:
+    """The wgmma width the wgrad kernels take for a ``cob`` pencil."""
+    lanes = next((n for n in DGRAD_LANES if cob <= n), None)
+    if lanes is None:
+        raise SmemMisfitError(f"cob={cob} is wider than the wgrad tile's "
+                              f"widest wgmma, {DGRAD_LANES[-1]} lanes")
+    return lanes
+
+
+def wgrad_ldx(cib: int, stride: int) -> int:
+    """Floats of one staged x cell (``wgrad_tile::x_ld``): ``cib`` rounded
+    up to 4, then up to the first value whose ``stride`` multiple is 8 mod
+    16, so that an A load's four positions start on four distinct 8-bank
+    groups (``cib`` rounded up to 4 where no such value exists)."""
+    base = -(-cib // 4) * 4
+    return next((ld for ld in range(base, base + 32, 4)
+                 if stride * ld % 16 == 8), base)
+
+
+def wgrad_mtiles(hf: int, wf: int, cib: int) -> int:
+    """64-row m-tiles of the ``hf * wf * cib`` (tap, c) rows."""
+    return -(-hf * wf * cib // WGRAD_ROWS)
+
+
+def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
+                     cib: int, cob: int, lanes: int, prologue: bool) -> int:
+    """Dynamic shared memory of one wgrad CTA (``wgrad_tile::smem_bytes``):
+    128 bytes to align the base; per slot of the two-slot ring the x window
+    ``[hwin][rf]`` (a row's ``wwin`` cells of ``ld`` floats, padded to 128
+    bytes, where its TMA box lands), the staged ``g`` (and ``z``)
+    ``[K][Cob]`` rounded up to 128 bytes, and B's big and small halves
+    ``[K/4][lanes][4]`` (K = th * tw rounded up to 8); the position offsets,
+    the db partials and two 8-byte mbarriers a slot."""
+    kpos = -(-th * tw // 8) * 8
+    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    x = hwin * -(-wwin * wgrad_ldx(cib, stride) // 32) * 32
+    raw = -(-kpos * cob // 32) * 32
+    slot = x + (2 if prologue else 1) * raw + 2 * kpos * lanes
+    return 128 + 4 * (2 * slot + WGRAD_MAX_POSITIONS + 128) + 8 * 4
+
+
 @dataclasses.dataclass(frozen=True)
 class WgradBlocking:
-    """Launch parameters of one wgrad.
-
-    A CTA holds ``taps`` filter taps' ``[Cib, Cob]`` blocks in its register
-    tile (``tap_groups`` CTAs cover the filter) and walks a contiguous share
-    of the ``tiles`` position tiles (``hob x wob`` outputs of one image
-    each); ``splits`` shares per (tap group, Co block, Ci block).  The
-    partial sums fill a ``[splits, |dw| + |db|]`` f32 workspace."""
-    hob: int
-    wob: int
-    taps: int
-    tap_groups: int
-    tiles: int
+    """Launch parameters of one window wgrad.  A stage is a tile of ``th x
+    tw`` output positions of one image (``kpos``, its K, rounded up to 8);
+    a CTA of ``wgs`` consumer warpgroups of ``mpw`` m-tiles each (and a
+    producer) shares each staged ``hwin x wwin`` x window and dz tile among
+    its m-tiles, ``lanes`` wide; ``groups`` CTAs cover the m-tiles, and
+    ``splits`` shares of each walk the ``tiles`` tiles, whose partial sums
+    fill a ``[splits, |dw| + |db|]`` f32 workspace."""
+    th: int
+    tw: int
+    wgs: int
+    mpw: int
+    lanes: int
+    groups: int
     splits: int
+    tiles: int
+    hwin: int
+    wwin: int
+
+    @property
+    def kpos(self) -> int:
+        return -(-self.th * self.tw // 8) * 8
 
 
-def wgrad_smem_bytes(hob: int, wob: int, cib: int, cob: int, hf: int,
-                     wf: int, stride: int) -> int:
-    """Dynamic shared memory of one wgrad CTA: the halo'd f32 input window
-    ``[Hib, Wib, Cib]``, rounded up to 16 bytes, and the cotangent tile
-    ``[hob * wob, Cob]``."""
-    hib, wib = halo_dims(hob, wob, hf, wf, stride)
-    return 4 * (-(-hib * wib * cib // 4) * 4 + hob * wob * cob)
+@dataclasses.dataclass(frozen=True)
+class StreamWgradBlocking(WgradBlocking):
+    """Launch parameters of one streamed wgrad: the window wgrad's, its
+    stage an item of ``hso x wob`` output positions (a strip of a column),
+    walked strip by strip down each column, the halo rows two strips share
+    kept in the ring."""
+
+    @property
+    def hso(self) -> int:
+        return self.th
+
+    @property
+    def wob(self) -> int:
+        return self.tw
+
+    @property
+    def items(self) -> int:
+        return self.tiles
 
 
-# Position tiles of the wgrad: one staging step per tile, so larger tiles
-# amortize the CTA's barriers; past a few hundred positions the window and
-# the cotangent tile no longer fit two CTAs per SM at 128 x 128 anyway.
-WGRAD_MAX_POSITIONS = 256
+@dataclasses.dataclass(frozen=True)
+class WgradPlan:
+    """What one wgrad launch runs (``wgrad_tile::plan`` is its C++ twin):
+    ``tiles``, the position tiles (items) of one m-tile group, Ci and Co
+    block; ``function_macs``, positions x taps x Ci x Co; ``issued_macs``,
+    the tensor-core MACs: every tile's K positions over every m-tile, the
+    ``lanes`` width, three products, in every (Ci, Co) block; ``smem``, a
+    CTA's dynamic shared memory."""
+    tiles: int
+    function_macs: int
+    issued_macs: int
+    smem: int
+
+    @property
+    def padding_share(self) -> float:
+        """The share of the issued MACs that are no product of a function
+        MAC: m-tile rows past the (tap, c) rows, K past a tile's positions
+        or the map, lanes past Cob."""
+        if not self.issued_macs:
+            return 0.0
+        return 1 - 3 * self.function_macs / self.issued_macs
+
+
+def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
+               wf: int, stride: int, ciblk: int, cib: int, coblk: int,
+               cob: int, prologue: bool) -> WgradPlan:
+    """What a launch of the tiles ``blk`` runs over ``n`` images of an
+    ``ho x wo`` output."""
+    return WgradPlan(
+        tiles=blk.tiles,
+        function_macs=n * ho * wo * hf * wf * cib * ciblk * cob * coblk,
+        issued_macs=(ciblk * coblk * blk.tiles * blk.kpos
+                     * wgrad_mtiles(hf, wf, cib) * WGRAD_ROWS * blk.lanes
+                     * 3),
+        smem=wgrad_smem_bytes(blk.th, blk.tw, hf, wf, stride, cib, cob,
+                              blk.lanes, prologue))
+
+
+def _wgrad_shapes(ho: int, wo: int, hso: int | None):
+    """The stage shapes the search weighs: for each row count (``hso``
+    pinned, else 1-8), the widths that fill K = 8, 16, ..., 64 positions."""
+    rows = [hso] if hso is not None else range(1, min(ho, 8) + 1)
+    out = []
+    for th in rows:
+        for k in range(8, WGRAD_MAX_POSITIONS + 1, 8):
+            tw = min(wo, k // th)
+            if tw >= 1 and th * tw <= WGRAD_MAX_POSITIONS:
+                out.append((th, tw))
+    return list(dict.fromkeys(out))
+
+
+def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
+                     stride: int, ciblk: int, cib: int, coblk: int, cob: int,
+                     machine: MachineModel, prologue: bool, streamed: bool,
+                     hso: int | None = None):
+    """The tiles the search weighs, each as ``(key, blocking)``, the least
+    key the choice.  For each stage shape (``_wgrad_shapes``) whose shared
+    memory fits ``machine.smem_block``, consumer count and m-tiles a
+    warpgroup, and share count (the grid filling one to eight waves of
+    ``machine.sms`` or just short of them, and the most shares
+    ``WGRAD_WORKSPACE_BYTES`` holds), the key's
+    cost estimates the busiest SM's cycles: its CTAs' stages, each the
+    longer of the consumers' three-product wgmmas (at
+    ``WGRAD_MACS_PER_CYCLE``, the share ``WGRAD_WG_EFFICIENCY`` of it they
+    keep busy) and the producer's stage (a fixed part, the bytes of its
+    window and dz tile at ``WGRAD_BYTES_PER_CYCLE`` and its dz pass), plus
+    a first stage a CTA; and the workspace the shares
+    write and the reduce reads.  Ties go to fewer shares, then larger
+    stages."""
+    lanes = wgrad_lanes(cob)
+    mt = wgrad_mtiles(hf, wf, cib)
+    cols = coblk * ciblk * hf * wf * cib * cob + coblk * cob
+    cls = StreamWgradBlocking if streamed else WgradBlocking
+    out = []
+    for th, tw in _wgrad_shapes(ho, wo, hso):
+        smem = wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob, lanes,
+                                prologue)
+        if smem > machine.smem_block:
+            continue
+        kpos = -(-th * tw // 8) * 8
+        hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+        tiles = n * -(-ho // th) * -(-wo // tw)
+        # the streamed walk's kept halo rows cost its producer a move in
+        # shared memory, as much as their TMA copy from L2 costs the window
+        # kernel's: both stage the whole window
+        staged = 4 * (hwin * wwin * cib
+                      + th * tw * cob * (2 if prologue else 1))
+        producer = (WGRAD_STAGE_CYCLES + staged / WGRAD_BYTES_PER_CYCLE
+                    + kpos * lanes / 128 * WGRAD_TRANSFORM_CYCLES)
+        for wgs in range(1, WGRAD_CONSUMERS + 1):
+            for mpw in WGRAD_MPW:
+                if (lanes * mpw > 128 or (mpw > 1 and mt == 1)
+                        or (wgs - 1) * mpw >= mt):
+                    continue
+                groups = -(-mt // (wgs * mpw))
+                mma = (mt / groups * kpos / 8 * 3 * WGRAD_ROWS * lanes * 8
+                       / WGRAD_MACS_PER_CYCLE / WGRAD_WG_EFFICIENCY[wgs])
+                stage = max(mma, producer)
+                base = groups * ciblk * coblk
+                # shares that fill whole waves or come just short of them,
+                # and the most the workspace holds
+                most = max(1, min(tiles, WGRAD_WORKSPACE_BYTES // (4 * cols)))
+                shares = {most}
+                for waves in range(1, 9):
+                    shares |= {max(1, waves * machine.sms // base),
+                               -(-waves * machine.sms // base)}
+                for splits in sorted(k for k in shares if k <= most):
+                    ctas = base * splits
+                    cost = (-(-ctas // machine.sms)
+                            * (-(-tiles // splits) * stage + producer)
+                            + (2 * splits + 1) * cols * 4
+                            / WGRAD_CARD_BYTES_PER_CYCLE)
+                    out.append(((cost, splits, -kpos, -wgs * mpw),
+                                cls(th=th, tw=tw, wgs=wgs, mpw=mpw,
+                                    lanes=lanes, groups=groups,
+                                    splits=splits, tiles=tiles, hwin=hwin,
+                                    wwin=wwin)))
+    return out
+
+
+def _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                    machine, prologue, streamed, hso, what):
+    """The least-cost tile of ``wgrad_candidates``."""
+    found = wgrad_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                             cob, machine, prologue, streamed, hso)
+    if not found:
+        raise SmemMisfitError(
+            f"no {what} fits: cib={cib}, cob={cob}, filter {hf}x{wf}, "
+            f"stride {stride} needs more than {machine.smem_block} bytes of "
+            "shared memory even at one position")
+    return min(found, key=lambda kb: kb[0])[1]
 
 
 @functools.lru_cache(maxsize=4096)
 def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, coblk: int,
-                          cob: int, machine: MachineModel = H100_SXM
-                          ) -> WgradBlocking:
-    """Tile the weight gradient.
-
-    * taps: each thread holds ``lanes x lanes`` (Cib x Cob) sums, so one
-      tap's block takes ``ceil(Cib/lanes) * ceil(Cob/lanes)`` threads and a
-      CTA holds as many taps as its threads cover (one at 128 x 128);
-    * the position tile: the ``hob x wob`` (dividing ``Ho x Wo``) with the
-      most positions, up to ``WGRAD_MAX_POSITIONS``, whose window and
-      cotangent tile fit the shared-memory budget; ties go to the smaller
-      window;
-    * splits: enough position shares that the grid holds
-      ``ctas_per_sm * sms`` CTAs twice over, never more shares than tiles.
-      The workspace is then ``splits * (|dw| + |db|)`` floats with
-      ``splits <= ceil(2 * ctas_per_sm * sms / base)``, ``base`` being the
-      grid without splits.
-    """
-    lanes, threads = machine.lanes, machine.threads
-    groups = -(-cib // lanes) * -(-cob // lanes)
-    if groups > threads:
-        raise SmemMisfitError(
-            f"cib={cib} x cob={cob} needs {groups} thread "
-            f"groups; a CTA has {threads} threads")
-    taps = min(hf * wf, threads // groups)
-    tap_groups = -(-hf * wf // taps)
-    best = None
-    for h in divisors(ho):
-        for w in divisors(wo):
-            if h * w > WGRAD_MAX_POSITIONS:
-                continue
-            smem = wgrad_smem_bytes(h, w, cib, cob, hf, wf, stride)
-            if smem > machine.smem_budget:
-                continue
-            key = (h * w, -smem)
-            if best is None or key > best[0]:
-                best = (key, h, w)
-    if best is None:
-        raise SmemMisfitError(
-            f"no wgrad tile fits: cib={cib}, cob={cob}, filter {hf}x{wf}, "
-            f"stride {stride} needs more than {machine.smem_budget} bytes of "
-            "shared memory even at 1x1")
-    _, h, w = best
-    tiles = n * (ho // h) * (wo // w)
-    splits = _splits(tiles, tap_groups * ciblk * coblk, machine)
-    return WgradBlocking(hob=h, wob=w, taps=taps, tap_groups=tap_groups,
-                         tiles=tiles, splits=splits)
+                          cob: int, machine: MachineModel = H100_SXM,
+                          prologue: bool = False) -> WgradBlocking:
+    """Tile the window weight gradient of ``n`` images over an ``ho x wo``
+    output (``wgrad_candidates``): each stage stages a tile's whole x
+    window, with ``z`` beside its ``g`` when ``prologue``."""
+    return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                           machine, prologue, False, None, "wgrad tile")
 
 
 def _splits(tiles: int, base: int, machine: MachineModel) -> int:
@@ -914,11 +1105,10 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
 # rows, each strip one m-tile, and a stage's cotangent rows arrive strip by
 # strip (``choose_stream_dgrad_blocking``).
 #
-# The wgrad gives each CTA the window wgrad's tap group and walks a share of
-# ``(image, column tile, strip)`` items; per item it rings a halo'd x strip
-# (``hso`` output rows' input rows, ``wob`` columns) and a disjoint
-# cotangent strip, each with its ``z`` when the activation needs the
-# prologue.
+# The streamed wgrad is the tensor-core wgrad tile (above), streamed: a
+# stage is an item of ``hso`` output rows by ``wob`` columns, walked strip
+# by strip down each column, and the halo rows two strips share stay in the
+# ring (``choose_stream_wgrad_blocking``).
 
 
 def _round4(n: int) -> int:
@@ -1082,36 +1272,6 @@ def choose_stream_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
                            machine, prologue, True, hso, "streamed dgrad")
 
 
-@dataclasses.dataclass(frozen=True)
-class StreamWgradBlocking:
-    """Launch parameters of the streamed wgrad.  A CTA holds ``taps`` filter
-    taps' ``[Cib, Cob]`` blocks in its register tile (``tap_groups`` CTAs
-    cover the filter, as in the window wgrad) and walks a contiguous share
-    of the ``items`` (image, column tile, strip) items, ``splits`` shares
-    per (tap group, Ci block, Co block).  An item is ``hso`` output rows x
-    ``wob`` columns; its x rows go through a ring of ``ring_rows`` rows of
-    ``ring_cols`` columns, its cotangent rows through two slots."""
-    hso: int
-    wob: int
-    taps: int
-    tap_groups: int
-    items: int
-    splits: int
-    ring_rows: int
-    ring_cols: int
-
-
-def stream_wgrad_smem_bytes(hso: int, wob: int, cib: int, cob: int, hf: int,
-                            wf: int, stride: int,
-                            prologue: bool = False) -> int:
-    """The x ring ``[hin + hso * stride, wib, Cib]`` (rounded up to 16
-    bytes) and two cotangent slots ``[hso * wob, Cob]`` (four with the
-    prologue's ``z``)."""
-    hin, wib = halo_dims(hso, wob, hf, wf, stride)
-    ring = _round4((hin + hso * stride) * wib * cib)
-    return 4 * (ring + (4 if prologue else 2) * hso * wob * cob)
-
-
 @functools.lru_cache(maxsize=4096)
 def choose_stream_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                                  stride: int, ciblk: int, cib: int,
@@ -1120,41 +1280,15 @@ def choose_stream_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                                  prologue: bool = False,
                                  hso: int | None = None
                                  ) -> StreamWgradBlocking:
-    """Tile the streamed weight gradient: taps as the window wgrad's; the
-    item ``hso x wob`` (dividing ``Ho x Wo``) with the most positions, up
-    to ``WGRAD_MAX_POSITIONS``, that fits the budget, ties to two strips or
-    more per column and then to less shared memory; splits as the window
-    wgrad's.  ``hso`` pins the strip height."""
-    lanes, threads = machine.lanes, machine.threads
-    groups = -(-cib // lanes) * -(-cob // lanes)
-    if groups > threads:
-        raise SmemMisfitError(f"cib={cib} x cob={cob} needs {groups} thread "
-                              f"groups; a CTA has {threads} threads")
+    """Tile the streamed weight gradient (``wgrad_candidates``): items of
+    ``hso x wob`` output positions walked strip by strip down each column,
+    the shared halo rows kept, only fresh rows staged; ``hso`` pins the
+    strip height, which must divide ``ho``."""
     if hso is not None and (hso < 1 or ho % hso):
         raise ValueError(f"hso={hso} must divide Ho={ho}")
-    taps = min(hf * wf, threads // groups)
-    tap_groups = -(-hf * wf // taps)
-    best = None
-    for s in ([hso] if hso is not None else divisors(ho)):
-        for w in divisors(wo):
-            if s * w > WGRAD_MAX_POSITIONS:
-                continue
-            smem = stream_wgrad_smem_bytes(s, w, cib, cob, hf, wf, stride,
-                                           prologue)
-            if smem > machine.smem_budget:
-                continue
-            key = (s * w, ho // s >= 2, -smem)
-            if best is None or key > best[0]:
-                best = (key, s, w)
-    if best is None:
-        raise SmemMisfitError(
-            f"no streamed wgrad strip fits: cib={cib}, cob={cob}, filter "
-            f"{hf}x{wf}, stride {stride} needs more than "
-            f"{machine.smem_budget} bytes of shared memory even at 1x1")
-    _, s, w = best
-    items = n * (wo // w) * (ho // s)
-    hin, wib = halo_dims(s, w, hf, wf, stride)
-    return StreamWgradBlocking(
-        hso=s, wob=w, taps=taps, tap_groups=tap_groups, items=items,
-        splits=_splits(items, tap_groups * ciblk * coblk, machine),
-        ring_rows=hin + s * stride, ring_cols=wib)
+    if hso is not None and hso > WGRAD_MAX_POSITIONS:
+        raise ValueError(f"hso={hso} rows exceed a stage's "
+                         f"{WGRAD_MAX_POSITIONS} positions")
+    return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                           machine, prologue, True, hso,
+                           "streamed wgrad strip")

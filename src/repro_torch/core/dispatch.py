@@ -105,8 +105,8 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     only the streamed model does; ``SmemMisfitError`` naming both models
     when neither fits.  ``spec`` is the forward's geometry (unpadded input,
     normalized pads); ``gap`` is the forward's fused pooling and
-    ``prologue`` the backward's ``act'(z)`` (the streamed dgrad and wgrad
-    ring ``z``)."""
+    ``prologue`` the backward's ``act'(z)`` (the dgrads and wgrads stage
+    ``z``)."""
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown direction {direction!r}; have "
                          f"{DIRECTIONS}")
@@ -134,7 +134,8 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     else:
         def window():
             return choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, s,
-                                         ciblk, cib, coblk, cob, machine)
+                                         ciblk, cib, coblk, cob, machine,
+                                         prologue)
 
         def streamed():
             return choose_stream_wgrad_blocking(n, spec.ho, spec.wo, hf, wf,

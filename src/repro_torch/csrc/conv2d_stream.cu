@@ -58,23 +58,26 @@
 //   rows are in flight, and the next stage's groups are in flight while
 //   this one computes.  dz = g * act'(z) is formed in place once a group
 //   lands; each halo row is read from device memory once per stage.
-// * The wgrad (stream_wgrad_kernel) holds one tap group's [Cib, Cob] blocks
-//   in registers (8 x 8 a thread, as the window wgrad) and walks a
-//   contiguous share of (image, column tile, strip) items: per item a
-//   halo'd x strip through a circular row buffer (fresh rows only, while
-//   the column tile continues) and a disjoint dz strip through two slots,
-//   the next item's copies in flight while this one computes.  db rides the
-//   CTAs of Ci block 0 and tap group 0.
+// * The wgrad (stream_wgrad_kernel) is the tensor-core tile of
+//   wgrad_tile.cuh (an implicit GEMM in 3xTF32: rows the (tap, c) pairs,
+//   columns Cob, K the output positions), streamed: a CTA walks a
+//   contiguous share of (image, column, strip) items of hso x wob output
+//   positions, strip by strip down each column, through a two-slot ring;
+//   where the next strip continues the column, its window keeps the halo
+//   rows the two share (moved slot to slot, as the TPU kernel moves them)
+//   and only its fresh rows come from device memory, with its cotangent
+//   strip and `z` beside it, a slot ahead of the wgmmas.  db rides the
+//   producer of the CTAs of Ci block 0 and m-tile group 0.
 //
-// What bounds them on this card: the forward and wgrad, the f32 FMA rate
-// (VGG-16's convs do 2*9*Ci FLOPs per output element for a few bytes; the
-// H100's f32 ridge is ~20 FLOP/byte), in practice the shared-memory reads
-// feeding the FMAs; a strip holds half a thread's positions, so each
-// weight read from shared memory feeds half as many FMAs as in the window
-// kernel.  No tensor cores, TMA or persistent CTAs in either.  The dgrad,
-// the TF32 tensor-core rate spent three times over by the split, held
-// below it by the producer's per-stage passes and barriers (dgrad_tile.cuh,
-// direct_conv2d_bwd.cu).
+// What bounds them on this card: the forward, the f32 FMA rate (VGG-16's
+// convs do 2*9*Ci FLOPs per output element for a few bytes; the H100's f32
+// ridge is ~20 FLOP/byte), in practice the shared-memory reads feeding the
+// FMAs; a strip holds half a thread's positions, so each weight read from
+// shared memory feeds half as many FMAs as in the window kernel.  No tensor
+// cores, TMA or persistent CTAs in it.  The dgrad and the wgrad, the TF32
+// tensor-core rate spent three times over by the split, held below it by
+// the producer's per-stage copies, passes and barriers (dgrad_tile.cuh,
+// wgrad_tile.cuh, direct_conv2d_bwd.cu).
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int; each
 // entry point returns cudaGetLastError() after its launch (0 on success).
@@ -84,10 +87,12 @@
 #include <stddef.h>
 
 #include "dgrad_tile.cuh"
+#include "wgrad_tile.cuh"
 
 namespace {
 
 namespace dt = dgrad_tile;
+namespace wtile = wgrad_tile;
 
 constexpr int kThreads = 256;   // threads per CTA
 constexpr int kLanes = 8;       // register-tile columns of one thread
@@ -108,9 +113,6 @@ __device__ __forceinline__ float activate(float v, int act) {
   }
   return v;
 }
-
-// dz = g * act'(z), as the dgrad tile forms it
-using dt::prologue;
 
 __device__ __forceinline__ int round4(int n) { return (n + 3) & ~3; }
 
@@ -550,178 +552,47 @@ dt::Kernel pick_dgrad(int lanes) {
 // wgrad
 // ---------------------------------------------------------------------------
 
-// kVecX / kVecD: Cib / Cob is a multiple of kLanes (two float4 reads).
-template <bool kVecX, bool kVecD>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-stream_wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
+// N: the wgmma width (Cob padded up); MPW: m-tiles of (tap, c) rows a
+// consumer warpgroup holds.
+template <int N, int MPW>
+__global__ void __launch_bounds__(wtile::kMaxThreads, 1)
+stream_wgrad_kernel(const __grid_constant__ CUtensorMap tmx,
+                    const __grid_constant__ CUtensorMap tmg,
+                    const __grid_constant__ CUtensorMap tmz,
+                    const float* __restrict__ x, const float* __restrict__ g,
                     const float* __restrict__ z, float* __restrict__ ws,
-                    int n_img, int ciblk, int hi, int wi, int cib, int coblk,
-                    int cob, int ho, int wo, int hf, int wf, int stride,
-                    int pad_top, int pad_left, int hso, int wob,
-                    int ring_rows, int taps, int tap_groups, int splits,
-                    int act, int with_db) {
+                    wtile::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
-  const int tg = blockIdx.x % tap_groups;
-  const int split = blockIdx.x / tap_groups;
-  const int ci_b = blockIdx.y;
-  const int co_b = blockIdx.z;
-  const int hin = (hso - 1) * stride + hf;
-  const int wib = (wob - 1) * stride + wf;
-  const int R = ring_rows;
-  const int strips = ho / hso;
-  const int tiles_w = wo / wob;
-  const int items = n_img * tiles_w * strips;
-  const int first = (int)((long long)items * split / splits);
-  const int last = (int)((long long)items * (split + 1) / splits);
+  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, geo);
+}
 
-  // thread -> (tap, Cib lane group, Cob lane group), as the window wgrad
-  const int ncig = (cib + kLanes - 1) / kLanes;
-  const int ncog = (cob + kLanes - 1) / kLanes;
-  const int groups = ncig * ncog;
-  const int t = threadIdx.x;
-  const int tl = t / groups;
-  const int cig = (t % groups) / ncog;
-  const int cog = t % ncog;
-  const int tap = tg * taps + tl;
-  const bool active = tl < taps && tap < hf * wf;
-  const int dh = active ? tap / wf : 0;
-  const int dw = active ? tap % wf : 0;
-  const int ci0 = cig * kLanes;
-  const int co0 = cog * kLanes;
-  const bool db_duty = with_db && active && ci_b == 0 && tg == 0 && tl == 0 &&
-                       cig == 0;
-
-  const int strip_floats = hso * wob * cob;
-  float* xring = smem;                                   // [R, wib, cib]
-  float* dring = smem + round4(R * wib * cib);           // [2, hso*wob, cob]
-  float* zring = z != nullptr ? dring + 2 * strip_floats : nullptr;
-
-  float acc[kLanes][kLanes];
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) acc[i][j] = 0.0f;
+// The compiled wgrad instances, as the window wgrad's.
+wtile::Kernel pick_wgrad(int lanes, int mpw) {
+  switch (lanes * 4 + mpw) {
+    case 8 * 4 + 1: return stream_wgrad_kernel<8, 1>;
+    case 8 * 4 + 2: return stream_wgrad_kernel<8, 2>;
+    case 16 * 4 + 1: return stream_wgrad_kernel<16, 1>;
+    case 16 * 4 + 2: return stream_wgrad_kernel<16, 2>;
+    case 32 * 4 + 1: return stream_wgrad_kernel<32, 1>;
+    case 32 * 4 + 2: return stream_wgrad_kernel<32, 2>;
+    case 64 * 4 + 1: return stream_wgrad_kernel<64, 1>;
+    case 64 * 4 + 2: return stream_wgrad_kernel<64, 2>;
+    case 128 * 4 + 1: return stream_wgrad_kernel<128, 1>;
   }
-  float dbacc[kLanes];
-#pragma unroll
-  for (int j = 0; j < kLanes; ++j) dbacc[j] = 0.0f;
+  return nullptr;
+}
 
-  const bool vec_x = cib % 4 == 0;
-  const bool vec_d = cob % 4 == 0;
-
-  // Issue item `it`'s copies: its x rows [lo, s*hso*stride + hin) (band-
-  // relative, row 0 at input row -pad_top) and its cotangent strip into
-  // slot `buf`.
-  auto issue = [&](int it, int lo, int buf) {
-    const int n = it / (tiles_w * strips);
-    const int tw = (it / strips) % tiles_w;
-    const int s = it % strips;
-    const float* xb = x + (size_t)(n * ciblk + ci_b) * hi * wi * cib;
-    stage_rows(xring, R, xb, hi, wi, cib, -pad_top, lo,
-               s * hso * stride + hin, tw * wob * stride - pad_left, wib, 0,
-               cib, vec_x);
-    const size_t map = (size_t)(n * coblk + co_b) * ho * wo * cob;
-    // the cotangent strip: rows [s*hso, (s+1)*hso), cols [tw*wob, +wob), all
-    // in the map; the ring stage with ring_rows = hso maps row r to r % hso
-    stage_rows(dring + buf * strip_floats, hso, g + map, ho, wo, cob, 0,
-               s * hso, (s + 1) * hso, tw * wob, wob, 0, cob, vec_d);
-    if (z != nullptr) {
-      stage_rows(zring + buf * strip_floats, hso, z + map, ho, wo, cob, 0,
-                 s * hso, (s + 1) * hso, tw * wob, wob, 0, cob, vec_d);
-    }
-    cp_async_commit();
-  };
-
-  if (first < last) issue(first, (first % strips) * hso * stride, 0);
-  for (int it = first; it < last; ++it) {
-    const int buf = (it - first) & 1;
-    const int s = it % strips;
-    const int lo = s * hso * stride;
-    cp_async_wait_all();
-    __syncthreads();                // item it has landed, for every thread
-    float* d_s = dring + buf * strip_floats;
-    if (z != nullptr) {
-      for (int i = t; i < strip_floats; i += kThreads) {
-        d_s[i] = prologue(d_s[i], zring[buf * strip_floats + i], act);
-      }
-      __syncthreads();
-    }
-    // the next item continues this column tile: only its fresh rows, in
-    // flight while this one computes; else it starts a column tile and is
-    // issued after the compute (its rows would overwrite this item's)
-    const bool next = it + 1 < last;
-    const bool same_band = next && (it + 1) % strips != 0;
-    if (same_band) {
-      const int fresh = hso * stride > hin ? hso * stride : hin;
-      issue(it + 1, lo + fresh, buf ^ 1);
-    }
-    if (active) {
-      const int base = lo % R;
-      for (int ph = 0; ph < hso; ++ph) {
-        int slot = base + ph * stride + dh;
-        if (slot >= R) slot -= R;
-        const float* xr = xring + (slot * wib + dw) * cib + ci0;
-        const float* dr = d_s + ph * wob * cob + co0;
-        for (int pw = 0; pw < wob; ++pw) {
-          float xv[kLanes], dv[kLanes];
-          const float* xp = xr + pw * stride * cib;
-          const float* dp = dr + pw * cob;
-          if constexpr (kVecX) {
-            load8(xp, xv);
-          } else {
-#pragma unroll
-            for (int i = 0; i < kLanes; ++i) {
-              xv[i] = (ci0 + i < cib) ? xp[i] : 0.0f;
-            }
-          }
-          if constexpr (kVecD) {
-            load8(dp, dv);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) {
-              dv[j] = (co0 + j < cob) ? dp[j] : 0.0f;
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) {
-              acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
-            }
-          }
-          if (db_duty) {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) dbacc[j] += dv[j];
-          }
-        }
-      }
-    }
-    if (next && !same_band) {
-      __syncthreads();              // every thread is done with the ring
-      issue(it + 1, 0, buf ^ 1);
-    }
-  }
-
-  if (!active) return;
-  const size_t dw_size = (size_t)coblk * ciblk * hf * wf * cib * cob;
-  float* row = ws + (size_t)split * (dw_size + (with_db ? coblk * cob : 0));
-  const size_t base =
-      (((size_t)(co_b * ciblk + ci_b) * hf * wf + tap) * cib + ci0) * cob + co0;
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-    if (ci0 + i < cib) {
-#pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        if (co0 + j < cob) row[base + (size_t)i * cob + j] = acc[i][j];
-      }
-    }
-  }
-  if (db_duty) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      if (co0 + j < cob) row[dw_size + co_b * cob + co0 + j] = dbacc[j];
-    }
-  }
+// The streamed wgrad's launch geometry: items of hso x wob positions,
+// walked column by column.
+wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
+                               int coblk, int cob, int ho, int wo, int hf,
+                               int wf, int stride, int pad_top, int pad_left,
+                               int hso, int wob, int wgs, int mpw, int lanes,
+                               int splits, int act, int prologue,
+                               int with_db) {
+  return wtile::Geometry{n, ciblk, cib, hi, wi, coblk, cob, ho, wo, hf, wf,
+                         stride, pad_top, pad_left, hso, wob, lanes, wgs,
+                         mpw, splits, act, prologue, with_db, 1};
 }
 
 }  // namespace
@@ -799,27 +670,45 @@ int conv2d_stream_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
   return 0;
 }
 
+// The wgrad tile's compiled limits (as direct_conv2d_bwd_geometry).
+void conv2d_stream_wgrad_geometry(int* threads, int* rows, int* positions) {
+  *threads = wtile::kMaxThreads;
+  *rows = wtile::kRows;
+  *positions = wtile::kMaxPositions;
+}
+
+// The wgrad: items of hso x wob output positions, `wgs` consumer warpgroups
+// of `mpw` m-tiles, the wgmma width `lanes`, `splits` position shares.
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
                         int n, int ciblk, int hi, int wi, int cib, int coblk,
                         int cob, int ho, int wo, int hf, int wf, int stride,
-                        int pad_top, int pad_left, int hso, int wob,
-                        int ring_rows, int taps, int tap_groups, int splits,
-                        int act, int with_db, int smem_bytes, void* stream) {
-  const bool vx = cib % kLanes == 0;
-  const bool vd = cob % kLanes == 0;
-  auto kernel = vx ? (vd ? stream_wgrad_kernel<true, true>
-                         : stream_wgrad_kernel<true, false>)
-                   : (vd ? stream_wgrad_kernel<false, true>
-                         : stream_wgrad_kernel<false, false>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tap_groups * splits, ciblk, coblk);
-  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws, n, ciblk,
-      hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top, pad_left, hso,
-      wob, ring_rows, taps, tap_groups, splits, act, with_db);
-  return (int)cudaGetLastError();
+                        int pad_top, int pad_left, int hso, int wob, int wgs,
+                        int mpw, int lanes, int splits, int act, int with_db,
+                        void* stream) {
+  const wtile::Geometry geo = wgrad_geometry(
+      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
+      pad_left, hso, wob, wgs, mpw, lanes, splits, act, z != nullptr,
+      with_db);
+  return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
+                       (const float*)g, (const float*)z, (float*)ws, geo,
+                       (cudaStream_t)stream);
+}
+
+// What conv2d_stream_wgrad runs with the same arguments (wgrad_tile::plan):
+// out[0] items, out[1] the function's MACs, out[2] tensor-core MACs issued,
+// out[3] shared memory of a CTA.
+int conv2d_stream_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
+                             int coblk, int cob, int ho, int wo, int hf,
+                             int wf, int stride, int pad_top, int pad_left,
+                             int hso, int wob, int wgs, int mpw, int lanes,
+                             int splits, int prologue, long long* out) {
+  const wtile::Geometry geo = wgrad_geometry(
+      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
+      pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);
+  if (!wtile::valid(geo) || pick_wgrad(lanes, mpw) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  wtile::plan(geo, out);
+  return 0;
 }
 
 const char* cuda_error_name(int code) {

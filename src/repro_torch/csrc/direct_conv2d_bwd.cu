@@ -39,22 +39,27 @@
 // that, most at stride 2, where a phase's few taps give a stage few wgmmas
 // while its window costs what a stride-1 window does.
 //
-// wgrad:  dw[dh,dw,c,co] = sum_{n,oh,ow} x[n, oh*s+dh-pt, ow*s+dw-pl, c]
-//                                        * dz[n,oh,ow,co],  db[co] = sum dz
-// The TPU walks the N*Ho*Wo reduction as a sequential grid axis into one
-// resident accumulator; blocks run in no order on Hopper, and one CTA per
-// (Co block, Ci block) would give conv1_2 of VGG-16 a single CTA.  So a CTA
-// holds `taps` taps' [Cib, Cob] blocks in its register tile (8 x 8 per
-// thread: one tap of 128 x 128 is 256 threads, the forward's tile) and walks
-// a contiguous share of the (image, tile row, tile col) position tiles,
-// staging each tile's x window (pads masked, no padded copy) and dz tile.
+// wgrad (`wgrad_kernel`): the reference walks the N*Ho*Wo reduction as a
+// sequential grid axis into one resident [Hf, Wf, Cib, Cob] accumulator;
+// blocks run in no order on Hopper.  Here the wgrad is an implicit GEMM on
+// the tensor cores in 3xTF32, rows the (tap, c) pairs, columns Cob, K the
+// output positions: the core is wgrad_tile.cuh, which says how.  This kernel
+// is its window form: one CTA per (m-tile group, position share, Ci block,
+// Co block); a producer warpgroup stages each tile's whole x window and its
+// g and z by cp.async a slot ahead, forms dz and writes it transposed, and
+// one to three consumer warpgroups run the wgmmas of their m-tiles on it.
 // Each share's sums go to its row of an f32 workspace [splits, |dw| + |db|];
 // `wgrad_reduce` then sums the rows in split order.  No atomics: two runs
-// give identical bits.  db rides the CTAs of Ci block 0 and tap group 0 only,
-// so it is summed once per Co block (the reference's `ci == 0` pass).  It
-// does the forward's FLOPs on plain f32 FMAs, bound in practice by the
-// shared-memory reads that feed them; its CTAs of one position tile stage
-// the same window once per tap group.
+// give identical bits.  db rides the producer of the CTAs of Ci block 0 and
+// m-tile group 0, so it is summed once per Co block (the reference's `ci ==
+// 0` pass).
+//
+// What bounds it on this card: the forward's FLOPs (2*9*Ci per output
+// element, far above the ridge), at the TF32 tensor-core rate spent three
+// times over by the split.  In practice the stage's copies and the
+// producer's pass (dz formed, split and transposed once per m-tile group),
+// whose latency a two-slot ring hides only while a stage's wgmmas outlast
+// it; at stride 2 the x window is four times a tile's positions.
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int; each
 // entry point returns cudaGetLastError() after its launch (0 on success).
@@ -64,48 +69,12 @@
 #include <stddef.h>
 
 #include "dgrad_tile.cuh"
+#include "wgrad_tile.cuh"
 
 namespace {
 
 namespace dt = dgrad_tile;
-
-constexpr int kThreads = 256;   // wgrad: threads per CTA
-constexpr int kLanes = 8;       // register-tile columns of one thread
-constexpr int kPositions = 8;   // the forward's positions of one thread
-constexpr int kMinBlocksPerSm = 2;
-static_assert(kLanes == 8, "the float4 pair reads assume 8 lanes");
-
-// dz = g * act'(z), as the dgrad tile forms it
-using dt::prologue;
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-// One staged unit of dz = g * act'(z): 4 floats when `vec` (offsets are
-// multiples of 4), else 1.
-__device__ __forceinline__ void stage_dz(float* dst, const float* g,
-                                         const float* z, size_t src, bool vec,
-                                         int act) {
-  if (vec) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(g + src));
-    if (z != nullptr) {
-      const float4 zz = __ldg(reinterpret_cast<const float4*>(z + src));
-      v.x = prologue(v.x, zz.x, act);
-      v.y = prologue(v.y, zz.y, act);
-      v.z = prologue(v.z, zz.z, act);
-      v.w = prologue(v.w, zz.w, act);
-    }
-    *reinterpret_cast<float4*>(dst) = v;
-  } else {
-    float v = __ldg(g + src);
-    if (z != nullptr) v = prologue(v, __ldg(z + src), act);
-    *dst = v;
-  }
-}
+namespace wtile = wgrad_tile;
 
 // ---------------------------------------------------------------------------
 // dgrad
@@ -228,172 +197,47 @@ dt::Kernel pick_dgrad(int lanes) {
 // wgrad
 // ---------------------------------------------------------------------------
 
-// kVecX / kVecD: Cib / Cob is a multiple of kLanes, so a thread's 8 x values
-// / 8 dz values of one position are two aligned float4 reads.
-template <bool kVecX, bool kVecD>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-wgrad_kernel(const float* __restrict__ x, const float* __restrict__ g,
-             const float* __restrict__ z, float* __restrict__ ws, int n_img,
-             int ciblk, int hi, int wi, int cib, int coblk, int cob, int ho,
-             int wo, int hf, int wf, int stride, int pad_top, int pad_left,
-             int hob, int wob, int taps, int tap_groups, int splits, int act,
-             int with_db) {
+// N: the wgmma width (Cob padded up); MPW: m-tiles of (tap, c) rows a
+// consumer warpgroup holds.
+template <int N, int MPW>
+__global__ void __launch_bounds__(wtile::kMaxThreads, 1)
+wgrad_kernel(const __grid_constant__ CUtensorMap tmx,
+             const __grid_constant__ CUtensorMap tmg,
+             const __grid_constant__ CUtensorMap tmz,
+             const float* __restrict__ x, const float* __restrict__ g,
+             const float* __restrict__ z, float* __restrict__ ws,
+             wtile::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
-  const int tg = blockIdx.x % tap_groups;
-  const int split = blockIdx.x / tap_groups;
-  const int ci_b = blockIdx.y;
-  const int co_b = blockIdx.z;
-  const int hib = (hob - 1) * stride + hf;
-  const int wib = (wob - 1) * stride + wf;
-  const int tiles_h = ho / hob;
-  const int tiles_w = wo / wob;
-  const int tiles = n_img * tiles_h * tiles_w;
-  const int first = (int)((long long)tiles * split / splits);
-  const int last = (int)((long long)tiles * (split + 1) / splits);
+  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, geo);
+}
 
-  // thread -> (tap, Cib lane group, Cob lane group); Cob fastest, so a warp
-  // shares x values (broadcast) and reads neighbouring dz values
-  const int ncig = (cib + kLanes - 1) / kLanes;
-  const int ncog = (cob + kLanes - 1) / kLanes;
-  const int groups = ncig * ncog;
-  const int t = threadIdx.x;
-  const int tl = t / groups;
-  const int cig = (t % groups) / ncog;
-  const int cog = t % ncog;
-  const int tap = tg * taps + tl;
-  const bool active = tl < taps && tap < hf * wf;
-  const int dh = active ? tap / wf : 0;
-  const int dw = active ? tap % wf : 0;
-  const int ci0 = cig * kLanes;
-  const int co0 = cog * kLanes;
-  const bool db_duty = with_db && active && ci_b == 0 && tg == 0 && tl == 0 &&
-                       cig == 0;
-
-  // the dz tile starts on 16 bytes after a window of Cib = 3 channels
-  float* x_s = smem;                                   // [hib, wib, cib]
-  float* d_s = smem + ((hib * wib * cib + 3) & ~3);    // [hob * wob, cob]
-
-  float acc[kLanes][kLanes];
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) acc[i][j] = 0.0f;
+// The compiled wgrad instances: wgmma widths 8 to 128, one or two m-tiles a
+// warpgroup (one at 128: its accumulator takes 64 registers a thread).
+wtile::Kernel pick_wgrad(int lanes, int mpw) {
+  switch (lanes * 4 + mpw) {
+    case 8 * 4 + 1: return wgrad_kernel<8, 1>;
+    case 8 * 4 + 2: return wgrad_kernel<8, 2>;
+    case 16 * 4 + 1: return wgrad_kernel<16, 1>;
+    case 16 * 4 + 2: return wgrad_kernel<16, 2>;
+    case 32 * 4 + 1: return wgrad_kernel<32, 1>;
+    case 32 * 4 + 2: return wgrad_kernel<32, 2>;
+    case 64 * 4 + 1: return wgrad_kernel<64, 1>;
+    case 64 * 4 + 2: return wgrad_kernel<64, 2>;
+    case 128 * 4 + 1: return wgrad_kernel<128, 1>;
   }
-  float dbacc[kLanes];
-#pragma unroll
-  for (int j = 0; j < kLanes; ++j) dbacc[j] = 0.0f;
+  return nullptr;
+}
 
-  const bool vec_x = cib % 4 == 0;
-  const bool vec_d = cob % 4 == 0;
-  const int unit = vec_d ? 4 : 1;
-  for (int tt = first; tt < last; ++tt) {
-    const int n = tt / (tiles_h * tiles_w);
-    const int th = (tt / tiles_w) % tiles_h;
-    const int tw = tt % tiles_w;
-    // x window [hib, wib, cib], pads masked
-    const float* xb = x + (size_t)(n * ciblk + ci_b) * hi * wi * cib;
-    const int h0 = th * hob * stride - pad_top;
-    const int w0 = tw * wob * stride - pad_left;
-    const int row_elems = wib * cib;
-    for (int r = 0; r < hib; ++r) {
-      const int ih = h0 + r;
-      float* dst = x_s + r * row_elems;
-      if (ih < 0 || ih >= hi) {
-        for (int i = t; i < row_elems; i += kThreads) dst[i] = 0.0f;
-        continue;
-      }
-      const float* src = xb + (size_t)ih * wi * cib;
-      if (vec_x) {
-        const int q = cib / 4;
-        for (int i = t; i < row_elems / 4; i += kThreads) {
-          const int iw = w0 + i / q;
-          float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (iw >= 0 && iw < wi) {
-            v = __ldg(reinterpret_cast<const float4*>(
-                src + (size_t)iw * cib) + i % q);
-          }
-          reinterpret_cast<float4*>(dst)[i] = v;
-        }
-      } else {
-        for (int i = t; i < row_elems; i += kThreads) {
-          const int iw = w0 + i / cib;
-          dst[i] = (iw >= 0 && iw < wi) ? __ldg(src + (size_t)iw * cib + i % cib)
-                                        : 0.0f;
-        }
-      }
-    }
-    // dz tile [hob * wob, cob]: one contiguous run per output row
-    const size_t map = (size_t)(n * coblk + co_b) * ho * wo * cob;
-    const float* zb = z != nullptr ? z + map : nullptr;
-    const int run = wob * cob / unit;
-    for (int i = t; i < hob * run; i += kThreads) {
-      const int r = i / run;
-      const int e = (i % run) * unit;
-      stage_dz(d_s + r * wob * cob + e, g + map, zb,
-               ((size_t)(th * hob + r) * wo + tw * wob) * cob + e, vec_d, act);
-    }
-    __syncthreads();
-    if (active) {
-      const float* xt = x_s + (dh * wib + dw) * cib + ci0;
-      const float* dt = d_s + co0;
-      for (int ph = 0; ph < hob; ++ph) {
-        for (int pw = 0; pw < wob; ++pw) {
-          float xv[kLanes], dv[kLanes];
-          const float* xp = xt + (ph * stride * wib + pw * stride) * cib;
-          const float* dp = dt + (ph * wob + pw) * cob;
-          if constexpr (kVecX) {
-            load8(xp, xv);
-          } else {
-#pragma unroll
-            for (int i = 0; i < kLanes; ++i) {
-              xv[i] = (ci0 + i < cib) ? xp[i] : 0.0f;
-            }
-          }
-          if constexpr (kVecD) {
-            load8(dp, dv);
-          } else {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) {
-              dv[j] = (co0 + j < cob) ? dp[j] : 0.0f;
-            }
-          }
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) {
-              acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
-            }
-          }
-          if (db_duty) {
-#pragma unroll
-            for (int j = 0; j < kLanes; ++j) dbacc[j] += dv[j];
-          }
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  if (!active) return;
-  const size_t dw_size = (size_t)coblk * ciblk * hf * wf * cib * cob;
-  float* row = ws + (size_t)split * (dw_size + (with_db ? coblk * cob : 0));
-  const size_t base =
-      (((size_t)(co_b * ciblk + ci_b) * hf * wf + tap) * cib + ci0) * cob + co0;
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-    if (ci0 + i < cib) {
-#pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        if (co0 + j < cob) row[base + (size_t)i * cob + j] = acc[i][j];
-      }
-    }
-  }
-  if (db_duty) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) {
-      if (co0 + j < cob) row[dw_size + co_b * cob + co0 + j] = dbacc[j];
-    }
-  }
+// The window wgrad's launch geometry.
+wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
+                               int coblk, int cob, int ho, int wo, int hf,
+                               int wf, int stride, int pad_top, int pad_left,
+                               int th, int tw, int wgs, int mpw, int lanes,
+                               int splits, int act, int prologue,
+                               int with_db) {
+  return wtile::Geometry{n, ciblk, cib, hi, wi, coblk, cob, ho, wo, hf, wf,
+                         stride, pad_top, pad_left, th, tw, lanes, wgs, mpw,
+                         splits, act, prologue, with_db, 0};
 }
 
 // out[i] = sum over rows k = 0 .. splits-1, in that order, of ws[k][i]
@@ -411,11 +255,12 @@ __global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
 
 extern "C" {
 
-// The compiled register-tile geometry, for the wrapper's blocking model.
-void direct_conv2d_bwd_geometry(int* threads, int* lanes, int* positions) {
-  *threads = kThreads;
-  *lanes = kLanes;
-  *positions = kPositions;
+// The wgrad tile's compiled limits, for the wrapper's blocking model: the
+// most threads a CTA, rows of an m-tile, output positions of a stage.
+void direct_conv2d_bwd_geometry(int* threads, int* rows, int* positions) {
+  *threads = wtile::kMaxThreads;
+  *rows = wtile::kRows;
+  *positions = wtile::kMaxPositions;
 }
 
 // Tiles of th x tw phase positions, `wgs` consumer warpgroups a CTA, the
@@ -450,26 +295,37 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
   return 0;
 }
 
+// Tiles of th x tw output positions, `wgs` consumer warpgroups of `mpw`
+// m-tiles, the wgmma width `lanes`, `splits` position shares.
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,
                         int n, int ciblk, int hi, int wi, int cib, int coblk,
                         int cob, int ho, int wo, int hf, int wf, int stride,
-                        int pad_top, int pad_left, int hob, int wob, int taps,
-                        int tap_groups, int splits, int act, int with_db,
-                        int smem_bytes, void* stream) {
-  const bool vx = cib % kLanes == 0;
-  const bool vd = cob % kLanes == 0;
-  auto kernel = vx ? (vd ? wgrad_kernel<true, true> : wgrad_kernel<true, false>)
-                   : (vd ? wgrad_kernel<false, true>
-                         : wgrad_kernel<false, false>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(tap_groups * splits, ciblk, coblk);
-  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws, n, ciblk,
-      hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top, pad_left, hob,
-      wob, taps, tap_groups, splits, act, with_db);
-  return (int)cudaGetLastError();
+                        int pad_top, int pad_left, int th, int tw, int wgs,
+                        int mpw, int lanes, int splits, int act, int with_db,
+                        void* stream) {
+  const wtile::Geometry geo = wgrad_geometry(
+      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
+      pad_left, th, tw, wgs, mpw, lanes, splits, act, z != nullptr, with_db);
+  return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
+                       (const float*)g, (const float*)z, (float*)ws, geo,
+                       (cudaStream_t)stream);
+}
+
+// What direct_conv2d_wgrad runs with the same arguments (wgrad_tile::plan):
+// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued,
+// out[3] shared memory of a CTA.
+int direct_conv2d_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
+                             int coblk, int cob, int ho, int wo, int hf,
+                             int wf, int stride, int pad_top, int pad_left,
+                             int th, int tw, int wgs, int mpw, int lanes,
+                             int splits, int prologue, long long* out) {
+  const wtile::Geometry geo = wgrad_geometry(
+      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
+      pad_left, th, tw, wgs, mpw, lanes, splits, 0, prologue, 0);
+  if (!wtile::valid(geo) || pick_wgrad(lanes, mpw) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  wtile::plan(geo, out);
+  return 0;
 }
 
 int wgrad_reduce(const void* ws, void* out, long long cols, int splits,

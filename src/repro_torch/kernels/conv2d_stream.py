@@ -13,7 +13,10 @@ family's functions:
   saved pre-activation ``z`` (``dz = g * act'(z)`` formed in the kernel),
   written at the unpadded input's shape;
 * ``stream_wgrad``: ``(dw, db)``, the kernel's per-share partial sums added
-  in split order by the dense family's ``wgrad_reduce``.
+  in split order by the dense family's ``wgrad_reduce``
+  (``stream_wgrad_kernel``: the tensor-core wgrad tile of
+  ``csrc/wgrad_tile.cuh`` walked strip by strip down each column, the halo
+  rows kept).
 
 Unlike the reference they take the port's **unpadded** operands: pads and
 halos are zero-filled copies, and the dgrad reads no stride hole (each
@@ -41,8 +44,7 @@ from repro_torch.core.blocking import (H100_SXM, MachineModel, StreamBlocking,
                                        choose_stream_blocking,
                                        choose_stream_dgrad_blocking,
                                        choose_stream_wgrad_blocking,
-                                       stream_gap_floats, stream_smem_bytes,
-                                       stream_wgrad_smem_bytes)
+                                       stream_gap_floats, stream_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_blocked,
@@ -50,12 +52,14 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_wgrad_blocked)
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
-from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
+from repro_torch.kernels.direct_conv2d import (WGRAD_GEOMETRY, _ACT_CODES,
+                                               _GRID_YZ_MAX,
                                                _backward_operands, _check,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
                                                _require, check_machine,
                                                dgrad_launch, gap_finalize,
+                                               split_wgrad, wgrad_launch,
                                                wgrad_reduce)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
@@ -78,12 +82,16 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.conv2d_stream_dgrad_plan.restype = i32
-    lib.conv2d_stream_wgrad.argtypes = [ptr] * 4 + [i32] * 23 + [ptr]
+    lib.conv2d_stream_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
     lib.conv2d_stream_wgrad.restype = i32
+    lib.conv2d_stream_wgrad_plan.argtypes = [i32] * 21 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.conv2d_stream_wgrad_plan.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    return _library("conv2d_stream", _declare)
+    return _library("conv2d_stream", _declare, more_geometries=(
+        ("conv2d_stream_wgrad_geometry", WGRAD_GEOMETRY),))
 
 
 def _prologue(z: Optional[torch.Tensor], activation: Optional[str]) -> bool:
@@ -215,12 +223,7 @@ def stream_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                                          activation, with_db)
     ws = stream_wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
                                with_db, hso=hso, machine=machine)
-    out = wgrad_reduce(ws)
-    coblk, cob, ciblk, cib = g.shape[1], g.shape[4], x.shape[1], x.shape[4]
-    dw_size = coblk * ciblk * hf * wf * cib * cob
-    dw = out[:dw_size].view(coblk, ciblk, hf, wf, cib, cob)
-    db = out[dw_size:].view(coblk, cob) if with_db else None
-    return dw, db
+    return split_wgrad(wgrad_reduce(ws), x.shape, g.shape, hf, wf, with_db)
 
 
 def _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation, hso,
@@ -246,32 +249,13 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     """The streamed wgrad kernel on CUDA operands -> the f32 workspace
     ``[splits, |dw| + |db|]`` of per-share partial sums."""
     _backward_operands(g, z, activation)
-    dev = _cuda_device(x)
+    _cuda_device(x)
     spec, blk = _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z,
                                        activation, hso, machine)
-    n, ciblk, hi, wi, cib = x.shape
-    _, coblk, ho, wo, cob = g.shape
-    prologue = _prologue(z, activation)
-    _require(x, "x", dev, vector_loads=True)
-    _require(g, "g", dev, vector_loads=True)
-    if prologue:
-        _require(z, "z", dev, vector_loads=True)
-    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
-    smem = stream_wgrad_smem_bytes(blk.hso, blk.wob, cib, cob, hf, wf, stride,
-                                   prologue)
-    cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
-                                                  else 0)
-    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_stream_wgrad(
-            _ptr(x), _ptr(g), _ptr(z) if prologue else None, _ptr(ws), n,
-            ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride,
-            spec.pads[0][0], spec.pads[1][0], blk.hso, blk.wob, blk.ring_rows,
-            blk.taps, blk.tap_groups, blk.splits, _ACT_CODES[activation],
-            int(with_db), smem, stream)
-        LAUNCHES["conv2d_stream_wgrad"] += 1
+    err, ws = wgrad_launch(lib.conv2d_stream_wgrad, blk, x, g, hf, wf, spec,
+                           z if _prologue(z, activation) else None,
+                           activation, with_db)
+    LAUNCHES["conv2d_stream_wgrad"] += 1
     _check(err, lib, "conv2d_stream_wgrad")
     return ws

@@ -49,12 +49,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import conv2d_common
-from repro_torch.core.blocking import (H100_SXM, DgradBlocking, DgradPlan,
-                                       MachineModel, choose_blocking,
+from repro_torch.core.blocking import (H100_SXM, WGRAD_MAX_POSITIONS,
+                                       WGRAD_ROWS, WGRAD_THREADS,
+                                       DgradBlocking, DgradPlan,
+                                       MachineModel, WgradBlocking,
+                                       WgradPlan, choose_blocking,
                                        choose_dgrad_blocking,
                                        choose_stream_dgrad_blocking,
+                                       choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking, dgrad_plan,
-                                       smem_bytes, wgrad_smem_bytes)
+                                       smem_bytes, wgrad_plan)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
                                        route_stream)
@@ -72,7 +76,8 @@ from repro_torch.kernels.conv_autograd import BlockedConvFunction
 __all__ = ["LAUNCHES", "reset_launches", "check_machine",
            "direct_conv2d_blocked",
            "gap_finalize", "direct_conv2d_dgrad", "dgrad_plans",
-           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_reduce"]
+           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans",
+           "wgrad_reduce"]
 
 LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
             "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
@@ -80,6 +85,9 @@ LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
+# the wgrad tile's compiled limits (wgrad_tile.cuh: threads a CTA, rows of
+# an m-tile, positions of a stage), which each wgrad library reports
+WGRAD_GEOMETRY = (WGRAD_THREADS, WGRAD_ROWS, WGRAD_MAX_POSITIONS)
 
 
 def reset_launches() -> None:
@@ -131,6 +139,9 @@ def _declare_bwd(lib, ptr, i32) -> None:
     lib.direct_conv2d_dgrad_plan.restype = i32
     lib.direct_conv2d_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
     lib.direct_conv2d_wgrad.restype = i32
+    lib.direct_conv2d_wgrad_plan.argtypes = [i32] * 21 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.direct_conv2d_wgrad_plan.restype = i32
     lib.wgrad_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32, ptr]
     lib.wgrad_reduce.restype = i32
 
@@ -140,7 +151,7 @@ def _lib() -> ctypes.CDLL:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    return _library("direct_conv2d_bwd", _declare_bwd)
+    return _library("direct_conv2d_bwd", _declare_bwd, WGRAD_GEOMETRY)
 
 
 def _check(err: int, lib: ctypes.CDLL, name: str) -> None:
@@ -509,11 +520,12 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
     db [Co/Cob, Cob] f32 or None)``.
 
-    On CUDA the wgrad kernel (``wgrad_partials``) writes one partial sum per
-    position share into a ``[splits, |dw| + |db|]`` f32 workspace
-    (``torch.empty``) and ``wgrad_reduce`` adds the shares in order; no
-    atomics, so two runs give identical bits.  ``stream``, ``hso`` and
-    ``machine`` route it as the forward."""
+    On CUDA the tensor-core wgrad kernel (``wgrad_partials``,
+    ``csrc/wgrad_tile.cuh``) writes one partial sum per position share into
+    a ``[splits, |dw| + |db|]`` f32 workspace (``torch.empty``) and
+    ``wgrad_reduce`` adds the shares in order; no atomics, so two runs give
+    identical bits.  ``stream``, ``hso`` and ``machine`` route it as the
+    forward."""
     _backward_operands(g, z, activation)
     check_machine(machine)
     n, ciblk, hi, wi, cib = x.shape
@@ -528,16 +540,22 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
             machine=machine)
     if x.device.type == "cpu":
         choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, stride, ciblk,
-                              cib, g.shape[1], cob, machine)
+                              cib, g.shape[1], cob, machine, prologue)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
                                          activation, with_db)
     ws = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
                         with_db, machine)
-    out = wgrad_reduce(ws)
-    coblk, cob, ciblk, cib = g.shape[1], g.shape[4], x.shape[1], x.shape[4]
-    dw_shape = (coblk, ciblk, hf, wf, cib, cob)
+    return split_wgrad(wgrad_reduce(ws), x.shape, g.shape, hf, wf, with_db)
+
+
+def split_wgrad(out: torch.Tensor, x_shape, g_shape, hf: int, wf: int,
+                with_db: bool):
+    """The reduced workspace row ``[|dw| + |db|]`` -> ``(dw, db or None)``,
+    views of it."""
+    _, ciblk, _, _, cib = x_shape
+    _, coblk, _, _, cob = g_shape
     dw_size = coblk * ciblk * hf * wf * cib * cob
-    dw = out[:dw_size].view(dw_shape)
+    dw = out[:dw_size].view(coblk, ciblk, hf, wf, cib, cob)
     db = out[dw_size:].view(coblk, cob) if with_db else None
     return dw, db
 
@@ -549,37 +567,92 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                    with_db: bool = False,
                    machine: MachineModel = H100_SXM) -> torch.Tensor:
     """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
-    ``[splits, |dw| + |db|]`` of per-share partial sums (``splits`` from
+    ``[splits, |dw| + |db|]`` of per-share partial sums (tiles from
     ``choose_wgrad_blocking``), each row laid out as ``dw`` then ``db``."""
     _backward_operands(g, z, activation)
-    dev = _cuda_device(x)
+    _cuda_device(x)
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
     spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
                          padding, g, z)
+    prologue = z is not None and activation not in (None, "linear")
+    blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                                cob, machine, prologue)
+    lib = _bwd_lib()
+    err, ws = wgrad_launch(lib.direct_conv2d_wgrad, blk, x, g, hf, wf, spec,
+                           z if prologue else None, activation, with_db)
+    LAUNCHES["direct_conv2d_wgrad"] += 1
+    _check(err, lib, "direct_conv2d_wgrad")
+    return ws
+
+
+def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
+                 hf: int, wf: int, spec: ConvSpec, z: Optional[torch.Tensor],
+                 activation: Optional[str], with_db: bool):
+    """Call a tensor-core wgrad kernel's C ``entry`` (the window one or the
+    streamed one) with the tiles ``blk`` on CUDA operands, ``z`` only with
+    the prologue -> ``(CUDA error code, workspace)``; the caller counts the
+    launch."""
+    dev = _cuda_device(x)
     _require(x, "x", dev, vector_loads=True)
     _require(g, "g", dev, vector_loads=True)
     if z is not None:
         _require(z, "z", dev, vector_loads=True)
+    n, ciblk, _, _, cib = x.shape
+    _, coblk, _, _, cob = g.shape
     if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
-    blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                                cob, machine)
-    smem = wgrad_smem_bytes(blk.hob, blk.wob, cib, cob, hf, wf, stride)
     cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
                                                   else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    lib = _bwd_lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = lib.direct_conv2d_wgrad(
-            _ptr(x), _ptr(g), _ptr(z), _ptr(ws), n, ciblk, hi, wi, cib, coblk,
-            cob, ho, wo, hf, wf, stride, spec.pads[0][0], spec.pads[1][0],
-            blk.hob, blk.wob, blk.taps, blk.tap_groups, blk.splits,
-            _ACT_CODES[activation], int(with_db), smem, stream)
-        LAUNCHES["direct_conv2d_wgrad"] += 1
-    _check(err, lib, "direct_conv2d_wgrad")
-    return ws
+        err = entry(_ptr(x), _ptr(g), _ptr(z), _ptr(ws),
+                    *_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
+                    _ACT_CODES[activation], int(with_db), stream)
+    return err, ws
+
+
+def _wgrad_ints(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
+                spec: ConvSpec) -> tuple:
+    """The geometry arguments of a wgrad kernel's C entries."""
+    n, ciblk, hi, wi, cib = x_shape
+    _, coblk, ho, wo, cob = g_shape
+    return (n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, spec.stride,
+            spec.pads[0][0], spec.pads[1][0], blk.th, blk.tw, blk.wgs,
+            blk.mpw, blk.lanes, blk.splits)
+
+
+def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
+                stride: int = 1, padding: Padding = "VALID",
+                z: Optional[torch.Tensor] = None,
+                activation: Optional[str] = None, *, streamed: bool = False,
+                machine: MachineModel = H100_SXM
+                ) -> Tuple[WgradPlan, WgradPlan]:
+    """What one launch of the window wgrad kernel (with ``streamed``, the
+    streamed one) runs on these operands, tiled as its wrapper tiles them:
+    ``(the kernel library's own count, its *_wgrad_plan entry;
+    core.blocking.wgrad_plan's)``.  Reads the built library; launches
+    nothing."""
+    n, ciblk, hi, wi, cib = x.shape
+    _, coblk, ho, wo, cob = g.shape
+    spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
+                         padding, g, z)
+    prologue = z is not None and activation not in (None, "linear")
+    args = (n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob, machine,
+            prologue)
+    if streamed:
+        blk = choose_stream_wgrad_blocking(*args)
+        entry = _stream_kernels()._lib().conv2d_stream_wgrad_plan
+    else:
+        blk = choose_wgrad_blocking(*args)
+        entry = _bwd_lib().direct_conv2d_wgrad_plan
+    out = (ctypes.c_longlong * 4)()
+    if entry(*_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
+             int(prologue), out):
+        raise ValueError(f"the wgrad kernel refuses the tiles {blk}")
+    return WgradPlan(*out), wgrad_plan(blk, n, ho, wo, hf, wf, stride,
+                                       ciblk, cib, coblk, cob, prologue)
 
 
 def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
                                                dgrad_plans, reset_launches,
-                                               wgrad_reduce)
+                                               wgrad_plans, wgrad_reduce)
 from repro_torch.core.blocking import (choose_blocking,  # noqa: E402
                                        choose_stream_blocking)
 from repro_torch.core.context import ConvContext  # noqa: E402
@@ -226,6 +226,102 @@ def test_dgrad_kernels_run_from_a_fresh_thread(cuda):
     assert "error" not in out, out.get("error")
     for route in (False, True):
         torch.testing.assert_close(out[route], want, **TOL)
+
+
+# (n, ci, co, h, cib, cob, stride, activation, padding): the tensor-core
+# wgrads (csrc/wgrad_tile.cuh) at test_backward_kernels_match_plain_versions'
+# shapes, plus Cob = 12 and 6 (g and z by 4-byte copies), two Ci blocks and
+# two m-tiles
+WGRAD_CASES = BWD_CASES + [
+    (2, 16, 12, 9, 16, 12, 1, "gelu", "SAME"),
+    (2, 8, 6, 9, 8, 6, 1, "relu", "SAME"),
+    (2, 256, 128, 7, 128, 128, 2, "relu", "SAME"),
+    (3, 3, 64, 20, 3, 64, 2, None, "SAME"),
+]
+# |kernel - f64| <= WGRAD_REL * sum |x * dz| (chip_smoke.py's bound)
+WGRAD_REL = 1e-5
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         WGRAD_CASES)
+def test_wgrad_kernels_match_plain_version_and_each_other(
+        cuda, n, ci, co, h, cib, cob, stride, act, padding):
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    zz = None if act is None else z
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), g.double(), 3, 3, stride, padding,
+        None if zz is None else zz.double(), act, with_db=True)
+    dz = g if act is None else conv2d_common.cotangent_prologue(g, zz, act)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), 3, 3, stride, padding,
+        with_db=True)
+    reset_launches()
+    stk.reset_launches()
+    runs = {route: [direct_conv2d_wgrad(x, g, 3, 3, stride, padding, zz, act,
+                                        with_db=True, stream=route)
+                    for _ in range(2)] for route in (False, True)}
+    torch.cuda.synchronize()
+    assert LAUNCHES["direct_conv2d_wgrad"] == 2
+    assert stk.LAUNCHES["conv2d_stream_wgrad"] == 2
+    assert LAUNCHES["wgrad_reduce"] == 4
+    for (dw, db), (dw2, db2) in runs.values():
+        assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+        assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+        # no atomics: two runs give the same bits
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         WGRAD_CASES)
+def test_wgrad_kernel_plans_match_the_blocking_model(
+        cuda, n, ci, co, h, cib, cob, stride, act, padding):
+    # the kernels' own count of a launch (tiles, the function's MACs,
+    # tensor-core MACs issued, shared memory; wgrad_tile::plan) against
+    # core.blocking.wgrad_plan
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=cuda)
+    zz = None if act is None else z
+    for streamed in (False, True):
+        kernel, model = wgrad_plans(x, g, 3, 3, stride, padding, zz, act,
+                                    streamed=streamed)
+        assert kernel == model
+        assert kernel.issued_macs >= 3 * kernel.function_macs > 0
+
+
+def test_wgrad_kernels_run_from_a_fresh_thread(cuda):
+    # autograd runs a backward on a thread of its own: the wgrads' tensor
+    # maps must encode where the device's context is not yet current
+    import threading
+    x, w, _, _ = _operands(cuda, 2, 64, 128, 14, 64, 128, 2, False)
+    z = direct_conv_blocked(x, w, 2, "SAME").contiguous()
+    g = torch.randn(z.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(4))
+    want = [direct_conv2d_wgrad(x, g, 3, 3, 2, "SAME", z, "relu",
+                                with_db=True, stream=route)
+            for route in (False, True)]
+    out = {}
+
+    def run():
+        try:
+            for route in (False, True):
+                out[route] = direct_conv2d_wgrad(x, g, 3, 3, 2, "SAME", z,
+                                                 "relu", with_db=True,
+                                                 stream=route)
+            torch.cuda.synchronize()
+        except Exception as e:      # noqa: BLE001 - re-raised below
+            out["error"] = e
+
+    thread = threading.Thread(target=run)
+    thread.start()
+    thread.join()
+    assert "error" not in out, out.get("error")
+    for route, (dw, db) in zip((False, True), want):
+        assert torch.equal(out[route][0], dw)
+        assert torch.equal(out[route][1], db)
 
 
 def test_wgrad_reduce_sums_rows_in_order(cuda):

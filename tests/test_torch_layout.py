@@ -172,17 +172,25 @@ def test_backward_blocking_fits_the_cta(hi, ci, co, stride):
                                          d.hwin, d.wwin, prologue) \
             <= m.smem_block
     ho = -(-hi // stride)
-    wg = blocking.choose_wgrad_blocking(8, ho, ho, 3, 3, stride, ci // cib,
-                                        cib, co // cob, cob)
-    assert ho % wg.hob == 0 and ho % wg.wob == 0
-    assert blocking.wgrad_smem_bytes(wg.hob, wg.wob, cib, cob, 3, 3,
-                                     stride) <= m.smem_budget
-    # every tap has its threads, and a CTA holds no more than it has
-    groups = -(-cib // m.lanes) * -(-cob // m.lanes)
-    assert wg.taps * groups <= m.threads and wg.taps * wg.tap_groups >= 9
-    assert 1 <= wg.splits <= wg.tiles == 8 * (ho // wg.hob) * (ho // wg.wob)
-    base = wg.tap_groups * (ci // cib) * (co // cob)
-    assert wg.splits <= max(1, -(-2 * m.ctas_per_sm * m.sms // base))
+    for prologue in (False, True):
+        wg = blocking.choose_wgrad_blocking(8, ho, ho, 3, 3, stride,
+                                            ci // cib, cib, co // cob, cob,
+                                            prologue=prologue)
+        # a stage of th x tw output positions; the window and the staged
+        # dz fit one CTA, and a consumer thread's accumulators 64 registers
+        assert 1 <= wg.th * wg.tw <= blocking.WGRAD_MAX_POSITIONS
+        assert blocking.wgrad_smem_bytes(wg.th, wg.tw, 3, 3, stride, cib,
+                                         cob, wg.lanes, prologue) \
+            <= m.smem_block
+        assert wg.lanes in blocking.DGRAD_LANES and cob <= wg.lanes
+        assert wg.lanes * wg.mpw <= 128
+        # the m-tile groups cover the 9 * Cib (tap, c) rows
+        rows = wg.groups * wg.wgs * wg.mpw * 64
+        assert rows >= 9 * cib > rows - wg.wgs * wg.mpw * 64
+        assert 1 <= wg.splits <= wg.tiles == (
+            8 * -(-ho // wg.th) * -(-ho // wg.tw))
+        assert 4 * wg.splits * (9 * ci * co + co) <= max(
+            blocking.WGRAD_WORKSPACE_BYTES, 4 * (9 * ci * co + co))
 
 
 def test_dgrad_window_covers_every_tap_a_tile_reaches():
@@ -204,11 +212,11 @@ def test_dgrad_window_covers_every_tap_a_tile_reaches():
 
 def test_wgrad_blocking_misfit_raises():
     tiny = blocking.MachineModel("tiny", threads=256, lanes=8, positions=8,
-                                 smem_budget=1024)
+                                 smem_budget=1024, smem_block=1024)
     with pytest.raises(ValueError, match="no wgrad tile fits"):
         blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64,
                                        machine=tiny)
-    with pytest.raises(ValueError, match="thread"):
+    with pytest.raises(ValueError, match="widest wgmma"):
         blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 256, 1, 256)
 
 

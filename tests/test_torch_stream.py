@@ -276,15 +276,18 @@ def test_stream_wgrad_blocking_at_every_vgg16_shape(entry):
         ho = -(-h // s)
         blk = blocking.choose_stream_wgrad_blocking(
             n, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob, prologue=True)
-        assert ho % blk.hso == 0 and ho % blk.wob == 0
-        assert blk.hso * blk.wob <= blocking.WGRAD_MAX_POSITIONS
-        assert blocking.stream_wgrad_smem_bytes(
-            blk.hso, blk.wob, cib, cob, 3, 3, s, True) <= H100_SXM.smem_budget
-        assert blk.items == n * (ho // blk.wob) * (ho // blk.hso)
-        assert blk.taps * blk.tap_groups >= 9
-        grid = blk.tap_groups * blk.splits * (ci // cib) * (co // cob)
-        assert grid >= min(2 * H100_SXM.wave, blk.tap_groups * blk.items
-                           * (ci // cib) * (co // cob))
+        # strips of hso rows down each column, a stage of at most
+        # WGRAD_MAX_POSITIONS positions, every (tap, c) row in some m-tile
+        assert 1 <= blk.hso * blk.wob <= blocking.WGRAD_MAX_POSITIONS
+        assert blocking.wgrad_smem_bytes(
+            blk.hso, blk.wob, 3, 3, s, cib, cob, blk.lanes,
+            True) <= H100_SXM.smem_block
+        assert blk.items == n * -(-ho // blk.wob) * -(-ho // blk.hso)
+        assert blk.groups * blk.wgs * blk.mpw * 64 >= 9 * cib
+        # the shares' workspace stays within the one the choosers allow
+        assert 1 <= blk.splits <= blk.items
+        assert blk.splits == 1 or 4 * blk.splits * (
+            9 * ci * co + co) <= blocking.WGRAD_WORKSPACE_BYTES
 
 
 def test_stream_choosers_raise_smem_misfit_on_a_tiny_machine():
