@@ -15,7 +15,9 @@ and no phase catches its own failure:
    bf16 kernel must have some; each instance of the two phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
    spill nothing, and each instance of the two wgrad kernels
-   (``csrc/wgrad_tile.cuh``) HGMMA (wgmma) instructions and no spill;
+   (``csrc/wgrad_tile.cuh``) and of the pointwise forward's tile
+   (``pointwise_tile_kernel``) HGMMA (wgmma) instructions and no spill (the
+   pointwise dgrad runs the dense dgrad's ``dgrad_kernel`` at 1x1);
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
@@ -72,8 +74,12 @@ and no phase catches its own failure:
     of a step;
 14. per-leg forward (batch 8), dgrad and wgrad (batch 32) times of the
     depthwise and pointwise legs: eager and as a CUDA-graph replay (device
-    alone), beside the plain version, the library call and the bound; the
-    train step against the plain trainer's; the step's peak device memory
+    alone), the wrapper's host µs a call (``HOST_CALLS`` calls, no
+    synchronise), beside the plain version, the library call (eager and
+    as a CUDA-graph replay) and the bound (the pointwise forward's and
+    dgrad's at the 3xTF32 split's, the f32 FMA bound beside it, with the
+    tensor-core MACs their tiles issue and the padding share); the train
+    step against the plain trainer's; the step's peak device memory
     beside the bytes it must hold;
 15. the streamed (halo-ring) kernels against their plain versions: the
     forward at every distinct VGG-16 shape of both buckets at batch 8
@@ -262,6 +268,12 @@ DGRAD_KERNELS = {"direct_conv2d_bwd": "dgrad_kernel",
 # the wgrad kernels' functions (csrc/wgrad_tile.cuh), 3xTF32 as the dgrads
 WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
                  "conv2d_stream": "stream_wgrad_kernel"}
+# the pointwise forward's tensor-core tile, 3xTF32 as well
+PW_TILE_KERNELS = {"conv2d_pointwise": "pointwise_tile_kernel"}
+# calls a wrapper's host cost is averaged over (time.perf_counter, no
+# synchronise): few enough that the launch queue never fills and holds the
+# host back to the device's pace
+HOST_CALLS = 200
 LAYER_NAMES = [f"conv{st}_{k}" for st, k in
                ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
                 (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -327,6 +339,19 @@ def graph_ms(fn, iters: int = 10) -> float:
     torch.cuda.synchronize()
     del graph
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """The host's µs a call of ``fn``: ``calls`` calls with no synchronise
+    between them, on the host's clock."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / calls * 1e6
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
@@ -681,14 +706,17 @@ def mobilenet_phases(args, dev, t_start):
                                          mobilenet_v1_blocked)
     from repro_torch.core import conv2d_common
     from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
+                                           choose_pointwise_blocking,
                                            choose_pointwise_wgrad_blocking,
-                                           choose_wgrad_blocking)
+                                           choose_wgrad_blocking,
+                                           pointwise_issued_macs)
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.direct_conv import (direct_conv_blocked,
                                               direct_conv_dgrad_blocked,
                                               direct_conv_wgrad_blocked)
     from repro_torch.kernels import conv2d_depthwise as dwk
     from repro_torch.kernels import conv2d_pointwise as pwk
+    from repro_torch.kernels.direct_conv2d import dgrad_plans
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.nn.conv import DepthwiseSeparableBlock
     from repro_torch.serve.scheduler import ConvRequest, Outcome
@@ -991,6 +1019,21 @@ def mobilenet_phases(args, dev, t_start):
 
     fwd_rows, bwd_rows = {}, {}
     device = {}       # per leg and kind: the kernel's time in a CUDA graph
+    lib_device = {}   # the library call's, likewise
+    host = {}         # the wrapper's host µs a call
+    f32_bound = {}    # the pointwise tiles' f32 FMA bound, beside 3xTF32's
+    issued = {}       # the pointwise tiles' tensor-core MACs and function's
+
+    def graphs(key, kernel, library):
+        device[key] = graph_ms(kernel)
+        lib_device[key] = graph_ms(library)
+        host[key] = host_us(kernel)
+
+    def pw_issued(key, n_, hw, kblk, kw, oblk, ow, gap):
+        blk = choose_pointwise_blocking(n_, hw, kblk, kw, oblk, ow, gap=gap)
+        issued[key] = (pointwise_issued_macs(blk, n_, kblk, kw, oblk),
+                       n_ * hw * kblk * kw * oblk * ow)
+
     with torch.no_grad():
         for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
                                blocks(ENTRY)}):
@@ -1000,12 +1043,14 @@ def mobilenet_phases(args, dev, t_start):
             wl, bl = oihw(w, c).contiguous(), b.reshape(-1)
             kernel = lambda: dwk.depthwise_conv2d_blocked(  # noqa: E731
                 x, w, b, s, "SAME", "relu")
-            device[("dw", c, s, h, "fwd")] = graph_ms(kernel)
+            library = lambda: F.conv2d(  # noqa: E731
+                xp, wl, bl, stride=s, groups=c)
+            graphs(("dw", c, s, h, "fwd"), kernel, library)
             fwd_rows[("dw", c, s, h)] = (
                 time_ms(kernel),
                 time_ms(lambda: direct_conv_blocked(x, w, s, "SAME", b,
                                                     "relu", groups=c)),
-                time_ms(lambda: F.conv2d(xp, wl, bl, stride=s, groups=c)),
+                time_ms(library),
                 *bound(spec.flops(), 4 * (x.numel() + w.numel() + b.numel()
                                           + MB_BATCH * c * spec.ho
                                           * spec.wo)))
@@ -1018,14 +1063,19 @@ def mobilenet_phases(args, dev, t_start):
             out_elems = MB_BATCH * co * (1 if gap else h * h)
             kernel = lambda: pwk.pointwise_conv2d_blocked(  # noqa: E731
                 x, w, b, 1, "VALID", "relu", gap=gap)
-            device[("pw", ci, co, h, "fwd")] = graph_ms(kernel)
-            fwd_rows[("pw", ci, co, h)] = (
+            library = lambda: F.conv2d(xl, wl, bl)  # noqa: E731
+            key = ("pw", ci, co, h)
+            graphs(key + ("fwd",), kernel, library)
+            b_ms, b_by, f32_bound[key + ("fwd",)] = tf32x3_bound(
+                2 * MB_BATCH * h * h * ci * co,
+                4 * (x.numel() + w.numel() + b.numel() + out_elems))
+            pw_issued(key + ("fwd",), MB_BATCH, h * h, ci // x.shape[4],
+                      x.shape[4], co // w.shape[5], w.shape[5], gap)
+            fwd_rows[key] = (
                 time_ms(kernel),
                 time_ms(lambda: direct_conv_blocked(x, w, 1, "VALID", b,
                                                     "relu", gap=gap)),
-                time_ms(lambda: F.conv2d(xl, wl, bl)),
-                *bound(2 * MB_BATCH * h * h * ci * co,
-                       4 * (x.numel() + w.numel() + b.numel() + out_elems)))
+                time_ms(library), b_ms, b_by)
     for key, (x, w, z, g, spec) in bwd.items():
         dz = conv2d_common.cotangent_prologue(g, z, "relu")
         dzl = nchw(dz).contiguous()
@@ -1060,6 +1110,16 @@ def mobilenet_phases(args, dev, t_start):
             _, ci, co, h = key
             xl, wl = nchw(x).contiguous(), oihw(w, 1).contiguous()
             flops = 2 * n * h * h * ci * co
+            # g and z read, dx written, w read once
+            b_ms, b_by, f32_bound[key + ("dgrad",)] = tf32x3_bound(
+                flops, 4 * (2 * g.numel() + w.numel() + x.numel()))
+            # the dgrad runs the dense dgrad's tile at 1x1: its kernel
+            # library's own plan must be the blocking model's
+            plan, model = dgrad_plans(g, w, (h, h), 1, "VALID", z, "relu")
+            if plan != model:
+                fail(f"pw dgrad {ci}->{co} {h}x{h}: the kernel's plan {plan} "
+                     f"!= the blocking model's {model}")
+            issued[key + ("dgrad",)] = (plan.issued_macs, plan.function_macs)
             bwd_rows[key] = {
                 "dgrad": (
                     time_ms(lambda: pwk.pointwise_dgrad(g, w, z, "relu")),
@@ -1068,8 +1128,7 @@ def mobilenet_phases(args, dev, t_start):
                     time_ms(lambda: torch.ops.aten.convolution_backward(
                         dzl, xl, wl, None, [1, 1], [0, 0], [1, 1], False,
                         [0, 0], 1, [True, False, False])),
-                    *bound(flops, 4 * (2 * g.numel() + w.numel()
-                                       + x.numel()))),
+                    b_ms, b_by),
                 "wgrad": (
                     time_ms(lambda: pwk.pointwise_wgrad_partials(
                         x, g, z, "relu", True)),
@@ -1081,22 +1140,31 @@ def mobilenet_phases(args, dev, t_start):
                     *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
                                        + co)))}
         if key[0] == "dw":
-            device[key + ("dgrad",)] = graph_ms(lambda: dwk.depthwise_dgrad(
-                g, w, (h, h), s, "SAME", z, "relu"))
-            device[key + ("wgrad",)] = graph_ms(
-                lambda: dwk.depthwise_wgrad_partials(x, g, 3, 3, s, "SAME", z,
-                                                     "relu", True))
+            xin, st, groups = xp, s, c
+            dgrad = lambda: dwk.depthwise_dgrad(  # noqa: E731
+                g, w, (h, h), s, "SAME", z, "relu")
+            wgrad = lambda: dwk.depthwise_wgrad_partials(  # noqa: E731
+                x, g, 3, 3, s, "SAME", z, "relu", True)
         else:
-            device[key + ("dgrad",)] = graph_ms(lambda: pwk.pointwise_dgrad(
-                g, w, z, "relu"))
-            device[key + ("wgrad",)] = graph_ms(
-                lambda: pwk.pointwise_wgrad_partials(x, g, z, "relu", True))
+            xin, st, groups = xl, 1, 1
+            dgrad = lambda: pwk.pointwise_dgrad(g, w, z, "relu")  # noqa: E731
+            wgrad = lambda: pwk.pointwise_wgrad_partials(  # noqa: E731
+                x, g, z, "relu", True)
+        for kind, fn, mask in (("dgrad", dgrad, [True, False, False]),
+                               ("wgrad", wgrad, [False, True, False])):
+            graphs(key + (kind,), fn,
+                   lambda mask=mask: torch.ops.aten.convolution_backward(
+                       dzl, xin, wl, None, [st, st], [0, 0], [1, 1], False,
+                       [0, 0], groups, mask))
         del dz, dzl
 
     # sums over the 13 legs of each kind, in the network's order
     sums = {k: [0.0, 0.0, 0.0, 0.0] for k in pwk.LAUNCHES} | \
         {k: [0.0, 0.0, 0.0, 0.0] for k in dwk.LAUNCHES}
     device_sums = {k: 0.0 for k in sums}
+    lib_sums = {k: 0.0 for k in sums}
+    host_sums = {k: 0.0 for k in sums}
+    issued_sums = {k: [0, 0] for k in sums}
     kinds = {k: [] for k in sums}
     for i, (ci, co, s, h) in enumerate(blocks(ENTRY)):
         ho = -(-h // s)
@@ -1108,19 +1176,38 @@ def mobilenet_phases(args, dev, t_start):
                 name = f"{kernel}_{kind}"
                 for j, v in enumerate((k_ms, p_ms, l_ms, b_ms)):
                     sums[name][j] += v
-                d_ms = device[key + (kind,)]
+                leg_kind = key + (kind,)
+                d_ms = device[leg_kind]
                 device_sums[name] += d_ms
+                lib_sums[name] += lib_device[leg_kind]
+                host_sums[name] += host[leg_kind]
                 kinds[name].append((b_ms, b_by))
+                extra = ""
+                if leg_kind in f32_bound:
+                    got, fn_macs = issued[leg_kind]
+                    issued_sums[name][0] += got
+                    issued_sums[name][1] += fn_macs
+                    extra = (f" (3xTF32; f32 FMA {f32_bound[leg_kind]:.4f}) "
+                             f"tensor-core MACs issued {got} for the "
+                             f"function's {fn_macs}, padding "
+                             f"{1 - 3 * fn_macs / got:.3f}")
                 print(f"[mb-layer] block{i + 1} {leg} {kind} {ci}->{cout} "
                       f"in {ext}x{ext} s{st} "
                       f"n{MB_BATCH if kind == 'fwd' else n}: kernel_ms "
-                      f"{k_ms:.4f} device_ms {d_ms:.4f} plain_ms {p_ms:.4f} "
-                      f"library_ms {l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) "
-                      f"bound/kernel {b_ms / k_ms:.3f}")
+                      f"{k_ms:.4f} device_ms {d_ms:.4f} host_us "
+                      f"{host[leg_kind]:.1f} plain_ms {p_ms:.4f} library_ms "
+                      f"{l_ms:.4f} library_device_ms "
+                      f"{lib_device[leg_kind]:.4f} bound_ms {b_ms:.4f} "
+                      f"({b_by}){extra} bound/kernel {b_ms / k_ms:.3f}")
     for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
+        got, fn_macs = issued_sums[name]
+        pad = (f", padding {1 - 3 * fn_macs / got:.3f} of the tensor-core "
+               "MACs issued" if got else "")
         print(f"[mb-layer] all 13 {name}: kernel_ms {k_ms:.4f} device_ms "
-              f"{device_sums[name]:.4f} plain_ms {p_ms:.4f} library_ms "
-              f"{l_ms:.4f} bound_ms {b_ms:.4f} ({mostly(kinds[name])})")
+              f"{device_sums[name]:.4f} host_us {host_sums[name]:.1f} "
+              f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
+              f"library_device_ms {lib_sums[name]:.4f} bound_ms "
+              f"{b_ms:.4f} ({mostly(kinds[name])}){pad}")
     del bwd, fwd_rows
 
     timed_steps(f"mobilenet-train n{n}", [
@@ -1159,8 +1246,12 @@ def mobilenet_phases(args, dev, t_start):
     entries = []
     for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
         family, kind = name.rsplit("_", 1)
+        # the pointwise dgrad at MobileNet's pencils is the dense dgrad's
+        # tile at 1x1
+        source = BWD_SOURCE if name == "conv2d_pointwise_dgrad" else \
+            sources[family]
         entries.append({
-            "name": name, "route": "cuda", "source": sources[family],
+            "name": name, "route": "cuda", "source": source,
             "replaces": TPU_SEPARABLE[name],
             "launches": served[name] + trained[name],
             "max_abs_err": err[name], "ms": k_ms, "plain_ms": p_ms,
@@ -2347,12 +2438,13 @@ def main(argv=None) -> int:
     # the phase-split dgrads and the wgrads: tensor-core instructions and no
     # spills in every compiled instance (the main paths take lanes 64 and
     # 128)
+    tiles_of = (DGRAD_KERNELS, WGRAD_KERNELS, PW_TILE_KERNELS)
     sass = {res.name: hgmma_counts(res.path) for res in built
-            if res.name in DGRAD_KERNELS or res.name in WGRAD_KERNELS}
+            if any(res.name in tiles for tiles in tiles_of)}
     for res, kernel in [(res, tiles[res.name]) for res in built
-                        for tiles in (DGRAD_KERNELS, WGRAD_KERNELS)
-                        if res.name in tiles]:
-        wgrad = kernel in WGRAD_KERNELS.values()
+                        for tiles in tiles_of if res.name in tiles]:
+        # the wgrads and the pointwise tile must hold HGMMA (wgmma)
+        wgrad = kernel not in DGRAD_KERNELS.values()
         ptx = {fn: v for fn, v in ptxas_report(res.log).items()
                if kernel in fn and (wgrad or "wgrad" not in fn)}
         tc = sass[res.name]

@@ -27,12 +27,15 @@ the largest divisor that fits, which is never smaller.  ``MachineModel``'s
 constants; the kernel wrappers check them against the built libraries.
 
 The separable family has choosers of its own: ``choose_pointwise_blocking``
-(the channel matmul of ``csrc/conv2d_pointwise.cu``, forward and dgrad),
-``choose_pointwise_wgrad_blocking``, ``choose_depthwise_blocking`` (the
-tap kernel of ``csrc/conv2d_depthwise.cu``, forward and dgrad) and
-``choose_depthwise_wgrad_blocking``.  Each sizes its CTA tile so that the
-grid fills the card where the map allows it (``MachineModel.wave``), and
-the wgrads split their position reductions as the dense wgrad does.
+(the forward's tensor-core tile of ``csrc/conv2d_pointwise.cu``, by a cost
+model like the dgrad's; the pointwise dgrad is the dense dgrad at 1x1),
+``choose_pointwise_wgrad_blocking``,
+``choose_depthwise_blocking`` (the forward's items of
+``csrc/conv2d_depthwise.cu``, walked by a persistent grid),
+``choose_depthwise_dgrad_blocking`` and ``choose_depthwise_wgrad_blocking``.
+Each sizes its tiles so that the grid fills the card where the map allows
+it (``MachineModel.wave``), and the wgrads split their position reductions
+as the dense wgrad does.
 
 The streamed (halo-ring) kernels of ``csrc/conv2d_stream.cu`` have choosers
 of their own (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
@@ -76,11 +79,16 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
            "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "WgradBlocking",
            "StreamWgradBlocking", "wgrad_smem_bytes", "WgradPlan",
            "wgrad_plan", "wgrad_candidates", "choose_wgrad_blocking",
-           "PointwiseBlocking", "pointwise_smem_bytes",
-           "choose_pointwise_blocking", "PointwiseWgradBlocking",
+           "PW_ROWS", "PW_CONSUMERS", "PW_MAX_CHUNK", "PointwiseBlocking",
+           "pointwise_smem_bytes", "pointwise_candidates",
+           "choose_pointwise_blocking", "pointwise_issued_macs",
+           "PointwiseWgradBlocking",
            "pointwise_wgrad_smem_bytes", "choose_pointwise_wgrad_blocking",
-           "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DepthwiseBlocking", "depthwise_smem_bytes",
-           "choose_depthwise_blocking", "DepthwiseWgradBlocking",
+           "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DW_LANE_SPLITS",
+           "DW_ITEMS_PER_CTA", "DepthwiseBlocking", "DepthwiseDgradBlocking",
+           "depthwise_smem_bytes", "depthwise_fwd_smem_bytes",
+           "choose_depthwise_blocking", "choose_depthwise_dgrad_blocking",
+           "DepthwiseWgradBlocking",
            "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking",
            "STREAM_STRIPS", "StreamBlocking", "stream_ring_rows",
            "stream_gap_floats",
@@ -797,77 +805,126 @@ def _splits(tiles: int, base: int, machine: MachineModel) -> int:
 # pointwise (1x1, stride 1): the channel matmul
 # ---------------------------------------------------------------------------
 
+# The tensor-core tile of csrc/conv2d_pointwise.cu (the forward): a GEMM
+# in 3xTF32 whose rows are the positions of one image, 64 (PW_ROWS) a
+# consumer warpgroup, one to three of them (PW_CONSUMERS), whose columns
+# are an output block's lanes padded to a compiled wgmma width (or half of
+# them, `nsplit` 2), and whose K walks (input block, channel) `chunk`
+# channels a stage through a two-slot ring that a producer warpgroup fills
+# by cp.async a stage ahead.  The search weighs each consumer count and
+# split with the largest chunk (up to PW_MAX_CHUNK) that fits one CTA's
+# shared memory: the busiest SM's stages, each the longer of its
+# three-product wgmmas (the dgrad tile's rate and shares,
+# DGRAD_MACS_PER_CYCLE and DGRAD_WG_EFFICIENCY) and the rest of a stage, a
+# fixed part and the producer's copies and weight split a thread.  The cycle counts were fitted to the timings of every candidate
+# at MobileNet's forward legs by `python -m
+# repro_torch.launch.pointwise_tiles_ab` on an H100 80GB HBM3 at 700 W;
+# there the chosen tiles summed 0.4313 ms over the 13 legs against 0.4264
+# for the fastest timed at each.  tests/test_torch_pointwise_tiles.py pins
+# the tiles at MobileNet's shapes, so a change here that moves one shows.
+# (The pointwise dgrad runs the dense dgrad tile at 1x1, which timed
+# faster than this tile with the weight read transposed.)
+PW_ROWS = 64
+PW_CONSUMERS = 3
+PW_SLOTS = 2
+PW_MAX_CHUNK = 64
+PW_STAGE_CYCLES = 2000      # a stage's copy latency past the ring, barriers
+PW_COPY_CYCLES = 30         # one 16-byte cp.async of a producer thread
+PW_SPLIT_CYCLES = 3         # a weight transposed and split into halves
+
+
 @dataclasses.dataclass(frozen=True)
 class PointwiseBlocking:
-    """Launch parameters of the channel-matmul kernel (the pointwise forward,
-    and its dgrad with the pencils' roles swapped).  A CTA computes
-    ``positions`` consecutive positions of one image for the whole output
-    pencil, contracting the input pencils ``chunk`` channels at a time;
-    each image has ``tiles`` position tiles, the last one ragged.  The
-    staged input rows are ``ldx`` floats apart, the staged weight rows
-    ``ldw`` (padded when the dgrad writes them transposed)."""
-    positions: int
+    """Launch parameters of the pointwise forward's tile.  A CTA of
+    ``wgs`` consumer warpgroups owns ``rows = 64 * wgs`` consecutive
+    positions of one image (``tiles`` an image, the last one ragged) by
+    ``lanes`` output lanes (the wgmma width; an output block splits into
+    ``nsplit`` CTAs), and contracts ``chunk`` channels a stage."""
+    rows: int
+    wgs: int
+    lanes: int
+    nsplit: int
     chunk: int
     tiles: int
-    ldx: int
-    ldw: int
 
 
-def _pad_row(n: int) -> int:
-    # four floats of padding move neighbouring staged rows four banks
-    # apart and keep a row's float4 accesses aligned
-    return n + 4 if n % 4 == 0 else n
+def pointwise_smem_bytes(rows: int, chunk: int, lanes: int, wgs: int,
+                         gap: bool = False) -> int:
+    """Dynamic shared memory of one pointwise tile CTA (the kernel's
+    ``smem_bytes``): 128 bytes to align the base; per slot of its
+    two-slot ring the input rows ``[rows][chunk + 4]``, the raw weight
+    chunk ``[chunk][lanes]`` and its TF32 halves; an int per k8 step; with
+    ``gap`` the consumer warps' ``[4 * wgs][lanes]`` sums."""
+    return 128 + 4 * (PW_SLOTS * (rows * (chunk + 4) + 3 * chunk * lanes)
+                      + chunk // 8 + (4 * wgs * lanes if gap else 0))
 
 
-def pointwise_smem_bytes(positions: int, chunk: int, ob: int,
-                         machine: MachineModel = H100_SXM,
-                         gap: bool = False, transposed: bool = False) -> int:
-    """Dynamic shared memory of one channel-matmul CTA: the staged weight
-    chunk ``[chunk, ldw]`` and input rows ``[positions, ldx]`` (f32); with
-    ``gap`` at least the ``[position groups, ob]`` partial sums."""
-    ldw = _pad_row(ob) if transposed else ob
-    stage = 4 * (chunk * ldw + positions * _pad_row(chunk))
-    if gap:
-        stage = max(stage, 4 * (machine.threads // -(-ob // machine.lanes))
-                    * ob)
-    return stage
+def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
+                         ow: int, machine: MachineModel = H100_SXM,
+                         gap: bool = False):
+    """The tiles the search weighs, each as ``(key, PointwiseBlocking)``,
+    the least key the choice (see the constants above); ties go to a
+    larger chunk, more rows, then fewer splits."""
+    kpad = -(-kw // 8) * 8
+    chunks = [c for c in range(min(kpad, PW_MAX_CHUNK), 0, -8)
+              if kpad % c == 0]
+    out = []
+    for wgs in range(1, PW_CONSUMERS + 1):
+        rows = PW_ROWS * wgs
+        tiles = -(-hw // rows)
+        for nsplit in (1, 2):
+            if nsplit > 1 and ow <= DGRAD_LANES[0]:
+                continue
+            lanes = dgrad_lanes(-(-ow // nsplit))
+            if (nsplit - 1) * lanes >= ow:
+                continue
+            chunk = next((c for c in chunks if pointwise_smem_bytes(
+                rows, c, lanes, wgs, gap) <= machine.smem_block), None)
+            if chunk is None:
+                continue
+            stages = kblk * kpad // chunk
+            ctas = n * tiles * oblk * nsplit
+            mma = (3 * rows * chunk * lanes / DGRAD_MACS_PER_CYCLE
+                   / DGRAD_WG_EFFICIENCY[wgs])
+            copies = (rows * chunk + chunk * lanes) / 4
+            other = PW_STAGE_CYCLES + (
+                PW_COPY_CYCLES * copies + PW_SPLIT_CYCLES * chunk * lanes
+            ) / 128
+            cost = -(-ctas // machine.sms) * stages * max(mma, other)
+            out.append(((cost, -chunk, -rows, nsplit),
+                        PointwiseBlocking(rows=rows, wgs=wgs, lanes=lanes,
+                                          nsplit=nsplit, chunk=chunk,
+                                          tiles=tiles)))
+    return out
 
 
 @functools.lru_cache(maxsize=4096)
-def choose_pointwise_blocking(n: int, hw: int, kb: int, oblk: int, ob: int,
+def choose_pointwise_blocking(n: int, hw: int, kblk: int, kw: int,
+                              oblk: int, ow: int,
                               machine: MachineModel = H100_SXM,
-                              gap: bool = False, transposed: bool = False
-                              ) -> PointwiseBlocking:
-    """Tile a channel matmul over ``n`` images of ``hw`` positions with an
-    input pencil ``kb`` (the contraction) and ``oblk`` output pencils of
-    ``ob`` lanes; ``transposed`` for the dgrad, which stages the weight
-    transposed.
-
-    A thread holds 8, 4 or 2 positions of 8 lanes (the kernel is compiled
-    for each), so a CTA tile is that many times its position groups, or
-    the whole map when it is smaller.  The largest tile whose grid ``n *
-    tiles * oblk`` still fills the card (``machine.wave`` CTAs) is taken;
-    where none does, as on 7x7 and 14x14 maps, two positions a thread, the
-    fewest that keep the FMAs ahead of the shared-memory reads.  ``chunk``
-    is then the largest divisor of ``kb`` that fits the budget.
-    """
+                              gap: bool = False) -> PointwiseBlocking:
+    """Tile a channel matmul over ``n`` images of ``hw`` positions that
+    contracts ``kblk`` input pencils of ``kw`` channels into ``oblk``
+    output pencils of ``ow`` lanes: the least-cost tile of
+    ``pointwise_candidates``."""
     if hw <= 0 or n <= 0:
         raise ValueError(f"empty map: n={n}, hw={hw}")
-    groups = tile_positions(ob, machine) // machine.positions
-    sizes = [min(hw, groups * k) for k in (8, 4, 2)]
-    positions = next((p for p in sizes
-                      if n * -(-hw // p) * oblk >= machine.wave), sizes[-1])
-    chunk = next((c for c in reversed(divisors(kb))
-                  if pointwise_smem_bytes(positions, c, ob, machine, gap,
-                                          transposed)
-                  <= machine.smem_budget), None)
-    if chunk is None:
+    found = pointwise_candidates(n, hw, kblk, kw, oblk, ow, machine, gap)
+    if not found:
         raise SmemMisfitError(
-            f"no channel chunk fits: {positions} positions x ob={ob} need "
-            f"more than {machine.smem_budget} bytes of shared memory")
-    return PointwiseBlocking(
-        positions=positions, chunk=chunk, tiles=-(-hw // positions),
-        ldx=_pad_row(chunk), ldw=_pad_row(ob) if transposed else ob)
+            f"no pointwise tile fits: kw={kw}, ow={ow} need more than "
+            f"{machine.smem_block} bytes of shared memory at 64 rows")
+    return min(found, key=lambda kb: kb[0])[1]
+
+
+def pointwise_issued_macs(blk: PointwiseBlocking, n: int, kblk: int,
+                          kw: int, oblk: int) -> int:
+    """The tensor-core MACs a launch of ``blk`` issues: every CTA's whole
+    ``rows x lanes`` tile over K padded to whole chunks in every input
+    block, three products each."""
+    kpad = -(-kw // 8) * 8
+    return (3 * n * blk.tiles * oblk * blk.nsplit * blk.rows * blk.lanes
+            * kblk * (-(-kpad // blk.chunk) * blk.chunk))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -931,16 +988,37 @@ def choose_pointwise_wgrad_blocking(n: int, hw: int, ciblk: int, cib: int,
 # filter taps one depthwise thread holds in registers (5x5)
 DW_MAX_TAPS = 25
 # the most positions of a tile that one depthwise thread computes: bounds a
-# tile at (threads // Cb) * DW_THREAD_POSITIONS positions
+# tile at (threads // lanes) * DW_THREAD_POSITIONS positions
 DW_THREAD_POSITIONS = 32
+# the depthwise forward's lane splits of a pencil, narrowest last: a warp's
+# 32 lanes still read whole 128-byte lines
+DW_LANE_SPLITS = (64, 32)
+# items a resident CTA of the depthwise forward should walk, at least, so
+# that its ring has one window landing while it runs the taps of another
+DW_ITEMS_PER_CTA = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
 class DepthwiseBlocking:
-    """Launch parameters of the depthwise tap kernel: a ``hob x wob`` tile
-    of the output (forward) or of the unpadded input gradient (dgrad) per
-    CTA, over a staged ``hwin x wwin`` window of the input (forward) or of
-    the cotangent (dgrad), the whole ``Cb`` pencil at once."""
+    """Launch parameters of the depthwise forward: an item is a ``hob x
+    wob`` tile of the output of one image and channel block over ``lanes``
+    lanes of the pencil, staged as a ``hwin x wwin`` input window; ``items``
+    of them, walked by a persistent grid of ``grid`` CTAs, two windows in
+    flight a CTA."""
+    hob: int
+    wob: int
+    hwin: int
+    wwin: int
+    lanes: int
+    items: int
+    grid: int
+
+
+@dataclasses.dataclass(frozen=True)
+class DepthwiseDgradBlocking:
+    """Launch parameters of the depthwise dgrad's tap kernel: a ``hob x
+    wob`` tile of the unpadded input gradient per CTA, over a staged ``hwin
+    x wwin`` window of the cotangent, the whole ``Cb`` pencil at once."""
     hob: int
     wob: int
     hwin: int
@@ -948,14 +1026,20 @@ class DepthwiseBlocking:
 
 
 def depthwise_smem_bytes(hwin: int, wwin: int, cb: int,
-                         machine: MachineModel = H100_SXM,
-                         gap: bool = False) -> int:
-    """The staged f32 window; with ``gap`` at least the ``[position groups,
-    Cb]`` partial sums."""
-    stage = 4 * hwin * wwin * cb
+                         machine: MachineModel = H100_SXM) -> int:
+    """The dgrad's staged f32 cotangent window."""
+    return 4 * hwin * wwin * cb
+
+
+def depthwise_fwd_smem_bytes(hwin: int, wwin: int, lanes: int,
+                             machine: MachineModel = H100_SXM,
+                             gap: bool = False) -> int:
+    """The forward's two staged f32 windows (each rounded up to 16 bytes)
+    and with ``gap`` the ``[position groups, lanes]`` sums beside them."""
+    stage = 2 * _round4(hwin * wwin * lanes)
     if gap:
-        stage = max(stage, 4 * (machine.threads // cb) * cb)
-    return stage
+        stage += (machine.threads // lanes) * lanes
+    return 4 * stage
 
 
 def _depthwise_groups(cb: int, machine: MachineModel) -> int:
@@ -971,44 +1055,87 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
                               hf: int, wf: int, stride: int = 1,
                               dilation=(1, 1),
                               machine: MachineModel = H100_SXM,
-                              dgrad: bool = False,
                               gap: bool = False) -> DepthwiseBlocking:
-    """Tile the depthwise forward over its ``ho x wo`` output or, with
-    ``dgrad``, the input gradient over the unpadded ``ho x wo`` input.
+    """Tile the depthwise forward over its ``ho x wo`` output.
 
-    A thread holds one lane and up to ``DW_THREAD_POSITIONS`` positions,
-    so a tile has at most ``(threads // Cb) * DW_THREAD_POSITIONS``
-    positions;
-    its window must fit the shared-memory budget.  Tiles divide the grid.
-    Among the tiles that give every thread a position, the largest whose
-    grid ``n * cblk * tiles`` fills the card (``machine.wave``) is taken,
-    ties to the smaller window; where none does, the one with the most
-    CTAs."""
-    groups = _depthwise_groups(cb, machine)
-    cap = groups * DW_THREAD_POSITIONS
-    hf_eff = (hf - 1) * dilation[0] + 1
-    wf_eff = (wf - 1) * dilation[1] + 1
-
-    def window(h: int, w: int) -> tuple[int, int]:
-        if dgrad:
-            return dgrad_window(h, w, hf_eff, wf_eff, stride)
-        return halo_dims(h, w, hf, wf, stride, dilation)
-
+    An item is a tile (dividing the map) over the whole pencil or a lane
+    split of it (``DW_LANE_SPLITS``); a thread holds one lane and up to
+    ``DW_THREAD_POSITIONS`` positions of it, and two item windows must fit
+    the shared-memory budget.  Among the items that give every position
+    group a position, where some count reaches ``DW_ITEMS_PER_CTA`` per
+    resident CTA (``machine.wave``) the largest item (positions x lanes) of
+    those is taken, ties to the least halo a position, then the wider
+    tile; where none does, the most items.  The grid is the card's resident
+    CTAs, or the items where they are fewer."""
+    _depthwise_groups(cb, machine)
+    splits = [cb] + [s for s in DW_LANE_SPLITS if s < cb and cb % s == 0]
     fits = []
-    for h in divisors(ho):
-        for w in divisors(wo):
-            win = window(h, w)
-            if h * w <= cap and depthwise_smem_bytes(
-                    *win, cb, machine, gap) <= machine.smem_budget:
-                fits.append((h, w, win))
+    for lanes in splits:
+        cap = machine.threads // lanes * DW_THREAD_POSITIONS
+        for h in divisors(ho):
+            for w in divisors(wo):
+                win = halo_dims(h, w, hf, wf, stride, dilation)
+                if h * w <= cap and depthwise_fwd_smem_bytes(
+                        *win, lanes, machine, gap) <= machine.smem_budget:
+                    items = n * cblk * (cb // lanes) * (ho // h) * (wo // w)
+                    fits.append((h, w, win, lanes, items))
     if not fits:
         raise SmemMisfitError(
             f"no depthwise tile fits: Cb={cb}, filter {hf}x{wf}, stride "
             f"{stride}, dilation {dilation} needs more than "
             f"{machine.smem_budget} bytes of shared memory even at 1x1")
 
+    def halo(f) -> float:
+        return f[2][0] * f[2][1] / (f[0] * f[1])
+
+    busy = [f for f in fits
+            if f[0] * f[1] >= machine.threads // f[3]] or fits
+    full = [f for f in busy if f[4] >= DW_ITEMS_PER_CTA * machine.wave]
+    if full:
+        h, w, win, lanes, items = max(
+            full, key=lambda f: (f[0] * f[1] * f[3], -halo(f), f[1]))
+    else:
+        h, w, win, lanes, items = max(
+            busy, key=lambda f: (f[4], -halo(f), f[1]))
+    return DepthwiseBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1],
+                             lanes=lanes, items=items,
+                             grid=min(items, machine.wave))
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_depthwise_dgrad_blocking(n: int, cblk: int, hi: int, wi: int,
+                                    cb: int, hf: int, wf: int,
+                                    stride: int = 1, dilation=(1, 1),
+                                    machine: MachineModel = H100_SXM
+                                    ) -> DepthwiseDgradBlocking:
+    """Tile the depthwise dgrad over the unpadded ``hi x wi`` input.
+
+    A thread holds one lane and up to ``DW_THREAD_POSITIONS`` positions,
+    so a tile has at most ``(threads // Cb) * DW_THREAD_POSITIONS``
+    positions; its cotangent window must fit the shared-memory budget.
+    Tiles divide the grid.  Among the tiles that give every thread a
+    position, the largest whose grid ``n * cblk * tiles`` fills the card
+    (``machine.wave``) is taken, ties to the smaller window; where none
+    does, the one with the most CTAs."""
+    groups = _depthwise_groups(cb, machine)
+    cap = groups * DW_THREAD_POSITIONS
+    hf_eff = (hf - 1) * dilation[0] + 1
+    wf_eff = (wf - 1) * dilation[1] + 1
+    fits = []
+    for h in divisors(hi):
+        for w in divisors(wi):
+            win = dgrad_window(h, w, hf_eff, wf_eff, stride)
+            if h * w <= cap and depthwise_smem_bytes(
+                    *win, cb, machine) <= machine.smem_budget:
+                fits.append((h, w, win))
+    if not fits:
+        raise SmemMisfitError(
+            f"no depthwise dgrad tile fits: Cb={cb}, filter {hf}x{wf}, "
+            f"stride {stride}, dilation {dilation} needs more than "
+            f"{machine.smem_budget} bytes of shared memory even at 1x1")
+
     def grid(h: int, w: int) -> int:
-        return n * cblk * (ho // h) * (wo // w)
+        return n * cblk * (hi // h) * (wi // w)
 
     # tiles that give every thread a position, where the map has any
     busy = [f for f in fits if f[0] * f[1] >= groups] or fits
@@ -1019,7 +1146,7 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
     else:
         h, w, win = max(busy, key=lambda f: (grid(f[0], f[1]),
                                              -f[2][0] * f[2][1]))
-    return DepthwiseBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1])
+    return DepthwiseDgradBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1])
 
 
 @dataclasses.dataclass(frozen=True)

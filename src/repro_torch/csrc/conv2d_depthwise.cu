@@ -24,20 +24,39 @@
 //   dw[c, dh, dw]   = sum_{n, oh, ow} x[n, c, oh*s + dh*dh_d - pt, ...] * dz
 //   db[c]           = sum_{n, oh, ow} dz
 //
-// Forward and dgrad are one tap kernel, `depthwise_tap_kernel<kDgrad>`.  One
-// CTA per (tile of hob x wob positions of the output, or of dx, channel
-// block, image).  It stages a halo'd window [hwin, wwin, Cb] of the input
-// (forward: pads masked) or of the cotangent (dgrad: dz formed on the way in,
-// zero outside the map) in shared memory; loads run along the pencil, so 32
-// lanes read 128 contiguous bytes.  Thread t owns lane t % Cb and every
-// (256 / Cb)-th position of the tile, so a 32-lane pencil still fills the
-// CTA with 8 position groups; it keeps its lane's taps in registers and, per
-// position, sums the taps (forward) or the mirrored taps that the stride
-// does not skip (dgrad).  As in the dense dgrad, no stride-dilated or padded
-// copy of the cotangent or of z exists and dx is written at the input's
-// shape; TF-SAME's (0, 1) pads at stride 2 are the masks.  The forward's
-// epilogue is the reference's (+ b, activation, + r, one store), and with
-// GAP it writes per-tile partial sums for `gap_finalize`.
+// What bounds these on this card.  A depthwise conv does 2*Hf*Wf = 18 FLOPs
+// per output element against at least 8 bytes of traffic (one input and one
+// output element; at stride 2, four inputs): 2.25 FLOP/byte or less, far
+// below the H100's f32 ridge (~20 FLOP/byte).  Bytes bound it.
+//
+// forward (`depthwise_fwd_kernel`).  An item is a tile of hob x wob output
+// positions of one image and channel block, over `lanes` lanes of the
+// pencil (a pencil splits into 64- or 32-lane parts where that is what
+// fills the card).  A persistent grid of at most the card's resident CTAs
+// walks the items; each CTA stages an item's halo'd input window [hwin,
+// wwin, lanes] by cp.async (16-byte copies, or 4-byte ones where lanes is
+// not a multiple of 4) into one slot of a two-slot ring while it runs the
+// taps of the item before from the other slot, so device memory stays busy
+// under the taps and the stores.  Copies of cells outside the map copy
+// nothing and zero-fill: they are the SAME (and TF-SAME's (0, 1)) pads.
+// Thread t owns lane t % lanes and runs of output columns of the item's
+// rows; at 3x3, dilation 1 and stride 1 or 2 (every MobileNet leg) it keeps
+// the three tap columns in registers and loads only the columns a step
+// along the run brings (3 loads an output at stride 1, 6 at stride 2, not
+// 9), with no division in the walk.  Other filters, strides and dilations
+// take a loop over the taps.  The epilogue is the reference's (+ b,
+// activation, + r, one store); with GAP a CTA writes each item's sums over
+// its positions, its position groups added in order, for `gap_finalize`,
+// which adds an image's tiles in order.  No atomics.
+//
+// dgrad (`depthwise_dgrad_kernel`): one CTA per (tile of hob x wob positions
+// of dx, channel block, image).  It stages a halo'd window of the cotangent
+// (dz formed on the way in, zero outside the map) in shared memory; thread
+// t owns lane t % Cb and every (256 / Cb)-th position of the tile, keeps its
+// lane's taps in registers and, per position, sums the mirrored taps that
+// the stride does not skip.  As in the dense dgrad, no stride-dilated or
+// padded copy of the cotangent or of z exists and dx is written at the
+// input's shape; TF-SAME's (0, 1) pads at stride 2 are the masks.
 //
 // wgrad: the TPU reduces (N, Ho/Hob, Wo/Wob) into a resident [Hf*Wf, Cb]
 // block.  Here a CTA owns one channel block's [Hf*Wf, Cb] sums and walks a
@@ -47,27 +66,21 @@
 // and each share's row of the [splits, |dw| + |db|] f32 workspace is summed
 // by `wgrad_reduce` (direct_conv2d_bwd.cu) in split order.  No atomics.
 //
-// What bounds these on this card.  A depthwise conv does 2*Hf*Wf = 18 FLOPs
-// per output element against at least 8 bytes of traffic (one input and one
-// output element; at stride 2, four inputs): 2.25 FLOP/byte or less, far
-// below the H100's f32 ridge (~20 FLOP/byte).  Bytes bound it.  The design's
-// answer: every element of x, g, z, out and dx crosses device memory once
-// per CTA with full 128-byte lines (the halo rows are re-read from L2), the
-// taps come from shared memory and registers, and the grid is sized to hold
-// the card's resident CTAs so that enough loads are in flight.  Not done
-// yet: asynchronous staging (cp.async or TMA) overlapped with the taps.
-//
-// C interface for ctypes: pointers and the stream as void*, ints as int; each
-// entry point returns cudaGetLastError() after its launch (0 on success).
+// C interface for ctypes: pointers and the stream as void*, ints as int (the
+// forward's geometry as one int array, built once per shape); each entry
+// point returns cudaGetLastError() after its launch (0 on success).
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;   // threads per CTA
 constexpr int kMaxTaps = 25;    // filter taps a thread holds (5x5)
 constexpr int kMinBlocksPerSm = 2;
+constexpr int kSlots = 2;       // the forward's ring of item windows
+constexpr int kMaxDevices = 64;
 
 constexpr int kActRelu = 1;
 constexpr int kActGelu = 2;
@@ -146,26 +159,255 @@ __device__ __forceinline__ void stage_window(
 }
 
 // ---------------------------------------------------------------------------
-// forward and dgrad: the tap loop
+// forward: a persistent walk over items, two item windows in flight
 // ---------------------------------------------------------------------------
 
-// src: x (forward) or g (dgrad), [N, C/Cb, hs, ws, Cb]; z: the saved
-// pre-activation of the dgrad's prologue or null; out: [N, C/Cb, hd, wd, Cb],
-// the conv's output (forward) or dx (dgrad).  act: the epilogue's activation
-// (forward) or the prologue's (dgrad).
-template <bool kDgrad>
+// The forward's launch geometry, passed by value; its fields are the int
+// array the host builds once per shape (conv2d_depthwise_fwd).
+struct FwdGeometry {
+  int cblk, cb, hi, wi, ho, wo;
+  int hf, wf, stride, dil_h, dil_w, pad_top, pad_left;
+  int hob, wob, hwin, wwin;
+  int lanes;       // lanes of the pencil an item covers (divides cb)
+  int items;       // images x channel blocks x lane groups x tiles
+  int act;
+};
+constexpr int kFwdInts = sizeof(FwdGeometry) / sizeof(int);
+
+struct Item {
+  int map;         // n * cblk + c_b
+  int lane0;       // the item's first lane of the pencil
+  int tile;        // row-major over the output's tiles
+  int i0, j0;      // the tile's first output row and column
+};
+
+__device__ __forceinline__ Item item_of(const FwdGeometry& g, int it) {
+  const int tiles_w = g.wo / g.wob;
+  const int tiles = (g.ho / g.hob) * tiles_w;
+  const int groups = g.cb / g.lanes;
+  Item m;
+  m.tile = it % tiles;
+  it /= tiles;
+  m.lane0 = (it % groups) * g.lanes;
+  m.map = it / groups;
+  m.i0 = (m.tile / tiles_w) * g.hob;
+  m.j0 = (m.tile % tiles_w) * g.wob;
+  return m;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async: `valid` false copies no byte and zero-fills the destination
+// (src-size 0); `src` must still be a global address.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most one of this thread's copy groups is in flight
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Issue the copies of item m's window [hwin, wwin, lanes] into `dst` (every
+// thread of the CTA; the caller commits the group).
+__device__ __forceinline__ void stage_item(float* dst,
+                                           const float* __restrict__ x,
+                                           const FwdGeometry& g,
+                                           const Item& m) {
+  const bool vec = g.lanes % 4 == 0;
+  const int unit = vec ? 4 : 1;
+  const int units = g.lanes / unit;
+  const int r0 = m.i0 * g.stride - g.pad_top;
+  const int c0 = m.j0 * g.stride - g.pad_left;
+  const float* src = x + (size_t)m.map * g.hi * g.wi * g.cb + m.lane0;
+  const int total = g.hwin * g.wwin * units;
+  for (int i = threadIdx.x; i < total; i += kThreads) {
+    const int cell = i / units;
+    const int c = (i - cell * units) * unit;
+    const int r = cell / g.wwin;
+    const int h = r0 + r;
+    const int w = c0 + cell - r * g.wwin;
+    const bool ok = h >= 0 && h < g.hi && w >= 0 && w < g.wi;
+    const float* s = ok ? src + ((size_t)h * g.wi + w) * g.cb + c : x;
+    if (vec) {
+      cp_async16(dst + cell * g.lanes + c, s, ok);
+    } else {
+      cp_async4(dst + cell * g.lanes + c, s, ok);
+    }
+  }
+}
+
+// kS: 1 or 2 for a 3x3 filter at dilation 1 and that stride (tap columns
+// kept in registers along a run), 0 for any filter, stride and dilation.
+template <int kS>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-depthwise_tap_kernel(const float* __restrict__ src,
-                     const float* __restrict__ z,
+depthwise_fwd_kernel(const float* __restrict__ x,
                      const float* __restrict__ w,
                      const float* __restrict__ bias,
                      const float* __restrict__ residual,
                      float* __restrict__ out,
-                     float* __restrict__ partials,
-                     int cblk, int cb, int hs, int ws, int hd, int wd,
-                     int hf, int wf, int stride, int dil_h, int dil_w,
-                     int pad_top, int pad_left, int hob, int wob, int hwin,
-                     int wwin, int act) {
+                     float* __restrict__ partials, FwdGeometry g) {
+  extern __shared__ __align__(16) float smem[];
+  const int L = g.lanes;
+  const int slot_floats = (g.hwin * g.wwin * L + 3) & ~3;
+  float* red = smem + kSlots * slot_floats;          // [npg, L] GAP sums
+  const int t = threadIdx.x;
+  const int lane = t % L;
+  const int npg = kThreads / L;
+  const int pg = t / L;
+  const bool computes = pg < npg;
+  const int taps = g.hf * g.wf;
+  const int tiles = (g.ho / g.hob) * (g.wo / g.wob);
+  // a unit of work: a run of columns of one output row of the item; the
+  // rows split into `segs` runs so that every position group has one
+  const int segs = min(g.wob, max(1, (npg + g.hob - 1) / g.hob));
+  const int run = (g.wob + segs - 1) / segs;
+  const int units = g.hob * segs;
+
+  int it = blockIdx.x;
+  if (it < g.items) stage_item(smem, x, g, item_of(g, it));
+  cp_async_commit();
+  for (int k = 0; it < g.items; it += gridDim.x, ++k) {
+    const int slot = k & 1;
+    const Item m = item_of(g, it);
+    const int next = it + gridDim.x;
+    if (next < g.items) {
+      stage_item(smem + (slot ^ 1) * slot_floats, x, g, item_of(g, next));
+    }
+    cp_async_commit();
+
+    // the item's taps and bias, loaded while its window lands
+    const int c_b = m.map % g.cblk;
+    const int lg = m.lane0 + lane;
+    float wv[kS ? 9 : kMaxTaps];
+#pragma unroll
+    for (int q = 0; q < (kS ? 9 : kMaxTaps); ++q) {
+      wv[q] = (computes && q < taps)
+                  ? __ldg(w + ((size_t)c_b * taps + q) * g.cb + lg) : 0.0f;
+    }
+    const float bv = (bias != nullptr && computes) ? __ldg(bias + c_b * g.cb
+                                                           + lg) : 0.0f;
+    cp_async_wait_one();
+    __syncthreads();
+
+    const float* win = smem + slot * slot_floats + lane;
+    float gsum = 0.0f;
+    if (computes) {
+      for (int u = pg; u < units; u += npg) {
+        const int i = u / segs;
+        const int jb = (u - i * segs) * run;
+        const int je = min(g.wob, jb + run);
+        const size_t o0 = (((size_t)m.map * g.ho + m.i0 + i) * g.wo + m.j0)
+                              * g.cb + lg;
+        if constexpr (kS != 0) {
+          // rows i*s .. i*s + 2 of the window; a[d][e]: tap (d, e) of the
+          // current output
+          const float* rp = win + (size_t)i * kS * g.wwin * L;
+          const int rs = g.wwin * L;
+          float a[3][3];
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+#pragma unroll
+            for (int e = 0; e < 3; ++e) {
+              a[d][e] = rp[d * rs + (jb * kS + e) * L];
+            }
+          }
+          for (int j = jb; j < je; ++j) {
+            if (j > jb) {
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                if constexpr (kS == 1) {
+                  a[d][0] = a[d][1];
+                  a[d][1] = a[d][2];
+                  a[d][2] = rp[d * rs + (j + 2) * L];
+                } else {
+                  a[d][0] = a[d][2];
+                  a[d][1] = rp[d * rs + (2 * j + 1) * L];
+                  a[d][2] = rp[d * rs + (2 * j + 2) * L];
+                }
+              }
+            }
+            float acc = 0.0f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+#pragma unroll
+              for (int e = 0; e < 3; ++e) {
+                acc = fmaf(a[d][e], wv[3 * d + e], acc);
+              }
+            }
+            const size_t o = o0 + (size_t)j * g.cb;
+            float v = activate(acc + bv, g.act);
+            if (residual != nullptr) v += __ldg(residual + o);
+            out[o] = v;
+            gsum += v;
+          }
+        } else {
+          for (int j = jb; j < je; ++j) {
+            const float* base =
+                win + ((size_t)i * g.stride * g.wwin + j * g.stride) * L;
+            float acc = 0.0f;
+#pragma unroll
+            for (int q = 0; q < kMaxTaps; ++q) {
+              if (q == taps) break;
+              const int dh = q / g.wf;
+              const int dw = q - dh * g.wf;
+              acc = fmaf(base[(dh * g.dil_h * g.wwin + dw * g.dil_w) * L],
+                         wv[q], acc);
+            }
+            const size_t o = o0 + (size_t)j * g.cb;
+            float v = activate(acc + bv, g.act);
+            if (residual != nullptr) v += __ldg(residual + o);
+            out[o] = v;
+            gsum += v;
+          }
+        }
+      }
+    }
+    if (partials != nullptr) {
+      // the item's sums of the stored values, the position groups in order
+      if (computes) red[pg * L + lane] = gsum;
+      __syncthreads();
+      if (t < L) {
+        float s = 0.0f;
+        for (int q = 0; q < npg; ++q) s += red[q * L + t];
+        partials[((size_t)m.map * tiles + m.tile) * g.cb + m.lane0 + t] = s;
+      }
+    }
+    __syncthreads();                 // the slot is refilled next iteration
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dgrad: the tap loop over the cotangent window, mirrored taps
+// ---------------------------------------------------------------------------
+
+// g: [N, C/Cb, hs, ws, Cb] with the prologue's z beside it (or null); dx:
+// [N, C/Cb, hd, wd, Cb] at the forward input's extents.
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_dgrad_kernel(const float* __restrict__ src,
+                       const float* __restrict__ z,
+                       const float* __restrict__ w,
+                       float* __restrict__ out,
+                       int cblk, int cb, int hs, int ws, int hd, int wd,
+                       int hf, int wf, int stride, int dil_h, int dil_w,
+                       int pad_top, int pad_left, int hob, int wob, int hwin,
+                       int wwin, int act) {
   extern __shared__ __align__(16) float smem[];
   const int tiles_w = wd / wob;
   const int tile = blockIdx.x;
@@ -182,22 +424,15 @@ depthwise_tap_kernel(const float* __restrict__ src,
   const int pg = t / cb;
   const bool computes = pg < npg;
 
-  // the window's origin in the source map
-  int r0, c0;
-  if constexpr (kDgrad) {
-    r0 = floordiv(i0 + pad_top - (hf - 1) * dil_h, stride);
-    c0 = floordiv(j0 + pad_left - (wf - 1) * dil_w, stride);
-  } else {
-    r0 = i0 * stride - pad_top;
-    c0 = j0 * stride - pad_left;
-  }
+  // the window's origin in the cotangent
+  const int r0 = floordiv(i0 + pad_top - (hf - 1) * dil_h, stride);
+  const int c0 = floordiv(j0 + pad_left - (wf - 1) * dil_w, stride);
   const size_t map = (size_t)(n * cblk + c_b);
   stage_window(smem, src + map * hs * ws * cb,
                z != nullptr ? z + map * hs * ws * cb : nullptr, hs, ws, cb,
                r0, c0, hwin, wwin, act);
 
-  // this lane's taps and their offsets inside the window (forward) or their
-  // dilated extents (dgrad)
+  // this lane's taps and their dilated extents
   float wv[kMaxTaps];
   int th[kMaxTaps], tw[kMaxTaps];
 #pragma unroll
@@ -207,82 +442,49 @@ depthwise_tap_kernel(const float* __restrict__ src,
     th[k] = on ? (k / wf) * dil_h : 0;
     tw[k] = on ? (k % wf) * dil_w : 0;
   }
-  const float bv = (!kDgrad && bias != nullptr && computes)
-                       ? bias[c_b * cb + lane] : 0.0f;
   __syncthreads();
 
-  float gsum = 0.0f;
   if (computes) {
     for (int p = pg; p < npos; p += npg) {
       const int ph = p / wob;
       const int pw = p % wob;
       float acc = 0.0f;
-      if constexpr (kDgrad) {
-        // numerators (i + pt) - s * r0 >= (hf - 1) * dil_h >= th[k]; a tap
-        // counts where the stride divides both.  Strides 1 and 2 (all of
-        // MobileNet's) take loops without integer division.
-        const int ah = i0 + ph + pad_top - stride * r0;
-        const int aw = j0 + pw + pad_left - stride * c0;
-        if (stride == 1) {
-#pragma unroll
-          for (int k = 0; k < kMaxTaps; ++k) {
-            if (k == taps) break;
-            acc = fmaf(smem[((ah - th[k]) * wwin + aw - tw[k]) * cb + lane],
-                       wv[k], acc);
-          }
-        } else if (stride == 2) {
-#pragma unroll
-          for (int k = 0; k < kMaxTaps; ++k) {
-            if (k == taps) break;
-            const int uh = ah - th[k];
-            const int uw = aw - tw[k];
-            if (((uh | uw) & 1) == 0) {
-              acc = fmaf(smem[((uh >> 1) * wwin + (uw >> 1)) * cb + lane],
-                         wv[k], acc);
-            }
-          }
-        } else {
-#pragma unroll
-          for (int k = 0; k < kMaxTaps; ++k) {
-            if (k == taps) break;
-            const int uh = ah - th[k];
-            const int uw = aw - tw[k];
-            if (uh % stride == 0 && uw % stride == 0) {
-              acc = fmaf(
-                  smem[((uh / stride) * wwin + uw / stride) * cb + lane],
-                  wv[k], acc);
-            }
-          }
-        }
-      } else {
-        const int base = (ph * stride * wwin + pw * stride) * cb + lane;
+      // numerators (i + pt) - s * r0 >= (hf - 1) * dil_h >= th[k]; a tap
+      // counts where the stride divides both.  Strides 1 and 2 (all of
+      // MobileNet's) take loops without integer division.
+      const int ah = i0 + ph + pad_top - stride * r0;
+      const int aw = j0 + pw + pad_left - stride * c0;
+      if (stride == 1) {
 #pragma unroll
         for (int k = 0; k < kMaxTaps; ++k) {
           if (k == taps) break;
-          acc = fmaf(smem[base + (th[k] * wwin + tw[k]) * cb], wv[k], acc);
+          acc = fmaf(smem[((ah - th[k]) * wwin + aw - tw[k]) * cb + lane],
+                     wv[k], acc);
+        }
+      } else if (stride == 2) {
+#pragma unroll
+        for (int k = 0; k < kMaxTaps; ++k) {
+          if (k == taps) break;
+          const int uh = ah - th[k];
+          const int uw = aw - tw[k];
+          if (((uh | uw) & 1) == 0) {
+            acc = fmaf(smem[((uh >> 1) * wwin + (uw >> 1)) * cb + lane],
+                       wv[k], acc);
+          }
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kMaxTaps; ++k) {
+          if (k == taps) break;
+          const int uh = ah - th[k];
+          const int uw = aw - tw[k];
+          if (uh % stride == 0 && uw % stride == 0) {
+            acc = fmaf(smem[((uh / stride) * wwin + uw / stride) * cb + lane],
+                       wv[k], acc);
+          }
         }
       }
-      const size_t o =
-          ((map * hd + i0 + ph) * wd + j0 + pw) * cb + lane;
-      if constexpr (!kDgrad) {
-        acc = activate(acc + bv, act);
-        if (residual != nullptr) acc += residual[o];
-        gsum += acc;
-      }
-      out[o] = acc;
-    }
-  }
-
-  if (!kDgrad && partials != nullptr) {
-    // per-tile sums of the stored values, the position groups in order
-    __syncthreads();                       // the window is no longer read
-    float* red = smem;                     // [npg, cb]
-    if (computes) red[pg * cb + lane] = gsum;
-    __syncthreads();
-    if (t < cb) {
-      float s = 0.0f;
-      for (int g = 0; g < npg; ++g) s += red[g * cb + t];
-      partials[(map * gridDim.x + tile) * cb + t] = s;
+      out[((map * hd + i0 + ph) * wd + j0 + pw) * cb + lane] = acc;
     }
   }
 }
@@ -384,6 +586,26 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
   }
 }
 
+// Raise a kernel's dynamic shared-memory limit once per device to the most
+// any launch has asked of it (the attribute is the kernel's, per device).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int variant, int bytes) {
+  static int allowed[kMaxDevices][4];
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  int& have = allowed[device][variant];
+  if (bytes <= have || bytes <= 48 * 1024) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
 }  // namespace
 
 extern "C" {
@@ -396,27 +618,46 @@ void conv2d_depthwise_geometry(int* threads, int* lanes, int* taps) {
   *taps = kMaxTaps;
 }
 
-// dgrad = 0: the forward (src = x [hs, ws] = the input's extents, out =
-// [hd, wd] = the output's); dgrad = 1: src = g [hs, ws] = the output's
-// extents, z its prologue, out = dx [hd, wd] = the input's extents.
-int conv2d_depthwise_taps(const void* src, const void* z, const void* w,
-                          const void* bias, const void* residual, void* out,
-                          void* partials, int dgrad, int n, int cblk, int cb,
-                          int hs, int ws, int hd, int wd, int hf, int wf,
-                          int stride, int dil_h, int dil_w, int pad_top,
-                          int pad_left, int hob, int wob, int hwin, int wwin,
-                          int act, int smem_bytes, void* stream) {
-  auto kernel = dgrad ? depthwise_tap_kernel<true>
-                      : depthwise_tap_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+// The forward.  plan: the FwdGeometry fields in order, then the grid's
+// CTAs, the dynamic shared memory and the kernel variant (0: any filter;
+// 1, 2: 3x3 at dilation 1 and that stride).
+int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
+                         const void* residual, void* out, void* partials,
+                         const int* plan, void* stream) {
+  FwdGeometry g;
+  int* fields = reinterpret_cast<int*>(&g);
+  for (int i = 0; i < kFwdInts; ++i) fields[i] = plan[i];
+  const int grid = plan[kFwdInts];
+  const int smem = plan[kFwdInts + 1];
+  const int variant = plan[kFwdInts + 2];
+  if (grid <= 0) return 0;
+  auto kernel = variant == 1   ? depthwise_fwd_kernel<1>
+                : variant == 2 ? depthwise_fwd_kernel<2>
+                               : depthwise_fwd_kernel<0>;
+  cudaError_t err = allow_smem(kernel, variant, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)w, (const float*)bias,
+      (const float*)residual, (float*)out, (float*)partials, g);
+  return (int)cudaGetLastError();
+}
+
+// The dgrad: g [hs, ws] = the output's extents, z its prologue (or null),
+// dx [hd, wd] = the input's extents.
+int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
+                           void* dx, int n, int cblk, int cb, int hs, int ws,
+                           int hd, int wd, int hf, int wf, int stride,
+                           int dil_h, int dil_w, int pad_top, int pad_left,
+                           int hob, int wob, int hwin, int wwin, int act,
+                           int smem_bytes, void* stream) {
+  cudaError_t err = allow_smem(depthwise_dgrad_kernel, 3, smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((hd / hob) * (wd / wob), cblk, n);
-  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)src, (const float*)z, (const float*)w,
-      (const float*)bias, (const float*)residual, (float*)out,
-      (float*)partials, cblk, cb, hs, ws, hd, wd, hf, wf, stride, dil_h,
-      dil_w, pad_top, pad_left, hob, wob, hwin, wwin, act);
+  depthwise_dgrad_kernel<<<grid, kThreads, smem_bytes,
+                           (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)z, (const float*)w, (float*)dx, cblk,
+      cb, hs, ws, hd, wd, hf, wf, stride, dil_h, dil_w, pad_top, pad_left,
+      hob, wob, hwin, wwin, act);
   return (int)cudaGetLastError();
 }
 

@@ -36,7 +36,7 @@ import torch
 from repro_torch.core.direct_conv import direct_conv1d_depthwise
 from repro_torch.core.layout import blocked_to_bld, bld_to_blocked
 from repro_torch.kernels.direct_conv2d import (_check, _cuda_device, _library,
-                                               _no_autograd)
+                                               _no_autograd, _stream)
 
 __all__ = ["LAUNCHES", "reset_launches", "conv1d_depthwise",
            "conv1d_depthwise_blocked", "MAX_TAPS"]
@@ -92,7 +92,7 @@ def _launch(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     err = lib.conv1d_depthwise_causal(
         x.data_ptr(), wf.data_ptr(), None if bf is None else bf.data_ptr(),
         out.data_ptr(), b, l, d, db, k, vec, int(x.dtype == torch.bfloat16),
-        strides, torch.cuda.current_stream(dev).cuda_stream)
+        strides, _stream(dev))
     _check(err, lib, "conv1d_depthwise")
     LAUNCHES["conv1d_depthwise"] += 1
 

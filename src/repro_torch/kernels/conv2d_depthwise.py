@@ -8,19 +8,27 @@ and the fused epilogue (bias, activation, residual, GAP).
 
 * Under ``torch.no_grad``/``inference_mode``, or when no operand requires
   grad, it runs the fused inference kernel (``_dw_fwd_kernel``, ``:72``):
-  ``csrc/conv2d_depthwise.cu`` on a CUDA tensor, the plain version
+  ``csrc/conv2d_depthwise.cu``'s ``depthwise_fwd_kernel`` (a persistent
+  walk over items, each staged by cp.async under the taps of the one
+  before) on a CUDA tensor, the plain version
   (``core.direct_conv.direct_conv_blocked`` with ``groups=C``) on a CPU
-  tensor.  With ``gap`` the kernel's per-tile partial sums go to the dense
+  tensor.  With ``gap`` the kernel's per-item partial sums go to the dense
   family's ``gap_finalize``.
 * With grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
   ``_dwconv`` / ``_dwconv_fwd`` / ``_dwconv_bwd`` (``:354-440``), with
-  this family's kernels: ``depthwise_dgrad`` (the same tap kernel with
-  mirrored taps, as the reference runs its dgrad through
-  ``_dw_fwd_kernel``) and ``depthwise_wgrad`` (``_dw_wgrad_kernel``,
-  ``:105``, and the dense family's ``wgrad_reduce``), with the ``dz = g *
-  act'(z)`` prologue and ``db``.  No padded, dilated or cropped copy
+  this family's kernels: ``depthwise_dgrad`` (a tap kernel with mirrored
+  taps, as the reference runs its dgrad through ``_dw_fwd_kernel``) and
+  ``depthwise_wgrad`` (``_dw_wgrad_kernel``, ``:105``, and the dense
+  family's ``wgrad_reduce``), with the ``dz = g * act'(z)`` prologue and
+  ``db``.  No padded, dilated or cropped copy
   exists on the card.
+
+A forward call's host path is lean, because at MobileNet's small legs it,
+not the device, sets the pace: the checks that depend only on shapes and
+the launch plan (tiles, shared memory, grid, the C entry's int array) are
+built once per shape, each operand is checked and read once, and the
+launch skips entering the device's context when it is current.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -30,13 +38,18 @@ count in ``kernels.direct_conv2d.LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.core.blocking import (DW_MAX_TAPS, H100_SXM,
+                                       DepthwiseBlocking,
                                        choose_depthwise_blocking,
+                                       choose_depthwise_dgrad_blocking,
                                        choose_depthwise_wgrad_blocking,
+                                       depthwise_fwd_smem_bytes,
                                        depthwise_smem_bytes,
                                        depthwise_wgrad_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
@@ -48,11 +61,12 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
-                                               _backward_operands, _check,
+                                               _backward_operands,
+                                               _by_shapes, _call, _check,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
-                                               _require, gap_finalize,
-                                               wgrad_reduce)
+                                               _require, _stream,
+                                               gap_finalize, wgrad_reduce)
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "depthwise_conv2d_blocked",
@@ -68,8 +82,11 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_depthwise_taps.argtypes = [ptr] * 7 + [i32] * 21 + [ptr]
-    lib.conv2d_depthwise_taps.restype = i32
+    lib.conv2d_depthwise_fwd.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+                                                     ptr]
+    lib.conv2d_depthwise_fwd.restype = i32
+    lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.conv2d_depthwise_dgrad.restype = i32
     lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
     lib.conv2d_depthwise_wgrad.restype = i32
 
@@ -106,20 +123,10 @@ def depthwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     the pooled ``[N, C]`` features.  ``padding`` is TF-SAME aware against
     the dilated filter; on CUDA the pads are masked loads.
     """
-    if x.dim() != 5:
-        raise ValueError(f"expected x [N, C/Cb, H, W, Cb], got "
-                         f"{tuple(x.shape)}")
-    spec = conv_spec(x, w, stride, padding, x.shape[1] * x.shape[4],
-                     dilation)
-    _check_activation(activation)
-    _taps(spec.hf, spec.wf)
-    n, cblk, cb = x.shape[0], x.shape[1], x.shape[4]
-    if bias is not None and tuple(bias.shape) != (cblk, cb):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != {(cblk, cb)}")
-    out_shape = (n, cblk, spec.ho, spec.wo, cb)
-    if residual is not None and tuple(residual.shape) != out_shape:
-        raise ValueError(f"residual shape {tuple(residual.shape)} != "
-                         f"output shape {out_shape}")
+    spec = _forward_spec(x.shape, w.shape, stride, padding, dilation,
+                         None if bias is None else bias.shape,
+                         None if residual is None else residual.shape,
+                         activation)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias, residual)):
         if resolve_precision(precision).op_dtype != torch.float32:
@@ -138,37 +145,82 @@ def depthwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     return _fwd_cuda(x, w, bias, residual, spec, activation, gap)
 
 
-def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
-              residual: Optional[torch.Tensor], spec: ConvSpec,
-              activation: Optional[str], gap: bool) -> torch.Tensor:
-    """Launch the tap kernel forward on CUDA operands."""
-    dev = _cuda_device(x)
-    for name, t in (("x", x), ("w", w), ("bias", bias),
-                    ("residual", residual)):
-        if t is not None:
-            _require(t, name, dev, vector_loads=name == "x")
-    n, cblk, hi, wi, cb = x.shape
-    if cblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: C/Cb={cblk}, N={n}")
+@_by_shapes
+def _forward_spec(x_shape, w_shape, stride, padding, dilation, b_shape,
+                  r_shape, activation) -> ConvSpec:
+    """The forward's checks of its operands' shapes and of the activation,
+    and its spec."""
+    if len(x_shape) != 5:
+        raise ValueError(f"expected x [N, C/Cb, H, W, Cb], got "
+                         f"{tuple(x_shape)}")
+    spec = conv_spec(torch.empty(x_shape, device="meta"),
+                     torch.empty(w_shape, device="meta"), stride, padding,
+                     x_shape[1] * x_shape[4], dilation)
+    _check_activation(activation)
+    _taps(spec.hf, spec.wf)
+    n, cblk, _, _, cb = x_shape
+    if b_shape is not None and tuple(b_shape) != (cblk, cb):
+        raise ValueError(f"bias shape {tuple(b_shape)} != {(cblk, cb)}")
+    out_shape = (n, cblk, spec.ho, spec.wo, cb)
+    if r_shape is not None and tuple(r_shape) != out_shape:
+        raise ValueError(f"residual shape {tuple(r_shape)} != "
+                         f"output shape {out_shape}")
+    return spec
+
+
+@dataclasses.dataclass(frozen=True)
+class _FwdPlan:
+    """What a forward launch at one shape needs but its pointers, stream
+    and library, built once (``_fwd_plan``): the tiles, the output and GAP
+    partials' shapes and the C entry's int array."""
+    blk: DepthwiseBlocking
+    out_shape: Tuple[int, ...]
+    partials_shape: Tuple[int, ...]
+    ints: object
+
+
+@functools.lru_cache(maxsize=1024)
+def _fwd_plan(x_shape: Tuple[int, ...], spec: ConvSpec, act: int,
+              gap: bool) -> _FwdPlan:
+    n, cblk, hi, wi, cb = x_shape
     blk = choose_depthwise_blocking(n, cblk, spec.ho, spec.wo, cb, spec.hf,
                                     spec.wf, spec.stride, spec.dilation,
                                     gap=gap)
-    smem = depthwise_smem_bytes(blk.hwin, blk.wwin, cb, H100_SXM, gap)
+    smem = depthwise_fwd_smem_bytes(blk.hwin, blk.wwin, blk.lanes, H100_SXM,
+                                    gap)
+    # the kernel's variants: 3x3 at dilation 1 and stride 1 or 2 keep their
+    # tap columns in registers; 0 takes any filter, stride and dilation
+    fast = (spec.hf, spec.wf, spec.dilation) == (3, 3, (1, 1))
+    variant = spec.stride if fast and spec.stride in (1, 2) else 0
+    ints = (cblk, cb, hi, wi, spec.ho, spec.wo, spec.hf, spec.wf,
+            spec.stride, *spec.dilation, spec.pads[0][0], spec.pads[1][0],
+            blk.hob, blk.wob, blk.hwin, blk.wwin, blk.lanes, blk.items, act,
+            blk.grid, smem, variant)
+    if blk.items >= 2 ** 31:
+        raise ValueError(f"grid too large: {blk.items} items")
     n_tiles = (spec.ho // blk.hob) * (spec.wo // blk.wob)
-    out = torch.empty((n, cblk, spec.ho, spec.wo, cb), device=dev,
-                      dtype=torch.float32)
-    partials = (torch.empty((n, cblk, n_tiles, cb), device=dev,
+    return _FwdPlan(blk=blk, out_shape=(n, cblk, spec.ho, spec.wo, cb),
+                    partials_shape=(n, cblk, n_tiles, cb),
+                    ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+              residual: Optional[torch.Tensor], spec: ConvSpec,
+              activation: Optional[str], gap: bool) -> torch.Tensor:
+    """Launch the forward kernel on CUDA operands: each operand checked and
+    read once, the shape's plan from ``_fwd_plan``."""
+    dev = _cuda_device(x)
+    ptrs = [_require(t, name, dev, vector_loads=name == "x")
+            for name, t in (("x", x), ("w", w), ("bias", bias),
+                            ("residual", residual))]
+    plan = _fwd_plan(x.shape, spec, _ACT_CODES[activation], gap)
+    out = torch.empty(plan.out_shape, device=dev, dtype=torch.float32)
+    partials = (torch.empty(plan.partials_shape, device=dev,
                             dtype=torch.float32) if gap else None)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_depthwise_taps(
-            _ptr(x), None, _ptr(w), _ptr(bias), _ptr(residual),
-            _ptr(out), _ptr(partials), 0, n, cblk, cb, hi, wi, spec.ho,
-            spec.wo, spec.hf, spec.wf, spec.stride, *spec.dilation,
-            spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.hwin,
-            blk.wwin, _ACT_CODES[activation], smem, stream)
-        LAUNCHES["conv2d_depthwise_fwd"] += 1
+    err = _call(dev, lib.conv2d_depthwise_fwd, *ptrs, out.data_ptr(),
+                _ptr(partials), plan.ints, _stream(dev))
+    LAUNCHES["conv2d_depthwise_fwd"] += 1
     _check(err, lib, "conv2d_depthwise_fwd")
     if gap:
         return gap_finalize(partials, spec.ho * spec.wo)
@@ -201,26 +253,23 @@ def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z, groups,
                          dilation)
     _taps(spec.hf, spec.wf)
-    _require(g, "g", dev, vector_loads=True)
-    _require(w, "w", dev)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
+    ptrs = (_require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True),
+            _require(w, "w", dev))
     if cblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: C/Cb={cblk}, N={n}")
-    blk = choose_depthwise_blocking(n, cblk, hi, wi, cb, spec.hf, spec.wf,
-                                    spec.stride, spec.dilation, dgrad=True)
+    blk = choose_depthwise_dgrad_blocking(n, cblk, hi, wi, cb, spec.hf,
+                                          spec.wf, spec.stride,
+                                          spec.dilation)
     smem = depthwise_smem_bytes(blk.hwin, blk.wwin, cb, H100_SXM)
     dx = torch.empty((n, cblk, hi, wi, cb), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_depthwise_taps(
-            _ptr(g), _ptr(z), _ptr(w), None, None, _ptr(dx), None, 1, n,
-            cblk, cb, ho, wo, hi, wi, spec.hf, spec.wf, spec.stride,
-            *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
-            blk.wob, blk.hwin, blk.wwin, _ACT_CODES[activation], smem,
-            stream)
-        LAUNCHES["conv2d_depthwise_dgrad"] += 1
+    err = _call(dev, lib.conv2d_depthwise_dgrad, *ptrs, dx.data_ptr(), n,
+                cblk, cb, ho, wo, hi, wi, spec.hf, spec.wf, spec.stride,
+                *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
+                blk.wob, blk.hwin, blk.wwin, _ACT_CODES[activation], smem,
+                _stream(dev))
+    LAUNCHES["conv2d_depthwise_dgrad"] += 1
     _check(err, lib, "conv2d_depthwise_dgrad")
     return dx
 
@@ -268,10 +317,9 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
                          f"match the input's {(cblk, cb)}")
     spec = backward_spec(n, hi, wi, (cblk, 1, hf, wf, 1, cb), stride,
                          padding, g, z, cblk * cb, dilation)
-    _require(x, "x", dev, vector_loads=True)
-    _require(g, "g", dev, vector_loads=True)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
+    ptrs = (_require(x, "x", dev, vector_loads=True),
+            _require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True))
     if cblk > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: C/Cb={cblk}")
     blk = choose_depthwise_wgrad_blocking(n, cblk, spec.ho, spec.wo, cb, hf,
@@ -281,14 +329,12 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
     cols = cblk * hf * wf * cb + (cblk * cb if with_db else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_depthwise_wgrad(
-            _ptr(x), _ptr(g), _ptr(z), _ptr(ws), n, cblk, cb, hi, wi,
-            spec.ho, spec.wo, hf, wf, spec.stride, *spec.dilation,
-            spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.splits,
-            _ACT_CODES[activation], int(with_db), smem, stream)
-        LAUNCHES["conv2d_depthwise_wgrad"] += 1
+    err = _call(dev, lib.conv2d_depthwise_wgrad, *ptrs, ws.data_ptr(), n,
+                cblk, cb, hi, wi, spec.ho, spec.wo, hf, wf, spec.stride,
+                *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
+                blk.wob, blk.splits, _ACT_CODES[activation], int(with_db),
+                smem, _stream(dev))
+    LAUNCHES["conv2d_depthwise_wgrad"] += 1
     _check(err, lib, "conv2d_depthwise_wgrad")
     return ws
 

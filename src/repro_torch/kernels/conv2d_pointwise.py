@@ -8,14 +8,18 @@ reference it refuses any other geometry.
 
 * Under ``torch.no_grad``/``inference_mode``, or when no operand requires
   grad, it runs the fused inference kernel (``_pw_fwd_kernel``, ``:56``):
-  ``csrc/conv2d_pointwise.cu`` on a CUDA tensor.  With ``gap`` the
-  kernel's per-tile partial sums go to the dense family's
+  ``csrc/conv2d_pointwise.cu``'s tensor-core tile (``pointwise_tile_kernel``,
+  a 3xTF32 wgmma GEMM fed by a producer warpgroup) on a CUDA tensor.  With
+  ``gap`` the kernel's per-tile partial sums go to the dense family's
   ``gap_finalize``.
 * With grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
   ``_pwconv`` / ``_pwconv_fwd`` / ``_pwconv_bwd`` (``:351-420``), with this
-  family's kernels: ``pointwise_dgrad`` (``_pw_dgrad_kernel``, ``:87``: the
-  same channel-matmul kernel with the weight read transposed) and
+  family's kernels: ``pointwise_dgrad`` (``_pw_dgrad_kernel``, ``:87``:
+  the dense dgrad's tensor-core tile at a 1x1 filter, ``csrc/dgrad_tile.cuh``
+  through ``direct_conv2d_bwd.cu``'s ``dgrad_kernel``, which timed faster
+  than the forward's tile with the weight read transposed; on CUDA it
+  takes Cob pencils of a multiple of 4, as the dense dgrad does) and
   ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``, and the dense
   family's ``wgrad_reduce``), with the ``dz = g * act'(z)`` prologue and
   ``db``.
@@ -23,6 +27,10 @@ reference it refuses any other geometry.
 A 1x1 stride-1 conv is a dense conv, so the plain versions are the dense
 ones of ``core.direct_conv`` at that geometry: the CPU path runs them, and
 the tests and ``chip_smoke.py`` hold the kernels against them.
+
+The forward builds its launch plan (tiles, the C entry's int array) once
+per shape, and its shape checks are cached by the shapes, as the
+depthwise forward's are.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -32,27 +40,34 @@ count in ``kernels.direct_conv2d.LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
 
-from repro_torch.core.blocking import (H100_SXM, choose_pointwise_blocking,
+from repro_torch.core.blocking import (PW_ROWS, PointwiseBlocking,
+                                       choose_dgrad_blocking,
+                                       choose_pointwise_blocking,
                                        choose_pointwise_wgrad_blocking,
                                        pointwise_smem_bytes,
                                        pointwise_wgrad_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
-from repro_torch.core.direct_conv import (direct_conv_blocked,
+from repro_torch.core.direct_conv import (backward_spec,
+                                          direct_conv_blocked,
                                           direct_conv_dgrad_blocked,
                                           direct_conv_preactivation,
                                           direct_conv_wgrad_blocked)
 from repro_torch.core.padding import Padding, normalize_padding
 from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
-                                               _backward_operands, _check,
+                                               _backward_operands,
+                                               _by_shapes, _call, _check,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
-                                               _require, gap_finalize,
-                                               wgrad_reduce)
+                                               _bwd_lib, _require,
+                                               _stream, dgrad_launch,
+                                               gap_finalize, wgrad_reduce)
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "pointwise_conv2d_blocked",
@@ -68,29 +83,54 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_pointwise_matmul.argtypes = [ptr] * 7 + [i32] * 13 + [ptr]
-    lib.conv2d_pointwise_matmul.restype = i32
+    lib.conv2d_pointwise_tile.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+                                                      ptr]
+    lib.conv2d_pointwise_tile.restype = i32
     lib.conv2d_pointwise_wgrad.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
     lib.conv2d_pointwise_wgrad.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    return _library("conv2d_pointwise", _declare)
+    # the compiled geometry: the wgrad's threads and lanes a thread, the
+    # tile's m-tile rows
+    return _library("conv2d_pointwise", _declare, (256, 8, PW_ROWS))
 
 
-def _check_operands(x: torch.Tensor, w: torch.Tensor) -> None:
+def _check_operands(x_shape, w_shape) -> None:
     """x ``[N, Ci/Cib, H, W, Cib]`` and a 1x1 weight ``[Co/Cob, Ci/Cib, 1,
     1, Cib, Cob]`` that chains with it."""
-    if x.dim() != 5 or w.dim() != 6:
+    if len(x_shape) != 5 or len(w_shape) != 6:
         raise ValueError(f"expected x [N, Ci/Cib, H, W, Cib] and w [Co/Cob, "
-                         f"Ci/Cib, 1, 1, Cib, Cob]; got {tuple(x.shape)}, "
-                         f"{tuple(w.shape)}")
-    if w.shape[2:4] != (1, 1):
+                         f"Ci/Cib, 1, 1, Cib, Cob]; got {tuple(x_shape)}, "
+                         f"{tuple(w_shape)}")
+    if tuple(w_shape[2:4]) != (1, 1):
         raise ValueError(f"pointwise kernel needs a 1x1 filter, got "
-                         f"{w.shape[2]}x{w.shape[3]}")
-    if (w.shape[1], w.shape[4]) != (x.shape[1], x.shape[4]):
-        raise ValueError(f"weight input blocks {(w.shape[1], w.shape[4])} do "
-                         f"not match the map's {(x.shape[1], x.shape[4])}")
+                         f"{w_shape[2]}x{w_shape[3]}")
+    if (w_shape[1], w_shape[4]) != (x_shape[1], x_shape[4]):
+        raise ValueError(f"weight input blocks {(w_shape[1], w_shape[4])} do "
+                         f"not match the map's {(x_shape[1], x_shape[4])}")
+
+
+@_by_shapes
+def _forward_checks(x_shape, w_shape, stride, padding, b_shape, r_shape,
+                    activation) -> None:
+    """The forward's checks of its operands' shapes, its geometry and the
+    activation."""
+    _check_operands(x_shape, w_shape)
+    pads = normalize_padding(padding, 1, 1, stride, x_shape[2], x_shape[3])
+    if stride != 1 or pads != ((0, 0), (0, 0)):
+        raise ValueError(
+            f"pointwise fast path serves stride=1, zero-pad only; got "
+            f"stride={stride}, padding={padding!r}: route the direct conv "
+            "instead")
+    _check_activation(activation)
+    n, _, h, wd, _ = x_shape
+    coblk, cob = w_shape[0], w_shape[5]
+    if b_shape is not None and tuple(b_shape) != (coblk, cob):
+        raise ValueError(f"bias shape {tuple(b_shape)} != {(coblk, cob)}")
+    if r_shape is not None and tuple(r_shape) != (n, coblk, h, wd, cob):
+        raise ValueError(f"residual shape {tuple(r_shape)} != output "
+                         f"shape {(n, coblk, h, wd, cob)}")
 
 
 # ---------------------------------------------------------------------------
@@ -113,28 +153,16 @@ def pointwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     is served, stride 1 and zero pads (SAME on a 1x1 filter is zero pads);
     anything else raises, as the reference's entry point does.
     """
-    _check_operands(x, w)
-    pads = normalize_padding(padding, 1, 1, stride, x.shape[2], x.shape[3])
-    if stride != 1 or pads != ((0, 0), (0, 0)):
-        raise ValueError(
-            f"pointwise fast path serves stride=1, zero-pad only; got "
-            f"stride={stride}, padding={padding!r}: route the direct conv "
-            "instead")
-    _check_activation(activation)
-    n, _, h, wd, _ = x.shape
-    coblk, cob = w.shape[0], w.shape[5]
-    if bias is not None and tuple(bias.shape) != (coblk, cob):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
-    if residual is not None and tuple(residual.shape) != (n, coblk, h, wd,
-                                                           cob):
-        raise ValueError(f"residual shape {tuple(residual.shape)} != output "
-                         f"shape {(n, coblk, h, wd, cob)}")
+    _forward_checks(x.shape, w.shape, stride, padding,
+                    None if bias is None else bias.shape,
+                    None if residual is None else residual.shape, activation)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias, residual)):
         if resolve_precision(precision).op_dtype != torch.float32:
             raise NotImplementedError(
                 "the training path runs the f32 policy only")
-        spec = ConvSpec.make(n, h, wd, x.shape[1] * x.shape[4], coblk * cob,
+        n, ciblk, h, wd, cib = x.shape
+        spec = ConvSpec.make(n, h, wd, ciblk * cib, w.shape[0] * w.shape[5],
                              1, 1)
         return BlockedConvFunction.apply(x, w, bias, residual, _Pointwise,
                                          spec, activation, gap)
@@ -147,34 +175,60 @@ def pointwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     return _fwd_cuda(x, w, bias, residual, activation, gap)
 
 
+@dataclasses.dataclass(frozen=True)
+class _TilePlan:
+    """What a tile launch at one shape needs but its pointers, stream and
+    library, built once (``_tile_plan``): the tiles and the C entry's int
+    array."""
+    blk: PointwiseBlocking
+    ints: object
+
+
+@functools.lru_cache(maxsize=1024)
+def _tile_plan(n: int, hw: int, kblk: int, kw: int, oblk: int, ow: int,
+               act: int, gap: bool,
+               blk: Optional[PointwiseBlocking] = None) -> _TilePlan:
+    """The plan of a tile launch: ``blk``, or the chooser's tiles."""
+    if blk is None:
+        blk = choose_pointwise_blocking(n, hw, kblk, kw, oblk, ow, gap=gap)
+    smem = pointwise_smem_bytes(blk.rows, blk.chunk, blk.lanes, blk.wgs, gap)
+    ints = (kblk, kw, oblk, ow, hw, blk.rows, blk.nsplit, blk.chunk, act,
+            int(gap), blk.lanes, blk.wgs, blk.tiles, n, smem)
+    return _TilePlan(blk=blk, ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def tile_launch(plan: _TilePlan, dev: torch.device, ptrs, out: torch.Tensor,
+                partials: Optional[torch.Tensor]) -> int:
+    """Launch the tile of ``plan`` on checked operand pointers ``(x, w,
+    bias, residual)`` into ``out`` -> the CUDA error code; the caller counts
+    the launch."""
+    return _call(dev, _lib().conv2d_pointwise_tile, *ptrs, out.data_ptr(),
+                 _ptr(partials), plan.ints, _stream(dev))
+
+
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], activation: Optional[str],
               gap: bool) -> torch.Tensor:
-    """Launch the channel-matmul kernel forward on CUDA operands."""
+    """Launch the tile forward on CUDA operands: each operand checked and
+    read once, the shape's plan from ``_tile_plan``."""
     dev = _cuda_device(x)
-    for name, t in (("x", x), ("w", w), ("bias", bias),
-                    ("residual", residual)):
-        if t is not None:
-            _require(t, name, dev, vector_loads=name in ("x", "w"))
+    ptrs = (_require(x, "x", dev, vector_loads=True),
+            _require(w, "w", dev, vector_loads=True),
+            _require(bias, "bias", dev),
+            _require(residual, "residual", dev))
     n, ciblk, h, wd, cib = x.shape
     coblk, cob = w.shape[0], w.shape[5]
-    if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+    if coblk > _GRID_YZ_MAX // 2 or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
     hw = h * wd
-    blk = choose_pointwise_blocking(n, hw, cib, coblk, cob, gap=gap)
-    smem = pointwise_smem_bytes(blk.positions, blk.chunk, cob, H100_SXM, gap)
+    plan = _tile_plan(n, hw, ciblk, cib, coblk, cob, _ACT_CODES[activation],
+                      gap)
     out = torch.empty((n, coblk, h, wd, cob), device=dev, dtype=torch.float32)
-    partials = (torch.empty((n, coblk, blk.tiles, cob), device=dev,
+    partials = (torch.empty((n, coblk, plan.blk.tiles, cob), device=dev,
                             dtype=torch.float32) if gap else None)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_pointwise_matmul(
-            _ptr(x), None, _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
-            _ptr(partials), 0, n, ciblk, cib, coblk, cob, hw, blk.positions,
-            blk.chunk, blk.ldx, blk.ldw, _ACT_CODES[activation], smem, stream)
-        LAUNCHES["conv2d_pointwise_fwd"] += 1
-    _check(err, lib, "conv2d_pointwise_fwd")
+    err = tile_launch(plan, dev, ptrs, out, partials)
+    LAUNCHES["conv2d_pointwise_fwd"] += 1
+    _check(err, _lib(), "conv2d_pointwise_fwd")
     if gap:
         return gap_finalize(partials, hw)
     return out
@@ -203,35 +257,25 @@ def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     """Input gradient of ``act(x @ w + b)``: the raw cotangent ``g [N,
     Co/Cob, H, W, Cob]``, the saved pre-activation ``z`` (None for a
     linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, H, W, Cib]``, with ``dz
-    = g * act'(z)`` formed as ``g`` is staged."""
+    = g * act'(z)`` formed as ``g`` is staged.  On CUDA it is the dense
+    dgrad kernel at a 1x1 filter, with the tiles its chooser takes (Cob
+    pencils of a multiple of 4)."""
     _backward_operands(g, z, activation)
     _check_backward(g, w, z)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, g.shape[2:4], 1, "VALID", z,
                                          activation)
-    dev = _cuda_device(g)
-    _require(g, "g", dev, vector_loads=True)
-    _require(w, "w", dev)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
-    n, coblk, h, wd, cob = g.shape
+    _cuda_device(g)
+    n, _, h, wd, cob = g.shape
     ciblk, cib = w.shape[1], w.shape[4]
-    if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
-    hw = h * wd
-    blk = choose_pointwise_blocking(n, hw, cob, ciblk, cib, transposed=True)
-    smem = pointwise_smem_bytes(blk.positions, blk.chunk, cib, H100_SXM,
-                                transposed=True)
-    dx = torch.empty((n, ciblk, h, wd, cib), device=dev, dtype=torch.float32)
-    lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_pointwise_matmul(
-            _ptr(g), _ptr(z), _ptr(w), None, None, _ptr(dx), None, 1, n,
-            coblk, cob, ciblk, cib, hw, blk.positions, blk.chunk, blk.ldx,
-            blk.ldw, _ACT_CODES[activation], smem, stream)
-        LAUNCHES["conv2d_pointwise_dgrad"] += 1
-    _check(err, lib, "conv2d_pointwise_dgrad")
+    prologue = z is not None and activation not in (None, "linear")
+    spec = backward_spec(n, h, wd, w.shape, 1, "VALID", g, z)
+    blk = choose_dgrad_blocking(n, h, wd, 1, 1, 1, ciblk, cib, cob,
+                                prologue=prologue)
+    err, dx = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th, blk, g, w,
+                           spec, z if prologue else None, activation)
+    LAUNCHES["conv2d_pointwise_dgrad"] += 1
+    _check(err, _bwd_lib(), "conv2d_pointwise_dgrad")
     return dx
 
 
@@ -278,10 +322,9 @@ def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
     _backward_operands(g, z, activation)
     _check_wgrad(x, g, z)
     dev = _cuda_device(x)
-    _require(x, "x", dev, vector_loads=True)
-    _require(g, "g", dev, vector_loads=True)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
+    ptrs = (_require(x, "x", dev, vector_loads=True),
+            _require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True))
     n, ciblk, h, wd, cib = x.shape
     coblk, cob = g.shape[1], g.shape[4]
     if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
@@ -292,13 +335,10 @@ def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
     cols = coblk * ciblk * cib * cob + (coblk * cob if with_db else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_pointwise_wgrad(
-            _ptr(x), _ptr(g), _ptr(z), _ptr(ws), n, ciblk, cib, coblk, cob,
-            hw, blk.positions, blk.splits, _ACT_CODES[activation],
-            int(with_db), smem, stream)
-        LAUNCHES["conv2d_pointwise_wgrad"] += 1
+    err = _call(dev, lib.conv2d_pointwise_wgrad, *ptrs, ws.data_ptr(), n,
+                ciblk, cib, coblk, cob, hw, blk.positions, blk.splits,
+                _ACT_CODES[activation], int(with_db), smem, _stream(dev))
+    LAUNCHES["conv2d_pointwise_wgrad"] += 1
     _check(err, lib, "conv2d_pointwise_wgrad")
     return ws
 

@@ -54,10 +54,11 @@ from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
 from repro_torch.kernels.direct_conv2d import (WGRAD_GEOMETRY, _ACT_CODES,
                                                _GRID_YZ_MAX,
-                                               _backward_operands, _check,
-                                               _check_activation,
+                                               _backward_operands, _call,
+                                               _check, _check_activation,
                                                _cuda_device, _library, _ptr,
-                                               _require, check_machine,
+                                               _require, _stream,
+                                               check_machine,
                                                dgrad_launch, gap_finalize,
                                                split_wgrad, wgrad_launch,
                                                wgrad_reduce)
@@ -136,10 +137,9 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
         raise NotImplementedError(
             "the CUDA kernels of this slice run the f32 policy only")
     dev = _cuda_device(x)
-    for name, t in (("x", x), ("w", w), ("bias", bias),
-                    ("residual", residual)):
-        if t is not None:
-            _require(t, name, dev, vector_loads=name in ("x", "w"))
+    ptrs = [_require(t, name, dev, vector_loads=name in ("x", "w"))
+            for name, t in (("x", x), ("w", w), ("bias", bias),
+                            ("residual", residual))]
     out_shape = (n, coblk, spec.ho, spec.wo, cob)
     if bias is not None and tuple(bias.shape) != (coblk, cob):
         raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
@@ -156,16 +156,13 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     partials = (torch.empty((n, coblk, n_bands, cob), device=dev,
                             dtype=torch.float32) if gap else None)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.conv2d_stream_conv(
-            _ptr(x), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
-            _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], cib,
-            coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf, stride,
-            spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.hso,
-            blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
-            _ACT_CODES[activation], smem, stream)
-        LAUNCHES["conv2d_stream_fwd"] += 1
+    err = _call(dev, lib.conv2d_stream_conv, *ptrs, out.data_ptr(),
+                _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], cib,
+                coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf, stride,
+                spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.hso,
+                blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
+                _ACT_CODES[activation], smem, _stream(dev))
+    LAUNCHES["conv2d_stream_fwd"] += 1
     _check(err, lib, "conv2d_stream_fwd")
     if gap:
         return gap_finalize(partials, spec.ho * spec.wo)

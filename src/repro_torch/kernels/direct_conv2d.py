@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -95,6 +96,10 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# the libraries whose signatures are declared and geometry checked, by name
+_DECLARED: dict = {}
+
+
 def _library(name: str, declare, geometry=None,
              more_geometries=()) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
@@ -103,6 +108,8 @@ def _library(name: str, declare, geometry=None,
     (the blocking model's ``(threads, lanes, positions)`` by default), and
     each ``(symbol, geometry)`` of ``more_geometries`` likewise."""
     lib = library(name)
+    if _DECLARED.get(name) is lib:
+        return lib
     get_geometry = getattr(lib, f"{name}_geometry")
     if get_geometry.argtypes is None:
         i32 = ctypes.c_int
@@ -121,6 +128,7 @@ def _library(name: str, declare, geometry=None,
             if built != tuple(want):
                 raise RuntimeError(f"{name}: {symbol} reports {built}; "
                                    f"the wrapper expects {tuple(want)}")
+    _DECLARED[name] = lib
     return lib
 
 
@@ -165,11 +173,15 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _require(t: torch.Tensor, name: str, device: torch.device,
-             vector_loads: bool = False) -> None:
-    """Raise on an operand the kernel cannot take.  ``vector_loads``: the
-    kernel reads it with float4 loads, so it must start on 16 bytes (a
-    contiguous view at an odd storage offset would fault on the card)."""
+def _require(t: Optional[torch.Tensor], name: str, device: torch.device,
+             vector_loads: bool = False) -> Optional[int]:
+    """Raise on an operand the kernel cannot take; -> its data pointer
+    (None for None), so that a launch checks and reads each operand once.
+    ``vector_loads``: the kernel reads it with float4 loads, so it must
+    start on 16 bytes (a contiguous view at an odd storage offset would
+    fault on the card)."""
+    if t is None:
+        return None
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x is on {device}")
     if t.dtype != torch.float32:
@@ -178,9 +190,59 @@ def _require(t: torch.Tensor, name: str, device: torch.device,
             "operands (bf16 pencils are queued)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if vector_loads and t.data_ptr() % 16:
+    ptr = t.data_ptr()
+    if vector_loads and ptr % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary (the "
                          "kernel reads it with float4 loads); pass a copy")
+    return ptr
+
+
+# the current device's index without torch.cuda's lazy-init check (the
+# public route where a build lacks it)
+_CURRENT_DEVICE = getattr(torch._C, "_cuda_getDevice",
+                          torch.cuda.current_device)
+
+
+# the current stream's handle without building a torch.cuda.Stream object
+# (what PyTorch's own generated launchers call); the public route where a
+# build lacks it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(device: torch.device) -> int:
+    """The handle of ``device``'s current stream, for a C entry point."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(_CURRENT_DEVICE() if device.index is None
+                           else device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _by_shapes(check):
+    """Cache ``check``, a function of operand shapes and other hashable
+    arguments, by its arguments, so that a layer called again pays one
+    lookup; arguments that cannot be hashed (a list as padding) run it at
+    every call.  An argument that fails a check raises at every call: an
+    exception is never cached."""
+    cached = functools.lru_cache(maxsize=1024)(check)
+
+    @functools.wraps(check)
+    def run(*args):
+        try:
+            return cached(*args)
+        except TypeError:       # unhashable (or the check's own TypeError,
+            return check(*args)  # which then raises again)
+    return run
+
+
+def _call(device: torch.device, entry, *args) -> int:
+    """Call the C entry point ``entry`` with ``args`` on ``device``'s
+    context: directly when it is the current device (the common case, where
+    entering ``torch.cuda.device`` costs more than the launch), else inside
+    ``torch.cuda.device(device)``."""
+    if device.index == _CURRENT_DEVICE():
+        return entry(*args)
+    with torch.cuda.device(device):
+        return entry(*args)
 
 
 def check_machine(machine: MachineModel) -> None:
@@ -325,10 +387,9 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               machine: MachineModel = H100_SXM) -> torch.Tensor:
     """Launch the window forward kernel on CUDA operands."""
     dev = _cuda_device(x)
-    operands = {"x": x, "w": w, "bias": bias, "residual": residual}
-    for name, t in operands.items():
-        if t is not None:
-            _require(t, name, dev, vector_loads=name in ("x", "w"))
+    ptrs = [_require(t, name, dev, vector_loads=name in ("x", "w"))
+            for name, t in (("x", x), ("w", w), ("bias", bias),
+                            ("residual", residual))]
     n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
     if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
@@ -344,15 +405,13 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     partials = (torch.empty((n, coblk, n_tiles, cob), device=dev,
                             dtype=torch.float32) if gap else None)
     lib = _lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.direct_conv2d_fwd(
-            _ptr(x), _ptr(w), _ptr(bias), _ptr(residual), _ptr(out),
-            _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], x.shape[4],
-            coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
-            spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.chunk,
-            _ACT_CODES[activation], smem, stream)
-        LAUNCHES["direct_conv2d_fwd"] += 1
+    err = _call(dev, lib.direct_conv2d_fwd, *ptrs, out.data_ptr(),
+                _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3],
+                x.shape[4], coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf,
+                spec.stride, spec.pads[0][0], spec.pads[1][0], blk.hob,
+                blk.wob, blk.chunk, _ACT_CODES[activation], smem,
+                _stream(dev))
+    LAUNCHES["direct_conv2d_fwd"] += 1
     _check(err, lib, "direct_conv2d_fwd")
     if gap:
         return gap_finalize(partials, spec.ho * spec.wo)
@@ -367,19 +426,22 @@ def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
                          f"{tuple(partials.shape)}")
     if partials.device.type == "cpu":
         return conv2d_common.gap_finalize(partials, hw)
-    _require(partials, "partials", partials.device)
+    dev = partials.device
+    ptr = _require(partials, "partials", dev)
     n, coblk, n_tiles, cob = partials.shape
-    pooled = torch.empty((n, coblk * cob), device=partials.device,
-                         dtype=torch.float32)
-    inv_hw = float(np.float32(1.0) / np.float32(hw))
+    pooled = torch.empty((n, coblk * cob), device=dev, dtype=torch.float32)
     lib = _lib()
-    stream = torch.cuda.current_stream(partials.device).cuda_stream
-    with torch.cuda.device(partials.device):
-        err = lib.gap_finalize(_ptr(partials), _ptr(pooled), n * coblk,
-                               n_tiles, cob, inv_hw, stream)
-        LAUNCHES["gap_finalize"] += 1
+    err = _call(dev, lib.gap_finalize, ptr, pooled.data_ptr(), n * coblk,
+                n_tiles, cob, _inv_count(hw), _stream(dev))
+    LAUNCHES["gap_finalize"] += 1
     _check(err, lib, "gap_finalize")
     return pooled
+
+
+@functools.lru_cache(maxsize=256)
+def _inv_count(hw: int) -> float:
+    """The f32 reciprocal of ``hw``, as the plain version scales by it."""
+    return float(np.float32(1.0) / np.float32(hw))
 
 
 # ---------------------------------------------------------------------------
@@ -445,10 +507,9 @@ def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
     with the prologue -> ``(CUDA error code, dx)``; the caller counts the
     launch."""
     dev = _cuda_device(g)
-    _require(g, "g", dev, vector_loads=True)
-    _require(w, "w", dev, vector_loads=True)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
+    ptrs = (_require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True),
+            _require(w, "w", dev, vector_loads=True))
     n, coblk, ho, wo, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
     if cob % 4:
@@ -458,11 +519,9 @@ def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
     dx = torch.empty((n, ciblk, spec.hi, spec.wi, cib), device=dev,
                      dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = entry(_ptr(g), _ptr(z), _ptr(w), _ptr(dx),
-                    *_dgrad_ints(rows, blk, g.shape, w.shape, spec),
-                    _ACT_CODES[activation], stream)
+    err = _call(dev, entry, *ptrs, dx.data_ptr(),
+                *_dgrad_ints(rows, blk, g.shape, w.shape, spec),
+                _ACT_CODES[activation], _stream(dev))
     return err, dx
 
 
@@ -594,10 +653,9 @@ def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
     the prologue -> ``(CUDA error code, workspace)``; the caller counts the
     launch."""
     dev = _cuda_device(x)
-    _require(x, "x", dev, vector_loads=True)
-    _require(g, "g", dev, vector_loads=True)
-    if z is not None:
-        _require(z, "z", dev, vector_loads=True)
+    ptrs = (_require(x, "x", dev, vector_loads=True),
+            _require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True))
     n, ciblk, _, _, cib = x.shape
     _, coblk, _, _, cob = g.shape
     if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
@@ -605,11 +663,9 @@ def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
     cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
                                                   else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = entry(_ptr(x), _ptr(g), _ptr(z), _ptr(ws),
-                    *_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
-                    _ACT_CODES[activation], int(with_db), stream)
+    err = _call(dev, entry, *ptrs, ws.data_ptr(),
+                *_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
+                _ACT_CODES[activation], int(with_db), _stream(dev))
     return err, ws
 
 
@@ -664,15 +720,13 @@ def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
     if partials.device.type == "cpu":
         return conv2d_common.wgrad_reduce(partials)
     dev = _cuda_device(partials)
-    _require(partials, "partials", dev)
+    ptr = _require(partials, "partials", dev)
     splits, cols = partials.shape
     out = torch.empty((cols,), device=dev, dtype=torch.float32)
     lib = _bwd_lib()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = lib.wgrad_reduce(_ptr(partials), _ptr(out), cols, splits,
-                               stream)
-        LAUNCHES["wgrad_reduce"] += 1
+    err = _call(dev, lib.wgrad_reduce, ptr, out.data_ptr(), cols, splits,
+                _stream(dev))
+    LAUNCHES["wgrad_reduce"] += 1
     _check(err, lib, "wgrad_reduce")
     return out
 

@@ -46,7 +46,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.direct_conv2d import (_check, _cuda_device, _library,
-                                               _no_autograd)
+                                               _no_autograd, _stream)
 
 __all__ = ["LAUNCHES", "reset_launches", "NEG_INF", "attend",
            "attend_plain", "check_operands", "flash_attention",
@@ -266,7 +266,7 @@ def _launch(q, k, v, out, q_strides, k_strides, v_strides, o_strides, *,
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         qp.data_ptr(), kp.data_ptr(), strides, ints, float(scale), 0.0 if cap is None else float(cap),
-        torch.cuda.current_stream(dev).cuda_stream)
+        _stream(dev))
     _check(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
 

@@ -379,6 +379,8 @@ PW_CASES = [
     (2, 12, 20, 9, 4, 4, "gelu", True, False),        # Cob not a multiple of 8
     (3, 1024, 1024, 7, 128, 128, "relu", False, True),
     (2, 16, 24, 5, 8, 8, "gelu", True, True),
+    (2, 12, 18, 7, 4, 6, "relu", True, True),   # Cob % 4: the dgrad refuses
+    (2, 6, 16, 5, 3, 8, "gelu", False, True),   # Cib = 3: 4-byte copies
 ]
 
 
@@ -399,16 +401,23 @@ def test_pointwise_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
     want = direct_conv_blocked(x, w, 1, "VALID", b, act, residual=r, gap=gap)
     z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
     ct = torch.randn(z.shape, device=cuda, generator=g)
-    dx = pwk.pointwise_dgrad(ct, w, z, act)
+    if cob % 4:
+        # the dgrad is the dense dgrad tile at 1x1, whose TMA copies take
+        # Cob pencils of a multiple of 4
+        with pytest.raises(ValueError, match="multiple of 4"):
+            pwk.pointwise_dgrad(ct, w, z, act)
+    else:
+        dx = pwk.pointwise_dgrad(ct, w, z, act)
     dw, db = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     dw2, db2 = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     torch.cuda.synchronize()
     assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 1,
-                            "conv2d_pointwise_dgrad": 1,
+                            "conv2d_pointwise_dgrad": int(cob % 4 == 0),
                             "conv2d_pointwise_wgrad": 2}
     torch.testing.assert_close(got, want, **TOL)
-    torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
-        ct, w, (h, h), 1, "VALID", z, act), **TOL)
+    if cob % 4 == 0:
+        torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
+            ct, w, (h, h), 1, "VALID", z, act), **TOL)
     want_dw, want_db = direct_conv_wgrad_blocked(
         x.double(), ct.double(), 1, 1, 1, "VALID", z.double(), act,
         with_db=True)

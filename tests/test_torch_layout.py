@@ -278,18 +278,25 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
     for ci, co, s, h in _mobilenet_shapes():
         cb, cob = min(ci, 128), min(co, 128)
         ho = -(-h // s)
-        for dgrad in (False, True):
-            ext = h if dgrad else ho
-            d = blocking.choose_depthwise_blocking(n, ci // cb, ext, ext, cb,
-                                                   3, 3, s, dgrad=dgrad)
-            assert ext % d.hob == 0 and ext % d.wob == 0
-            assert d.hob * d.wob <= (m.threads // cb) * \
-                blocking.DW_THREAD_POSITIONS
-            assert blocking.depthwise_smem_bytes(d.hwin, d.wwin, cb, m) \
-                <= m.smem_budget
-            want = (blocking.dgrad_window(d.hob, d.wob, 3, 3, s) if dgrad
-                    else (s * (d.hob - 1) + 3, s * (d.wob - 1) + 3))
-            assert (d.hwin, d.wwin) == want
+        d = blocking.choose_depthwise_blocking(n, ci // cb, ho, ho, cb, 3, 3,
+                                               s)
+        assert ho % d.hob == 0 and ho % d.wob == 0 and cb % d.lanes == 0
+        assert d.hob * d.wob <= (m.threads // d.lanes) * \
+            blocking.DW_THREAD_POSITIONS
+        assert blocking.depthwise_fwd_smem_bytes(d.hwin, d.wwin, d.lanes,
+                                                 m) <= m.smem_budget
+        assert (d.hwin, d.wwin) == (s * (d.hob - 1) + 3, s * (d.wob - 1) + 3)
+        assert d.items == n * (ci // d.lanes) * (ho // d.hob) * (ho // d.wob)
+        assert d.grid == min(d.items, m.wave)
+        d = blocking.choose_depthwise_dgrad_blocking(n, ci // cb, h, h, cb,
+                                                     3, 3, s)
+        assert h % d.hob == 0 and h % d.wob == 0
+        assert d.hob * d.wob <= (m.threads // cb) * \
+            blocking.DW_THREAD_POSITIONS
+        assert blocking.depthwise_smem_bytes(d.hwin, d.wwin, cb, m) \
+            <= m.smem_budget
+        assert (d.hwin, d.wwin) == blocking.dgrad_window(d.hob, d.wob, 3, 3,
+                                                         s)
         wg = blocking.choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb,
                                                       3, 3, s)
         assert ho % wg.hob == 0 and ho % wg.wob == 0
@@ -298,17 +305,22 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
         assert 1 <= wg.splits <= wg.tiles == n * (ho // wg.hob) * (
             ho // wg.wob)
         hw = ho * ho
-        for kb, oblk, ob, tr in ((cb, co // cob, cob, False),
-                                 (cob, ci // cb, cb, True)):
-            for gap in (False, True):
-                p = blocking.choose_pointwise_blocking(n, hw, kb, oblk, ob,
-                                                       gap=gap, transposed=tr)
-                groups = m.threads // -(-ob // m.lanes)
-                assert p.positions <= min(hw, groups * m.positions)
-                assert p.positions == hw or p.positions % groups == 0
-                assert p.tiles == -(-hw // p.positions) and kb % p.chunk == 0
-                assert blocking.pointwise_smem_bytes(
-                    p.positions, p.chunk, ob, m, gap, tr) <= m.smem_budget
+        for gap in (False, True):
+            p = blocking.choose_pointwise_blocking(n, hw, ci // cb, cb,
+                                                   co // cob, cob, gap=gap)
+            assert p.rows == blocking.PW_ROWS * p.wgs
+            assert p.tiles == -(-hw // p.rows) and cb % p.chunk == 0
+            assert p.lanes * p.nsplit >= cob > (p.nsplit - 1) * p.lanes
+            assert blocking.pointwise_smem_bytes(
+                p.rows, p.chunk, p.lanes, p.wgs, gap) <= m.smem_block
+        # the pointwise dgrad: the dense dgrad tile at 1x1
+        for prologue in (False, True):
+            d = blocking.choose_dgrad_blocking(n, ho, ho, 1, 1, 1, ci // cb,
+                                               cb, cob, prologue=prologue)
+            assert d.lanes >= cb and (d.hwin, d.wwin) == (d.th, d.tw)
+            assert blocking.dgrad_smem_bytes(
+                1, 1, 1, d.lanes, d.chunk, d.hwin, d.wwin, prologue) \
+                <= m.smem_block
         pw = blocking.choose_pointwise_wgrad_blocking(n, hw, ci // cb, cb,
                                                       co // cob, cob)
         assert pw.pgroups * -(-cb // 8) * -(-cob // 8) <= m.threads
@@ -319,14 +331,18 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
 
 def test_separable_choosers_fill_the_card_where_the_map_allows():
     m = blocking.H100_SXM
-    # 112x112 legs: the largest tiles already give a full wave
+    # 112x112 legs: tiles whose items give each resident CTA more than one
     d = blocking.choose_depthwise_blocking(8, 1, 112, 112, 32, 3, 3, 1)
-    assert (d.hob, d.wob) == (16, 16) and 8 * 49 >= m.wave
-    # 7x7x1024: every thread keeps a position, the grid grows instead
+    assert (d.hob, d.wob, d.lanes) == (14, 16, 32)
+    assert d.items >= blocking.DW_ITEMS_PER_CTA * m.wave == 1.5 * d.grid
+    # 7x7x1024: the pencil splits and the items shrink to fill the card
     d = blocking.choose_depthwise_blocking(8, 8, 7, 7, 128, 3, 3, 1)
-    assert d.hob * d.wob >= m.threads // 128 and 8 * 8 * 49 // (
-        d.hob * d.wob) >= m.wave
-    p = blocking.choose_pointwise_blocking(8, 49, 128, 8, 128)
-    assert p.positions == 32                  # two per thread, 128 CTAs
+    assert d.items >= m.wave and d.grid == m.wave
+    # the dgrad's tiles: the largest whose grid fills the card
+    d = blocking.choose_depthwise_dgrad_blocking(8, 1, 112, 112, 32, 3, 3, 1)
+    assert (d.hob, d.wob) == (16, 16) and 8 * 49 >= m.wave
+    # 7x7x1024 pointwise: one m-tile an image, the output block split in two
+    p = blocking.choose_pointwise_blocking(8, 49, 8, 128, 8, 128)
+    assert (p.rows, p.tiles, p.nsplit) == (64, 1, 2)
     with pytest.raises(ValueError, match="taps"):
         blocking.choose_depthwise_wgrad_blocking(1, 1, 8, 8, 8, 7, 7)
