@@ -15,9 +15,11 @@ and no phase catches its own failure:
    bf16 kernel must have some; each instance of the two phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
    spill nothing, and each instance of the two wgrad kernels
-   (``csrc/wgrad_tile.cuh``) and of the pointwise forward's tile
-   (``pointwise_tile_kernel``) HGMMA (wgmma) instructions and no spill (the
-   pointwise dgrad runs the dense dgrad's ``dgrad_kernel`` at 1x1);
+   (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
+   ``stream_fwd_kernel``, on ``csrc/fwd_tile.cuh``) and of the pointwise
+   forward's tile (``pointwise_tile_kernel``) HGMMA (wgmma) instructions
+   and no spill (the pointwise dgrad runs the dense dgrad's
+   ``dgrad_kernel`` at 1x1);
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
@@ -28,8 +30,13 @@ and no phase catches its own failure:
 5. the main path: ``ConvServer`` on buckets 160x160 and 224x224 at batch 8
    serving 24 ragged requests drawn from ``--seed``; every request must end
    OK with the logits of the plain PyTorch forward of its padded image;
-6. per-layer times (CUDA events after warm-up): kernel, plain version,
-   cuDNN ``F.conv2d`` (f32, TF32 off) and the f32 bound;
+6. per-layer times (CUDA events after warm-up): kernel, eager and as a
+   CUDA-graph replay, plain version, cuDNN ``F.conv2d`` (f32, TF32 off)
+   and the bound (the function's MACs as three TF32 products, the f32 FMA
+   bound beside it); per layer the forward's tiles, the function's MACs
+   and the tensor-core MACs its tiles issue with their padding share (the
+   kernel library's own plan, ``direct_conv2d_fwd_plan``, must equal
+   ``core.blocking.fwd_plan``);
 7. the backward kernels against their plain versions at batch 8 on every
    distinct VGG-16 layer shape of a 224x224 entry: dgrad with the relu
    prologue (all but conv1_1's shape; its tile printed), wgrad with the
@@ -96,9 +103,10 @@ and no phase catches its own failure:
     dgrad or wgrad;
 17. per-layer and summed times of the three streamed kernels, eager and as
     a CUDA-graph replay, beside the window kernels, the plain versions,
-    cuDNN (TF32 off) and the bound (the dgrad's and wgrad's as in phase 9,
-    with the dgrad's phases, MACs and issued MACs, and both wgrads' plans
-    checked against the model, their issued MACs and padding); the
+    cuDNN (TF32 off) and the bound (each as in phases 6 and 9, with the
+    forward's tiles and the dgrad's phases, MACs and issued MACs, and both
+    forwards' and both wgrads' plans checked against the model, their
+    issued MACs and padding); the
     streamed train step against the
     window step and the plain step; its peak device memory beside the bytes
     it must hold;
@@ -270,6 +278,9 @@ WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
                  "conv2d_stream": "stream_wgrad_kernel"}
 # the pointwise forward's tensor-core tile, 3xTF32 as well
 PW_TILE_KERNELS = {"conv2d_pointwise": "pointwise_tile_kernel"}
+# the dense forwards' tile (csrc/fwd_tile.cuh), 3xTF32 as well
+FWD_TILE_KERNELS = {"direct_conv2d_fwd": "fwd_kernel",
+                    "conv2d_stream": "stream_fwd_kernel"}
 # calls a wrapper's host cost is averaged over (time.perf_counter, no
 # synchronise): few enough that the launch queue never fills and holds the
 # host back to the device's pace
@@ -437,6 +448,42 @@ def ptxas_report(log: str) -> dict:
         if m and fn in out:
             out[fn][0] = int(m.group(1))
     return {k: tuple(v) for k, v in out.items()}
+
+
+def fwd_work(x, w, h: int, stride: int, streamed: bool):
+    """A 3x3 SAME forward of ``x``, ``w`` over an ``h x h`` input as its
+    kernel tiles it -> (its ``FwdBlocking``, its ``FwdPlan``, the function's
+    MACs).  Fails unless the kernel library's own count of the launch
+    (``*_plan``, the C++ tile geometry) equals the blocking model's
+    (``core.blocking.fwd_plan``), and its MACs equal the function's."""
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.kernels.direct_conv2d import fwd_launch, fwd_plans
+    kernel, model = fwd_plans(x, w, stride, "SAME", streamed=streamed)
+    route = "streamed" if streamed else "window"
+    if kernel != model:
+        fail(f"{route} forward at {h}x{h} s{stride}: the kernel's plan "
+             f"{kernel} != the blocking model's {model}")
+    spec = ConvSpec.make(x.shape[0], h, h, x.shape[1] * x.shape[4],
+                         w.shape[0] * w.shape[5], 3, 3, stride, "SAME")
+    fn_macs = spec.flops() // 2
+    if kernel.function_macs != fn_macs:
+        fail(f"{route} forward at {h}x{h} s{stride}: its tiles take "
+             f"{kernel.function_macs} MACs, the function {fn_macs}")
+    blk = fwd_launch(spec, x.shape[4], w.shape[5], 0, False, streamed).blk
+    return blk, kernel, fn_macs
+
+
+def fwd_text(blk, plan, macs: int, graph: float) -> str:
+    """A forward's tiles and MACs as one phrase of a log line."""
+    shape = (f"bands of {blk.strips} strips of {blk.hso}x{blk.tw}"
+             if blk.strips > 1 else f"tiles of {blk.th}x{blk.tw}")
+    return (f"{plan.tiles} {shape} output positions an image, "
+            f"{blk.wgs} consumer warpgroup(s), lanes {blk.lanes} x "
+            f"{blk.nsplit} split(s), chunk {blk.chunk}, shared memory "
+            f"{plan.smem} B; function MACs {macs}, tensor-core MACs issued "
+            f"{plan.issued_macs} (three products each; padding "
+            f"{100 * plan.padding_share:.1f} %); "
+            f"{macs / 1e6 / graph:.1f} function GMAC/s on the device")
 
 
 def dgrad_work(g, w, z, h: int, stride: int, streamed: bool):
@@ -1268,9 +1315,9 @@ def stream_phases(args, dev, t_start):
     serving and training, per kernel)."""
     from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers
     from repro_torch.core import conv2d_common
-    from repro_torch.core.blocking import (choose_blocking,
-                                           choose_stream_blocking,
+    from repro_torch.core.blocking import (choose_fwd_blocking,
                                            choose_stream_dgrad_blocking,
+                                           choose_stream_fwd_blocking,
                                            choose_stream_wgrad_blocking)
     from repro_torch.core.context import ConvContext
     from repro_torch.core.convspec import ConvSpec
@@ -1337,18 +1384,19 @@ def stream_phases(args, dev, t_start):
             err["conv2d_stream_fwd"] = max(
                 err["conv2d_stream_fwd"],
                 compare(f"stream fwd {tag}", got, want, **TOL))
-            sb = choose_stream_blocking(BATCH, spec.padded_hi,
-                                        spec.padded_wi, ci, co, 3, 3, s,
-                                        cob, cib)
-            wb = choose_blocking(spec.padded_hi, spec.padded_wi, ci, co, 3, 3,
-                                 s, cob=cob, cib=cib)
+            shape = (BATCH, spec.ho, spec.wo, 3, 3, s, ci // cib, cib,
+                     co // cob, cob)
+            sb = choose_stream_fwd_blocking(*shape)
+            wb = choose_fwd_blocking(*shape)
             same = torch.equal(got, win)
             diff = (got - win).abs().max().item()
             scale = want.abs().max().item()
-            print(f"[stream] fwd {tag}: band {sb.hob}x{sb.wob} hso "
-                  f"{sb.hso} ({sb.n_strips} strips) chunk {sb.chunk} ring "
-                  f"{sb.ring_rows}x{sb.ring_cols}; window tile "
-                  f"{wb.hob}x{wb.wob} chunk {wb.chunk}; vs window: "
+            print(f"[stream] fwd {tag}: band {sb.th}x{sb.tw} ({sb.strips} "
+                  f"strips of {sb.hso} rows) lanes {sb.lanes} x "
+                  f"{sb.nsplit} chunk {sb.chunk} window {sb.hwin}x{sb.wwin};"
+                  f" window tile {wb.th}x{wb.tw} ({wb.wgs} warpgroups) "
+                  f"lanes {wb.lanes} x {wb.nsplit} chunk {wb.chunk}; vs "
+                  "window: "
                   + ("bit for bit" if same else
                      f"max diff {diff:.3e} = {diff / scale:.2e} of max|y|"))
             if sb.chunk == wb.chunk and not same:
@@ -1515,8 +1563,8 @@ def stream_phases(args, dev, t_start):
                                                     "relu")),
                 time_ms(lambda: F.conv2d(xp, w_oihw, b.reshape(co),
                                          stride=s)),
-                *bound(flops, 4 * (x.numel() + w.numel() + b.numel()
-                                   + z.numel())))
+                *tf32x3_bound(flops, 4 * (x.numel() + w.numel() + b.numel()
+                                          + z.numel())))
             if ci != 3:
                 row["dgrad"] = (
                     *both(lambda: direct_conv2d_dgrad(
@@ -1550,10 +1598,26 @@ def stream_phases(args, dev, t_start):
     kinds = {kind: [] for kind in names}
     dg = {"macs": 0, "issued": 0, "f32": 0.0}
     wg = {"macs": 0, "issued": 0, "window_issued": 0, "f32": 0.0}
+    fw = {"macs": 0, "issued": 0, "window_issued": 0, "f32": 0.0}
     for lname, key in zip(LAYER_NAMES, layers):
         ci, co, s, h = key
-        v = rows[key]["wgrad"]
         x, w, z, g, _ = bwd_ops[key]
+        v = rows[key]["fwd"]
+        sblk, plan, macs = fwd_work(x, w, h, s, streamed=True)
+        _, wplan, _ = fwd_work(x, w, h, s, streamed=False)
+        fw["macs"] += macs
+        fw["issued"] += plan.issued_macs
+        fw["window_issued"] += wplan.issued_macs
+        fw["f32"] += v[8]
+        print(f"[stream-time] {lname} fwd tiles: stream "
+              f"{fwd_text(sblk, plan, macs, v[1])}; window {wplan.tiles} "
+              f"tiles, issued {wplan.issued_macs} (padding "
+              f"{100 * wplan.padding_share:.1f} %) (both plans the blocking "
+              f"model's); stream eager_ms {v[0]:.4f} graph_ms {v[1]:.4f}, "
+              f"window eager_ms {v[2]:.4f} graph_ms {v[3]:.4f}, library_ms "
+              f"{v[5]:.4f}; bound_ms {v[6]:.4f} (3xTF32), f32 FMA bound_ms "
+              f"{v[8]:.4f}")
+        v = rows[key]["wgrad"]
         plan, macs = wgrad_work(x, g, z, h, s, streamed=True)
         wplan, _ = wgrad_work(x, g, z, h, s, streamed=False)
         wg["macs"] += macs
@@ -1606,6 +1670,14 @@ def stream_phases(args, dev, t_start):
               f"{v[0]:.4f} stream_device_ms {v[1]:.4f} window_ms {v[2]:.4f} "
               f"window_device_ms {v[3]:.4f} plain_ms {v[4]:.4f} library_ms "
               f"{v[5]:.4f} bound_ms {v[6]:.4f} ({mostly(kinds[kind])})")
+    print(f"[stream-time] all {len(kinds['fwd'])} fwd tiles: function MACs "
+          f"{fw['macs']}, tensor-core MACs issued {fw['issued']} streamed "
+          f"(padding {100 * (1 - 3 * fw['macs'] / fw['issued']):.1f} %), "
+          f"{fw['window_issued']} window (padding "
+          f"{100 * (1 - 3 * fw['macs'] / fw['window_issued']):.1f} %); "
+          f"stream graph_ms {sums['fwd'][1]:.4f}, window graph_ms "
+          f"{sums['fwd'][3]:.4f}, library_ms {sums['fwd'][5]:.4f}; bound_ms "
+          f"{sums['fwd'][6]:.4f} (3xTF32), f32 FMA bound_ms {fw['f32']:.4f}")
     print(f"[stream-time] all {len(kinds['dgrad'])} dgrad phases: function "
           f"MACs by phase {dg['macs']}, tensor-core MACs issued "
           f"{dg['issued']} (padding "
@@ -1658,8 +1730,9 @@ def stream_phases(args, dev, t_start):
     entries = []
     for kind, name in names.items():
         v = sums[kind]
+        label = f"{name} (stream_fwd_kernel)" if kind == "fwd" else name
         entries.append({
-            "name": name, "route": "cuda", "source": STREAM_SOURCE,
+            "name": label, "route": "cuda", "source": STREAM_SOURCE,
             "replaces": tpu[name], "launches": served[name] + trained[name],
             "max_abs_err": err[name], "ms": v[0], "plain_ms": v[4],
             "bound_ms": v[6], "bound_by": mostly(kinds[kind]),
@@ -2378,7 +2451,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers
     from repro_torch.core import conv2d_common
-    from repro_torch.core.blocking import choose_blocking
+    from repro_torch.core.blocking import choose_fwd_blocking
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.blocking import (choose_dgrad_blocking,
                                            choose_wgrad_blocking)
@@ -2438,12 +2511,14 @@ def main(argv=None) -> int:
     # the phase-split dgrads and the wgrads: tensor-core instructions and no
     # spills in every compiled instance (the main paths take lanes 64 and
     # 128)
-    tiles_of = (DGRAD_KERNELS, WGRAD_KERNELS, PW_TILE_KERNELS)
+    tiles_of = (DGRAD_KERNELS, WGRAD_KERNELS, PW_TILE_KERNELS,
+                FWD_TILE_KERNELS)
     sass = {res.name: hgmma_counts(res.path) for res in built
             if any(res.name in tiles for tiles in tiles_of)}
     for res, kernel in [(res, tiles[res.name]) for res in built
                         for tiles in tiles_of if res.name in tiles]:
-        # the wgrads and the pointwise tile must hold HGMMA (wgmma)
+        # the wgrads, the pointwise tile and the forward tiles must hold
+        # HGMMA (wgmma)
         wgrad = kernel not in DGRAD_KERNELS.values()
         ptx = {fn: v for fn, v in ptxas_report(res.log).items()
                if kernel in fn and (wgrad or "wgrad" not in fn)}
@@ -2516,11 +2591,10 @@ def main(argv=None) -> int:
         # the partial sums the last VGG-16 conv hands to the GAP finalize
         ci, co, s, h = layers[-1]
         spec = ConvSpec.make(BATCH, h, h, ci, co, 3, 3, s, "SAME")
-        cob = min(co, 128)
-        blk = choose_blocking(spec.padded_hi, spec.padded_wi, ci, co, 3, 3,
-                              s, cob=cob, cib=min(ci, 128), gap=True)
-        gap_shape = (BATCH, co // cob,
-                     (spec.ho // blk.hob) * (spec.wo // blk.wob), cob)
+        cob, cib = min(co, 128), min(ci, 128)
+        blk = choose_fwd_blocking(BATCH, spec.ho, spec.wo, 3, 3, s,
+                                  ci // cib, cib, co // cob, cob, gap=True)
+        gap_shape = (BATCH, co // cob, blk.tiles, cob)
         gap_hw = spec.ho * spec.wo
         parts = torch.randn(gap_shape, device=dev, generator=gen)
         max_err["gap_finalize"] = compare(
@@ -2607,23 +2681,35 @@ def main(argv=None) -> int:
             w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
                       .contiguous())
             b_flat = b.reshape(co)
-            k_ms = time_ms(lambda: direct_conv2d_blocked(
-                x, w, b, s, "SAME", "relu"))
+            def fwd():
+                return direct_conv2d_blocked(x, w, b, s, "SAME", "relu")
+            k_ms = time_ms(fwd)
             p_ms = time_ms(lambda: direct_conv_blocked(
                 x, w, s, "SAME", b, "relu"))
             l_ms = time_ms(lambda: F.conv2d(xp, w_oihw, b_flat, stride=s))
             nbytes = 4 * (x.numel() + w.numel() + b.numel()
                           + BATCH * co * spec.ho * spec.wo)
-            b_ms, b_by = bound(spec.flops(), nbytes)
-            timed[(ci, co, s, h)] = (k_ms, p_ms, l_ms, b_ms, b_by)
+            b_ms, b_by, f32_ms = tf32x3_bound(spec.flops(), nbytes)
+            timed[(ci, co, s, h)] = (k_ms, p_ms, l_ms, b_ms, b_by,
+                                     graph_ms(fwd), f32_ms,
+                                     fwd_work(x, w, h, s, False))
+        fw_sum = {"graph": 0.0, "f32": 0.0, "macs": 0, "issued": 0}
         for name, key in zip(LAYER_NAMES, layers):
-            k_ms, p_ms, l_ms, b_ms, b_by = timed[key]
+            k_ms, p_ms, l_ms, b_ms, b_by, g_ms, f32_ms, work = timed[key]
             ci, co, s, h = key
             rows.append((k_ms, p_ms, l_ms, b_ms, b_by))
+            fblk, plan, macs = work
+            fw_sum["graph"] += g_ms
+            fw_sum["f32"] += f32_ms
+            fw_sum["macs"] += macs
+            fw_sum["issued"] += plan.issued_macs
             print(f"[layer] {name} {ci}->{co} in {h}x{h} s{s} n{BATCH}: "
-                  f"kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
-                  f"{l_ms:.4f} launches/forward 1 bound_ms {b_ms:.4f} "
-                  f"({b_by}) bound/kernel {b_ms / k_ms:.3f}")
+                  f"kernel_ms {k_ms:.4f} graph_ms {g_ms:.4f} plain_ms "
+                  f"{p_ms:.4f} library_ms {l_ms:.4f} launches/forward 1 "
+                  f"bound_ms {b_ms:.4f} ({b_by}, 3xTF32), f32 FMA bound_ms "
+                  f"{f32_ms:.4f}, bound/kernel {b_ms / k_ms:.3f}")
+            print(f"[layer] {name} fwd tiles: "
+                  f"{fwd_text(fblk, plan, macs, g_ms)}")
         parts = torch.randn(gap_shape, device=dev, generator=gen)
         g_ms = time_ms(lambda: gap_finalize(parts, gap_hw), iters=50)
         gp_ms = time_ms(lambda: conv2d_common.gap_finalize(parts, gap_hw),
@@ -2635,9 +2721,12 @@ def main(argv=None) -> int:
         g_bound, g_by = bound(parts.numel(), 4 * (parts.numel() + pooled))
     tot = [sum(r[i] for r in rows) for i in range(4)]
     conv_by = mostly([(r[3], r[4]) for r in rows])
-    print(f"[layer] all 13 convs: kernel_ms {tot[0]:.4f} plain_ms "
-          f"{tot[1]:.4f} library_ms {tot[2]:.4f} bound_ms {tot[3]:.4f} "
-          f"({conv_by})")
+    print(f"[layer] all 13 convs: kernel_ms {tot[0]:.4f} graph_ms "
+          f"{fw_sum['graph']:.4f} plain_ms {tot[1]:.4f} library_ms "
+          f"{tot[2]:.4f} bound_ms {tot[3]:.4f} ({conv_by}, 3xTF32), f32 FMA "
+          f"bound_ms {fw_sum['f32']:.4f}; function MACs {fw_sum['macs']}, "
+          f"tensor-core MACs issued {fw_sum['issued']} (padding "
+          f"{100 * (1 - 3 * fw_sum['macs'] / fw_sum['issued']):.1f} %)")
     print(f"[layer] gap_finalize {list(gap_shape)} hw={gap_hw}: kernel_ms "
           f"{g_ms:.4f} plain_ms {gp_ms:.4f} library_ms {gl_ms:.4f} "
           f"(torch.mean over the tiles) bound_ms {g_bound:.6f} ({g_by})")
@@ -2914,7 +3003,7 @@ def main(argv=None) -> int:
           f"MobileNet v1 served and trained {mb_counts}; VGG-16 on the "
           f"streamed route served and trained {st_counts}")
     kernels = [
-        {"name": "direct_conv2d_fwd", "route": "cuda",
+        {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
          "launches": launches["direct_conv2d_fwd"],
          "max_abs_err": max_err["direct_conv2d_fwd"], "ms": tot[0],

@@ -1,30 +1,38 @@
-"""Analytical blocking model of the direct-conv kernels, fitted to one Hopper CTA.
+"""Analytical blocking models of the direct-conv kernels, fitted to one Hopper CTA.
 
 The reference (``repro/core/blocking.py``) fits a Pallas grid step against
-TPU VMEM.  On the H100 the scarce resources of one CTA are different:
+TPU VMEM.  On the H100 the scarce resources of one CTA are different: its
+shared memory (up to 227 KB, ``MachineModel.smem_block``, above 48 KB only
+after ``cudaFuncSetAttribute``, which the kernels' C entries set), its
+registers (a thread of a 512-thread CTA holds at most 128: one consumer's
+m64n128 f32 accumulator and its operands), and enough CTAs to fill the
+card's 132 SMs.
 
-* the **register tile**: each of the kernel's ``threads`` threads keeps an
-  f32 accumulator of ``positions`` output positions x ``lanes`` output
-  channels, so one CTA holds at most
-  ``(threads // ceil(Cob / lanes)) * positions`` output positions of a
-  ``Cob`` pencil;
-* **shared memory**: per step of the Ci loop the CTA stages the halo'd
-  input window ``[Hib, Wib, chunk]`` and the weight chunk ``[Hf, Wf, chunk,
-  Cob]`` (f32), where ``chunk`` divides the ``Cib`` pencil.  An H100 block
-  may use up to 227 KB, above 48 KB only after ``cudaFuncSetAttribute``
-  (the kernel's C entry point sets it per launch).  The budget below is
-  96 KB so that two CTAs share one SM, as the kernel's launch bound
-  (two CTAs of 256 threads, at most 128 registers each) asks.
+The dense family's kernels are tensor-core tiles, each chosen by a cost
+model of the busiest SM's cycles over the candidates that fit:
 
-Every chooser is a pure function of its arguments and is cached by them,
-so a layer pays for its search once, not at every launch.
+* **forward** (``choose_fwd_blocking``, ``choose_stream_fwd_blocking``)
+  tiles the dense forward of ``csrc/fwd_tile.cuh``: an implicit GEMM whose
+  rows are a tile of output positions of one image in 64-row m-tiles, one
+  to three consumer warpgroups a CTA, whose columns are an output block's
+  lanes (or half of them), and whose K walks (input block, chunk, tap)
+  through a two-stage ring (see its section below);
+* **dgrad** (``choose_dgrad_blocking``, ``choose_stream_dgrad_blocking``)
+  tiles the phase-split tensor-core dgrad of ``csrc/dgrad_tile.cuh``: dx is
+  split by its phase against the stride (``dgrad_phase_axes``), and a CTA
+  of one to three warpgroups owns a tile of one phase, 64-row wgmma tiles
+  of its positions by all Cib lanes, contracting (reachable tap, Cob) a
+  ``chunk`` at a time through a two-stage ring;
+* **wgrad** (``choose_wgrad_blocking``, ``choose_stream_wgrad_blocking``)
+  tiles the tensor-core wgrad of ``csrc/wgrad_tile.cuh``: an implicit GEMM
+  whose rows are the (tap, c) pairs in 64-row m-tiles, whose columns are
+  Cob and whose K runs over output positions; a CTA of one to three
+  consumer warpgroups shares each staged tile among its m-tiles and walks
+  a share of the position tiles, and the shares' partial sums go to a
+  workspace that a second pass reduces in split order.
 
-The reference's rules are kept: ``hob``/``wob`` divide ``Ho``/``Wo`` (so a
-tile never straddles the map's edge) and the tile shrinks rows first, then
-columns.  Where the reference halves a dim until it fits, this model takes
-the largest divisor that fits, which is never smaller.  ``MachineModel``'s
-``threads``/``lanes``/``positions`` must equal the compiled kernels'
-constants; the kernel wrappers check them against the built libraries.
+The streamed (halo-ring) kernels of ``csrc/conv2d_stream.cu`` run the same
+tiles over bands of strips (their section below).
 
 The separable family has choosers of its own: ``choose_pointwise_blocking``
 (the forward's tensor-core tile of ``csrc/conv2d_pointwise.cu``, by a cost
@@ -33,30 +41,15 @@ model like the dgrad's; the pointwise dgrad is the dense dgrad at 1x1),
 ``choose_depthwise_blocking`` (the forward's items of
 ``csrc/conv2d_depthwise.cu``, walked by a persistent grid),
 ``choose_depthwise_dgrad_blocking`` and ``choose_depthwise_wgrad_blocking``.
-Each sizes its tiles so that the grid fills the card where the map allows
-it (``MachineModel.wave``), and the wgrads split their position reductions
-as the dense wgrad does.
+The last four fit the FMA kernels' CTA of ``MachineModel.threads`` threads
+and ``lanes x positions`` register tiles in ``smem_budget`` bytes, two
+CTAs an SM; each sizes its tiles so that the grid fills the card where the
+map allows it (``MachineModel.wave``), and the wgrads split their position
+reductions as the dense wgrad does.
 
-The streamed (halo-ring) kernels of ``csrc/conv2d_stream.cu`` have choosers
-of their own (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
-``choose_stream_wgrad_blocking``; see their section below).  Every chooser
-raises ``SmemMisfitError`` when nothing fits.
-
-The backward kernels reuse the vocabulary:
-
-* **dgrad** (``choose_dgrad_blocking``, ``choose_stream_dgrad_blocking``)
-  tiles the phase-split tensor-core dgrad of ``csrc/dgrad_tile.cuh``: dx is
-  split by its phase against the stride (``dgrad_phase_axes``), and a CTA
-  of one or two warpgroups owns a tile of one phase, 64-row wgmma tiles of
-  its positions by all Cib lanes, contracting (reachable tap, Cob) a
-  ``chunk`` at a time through a two-stage ring (see its section below);
-* **wgrad** (``choose_wgrad_blocking``, ``choose_stream_wgrad_blocking``)
-  tiles the tensor-core wgrad of ``csrc/wgrad_tile.cuh``: an implicit GEMM
-  whose rows are the (tap, c) pairs in 64-row m-tiles, whose columns are
-  Cob and whose K runs over output positions; a CTA of one to three
-  consumer warpgroups shares each staged tile among its m-tiles and walks
-  a share of the position tiles, and the shares' partial sums go to a
-  workspace that a second pass reduces in split order.
+Every chooser is a pure function of its arguments and is cached by them,
+so a layer pays for its search once, not at every launch, and every
+chooser raises ``SmemMisfitError`` when nothing fits.
 """
 from __future__ import annotations
 
@@ -67,9 +60,11 @@ from repro_torch.core.conv2d_common import halo_dims
 from repro_torch.core.errors import TransientError
 from repro_torch.core.layout import divisors
 
-__all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
-           "tile_positions",
-           "smem_bytes", "choose_blocking", "dgrad_extents", "dgrad_window",
+__all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
+           "FWD_ROWS", "FWD_CONSUMERS", "FWD_THREADS", "FWD_WIDE_CONSUMERS",
+           "FwdBlocking",
+           "fwd_smem_bytes", "FwdPlan", "fwd_plan", "fwd_candidates",
+           "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
            "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
            "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
            "dgrad_smem_bytes", "dgrad_tiles", "DgradPlan", "dgrad_plan",
@@ -90,10 +85,7 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM", "Blocking",
            "choose_depthwise_blocking", "choose_depthwise_dgrad_blocking",
            "DepthwiseWgradBlocking",
            "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking",
-           "STREAM_STRIPS", "StreamBlocking", "stream_ring_rows",
-           "stream_gap_floats",
-           "stream_smem_bytes",
-           "choose_stream_blocking", "choose_stream_dgrad_blocking",
+           "choose_stream_fwd_blocking", "choose_stream_dgrad_blocking",
            "choose_stream_wgrad_blocking"]
 
 
@@ -109,14 +101,17 @@ class SmemMisfitError(TransientError, ValueError):
 @dataclasses.dataclass(frozen=True)
 class MachineModel:
     name: str
-    threads: int          # threads per CTA (the kernel's kThreads)
-    lanes: int            # output channels in one thread's register tile
-    positions: int        # output positions in one thread's register tile
-    smem_budget: int      # shared-memory bytes one CTA may stage
+    # the FMA kernels (depthwise, pointwise wgrad): threads per CTA
+    # (kThreads), a thread's register tile of lanes x positions, the shared
+    # memory one CTA may stage at two CTAs an SM
+    threads: int
+    lanes: int
+    positions: int
+    smem_budget: int
     sms: int = 132        # streaming multiprocessors
-    ctas_per_sm: int = 2  # resident CTAs the kernels' launch bounds ask for
+    ctas_per_sm: int = 2  # resident CTAs the FMA kernels' launch bounds ask
     # the most one CTA may use at one CTA an SM (the H100's 227 KB): the
-    # tensor-core dgrad's budget
+    # tensor-core tiles' budget
     smem_block: int = 232448
 
     @property
@@ -130,89 +125,254 @@ H100_SXM = MachineModel(
     smem_budget=96 * 1024, sms=132, ctas_per_sm=2)
 
 
+# ---------------------------------------------------------------------------
+# forward: the dense forward tile (csrc/fwd_tile.cuh)
+# ---------------------------------------------------------------------------
+
+# An implicit GEMM in 3xTF32 whose rows are a tile of th x tw output
+# positions of one image (FWD_ROWS a consumer warpgroup, one to three of
+# them: FWD_CONSUMERS), whose columns are an output block's lanes padded to
+# a compiled wgmma width (or half of them, `nsplit` 2), and whose K walks
+# (input block, chunk of channels, tap) a `chunk` a stage through a
+# two-slot ring that a producer warpgroup fills a stage ahead (the weight
+# block by TMA, the window by cp.async), writing the weight chunk
+# transposed in core-matrix order.  At 128 lanes a CTA has two consumers
+# at most (FWD_WIDE_CONSUMERS: a consumer's running sum beside its stage
+# accumulator).  The window
+# kernel's tile is one m-tile of 64 * wgs rows; the streamed kernel's band
+# is `strips = wgs` strips of hso x tw positions, one warpgroup's m-tile
+# each, whose rows arrive strip by strip.  The search (`fwd_candidates`)
+# weighs each consumer count, tile width and lane split with the largest
+# chunk whose shared memory fits one CTA (``machine.smem_block``): the
+# busiest SM's CTAs in rounds of the CTAs it holds at once, each CTA's
+# stages the longer of the consumers' side (its three-product wgmmas at
+# DGRAD_MACS_PER_CYCLE over the share FWD_WG_EFFICIENCY of it that the SM's
+# resident consumer warpgroups keep busy, so empty rows cost what full ones
+# do, and a warpgroup's A loads and issue per k8 step) and the producer's
+# stage (a fixed part, its copies and its weight split a thread), and a
+# CTA's prologue and epilogue.  The constants were fitted (least squares on
+# the log of the time) to the timings of 441 candidates at VGG-16's 13
+# layers, both routes, by `python -m repro_torch.launch.fwd_tiles_ab` on an
+# H100 80GB HBM3 at 700 W; they are a fit, not a description of the card
+# (two consumer warpgroups then keep the rate no worse than one).
+# tests/test_torch_fwd_tiles.py pins the tiles chosen there, so a change
+# here that moves one shows.
+FWD_ROWS = 64
+FWD_CONSUMERS = 3
+FWD_THREADS = 128 * (FWD_CONSUMERS + 1)     # the largest CTA (kMaxThreads)
+# at 128 lanes a consumer's running sum and stage accumulator take 96
+# registers: two consumers at most (kWideConsumers)
+FWD_WIDE_CONSUMERS = 2
+FWD_WG_EFFICIENCY = {1: 1.0, 2: 1.0, 3: 0.47}
+FWD_STEP_CYCLES = 180       # a warpgroup's A load, split and issue a k8 step
+FWD_STAGE_CYCLES = 5600     # a stage's copy latency past the ring, barriers
+FWD_COPY_CYCLES = 200       # one cp.async of a producer thread
+FWD_SPLIT_CYCLES = 5.5      # a weight transposed and split into halves
+FWD_TILE_CYCLES = 8100      # a CTA's first stage and its epilogue
+# the shared memory of one SM (228 KB), which two small CTAs may share
+FWD_SM_SMEM = 233472
+
+
 @dataclasses.dataclass(frozen=True)
-class Blocking:
-    """Launch parameters of one forward conv."""
-    cob: int     # output-channel pencil (one CTA's channel block)
-    cib: int     # input-channel pencil (one step of the CTA's Ci loop)
-    hob: int     # output rows per CTA tile
-    wob: int     # output cols per CTA tile
-    chunk: int   # input channels staged in shared memory at once
+class FwdBlocking:
+    """Launch parameters of one dense forward.  A CTA of ``wgs`` consumer
+    warpgroups (and a producer) owns ``th x tw`` output positions of one
+    image (``tiles`` an image, the map's last ones overhanging it) by
+    ``lanes`` output lanes (an output block splits into ``nsplit`` CTAs),
+    and contracts ``chunk`` input channels (a power of two) a stage over a
+    ``hwin x wwin`` input window.  The window kernel's tile is one m-tile of ``64 * wgs``
+    rows (``strips`` 1); the streamed kernel's band ``strips = wgs`` strips
+    of ``hso`` rows, one warpgroup's m-tile each."""
+    th: int
+    tw: int
+    wgs: int
+    strips: int
+    lanes: int
+    nsplit: int
+    chunk: int
+    tiles: int
+    hwin: int
+    wwin: int
+
+    @property
+    def hso(self) -> int:
+        return self.th // self.strips
+
+    @property
+    def mstride(self) -> int:
+        return FWD_ROWS * self.wgs if self.strips == 1 else self.hso * self.tw
 
 
-def tile_positions(cob: int, machine: MachineModel) -> int:
-    """Output positions one CTA's register tile holds for a ``cob`` pencil."""
-    groups = -(-cob // machine.lanes)
-    if groups > machine.threads:
+def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
+                   chunk: int, lanes: int, wgs: int,
+                   gap: bool = False) -> int:
+    """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``):
+    128 bytes to align the base; per slot of the two-slot ring the input
+    window (``hwin`` rows of ``wwin`` cells of ``chunk + 4`` floats, the
+    columns of each stride phase together, rounded up to 128 bytes) and the
+    weight chunk's big and small halves ``[taps * chunk / 4][lanes][4]``;
+    the raw weight chunk; an int a k8 step (an even count); the weights'
+    8-byte mbarrier; with ``gap`` the consumer warps' ``[4 * wgs][lanes]``
+    sums."""
+    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    row = stride * -(-wwin // stride) * (chunk + 4)
+    window = -(-hwin * row // 32) * 32
+    weights = hf * wf * chunk * lanes
+    steps = hf * wf * chunk // 8
+    return 128 + 8 + 4 * (2 * (window + 2 * weights) + weights
+                          + -(-steps // 2) * 2
+                          + (4 * wgs * lanes if gap else 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """What one forward launch runs (``fwd_tile::plan`` is its C++ twin):
+    ``tiles``, an image's tiles; ``function_macs``, positions x taps x Ci
+    x Co; ``issued_macs``, the tensor-core MACs: every CTA's ``64 * wgs``
+    rows by ``lanes`` over every tap and Cib padded to k8 slices, three
+    products each; ``smem``, a CTA's dynamic shared memory."""
+    tiles: int
+    function_macs: int
+    issued_macs: int
+    smem: int
+
+    @property
+    def padding_share(self) -> float:
+        """The share of the issued MACs that are no product of a function
+        MAC: m-tile rows past the tile or the map, lanes past Cob, channels
+        past Cib."""
+        if not self.issued_macs:
+            return 0.0
+        return 1 - 3 * self.function_macs / self.issued_macs
+
+
+def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
+             stride: int, ciblk: int, cib: int, coblk: int, cob: int,
+             gap: bool = False) -> FwdPlan:
+    """What a launch of the tiles ``blk`` runs over ``n`` images of an ``ho
+    x wo`` output."""
+    kpad = -(-cib // 8) * 8
+    return FwdPlan(
+        tiles=blk.tiles,
+        function_macs=n * ho * wo * hf * wf * ciblk * cib * coblk * cob,
+        issued_macs=(3 * n * blk.tiles * coblk * blk.nsplit * FWD_ROWS
+                     * blk.wgs * blk.lanes * hf * wf * ciblk * kpad),
+        smem=fwd_smem_bytes(blk.th, blk.tw, hf, wf, stride, blk.chunk,
+                            blk.lanes, blk.wgs, gap))
+
+
+def _fwd_shapes(ho: int, wo: int, wgs: int, streamed: bool,
+                hso: int | None):
+    """The tile shapes the search weighs for ``wgs`` consumers, as ``(th,
+    tw)``: for each width, the tallest tile (or band of strips) its m-tiles
+    hold, balanced over the map's rows."""
+    out = []
+    rows = FWD_ROWS * wgs
+    for tw in range(1, min(wo, FWD_ROWS if streamed else rows) + 1):
+        if streamed:                     # wgs strips of sh rows
+            sh = hso if hso is not None else min(-(-ho // wgs),
+                                                 FWD_ROWS // tw)
+            if sh < 1 or sh * tw > FWD_ROWS:
+                continue
+            if hso is None:              # balance the bands over the rows
+                sh = -(-ho // (wgs * -(-ho // (wgs * sh))))
+            out.append((wgs * sh, tw))
+        else:
+            th = min(ho, rows // tw)
+            if th >= 1:
+                out.append((-(-ho // -(-ho // th)), tw))
+    return out
+
+
+def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
+                   ciblk: int, cib: int, coblk: int, cob: int,
+                   machine: MachineModel, gap: bool, streamed: bool,
+                   hso: int | None = None):
+    """The tiles the search weighs, each as ``(key, FwdBlocking)``, the
+    least key the choice (see the constants above); ties go to more rows a
+    CTA, a larger chunk, fewer splits, fewer tiles, then a smaller
+    window."""
+    kpad = -(-cib // 8) * 8
+    # powers of two: a staged cell's copies then divide the producer's 128
+    # threads
+    chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0]
+    taps = hf * wf
+    out = []
+    for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
+        rows = FWD_ROWS * wgs
+        for th, tw in _fwd_shapes(ho, wo, wgs, streamed, hso):
+            if not streamed and th * tw <= FWD_ROWS * (wgs - 1):
+                continue                  # a consumer with no row of its own
+            hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+            tiles = -(-ho // th) * -(-wo // tw)
+            for nsplit in (1, 2):
+                if nsplit > 1 and cob <= DGRAD_LANES[0]:
+                    continue
+                lanes = next((n_ for n_ in DGRAD_LANES
+                              if -(-cob // nsplit) <= n_), None)
+                if lanes is None or (nsplit - 1) * lanes >= cob or (
+                        lanes == DGRAD_LANES[-1]
+                        and wgs > FWD_WIDE_CONSUMERS):
+                    continue
+                fits = [(c, fwd_smem_bytes(th, tw, hf, wf, stride, c, lanes,
+                                           wgs, gap)) for c in chunks]
+                chunk, smem = next(((c, b) for c, b in fits
+                                    if b <= machine.smem_block),
+                                   (None, None))
+                if chunk is None:
+                    continue
+                res = 2 if wgs == 1 and 2 * smem <= FWD_SM_SMEM else 1
+                ctas = n * tiles * coblk * nsplit
+                stages = ciblk * kpad // chunk
+                mma = (3 * res * rows * taps * chunk * lanes
+                       / DGRAD_MACS_PER_CYCLE
+                       / FWD_WG_EFFICIENCY[min(FWD_CONSUMERS, wgs * res)]
+                       + FWD_STEP_CYCLES * taps * chunk // 8)
+                copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
+                          + taps * chunk * lanes / (4 if cob % 4 == 0
+                                                    else 1))
+                other = FWD_STAGE_CYCLES + (
+                    FWD_COPY_CYCLES * copies
+                    + FWD_SPLIT_CYCLES * taps * chunk * lanes) / 128
+                rounds = -(-(-(-ctas // machine.sms)) // res)
+                cost = rounds * (stages * max(mma, other) + FWD_TILE_CYCLES)
+                out.append(((cost, -rows, -chunk, nsplit, tiles,
+                             hwin * wwin),
+                            FwdBlocking(th=th, tw=tw, wgs=wgs,
+                                        strips=wgs if streamed else 1,
+                                        lanes=lanes, nsplit=nsplit,
+                                        chunk=chunk, tiles=tiles, hwin=hwin,
+                                        wwin=wwin)))
+    return out
+
+
+def _fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
+                  ciblk: int, cib: int, coblk: int, cob: int,
+                  machine: MachineModel, gap: bool, streamed: bool,
+                  hso: int | None, what: str) -> FwdBlocking:
+    """The least-cost tile of ``fwd_candidates``."""
+    if ho <= 0 or wo <= 0 or n <= 0:
+        raise ValueError(f"empty forward: n={n}, output {ho}x{wo}")
+    found = fwd_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                           cob, machine, gap, streamed, hso)
+    if not found:
         raise SmemMisfitError(
-            f"cob={cob} needs {groups} channel groups; a CTA has "
-            f"{machine.threads} threads")
-    return (machine.threads // groups) * machine.positions
-
-
-def smem_bytes(hob: int, wob: int, chunk: int, cob: int, hf: int, wf: int,
-               stride: int, machine: MachineModel, gap: bool = False) -> int:
-    """Dynamic shared memory of one CTA: the staged f32 window and weight
-    chunk; with ``gap`` at least the f32 ``[position groups, Cob]`` scratch
-    of the pooled partial sums (it reuses the staging buffer)."""
-    hib, wib = halo_dims(hob, wob, hf, wf, stride)
-    stage = (hib * wib * chunk + hf * wf * chunk * cob) * 4
-    if gap:
-        groups = -(-cob // machine.lanes)
-        stage = max(stage, (machine.threads // groups) * cob * 4)
-    return stage
-
-
-def _fit_tile(ho: int, wo: int, cap: int, pencil: int, stage, budget: int,
-              what: str):
-    """The largest ``(h, w)`` tile of an ``ho x wo`` grid (rows first, then
-    columns; divisors only) that fits ``cap`` register-tile positions and
-    ``stage(h, w, chunk=1) <= budget`` bytes, then the largest ``chunk``
-    dividing ``pencil`` that still fits.  -> ``(h, w, chunk)``."""
-
-    def fits(h: int, w: int, chunk: int = 1) -> bool:
-        return h * w <= cap and stage(h, w, chunk) <= budget
-
-    def largest_fitting(extent: int, fit) -> int | None:
-        return next((d for d in reversed(divisors(extent)) if fit(d)), None)
-
-    h, w = largest_fitting(ho, lambda d: fits(d, wo)), wo
-    if h is None:                       # one row still too wide: tile columns
-        h, w = 1, largest_fitting(wo, lambda d: fits(1, d))
-    if w is None:
-        raise SmemMisfitError(
-            f"no tile fits the {what}: needs more than {budget} bytes of "
-            f"shared memory or {cap} register-tile positions even at 1x1")
-    return h, w, largest_fitting(pencil, lambda c: fits(h, w, c))
+            f"no {what} fits the forward (filter {hf}x{wf}, stride {stride},"
+            f" cib={cib}, cob={cob}): needs more than {machine.smem_block} "
+            "bytes of shared memory even at one position")
+    return min(found, key=lambda kb: kb[0])[1]
 
 
 @functools.lru_cache(maxsize=4096)
-def choose_blocking(hi: int, wi: int, ci: int, co: int, hf: int, wf: int,
-                    stride: int, cob: int, cib: int,
-                    machine: MachineModel = H100_SXM,
-                    gap: bool = False) -> Blocking:
-    """Pick (Hob, Wob, chunk) for a VALID conv over a padded ``hi x wi``
-    input (the kernel masks the pads instead of copying), with the channel
-    pencils ``cob``/``cib`` of the operands' layout.
-
-    The tile is the whole map if it fits the register tile and shared
-    memory; else the largest row count that divides ``Ho`` and fits; else
-    (at one row) the largest column count that divides ``Wo``.  ``chunk``
-    is then the largest divisor of ``cib`` whose staging fits the budget.
-    """
-    ho = (hi - hf) // stride + 1
-    wo = (wi - wf) // stride + 1
-    if ho <= 0 or wo <= 0:
-        raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
-    if co % cob or ci % cib:
-        raise ValueError(f"pencils cob={cob}/cib={cib} must divide "
-                         f"co={co}/ci={ci}")
-    h, w, chunk = _fit_tile(
-        ho, wo, tile_positions(cob, machine), cib,
-        lambda h, w, c: smem_bytes(h, w, c, cob, hf, wf, stride, machine, gap),
-        machine.smem_budget,
-        f"forward conv (filter {hf}x{wf}, stride {stride}, cob={cob})")
-    return Blocking(cob=cob, cib=cib, hob=h, wob=w, chunk=chunk)
+def choose_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
+                        stride: int, ciblk: int, cib: int, coblk: int,
+                        cob: int, machine: MachineModel = H100_SXM,
+                        gap: bool = False) -> FwdBlocking:
+    """Tile the window forward of ``n`` images into an ``ho x wo`` output
+    (``fwd_candidates``): a CTA stages the whole input window of its tile a
+    stage; ``cib``/``cob`` are the operands' channel pencils."""
+    return _fwd_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                         machine, gap, False, None, "tile")
 
 
 # ---------------------------------------------------------------------------
@@ -1216,19 +1376,13 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
 # streamed (halo-ring) kernels: csrc/conv2d_stream.cu
 # ---------------------------------------------------------------------------
 #
-# The streamed forward keeps the window forward's register tile
-# (``positions x lanes`` f32 sums a thread), so one CTA owns a *band* of at
-# most ``tile_positions`` output positions, ``hob x wob``.  Per channel
-# chunk the band's input rows reach shared memory as strips of ``hso``
-# output rows through a circular row buffer of ``ring_rows`` rows, filled by
-# ``cp.async``: the rows of strip k+1 are in flight while strip k's taps run,
-# and the ``Hf - stride`` halo rows shared by two strips are copied from
-# device memory once per chunk.  The ring holds the rows of two consecutive
-# strips: those of a window of ``2 * hso`` output rows (or of the band, when
-# it is one strip).  The weight chunk is staged once per chunk.
+# The streamed forward is the dense forward tile (above), streamed: its band
+# is two or three strips of ``hso`` output rows, each strip one warpgroup's
+# m-tile, and a stage's input rows arrive strip by strip, each halo row
+# once (``choose_stream_fwd_blocking``).
 #
 # The streamed dgrad is the phase-split tensor-core tile of the window
-# dgrad (above), streamed: its band is one or two strips of ``hso`` phase
+# dgrad (above), streamed: its band is two or three strips of ``hso`` phase
 # rows, each strip one m-tile, and a stage's cotangent rows arrive strip by
 # strip (``choose_stream_dgrad_blocking``).
 #
@@ -1242,144 +1396,23 @@ def _round4(n: int) -> int:
     return -(-n // 4) * 4
 
 
-# strip counts a streamed band is compiled for (csrc/conv2d_stream.cu
-# kStrips): strip k of a band owns slots [k * 8 / n, (k + 1) * 8 / n) of a
-# thread's register tile
-STREAM_STRIPS = (1, 2)
-
-
-def stream_ring_rows(hob: int, hso: int, hf: int, stride: int) -> int:
-    """Rows of the circular buffer: the input rows that feed ``min(2 *
-    hso, hob)`` output rows of the band."""
-    return (min(2 * hso, hob) - 1) * stride + hf
-
-
-@dataclasses.dataclass(frozen=True)
-class StreamBlocking:
-    """Launch parameters of the streamed forward: a ``hob x wob`` band of
-    the output per CTA, streamed as ``n_strips`` strips of ``hso`` rows
-    through a ring of ``ring_rows x ring_cols`` cells of ``chunk``
-    channels; the staged weight rows are ``ldw`` floats apart."""
-    hob: int
-    wob: int
-    hso: int
-    chunk: int
-    ring_rows: int
-    ring_cols: int
-    ldw: int
-
-    @property
-    def n_strips(self) -> int:
-        return self.hob // self.hso
-
-
-def stream_gap_floats(cob: int, machine: MachineModel) -> int:
-    """The forward's GAP partial sums, ``[position groups, Cob]`` f32."""
-    return machine.threads // -(-cob // machine.lanes) * cob
-
-
-def stream_smem_bytes(ring_rows: int, ring_cols: int, chunk: int, ldw: int,
-                      hf: int, wf: int, gap_floats: int = 0) -> int:
-    """Dynamic shared memory of one streamed forward CTA, in the kernel's
-    layout: the weight chunk ``[Hf*Wf, chunk, ldw]`` and the ring
-    ``[ring_rows, ring_cols, chunk]``, each rounded up to 16 bytes.  The
-    GAP partial sums (``gap_floats``) reuse the buffer."""
-    floats = (_round4(hf * wf * chunk * ldw)
-              + _round4(ring_rows * ring_cols * chunk))
-    return 4 * max(floats, gap_floats)
-
-
-def _stream_band(n_oblk: int, oh: int, ow: int, lanes: int, pencil: int,
-                 machine: MachineModel, hso: int | None, smem, what: str):
-    """Pick a band ``(hob, wob, hso, chunk)`` of an ``oh x ow`` grid.
-
-    Bands divide the grid and fit the register tile; a band is one or two
-    strips (``STREAM_STRIPS``), so ``hso`` is ``hob`` or ``hob / 2`` (or
-    pinned); ``chunk`` is the largest divisor of ``pencil`` whose ``smem(
-    hob, wob, hso, chunk)`` fits the budget.  A band that fills less than
-    half the register tile wastes the FMAs' operand reads (on the H100 a
-    streamed forward at 2 of 8 slots a thread ran 4x slower than at 7), so
-    bands at least half the tile come first, where the map has them; among
-    those, the fullest whose grid ``n_oblk * bands`` fills the card
-    (``machine.wave``), else the one with the most CTAs; ties to two strips
-    (the ring then has a next strip to copy while one computes) and then
-    to the wider band."""
-    cap = tile_positions(lanes, machine)
-    cands = []
-    for h in divisors(oh):
-        for strips in STREAM_STRIPS:
-            s = h // strips
-            if h % strips or (hso is not None and s != hso):
-                continue
-            for w in divisors(ow):
-                if h * w > cap:
-                    continue
-                chunk = next((c for c in reversed(divisors(pencil))
-                              if smem(h, w, s, c) <= machine.smem_budget),
-                             None)
-                if chunk is not None:
-                    cands.append((h, w, s, chunk))
-    if not cands:
-        if hso is not None and oh % hso:
-            raise ValueError(f"hso={hso} must divide the rows {oh}")
-        raise SmemMisfitError(
-            f"no streamed band fits the {what}: needs more than "
-            f"{machine.smem_budget} bytes of shared memory or {cap} "
-            "register-tile positions even at 1x1")
-
-    def fill(c) -> int:
-        return c[0] * c[1]
-
-    def grid(c) -> int:
-        return n_oblk * (oh // c[0]) * (ow // c[1])
-
-    def ties(c):
-        return c[0] // c[2], c[1]
-
-    busy = [c for c in cands if 2 * fill(c) >= cap] or [
-        c for c in cands if fill(c) == max(map(fill, cands))]
-    full = [c for c in busy if grid(c) >= machine.wave]
-    if full:
-        return max(full, key=lambda c: (fill(c),) + ties(c))
-    return max(busy, key=lambda c: (grid(c), fill(c)) + ties(c))
-
-
 @functools.lru_cache(maxsize=4096)
-def choose_stream_blocking(n: int, hi: int, wi: int, ci: int, co: int,
-                           hf: int, wf: int, stride: int, cob: int, cib: int,
-                           machine: MachineModel = H100_SXM,
-                           gap: bool = False,
-                           hso: int | None = None) -> StreamBlocking:
-    """Tile the streamed forward of ``n`` images over a padded ``hi x wi``
-    input (the kernel masks the pads), with the pencils ``cob``/``cib`` of
-    the operands' layout; ``hso`` pins the strip height (it must divide the
-    band).  Bands are sized to fill the card (``_stream_band``), unlike
-    the reference's default of the whole map in one grid step: CTAs run in
-    parallel here, and a whole-map band would give conv1_x of VGG-16 at
-    batch 8 only 8 CTAs."""
-    ho = (hi - hf) // stride + 1
-    wo = (wi - wf) // stride + 1
-    if ho <= 0 or wo <= 0:
-        raise ValueError(f"empty output for input {hi}x{wi}, filter {hf}x{wf}")
-    if co % cob or ci % cib:
-        raise ValueError(f"pencils cob={cob}/cib={cib} must divide "
-                         f"co={co}/ci={ci}")
-    if hso is not None and hso < 1:
-        raise ValueError(f"hso={hso} must be >= 1")
-    gap_floats = stream_gap_floats(cob, machine) if gap else 0
-
-    def smem(h, w, s, c):
-        return stream_smem_bytes(stream_ring_rows(h, s, hf, stride),
-                                 halo_dims(h, w, hf, wf, stride)[1], c, cob,
-                                 hf, wf, gap_floats=gap_floats)
-
-    h, w, s, chunk = _stream_band(
-        n * (co // cob), ho, wo, cob, cib, machine, hso, smem,
-        f"streamed forward (filter {hf}x{wf}, stride {stride}, cob={cob})")
-    return StreamBlocking(hob=h, wob=w, hso=s, chunk=chunk,
-                          ring_rows=stream_ring_rows(h, s, hf, stride),
-                          ring_cols=halo_dims(h, w, hf, wf, stride)[1],
-                          ldw=cob)
+def choose_stream_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
+                               stride: int, ciblk: int, cib: int, coblk: int,
+                               cob: int, machine: MachineModel = H100_SXM,
+                               gap: bool = False,
+                               hso: int | None = None) -> FwdBlocking:
+    """Tile the streamed forward (``fwd_candidates``): a band of two or
+    three strips of ``hso`` output rows (``hso`` pins it, and must divide
+    ``ho``), each one consumer warpgroup's m-tile, whose input rows arrive
+    strip by strip."""
+    if hso is not None and (hso < 1 or ho % hso):
+        raise ValueError(f"hso={hso} must divide the rows {ho}")
+    if hso is not None and hso > FWD_ROWS:
+        raise ValueError(f"hso={hso} rows exceed a strip's {FWD_ROWS} "
+                         "positions")
+    return _fwd_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                         machine, gap, True, hso, "streamed band")
 
 
 @functools.lru_cache(maxsize=4096)

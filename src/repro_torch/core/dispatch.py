@@ -22,9 +22,9 @@ models alone:
   switches after it.
 
 On ``H100_SXM`` the window models fit every conv of VGG-16 and MobileNet
-v1 (the window kernels stage the weights once, not twice as Pallas
-does), so the probe sends none of them to the streamed kernels; the
-streamed route is reached through ``stream=True``.  ``Impl``,
+v1 (each window tile shrinks to a position where a streamed band of two
+strips would not fit), so the probe sends none of them to the streamed
+kernels; the streamed route is reached through ``stream=True``.  ``Impl``,
 ``DispatchKey``, ``ConvDispatcher`` and ``tune`` are still to be ported.
 """
 from __future__ import annotations
@@ -33,9 +33,10 @@ import dataclasses
 from typing import Literal, Optional, Union
 
 from repro_torch.core.blocking import (MachineModel, SmemMisfitError,
-                                       choose_blocking, choose_dgrad_blocking,
-                                       choose_stream_blocking,
+                                       choose_dgrad_blocking,
+                                       choose_fwd_blocking,
                                        choose_stream_dgrad_blocking,
+                                       choose_stream_fwd_blocking,
                                        choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking)
 from repro_torch.core.convspec import ConvSpec
@@ -114,14 +115,13 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     ciblk, coblk = spec.ci // cib, spec.co // cob
     if direction == "fwd":
         def window():
-            return choose_blocking(spec.padded_hi, spec.padded_wi, spec.ci,
-                                   spec.co, hf, wf, s, cob=cob, cib=cib,
-                                   machine=machine, gap=gap)
+            return choose_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s, ciblk,
+                                       cib, coblk, cob, machine, gap)
 
         def streamed():
-            return choose_stream_blocking(n, spec.padded_hi, spec.padded_wi,
-                                          spec.ci, spec.co, hf, wf, s, cob,
-                                          cib, machine, gap)
+            return choose_stream_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s,
+                                              ciblk, cib, coblk, cob,
+                                              machine, gap)
     elif direction == "dgrad":
         def window():
             return choose_dgrad_blocking(n, spec.hi, spec.wi, hf, wf, s,

@@ -1,7 +1,9 @@
 """Wrappers of the CUDA streamed (halo-ring) dense conv kernels.
 
 The port of ``repro/kernels/conv2d_stream.py``: ``stream_forward``
-(``_stream_conv_kernel``, ``:78``, launched at ``:238``), ``stream_dgrad``
+(``_stream_conv_kernel``, ``:78``, launched at ``:238``; here
+``stream_fwd_kernel``, the dense forward tile of ``csrc/fwd_tile.cuh`` fed
+strip by strip), ``stream_dgrad``
 (that kernel's transposed use, ``:284``; here ``stream_dgrad_kernel``, the
 phase-split tensor-core tile of ``csrc/dgrad_tile.cuh`` fed strip by
 strip) and ``stream_wgrad`` (``_stream_wgrad_kernel``, ``:306``, launched
@@ -22,8 +24,9 @@ Unlike the reference they take the port's **unpadded** operands: pads and
 halos are zero-filled copies, and the dgrad reads no stride hole (each
 phase takes only the taps it reaches), so no padded, dilated or ``dz``
 tensor exists.  Tiles come from the streamed blocking
-models (``choose_stream_blocking``, ``choose_stream_dgrad_blocking``,
-``choose_stream_wgrad_blocking``); ``hso`` pins the strip height.
+models (``choose_stream_fwd_blocking``, ``choose_stream_dgrad_blocking``,
+``choose_stream_wgrad_blocking``); ``hso`` pins the strip height.  The
+forward's launch plan is built once per shape (``fwd_launch``).
 
 The plain versions are the dense family's (``core.direct_conv``), since the
 function is the same: a CPU tensor takes them, after the same blocking and
@@ -40,11 +43,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.blocking import (H100_SXM, MachineModel, StreamBlocking,
-                                       choose_stream_blocking,
+from repro_torch.core.blocking import (H100_SXM, FwdBlocking, MachineModel,
                                        choose_stream_dgrad_blocking,
-                                       choose_stream_wgrad_blocking,
-                                       stream_gap_floats, stream_smem_bytes)
+                                       choose_stream_fwd_blocking,
+                                       choose_stream_wgrad_blocking)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_blocked,
@@ -52,16 +54,15 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_wgrad_blocked)
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
-from repro_torch.kernels.direct_conv2d import (WGRAD_GEOMETRY, _ACT_CODES,
-                                               _GRID_YZ_MAX,
-                                               _backward_operands, _call,
-                                               _check, _check_activation,
-                                               _cuda_device, _library, _ptr,
-                                               _require, _stream,
-                                               check_machine,
-                                               dgrad_launch, gap_finalize,
-                                               split_wgrad, wgrad_launch,
-                                               wgrad_reduce)
+from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
+                                               _ACT_CODES,
+                                               _backward_operands, _check,
+                                               _check_activation,
+                                               _cuda_device, _library,
+                                               check_machine, dgrad_launch,
+                                               fwd_launch, fwd_run,
+                                               gap_finalize, split_wgrad,
+                                               wgrad_launch, wgrad_reduce)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
@@ -76,8 +77,11 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_stream_conv.argtypes = [ptr] * 6 + [i32] * 23 + [ptr]
+    lib.conv2d_stream_conv.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
     lib.conv2d_stream_conv.restype = i32
+    lib.conv2d_stream_conv_plan.argtypes = [
+        ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
+    lib.conv2d_stream_conv_plan.restype = i32
     lib.conv2d_stream_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
     lib.conv2d_stream_dgrad.restype = i32
     lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
@@ -91,8 +95,9 @@ def _declare(lib, ptr, i32) -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    return _library("conv2d_stream", _declare, more_geometries=(
-        ("conv2d_stream_wgrad_geometry", WGRAD_GEOMETRY),))
+    return _library("conv2d_stream", _declare, FWD_GEOMETRY,
+                    more_geometries=(("conv2d_stream_wgrad_geometry",
+                                      WGRAD_GEOMETRY),))
 
 
 def _prologue(z: Optional[torch.Tensor], activation: Optional[str]) -> bool:
@@ -101,15 +106,16 @@ def _prologue(z: Optional[torch.Tensor], activation: Optional[str]) -> bool:
 
 def stream_blocking(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
                     gap: bool, hso: Optional[int],
-                    machine: MachineModel) -> StreamBlocking:
+                    machine: MachineModel) -> FwdBlocking:
     """The streamed forward's tiles for operands ``x``, ``w`` of geometry
-    ``spec``; raises what the model raises (a pinned ``hso`` that divides
-    no band, a misfit), on either device."""
+    ``spec``; raises what the model raises (a pinned ``hso`` that does not
+    divide the rows, a misfit), on either device."""
     check_machine(machine)
-    return choose_stream_blocking(x.shape[0], spec.padded_hi,
-                                  spec.padded_wi, spec.ci, spec.co, spec.hf,
-                                  spec.wf, spec.stride, w.shape[5],
-                                  x.shape[4], machine, gap, hso)
+    cib, cob = x.shape[4], w.shape[5]
+    return choose_stream_fwd_blocking(x.shape[0], spec.ho, spec.wo, spec.hf,
+                                      spec.wf, spec.stride, spec.ci // cib,
+                                      cib, spec.co // cob, cob, machine, gap,
+                                      hso)
 
 
 def stream_forward(x: torch.Tensor, w: torch.Tensor,
@@ -128,40 +134,26 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     ``kernels.direct_conv2d.direct_conv2d_blocked``."""
     spec = conv_spec(x, w, stride, padding)
     _check_activation(activation)
-    blk = stream_blocking(x, w, spec, gap, hso, machine)
-    n, coblk, cob, cib = x.shape[0], w.shape[0], w.shape[5], x.shape[4]
+    n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
+    if bias is not None and tuple(bias.shape) != (coblk, cob):
+        raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
+    out_shape = (n, coblk, spec.ho, spec.wo, cob)
+    if residual is not None and tuple(residual.shape) != out_shape:
+        raise ValueError(f"residual shape {tuple(residual.shape)} != "
+                         f"output shape {out_shape}")
     if x.device.type == "cpu":
+        stream_blocking(x, w, spec, gap, hso, machine)
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, residual=residual, gap=gap)
     if resolve_precision(precision).op_dtype != torch.float32:
         raise NotImplementedError(
             "the CUDA kernels of this slice run the f32 policy only")
-    dev = _cuda_device(x)
-    ptrs = [_require(t, name, dev, vector_loads=name in ("x", "w"))
-            for name, t in (("x", x), ("w", w), ("bias", bias),
-                            ("residual", residual))]
-    out_shape = (n, coblk, spec.ho, spec.wo, cob)
-    if bias is not None and tuple(bias.shape) != (coblk, cob):
-        raise ValueError(f"bias shape {tuple(bias.shape)} != {(coblk, cob)}")
-    if residual is not None and tuple(residual.shape) != out_shape:
-        raise ValueError(f"residual shape {tuple(residual.shape)} != "
-                         f"output shape {out_shape}")
-    if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
-    smem = stream_smem_bytes(
-        blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw, spec.hf, spec.wf,
-        gap_floats=stream_gap_floats(cob, machine) if gap else 0)
-    n_bands = (spec.ho // blk.hob) * (spec.wo // blk.wob)
-    out = torch.empty(out_shape, device=dev, dtype=torch.float32)
-    partials = (torch.empty((n, coblk, n_bands, cob), device=dev,
-                            dtype=torch.float32) if gap else None)
+    check_machine(machine)
+    plan = fwd_launch(spec, x.shape[4], cob, _ACT_CODES[activation], gap,
+                      True, hso, machine)
     lib = _lib()
-    err = _call(dev, lib.conv2d_stream_conv, *ptrs, out.data_ptr(),
-                _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3], cib,
-                coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf, stride,
-                spec.pads[0][0], spec.pads[1][0], blk.hob, blk.wob, blk.hso,
-                blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw,
-                _ACT_CODES[activation], smem, _stream(dev))
+    err, out, partials = fwd_run(lib.conv2d_stream_conv, plan, x, w, bias,
+                                 residual, spec)
     LAUNCHES["conv2d_stream_fwd"] += 1
     _check(err, lib, "conv2d_stream_fwd")
     if gap:

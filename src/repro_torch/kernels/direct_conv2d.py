@@ -6,7 +6,9 @@ autograd.
 
 * under ``torch.no_grad``/``inference_mode``, or when no operand requires
   grad, it runs the fused inference kernel (``_fwd_kernel``, ``:102``):
-  ``csrc/direct_conv2d_fwd.cu`` on a CUDA tensor, the plain PyTorch version
+  ``csrc/direct_conv2d_fwd.cu``'s ``fwd_kernel``, the dense forward tile of
+  ``csrc/fwd_tile.cuh`` (a 3xTF32 wgmma implicit GEMM fed by a producer
+  warpgroup), on a CUDA tensor, the plain PyTorch version
   (``core.direct_conv.direct_conv_blocked``) on a CPU tensor;
 * with grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of the
@@ -31,7 +33,9 @@ at the forward and carries the ``KernelRoute`` into its backward.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  There is no fallback:
-no route switches after a launch fails.
+no route switches after a launch fails.  Both forwards (this module's and
+the streamed one) build their launch plan (tiles, the C entry's int array)
+once per shape (``fwd_launch``).
 The wrappers check device, dtype (f32 on the card in this slice), shapes,
 contiguity and the 16-byte alignment of operands read with float4 loads.
 
@@ -50,16 +54,19 @@ import numpy as np
 import torch
 
 from repro_torch.core import conv2d_common
-from repro_torch.core.blocking import (H100_SXM, WGRAD_MAX_POSITIONS,
-                                       WGRAD_ROWS, WGRAD_THREADS,
-                                       DgradBlocking, DgradPlan,
+from repro_torch.core.blocking import (FWD_CONSUMERS, FWD_ROWS,
+                                       FWD_THREADS, H100_SXM,
+                                       WGRAD_MAX_POSITIONS, WGRAD_ROWS,
+                                       WGRAD_THREADS, DgradBlocking,
+                                       DgradPlan, FwdBlocking, FwdPlan,
                                        MachineModel, WgradBlocking,
-                                       WgradPlan, choose_blocking,
-                                       choose_dgrad_blocking,
+                                       WgradPlan, choose_dgrad_blocking,
+                                       choose_fwd_blocking,
                                        choose_stream_dgrad_blocking,
+                                       choose_stream_fwd_blocking,
                                        choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking, dgrad_plan,
-                                       smem_bytes, wgrad_plan)
+                                       fwd_plan, fwd_smem_bytes, wgrad_plan)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
                                        route_stream)
@@ -75,7 +82,7 @@ from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "check_machine",
-           "direct_conv2d_blocked",
+           "direct_conv2d_blocked", "FwdLaunch", "fwd_launch", "fwd_plans",
            "gap_finalize", "direct_conv2d_dgrad", "dgrad_plans",
            "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans",
            "wgrad_reduce"]
@@ -89,6 +96,9 @@ _GRID_YZ_MAX = 65535
 # the wgrad tile's compiled limits (wgrad_tile.cuh: threads a CTA, rows of
 # an m-tile, positions of a stage), which each wgrad library reports
 WGRAD_GEOMETRY = (WGRAD_THREADS, WGRAD_ROWS, WGRAD_MAX_POSITIONS)
+# the forward tile's (fwd_tile.cuh: threads of the largest CTA, rows of an
+# m-tile, consumer warpgroups), which both forward libraries report
+FWD_GEOMETRY = (FWD_THREADS, FWD_ROWS, FWD_CONSUMERS)
 
 
 def reset_launches() -> None:
@@ -103,9 +113,9 @@ _DECLARED: dict = {}
 def _library(name: str, declare, geometry=None,
              more_geometries=()) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
-    ``declare(lib, ptr, i32)`` on first use; checks that the register-tile
-    geometry it was compiled with, ``<name>_geometry``, is ``geometry``
-    (the blocking model's ``(threads, lanes, positions)`` by default), and
+    ``declare(lib, ptr, i32)`` on first use; checks that the geometry it
+    was compiled with, ``<name>_geometry``, is ``geometry`` (the FMA
+    kernels' ``(threads, lanes, positions)`` by default), and
     each ``(symbol, geometry)`` of ``more_geometries`` likewise."""
     lib = library(name)
     if _DECLARED.get(name) is lib:
@@ -133,8 +143,11 @@ def _library(name: str, declare, geometry=None,
 
 
 def _declare_fwd(lib, ptr, i32) -> None:
-    lib.direct_conv2d_fwd.argtypes = [ptr] * 6 + [i32] * 19 + [ptr]
+    lib.direct_conv2d_fwd.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
     lib.direct_conv2d_fwd.restype = i32
+    lib.direct_conv2d_fwd_plan.argtypes = [
+        ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
+    lib.direct_conv2d_fwd_plan.restype = i32
     lib.gap_finalize.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
     lib.gap_finalize.restype = i32
 
@@ -155,7 +168,7 @@ def _declare_bwd(lib, ptr, i32) -> None:
 
 
 def _lib() -> ctypes.CDLL:
-    return _library("direct_conv2d_fwd", _declare_fwd)
+    return _library("direct_conv2d_fwd", _declare_fwd, FWD_GEOMETRY)
 
 
 def _bwd_lib() -> ctypes.CDLL:
@@ -246,7 +259,7 @@ def _call(device: torch.device, entry, *args) -> int:
 
 
 def check_machine(machine: MachineModel) -> None:
-    """The kernels are compiled for ``H100_SXM``'s register tile and CTA
+    """The FMA kernels are compiled for ``H100_SXM``'s register tile and CTA
     size; a machine model may differ from it only in ``smem_budget``,
     ``smem_block``, ``sms`` and ``ctas_per_sm``."""
     m = H100_SXM
@@ -345,9 +358,9 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
             machine=machine, precision=precision)
     if x.device.type == "cpu":
         # the window model's checks, as on the card
-        choose_blocking(spec.padded_hi, spec.padded_wi, spec.ci, spec.co,
-                        spec.hf, spec.wf, spec.stride, cob=cob,
-                        cib=x.shape[4], machine=machine, gap=gap)
+        choose_fwd_blocking(n, spec.ho, spec.wo, spec.hf, spec.wf,
+                            spec.stride, spec.ci // x.shape[4], x.shape[4],
+                            coblk, cob, machine, gap)
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, residual=residual, gap=gap)
     if resolve_precision(precision).op_dtype != torch.float32:
@@ -381,41 +394,104 @@ def _resolve_route(stream: Stream, hso: Optional[int], spec: ConvSpec,
         for d in ("fwd", "dgrad", "wgrad")})
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdLaunch:
+    """What a forward launch at one shape needs but its pointers, stream
+    and library, built once (``fwd_launch``): the tiles and the C entry's
+    int array (``fwd_tile::Geometry``'s fields, the wgmma width, the images
+    and the shared memory); ``gap`` whether it writes GAP partials."""
+    blk: FwdBlocking
+    ints: object
+    gap: bool
+
+
+@functools.lru_cache(maxsize=1024)
+def fwd_launch(spec: ConvSpec, cib: int, cob: int, act: int, gap: bool,
+               streamed: bool, hso: Optional[int] = None,
+               machine: MachineModel = H100_SXM,
+               blk: Optional[FwdBlocking] = None) -> FwdLaunch:
+    """The plan of a forward launch of geometry ``spec`` on ``cib``/``cob``
+    pencils: ``blk``, or the window (``streamed``: the streamed) chooser's
+    tiles."""
+    ciblk, coblk = spec.ci // cib, spec.co // cob
+    if blk is None:
+        args = (spec.n, spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
+                ciblk, cib, coblk, cob, machine, gap)
+        blk = (choose_stream_fwd_blocking(*args, hso) if streamed
+               else choose_fwd_blocking(*args))
+    smem = fwd_smem_bytes(blk.th, blk.tw, spec.hf, spec.wf, spec.stride,
+                          blk.chunk, blk.lanes, blk.wgs, gap)
+    (pt, _), (pl, _) = spec.pads
+    ints = (ciblk, cib, spec.hi, spec.wi, coblk, cob, spec.ho, spec.wo,
+            spec.hf, spec.wf, spec.stride, pt, pl, blk.th, blk.tw, blk.wgs,
+            blk.strips, blk.nsplit, blk.chunk, act, int(gap), blk.lanes,
+            spec.n, smem)
+    return FwdLaunch(blk=blk, ints=(ctypes.c_int * len(ints))(*ints),
+                     gap=gap)
+
+
+def fwd_run(entry, plan: FwdLaunch, x: torch.Tensor, w: torch.Tensor,
+            bias: Optional[torch.Tensor], residual: Optional[torch.Tensor],
+            spec: ConvSpec):
+    """Call a forward kernel's C ``entry`` (the window one or the streamed
+    one) with ``plan`` on CUDA operands, each checked and read once ->
+    ``(CUDA error code, out, the GAP partials or None)``; the caller counts
+    the launch."""
+    dev = _cuda_device(x)
+    ptrs = (_require(x, "x", dev, vector_loads=True),
+            _require(w, "w", dev, vector_loads=True),
+            _require(bias, "bias", dev), _require(residual, "residual", dev))
+    blk = plan.blk
+    n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
+    if coblk * blk.nsplit > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
+    out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
+                      dtype=torch.float32)
+    partials = (torch.empty((n, coblk, blk.tiles, cob), device=dev,
+                            dtype=torch.float32) if plan.gap else None)
+    err = _call(dev, entry, *ptrs, out.data_ptr(), _ptr(partials), plan.ints,
+                _stream(dev))
+    return err, out, partials
+
+
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
               activation: Optional[str], gap: bool,
               machine: MachineModel = H100_SXM) -> torch.Tensor:
     """Launch the window forward kernel on CUDA operands."""
-    dev = _cuda_device(x)
-    ptrs = [_require(t, name, dev, vector_loads=name in ("x", "w"))
-            for name, t in (("x", x), ("w", w), ("bias", bias),
-                            ("residual", residual))]
-    n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
-    if coblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
-
-    blk = choose_blocking(spec.padded_hi, spec.padded_wi, spec.ci, spec.co,
-                          spec.hf, spec.wf, spec.stride, cob=cob,
-                          cib=x.shape[4], machine=machine, gap=gap)
-    smem = smem_bytes(blk.hob, blk.wob, blk.chunk, cob, spec.hf, spec.wf,
-                      spec.stride, machine, gap)
-    n_tiles = (spec.ho // blk.hob) * (spec.wo // blk.wob)
-    out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
-                      dtype=torch.float32)
-    partials = (torch.empty((n, coblk, n_tiles, cob), device=dev,
-                            dtype=torch.float32) if gap else None)
+    plan = fwd_launch(spec, x.shape[4], w.shape[5], _ACT_CODES[activation],
+                      gap, False, None, machine)
     lib = _lib()
-    err = _call(dev, lib.direct_conv2d_fwd, *ptrs, out.data_ptr(),
-                _ptr(partials), n, x.shape[1], x.shape[2], x.shape[3],
-                x.shape[4], coblk, cob, spec.ho, spec.wo, spec.hf, spec.wf,
-                spec.stride, spec.pads[0][0], spec.pads[1][0], blk.hob,
-                blk.wob, blk.chunk, _ACT_CODES[activation], smem,
-                _stream(dev))
+    err, out, partials = fwd_run(lib.direct_conv2d_fwd, plan, x, w, bias,
+                                 residual, spec)
     LAUNCHES["direct_conv2d_fwd"] += 1
     _check(err, lib, "direct_conv2d_fwd")
     if gap:
         return gap_finalize(partials, spec.ho * spec.wo)
     return out
+
+
+def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+              padding: Padding = "VALID", gap: bool = False, *,
+              streamed: bool = False, hso: Optional[int] = None,
+              machine: MachineModel = H100_SXM) -> Tuple[FwdPlan, FwdPlan]:
+    """What one launch of the window forward kernel (with ``streamed``, the
+    streamed one) runs on these operands, tiled as its wrapper tiles them:
+    ``(the kernel library's own count, its *_plan entry;
+    core.blocking.fwd_plan's)``.  Reads the built library; launches
+    nothing."""
+    spec = conv_spec(x, w, stride, padding)
+    cib, cob = x.shape[4], w.shape[5]
+    plan = fwd_launch(spec, cib, cob, 0, gap, streamed, hso, machine)
+    entry = (_stream_kernels()._lib().conv2d_stream_conv_plan if streamed
+             else _lib().direct_conv2d_fwd_plan)
+    out = (ctypes.c_longlong * 4)()
+    if entry(plan.ints, out):
+        raise ValueError(f"the forward kernel refuses the tiles {plan.blk}")
+    return FwdPlan(*out), fwd_plan(plan.blk, spec.n, spec.ho, spec.wo,
+                                   spec.hf, spec.wf, spec.stride,
+                                   spec.ci // cib, cib, spec.co // cob, cob,
+                                   gap)
 
 
 def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:

@@ -16,10 +16,11 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_blocked,
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
-                                               dgrad_plans, reset_launches,
+                                               dgrad_plans, fwd_plans,
+                                               reset_launches,
                                                wgrad_plans, wgrad_reduce)
-from repro_torch.core.blocking import (choose_blocking,  # noqa: E402
-                                       choose_stream_blocking)
+from repro_torch.core.blocking import (choose_fwd_blocking,  # noqa: E402
+                                       choose_stream_fwd_blocking)
 from repro_torch.core.context import ConvContext  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
@@ -61,6 +62,9 @@ CASES = [
     (2, 64, 128, 28, 64, 128, 1, "gelu", True, True),
     (3, 24, 12, 9, 8, 12, 2, None, False, True),      # Cob not a multiple of 8
     (1, 256, 256, 14, 128, 128, 2, "relu", True, True),
+    (2, 512, 512, 14, 128, 128, 1, "relu", False, True),  # conv5's 14x14
+    (2, 12, 20, 23, 4, 20, 1, "gelu", True, False),    # Cob 20, ragged tiles
+    (2, 8, 6, 9, 8, 6, 1, "relu", True, True),    # Cob 6: weights by cp.async
 ]
 
 
@@ -82,6 +86,45 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
                         "wgrad_reduce": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
+
+
+# (n, ci, co, h, w, cib, cob, stride, padding)
+FWD_PAD_CASES = [
+    (2, 16, 24, 10, 9, 8, 24, 2, "VALID"),
+    (2, 8, 16, 9, 11, 8, 16, 1, ((2, 0), (0, 1))),   # asymmetric pads
+    (1, 3, 32, 30, 30, 3, 32, 2, "SAME"),            # MobileNet's conv1, Cib 3
+]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("n,ci,co,h,w,cib,cob,stride,padding", FWD_PAD_CASES)
+def test_forward_kernels_match_plain_version_at_other_pads(
+        cuda, streamed, n, ci, co, h, w, cib, cob, stride, padding):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((n, ci // cib, h, w, cib), device=cuda, generator=g)
+    wt = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=cuda,
+                     generator=g) / (9 * ci) ** 0.5
+    b = torch.randn((co // cob, cob), device=cuda, generator=g)
+    stk.reset_launches()
+    reset_launches()
+    with torch.no_grad():
+        got = direct_conv2d_blocked(x, wt, b, stride, padding, "relu",
+                                    stream=streamed)
+        want = direct_conv_blocked(x, wt, stride, padding, b, "relu")
+    torch.cuda.synchronize()
+    assert (stk.LAUNCHES["conv2d_stream_fwd"], LAUNCHES["direct_conv2d_fwd"]
+            ) == ((1, 0) if streamed else (0, 1))
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,res,gap", CASES)
+def test_forward_kernel_plans_match_the_blocking_model(
+        cuda, streamed, n, ci, co, h, cib, cob, stride, act, res, gap):
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    kernel, model = fwd_plans(x, w, stride, "SAME", gap, streamed=streamed)
+    assert kernel == model
+    assert kernel.function_macs == n * (-(-h // stride)) ** 2 * 9 * ci * co
 
 
 # (n, ci, co, h, cib, cob, stride, activation, padding)
@@ -533,14 +576,13 @@ def test_stream_kernels_match_plain_and_window(cuda, n, ci, co, h, cib, cob,
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, **TOL)
     # the same sums in the same order where both choosers take the same
-    # channel chunk (and, with GAP, the same tile)
+    # channel chunk (GAP sums positions in each tile's own grouping)
     spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
-    sblk = choose_stream_blocking(n, spec.padded_hi, spec.padded_wi, ci, co,
-                                  3, 3, stride, cob, cib, gap=gap, hso=hso)
-    wblk = choose_blocking(spec.padded_hi, spec.padded_wi, ci, co, 3, 3,
-                           stride, cob, cib, gap=gap)
-    same = sblk.chunk == wblk.chunk and (
-        not gap or (sblk.hob, sblk.wob) == (wblk.hob, wblk.wob))
+    args = (n, spec.ho, spec.wo, 3, 3, stride, ci // cib, cib, co // cob,
+            cob)
+    sblk = choose_stream_fwd_blocking(*args, gap=gap, hso=hso)
+    wblk = choose_fwd_blocking(*args, gap=gap)
+    same = sblk.chunk == wblk.chunk and not gap
     if same:
         assert torch.equal(got, window)
     else:

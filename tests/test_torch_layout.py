@@ -1,4 +1,6 @@
 """Port value types and layouts against the JAX reference (CPU, small)."""
+import dataclasses
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -118,35 +120,58 @@ def test_error_taxonomy():
     (226, 3, 64, 1), (226, 64, 64, 1), (225, 64, 128, 2), (114, 128, 128, 1),
     (57, 256, 512, 2), (30, 512, 512, 1), (16, 512, 512, 1), (12, 8, 16, 2)])
 def test_blocking_fits_the_cta(hi, ci, co, stride):
+    # the forward tiles (csrc/fwd_tile.cuh) over the padded input's output:
+    # 64-row m-tiles of one image's positions by a compiled wgmma width (the
+    # block or half of it), a chunk of k8 slices of Cib, one CTA's shared
+    # memory, no consumer warpgroup without a row of its own
     m = blocking.H100_SXM
     cob, cib = min(co, 128), min(ci, 128)
+    ho = (hi - 3) // stride + 1
     for gap in (False, True):
-        blk = blocking.choose_blocking(hi, hi, ci, co, 3, 3, stride,
-                                       cob=cob, cib=cib, gap=gap)
-        ho = (hi - 3) // stride + 1
-        assert ho % blk.hob == 0 and ho % blk.wob == 0
-        assert blk.hob * blk.wob <= blocking.tile_positions(cob, m)
-        assert cib % blk.chunk == 0
-        assert blocking.smem_bytes(blk.hob, blk.wob, blk.chunk, cob, 3, 3,
-                                   stride, m, gap) <= m.smem_budget
-        # rows shrink first: a tile narrower than the map has one row
-        assert blk.wob == ho or blk.hob == 1
+        for choose in (blocking.choose_fwd_blocking,
+                       blocking.choose_stream_fwd_blocking):
+            blk = choose(8, ho, ho, 3, 3, stride, ci // cib, cib, co // cob,
+                         cob, gap=gap)
+            assert blk.lanes in blocking.DGRAD_LANES
+            assert (blk.nsplit - 1) * blk.lanes < cob <= blk.nsplit * blk.lanes
+            # a 128-lane consumer's running sum: two consumers at most
+            assert blk.lanes < 128 or blk.wgs <= blocking.FWD_WIDE_CONSUMERS
+            assert blk.chunk % 8 == 0 and -(-cib // 8) * 8 % blk.chunk == 0
+            if choose is blocking.choose_fwd_blocking:
+                assert blk.strips == 1 and blk.th <= ho and blk.tw <= ho
+                assert 64 * (blk.wgs - 1) < blk.th * blk.tw <= 64 * blk.wgs
+            else:
+                assert blk.strips == blk.wgs >= 2
+                assert blk.hso * blk.tw <= 64 and blk.tw <= ho
+            assert blk.tiles == -(-ho // blk.th) * -(-ho // blk.tw)
+            assert (blk.hwin, blk.wwin) == ((blk.th - 1) * stride + 3,
+                                            (blk.tw - 1) * stride + 3)
+            assert blocking.fwd_smem_bytes(
+                blk.th, blk.tw, 3, 3, stride, blk.chunk, blk.lanes, blk.wgs,
+                gap) <= m.smem_block
 
 
 def test_blocking_pins_and_misfit():
-    # the operands' layout pins the pencils, which must divide the channels
-    blk = blocking.choose_blocking(10, 10, 8, 8, 3, 3, 1, cob=8, cib=8)
-    assert (blk.cob, blk.cib, blk.hob, blk.wob, blk.chunk) == (8, 8, 8, 8, 8)
-    with pytest.raises(ValueError, match="must divide"):
-        blocking.choose_blocking(10, 10, 8, 8, 3, 3, 1, cob=3, cib=8)
-    tiny = blocking.MachineModel("tiny", threads=32, lanes=8, positions=1,
-                                 smem_budget=2048)
-    with pytest.raises(ValueError, match="no tile fits"):
-        blocking.choose_blocking(10, 10, 8, 64, 3, 3, 1, cob=64, cib=8,
-                                 machine=tiny)
-    small = blocking.choose_blocking(34, 34, 8, 8, 3, 3, 1, cob=8, cib=8,
-                                     machine=tiny)
-    assert (small.hob, small.wob) == (1, 32)
+    # a small map takes the pencil's wgmma width and whole chunk, and its
+    # tiles run in one round of the card's SMs
+    blk = blocking.choose_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 8)
+    assert (blk.wgs, blk.lanes, blk.nsplit, blk.chunk) == (1, 8, 1, 8)
+    assert blk.tiles <= blocking.H100_SXM.sms
+    # a 256-lane pencil splits in two 128-lane CTAs; past that none fits
+    wide = blocking.choose_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 256)
+    assert (wide.nsplit, wide.lanes) == (2, 128)
+    with pytest.raises(blocking.SmemMisfitError, match="no tile fits"):
+        blocking.choose_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 512)
+    with pytest.raises(ValueError, match="empty forward"):
+        blocking.choose_fwd_blocking(1, 0, 8, 3, 3, 1, 1, 8, 1, 8)
+    small = dataclasses.replace(blocking.H100_SXM, smem_block=2048)
+    with pytest.raises(blocking.SmemMisfitError, match="no tile fits"):
+        blocking.choose_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 64,
+                                     machine=small)
+    with pytest.raises(blocking.SmemMisfitError,
+                       match="no streamed band fits"):
+        blocking.choose_stream_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 64,
+                                            machine=small)
 
 
 @pytest.mark.parametrize("hi,ci,co,stride", [

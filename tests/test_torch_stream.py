@@ -33,7 +33,7 @@ from repro_torch.configs.cnn import vgg16_layers  # noqa: E402
 from repro_torch.convert import params_from_jax, params_to_numpy  # noqa: E402
 from repro_torch.core import blocking  # noqa: E402
 from repro_torch.core.blocking import (H100_SXM, MachineModel,  # noqa: E402
-                                       SmemMisfitError, tile_positions)
+                                       SmemMisfitError)
 from repro_torch.core.context import ConvContext, as_context  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.core.dispatch import (KernelRoute,  # noqa: E402
@@ -200,17 +200,6 @@ def _vgg_shapes(entry):
     return sorted(set(out), key=out.index)
 
 
-def _most_ctas(n_oblk, oh, ow, lanes, machine=H100_SXM):
-    """The most CTAs any band that fills at least half the register tile
-    gives (or that fills it most, on maps too small for that)."""
-    cap = tile_positions(lanes, machine)
-    bands = [(h, w) for h in blocking.divisors(oh)
-             for w in blocking.divisors(ow) if h * w <= cap]
-    floor = min(cap // 2, max(h * w for h, w in bands))
-    return max(n_oblk * (oh // h) * (ow // w) for h, w in bands
-               if h * w >= floor)
-
-
 @pytest.mark.parametrize("entry", [224, 160])
 def test_stream_forward_blocking_at_every_vgg16_shape(entry):
     n = 8
@@ -218,27 +207,28 @@ def test_stream_forward_blocking_at_every_vgg16_shape(entry):
         cib, cob = min(ci, 128), min(co, 128)
         spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
         for gap in (False, True):
-            blk = blocking.choose_stream_blocking(
-                n, spec.padded_hi, spec.padded_wi, ci, co, 3, 3, s, cob, cib,
+            blk = blocking.choose_stream_fwd_blocking(
+                n, spec.ho, spec.wo, 3, 3, s, ci // cib, cib, co // cob, cob,
                 gap=gap)
-            assert blk.hob % blk.hso == 0 and spec.ho % blk.hob == 0
-            assert spec.wo % blk.wob == 0 and cib % blk.chunk == 0
-            assert blk.hob * blk.wob <= tile_positions(cob, H100_SXM)
-            assert blk.ring_rows == blocking.stream_ring_rows(
-                blk.hob, blk.hso, 3, s)
-            smem = blocking.stream_smem_bytes(
-                blk.ring_rows, blk.ring_cols, blk.chunk, blk.ldw, 3, 3,
-                gap_floats=blocking.stream_gap_floats(cob, H100_SXM)
-                if gap else 0)
-            assert smem <= H100_SXM.smem_budget
-            grid = n * (co // cob) * (spec.ho // blk.hob) * (
-                spec.wo // blk.wob)
-            assert grid >= min(H100_SXM.wave,
-                               _most_ctas(n * (co // cob), spec.ho, spec.wo,
-                                          cob))
-            assert blk.n_strips in blocking.STREAM_STRIPS
-            assert 2 * blk.hob * blk.wob >= tile_positions(cob, H100_SXM) \
-                or spec.ho * spec.wo < tile_positions(cob, H100_SXM)
+            # a band of two or three strips of hso rows, each one consumer
+            # warpgroup's 64-row m-tile; bands may overhang the map
+            assert blk.strips == blk.wgs and 2 <= blk.wgs <= \
+                blocking.FWD_CONSUMERS and blk.th == blk.strips * blk.hso
+            assert blk.mstride == blk.hso * blk.tw <= 64
+            assert blk.th < spec.ho + blk.strips and blk.tw <= spec.wo
+            assert blk.lanes in blocking.DGRAD_LANES
+            assert (blk.nsplit - 1) * blk.lanes < cob <= blk.nsplit * blk.lanes
+            assert (-(-cib // 8) * 8) % blk.chunk == 0
+            assert (blk.hwin, blk.wwin) == ((blk.th - 1) * s + 3,
+                                            (blk.tw - 1) * s + 3)
+            smem = blocking.fwd_smem_bytes(blk.th, blk.tw, 3, 3, s,
+                                           blk.chunk, blk.lanes, blk.wgs,
+                                           gap)
+            assert smem <= H100_SXM.smem_block
+            # the grid fills the card where the map has the positions
+            grid = n * (co // cob) * blk.nsplit * blk.tiles
+            assert grid >= min(H100_SXM.sms,
+                               n * (co // cob) * spec.ho * spec.wo // 192)
 
 
 @pytest.mark.parametrize("entry", [224, 160])
@@ -294,8 +284,8 @@ def test_stream_choosers_raise_smem_misfit_on_a_tiny_machine():
     assert issubclass(SmemMisfitError, TransientError)
     assert issubclass(SmemMisfitError, ValueError)
     with pytest.raises(SmemMisfitError, match="no streamed band fits"):
-        blocking.choose_stream_blocking(1, 10, 10, 64, 64, 3, 3, 1, 64, 64,
-                                        TINY)
+        blocking.choose_stream_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64,
+                                            TINY)
     with pytest.raises(SmemMisfitError, match="no streamed dgrad tile fits"):
         blocking.choose_stream_dgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 64,
                                               TINY)
@@ -304,7 +294,7 @@ def test_stream_choosers_raise_smem_misfit_on_a_tiny_machine():
                                               TINY)
     # the window choosers raise the same type, with their old messages
     with pytest.raises(SmemMisfitError, match="no tile fits"):
-        blocking.choose_blocking(10, 10, 64, 64, 3, 3, 1, 64, 64, TINY)
+        blocking.choose_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64, TINY)
     with pytest.raises(SmemMisfitError, match="no wgrad tile fits"):
         blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64, TINY)
 
@@ -314,11 +304,11 @@ def test_pinned_strip_height_must_divide():
         blocking.choose_stream_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 8,
                                               hso=3)
     with pytest.raises(ValueError, match="hso=3 must divide"):
-        blocking.choose_stream_blocking(1, 10, 10, 8, 8, 3, 3, 1, 8, 8,
-                                        hso=3)
-    blk = blocking.choose_stream_blocking(1, 10, 10, 8, 8, 3, 3, 1, 8, 8,
-                                          hso=2)
-    assert blk.hso == 2 and blk.hob % 2 == 0
+        blocking.choose_stream_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 8,
+                                            hso=3)
+    blk = blocking.choose_stream_fwd_blocking(1, 8, 8, 3, 3, 1, 1, 8, 1, 8,
+                                              hso=2)
+    assert blk.hso == 2 and blk.th % 2 == 0
 
 
 # ---------------------------------------------------------------------------
@@ -401,7 +391,7 @@ def test_route_stream_outcomes():
     outcomes = set()
     for budget in range(256, 16 * 1024, 256):
         m = MachineModel(name=f"b{budget}", threads=256, lanes=8,
-                         positions=8, smem_budget=budget)
+                         positions=8, smem_budget=budget, smem_block=budget)
         for c, h, s in ((8, 8, 1), (16, 9, 2), (32, 6, 1)):
             spec = ConvSpec.make(2, h, h, c, c, 3, 3, s, "SAME")
             for d in ("fwd", "dgrad", "wgrad"):
@@ -486,7 +476,7 @@ def _spy(monkeypatch):
     for mod, attr in ((conv2d_stream, "stream_blocking"),
                       (conv2d_stream, "stream_dgrad"),
                       (conv2d_stream, "stream_wgrad"),
-                      (direct_conv2d, "choose_blocking"),
+                      (direct_conv2d, "choose_fwd_blocking"),
                       (direct_conv2d, "choose_dgrad_blocking"),
                       (direct_conv2d, "choose_wgrad_blocking")):
         real = getattr(mod, attr)
@@ -515,7 +505,8 @@ def test_narrow_cnn_served_through_the_stream_route_matches_jax(monkeypatch):
     server.run()
     assert all(r.outcome is Outcome.OK for r in reqs)
     # two forwards of three dense convs, all on the streamed route
-    assert calls["stream_blocking"] == 6 and calls["choose_blocking"] == 0
+    assert calls["stream_blocking"] == 6 and \
+        calls["choose_fwd_blocking"] == 0
     padded = np.stack([server.bucketer.pad(im, (8, 8)) for im in images])
     want = np.asarray(jmodel(_tree_j(tree), jnp.asarray(padded),
                              context=JSTREAM))
@@ -549,7 +540,7 @@ def test_narrow_cnn_trained_through_the_stream_route_matches_jax(monkeypatch):
     # per step: three streamed forwards, two dgrads (the images need
     # none), three wgrads; no window route
     assert calls == {"stream_blocking": 3 * steps, "stream_dgrad": 2 * steps,
-                     "stream_wgrad": 3 * steps, "choose_blocking": 0,
+                     "stream_wgrad": 3 * steps, "choose_fwd_blocking": 0,
                      "choose_dgrad_blocking": 0, "choose_wgrad_blocking": 0}
     got = params_to_numpy(model)
     for name, want in tree.items():
@@ -573,9 +564,11 @@ def test_context_stream_leaves_separable_legs_alone(monkeypatch):
     x = torch.randn(1, 1, 6, 6, 8, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         y = block(x, context=ConvContext(stream=True))
-        assert calls["stream_blocking"] == 0 and calls["choose_blocking"] == 0
+        assert calls["stream_blocking"] == 0 and \
+            calls["choose_fwd_blocking"] == 0
         a = dense(y, context=ConvContext(stream=True))
         assert calls["stream_blocking"] == 1
         b = dense(y)
-        assert calls["choose_blocking"] == 1 and calls["stream_blocking"] == 1
+        assert calls["choose_fwd_blocking"] == 1 and \
+            calls["stream_blocking"] == 1
     torch.testing.assert_close(a, b, rtol=0, atol=0)
