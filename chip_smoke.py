@@ -23,8 +23,10 @@ and no phase catches its own failure:
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
-   at stride 2 with ``Cib = 3``, a gelu + residual + GAP shape, and the GAP
-   finalize kernel;
+   at stride 2 with ``Cib = 3``, a gelu + residual + GAP shape, and the
+   last conv with the GAP folded in, on both routes: its pooled features
+   bit for bit ``conv2d_common.gap_finalize`` of the per-tile sums the same
+   launch wrote;
 4. the full VGG-16 forward (13 convs, 224x224, batch 8) through the
    kernels, with its launch counts, against the plain path's logits;
 5. the main path: ``ConvServer`` on buckets 160x160 and 224x224 at batch 8
@@ -43,20 +45,27 @@ and no phase catches its own failure:
    prologue and ``db`` (all 10, its tiles printed; against f64 sums, twice,
    bit for bit; the worst err/bound printed), the autograd path on a
    small gelu + residual conv at stride 2 with ``Cib = 3`` against torch
-   autograd through the plain forward, and the wgrad reduce alone;
+   autograd through the plain forward; each wgrad's folded split sum bit
+   for bit ``conv2d_common.wgrad_reduce`` of the workspace its launch
+   filled, every counter back at 0 (``check_fold``); and the dgrad at
+   ``Cob % 4 != 0`` (a pencil of 6, Co = 1000's of 125: the cp.async
+   path) against its plain version, timed beside
+   ``aten.convolution_backward`` (``c1_dgrads``);
 8. the second main path: three AdamW steps (cosine schedule) of the
    full-width VGG-16 at batch 8, 224x224, on images and labels drawn from
    ``--seed``, with the launch counts of a step; step 1's loss and every
    gradient against torch autograd through the plain forward, and the
    parameters after step 3 against a plain-path trainer run in lockstep;
-9. backward times: per layer, dgrad, wgrad and the wgrad reduce against
-   their plain versions, ``aten.convolution_backward`` and the bound (the
+9. backward times: per layer, dgrad and wgrad (its split sum folded in)
+   against their plain versions, ``aten.convolution_backward`` and the
+   bound (the
    dgrads' and wgrads' at the 3xTF32 split's, the f32 FMA bound printed
    beside it); per wgrad layer its tiles, the function's MACs, the
    tensor-core MACs its tiles issue with their padding share, its shared
    memory, eager and CUDA-graph times and the library time (the kernel
    library's own plan, ``*_wgrad_plan``, must equal
-   ``core.blocking.wgrad_plan``); per dgrad layer its stride, phase count and
+   ``core.blocking.wgrad_plan``) and its split sum (shares, columns, the
+   CTAs of a column that sum them); per dgrad layer its stride, phase count and
    tiles, its MACs by phase (the kernel library's own count of the launch
    must equal the blocking model's, and its MACs the function's), the
    tensor-core MACs its tiles issue with their padding share, eager and
@@ -67,14 +76,16 @@ and no phase catches its own failure:
     8 on every distinct MobileNet v1 layer shape of both buckets
     (depthwise at pencils 32, 64 and 128, strides 1 and 2; pointwise, the
     last leg with its GAP), plus small gelu + residual + dilation-2
-    depthwise and gelu + residual + GAP pointwise shapes;
+    depthwise and gelu + residual + GAP pointwise shapes; each folded GAP
+    bit for bit the finalize of its partials (``check_gap``);
 11. the third main path: the full MobileNet v1 forward (224x224, batch 8)
     with its launch counts against the plain forward's logits, then
     ``ConvServer`` on buckets 160 and 224 serving 24 ragged requests, each
     OK with the plain logits of its padded image, and no backward launch;
 12. the separable backward kernels against their plain versions at batch
     32 on every distinct MobileNet shape (both wgrads against f64 sums and
-    twice, bit for bit), and the autograd path of a small gelu block with
+    twice, bit for bit, and their folded split sums as phase 7's), and the
+    autograd path of a small gelu block with
     a residual against torch autograd through the plain forward;
 13. the fourth main path: three AdamW steps of the full-width MobileNet v1
     at batch 32, 224x224, held to phase 8's rules, with the launch counts
@@ -85,7 +96,8 @@ and no phase catches its own failure:
     synchronise), beside the plain version, the library call (eager and
     as a CUDA-graph replay) and the bound (the pointwise forward's and
     dgrad's at the 3xTF32 split's, the f32 FMA bound beside it, with the
-    tensor-core MACs their tiles issue and the padding share); the train
+    tensor-core MACs their tiles issue and the padding share; each wgrad's
+    split sum); the train
     step against the plain trainer's; the step's peak device memory
     beside the bytes it must hold;
 15. the streamed (halo-ring) kernels against their plain versions: the
@@ -95,7 +107,8 @@ and no phase catches its own failure:
     each), a small gelu + residual + GAP shape at stride 2 with ``Cib =
     3``, and the dgrad and wgrad at 224 with the relu prologue and ``db``
     (the wgrad against f64 sums, twice, bit for bit, the worst err/bound
-    printed); each layer's streamed tiles are printed;
+    printed, its folded split sum as phase 7's); each layer's streamed
+    tiles are printed; the streamed dgrad at ``Cob % 4 != 0`` as phase 7's;
 16. the fifth and sixth main paths: VGG-16 through ``ConvServer(context=
     ConvContext(stream=True))``, 24 requests each OK with the plain logits,
     then three AdamW steps at batch 8 on the streamed route held to phase
@@ -329,7 +342,9 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 def graph_ms(fn, iters: int = 10) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph
     and replayed between two events, so the host's launch overhead (the
-    Python wrappers, ctypes) is not in it."""
+    Python wrappers, ctypes) is not in it.  The warm-up runs on the stream
+    the graph is captured on, so that the split sums' counters the graph
+    keeps are that stream's own (``kernels.split_sum``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -337,7 +352,7 @@ def graph_ms(fn, iters: int = 10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -568,6 +583,141 @@ def compare_scaled(label: str, got, want, scale, rel: float) -> float:
     if not ok:
         fail(f"{label} disagrees with its f64 plain version")
     return err.max().item()
+
+
+def check_fold(label: str, launch, views) -> None:
+    """``launch``: a wgrad kernel's ``(ws, out)``, its workspace and the sum
+    of the rows its last CTA of each column wrote; ``views``: ``(dw, db)``
+    of another run.
+    Fail unless ``out`` is bit for bit ``conv2d_common.wgrad_reduce(ws)``
+    and the other run's dw and db, and every counter is back at 0."""
+    from repro_torch.core import conv2d_common
+    from repro_torch.kernels import split_sum
+    ws, out = launch
+    want = conv2d_common.wgrad_reduce(ws)
+    other = torch.cat([v.reshape(-1) for v in views if v is not None])
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want) and torch.equal(out, other)):
+        fail(f"{label}: the folded sum of {ws.shape[0]} shares differs from "
+             "the in-order sum of its workspace rows")
+    if any(int(a.count_nonzero()) for a in split_sum.arenas()):
+        fail(f"{label}: a split-sum counter was left set")
+    print(f"[check] {label}: the folded sum of {ws.shape[0]} shares is bit "
+          "for bit the in-order sum of its rows; counters at 0")
+
+
+def check_gap(label: str, launch, hw: int, other) -> None:
+    """``launch``: a forward's ``(pooled, partials)`` with the GAP folded
+    in; ``other``: the pooled features of another run.  Fail unless
+    ``pooled`` is bit for bit ``conv2d_common.gap_finalize(partials, hw)``
+    and ``other``, and every counter is back at 0."""
+    from repro_torch.core import conv2d_common
+    from repro_torch.kernels import split_sum
+    pooled, parts = launch
+    want = conv2d_common.gap_finalize(parts, hw)
+    torch.cuda.synchronize()
+    if not (torch.equal(pooled, want) and torch.equal(pooled, other)):
+        fail(f"{label}: the folded GAP differs from the in-order finalize "
+             f"of its partials {list(parts.shape)}")
+    if any(int(a.count_nonzero()) for a in split_sum.arenas()):
+        fail(f"{label}: a split-sum counter was left set")
+    print(f"[check] {label}: the folded GAP of {parts.shape[2]} tiles is bit "
+          "for bit the in-order finalize of its partials; counters at 0")
+
+
+def split_sum_text(x, g, s, streamed: bool = False) -> str:
+    """The split sum a dense wgrad launch folds at these operands: its
+    shares, columns and the rows its summing CTA (one a column) reads."""
+    from repro_torch.core.blocking import (choose_stream_wgrad_blocking,
+                                           choose_wgrad_blocking)
+    n, ciblk, _, _, cib = x.shape
+    _, coblk, ho, wo, cob = g.shape
+    blk = (choose_stream_wgrad_blocking if streamed else
+           choose_wgrad_blocking)(n, ho, wo, 3, 3, s, ciblk, cib, coblk, cob,
+                                  prologue=True)
+    return split_sum_line(blk.splits, blk.groups * ciblk * coblk,
+                          min(9 * cib, blk.wgs * blk.mpw * 64) * cob)
+
+
+def split_sum_line(splits: int, columns: int, floats: int) -> str:
+    return (f"split sum: {splits} shares, {columns} columns, the last CTA "
+            f"of a column reading {splits * floats * 4 / 1024:.0f} KiB")
+
+
+def separable_split_sum(leg: str, n: int, ci: int, co: int, ho: int,
+                        s: int) -> str:
+    """The split sum MobileNet's depthwise (``leg`` "dw") or pointwise
+    ("pw") wgrad folds at a block of ``ci -> co`` channels, ``ho x ho``
+    outputs, batch ``n``: its shares, columns and the rows a column's
+    summing CTA reads."""
+    from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
+                                           choose_pointwise_wgrad_blocking)
+    cb, cob = min(ci, 128), min(co, 128)
+    if leg == "dw":
+        splits = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3,
+                                                 3, s).splits
+        columns, floats = ci // cb, 9 * cb
+    else:
+        splits = choose_pointwise_wgrad_blocking(n, ho * ho, ci // cb, cb,
+                                                 co // cob, cob).splits
+        columns, floats = (ci // cb) * (co // cob), cb * cob
+    return split_sum_line(splits, columns, floats)
+
+
+# Cob % 4 != 0 (the dgrads' cp.async path): (n, ci, co, h, stride), a
+# pencil of 6 and Co = 1000's pencil of 125
+C1_SHAPES = ((8, 64, 6, 56, 2), (8, 512, 1000, 14, 1))
+
+
+def c1_dgrads(route: str, streamed: bool) -> float:
+    """The dgrad of each ``C1_SHAPES`` layer on the ``streamed`` route
+    against its plain version, timed beside ``aten.convolution_backward``
+    -> the largest abs error."""
+    from repro_torch.core import conv2d_common
+    from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                              direct_conv_dgrad_blocked)
+    from repro_torch.kernels.direct_conv2d import direct_conv2d_dgrad
+    worst = 0.0
+    for n, ci, co, h, s in C1_SHAPES:
+        cob = 6 if co == 6 else 125
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device=dev).manual_seed(co + h)
+        cib = min(ci, 128)
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
+        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
+                        generator=gen) / (9 * ci) ** 0.5
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, s, "SAME").contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        tag = f"{ci}->{co} {h}x{h} s{s} n{n} relu, Cob {cob}"
+
+        def dgrad():
+            return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z, "relu",
+                                       stream=streamed)
+        got = dgrad()
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
+        torch.cuda.synchronize()
+        worst = max(worst, compare(f"{route} dgrad {tag}", got, want, **TOL))
+        ho = z.shape[2]
+        pad = max((ho - 1) * s + 3 - h, 0)
+        xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(n, ci, h, h),
+                   (pad // 2, pad - pad // 2, pad // 2, pad - pad // 2))
+        w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
+                  .contiguous())
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        dz_nchw = dz.permute(0, 1, 4, 2, 3).reshape(n, co, ho, ho)
+        k_ms, l_ms = time_ms(dgrad), time_ms(
+            lambda: torch.ops.aten.convolution_backward(
+                dz_nchw.contiguous(), xp.contiguous(), w_oihw, None, [s, s],
+                [0, 0], [1, 1], False, [0, 0], 1, [True, False, False]))
+        b_ms, b_by, _ = tf32x3_bound(2 * n * ho * ho * 9 * ci * co,
+                                     4 * (2 * g.numel() + w.numel()
+                                          + x.numel()))
+        print(f"[c1] {route} dgrad {tag} (cp.async copies): kernel_ms "
+              f"{k_ms:.4f} graph_ms {graph_ms(dgrad):.4f} library_ms "
+              f"{l_ms:.4f} (aten.convolution_backward) bound_ms {b_ms:.4f} "
+              f"({b_by}, 3xTF32)")
+    return worst
 
 
 def plain_cnn_forward(x, m):
@@ -838,18 +988,25 @@ def mobilenet_phases(args, dev, t_start):
             track("conv2d_pointwise_fwd", compare(
                 f"pwconv {ci}->{co} {h}x{h} n{MB_BATCH} relu"
                 f"{'+gap' if gap else ''}", got, want, **TOL))
+            if gap:
+                check_gap(f"pwconv {ci}->{co} {h}x{h} n{MB_BATCH} relu+gap",
+                          pwk.pointwise_gap(x, w, b, "relu"), h * h, got)
         for n, c, h, cb, s, gap in ((2, 24, 13, 8, 1, True),
                                     (2, 48, 12, 16, 2, False)):
-            x, w, b, r, _ = dw_operands(n, c, h, s, 2, cb, residual=True)
+            x, w, b, r, spec = dw_operands(n, c, h, s, 2, cb, residual=True)
             got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", "gelu",
                                                residual=r, gap=gap,
                                                dilation=2)
             want = direct_conv_blocked(x, w, s, "SAME", b, "gelu", groups=c,
                                        dilation=2, residual=r, gap=gap)
             torch.cuda.synchronize()
-            track("conv2d_depthwise_fwd", compare(
-                f"dwconv {c} Cb={cb} {h}x{h} s{s} dilation 2 n{n} "
-                f"gelu+residual{'+gap' if gap else ''}", got, want, **TOL))
+            tag = (f"dwconv {c} Cb={cb} {h}x{h} s{s} dilation 2 n{n} "
+                   f"gelu+residual{'+gap' if gap else ''}")
+            track("conv2d_depthwise_fwd", compare(tag, got, want, **TOL))
+            if gap:
+                check_gap(tag, dwk.depthwise_gap(x, w, b, s, "SAME", "gelu",
+                                                 r, dilation=2),
+                          spec.ho * spec.wo, got)
         x, w, b, r = pw_operands(2, 24, 40, 9, 8, 8, residual=True)
         got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "SAME", "gelu",
                                            residual=r, gap=True)
@@ -867,8 +1024,8 @@ def mobilenet_phases(args, dev, t_start):
     images = torch.randn((MB_BATCH, ENTRY, ENTRY, 3),
                          generator=torch.Generator().manual_seed(args.seed + 3)
                          ).to(dev)
-    one_forward = {"direct_conv2d_fwd": 1, "gap_finalize": 1,
-                   "conv2d_depthwise_fwd": 13, "conv2d_pointwise_fwd": 13}
+    one_forward = {"direct_conv2d_fwd": 1, "conv2d_depthwise_fwd": 13,
+                   "conv2d_pointwise_fwd": 13}
     with torch.no_grad():
         reset_all_launches()
         logits = model(images)
@@ -912,7 +1069,7 @@ def mobilenet_phases(args, dev, t_start):
     bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
     if bad:
         fail(f"requests not OK: {bad}")
-    n_fwd = served["gap_finalize"]
+    n_fwd = health["batches"]
     if n_fwd == 0 or any(served[k] != v * n_fwd for k, v in
                          one_forward.items()):
         fail(f"server forwards did not all run the kernels: {served}")
@@ -959,6 +1116,8 @@ def mobilenet_phases(args, dev, t_start):
         torch.cuda.synchronize()
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             fail(f"dw wgrad {tag}: two runs differ")
+        check_fold(f"dw wgrad {tag}", dwk.depthwise_wgrad_partials(
+            x, g, 3, 3, s, "SAME", z, "relu", True), (dw, db))
         want_dw, want_db = direct_conv_wgrad_blocked(
             x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
             True, groups=c)
@@ -991,6 +1150,8 @@ def mobilenet_phases(args, dev, t_start):
         torch.cuda.synchronize()
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             fail(f"pw wgrad {tag}: two runs differ")
+        check_fold(f"pw wgrad {tag}", pwk.pointwise_wgrad_partials(
+            x, g, z, "relu", True), (dw, db))
         want_dw, want_db = direct_conv_wgrad_blocked(
             x.double(), g.double(), 1, 1, 1, "VALID", z.double(), "relu",
             True)
@@ -1042,7 +1203,7 @@ def mobilenet_phases(args, dev, t_start):
 
     # -- 13. the fourth main path: MobileNet v1 trained ---------------------
     one_step = {"direct_conv2d_fwd": 1, "direct_conv2d_wgrad": 1,
-                "wgrad_reduce": 27, "conv2d_depthwise_fwd": 13,
+                "conv2d_depthwise_fwd": 13,
                 "conv2d_depthwise_dgrad": 13, "conv2d_depthwise_wgrad": 13,
                 "conv2d_pointwise_fwd": 13, "conv2d_pointwise_dgrad": 13,
                 "conv2d_pointwise_wgrad": 13}
@@ -1238,6 +1399,9 @@ def mobilenet_phases(args, dev, t_start):
                              f"tensor-core MACs issued {got} for the "
                              f"function's {fn_macs}, padding "
                              f"{1 - 3 * fn_macs / got:.3f}")
+                if kind == "wgrad":
+                    extra += "; " + separable_split_sum(leg, n, ci, co, ho,
+                                                        s)
                 print(f"[mb-layer] block{i + 1} {leg} {kind} {ci}->{cout} "
                       f"in {ext}x{ext} s{st} "
                       f"n{MB_BATCH if kind == 'fwd' else n}: kernel_ms "
@@ -1457,6 +1621,8 @@ def stream_phases(args, dev, t_start):
         torch.cuda.synchronize()
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             fail(f"stream wgrad {tag}: two runs differ")
+        check_fold(f"stream wgrad {tag}", stk.stream_wgrad_partials(
+            x, g, 3, 3, s, "SAME", z, "relu", with_db=True), (dw, db))
         want_dw, want_db = direct_conv_wgrad_blocked(
             x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
             with_db=True)
@@ -1477,6 +1643,9 @@ def stream_phases(args, dev, t_start):
     print(f"[stream] wgrad worst err/bound over {len(shapes)} shapes: dw "
           f"{worst['dw']:.3f} db {worst['db']:.3f} (tol 1; 3xTF32 tensor "
           "cores, two runs bit for bit)")
+    # Cob % 4 != 0: the streamed dgrad's cp.async path
+    err["conv2d_stream_dgrad"] = max(err["conv2d_stream_dgrad"],
+                                     c1_dgrads("streamed", True))
     stamp(15)
 
     # -- 16. the fifth and sixth main paths: VGG-16 on the streamed route --
@@ -1497,9 +1666,10 @@ def stream_phases(args, dev, t_start):
     server.run()
     torch.cuda.synchronize()
     served = all_launches()
+    health = server.health()
     print(f"[stream-serve] launches {({k: v for k, v in served.items() if v})}"
-          f" health {json.dumps(server.health())}")
-    n_fwd = served["gap_finalize"]
+          f" health {json.dumps(health)}")
+    n_fwd = health["batches"]
     if any(served[k] for k in window_kernels) or n_fwd == 0 or \
             served["conv2d_stream_fwd"] != 13 * n_fwd or \
             served["conv2d_stream_dgrad"] or served["conv2d_stream_wgrad"]:
@@ -1527,7 +1697,7 @@ def stream_phases(args, dev, t_start):
                                       .Generator().manual_seed(args.seed + 3)),
         BATCH, args.seed + 3, {"conv2d_stream_fwd": 13,
                                "conv2d_stream_dgrad": 12,
-                               "conv2d_stream_wgrad": 13, "wgrad_reduce": 13},
+                               "conv2d_stream_wgrad": 13},
         dev, context=streamed)
     trained = tr.counts
     stamp(16)
@@ -1634,7 +1804,7 @@ def stream_phases(args, dev, t_start):
               f"({macs / 1e6 / v[1]:.1f} function GMAC/s on the device), "
               f"window eager_ms {v[2]:.4f} graph_ms {v[3]:.4f}, library_ms "
               f"{v[5]:.4f}; bound_ms {v[6]:.4f} (3xTF32), f32 FMA bound_ms "
-              f"{v[8]:.4f}")
+              f"{v[8]:.4f}; {split_sum_text(x, g, s, streamed=True)}")
         if "dgrad" in rows[key]:
             v = rows[key]["dgrad"]
             phases, plan, macs = dgrad_work(g, w, z, h, s, streamed=True)
@@ -2451,7 +2621,6 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers
     from repro_torch.core import conv2d_common
-    from repro_torch.core.blocking import choose_fwd_blocking
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.blocking import (choose_dgrad_blocking,
                                            choose_wgrad_blocking)
@@ -2463,10 +2632,9 @@ def main(argv=None) -> int:
                                                    direct_conv2d_blocked,
                                                    direct_conv2d_dgrad,
                                                    direct_conv2d_wgrad,
-                                                   gap_finalize,
+                                                   gap_forward,
                                                    reset_launches,
-                                                   wgrad_partials,
-                                                   wgrad_reduce)
+                                                   wgrad_partials)
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.serve.scheduler import ConvRequest, Outcome
 
@@ -2565,7 +2733,7 @@ def main(argv=None) -> int:
     # every shape the server's buckets give the kernel, with its own tiles
     served_layers = [sh for bh, _ in BUCKETS for sh in layer_shapes(bh)]
     checked = sorted(set(served_layers), key=served_layers.index)
-    max_err = {"direct_conv2d_fwd": 0.0, "gap_finalize": 0.0}
+    max_err = {"direct_conv2d_fwd": 0.0}
     with torch.no_grad():
         for ci, co, s, h in checked:
             x, w, b, _, _ = operands(BATCH, ci, co, h, s)
@@ -2588,19 +2756,29 @@ def main(argv=None) -> int:
                 max_err["direct_conv2d_fwd"],
                 compare(f"conv {ci}->{co} {h}x{h} s{s} n{n} gelu+residual"
                         f"{'+gap' if gap else ''}", got, want, **TOL))
-        # the partial sums the last VGG-16 conv hands to the GAP finalize
+        # the last VGG-16 conv with the GAP folded in, both routes: the
+        # pooled features bit for bit the in-order finalize of the per-tile
+        # sums the same launch wrote
         ci, co, s, h = layers[-1]
-        spec = ConvSpec.make(BATCH, h, h, ci, co, 3, 3, s, "SAME")
-        cob, cib = min(co, 128), min(ci, 128)
-        blk = choose_fwd_blocking(BATCH, spec.ho, spec.wo, 3, 3, s,
-                                  ci // cib, cib, co // cob, cob, gap=True)
-        gap_shape = (BATCH, co // cob, blk.tiles, cob)
-        gap_hw = spec.ho * spec.wo
-        parts = torch.randn(gap_shape, device=dev, generator=gen)
-        max_err["gap_finalize"] = compare(
-            f"gap_finalize {list(gap_shape)} hw={gap_hw}",
-            gap_finalize(parts, gap_hw),
-            conv2d_common.gap_finalize(parts, gap_hw), **TOL)
+        x, w, b, _, _ = operands(BATCH, ci, co, h, s)
+        want = direct_conv_blocked(x, w, s, "SAME", b, "relu", gap=True)
+        for streamed in (False, True):
+            pooled, parts = gap_forward(x, w, b, s, "SAME", "relu",
+                                        streamed=streamed)
+            hw = ConvSpec.make(BATCH, h, h, ci, co, 3, 3, s, "SAME").ho ** 2
+            fold = conv2d_common.gap_finalize(parts, hw)
+            torch.cuda.synchronize()
+            route = "streamed" if streamed else "window"
+            if not torch.equal(pooled, fold):
+                fail(f"{route} forward's folded GAP differs from the "
+                     f"finalize of its partials {list(parts.shape)}")
+            print(f"[check] {route} forward's folded GAP {list(parts.shape)}"
+                  ": identical bits to conv2d_common.gap_finalize of its "
+                  "partials")
+            max_err["direct_conv2d_fwd"] = max(
+                max_err["direct_conv2d_fwd"],
+                compare(f"conv {ci}->{co} {h}x{h} s{s} n{BATCH} relu+gap "
+                        f"({route})", pooled, want, **TOL))
 
     # -- 4. full VGG-16 forward --------------------------------------------
     cpu_gen = torch.Generator().manual_seed(args.seed)
@@ -2613,8 +2791,9 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         counts = {k: v for k, v in LAUNCHES.items() if v}
         print(f"[vgg16] forward n{BATCH} {ENTRY}x{ENTRY}: launches {counts}")
-        if counts != {"direct_conv2d_fwd": 13, "gap_finalize": 1}:
-            fail(f"expected 13 conv launches and 1 GAP finalize, got {counts}")
+        if counts != {"direct_conv2d_fwd": 13}:
+            fail(f"expected 13 conv launches (the GAP in the last), got "
+                 f"{counts}")
         ref = plain_cnn_forward(images, model)
         scale = ref.abs().max().item()
         compare("vgg16 logits vs plain path", logits, ref,
@@ -2639,15 +2818,14 @@ def main(argv=None) -> int:
     server.run()
     torch.cuda.synchronize()
     served = dict(LAUNCHES)
-    if any(served[k] for k in ("direct_conv2d_dgrad", "direct_conv2d_wgrad",
-                               "wgrad_reduce")):
+    if any(served[k] for k in ("direct_conv2d_dgrad", "direct_conv2d_wgrad")):
         fail(f"the server launched backward kernels: {served}")
     health = server.health()
     print(f"[serve] launches {served} health {json.dumps(health)}")
     bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
     if bad:
         fail(f"requests not OK: {bad}")
-    n_fwd = served["gap_finalize"]
+    n_fwd = health["batches"]
     if n_fwd == 0 or served["direct_conv2d_fwd"] != 13 * n_fwd:
         fail(f"server forwards did not all run the kernels: {served}")
     with torch.no_grad():
@@ -2710,15 +2888,6 @@ def main(argv=None) -> int:
                   f"{f32_ms:.4f}, bound/kernel {b_ms / k_ms:.3f}")
             print(f"[layer] {name} fwd tiles: "
                   f"{fwd_text(fblk, plan, macs, g_ms)}")
-        parts = torch.randn(gap_shape, device=dev, generator=gen)
-        g_ms = time_ms(lambda: gap_finalize(parts, gap_hw), iters=50)
-        gp_ms = time_ms(lambda: conv2d_common.gap_finalize(parts, gap_hw),
-                        iters=50)
-        # the library yardstick: one reduction over the tiles (its scale is
-        # 1 / n_tiles, not 1 / hw: the same work)
-        gl_ms = time_ms(lambda: torch.mean(parts, dim=2), iters=50)
-        pooled = gap_shape[0] * gap_shape[1] * gap_shape[3]
-        g_bound, g_by = bound(parts.numel(), 4 * (parts.numel() + pooled))
     tot = [sum(r[i] for r in rows) for i in range(4)]
     conv_by = mostly([(r[3], r[4]) for r in rows])
     print(f"[layer] all 13 convs: kernel_ms {tot[0]:.4f} graph_ms "
@@ -2727,13 +2896,9 @@ def main(argv=None) -> int:
           f"bound_ms {fw_sum['f32']:.4f}; function MACs {fw_sum['macs']}, "
           f"tensor-core MACs issued {fw_sum['issued']} (padding "
           f"{100 * (1 - 3 * fw_sum['macs'] / fw_sum['issued']):.1f} %)")
-    print(f"[layer] gap_finalize {list(gap_shape)} hw={gap_hw}: kernel_ms "
-          f"{g_ms:.4f} plain_ms {gp_ms:.4f} library_ms {gl_ms:.4f} "
-          f"(torch.mean over the tiles) bound_ms {g_bound:.6f} ({g_by})")
 
     # -- 7. backward kernels vs plain versions -----------------------------
-    bwd_err = {"direct_conv2d_dgrad": 0.0, "direct_conv2d_wgrad": 0.0,
-               "wgrad_reduce": 0.0}
+    bwd_err = {"direct_conv2d_dgrad": 0.0, "direct_conv2d_wgrad": 0.0}
     bwd_ops = {}      # per distinct shape: the operands phase 9 times
     for ci, co, s, h in shapes:
         x, w, b, _, spec = operands(BATCH, ci, co, h, s)
@@ -2770,6 +2935,8 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
             fail(f"wgrad {tag}: two runs differ")
+        check_fold(f"wgrad {tag}", wgrad_partials(
+            x, g, 3, 3, s, "SAME", z, "relu", with_db=True), (dw, db))
         want_dw, want_db = direct_conv_wgrad_blocked(
             x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
             with_db=True)
@@ -2812,20 +2979,10 @@ def main(argv=None) -> int:
             f"autograd {name} 3->64 20x20 s2 n2 gelu+residual vs plain "
             "autograd", gk, gp, **TOL))
 
-    # the reduce alone, on the workspace shape of conv4_2
-    ci, co, s, h = layers[8]
-    wb = choose_wgrad_blocking(BATCH, h, h, 3, 3, s, ci // 128, 128,
-                               co // 128, 128, prologue=True)
-    parts = torch.randn((wb.splits, 9 * ci * co + co), device=dev,
-                        generator=gen)
-    got = wgrad_reduce(parts)
-    want = conv2d_common.wgrad_reduce(parts)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("wgrad_reduce differs from the in-order sum of its rows")
-    print(f"[check] wgrad_reduce {list(parts.shape)}: identical bits to "
-          f"the rows summed in order -> ok")
-    del parts, got, want
+    # Cob % 4 != 0: the dgrad's cp.async path, at a pencil of 6 and at Co
+    # = 1000's pencil of 125, against the plain version and the library
+    bwd_err["direct_conv2d_dgrad"] = max(bwd_err["direct_conv2d_dgrad"],
+                                         c1_dgrads("window", False))
 
     print(f"[time] phase 7 done at {time.perf_counter() - t_start:.1f} s")
 
@@ -2834,7 +2991,7 @@ def main(argv=None) -> int:
         "train", vgg16_blocked(1000, device=dev, generator=torch.Generator()
                                .manual_seed(args.seed + 1)),
         BATCH, args.seed, {"direct_conv2d_fwd": 13, "direct_conv2d_dgrad": 12,
-                           "direct_conv2d_wgrad": 13, "wgrad_reduce": 13},
+                           "direct_conv2d_wgrad": 13},
         dev)
     train_counts = tr.counts
 
@@ -2882,16 +3039,10 @@ def main(argv=None) -> int:
             *w_bound[:2])
         row["wgrad_f32_bound"] = w_bound[2]
         row["wgrad_graph"] = graph_ms(wgrad)
-        ws = wgrad()
-        row["reduce"] = (
-            time_ms(lambda: wgrad_reduce(ws), iters=20),
-            time_ms(lambda: conv2d_common.wgrad_reduce(ws), iters=20),
-            time_ms(lambda: torch.sum(ws, dim=0), iters=20),
-            *bound(ws.numel(), 4 * (ws.numel() + ws.shape[1])))
-        row["splits"] = ws.shape[0]
+        row["split_sum"] = split_sum_text(x, g, s)
         brows[(ci, co, s, h)] = row
-        del ws, xp, w_oihw, dz, dz_nchw
-    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ("dgrad", "wgrad", "reduce")}
+        del xp, w_oihw, dz, dz_nchw
+    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in ("dgrad", "wgrad")}
     kinds = {k: [] for k in sums}
     dg_sum = {"graph": 0.0, "macs": 0, "issued": 0, "f32": 0.0}
     wg_sum = dict(dg_sum)
@@ -2913,7 +3064,7 @@ def main(argv=None) -> int:
               f"{row['wgrad_graph']:.4f} library_ms {l_ms:.4f}; "
               f"{macs / 1e6 / row['wgrad_graph']:.1f} function GMAC/s on the "
               f"device; bound_ms {b_ms:.4f} (3xTF32), f32 FMA bound_ms "
-              f"{row['wgrad_f32_bound']:.4f}")
+              f"{row['wgrad_f32_bound']:.4f}; {row['split_sum']}")
         if "dgrad" in row:
             k_ms, _, l_ms, b_ms, _ = row["dgrad"]
             f32_ms = row["dgrad_f32_bound"]
@@ -2933,18 +3084,17 @@ def main(argv=None) -> int:
                   f"(3xTF32), f32 FMA bound_ms {f32_ms:.4f}, issued MACs at "
                   f"the TF32 peak "
                   f"{2 * plan.issued_macs / PEAK_TF32_FLOPS * 1e3:.4f} ms")
-        for kind in ("dgrad", "wgrad", "reduce"):
+        for kind in ("dgrad", "wgrad"):
             if kind not in row:
                 continue
             k_ms, p_ms, l_ms, b_ms, b_by = row[kind]
             for i, v in enumerate((k_ms, p_ms, l_ms, b_ms)):
                 sums[kind][i] += v
             kinds[kind].append((b_ms, b_by))
-            extra = f" splits {row['splits']}" if kind == "reduce" else ""
             print(f"[bwd] {name} {kind} {ci}->{co} in {h}x{h} s{s} n{BATCH}:"
                   f" kernel_ms {k_ms:.4f} plain_ms {p_ms:.4f} library_ms "
                   f"{l_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) bound/kernel "
-                  f"{b_ms / k_ms:.3f}{extra}")
+                  f"{b_ms / k_ms:.3f}")
     for kind, (k_ms, p_ms, l_ms, b_ms) in sums.items():
         print(f"[bwd] all {len(kinds[kind])} {kind}: kernel_ms {k_ms:.4f} "
               f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} bound_ms "
@@ -3009,15 +3159,9 @@ def main(argv=None) -> int:
          "max_abs_err": max_err["direct_conv2d_fwd"], "ms": tot[0],
          "plain_ms": tot[1], "bound_ms": tot[3], "bound_by": conv_by,
          "library_ms": tot[2]},
-        {"name": "gap_finalize", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches["gap_finalize"],
-         "max_abs_err": max_err["gap_finalize"], "ms": g_ms,
-         "plain_ms": gp_ms, "bound_ms": g_bound, "bound_by": g_by,
-         "library_ms": gl_ms},
     ]
     for name, kind, tpu in (("direct_conv2d_dgrad", "dgrad", TPU_DGRAD),
-                            ("direct_conv2d_wgrad", "wgrad", TPU_WGRAD),
-                            ("wgrad_reduce", "reduce", TPU_WGRAD)):
+                            ("direct_conv2d_wgrad", "wgrad", TPU_WGRAD)):
         k_ms, p_ms, l_ms, b_ms = sums[kind]
         kernels.append({
             "name": name, "route": "cuda", "source": BWD_SOURCE,

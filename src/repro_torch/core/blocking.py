@@ -29,7 +29,8 @@ model of the busiest SM's cycles over the candidates that fit:
   Cob and whose K runs over output positions; a CTA of one to three
   consumer warpgroups shares each staged tile among its m-tiles and walks
   a share of the position tiles, and the shares' partial sums go to a
-  workspace that a second pass reduces in split order.
+  workspace whose rows the last CTA of each column of shares sums in split
+  order (``SPLIT_SUM_BYTES_PER_CYCLE``: one SM reads a column's rows).
 
 The streamed (halo-ring) kernels of ``csrc/conv2d_stream.cu`` run the same
 tiles over bands of strips (their section below).
@@ -45,7 +46,8 @@ The last four fit the FMA kernels' CTA of ``MachineModel.threads`` threads
 and ``lanes x positions`` register tiles in ``smem_budget`` bytes, two
 CTAs an SM; each sizes its tiles so that the grid fills the card where the
 map allows it (``MachineModel.wave``), and the wgrads split their position
-reductions as the dense wgrad does.
+reductions into one wave of CTAs, or one CTA an SM where a column's rows
+would pass ``SPLIT_SUM_COLUMN_BYTES`` (``_splits``).
 
 Every chooser is a pure function of its arguments and is cached by them,
 so a layer pays for its search once, not at every launch, and every
@@ -71,6 +73,7 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "dgrad_candidates", "choose_dgrad_blocking",
            "WGRAD_ROWS", "WGRAD_CONSUMERS", "WGRAD_THREADS",
            "WGRAD_MAX_POSITIONS", "WGRAD_MPW", "WGRAD_WORKSPACE_BYTES",
+           "SPLIT_SUM_BYTES_PER_CYCLE", "SPLIT_SUM_COLUMN_BYTES",
            "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "WgradBlocking",
            "StreamWgradBlocking", "wgrad_smem_bytes", "WgradPlan",
            "wgrad_plan", "wgrad_candidates", "choose_wgrad_blocking",
@@ -720,7 +723,7 @@ WGRAD_STAGE_CYCLES = 1500
 WGRAD_BYTES_PER_CYCLE = 20
 WGRAD_TRANSFORM_CYCLES = 12
 # the card's memory rate in bytes a cycle of the whole card (3.35e12 /
-# 1.83e9), for the workspace the shares write and the reduce reads
+# 1.83e9), for the workspace rows the shares write and the sums they fold
 WGRAD_CARD_BYTES_PER_CYCLE = 1830
 
 
@@ -876,8 +879,9 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     ``WGRAD_MACS_PER_CYCLE``, the share ``WGRAD_WG_EFFICIENCY`` of it they
     keep busy) and the producer's stage (a fixed part, the bytes of its
     window and dz tile at ``WGRAD_BYTES_PER_CYCLE`` and its dz pass), plus
-    a first stage a CTA; and the workspace the shares
-    write and the reduce reads.  Ties go to fewer shares, then larger
+    a first stage a CTA; the workspace the shares write; and the folded
+    sum's tail, one column's rows read by one SM at
+    ``SPLIT_SUM_BYTES_PER_CYCLE``.  Ties go to fewer shares, then larger
     stages."""
     lanes = wgrad_lanes(cob)
     mt = wgrad_mtiles(hf, wf, cib)
@@ -905,6 +909,7 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                         or (wgs - 1) * mpw >= mt):
                     continue
                 groups = -(-mt // (wgs * mpw))
+                column = min(hf * wf * cib, wgs * mpw * WGRAD_ROWS) * cob
                 mma = (mt / groups * kpos / 8 * 3 * WGRAD_ROWS * lanes * 8
                        / WGRAD_MACS_PER_CYCLE / WGRAD_WG_EFFICIENCY[wgs])
                 stage = max(mma, producer)
@@ -920,8 +925,10 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                     ctas = base * splits
                     cost = (-(-ctas // machine.sms)
                             * (-(-tiles // splits) * stage + producer)
-                            + (2 * splits + 1) * cols * 4
-                            / WGRAD_CARD_BYTES_PER_CYCLE)
+                            + (splits + 1) * cols * 4
+                            / WGRAD_CARD_BYTES_PER_CYCLE
+                            + splits * column * 4
+                            / SPLIT_SUM_BYTES_PER_CYCLE)
                     out.append(((cost, splits, -kpos, -wgs * mpw),
                                 cls(th=th, tw=tw, wgs=wgs, mpw=mpw,
                                     lanes=lanes, groups=groups,
@@ -955,10 +962,30 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                            machine, prologue, False, None, "wgrad tile")
 
 
-def _splits(tiles: int, base: int, machine: MachineModel) -> int:
-    """Position shares of a split reduction: enough that the grid holds the
-    card's resident CTAs twice over, never more shares than tiles."""
-    return max(1, min(tiles, -(-2 * machine.wave // base)))
+# The split sums folded into the kernels that write their rows
+# (csrc/split_sum.cuh): the last CTA of a column of shares reads the
+# column's rows alone, at one SM's share of the L2's rate,
+# SPLIT_SUM_BYTES_PER_CYCLE bytes a cycle (about 150 GB/s: VGG-16's conv1_2
+# and conv2_1 wgrads, one summing CTA against many, on an H100).  The
+# separable wgrads take as many shares as one wave of CTAs holds, or one
+# CTA an SM where that would give a column more than SPLIT_SUM_COLUMN_BYTES
+# of rows: of 1.5, 3, 6 and 32 MiB, 3 timed fastest over MobileNet v1's
+# pointwise legs at batch 32 (launch/split_sum_ab.py --column-mib).
+SPLIT_SUM_BYTES_PER_CYCLE = 80
+SPLIT_SUM_COLUMN_BYTES = 3 << 20
+
+
+def _splits(tiles: int, base: int, row_bytes: int,
+            machine: MachineModel) -> int:
+    """Position shares of each of ``base`` columns of a folded split
+    reduction whose rows are ``row_bytes`` long: as many as one wave of CTAs
+    holds, or one CTA an SM where that would give a column more than
+    ``SPLIT_SUM_COLUMN_BYTES`` of rows; at least one, never more than
+    tiles."""
+    shares = machine.wave // base
+    if shares * row_bytes > SPLIT_SUM_COLUMN_BYTES:
+        shares = machine.sms // base
+    return max(1, min(tiles, shares))
 
 
 # ---------------------------------------------------------------------------
@@ -1138,7 +1165,8 @@ def choose_pointwise_wgrad_blocking(n: int, hw: int, ciblk: int, cib: int,
     tiles = n * -(-hw // positions)
     return PointwiseWgradBlocking(
         positions=positions, pgroups=pgroups, tiles=tiles,
-        splits=_splits(tiles, ciblk * coblk, machine))
+        splits=_splits(tiles, ciblk * coblk, 4 * (cib * cob + cob),
+                       machine))
 
 
 # ---------------------------------------------------------------------------
@@ -1369,7 +1397,9 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
     _, h, w = best
     tiles = n * (ho // h) * (wo // w)
     return DepthwiseWgradBlocking(hob=h, wob=w, tiles=tiles,
-                                  splits=_splits(tiles, cblk, machine))
+                                  splits=_splits(tiles, cblk,
+                                                 4 * (hf * wf + 1) * cb,
+                                                 machine))
 
 
 # ---------------------------------------------------------------------------

@@ -15,14 +15,17 @@ steps in the same order:
   all in f32, then **one** downcast;
 * ``gap_partials`` / ``gap_finalize`` — the global-average-pool rider: f32
   per-tile sums of the *stored* values, then the tiles summed in index
-  order and scaled by the f32 reciprocal of ``Ho*Wo``;
+  order and scaled by the f32 reciprocal of ``Ho*Wo`` (the last CTA of
+  each image and output block does the second step in the launch that
+  writes the sums);
 * ``cotangent_prologue`` — the backward kernels' ``dz = g * act'(z)``
   (``csrc/direct_conv2d_bwd.cu`` forms it as it stages ``g``);
 * ``blocked_global_avg_pool`` — the unfused GAP of a stored map, which the
   training path applies after the activation, as the reference's custom VJP
   leaves it to XLA;
-* ``wgrad_reduce`` — the wgrad kernel's second pass: its per-split partial
-  sums added in split order.
+* ``wgrad_reduce`` — the wgrad kernels' per-split partial sums added in
+  split order, as the last CTA of each column of shares adds them
+  (``csrc/split_sum.cuh``).
 """
 from __future__ import annotations
 
@@ -163,6 +166,9 @@ def blocked_global_avg_pool(xb: torch.Tensor) -> torch.Tensor:
 def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
     """``[splits, cols]`` partial sums of the wgrad kernel -> ``[cols]``:
     the rows summed in index order."""
+    if partials.dim() != 2:
+        raise ValueError(f"partials must be [splits, cols], got "
+                         f"{tuple(partials.shape)}")
     acc = partials[0]
     for k in range(1, partials.shape[0]):
         acc = acc + partials[k]

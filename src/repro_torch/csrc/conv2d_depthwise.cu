@@ -46,8 +46,9 @@
 // 9), with no division in the walk.  Other filters, strides and dilations
 // take a loop over the taps.  The epilogue is the reference's (+ b,
 // activation, + r, one store); with GAP a CTA writes each item's sums over
-// its positions, its position groups added in order, for `gap_finalize`,
-// which adds an image's tiles in order.  No atomics.
+// its positions, its position groups added in order, and the CTA of the
+// last item of an (image, channel block) adds the image's tiles in order
+// into the pooled features (split_sum.cuh), in the same launch.
 //
 // dgrad (`depthwise_dgrad_kernel`): one CTA per (tile of hob x wob positions
 // of dx, channel block, image).  It stages a halo'd window of the cotangent
@@ -62,9 +63,10 @@
 // block.  Here a CTA owns one channel block's [Hf*Wf, Cb] sums and walks a
 // contiguous share of the position tiles (`splits` shares), staging each
 // tile's x window and dz tile; a thread holds its lane's tap sums and db in
-// registers, the position groups' sums meet in shared memory in group order,
-// and each share's row of the [splits, |dw| + |db|] f32 workspace is summed
-// by `wgrad_reduce` (direct_conv2d_bwd.cu) in split order.  No atomics.
+// registers, the position groups' sums meet in shared memory in group order
+// into the share's row of the [splits, |dw| + |db|] f32 workspace, and the
+// channel block's last CTA sums the rows in split order into dw and db
+// (split_sum.cuh).  No sum depends on the order CTAs run in.
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
 // forward's geometry as one int array, built once per shape); each entry
@@ -73,6 +75,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
+
+#include "split_sum.cuh"
 
 namespace {
 
@@ -261,8 +265,9 @@ depthwise_fwd_kernel(const float* __restrict__ x,
                      const float* __restrict__ w,
                      const float* __restrict__ bias,
                      const float* __restrict__ residual,
-                     float* __restrict__ out,
-                     float* __restrict__ partials, FwdGeometry g) {
+                     float* __restrict__ out, float* partials,
+                     float* __restrict__ pooled, int* counters,
+                     FwdGeometry g) {
   extern __shared__ __align__(16) float smem[];
   const int L = g.lanes;
   const int slot_floats = (g.hwin * g.wwin * L + 3) & ~3;
@@ -388,6 +393,11 @@ depthwise_fwd_kernel(const float* __restrict__ x,
         for (int q = 0; q < npg; ++q) s += red[q * L + t];
         partials[((size_t)m.map * tiles + m.tile) * g.cb + m.lane0 + t] = s;
       }
+      // the last item of (image, channel block), over its tiles and lane
+      // groups: the tiles in order, times the f32 reciprocal of Ho * Wo
+      split_sum::gap_fold(partials, pooled, counters, m.map, tiles,
+                          tiles * (g.cb / L), g.cb, g.ho * g.wo,
+                          reinterpret_cast<int*>(red), 0, kThreads);
     }
     __syncthreads();                 // the slot is refilled next iteration
   }
@@ -496,11 +506,12 @@ depthwise_dgrad_kernel(const float* __restrict__ src,
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 depthwise_wgrad_kernel(const float* __restrict__ x,
                        const float* __restrict__ g,
-                       const float* __restrict__ z, float* __restrict__ ws,
-                       int n_img, int cblk, int cb, int hi, int wi, int ho,
-                       int wo, int hf, int wf, int stride, int dil_h,
-                       int dil_w, int pad_top, int pad_left, int hob, int wob,
-                       int splits, int act, int with_db) {
+                       const float* __restrict__ z, float* ws, float* out,
+                       int* counters, int n_img, int cblk, int cb, int hi,
+                       int wi, int ho, int wo, int hf, int wf, int stride,
+                       int dil_h, int dil_w, int pad_top, int pad_left,
+                       int hob, int wob, int splits, int act,
+                       int with_db) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x;
   const int c_b = blockIdx.y;
@@ -584,6 +595,22 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
       row[dw_size + c_b * cb + e - taps * cb] = s;
     }
   }
+
+  // the channel block's last CTA sums its rows in split order, and db
+  // (red is free once every thread has arrived)
+  const size_t cols = dw_size + (with_db ? cblk * cb : 0);
+  if (!split_sum::arrive(counters + c_b, splits,
+                         reinterpret_cast<int*>(red), 0, kThreads, t == 0)) {
+    return;
+  }
+  const size_t at = (size_t)c_b * taps * cb;
+  split_sum::sum_rows(ws + at, cols, splits, out + at, taps * cb, 1.0f, t,
+                      kThreads);
+  if (with_db) {
+    const size_t db = dw_size + (size_t)c_b * cb;
+    split_sum::sum_rows(ws + db, cols, splits, out + db, cb, 1.0f, t,
+                        kThreads);
+  }
 }
 
 // Raise a kernel's dynamic shared-memory limit once per device to the most
@@ -618,12 +645,15 @@ void conv2d_depthwise_geometry(int* threads, int* lanes, int* taps) {
   *taps = kMaxTaps;
 }
 
-// The forward.  plan: the FwdGeometry fields in order, then the grid's
-// CTAs, the dynamic shared memory and the kernel variant (0: any filter;
-// 1, 2: 3x3 at dilation 1 and that stride).
+// The forward; with GAP (partials not null) the items' sums into partials
+// and the pooled [N, C] features into pooled, with two zeroed int32
+// counters an (image, channel block).  plan: the FwdGeometry fields in
+// order, then the grid's CTAs, the dynamic shared memory and the kernel
+// variant (0: any filter; 1, 2: 3x3 at dilation 1 and that stride).
 int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
                          const void* residual, void* out, void* partials,
-                         const int* plan, void* stream) {
+                         void* pooled, void* counters, const int* plan,
+                         void* stream) {
   FwdGeometry g;
   int* fields = reinterpret_cast<int*>(&g);
   for (int i = 0; i < kFwdInts; ++i) fields[i] = plan[i];
@@ -631,6 +661,8 @@ int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
   const int smem = plan[kFwdInts + 1];
   const int variant = plan[kFwdInts + 2];
   if (grid <= 0) return 0;
+  if (partials != nullptr && (pooled == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
   auto kernel = variant == 1   ? depthwise_fwd_kernel<1>
                 : variant == 2 ? depthwise_fwd_kernel<2>
                                : depthwise_fwd_kernel<0>;
@@ -638,7 +670,8 @@ int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)x, (const float*)w, (const float*)bias,
-      (const float*)residual, (float*)out, (float*)partials, g);
+      (const float*)residual, (float*)out, (float*)partials, (float*)pooled,
+      (int*)counters, g);
   return (int)cudaGetLastError();
 }
 
@@ -661,11 +694,15 @@ int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
   return (int)cudaGetLastError();
 }
 
+// The wgrad: `splits` position shares of each channel block into `ws`
+// [splits, |dw| + |db|], summed by each block's last CTA into `out`
+// ([|dw| + |db|]); `counters`: a zeroed int32 a channel block.
 int conv2d_depthwise_wgrad(const void* x, const void* g, const void* z,
-                           void* ws, int n, int cblk, int cb, int hi, int wi,
-                           int ho, int wo, int hf, int wf, int stride,
-                           int dil_h, int dil_w, int pad_top, int pad_left,
-                           int hob, int wob, int splits, int act, int with_db,
+                           void* ws, void* out, void* counters, int n,
+                           int cblk, int cb, int hi, int wi, int ho, int wo,
+                           int hf, int wf, int stride, int dil_h, int dil_w,
+                           int pad_top, int pad_left, int hob, int wob,
+                           int splits, int act, int with_db,
                            int smem_bytes, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
       depthwise_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -673,9 +710,10 @@ int conv2d_depthwise_wgrad(const void* x, const void* g, const void* z,
   if (err != cudaSuccess) return (int)err;
   depthwise_wgrad_kernel<<<dim3(splits, cblk), kThreads, smem_bytes,
                            (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws, n, cblk,
-      cb, hi, wi, ho, wo, hf, wf, stride, dil_h, dil_w, pad_top, pad_left,
-      hob, wob, splits, act, with_db);
+      (const float*)x, (const float*)g, (const float*)z, (float*)ws,
+      (float*)out, (int*)counters, n, cblk, cb, hi, wi, ho, wo, hf, wf,
+      stride, dil_h, dil_w, pad_top, pad_left, hob, wob, splits, act,
+      with_db);
   return (int)cudaGetLastError();
 }
 

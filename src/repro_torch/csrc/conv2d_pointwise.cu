@@ -53,8 +53,8 @@
 // Epilogue: the forward's is the reference's (+ b, activation, + r, one
 // store); with GAP each CTA writes its tile's sums of the stored values,
 // the rows of a warp summed by shuffles and the consumer warps in order,
-// which `gap_finalize` (direct_conv2d_fwd.cu) adds an image's tiles in
-// order.
+// and the last CTA of an (image, output block) adds the image's tiles in
+// order into the pooled features (split_sum.cuh), in the same launch.
 //
 // What bounds it on this card.  Per output element the forward does 2*Ci
 // FLOPs against 4 bytes written and 4*Ci/Co bytes read: 32 to 512 FLOP/byte
@@ -71,9 +71,10 @@
 // owns one [Cib, Cob] block and a contiguous share of the position tiles
 // (`splits` shares per block); its threads form `pgroups` position groups of
 // 8 x 8 register tiles, whose sums meet in shared memory in group order, and
-// each share's sums go to its row of an f32 workspace [splits, |dw| + |db|]
-// that `wgrad_reduce` (direct_conv2d_bwd.cu) adds in split order.  No
-// atomics: two runs give identical bits.  db rides the Ci-block-0 CTAs only.
+// each share's sums go to its row of an f32 workspace [splits, |dw| + |db|];
+// the last CTA of each block's column of shares adds the rows in split
+// order into dw and db (split_sum.cuh).  No sum depends on the order CTAs run in:
+// two runs give identical bits.  db rides the Ci-block-0 CTAs only.
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
 // tile's plan as one int array, built once per shape); each entry point
@@ -85,6 +86,7 @@
 #include <stdint.h>
 
 #include "dgrad_tile.cuh"
+#include "split_sum.cuh"
 
 namespace {
 
@@ -325,8 +327,9 @@ pointwise_tile_kernel(const float* __restrict__ x,
                       const float* __restrict__ w,
                       const float* __restrict__ bias,
                       const float* __restrict__ residual,
-                      float* __restrict__ out,
-                      float* __restrict__ partials, Geometry g) {
+                      float* __restrict__ out, float* partials,
+                      float* __restrict__ pooled, int* counters,
+                      Geometry g) {
   extern __shared__ __align__(16) float smem[];
   const int tile = blockIdx.x;
   const int o_b = blockIdx.y / g.nsplit;
@@ -449,6 +452,11 @@ pointwise_tile_kernel(const float* __restrict__ x,
       partials[((size_t)(n * g.oblk + o_b) * gridDim.x + tile) * g.ow + o0
                + c] = s;
     }
+    // the last CTA of (n, o_b), both lane halves: the image's tiles in
+    // order, times the f32 reciprocal of H * W
+    split_sum::gap_fold(partials, pooled, counters, n * g.oblk + o_b,
+                        gridDim.x, gridDim.x * g.nsplit, g.ow, g.hw,
+                        reinterpret_cast<int*>(m.red), kBarGap, consumers);
   }
 }
 
@@ -492,10 +500,10 @@ template <bool kVecX, bool kVecD>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 pointwise_wgrad_kernel(const float* __restrict__ x,
                        const float* __restrict__ g,
-                       const float* __restrict__ z, float* __restrict__ ws,
-                       int n_img, int ciblk, int cib, int coblk, int cob,
-                       int hw, int positions, int splits, int act,
-                       int with_db) {
+                       const float* __restrict__ z, float* ws, float* out,
+                       int* counters, int n_img, int ciblk, int cib,
+                       int coblk, int cob, int hw, int positions, int splits,
+                       int act, int with_db) {
   extern __shared__ __align__(16) float smem[];
   const int split = blockIdx.x;
   const int ci_b = blockIdx.y;
@@ -632,6 +640,23 @@ pointwise_wgrad_kernel(const float* __restrict__ x,
       row[dw_size + co_b * cob + e] = s;
     }
   }
+
+  // the last CTA of block (ci_b, co_b) sums its rows in split order, and
+  // db where the column has it (red is free: every thread is past its last
+  // read once it arrives)
+  const size_t cols = dw_size + (with_db ? coblk * cob : 0);
+  if (!split_sum::arrive(counters + co_b * ciblk + ci_b, splits,
+                         reinterpret_cast<int*>(red), 0, kThreads, t == 0)) {
+    return;
+  }
+  const size_t at = (size_t)(co_b * ciblk + ci_b) * block;
+  split_sum::sum_rows(ws + at, cols, splits, out + at, block, 1.0f, t,
+                      kThreads);
+  if (with_db && ci_b == 0) {
+    const size_t db = dw_size + (size_t)co_b * cob;
+    split_sum::sum_rows(ws + db, cols, splits, out + db, cob, 1.0f, t,
+                        kThreads);
+  }
 }
 
 }  // namespace
@@ -646,14 +671,16 @@ void conv2d_pointwise_geometry(int* threads, int* lanes, int* rows) {
   *rows = kRows;
 }
 
-// The forward: x, w, the bias and residual (null where absent) into out,
-// with the tile's GAP sums into partials where the plan asks for them.
-// plan: the Geometry fields in order, then the wgmma width, the consumer
-// warpgroups, an image's tiles, the images and the dynamic shared memory
-// (which must be smem_bytes's).
+// The forward: x, w, the bias and residual (null where absent) into out;
+// where the plan asks for GAP, the tiles' sums into partials and the pooled
+// features into pooled ([N, Co]), with two zeroed int32 counters an (image,
+// output block).  plan: the Geometry fields in order, then the wgmma width,
+// the consumer warpgroups, an image's tiles, the images and the dynamic
+// shared memory (which must be smem_bytes's).
 int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
                           const void* residual, void* out, void* partials,
-                          const int* plan, void* stream) {
+                          void* pooled, void* counters, const int* plan,
+                          void* stream) {
   Geometry g;
   int* fields = reinterpret_cast<int*>(&g);
   for (int i = 0; i < kGeometryInts; ++i) fields[i] = plan[i];
@@ -667,7 +694,7 @@ int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
       || (g.nsplit - 1) * lanes >= g.ow || g.nsplit * lanes < g.ow
       || tiles != (g.hw + g.rows - 1) / g.rows
       || (size_t)smem != smem_bytes(g, lanes, wgs)
-      || (g.gap && !partials)) {
+      || (g.gap && (!partials || !pooled || !counters))) {
     return (int)cudaErrorInvalidValue;
   }
   if (tiles == 0 || n == 0) return 0;
@@ -681,7 +708,9 @@ int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
   const float* r_f = (const float*)residual;
   float* out_f = (float*)out;
   float* p_f = (float*)partials;
-  void* args[] = {&x_f, &w_f, &b_f, &r_f, &out_f, &p_f, &g};
+  float* pool_f = (float*)pooled;
+  int* c_i = (int*)counters;
+  void* args[] = {&x_f, &w_f, &b_f, &r_f, &out_f, &p_f, &pool_f, &c_i, &g};
   err = cudaLaunchKernel(kernel, dim3(tiles, g.oblk * g.nsplit, n),
                          dim3(kWarpgroup * (wgs + 1)), args, smem,
                          (cudaStream_t)stream);
@@ -689,11 +718,14 @@ int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
+// The wgrad: `splits` position shares of each (Ci block, Co block) into
+// `ws` [splits, |dw| + |db|], summed by each block's last CTA into `out`
+// ([|dw| + |db|]); `counters`: a zeroed int32 a block.
 int conv2d_pointwise_wgrad(const void* x, const void* g, const void* z,
-                           void* ws, int n, int ciblk, int cib, int coblk,
-                           int cob, int hw, int positions, int splits,
-                           int act, int with_db, int smem_bytes,
-                           void* stream) {
+                           void* ws, void* out, void* counters, int n,
+                           int ciblk, int cib, int coblk, int cob, int hw,
+                           int positions, int splits, int act, int with_db,
+                           int smem_bytes, void* stream) {
   const bool vx = cib % kLanes == 0;
   const bool vd = cob % kLanes == 0;
   auto kernel = vx ? (vd ? pointwise_wgrad_kernel<true, true>
@@ -705,8 +737,9 @@ int conv2d_pointwise_wgrad(const void* x, const void* g, const void* z,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(splits, ciblk, coblk);
   kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws, n, ciblk,
-      cib, coblk, cob, hw, positions, splits, act, with_db);
+      (const float*)x, (const float*)g, (const float*)z, (float*)ws,
+      (float*)out, (int*)counters, n, ciblk, cib, coblk, cob, hw, positions,
+      splits, act, with_db);
   return (int)cudaGetLastError();
 }
 

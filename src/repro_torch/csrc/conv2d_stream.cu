@@ -14,10 +14,12 @@
 //   x    [N, Ci/Cib, Hi, Wi, Cib]        unpadded; the copies zero-fill pads
 //   w    [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]
 //   g, z [N, Co/Cob, Ho, Wo, Cob]        cotangent, saved pre-activation
-//   out  [N, Co/Cob, Ho, Wo, Cob]        forward (+ GAP partials per band)
+//   out  [N, Co/Cob, Ho, Wo, Cob]        forward (+ GAP partials per band,
+//                                        and the pooled [N, Co] they sum to)
 //   dx   [N, Ci/Cib, Hi, Wi, Cib]        dgrad, at the input's shape
-//   ws   [splits, |dw| + |db|]           wgrad partial sums, summed by
-//                                        `wgrad_reduce` in split order
+//   ws   [splits, |dw| + |db|]           wgrad partial sums, summed in
+//                                        split order by the kernel's last
+//                                        CTAs (split_sum.cuh)
 //
 // What differs is how the input reaches shared memory.  On the TPU the
 // streamed kernels keep the operands in HBM and drive their own DMA: the
@@ -101,10 +103,11 @@ stream_fwd_kernel(const __grid_constant__ CUtensorMap tmw,
                   const float* __restrict__ x, const float* __restrict__ w,
                   const float* __restrict__ bias,
                   const float* __restrict__ residual,
-                  float* __restrict__ out, float* __restrict__ partials,
-                  ft::Geometry g) {
+                  float* __restrict__ out, float* partials,
+                  float* __restrict__ pooled, int* counters, ft::Geometry g) {
   extern __shared__ __align__(16) float smem[];
-  ft::run<N>(smem, &tmw, x, w, bias, residual, out, partials, g);
+  ft::run<N>(smem, &tmw, x, w, bias, residual, out, partials, pooled,
+             counters, g);
 }
 
 const void* const kFwdKernels[] = {
@@ -129,7 +132,9 @@ __global__ void __launch_bounds__(dt::kMaxThreads, 1)
 stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
                     const __grid_constant__ CUtensorMap tmg,
                     const __grid_constant__ CUtensorMap tmz,
-                    float* __restrict__ dx, dt::Geometry geo) {
+                    const float* __restrict__ g, const float* __restrict__ z,
+                    const float* __restrict__ w, float* __restrict__ dx,
+                    dt::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
   const dt::Tile t = dt::tile_of(geo, blockIdx.x);
   const int ci_b = blockIdx.y;
@@ -141,7 +146,7 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
   const int taps = t.r.taps * t.c.taps;
   const int steps = taps * geo.chunk / 8;
   const int per_block = dt::kpad(geo) / geo.chunk;
-  const int stages = taps > 0 ? geo.coblk * per_block : 0;
+  const int stages = taps > 0 ? geo.co_count * per_block : 0;
   const int mh = dt::max_taps(geo.hf, geo.stride) - 1;
   const int hso = geo.th / strips;
   // window rows of copy group k: strip 0's all, a later strip's fresh ones
@@ -160,10 +165,26 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
     const int tid = threadIdx.x - strips * dt::kWarpgroup;
     const int o_h = t.r.q0 + t.a0 - mh;
     const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
-    auto issue_stage = [&](int s) {     // warp 0: stage s's copies
+    const bool tma = dt::tma_copies(geo);
+    // stage s's copies: TMA by warp 0, or cp.async by every thread, one
+    // commit group a strip
+    auto issue_stage = [&](int s) {
       const int slot = s & 1;
-      const int co_b = s / per_block;
+      const int co_b = geo.co_first + s / per_block;
       const int c0 = (s % per_block) * geo.chunk;
+      if (!tma) {
+        for (int k = 0; k < strips; ++k) {
+          if (k == 0) {
+            dt::copy_weights<N>(w, m.big + slot * m.wst, geo, t, co_b, ci_b,
+                                c0, tid);
+          }
+          dt::copy_rows(g, z, m.win + slot * m.cst, m.zwin + slot * m.cst,
+                        geo, n, co_b, c0, o_h, o_w, lo_of(k), hi_of(k), tid);
+          dt::cp_async_commit();
+        }
+        return;
+      }
+      if (tid >= 32) return;
       uint64_t* bars = &m.bars[slot * dt::kMaxGroups];
       if (tid == 0) {
         for (int k = 0; k < strips; ++k) {
@@ -183,11 +204,16 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
                        o_h, o_w, lo_of(k), hi_of(k), tid, 32);
       }
     };
-    if (tid < 32 && stages > 0) issue_stage(0);
+    if (stages > 0) issue_stage(0);
     for (int s = 0; s < stages; ++s) {
       const int slot = s & 1;
       for (int k = 0; k < strips; ++k) {
-        dt::mbar_wait(&m.bars[slot * dt::kMaxGroups + k], (s >> 1) & 1);
+        if (tma) {
+          dt::mbar_wait(&m.bars[slot * dt::kMaxGroups + k], (s >> 1) & 1);
+        } else {                        // every producer thread's strip k
+          dt::cp_async_wait(strips - 1 - k);
+          dt::bar_sync(dt::kBarProducer, dt::kWarpgroup);
+        }
         if (k == 0) {
           dt::split_weights(m.big + slot * m.wst, m.small + slot * m.wst,
                             taps * geo.chunk * N, tid, dt::kWarpgroup);
@@ -202,7 +228,7 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
       if (s + 1 < stages) {
         // the other slot once every strip is done with stage s - 1
         if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
-        if (tid < 32) issue_stage(s + 1);
+        issue_stage(s + 1);
       }
     }
     return;
@@ -221,7 +247,7 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
                      m.big + slot * m.wst, m.small + slot * m.wst);
     if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
   }
-  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, strip, 0);
+  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, strip, 0, geo.co_first > 0);
 }
 
 // The streamed dgrad's launch geometry: bands of `wgs` strips of hso x tw
@@ -264,10 +290,11 @@ stream_wgrad_kernel(const __grid_constant__ CUtensorMap tmx,
                     const __grid_constant__ CUtensorMap tmg,
                     const __grid_constant__ CUtensorMap tmz,
                     const float* __restrict__ x, const float* __restrict__ g,
-                    const float* __restrict__ z, float* __restrict__ ws,
-                    wtile::Geometry geo) {
+                    const float* __restrict__ z, float* ws, float* out,
+                    int* counters, wtile::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
-  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, geo);
+  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, out, counters,
+                     geo);
 }
 
 // The compiled wgrad instances, as the window wgrad's.
@@ -313,12 +340,13 @@ void conv2d_stream_geometry(int* threads, int* rows, int* consumers) {
 // The forward: bands of `wgs` strips of hso x tw output positions.  plan:
 // the fwd_tile::Geometry fields in order (strips == wgs), then the wgmma
 // width, the images and the dynamic shared memory.  Grid: (bands, Co
-// blocks x nsplit, images).
+// blocks x nsplit, images).  GAP as direct_conv2d_fwd's.
 int conv2d_stream_conv(const void* x, const void* w, const void* bias,
                        const void* residual, void* out, void* partials,
-                       const int* plan, void* stream) {
+                       void* pooled, void* counters, const int* plan,
+                       void* stream) {
   return ft::launch(kFwdKernels, true, x, w, bias, residual, out, partials,
-                    plan, (cudaStream_t)stream);
+                    pooled, counters, plan, (cudaStream_t)stream);
 }
 
 // What conv2d_stream_conv runs with the same plan (fwd_tile::plan): out[0]
@@ -330,19 +358,21 @@ int conv2d_stream_conv_plan(const int* plan, long long* out) {
 
 // The dgrad: bands of `wgs` strips (two or three) of hso x tw phase
 // positions, one consumer warpgroup each, the wgmma width `lanes`, `chunk`
-// Cob channels a stage.
+// Cob channels a stage; `*launches` is how many grids it launched
+// (dgrad_tile::launch).
 int conv2d_stream_dgrad(const void* g, const void* z, const void* w, void* dx,
                         int n, int coblk, int cob, int ho, int wo, int ciblk,
                         int cib, int hi, int wi, int hf, int wf, int stride,
                         int pad_top, int pad_left, int hso, int tw, int wgs,
-                        int lanes, int chunk, int act, void* stream) {
+                        int lanes, int chunk, int act, void* stream,
+                        int* launches) {
   const dt::Geometry geo = dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
       pad_left, hso, tw, wgs, chunk, act, z != nullptr);
   if (wgs < 2 || hso * tw > dt::kRows) return (int)cudaErrorInvalidValue;
   return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
                     (const float*)w, (float*)dx, n, geo, wgs, lanes,
-                    (cudaStream_t)stream);
+                    (cudaStream_t)stream, launches);
 }
 
 // What conv2d_stream_dgrad runs with the same arguments (dgrad_tile::plan):
@@ -369,19 +399,23 @@ void conv2d_stream_wgrad_geometry(int* threads, int* rows, int* positions) {
 }
 
 // The wgrad: items of hso x wob output positions, `wgs` consumer warpgroups
-// of `mpw` m-tiles, the wgmma width `lanes`, `splits` position shares.
+// of `mpw` m-tiles, the wgmma width `lanes`, `splits` position shares into
+// `ws`, summed by each column's last CTA into `out` (as
+// direct_conv2d_wgrad).
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
-                        int n, int ciblk, int hi, int wi, int cib, int coblk,
-                        int cob, int ho, int wo, int hf, int wf, int stride,
-                        int pad_top, int pad_left, int hso, int wob, int wgs,
-                        int mpw, int lanes, int splits, int act, int with_db,
+                        void* out, void* counters, int n, int ciblk, int hi,
+                        int wi, int cib, int coblk, int cob, int ho, int wo,
+                        int hf, int wf, int stride, int pad_top,
+                        int pad_left, int hso, int wob, int wgs, int mpw,
+                        int lanes, int splits, int act, int with_db,
                         void* stream) {
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, hso, wob, wgs, mpw, lanes, splits, act, z != nullptr,
       with_db);
   return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
-                       (const float*)g, (const float*)z, (float*)ws, geo,
+                       (const float*)g, (const float*)z, (float*)ws,
+                       (float*)out, (int*)counters, geo,
                        (cudaStream_t)stream);
 }
 

@@ -48,7 +48,12 @@
 // of `box_rows` window rows of g and of z: the window kernel's whole
 // window in one; cells outside the map, channels past Cob and lanes past
 // Cib land as zeros) into a two-slot ring, tracked by an mbarrier per slot
-// and copy group; the producer's threads then round the weights to big
+// and copy group.  TMA needs global strides of whole 16 bytes, so where Cob
+// is not a multiple of 4 the producer's 128 threads copy the same cells by
+// 4-byte cp.async instead (zero-filled where TMA would land zeros, the
+// weights written straight into the order the TMA box gives), one commit
+// group per copy group, and meet at a barrier of their own once a group's
+// copies have landed.  The producer's threads then round the weights to big
 // (in place) and small, form dz = g * act'(z) in place on the window, once
 // per staged element and not once per tap, and release the slot to the
 // consumers through a named barrier.  The consumers run the stage's wgmmas
@@ -80,6 +85,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <algorithm>
 #include <stdint.h>
 
 namespace dgrad_tile {
@@ -98,6 +104,12 @@ constexpr int kBarProducer = kBarEmpty + kSlots;
 static_assert(kBarProducer < 16, "16 named barriers");
 constexpr int kActRelu = 1;
 constexpr int kActGelu = 2;
+// The longest contraction one accumulator runs (VGG-16's, 9 x 512): wgmma
+// rounds each add toward zero, and past it the drift passes the plain
+// version's tolerance (9 x 1000 drifted to 3.4e-4 of outputs of ~1 on an
+// H100).  A longer one is launched a Co block at a time, each launch after
+// the first adding its sums into dx in f32 (`launch`, store_dx's `add`).
+constexpr int kMaxTruncatingK = 9 * 512;
 
 // The launch's geometry, passed by value.
 struct Geometry {
@@ -110,9 +122,16 @@ struct Geometry {
   int act;                          // 0 linear, 1 relu, 2 gelu
   int prologue;                     // 1: z is staged and dz formed
   int box_rows;                     // window rows one TMA copy brings
+  int co_first, co_count;           // the Co blocks this launch contracts
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// TMA copies take global strides of whole 16 bytes: Cob a multiple of 4;
+// else the producer copies by cp.async.
+__host__ __device__ inline bool tma_copies(const Geometry& g) {
+  return g.cob % 4 == 0;
+}
 
 // The most taps one phase reaches along an axis of a filter f at stride s.
 __host__ __device__ inline int max_taps(int f, int s) { return ceil_div(f, s); }
@@ -434,6 +453,88 @@ __device__ void issue_rows(const CUtensorMap* tmg, const CUtensorMap* tmz,
   }
 }
 
+// ---------------------------------------------------------------------------
+// cp.async copies (Cob % 4 != 0)
+// ---------------------------------------------------------------------------
+
+// cp.async: `valid` false copies no byte and zero-fills the destination
+// (src-size 0); `src` must still be a global address.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most `pending` (0, 1 or 2) of this thread's groups pend
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending <= 0) {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  }
+}
+
+// Stage s's weights by cp.async (`tid` of the producer's kWarpgroup): what
+// issue_weights's TMA boxes land, [chunk / 4][N][4] a tap, zeros for lanes
+// past Cib and channels past Cob.
+template <int N>
+__device__ void copy_weights(const float* __restrict__ w, float* dst,
+                             const Geometry& g, const Tile& t, int co_b,
+                             int ci_b, int c0, int tid) {
+  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+  const int per_tap = g.chunk * N;
+  for (int i = tid; i < t.r.taps * t.c.taps * per_tap; i += kWarpgroup) {
+    const int tap = i / per_tap;
+    const int e = i - tap * per_tap;          // (k / 4, lane, k % 4)
+    const int k = e / (4 * N) * 4 + (e & 3);
+    const int lane = e / 4 % N;
+    const int dh = t.ph + g.stride * (tap / t.c.taps);
+    const int dw = t.pw + g.stride * (tap % t.c.taps);
+    const bool ok = lane < g.cib && c0 + k < g.cob;
+    const float* src =
+        ok ? w + ((size_t)(blk + dh * g.wf + dw) * g.cib + lane) * g.cob + c0
+                 + k
+           : w;
+    cp_async4(dst + i, src, ok);
+  }
+}
+
+// Window rows [lo, hi) of g (and z) by cp.async (`tid` of the producer's
+// kWarpgroup): what issue_rows's boxes land, channels [c0, c0 + chunk + 4)
+// of cotangent row o_h + r from column o_w, zeros outside the map and past
+// Cob.
+__device__ void copy_rows(const float* __restrict__ gg,
+                          const float* __restrict__ zz, float* win,
+                          float* zwin, const Geometry& g, int n, int co_b,
+                          int c0, int o_h, int o_w, int lo, int hi, int tid) {
+  const int rf = row_floats(g);
+  const int ld = cell_floats(g);
+  const int per_row = wwin(g) * ld;
+  const size_t map = (size_t)(n * g.coblk + co_b) * g.ho * g.wo;
+  for (int i = tid; i < (hi - lo) * per_row; i += kWarpgroup) {
+    const int r = i / per_row;
+    const int rem = i - r * per_row;
+    const int col = rem / ld;
+    const int c = rem - col * ld;
+    const int oh = o_h + lo + r;
+    const int ow = o_w + col;
+    const bool ok = oh >= 0 && oh < g.ho && ow >= 0 && ow < g.wo
+                    && c0 + c < g.cob;
+    const size_t off = ok ? (map + (size_t)oh * g.wo + ow) * g.cob + c0 + c
+                          : 0;
+    const int at = (lo + r) * rf + col * ld + c;
+    cp_async4(win + at, gg + off, ok);
+    if (g.prologue) cp_async4(zwin + at, zz + off, ok);
+  }
+}
+
 // dz = g * act'(z) in place over window rows [lo, hi), a float4 at a time
 // over whole rows (`tid` of `nth`): the 4 channels past the chunk in each
 // cell and a row's padding are transformed too, and never read.
@@ -720,11 +821,12 @@ __device__ void mma_stage(float (&acc)[N / 2], const float* win,
 }
 
 // Store a consumer's rows of m-tile mt0 (as row_offsets) into dx, lanes <
-// Cib; rows past the phase's extents (a tile may overhang them) are not.
+// Cib, or with `add` add them to what this thread stored there before; rows
+// past the phase's extents (a tile may overhang them) are not.
 template <int N>
 __device__ void store_dx(float* __restrict__ dx, const float (&acc)[N / 2],
                          const Geometry& g, const Tile& t, int n, int ci_b,
-                         int mt0, int q0) {
+                         int mt0, int q0, bool add = false) {
   const int lane = threadIdx.x % 32;
   const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
@@ -747,10 +849,12 @@ __device__ void store_dx(float* __restrict__ dx, const float (&acc)[N / 2],
       const float v0 = acc[4 * jj + 2 * h];
       const float v1 = acc[4 * jj + 2 * h + 1];
       if (pairs && col + 1 < g.cib) {
-        *reinterpret_cast<float2*>(out + col) = make_float2(v0, v1);
+        float2* o2 = reinterpret_cast<float2*>(out + col);
+        const float2 was = add ? *o2 : make_float2(0.0f, 0.0f);
+        *o2 = add ? make_float2(was.x + v0, was.y + v1) : make_float2(v0, v1);
       } else {
-        if (col < g.cib) out[col] = v0;
-        if (col + 1 < g.cib) out[col + 1] = v1;
+        if (col < g.cib) out[col] = add ? out[col] + v0 : v0;
+        if (col + 1 < g.cib) out[col + 1] = add ? out[col + 1] + v1 : v1;
       }
     }
   }
@@ -761,7 +865,8 @@ __device__ void store_dx(float* __restrict__ dx, const float (&acc)[N / 2],
 // ---------------------------------------------------------------------------
 
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
-                        const CUtensorMap, float*, Geometry);
+                        const CUtensorMap, const float*, const float*,
+                        const float*, float*, Geometry);
 
 typedef CUresult (*EncodeTiled)(
     CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
@@ -812,21 +917,25 @@ inline bool encode(CUtensorMap* map, const void* base, int rank,
 }
 
 // Check the launch against what the kernels take, encode its tensor maps
-// (w as [rows, Cob/4, Cib, 4] with a box of chunk/4 x lanes; g and z as [N,
-// Co/Cob, Ho, Wo, Cob] with a box of one window row, chunk + 4 channels),
-// size its shared memory and launch one grid over every phase's tiles:
-// (tiles, Ci/Cib, N) CTAs of `wgs` consumer warpgroups and the producer.
+// where Cob is a multiple of 4 (w as [rows, Cob/4, Cib, 4] with a box of
+// chunk/4 x lanes; g and z as [N, Co/Cob, Ho, Wo, Cob] with a box of one
+// window row, chunk + 4 channels; else the kernel copies by cp.async from
+// the pointers), size its shared memory and launch grids over every
+// phase's tiles: (tiles, Ci/Cib, N) CTAs of `wgs` consumer warpgroups and
+// the producer, one grid unless the contraction passes kMaxTruncatingK;
+// `*launches` is how many grids were launched.
 inline int launch(Kernel kernel, const float* g, const float* z,
                   const float* w, float* dx, int n, const Geometry& geo,
-                  int wgs, int lanes, cudaStream_t stream) {
+                  int wgs, int lanes, cudaStream_t stream, int* launches) {
+  *launches = 0;
   if (kernel == nullptr || wgs < 1 || wgs > kMaxConsumers || lanes < geo.cib
       || geo.chunk % 8 != 0 || kpad(geo) % geo.chunk != 0
-      || geo.cob % 4 != 0 || geo.mstride < 1 || geo.mstride > kRows * wgs
+      || geo.mstride < 1 || geo.mstride > kRows * wgs
       || geo.th < 1 || geo.tw < 1 || geo.stride < 1
       || (geo.prologue != 0) != (z != nullptr)
       // a box must land on 128 bytes: several boxes of several rows need
-      // rows of a multiple of 128 bytes
-      || (geo.box_rows > 1 && geo.box_rows < hwin(geo)
+      // rows of a multiple of 128 bytes (cp.async copies have no such rule)
+      || (tma_copies(geo) && geo.box_rows > 1 && geo.box_rows < hwin(geo)
           && wwin(geo) * cell_floats(geo) % 32 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -839,6 +948,7 @@ inline int launch(Kernel kernel, const float* g, const float* z,
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmw = {}, tmg = {}, tmz = {};
   const long long cob = geo.cob;
   const long long wdims[4] = {4, geo.cib, cob / 4,
                               (long long)geo.coblk * geo.ciblk * geo.hf
@@ -850,10 +960,10 @@ inline int launch(Kernel kernel, const float* g, const float* z,
                              (long long)geo.ho * geo.wo * cob * 4,
                              (long long)geo.coblk * geo.ho * geo.wo * cob * 4};
   const int gbox[5] = {geo.chunk + 4, wwin(geo), geo.box_rows, 1, 1};
-  CUtensorMap tmw, tmg, tmz;
-  if (!encode(&tmw, w, 4, wdims, wstr, wbox)
-      || !encode(&tmg, g, 5, gdims, gstr, gbox)
-      || !encode(&tmz, z != nullptr ? z : g, 5, gdims, gstr, gbox)) {
+  if (tma_copies(geo)
+      && (!encode(&tmw, w, 4, wdims, wstr, wbox)
+          || !encode(&tmg, g, 5, gdims, gstr, gbox)
+          || !encode(&tmz, z != nullptr ? z : g, 5, gdims, gstr, gbox))) {
     return (int)cudaErrorNotSupported;     // the encoder refused a map
   }
   const size_t smem = smem_bytes(geo, lanes);
@@ -861,9 +971,27 @@ inline int launch(Kernel kernel, const float* g, const float* z,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles, geo.ciblk, n);
-  kernel<<<grid, kWarpgroup * (wgs + 1), smem, stream>>>(tmw, tmg, tmz, dx,
-                                                         geo);
-  return (int)cudaGetLastError();
+  // every Co block in one launch, or where that contraction is longer than
+  // kMaxTruncatingK one launch a Co block, each after the first adding
+  // into dx: launches of four Co-1000 blocks (9 x 512 rows, as VGG-16's
+  // longest) drifted to 1.35e-4 of outputs of ~0.07 on an H100, past the
+  // plain version's tolerance, where one block a launch holds it
+  const bool whole = (long long)geo.coblk * kpad(geo)
+                         * max_taps(geo.hf, geo.stride)
+                         * max_taps(geo.wf, geo.stride)
+                     <= kMaxTruncatingK;
+  const int blocks = whole ? geo.coblk : 1;
+  Geometry part = geo;
+  for (part.co_first = 0; part.co_first < geo.coblk;
+       part.co_first += part.co_count) {
+    part.co_count = std::min(blocks, geo.coblk - part.co_first);
+    kernel<<<grid, kWarpgroup * (wgs + 1), smem, stream>>>(tmw, tmg, tmz, g,
+                                                           z, w, dx, part);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    ++*launches;
+  }
+  return 0;
 }
 
 }  // namespace dgrad_tile

@@ -48,11 +48,12 @@
 // Co block); a producer warpgroup stages each tile's whole x window and its
 // g and z by cp.async a slot ahead, forms dz and writes it transposed, and
 // one to three consumer warpgroups run the wgmmas of their m-tiles on it.
-// Each share's sums go to its row of an f32 workspace [splits, |dw| + |db|];
-// `wgrad_reduce` then sums the rows in split order.  No atomics: two runs
-// give identical bits.  db rides the producer of the CTAs of Ci block 0 and
-// m-tile group 0, so it is summed once per Co block (the reference's `ci ==
-// 0` pass).
+// Each share's sums go to its row of an f32 workspace [splits, |dw| + |db|],
+// and the last CTA of each column of shares sums the rows in split order
+// into dw and db (split_sum.cuh): one launch, no second pass.  No sum
+// depends on the order CTAs run in: two runs give identical bits.  db rides
+// the producer of the CTAs of Ci block 0 and m-tile group 0, so it is
+// summed once per Co block (the reference's `ci == 0` pass).
 //
 // What bounds it on this card: the forward's FLOPs (2*9*Ci per output
 // element, far above the ridge), at the TF32 tensor-core rate spent three
@@ -89,7 +90,9 @@ template <int N>
 __global__ void __launch_bounds__(dt::kMaxThreads, 1)
 dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
              const __grid_constant__ CUtensorMap tmg,
-             const __grid_constant__ CUtensorMap tmz, float* __restrict__ dx,
+             const __grid_constant__ CUtensorMap tmz,
+             const float* __restrict__ g, const float* __restrict__ z,
+             const float* __restrict__ w, float* __restrict__ dx,
              dt::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
   const dt::Tile t = dt::tile_of(geo, blockIdx.x);
@@ -101,7 +104,7 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
   const int taps = t.r.taps * t.c.taps;
   const int steps = taps * geo.chunk / 8;
   const int per_block = dt::kpad(geo) / geo.chunk;
-  const int stages = taps > 0 ? geo.coblk * per_block : 0;
+  const int stages = taps > 0 ? geo.co_count * per_block : 0;
   dt::step_shifts(m.shifts, geo, t);
   if (threadIdx.x == 0) {
     for (int i = 0; i < dt::kSlots; ++i) {
@@ -116,10 +119,21 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
     const int rows = dt::hwin(geo);
     const int o_h = t.r.q0 + t.a0 - (dt::max_taps(geo.hf, geo.stride) - 1);
     const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
-    auto issue_stage = [&](int s) {     // warp 0: stage s's copies
+    const bool tma = dt::tma_copies(geo);
+    // stage s's copies: TMA by warp 0, or cp.async by every thread
+    auto issue_stage = [&](int s) {
       const int slot = s & 1;
-      const int co_b = s / per_block;
+      const int co_b = geo.co_first + s / per_block;
       const int c0 = (s % per_block) * geo.chunk;
+      if (!tma) {
+        dt::copy_weights<N>(w, m.big + slot * m.wst, geo, t, co_b, ci_b, c0,
+                            tid);
+        dt::copy_rows(g, z, m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
+                      n, co_b, c0, o_h, o_w, 0, rows, tid);
+        dt::cp_async_commit();
+        return;
+      }
+      if (tid >= 32) return;
       uint64_t* bar = &m.bars[slot * dt::kMaxGroups];
       if (tid == 0) {
         dt::mbar_expect_tx(bar, dt::weight_bytes<N>(geo, t)
@@ -132,10 +146,15 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
                      m.zwin + slot * m.cst, bar, geo, n, co_b, c0, o_h, o_w,
                      0, rows, tid, 32);
     };
-    if (tid < 32 && stages > 0) issue_stage(0);
+    if (stages > 0) issue_stage(0);
     for (int s = 0; s < stages; ++s) {
       const int slot = s & 1;
-      dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
+      if (tma) {
+        dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
+      } else {                          // every producer thread's copies
+        dt::cp_async_wait(0);
+        dt::bar_sync(dt::kBarProducer, dt::kWarpgroup);
+      }
       dt::split_weights(m.big + slot * m.wst, m.small + slot * m.wst,
                         taps * geo.chunk * N, tid, dt::kWarpgroup);
       if (geo.prologue) {
@@ -147,7 +166,7 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
       if (s + 1 < stages) {
         // the other slot once the consumers are done with stage s - 1
         if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
-        if (tid < 32) issue_stage(s + 1);
+        issue_stage(s + 1);
       }
     }
     return;
@@ -166,7 +185,7 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
                      m.big + slot * m.wst, m.small + slot * m.wst);
     if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
   }
-  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, 0, q0);
+  dt::store_dx<N>(dx, acc, geo, t, n, ci_b, 0, q0, geo.co_first > 0);
 }
 
 // The window dgrad's launch geometry: tiles of th x tw phase positions, one
@@ -205,10 +224,11 @@ wgrad_kernel(const __grid_constant__ CUtensorMap tmx,
              const __grid_constant__ CUtensorMap tmg,
              const __grid_constant__ CUtensorMap tmz,
              const float* __restrict__ x, const float* __restrict__ g,
-             const float* __restrict__ z, float* __restrict__ ws,
-             wtile::Geometry geo) {
+             const float* __restrict__ z, float* ws, float* out,
+             int* counters, wtile::Geometry geo) {
   extern __shared__ __align__(16) float smem[];
-  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, geo);
+  wtile::run<N, MPW>(smem, &tmx, &tmg, &tmz, x, g, z, ws, out, counters,
+                     geo);
 }
 
 // The compiled wgrad instances: wgmma widths 8 to 128, one or two m-tiles a
@@ -240,17 +260,6 @@ wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
                          splits, act, prologue, with_db, 0};
 }
 
-// out[i] = sum over rows k = 0 .. splits-1, in that order, of ws[k][i]
-__global__ void wgrad_reduce_kernel(const float* __restrict__ ws,
-                                    float* __restrict__ out, long long cols,
-                                    int splits) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= cols) return;
-  float s = 0.0f;
-  for (int k = 0; k < splits; ++k) s += ws[(size_t)k * cols + i];
-  out[i] = s;
-}
-
 }  // namespace
 
 extern "C" {
@@ -264,19 +273,21 @@ void direct_conv2d_bwd_geometry(int* threads, int* rows, int* positions) {
 }
 
 // Tiles of th x tw phase positions, `wgs` consumer warpgroups a CTA, the
-// wgmma width `lanes`, `chunk` Cob channels a stage.
+// wgmma width `lanes`, `chunk` Cob channels a stage; `*launches` is how
+// many grids it launched (dgrad_tile::launch).
 int direct_conv2d_dgrad(const void* g, const void* z, const void* w, void* dx,
                         int n, int coblk, int cob, int ho, int wo, int ciblk,
                         int cib, int hi, int wi, int hf, int wf, int stride,
                         int pad_top, int pad_left, int th, int tw, int wgs,
-                        int lanes, int chunk, int act, void* stream) {
+                        int lanes, int chunk, int act, void* stream,
+                        int* launches) {
   const dt::Geometry geo = dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
       pad_left, th, tw, wgs, chunk, act, z != nullptr);
   if (th * tw > dt::kRows * wgs) return (int)cudaErrorInvalidValue;
   return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
                     (const float*)w, (float*)dx, n, geo, wgs, lanes,
-                    (cudaStream_t)stream);
+                    (cudaStream_t)stream, launches);
 }
 
 // What direct_conv2d_dgrad runs with the same arguments (dgrad_tile::plan):
@@ -296,18 +307,22 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
 }
 
 // Tiles of th x tw output positions, `wgs` consumer warpgroups of `mpw`
-// m-tiles, the wgmma width `lanes`, `splits` position shares.
+// m-tiles, the wgmma width `lanes`, `splits` position shares into `ws`,
+// summed by each column's last CTA into `out` ([|dw| + |db|]);
+// `counters`: a zeroed int32 a column (wgrad_tile::columns).
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,
-                        int n, int ciblk, int hi, int wi, int cib, int coblk,
-                        int cob, int ho, int wo, int hf, int wf, int stride,
-                        int pad_top, int pad_left, int th, int tw, int wgs,
-                        int mpw, int lanes, int splits, int act, int with_db,
+                        void* out, void* counters, int n, int ciblk, int hi,
+                        int wi, int cib, int coblk, int cob, int ho, int wo,
+                        int hf, int wf, int stride, int pad_top,
+                        int pad_left, int th, int tw, int wgs, int mpw,
+                        int lanes, int splits, int act, int with_db,
                         void* stream) {
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, th, tw, wgs, mpw, lanes, splits, act, z != nullptr, with_db);
   return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
-                       (const float*)g, (const float*)z, (float*)ws, geo,
+                       (const float*)g, (const float*)z, (float*)ws,
+                       (float*)out, (int*)counters, geo,
                        (cudaStream_t)stream);
 }
 
@@ -326,15 +341,6 @@ int direct_conv2d_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
     return (int)cudaErrorInvalidValue;
   wtile::plan(geo, out);
   return 0;
-}
-
-int wgrad_reduce(const void* ws, void* out, long long cols, int splits,
-                 void* stream) {
-  const int threads = 256;
-  const long long blocks = (cols + threads - 1) / threads;
-  wgrad_reduce_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)ws, (float*)out, cols, splits);
-  return (int)cudaGetLastError();
 }
 
 const char* cuda_error_name(int code) {

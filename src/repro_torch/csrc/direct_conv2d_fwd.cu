@@ -8,7 +8,7 @@
 //
 // on the paper's blocked layouts (unpadded x: the pads are zero-filled
 // copies, no padded copy of x exists), with an optional fused
-// global-average-pool (GAP) whose per-tile sums `gap_finalize` adds.
+// global-average-pool (GAP) into the pooled [N, Co] features.
 //
 // `fwd_kernel<N>` is the dense forward tile of fwd_tile.cuh, one CTA per
 // (tile of th x tw output positions, output block or half of one, image):
@@ -32,9 +32,10 @@
 // measures.
 //
 // GAP rider.  Each CTA writes its tile's sums per channel in a fixed order
-// into `partials` [N, Co/Cob, tiles, Cob]; `gap_finalize` sums the tiles in
-// index order and multiplies by the f32 reciprocal of Ho*Wo.  No atomics:
-// two runs give identical bits.
+// into `partials` [N, Co/Cob, tiles, Cob]; the last CTA of each (image,
+// output block) to arrive sums its tiles in index order and multiplies by
+// the f32 reciprocal of Ho*Wo (split_sum.cuh), in the same launch.  Two
+// runs give identical bits.
 //
 // C interface for ctypes: pointers and the stream as void*, the launch's
 // plan as one int array built once per shape; each entry point returns
@@ -56,28 +57,17 @@ fwd_kernel(const __grid_constant__ CUtensorMap tmw,
            const float* __restrict__ x, const float* __restrict__ w,
            const float* __restrict__ bias,
            const float* __restrict__ residual, float* __restrict__ out,
-           float* __restrict__ partials, ft::Geometry g) {
+           float* partials, float* __restrict__ pooled, int* counters,
+           ft::Geometry g) {
   extern __shared__ __align__(16) float smem[];
-  ft::run<N>(smem, &tmw, x, w, bias, residual, out, partials, g);
+  ft::run<N>(smem, &tmw, x, w, bias, residual, out, partials, pooled,
+             counters, g);
 }
 
 const void* const kKernels[] = {
     (const void*)fwd_kernel<8>, (const void*)fwd_kernel<16>,
     (const void*)fwd_kernel<32>, (const void*)fwd_kernel<64>,
     (const void*)fwd_kernel<128>};
-
-__global__ void gap_finalize_kernel(const float* __restrict__ partials,
-                                    float* __restrict__ pooled, int rows,
-                                    int n_tiles, int cob, float inv_hw) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= rows * cob) return;
-  const int r = i / cob;
-  const int co = i % cob;
-  const float* p = partials + (size_t)r * n_tiles * cob + co;
-  float s = 0.0f;
-  for (int t = 0; t < n_tiles; ++t) s += p[(size_t)t * cob];
-  pooled[i] = s * inv_hw;
-}
 
 }  // namespace
 
@@ -91,15 +81,17 @@ void direct_conv2d_fwd_geometry(int* threads, int* rows, int* consumers) {
   *consumers = ft::kMaxConsumers;
 }
 
-// The forward: x, w, the bias and residual (null where absent) into out,
-// with the tiles' GAP sums into partials where the plan asks for them.
-// plan: the fwd_tile::Geometry fields in order (strips 1), then the wgmma
-// width, the images and the dynamic shared memory.
+// The forward: x, w, the bias and residual (null where absent) into out;
+// where the plan asks for GAP, the tiles' sums into partials and the pooled
+// features into pooled ([N, Co]), with two zeroed int32 counters an (image,
+// output block).  plan: the fwd_tile::Geometry fields in order (strips 1),
+// then the wgmma width, the images and the dynamic shared memory.
 int direct_conv2d_fwd(const void* x, const void* w, const void* bias,
                       const void* residual, void* out, void* partials,
-                      const int* plan, void* stream) {
+                      void* pooled, void* counters, const int* plan,
+                      void* stream) {
   return ft::launch(kKernels, false, x, w, bias, residual, out, partials,
-                    plan, (cudaStream_t)stream);
+                    pooled, counters, plan, (cudaStream_t)stream);
 }
 
 // What direct_conv2d_fwd runs with the same plan (fwd_tile::plan): out[0]
@@ -107,16 +99,6 @@ int direct_conv2d_fwd(const void* x, const void* w, const void* bias,
 // issued, out[3] a CTA's shared memory.
 int direct_conv2d_fwd_plan(const int* plan, long long* out) {
   return ft::plan_of(false, plan, out);
-}
-
-int gap_finalize(const void* partials, void* pooled, int rows, int n_tiles,
-                 int cob, float inv_hw, void* stream) {
-  const int total = rows * cob;
-  const int threads = 256;
-  const int blocks = (total + threads - 1) / threads;
-  gap_finalize_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)partials, (float*)pooled, rows, n_tiles, cob, inv_hw);
-  return (int)cudaGetLastError();
 }
 
 const char* cuda_error_name(int code) {

@@ -78,9 +78,11 @@
 // Epilogue: the reference's order (+ b, activation, + r, one store); with
 // GAP each CTA writes its tile's sums of the stored values (a thread's two
 // rows, a warp's eight row groups by shuffles, then the consumer warps in
-// order), which `gap_finalize` (direct_conv2d_fwd.cu) adds in tile order.
-// No atomics: two runs give identical bits, and where the window and the
-// streamed kernels take the same chunk they sum in the same order.
+// order) into `partials`, and the last CTA of an (image, output block) adds
+// its tiles in tile order and scales them into the pooled features
+// (split_sum.cuh).  No sum depends on the order CTAs run in: two runs give
+// identical bits, and where the window and the streamed kernels take the
+// same chunk they sum in the same order.
 
 #pragma once
 
@@ -91,6 +93,7 @@
 #include <string.h>
 
 #include "dgrad_tile.cuh"
+#include "split_sum.cuh"
 
 namespace fwd_tile {
 // Internal to each library that includes it: the host helpers keep a
@@ -582,14 +585,17 @@ __device__ void mma_stage(float (&total)[N / 2], const float* win,
 }
 
 // The whole CTA: grid (tiles, Co blocks x nsplit, images), `wgs` consumer
-// warpgroups and the producer.
+// warpgroups and the producer.  With GAP: `partials` [N, Co/Cob, tiles,
+// Cob], `pooled` [N, Co], `counters` two zeroed int32 an (image, output
+// block).
 template <int N>
 __device__ void run(float* smem, const CUtensorMap* tmw,
                     const float* __restrict__ x,
                     const float* __restrict__ w,
                     const float* __restrict__ bias,
                     const float* __restrict__ residual,
-                    float* __restrict__ out, float* __restrict__ partials,
+                    float* __restrict__ out, float* partials,
+                    float* __restrict__ pooled, int* counters,
                     const Geometry& g) {
   const int tile = blockIdx.x;
   const int o_b = blockIdx.y / g.nsplit;
@@ -698,6 +704,11 @@ __device__ void run(float* smem, const CUtensorMap* tmw,
       partials[((size_t)(n * g.coblk + o_b) * gridDim.x + tile) * g.cob + o0
                + c] = s;
     }
+    // the last CTA of (n, o_b), both lane halves: its tiles in order, times
+    // the f32 reciprocal of Ho * Wo
+    split_sum::gap_fold(partials, pooled, counters, n * g.coblk + o_b,
+                        gridDim.x, gridDim.x * g.nsplit, g.cob, g.ho * g.wo,
+                        reinterpret_cast<int*>(m.red), kBarGap, consumers);
   }
 }
 
@@ -762,15 +773,17 @@ __host__ inline bool valid(const Geometry& g, int lanes, bool streamed) {
 // images).
 inline int launch(const void* const* kernels, bool streamed, const void* x,
                   const void* w, const void* bias, const void* residual,
-                  void* out, void* partials, const int* plan,
-                  cudaStream_t stream) {
+                  void* out, void* partials, void* pooled, void* counters,
+                  const int* plan, cudaStream_t stream) {
   Geometry g;
   int* fields = reinterpret_cast<int*>(&g);
   for (int i = 0; i < kGeometryInts; ++i) fields[i] = plan[i];
   const int* more = plan + kGeometryInts;
   const int lanes = more[0], n = more[1], smem = more[2];
   if (!valid(g, lanes, streamed) || (size_t)smem != smem_bytes(g, lanes)
-      || (g.gap && partials == nullptr) || n < 0) {
+      || (g.gap && (partials == nullptr || pooled == nullptr
+                    || counters == nullptr))
+      || n < 0) {
     return (int)cudaErrorInvalidValue;
   }
   if (n == 0) return 0;
@@ -803,7 +816,10 @@ inline int launch(const void* const* kernels, bool streamed, const void* x,
   const float* r_f = (const float*)residual;
   float* out_f = (float*)out;
   float* p_f = (float*)partials;
-  void* args[] = {&tmw, &x_f, &w_f, &b_f, &r_f, &out_f, &p_f, &g};
+  float* pool_f = (float*)pooled;
+  int* c_i = (int*)counters;
+  void* args[] = {&tmw, &x_f, &w_f, &b_f, &r_f, &out_f, &p_f, &pool_f, &c_i,
+                  &g};
   err = cudaLaunchKernel(kernel, dim3(tiles(g), g.coblk * g.nsplit, n),
                          dim3(kWarpgroup * (g.wgs + 1)), args, smem, stream);
   if (err != cudaSuccess) return (int)err;

@@ -33,8 +33,10 @@
 // each, so its m-tile group shares every staged window and dz tile among
 // wgs * mpw * 64 (tap, c) rows; `groups` CTAs cover the m-tiles.  It walks a
 // contiguous share of the tiles (`splits` shares), its sums going to its
-// share's row of an f32 workspace [splits, |dw| + |db|] that
-// `wgrad_reduce` sums in split order: no atomics, two runs identical.
+// share's row of an f32 workspace [splits, |dw| + |db|]; the CTAs of one
+// (m-tile group, Ci block, Co block) are a column of split_sum.cuh, whose
+// last to arrive sums its rows in split order into dw and db.  No
+// sum depends on the order the CTAs run in: two runs give identical bits.
 //
 // Warp roles.  The consumer warpgroups (the first threads) run the wgmmas;
 // the producer warpgroup feeds a two-slot ring, by TMA where the global
@@ -68,6 +70,7 @@
 #include <stdint.h>
 
 #include "dgrad_tile.cuh"
+#include "split_sum.cuh"
 
 namespace wgrad_tile {
 
@@ -166,6 +169,10 @@ __host__ __device__ inline int groups(const Geometry& g) {
 }
 __host__ __device__ inline long long tiles(const Geometry& g) {
   return (long long)g.n * tiles_h(g) * tiles_w(g);
+}
+// columns of split_sum.cuh: one per (m-tile group, Ci block, Co block)
+__host__ __device__ inline int columns(const Geometry& g) {
+  return groups(g) * g.ciblk * g.coblk;
 }
 
 // Dynamic shared memory of one CTA (core/blocking.py wgrad_smem_bytes): 128
@@ -497,16 +504,60 @@ __device__ void store_dw(float* __restrict__ row,
 // the kernel body
 // ---------------------------------------------------------------------------
 
+// The consumer warpgroups of `run`: their m-tiles' wgmmas over the CTA's
+// stages, then their rows of the share's workspace row.
+template <int N, int MPW>
+__device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
+                                        int group, int stages, float* row,
+                                        int ci_b, int co_b) {
+  const int nth = blockDim.x;
+  const int ld = x_ld(geo.cib, geo.stride);
+  const int rf = row_floats(geo);
+  const int mt0 = (group * geo.wgs + threadIdx.x / kWarpgroup) * MPW;
+  const int rows = geo.hf * geo.wf * geo.cib;
+  int ro[MPW][2];
+  bool on[MPW];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+    on[t] = mt0 + t < mtiles(geo);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (mt0 + t) * kRows + threadIdx.x % kWarpgroup / 32 * 16
+                    + threadIdx.x % 32 / 4 + 8 * h;
+      const int tap = r / geo.cib;
+      ro[t][h] = r < rows ? (tap / geo.wf) * rf + (tap % geo.wf) * ld
+                                + (r - tap * geo.cib)
+                          : 0;
+    }
+  }
+  float acc[MPW][N / 2];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.0f;
+  }
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s & 1;
+    dt::bar_sync(kBarFull + slot, nth);
+    mma_stage<N, MPW>(acc, m.x[slot], ro, on, m.posoff, kpos(geo) / 8,
+                      m.big[slot], m.small[slot]);
+    if (s + kSlots < stages) dt::bar_arrive(kBarEmpty + slot, nth);
+  }
+  store_dw<N, MPW>(row, acc, geo, ci_b, co_b, mt0);
+}
+
 // One CTA: m-tile group blockIdx.x % groups, share blockIdx.x / groups, Ci
 // block blockIdx.y, Co block blockIdx.z; `wgs` consumer warpgroups of MPW
-// m-tiles each and one producer warpgroup.
+// m-tiles each and one producer warpgroup.  Its sums go to its share's row
+// of `ws` ([splits, |dw| + |db|]); the column's last CTA sums the rows into
+// `out` ([|dw| + |db|]).
 template <int N, int MPW>
 __device__ void run(float* smem, const CUtensorMap* tmx,
                     const CUtensorMap* tmg, const CUtensorMap* tmz,
                     const float* __restrict__ x,
                     const float* __restrict__ gg,
-                    const float* __restrict__ zz, float* __restrict__ ws,
-                    const Geometry& geo) {
+                    const float* __restrict__ zz, float* ws, float* out,
+                    int* counters, const Geometry& geo) {
   const int ngroups = groups(geo);
   const int group = blockIdx.x % ngroups;
   const int split = blockIdx.x / ngroups;
@@ -536,8 +587,8 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
   __syncthreads();
   const size_t dw_size = (size_t)geo.coblk * geo.ciblk * geo.hf * geo.wf
                          * geo.cib * geo.cob;
-  float* row = ws + (size_t)split * (dw_size + (geo.with_db
-                                                ? geo.coblk * geo.cob : 0));
+  const size_t cols = dw_size + (geo.with_db ? geo.coblk * geo.cob : 0);
+  float* row = ws + (size_t)split * cols;
 
   if (threadIdx.x >= consumers) {       // the producer warpgroup
     const int tid = threadIdx.x - consumers;
@@ -585,40 +636,31 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
         row[dw_size + co_b * geo.cob + tid] = sum;
       }
     }
-    return;
+  } else {
+    consume<N, MPW>(m, geo, group, stages, row, ci_b, co_b);
   }
 
-  const int mt0 = (group * geo.wgs + threadIdx.x / kWarpgroup) * MPW;
-  const int rows = geo.hf * geo.wf * geo.cib;
-  int ro[MPW][2];
-  bool on[MPW];
-#pragma unroll
-  for (int t = 0; t < MPW; ++t) {
-    on[t] = mt0 + t < mtiles(geo);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (mt0 + t) * kRows + threadIdx.x % kWarpgroup / 32 * 16
-                    + threadIdx.x % 32 / 4 + 8 * h;
-      const int tap = r / geo.cib;
-      ro[t][h] = r < rows ? (tap / geo.wf) * rf + (tap % geo.wf) * ld
-                                + (r - tap * geo.cib)
-                          : 0;
-    }
+  // the column's last CTA sums its rows in split order: the (tap, c) rows
+  // of the group's m-tiles, and db where the column has it
+  const int column = (co_b * geo.ciblk + ci_b) * ngroups + group;
+  if (!split_sum::arrive(counters + column, geo.splits,
+                         reinterpret_cast<int*>(m.db), 0, nth,
+                         threadIdx.x == 0)) {
+    return;
   }
-  float acc[MPW][N / 2];
-#pragma unroll
-  for (int t = 0; t < MPW; ++t) {
-#pragma unroll
-    for (int i = 0; i < N / 2; ++i) acc[t][i] = 0.0f;
+  const int span = geo.wgs * geo.mpw * kRows;
+  const int m_lo = group * span;
+  const int m_hi = min(geo.hf * geo.wf * geo.cib, m_lo + span);
+  const size_t base = ((size_t)co_b * geo.ciblk + ci_b) * geo.hf * geo.wf
+                          * geo.cib * geo.cob
+                      + (size_t)m_lo * geo.cob;
+  split_sum::sum_rows(ws + base, cols, geo.splits, out + base,
+                      (m_hi - m_lo) * geo.cob, 1.0f, threadIdx.x, nth);
+  if (geo.with_db && ci_b == 0 && group == 0) {
+    const size_t db = dw_size + (size_t)co_b * geo.cob;
+    split_sum::sum_rows(ws + db, cols, geo.splits, out + db, geo.cob, 1.0f,
+                        threadIdx.x, nth);
   }
-  for (int s = 0; s < stages; ++s) {
-    const int slot = s & 1;
-    dt::bar_sync(kBarFull + slot, nth);
-    mma_stage<N, MPW>(acc, m.x[slot], ro, on, m.posoff, kpos(geo) / 8,
-                      m.big[slot], m.small[slot]);
-    if (s + kSlots < stages) dt::bar_arrive(kBarEmpty + slot, nth);
-  }
-  store_dw<N, MPW>(row, acc, geo, ci_b, co_b, mt0);
 }
 
 // ---------------------------------------------------------------------------
@@ -627,7 +669,7 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
 
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
                         const CUtensorMap, const float*, const float*,
-                        const float*, float*, Geometry);
+                        const float*, float*, float*, int*, Geometry);
 
 // Whether the kernels take this geometry.
 __host__ inline bool valid(const Geometry& g) {
@@ -644,8 +686,8 @@ __host__ inline bool valid(const Geometry& g) {
 // launch (groups * splits, Ci/Cib, Co/Cob) CTAs of `wgs` consumer
 // warpgroups and the producer.
 inline int launch(Kernel kernel, const float* x, const float* g,
-                  const float* z, float* ws, const Geometry& geo,
-                  cudaStream_t stream) {
+                  const float* z, float* ws, float* out, int* counters,
+                  const Geometry& geo, cudaStream_t stream) {
   if (kernel == nullptr || !valid(geo)
       || (geo.prologue != 0) != (z != nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -686,7 +728,7 @@ inline int launch(Kernel kernel, const float* x, const float* g,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
-      tmx, tmg, tmz, x, g, z, ws, geo);
+      tmx, tmg, tmz, x, g, z, ws, out, counters, geo);
   return (int)cudaGetLastError();
 }
 

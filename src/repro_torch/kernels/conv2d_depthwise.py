@@ -12,16 +12,17 @@ and the fused epilogue (bias, activation, residual, GAP).
   walk over items, each staged by cp.async under the taps of the one
   before) on a CUDA tensor, the plain version
   (``core.direct_conv.direct_conv_blocked`` with ``groups=C``) on a CPU
-  tensor.  With ``gap`` the kernel's per-item partial sums go to the dense
-  family's ``gap_finalize``.
+  tensor.  With ``gap`` the kernel writes per-item partial sums and the CTA
+  of each (image, channel block)'s last item adds them into the pooled
+  features (``csrc/split_sum.cuh``).
 * With grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
   ``_dwconv`` / ``_dwconv_fwd`` / ``_dwconv_bwd`` (``:354-440``), with
   this family's kernels: ``depthwise_dgrad`` (a tap kernel with mirrored
   taps, as the reference runs its dgrad through ``_dw_fwd_kernel``) and
-  ``depthwise_wgrad`` (``_dw_wgrad_kernel``, ``:105``, and the dense
-  family's ``wgrad_reduce``), with the ``dz = g * act'(z)`` prologue and
-  ``db``.  No padded, dilated or cropped copy
+  ``depthwise_wgrad`` (``_dw_wgrad_kernel``, ``:105``, whose last CTA of
+  each channel block adds its shares in split order), with the ``dz = g *
+  act'(z)`` prologue and ``db``.  No padded, dilated or cropped copy
   exists on the card.
 
 A forward call's host path is lean, because at MobileNet's small legs it,
@@ -32,8 +33,7 @@ launch skips entering the device's context when it is current.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
-launches of this module's kernels; ``gap_finalize`` and ``wgrad_reduce``
-count in ``kernels.direct_conv2d.LAUNCHES``.
+launches of this module's kernels.
 """
 from __future__ import annotations
 
@@ -65,12 +65,13 @@ from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _by_shapes, _call, _check,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
-                                               _require, _stream,
-                                               gap_finalize, wgrad_reduce)
+                                               _require, _stream)
+from repro_torch.kernels import split_sum
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "depthwise_conv2d_blocked",
-           "depthwise_dgrad", "depthwise_wgrad", "depthwise_wgrad_partials"]
+           "depthwise_gap", "depthwise_dgrad", "depthwise_wgrad",
+           "depthwise_wgrad_partials"]
 
 LAUNCHES = {"conv2d_depthwise_fwd": 0, "conv2d_depthwise_dgrad": 0,
             "conv2d_depthwise_wgrad": 0}
@@ -82,12 +83,12 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_depthwise_fwd.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+    lib.conv2d_depthwise_fwd.argtypes = [ptr] * 8 + [ctypes.POINTER(i32),
                                                      ptr]
     lib.conv2d_depthwise_fwd.restype = i32
     lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
     lib.conv2d_depthwise_dgrad.restype = i32
-    lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 6 + [i32] * 20 + [ptr]
     lib.conv2d_depthwise_wgrad.restype = i32
 
 
@@ -207,24 +208,55 @@ def _fwd_plan(x_shape: Tuple[int, ...], spec: ConvSpec, act: int,
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
               activation: Optional[str], gap: bool) -> torch.Tensor:
-    """Launch the forward kernel on CUDA operands: each operand checked and
-    read once, the shape's plan from ``_fwd_plan``."""
+    """Launch the forward kernel on CUDA operands -> the output map, or
+    with ``gap`` the pooled ``[N, C]``."""
+    out, pooled, _ = _launch_cuda(x, w, bias, residual, spec, activation, gap)
+    return pooled if gap else out
+
+
+def depthwise_gap(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, stride: int = 1,
+                  padding: Padding = "VALID",
+                  activation: Optional[str] = None,
+                  residual: Optional[torch.Tensor] = None, dilation=1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward with the GAP rider on CUDA operands ->
+    ``(pooled [N, C], partials [N, C/Cb, tiles, Cb])``: the per-item sums
+    the kernel wrote and the pooled features summed from them in the same
+    launch."""
+    spec = _forward_spec(x.shape, w.shape, stride, padding, dilation,
+                         None if bias is None else bias.shape,
+                         None if residual is None else residual.shape,
+                         activation)
+    _, pooled, partials = _launch_cuda(x, w, bias, residual, spec,
+                                       activation, True)
+    return pooled, partials
+
+
+def _launch_cuda(x, w, bias, residual, spec, activation, gap):
+    """Launch the forward kernel on CUDA operands, each checked and read
+    once, the shape's plan from ``_fwd_plan`` -> ``(out, pooled or None,
+    partials or None)``."""
     dev = _cuda_device(x)
     ptrs = [_require(t, name, dev, vector_loads=name == "x")
             for name, t in (("x", x), ("w", w), ("bias", bias),
                             ("residual", residual))]
     plan = _fwd_plan(x.shape, spec, _ACT_CODES[activation], gap)
     out = torch.empty(plan.out_shape, device=dev, dtype=torch.float32)
-    partials = (torch.empty(plan.partials_shape, device=dev,
-                            dtype=torch.float32) if gap else None)
+    partials = pooled = counters = None
+    stream = _stream(dev)
+    if gap:
+        n, cblk, _, cb = plan.partials_shape
+        partials = torch.empty(plan.partials_shape, device=dev,
+                               dtype=torch.float32)
+        pooled = torch.empty((n, cblk * cb), device=dev, dtype=torch.float32)
+        counters = split_sum.counters(dev, stream, n * cblk)
     lib = _lib()
     err = _call(dev, lib.conv2d_depthwise_fwd, *ptrs, out.data_ptr(),
-                _ptr(partials), plan.ints, _stream(dev))
+                _ptr(partials), _ptr(pooled), counters, plan.ints, stream)
     LAUNCHES["conv2d_depthwise_fwd"] += 1
     _check(err, lib, "conv2d_depthwise_fwd")
-    if gap:
-        return gap_finalize(partials, spec.ho * spec.wo)
-    return out
+    return out, pooled, partials
 
 
 # ---------------------------------------------------------------------------
@@ -284,15 +316,15 @@ def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     pre-activation ``z`` -> ``(dw [C/Cb, 1, Hf, Wf, 1, Cb] f32, db [C/Cb,
     Cb] f32 or None)``.  On CUDA the wgrad kernel
     (``depthwise_wgrad_partials``) writes one partial sum per position
-    share and ``wgrad_reduce`` adds the shares in order: two runs give
-    identical bits."""
+    share and the last CTA of each channel block adds the shares in order:
+    two runs give identical bits."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
                                          activation, with_db,
                                          g.shape[1] * g.shape[4], dilation)
-    out = wgrad_reduce(depthwise_wgrad_partials(
-        x, g, hf, wf, stride, padding, z, activation, with_db, dilation))
+    _, out = depthwise_wgrad_partials(x, g, hf, wf, stride, padding, z,
+                                      activation, with_db, dilation)
     cblk, cb = g.shape[1], g.shape[4]
     dw_size = cblk * hf * wf * cb
     dw = out[:dw_size].view(cblk, 1, hf, wf, 1, cb)
@@ -306,9 +338,12 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
                              z: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
                              with_db: bool = False,
-                             dilation=1) -> torch.Tensor:
-    """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
-    ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then ``db``."""
+                             dilation=1
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
+    workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then
+    ``db``, and ``out [|dw| + |db|]``, its rows summed in split order by
+    the last CTA of each channel block."""
     _backward_operands(g, z, activation)
     dev = _cuda_device(x)
     n, cblk, hi, wi, cb = x.shape
@@ -328,15 +363,18 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
                                       spec.stride, spec.dilation)
     cols = cblk * hf * wf * cb + (cblk * cb if with_db else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
+    out = torch.empty((cols,), device=dev, dtype=torch.float32)
+    stream = _stream(dev)
     lib = _lib()
-    err = _call(dev, lib.conv2d_depthwise_wgrad, *ptrs, ws.data_ptr(), n,
+    err = _call(dev, lib.conv2d_depthwise_wgrad, *ptrs, ws.data_ptr(),
+                out.data_ptr(), split_sum.counters(dev, stream, cblk), n,
                 cblk, cb, hi, wi, spec.ho, spec.wo, hf, wf, spec.stride,
                 *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
-                blk.wob, blk.splits, _ACT_CODES[activation], int(with_db),
-                smem, _stream(dev))
+                blk.wob, blk.splits, _ACT_CODES[activation],
+                int(with_db), smem, stream)
     LAUNCHES["conv2d_depthwise_wgrad"] += 1
     _check(err, lib, "conv2d_depthwise_wgrad")
-    return ws
+    return ws, out
 
 
 # ---------------------------------------------------------------------------

@@ -10,19 +10,20 @@ reference it refuses any other geometry.
   grad, it runs the fused inference kernel (``_pw_fwd_kernel``, ``:56``):
   ``csrc/conv2d_pointwise.cu``'s tensor-core tile (``pointwise_tile_kernel``,
   a 3xTF32 wgmma GEMM fed by a producer warpgroup) on a CUDA tensor.  With
-  ``gap`` the kernel's per-tile partial sums go to the dense family's
-  ``gap_finalize``.
+  ``gap`` the kernel writes per-tile partial sums and its last CTA of each
+  (image, output block) adds them into the pooled features
+  (``csrc/split_sum.cuh``).
 * With grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
   ``_pwconv`` / ``_pwconv_fwd`` / ``_pwconv_bwd`` (``:351-420``), with this
   family's kernels: ``pointwise_dgrad`` (``_pw_dgrad_kernel``, ``:87``:
   the dense dgrad's tensor-core tile at a 1x1 filter, ``csrc/dgrad_tile.cuh``
   through ``direct_conv2d_bwd.cu``'s ``dgrad_kernel``, which timed faster
-  than the forward's tile with the weight read transposed; on CUDA it
-  takes Cob pencils of a multiple of 4, as the dense dgrad does) and
-  ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``, and the dense
-  family's ``wgrad_reduce``), with the ``dz = g * act'(z)`` prologue and
-  ``db``.
+  than the forward's tile with the weight read transposed; it copies by
+  TMA, or by cp.async where Cob is not a multiple of 4) and
+  ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``, whose last CTA of
+  each block adds its shares in split order), with the ``dz = g *
+  act'(z)`` prologue and ``db``.
 
 A 1x1 stride-1 conv is a dense conv, so the plain versions are the dense
 ones of ``core.direct_conv`` at that geometry: the CPU path runs them, and
@@ -34,15 +35,14 @@ depthwise forward's are.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
-launches of this module's kernels; ``gap_finalize`` and ``wgrad_reduce``
-count in ``kernels.direct_conv2d.LAUNCHES``.
+launches of this module's kernels.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -66,12 +66,13 @@ from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
                                                _bwd_lib, _require,
-                                               _stream, dgrad_launch,
-                                               gap_finalize, wgrad_reduce)
+                                               _stream, dgrad_launch)
+from repro_torch.kernels import split_sum
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "pointwise_conv2d_blocked",
-           "pointwise_dgrad", "pointwise_wgrad", "pointwise_wgrad_partials"]
+           "pointwise_gap", "pointwise_dgrad", "pointwise_wgrad",
+           "pointwise_wgrad_partials"]
 
 LAUNCHES = {"conv2d_pointwise_fwd": 0, "conv2d_pointwise_dgrad": 0,
             "conv2d_pointwise_wgrad": 0}
@@ -83,10 +84,10 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_pointwise_tile.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+    lib.conv2d_pointwise_tile.argtypes = [ptr] * 8 + [ctypes.POINTER(i32),
                                                       ptr]
     lib.conv2d_pointwise_tile.restype = i32
-    lib.conv2d_pointwise_wgrad.argtypes = [ptr] * 4 + [i32] * 11 + [ptr]
+    lib.conv2d_pointwise_wgrad.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
     lib.conv2d_pointwise_wgrad.restype = i32
 
 
@@ -198,19 +199,49 @@ def _tile_plan(n: int, hw: int, kblk: int, kw: int, oblk: int, ow: int,
 
 
 def tile_launch(plan: _TilePlan, dev: torch.device, ptrs, out: torch.Tensor,
-                partials: Optional[torch.Tensor]) -> int:
+                partials: Optional[torch.Tensor] = None,
+                pooled: Optional[torch.Tensor] = None) -> int:
     """Launch the tile of ``plan`` on checked operand pointers ``(x, w,
-    bias, residual)`` into ``out`` -> the CUDA error code; the caller counts
-    the launch."""
+    bias, residual)`` into ``out`` (with GAP, the tiles' sums into
+    ``partials`` and the pooled features into ``pooled``) -> the CUDA error
+    code; the caller counts the launch."""
+    stream = _stream(dev)
+    # the GAP's columns: one an (image, output block)
+    counters = (split_sum.counters(dev, stream, out.shape[0] * out.shape[1])
+                if pooled is not None else None)
     return _call(dev, _lib().conv2d_pointwise_tile, *ptrs, out.data_ptr(),
-                 _ptr(partials), plan.ints, _stream(dev))
+                 _ptr(partials), _ptr(pooled), counters, plan.ints, stream)
 
 
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], activation: Optional[str],
               gap: bool) -> torch.Tensor:
-    """Launch the tile forward on CUDA operands: each operand checked and
-    read once, the shape's plan from ``_tile_plan``."""
+    """Launch the tile forward on CUDA operands -> the output map, or with
+    ``gap`` the pooled ``[N, Co]``."""
+    out, pooled, _ = _launch_cuda(x, w, bias, residual, activation, gap)
+    return pooled if gap else out
+
+
+def pointwise_gap(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  activation: Optional[str] = None,
+                  residual: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the tile forward with the GAP rider on CUDA operands
+    -> ``(pooled [N, Co], partials [N, Co/Cob, tiles, Cob])``: the per-tile
+    sums the kernel wrote and the pooled features the last CTA of each
+    image and output block summed from them."""
+    _forward_checks(x.shape, w.shape, 1, "VALID",
+                    None if bias is None else bias.shape,
+                    None if residual is None else residual.shape, activation)
+    _, pooled, partials = _launch_cuda(x, w, bias, residual, activation, True)
+    return pooled, partials
+
+
+def _launch_cuda(x, w, bias, residual, activation, gap):
+    """Launch the tile forward on CUDA operands, each checked and read
+    once, the shape's plan from ``_tile_plan`` -> ``(out, pooled or None,
+    partials or None)``."""
     dev = _cuda_device(x)
     ptrs = (_require(x, "x", dev, vector_loads=True),
             _require(w, "w", dev, vector_loads=True),
@@ -224,14 +255,16 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     plan = _tile_plan(n, hw, ciblk, cib, coblk, cob, _ACT_CODES[activation],
                       gap)
     out = torch.empty((n, coblk, h, wd, cob), device=dev, dtype=torch.float32)
-    partials = (torch.empty((n, coblk, plan.blk.tiles, cob), device=dev,
-                            dtype=torch.float32) if gap else None)
-    err = tile_launch(plan, dev, ptrs, out, partials)
+    partials = pooled = None
+    if gap:
+        partials = torch.empty((n, coblk, plan.blk.tiles, cob), device=dev,
+                               dtype=torch.float32)
+        pooled = torch.empty((n, coblk * cob), device=dev,
+                             dtype=torch.float32)
+    err = tile_launch(plan, dev, ptrs, out, partials, pooled)
     LAUNCHES["conv2d_pointwise_fwd"] += 1
     _check(err, _lib(), "conv2d_pointwise_fwd")
-    if gap:
-        return gap_finalize(partials, hw)
-    return out
+    return out, pooled, partials
 
 
 # ---------------------------------------------------------------------------
@@ -258,8 +291,8 @@ def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     Co/Cob, H, W, Cob]``, the saved pre-activation ``z`` (None for a
     linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, H, W, Cib]``, with ``dz
     = g * act'(z)`` formed as ``g`` is staged.  On CUDA it is the dense
-    dgrad kernel at a 1x1 filter, with the tiles its chooser takes (Cob
-    pencils of a multiple of 4)."""
+    dgrad kernel at a 1x1 filter, with the tiles its chooser takes (any
+    Cob: TMA copies, or cp.async where Cob is not a multiple of 4)."""
     _backward_operands(g, z, activation)
     _check_backward(g, w, z)
     if g.device.type == "cpu":
@@ -272,9 +305,10 @@ def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     spec = backward_spec(n, h, wd, w.shape, 1, "VALID", g, z)
     blk = choose_dgrad_blocking(n, h, wd, 1, 1, 1, ciblk, cib, cob,
                                 prologue=prologue)
-    err, dx = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th, blk, g, w,
-                           spec, z if prologue else None, activation)
-    LAUNCHES["conv2d_pointwise_dgrad"] += 1
+    err, dx, grids = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th,
+                                  blk, g, w, spec,
+                                  z if prologue else None, activation)
+    LAUNCHES["conv2d_pointwise_dgrad"] += grids
     _check(err, _bwd_lib(), "conv2d_pointwise_dgrad")
     return dx
 
@@ -286,15 +320,14 @@ def pointwise_wgrad(x: torch.Tensor, g: torch.Tensor,
     """Weight (and bias) gradient of ``act(x @ w + b)`` -> ``(dw [Co/Cob,
     Ci/Cib, 1, 1, Cib, Cob] f32, db [Co/Cob, Cob] f32 or None)``.  On CUDA
     the wgrad kernel (``pointwise_wgrad_partials``) writes one partial sum
-    per position share and ``wgrad_reduce`` adds the shares in order: two
-    runs give identical bits."""
+    per position share and the last CTA of each block adds the shares in
+    order: two runs give identical bits."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
         _check_wgrad(x, g, z)
         return direct_conv_wgrad_blocked(x, g, 1, 1, 1, "VALID", z,
                                          activation, with_db)
-    out = wgrad_reduce(pointwise_wgrad_partials(x, g, z, activation,
-                                                with_db))
+    _, out = pointwise_wgrad_partials(x, g, z, activation, with_db)
     ciblk, cib, coblk, cob = x.shape[1], x.shape[4], g.shape[1], g.shape[4]
     dw_size = coblk * ciblk * cib * cob
     dw = out[:dw_size].view(coblk, ciblk, 1, 1, cib, cob)
@@ -316,9 +349,12 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor,
 def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
                              z: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
-                             with_db: bool = False) -> torch.Tensor:
-    """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
-    ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then ``db``."""
+                             with_db: bool = False
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
+    workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then
+    ``db``, and ``out [|dw| + |db|]``, its rows summed in split order by
+    the last CTA of each block."""
     _backward_operands(g, z, activation)
     _check_wgrad(x, g, z)
     dev = _cuda_device(x)
@@ -334,13 +370,17 @@ def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
     smem = pointwise_wgrad_smem_bytes(blk.positions, cib, cob, blk.pgroups)
     cols = coblk * ciblk * cib * cob + (coblk * cob if with_db else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
+    out = torch.empty((cols,), device=dev, dtype=torch.float32)
+    stream = _stream(dev)
+    columns = ciblk * coblk
     lib = _lib()
-    err = _call(dev, lib.conv2d_pointwise_wgrad, *ptrs, ws.data_ptr(), n,
+    err = _call(dev, lib.conv2d_pointwise_wgrad, *ptrs, ws.data_ptr(),
+                out.data_ptr(), split_sum.counters(dev, stream, columns), n,
                 ciblk, cib, coblk, cob, hw, blk.positions, blk.splits,
-                _ACT_CODES[activation], int(with_db), smem, _stream(dev))
+                _ACT_CODES[activation], int(with_db), smem, stream)
     LAUNCHES["conv2d_pointwise_wgrad"] += 1
     _check(err, lib, "conv2d_pointwise_wgrad")
-    return ws
+    return ws, out
 
 
 # ---------------------------------------------------------------------------

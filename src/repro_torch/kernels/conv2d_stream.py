@@ -15,10 +15,10 @@ family's functions:
   saved pre-activation ``z`` (``dz = g * act'(z)`` formed in the kernel),
   written at the unpadded input's shape;
 * ``stream_wgrad``: ``(dw, db)``, the kernel's per-share partial sums added
-  in split order by the dense family's ``wgrad_reduce``
-  (``stream_wgrad_kernel``: the tensor-core wgrad tile of
-  ``csrc/wgrad_tile.cuh`` walked strip by strip down each column, the halo
-  rows kept).
+  in split order by the last CTA of each column of shares
+  (``stream_wgrad_kernel``: the
+  tensor-core wgrad tile of ``csrc/wgrad_tile.cuh`` walked strip by strip
+  down each column, the halo rows kept; the sums, ``csrc/split_sum.cuh``).
 
 Unlike the reference they take the port's **unpadded** operands: pads and
 halos are zero-filled copies, and the dgrad reads no stride hole (each
@@ -31,8 +31,7 @@ forward's launch plan is built once per shape (``fwd_launch``).
 The plain versions are the dense family's (``core.direct_conv``), since the
 function is the same: a CPU tensor takes them, after the same blocking and
 argument checks as a CUDA tensor; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts this module's kernels; ``gap_finalize`` and
-``wgrad_reduce`` count in ``kernels.direct_conv2d.LAUNCHES``.  The routing
+raises.  ``LAUNCHES`` counts this module's kernels.  The routing
 between these kernels and the window ones lives in
 ``kernels.direct_conv2d`` and ``core.dispatch``.
 """
@@ -61,8 +60,7 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
                                                _cuda_device, _library,
                                                check_machine, dgrad_launch,
                                                fwd_launch, fwd_run,
-                                               gap_finalize, split_wgrad,
-                                               wgrad_launch, wgrad_reduce)
+                                               split_wgrad, wgrad_launch)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
@@ -77,17 +75,18 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_stream_conv.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
+    lib.conv2d_stream_conv.argtypes = [ptr] * 8 + [ctypes.POINTER(i32), ptr]
     lib.conv2d_stream_conv.restype = i32
     lib.conv2d_stream_conv_plan.argtypes = [
         ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
     lib.conv2d_stream_conv_plan.restype = i32
-    lib.conv2d_stream_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.conv2d_stream_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [
+        ptr, ctypes.POINTER(i32)]
     lib.conv2d_stream_dgrad.restype = i32
     lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.conv2d_stream_dgrad_plan.restype = i32
-    lib.conv2d_stream_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
+    lib.conv2d_stream_wgrad.argtypes = [ptr] * 6 + [i32] * 22 + [ptr]
     lib.conv2d_stream_wgrad.restype = i32
     lib.conv2d_stream_wgrad_plan.argtypes = [i32] * 21 + [
         ctypes.POINTER(ctypes.c_longlong)]
@@ -98,6 +97,13 @@ def _lib() -> ctypes.CDLL:
     return _library("conv2d_stream", _declare, FWD_GEOMETRY,
                     more_geometries=(("conv2d_stream_wgrad_geometry",
                                       WGRAD_GEOMETRY),))
+
+
+def gap_entry():
+    """``(library, its forward's C entry, its LAUNCHES key)``, for
+    ``kernels.direct_conv2d.gap_forward``."""
+    lib = _lib()
+    return lib, lib.conv2d_stream_conv, "conv2d_stream_fwd"
 
 
 def _prologue(z: Optional[torch.Tensor], activation: Optional[str]) -> bool:
@@ -129,7 +135,8 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     """The streamed forward: x ``[N, Ci/Cib, Hi, Wi, Cib]``, w ``[Co/Cob,
     Ci/Cib, Hf, Wf, Cib, Cob]``, bias ``[Co/Cob, Cob]``, residual at the
     output's shape -> the output map, or with ``gap`` the pooled ``[N,
-    Co]`` (the kernel's per-band partial sums through ``gap_finalize``).
+    Co]`` (the kernel's per-band partial sums, added by the last CTA of
+    each image and output block).
     Inference only: the training path enters through
     ``kernels.direct_conv2d.direct_conv2d_blocked``."""
     spec = conv_spec(x, w, stride, padding)
@@ -152,13 +159,11 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     plan = fwd_launch(spec, x.shape[4], cob, _ACT_CODES[activation], gap,
                       True, hso, machine)
     lib = _lib()
-    err, out, partials = fwd_run(lib.conv2d_stream_conv, plan, x, w, bias,
-                                 residual, spec)
+    err, out, _, pooled = fwd_run(lib.conv2d_stream_conv, plan, x, w, bias,
+                                  residual, spec)
     LAUNCHES["conv2d_stream_fwd"] += 1
     _check(err, lib, "conv2d_stream_fwd")
-    if gap:
-        return gap_finalize(partials, spec.ho * spec.wo)
-    return out
+    return pooled if gap else out
 
 
 def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
@@ -185,9 +190,10 @@ def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation)
     lib = _lib()
-    err, dx = dgrad_launch(lib.conv2d_stream_dgrad, blk.hso, blk, g, w, spec,
-                           z if prologue else None, activation)
-    LAUNCHES["conv2d_stream_dgrad"] += 1
+    err, dx, grids = dgrad_launch(lib.conv2d_stream_dgrad, blk.hso, blk, g,
+                                  w, spec, z if prologue else None,
+                                  activation)
+    LAUNCHES["conv2d_stream_dgrad"] += grids
     _check(err, lib, "conv2d_stream_dgrad")
     return dx
 
@@ -201,18 +207,18 @@ def stream_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     """The streamed weight (and bias) gradient: the forward's unpadded input
     ``x``, the raw cotangent ``g`` and the saved pre-activation ``z`` ->
     ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32, db [Co/Cob, Cob] f32 or
-    None)``.  On CUDA: ``stream_wgrad_partials`` and then ``wgrad_reduce``,
-    which adds the shares in order (no atomics, identical bits run to
-    run)."""
+    None)``.  On CUDA: ``stream_wgrad_partials``, whose last CTA of each
+    column adds its shares in order (identical bits run to run)."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
         _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation,
                                hso, machine)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
                                          activation, with_db)
-    ws = stream_wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
-                               with_db, hso=hso, machine=machine)
-    return split_wgrad(wgrad_reduce(ws), x.shape, g.shape, hf, wf, with_db)
+    _, out = stream_wgrad_partials(x, g, hf, wf, stride, padding, z,
+                                   activation, with_db, hso=hso,
+                                   machine=machine)
+    return split_wgrad(out, x.shape, g.shape, hf, wf, with_db)
 
 
 def _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation, hso,
@@ -234,17 +240,20 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                           activation: Optional[str] = None,
                           with_db: bool = False, *,
                           hso: Optional[int] = None,
-                          machine: MachineModel = H100_SXM) -> torch.Tensor:
-    """The streamed wgrad kernel on CUDA operands -> the f32 workspace
-    ``[splits, |dw| + |db|]`` of per-share partial sums."""
+                          machine: MachineModel = H100_SXM
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The streamed wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
+    workspace ``[splits, |dw| + |db|]`` of per-share partial sums and their
+    in-order sum ``[|dw| + |db|]`` that the last CTA of each column of
+    shares wrote."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
     spec, blk = _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z,
                                        activation, hso, machine)
     lib = _lib()
-    err, ws = wgrad_launch(lib.conv2d_stream_wgrad, blk, x, g, hf, wf, spec,
-                           z if _prologue(z, activation) else None,
-                           activation, with_db)
+    err, ws, out = wgrad_launch(lib.conv2d_stream_wgrad, blk, x, g, hf, wf,
+                                spec, z if _prologue(z, activation) else None,
+                                activation, with_db)
     LAUNCHES["conv2d_stream_wgrad"] += 1
     _check(err, lib, "conv2d_stream_wgrad")
-    return ws
+    return ws, out

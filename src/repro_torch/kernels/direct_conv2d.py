@@ -20,6 +20,14 @@ autograd.
   ``csrc/direct_conv2d_bwd.cu`` with the ``dz = g * act'(z)`` prologue and
   ``db``.
 
+A split sum is summed in the launch that writes its rows: the wgrad's
+per-share partial sums by the last CTA of each column of shares, the GAP
+rider's per-tile sums by the last CTA of each (image, output block)
+(``csrc/split_sum.cuh``; the counters live in ``kernels.split_sum``).  Both
+come out bit for bit as ``conv2d_common.wgrad_reduce`` /
+``gap_finalize`` of those rows; ``wgrad_partials`` and ``gap_forward``
+return the rows beside the sum so that a check can hold them.
+
 Each of the three takes ``stream=``, ``hso=`` and ``machine=``: the dense
 family has window kernels (here) and streamed halo-ring kernels
 (``kernels.conv2d_stream``, ``csrc/conv2d_stream.cu``), and which one a
@@ -50,10 +58,8 @@ import dataclasses
 import functools
 from typing import Optional, Tuple
 
-import numpy as np
 import torch
 
-from repro_torch.core import conv2d_common
 from repro_torch.core.blocking import (FWD_CONSUMERS, FWD_ROWS,
                                        FWD_THREADS, H100_SXM,
                                        WGRAD_MAX_POSITIONS, WGRAD_ROWS,
@@ -78,18 +84,17 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
 from repro_torch.core.errors import KernelLaunchError
 from repro_torch.core.padding import Padding
 from repro_torch.core.precision import F32, resolve_precision
+from repro_torch.kernels import split_sum
 from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "check_machine",
            "direct_conv2d_blocked", "FwdLaunch", "fwd_launch", "fwd_plans",
-           "gap_finalize", "direct_conv2d_dgrad", "dgrad_plans",
-           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans",
-           "wgrad_reduce"]
+           "gap_forward", "direct_conv2d_dgrad", "dgrad_plans",
+           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans"]
 
-LAUNCHES = {"direct_conv2d_fwd": 0, "gap_finalize": 0,
-            "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
-            "wgrad_reduce": 0}
+LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_dgrad": 0,
+            "direct_conv2d_wgrad": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -114,8 +119,8 @@ def _library(name: str, declare, geometry=None,
              more_geometries=()) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
     ``declare(lib, ptr, i32)`` on first use; checks that the geometry it
-    was compiled with, ``<name>_geometry``, is ``geometry`` (the FMA
-    kernels' ``(threads, lanes, positions)`` by default), and
+    was compiled with, ``<name>_geometry``, is ``geometry`` (``H100_SXM``'s
+    ``(threads, lanes, positions)`` by default), and
     each ``(symbol, geometry)`` of ``more_geometries`` likewise."""
     lib = library(name)
     if _DECLARED.get(name) is lib:
@@ -143,28 +148,25 @@ def _library(name: str, declare, geometry=None,
 
 
 def _declare_fwd(lib, ptr, i32) -> None:
-    lib.direct_conv2d_fwd.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
+    lib.direct_conv2d_fwd.argtypes = [ptr] * 8 + [ctypes.POINTER(i32), ptr]
     lib.direct_conv2d_fwd.restype = i32
     lib.direct_conv2d_fwd_plan.argtypes = [
         ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
     lib.direct_conv2d_fwd_plan.restype = i32
-    lib.gap_finalize.argtypes = [ptr, ptr, i32, i32, i32, ctypes.c_float, ptr]
-    lib.gap_finalize.restype = i32
 
 
 def _declare_bwd(lib, ptr, i32) -> None:
-    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [
+        ptr, ctypes.POINTER(i32)]
     lib.direct_conv2d_dgrad.restype = i32
     lib.direct_conv2d_dgrad_plan.argtypes = [i32] * 19 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.direct_conv2d_dgrad_plan.restype = i32
-    lib.direct_conv2d_wgrad.argtypes = [ptr] * 4 + [i32] * 22 + [ptr]
+    lib.direct_conv2d_wgrad.argtypes = [ptr] * 6 + [i32] * 22 + [ptr]
     lib.direct_conv2d_wgrad.restype = i32
     lib.direct_conv2d_wgrad_plan.argtypes = [i32] * 21 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.direct_conv2d_wgrad_plan.restype = i32
-    lib.wgrad_reduce.argtypes = [ptr, ptr, ctypes.c_longlong, i32, ptr]
-    lib.wgrad_reduce.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
@@ -259,9 +261,10 @@ def _call(device: torch.device, entry, *args) -> int:
 
 
 def check_machine(machine: MachineModel) -> None:
-    """The FMA kernels are compiled for ``H100_SXM``'s register tile and CTA
-    size; a machine model may differ from it only in ``smem_budget``,
-    ``smem_block``, ``sms`` and ``ctas_per_sm``."""
+    """The kernels are compiled for ``H100_SXM``'s ``(threads, lanes,
+    positions)`` (the separable wgrads' CTA and register tile); a machine
+    model may differ from it only in ``smem_budget``, ``smem_block``,
+    ``sms`` and ``ctas_per_sm``."""
     m = H100_SXM
     if (machine.threads, machine.lanes, machine.positions) != (
             m.threads, m.lanes, m.positions):
@@ -435,8 +438,8 @@ def fwd_run(entry, plan: FwdLaunch, x: torch.Tensor, w: torch.Tensor,
             spec: ConvSpec):
     """Call a forward kernel's C ``entry`` (the window one or the streamed
     one) with ``plan`` on CUDA operands, each checked and read once ->
-    ``(CUDA error code, out, the GAP partials or None)``; the caller counts
-    the launch."""
+    ``(CUDA error code, out, the GAP partials and the pooled [N, Co] they
+    sum to, or None and None)``; the caller counts the launch."""
     dev = _cuda_device(x)
     ptrs = (_require(x, "x", dev, vector_loads=True),
             _require(w, "w", dev, vector_loads=True),
@@ -447,28 +450,64 @@ def fwd_run(entry, plan: FwdLaunch, x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
     out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
                       dtype=torch.float32)
-    partials = (torch.empty((n, coblk, blk.tiles, cob), device=dev,
-                            dtype=torch.float32) if plan.gap else None)
-    err = _call(dev, entry, *ptrs, out.data_ptr(), _ptr(partials), plan.ints,
-                _stream(dev))
-    return err, out, partials
+    partials = pooled = counters = None
+    stream = _stream(dev)
+    if plan.gap:
+        partials = torch.empty((n, coblk, blk.tiles, cob), device=dev,
+                               dtype=torch.float32)
+        pooled = torch.empty((n, coblk * cob), device=dev,
+                             dtype=torch.float32)
+        counters = split_sum.counters(dev, stream, n * coblk)
+    err = _call(dev, entry, *ptrs, out.data_ptr(), _ptr(partials),
+                _ptr(pooled), counters, plan.ints, stream)
+    return err, out, partials, pooled
 
 
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
               activation: Optional[str], gap: bool,
               machine: MachineModel = H100_SXM) -> torch.Tensor:
-    """Launch the window forward kernel on CUDA operands."""
+    """Launch the window forward kernel on CUDA operands -> the output map,
+    or with ``gap`` the pooled ``[N, Co]``."""
     plan = fwd_launch(spec, x.shape[4], w.shape[5], _ACT_CODES[activation],
                       gap, False, None, machine)
     lib = _lib()
-    err, out, partials = fwd_run(lib.direct_conv2d_fwd, plan, x, w, bias,
-                                 residual, spec)
+    err, out, _, pooled = fwd_run(lib.direct_conv2d_fwd, plan, x, w, bias,
+                                  residual, spec)
     LAUNCHES["direct_conv2d_fwd"] += 1
     _check(err, lib, "direct_conv2d_fwd")
-    if gap:
-        return gap_finalize(partials, spec.ho * spec.wo)
-    return out
+    return pooled if gap else out
+
+
+def gap_forward(x: torch.Tensor, w: torch.Tensor,
+                bias: Optional[torch.Tensor] = None, stride: int = 1,
+                padding: Padding = "VALID", activation: Optional[str] = None,
+                residual: Optional[torch.Tensor] = None, *,
+                streamed: bool = False, hso: Optional[int] = None,
+                machine: MachineModel = H100_SXM
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the window forward (``streamed``: the streamed one)
+    with the GAP rider on CUDA operands -> ``(pooled [N, Co], partials [N,
+    Co/Cob, tiles, Cob])``: the per-tile sums the kernel wrote and the
+    pooled features the last CTA of each image and output block summed
+    from them, so that a check can
+    hold the one against ``conv2d_common.gap_finalize`` of the other."""
+    spec = conv_spec(x, w, stride, padding)
+    _check_activation(activation)
+    check_machine(machine)
+    _cuda_device(x)
+    plan = fwd_launch(spec, x.shape[4], w.shape[5], _ACT_CODES[activation],
+                      True, streamed, hso, machine)
+    if streamed:
+        lib, entry, name = _stream_kernels().gap_entry()
+    else:
+        lib = _lib()
+        entry, name = lib.direct_conv2d_fwd, "direct_conv2d_fwd"
+    err, _, partials, pooled = fwd_run(entry, plan, x, w, bias, residual,
+                                       spec)
+    (_stream_kernels().LAUNCHES if streamed else LAUNCHES)[name] += 1
+    _check(err, lib, name)
+    return pooled, partials
 
 
 def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
@@ -492,32 +531,6 @@ def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                                    spec.hf, spec.wf, spec.stride,
                                    spec.ci // cib, cib, spec.co // cob, cob,
                                    gap)
-
-
-def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
-    """``[N, Co/Cob, n_tiles, Cob]`` f32 per-tile sums -> pooled ``[N, Co]``:
-    tiles summed in index order, times the f32 reciprocal of ``hw``."""
-    if partials.dim() != 4:
-        raise ValueError(f"partials must be [N, Co/Cob, n_tiles, Cob], got "
-                         f"{tuple(partials.shape)}")
-    if partials.device.type == "cpu":
-        return conv2d_common.gap_finalize(partials, hw)
-    dev = partials.device
-    ptr = _require(partials, "partials", dev)
-    n, coblk, n_tiles, cob = partials.shape
-    pooled = torch.empty((n, coblk * cob), device=dev, dtype=torch.float32)
-    lib = _lib()
-    err = _call(dev, lib.gap_finalize, ptr, pooled.data_ptr(), n * coblk,
-                n_tiles, cob, _inv_count(hw), _stream(dev))
-    LAUNCHES["gap_finalize"] += 1
-    _check(err, lib, "gap_finalize")
-    return pooled
-
-
-@functools.lru_cache(maxsize=256)
-def _inv_count(hw: int) -> float:
-    """The f32 reciprocal of ``hw``, as the plain version scales by it."""
-    return float(np.float32(1.0) / np.float32(hw))
 
 
 # ---------------------------------------------------------------------------
@@ -549,7 +562,8 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     is staged.  ``stride``/``padding`` are the forward's; ``stream``,
     ``hso`` and ``machine`` route it as the forward.  On CUDA: the
     phase-split tensor-core kernel (``csrc/dgrad_tile.cuh``), all phases in
-    one launch."""
+    one launch, its operands copied by TMA, or by cp.async where Cob is not
+    a multiple of 4."""
     _backward_operands(g, z, activation)
     check_machine(machine)
     hi, wi = input_hw
@@ -567,9 +581,10 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation)
-    err, dx = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th, blk, g,
-                           w, spec, z if prologue else None, activation)
-    LAUNCHES["direct_conv2d_dgrad"] += 1
+    err, dx, grids = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th,
+                                  blk, g, w, spec,
+                                  z if prologue else None, activation)
+    LAUNCHES["direct_conv2d_dgrad"] += grids
     _check(err, _bwd_lib(), "direct_conv2d_dgrad")
     return dx
 
@@ -580,25 +595,23 @@ def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
     """Call a phase-split dgrad kernel's C ``entry`` (the window one, whose
     ``rows`` are the tile's ``th``, or the streamed one, whose ``rows`` are
     a strip's ``hso``) with the tiles ``blk`` on CUDA operands, ``z`` only
-    with the prologue -> ``(CUDA error code, dx)``; the caller counts the
-    launch."""
+    with the prologue -> ``(CUDA error code, dx, grids launched)``; the
+    caller adds the grids to its launch count."""
     dev = _cuda_device(g)
     ptrs = (_require(g, "g", dev, vector_loads=True),
             _require(z, "z", dev, vector_loads=True),
             _require(w, "w", dev, vector_loads=True))
     n, coblk, ho, wo, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
-    if cob % 4:
-        raise ValueError(f"cob={cob}: the dgrad kernels' TMA copies take "
-                         "Cob pencils of a multiple of 4 channels")
     if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
     dx = torch.empty((n, ciblk, spec.hi, spec.wi, cib), device=dev,
                      dtype=torch.float32)
+    launches = ctypes.c_int(0)
     err = _call(dev, entry, *ptrs, dx.data_ptr(),
                 *_dgrad_ints(rows, blk, g.shape, w.shape, spec),
-                _ACT_CODES[activation], _stream(dev))
-    return err, dx
+                _ACT_CODES[activation], _stream(dev), ctypes.byref(launches))
+    return err, dx, launches.value
 
 
 def _dgrad_ints(rows: int, blk: DgradBlocking, g_shape, w_shape,
@@ -657,8 +670,9 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
 
     On CUDA the tensor-core wgrad kernel (``wgrad_partials``,
     ``csrc/wgrad_tile.cuh``) writes one partial sum per position share into
-    a ``[splits, |dw| + |db|]`` f32 workspace (``torch.empty``) and
-    ``wgrad_reduce`` adds the shares in order; no atomics, so two runs give
+    a ``[splits, |dw| + |db|]`` f32 workspace (``torch.empty``) and the last
+    CTAs of each column of shares add them in split order, in the same
+    launch; no sum depends on the order CTAs run in, so two runs give
     identical bits.  ``stream``, ``hso`` and ``machine`` route it as the
     forward."""
     _backward_operands(g, z, activation)
@@ -678,14 +692,14 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                               cib, g.shape[1], cob, machine, prologue)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
                                          activation, with_db)
-    ws = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
-                        with_db, machine)
-    return split_wgrad(wgrad_reduce(ws), x.shape, g.shape, hf, wf, with_db)
+    _, out = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
+                            with_db, machine)
+    return split_wgrad(out, x.shape, g.shape, hf, wf, with_db)
 
 
 def split_wgrad(out: torch.Tensor, x_shape, g_shape, hf: int, wf: int,
                 with_db: bool):
-    """The reduced workspace row ``[|dw| + |db|]`` -> ``(dw, db or None)``,
+    """The summed workspace row ``[|dw| + |db|]`` -> ``(dw, db or None)``,
     views of it."""
     _, ciblk, _, _, cib = x_shape
     _, coblk, _, _, cob = g_shape
@@ -700,10 +714,13 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                    z: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
                    with_db: bool = False,
-                   machine: MachineModel = H100_SXM) -> torch.Tensor:
-    """The wgrad kernel's first pass on CUDA operands -> the f32 workspace
-    ``[splits, |dw| + |db|]`` of per-share partial sums (tiles from
-    ``choose_wgrad_blocking``), each row laid out as ``dw`` then ``db``."""
+                   machine: MachineModel = H100_SXM
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The wgrad kernel on CUDA operands (tiles from
+    ``choose_wgrad_blocking``) -> ``(ws, out)``: the f32 workspace
+    ``[splits, |dw| + |db|]`` of per-share partial sums, each row laid out
+    as ``dw`` then ``db``, and ``out [|dw| + |db|]``, its rows summed in
+    split order by the last CTA of each column of shares."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
     n, ciblk, hi, wi, cib = x.shape
@@ -714,11 +731,12 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
                                 cob, machine, prologue)
     lib = _bwd_lib()
-    err, ws = wgrad_launch(lib.direct_conv2d_wgrad, blk, x, g, hf, wf, spec,
-                           z if prologue else None, activation, with_db)
+    err, ws, out = wgrad_launch(lib.direct_conv2d_wgrad, blk, x, g, hf, wf,
+                                spec, z if prologue else None, activation,
+                                with_db)
     LAUNCHES["direct_conv2d_wgrad"] += 1
     _check(err, lib, "direct_conv2d_wgrad")
-    return ws
+    return ws, out
 
 
 def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
@@ -726,8 +744,8 @@ def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
                  activation: Optional[str], with_db: bool):
     """Call a tensor-core wgrad kernel's C ``entry`` (the window one or the
     streamed one) with the tiles ``blk`` on CUDA operands, ``z`` only with
-    the prologue -> ``(CUDA error code, workspace)``; the caller counts the
-    launch."""
+    the prologue -> ``(CUDA error code, workspace, its rows' sum)``; the
+    caller counts the launch."""
     dev = _cuda_device(x)
     ptrs = (_require(x, "x", dev, vector_loads=True),
             _require(g, "g", dev, vector_loads=True),
@@ -739,10 +757,14 @@ def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
     cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
                                                   else 0)
     ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    err = _call(dev, entry, *ptrs, ws.data_ptr(),
+    out = torch.empty((cols,), device=dev, dtype=torch.float32)
+    columns = blk.groups * ciblk * coblk
+    stream = _stream(dev)
+    err = _call(dev, entry, *ptrs, ws.data_ptr(), out.data_ptr(),
+                split_sum.counters(dev, stream, columns),
                 *_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
-                _ACT_CODES[activation], int(with_db), _stream(dev))
-    return err, ws
+                _ACT_CODES[activation], int(with_db), stream)
+    return err, ws, out
 
 
 def _wgrad_ints(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
@@ -785,26 +807,6 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
         raise ValueError(f"the wgrad kernel refuses the tiles {blk}")
     return WgradPlan(*out), wgrad_plan(blk, n, ho, wo, hf, wf, stride,
                                        ciblk, cib, coblk, cob, prologue)
-
-
-def wgrad_reduce(partials: torch.Tensor) -> torch.Tensor:
-    """``[splits, cols]`` f32 partial sums -> ``[cols]``, the rows added in
-    index order (the wgrad kernel's second pass)."""
-    if partials.dim() != 2:
-        raise ValueError(f"partials must be [splits, cols], got "
-                         f"{tuple(partials.shape)}")
-    if partials.device.type == "cpu":
-        return conv2d_common.wgrad_reduce(partials)
-    dev = _cuda_device(partials)
-    ptr = _require(partials, "partials", dev)
-    splits, cols = partials.shape
-    out = torch.empty((cols,), device=dev, dtype=torch.float32)
-    lib = _bwd_lib()
-    err = _call(dev, lib.wgrad_reduce, ptr, out.data_ptr(), cols, splits,
-                _stream(dev))
-    LAUNCHES["wgrad_reduce"] += 1
-    _check(err, lib, "wgrad_reduce")
-    return out
 
 
 # ---------------------------------------------------------------------------

@@ -60,7 +60,9 @@ class ConvServer:
         self.clock = clock
         self.completed: list = []
         self._steps = 0
-        self._counters = {"submitted": 0, "ok": 0, "shed": 0, "timed_out": 0}
+        # batches: the batched forwards the steps ran
+        self._counters = {"submitted": 0, "ok": 0, "shed": 0, "timed_out": 0,
+                          "batches": 0}
 
     def _forward(self, imgs: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(imgs).to(self.device, torch.float32)
@@ -119,6 +121,7 @@ class ConvServer:
                                 np.float32)
                 imgs = np.concatenate([imgs, fill])
             logits = self._forward(imgs)
+            self._counters["batches"] += 1
             t = self.clock()
             for i, r in enumerate(reqs):
                 r.logits, r.t_done, r.done = logits[i], t, True

@@ -60,7 +60,9 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
 
 def graph_ms(fn, iters: int) -> float:
     """Device time of one call: ``iters`` calls captured in a CUDA graph
-    and replayed between two events."""
+    and replayed between two events.  The warm-up runs on the stream the
+    graph is captured on, so that the split sums' counters the graph keeps
+    are that stream's own (``kernels.split_sum``)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -68,7 +70,7 @@ def graph_ms(fn, iters: int) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(iters):
             fn()
     graph.replay()
@@ -115,7 +117,7 @@ def main() -> int:
                 rows = blk.hso if streamed else blk.th
 
                 def run(blk=blk, rows=rows):
-                    err, dx = direct_conv2d.dgrad_launch(
+                    err, dx, _ = direct_conv2d.dgrad_launch(
                         entry, rows, blk, g, w, spec, z, "relu")
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "

@@ -114,7 +114,7 @@ def main() -> int:
         times = {}
         for variant, lib in libs.items():
             def run(lib=lib):
-                err, out, _ = direct_conv2d.fwd_run(
+                err, out, _, _ = direct_conv2d.fwd_run(
                     lib.direct_conv2d_fwd, plan, x, w, b, None, spec)
                 if err:
                     raise RuntimeError(f"{variant}: CUDA error {err}")

@@ -89,8 +89,8 @@ def main() -> int:
                                                 streamed, blk=blk)
 
                 def run(plan=plan, blk=blk):
-                    err, out, _ = direct_conv2d.fwd_run(entry, plan, x, w, b,
-                                                        None, spec)
+                    err, out, _, _ = direct_conv2d.fwd_run(entry, plan, x, w,
+                                                           b, None, spec)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")

@@ -129,13 +129,16 @@ def main() -> int:
                         out = torch.empty((n, oblk, h, h, ow), device=dev)
                         part = (torch.empty((n, oblk, plan.blk.tiles, ow),
                                             device=dev) if gap else None)
+                        pooled = (torch.empty((n, oblk * ow), device=dev)
+                                  if gap else None)
                         err = pwk.tile_launch(
                             plan, dev, (x.data_ptr(), w.data_ptr(),
-                                        b.data_ptr(), None), out, part)
+                                        b.data_ptr(), None), out, part,
+                            pooled)
                         if err:
                             raise RuntimeError(f"fwd {plan.blk}: CUDA error "
                                                f"{err}")
-                        return pwk.gap_finalize(part, hw) if gap else out
+                        return pooled if gap else out
                     runs.append(run)
                 cost = {bk: k[0] for k, bk in pointwise_candidates(
                     n, hw, kblk, kw, oblk, ow, H100_SXM, gap)}
@@ -151,9 +154,9 @@ def main() -> int:
                 tiles = dgrad_tile_candidates(ci, co, h)
                 for blk in tiles:
                     def run(blk=blk):
-                        err, dx = dgrad_launch(_bwd_lib().direct_conv2d_dgrad,
-                                               blk.th, blk, g, w, spec, z,
-                                               "relu")
+                        err, dx, _ = dgrad_launch(
+                            _bwd_lib().direct_conv2d_dgrad, blk.th, blk, g,
+                            w, spec, z, "relu")
                         if err:
                             raise RuntimeError(f"dgrad {blk}: CUDA error "
                                                f"{err}")

@@ -8,9 +8,9 @@ entry, relu; the last pointwise leg with its GAP):
   which hides behind the device only while the device is slower; few
   enough calls that the launch queue does not fill and hold the host to
   the device's pace), for
-  ``depthwise_conv2d_blocked``, ``pointwise_conv2d_blocked`` and
-  ``gap_finalize`` beside the library's call for the same function
-  (``F.conv2d``, ``torch.mean``), and each call's device time as a
+  ``depthwise_conv2d_blocked`` and ``pointwise_conv2d_blocked`` (the last
+  leg's GAP summed in the same launch) beside the library's call for the
+  same function (``F.conv2d``), and each call's device time as a
   CUDA-graph replay;
 * **the depthwise forward with parts of its work taken out**: the library
   of ``csrc/conv2d_depthwise.cu`` is built again from copies of the source
@@ -151,7 +151,6 @@ def main() -> int:
         return 1
     from repro_torch.kernels import conv2d_depthwise as dwk
     from repro_torch.kernels import conv2d_pointwise as pwk
-    from repro_torch.kernels.direct_conv2d import gap_finalize
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
@@ -206,10 +205,6 @@ def main() -> int:
                 lambda: pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID",
                                                      "relu", gap=gap),
                 lambda: F.relu(F.conv2d(xl, wl, bl)))
-        partials = torch.randn((BATCH, 8, 1, 128), device=dev, generator=gen)
-        row("gap finalize", "[8, 8, 1, 128]",
-            lambda: gap_finalize(partials, 49),
-            lambda: torch.mean(partials, dim=2))
     for kind, (us, lib_us, ms, lib_ms) in sums.items():
         print(f"[host] {kind} summed over the legs: wrapper {us:.1f} us, "
               f"library {lib_us:.1f} us; device (graph) ms {ms:.4f}, "

@@ -107,7 +107,7 @@ def main() -> int:
         times = {}
         for name, lib in libs.items():
             def run(lib=lib):
-                err, ws = direct_conv2d.wgrad_launch(
+                err, ws, _ = direct_conv2d.wgrad_launch(
                     lib.direct_conv2d_wgrad, blk, x, g, 3, 3, spec, z,
                     "relu", True)
                 if err:

@@ -107,15 +107,14 @@ def main() -> int:
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
                                              PER_COUNT):
                 def run(blk=blk):
-                    err, ws = direct_conv2d.wgrad_launch(
+                    err, _, out = direct_conv2d.wgrad_launch(
                         entry, blk, x, g, 3, 3, spec, z, "relu", True)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
-                    return ws
-                dw, _ = direct_conv2d.split_wgrad(
-                    direct_conv2d.wgrad_reduce(run()), x.shape, g.shape, 3, 3,
-                    True)
+                    return out
+                dw, _ = direct_conv2d.split_wgrad(run(), x.shape, g.shape, 3,
+                                                  3, True)
                 ratio = ((dw.double() - want).abs()
                          / (REL * scale).clamp_min(1e-300)).max().item()
                 if not ratio <= 1:

@@ -141,6 +141,7 @@ def test_conv_server_serves_ragged_requests_like_a_direct_forward(models):
         (len(reqs) - small) / 4 / steps_big)
     h = srv.health()
     assert (h["submitted"], h["ok"], h["pending"]) == (10, 10, 0)
+    assert h["batches"] == steps_small + steps_big
     assert len(srv.latencies()) == 10 and (srv.latencies() > 0).all()
 
 

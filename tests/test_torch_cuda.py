@@ -17,8 +17,8 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
                                                dgrad_plans, fwd_plans,
-                                               reset_launches,
-                                               wgrad_plans, wgrad_reduce)
+                                               gap_forward, reset_launches,
+                                               wgrad_partials, wgrad_plans)
 from repro_torch.core.blocking import (choose_fwd_blocking,  # noqa: E402
                                        choose_stream_fwd_blocking)
 from repro_torch.core.context import ConvContext  # noqa: E402
@@ -26,6 +26,7 @@ from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
 from repro_torch.kernels import conv2d_stream as stk  # noqa: E402
 from repro_torch.kernels import conv2d_pointwise as pwk  # noqa: E402
+from repro_torch.kernels import split_sum  # noqa: E402
 from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,  # noqa: E402
                                  DepthwiseSeparableBlock)
 
@@ -81,9 +82,8 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
         want = direct_conv_blocked(x, w, stride, "SAME", b, act, residual=r,
                                    gap=gap)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"direct_conv2d_fwd": 2, "gap_finalize": 2 * gap,
-                        "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0,
-                        "wgrad_reduce": 0}
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_dgrad": 0,
+                        "direct_conv2d_wgrad": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
 
@@ -154,7 +154,7 @@ def test_backward_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
                                    with_db=True)
     torch.cuda.synchronize()
     assert LAUNCHES["direct_conv2d_dgrad"] == 1
-    assert LAUNCHES["direct_conv2d_wgrad"] == LAUNCHES["wgrad_reduce"] == 2
+    assert LAUNCHES["direct_conv2d_wgrad"] == 2
     want_dx = direct_conv_dgrad_blocked(g, w, (h, h), stride, padding, zz,
                                         act)
     torch.testing.assert_close(dx, want_dx, **TOL)
@@ -229,17 +229,37 @@ def test_dgrad_kernel_plans_match_the_blocking_model(
         assert kernel.issued_macs >= 3 * kernel.function_macs > 0
 
 
-def test_dgrad_kernels_refuse_a_cob_not_a_multiple_of_4(cuda):
-    # the TMA copies need 16-byte strides of g, z and w; the CPU path
-    # takes any pencil
-    x, w, _, _ = _operands(cuda, 1, 8, 6, 8, 8, 6, 1, False)
-    z = direct_conv_blocked(x, w, 1, "SAME").contiguous()
-    g = torch.randn(z.shape, device=cuda)
+# (n, ci, co, h, cib, cob, stride, grids): Cob % 4 != 0, where TMA cannot
+# stride g, z and w and the producer copies by cp.async; Cob 125 is Co =
+# 1000's; `grids` the launches of one call
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,grids", [
+    (1, 8, 6, 8, 8, 6, 1, 1),
+    (2, 16, 12, 11, 8, 6, 2, 1),
+    (2, 64, 250, 14, 64, 125, 1, 1),
+    (1, 128, 125, 15, 128, 125, 2, 1),
+    # K = 9 x 8 x 128 past 9 x 512: a launch a Co block
+    (1, 64, 1000, 10, 64, 125, 1, 8),
+])
+def test_dgrad_kernels_take_a_cob_not_a_multiple_of_4(cuda, n, ci, co, h,
+                                                      cib, cob, stride,
+                                                      grids):
+    x, w, _, _ = _operands(cuda, n, ci, co, h, cib, cob, stride, False)
+    z = direct_conv_blocked(x, w, stride, "SAME").contiguous()
+    g = torch.randn(z.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(5))
+    want = direct_conv_dgrad_blocked(g, w, (h, h), stride, "SAME", z, "relu")
+    reset_launches()
+    stk.reset_launches()
     for route in (False, True):
-        with pytest.raises(ValueError, match="multiple of 4"):
-            direct_conv2d_dgrad(g, w, (8, 8), 1, "SAME", z, "relu",
-                                stream=route)
-    direct_conv2d_dgrad(g.cpu(), w.cpu(), (8, 8), 1, "SAME", z.cpu(), "relu")
+        dx = direct_conv2d_dgrad(g, w, (h, h), stride, "SAME", z, "relu",
+                                 stream=route)
+        again = direct_conv2d_dgrad(g, w, (h, h), stride, "SAME", z, "relu",
+                                    stream=route)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dx, want, **TOL)
+        assert torch.equal(dx, again)
+    assert LAUNCHES["direct_conv2d_dgrad"] == 2 * grids
+    assert stk.LAUNCHES["conv2d_stream_dgrad"] == 2 * grids
 
 
 def test_dgrad_kernels_run_from_a_fresh_thread(cuda):
@@ -309,7 +329,6 @@ def test_wgrad_kernels_match_plain_version_and_each_other(
     torch.cuda.synchronize()
     assert LAUNCHES["direct_conv2d_wgrad"] == 2
     assert stk.LAUNCHES["conv2d_stream_wgrad"] == 2
-    assert LAUNCHES["wgrad_reduce"] == 4
     for (dw, db), (dw2, db2) in runs.values():
         assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
         assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
@@ -367,13 +386,99 @@ def test_wgrad_kernels_run_from_a_fresh_thread(cuda):
         assert torch.equal(out[route][1], db)
 
 
-def test_wgrad_reduce_sums_rows_in_order(cuda):
-    parts = torch.randn((7, 1001), device=cuda)
-    reset_launches()
-    got = wgrad_reduce(parts)
+def _graph_replay(fn):
+    """``fn()`` warmed up on a side stream, captured on it in a CUDA graph
+    and replayed once -> what the replay returned."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        out = fn()
+    graph.replay()
     torch.cuda.synchronize()
-    assert LAUNCHES["wgrad_reduce"] == 1
-    assert torch.equal(got, conv2d_common.wgrad_reduce(parts))
+    return out
+
+
+# each folded wgrad: (its launch on (x, g, z) -> (ws, out), the (n, ci, co,
+# h, cib, cob, stride) of its operands); the depthwise one at ci == co
+FOLDED_WGRADS = {
+    "window": (lambda x, g, z, s: wgrad_partials(x, g, 3, 3, s, "SAME", z,
+                                                 "relu", True),
+               (8, 64, 64, 56, 64, 64, 1)),
+    "streamed": (lambda x, g, z, s: stk.stream_wgrad_partials(
+        x, g, 3, 3, s, "SAME", z, "relu", True), (8, 128, 128, 28, 128, 128,
+                                                  2)),
+    "pointwise": (lambda x, g, z, s: pwk.pointwise_wgrad_partials(
+        x, g, z, "relu", True), (32, 128, 128, 56, 128, 128, 1)),
+    "depthwise": (lambda x, g, z, s: dwk.depthwise_wgrad_partials(
+        x, g, 3, 3, s, "SAME", z, "relu", True), (32, 128, 128, 56, 128, 128,
+                                                  1)),
+}
+
+
+@pytest.mark.parametrize("kind", list(FOLDED_WGRADS))
+def test_folded_wgrad_sums_its_workspace_in_order(cuda, kind):
+    # two runs and a CUDA-graph replay: each sum bit for bit the in-order
+    # reduce of the workspace its own launch filled, the counters at 0
+    launch, (n, ci, co, h, cib, cob, s) = FOLDED_WGRADS[kind]
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda, generator=gen)
+    if kind == "depthwise":
+        w = torch.randn((ci // cib, 1, 3, 3, 1, cib), device=cuda,
+                        generator=gen)
+        z = direct_conv_blocked(x, w, s, "SAME", groups=ci).contiguous()
+    else:
+        f = 1 if kind == "pointwise" else 3
+        w = torch.randn((co // cob, ci // cib, f, f, cib, cob), device=cuda,
+                        generator=gen) / (f * f * ci) ** 0.5
+        z = direct_conv_blocked(x, w, s, "SAME").contiguous()
+    g = torch.randn(z.shape, device=cuda, generator=gen)
+    runs = [launch(x, g, z, s), launch(x, g, z, s),
+            _graph_replay(lambda: launch(x, g, z, s))]
+    torch.cuda.synchronize()
+    for ws, out in runs:
+        assert ws.shape[0] > 1                  # a split sum, not a copy
+        assert torch.equal(out, conv2d_common.wgrad_reduce(ws))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][1], runs[2][1])
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
+
+
+@pytest.mark.parametrize("kind", ["window", "streamed", "pointwise",
+                                  "depthwise"])
+def test_folded_gap_is_the_finalize_of_its_partials(cuda, kind):
+    # each forward with the GAP rider: two runs and a CUDA-graph replay,
+    # the pooled features bit for bit the in-order finalize of the partials
+    # its own launch wrote, the counters at 0
+    n, c, h = 8, 512, 14
+    x, w, b, r = _operands(cuda, n, c, c, h, 128, 128, 1, True)
+    if kind == "pointwise":
+        w = w[:, :, 1:2, 1:2].contiguous()
+        launch = lambda: pwk.pointwise_gap(x, w, b, "relu", r)  # noqa: E731
+        want = direct_conv_blocked(x, w, 1, "VALID", b, "relu", residual=r,
+                                   gap=True)
+    elif kind == "depthwise":
+        w = w[:, :1, :, :, :1].contiguous()
+        launch = lambda: dwk.depthwise_gap(  # noqa: E731
+            x, w, b, 1, "SAME", "relu", r)
+        want = direct_conv_blocked(x, w, 1, "SAME", b, "relu", groups=c,
+                                   residual=r, gap=True)
+    else:
+        launch = lambda: gap_forward(  # noqa: E731
+            x, w, b, 1, "SAME", "relu", r, streamed=kind == "streamed")
+        want = direct_conv_blocked(x, w, 1, "SAME", b, "relu", residual=r,
+                                   gap=True)
+    runs = [launch(), launch(), _graph_replay(launch)]
+    torch.cuda.synchronize()
+    for pooled, parts in runs:
+        assert torch.equal(pooled, conv2d_common.gap_finalize(parts, h * h))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][0], runs[2][0])
+    torch.testing.assert_close(runs[0][0], want, **TOL)
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
 
 
 def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
@@ -389,9 +494,8 @@ def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
     loss.backward()
     torch.cuda.synchronize()
     # the first layer's dx is not needed: the images do not require grad
-    assert LAUNCHES == {"direct_conv2d_fwd": 2, "gap_finalize": 0,
-                        "direct_conv2d_dgrad": 1, "direct_conv2d_wgrad": 2,
-                        "wgrad_reduce": 2}
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_dgrad": 1,
+                        "direct_conv2d_wgrad": 2}
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
 
@@ -422,7 +526,7 @@ PW_CASES = [
     (2, 12, 20, 9, 4, 4, "gelu", True, False),        # Cob not a multiple of 8
     (3, 1024, 1024, 7, 128, 128, "relu", False, True),
     (2, 16, 24, 5, 8, 8, "gelu", True, True),
-    (2, 12, 18, 7, 4, 6, "relu", True, True),   # Cob % 4: the dgrad refuses
+    (2, 12, 18, 7, 4, 6, "relu", True, True),   # Cob 6: the dgrad's cp.async
     (2, 6, 16, 5, 3, 8, "gelu", False, True),   # Cib = 3: 4-byte copies
 ]
 
@@ -444,23 +548,17 @@ def test_pointwise_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
     want = direct_conv_blocked(x, w, 1, "VALID", b, act, residual=r, gap=gap)
     z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
     ct = torch.randn(z.shape, device=cuda, generator=g)
-    if cob % 4:
-        # the dgrad is the dense dgrad tile at 1x1, whose TMA copies take
-        # Cob pencils of a multiple of 4
-        with pytest.raises(ValueError, match="multiple of 4"):
-            pwk.pointwise_dgrad(ct, w, z, act)
-    else:
-        dx = pwk.pointwise_dgrad(ct, w, z, act)
+    # the dgrad is the dense dgrad tile at 1x1 (cp.async where Cob % 4)
+    dx = pwk.pointwise_dgrad(ct, w, z, act)
     dw, db = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     dw2, db2 = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     torch.cuda.synchronize()
     assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 1,
-                            "conv2d_pointwise_dgrad": int(cob % 4 == 0),
+                            "conv2d_pointwise_dgrad": 1,
                             "conv2d_pointwise_wgrad": 2}
     torch.testing.assert_close(got, want, **TOL)
-    if cob % 4 == 0:
-        torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
-            ct, w, (h, h), 1, "VALID", z, act), **TOL)
+    torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
+        ct, w, (h, h), 1, "VALID", z, act), **TOL)
     want_dw, want_db = direct_conv_wgrad_blocked(
         x.double(), ct.double(), 1, 1, 1, "VALID", z.double(), act,
         with_db=True)
@@ -532,7 +630,8 @@ def test_separable_model_runs_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert pwk.LAUNCHES["conv2d_pointwise_fwd"] == 2
     assert dwk.LAUNCHES["conv2d_depthwise_fwd"] == 2
-    assert LAUNCHES["gap_finalize"] == 1
+    assert LAUNCHES == {"direct_conv2d_fwd": 0, "direct_conv2d_dgrad": 0,
+                        "direct_conv2d_wgrad": 0}     # the GAP folded in
     loss = model(images).square().sum()
     loss.backward()
     torch.cuda.synchronize()
@@ -543,7 +642,7 @@ def test_separable_model_runs_through_the_kernels(cuda):
     assert dwk.LAUNCHES == {"conv2d_depthwise_fwd": 4,
                             "conv2d_depthwise_dgrad": 1,
                             "conv2d_depthwise_wgrad": 2}
-    assert LAUNCHES["wgrad_reduce"] == 4
+    assert all(v == 0 for v in LAUNCHES.values())    # the sums folded in
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
 
@@ -638,9 +737,9 @@ def test_stream_context_trains_a_two_layer_model_on_the_stream_kernels(
             assert stk.LAUNCHES == {"conv2d_stream_fwd": 2,
                                     "conv2d_stream_dgrad": 1,
                                     "conv2d_stream_wgrad": 2}
-            assert LAUNCHES == {"direct_conv2d_fwd": 0, "gap_finalize": 0,
+            assert LAUNCHES == {"direct_conv2d_fwd": 0,
                                 "direct_conv2d_dgrad": 0,
-                                "direct_conv2d_wgrad": 0, "wgrad_reduce": 2}
+                                "direct_conv2d_wgrad": 0}
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **TOL)
 

@@ -35,6 +35,11 @@ CASES = [
     (2, 4, 8, 10, 10, 4, 8, 2, "VALID", "relu"),     # rows past the extents
     (1, 4, 12, 9, 11, 4, 12, 1, "VALID", "gelu"),    # Cob % 8 != 0
     (1, 4, 4, 7, 9, 4, 4, 1, ((2, 0), (0, 1)), "relu"),
+    # Cob % 4 != 0: the kernels' cp.async path (zero fill past Cob)
+    (1, 4, 12, 9, 8, 4, 6, 1, "SAME", "relu"),      # Cob = 6, two Co blocks
+    (2, 4, 6, 9, 8, 4, 6, 2, "SAME", "relu"),       # Cob = 6, pads (0, 1)
+    (2, 8, 5, 8, 7, 4, 5, 1, "SAME", "relu"),       # Cob = 5
+    (1, 4, 10, 11, 9, 4, 5, 2, "SAME", "relu"),     # Cob = 5, odd extents
 ]
 
 
@@ -155,7 +160,7 @@ def _tile_dgrad(dz, wt, hw, stride, pads, blk, streamed):
 
 @pytest.mark.parametrize("streamed", [False, True])
 @pytest.mark.parametrize("n,ci,co,h,w,cib,cob,stride,padding,act",
-                         [CASES[i] for i in (1, 2, 3, 5, 6)])
+                         [CASES[i] for i in (1, 2, 3, 5, 6, 8, 9, 10, 11)])
 def test_kernel_tile_arithmetic_matches_jax_vjp(streamed, n, ci, co, h, w,
                                                 cib, cob, stride, padding,
                                                 act):

@@ -16,8 +16,7 @@ from repro_torch.core.direct_conv import (bias_to_blocked,  # noqa: E402
                                           direct_conv_blocked, pad_blocked)
 from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                _require,
-                                               direct_conv2d_blocked,
-                                               gap_finalize)
+                                               direct_conv2d_blocked)
 from repro_torch.nn.conv import BlockedConv2D  # noqa: E402
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
@@ -109,7 +108,8 @@ def test_gelu_is_the_tanh_approximation():
 @pytest.mark.parametrize("hob,wob", [(1, 1), (2, 3), (4, 6), (1, 6)])
 def test_gap_partials_any_tiling_is_the_mean(hob, wob):
     out = torch.randn(2, 3, 4, 6, 5, generator=torch.Generator().manual_seed(0))
-    pooled = gap_finalize(conv2d_common.gap_partials(out, hob, wob), 24)
+    pooled = conv2d_common.gap_finalize(
+        conv2d_common.gap_partials(out, hob, wob), 24)
     np.testing.assert_allclose(pooled.numpy(),
                                out.mean(dim=(2, 3)).reshape(2, 15).numpy(),
                                rtol=1e-6, atol=1e-6)
@@ -202,7 +202,7 @@ from repro_torch.core.direct_conv import (  # noqa: E402
     direct_conv_dgrad_blocked, direct_conv_preactivation,
     direct_conv_wgrad_blocked)
 from repro_torch.kernels.direct_conv2d import (  # noqa: E402
-    direct_conv2d_dgrad, direct_conv2d_wgrad, wgrad_reduce)
+    direct_conv2d_dgrad, direct_conv2d_wgrad)
 
 BWD_TOL = {"rtol": 1e-5, "atol": 1e-5}
 
@@ -369,9 +369,9 @@ def test_blocked_global_avg_pool_matches_jax():
 def test_wgrad_reduce_adds_rows_in_order_and_checks_shapes():
     parts = torch.randn(5, 7, generator=torch.Generator().manual_seed(1))
     want = (((parts[0] + parts[1]) + parts[2]) + parts[3]) + parts[4]
-    assert torch.equal(wgrad_reduce(parts), want)
+    assert torch.equal(conv2d_common.wgrad_reduce(parts), want)
     with pytest.raises(ValueError, match="splits"):
-        wgrad_reduce(parts[0])
+        conv2d_common.wgrad_reduce(parts[0])
 
 
 def test_backward_wrappers_reject_mismatched_operands():
