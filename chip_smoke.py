@@ -18,8 +18,8 @@ and no phase catches its own failure:
    (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
    ``stream_fwd_kernel``, on ``csrc/fwd_tile.cuh``) and of the pointwise
    forward's tile (``pointwise_tile_kernel``) HGMMA (wgmma) instructions
-   and no spill (the pointwise dgrad runs the dense dgrad's
-   ``dgrad_kernel`` at 1x1);
+   and no spill (the pointwise dgrad and wgrad run the dense dgrad's
+   ``dgrad_kernel`` and wgrad's ``wgrad_kernel`` at 1x1);
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
    entries give (the server's two buckets), a small gelu + residual shape
@@ -84,9 +84,11 @@ and no phase catches its own failure:
     OK with the plain logits of its padded image, and no backward launch;
 12. the separable backward kernels against their plain versions at batch
     32 on every distinct MobileNet shape (both wgrads against f64 sums and
-    twice, bit for bit, and their folded split sums as phase 7's), and the
-    autograd path of a small gelu block with
-    a residual against torch autograd through the plain forward;
+    twice, bit for bit, and their folded split sums as phase 7's), the
+    depthwise dgrad's other paths (the tap loop at dilation 2, stride 3 and
+    5x5, Cb = 3, a pencil of 6, pads (1, 1) at stride 2), and the autograd
+    path of a small gelu block with a residual against torch autograd
+    through the plain forward;
 13. the fourth main path: three AdamW steps of the full-width MobileNet v1
     at batch 32, 224x224, held to phase 8's rules, with the launch counts
     of a step;
@@ -96,10 +98,13 @@ and no phase catches its own failure:
     synchronise), beside the plain version, the library call (eager and
     as a CUDA-graph replay) and the bound (the pointwise forward's and
     dgrad's at the 3xTF32 split's, the f32 FMA bound beside it, with the
-    tensor-core MACs their tiles issue and the padding share; each wgrad's
-    split sum); the train
-    step against the plain trainer's; the step's peak device memory
-    beside the bytes it must hold;
+    tensor-core MACs their tiles issue and the padding share; the pointwise
+    wgrad's likewise, its kernel library's plan checked against the
+    model's; each wgrad's split sum and the rows its summing CTA reads; the
+    depthwise dgrad's phases and the taps it runs); the train
+    step against the plain trainer's, and one kernel step under
+    ``torch.profiler``: its device-busy share and kernels by device time;
+    the step's peak device memory beside the bytes it must hold;
 15. the streamed (halo-ring) kernels against their plain versions: the
     forward at every distinct VGG-16 shape of both buckets at batch 8
     (also against the window kernel: bit for bit where both choosers take
@@ -647,20 +652,22 @@ def split_sum_line(splits: int, columns: int, floats: int) -> str:
 def separable_split_sum(leg: str, n: int, ci: int, co: int, ho: int,
                         s: int) -> str:
     """The split sum MobileNet's depthwise (``leg`` "dw") or pointwise
-    ("pw") wgrad folds at a block of ``ci -> co`` channels, ``ho x ho``
-    outputs, batch ``n``: its shares, columns and the rows a column's
-    summing CTA reads."""
+    ("pw", the dense wgrad tile at 1x1) wgrad folds at a block of ``ci ->
+    co`` channels, ``ho x ho`` outputs, batch ``n``: its shares, columns and
+    the rows a column's summing CTA reads."""
     from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
-                                           choose_pointwise_wgrad_blocking)
+                                           choose_wgrad_blocking)
     cb, cob = min(ci, 128), min(co, 128)
     if leg == "dw":
         splits = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3,
                                                  3, s).splits
         columns, floats = ci // cb, 9 * cb
     else:
-        splits = choose_pointwise_wgrad_blocking(n, ho * ho, ci // cb, cb,
-                                                 co // cob, cob).splits
-        columns, floats = (ci // cb) * (co // cob), cb * cob
+        blk = choose_wgrad_blocking(n, ho, ho, 1, 1, 1, ci // cb, cb,
+                                    co // cob, cob, prologue=True)
+        splits = blk.splits
+        columns = blk.groups * (ci // cb) * (co // cob)
+        floats = min(cb, blk.wgs * blk.mpw * 64) * cob
     return split_sum_line(splits, columns, floats)
 
 
@@ -904,8 +911,8 @@ def mobilenet_phases(args, dev, t_start):
     from repro_torch.core import conv2d_common
     from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
                                            choose_pointwise_blocking,
-                                           choose_pointwise_wgrad_blocking,
                                            choose_wgrad_blocking,
+                                           depthwise_dgrad_taps,
                                            pointwise_issued_macs)
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.direct_conv import (direct_conv_blocked,
@@ -913,7 +920,7 @@ def mobilenet_phases(args, dev, t_start):
                                               direct_conv_wgrad_blocked)
     from repro_torch.kernels import conv2d_depthwise as dwk
     from repro_torch.kernels import conv2d_pointwise as pwk
-    from repro_torch.kernels.direct_conv2d import dgrad_plans
+    from repro_torch.kernels.direct_conv2d import dgrad_plans, wgrad_plans
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.nn.conv import DepthwiseSeparableBlock
     from repro_torch.serve.scheduler import ConvRequest, Outcome
@@ -1131,6 +1138,27 @@ def mobilenet_phases(args, dev, t_start):
             compare_scaled(f"dw wgrad db {tag}", db, want_db, abs_db,
                            WGRAD_REL)))
         del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
+    # the depthwise dgrad's other paths: the tap loop (dilation 2, stride 3,
+    # 5x5), Cb = 3 (4-byte copies) at stride 2, a pencil of 6, TF-SAME pads
+    # (1, 1) at stride 2
+    for nn, c, h, cb, s, dil, hf, act in (
+            (2, 24, 13, 8, 1, 2, 3, "gelu"), (2, 16, 11, 8, 3, 1, 3, "relu"),
+            (2, 16, 12, 16, 1, 1, 5, "gelu"), (2, 6, 9, 3, 2, 1, 3, "relu"),
+            (2, 12, 10, 6, 1, 1, 3, None), (2, 32, 7, 32, 2, 1, 3, "gelu")):
+        x = torch.randn((nn, c // cb, h, h, cb), device=dev, generator=gen)
+        w = torch.randn((c // cb, 1, hf, hf, 1, cb), device=dev,
+                        generator=gen) / hf
+        z = direct_conv_blocked(x, w, s, "SAME", groups=c,
+                                dilation=dil).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        zz = z if act else None
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", zz, act,
+                                         groups=c, dilation=dil)
+        got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", zz, act, dil)
+        torch.cuda.synchronize()
+        track("conv2d_depthwise_dgrad", compare(
+            f"dw dgrad {c} Cb={cb} {h}x{h} {hf}x{hf} s{s} dilation {dil} "
+            f"n{nn} {act}", got, want, **TOL))
     for ci, co, h in sorted({(ci, co, -(-h // s))
                              for ci, co, s, h in train_blocks}):
         x, w, b, _ = pw_operands(n, ci, co, h)
@@ -1231,6 +1259,7 @@ def mobilenet_phases(args, dev, t_start):
     host = {}         # the wrapper's host µs a call
     f32_bound = {}    # the pointwise tiles' f32 FMA bound, beside 3xTF32's
     issued = {}       # the pointwise tiles' tensor-core MACs and function's
+    dw_taps = {}      # the depthwise dgrad's phases and the taps it runs
 
     def graphs(key, kernel, library):
         device[key] = graph_ms(kernel)
@@ -1293,6 +1322,9 @@ def mobilenet_phases(args, dev, t_start):
             xp = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous()
             wl = oihw(w, c).contiguous()
             flops = spec.flops()
+            phases, taps = depthwise_dgrad_taps(h, h, 3, 3, s, (1, 1),
+                                                spec.pads)
+            dw_taps[key] = (phases, n * c * taps, n * c * h * h)
             bwd_rows[key] = {
                 "dgrad": (
                     time_ms(lambda: dwk.depthwise_dgrad(g, w, (h, h), s,
@@ -1328,6 +1360,16 @@ def mobilenet_phases(args, dev, t_start):
                 fail(f"pw dgrad {ci}->{co} {h}x{h}: the kernel's plan {plan} "
                      f"!= the blocking model's {model}")
             issued[key + ("dgrad",)] = (plan.issued_macs, plan.function_macs)
+            # the wgrad runs the dense wgrad's tile at 1x1, likewise
+            wplan, wmodel = wgrad_plans(x, g, 1, 1, 1, "VALID", z, "relu")
+            if wplan != wmodel:
+                fail(f"pw wgrad {ci}->{co} {h}x{h}: the kernel's plan {wplan} "
+                     f"!= the blocking model's {wmodel}")
+            issued[key + ("wgrad",)] = (wplan.issued_macs,
+                                        wplan.function_macs)
+            # x, g and z read, dw and db written
+            wb_ms, wb_by, f32_bound[key + ("wgrad",)] = tf32x3_bound(
+                flops, 4 * (x.numel() + 2 * g.numel() + w.numel() + co))
             bwd_rows[key] = {
                 "dgrad": (
                     time_ms(lambda: pwk.pointwise_dgrad(g, w, z, "relu")),
@@ -1345,8 +1387,7 @@ def mobilenet_phases(args, dev, t_start):
                     time_ms(lambda: torch.ops.aten.convolution_backward(
                         dzl, xl, wl, None, [1, 1], [0, 0], [1, 1], False,
                         [0, 0], 1, [False, True, False])),
-                    *bound(flops, 4 * (x.numel() + 2 * g.numel() + w.numel()
-                                       + co)))}
+                    wb_ms, wb_by)}
         if key[0] == "dw":
             xin, st, groups = xp, s, c
             dgrad = lambda: dwk.depthwise_dgrad(  # noqa: E731
@@ -1373,6 +1414,8 @@ def mobilenet_phases(args, dev, t_start):
     lib_sums = {k: 0.0 for k in sums}
     host_sums = {k: 0.0 for k in sums}
     issued_sums = {k: [0, 0] for k in sums}
+    dw_taps_sum = [0, 0]
+    f32_sums = {k: 0.0 for k in sums}
     kinds = {k: [] for k in sums}
     for i, (ci, co, s, h) in enumerate(blocks(ENTRY)):
         ho = -(-h // s)
@@ -1394,6 +1437,7 @@ def mobilenet_phases(args, dev, t_start):
                 if leg_kind in f32_bound:
                     got, fn_macs = issued[leg_kind]
                     issued_sums[name][0] += got
+                    f32_sums[name] += f32_bound[leg_kind]
                     issued_sums[name][1] += fn_macs
                     extra = (f" (3xTF32; f32 FMA {f32_bound[leg_kind]:.4f}) "
                              f"tensor-core MACs issued {got} for the "
@@ -1402,6 +1446,12 @@ def mobilenet_phases(args, dev, t_start):
                 if kind == "wgrad":
                     extra += "; " + separable_split_sum(leg, n, ci, co, ho,
                                                         s)
+                if leg == "dw" and kind == "dgrad":
+                    phases, taps, positions = dw_taps[key]
+                    dw_taps_sum[0] += taps
+                    dw_taps_sum[1] += positions
+                    extra += (f" phases {phases}, taps run {taps} "
+                              f"({taps / positions:.2f} a dx position)")
                 print(f"[mb-layer] block{i + 1} {leg} {kind} {ci}->{cout} "
                       f"in {ext}x{ext} s{st} "
                       f"n{MB_BATCH if kind == 'fwd' else n}: kernel_ms "
@@ -1412,8 +1462,13 @@ def mobilenet_phases(args, dev, t_start):
                       f"({b_by}){extra} bound/kernel {b_ms / k_ms:.3f}")
     for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
         got, fn_macs = issued_sums[name]
-        pad = (f", padding {1 - 3 * fn_macs / got:.3f} of the tensor-core "
-               "MACs issued" if got else "")
+        pad = (f" (3xTF32; f32 FMA {f32_sums[name]:.4f}), padding "
+               f"{1 - 3 * fn_macs / got:.3f} of the tensor-core MACs issued"
+               if got else "")
+        if name == "conv2d_depthwise_dgrad":
+            taps_run, positions = dw_taps_sum
+            pad += (f", taps run {taps_run} ({taps_run / positions:.2f} a dx "
+                    "position)")
         print(f"[mb-layer] all 13 {name}: kernel_ms {k_ms:.4f} device_ms "
               f"{device_sums[name]:.4f} host_us {host_sums[name]:.1f} "
               f"plain_ms {p_ms:.4f} library_ms {l_ms:.4f} "
@@ -1424,6 +1479,18 @@ def mobilenet_phases(args, dev, t_start):
     timed_steps(f"mobilenet-train n{n}", [
         ("plain", tr.plain_step, tr.plain_state),
         ("kernels", tr.step, tr.state)], tr.batches)
+    # how busy the device is in a kernel step: the host's share is the rest
+    split = device_split(lambda: tr.step(tr.state, tr.batches[0]))
+    if split is None:
+        print("[mobilenet-train] torch.profiler records no device time here: "
+              "the step's device-busy share is not measured")
+    else:
+        wall, busy, top = split
+        print(f"[mobilenet-train] one step under torch.profiler: wall "
+              f"{wall:.2f} ms, device busy {busy:.2f} ms (busy share "
+              f"{busy / wall:.3f}, idle share {1 - busy / wall:.3f}); by "
+              "kernel: " + "; ".join(f"{nm[:60]} {ms:.3f} ms x{k}"
+                                     for nm, ms, k in top))
 
     # peak device memory of one kernel step, against what it must hold
     peak, p_bytes = step_peak_bytes(tr)
@@ -1442,8 +1509,8 @@ def mobilenet_phases(args, dev, t_start):
                           + co * ho * ho)
         dws = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3, 3,
                                               s).splits
-        pws = choose_pointwise_wgrad_blocking(n, ho * ho, ci // cb, cb,
-                                              co // cob, cob).splits
+        pws = choose_wgrad_blocking(n, ho, ho, 1, 1, 1, ci // cb, cb,
+                                    co // cob, cob, prologue=True).splits
         ws_max = max(ws_max, 4 * dws * (10 * ci), 4 * pws * (ci * co + co))
     must = 4 * p_bytes + saved + ws_max
     print(f"[mobilenet-train] peak device memory of one step: "
@@ -1457,9 +1524,10 @@ def mobilenet_phases(args, dev, t_start):
     entries = []
     for name, (k_ms, p_ms, l_ms, b_ms) in sums.items():
         family, kind = name.rsplit("_", 1)
-        # the pointwise dgrad at MobileNet's pencils is the dense dgrad's
-        # tile at 1x1
-        source = BWD_SOURCE if name == "conv2d_pointwise_dgrad" else \
+        # the pointwise dgrad and wgrad are the dense dgrad's and wgrad's
+        # tiles at 1x1
+        source = BWD_SOURCE if name in ("conv2d_pointwise_dgrad",
+                                        "conv2d_pointwise_wgrad") else \
             sources[family]
         entries.append({
             "name": name, "route": "cuda", "source": source,

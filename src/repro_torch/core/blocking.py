@@ -37,17 +37,17 @@ tiles over bands of strips (their section below).
 
 The separable family has choosers of its own: ``choose_pointwise_blocking``
 (the forward's tensor-core tile of ``csrc/conv2d_pointwise.cu``, by a cost
-model like the dgrad's; the pointwise dgrad is the dense dgrad at 1x1),
-``choose_pointwise_wgrad_blocking``,
-``choose_depthwise_blocking`` (the forward's items of
-``csrc/conv2d_depthwise.cu``, walked by a persistent grid),
-``choose_depthwise_dgrad_blocking`` and ``choose_depthwise_wgrad_blocking``.
-The last four fit the FMA kernels' CTA of ``MachineModel.threads`` threads
-and ``lanes x positions`` register tiles in ``smem_budget`` bytes, two
-CTAs an SM; each sizes its tiles so that the grid fills the card where the
-map allows it (``MachineModel.wave``), and the wgrads split their position
-reductions into one wave of CTAs, or one CTA an SM where a column's rows
-would pass ``SPLIT_SUM_COLUMN_BYTES`` (``_splits``).
+model like the dgrad's; the pointwise dgrad and wgrad are the dense dgrad
+and wgrad tiles at 1x1, on their choosers), and for the depthwise FMA
+kernels of ``csrc/conv2d_depthwise.cu`` ``choose_depthwise_blocking`` and
+``choose_depthwise_dgrad_blocking`` (the forward's and the dgrad's items,
+walked by a persistent grid) and ``choose_depthwise_wgrad_blocking``.  The
+last three fit a CTA of ``MachineModel.threads`` threads in
+``smem_budget`` bytes, two CTAs an SM; each sizes its tiles so that the
+grid fills the card where the map allows it (``MachineModel.wave``), and
+the wgrad splits its position reduction into one wave of CTAs, or one CTA
+an SM where a column's rows would pass ``SPLIT_SUM_COLUMN_BYTES``
+(``_splits``).
 
 Every chooser is a pure function of its arguments and is cached by them,
 so a layer pays for its search once, not at every launch, and every
@@ -80,12 +80,11 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "PW_ROWS", "PW_CONSUMERS", "PW_MAX_CHUNK", "PointwiseBlocking",
            "pointwise_smem_bytes", "pointwise_candidates",
            "choose_pointwise_blocking", "pointwise_issued_macs",
-           "PointwiseWgradBlocking",
-           "pointwise_wgrad_smem_bytes", "choose_pointwise_wgrad_blocking",
            "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DW_LANE_SPLITS",
-           "DW_ITEMS_PER_CTA", "DepthwiseBlocking", "DepthwiseDgradBlocking",
-           "depthwise_smem_bytes", "depthwise_fwd_smem_bytes",
-           "choose_depthwise_blocking", "choose_depthwise_dgrad_blocking",
+           "DW_ITEMS_PER_CTA", "DepthwiseBlocking", "depthwise_fwd_smem_bytes",
+           "choose_depthwise_blocking", "depthwise_dgrad_window",
+           "depthwise_dgrad_smem_bytes", "depthwise_dgrad_variant",
+           "choose_depthwise_dgrad_blocking", "depthwise_dgrad_taps",
            "DepthwiseWgradBlocking",
            "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking",
            "choose_stream_fwd_blocking", "choose_stream_dgrad_blocking",
@@ -104,12 +103,9 @@ class SmemMisfitError(TransientError, ValueError):
 @dataclasses.dataclass(frozen=True)
 class MachineModel:
     name: str
-    # the FMA kernels (depthwise, pointwise wgrad): threads per CTA
-    # (kThreads), a thread's register tile of lanes x positions, the shared
+    # the depthwise FMA kernels: threads per CTA (kThreads), the shared
     # memory one CTA may stage at two CTAs an SM
     threads: int
-    lanes: int
-    positions: int
     smem_budget: int
     sms: int = 132        # streaming multiprocessors
     ctas_per_sm: int = 2  # resident CTAs the FMA kernels' launch bounds ask
@@ -124,8 +120,8 @@ class MachineModel:
 
 
 H100_SXM = MachineModel(
-    name="h100_sxm", threads=256, lanes=8, positions=8,
-    smem_budget=96 * 1024, sms=132, ctas_per_sm=2)
+    name="h100_sxm", threads=256, smem_budget=96 * 1024, sms=132,
+    ctas_per_sm=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1114,61 +1110,6 @@ def pointwise_issued_macs(blk: PointwiseBlocking, n: int, kblk: int,
             * kblk * (-(-kpad // blk.chunk) * blk.chunk))
 
 
-@dataclasses.dataclass(frozen=True)
-class PointwiseWgradBlocking:
-    """Launch parameters of the pointwise wgrad.  A CTA owns one ``[Cib,
-    Cob]`` block; its threads split into ``pgroups`` position groups of
-    ``8 x 8`` register tiles each (one group at 128 x 128), which walk a
-    contiguous share of the ``tiles`` position tiles (``positions`` of one
-    image each, the last one of an image ragged), ``splits`` shares per
-    block.  The groups' sums meet in shared memory in group order; the
-    shares' in a ``[splits, |dw| + |db|]`` workspace."""
-    positions: int
-    pgroups: int
-    tiles: int
-    splits: int
-
-
-PW_WGRAD_MAX_POSITIONS = 64
-
-
-def pointwise_wgrad_smem_bytes(positions: int, cib: int, cob: int,
-                               pgroups: int) -> int:
-    """The staged x rows (rounded up to 16 bytes) and dz rows of one tile,
-    or the position groups' partial ``[Cib, Cob]`` blocks and ``db`` rows
-    when those are larger (they reuse the staging buffer)."""
-    stage = -(-positions * cib // 4) * 4 + positions * cob
-    return 4 * max(stage, pgroups * (cib * cob + cob))
-
-
-@functools.lru_cache(maxsize=4096)
-def choose_pointwise_wgrad_blocking(n: int, hw: int, ciblk: int, cib: int,
-                                    coblk: int, cob: int,
-                                    machine: MachineModel = H100_SXM
-                                    ) -> PointwiseWgradBlocking:
-    """Tile the pointwise weight gradient: ``PW_WGRAD_MAX_POSITIONS`` (or
-    fewer, to fit the budget) positions a tile; splits as the dense
-    wgrad's."""
-    groups = -(-cib // machine.lanes) * -(-cob // machine.lanes)
-    if groups > machine.threads:
-        raise SmemMisfitError(
-            f"cib={cib} x cob={cob} needs {groups} thread "
-            f"groups; a CTA has {machine.threads} threads")
-    pgroups = machine.threads // groups
-    positions = min(hw, PW_WGRAD_MAX_POSITIONS)
-    while pointwise_wgrad_smem_bytes(positions, cib, cob, pgroups) \
-            > machine.smem_budget:
-        if positions == 1:
-            raise SmemMisfitError(f"no pointwise wgrad tile fits: "
-                                  f"cib={cib}, cob={cob}")
-        positions //= 2
-    tiles = n * -(-hw // positions)
-    return PointwiseWgradBlocking(
-        positions=positions, pgroups=pgroups, tiles=tiles,
-        splits=_splits(tiles, ciblk * coblk, 4 * (cib * cob + cob),
-                       machine))
-
-
 # ---------------------------------------------------------------------------
 # depthwise: the per-lane tap loop
 # ---------------------------------------------------------------------------
@@ -1202,23 +1143,6 @@ class DepthwiseBlocking:
     grid: int
 
 
-@dataclasses.dataclass(frozen=True)
-class DepthwiseDgradBlocking:
-    """Launch parameters of the depthwise dgrad's tap kernel: a ``hob x
-    wob`` tile of the unpadded input gradient per CTA, over a staged ``hwin
-    x wwin`` window of the cotangent, the whole ``Cb`` pencil at once."""
-    hob: int
-    wob: int
-    hwin: int
-    wwin: int
-
-
-def depthwise_smem_bytes(hwin: int, wwin: int, cb: int,
-                         machine: MachineModel = H100_SXM) -> int:
-    """The dgrad's staged f32 cotangent window."""
-    return 4 * hwin * wwin * cb
-
-
 def depthwise_fwd_smem_bytes(hwin: int, wwin: int, lanes: int,
                              machine: MachineModel = H100_SXM,
                              gap: bool = False) -> int:
@@ -1238,40 +1162,36 @@ def _depthwise_groups(cb: int, machine: MachineModel) -> int:
     return machine.threads // cb
 
 
-@functools.lru_cache(maxsize=4096)
-def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
-                              hf: int, wf: int, stride: int = 1,
-                              dilation=(1, 1),
-                              machine: MachineModel = H100_SXM,
-                              gap: bool = False) -> DepthwiseBlocking:
-    """Tile the depthwise forward over its ``ho x wo`` output.
-
-    An item is a tile (dividing the map) over the whole pencil or a lane
-    split of it (``DW_LANE_SPLITS``); a thread holds one lane and up to
-    ``DW_THREAD_POSITIONS`` positions of it, and two item windows must fit
-    the shared-memory budget.  Among the items that give every position
-    group a position, where some count reaches ``DW_ITEMS_PER_CTA`` per
-    resident CTA (``machine.wave``) the largest item (positions x lanes) of
-    those is taken, ties to the least halo a position, then the wider
-    tile; where none does, the most items.  The grid is the card's resident
-    CTAs, or the items where they are fewer."""
+def _depthwise_items(n: int, cblk: int, h: int, w: int, cb: int, window,
+                     smem, machine: MachineModel, what: str
+                     ) -> DepthwiseBlocking:
+    """The item walk of the depthwise forward and dgrad over an ``h x w``
+    map: tiles dividing it, over the whole pencil or a lane split of it
+    (``DW_LANE_SPLITS``); ``window(hob, wob)`` is a tile's staged window and
+    ``smem(hwin, wwin, lanes)`` the bytes of its ring, which must fit the
+    budget.  A thread holds one lane and up to ``DW_THREAD_POSITIONS``
+    positions of it.  Among the items that give every position group a
+    position, where some count reaches ``DW_ITEMS_PER_CTA`` per resident
+    CTA (``machine.wave``) the largest item (positions x lanes) of those is
+    taken, ties to the least staged cells a position, then the wider tile;
+    where none does, the most items.  The grid is the card's resident CTAs,
+    or the items where they are fewer."""
     _depthwise_groups(cb, machine)
     splits = [cb] + [s for s in DW_LANE_SPLITS if s < cb and cb % s == 0]
     fits = []
     for lanes in splits:
         cap = machine.threads // lanes * DW_THREAD_POSITIONS
-        for h in divisors(ho):
-            for w in divisors(wo):
-                win = halo_dims(h, w, hf, wf, stride, dilation)
-                if h * w <= cap and depthwise_fwd_smem_bytes(
-                        *win, lanes, machine, gap) <= machine.smem_budget:
-                    items = n * cblk * (cb // lanes) * (ho // h) * (wo // w)
-                    fits.append((h, w, win, lanes, items))
+        for hob in divisors(h):
+            for wob in divisors(w):
+                win = window(hob, wob)
+                if hob * wob <= cap and smem(*win, lanes) \
+                        <= machine.smem_budget:
+                    items = n * cblk * (cb // lanes) * (h // hob) * (w // wob)
+                    fits.append((hob, wob, win, lanes, items))
     if not fits:
         raise SmemMisfitError(
-            f"no depthwise tile fits: Cb={cb}, filter {hf}x{wf}, stride "
-            f"{stride}, dilation {dilation} needs more than "
-            f"{machine.smem_budget} bytes of shared memory even at 1x1")
+            f"no {what} fits: Cb={cb} needs more than {machine.smem_budget} "
+            "bytes of shared memory even at 1x1")
 
     def halo(f) -> float:
         return f[2][0] * f[2][1] / (f[0] * f[1])
@@ -1280,61 +1200,110 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
             if f[0] * f[1] >= machine.threads // f[3]] or fits
     full = [f for f in busy if f[4] >= DW_ITEMS_PER_CTA * machine.wave]
     if full:
-        h, w, win, lanes, items = max(
+        hob, wob, win, lanes, items = max(
             full, key=lambda f: (f[0] * f[1] * f[3], -halo(f), f[1]))
     else:
-        h, w, win, lanes, items = max(
+        hob, wob, win, lanes, items = max(
             busy, key=lambda f: (f[4], -halo(f), f[1]))
-    return DepthwiseBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1],
+    return DepthwiseBlocking(hob=hob, wob=wob, hwin=win[0], wwin=win[1],
                              lanes=lanes, items=items,
                              grid=min(items, machine.wave))
+
+
+@functools.lru_cache(maxsize=4096)
+def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
+                              hf: int, wf: int, stride: int = 1,
+                              dilation=(1, 1),
+                              machine: MachineModel = H100_SXM,
+                              gap: bool = False) -> DepthwiseBlocking:
+    """Tile the depthwise forward over its ``ho x wo`` output
+    (``_depthwise_items``): a tile's window is its halo'd input, two of
+    them (and with ``gap`` the position groups' sums) in a CTA's shared
+    memory."""
+    return _depthwise_items(
+        n, cblk, ho, wo, cb,
+        lambda hob, wob: halo_dims(hob, wob, hf, wf, stride, dilation),
+        lambda hwin, wwin, lanes: depthwise_fwd_smem_bytes(
+            hwin, wwin, lanes, machine, gap),
+        machine, f"depthwise tile (filter {hf}x{wf}, stride {stride}, "
+        f"dilation {dilation})")
+
+
+def depthwise_dgrad_window(hob: int, wob: int, hi: int, wi: int, hf: int,
+                           wf: int, stride: int, dilation, pads
+                           ) -> tuple[int, int]:
+    """Cotangent rows/cols of the window a ``hob x wob`` tile of dx (tiles
+    dividing ``hi x wi``) stages: dx row ``i`` takes cotangent rows ``(i +
+    pt - dh * dil) / stride`` where the division is exact, so a tile from
+    row ``i0`` reads rows ``floor((i0 + pt - (hf - 1) * dil) / stride)``
+    to ``floor((i0 + hob - 1 + pt) / stride)``; the window is the widest
+    such span over the tiles (their origins' phases against the
+    stride)."""
+    def span(tile: int, full: int, f: int, d: int, pad: int) -> int:
+        return max((i0 + tile - 1 + pad) // stride
+                   - (i0 + pad - (f - 1) * d) // stride + 1
+                   for i0 in range(0, min(full, tile * stride), tile))
+    return (span(hob, hi, hf, dilation[0], pads[0][0]),
+            span(wob, wi, wf, dilation[1], pads[1][0]))
+
+
+def depthwise_dgrad_smem_bytes(hwin: int, wwin: int, lanes: int,
+                               prologue: bool) -> int:
+    """The dgrad's ring: two slots, each the cotangent window ``[hwin, wwin,
+    lanes]`` (rounded up to 16 bytes), and with the prologue the window of
+    ``z`` beside it."""
+    return 4 * 2 * (2 if prologue else 1) * _round4(hwin * wwin * lanes)
+
+
+def depthwise_dgrad_variant(hf: int, wf: int, stride: int,
+                            dilation) -> int:
+    """The dgrad kernel's variant: 1 or 2 for a 3x3 filter at dilation 1
+    and that stride (the register path; the phase split), 0 for any other
+    filter, stride and dilation (the tap loop)."""
+    fast = (hf, wf, tuple(dilation)) == (3, 3, (1, 1))
+    return stride if fast and stride in (1, 2) else 0
 
 
 @functools.lru_cache(maxsize=4096)
 def choose_depthwise_dgrad_blocking(n: int, cblk: int, hi: int, wi: int,
                                     cb: int, hf: int, wf: int,
                                     stride: int = 1, dilation=(1, 1),
+                                    pads=((1, 1), (1, 1)),
+                                    prologue: bool = True,
                                     machine: MachineModel = H100_SXM
-                                    ) -> DepthwiseDgradBlocking:
-    """Tile the depthwise dgrad over the unpadded ``hi x wi`` input.
+                                    ) -> DepthwiseBlocking:
+    """Tile the depthwise dgrad over the unpadded ``hi x wi`` input
+    (``_depthwise_items``): an item is a tile of dx, its window the
+    cotangent cells that feed it (``depthwise_dgrad_window``, under the
+    forward's ``pads``, SAME's at a 3x3 filter by default), two of them
+    (with the ``prologue``, with ``z`` beside each) in a CTA's shared
+    memory."""
+    return _depthwise_items(
+        n, cblk, hi, wi, cb,
+        lambda hob, wob: depthwise_dgrad_window(hob, wob, hi, wi, hf, wf,
+                                                stride, dilation, pads),
+        lambda hwin, wwin, lanes: depthwise_dgrad_smem_bytes(
+            hwin, wwin, lanes, prologue),
+        machine, f"depthwise dgrad tile (filter {hf}x{wf}, stride {stride}, "
+        f"dilation {dilation})")
 
-    A thread holds one lane and up to ``DW_THREAD_POSITIONS`` positions,
-    so a tile has at most ``(threads // Cb) * DW_THREAD_POSITIONS``
-    positions; its cotangent window must fit the shared-memory budget.
-    Tiles divide the grid.  Among the tiles that give every thread a
-    position, the largest whose grid ``n * cblk * tiles`` fills the card
-    (``machine.wave``) is taken, ties to the smaller window; where none
-    does, the one with the most CTAs."""
-    groups = _depthwise_groups(cb, machine)
-    cap = groups * DW_THREAD_POSITIONS
-    hf_eff = (hf - 1) * dilation[0] + 1
-    wf_eff = (wf - 1) * dilation[1] + 1
-    fits = []
-    for h in divisors(hi):
-        for w in divisors(wi):
-            win = dgrad_window(h, w, hf_eff, wf_eff, stride)
-            if h * w <= cap and depthwise_smem_bytes(
-                    *win, cb, machine) <= machine.smem_budget:
-                fits.append((h, w, win))
-    if not fits:
-        raise SmemMisfitError(
-            f"no depthwise dgrad tile fits: Cb={cb}, filter {hf}x{wf}, "
-            f"stride {stride}, dilation {dilation} needs more than "
-            f"{machine.smem_budget} bytes of shared memory even at 1x1")
 
-    def grid(h: int, w: int) -> int:
-        return n * cblk * (hi // h) * (wi // w)
+def depthwise_dgrad_taps(hi: int, wi: int, hf: int, wf: int, stride: int,
+                         dilation, pads) -> tuple[int, int]:
+    """What the dgrad kernel's variant runs over one ``hi x wi`` map of one
+    lane: ``(phases, taps)``.  The phase split (variant 2) runs at each dx
+    position only its phase's taps, ``ceil((f - ph) / 2)`` a row and a
+    column phase ``ph`` of ``(i + pt) % 2``; the register path and the tap
+    loop run every tap at every position (the loop skips the products of
+    those whose divisions are not exact)."""
+    if depthwise_dgrad_variant(hf, wf, stride, dilation) != 2:
+        return 1, hi * wi * hf * wf
 
-    # tiles that give every thread a position, where the map has any
-    busy = [f for f in fits if f[0] * f[1] >= groups] or fits
-    full = [f for f in busy if grid(f[0], f[1]) >= machine.wave]
-    if full:
-        h, w, win = max(full, key=lambda f: (f[0] * f[1],
-                                             -f[2][0] * f[2][1]))
-    else:
-        h, w, win = max(busy, key=lambda f: (grid(f[0], f[1]),
-                                             -f[2][0] * f[2][1]))
-    return DepthwiseDgradBlocking(hob=h, wob=w, hwin=win[0], wwin=win[1])
+    def axis(extent: int, pad: int):
+        return [sum(1 for i in range(extent) if (i + pad) % 2 == ph)
+                * -(-(3 - ph) // 2) for ph in (0, 1)]
+    rows, cols = axis(hi, pads[0][0]), axis(wi, pads[1][0])
+    return 4, sum(rows) * sum(cols)
 
 
 @dataclasses.dataclass(frozen=True)

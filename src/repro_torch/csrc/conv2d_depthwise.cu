@@ -50,14 +50,27 @@
 // last item of an (image, channel block) adds the image's tiles in order
 // into the pooled features (split_sum.cuh), in the same launch.
 //
-// dgrad (`depthwise_dgrad_kernel`): one CTA per (tile of hob x wob positions
-// of dx, channel block, image).  It stages a halo'd window of the cotangent
-// (dz formed on the way in, zero outside the map) in shared memory; thread
-// t owns lane t % Cb and every (256 / Cb)-th position of the tile, keeps its
-// lane's taps in registers and, per position, sums the mirrored taps that
-// the stride does not skip.  As in the dense dgrad, no stride-dilated or
-// padded copy of the cotangent or of z exists and dx is written at the
-// input's shape; TF-SAME's (0, 1) pads at stride 2 are the masks.
+// dgrad (`depthwise_dgrad_kernel<kS>`): the forward's design over
+// items of dx.  An item is a tile of hob x wob positions of dx of one image
+// and channel block over `lanes` lanes; a persistent grid walks the items,
+// staging each item's cotangent window (g, and z beside it with the
+// prologue) by cp.async into one slot of a two-slot ring while the taps of
+// the item before run from the other.  A thread takes one (column, lane
+// unit) pair of the window and walks its rows by a stepped offset, so a
+// copy costs no division.  Cells outside the map zero-fill; g = 0 gives dz
+// = 0 for every activation, so they add nothing.  dz = g * act'(z) is
+// formed once per staged cell in a pass over the landed slot.  At 3x3,
+// dilation 1 and stride 1 (kS 1) the taps turned by 180 degrees make dx
+// the forward's correlation, and a thread walks a run of a row with the tap
+// columns in registers: three loads an output, no division.  At stride 2 (kS 2) dx splits by phase: row u + pt
+// even takes taps dh 0 and 2, odd dh 1, and columns likewise, so the four
+// phases run 2x2, 2x1, 1x2 and 1x1 taps (TF-SAME's pads (0, 1) or any
+// other), each over only its own taps with no parity test, and consecutive
+// outputs of a phase read consecutive cotangent columns (one load a row tap
+// an output).  Any other filter up to 5x5, stride or dilation takes a tap
+// loop that tests each tap's divisions (kS 0).  As in the dense dgrad, no
+// stride-dilated or padded copy of the cotangent or of z exists and dx is
+// written at the input's shape.
 //
 // wgrad: the TPU reduces (N, Ho/Hob, Wo/Wob) into a resident [Hf*Wf, Cb]
 // block.  Here a CTA owns one channel block's [Hf*Wf, Cb] sums and walks a
@@ -185,18 +198,25 @@ struct Item {
   int i0, j0;      // the tile's first output row and column
 };
 
-__device__ __forceinline__ Item item_of(const FwdGeometry& g, int it) {
-  const int tiles_w = g.wo / g.wob;
-  const int tiles = (g.ho / g.hob) * tiles_w;
-  const int groups = g.cb / g.lanes;
+// Item `it` of a walk over tiles of hob x wob of an h x w map, tile-major,
+// then lane groups of `lanes`, then (image, channel block) maps.
+__device__ __forceinline__ Item item_at(int it, int h, int w, int hob,
+                                        int wob, int cb, int lanes) {
+  const int tiles_w = w / wob;
+  const int tiles = (h / hob) * tiles_w;
+  const int groups = cb / lanes;
   Item m;
   m.tile = it % tiles;
   it /= tiles;
-  m.lane0 = (it % groups) * g.lanes;
+  m.lane0 = (it % groups) * lanes;
   m.map = it / groups;
-  m.i0 = (m.tile / tiles_w) * g.hob;
-  m.j0 = (m.tile % tiles_w) * g.wob;
+  m.i0 = (m.tile / tiles_w) * hob;
+  m.j0 = (m.tile % tiles_w) * wob;
   return m;
+}
+
+__device__ __forceinline__ Item item_of(const FwdGeometry& g, int it) {
+  return item_at(it, g.ho, g.wo, g.hob, g.wob, g.cb, g.lanes);
 }
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -228,33 +248,56 @@ __device__ __forceinline__ void cp_async_wait_one() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
-// Issue the copies of item m's window [hwin, wwin, lanes] into `dst` (every
-// thread of the CTA; the caller commits the group).
+// Issue the copies of a window [hwin, wwin, lanes] whose cell (r, c) is row
+// r0 + r, column c0 + c of `src` (one map [hs, ws, cb], from its lane 0
+// on), zero outside the map (every thread of the CTA; the caller commits
+// the group).  A thread takes one (column, lane unit) pair and a residue of
+// the rows and walks them by an offset it steps, so that a copy costs no
+// division: per-copy index arithmetic ran the forward's staging at 1.8x
+// its bytes' bound.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           const float* any, int hs, int ws,
+                                           int cb, int lanes, int r0, int c0,
+                                           int hwin, int wwin) {
+  const bool vec = lanes % 4 == 0;
+  const int unit = vec ? 4 : 1;
+  const int units = lanes / unit;
+  const int pairs = wwin * units;
+  const int rstep = pairs >= kThreads ? 1 : kThreads / pairs;
+  const int dst_row = wwin * lanes * rstep;
+  for (int p = threadIdx.x; p < pairs * rstep; p += kThreads) {
+    const int q = p % pairs;
+    const int r = p / pairs;
+    const int col = q / units;
+    const int c = (q - col * units) * unit;
+    const int w = c0 + col;
+    const bool w_ok = w >= 0 && w < ws;
+    long long off = ((long long)(r0 + r) * ws + w) * cb + c;
+    const long long src_row = (long long)ws * cb * rstep;
+    float* d = dst + (r * wwin + col) * lanes + c;
+    for (int h = r0 + r; h < r0 + hwin; h += rstep) {
+      const bool ok = w_ok && h >= 0 && h < hs;
+      const float* s = ok ? src + off : any;
+      if (vec) {
+        cp_async16(d, s, ok);
+      } else {
+        cp_async4(d, s, ok);
+      }
+      off += src_row;
+      d += dst_row;
+    }
+  }
+}
+
+// Issue the copies of item m's input window [hwin, wwin, lanes] into
+// `dst` (every thread of the CTA; the caller commits the group).
 __device__ __forceinline__ void stage_item(float* dst,
                                            const float* __restrict__ x,
                                            const FwdGeometry& g,
                                            const Item& m) {
-  const bool vec = g.lanes % 4 == 0;
-  const int unit = vec ? 4 : 1;
-  const int units = g.lanes / unit;
-  const int r0 = m.i0 * g.stride - g.pad_top;
-  const int c0 = m.j0 * g.stride - g.pad_left;
-  const float* src = x + (size_t)m.map * g.hi * g.wi * g.cb + m.lane0;
-  const int total = g.hwin * g.wwin * units;
-  for (int i = threadIdx.x; i < total; i += kThreads) {
-    const int cell = i / units;
-    const int c = (i - cell * units) * unit;
-    const int r = cell / g.wwin;
-    const int h = r0 + r;
-    const int w = c0 + cell - r * g.wwin;
-    const bool ok = h >= 0 && h < g.hi && w >= 0 && w < g.wi;
-    const float* s = ok ? src + ((size_t)h * g.wi + w) * g.cb + c : x;
-    if (vec) {
-      cp_async16(dst + cell * g.lanes + c, s, ok);
-    } else {
-      cp_async4(dst + cell * g.lanes + c, s, ok);
-    }
-  }
+  stage_rows(dst, x + (size_t)m.map * g.hi * g.wi * g.cb + m.lane0, x, g.hi,
+             g.wi, g.cb, g.lanes, m.i0 * g.stride - g.pad_top,
+             m.j0 * g.stride - g.pad_left, g.hwin, g.wwin);
 }
 
 // kS: 1 or 2 for a 3x3 filter at dilation 1 and that stride (tap columns
@@ -404,98 +447,254 @@ depthwise_fwd_kernel(const float* __restrict__ x,
 }
 
 // ---------------------------------------------------------------------------
-// dgrad: the tap loop over the cotangent window, mirrored taps
+// dgrad: a persistent walk over items of dx, two cotangent windows in flight
 // ---------------------------------------------------------------------------
 
-// g: [N, C/Cb, hs, ws, Cb] with the prologue's z beside it (or null); dx:
-// [N, C/Cb, hd, wd, Cb] at the forward input's extents.
+// The dgrad's launch geometry, passed by value; its fields are the int array
+// the host builds once per shape (conv2d_depthwise_dgrad).
+struct DgradGeometry {
+  int cblk, cb, ho, wo, hi, wi;   // g, z [N, cblk, ho, wo, cb]; dx at hi x wi
+  int hf, wf, stride, dil_h, dil_w, pad_top, pad_left;
+  int hob, wob, hwin, wwin;       // an item's dx tile and cotangent window
+  int lanes;       // lanes of the pencil an item covers (divides cb)
+  int items;       // images x channel blocks x lane groups x tiles
+  int act;
+  int prologue;    // 1: z is staged beside g and dz = g * act'(z) formed
+};
+constexpr int kDgradInts = sizeof(DgradGeometry) / sizeof(int);
+
+// dz = g * act'(z) over a landed slot, in place of g (floats [0, n), n a
+// multiple of 4).
+__device__ __forceinline__ void prologue_pass(float* gs, const float* zs,
+                                              int n, int act) {
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+    float4 v = reinterpret_cast<float4*>(gs)[i];
+    const float4 zz = reinterpret_cast<const float4*>(zs)[i];
+    v.x = prologue(v.x, zz.x, act);
+    v.y = prologue(v.y, zz.y, act);
+    v.z = prologue(v.z, zz.z, act);
+    v.w = prologue(v.w, zz.w, act);
+    reinterpret_cast<float4*>(gs)[i] = v;
+  }
+}
+
+// One run of a stride-2 phase (3x3, dilation 1): outputs k0 .. k1 - 1 of
+// the phase along a row, output k at out + k * ostep.  RT row taps (2: dh
+// 0 at window row wr and dh 2 at wr - 1; 1: dh 1 at wr) by CT column taps
+// (2: dw 0 at window column wc + k and dw 2 one left of it; 1: dw 1 at wc +
+// k).  Output k + 1 reads the column right of output k's, so the columns a
+// step along the run brings are one load per row tap.
+template <int RT, int CT>
+__device__ __forceinline__ void phase_run(const float* cell,
+                                          const float (&w9)[9], int rs,
+                                          int L, int wr, int wc, int k0,
+                                          int k1, float* out, int ostep) {
+  float cur[RT], prv[RT];
+#pragma unroll
+  for (int t = 0; t < RT; ++t) {
+    cur[t] = cell[(wr - t) * rs + (wc + k0) * L];
+    prv[t] = CT == 2 ? cell[(wr - t) * rs + (wc + k0 - 1) * L] : 0.0f;
+  }
+  for (int k = k0; k < k1; ++k) {
+    if (k > k0) {
+#pragma unroll
+      for (int t = 0; t < RT; ++t) {
+        if constexpr (CT == 2) prv[t] = cur[t];
+        cur[t] = cell[(wr - t) * rs + (wc + k) * L];
+      }
+    }
+    float acc = 0.0f;
+#pragma unroll
+    for (int t = 0; t < RT; ++t) {
+      const int dh = RT == 2 ? 2 * t : 1;
+      acc = fmaf(cur[t], w9[3 * dh + (CT == 2 ? 0 : 1)], acc);
+      if constexpr (CT == 2) acc = fmaf(prv[t], w9[3 * dh + 2], acc);
+    }
+    out[(size_t)k * ostep] = acc;
+  }
+}
+
+// kS: 1 for a 3x3 filter at dilation 1 and stride 1 (the forward's register
+// path with the taps turned by 180 degrees), 2 for it at stride 2 (dx split
+// by phase, each phase over only its own taps), 0 for any filter up to 5x5,
+// stride and dilation (a tap loop that tests each tap's divisions).
+template <int kS>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-depthwise_dgrad_kernel(const float* __restrict__ src,
+depthwise_dgrad_kernel(const float* __restrict__ g,
                        const float* __restrict__ z,
                        const float* __restrict__ w,
-                       float* __restrict__ out,
-                       int cblk, int cb, int hs, int ws, int hd, int wd,
-                       int hf, int wf, int stride, int dil_h, int dil_w,
-                       int pad_top, int pad_left, int hob, int wob, int hwin,
-                       int wwin, int act) {
+                       float* __restrict__ dx, DgradGeometry geo) {
   extern __shared__ __align__(16) float smem[];
-  const int tiles_w = wd / wob;
-  const int tile = blockIdx.x;
-  const int c_b = blockIdx.y;
-  const int n = blockIdx.z;
-  const int i0 = (tile / tiles_w) * hob;
-  const int j0 = (tile % tiles_w) * wob;
-  const int npos = hob * wob;
-  const int taps = hf * wf;
-
-  const int npg = kThreads / cb;
+  const int L = geo.lanes;
+  const int win_floats = (geo.hwin * geo.wwin * L + 3) & ~3;
+  const int slot_floats = (geo.prologue ? 2 : 1) * win_floats;
   const int t = threadIdx.x;
-  const int lane = t % cb;
-  const int pg = t / cb;
+  const int lane = t % L;
+  const int npg = kThreads / L;
+  const int pg = t / L;
   const bool computes = pg < npg;
+  const int taps = geo.hf * geo.wf;
+  const int rs = geo.wwin * L;
+  const size_t map_floats = (size_t)geo.ho * geo.wo * geo.cb;
+  // a unit of work: a run of outputs of one row of the item (at stride 2,
+  // of one column phase of it); the rows split into `segs` runs so that
+  // every position group has one
+  const int parts = kS == 2 ? 2 : 1;
+  const int per_row = kS == 2 ? (geo.wob + 1) / 2 : geo.wob;
+  const int segs = min(per_row, max(1, (npg + parts * geo.hob - 1)
+                                           / (parts * geo.hob)));
+  const int units = geo.hob * parts * segs;
 
-  // the window's origin in the cotangent
-  const int r0 = floordiv(i0 + pad_top - (hf - 1) * dil_h, stride);
-  const int c0 = floordiv(j0 + pad_left - (wf - 1) * dil_w, stride);
-  const size_t map = (size_t)(n * cblk + c_b);
-  stage_window(smem, src + map * hs * ws * cb,
-               z != nullptr ? z + map * hs * ws * cb : nullptr, hs, ws, cb,
-               r0, c0, hwin, wwin, act);
+  auto origin = [&](const Item& m, int& r0, int& c0) {
+    r0 = floordiv(m.i0 + geo.pad_top - (geo.hf - 1) * geo.dil_h, geo.stride);
+    c0 = floordiv(m.j0 + geo.pad_left - (geo.wf - 1) * geo.dil_w,
+                  geo.stride);
+  };
+  auto stage = [&](float* slot, const Item& m) {
+    int r0, c0;
+    origin(m, r0, c0);
+    const size_t base = (size_t)m.map * map_floats + m.lane0;
+    stage_rows(slot, g + base, g, geo.ho, geo.wo, geo.cb, L, r0, c0,
+               geo.hwin, geo.wwin);
+    if (geo.prologue) {
+      stage_rows(slot + win_floats, z + base, z, geo.ho, geo.wo, geo.cb, L,
+                 r0, c0, geo.hwin, geo.wwin);
+    }
+  };
 
-  // this lane's taps and their dilated extents
-  float wv[kMaxTaps];
-  int th[kMaxTaps], tw[kMaxTaps];
-#pragma unroll
-  for (int k = 0; k < kMaxTaps; ++k) {
-    const bool on = computes && k < taps;
-    wv[k] = on ? __ldg(w + ((size_t)c_b * taps + k) * cb + lane) : 0.0f;
-    th[k] = on ? (k / wf) * dil_h : 0;
-    tw[k] = on ? (k % wf) * dil_w : 0;
+  int it = blockIdx.x;
+  if (it < geo.items) {
+    stage(smem, item_at(it, geo.hi, geo.wi, geo.hob, geo.wob, geo.cb, L));
   }
-  __syncthreads();
+  cp_async_commit();
+  for (int k = 0; it < geo.items; it += gridDim.x, ++k) {
+    const int slot = k & 1;
+    const Item m = item_at(it, geo.hi, geo.wi, geo.hob, geo.wob, geo.cb, L);
+    const int next = it + gridDim.x;
+    if (next < geo.items) {
+      stage(smem + (slot ^ 1) * slot_floats,
+            item_at(next, geo.hi, geo.wi, geo.hob, geo.wob, geo.cb, L));
+    }
+    cp_async_commit();
 
-  if (computes) {
-    for (int p = pg; p < npos; p += npg) {
-      const int ph = p / wob;
-      const int pw = p % wob;
-      float acc = 0.0f;
-      // numerators (i + pt) - s * r0 >= (hf - 1) * dil_h >= th[k]; a tap
-      // counts where the stride divides both.  Strides 1 and 2 (all of
-      // MobileNet's) take loops without integer division.
-      const int ah = i0 + ph + pad_top - stride * r0;
-      const int aw = j0 + pw + pad_left - stride * c0;
-      if (stride == 1) {
+    // the item's taps, loaded while its window lands
+    const int c_b = m.map % geo.cblk;
+    const int lg = m.lane0 + lane;
+    float wv[kS ? 9 : kMaxTaps];
 #pragma unroll
-        for (int k = 0; k < kMaxTaps; ++k) {
-          if (k == taps) break;
-          acc = fmaf(smem[((ah - th[k]) * wwin + aw - tw[k]) * cb + lane],
-                     wv[k], acc);
-        }
-      } else if (stride == 2) {
+    for (int q = 0; q < (kS ? 9 : kMaxTaps); ++q) {
+      // kS 1 reads the taps turned by 180 degrees
+      const int tap = kS == 1 ? 8 - q : q;
+      wv[q] = (computes && q < taps)
+                  ? __ldg(w + ((size_t)c_b * taps + tap) * geo.cb + lg)
+                  : 0.0f;
+    }
+    cp_async_wait_one();
+    __syncthreads();
+
+    // dz once per staged cell, in place of g: each cell is read by up to
+    // three outputs' taps, and forming it at each read timed slower
+    float* gs = smem + slot * slot_floats;
+    if (geo.prologue) {
+      prologue_pass(gs, gs + win_floats, win_floats, geo.act);
+      __syncthreads();
+    }
+    const float* cell = gs + lane;
+    int r0, c0;
+    origin(m, r0, c0);
+    if (computes) {
+      for (int u = pg; u < units; u += npg) {
+        const int i = u / (parts * segs);
+        const int rest = u - i * parts * segs;
+        const int part = rest / segs;
+        const int seg = rest - part * segs;
+        float* orow = dx + (((size_t)m.map * geo.hi + m.i0 + i) * geo.wi
+                            + m.j0) * geo.cb + lg;
+        if constexpr (kS == 1) {
+          // window rows i .. i + 2 turned: a[d][e] is tap (2 - d, 2 - e)
+          const int run = (geo.wob + segs - 1) / segs;
+          const int jb = seg * run;
+          const int je = min(geo.wob, jb + run);
+          const int rp = i * rs;
+          float a[3][3];
 #pragma unroll
-        for (int k = 0; k < kMaxTaps; ++k) {
-          if (k == taps) break;
-          const int uh = ah - th[k];
-          const int uw = aw - tw[k];
-          if (((uh | uw) & 1) == 0) {
-            acc = fmaf(smem[((uh >> 1) * wwin + (uw >> 1)) * cb + lane],
-                       wv[k], acc);
+          for (int d = 0; d < 3; ++d) {
+#pragma unroll
+            for (int e = 0; e < 3; ++e) a[d][e] = cell[rp + d * rs + (jb + e) * L];
           }
-        }
-      } else {
+          for (int j = jb; j < je; ++j) {
+            if (j > jb) {
 #pragma unroll
-        for (int k = 0; k < kMaxTaps; ++k) {
-          if (k == taps) break;
-          const int uh = ah - th[k];
-          const int uw = aw - tw[k];
-          if (uh % stride == 0 && uw % stride == 0) {
-            acc = fmaf(smem[((uh / stride) * wwin + uw / stride) * cb + lane],
-                       wv[k], acc);
+              for (int d = 0; d < 3; ++d) {
+                a[d][0] = a[d][1];
+                a[d][1] = a[d][2];
+                a[d][2] = cell[rp + d * rs + (j + 2) * L];
+              }
+            }
+            float acc = 0.0f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+#pragma unroll
+              for (int e = 0; e < 3; ++e) {
+                acc = fmaf(a[d][e], wv[3 * d + e], acc);
+              }
+            }
+            orow[(size_t)j * geo.cb] = acc;
+          }
+        } else if constexpr (kS == 2) {
+          // the row's phase fixes its row taps, `part` the column phase
+          const int ut = m.i0 + i + geo.pad_top;
+          const int v0 = m.j0 + geo.pad_left;
+          const int jf = (part - v0) & 1;          // first column of the part
+          const int count = jf < geo.wob ? (geo.wob - jf + 1) / 2 : 0;
+          const int run = (count + segs - 1) / segs;
+          const int k0 = seg * run;
+          const int k1 = min(count, k0 + run);
+          if (k0 < k1) {
+            const int wr = (ut >> 1) - r0;           // dh 0 (even), dh 1 (odd)
+            const int wc = ((v0 + jf) >> 1) - c0;    // dw 0 (even), dw 1 (odd)
+            float* o = orow + (size_t)jf * geo.cb;
+            const int ostep = 2 * geo.cb;
+            if (ut & 1) {
+              if (part) {
+                phase_run<1, 1>(cell, wv, rs, L, wr, wc, k0, k1, o, ostep);
+              } else {
+                phase_run<1, 2>(cell, wv, rs, L, wr, wc, k0, k1, o, ostep);
+              }
+            } else if (part) {
+              phase_run<2, 1>(cell, wv, rs, L, wr, wc, k0, k1, o, ostep);
+            } else {
+              phase_run<2, 2>(cell, wv, rs, L, wr, wc, k0, k1, o, ostep);
+            }
+          }
+        } else {
+          const int run = (geo.wob + segs - 1) / segs;
+          const int jb = seg * run;
+          const int je = min(geo.wob, jb + run);
+          // numerators relative to the window's origin; a tap counts where
+          // the stride divides both
+          const int ah = m.i0 + i + geo.pad_top - geo.stride * r0;
+          for (int j = jb; j < je; ++j) {
+            const int aw = m.j0 + j + geo.pad_left - geo.stride * c0;
+            float acc = 0.0f;
+#pragma unroll
+            for (int q = 0; q < kMaxTaps; ++q) {
+              if (q == taps) break;
+              const int uh = ah - (q / geo.wf) * geo.dil_h;
+              const int uw = aw - (q % geo.wf) * geo.dil_w;
+              if (geo.stride == 1) {
+                acc = fmaf(cell[uh * rs + uw * L], wv[q], acc);
+              } else if (uh % geo.stride == 0 && uw % geo.stride == 0) {
+                acc = fmaf(cell[(uh / geo.stride) * rs
+                                + (uw / geo.stride) * L], wv[q], acc);
+              }
+            }
+            orow[(size_t)j * geo.cb] = acc;
           }
         }
       }
-      out[((map * hd + i0 + ph) * wd + j0 + pw) * cb + lane] = acc;
     }
+    __syncthreads();                 // the slot is refilled next iteration
   }
 }
 
@@ -675,22 +874,33 @@ int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
   return (int)cudaGetLastError();
 }
 
-// The dgrad: g [hs, ws] = the output's extents, z its prologue (or null),
-// dx [hd, wd] = the input's extents.
+// The dgrad: g, and z where the plan asks for the prologue, into dx.  plan:
+// the DgradGeometry fields in order, then the grid's CTAs, the dynamic
+// shared memory and the kernel variant (0: any filter; 1, 2: 3x3 at
+// dilation 1 and that stride).
 int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
-                           void* dx, int n, int cblk, int cb, int hs, int ws,
-                           int hd, int wd, int hf, int wf, int stride,
-                           int dil_h, int dil_w, int pad_top, int pad_left,
-                           int hob, int wob, int hwin, int wwin, int act,
-                           int smem_bytes, void* stream) {
-  cudaError_t err = allow_smem(depthwise_dgrad_kernel, 3, smem_bytes);
+                           void* dx, const int* plan, void* stream) {
+  DgradGeometry geo;
+  int* fields = reinterpret_cast<int*>(&geo);
+  for (int i = 0; i < kDgradInts; ++i) fields[i] = plan[i];
+  const int grid = plan[kDgradInts];
+  const int smem = plan[kDgradInts + 1];
+  const int variant = plan[kDgradInts + 2];
+  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
+      || geo.lanes < 1
+      || geo.cb % geo.lanes != 0 || geo.hf * geo.wf > kMaxTaps) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (grid <= 0) return 0;
+  using Kernel = void (*)(const float*, const float*, const float*, float*,
+                          DgradGeometry);
+  const Kernel kernel = variant == 1   ? depthwise_dgrad_kernel<1>
+                        : variant == 2 ? depthwise_dgrad_kernel<2>
+                                       : depthwise_dgrad_kernel<0>;
+  cudaError_t err = allow_smem(kernel, variant, smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((hd / hob) * (wd / wob), cblk, n);
-  depthwise_dgrad_kernel<<<grid, kThreads, smem_bytes,
-                           (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)z, (const float*)w, (float*)dx, cblk,
-      cb, hs, ws, hd, wd, hf, wf, stride, dil_h, dil_w, pad_top, pad_left,
-      hob, wob, hwin, wwin, act);
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)g, (const float*)z, (const float*)w, (float*)dx, geo);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,8 @@
 // Pointwise (1x1, stride 1) convolution, f32 — hand-written for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of src/repro/kernels/conv2d_pointwise.py:
-//   `_pw_fwd_kernel`   (:56,  pallas_call :211)  out = act(x @ w + b) + r
-//   `_pw_dgrad_kernel` (:87,  pallas_call :268)  dx  = dz @ w^T
-//   `_pw_wgrad_kernel` (:114, pallas_call :335)  dw  = sum_positions x^T dz
-// with dz = g * act'(z) (relu, tanh-gelu) formed as g is staged.  Layouts are
-// the paper's blocked ones:
+// Replaces the Pallas TPU kernel `_pw_fwd_kernel` of
+// src/repro/kernels/conv2d_pointwise.py (:56, pallas_call :211), out =
+// act(x @ w + b) + r.  Layouts are the paper's blocked ones:
 //
 //   x   [N, Ci/Cib, H, W, Cib]       g, z, out, r  [N, Co/Cob, H, W, Cob]
 //   w   [Co/Cob, Ci/Cib, 1, 1, Cib, Cob]            b  [Co/Cob, Cob]
@@ -17,10 +14,14 @@
 //
 //   out[n, ob, p, o] = sum_{kb, k} x[n, kb, p, k] * w[ob][kb][k][o]
 //
-// The dgrad is not built here: its wrapper launches the dense dgrad's
-// TMA-fed tile at a 1x1 filter (direct_conv2d_bwd.cu `dgrad_kernel`), whose
-// B operand, the weight as stored, is K-major already and which timed
-// faster than this tile with the weight read transposed.
+// The backward is not built here.  The dgrad (`_pw_dgrad_kernel`, :87, dx =
+// dz @ w^T) launches the dense dgrad's TMA-fed tile at a 1x1 filter
+// (direct_conv2d_bwd.cu `dgrad_kernel`), whose B operand, the weight as
+// stored, is K-major already and which timed faster than this tile with the
+// weight read transposed.  The wgrad (`_pw_wgrad_kernel`, :114, dw = sum
+// over positions of x^T dz) launches the dense wgrad's tile at a 1x1 filter
+// (direct_conv2d_bwd.cu `wgrad_kernel`, wgrad_tile.cuh), whose rows are then
+// the Cib channels.  Both form dz = g * act'(z) as g is staged.
 //
 // The tile, on the tensor cores.  A CTA owns `rows` = 64 x (consumer
 // warpgroups) consecutive positions of one image (M; tiles never straddle
@@ -66,16 +67,6 @@
 // give few CTAs (the N split doubles them) and short contractions give few
 // stages to hide a stage's copies behind.
 //
-// wgrad: the TPU walks (N, H/Hob, W/Wob) as a sequential reduction axis into
-// one resident [Cib, Cob] block.  Blocks run in no order on Hopper, so a CTA
-// owns one [Cib, Cob] block and a contiguous share of the position tiles
-// (`splits` shares per block); its threads form `pgroups` position groups of
-// 8 x 8 register tiles, whose sums meet in shared memory in group order, and
-// each share's sums go to its row of an f32 workspace [splits, |dw| + |db|];
-// the last CTA of each block's column of shares adds the rows in split
-// order into dw and db (split_sum.cuh).  No sum depends on the order CTAs run in:
-// two runs give identical bits.  db rides the Ci-block-0 CTAs only.
-//
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
 // tile's plan as one int array, built once per shape); each entry point
 // returns cudaGetLastError() after its launch (0 on success).
@@ -92,9 +83,6 @@ namespace {
 
 namespace dt = dgrad_tile;
 
-constexpr int kThreads = 256;   // threads per wgrad CTA
-constexpr int kLanes = 8;       // output lanes in one wgrad thread's tile
-constexpr int kMinBlocksPerSm = 2;
 constexpr int kMaxDevices = 64;
 
 constexpr int kActRelu = 1;
@@ -110,35 +98,6 @@ __device__ __forceinline__ float activate(float v, int act) {
     return 0.5f * v * (1.0f + tanhf(k * (v + 0.044715f * v * v * v)));
   }
   return v;
-}
-
-__device__ __forceinline__ void load8(const float* p, float* v) {
-  const float4 lo = *reinterpret_cast<const float4*>(p);
-  const float4 hi = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = lo.x; v[1] = lo.y; v[2] = lo.z; v[3] = lo.w;
-  v[4] = hi.x; v[5] = hi.y; v[6] = hi.z; v[7] = hi.w;
-}
-
-// One staged unit of in (or of dz = g * act'(z) when z is given): 4 floats
-// when `vec` (offsets are multiples of 4), else 1.
-__device__ __forceinline__ void stage_in(float* dst, const float* g,
-                                         const float* z, size_t src, bool vec,
-                                         int act) {
-  if (vec) {
-    float4 v = __ldg(reinterpret_cast<const float4*>(g + src));
-    if (z != nullptr) {
-      const float4 zz = __ldg(reinterpret_cast<const float4*>(z + src));
-      v.x = dt::prologue(v.x, zz.x, act);
-      v.y = dt::prologue(v.y, zz.y, act);
-      v.z = dt::prologue(v.z, zz.z, act);
-      v.w = dt::prologue(v.w, zz.w, act);
-    }
-    *reinterpret_cast<float4*>(dst) = v;
-  } else {
-    float v = __ldg(g + src);
-    if (z != nullptr) v = dt::prologue(v, __ldg(z + src), act);
-    *dst = v;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -490,184 +449,15 @@ cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
   return err;
 }
 
-// ---------------------------------------------------------------------------
-// wgrad
-// ---------------------------------------------------------------------------
-
-// kVecX / kVecD: Cib / Cob is a multiple of kLanes, so a thread's 8 x values
-// / 8 dz values of one position are two aligned float4 reads.
-template <bool kVecX, bool kVecD>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-pointwise_wgrad_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g,
-                       const float* __restrict__ z, float* ws, float* out,
-                       int* counters, int n_img, int ciblk, int cib,
-                       int coblk, int cob, int hw, int positions, int splits,
-                       int act, int with_db) {
-  extern __shared__ __align__(16) float smem[];
-  const int split = blockIdx.x;
-  const int ci_b = blockIdx.y;
-  const int co_b = blockIdx.z;
-  const int tiles_img = (hw + positions - 1) / positions;
-  const int tiles = n_img * tiles_img;
-  const int first = (int)((long long)tiles * split / splits);
-  const int last = (int)((long long)tiles * (split + 1) / splits);
-
-  // thread -> (position group, Cib lane group, Cob lane group); Cob
-  // fastest, so a warp shares x values (broadcast) and reads neighbouring dz
-  const int ncig = (cib + kLanes - 1) / kLanes;
-  const int ncog = (cob + kLanes - 1) / kLanes;
-  const int groups = ncig * ncog;
-  const int pgroups = kThreads / groups;
-  const int t = threadIdx.x;
-  const int pgp = t / groups;
-  const int cig = (t % groups) / ncog;
-  const int cog = t % ncog;
-  const bool active = pgp < pgroups;
-  const int ci0 = cig * kLanes;
-  const int co0 = cog * kLanes;
-  const bool db_duty = with_db && active && ci_b == 0 && cig == 0;
-
-  float* x_s = smem;                                      // [positions, cib]
-  float* d_s = smem + ((positions * cib + 3) & ~3);       // [positions, cob]
-
-  float acc[kLanes][kLanes];
-#pragma unroll
-  for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-    for (int j = 0; j < kLanes; ++j) acc[i][j] = 0.0f;
-  }
-  float dbacc[kLanes];
-#pragma unroll
-  for (int j = 0; j < kLanes; ++j) dbacc[j] = 0.0f;
-
-  const bool vec_x = cib % 4 == 0;
-  const bool vec_d = cob % 4 == 0;
-  for (int tt = first; tt < last; ++tt) {
-    const int n = tt / tiles_img;
-    const int p0 = (tt % tiles_img) * positions;
-    const int np = min(positions, hw - p0);
-    // x rows and dz rows of the tile: one contiguous run each
-    const float* xb = x + ((size_t)(n * ciblk + ci_b) * hw + p0) * cib;
-    if (vec_x) {
-      for (int i = t; i < np * cib / 4; i += kThreads) {
-        reinterpret_cast<float4*>(x_s)[i] =
-            __ldg(reinterpret_cast<const float4*>(xb) + i);
-      }
-    } else {
-      for (int i = t; i < np * cib; i += kThreads) x_s[i] = __ldg(xb + i);
-    }
-    const size_t dmap = ((size_t)(n * coblk + co_b) * hw + p0) * cob;
-    const float* zb = z != nullptr ? z + dmap : nullptr;
-    const int unit = vec_d ? 4 : 1;
-    for (int i = t; i < np * cob / unit; i += kThreads) {
-      stage_in(d_s + i * unit, g + dmap, zb, (size_t)i * unit, vec_d, act);
-    }
-    __syncthreads();
-    if (active) {
-      for (int p = pgp; p < np; p += pgroups) {
-        float xv[kLanes], dv[kLanes];
-        const float* xp = x_s + p * cib + ci0;
-        const float* dp = d_s + p * cob + co0;
-        if constexpr (kVecX) {
-          load8(xp, xv);
-        } else {
-#pragma unroll
-          for (int i = 0; i < kLanes; ++i) {
-            xv[i] = (ci0 + i < cib) ? xp[i] : 0.0f;
-          }
-        }
-        if constexpr (kVecD) {
-          load8(dp, dv);
-        } else {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            dv[j] = (co0 + j < cob) ? dp[j] : 0.0f;
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < kLanes; ++i) {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) {
-            acc[i][j] = fmaf(xv[i], dv[j], acc[i][j]);
-          }
-        }
-        if (db_duty) {
-#pragma unroll
-          for (int j = 0; j < kLanes; ++j) dbacc[j] += dv[j];
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  // the position groups' sums, added in group order; the staging buffer is
-  // free after the loop's last __syncthreads
-  const int block = cib * cob;
-  const int stride = block + cob;
-  float* red = smem;                              // [pgroups, block + cob]
-  if (active) {
-    float* mine = red + pgp * stride;
-#pragma unroll
-    for (int i = 0; i < kLanes; ++i) {
-      if (ci0 + i < cib) {
-#pragma unroll
-        for (int j = 0; j < kLanes; ++j) {
-          if (co0 + j < cob) mine[(ci0 + i) * cob + co0 + j] = acc[i][j];
-        }
-      }
-    }
-    if (db_duty) {
-#pragma unroll
-      for (int j = 0; j < kLanes; ++j) {
-        if (co0 + j < cob) mine[block + co0 + j] = dbacc[j];
-      }
-    }
-  }
-  __syncthreads();
-  const size_t dw_size = (size_t)coblk * ciblk * cib * cob;
-  float* row = ws + (size_t)split * (dw_size + (with_db ? coblk * cob : 0));
-  float* dwb = row + (size_t)(co_b * ciblk + ci_b) * block;
-  for (int e = t; e < block; e += kThreads) {
-    float s = 0.0f;
-    for (int q = 0; q < pgroups; ++q) s += red[q * stride + e];
-    dwb[e] = s;
-  }
-  if (with_db && ci_b == 0) {
-    for (int e = t; e < cob; e += kThreads) {
-      float s = 0.0f;
-      for (int q = 0; q < pgroups; ++q) s += red[q * stride + block + e];
-      row[dw_size + co_b * cob + e] = s;
-    }
-  }
-
-  // the last CTA of block (ci_b, co_b) sums its rows in split order, and
-  // db where the column has it (red is free: every thread is past its last
-  // read once it arrives)
-  const size_t cols = dw_size + (with_db ? coblk * cob : 0);
-  if (!split_sum::arrive(counters + co_b * ciblk + ci_b, splits,
-                         reinterpret_cast<int*>(red), 0, kThreads, t == 0)) {
-    return;
-  }
-  const size_t at = (size_t)(co_b * ciblk + ci_b) * block;
-  split_sum::sum_rows(ws + at, cols, splits, out + at, block, 1.0f, t,
-                      kThreads);
-  if (with_db && ci_b == 0) {
-    const size_t db = dw_size + (size_t)co_b * cob;
-    split_sum::sum_rows(ws + db, cols, splits, out + db, cob, 1.0f, t,
-                        kThreads);
-  }
-}
-
 }  // namespace
 
 extern "C" {
 
-// The compiled geometry, for the wrapper's blocking model: the wgrad's
-// threads a CTA and lanes a thread, and the rows of the tile's m-tile.
-void conv2d_pointwise_geometry(int* threads, int* lanes, int* rows) {
-  *threads = kThreads;
-  *lanes = kLanes;
+// The compiled geometry, for the wrapper's blocking model: the threads of
+// the largest CTA, its consumer warpgroups and the rows of an m-tile.
+void conv2d_pointwise_geometry(int* threads, int* consumers, int* rows) {
+  *threads = kTileThreads;
+  *consumers = kMaxConsumers;
   *rows = kRows;
 }
 
@@ -715,31 +505,6 @@ int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
                          dim3(kWarpgroup * (wgs + 1)), args, smem,
                          (cudaStream_t)stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
-}
-
-// The wgrad: `splits` position shares of each (Ci block, Co block) into
-// `ws` [splits, |dw| + |db|], summed by each block's last CTA into `out`
-// ([|dw| + |db|]); `counters`: a zeroed int32 a block.
-int conv2d_pointwise_wgrad(const void* x, const void* g, const void* z,
-                           void* ws, void* out, void* counters, int n,
-                           int ciblk, int cib, int coblk, int cob, int hw,
-                           int positions, int splits, int act, int with_db,
-                           int smem_bytes, void* stream) {
-  const bool vx = cib % kLanes == 0;
-  const bool vd = cob % kLanes == 0;
-  auto kernel = vx ? (vd ? pointwise_wgrad_kernel<true, true>
-                         : pointwise_wgrad_kernel<true, false>)
-                   : (vd ? pointwise_wgrad_kernel<false, true>
-                         : pointwise_wgrad_kernel<false, false>);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(splits, ciblk, coblk);
-  kernel<<<grid, kThreads, smem_bytes, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws,
-      (float*)out, (int*)counters, n, ciblk, cib, coblk, cob, hw, positions,
-      splits, act, with_db);
   return (int)cudaGetLastError();
 }
 

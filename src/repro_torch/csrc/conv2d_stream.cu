@@ -401,19 +401,15 @@ void conv2d_stream_wgrad_geometry(int* threads, int* rows, int* positions) {
 // The wgrad: items of hso x wob output positions, `wgs` consumer warpgroups
 // of `mpw` m-tiles, the wgmma width `lanes`, `splits` position shares into
 // `ws`, summed by each column's last CTA into `out` (as
-// direct_conv2d_wgrad).
+// direct_conv2d_wgrad, whose plan it takes with hso, wob for th, tw).
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
-                        void* out, void* counters, int n, int ciblk, int hi,
-                        int wi, int cib, int coblk, int cob, int ho, int wo,
-                        int hf, int wf, int stride, int pad_top,
-                        int pad_left, int hso, int wob, int wgs, int mpw,
-                        int lanes, int splits, int act, int with_db,
+                        void* out, void* counters, const int* p,
                         void* stream) {
   const wtile::Geometry geo = wgrad_geometry(
-      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
-      pad_left, hso, wob, wgs, mpw, lanes, splits, act, z != nullptr,
-      with_db);
-  return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
+      z != nullptr, p[21]);
+  return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
                        (cudaStream_t)stream);

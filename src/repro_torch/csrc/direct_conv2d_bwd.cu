@@ -309,18 +309,18 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
 // Tiles of th x tw output positions, `wgs` consumer warpgroups of `mpw`
 // m-tiles, the wgmma width `lanes`, `splits` position shares into `ws`,
 // summed by each column's last CTA into `out` ([|dw| + |db|]);
-// `counters`: a zeroed int32 a column (wgrad_tile::columns).
+// `counters`: a zeroed int32 a column (wgrad_tile::columns).  plan, built
+// once per shape by the wrapper: n, ciblk, hi, wi, cib, coblk, cob, ho,
+// wo, hf, wf, stride, pad_top, pad_left, th, tw, wgs, mpw, lanes, splits,
+// act, with_db (as the _plan entry's ints, then those two).
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,
-                        void* out, void* counters, int n, int ciblk, int hi,
-                        int wi, int cib, int coblk, int cob, int ho, int wo,
-                        int hf, int wf, int stride, int pad_top,
-                        int pad_left, int th, int tw, int wgs, int mpw,
-                        int lanes, int splits, int act, int with_db,
+                        void* out, void* counters, const int* p,
                         void* stream) {
   const wtile::Geometry geo = wgrad_geometry(
-      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
-      pad_left, th, tw, wgs, mpw, lanes, splits, act, z != nullptr, with_db);
-  return wtile::launch(pick_wgrad(lanes, mpw), (const float*)x,
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
+      z != nullptr, p[21]);
+  return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
                        (cudaStream_t)stream);

@@ -671,6 +671,35 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
                         const CUtensorMap, const float*, const float*,
                         const float*, float*, float*, int*, Geometry);
 
+// Internal to each library that includes it (the launch too), as
+// fwd_tile.cuh's host helpers: a function-local cache in an inline function
+// that two loaded libraries export would bind both to one copy.
+namespace {
+
+constexpr int kMaxDevices = 64;
+constexpr int kInstances = 10;      // (wgmma width, m-tiles a warpgroup)
+
+// Raise a kernel's dynamic shared-memory limit once per device to the most
+// any launch has asked of it (the attribute is the kernel's, per device),
+// so that a launch at a shape seen before sets nothing; the instance is
+// named by its width and m-tiles.
+inline cudaError_t allow_smem(Kernel kernel, const Geometry& g, int device,
+                              int bytes) {
+  int slot = g.mpw - 1;
+  for (int l = g.lanes; l > 8; l /= 2) slot += 2;
+  if (device >= kMaxDevices || slot >= kInstances) {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  }
+  static int allowed[kMaxDevices][kInstances];
+  int& have = allowed[device][slot];
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) have = bytes;
+  return err;
+}
+
 // Whether the kernels take this geometry.
 __host__ inline bool valid(const Geometry& g) {
   return g.n >= 1 && g.wgs >= 1 && g.wgs <= kMaxConsumers && g.mpw >= 1
@@ -723,13 +752,14 @@ inline int launch(Kernel kernel, const float* x, const float* g,
       return (int)cudaErrorNotSupported;
   }
   const size_t smem = smem_bytes(geo);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  err = allow_smem(kernel, geo, device, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
       tmx, tmg, tmz, x, g, z, ws, out, counters, geo);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 }  // namespace wgrad_tile

@@ -49,8 +49,9 @@ from repro_torch.core.blocking import (DW_MAX_TAPS, H100_SXM,
                                        choose_depthwise_blocking,
                                        choose_depthwise_dgrad_blocking,
                                        choose_depthwise_wgrad_blocking,
+                                       depthwise_dgrad_smem_bytes,
+                                       depthwise_dgrad_variant,
                                        depthwise_fwd_smem_bytes,
-                                       depthwise_smem_bytes,
                                        depthwise_wgrad_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec, conv_spec,
@@ -86,7 +87,8 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_depthwise_fwd.argtypes = [ptr] * 8 + [ctypes.POINTER(i32),
                                                      ptr]
     lib.conv2d_depthwise_fwd.restype = i32
-    lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [ptr]
+    lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [ctypes.POINTER(i32),
+                                                       ptr]
     lib.conv2d_depthwise_dgrad.restype = i32
     lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 6 + [i32] * 20 + [ptr]
     lib.conv2d_depthwise_wgrad.restype = i32
@@ -273,34 +275,85 @@ def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     [N, C/Cb, Ho, Wo, Cb]``, the saved pre-activation ``z`` (None for a
     linear epilogue) and ``w`` -> ``dx [N, C/Cb, Hi, Wi, Cb]`` at the
     unpadded ``input_hw``.  ``stride``/``padding``/``dilation`` are the
-    forward's."""
+    forward's.  On CUDA the kernel walks items of dx (``_dgrad_plan``):
+    3x3 at stride 1 on the register path, at stride 2 split by phase."""
     _backward_operands(g, z, activation)
-    hi, wi = input_hw
-    groups = g.shape[1] * g.shape[4]
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
-                                         activation, groups, dilation)
-    dev = _cuda_device(g)
-    n, cblk, ho, wo, cb = g.shape
-    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z, groups,
-                         dilation)
+                                         activation, g.shape[1] * g.shape[4],
+                                         dilation)
+    prologue = z is not None and activation not in (None, "linear")
+    plan = _dgrad_plan(g.shape, w.shape, tuple(input_hw), stride,
+                       _hashable(padding), _hashable(dilation),
+                       _ACT_CODES[activation], prologue)
+    return dgrad_launch(plan, g, w, z if prologue else None)
+
+
+def _hashable(v):
+    """A padding or dilation argument as a key of ``_dgrad_plan``'s cache."""
+    if isinstance(v, (list, tuple)):
+        return tuple(_hashable(e) for e in v)
+    return v
+
+
+@dataclasses.dataclass(frozen=True)
+class _DgradPlan:
+    """What a dgrad launch at one shape needs but its pointers, stream and
+    library, built once (``_dgrad_plan``): the items, dx's shape and the C
+    entry's int array."""
+    blk: DepthwiseBlocking
+    spec: ConvSpec
+    dx_shape: Tuple[int, ...]
+    variant: int
+    ints: object
+
+
+@functools.lru_cache(maxsize=1024)
+def _dgrad_plan(g_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
+                input_hw: Tuple[int, int], stride, padding, dilation,
+                act: int, prologue: bool) -> _DgradPlan:
+    """The plan of a dgrad launch: the items of
+    ``choose_depthwise_dgrad_blocking`` and the kernel variant."""
+    n, cblk, ho, wo, cb = g_shape
+    hi, wi = input_hw
+    spec = backward_spec(n, hi, wi, w_shape, stride, padding,
+                         torch.empty(g_shape, device="meta"), None,
+                         cblk * cb, dilation)
     _taps(spec.hf, spec.wf)
-    ptrs = (_require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True),
-            _require(w, "w", dev))
     if cblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: C/Cb={cblk}, N={n}")
     blk = choose_depthwise_dgrad_blocking(n, cblk, hi, wi, cb, spec.hf,
                                           spec.wf, spec.stride,
-                                          spec.dilation)
-    smem = depthwise_smem_bytes(blk.hwin, blk.wwin, cb, H100_SXM)
-    dx = torch.empty((n, cblk, hi, wi, cb), device=dev, dtype=torch.float32)
+                                          spec.dilation, spec.pads, prologue)
+    if blk.items >= 2 ** 31:
+        raise ValueError(f"grid too large: {blk.items} items")
+    variant = depthwise_dgrad_variant(spec.hf, spec.wf, spec.stride,
+                                      spec.dilation)
+    smem = depthwise_dgrad_smem_bytes(blk.hwin, blk.wwin, blk.lanes,
+                                      prologue)
+    ints = (cblk, cb, ho, wo, hi, wi, spec.hf, spec.wf, spec.stride,
+            *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
+            blk.wob, blk.hwin, blk.wwin, blk.lanes, blk.items, act,
+            int(prologue), blk.grid, smem, variant)
+    return _DgradPlan(blk=blk, spec=spec, dx_shape=(n, cblk, hi, wi, cb),
+                      variant=variant, ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def dgrad_launch(plan: _DgradPlan, g: torch.Tensor, w: torch.Tensor,
+                 z: Optional[torch.Tensor]) -> torch.Tensor:
+    """Launch the dgrad of ``plan`` on CUDA operands (``z`` only with the
+    prologue), each checked and read once -> dx; counts the launch."""
+    dev = _cuda_device(g)
+    ptrs = (_require(g, "g", dev, vector_loads=True),
+            _require(z, "z", dev, vector_loads=True),
+            _require(w, "w", dev))
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
+                         f"{tuple(g.shape)}")
+    dx = torch.empty(plan.dx_shape, device=dev, dtype=torch.float32)
     lib = _lib()
-    err = _call(dev, lib.conv2d_depthwise_dgrad, *ptrs, dx.data_ptr(), n,
-                cblk, cb, ho, wo, hi, wi, spec.hf, spec.wf, spec.stride,
-                *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
-                blk.wob, blk.hwin, blk.wwin, _ACT_CODES[activation], smem,
-                _stream(dev))
+    err = _call(dev, lib.conv2d_depthwise_dgrad, *ptrs, dx.data_ptr(),
+                plan.ints, _stream(dev))
     LAUNCHES["conv2d_depthwise_dgrad"] += 1
     _check(err, lib, "conv2d_depthwise_dgrad")
     return dx

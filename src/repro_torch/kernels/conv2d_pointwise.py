@@ -21,17 +21,19 @@ reference it refuses any other geometry.
   through ``direct_conv2d_bwd.cu``'s ``dgrad_kernel``, which timed faster
   than the forward's tile with the weight read transposed; it copies by
   TMA, or by cp.async where Cob is not a multiple of 4) and
-  ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``, whose last CTA of
-  each block adds its shares in split order), with the ``dz = g *
-  act'(z)`` prologue and ``db``.
+  ``pointwise_wgrad`` (``_pw_wgrad_kernel``, ``:114``: the dense wgrad's
+  tensor-core tile at a 1x1 filter, ``csrc/wgrad_tile.cuh`` through
+  ``direct_conv2d_bwd.cu``'s ``wgrad_kernel``, whose last CTA of each
+  column adds its shares in split order), with the ``dz = g * act'(z)``
+  prologue and ``db``.
 
 A 1x1 stride-1 conv is a dense conv, so the plain versions are the dense
 ones of ``core.direct_conv`` at that geometry: the CPU path runs them, and
 the tests and ``chip_smoke.py`` hold the kernels against them.
 
-The forward builds its launch plan (tiles, the C entry's int array) once
-per shape, and its shape checks are cached by the shapes, as the
-depthwise forward's are.
+The forward builds its launch plan (tiles, the C entry's int array) and
+the wgrad its tiles once per shape, and the forward's shape checks are
+cached by the shapes, as the depthwise forward's are.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
@@ -46,12 +48,12 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.blocking import (PW_ROWS, PointwiseBlocking,
+from repro_torch.core.blocking import (PW_CONSUMERS, PW_ROWS,
+                                       PointwiseBlocking,
                                        choose_dgrad_blocking,
                                        choose_pointwise_blocking,
-                                       choose_pointwise_wgrad_blocking,
-                                       pointwise_smem_bytes,
-                                       pointwise_wgrad_smem_bytes)
+                                       choose_wgrad_blocking,
+                                       pointwise_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec,
                                           direct_conv_blocked,
@@ -66,7 +68,10 @@ from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
                                                _bwd_lib, _require,
-                                               _stream, dgrad_launch)
+                                               _stream, dgrad_launch,
+                                               split_wgrad, wgrad_launch,
+                                               wgrad_launch_plan,
+                                               WgradLaunch)
 from repro_torch.kernels import split_sum
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
@@ -87,14 +92,13 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_pointwise_tile.argtypes = [ptr] * 8 + [ctypes.POINTER(i32),
                                                       ptr]
     lib.conv2d_pointwise_tile.restype = i32
-    lib.conv2d_pointwise_wgrad.argtypes = [ptr] * 6 + [i32] * 11 + [ptr]
-    lib.conv2d_pointwise_wgrad.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
-    # the compiled geometry: the wgrad's threads and lanes a thread, the
-    # tile's m-tile rows
-    return _library("conv2d_pointwise", _declare, (256, 8, PW_ROWS))
+    # the compiled geometry: the tile's largest CTA, its consumer
+    # warpgroups and the rows of an m-tile
+    return _library("conv2d_pointwise", _declare,
+                    (128 * (PW_CONSUMERS + 1), PW_CONSUMERS, PW_ROWS))
 
 
 def _check_operands(x_shape, w_shape) -> None:
@@ -319,20 +323,17 @@ def pointwise_wgrad(x: torch.Tensor, g: torch.Tensor,
                     with_db: bool = False):
     """Weight (and bias) gradient of ``act(x @ w + b)`` -> ``(dw [Co/Cob,
     Ci/Cib, 1, 1, Cib, Cob] f32, db [Co/Cob, Cob] f32 or None)``.  On CUDA
-    the wgrad kernel (``pointwise_wgrad_partials``) writes one partial sum
-    per position share and the last CTA of each block adds the shares in
-    order: two runs give identical bits."""
+    the dense wgrad's tensor-core tile at a 1x1 filter
+    (``pointwise_wgrad_partials``) writes one partial sum per position share
+    and the last CTA of each column adds the shares in order: two runs give
+    identical bits."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
         _check_wgrad(x, g, z)
         return direct_conv_wgrad_blocked(x, g, 1, 1, 1, "VALID", z,
                                          activation, with_db)
     _, out = pointwise_wgrad_partials(x, g, z, activation, with_db)
-    ciblk, cib, coblk, cob = x.shape[1], x.shape[4], g.shape[1], g.shape[4]
-    dw_size = coblk * ciblk * cib * cob
-    dw = out[:dw_size].view(coblk, ciblk, 1, 1, cib, cob)
-    db = out[dw_size:].view(coblk, cob) if with_db else None
-    return dw, db
+    return split_wgrad(out, x.shape, g.shape, 1, 1, with_db)
 
 
 def _check_wgrad(x: torch.Tensor, g: torch.Tensor,
@@ -346,38 +347,39 @@ def _check_wgrad(x: torch.Tensor, g: torch.Tensor,
                          f"{tuple(g.shape)}")
 
 
+@functools.lru_cache(maxsize=1024)
+def _wgrad_plan(x_shape, g_shape, act: int, prologue: bool,
+                with_db: bool) -> WgradLaunch:
+    """The plan of a wgrad launch at one shape: the dense wgrad tile's
+    chooser at a 1x1 filter, stride 1, no pads."""
+    n, ciblk, h, wd, cib = x_shape
+    coblk, cob = g_shape[1], g_shape[4]
+    blk = choose_wgrad_blocking(n, h, wd, 1, 1, 1, ciblk, cib, coblk, cob,
+                                prologue=prologue)
+    spec = ConvSpec.make(n, h, wd, ciblk * cib, coblk * cob, 1, 1)
+    return wgrad_launch_plan(blk, x_shape, g_shape, 1, 1, spec, act,
+                             with_db)
+
+
 def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
                              z: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
                              with_db: bool = False
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
-    workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then
-    ``db``, and ``out [|dw| + |db|]``, its rows summed in split order by
-    the last CTA of each block."""
+    """The wgrad on CUDA operands, the dense wgrad tile at a 1x1 filter
+    (``csrc/wgrad_tile.cuh`` through ``direct_conv2d_bwd.cu``'s
+    ``wgrad_kernel``; its rows are the Cib channels) -> ``(ws, out)``: the
+    f32 workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw``
+    then ``db``, and ``out [|dw| + |db|]``, its rows summed in split order
+    by the last CTA of each column."""
     _backward_operands(g, z, activation)
     _check_wgrad(x, g, z)
-    dev = _cuda_device(x)
-    ptrs = (_require(x, "x", dev, vector_loads=True),
-            _require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True))
-    n, ciblk, h, wd, cib = x.shape
-    coblk, cob = g.shape[1], g.shape[4]
-    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
-    hw = h * wd
-    blk = choose_pointwise_wgrad_blocking(n, hw, ciblk, cib, coblk, cob)
-    smem = pointwise_wgrad_smem_bytes(blk.positions, cib, cob, blk.pgroups)
-    cols = coblk * ciblk * cib * cob + (coblk * cob if with_db else 0)
-    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    out = torch.empty((cols,), device=dev, dtype=torch.float32)
-    stream = _stream(dev)
-    columns = ciblk * coblk
-    lib = _lib()
-    err = _call(dev, lib.conv2d_pointwise_wgrad, *ptrs, ws.data_ptr(),
-                out.data_ptr(), split_sum.counters(dev, stream, columns), n,
-                ciblk, cib, coblk, cob, hw, blk.positions, blk.splits,
-                _ACT_CODES[activation], int(with_db), smem, stream)
+    prologue = z is not None and activation not in (None, "linear")
+    plan = _wgrad_plan(x.shape, g.shape, _ACT_CODES[activation], prologue,
+                       with_db)
+    lib = _bwd_lib()
+    err, ws, out = wgrad_launch(lib.direct_conv2d_wgrad, plan, x, g,
+                                z if prologue else None)
     LAUNCHES["conv2d_pointwise_wgrad"] += 1
     _check(err, lib, "conv2d_pointwise_wgrad")
     return ws, out

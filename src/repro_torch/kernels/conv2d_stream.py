@@ -60,7 +60,8 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
                                                _cuda_device, _library,
                                                check_machine, dgrad_launch,
                                                fwd_launch, fwd_run,
-                                               split_wgrad, wgrad_launch)
+                                               split_wgrad, wgrad_launch,
+                                               wgrad_launch_plan)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
@@ -86,7 +87,8 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.conv2d_stream_dgrad_plan.restype = i32
-    lib.conv2d_stream_wgrad.argtypes = [ptr] * 6 + [i32] * 22 + [ptr]
+    lib.conv2d_stream_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+                                                    ptr]
     lib.conv2d_stream_wgrad.restype = i32
     lib.conv2d_stream_wgrad_plan.argtypes = [i32] * 21 + [
         ctypes.POINTER(ctypes.c_longlong)]
@@ -251,9 +253,10 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     spec, blk = _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z,
                                        activation, hso, machine)
     lib = _lib()
-    err, ws, out = wgrad_launch(lib.conv2d_stream_wgrad, blk, x, g, hf, wf,
-                                spec, z if _prologue(z, activation) else None,
-                                activation, with_db)
+    plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
+                             _ACT_CODES[activation], with_db)
+    err, ws, out = wgrad_launch(lib.conv2d_stream_wgrad, plan, x, g,
+                                z if _prologue(z, activation) else None)
     LAUNCHES["conv2d_stream_wgrad"] += 1
     _check(err, lib, "conv2d_stream_wgrad")
     return ws, out

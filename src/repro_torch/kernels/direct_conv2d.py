@@ -115,12 +115,11 @@ def reset_launches() -> None:
 _DECLARED: dict = {}
 
 
-def _library(name: str, declare, geometry=None,
+def _library(name: str, declare, geometry,
              more_geometries=()) -> ctypes.CDLL:
     """The built library ``name`` with its C signatures declared by
     ``declare(lib, ptr, i32)`` on first use; checks that the geometry it
-    was compiled with, ``<name>_geometry``, is ``geometry`` (``H100_SXM``'s
-    ``(threads, lanes, positions)`` by default), and
+    was compiled with, ``<name>_geometry``, is ``geometry``, and
     each ``(symbol, geometry)`` of ``more_geometries`` likewise."""
     lib = library(name)
     if _DECLARED.get(name) is lib:
@@ -131,9 +130,8 @@ def _library(name: str, declare, geometry=None,
         declare(lib, ctypes.c_void_p, i32)
         lib.cuda_error_name.argtypes = [i32]
         lib.cuda_error_name.restype = ctypes.c_char_p
-        m = H100_SXM
-        for symbol, want in ((f"{name}_geometry", geometry or (
-                m.threads, m.lanes, m.positions)), *more_geometries):
+        for symbol, want in ((f"{name}_geometry", geometry),
+                             *more_geometries):
             get = getattr(lib, symbol)
             get.argtypes = [ctypes.POINTER(i32)] * 3
             get.restype = None
@@ -162,7 +160,8 @@ def _declare_bwd(lib, ptr, i32) -> None:
     lib.direct_conv2d_dgrad_plan.argtypes = [i32] * 19 + [
         ctypes.POINTER(ctypes.c_longlong)]
     lib.direct_conv2d_dgrad_plan.restype = i32
-    lib.direct_conv2d_wgrad.argtypes = [ptr] * 6 + [i32] * 22 + [ptr]
+    lib.direct_conv2d_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+                                                    ptr]
     lib.direct_conv2d_wgrad.restype = i32
     lib.direct_conv2d_wgrad_plan.argtypes = [i32] * 21 + [
         ctypes.POINTER(ctypes.c_longlong)]
@@ -261,18 +260,14 @@ def _call(device: torch.device, entry, *args) -> int:
 
 
 def check_machine(machine: MachineModel) -> None:
-    """The kernels are compiled for ``H100_SXM``'s ``(threads, lanes,
-    positions)`` (the separable wgrads' CTA and register tile); a machine
-    model may differ from it only in ``smem_budget``, ``smem_block``,
-    ``sms`` and ``ctas_per_sm``."""
-    m = H100_SXM
-    if (machine.threads, machine.lanes, machine.positions) != (
-            m.threads, m.lanes, m.positions):
+    """The kernels are compiled for ``H100_SXM``'s ``threads`` (the
+    depthwise kernels' CTA); a machine model may differ from it only in
+    ``smem_budget``, ``smem_block``, ``sms`` and ``ctas_per_sm``."""
+    if machine.threads != H100_SXM.threads:
         raise ValueError(
-            f"machine {machine.name!r}: (threads, lanes, positions)="
-            f"{(machine.threads, machine.lanes, machine.positions)}, but the "
-            f"kernels are compiled for {(m.threads, m.lanes, m.positions)}; "
-            "only smem_budget, smem_block, sms and ctas_per_sm may differ")
+            f"machine {machine.name!r}: threads={machine.threads}, but the "
+            f"kernels are compiled for {H100_SXM.threads}; only "
+            "smem_budget, smem_block, sms and ctas_per_sm may differ")
 
 
 def _stream_kernels():
@@ -731,39 +726,62 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
                                 cob, machine, prologue)
     lib = _bwd_lib()
-    err, ws, out = wgrad_launch(lib.direct_conv2d_wgrad, blk, x, g, hf, wf,
-                                spec, z if prologue else None, activation,
-                                with_db)
+    plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
+                             _ACT_CODES[activation], with_db)
+    err, ws, out = wgrad_launch(lib.direct_conv2d_wgrad, plan, x, g,
+                                z if prologue else None)
     LAUNCHES["direct_conv2d_wgrad"] += 1
     _check(err, lib, "direct_conv2d_wgrad")
     return ws, out
 
 
-def wgrad_launch(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
-                 hf: int, wf: int, spec: ConvSpec, z: Optional[torch.Tensor],
-                 activation: Optional[str], with_db: bool):
+@dataclasses.dataclass(frozen=True)
+class WgradLaunch:
+    """What a tensor-core wgrad launch at one shape needs but its pointers,
+    stream and library, built once (``wgrad_launch_plan``): the tiles, the
+    workspace row's floats (``|dw| + |db|``), the split-sum columns and the
+    C entry's int array."""
+    blk: WgradBlocking
+    cols: int
+    columns: int
+    ints: object
+
+
+@functools.lru_cache(maxsize=1024)
+def wgrad_launch_plan(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
+                      spec: ConvSpec, act: int, with_db: bool) -> WgradLaunch:
+    """The plan of a wgrad launch with the tiles ``blk`` over operands of
+    these shapes (cached: a layer called again builds nothing)."""
+    n, ciblk, _, _, cib = x_shape
+    _, coblk, _, _, cob = g_shape
+    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
+    ints = (*_wgrad_ints(blk, x_shape, g_shape, hf, wf, spec), act,
+            int(with_db))
+    return WgradLaunch(
+        blk=blk, cols=coblk * ciblk * hf * wf * cib * cob + (
+            coblk * cob if with_db else 0),
+        columns=blk.groups * ciblk * coblk,
+        ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
+                 z: Optional[torch.Tensor]):
     """Call a tensor-core wgrad kernel's C ``entry`` (the window one or the
-    streamed one) with the tiles ``blk`` on CUDA operands, ``z`` only with
-    the prologue -> ``(CUDA error code, workspace, its rows' sum)``; the
-    caller counts the launch."""
+    streamed one) with ``plan`` on CUDA operands, ``z`` only with the
+    prologue -> ``(CUDA error code, workspace, its rows' sum)``; the caller
+    counts the launch."""
     dev = _cuda_device(x)
     ptrs = (_require(x, "x", dev, vector_loads=True),
             _require(g, "g", dev, vector_loads=True),
             _require(z, "z", dev, vector_loads=True))
-    n, ciblk, _, _, cib = x.shape
-    _, coblk, _, _, cob = g.shape
-    if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
-    cols = coblk * ciblk * hf * wf * cib * cob + (coblk * cob if with_db
-                                                  else 0)
-    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    out = torch.empty((cols,), device=dev, dtype=torch.float32)
-    columns = blk.groups * ciblk * coblk
+    ws = torch.empty((plan.blk.splits, plan.cols), device=dev,
+                     dtype=torch.float32)
+    out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
     stream = _stream(dev)
     err = _call(dev, entry, *ptrs, ws.data_ptr(), out.data_ptr(),
-                split_sum.counters(dev, stream, columns),
-                *_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
-                _ACT_CODES[activation], int(with_db), stream)
+                split_sum.counters(dev, stream, plan.columns), plan.ints,
+                stream)
     return err, ws, out
 
 

@@ -76,7 +76,7 @@ def graph_ms(fn, iters: int = ITERS) -> float:
 
 
 class Splits:
-    """Wraps the four wgrad choosers where the kernels' wrappers call them,
+    """Wraps the wgrad choosers where the kernels' wrappers call them,
     so that every split count can be divided by ``factor``, and sets the
     column budget of the separable ones (``budget`` bytes, None for the
     tree's own)."""
@@ -86,12 +86,19 @@ class Splits:
         self.blocking = blocking
         self.own = getattr(blocking, "SPLIT_SUM_COLUMN_BYTES", None)
         self.factor, self.choosers = 1, []
+        # the launch plans a wrapper caches by shape hold a chooser's tiles
+        self.plans = [mod._wgrad_plan for mod, _ in modules
+                      if hasattr(mod, "_wgrad_plan")]
         for mod, name in modules:
+            if not hasattr(mod, name):
+                continue
             self.choosers.append(getattr(mod, name))
             setattr(mod, name, self._wrap(getattr(mod, name)))
 
     def take(self, factor: int, budget) -> None:
         self.factor = factor
+        for plan in self.plans:
+            plan.cache_clear()
         budget = self.own if budget is None else budget
         if budget != getattr(self.blocking, "SPLIT_SUM_COLUMN_BYTES", None):
             self.blocking.SPLIT_SUM_COLUMN_BYTES = budget
@@ -162,6 +169,9 @@ def main(argv=None) -> int:
         splits = Splits([
             (direct_conv2d, "choose_wgrad_blocking"),
             (conv2d_stream, "choose_stream_wgrad_blocking"),
+            # the pointwise wgrad's: the dense tile's, or in an older tree
+            # its own FMA kernel's
+            (conv2d_pointwise, "choose_wgrad_blocking"),
             (conv2d_pointwise, "choose_pointwise_wgrad_blocking"),
             (conv2d_depthwise, "choose_depthwise_wgrad_blocking")])
         rules = {"fold": (1, None)}

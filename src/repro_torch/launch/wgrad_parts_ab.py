@@ -104,12 +104,13 @@ def main() -> int:
         g = torch.randn(z.shape, device=dev, generator=gen)
         blk = choose_wgrad_blocking(n, spec.ho, spec.wo, 3, 3, s, ci // cib,
                                     cib, co // cob, cob, prologue=True)
+        plan = direct_conv2d.wgrad_launch_plan(blk, x.shape, g.shape, 3, 3,
+                                               spec, 1, True)
         times = {}
         for name, lib in libs.items():
             def run(lib=lib):
                 err, ws, _ = direct_conv2d.wgrad_launch(
-                    lib.direct_conv2d_wgrad, blk, x, g, 3, 3, spec, z,
-                    "relu", True)
+                    lib.direct_conv2d_wgrad, plan, x, g, z)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
                 return ws

@@ -106,9 +106,12 @@ def main() -> int:
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
                                              PER_COUNT):
-                def run(blk=blk):
-                    err, _, out = direct_conv2d.wgrad_launch(
-                        entry, blk, x, g, 3, 3, spec, z, "relu", True)
+                plan = direct_conv2d.wgrad_launch_plan(
+                    blk, x.shape, g.shape, 3, 3, spec, 1, True)
+
+                def run(blk=blk, plan=plan):
+                    err, _, out = direct_conv2d.wgrad_launch(entry, plan, x,
+                                                             g, z)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")

@@ -614,6 +614,101 @@ def test_depthwise_kernels_match_plain_versions(cuda, n, c, h, cb, s, dil,
     assert torch.equal(dw, dw2) and torch.equal(db, db2)   # no atomics
 
 
+def _mobilenet_legs():
+    """MobileNet v1's distinct (ci, co, stride, h) blocks at a 224 entry."""
+    from repro_torch.launch.separable_bwd_ab import mobilenet_legs
+    return sorted(set(mobilenet_legs()))
+
+
+@pytest.mark.parametrize("ci,co,s,h", _mobilenet_legs())
+def test_pointwise_wgrad_matches_f64_at_mobilenet_legs(cuda, ci, co, s, h):
+    # the dense wgrad tile at 1x1 at every pointwise leg's pencils (batch
+    # 2): against f64 sums within 1e-5 of the terms' magnitudes (as
+    # chip_smoke.py), twice and in a CUDA-graph replay bit for bit, the
+    # split-sum counters back at 0
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    ho = -(-h // s)
+    cib, cob = min(ci, 128), min(co, 128)
+    x = torch.randn((2, ci // cib, ho, ho, cib), device=cuda, generator=gen)
+    w = torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=cuda,
+                    generator=gen) / ci ** 0.5
+    z = direct_conv_blocked(x, w, 1, "VALID").contiguous()
+    g = torch.randn(z.shape, device=cuda, generator=gen)
+    pwk.reset_launches()
+    runs = [pwk.pointwise_wgrad(x, g, z, "relu", True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert pwk.LAUNCHES["conv2d_pointwise_wgrad"] == 2
+    replay = _graph_replay(lambda: pwk.pointwise_wgrad(x, g, z, "relu",
+                                                       True))
+    want = direct_conv_wgrad_blocked(x.double(), g.double(), 1, 1, 1,
+                                     "VALID", z.double(), "relu", True)
+    dz = conv2d_common.cotangent_prologue(g, z, "relu")
+    scale = direct_conv_wgrad_blocked(x.abs().double(), dz.abs().double(),
+                                      1, 1, 1, "VALID", with_db=True)
+    for got, ref, mag in zip(runs[0], want, scale):
+        assert bool(((got.double() - ref).abs() <= 1e-5 * mag).all())
+    for other in (runs[1], replay):
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
+
+
+@pytest.mark.parametrize("ci,s,h", sorted({(ci, s, h) for ci, _, s, h in
+                                           _mobilenet_legs()}))
+def test_depthwise_dgrad_matches_plain_at_mobilenet_legs(cuda, ci, s, h):
+    # every depthwise leg's pencils and extents (batch 2, relu), on the
+    # register path (stride 1) and the phase split (stride 2)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    cb = min(ci, 128)
+    x = torch.randn((2, ci // cb, h, h, cb), device=cuda, generator=gen)
+    w = torch.randn((ci // cb, 1, 3, 3, 1, cb), device=cuda,
+                    generator=gen) / 3
+    z = direct_conv_blocked(x, w, s, "SAME", groups=ci).contiguous()
+    g = torch.randn(z.shape, device=cuda, generator=gen)
+    want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu", ci)
+    dwk.reset_launches()
+    got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", z, "relu")
+    torch.cuda.synchronize()
+    assert dwk.LAUNCHES["conv2d_depthwise_dgrad"] == 1
+    torch.testing.assert_close(got, want, **TOL)
+    plan = dwk._dgrad_plan(tuple(g.shape), tuple(w.shape), (h, h), s, "SAME",
+                           1, 1, True)
+    assert plan.variant == s
+
+
+# (n, c, h, cb, stride, dilation, filter, activation): the tap loop
+# (dilation 2, stride 3, 5x5), Cb = 3 and a pencil of 6 (4-byte copies),
+# odd extents at stride 2 (TF-SAME pads (1, 1)), linear
+DW_DGRAD_CASES = [
+    (2, 24, 13, 8, 1, 2, 3, "gelu"),
+    (2, 16, 11, 8, 3, 1, 3, "relu"),
+    (2, 16, 12, 16, 1, 1, 5, "gelu"),
+    (2, 6, 9, 3, 2, 1, 3, "relu"),
+    (2, 12, 10, 6, 1, 1, 3, None),
+    (2, 32, 7, 32, 2, 1, 3, "gelu"),
+    (2, 24, 15, 6, 2, 1, 3, "relu"),
+]
+
+
+@pytest.mark.parametrize("n,c,h,cb,s,dil,hf,act", DW_DGRAD_CASES)
+def test_depthwise_dgrad_takes_every_filter_stride_and_pencil(
+        cuda, n, c, h, cb, s, dil, hf, act):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    x = torch.randn((n, c // cb, h, h, cb), device=cuda, generator=gen)
+    w = torch.randn((c // cb, 1, hf, hf, 1, cb), device=cuda,
+                    generator=gen) / hf
+    z = direct_conv_blocked(x, w, s, "SAME", groups=c,
+                            dilation=dil).contiguous()
+    g = torch.randn(z.shape, device=cuda, generator=gen)
+    zz = z if act else None
+    want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", zz, act, c,
+                                     dil)
+    dwk.reset_launches()
+    got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", zz, act, dil)
+    torch.cuda.synchronize()
+    assert dwk.LAUNCHES["conv2d_depthwise_dgrad"] == 1
+    torch.testing.assert_close(got, want, **TOL)
+
+
 def test_separable_model_runs_through_the_kernels(cuda):
     gen = torch.Generator().manual_seed(0)
     blocks = [DepthwiseSeparableBlock(8, 16, stride=1, lane=8, device=cuda,

@@ -236,8 +236,8 @@ def test_dgrad_window_covers_every_tap_a_tile_reaches():
 
 
 def test_wgrad_blocking_misfit_raises():
-    tiny = blocking.MachineModel("tiny", threads=256, lanes=8, positions=8,
-                                 smem_budget=1024, smem_block=1024)
+    tiny = blocking.MachineModel("tiny", threads=256, smem_budget=1024,
+                                 smem_block=1024)
     with pytest.raises(ValueError, match="no wgrad tile fits"):
         blocking.choose_wgrad_blocking(1, 8, 8, 3, 3, 1, 1, 64, 1, 64,
                                        machine=tiny)
@@ -313,15 +313,24 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
         assert (d.hwin, d.wwin) == (s * (d.hob - 1) + 3, s * (d.wob - 1) + 3)
         assert d.items == n * (ci // d.lanes) * (ho // d.hob) * (ho // d.wob)
         assert d.grid == min(d.items, m.wave)
-        d = blocking.choose_depthwise_dgrad_blocking(n, ci // cb, h, h, cb,
-                                                     3, 3, s)
-        assert h % d.hob == 0 and h % d.wob == 0
-        assert d.hob * d.wob <= (m.threads // cb) * \
-            blocking.DW_THREAD_POSITIONS
-        assert blocking.depthwise_smem_bytes(d.hwin, d.wwin, cb, m) \
-            <= m.smem_budget
-        assert (d.hwin, d.wwin) == blocking.dgrad_window(d.hob, d.wob, 3, 3,
-                                                         s)
+        pads = padding.normalize_padding("SAME", 3, 3, s, h, h)
+        for prologue in (False, True):
+            d = blocking.choose_depthwise_dgrad_blocking(
+                n, ci // cb, h, h, cb, 3, 3, s, (1, 1), pads, prologue)
+            assert h % d.hob == 0 and h % d.wob == 0 and cb % d.lanes == 0
+            assert d.hob * d.wob <= (m.threads // d.lanes) * \
+                blocking.DW_THREAD_POSITIONS
+            assert blocking.depthwise_dgrad_smem_bytes(
+                d.hwin, d.wwin, d.lanes, prologue) <= m.smem_budget
+            # the cotangent rows a tile reads: within the old bound, and
+            # exactly a tile's at stride 1
+            bound = blocking.dgrad_window(d.hob, d.wob, 3, 3, s)
+            assert d.hwin <= bound[0] and d.wwin <= bound[1]
+            if s == 1:
+                assert (d.hwin, d.wwin) == (d.hob + 2, d.wob + 2)
+            assert d.items == n * (ci // d.lanes) * (h // d.hob) * (
+                h // d.wob)
+            assert d.grid == min(d.items, m.wave)
         wg = blocking.choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb,
                                                       3, 3, s)
         assert ho % wg.hob == 0 and ho % wg.wob == 0
@@ -346,12 +355,16 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
             assert blocking.dgrad_smem_bytes(
                 1, 1, 1, d.lanes, d.chunk, d.hwin, d.wwin, prologue) \
                 <= m.smem_block
-        pw = blocking.choose_pointwise_wgrad_blocking(n, hw, ci // cb, cb,
-                                                      co // cob, cob)
-        assert pw.pgroups * -(-cb // 8) * -(-cob // 8) <= m.threads
-        assert blocking.pointwise_wgrad_smem_bytes(
-            pw.positions, cb, cob, pw.pgroups) <= m.smem_budget
-        assert 1 <= pw.splits <= pw.tiles == n * -(-hw // pw.positions)
+        # the pointwise wgrad: the dense wgrad tile at 1x1, its rows the
+        # Cib channels
+        pw = blocking.choose_wgrad_blocking(n, ho, ho, 1, 1, 1, ci // cb, cb,
+                                            co // cob, cob, prologue=True)
+        assert blocking.wgrad_smem_bytes(pw.th, pw.tw, 1, 1, 1, cb, cob,
+                                         pw.lanes, True) <= m.smem_block
+        assert (pw.hwin, pw.wwin) == (pw.th, pw.tw) and pw.lanes >= cob
+        assert pw.groups * pw.wgs * pw.mpw * 64 >= cb
+        assert 1 <= pw.splits <= pw.tiles == n * -(-ho // pw.th) * -(
+            -ho // pw.tw)
 
 
 def test_separable_choosers_fill_the_card_where_the_map_allows():
@@ -363,9 +376,14 @@ def test_separable_choosers_fill_the_card_where_the_map_allows():
     # 7x7x1024: the pencil splits and the items shrink to fill the card
     d = blocking.choose_depthwise_blocking(8, 8, 7, 7, 128, 3, 3, 1)
     assert d.items >= m.wave and d.grid == m.wave
-    # the dgrad's tiles: the largest whose grid fills the card
+    # the dgrad's items: the forward's rule over dx, its windows of the
+    # cotangent; at stride 2 a 16x16 tile of dx reads 9x9 cotangent cells
     d = blocking.choose_depthwise_dgrad_blocking(8, 1, 112, 112, 32, 3, 3, 1)
-    assert (d.hob, d.wob) == (16, 16) and 8 * 49 >= m.wave
+    assert (d.hob, d.wob, d.lanes, d.hwin, d.wwin) == (8, 16, 32, 10, 18)
+    assert d.items >= blocking.DW_ITEMS_PER_CTA * m.wave == 1.5 * d.grid
+    d = blocking.choose_depthwise_dgrad_blocking(8, 2, 112, 112, 32, 3, 3, 2,
+                                                 (1, 1), ((0, 1), (0, 1)))
+    assert (d.hob, d.wob, d.hwin, d.wwin) == (16, 16, 9, 9)
     # 7x7x1024 pointwise: one m-tile an image, the output block split in two
     p = blocking.choose_pointwise_blocking(8, 49, 8, 128, 8, 128)
     assert (p.rows, p.tiles, p.nsplit) == (64, 1, 2)

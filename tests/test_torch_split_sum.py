@@ -98,10 +98,12 @@ def _mobilenet_wgrad_columns():
         cb, cob = min(ci, 128), min(co, 128)
         dw = blocking.choose_depthwise_wgrad_blocking(32, ci // cb, ho, ho,
                                                       cb, 3, 3, s)
-        pw = blocking.choose_pointwise_wgrad_blocking(32, ho * ho, ci // cb,
-                                                      cb, co // cob, cob)
+        # the pointwise wgrad: the dense wgrad tile at 1x1
+        pw = blocking.choose_wgrad_blocking(32, ho, ho, 1, 1, 1, ci // cb,
+                                            cb, co // cob, cob, prologue=True)
         out += [(dw.splits, ci // cb, 9 * cb + cb),
-                (pw.splits, (ci // cb) * (co // cob), cb * cob + cob)]
+                (pw.splits, pw.groups * (ci // cb) * (co // cob),
+                 min(cb, pw.wgs * pw.mpw * 64) * cob)]
         h = ho
     return out
 
@@ -119,19 +121,26 @@ def test_chooser_splits_fold_to_the_in_order_bits(model):
 
 
 def test_separable_splits_keep_a_columns_rows_short():
-    # one wave of CTAs, or one CTA an SM where a wave would give the last
-    # CTA of a column more than SPLIT_SUM_COLUMN_BYTES of rows to read
+    # the depthwise wgrad: one wave of CTAs, or one CTA an SM where a wave
+    # would give the last CTA of a column more than SPLIT_SUM_COLUMN_BYTES
+    # of rows to read; the pointwise wgrad (the dense tile at 1x1): the
+    # dense chooser, which prices that read, takes at most one CTA an SM
+    # over a leg's columns
     m = blocking.H100_SXM
-    for splits, columns, floats in _mobilenet_wgrad_columns()[1:]:
+    for k, (splits, columns, floats) in enumerate(
+            _mobilenet_wgrad_columns()[1:]):
+        if k % 2:
+            assert splits * columns <= m.sms
+            continue
         assert splits <= -(-m.wave // columns)
         assert (4 * splits * floats <= blocking.SPLIT_SUM_COLUMN_BYTES
                 or splits <= -(-m.sms // columns))
     # MobileNet's 64 -> 128 and 128 -> 128 pointwise legs at 56x56, batch
-    # 32: one column each, one CTA an SM (a wave timed slower on an H100)
+    # 32: one column each, one CTA an SM
     for ci in (64, 128):
-        pw = blocking.choose_pointwise_wgrad_blocking(32, 56 * 56, 1, ci, 1,
-                                                      128)
-        assert pw.splits == m.sms
+        pw = blocking.choose_wgrad_blocking(32, 56, 56, 1, 1, 1, 1, ci, 1,
+                                            128, prologue=True)
+        assert pw.splits == m.sms and pw.groups == 1
     # the 112x112 depthwise leg: short rows, a whole wave
     dw = blocking.choose_depthwise_wgrad_blocking(32, 1, 112, 112, 32, 3, 3)
     assert dw.splits == m.wave

@@ -53,8 +53,8 @@ from repro_torch.train.optimizer import AdamW  # noqa: E402
 from repro_torch.train.trainstep import make_train_step  # noqa: E402
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
-TINY = MachineModel(name="tiny", threads=256, lanes=8, positions=8,
-                    smem_budget=1024, smem_block=1024)
+TINY = MachineModel(name="tiny", threads=256, smem_budget=1024,
+                    smem_block=1024)
 
 
 def _t(a):
@@ -367,8 +367,7 @@ def test_wrappers_refuse_bad_routes():
         BlockedConv2D(8, 16, 1, 1, lane=8, stream=KernelRoute(fwd=True),
                       device="cpu")
     # a machine may differ from H100_SXM only in budget and card size
-    other = MachineModel(name="half", threads=128, lanes=8, positions=8,
-                         smem_budget=48 * 1024)
+    other = MachineModel(name="half", threads=128, smem_budget=48 * 1024)
     with pytest.raises(ValueError, match="compiled for"):
         direct_conv2d_blocked(xt, wt, None, 1, "SAME", machine=other)
     with pytest.raises(ValueError, match="compiled for"):
@@ -390,8 +389,8 @@ def test_route_stream_outcomes():
                                     H100_SXM, prologue=True) is False
     outcomes = set()
     for budget in range(256, 16 * 1024, 256):
-        m = MachineModel(name=f"b{budget}", threads=256, lanes=8,
-                         positions=8, smem_budget=budget, smem_block=budget)
+        m = MachineModel(name=f"b{budget}", threads=256, smem_budget=budget,
+                         smem_block=budget)
         for c, h, s in ((8, 8, 1), (16, 9, 2), (32, 6, 1)):
             spec = ConvSpec.make(2, h, h, c, c, 3, 3, s, "SAME")
             for d in ("fwd", "dgrad", "wgrad"):

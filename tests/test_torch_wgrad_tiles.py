@@ -441,3 +441,171 @@ def test_wgrad_parts_ab_edits_apply_to_the_header():
     for name, edits in VARIANTS.items():
         for old, _ in edits:
             assert text.count(old) == 1, (name, old)
+
+
+# ---------------------------------------------------------------------------
+# the pointwise wgrad: the same tile at a 1x1 filter
+# ---------------------------------------------------------------------------
+
+def _tile_wgrad_3xtf32(x, dz, blk):
+    """The tile's arithmetic at a 1x1 filter (stride 1, no pads) as a CTA
+    runs it, in f32 with the tensor cores' rounding: per CTA (Ci block, Co
+    block, m-tile group, share) the tiles of its share in K order, each
+    stage's positions padded to ``kpos`` with zeros, per k8 slice the three
+    TF32 products (small * big, big * small, big * big of ``_tf32``'s
+    halves), each an exact sum of 8 products added to the f32 accumulator
+    rounded toward zero; ``db`` summed per Cob lane in position order on the
+    first group of Ci block 0; then the shares added in f32 in split order.
+    -> ``(dw, db)``."""
+    n, ciblk, h, w, cib = x.shape
+    _, coblk, _, _, cob = dz.shape
+    th, tw, kpos = blk.th, blk.tw, blk.kpos
+    tiles_h, tiles_w = -(-h // th), -(-w // tw)
+    total = n * tiles_h * tiles_w
+    assert total == blk.tiles and (blk.hwin, blk.wwin) == (th, tw)
+    span = blk.wgs * blk.mpw * 64
+    dw_size = coblk * ciblk * cib * cob
+    ws = np.full((blk.splits, dw_size + coblk * cob), np.nan, np.float32)
+    for ci_b in range(ciblk):
+        for co_b in range(coblk):
+            for group in range(blk.groups):
+                m0, m1 = group * span, min(cib, (group + 1) * span)
+                if m0 >= m1:
+                    continue
+                for split in range(blk.splits):
+                    acc = np.zeros((m1 - m0, cob), np.float32)
+                    db = np.zeros(cob, np.float32)
+                    for t in range(total * split // blk.splits,
+                                   total * (split + 1) // blk.splits):
+                        img, rem = divmod(t, tiles_h * tiles_w)
+                        oh0, ow0 = rem // tiles_w * th, rem % tiles_w * tw
+                        a = np.zeros((m1 - m0, kpos), np.float32)
+                        b = np.zeros((kpos, cob), np.float32)
+                        for p in range(th * tw):
+                            oh, ow = oh0 + p // tw, ow0 + p % tw
+                            if oh < h and ow < w:
+                                a[:, p] = x[img, ci_b, oh, ow, m0:m1]
+                                b[p] = dz[img, co_b, oh, ow]
+                        for p in range(kpos):
+                            db = (db + b[p]).astype(np.float32)
+                        ab, bb = _tf32(a), _tf32(b)
+                        asm, bsm = _tf32(a - ab), _tf32(b - bb)
+                        for k in range(0, kpos, 8):
+                            sl = slice(k, k + 8)
+                            for u, v in ((asm, bb), (ab, bsm), (ab, bb)):
+                                acc = _add_rz(acc, u[:, sl].astype(np.float64)
+                                              @ v[sl].astype(np.float64))
+                    for c in range(m0, m1):
+                        base = ((co_b * ciblk + ci_b) * cib + c) * cob
+                        ws[split, base:base + cob] = acc[c - m0]
+                    if group == 0 and ci_b == 0:
+                        ws[split, dw_size + co_b * cob:
+                           dw_size + (co_b + 1) * cob] = db
+    out = ws[0].copy()
+    for k in range(1, blk.splits):
+        out = (out + ws[k]).astype(np.float32)
+    return (out[:dw_size].reshape(coblk, ciblk, 1, 1, cib, cob),
+            out[dw_size:].reshape(coblk, cob))
+
+
+# (n, ci, co, h, w, cib, cob, activation): MobileNet's block 1 (Cib 32, a
+# half-empty m-tile), 7x7 maps (K padded from 49 to 56), two Ci blocks,
+# Cob % 8 != 0, Cib 3 with Cob 6, a linear epilogue
+PW_WGRAD_CASES = [
+    (2, 32, 64, 6, 9, 32, 64, "relu"),
+    (2, 16, 8, 7, 7, 16, 8, "gelu"),
+    (2, 128, 16, 5, 6, 64, 16, "relu"),
+    (2, 8, 12, 5, 5, 8, 12, "gelu"),
+    (1, 3, 6, 7, 7, 3, 6, "relu"),
+    (2, 8, 16, 4, 5, 8, 16, None),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,w,cib,cob,act", PW_WGRAD_CASES)
+def test_pointwise_wgrad_tile_arithmetic_matches_pallas_interpret(
+        n, ci, co, h, w, cib, cob, act):
+    # the 3xTF32 emulation keeps f32 accuracy: against the pointwise Pallas
+    # wgrad (interpret mode, f32 sums in its own order) within 1e-5 of the
+    # sum of the terms' magnitudes (chip_smoke.py's WGRAD_REL), plus 1e-7
+    # for elements whose terms are all 0, over at most 126 terms an element
+    from repro.kernels.conv2d_pointwise import pointwise_wgrad_pallas
+    rng = np.random.default_rng(11)
+    x = rng.normal(size=(n, ci // cib, h, w, cib)).astype(np.float32)
+    wt = (rng.normal(size=(co // cob, ci // cib, 1, 1, cib, cob))
+          / np.sqrt(ci)).astype(np.float32)
+    z = direct_conv_preactivation(torch.from_numpy(x), torch.from_numpy(wt),
+                                  1, "VALID", None)
+    g = rng.normal(size=tuple(z.shape)).astype(np.float32)
+    want_dw, want_db = pointwise_wgrad_pallas(
+        jnp.asarray(x), jnp.asarray(g), interpret=True,
+        z=None if act is None else jnp.asarray(z.numpy()), activation=act,
+        with_db=True)
+    dz = cotangent_prologue(torch.from_numpy(g), z if act else None,
+                            act).numpy()
+    scale_dw = np.einsum("nihwc,nohwd->oicd", np.abs(x).astype(np.float64),
+                         np.abs(dz).astype(np.float64))[:, :, None, None]
+    scale_db = np.abs(dz).astype(np.float64).sum((0, 2, 3))
+    chosen = blocking.choose_wgrad_blocking(n, h, w, 1, 1, 1, ci // cib, cib,
+                                            co // cob, cob,
+                                            prologue=act is not None)
+    blks = [chosen]
+    for th, tw, splits in ((1, 3, 2), (2, 4, 3), (h, w, 1)):
+        tiles = n * -(-h // th) * -(-w // tw)
+        blks.append(dataclasses.replace(
+            chosen, th=th, tw=tw, hwin=th, wwin=tw, tiles=tiles,
+            splits=min(splits, tiles)))
+    for blk in blks:
+        dw, db = _tile_wgrad_3xtf32(x, dz, blk)
+        assert np.all(np.abs(dw - np.asarray(want_dw))
+                      <= WGRAD_REL * scale_dw + 1e-7), blk
+        assert np.all(np.abs(db - np.asarray(want_db))
+                      <= WGRAD_REL * scale_db + 1e-7), blk
+
+
+def test_pointwise_wgrad_tiles_at_mobilenet_legs():
+    # the dense chooser at MobileNet v1's pointwise legs (batch 32, relu):
+    # the tile fits, its plan counts the function, and block 1's Cib 32
+    # fills half of its one m-tile
+    from repro_torch.launch.separable_bwd_ab import mobilenet_legs
+    m = blocking.H100_SXM
+    for ci, co, s, h in mobilenet_legs():
+        ho = -(-h // s)
+        cib, cob = min(ci, 128), min(co, 128)
+        blk = blocking.choose_wgrad_blocking(32, ho, ho, 1, 1, 1, ci // cib,
+                                             cib, co // cob, cob,
+                                             prologue=True)
+        plan = blocking.wgrad_plan(blk, 32, ho, ho, 1, 1, 1, ci // cib, cib,
+                                   co // cob, cob, True)
+        assert plan.function_macs == 32 * ho * ho * ci * co
+        assert plan.smem <= m.smem_block and blk.lanes == cob
+        live = 32 * ho * ho / (blk.tiles * blk.kpos)
+        mt = blocking.wgrad_mtiles(1, 1, cib)
+        assert 1 - plan.padding_share == pytest.approx(
+            cib / (mt * 64) * live)
+        if cib == 32:
+            assert plan.padding_share >= 0.5
+
+
+def test_wgrad_launch_plan_is_built_once_a_shape():
+    # the C entries take the geometry as one int array, built once per
+    # shape: the _plan entry's ints, then the activation and db
+    from repro_torch.kernels import conv2d_pointwise as pwk
+    from repro_torch.kernels import direct_conv2d as dc
+    spec = ConvSpec.make(2, 8, 8, 8, 16, 3, 3, 1, "SAME")
+    blk = blocking.choose_wgrad_blocking(2, 8, 8, 3, 3, 1, 1, 8, 1, 16,
+                                         prologue=True)
+    args = (blk, (2, 1, 8, 8, 8), (2, 1, 8, 8, 16), 3, 3, spec, 1, True)
+    plan = dc.wgrad_launch_plan(*args)
+    assert plan is dc.wgrad_launch_plan(*args)
+    assert list(plan.ints) == [*dc._wgrad_ints(blk, args[1], args[2], 3, 3,
+                                               spec), 1, 1]
+    assert (plan.cols, plan.columns) == (9 * 8 * 16 + 16, blk.groups)
+    # the pointwise wgrad's: the dense tile at 1x1, keyed by torch.Size
+    x_shape, g_shape = torch.Size((2, 1, 8, 8, 8)), torch.Size((2, 1, 8, 8,
+                                                                16))
+    pw = pwk._wgrad_plan(x_shape, g_shape, 2, True, False)
+    assert pw is pwk._wgrad_plan(tuple(x_shape), tuple(g_shape), 2, True,
+                                 False)
+    assert pw.blk == blocking.choose_wgrad_blocking(
+        2, 8, 8, 1, 1, 1, 1, 8, 1, 16, prologue=True)
+    assert pw.cols == 8 * 16 and list(pw.ints)[9:12] == [1, 1, 1]
