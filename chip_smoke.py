@@ -12,7 +12,10 @@ and no phase catches its own failure:
    started together; sm_90a), printing each kernel's registers and spills,
    and the count of ``HGMMA`` (wgmma) instructions in each function of the
    flash-attention library's SASS where the toolkit has ``cuobjdump``: the
-   bf16 kernel must have some; each instance of the two phase-split dgrad
+   bf16 kernel and the f32 tensor-core kernel (``flash_fwd_tf32``) must
+   have some, and every instance of the latter and of the depthwise wgrad
+   (``depthwise_wgrad_kernel``) spill nothing; each instance of the two
+   phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
    spill nothing, and each instance of the two wgrad kernels
    (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
@@ -85,8 +88,9 @@ and no phase catches its own failure:
 12. the separable backward kernels against their plain versions at batch
     32 on every distinct MobileNet shape (both wgrads against f64 sums and
     twice, bit for bit, and their folded split sums as phase 7's), the
-    depthwise dgrad's other paths (the tap loop at dilation 2, stride 3 and
-    5x5, Cb = 3, a pencil of 6, pads (1, 1) at stride 2), and the autograd
+    depthwise dgrad's and wgrad's other paths (the tap loop at dilation 2,
+    stride 3 and 5x5, Cb = 3, a pencil of 6, pads (1, 1) and (0, 1) at
+    stride 2; the wgrad as at the MobileNet shapes), and the autograd
     path of a small gelu block with a residual against torch autograd
     through the plain forward;
 13. the fourth main path: three AdamW steps of the full-width MobileNet v1
@@ -101,7 +105,8 @@ and no phase catches its own failure:
     tensor-core MACs their tiles issue and the padding share; the pointwise
     wgrad's likewise, its kernel library's plan checked against the
     model's; each wgrad's split sum and the rows its summing CTA reads; the
-    depthwise dgrad's phases and the taps it runs); the train
+    depthwise dgrad's phases and the taps it runs, the depthwise wgrad's
+    items and items a CTA); the train
     step against the plain trainer's, and one kernel step under
     ``torch.profiler``: its device-busy share and kernels by device time;
     the step's peak device memory beside the bytes it must hold;
@@ -130,12 +135,16 @@ and no phase catches its own failure:
     it must hold;
 18. the language models' kernels against their plain versions: flash
     attention (``csrc/flash_attention.cu``) at h2o-danube-1.8b's prefill
-    shape (B 2, S 2048, 32 q-heads over 8 KV heads, Dh 80) in f32 and bf16
-    (bf16 on the tensor-core kernel), a window that bites (S 1024, window
-    256), softcap 50, non-causal, MQA, Dh 128, deepseek-coder's grouping (G
-    7, Dh 128, bf16), ragged S 1000, ``kv_valid`` with positions that are
-    not ``arange``, and the TPU kernel's ``[B, H, S, Dh]`` entry on strided
-    views; the causal conv1d (``csrc/conv1d_depthwise.cu``) at
+    shape (B 2, S 2048, 32 q-heads over 8 KV heads, Dh 80) in f32 and bf16,
+    a window that bites (S 1024, window 256), softcap 50, non-causal, MQA,
+    Dh 128, deepseek-coder's grouping (G 7, Dh 128, bf16), ragged S 1000,
+    ``kv_valid`` with positions that are not ``arange``, f32 past the
+    tensor-core kernel (Dh 256 with ``kv_valid`` and a window, and K/V
+    expanded over the KV heads with stride 0), and the TPU kernel's ``[B, H,
+    S, Dh]`` entry on strided views in bf16 and f32, each line naming the
+    kernel that ran, as the wrapper counted its launch (bf16, f32 ``tf32``
+    on the tensor cores, ``fma`` on CUDA cores); it fails unless all three
+    ran; the causal conv1d (``csrc/conv1d_depthwise.cu``) at
     mamba2-780m's shape (B 2, L 2048, 3328 channels, K 4, bias) on the
     strided ``in_proj`` slice, a contiguous tensor, a ragged L and the
     blocked layout, f32 and bf16;
@@ -165,9 +174,11 @@ and no phase catches its own failure:
     reference's (both 0);
 21. times: each kernel at its model's shape, eager and as a CUDA-graph
     replay, beside its plain version, the library call
-    (``scaled_dot_product_attention``, ``F.conv1d``) and the bound (flash:
-    the function's 4 Dh FLOPs an unmasked pair; for bf16 the 6 Dh that
-    its split P @ V executes is printed beside it); per
+    (``scaled_dot_product_attention``, the faster of GQA and K/V repeated
+    beforehand, both printed; ``F.conv1d``) and the bound (flash:
+    the function's 4 Dh FLOPs an unmasked pair, in f32 as three TF32
+    products with the f32 FMA bound beside it; for bf16 the 6 Dh that its
+    split P @ V executes is printed beside it); per
     model, prefill ms and tokens/s in f32 and bf16, the plain path's
     prefill, decode ms a step at batch 4, and peak device memory beside
     the parameter and cache bytes.
@@ -262,6 +273,8 @@ FLASH_SOURCE = "src/repro_torch/csrc/flash_attention.cu"
 CONV1D_SOURCE = "src/repro_torch/csrc/conv1d_depthwise.cu"
 TPU_FLASH = "src/repro/kernels/flash_attention.py:33"
 FLASH_BF16_KERNEL = "flash_fwd_wgmma"    # the bf16 kernel's name
+FLASH_F32_KERNEL = "flash_fwd_tf32"      # the f32 tensor-core kernel's
+DW_WGRAD_KERNEL = "depthwise_wgrad_kernel"
 TPU_CONV1D = "src/repro/kernels/conv1d_depthwise.py:27"
 LM_BATCH, LM_SEQ = 2, 2048             # the prefill: batch 2, 2048 tokens
 SERVE_BATCH, SERVE_CACHE = 4, 128      # the batcher's slots and cache
@@ -659,9 +672,11 @@ def separable_split_sum(leg: str, n: int, ci: int, co: int, ho: int,
                                            choose_wgrad_blocking)
     cb, cob = min(ci, 128), min(co, 128)
     if leg == "dw":
-        splits = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3,
-                                                 3, s).splits
-        columns, floats = ci // cb, 9 * cb
+        # a column is a (channel block, lane group): its tap sums and db
+        blk = choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb, 3, 3,
+                                              s)
+        splits = blk.splits
+        columns, floats = blk.columns(ci // cb, cb), 10 * blk.lanes
     else:
         blk = choose_wgrad_blocking(n, ho, ho, 1, 1, 1, ci // cb, cb,
                                     co // cob, cob, prologue=True)
@@ -1138,13 +1153,14 @@ def mobilenet_phases(args, dev, t_start):
             compare_scaled(f"dw wgrad db {tag}", db, want_db, abs_db,
                            WGRAD_REL)))
         del dw, db, dw2, db2, want_dw, want_db, abs_dw, abs_db, dz
-    # the depthwise dgrad's other paths: the tap loop (dilation 2, stride 3,
-    # 5x5), Cb = 3 (4-byte copies) at stride 2, a pencil of 6, TF-SAME pads
-    # (1, 1) at stride 2
+    # the depthwise dgrad's and wgrad's other paths: the tap loop (dilation
+    # 2, stride 3, 5x5), Cb = 3 (4-byte copies) at stride 2, a pencil of 6,
+    # TF-SAME pads (1, 1) and (0, 1) at stride 2
     for nn, c, h, cb, s, dil, hf, act in (
             (2, 24, 13, 8, 1, 2, 3, "gelu"), (2, 16, 11, 8, 3, 1, 3, "relu"),
             (2, 16, 12, 16, 1, 1, 5, "gelu"), (2, 6, 9, 3, 2, 1, 3, "relu"),
-            (2, 12, 10, 6, 1, 1, 3, None), (2, 32, 7, 32, 2, 1, 3, "gelu")):
+            (2, 12, 10, 6, 1, 1, 3, None), (2, 32, 7, 32, 2, 1, 3, "gelu"),
+            (2, 64, 12, 64, 2, 1, 3, "relu")):
         x = torch.randn((nn, c // cb, h, h, cb), device=dev, generator=gen)
         w = torch.randn((c // cb, 1, hf, hf, 1, cb), device=dev,
                         generator=gen) / hf
@@ -1156,9 +1172,34 @@ def mobilenet_phases(args, dev, t_start):
                                          groups=c, dilation=dil)
         got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", zz, act, dil)
         torch.cuda.synchronize()
-        track("conv2d_depthwise_dgrad", compare(
-            f"dw dgrad {c} Cb={cb} {h}x{h} {hf}x{hf} s{s} dilation {dil} "
-            f"n{nn} {act}", got, want, **TOL))
+        tag = (f"{c} Cb={cb} {h}x{h} {hf}x{hf} s{s} dilation {dil} n{nn} "
+               f"{act}")
+        track("conv2d_depthwise_dgrad", compare(f"dw dgrad {tag}", got, want,
+                                                **TOL))
+        x = torch.randn(x.shape, device=dev, generator=gen)
+        dw, db = dwk.depthwise_wgrad(x, g, hf, hf, s, "SAME", zz, act, True,
+                                     dil)
+        dw2, db2 = dwk.depthwise_wgrad(x, g, hf, hf, s, "SAME", zz, act,
+                                       True, dil)
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"dw wgrad {tag}: two runs differ")
+        check_fold(f"dw wgrad {tag}", dwk.depthwise_wgrad_partials(
+            x, g, hf, hf, s, "SAME", zz, act, True, dil), (dw, db))
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), g.double(), hf, hf, s, "SAME",
+            None if zz is None else zz.double(), act, True, groups=c,
+            dilation=dil)
+        dz = g if zz is None else conv2d_common.cotangent_prologue(g, zz,
+                                                                   act)
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), hf, hf, s, "SAME",
+            with_db=True, groups=c, dilation=dil)
+        track("conv2d_depthwise_wgrad", max(
+            compare_scaled(f"dw wgrad dw {tag} (2 runs identical)", dw,
+                           want_dw, abs_dw, WGRAD_REL),
+            compare_scaled(f"dw wgrad db {tag}", db, want_db, abs_db,
+                           WGRAD_REL)))
     for ci, co, h in sorted({(ci, co, -(-h // s))
                              for ci, co, s, h in train_blocks}):
         x, w, b, _ = pw_operands(n, ci, co, h)
@@ -1446,6 +1487,11 @@ def mobilenet_phases(args, dev, t_start):
                 if kind == "wgrad":
                     extra += "; " + separable_split_sum(leg, n, ci, co, ho,
                                                         s)
+                if leg == "dw" and kind == "wgrad":
+                    wb = choose_depthwise_wgrad_blocking(
+                        n, ci // min(ci, 128), ho, ho, min(ci, 128), 3, 3, s)
+                    extra += (f"; items {wb.hob}x{wb.wob} over {wb.lanes} "
+                              f"lanes, {wb.per_column / wb.splits:.2f} a CTA")
                 if leg == "dw" and kind == "dgrad":
                     phases, taps, positions = dw_taps[key]
                     dw_taps_sum[0] += taps
@@ -2128,6 +2174,19 @@ def lm_phases(args, dev, t_start):
     def record(name, label, got, want):
         err[name] = max(err[name], compare_lm(label, got, want))
 
+    def launched(fn):
+        """``fn()`` and the flash kernel it launched, read from the
+        wrapper's counts by kernel (exactly one launch)."""
+        before = dict(fak.KERNEL_LAUNCHES)
+        out = fn()
+        ran = [k for k, n in fak.KERNEL_LAUNCHES.items()
+               if n != before[k]]
+        if len(ran) != 1 or fak.KERNEL_LAUNCHES[ran[0]] != \
+                before[ran[0]] + 1:
+            fail(f"one flash launch expected, the counts moved from "
+                 f"{before} to {fak.KERNEL_LAUNCHES}")
+        return out, ran[0]
+
     # -- 18. the kernels vs their plain versions ----------------------------
     danube, mamba = get_config("h2o-danube-1.8b"), get_config("mamba2-780m")
     hq, hkv, dh = danube.n_heads, danube.n_kv_heads, danube.head_dim
@@ -2162,7 +2221,11 @@ def lm_phases(args, dev, t_start):
          1, 6, 128, torch.bfloat16, True, 64, None, (300, 150), 2),
         ("rows that see no key: kv_valid, window, positions 2i+7", 2, 260,
          1, 6, 128, torch.float32, True, 64, None, (300, 150), 2),
+        # past the tensor-core kernel's head dims: f32 on CUDA cores
+        ("Dh 256: kv_valid, window 128", 2, 512, 2, 2, 256, torch.float32,
+         True, 128, None, (512, 300), 0),
     ]
+    seen = set()              # the flash kernels phase 18 launched
     with torch.no_grad():
         for (label, b, s, nkv, g, d, dtype, causal, window, cap, kv_valid,
              off) in flash_cases:
@@ -2177,20 +2240,41 @@ def lm_phases(args, dev, t_start):
                       window=window, cap=cap, scale=d ** -0.5,
                       kv_valid=None if kv_valid is None else
                       torch.tensor(kv_valid, device=dev))
-            got = fak.attend(q, k, v, **kw)
+            got, ran = launched(lambda: fak.attend(q, k, v, **kw))
             want = fak.attend_plain(q, k, v, **kw)
             torch.cuda.synchronize()
+            seen.add(ran)
             record("flash_attention",
                    f"flash {label} B{b} S{s} KV{nkv} G{g} Dh{d} "
-                   f"{str(dtype)[6:]}", got, want)
+                   f"{str(dtype)[6:]} on {ran}", got, want)
             del q, k, v, got, want
+        # MQA's one K/V head expanded over danube's 8 (kv-head stride 0,
+        # no TMA map of it): f32 on CUDA cores
+        q = randn((1, 1024, hkv, hq // hkv, dh), torch.float32)
+        k, v = (randn((1, 1024, 1, dh), torch.float32).expand(
+            1, 1024, hkv, dh) for _ in range(2))
+        pos = torch.arange(1024, device=dev, dtype=torch.int32)[None]
+        kw = dict(q_positions=pos, kv_positions=pos, scale=dh ** -0.5)
+        got, ran = launched(lambda: fak.attend(q, k, v, **kw))
+        seen.add(ran)
+        record("flash_attention", f"flash expanded K/V (kv-head stride 0) "
+               f"B1 S1024 KV{hkv} G{hq // hkv} Dh{dh} float32 on {ran}",
+               got, fak.attend_plain(q, k, v, **kw))
+        del q, k, v, got
         # the TPU kernel's [B, H, S, Dh] entry, on strided views
-        q = randn((LM_BATCH, 512, hq, dh), torch.bfloat16).transpose(1, 2)
-        k = randn((LM_BATCH, 512, hkv, dh), torch.bfloat16).transpose(1, 2)
-        v = randn((LM_BATCH, 512, hkv, dh), torch.bfloat16).transpose(1, 2)
-        record("flash_attention", "flash_attention [B,H,S,Dh] views bf16",
-               fak.flash_attention(q, k, v, scale=dh ** -0.5),
-               fak.flash_attention_plain(q, k, v, scale=dh ** -0.5))
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn((LM_BATCH, 512, hq, dh), dtype).transpose(1, 2)
+            k = randn((LM_BATCH, 512, hkv, dh), dtype).transpose(1, 2)
+            v = randn((LM_BATCH, 512, hkv, dh), dtype).transpose(1, 2)
+            got, ran = launched(
+                lambda: fak.flash_attention(q, k, v, scale=dh ** -0.5))
+            seen.add(ran)
+            record("flash_attention", f"flash_attention [B,H,S,Dh] views "
+                   f"{str(dtype)[6:]} on {ran}", got,
+                   fak.flash_attention_plain(q, k, v, scale=dh ** -0.5))
+        if seen != set(fak.KERNEL_CODES):
+            fail(f"phase 18 launched the flash kernels {sorted(seen)}, not "
+                 f"all of {sorted(fak.KERNEL_CODES)}")
 
         cd, kt = mamba.ssm.conv_dim(mamba.d_model), mamba.ssm.d_conv
         di = mamba.ssm.d_inner(mamba.d_model)
@@ -2594,43 +2678,53 @@ def lm_phases(args, dev, t_start):
             pos = torch.arange(s, device=dev, dtype=torch.int32)[None].expand(
                 b, s).contiguous()
             kw = dict(q_positions=pos, kv_positions=pos, scale=dh ** -0.5)
-            # SDPA on [B, H, S, Dh] views of the same tensors
+            # SDPA on [B, H, S, Dh] views of the same tensors, with GQA
+            # (enable_gqa) and on K/V repeated to H heads before timing;
+            # each backend runs what it takes, and the faster is the
+            # library's time
             qh = q.reshape(b, s, hq, dh).transpose(1, 2)
             kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-
-            def library():
-                return F.scaled_dot_product_attention(
+            kr = kh.repeat_interleave(hq // hkv, dim=1)
+            vr = vh.repeat_interleave(hq // hkv, dim=1)
+            sdpa = {"K/V repeated": lambda: F.scaled_dot_product_attention(
+                qh, kr, vr, is_causal=True, scale=dh ** -0.5)}
+            try:
+                F.scaled_dot_product_attention(
                     qh, kh, vh, is_causal=True, scale=dh ** -0.5,
                     enable_gqa=True)
-            try:
-                library()
+                sdpa["GQA"] = lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True, scale=dh ** -0.5,
+                    enable_gqa=True)
             except TypeError:            # a torch without enable_gqa
-                kh = kh.repeat_interleave(hq // hkv, dim=1)
-                vh = vh.repeat_interleave(hq // hkv, dim=1)
-                print("[lm-time] SDPA has no enable_gqa here: K/V repeated "
-                      "before timing")
-
-                def library():
-                    return F.scaled_dot_product_attention(
-                        qh, kh, vh, is_causal=True, scale=dh ** -0.5)
+                print("[lm-time] SDPA has no enable_gqa here")
+            sdpa_ms = {k_: time_ms(fn) for k_, fn in sdpa.items()}
+            print(f"[lm-time] SDPA {str(dtype)[6:]} at danube's prefill: "
+                  + " ".join(f"{k_} {v_:.4f} ms" for k_, v_ in
+                             sdpa_ms.items()), flush=True)
             pairs = s * (s + 1) // 2
             nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
             # the function's 4 Dh FLOPs an unmasked pair (q.k and p v);
             # the bf16 kernel runs p v twice, on p's two bf16 halves, and
-            # so executes 6 Dh, printed beside the bound
-            t_ops = 4 * b * hq * dh * pairs / peak
-            t_run = 6 * b * hq * dh * pairs / peak
+            # so executes 6 Dh, printed beside the bound; f32 runs on the
+            # tensor cores as three TF32 products (the f32 FMA bound beside)
+            flops = 4 * b * hq * dh * pairs
             t_bytes = nbytes / HBM_BYTES_PER_S
+            if dtype == torch.bfloat16:
+                t_ops = flops / peak
+                note = (f" (the split P @ V executes 6 Dh FLOPs a pair: "
+                        f"{max(1.5 * t_ops, t_bytes) * 1e3:.4f} ms at peak)")
+            else:
+                t_ops = 3 * flops / PEAK_TF32_FLOPS
+                t_fma = max(flops / peak, t_bytes)
+                _, ran = launched(lambda: fak.attend(q, k, v, **kw))
+                note = f" (3xTF32; f32 FMA {t_fma * 1e3:.4f} ms; on {ran})"
             rows[("flash_attention", dtype)] = (
                 time_ms(lambda: fak.attend(q, k, v, **kw)),
                 graph_ms(lambda: fak.attend(q, k, v, **kw)),
                 time_ms(lambda: fak.attend_plain(q, k, v, **kw), iters=3),
-                time_ms(library), max(t_ops, t_bytes) * 1e3,
-                "operations" if t_ops >= t_bytes else "bytes",
-                "" if dtype != torch.bfloat16 else
-                f" (the split P @ V executes 6 Dh FLOPs a pair: "
-                f"{max(t_run, t_bytes) * 1e3:.4f} ms at peak)")
-            del q, k, v, qh, kh, vh
+                min(sdpa_ms.values()), max(t_ops, t_bytes) * 1e3,
+                "operations" if t_ops >= t_bytes else "bytes", note)
+            del q, k, v, qh, kh, vh, kr, vr, sdpa
 
             zx = randn((b, s, width), dtype)
             x = zx[:, :, di:di + cd]
@@ -2740,10 +2834,25 @@ def main(argv=None) -> int:
     else:
         for fn, (n, _) in hgmma.items():
             print(f"[build] HGMMA instructions {n:4d} in {fn}")
-        wgmma = {fn: n for fn, (n, _) in hgmma.items()
-                 if FLASH_BF16_KERNEL in fn}
-        if not wgmma or not all(wgmma.values()):
-            fail(f"the bf16 flash kernel's SASS holds no HGMMA: {wgmma}")
+        for kernel in (FLASH_BF16_KERNEL, FLASH_F32_KERNEL):
+            wgmma = {fn: n for fn, (n, _) in hgmma.items() if kernel in fn}
+            if not wgmma or not all(wgmma.values()):
+                fail(f"the flash kernel {kernel}'s SASS holds no HGMMA: "
+                     f"{wgmma}")
+    # the f32 flash kernel on the tensor cores and the depthwise wgrad:
+    # registers and no spill in every compiled instance
+    for name, kernel in (("flash_attention", FLASH_F32_KERNEL),
+                         ("conv2d_depthwise", DW_WGRAD_KERNEL)):
+        res = next(r for r in built if r.name == name)
+        ptx = {fn: v for fn, v in ptxas_report(res.log).items()
+               if kernel in fn}
+        if not ptx:
+            fail(f"{name}: no {kernel} instance in the ptxas report")
+        for fn, (regs, st, ld) in sorted(ptx.items()):
+            print(f"[build] {name} {fn}: {regs} registers, spill stores "
+                  f"{st} B, spill loads {ld} B")
+            if st or ld:
+                fail(f"{fn} spills ({st} B stores, {ld} B loads)")
     # the phase-split dgrads and the wgrads: tensor-core instructions and no
     # spills in every compiled instance (the main paths take lanes 64 and
     # 128)

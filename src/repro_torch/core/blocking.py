@@ -39,9 +39,10 @@ The separable family has choosers of its own: ``choose_pointwise_blocking``
 (the forward's tensor-core tile of ``csrc/conv2d_pointwise.cu``, by a cost
 model like the dgrad's; the pointwise dgrad and wgrad are the dense dgrad
 and wgrad tiles at 1x1, on their choosers), and for the depthwise FMA
-kernels of ``csrc/conv2d_depthwise.cu`` ``choose_depthwise_blocking`` and
+kernels of ``csrc/conv2d_depthwise.cu`` ``choose_depthwise_blocking``,
 ``choose_depthwise_dgrad_blocking`` (the forward's and the dgrad's items,
-walked by a persistent grid) and ``choose_depthwise_wgrad_blocking``.  The
+walked by a persistent grid) and ``choose_depthwise_wgrad_blocking`` (the
+same items over the output, walked in shares of each column).  The
 last three fit a CTA of ``MachineModel.threads`` threads in
 ``smem_budget`` bytes, two CTAs an SM; each sizes its tiles so that the
 grid fills the card where the map allows it (``MachineModel.wave``), and
@@ -87,6 +88,7 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "choose_depthwise_dgrad_blocking", "depthwise_dgrad_taps",
            "DepthwiseWgradBlocking",
            "depthwise_wgrad_smem_bytes", "choose_depthwise_wgrad_blocking",
+           "depthwise_wgrad_candidates",
            "choose_stream_fwd_blocking", "choose_stream_dgrad_blocking",
            "choose_stream_wgrad_blocking"]
 
@@ -1162,20 +1164,10 @@ def _depthwise_groups(cb: int, machine: MachineModel) -> int:
     return machine.threads // cb
 
 
-def _depthwise_items(n: int, cblk: int, h: int, w: int, cb: int, window,
-                     smem, machine: MachineModel, what: str
-                     ) -> DepthwiseBlocking:
-    """The item walk of the depthwise forward and dgrad over an ``h x w``
-    map: tiles dividing it, over the whole pencil or a lane split of it
-    (``DW_LANE_SPLITS``); ``window(hob, wob)`` is a tile's staged window and
-    ``smem(hwin, wwin, lanes)`` the bytes of its ring, which must fit the
-    budget.  A thread holds one lane and up to ``DW_THREAD_POSITIONS``
-    positions of it.  Among the items that give every position group a
-    position, where some count reaches ``DW_ITEMS_PER_CTA`` per resident
-    CTA (``machine.wave``) the largest item (positions x lanes) of those is
-    taken, ties to the least staged cells a position, then the wider tile;
-    where none does, the most items.  The grid is the card's resident CTAs,
-    or the items where they are fewer."""
+def _depthwise_fits(n: int, cblk: int, h: int, w: int, cb: int, window,
+                    smem, machine: MachineModel) -> list:
+    """Every item ``_depthwise_items`` weighs, as ``(hob, wob, (hwin,
+    wwin), lanes, items)``."""
     _depthwise_groups(cb, machine)
     splits = [cb] + [s for s in DW_LANE_SPLITS if s < cb and cb % s == 0]
     fits = []
@@ -1184,10 +1176,28 @@ def _depthwise_items(n: int, cblk: int, h: int, w: int, cb: int, window,
         for hob in divisors(h):
             for wob in divisors(w):
                 win = window(hob, wob)
-                if hob * wob <= cap and smem(*win, lanes) \
+                if hob * wob <= cap and smem(hob, wob, *win, lanes) \
                         <= machine.smem_budget:
                     items = n * cblk * (cb // lanes) * (h // hob) * (w // wob)
                     fits.append((hob, wob, win, lanes, items))
+    return fits
+
+
+def _depthwise_items(n: int, cblk: int, h: int, w: int, cb: int, window,
+                     smem, machine: MachineModel, what: str
+                     ) -> DepthwiseBlocking:
+    """The item walk of the depthwise forward and dgrad over an ``h x w``
+    map: tiles dividing it, over the whole pencil or a lane split of it
+    (``DW_LANE_SPLITS``); ``window(hob, wob)`` is a tile's staged window and
+    ``smem(hob, wob, hwin, wwin, lanes)`` the bytes of its ring, which must
+    fit the budget.  A thread holds one lane and up to ``DW_THREAD_POSITIONS``
+    positions of it.  Among the items that give every position group a
+    position, where some count reaches ``DW_ITEMS_PER_CTA`` per resident
+    CTA (``machine.wave``) the largest item (positions x lanes) of those is
+    taken, ties to the least staged cells a position, then the wider tile;
+    where none does, the most items.  The grid is the card's resident CTAs,
+    or the items where they are fewer."""
+    fits = _depthwise_fits(n, cblk, h, w, cb, window, smem, machine)
     if not fits:
         raise SmemMisfitError(
             f"no {what} fits: Cb={cb} needs more than {machine.smem_budget} "
@@ -1223,7 +1233,7 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
     return _depthwise_items(
         n, cblk, ho, wo, cb,
         lambda hob, wob: halo_dims(hob, wob, hf, wf, stride, dilation),
-        lambda hwin, wwin, lanes: depthwise_fwd_smem_bytes(
+        lambda hob, wob, hwin, wwin, lanes: depthwise_fwd_smem_bytes(
             hwin, wwin, lanes, machine, gap),
         machine, f"depthwise tile (filter {hf}x{wf}, stride {stride}, "
         f"dilation {dilation})")
@@ -1257,9 +1267,10 @@ def depthwise_dgrad_smem_bytes(hwin: int, wwin: int, lanes: int,
 
 def depthwise_dgrad_variant(hf: int, wf: int, stride: int,
                             dilation) -> int:
-    """The dgrad kernel's variant: 1 or 2 for a 3x3 filter at dilation 1
-    and that stride (the register path; the phase split), 0 for any other
-    filter, stride and dilation (the tap loop)."""
+    """The dgrad's and the wgrad's kernel variant: 1 or 2 for a 3x3 filter
+    at dilation 1 and that stride (the register path; the dgrad's phase
+    split, the wgrad's runs of a row), 0 for any other filter, stride and
+    dilation (the tap loop)."""
     fast = (hf, wf, tuple(dilation)) == (3, 3, (1, 1))
     return stride if fast and stride in (1, 2) else 0
 
@@ -1282,7 +1293,7 @@ def choose_depthwise_dgrad_blocking(n: int, cblk: int, hi: int, wi: int,
         n, cblk, hi, wi, cb,
         lambda hob, wob: depthwise_dgrad_window(hob, wob, hi, wi, hf, wf,
                                                 stride, dilation, pads),
-        lambda hwin, wwin, lanes: depthwise_dgrad_smem_bytes(
+        lambda hob, wob, hwin, wwin, lanes: depthwise_dgrad_smem_bytes(
             hwin, wwin, lanes, prologue),
         machine, f"depthwise dgrad tile (filter {hf}x{wf}, stride {stride}, "
         f"dilation {dilation})")
@@ -1308,67 +1319,101 @@ def depthwise_dgrad_taps(hi: int, wi: int, hf: int, wf: int, stride: int,
 
 @dataclasses.dataclass(frozen=True)
 class DepthwiseWgradBlocking:
-    """Launch parameters of the depthwise wgrad: a CTA holds one pencil's
-    ``[Hf*Wf, Cb]`` tap sums, a lane and its taps per thread, and walks a
-    contiguous share of the ``tiles`` position tiles (``hob x wob`` outputs
-    of one image); ``splits`` shares per pencil block.  The position
-    groups' sums meet in shared memory in group order; the shares' in a
-    ``[splits, |dw| + |db|]`` workspace."""
+    """Launch parameters of the depthwise wgrad: an item is a ``hob x wob``
+    tile of the output positions of one image over ``lanes`` lanes of one
+    channel block's pencil, staged as its ``hwin x wwin`` x window beside
+    its g (and z) tile.  A column is a (channel block, lane group): its
+    ``per_column`` items (images x tiles) are walked in ``splits``
+    contiguous shares, one CTA each, two items in flight a CTA; a share's
+    sums go to one row of the ``[splits, |dw| + |db|]`` workspace, which the
+    column's last CTA adds in split order."""
     hob: int
     wob: int
-    tiles: int
+    hwin: int
+    wwin: int
+    lanes: int
+    per_column: int
     splits: int
 
+    def columns(self, cblk: int, cb: int) -> int:
+        """(channel block, lane group) columns of a ``cblk x cb`` map."""
+        return cblk * (cb // self.lanes)
 
-DW_WGRAD_MAX_POSITIONS = 256
 
-
-def depthwise_wgrad_smem_bytes(hob: int, wob: int, cb: int, hf: int, wf: int,
-                               stride: int, dilation=(1, 1),
+def depthwise_wgrad_smem_bytes(hwin: int, wwin: int, hob: int, wob: int,
+                               lanes: int, taps: int, prologue: bool,
                                machine: MachineModel = H100_SXM) -> int:
-    """The halo'd f32 x window (rounded up to 16 bytes) and the cotangent
-    tile, or the position groups' ``[Hf*Wf + 1, Cb]`` partial sums when
-    those are larger (they reuse the staging buffer)."""
-    hib, wib = halo_dims(hob, wob, hf, wf, stride, dilation)
-    stage = -(-hib * wib * cb // 4) * 4 + hob * wob * cb
-    red = _depthwise_groups(cb, machine) * (hf * wf + 1) * cb
-    return 4 * max(stage, red)
+    """The wgrad's ring: two slots, each an item's x window ``[hwin, wwin,
+    lanes]`` and its g tile ``[hob, wob, lanes]`` (with the prologue z's
+    beside it), each rounded up to 16 bytes; or the position groups'
+    ``[threads / lanes, taps + 1, lanes]`` sums where those are larger
+    (they reuse the ring once the walk is done)."""
+    slot = _round4(hwin * wwin * lanes) \
+        + (2 if prologue else 1) * _round4(hob * wob * lanes)
+    red = (machine.threads // lanes) * (taps + 1) * lanes
+    return 4 * max(2 * slot, red)
 
 
 @functools.lru_cache(maxsize=4096)
 def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
                                     cb: int, hf: int, wf: int,
                                     stride: int = 1, dilation=(1, 1),
+                                    prologue: bool = True,
                                     machine: MachineModel = H100_SXM
                                     ) -> DepthwiseWgradBlocking:
-    """Tile the depthwise weight gradient: the ``hob x wob`` (dividing ``Ho
-    x Wo``) with the most positions, up to ``DW_WGRAD_MAX_POSITIONS``,
-    that fits the budget, ties to the smaller window; splits as the dense
-    wgrad's."""
-    if hf * wf > DW_MAX_TAPS:
+    """Tile the depthwise weight gradient as the forward's items
+    (``_depthwise_items``) over its ``ho x wo`` output: a tile's window is
+    its halo'd input, staged with its g (and with the ``prologue`` z) tile,
+    two items' worth (or the position groups' sums) in a CTA's shared
+    memory.  Each column's items go to as many contiguous shares as one
+    wave of CTAs holds, or one CTA an SM where that would give a column's
+    summing CTA too many rows (``_splits``)."""
+    window, smem = _depthwise_wgrad_rules(hf, wf, stride, dilation,
+                                          prologue, machine)
+    items = _depthwise_items(
+        n, cblk, ho, wo, cb, window, smem, machine,
+        f"depthwise wgrad tile (filter {hf}x{wf}, stride {stride}, "
+        f"dilation {tuple(dilation)})")
+    return _depthwise_wgrad_shares(n, cblk, ho, wo, cb, items.hob,
+                                   items.wob, items.hwin, items.wwin,
+                                   items.lanes, hf * wf, machine)
+
+
+def _depthwise_wgrad_rules(hf: int, wf: int, stride: int, dilation,
+                           prologue: bool, machine: MachineModel):
+    """The wgrad's ``window`` and ``smem`` rules for ``_depthwise_fits``."""
+    taps = hf * wf
+    if taps > DW_MAX_TAPS:
         raise ValueError(f"filter {hf}x{wf} has more than {DW_MAX_TAPS} taps")
-    best = None
-    for h in divisors(ho):
-        for w in divisors(wo):
-            if h * w > DW_WGRAD_MAX_POSITIONS:
-                continue
-            smem = depthwise_wgrad_smem_bytes(h, w, cb, hf, wf, stride,
-                                              dilation, machine)
-            if smem > machine.smem_budget:
-                continue
-            key = (h * w, -smem)
-            if best is None or key > best[0]:
-                best = (key, h, w)
-    if best is None:
-        raise SmemMisfitError(
-            f"no depthwise wgrad tile fits: Cb={cb}, filter {hf}x{wf}, "
-            f"stride {stride} needs more than {machine.smem_budget} bytes")
-    _, h, w = best
-    tiles = n * (ho // h) * (wo // w)
-    return DepthwiseWgradBlocking(hob=h, wob=w, tiles=tiles,
-                                  splits=_splits(tiles, cblk,
-                                                 4 * (hf * wf + 1) * cb,
-                                                 machine))
+    dilation = tuple(dilation)
+    return (lambda hob, wob: halo_dims(hob, wob, hf, wf, stride, dilation),
+            lambda hob, wob, hwin, wwin, lanes: depthwise_wgrad_smem_bytes(
+                hwin, wwin, hob, wob, lanes, taps, prologue, machine))
+
+
+def _depthwise_wgrad_shares(n, cblk, ho, wo, cb, hob, wob, hwin, wwin,
+                            lanes, taps, machine) -> DepthwiseWgradBlocking:
+    per_column = n * (ho // hob) * (wo // wob)
+    columns = cblk * (cb // lanes)
+    return DepthwiseWgradBlocking(
+        hob=hob, wob=wob, hwin=hwin, wwin=wwin, lanes=lanes,
+        per_column=per_column,
+        splits=_splits(per_column, columns, 4 * (taps + 1) * lanes, machine))
+
+
+def depthwise_wgrad_candidates(n: int, cblk: int, ho: int, wo: int, cb: int,
+                               hf: int, wf: int, stride: int = 1,
+                               dilation=(1, 1), prologue: bool = True,
+                               machine: MachineModel = H100_SXM
+                               ) -> list[DepthwiseWgradBlocking]:
+    """Every item the wgrad's chooser weighs, with its shares
+    (``launch/separable_bwd_ab.py`` times them)."""
+    window, smem = _depthwise_wgrad_rules(hf, wf, stride, dilation,
+                                          prologue, machine)
+    return [_depthwise_wgrad_shares(n, cblk, ho, wo, cb, hob, wob, *win,
+                                    lanes, hf * wf, machine)
+            for hob, wob, win, lanes, _ in _depthwise_fits(
+                n, cblk, ho, wo, cb, window, smem, machine)]
 
 
 # ---------------------------------------------------------------------------

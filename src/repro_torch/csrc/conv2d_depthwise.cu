@@ -72,13 +72,25 @@
 // stride-dilated or padded copy of the cotangent or of z exists and dx is
 // written at the input's shape.
 //
-// wgrad: the TPU reduces (N, Ho/Hob, Wo/Wob) into a resident [Hf*Wf, Cb]
-// block.  Here a CTA owns one channel block's [Hf*Wf, Cb] sums and walks a
-// contiguous share of the position tiles (`splits` shares), staging each
-// tile's x window and dz tile; a thread holds its lane's tap sums and db in
-// registers, the position groups' sums meet in shared memory in group order
-// into the share's row of the [splits, |dw| + |db|] f32 workspace, and the
-// channel block's last CTA sums the rows in split order into dw and db
+// wgrad (`depthwise_wgrad_kernel<kS>`): the TPU reduces (N, Ho/Hob,
+// Wo/Wob) into a resident [Hf*Wf, Cb] block.  Here the forward's items
+// (tiles of output positions of one image over `lanes` lanes, a pencil split
+// into 64- or 32-lane parts where that fills the card) make the walk: a
+// column is a (channel block, lane group), and each CTA walks a contiguous
+// share of its column's items (`splits` shares), staging each item's x
+// window and its g tile (z beside it with the prologue) by cp.async into one
+// slot of a two-slot ring while the item before runs from the other, cells
+// outside the map zero-filled, each copy by a thread stepping the rows of
+// one (column, lane unit) pair.  dz = g * act'(z) is formed once per staged
+// cell in a pass over the landed slot.  At 3x3, dilation 1 and stride 1 or
+// 2 (every MobileNet leg) a thread walks a run of an output row with the x
+// columns of its three tap columns in registers, loading only the columns a
+// step brings (3 x loads and one dz load an output at stride 1, 6 and one
+// at stride 2, not 9 and a division), and keeps its 9 tap sums and db in
+// registers; other filters up to 5x5, strides and dilations take a tap
+// loop (kS 0).  The position groups' sums meet in shared memory in group
+// order into the share's row of the [splits, |dw| + |db|] f32 workspace,
+// and the column's last CTA sums the rows in split order into dw and db
 // (split_sum.cuh).  No sum depends on the order CTAs run in.
 //
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
@@ -134,45 +146,6 @@ __device__ __forceinline__ float prologue(float g, float z, int act) {
 __device__ __forceinline__ int floordiv(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
-}
-
-// Stage the window [hwin, wwin, cb] whose cell (r, col) is map row r0 + r,
-// column c0 + col of `src` ([hs, ws, cb] of one image and channel block),
-// zero outside the map; with z given, dz = g * act'(z).  float4 units when
-// cb is a multiple of 4.
-__device__ __forceinline__ void stage_window(
-    float* dst, const float* src, const float* z, int hs, int ws, int cb,
-    int r0, int c0, int hwin, int wwin, int act) {
-  const bool vec = cb % 4 == 0;
-  const int unit = vec ? 4 : 1;
-  const int units = cb / unit;
-  for (int i = threadIdx.x; i < hwin * wwin * units; i += kThreads) {
-    const int cell = i / units;
-    const int c = (i % units) * unit;
-    const int h = r0 + cell / wwin;
-    const int w = c0 + cell % wwin;
-    float* d = dst + cell * cb + c;
-    if (h < 0 || h >= hs || w < 0 || w >= ws) {
-      for (int e = 0; e < unit; ++e) d[e] = 0.0f;
-      continue;
-    }
-    const size_t o = ((size_t)h * ws + w) * cb + c;
-    if (vec) {
-      float4 v = __ldg(reinterpret_cast<const float4*>(src + o));
-      if (z != nullptr) {
-        const float4 zz = __ldg(reinterpret_cast<const float4*>(z + o));
-        v.x = prologue(v.x, zz.x, act);
-        v.y = prologue(v.y, zz.y, act);
-        v.z = prologue(v.z, zz.z, act);
-        v.w = prologue(v.w, zz.w, act);
-      }
-      *reinterpret_cast<float4*>(d) = v;
-    } else {
-      float v = __ldg(src + o);
-      if (z != nullptr) v = prologue(v, __ldg(z + o), act);
-      *d = v;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -702,113 +675,208 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
 // wgrad
 // ---------------------------------------------------------------------------
 
+// The wgrad's launch geometry, passed by value; its fields are the int array
+// the host builds once per shape (conv2d_depthwise_wgrad).
+struct WgradGeometry {
+  int cblk, cb, hi, wi, ho, wo;   // x at hi x wi; g, z [N, cblk, ho, wo, cb]
+  int hf, wf, stride, dil_h, dil_w, pad_top, pad_left;
+  int hob, wob, hwin, wwin;       // an item's output tile and x window
+  int lanes;       // lanes of the pencil an item covers (divides cb)
+  int per_column;  // items of a (channel block, lane group): images x tiles
+  int splits;      // contiguous shares of a column's items, a CTA each
+  int act;
+  int prologue;    // 1: z is staged beside g and dz = g * act'(z) formed
+  int with_db;
+};
+constexpr int kWgradInts = sizeof(WgradGeometry) / sizeof(int);
+
+// kS: 1 or 2 for a 3x3 filter at dilation 1 and that stride (a run of a
+// row with the three tap columns in registers), 0 for any filter up to 5x5,
+// stride and dilation (a tap loop).
+template <int kS>
 __global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
 depthwise_wgrad_kernel(const float* __restrict__ x,
                        const float* __restrict__ g,
                        const float* __restrict__ z, float* ws, float* out,
-                       int* counters, int n_img, int cblk, int cb, int hi,
-                       int wi, int ho, int wo, int hf, int wf, int stride,
-                       int dil_h, int dil_w, int pad_top, int pad_left,
-                       int hob, int wob, int splits, int act,
-                       int with_db) {
+                       int* counters, WgradGeometry geo) {
   extern __shared__ __align__(16) float smem[];
-  const int split = blockIdx.x;
-  const int c_b = blockIdx.y;
-  const int hib = (hob - 1) * stride + (hf - 1) * dil_h + 1;
-  const int wib = (wob - 1) * stride + (wf - 1) * dil_w + 1;
-  const int tiles_h = ho / hob;
-  const int tiles_w = wo / wob;
-  const int tiles = n_img * tiles_h * tiles_w;
-  const int first = (int)((long long)tiles * split / splits);
-  const int last = (int)((long long)tiles * (split + 1) / splits);
-  const int npos = hob * wob;
-  const int taps = hf * wf;
-
-  const int npg = kThreads / cb;
+  const int L = geo.lanes;
+  const int split = blockIdx.x, column = blockIdx.y;
+  const int groups = geo.cb / L;
+  const int c_b = column / groups;
+  const int lane0 = (column - c_b * groups) * L;
+  const int x_floats = (geo.hwin * geo.wwin * L + 3) & ~3;
+  const int t_floats = (geo.hob * geo.wob * L + 3) & ~3;
+  const int slot_floats = x_floats + (geo.prologue ? 2 : 1) * t_floats;
   const int t = threadIdx.x;
-  const int lane = t % cb;
-  const int pg = t / cb;
+  const int lane = t % L;
+  const int npg = kThreads / L;
+  const int pg = t / L;
   const bool computes = pg < npg;
+  const int taps = geo.hf * geo.wf;
+  const int tiles_w = geo.wo / geo.wob;
+  const int tiles = (geo.ho / geo.hob) * tiles_w;
+  const int first = (int)((long long)geo.per_column * split / geo.splits);
+  const int last = (int)((long long)geo.per_column * (split + 1) / geo.splits);
+  const int rs = geo.wwin * L;
+  // a unit of work: a run of columns of one output row of the item; the
+  // rows split into `segs` runs so that every position group has one
+  const int segs = min(geo.wob, max(1, (npg + geo.hob - 1) / geo.hob));
+  const int run = (geo.wob + segs - 1) / segs;
+  const int units = geo.hob * segs;
 
-  float* x_s = smem;                                   // [hib, wib, cb]
-  float* d_s = smem + ((hib * wib * cb + 3) & ~3);     // [npos, cb]
+  // item `it` of the column: image it / tiles, tile it % tiles; its x
+  // window (zeros outside the map: the pads), g tile and z tile
+  auto stage = [&](float* slot, int it) {
+    const int img = it / tiles, tile = it - img * tiles;
+    const int i0 = tile / tiles_w * geo.hob, j0 = tile % tiles_w * geo.wob;
+    const size_t map = (size_t)img * geo.cblk + c_b;
+    stage_rows(slot, x + map * geo.hi * geo.wi * geo.cb + lane0, x, geo.hi,
+               geo.wi, geo.cb, L, i0 * geo.stride - geo.pad_top,
+               j0 * geo.stride - geo.pad_left, geo.hwin, geo.wwin);
+    const size_t gm = map * geo.ho * geo.wo * geo.cb + lane0;
+    stage_rows(slot + x_floats, g + gm, g, geo.ho, geo.wo, geo.cb, L, i0, j0,
+               geo.hob, geo.wob);
+    if (geo.prologue) {
+      stage_rows(slot + x_floats + t_floats, z + gm, z, geo.ho, geo.wo,
+                 geo.cb, L, i0, j0, geo.hob, geo.wob);
+    }
+  };
 
-  int toff[kMaxTaps];
-  float acc[kMaxTaps];
+  float acc[kS ? 9 : kMaxTaps];
+  int toff[kS ? 1 : kMaxTaps];
 #pragma unroll
-  for (int k = 0; k < kMaxTaps; ++k) {
-    toff[k] = k < taps ? ((k / wf) * dil_h * wib + (k % wf) * dil_w) * cb : 0;
-    acc[k] = 0.0f;
+  for (int q = 0; q < (kS ? 9 : kMaxTaps); ++q) acc[q] = 0.0f;
+  if constexpr (kS == 0) {
+#pragma unroll
+    for (int q = 0; q < kMaxTaps; ++q) {
+      toff[q] = q < taps ? ((q / geo.wf) * geo.dil_h * geo.wwin
+                            + (q % geo.wf) * geo.dil_w) * L
+                         : 0;
+    }
   }
   float dbacc = 0.0f;
 
-  for (int tt = first; tt < last; ++tt) {
-    const int n = tt / (tiles_h * tiles_w);
-    const int ti = (tt / tiles_w) % tiles_h;
-    const int tj = tt % tiles_w;
-    const size_t map = (size_t)(n * cblk + c_b);
-    stage_window(x_s, x + map * hi * wi * cb, nullptr, hi, wi, cb,
-                 ti * hob * stride - pad_top, tj * wob * stride - pad_left,
-                 hib, wib, 0);
-    // the dz tile: the cotangent window of the tile itself, all in the map
-    stage_window(d_s, g + map * ho * wo * cb,
-                 z != nullptr ? z + map * ho * wo * cb : nullptr, ho, wo, cb,
-                 ti * hob, tj * wob, hob, wob, act);
+  if (first < last) stage(smem, first);
+  cp_async_commit();
+  for (int it = first, k = 0; it < last; ++it, ++k) {
+    const int slot = k & 1;
+    if (it + 1 < last) stage(smem + (slot ^ 1) * slot_floats, it + 1);
+    cp_async_commit();
+    cp_async_wait_one();
     __syncthreads();
+
+    const float* xs = smem + slot * slot_floats;
+    float* gs = smem + slot * slot_floats + x_floats;
+    // dz once per staged cell, in place of g
+    if (geo.prologue) {
+      prologue_pass(gs, gs + t_floats, t_floats, geo.act);
+      __syncthreads();
+    }
     if (computes) {
-      for (int p = pg; p < npos; p += npg) {
-        const int ph = p / wob;
-        const int pw = p % wob;
-        const float dv = d_s[p * cb + lane];
-        const int base = (ph * stride * wib + pw * stride) * cb + lane;
+      const float* xw = xs + lane;
+      for (int u = pg; u < units; u += npg) {
+        const int i = u / segs;
+        const int jb = (u - i * segs) * run;
+        const int je = min(geo.wob, jb + run);
+        const float* dzr = gs + (size_t)i * geo.wob * L + lane;
+        if constexpr (kS != 0) {
+          // window rows i*s .. i*s + 2; a[d][e]: tap (d, e)'s x for the
+          // current output
+          const float* rp = xw + (size_t)i * kS * rs;
+          float a[3][3];
+          if (jb < je) {
 #pragma unroll
-        for (int k = 0; k < kMaxTaps; ++k) {
-          if (k == taps) break;
-          acc[k] = fmaf(x_s[base + toff[k]], dv, acc[k]);
+            for (int d = 0; d < 3; ++d) {
+#pragma unroll
+              for (int e = 0; e < 3; ++e) {
+                a[d][e] = rp[d * rs + (jb * kS + e) * L];
+              }
+            }
+          }
+          for (int j = jb; j < je; ++j) {
+            if (j > jb) {
+#pragma unroll
+              for (int d = 0; d < 3; ++d) {
+                if constexpr (kS == 1) {
+                  a[d][0] = a[d][1];
+                  a[d][1] = a[d][2];
+                  a[d][2] = rp[d * rs + (j + 2) * L];
+                } else {
+                  a[d][0] = a[d][2];
+                  a[d][1] = rp[d * rs + (2 * j + 1) * L];
+                  a[d][2] = rp[d * rs + (2 * j + 2) * L];
+                }
+              }
+            }
+            const float dv = dzr[j * L];
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+#pragma unroll
+              for (int e = 0; e < 3; ++e) {
+                acc[3 * d + e] = fmaf(a[d][e], dv, acc[3 * d + e]);
+              }
+            }
+            dbacc += dv;
+          }
+        } else {
+          for (int j = jb; j < je; ++j) {
+            const float* base =
+                xw + ((size_t)i * geo.stride * geo.wwin + j * geo.stride) * L;
+            const float dv = dzr[j * L];
+#pragma unroll
+            for (int q = 0; q < kMaxTaps; ++q) {
+              if (q == taps) break;
+              acc[q] = fmaf(base[toff[q]], dv, acc[q]);
+            }
+            dbacc += dv;
+          }
         }
-        dbacc += dv;
       }
     }
-    __syncthreads();
+    __syncthreads();                 // the slot is refilled next iteration
   }
 
-  // the position groups' sums [npg, taps + 1, cb], added in group order
+  // the position groups' sums [npg, taps + 1, L], added in group order into
+  // the share's row (the ring is free: every copy has landed and been read)
   float* red = smem;
-  const int stride_g = (taps + 1) * cb;
+  const int stride_g = (taps + 1) * L;
   if (computes) {
 #pragma unroll
-    for (int k = 0; k < kMaxTaps; ++k) {
-      if (k < taps) red[pg * stride_g + k * cb + lane] = acc[k];
+    for (int q = 0; q < (kS ? 9 : kMaxTaps); ++q) {
+      if (q < taps) red[pg * stride_g + q * L + lane] = acc[q];
     }
-    red[pg * stride_g + taps * cb + lane] = dbacc;
+    red[pg * stride_g + taps * L + lane] = dbacc;
   }
   __syncthreads();
-  const size_t dw_size = (size_t)cblk * taps * cb;
-  float* row = ws + (size_t)split * (dw_size + (with_db ? cblk * cb : 0));
+  const size_t dw_size = (size_t)geo.cblk * taps * geo.cb;
+  const size_t cols = dw_size + (geo.with_db ? (size_t)geo.cblk * geo.cb : 0);
+  // the column's outputs: tap q of lane l at dw_at(q) + l, db's at db_at + l
+  const size_t dw_at = (size_t)c_b * taps * geo.cb + lane0;
+  const size_t db_at = dw_size + (size_t)c_b * geo.cb + lane0;
+  float* row = ws + (size_t)split * cols;
   for (int e = t; e < stride_g; e += kThreads) {
-    float s = 0.0f;
-    for (int q = 0; q < npg; ++q) s += red[q * stride_g + e];
-    if (e < taps * cb) {
-      row[(size_t)c_b * taps * cb + e] = s;
-    } else if (with_db) {
-      row[dw_size + c_b * cb + e - taps * cb] = s;
+    float sum = 0.0f;
+    for (int q = 0; q < npg; ++q) sum += red[q * stride_g + e];
+    const int q = e / L, l = e - q * L;
+    if (q < taps) {
+      row[dw_at + (size_t)q * geo.cb + l] = sum;
+    } else if (geo.with_db) {
+      row[db_at + l] = sum;
     }
   }
 
-  // the channel block's last CTA sums its rows in split order, and db
+  // the column's last CTA sums its rows in split order, one output a thread
   // (red is free once every thread has arrived)
-  const size_t cols = dw_size + (with_db ? cblk * cb : 0);
-  if (!split_sum::arrive(counters + c_b, splits,
+  if (!split_sum::arrive(counters + column, geo.splits,
                          reinterpret_cast<int*>(red), 0, kThreads, t == 0)) {
     return;
   }
-  const size_t at = (size_t)c_b * taps * cb;
-  split_sum::sum_rows(ws + at, cols, splits, out + at, taps * cb, 1.0f, t,
-                      kThreads);
-  if (with_db) {
-    const size_t db = dw_size + (size_t)c_b * cb;
-    split_sum::sum_rows(ws + db, cols, splits, out + db, cb, 1.0f, t,
-                        kThreads);
+  for (int e = t; e < stride_g; e += kThreads) {
+    const int q = e / L, l = e - q * L;
+    if (q == taps && !geo.with_db) continue;
+    const size_t at = q < taps ? dw_at + (size_t)q * geo.cb + l : db_at + l;
+    split_sum::sum_rows(ws + at, cols, geo.splits, out + at, 1, 1.0f, 0, 1);
   }
 }
 
@@ -904,26 +972,39 @@ int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
   return (int)cudaGetLastError();
 }
 
-// The wgrad: `splits` position shares of each channel block into `ws`
-// [splits, |dw| + |db|], summed by each block's last CTA into `out`
-// ([|dw| + |db|]); `counters`: a zeroed int32 a channel block.
+// The wgrad: `splits` position shares of each (channel block, lane group)
+// into `ws` [splits, |dw| + |db|], summed by each column's last CTA into
+// `out` ([|dw| + |db|]); `counters`: a zeroed int32 a column.  plan: the
+// WgradGeometry fields in order, then the columns, the dynamic shared
+// memory and the kernel variant (0: any filter; 1, 2: 3x3 at dilation 1
+// and that stride).
 int conv2d_depthwise_wgrad(const void* x, const void* g, const void* z,
-                           void* ws, void* out, void* counters, int n,
-                           int cblk, int cb, int hi, int wi, int ho, int wo,
-                           int hf, int wf, int stride, int dil_h, int dil_w,
-                           int pad_top, int pad_left, int hob, int wob,
-                           int splits, int act, int with_db,
-                           int smem_bytes, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      depthwise_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes);
+                           void* ws, void* out, void* counters,
+                           const int* plan, void* stream) {
+  WgradGeometry geo;
+  int* fields = reinterpret_cast<int*>(&geo);
+  for (int i = 0; i < kWgradInts; ++i) fields[i] = plan[i];
+  const int columns = plan[kWgradInts];
+  const int smem = plan[kWgradInts + 1];
+  const int variant = plan[kWgradInts + 2];
+  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
+      || geo.lanes < 1 || geo.cb % geo.lanes != 0 || geo.splits < 1
+      || geo.hf * geo.wf > kMaxTaps
+      || columns != geo.cblk * (geo.cb / geo.lanes)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (columns <= 0 || geo.per_column <= 0) return 0;
+  using Kernel = void (*)(const float*, const float*, const float*, float*,
+                          float*, int*, WgradGeometry);
+  const Kernel kernel = variant == 1   ? depthwise_wgrad_kernel<1>
+                        : variant == 2 ? depthwise_wgrad_kernel<2>
+                                       : depthwise_wgrad_kernel<0>;
+  cudaError_t err = allow_smem(kernel, variant, smem);
   if (err != cudaSuccess) return (int)err;
-  depthwise_wgrad_kernel<<<dim3(splits, cblk), kThreads, smem_bytes,
-                           (cudaStream_t)stream>>>(
+  kernel<<<dim3(geo.splits, columns), kThreads, smem,
+           (cudaStream_t)stream>>>(
       (const float*)x, (const float*)g, (const float*)z, (float*)ws,
-      (float*)out, (int*)counters, n, cblk, cb, hi, wi, ho, wo, hf, wf,
-      stride, dil_h, dil_w, pad_top, pad_left, hob, wob, splits, act,
-      with_db);
+      (float*)out, (int*)counters, geo);
   return (int)cudaGetLastError();
 }
 

@@ -25,10 +25,50 @@
 // padding position, which fails kvpos >= 0 as the reference's kv_valid
 // test would.  Keys past Skv are masked the same way.
 //
-// f32: flash_fwd_kernel.  One CTA of 256 threads per (64-row q block,
-// q-head, batch).  Q is staged once, transposed (Qt [Dh][68]), in shared
-// memory; K (Kt, also transposed) and V ([64][Dh]) are staged per 64-key
-// block.  Thread (ty = t / 16, tx = t % 16) owns q rows 4ty..4ty+3: it
+// f32, head dim up to 128: flash_fwd_tf32, on the tensor cores in 3xTF32
+// (as the CNN tiles: x = big + small, both TF32, and a product is
+// small*big + big*small + big*big, the dropped small*small below 2^-22 of
+// it).  One CTA of two consumer warpgroups and a producer warpgroup per
+// (128-row q tile, KV head, batch), rows = position * G + g as the bf16
+// kernel's, so each K/V tile is staged once for all G heads; causal tiles
+// with the most keys first; the producer skips and marks blocks as the
+// bf16 kernel's does.  The producer's first warp brings each stage's K and
+// V by TMA (K as [Dh/4][keys][4], the K-major core-matrix order, straight
+// from its Dh-contiguous rows; V as it lies); its 128 threads then split K
+// in place into TF32 halves and write V^T's halves [keys/4][Dh][4] (TF32
+// wgmma has no transpose, so P @ V needs V K-major), with V's rows within
+// each 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7: a consumer's S fragment
+// holds keys 2t, 2t + 1 of each 8, which is then P's A fragment (k columns
+// t, t + 4) as it lies, with no shuffle (the masks use the true
+// positions).  It splits a stage while the consumers run the one before.
+// Each consumer warpgroup owns 64 rows:
+//   S = Q K^T    wgmma m64nBKk8 tf32, Q from shared memory as it was
+//                loaded, split into registers at each k8 step;
+//   softmax      the bf16 kernel's, on the f32 S fragment;
+//   O = O a + PV wgmma m64nNk8 tf32 (N = Dh, or Dh / 2 twice past 80), P
+//                split in registers, into a fresh accumulator each stage
+//                added to the f32 O: wgmma's adds round toward zero, and
+//                one accumulator over 2048 keys drifts past the tolerance
+//                where rows average many keys.
+// Shared memory decides the stage: Q (40 KB at Dh 80) stays as loaded and
+// is split at each use, since its halves would take 80 KB; two stages of
+// 64 keys (K and V^T in halves, 80 KB each at Dh 80) then fit beside it,
+// and at Dh 128 two of 32 keys.
+// Registers are the other limit: ptxas gives a thread of a CTA of three
+// warpgroups (or of two and a warp: it counts whole warpgroups) 168, which
+// a consumer's O, stage accumulator, S and A halves fill at Dh 80.  At Dh
+// 128 (two stages of 32 keys) every layout with all of O in registers
+// spilled on the H100 (P @ V in passes of 32 or 64 columns, 16-key
+// stages, a producer warp), so there O's second half lives in shared
+// memory, a thread's own slice, rescaled and added to once a stage after
+// its pass of P @ V.  Q in registers was not an option.
+//
+// f32 otherwise (head dim past 128, more heads a KV head than 128 rows, or
+// K/V strides TMA cannot take; kernels/flash_attention.py `f32_route`
+// states the rule): flash_fwd_kernel.  One CTA of 256 threads per (64-row
+// q block, q-head, batch).  Q is staged once, transposed (Qt [Dh][68]), in
+// shared memory; K (Kt, also transposed) and V ([64][Dh]) are staged per
+// 64-key block.  Thread (ty = t / 16, tx = t % 16) owns q rows 4ty..4ty+3: it
 // computes their scores against keys 4tx..4tx+3 from one float4 of Qt and
 // one of Kt per d (16 FMAs per two shared loads), keeps the rows' m and l
 // in registers (the 16 threads of a row group meet by warp shuffles),
@@ -36,7 +76,7 @@
 // 4(tx + 16j) .. +3] of p @ v in registers.  All arithmetic is f32 on CUDA
 // cores.
 //
-// Both kernels skip the blocks whose keys are all masked for every row of
+// The kernels skip the blocks whose keys are all masked for every row of
 // the CTA (past the causal diagonal, before the window, or padding): their
 // p would be exp(-1e30 - m) = 0, or they would be wiped by alpha =
 // exp(-1e30 - m) = 0 at the first visible key, so skipping changes no bit
@@ -51,7 +91,8 @@
 // What bounds it on this card.  4 * Dh FLOPs per unmasked (q, k) pair
 // against q, k, v and out crossing device memory once: at danube's prefill
 // (S 2048, Dh 80) some 170 FLOP per byte, so operations bound it, on the
-// tensor cores at 989 TFLOP/s for bf16 (67 on f32 CUDA cores).
+// tensor cores at 989 TFLOP/s for bf16 and, as three TF32 products, 495
+// for f32 (67 on f32 CUDA cores).
 //
 // bf16: flash_fwd_wgmma, on the tensor cores.  One CTA of two consumer
 // warpgroups and one producer warp per (128-row q tile, KV head, batch).
@@ -87,6 +128,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "dgrad_tile.cuh"
 
 namespace {
 
@@ -1188,6 +1231,573 @@ int dispatch_wgmma(const Params& p, int batch, int kv, cudaStream_t stream) {
   return launch_wgmma<256>(p, batch, kv, stream);
 }
 
+// ---------------------------------------------------------------------------
+// f32: flash_fwd_tf32, 3xTF32 wgmma
+// ---------------------------------------------------------------------------
+
+namespace dt = dgrad_tile;
+
+constexpr int kTConsumers = 2;                       // consumer warpgroups
+constexpr int kTRows = 64 * kTConsumers;             // q rows per CTA
+constexpr int kTProducer = 128;                      // producer warpgroup
+constexpr int kTThreads = 128 * kTConsumers + kTProducer;
+constexpr int kTBarSplit = 1;                        // the producer's barrier
+constexpr int kTStages = 2;                          // K/V stages
+constexpr int kTMaxDh = 128;
+
+// The f32 kernel's parameters: K and V come through the two tensor maps
+// (V also directly, for rows that see no key), Q through its pointer.
+struct TParams {
+  const void* q;
+  void* o;
+  const void* v;
+  const int* qpos;
+  const int* kvpos;
+  long long qs_b, qs_s, qs_kv, qs_g;
+  long long os_b, os_s, os_kv, os_g;
+  long long vs_b, vs_s, vs_kv;
+  int sq, skv, groups, dh, kv_heads, window;
+  int n_scan;             // keys the reference scans: Skv up to its chunk
+  int flags;              // kCausal | kWindow | kCap
+  float cap, scale;
+};
+static_assert(2 * sizeof(CUtensorMap) + sizeof(TParams) <= 512,
+              "the f32 kernel's parameters outgrow 512 bytes");
+
+// Shared memory of one CTA at padded head dim kD and kBK keys a stage, in
+// floats from a 128-byte aligned base: Q [kTRows][kD + 4] (the row pitch
+// spreads an A load's eight rows over the banks), then each stage's K hi
+// and lo [kD/4][kBK][4] (TMA lands K in the hi half), V^T hi and lo
+// [kBK/4][kD][4] (V lands [kBK][kD] in the lo half), past head dim 80
+// O's second half [kD/2 / 2 fragment values][consumer threads], the
+// stages' key positions and kinds, and the barriers.
+template <int kD, int kBK>
+struct TLayout {
+  // O's columns a consumer thread keeps in registers; past head dim 80
+  // the other half lives in shared memory, a thread's own slice
+  static constexpr int kORegs = kD > 80 ? kD / 2 : kD;
+  static constexpr int kQLd = kD + 4;
+  static constexpr int kTile = kBK * kD;             // floats of one half
+  static constexpr int kStageFloats = 4 * kTile;
+  static constexpr int kStage0 = kTRows * kQLd;
+  static constexpr int kOSmem = kStage0 + kTStages * kStageFloats;
+  static constexpr int kPos = kOSmem + kTRows * (kD - kORegs);
+  static constexpr int kKind = kPos + kTStages * kBK;
+  static constexpr int kBar = (kKind + kTStages + 1) / 2 * 2;
+  static constexpr int kBytes = kBar * 4 + 3 * kTStages * 8;
+  static constexpr int kSmem = kBytes + 128;    // + slack to align the base
+  static_assert(kStage0 % 32 == 0 && kTile % 32 == 0,
+                "every TMA box lands on 128 bytes");
+  static_assert(kSmem <= 232448, "a CTA's shared memory outgrows the SM's");
+};
+
+// big = tf32(v), small = tf32(v - big), as bits
+__device__ __forceinline__ void split4(const float (&v)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    big[i] = dt::tf32_bits(v[i]);
+    small[i] = dt::tf32_bits(v[i] - __uint_as_float(big[i]));
+  }
+}
+
+__device__ __forceinline__ float4 split_f4(float4 v, float4& small) {
+  const float h[4] = {v.x, v.y, v.z, v.w};
+  uint32_t bg[4], sm[4];
+  split4(h, bg, sm);
+  small = make_float4(__uint_as_float(sm[0]), __uint_as_float(sm[1]),
+                      __uint_as_float(sm[2]), __uint_as_float(sm[3]));
+  return make_float4(__uint_as_float(bg[0]), __uint_as_float(bg[1]),
+                     __uint_as_float(bg[2]), __uint_as_float(bg[3]));
+}
+
+// acc += A B over kSteps k8 steps, three TF32 products a step (small*big,
+// big*small, big*big into the one accumulator): A from registers, filled
+// by load(big, small, j) one step ahead into the pair the wgmma two steps
+// back has released; B's halves K-major from shared addresses big and
+// small, step j `step` bytes on, `lbo` bytes between a step's K halves.
+// Returns with every wgmma complete.
+template <int N, int kSteps, typename Load>
+__device__ __forceinline__ void mma3(float (&acc)[N / 2], Load load,
+                                     uint32_t big, uint32_t small,
+                                     uint32_t lbo, uint32_t step) {
+  uint32_t big0[4], small0[4], big1[4], small1[4];
+  auto issue = [&](const uint32_t (&ab)[4], const uint32_t (&as)[4],
+                   int j) {
+    dt::issue<N>(acc, ab, as, dt::kmajor_desc(big + j * step, lbo, 128),
+                 dt::kmajor_desc(small + j * step, lbo, 128));
+  };
+  load(big0, small0, 0);
+#pragma unroll
+  for (int j = 0; j < kSteps; j += 2) {
+    issue(big0, small0, j);
+    if (j + 1 < kSteps) {
+      dt::wgmma_wait<1>();
+      load(big1, small1, j + 1);
+      issue(big1, small1, j + 1);
+    }
+    if (j + 2 < kSteps) {
+      dt::wgmma_wait<1>();
+      load(big0, small0, j + 2);
+    }
+  }
+  dt::wgmma_wait<0>();
+  dt::fence_regs<N / 2>(acc);
+}
+
+// Rows that see no key (f32): columns col, col + 1 of each 8 from c2, the
+// sum of v over the Skv keys over the n_scan keys the reference scans.
+__device__ __noinline__ void write_unseen_f32(float* o0, float* o1, bool w0,
+                                              bool w1, const float* vb,
+                                              long long vs_s, int skv,
+                                              int n_scan, int dh, int c2) {
+  for (int col = c2; col < dh; col += 8) {
+    float x = 0.f, y = 0.f;
+    for (int c = 0; c < skv; ++c) {
+      const float2 vv = *reinterpret_cast<const float2*>(vb + c * vs_s + col);
+      x += vv.x;
+      y += vv.y;
+    }
+    const float2 out = make_float2(x / (float)n_scan, y / (float)n_scan);
+    if (w0) *reinterpret_cast<float2*>(o0 + col) = out;
+    if (w1) *reinterpret_cast<float2*>(o1 + col) = out;
+  }
+}
+
+template <int kD, int kBK>
+__global__ void __launch_bounds__(kTThreads, 1)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv, const TParams p) {
+  using L = TLayout<kD, kBK>;
+  constexpr int kS = kTStages;
+  extern __shared__ float4 smem_t[];
+  float* sm = reinterpret_cast<float*>(smem_t);
+  sm += ((128 - (smem_u32(sm) & 127)) & 127) / 4;
+  float* sq = sm;
+  float* stg = sm + L::kStage0;
+  int* kpos_s = reinterpret_cast<int*>(sm + L::kPos);
+  int* kind_s = reinterpret_cast<int*>(sm + L::kKind);
+  uint64_t* landed = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* ready = landed + kS;
+  uint64_t* empty = ready + kS;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  // heaviest causal tiles first, as the bf16 kernel
+  const int pq = kTRows / p.groups;            // positions per CTA
+  const int n_tiles = (p.sq + pq - 1) / pq;
+  const int per_tile = (int)gridDim.x / n_tiles;
+  const int tile = n_tiles - 1 - (int)blockIdx.x / per_tile;
+  const int kvh = (int)blockIdx.x % per_tile % p.kv_heads;
+  const int b = (int)blockIdx.x % per_tile / p.kv_heads;
+  const int q0 = tile * pq;
+  const int rows = pq * p.groups;
+  const int* qpos = p.qpos + (long long)b * p.sq;
+
+  if (tid == 0) {
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&landed[s], 1);
+      mbar_init(&ready[s], kTProducer);
+      mbar_init(&empty[s], 128 * kTConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // Q as it lies, row = position * G + g; zeros past the rows, Sq and Dh
+  {
+    constexpr int kC4 = kD / 4;
+    const float* qb = static_cast<const float*>(p.q) + b * p.qs_b
+                      + kvh * p.qs_kv;
+    for (int e = tid; e < kTRows * kC4; e += kTThreads) {
+      const int r = e / kC4, c4 = e - r * kC4;
+      const int pos = r / p.groups, g = r - pos * p.groups;
+      float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && q0 + pos < p.sq && 4 * c4 < p.dh)
+        val = __ldg(reinterpret_cast<const float4*>(
+            qb + (long long)(q0 + pos) * p.qs_s + g * p.qs_g + 4 * c4));
+      *reinterpret_cast<float4*>(sq + r * L::kQLd + 4 * c4) = val;
+    }
+  }
+  __syncthreads();
+
+  if (tid >= 128 * kTConsumers) {
+    // ---- producer warpgroup: TMA, then the split of each landed stage ----
+    const int ptid = tid - 128 * kTConsumers, pwarp = ptid >> 5;
+    int qlo = INT32_MAX, qhi = INT32_MIN;
+    for (int i = lane; i < pq && q0 + i < p.sq; i += 32) {
+      qlo = min(qlo, qpos[q0 + i]);
+      qhi = max(qhi, qpos[q0 + i]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      qlo = min(qlo, __shfl_xor_sync(0xffffffffu, qlo, off));
+      qhi = max(qhi, __shfl_xor_sync(0xffffffffu, qhi, off));
+    }
+    const int* kvpos = p.kvpos + (long long)b * p.skv;
+    const int n_blocks = (p.skv + kBK - 1) / kBK;
+    constexpr int kPer = kBK / 32;             // key positions a lane
+    int blk = 0, k0 = 0, kp[kPer];
+    bool whole = false;
+    // The next block from `blk` on that some row sees: its first key k0,
+    // this lane's key positions kp (padding past Skv takes the reference's
+    // padding position, which no mask admits) and whether every row sees
+    // all of it.  Every warp finds the same blocks.
+    auto next_visible = [&]() -> bool {
+      for (; blk < n_blocks; ++blk) {
+        const int base = blk * kBK;
+        int lo = INT32_MAX, hi = INT32_MIN;
+        bool all_ok = true;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int c = base + lane + 32 * j;
+          kp[j] = c < p.skv ? kvpos[c] : kPadPos;
+          const bool ok = kp[j] >= 0;
+          all_ok = all_ok && ok;
+          lo = min(lo, ok ? kp[j] : INT32_MAX);
+          hi = max(hi, ok ? kp[j] : INT32_MIN);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, off));
+          hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, off));
+        }
+        all_ok = __all_sync(0xffffffffu, all_ok);
+        if (lo > hi || ((p.flags & kCausal) && lo > qhi)
+            || ((p.flags & kWindow)
+                && (long long)hi <= (long long)qlo - p.window))
+          continue;                    // no row sees a key of this block
+        whole = all_ok && (!(p.flags & kCausal) || hi <= qlo)
+            && (!(p.flags & kWindow)
+                || (long long)lo > (long long)qhi - p.window);
+        k0 = base;
+        ++blk;
+        return true;
+      }
+      return false;
+    };
+    // tile i (the block next_visible found) into stage i % kS, once the
+    // tile before in that stage is consumed: K as [Dh/4][keys][4] into the
+    // K hi half, V as [keys][Dh] into the V lo half
+    auto issue = [&](int i) {
+      const int s = i % kS;
+      if (pwarp != 0) return;
+      if (i >= kS) mbar_wait(&empty[s], ((i / kS) & 1) ^ 1);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) kpos_s[s * kBK + lane + 32 * j] = kp[j];
+      __syncwarp();
+      if (lane == 0) {
+        float* st = stg + s * L::kStageFloats;
+        kind_s[s] = whole ? 1 : 0;
+        mbar_expect_tx(&landed[s], 2 * L::kTile * 4);
+        tma_load_5d(st, &tk, &landed[s], 0, k0, 0, kvh, b);
+        tma_load_4d(st + 3 * L::kTile, &tv, &landed[s], 0, k0, kvh, b);
+      }
+    };
+    // tile i once landed: K hi and lo in place of K; V^T hi and lo from V,
+    // its rows within each 8 keys in the order 0, 2, 4, 6, 1, 3, 5, 7, so
+    // that the consumers' S fragment (keys 2t, 2t + 1 of a thread) is P's
+    // A fragment (k columns t, t + 4) as it lies
+    auto split = [&](int i) {
+      const int s = i % kS;
+      mbar_wait(&landed[s], (i / kS) & 1);
+      float* khi = stg + s * L::kStageFloats;
+      float* klo = khi + L::kTile;
+      float* vhi = klo + L::kTile;
+      float* vlo = vhi + L::kTile;
+      constexpr int kUnits = kBK / 4 * kD;           // (k quad, column)
+      constexpr int kPerT = (kUnits + kTProducer - 1) / kTProducer;
+      float4 vv[kPerT];
+#pragma unroll
+      for (int u = 0; u < kPerT; ++u) {
+        const int unit = ptid + kTProducer * u;
+        if (kUnits % kTProducer == 0 || unit < kUnits) {
+          const int q = unit / kD, d = unit - q * kD;
+          const float* src = vlo + (8 * (q >> 1) + (q & 1)) * kD + d;
+          vv[u] = make_float4(src[0], src[2 * kD], src[4 * kD], src[6 * kD]);
+        }
+      }
+      dt::bar_sync(kTBarSplit, kTProducer);    // V read before it is
+#pragma unroll                                  // overwritten
+      for (int u = 0; u < kPerT; ++u) {
+        const int unit = ptid + kTProducer * u;
+        if (kUnits % kTProducer == 0 || unit < kUnits) {
+          float4 lo;
+          const float4 hi = split_f4(vv[u], lo);
+          reinterpret_cast<float4*>(vhi)[unit] = hi;
+          reinterpret_cast<float4*>(vlo)[unit] = lo;
+        }
+      }
+#pragma unroll 2
+      for (int e = ptid; e < L::kTile / 4; e += kTProducer) {
+        float4 lo;
+        const float4 hi = split_f4(reinterpret_cast<float4*>(khi)[e], lo);
+        reinterpret_cast<float4*>(khi)[e] = hi;
+        reinterpret_cast<float4*>(klo)[e] = lo;
+      }
+      dt::fence_proxy_async();
+      mbar_arrive(&ready[s]);
+    };
+
+    // a tile is issued once the one two stages back is consumed, and split
+    // while the consumers run the one before it
+    int issued = 0;
+    for (int j = 0; j < kS - 1 && next_visible(); ++j) issue(issued++);
+    for (int i = 0; i < issued; ++i) {
+      split(i);
+      if (next_visible()) issue(issued++);
+    }
+    // the end: kind -1 in the next stage, once the tile before in it is
+    // consumed (so that no thread's arrival can count toward that tile)
+    const int s = issued % kS;
+    if (issued >= kS) mbar_wait(&empty[s], ((issued / kS) & 1) ^ 1);
+    if (ptid == 0) kind_s[s] = -1;
+    mbar_arrive(&ready[s]);
+  } else {
+    // ---- consumer warpgroups: 64 rows each ---------------------------------
+    const int wg = tid >> 7, warp = (tid >> 5) & 3;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+    const int t4 = lane & 3, c2 = 2 * t4;
+    // the rows' positions (what the epilogue needs besides is derived
+    // again there: registers are short through the loop)
+    int qp0 = 0, qp1 = 0;
+    {
+      const int pos0 = r0 / p.groups, pos1 = r1 / p.groups;
+      if (r0 < rows && q0 + pos0 < p.sq) qp0 = qpos[q0 + pos0];
+      if (r1 < rows && q0 + pos1 < p.sq) qp1 = qpos[q0 + pos1];
+    }
+    const float* qa0 = sq + r0 * L::kQLd + t4;
+    const float* qa1 = qa0 + 8 * L::kQLd;
+    const uint32_t stg_u = smem_u32(stg);
+    // O: columns [0, kOR) in registers; past head dim 80 columns [kOR, kD)
+    // in shared memory, this thread's fragment values at [k][tid]
+    constexpr int kOR = L::kORegs;
+    float* osm = sm + L::kOSmem + tid;
+
+    float o[kOR / 2];
+#pragma unroll
+    for (int i = 0; i < kOR / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int k = 0; k < (kD - kOR) / 2; ++k) osm[k * 128 * kTConsumers] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;
+
+    for (int i = 0;; ++i) {
+      const int s = i % kS;
+      mbar_wait(&ready[s], (i / kS) & 1);
+      const int kind = kind_s[s];
+      if (kind < 0) break;
+      const uint32_t khi = stg_u + s * L::kStageFloats * 4;
+      const uint32_t klo = khi + L::kTile * 4;
+      const uint32_t vhi = klo + L::kTile * 4;
+      const uint32_t vlo = vhi + L::kTile * 4;
+
+      // S = Q K^T: Q split at each load, K's halves K-major as they lie
+      float sc[kBK / 2];
+#pragma unroll
+      for (int k = 0; k < kBK / 2; ++k) sc[k] = 0.f;
+      mma3<kBK, kD / 8>(
+          sc,
+          [&](uint32_t (&big)[4], uint32_t (&small)[4], int j) {
+            const float v[4] = {qa0[8 * j], qa1[8 * j], qa0[8 * j + 4],
+                                qa1[8 * j + 4]};
+            split4(v, big, small);
+          },
+          khi, klo, kBK * 16, kBK * 32);
+
+      // scale, softcap, masks, the online softmax: S becomes the f32 P and
+      // a0, a1 the rows' rescale factors (a row's keys lie on a quad)
+      float a0, a1;
+      {
+        const int* kp = kpos_s + s * kBK;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float v = sc[4 * j + e] * p.scale;
+            if (p.flags & kCap) v = p.cap * tanhf(v / p.cap);
+            sc[4 * j + e] = v;
+          }
+          if (kind == 0) {
+            const int2 kc = *reinterpret_cast<const int2*>(kp + 8 * j + c2);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int kpe = (e & 1) ? kc.y : kc.x;
+              const int qp = e < 2 ? qp0 : qp1;
+              bool ok = kpe >= 0;
+              if (p.flags & kCausal) ok = ok && kpe <= qp;
+              if (p.flags & kWindow)
+                ok = ok && (long long)kpe > (long long)qp - p.window;
+              if (!ok) sc[4 * j + e] = kNegInf;
+            }
+          }
+        }
+        float mx0 = kNegInf, mx1 = kNegInf;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(sc[4 * j], sc[4 * j + 1]));
+          mx1 = fmaxf(mx1, fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
+        }
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+        a0 = exp2f((m0 - mn0) * kLog2e);
+        a1 = exp2f((m1 - mn1) * kLog2e);
+        m0 = mn0;
+        m1 = mn1;
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < kBK / 8; ++j) {
+          sc[4 * j] = exp2f((sc[4 * j] - mn0) * kLog2e);
+          sc[4 * j + 1] = exp2f((sc[4 * j + 1] - mn0) * kLog2e);
+          sc[4 * j + 2] = exp2f((sc[4 * j + 2] - mn1) * kLog2e);
+          sc[4 * j + 3] = exp2f((sc[4 * j + 3] - mn1) * kLog2e);
+          sum0 += sc[4 * j] + sc[4 * j + 1];
+          sum1 += sc[4 * j + 2] + sc[4 * j + 3];
+        }
+        l0 = l0 * a0 + sum0;     // this thread's share of the row sums
+        l1 = l1 * a1 + sum1;
+      }
+
+      // O = O * alpha + P V into a fresh accumulator each stage (wgmma's
+      // adds round toward zero, and one accumulator over every key tile
+      // drifts): P split in registers, V^T's halves K-major in the
+      // permuted key order; O's register columns, then its shared ones
+      auto load_p = [&](uint32_t (&big)[4], uint32_t (&small)[4], int j) {
+        const float v[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1],
+                            sc[4 * j + 3]};
+        split4(v, big, small);
+      };
+      {
+        float f[kOR / 2];
+#pragma unroll
+        for (int k = 0; k < kOR / 2; ++k) f[k] = 0.f;
+        mma3<kOR, kBK / 8>(f, load_p, vhi, vlo, kD * 16, kD * 32);
+#pragma unroll
+        for (int k = 0; k < kOR / 2; ++k)
+          o[k] = fmaf(o[k], (k & 2) ? a1 : a0, f[k]);
+      }
+      if constexpr (kOR < kD) {
+        float f[(kD - kOR) / 2];
+#pragma unroll
+        for (int k = 0; k < (kD - kOR) / 2; ++k) f[k] = 0.f;
+        mma3<kD - kOR, kBK / 8>(f, load_p, vhi + kOR * 16, vlo + kOR * 16,
+                                kD * 16, kD * 32);
+#pragma unroll
+        for (int k = 0; k < (kD - kOR) / 2; ++k) {
+          float& os = osm[k * 128 * kTConsumers];
+          os = fmaf(os, (k & 2) ? a1 : a0, f[k]);
+        }
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // out = acc / max(l, 1e-37), through the output strides
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
+    // rows that see no key (m stayed at the sentinel) take the reference's
+    // average of v instead
+    const bool none0 = m0 == kNegInf, none1 = m1 == kNegInf;
+    const int pos0 = r0 / p.groups, g0 = r0 - pos0 * p.groups;
+    const int pos1 = r1 / p.groups, g1 = r1 - pos1 * p.groups;
+    const bool live0 = r0 < rows && q0 + pos0 < p.sq;
+    const bool live1 = r1 < rows && q0 + pos1 < p.sq;
+    const float* vb = static_cast<const float*>(p.v) + b * p.vs_b
+                      + kvh * p.vs_kv;
+    float* ob = static_cast<float*>(p.o) + b * p.os_b + kvh * p.os_kv;
+    float* o0 = ob + (long long)(q0 + pos0) * p.os_s + g0 * p.os_g;
+    float* o1 = ob + (long long)(q0 + pos1) * p.os_s + g1 * p.os_g;
+    // columns 8j + c2 (+1) of rows r0 (v[0], v[1]) and r1 (v[2], v[3])
+    auto store = [&](int j, float v0, float v1, float v2, float v3) {
+      const int col = 8 * j + c2;
+      if (col >= p.dh) return;
+      if (live0 && !none0)
+        *reinterpret_cast<float2*>(o0 + col) =
+            make_float2(v0 * inv0, v1 * inv0);
+      if (live1 && !none1)
+        *reinterpret_cast<float2*>(o1 + col) =
+            make_float2(v2 * inv1, v3 * inv1);
+    };
+#pragma unroll
+    for (int j = 0; j < kOR / 8; ++j)
+      store(j, o[4 * j], o[4 * j + 1], o[4 * j + 2], o[4 * j + 3]);
+#pragma unroll 1
+    for (int j = kOR / 8; j < kD / 8; ++j) {
+      const float* v = osm + (4 * j - kOR / 2) * 128 * kTConsumers;
+      store(j, v[0], v[128 * kTConsumers], v[2 * 128 * kTConsumers],
+            v[3 * 128 * kTConsumers]);
+    }
+    if ((live0 && none0) || (live1 && none1))
+      write_unseen_f32(o0, o1, live0 && none0, live1 && none1, vb, p.vs_s,
+                       p.skv, p.n_scan, p.dh, c2);
+  }
+}
+
+template <int kD, int kBK>
+int launch_tf32(const Params& p, int batch, int kv, cudaStream_t stream) {
+  using L = TLayout<kD, kBK>;
+  TParams t;
+  t.q = p.q; t.o = p.o; t.v = p.v;
+  t.qpos = p.qpos; t.kvpos = p.kvpos;
+  t.qs_b = p.qs_b; t.qs_s = p.qs_s; t.qs_kv = p.qs_kv; t.qs_g = p.qs_g;
+  t.os_b = p.os_b; t.os_s = p.os_s; t.os_kv = p.os_kv; t.os_g = p.os_g;
+  t.vs_b = p.vs_b; t.vs_s = p.vs_s; t.vs_kv = p.vs_kv;
+  t.sq = p.sq; t.skv = p.skv; t.groups = p.groups; t.dh = p.dh;
+  t.kv_heads = kv; t.window = p.window; t.n_scan = p.n_scan;
+  t.flags = (p.causal ? kCausal : 0) | (p.has_window ? kWindow : 0)
+            | (p.has_cap ? kCap : 0);
+  t.cap = p.cap; t.scale = p.scale;
+  const int pq = kTRows / p.groups;               // as the kernel derives
+  const int n_tiles = (p.sq + pq - 1) / pq;
+
+  // K over (Dh % 4, S, Dh / 4, KV, B), boxes landing [kD/4][kBK][4]; V over
+  // (Dh, S, KV, B), boxes landing [kBK][kD]; zeros past Dh and Skv.  Byte
+  // strides; an index of extent 1 is never stepped.
+  auto bytes = [](long long extent, long long stride) {
+    return extent == 1 ? 16 : stride * 4;
+  };
+  CUtensorMap tk, tv;
+  const long long kdims[5] = {4, p.skv, p.dh / 4, kv, batch};
+  const long long kstr[4] = {bytes(p.skv, p.ks_s), 16, bytes(kv, p.ks_kv),
+                             bytes(batch, p.ks_b)};
+  const int kbox[5] = {4, kBK, kD / 4, 1, 1};
+  const long long vdims[4] = {p.dh, p.skv, kv, batch};
+  const long long vstr[3] = {bytes(p.skv, p.vs_s), bytes(kv, p.vs_kv),
+                             bytes(batch, p.vs_b)};
+  const int vbox[4] = {kD, kBK, 1, 1};
+  if (!dt::encode(&tk, p.k, 5, kdims, kstr, kbox)
+      || !dt::encode(&tv, p.v, 4, vdims, vstr, vbox))
+    return (int)cudaErrorInvalidValue;
+
+  auto kernel = flash_fwd_tf32<kD, kBK>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const long long grid = (long long)n_tiles * kv * batch;
+  if (grid > INT32_MAX) return (int)cudaErrorInvalidValue;
+  kernel<<<(unsigned)grid, kTThreads, L::kSmem, stream>>>(tk, tv, t);
+  return (int)cudaGetLastError();
+}
+
+// f32 on the tensor cores at the padded head dim of the instance.  Keys a
+// stage: 64 where two stages of K and V^T in TF32 halves fit beside Q
+// (padded head dim up to 80), else 32.  launch/flash_f32_ab.py builds the
+// other stage at head dim 80 with -DFLASH_TF32_STAGE80=32 to time it.
+#ifndef FLASH_TF32_STAGE80
+#define FLASH_TF32_STAGE80 64
+#endif
+int dispatch_tf32(const Params& p, int batch, int kv, cudaStream_t stream) {
+  if (p.groups < 1 || p.groups > kTRows || p.dh > kTMaxDh)
+    return (int)cudaErrorInvalidValue;
+  if (p.dh <= 64) return launch_tf32<64, 64>(p, batch, kv, stream);
+  if (p.dh <= 80)
+    return launch_tf32<80, FLASH_TF32_STAGE80>(p, batch, kv, stream);
+  return launch_tf32<128, 32>(p, batch, kv, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -1208,11 +1818,20 @@ void flash_attention_wgmma_geometry(int* threads, int* rows, int* block_k) {
   *block_k = kHBK;
 }
 
+// The f32 tensor-core kernel's geometry: threads per CTA, q rows per CTA,
+// the largest head dim it takes.
+void flash_attention_tf32_geometry(int* threads, int* rows, int* max_dh) {
+  *threads = kTThreads;
+  *rows = kTRows;
+  *max_dh = kTMaxDh;
+}
+
 // strides (int64, in elements): q b,s,kv,g | k b,s,kv | v b,s,kv |
 // out b,s,kv,g.  kvpos carries kv_valid (keys at or past it take the
 // padding position).  ints: batch, kv heads, groups, sq, skv, dh, causal,
-// has_window, window, has_cap, bf16, n_scan (the keys the reference's
-// chunked scan covers: Skv rounded up to its chunk).
+// has_window, window, has_cap, kernel (0: f32 flash_fwd_kernel, 1: bf16
+// flash_fwd_wgmma, 2: f32 flash_fwd_tf32), n_scan (the keys the
+// reference's chunked scan covers: Skv rounded up to its chunk).
 int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                         const void* qpos, const void* kvpos,
                         const long long* strides,
@@ -1232,15 +1851,19 @@ int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
   p.groups = ints[2]; p.sq = ints[3]; p.skv = ints[4]; p.dh = ints[5];
   p.causal = ints[6]; p.has_window = ints[7]; p.window = ints[8];
   p.has_cap = ints[9];
-  const int bf16 = ints[10];
+  const int kernel = ints[10];
   p.n_scan = ints[11];
   p.cap = cap;
   p.scale = scale;
   if (p.dh <= 0 || p.dh > kMaxDh || p.dh % 8 || p.n_scan < p.skv)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_wgmma(p, batch, kv, s)
-              : dispatch_f32(p, batch, kv * p.groups, s);
+  switch (kernel) {
+    case 0: return dispatch_f32(p, batch, kv * p.groups, s);
+    case 1: return dispatch_wgmma(p, batch, kv, s);
+    case 2: return dispatch_tf32(p, batch, kv, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* cuda_error_name(int code) {

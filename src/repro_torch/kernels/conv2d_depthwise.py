@@ -20,9 +20,10 @@ and the fused epilogue (bias, activation, residual, GAP).
   ``_dwconv`` / ``_dwconv_fwd`` / ``_dwconv_bwd`` (``:354-440``), with
   this family's kernels: ``depthwise_dgrad`` (a tap kernel with mirrored
   taps, as the reference runs its dgrad through ``_dw_fwd_kernel``) and
-  ``depthwise_wgrad`` (``_dw_wgrad_kernel``, ``:105``, whose last CTA of
-  each channel block adds its shares in split order), with the ``dz = g *
-  act'(z)`` prologue and ``db``.  No padded, dilated or cropped copy
+  ``depthwise_wgrad`` (``_dw_wgrad_kernel``, ``:105``: the forward's
+  items walked in shares of each (channel block, lane group), whose last
+  CTA adds the shares in split order), with the ``dz = g * act'(z)``
+  prologue and ``db``.  No padded, dilated or cropped copy
   exists on the card.
 
 A forward call's host path is lean, because at MobileNet's small legs it,
@@ -46,6 +47,7 @@ import torch
 
 from repro_torch.core.blocking import (DW_MAX_TAPS, H100_SXM,
                                        DepthwiseBlocking,
+                                       DepthwiseWgradBlocking,
                                        choose_depthwise_blocking,
                                        choose_depthwise_dgrad_blocking,
                                        choose_depthwise_wgrad_blocking,
@@ -90,7 +92,8 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [ctypes.POINTER(i32),
                                                        ptr]
     lib.conv2d_depthwise_dgrad.restype = i32
-    lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 6 + [i32] * 20 + [ptr]
+    lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
+                                                       ptr]
     lib.conv2d_depthwise_wgrad.restype = i32
 
 
@@ -396,35 +399,87 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
     """The wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
     workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then
     ``db``, and ``out [|dw| + |db|]``, its rows summed in split order by
-    the last CTA of each channel block."""
+    the last CTA of each (channel block, lane group)."""
     _backward_operands(g, z, activation)
-    dev = _cuda_device(x)
-    n, cblk, hi, wi, cb = x.shape
-    if (g.shape[1], g.shape[4]) != (cblk, cb):
-        raise ValueError(f"cotangent blocks {(g.shape[1], g.shape[4])} do not "
-                         f"match the input's {(cblk, cb)}")
+    prologue = z is not None and activation not in (None, "linear")
+    plan = _wgrad_plan(tuple(x.shape), tuple(g.shape), hf, wf, stride,
+                       _hashable(padding), _hashable(dilation),
+                       _ACT_CODES[activation], prologue, with_db)
+    return wgrad_launch(plan, x, g, z if prologue else None)
+
+
+@dataclasses.dataclass(frozen=True)
+class _WgradPlan:
+    """What a wgrad launch at one shape needs but its pointers, stream and
+    library, built once (``_wgrad_plan``): the items and shares, the
+    workspace's row length, the columns and the C entry's int array."""
+    blk: DepthwiseWgradBlocking
+    spec: ConvSpec
+    cols: int
+    columns: int
+    variant: int
+    ints: object
+
+
+@functools.lru_cache(maxsize=1024)
+def _wgrad_plan(x_shape: Tuple[int, ...], g_shape: Tuple[int, ...],
+                hf: int, wf: int, stride, padding, dilation, act: int,
+                prologue: bool, with_db: bool,
+                blk: Optional[DepthwiseWgradBlocking] = None) -> _WgradPlan:
+    """The plan of a wgrad launch: the items and shares of
+    ``choose_depthwise_wgrad_blocking`` (or ``blk``, as
+    ``launch/separable_bwd_ab.py`` times other items) and the kernel
+    variant."""
+    n, cblk, hi, wi, cb = x_shape
+    if (g_shape[1], g_shape[4]) != (cblk, cb):
+        raise ValueError(f"cotangent blocks {(g_shape[1], g_shape[4])} do "
+                         f"not match the input's {(cblk, cb)}")
     spec = backward_spec(n, hi, wi, (cblk, 1, hf, wf, 1, cb), stride,
-                         padding, g, z, cblk * cb, dilation)
+                         padding, torch.empty(g_shape, device="meta"), None,
+                         cblk * cb, dilation)
+    _taps(hf, wf)
+    if blk is None:
+        blk = choose_depthwise_wgrad_blocking(n, cblk, spec.ho, spec.wo, cb,
+                                              hf, wf, spec.stride,
+                                              spec.dilation, prologue)
+    columns = blk.columns(cblk, cb)
+    if columns > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: {columns} columns")
+    variant = depthwise_dgrad_variant(hf, wf, spec.stride, spec.dilation)
+    smem = depthwise_wgrad_smem_bytes(blk.hwin, blk.wwin, blk.hob, blk.wob,
+                                      blk.lanes, hf * wf, prologue)
+    ints = (cblk, cb, hi, wi, spec.ho, spec.wo, hf, wf, spec.stride,
+            *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
+            blk.wob, blk.hwin, blk.wwin, blk.lanes, blk.per_column,
+            blk.splits, act, int(prologue), int(with_db), columns, smem,
+            variant)
+    cols = cblk * hf * wf * cb + (cblk * cb if with_db else 0)
+    return _WgradPlan(blk=blk, spec=spec, cols=cols, columns=columns,
+                      variant=variant,
+                      ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def wgrad_launch(plan: _WgradPlan, x: torch.Tensor, g: torch.Tensor,
+                 z: Optional[torch.Tensor]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the wgrad of ``plan`` on CUDA operands (``z`` only with the
+    prologue), each checked and read once -> ``(ws, out)``; counts the
+    launch."""
+    dev = _cuda_device(x)
     ptrs = (_require(x, "x", dev, vector_loads=True),
             _require(g, "g", dev, vector_loads=True),
             _require(z, "z", dev, vector_loads=True))
-    if cblk > _GRID_YZ_MAX:
-        raise ValueError(f"grid too large: C/Cb={cblk}")
-    blk = choose_depthwise_wgrad_blocking(n, cblk, spec.ho, spec.wo, cb, hf,
-                                          wf, spec.stride, spec.dilation)
-    smem = depthwise_wgrad_smem_bytes(blk.hob, blk.wob, cb, hf, wf,
-                                      spec.stride, spec.dilation)
-    cols = cblk * hf * wf * cb + (cblk * cb if with_db else 0)
-    ws = torch.empty((blk.splits, cols), device=dev, dtype=torch.float32)
-    out = torch.empty((cols,), device=dev, dtype=torch.float32)
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
+                         f"{tuple(g.shape)}")
+    ws = torch.empty((plan.blk.splits, plan.cols), device=dev,
+                     dtype=torch.float32)
+    out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
     stream = _stream(dev)
     lib = _lib()
     err = _call(dev, lib.conv2d_depthwise_wgrad, *ptrs, ws.data_ptr(),
-                out.data_ptr(), split_sum.counters(dev, stream, cblk), n,
-                cblk, cb, hi, wi, spec.ho, spec.wo, hf, wf, spec.stride,
-                *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
-                blk.wob, blk.splits, _ACT_CODES[activation],
-                int(with_db), smem, stream)
+                out.data_ptr(), split_sum.counters(dev, stream, plan.columns),
+                plan.ints, stream)
     LAUNCHES["conv2d_depthwise_wgrad"] += 1
     _check(err, lib, "conv2d_depthwise_wgrad")
     return ws, out

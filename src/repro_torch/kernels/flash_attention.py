@@ -18,16 +18,21 @@ repeat copy (the kernel takes q/out strides for (batch, seq, kv head,
 group) and k/v strides for (batch, seq, kv head)).  On a CPU tensor they
 compute the plain version, :func:`attend_plain`, the port of the
 reference's chunked scan (``chunk``, the ``-10**9`` padding position,
-``compact_probs``); a CUDA tensor launches the kernel or raises.  Two
-kernels: f32 runs on CUDA cores (``flash_fwd_kernel``), bf16 on the tensor
-cores (``flash_fwd_wgmma``: wgmma, TMA-fed K/V tiles shared by the G query
-heads of a KV head).  Both take any head dim ``Dh <= 256`` that is a
-multiple of 8 and keep their scores in f32 registers, so
+``compact_probs``); a CUDA tensor launches the kernel or raises.  Three
+kernels: bf16 runs on the tensor cores (``flash_fwd_wgmma``: wgmma,
+TMA-fed K/V tiles shared by the G query heads of a KV head), f32 on them
+too in 3xTF32 (``flash_fwd_tf32``, the same structure) where
+:func:`f32_route` says so, and on CUDA cores otherwise
+(``flash_fwd_kernel``).  Together they take any head dim ``Dh <= 256``
+that is a multiple of 8, and keep their scores in f32 registers, so
 ``compact_probs=True`` (bf16 score storage, a plain-path option) raises on
-CUDA.  :func:`check_operands` states what else each takes: f32 needs
-16-byte bases and strides in multiples of 4 elements (float4 loads); bf16
-needs 16-byte bases, strides in positive multiples of 8 elements (TMA's
-16 bytes) and G <= 128.  A row that sees no key gets what the reference
+CUDA.  :func:`check_operands` states what else each dtype takes: f32 needs
+16-byte bases and strides in multiples of 4 elements (float4 loads, TMA's
+16 bytes); bf16 needs 16-byte bases, strides in positive multiples of 8
+elements (TMA's 16 bytes) and G <= 128.  The f32 route is a rule of shapes
+and strides, never a retry: the tensor-core kernel takes ``Dh <= 128``,
+G <= 128 and K/V strides that are positive where their index is longer
+than 1 (its TMA maps); anything else runs on CUDA cores.  A row that sees no key gets what the reference
 gives it: every key it scans has p = 1, so the sum of v over the Skv keys
 divided by Skv rounded up to the scan's ``chunk`` (:func:`scanned_keys`).
 ``kv_valid`` reaches the kernels folded into the key positions: a key at
@@ -35,8 +40,9 @@ or past it takes the padding position, which no mask admits.
 There is no backward: under autograd with an operand that requires grad
 both entry points raise ``NotImplementedError``.
 
-``LAUNCHES["flash_attention"]`` counts launches; ``reset_launches`` sets it
-to 0.
+``LAUNCHES["flash_attention"]`` counts launches, and ``KERNEL_LAUNCHES``
+counts them by the kernel launched (a key of ``KERNEL_CODES``);
+``reset_launches`` sets both to 0.
 """
 from __future__ import annotations
 
@@ -49,8 +55,9 @@ from repro_torch.kernels.direct_conv2d import (_check, _cuda_device, _library,
                                                _no_autograd, _stream)
 
 __all__ = ["LAUNCHES", "reset_launches", "NEG_INF", "attend",
-           "attend_plain", "check_operands", "flash_attention",
-           "flash_attention_plain", "scanned_keys", "MAX_HEAD_DIM"]
+           "attend_plain", "check_operands", "f32_route",
+           "KERNEL_CODES", "KERNEL_LAUNCHES", "flash_attention", "flash_attention_plain", "scanned_keys",
+           "MAX_HEAD_DIM"]
 
 NEG_INF = -1e30
 PAD_POSITION = -(10 ** 9)   # the reference's position of padding keys
@@ -60,14 +67,22 @@ THREADS, BLOCK_Q, BLOCK_K = 256, 64, 64
 # the bf16 kernel: threads per CTA, rows per CTA (G heads x 128 // G
 # positions), keys per K/V tile
 BF16_THREADS, BF16_ROWS, BF16_BLOCK_K = 288, 128, 64
+# the f32 tensor-core kernel: threads per CTA, rows per CTA, the largest
+# head dim; its padded head dims (compiled instances)
+TF32_THREADS, TF32_ROWS, TF32_MAX_HEAD_DIM = 384, 128, 128
+TF32_HEAD_DIMS = (64, 80, 128)
 MAX_HEAD_DIM = 256
+# the C entry's kernel codes, and launches by the kernel launched
+KERNEL_CODES = {"fma": 0, "bf16": 1, "tf32": 2}
+KERNEL_LAUNCHES = dict.fromkeys(KERNEL_CODES, 0)
 PLAIN_CHUNK = 2048          # the reference's KV chunk
 _DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, KERNEL_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 def _declare(lib, ptr, i32) -> None:
@@ -79,7 +94,9 @@ def _declare(lib, ptr, i32) -> None:
 def _lib() -> ctypes.CDLL:
     return _library("flash_attention", _declare, (THREADS, BLOCK_Q, BLOCK_K),
                     (("flash_attention_wgmma_geometry",
-                      (BF16_THREADS, BF16_ROWS, BF16_BLOCK_K)),))
+                      (BF16_THREADS, BF16_ROWS, BF16_BLOCK_K)),
+                     ("flash_attention_tf32_geometry",
+                      (TF32_THREADS, TF32_ROWS, TF32_MAX_HEAD_DIM))))
 
 
 # ---------------------------------------------------------------------------
@@ -221,14 +238,34 @@ def check_operands(dtype: torch.dtype, head_dim: int, groups: int,
                 f"{str(dtype)[6:]} kernel")
 
 
+def f32_route(head_dim: int, groups: int, kv_operands) -> str:
+    """The f32 kernel that takes these operands: ``"tf32"`` (the tensor
+    cores, ``flash_fwd_tf32``) where the head dim is at most
+    ``TF32_MAX_HEAD_DIM``, a CTA's ``TF32_ROWS`` rows hold the ``groups``
+    query heads of a KV head, and every K/V stride of an index longer than 1
+    is positive (its TMA maps), else ``"fma"`` (CUDA cores,
+    ``flash_fwd_kernel``).  ``kv_operands``: ``(sizes, strides)`` of k and
+    v over (batch, seq, kv head).  A function of shapes and strides alone,
+    tested on the CPU."""
+    if head_dim > TF32_MAX_HEAD_DIM or groups > TF32_ROWS:
+        return "fma"
+    for sizes, strides in kv_operands:
+        if any(n > 1 and st <= 0 for n, st in zip(sizes, strides)):
+            return "fma"
+    return "tf32"
+
+
 def _launch(q, k, v, out, q_strides, k_strides, v_strides, o_strides, *,
             kv_heads: int, groups: int, sq: int, skv: int,
             q_positions, kv_positions, kv_valid, causal: bool,
             window: Optional[int], cap: Optional[float],
-            scale: float, chunk: int) -> None:
+            scale: float, chunk: int, kernel: Optional[str] = None) -> None:
     """One launch; ``*_strides`` in elements: q/out (batch, seq, kv head,
     group), k/v (batch, seq, kv head); ``chunk``: the plain version's, which
-    sets the average a row that sees no key gets."""
+    sets the average a row that sees no key gets; ``kernel`` (f32: "tf32"
+    or "fma"): the route's by default, the other for
+    ``launch/flash_f32_ab.py``.  Counts the launch in ``LAUNCHES`` and, by
+    the kernel launched, in ``KERNEL_LAUNCHES``."""
     dev = _cuda_device(q)
     dh = q.shape[-1]
     for t, name in ((k, "k"), (v, "v")):
@@ -256,19 +293,25 @@ def _launch(q, k, v, out, q_strides, k_strides, v_strides, o_strides, *,
         if tuple(kvv.shape) != (b,):
             raise ValueError(f"kv_valid shape {tuple(kvv.shape)} != ({b},)")
         kp = torch.where(kp < kvv[:, None], kp, PAD_POSITION)
+    kv_sizes = (b, skv, kv_heads)
+    if kernel is None:
+        kernel = ("bf16" if q.dtype == torch.bfloat16 else
+                  f32_route(dh, groups, ((kv_sizes, k_strides),
+                                         (kv_sizes, v_strides))))
     lib = _lib()
     strides = (ctypes.c_longlong * 14)(*q_strides, *k_strides, *v_strides,
                                        *o_strides)
     ints = (ctypes.c_int * 12)(
         b, kv_heads, groups, sq, skv, dh, int(causal), int(window is not None),
         0 if window is None else int(window), int(cap is not None),
-        int(q.dtype == torch.bfloat16), scanned_keys(skv, chunk))
+        KERNEL_CODES[kernel], scanned_keys(skv, chunk))
     err = lib.flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        qp.data_ptr(), kp.data_ptr(), strides, ints, float(scale), 0.0 if cap is None else float(cap),
-        _stream(dev))
+        qp.data_ptr(), kp.data_ptr(), strides, ints, float(scale),
+        0.0 if cap is None else float(cap), _stream(dev))
     _check(err, lib, "flash_attention")
     LAUNCHES["flash_attention"] += 1
+    KERNEL_LAUNCHES[kernel] += 1
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

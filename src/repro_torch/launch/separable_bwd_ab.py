@@ -1,4 +1,4 @@
-"""Time MobileNet v1's pointwise wgrad and depthwise dgrad, and their options.
+"""Time MobileNet v1's pointwise wgrad, depthwise dgrad and wgrad, and options.
 
 At every distinct leg of MobileNet v1 (batch 32, a 224x224 entry, the relu
 prologue), as CUDA-graph replays of ``ITERS`` calls (device ms, no host
@@ -13,7 +13,14 @@ launch cost), this script times:
   faster time kept; each against f64 sums (``|dw - f64| <= 1e-5 * sum |x *
   dz|``);
 * the depthwise dgrad as the tree routes it (``depthwise_dgrad``),
-  against the plain version.
+  against the plain version;
+* the depthwise wgrad as the tree routes it (``depthwise_wgrad_partials``,
+  ``db`` in), and where the tree builds its launch plans by
+  ``_wgrad_plan`` the items its chooser weighs
+  (``depthwise_wgrad_candidates``): the chooser's, and the ``DW_PER_SPLIT``
+  largest that give every position group a position at each lane split,
+  each twice in opposite orders, the faster time kept; each against f64
+  sums as the pointwise wgrad.
 
 It prints the card's name and power limit, each leg's times, and the sums
 over the network's 13 legs of each kind (repeated legs counted each time).
@@ -33,6 +40,7 @@ import subprocess
 import torch
 
 ITERS, TOP, PER_COUNT = 10, 6, 1
+DW_PER_SPLIT = 4
 N = 32
 REL = 1e-5
 TOL = {"atol": 1e-4, "rtol": 1e-4}
@@ -97,6 +105,26 @@ def wgrad_tiles(n: int, ci: int, co: int, h: int, top: int = TOP,
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
 
+def depthwise_wgrad_items(n: int, ci: int, s: int, h: int,
+                          per_split: int = DW_PER_SPLIT):
+    """The depthwise wgrad items to time for a ``ci``-channel leg over an
+    ``h x h`` input at stride ``s`` (3x3, SAME, the relu prologue), the
+    chooser's first."""
+    from repro_torch.core.blocking import (H100_SXM,
+                                           choose_depthwise_wgrad_blocking,
+                                           depthwise_wgrad_candidates)
+    cb, ho = min(ci, 128), -(-h // s)
+    args = (n, ci // cb, ho, ho, cb, 3, 3, s)
+    keep = [choose_depthwise_wgrad_blocking(*args)]
+    found = depthwise_wgrad_candidates(*args)
+    for lanes in sorted({b.lanes for b in found}, reverse=True):
+        busy = [b for b in found if b.lanes == lanes
+                and b.hob * b.wob >= H100_SXM.threads // lanes]
+        busy.sort(key=lambda b: (-b.hob * b.wob, b.hwin * b.wwin, -b.wob))
+        keep += busy[:per_split]
+    return list(dict.fromkeys(keep))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the numbers as JSON")
@@ -122,7 +150,7 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     tag = args.tag
-    pw, dw = {}, {}          # per distinct leg: {rule: graph ms}
+    pw, dw, dww = {}, {}, {}   # per distinct leg: {rule: graph ms}
 
     for ci, co, s, h in mobilenet_legs():
         ho = -(-h // s)
@@ -203,22 +231,74 @@ def main(argv=None) -> int:
             dw[(ci, s, h)] = times
             print(f"[dw-leg] {ci} {h}x{h} s{s} n{N}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in times.items()), flush=True)
-            del x, w, z, g, want
 
-    sums = {"pw": {}, "dw": {}}
+            # the depthwise wgrad
+            want, want_b = direct_conv_wgrad_blocked(
+                x.double(), g.double(), 3, 3, s, "SAME", z.double(), "relu",
+                True, groups=ci)
+            dz = cotangent_prologue(g, z, "relu")
+            scale, scale_b = direct_conv_wgrad_blocked(
+                x.abs().double(), dz.abs().double(), 3, 3, s, "SAME",
+                with_db=True, groups=ci)
+
+            def check_dw(label, out):
+                got = out[:want.numel()].view(want.shape).double()
+                got_b = out[want.numel():].view(want_b.shape).double()
+                ratio = max(((got - want).abs() / (REL * scale).clamp_min(
+                    1e-300)).max().item(), ((got_b - want_b).abs() / (
+                        REL * scale_b).clamp_min(1e-300)).max().item())
+                if not ratio <= 1:
+                    raise RuntimeError(f"{label}: err/bound {ratio}")
+
+            route = (lambda x=x, g=g, z=z, s=s: dwk.depthwise_wgrad_partials(
+                x, g, 3, 3, s, "SAME", z, "relu", True))
+            check_dw("dw wgrad route", route()[1])
+            times = {f"route ({tag})": min(graph_ms(route), graph_ms(route))}
+            runs = []
+            items = (depthwise_wgrad_items(N, ci, s, h)
+                     if hasattr(dwk, "_wgrad_plan") else [])
+            for blk in items:
+                plan = dwk._wgrad_plan(tuple(x.shape), tuple(g.shape), 3, 3,
+                                       s, "SAME", 1, dwk._ACT_CODES["relu"],
+                                       True, True, blk)
+
+                def run(plan=plan, x=x, g=g, z=z):
+                    return dwk.wgrad_launch(plan, x, g, z)[1]
+                check_dw(f"dw wgrad items {blk}", run())
+                runs.append((blk, run))
+            ms = [graph_ms(r) for _, r in runs]
+            for i in reversed(range(len(runs))):
+                ms[i] = min(ms[i], graph_ms(runs[i][1]))
+            for (blk, _), t in zip(runs, ms):
+                print(f"[dw-wgrad-item] {ci} {h}x{h} s{s} hob {blk.hob} wob "
+                      f"{blk.wob} lanes {blk.lanes} splits {blk.splits} "
+                      f"items/CTA {blk.per_column / blk.splits:.2f} "
+                      f"graph_ms {t:.4f}")
+            if ms:
+                times["items chosen"] = ms[0]
+                times["items fastest"] = min(ms)
+            dww[(ci, s, h)] = times
+            print(f"[dw-wgrad-leg] {ci} {h}x{h} s{s} n{N}: " + ", ".join(
+                f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+            del x, w, z, g, want, want_b, dz, scale, scale_b, runs
+
+    sums = {"pw": {}, "dw": {}, "dww": {}}
     for ci, co, s, h in mobilenet_legs():
         for kind, times in (("pw", pw[(ci, co, -(-h // s))]),
-                            ("dw", dw[(ci, s, h)])):
+                            ("dw", dw[(ci, s, h)]),
+                            ("dww", dww[(ci, s, h)])):
             for label, t in times.items():
                 sums[kind][label] = sums[kind].get(label, 0.0) + t
-    for kind, name in (("pw", "pointwise wgrad"), ("dw", "depthwise dgrad")):
+    for kind, name in (("pw", "pointwise wgrad"), ("dw", "depthwise dgrad"),
+                       ("dww", "depthwise wgrad")):
         print(f"[sum] {name} (13 legs, n{N}): " + ", ".join(
             f"{k} {v:.4f}" for k, v in sums[kind].items()))
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": card, "tag": tag, "sums": sums,
                        "pw": {str(k): v for k, v in pw.items()},
-                       "dw": {str(k): v for k, v in dw.items()}}, f,
+                       "dw": {str(k): v for k, v in dw.items()},
+                       "dww": {str(k): v for k, v in dww.items()}}, f,
                       indent=1)
     return 0
 

@@ -959,6 +959,48 @@ def test_flash_attention_bf16_kernel_matches_plain_version(cuda, case):
     _agree(got, fak.attend_plain(q, k, v, **kw))
 
 
+@pytest.mark.parametrize("case", BF16_FLASH_CASES, ids=lambda c: c[0])
+def test_flash_attention_f32_kernel_matches_plain_version(cuda, case):
+    # the same cases in f32: every one on the tensor-core kernel (Dh <= 128,
+    # G <= 128)
+    from repro_torch.kernels import flash_attention as fak
+    _, b, s, nkv, g, dh, causal, window, cap, kv_valid, stride = case
+    q, k, v = _attend_operands(cuda, b, s, s, nkv, g, dh, torch.float32,
+                               seed=s + g)
+    pos = torch.arange(s, device=cuda, dtype=torch.int32)[None].expand(b, s)
+    if stride:
+        pos = stride * pos + 7
+    kw = dict(q_positions=pos, kv_positions=pos, causal=causal,
+              window=window, cap=cap, scale=dh ** -0.5,
+              kv_valid=None if kv_valid is None else
+              torch.tensor(kv_valid, device=cuda))
+    fak.reset_launches()
+    got = fak.attend(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fak.LAUNCHES["flash_attention"] == 1
+    assert fak.KERNEL_LAUNCHES == {"fma": 0, "bf16": 0, "tf32": 1}
+    _agree(got, fak.attend_plain(q, k, v, **kw))
+
+
+def test_flash_attention_f32_routes_past_the_tensor_core_kernel(cuda):
+    # Dh 256, G 130 and K/V expanded over the KV heads (stride 0) run on
+    # CUDA cores (flash_fwd_kernel), by the rule
+    from repro_torch.kernels import flash_attention as fak
+    for nkv, g, dh, expand in ((1, 2, 256, False), (1, 130, 16, False),
+                               (2, 4, 80, True)):
+        q, k, v = _attend_operands(cuda, 1, 70, 70, nkv, g, dh,
+                                   torch.float32)
+        if expand:
+            k, v = (t[:, :, :1].expand(t.shape) for t in (k, v))
+        pos = torch.arange(70, device=cuda)[None]
+        kw = dict(q_positions=pos, kv_positions=pos, scale=dh ** -0.5)
+        fak.reset_launches()
+        got = fak.attend(q, k, v, **kw)
+        torch.cuda.synchronize()
+        assert fak.KERNEL_LAUNCHES == {"fma": 1, "bf16": 0, "tf32": 0}
+        _agree(got, fak.attend_plain(q, k, v, **kw))
+
+
 @pytest.mark.parametrize("chunk", [2048, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_rows_that_see_no_key_match_plain_version(

@@ -333,10 +333,11 @@ def test_separable_choosers_fit_the_cta_at_every_mobilenet_shape(n):
             assert d.grid == min(d.items, m.wave)
         wg = blocking.choose_depthwise_wgrad_blocking(n, ci // cb, ho, ho, cb,
                                                       3, 3, s)
-        assert ho % wg.hob == 0 and ho % wg.wob == 0
+        assert ho % wg.hob == 0 and ho % wg.wob == 0 and cb % wg.lanes == 0
         assert blocking.depthwise_wgrad_smem_bytes(
-            wg.hob, wg.wob, cb, 3, 3, s) <= m.smem_budget
-        assert 1 <= wg.splits <= wg.tiles == n * (ho // wg.hob) * (
+            wg.hwin, wg.wwin, wg.hob, wg.wob, wg.lanes, 9, True) \
+            <= m.smem_budget
+        assert 1 <= wg.splits <= wg.per_column == n * (ho // wg.hob) * (
             ho // wg.wob)
         hw = ho * ho
         for gap in (False, True):
