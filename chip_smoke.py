@@ -181,7 +181,24 @@ and no phase catches its own failure:
     split P @ V executes is printed beside it); per
     model, prefill ms and tokens/s in f32 and bf16, the plain path's
     prefill, decode ms a step at batch 4, and peak device memory beside
-    the parameter and cache bytes.
+    the parameter and cache bytes;
+22. the bf16 build of the dense forward tile (``fwd_kernel_bf16``,
+    ``stream_fwd_kernel_bf16``) against the plain version under ``BF16``
+    at every VGG-16 shape of both buckets and at gelu + residual + GAP
+    shapes with ``Cib = 3`` and 64 (one bf16 ulp plus ``BF16_FWD_REL`` of
+    max|y|); the GAP replay (``conv2d_common.gap_replay``) bit for bit the
+    kernel's pooled features on its own stored map, f32 and bf16, both
+    routes; the last main paths: VGG-16 (phase 4's weights) served in
+    bf16 through ``ConvServer``, window then ``stream=True``, 24 requests
+    each OK with only the bf16 forward launched, the served logits within
+    twice the bf16 plain forward's distance from the f32 plain logits;
+    peak device memory beside ``memory_model``'s bytes held;
+    ``assert_zero_overhead`` on the served blocked tensors; im2col and FFT
+    at conv5_2 against ``F.conv2d``; a small ``ResidualBlock`` stack's
+    forward (f32, bf16) and one train step through the kernels against the
+    plain path; per-layer and summed bf16 times (eager, CUDA graph, plain,
+    cuDNN bf16 channels-last, the bound at the bf16 peak, the weight
+    cast) and the whole bf16 forward.
 
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -297,6 +314,10 @@ EXACT_MULT = 4
 # times the reading of a control, the plain path with the kernel's own sums
 # in another order (see lm_phases)
 BF16_CONTROL_MULT = 4
+# the bf16 forwards against their plain versions under BF16: one bf16 ulp
+# of each element's magnitude (the two round f32 sums of the same bf16
+# products, in other orders, once to bf16) plus this share of max|y|
+BF16_FWD_REL = 1e-5
 # NVIDIA H100 SXM data sheet: dense bf16 and TF32 tensor-core peaks
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -742,24 +763,31 @@ def c1_dgrads(route: str, streamed: bool) -> float:
     return worst
 
 
-def plain_cnn_forward(x, m):
+def plain_cnn_forward(x, m, precision=None):
     """A ``BlockedCNN``'s forward through the plain conv, dense or
-    depthwise (a pointwise leg is a dense 1x1 conv), differentiable by
-    torch autograd and independent of the port's plain dgrad and wgrad."""
+    depthwise (a pointwise leg is a dense 1x1 conv; a ``ResidualBlock``
+    adds its input in the epilogue), differentiable by torch autograd and
+    independent of the port's plain dgrad and wgrad.  ``precision="bf16"``
+    chains the layers in bf16 as the model does under that policy: the
+    images cast once, bf16 maps and pooled features, the head cast to
+    bf16."""
     from repro_torch.core.direct_conv import direct_conv_blocked
     from repro_torch.core.layout import nhwc_to_blocked
-    from repro_torch.nn.conv import DepthwiseSeparableBlock
-    hb = nhwc_to_blocked(x, m.convs[0].in_pencil)
+    from repro_torch.core.precision import resolve_precision
+    from repro_torch.nn.conv import DepthwiseSeparableBlock, ResidualBlock
+    op = resolve_precision(precision).op_dtype
+    hb = nhwc_to_blocked(x.to(op), m.convs[0].in_pencil)
     last = len(m.convs) - 1
     for i, layer in enumerate(m.convs):
         legs = ((layer.dw, layer.pw)
                 if isinstance(layer, DepthwiseSeparableBlock) else (layer,))
         for leg in legs:
-            hb = direct_conv_blocked(hb, leg.w, leg.stride, leg.padding,
-                                     leg.b, leg.activation, groups=leg.groups,
-                                     dilation=leg.dilation,
-                                     gap=i == last and leg is legs[-1])
-    return hb @ m.head
+            hb = direct_conv_blocked(
+                hb, leg.w, leg.stride, leg.padding, leg.b, leg.activation,
+                precision, groups=leg.groups, dilation=leg.dilation,
+                residual=hb if isinstance(leg, ResidualBlock) else None,
+                gap=i == last and leg is legs[-1])
+    return hb @ m.head.to(hb.dtype)
 
 
 def _kernel_modules():
@@ -2767,6 +2795,421 @@ def lm_phases(args, dev, t_start):
     return entries, launches
 
 
+def bf16_close(label: str, got, want) -> float:
+    """Print and check a bf16 kernel against its plain version under BF16:
+    both round f32 sums of the same bf16 products once to bf16, in other
+    orders, so each element within one bf16 ulp of its magnitude plus
+    ``BF16_FWD_REL`` of max|want|; -> max abs error."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{label}: {got.dtype} {tuple(got.shape)} against "
+             f"{want.dtype} {tuple(want.shape)}")
+    if not torch.isfinite(got).all():
+        fail(f"{label}: non-finite output")
+    g, w = got.double(), want.double()
+    err = (g - w).abs()
+    bound = (bf16_ulp(w) + BF16_FWD_REL * w.abs().max())
+    worst = (err / bound).max().item()
+    ok = worst <= 1.0
+    print(f"[bf16] {label}: max_abs_err={err.max().item():.3e} worst "
+          f"err/(1 bf16 ulp + {BF16_FWD_REL:g} max) {worst:.3f} -> "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"{label} disagrees with its plain version")
+    return err.max().item()
+
+
+def bf16_phases(args, dev, t_start, model):
+    """Phase 22: the bf16 build of the dense forward tile on both routes,
+    the GAP replay, VGG-16 (``model``, phase 4's) served in bf16 through
+    ``ConvServer`` on both routes, the layer times, peak memory, the layout
+    and baseline checks, and a small ``ResidualBlock`` stack.  -> (the bf16
+    kernels' entries of the ``{"kernels": [...]}`` line, the launches of the
+    two bf16 main-path runs per kernel)."""
+    from repro_torch.configs.cnn import vgg16_layers
+    from repro_torch.core import conv2d_common
+    from repro_torch.core import conv_baselines as base
+    from repro_torch.core import layout as L
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    from repro_torch.core.precision import Precision
+    from repro_torch.kernels import conv2d_stream as stk
+    from repro_torch.kernels.direct_conv2d import (LAUNCHES,
+                                                   direct_conv2d_blocked,
+                                                   fwd_plans, gap_forward)
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.nn.conv import BlockedCNN, BlockedConv2D, ResidualBlock
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 40)
+    names = {False: "direct_conv2d_fwd_bf16", True: "conv2d_stream_fwd_bf16"}
+
+    def launches(streamed):
+        return (stk.LAUNCHES if streamed else LAUNCHES)[names[streamed]]
+
+    def operands(n, ci, co, h, stride, residual=False):
+        cib, cob = min(ci, 128), min(co, 128)
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
+        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
+                        generator=gen) / (9 * ci) ** 0.5
+        b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
+        r = (torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=dev,
+                         generator=gen).bfloat16() if residual else None)
+        return x.bfloat16(), w, b, r, spec
+
+    def layer_shapes(entry):
+        out, h = [], entry
+        for ci, co, s in vgg16_layers():
+            out.append((ci, co, s, h))
+            h = -(-h // s)
+        return out
+
+    # -- 22(a) each bf16 forward against its plain version ------------------
+    served = [sh for bh, _ in BUCKETS for sh in layer_shapes(bh)]
+    checked = sorted(set(served), key=served.index)
+    max_err = {False: 0.0, True: 0.0}
+    with torch.no_grad():
+        for ci, co, s, h in checked:
+            x, w, b, _, _ = operands(BATCH, ci, co, h, s)
+            want = direct_conv_blocked(x, w, s, "SAME", b, "relu", "bf16")
+            for streamed in (False, True):
+                got = direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                            precision="bf16",
+                                            stream=streamed)
+                torch.cuda.synchronize()
+                max_err[streamed] = max(max_err[streamed], bf16_close(
+                    f"{'streamed' if streamed else 'window'} conv {ci}->{co}"
+                    f" {h}x{h} s{s} n{BATCH} relu", got, want))
+            del x, w, want, got
+        for n, ci, co, h, s in ((2, 3, 64, 20, 2), (2, 64, 128, 28, 1)):
+            x, w, b, r, _ = operands(n, ci, co, h, s, residual=True)
+            want = direct_conv_blocked(x, w, s, "SAME", b, "gelu", "bf16",
+                                       residual=r, gap=True)
+            for streamed in (False, True):
+                got = direct_conv2d_blocked(x, w, b, s, "SAME", "gelu",
+                                            residual=r, gap=True,
+                                            precision="bf16",
+                                            stream=streamed)
+                torch.cuda.synchronize()
+                max_err[streamed] = max(max_err[streamed], bf16_close(
+                    f"{'streamed' if streamed else 'window'} conv {ci}->{co}"
+                    f" {h}x{h} s{s} n{n} gelu+residual+gap", got, want))
+
+        # -- 22(b) the GAP replay on the kernel's own stored map ------------
+        ci, co, s, h = layer_shapes(ENTRY)[-1]
+        cases = ((BATCH, ci, co, h, s, "relu", False),
+                 (2, 3, 64, 20, 2, "gelu", True))
+        for n, ci, co, h, s, act, res in cases:
+            x, w, b, r, _ = operands(n, ci, co, h, s, residual=res)
+            for prec in ("f32", "bf16"):
+                xx = x if prec == "bf16" else x.float()
+                rr = None if r is None else (r if prec == "bf16"
+                                             else r.float())
+                for streamed in (False, True):
+                    pooled, _, out, blk = gap_forward(
+                        xx, w, b, s, "SAME", act, rr, streamed=streamed,
+                        precision=prec, with_map=True)
+                    replay = conv2d_common.gap_replay(out, blk)
+                    torch.cuda.synchronize()
+                    route = "streamed" if streamed else "window"
+                    if not torch.equal(replay, pooled):
+                        fail(f"{route} {prec} GAP replay differs from the "
+                             f"kernel's pooled features at {ci}->{co} "
+                             f"{h}x{h}")
+                    print(f"[bf16] GAP replay {route} {prec} {ci}->{co} "
+                          f"{h}x{h} s{s} n{n} {act}"
+                          f"{'+residual' if res else ''}: identical bits to "
+                          f"the kernel's pooled {list(pooled.shape)} "
+                          f"{pooled.dtype} over {blk.tiles} tiles of "
+                          f"{blk.th}x{blk.tw}")
+
+    # an fp16 policy has no build: refused on the card, never run in bf16;
+    # bf16 training is refused until its backward tiles exist
+    x, w, b, _, _ = operands(2, 64, 64, 8, 1)
+    fp16 = Precision(operand="float16")
+    for streamed in (False, True):
+        for call, what in (
+                (lambda: direct_conv2d_blocked(
+                    x.half(), w, b, 1, "SAME", "relu", precision=fp16,
+                    stream=streamed), "fp16 inference"),
+                (lambda: direct_conv2d_blocked(
+                    x, w.requires_grad_(), b, 1, "SAME", "relu",
+                    precision="bf16", stream=streamed), "bf16 training")):
+            reset_all_launches()
+            try:
+                call()
+            except NotImplementedError:
+                pass
+            else:
+                fail(f"{what} on the {'streamed' if streamed else 'window'} "
+                     "route ran instead of raising NotImplementedError")
+            w.requires_grad_(False)
+            if any(all_launches().values()):
+                fail(f"{what} launched {all_launches()}")
+    print("[bf16] fp16 inference and bf16 training raise NotImplementedError "
+          "on both routes, no launch")
+    print(f"[time] phase 22(a-b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 22(c) VGG-16 served in bf16, window then streamed -------------------
+    bf16 = ConvContext(precision="bf16")
+    rng = np.random.default_rng(args.seed + 40)
+    runs, counts = {}, {}
+    for streamed in (False, True):
+        ctx = ConvContext(precision="bf16", stream=streamed)
+        server = ConvServer(model, list(BUCKETS), BATCH, device=dev,
+                            context=ctx)
+        server.warmup()
+        reqs = []
+        for rid in range(24):
+            hh, ww = (int(v) for v in rng.integers(96, ENTRY + 1, size=2))
+            reqs.append(ConvRequest(rid, rng.standard_normal(
+                (hh, ww, 3), dtype=np.float32)))
+        reset_all_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        for r in reqs:
+            server.submit(r)
+        server.run()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base_mem
+        got = {k: v for k, v in all_launches().items() if v}
+        route = "streamed" if streamed else "window"
+        n_fwd = server.health()["batches"]
+        print(f"[bf16-serve] {route}: launches {got} batches {n_fwd}")
+        if got != {names[streamed]: 13 * n_fwd}:
+            fail(f"the bf16 {route} serve launched {got}, not 13 "
+                 f"{names[streamed]} a batch (no f32, backward or plain "
+                 "route)")
+        bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
+        if bad:
+            fail(f"bf16 {route} requests not OK: {bad}")
+        counts[names[streamed]] = got.get(names[streamed], 0)
+        runs[streamed] = (reqs, server, peak)
+
+    with torch.no_grad():
+        served_err = {False: 0.0, True: 0.0}
+        plain_err = 0.0
+        for i, r in enumerate(runs[False][0] + runs[True][0]):
+            streamed = i >= 24
+            img = torch.from_numpy(runs[streamed][1].bucketer.pad(
+                r.image, r.bucket))[None].to(dev)
+            f32 = plain_cnn_forward(img, model)[0]
+            scale = f32.abs().max().item()
+            served_err[streamed] = max(served_err[streamed], float(
+                (torch.from_numpy(r.logits).to(dev) - f32).abs().max())
+                / scale)
+            pb = plain_cnn_forward(img, model, "bf16")[0].float()
+            plain_err = max(plain_err, float((pb - f32).abs().max()) / scale)
+    for streamed in (False, True):
+        route = "streamed" if streamed else "window"
+        reqs, server, peak = runs[streamed]
+        lat = server.latencies() * 1e3
+        print(f"[bf16-serve] {route}: 24 requests OK; served logits vs the "
+              f"f32 plain forward: max rel-to-max err "
+              f"{served_err[streamed]:.3e}, the bf16 plain forward's "
+              f"{plain_err:.3e} (limit 2x: {2 * plain_err:.3e}); latency "
+              f"p50 {np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms")
+        if not served_err[streamed] <= 2 * plain_err:
+            fail(f"bf16 {route} served logits are further from the f32 "
+                 "plain forward than twice the bf16 plain forward")
+
+    # -- 22(d) peak memory, zero overhead, the memory model ------------------
+    params = sum(p.numel() for p in model.parameters())
+    shapes = [mm.ConvShape(f"conv{i}", BATCH, h, h, ci, co, 3, 3, s, "SAME")
+              for i, (ci, co, s, h) in enumerate(layer_shapes(ENTRY))]
+    held = max(sh.base_bytes(2) for sh in shapes)
+    images = 4 * BATCH * ENTRY * ENTRY * 3
+    for streamed in (False, True):
+        route = "streamed" if streamed else "window"
+        peak = runs[streamed][2]
+        print(f"[bf16-serve] {route}: peak device memory above the f32 "
+              f"weights ({4 * params / 2**20:.1f} MiB) {peak / 2**20:.1f} "
+              f"MiB; memory_model's largest layer held in bf16 (x, bf16 w, "
+              f"y) {held / 2**20:.1f} MiB + the f32 images "
+              f"{images / 2**20:.1f} MiB")
+    seen = []
+    hooks = [c.register_forward_hook(
+        lambda mod, inp, out: seen.append((inp[0].shape, out.shape)))
+        for c in model.convs]
+    with torch.no_grad():
+        model(torch.randn((BATCH, ENTRY, ENTRY, 3), device=dev),
+              context=bf16)
+    for hk in hooks:
+        hk.remove()
+    for (xin, yout), c in zip(seen, model.convs):
+        n, cblk, h, w, cb = xin
+        L.assert_zero_overhead((n, h, w, cblk * cb), tuple(xin))
+        if len(yout) == 5:
+            n, cblk, h, w, cb = yout
+            L.assert_zero_overhead((n, h, w, cblk * cb), tuple(yout))
+    print(f"[bf16-serve] assert_zero_overhead holds on the {len(seen)} "
+          "served layers' blocked inputs and outputs")
+    direct_mib = sum(mm.bytes_overhead(sh, "direct", 2) for sh in shapes)
+    im2col_mib = sum(mm.bytes_overhead(sh, "im2col", 2)
+                     for sh in shapes) / 2**20
+    print(f"[bf16-serve] memory_model over the 13 convs in bf16: direct "
+          f"overhead {direct_mib} B, im2col {im2col_mib:.1f} MiB, chained "
+          f"repacks removed {mm.chain_repack_bytes(shapes, 2) / 2**20:.1f} "
+          "MiB")
+
+    # the baselines at conv5_2 (batch 8, 14x14) against F.conv2d
+    x = torch.randn((BATCH, 14, 14, 512), device=dev, generator=gen)
+    w = torch.randn((3, 3, 512, 512), device=dev, generator=gen) / 48.0
+    want = base.conv_lax(x, w, 1, "SAME")
+    scale = want.abs().max().item()
+    xp = base.pad_input(x, "SAME", 3, 3)
+    packed = base.im2col(xp, 3, 3)
+    sh = mm.ConvShape("conv5_2", BATCH, 14, 14, 512, 512, 3, 3, 1, "SAME")
+    if 4 * packed.numel() != mm.bytes_overhead(sh, "im2col", 4):
+        fail("im2col's packed matrix is not memory_model's im2col bytes")
+    del packed, xp
+    for name, got, rel in (
+            ("conv_im2col", base.conv_im2col(x, w, 1, "SAME"), 1e-5),
+            ("conv_fft", base.conv_fft(x, w, 1, "SAME"), 1e-4)):
+        compare(f"baseline {name} conv5_2 n{BATCH} vs F.conv2d", got, want,
+                atol=rel * scale, rtol=0.0)
+    print(f"[bf16] baselines: im2col's packed matrix "
+          f"{mm.bytes_overhead(sh, 'im2col', 4) / 2**20:.1f} MiB, the FFT's "
+          f"buffers {mm.bytes_overhead(sh, 'fft', 4) / 2**20:.1f} MiB "
+          "(memory_model), direct 0")
+    del x, w, want
+
+    # -- 22(e) a small ResidualBlock stack: forward and one train step -------
+    rgen = torch.Generator().manual_seed(args.seed + 41)
+    convs = [BlockedConv2D(3, 64, device=dev, generator=rgen),
+             ResidualBlock(64, 64, activation="gelu", device=dev,
+                           generator=rgen),
+             BlockedConv2D(64, 128, stride=2, device=dev, generator=rgen),
+             ResidualBlock(128, 128, device=dev, generator=rgen)]
+    rmodel = BlockedCNN(convs, 10, device=dev, generator=rgen)
+    imgs = torch.randn((2, 32, 32, 3), device=dev, generator=gen)
+    with torch.no_grad():
+        reset_all_launches()
+        got = rmodel(imgs)
+        torch.cuda.synchronize()
+        if LAUNCHES["direct_conv2d_fwd"] != 4:
+            fail(f"the residual stack did not run the kernels: {LAUNCHES}")
+        want = plain_cnn_forward(imgs, rmodel)
+        compare("residual stack forward vs plain", got, want,
+                atol=LOGIT_RTOL * want.abs().max().item(), rtol=0.0)
+        bf16_close("residual stack bf16 forward vs plain bf16",
+                   rmodel(imgs, context=bf16),
+                   plain_cnn_forward(imgs, rmodel, "bf16"))
+    ct = torch.randn((2, 10), device=dev, generator=gen)
+    reset_all_launches()
+    (rmodel(imgs) * ct).sum().backward()
+    torch.cuda.synchronize()
+    ran = {k: v for k, v in all_launches().items() if v}
+    kgrads = [p.grad.clone() for p in rmodel.parameters()]
+    for p in rmodel.parameters():
+        p.grad = None
+    (plain_cnn_forward(imgs, rmodel) * ct).sum().backward()
+    for (name, p), g in zip(rmodel.named_parameters(), kgrads):
+        compare(f"residual stack step grad {name} vs plain autograd", g,
+                p.grad, atol=GRAD_RTOL * p.grad.abs().max().item(), rtol=0.0)
+    print(f"[bf16] residual stack train step launches {ran}")
+    if ran.get("direct_conv2d_dgrad", 0) < 3 or \
+            ran.get("direct_conv2d_wgrad", 0) < 4:
+        fail(f"the residual stack's step did not run the backward kernels: "
+             f"{ran}")
+    del rmodel
+    print(f"[time] phase 22(c-e) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 22(f) per-layer times of the bf16 forwards ---------------------------
+    rows = {False: [], True: []}
+    cast = []
+    with torch.no_grad():
+        for name, (ci, co, s, h) in zip(LAYER_NAMES, layer_shapes(ENTRY)):
+            x, w32, b, _, spec = operands(BATCH, ci, co, h, s)
+            w = w32.bfloat16()
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(BATCH, ci, h, h),
+                       (pl, pr, pt, pb)).contiguous(
+                memory_format=torch.channels_last)
+            w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
+                      .contiguous(memory_format=torch.channels_last))
+            b_flat = b.reshape(co).bfloat16()
+            l_ms = time_ms(lambda: F.conv2d(xp, w_oihw, b_flat, stride=s))
+            l_graph = graph_ms(lambda: F.conv2d(xp, w_oihw, b_flat,
+                                                stride=s))
+            p_ms = time_ms(lambda: direct_conv_blocked(
+                x, w, s, "SAME", b, "relu", "bf16"), iters=3)
+            c_ms = time_ms(lambda: w32.to(torch.bfloat16))
+            cast.append(c_ms)
+            nbytes = 2 * (x.numel() + w.numel()
+                          + BATCH * co * spec.ho * spec.wo) + 4 * b.numel()
+            b_ms, b_by = bound(spec.flops(), nbytes, PEAK_BF16_FLOPS)
+            for streamed in (False, True):
+                def fwd():
+                    return direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                                 precision="bf16",
+                                                 stream=streamed)
+                kernel, model_plan = fwd_plans(x, w, s, "SAME",
+                                               streamed=streamed,
+                                               dtype=torch.bfloat16)
+                if kernel != model_plan:
+                    fail(f"bf16 {name}: the kernel's plan {kernel} != the "
+                         f"blocking model's {model_plan}")
+                k_ms, g_ms = time_ms(fwd), graph_ms(fwd)
+                rows[streamed].append((k_ms, g_ms, p_ms, l_ms, l_graph, b_ms,
+                                       b_by, kernel))
+                route = "streamed" if streamed else "window"
+                print(f"[bf16-time] {name} {route} {ci}->{co} in {h}x{h} "
+                      f"s{s} n{BATCH}: kernel_ms "
+                      f"{k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
+                      f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] bound_ms "
+                      f"{b_ms:.4f} ({b_by}, bf16) bound/graph "
+                      f"{b_ms / g_ms:.3f}; weight cast ms {c_ms:.4f}; "
+                      f"{kernel.tiles} tiles, tensor-core MACs issued "
+                      f"{kernel.issued_macs} (padding "
+                      f"{100 * kernel.padding_share:.1f} %), shared memory "
+                      f"{kernel.smem} B")
+            del x, w, w32, xp, w_oihw
+    entries = []
+    for streamed in (False, True):
+        rs = rows[streamed]
+        tot = [sum(r[i] for r in rs) for i in range(6)]
+        by = mostly([(r[5], r[6]) for r in rs])
+        macs = sum(r[7].function_macs for r in rs)
+        issued = sum(r[7].issued_macs for r in rs)
+        route = "streamed" if streamed else "window"
+        print(f"[bf16-time] all 13 convs {route}: kernel_ms {tot[0]:.4f} "
+              f"graph_ms {tot[1]:.4f} plain_ms {tot[2]:.4f} cuDNN bf16 ms "
+              f"{tot[3]:.4f} [{tot[4]:.4f}] bound_ms {tot[5]:.4f} ({by}, "
+              f"bf16), {100 * tot[5] / tot[1]:.1f} % of the bound as a "
+              f"graph; weight casts {sum(cast):.4f} ms; function MACs "
+              f"{macs}, issued {issued} (padding "
+              f"{100 * (1 - macs / issued):.1f} %)")
+        fn = "stream_fwd_kernel_bf16" if streamed else "fwd_kernel_bf16"
+        entries.append({
+            "name": f"{names[streamed]} ({fn})",
+            "route": "cuda", "source": STREAM_SOURCE if streamed
+            else KERNEL_SOURCE,
+            "replaces": TPU_STREAM if streamed else TPU_KERNEL,
+            "launches": counts[names[streamed]],
+            "max_abs_err": max_err[streamed], "ms": tot[0],
+            "plain_ms": tot[2], "bound_ms": tot[5], "bound_by": by,
+            "library_ms": tot[3]})
+    with torch.no_grad():
+        img = torch.randn((BATCH, ENTRY, ENTRY, 3), device=dev)
+        for streamed in (False, True):
+            ctx = ConvContext(precision="bf16", stream=streamed)
+            f_ms = time_ms(lambda: model(img, context=ctx), iters=5)
+            f_graph = graph_ms(lambda: model(img, context=ctx), iters=3)
+            print(f"[bf16-time] VGG-16 forward n{BATCH} {ENTRY}x{ENTRY} "
+                  f"bf16 {'streamed' if streamed else 'window'}: "
+                  f"{f_ms:.3f} ms eager, {f_graph:.3f} ms as a CUDA graph "
+                  "(weight casts included)")
+        f32_ms = time_ms(lambda: model(img), iters=5)
+        print(f"[bf16-time] VGG-16 forward n{BATCH} {ENTRY}x{ENTRY} f32 "
+              f"window: {f32_ms:.3f} ms eager (the same call)")
+    print(f"[time] phase 22 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3321,6 +3764,7 @@ def main(argv=None) -> int:
     mb_entries, mb_counts = mobilenet_phases(args, dev, t_start)
     st_entries, st_counts = stream_phases(args, dev, t_start)
     lm_entries, lm_counts = lm_phases(args, dev, t_start)
+    bf_entries, bf_counts = bf16_phases(args, dev, t_start, model)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -3328,7 +3772,8 @@ def main(argv=None) -> int:
                 + st_counts[k] for k in st_counts}
     print(f"[launches] VGG-16 served {served} trained {train_counts}; "
           f"MobileNet v1 served and trained {mb_counts}; VGG-16 on the "
-          f"streamed route served and trained {st_counts}")
+          f"streamed route served and trained {st_counts}; VGG-16 served "
+          f"in bf16 on both routes {bf_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -3349,6 +3794,7 @@ def main(argv=None) -> int:
     kernels.extend(mb_entries)
     kernels.extend(st_entries)
     kernels.extend(lm_entries)
+    kernels.extend(bf_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

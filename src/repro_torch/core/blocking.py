@@ -65,7 +65,7 @@ from repro_torch.core.layout import divisors
 
 __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "FWD_ROWS", "FWD_CONSUMERS", "FWD_THREADS", "FWD_WIDE_CONSUMERS",
-           "FwdBlocking",
+           "FWD_K_STEP", "fwd_kpad", "FwdBlocking",
            "fwd_smem_bytes", "FwdPlan", "fwd_plan", "fwd_candidates",
            "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
            "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
@@ -158,6 +158,15 @@ H100_SXM = MachineModel(
 # (two consumer warpgroups then keep the rate no worse than one).
 # tests/test_torch_fwd_tiles.py pins the tiles chosen there, so a change
 # here that moves one shows.
+#
+# The bf16 build of the tile (``op_bytes`` 2) contracts bf16 operands on
+# bf16 wgmma, k16 steps, one product a MAC: its chunk is a multiple of 16,
+# Cib pads to k16 slices, its window and weights take 2 bytes an element,
+# and the weights land by TMA straight into the slot the wgmma reads (no
+# raw buffer, no split), so a CTA stages chunks four to five times the f32
+# tile's.  Its cost is the same model at the bf16 rate (twice the TF32
+# MACs a cycle, once a MAC) with no weight split; its constants are the f32
+# fit's, not timed for bf16.
 FWD_ROWS = 64
 FWD_CONSUMERS = 3
 FWD_THREADS = 128 * (FWD_CONSUMERS + 1)     # the largest CTA (kMaxThreads)
@@ -172,6 +181,23 @@ FWD_SPLIT_CYCLES = 5.5      # a weight transposed and split into halves
 FWD_TILE_CYCLES = 8100      # a CTA's first stage and its epilogue
 # the shared memory of one SM (228 KB), which two small CTAs may share
 FWD_SM_SMEM = 233472
+# the contraction's slice a wgmma step takes, by operand bytes: TF32 k8
+# (3xTF32 for f32 operands), bf16 k16
+FWD_K_STEP = {4: 8, 2: 16}
+
+
+def fwd_kpad(cib: int, op_bytes: int = 4) -> int:
+    """Cib rounded up to the k-slices of the forward tile's wgmma steps."""
+    k = _fwd_k_step(op_bytes)
+    return -(-cib // k) * k
+
+
+def _fwd_k_step(op_bytes: int) -> int:
+    try:
+        return FWD_K_STEP[op_bytes]
+    except KeyError:
+        raise ValueError(f"the forward tile takes 4- or 2-byte operands "
+                         f"(f32, bf16); got {op_bytes}") from None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,23 +232,36 @@ class FwdBlocking:
 
 def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                    chunk: int, lanes: int, wgs: int,
-                   gap: bool = False) -> int:
-    """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``):
-    128 bytes to align the base; per slot of the two-slot ring the input
-    window (``hwin`` rows of ``wwin`` cells of ``chunk + 4`` floats, the
-    columns of each stride phase together, rounded up to 128 bytes) and the
-    weight chunk's big and small halves ``[taps * chunk / 4][lanes][4]``;
-    the raw weight chunk; an int a k8 step (an even count); the weights'
-    8-byte mbarrier; with ``gap`` the consumer warps' ``[4 * wgs][lanes]``
-    sums."""
+                   gap: bool = False, op_bytes: int = 4) -> int:
+    """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``,
+    ``fwd_tile::bf16::smem_bytes`` for ``op_bytes`` 2).
+
+    f32: 128 bytes to align the base; per slot of the two-slot ring the
+    input window (``hwin`` rows of ``wwin`` cells of ``chunk + 4`` floats,
+    the columns of each stride phase together, rounded up to 128 bytes)
+    and the weight chunk's big and small halves ``[taps * chunk /
+    4][lanes][4]``; the raw weight chunk; an int a k8 step (an even count);
+    the weights' 8-byte mbarrier; with ``gap`` the consumer warps' ``[4 *
+    wgs][lanes]`` f32 sums.
+
+    bf16: 128 bytes to align the base; per slot the window (cells of
+    ``chunk + 8`` bf16, rounded up to 128 bytes) and the bf16 weight chunk
+    ``[taps][lanes / 8][chunk][8]`` as the TMA copy lands it; two ints a
+    k16 step (its A and B offsets); an 8-byte mbarrier a slot; the GAP sums
+    as f32's."""
     hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    weights = hf * wf * chunk * lanes
+    red = 4 * wgs * lanes if gap else 0
+    if _fwd_k_step(op_bytes) == 16:
+        row = stride * -(-wwin // stride) * (chunk + 8)
+        window = -(-hwin * row // 64) * 64
+        steps = hf * wf * chunk // 16
+        return 128 + 2 * 2 * (window + weights) + 8 * steps + 8 * 2 + 4 * red
     row = stride * -(-wwin // stride) * (chunk + 4)
     window = -(-hwin * row // 32) * 32
-    weights = hf * wf * chunk * lanes
     steps = hf * wf * chunk // 8
     return 128 + 8 + 4 * (2 * (window + 2 * weights) + weights
-                          + -(-steps // 2) * 2
-                          + (4 * wgs * lanes if gap else 0))
+                          + -(-steps // 2) * 2 + red)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,12 +269,14 @@ class FwdPlan:
     """What one forward launch runs (``fwd_tile::plan`` is its C++ twin):
     ``tiles``, an image's tiles; ``function_macs``, positions x taps x Ci
     x Co; ``issued_macs``, the tensor-core MACs: every CTA's ``64 * wgs``
-    rows by ``lanes`` over every tap and Cib padded to k8 slices, three
-    products each; ``smem``, a CTA's dynamic shared memory."""
+    rows by ``lanes`` over every tap and Cib padded to the k-slices,
+    ``products`` each (three for 3xTF32, one for bf16); ``smem``, a CTA's
+    dynamic shared memory."""
     tiles: int
     function_macs: int
     issued_macs: int
     smem: int
+    products: int = 3
 
     @property
     def padding_share(self) -> float:
@@ -244,22 +285,24 @@ class FwdPlan:
         past Cib."""
         if not self.issued_macs:
             return 0.0
-        return 1 - 3 * self.function_macs / self.issued_macs
+        return 1 - self.products * self.function_macs / self.issued_macs
 
 
 def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
              stride: int, ciblk: int, cib: int, coblk: int, cob: int,
-             gap: bool = False) -> FwdPlan:
+             gap: bool = False, op_bytes: int = 4) -> FwdPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an ``ho
-    x wo`` output."""
-    kpad = -(-cib // 8) * 8
+    x wo`` output, with ``op_bytes`` operands."""
+    products = 3 if op_bytes == 4 else 1
     return FwdPlan(
         tiles=blk.tiles,
         function_macs=n * ho * wo * hf * wf * ciblk * cib * coblk * cob,
-        issued_macs=(3 * n * blk.tiles * coblk * blk.nsplit * FWD_ROWS
-                     * blk.wgs * blk.lanes * hf * wf * ciblk * kpad),
+        issued_macs=(products * n * blk.tiles * coblk * blk.nsplit * FWD_ROWS
+                     * blk.wgs * blk.lanes * hf * wf * ciblk
+                     * fwd_kpad(cib, op_bytes)),
         smem=fwd_smem_bytes(blk.th, blk.tw, hf, wf, stride, blk.chunk,
-                            blk.lanes, blk.wgs, gap))
+                            blk.lanes, blk.wgs, gap, op_bytes),
+        products=products)
 
 
 def _fwd_shapes(ho: int, wo: int, wgs: int, streamed: bool,
@@ -288,15 +331,17 @@ def _fwd_shapes(ho: int, wo: int, wgs: int, streamed: bool,
 def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                    ciblk: int, cib: int, coblk: int, cob: int,
                    machine: MachineModel, gap: bool, streamed: bool,
-                   hso: int | None = None):
+                   hso: int | None = None, op_bytes: int = 4):
     """The tiles the search weighs, each as ``(key, FwdBlocking)``, the
     least key the choice (see the constants above); ties go to more rows a
     CTA, a larger chunk, fewer splits, fewer tiles, then a smaller
-    window."""
-    kpad = -(-cib // 8) * 8
+    window.  ``op_bytes`` 2 weighs the bf16 build."""
+    step = _fwd_k_step(op_bytes)
+    bf16 = step == 16
+    kpad = fwd_kpad(cib, op_bytes)
     # powers of two: a staged cell's copies then divide the producer's 128
     # threads
-    chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0]
+    chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0 and c >= step]
     taps = hf * wf
     out = []
     for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
@@ -316,7 +361,8 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                         and wgs > FWD_WIDE_CONSUMERS):
                     continue
                 fits = [(c, fwd_smem_bytes(th, tw, hf, wf, stride, c, lanes,
-                                           wgs, gap)) for c in chunks]
+                                           wgs, gap, op_bytes))
+                        for c in chunks]
                 chunk, smem = next(((c, b) for c, b in fits
                                     if b <= machine.smem_block),
                                    (None, None))
@@ -325,16 +371,25 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                 res = 2 if wgs == 1 and 2 * smem <= FWD_SM_SMEM else 1
                 ctas = n * tiles * coblk * nsplit
                 stages = ciblk * kpad // chunk
-                mma = (3 * res * rows * taps * chunk * lanes
-                       / DGRAD_MACS_PER_CYCLE
+                # the tensor cores' MACs a cycle: TF32's, twice that in bf16
+                # at one product a MAC
+                mma = ((1 if bf16 else 3) * res * rows * taps * chunk * lanes
+                       / (DGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
                        / FWD_WG_EFFICIENCY[min(FWD_CONSUMERS, wgs * res)]
-                       + FWD_STEP_CYCLES * taps * chunk // 8)
-                copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
-                          + taps * chunk * lanes / (4 if cob % 4 == 0
-                                                    else 1))
+                       + FWD_STEP_CYCLES * taps * chunk // step)
+                if bf16:     # 16-, 4- or 2-byte window copies; TMA weights
+                    copies = (hwin * wwin * chunk
+                              / (8 if cib % 8 == 0 else 2 if cib % 2 == 0
+                                 else 1)
+                              + (0 if cob % 8 == 0 else taps * chunk * lanes))
+                    split = 0
+                else:
+                    copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
+                              + taps * chunk * lanes / (4 if cob % 4 == 0
+                                                        else 1))
+                    split = FWD_SPLIT_CYCLES * taps * chunk * lanes
                 other = FWD_STAGE_CYCLES + (
-                    FWD_COPY_CYCLES * copies
-                    + FWD_SPLIT_CYCLES * taps * chunk * lanes) / 128
+                    FWD_COPY_CYCLES * copies + split) / 128
                 rounds = -(-(-(-ctas // machine.sms)) // res)
                 cost = rounds * (stages * max(mma, other) + FWD_TILE_CYCLES)
                 out.append(((cost, -rows, -chunk, nsplit, tiles,
@@ -350,12 +405,13 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
 def _fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                   ciblk: int, cib: int, coblk: int, cob: int,
                   machine: MachineModel, gap: bool, streamed: bool,
-                  hso: int | None, what: str) -> FwdBlocking:
+                  hso: int | None, what: str,
+                  op_bytes: int = 4) -> FwdBlocking:
     """The least-cost tile of ``fwd_candidates``."""
     if ho <= 0 or wo <= 0 or n <= 0:
         raise ValueError(f"empty forward: n={n}, output {ho}x{wo}")
     found = fwd_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                           cob, machine, gap, streamed, hso)
+                           cob, machine, gap, streamed, hso, op_bytes)
     if not found:
         raise SmemMisfitError(
             f"no {what} fits the forward (filter {hf}x{wf}, stride {stride},"
@@ -368,12 +424,13 @@ def _fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
 def choose_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                         stride: int, ciblk: int, cib: int, coblk: int,
                         cob: int, machine: MachineModel = H100_SXM,
-                        gap: bool = False) -> FwdBlocking:
+                        gap: bool = False, op_bytes: int = 4) -> FwdBlocking:
     """Tile the window forward of ``n`` images into an ``ho x wo`` output
     (``fwd_candidates``): a CTA stages the whole input window of its tile a
-    stage; ``cib``/``cob`` are the operands' channel pencils."""
+    stage; ``cib``/``cob`` are the operands' channel pencils, ``op_bytes``
+    their element size (4: the f32 tile, 2: its bf16 build)."""
     return _fwd_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                         machine, gap, False, None, "tile")
+                         machine, gap, False, None, "tile", op_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -1444,19 +1501,19 @@ def _round4(n: int) -> int:
 def choose_stream_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                                stride: int, ciblk: int, cib: int, coblk: int,
                                cob: int, machine: MachineModel = H100_SXM,
-                               gap: bool = False,
-                               hso: int | None = None) -> FwdBlocking:
+                               gap: bool = False, hso: int | None = None,
+                               op_bytes: int = 4) -> FwdBlocking:
     """Tile the streamed forward (``fwd_candidates``): a band of two or
     three strips of ``hso`` output rows (``hso`` pins it, and must divide
     ``ho``), each one consumer warpgroup's m-tile, whose input rows arrive
-    strip by strip."""
+    strip by strip; ``op_bytes`` as the window chooser's."""
     if hso is not None and (hso < 1 or ho % hso):
         raise ValueError(f"hso={hso} must divide the rows {ho}")
     if hso is not None and hso > FWD_ROWS:
         raise ValueError(f"hso={hso} rows exceed a strip's {FWD_ROWS} "
                          "positions")
     return _fwd_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                         machine, gap, True, hso, "streamed band")
+                         machine, gap, True, hso, "streamed band", op_bytes)
 
 
 @functools.lru_cache(maxsize=4096)

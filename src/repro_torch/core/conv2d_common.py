@@ -18,6 +18,9 @@ steps in the same order:
   order and scaled by the f32 reciprocal of ``Ho*Wo`` (the last CTA of
   each image and output block does the second step in the launch that
   writes the sums);
+* ``gap_replay`` — the dense forward tile's GAP in its own order, tile by
+  tile as ``csrc/fwd_tile.cuh`` sums it, so that the pooled features of a
+  stored map are the kernel's bit for bit;
 * ``cotangent_prologue`` — the backward kernels' ``dz = g * act'(z)``
   (``csrc/direct_conv2d_bwd.cu`` forms it as it stages ``g``);
 * ``blocked_global_avg_pool`` — the unfused GAP of a stored map, which the
@@ -36,8 +39,8 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["ACTIVATIONS", "apply_activation", "halo_dims", "tap_windows",
-           "epilogue", "gap_partials", "gap_finalize", "cotangent_prologue",
-           "blocked_global_avg_pool", "wgrad_reduce"]
+           "epilogue", "gap_partials", "gap_finalize", "gap_replay",
+           "cotangent_prologue", "blocked_global_avg_pool", "wgrad_reduce"]
 
 # Epilogue activations.  "gelu" is the reference's ``jax.nn.gelu``, whose
 # default is the tanh approximation; the CUDA epilogue uses the same formula.
@@ -125,6 +128,56 @@ def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
         acc = acc + partials[:, :, t]
     inv_hw = float(np.float32(1.0) / np.float32(hw))
     return (acc * inv_hw).reshape(n, coblk * cob)
+
+
+def gap_replay(out: torch.Tensor, blk) -> torch.Tensor:
+    """Pool a stored map ``[N, Co/Cob, Ho, Wo, Cob]`` as the dense forward
+    tile pools it (``csrc/fwd_tile.cuh`` ``run``, the GAP epilogue, and
+    ``split_sum.cuh`` ``gap_fold``) over the tiles ``blk``
+    (``core.blocking.FwdBlocking``: ``th``, ``tw``, ``wgs``, ``strips``)
+    -> ``[N, Co]`` at the map's dtype.
+
+    In each tile every consumer thread adds its two rows (m-tile rows
+    ``16 * warp + lane / 4`` and 8 below), the eight row groups of a warp
+    are added by the ``shfl_xor`` 4, 8, 16 tree, and the consumer warps'
+    sums are added in warp order from 0; a row past the tile, its m-tile
+    or the map adds 0.  The window kernel's m-tile is the tile's ``64 *
+    wgs`` rows; the streamed kernel's warpgroup ``k`` holds strip ``k``.
+    The tiles' sums are then added in index order and multiplied by the f32
+    reciprocal of ``Ho * Wo``, then cast to the map's dtype.  Every step is
+    one f32 addition in that order, so the result is the kernel's pooled
+    features bit for bit when ``out`` is the map the kernel stored (its
+    bf16 values for a bf16 map)."""
+    n, coblk, ho, wo, cob = out.shape
+    th, tw, wgs = blk.th, blk.tw, blk.wgs
+    streamed = blk.strips > 1
+    mstride = th // blk.strips * tw if streamed else 64 * wgs
+    across = -(-wo // tw)
+    tiles = -(-ho // th) * across
+    dev = out.device
+    tile = torch.arange(tiles, device=dev)[:, None, None, None]
+    wid = torch.arange(4 * wgs, device=dev)[None, :, None, None]
+    grp = torch.arange(8, device=dev)[None, None, :, None]
+    half = torch.arange(2, device=dev)[None, None, None, :]
+    wg = wid // 4
+    q = (0 if streamed else 64 * wg) + 16 * (wid % 4) + grp + 8 * half
+    p = (wg * mstride if streamed else 0) + q
+    oh = tile // across * th + p // tw
+    ow = tile % across * tw + p % tw
+    live = (q < mstride) & (p < th * tw) & (oh < ho) & (ow < wo)
+    at = torch.where(live, oh * wo + ow, ho * wo)      # ho * wo: a zero row
+    flat = out.to(torch.float32).reshape(n, coblk, ho * wo, cob)
+    flat = torch.cat([flat, flat.new_zeros((n, coblk, 1, cob))], dim=2)
+    v = flat[:, :, at.reshape(-1)].reshape(n, coblk, tiles, 4 * wgs, 8, 2,
+                                           cob)
+    t = v[..., 0, :] + v[..., 1, :]            # a thread's two rows
+    t = t[..., 0::2, :] + t[..., 1::2, :]      # shfl_xor 4
+    t = t[..., 0::2, :] + t[..., 1::2, :]      # shfl_xor 8
+    t = t[..., 0, :] + t[..., 1, :]            # shfl_xor 16
+    part = torch.zeros_like(t[:, :, :, 0])
+    for w in range(4 * wgs):                   # the consumer warps in order
+        part = part + t[:, :, :, w]
+    return gap_finalize(part, ho * wo).to(out.dtype)
 
 
 def cotangent_prologue(g: torch.Tensor, z: Optional[torch.Tensor],

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.blocking import dgrad_extents, dgrad_phase_axes
+from repro_torch.core import layout as L
 from repro_torch.core.conv2d_common import (apply_activation,
                                             cotangent_prologue, epilogue,
                                             gap_finalize, gap_partials,
@@ -43,7 +44,8 @@ from repro_torch.core.padding import Padding
 from repro_torch.core.precision import resolve_precision
 
 __all__ = ["apply_activation", "pad_blocked", "bias_to_blocked",
-           "direct_conv_blocked", "direct_conv_preactivation",
+           "direct_conv_blocked", "direct_conv_nhwc",
+           "direct_conv_preactivation",
            "direct_conv_dgrad_blocked", "direct_conv_dgrad_phased",
            "direct_conv_wgrad_blocked",
            "conv_spec", "backward_spec",
@@ -59,10 +61,11 @@ def pad_blocked(x: torch.Tensor, ph, pw) -> torch.Tensor:
 
 
 def bias_to_blocked(bias: torch.Tensor, cb_out: int) -> torch.Tensor:
-    """Flat bias ``[Co] -> [Co/Cb, Cb]`` channel pencils."""
+    """Flat bias ``[Co] -> [Co/Cb, Cb]`` channel pencils, zero-padding Co up
+    to a pencil multiple when needed (matching pad-to-block maps)."""
     co = bias.shape[0]
     if co % cb_out:
-        raise ValueError(f"Co={co} not divisible by block {cb_out}")
+        bias = F.pad(bias, (0, -co % cb_out))
     return bias.reshape(-1, cb_out)
 
 
@@ -154,7 +157,7 @@ def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     dilated filter extent.  ``precision`` casts the operands once; the
     products then run on f32 copies of the cast values, so a bf16 policy is
     bf16 operands with an f32 sum.  The pooled features are the f32 mean
-    of the *stored* (downcast) map.
+    of the *stored* (downcast) map, cast to the operand dtype.
     """
     spec = conv_spec(x, w, stride, padding, groups, dilation)
     if precision is not None:
@@ -170,6 +173,43 @@ def direct_conv_blocked(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                               spec.ho * spec.wo)
         return pooled.to(out_dtype)
     return out
+
+
+def direct_conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
+                     padding: Padding = "VALID",
+                     bias: Optional[torch.Tensor] = None,
+                     activation: Optional[str] = None,
+                     pad_to_block: bool = False, lane: int = 128,
+                     groups: int = 1, dilation=1) -> torch.Tensor:
+    """NHWC map and HWIO weights in, NHWC out, through the blocked layouts:
+    a layout sandwich around :func:`direct_conv_blocked` (block, convolve,
+    unblock) with the pencils of ``layout.BlockedConvLayout.choose`` and
+    the bias blocked by :func:`bias_to_blocked`.  ``pad_to_block=True``
+    zero-pads non-divisible channel counts up to full pencils and strips
+    them on the way out (dense only; the traded bytes are
+    ``memory_model.bytes_channel_pad``).  Grouped weights carry the
+    per-group input extent, ``w.shape[2] == Ci // groups``."""
+    hf, wf, cig, co = w.shape
+    ci = x.shape[-1]
+    if ci != cig * groups:
+        raise ValueError(
+            f"weight input extent {cig} x groups {groups} != input "
+            f"channels {ci}")
+    if pad_to_block:
+        if groups != 1:
+            raise ValueError("pad_to_block supports dense convs only")
+        cb_in = L.choose_pencil(ci, lane, pad_to_block=True)
+        cb_out = L.choose_pencil(co, lane, pad_to_block=True)
+        cb_w = cb_in
+    else:
+        lay = L.BlockedConvLayout.choose(ci, co, lane, groups=groups)
+        cb_in, cb_out, cb_w = lay.cb_in, lay.cb_out, lay.cb_weight
+    xb = L.nhwc_to_blocked(x, cb_in, pad_to_block=pad_to_block)
+    wb = L.hwio_to_blocked(w, cb_w, cb_out, pad_to_block=pad_to_block)
+    bb = None if bias is None else bias_to_blocked(bias, cb_out)
+    yb = direct_conv_blocked(xb, wb, stride, padding, bb, activation,
+                             groups=groups, dilation=dilation)
+    return L.blocked_to_nhwc(yb, co)
 
 
 def direct_conv_preactivation(x: torch.Tensor, w: torch.Tensor,

@@ -101,13 +101,13 @@ def resolve_stream(stream: Stream, hso: Optional[int], direction: Direction,
 
 def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
                  machine: MachineModel, gap: bool = False,
-                 prologue: bool = False) -> bool:
+                 prologue: bool = False, op_bytes: int = 4) -> bool:
     """Route one dense launch: False when the window model fits, True when
     only the streamed model does; ``SmemMisfitError`` naming both models
     when neither fits.  ``spec`` is the forward's geometry (unpadded input,
     normalized pads); ``gap`` is the forward's fused pooling and
     ``prologue`` the backward's ``act'(z)`` (the dgrads and wgrads stage
-    ``z``)."""
+    ``z``); ``op_bytes`` the forward's operand size (2: its bf16 build)."""
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown direction {direction!r}; have "
                          f"{DIRECTIONS}")
@@ -116,12 +116,13 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     if direction == "fwd":
         def window():
             return choose_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s, ciblk,
-                                       cib, coblk, cob, machine, gap)
+                                       cib, coblk, cob, machine, gap,
+                                       op_bytes)
 
         def streamed():
             return choose_stream_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s,
                                               ciblk, cib, coblk, cob,
-                                              machine, gap)
+                                              machine, gap, None, op_bytes)
     elif direction == "dgrad":
         def window():
             return choose_dgrad_blocking(n, spec.hi, spec.wi, hf, wf, s,

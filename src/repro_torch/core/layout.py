@@ -11,14 +11,18 @@ every output store, so neighbouring threads write neighbouring addresses.
 from __future__ import annotations
 
 import dataclasses
+import math
 import warnings
+from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 __all__ = [
     "BlockedConvLayout", "nhwc_to_blocked", "blocked_to_nhwc",
     "hwio_to_blocked", "blocked_to_hwio", "largest_divisor_leq", "divisors",
     "choose_pencil", "bld_to_blocked", "blocked_to_bld", "kd_to_blocked",
+    "blocked_shapes", "assert_zero_overhead",
 ]
 
 
@@ -56,9 +60,14 @@ def largest_divisor_leq(n: int, cap: int) -> int:
 
 
 def choose_pencil(n: int, cap: int, *, min_util: float = 0.25,
-                  groups: int = 1) -> int:
+                  pad_to_block: bool = False, groups: int = 1) -> int:
     """Largest divisor of ``n`` that is ``<= cap``; warns when it fills less
     than ``min_util`` of the achievable width (e.g. a prime channel count).
+    ``pad_to_block=True`` returns the achievable width ``min(n, cap)``
+    instead: the caller zero-pads the channels up to a multiple of it
+    (``nhwc_to_blocked``/``hwio_to_blocked`` with ``pad_to_block=True``),
+    trading the zero-overhead layout for full lanes, which is why it is
+    never the default.
 
     ``groups > 1`` makes both the divisor and the check per group: the
     pencil divides ``n // groups``, so no pencil straddles a group of the
@@ -69,11 +78,14 @@ def choose_pencil(n: int, cap: int, *, min_util: float = 0.25,
             raise ValueError(f"groups={groups} must divide C={n}")
         n //= groups
     target = min(n, cap)
+    if pad_to_block:
+        return target
     d = largest_divisor_leq(n, cap)
     if d < min_util * target:
         warnings.warn(
             f"channel pencil {d} for C={n} (cap {cap}) fills {d}/{target} "
-            "lanes", UserWarning, stacklevel=2)
+            f"lanes; pass pad_to_block=True and zero-pad C to a multiple of "
+            f"{target} to restore utilization", UserWarning, stacklevel=2)
     return d
 
 
@@ -108,26 +120,50 @@ class BlockedConvLayout:
             cb_out=choose_pencil(co, lane, min_util=min_util, groups=groups))
 
 
-def nhwc_to_blocked(x: torch.Tensor, cb: int) -> torch.Tensor:
-    """``[N, H, W, C] -> [N, C/Cb, H, W, Cb]`` (contiguous)."""
+def nhwc_to_blocked(x: torch.Tensor, cb: int, *,
+                    pad_to_block: bool = False) -> torch.Tensor:
+    """``[N, H, W, C] -> [N, C/Cb, H, W, Cb]`` (contiguous).
+
+    ``pad_to_block=True`` zero-pads C up to the next multiple of ``cb``
+    first (the escape hatch ``choose_pencil`` names for degenerate
+    pencils); ``memory_model.bytes_channel_pad`` accounts the traded bytes
+    and ``blocked_to_nhwc(..., c=C)`` strips them."""
     n, h, w, c = x.shape
     if c % cb:
-        raise ValueError(f"C={c} not divisible by block {cb}")
+        if not pad_to_block:
+            raise ValueError(f"C={c} not divisible by block {cb} "
+                             "(pass pad_to_block=True to zero-pad)")
+        x = F.pad(x, (0, -c % cb))
+        c = x.shape[-1]
     return x.reshape(n, h, w, c // cb, cb).permute(0, 3, 1, 2, 4).contiguous()
 
 
-def blocked_to_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """Inverse of :func:`nhwc_to_blocked`."""
+def blocked_to_nhwc(x: torch.Tensor, c: int | None = None) -> torch.Tensor:
+    """Inverse of :func:`nhwc_to_blocked`; ``c`` strips a pad-to-block
+    tail."""
     n, cblk, h, w, cb = x.shape
-    return x.permute(0, 2, 3, 1, 4).reshape(n, h, w, cblk * cb)
+    out = x.permute(0, 2, 3, 1, 4).reshape(n, h, w, cblk * cb)
+    if c is not None:
+        if not 0 < c <= cblk * cb:
+            raise ValueError(f"cannot strip to C={c} from {cblk * cb} packed "
+                             "channels")
+        out = out[..., :c]
+    return out
 
 
-def hwio_to_blocked(w: torch.Tensor, cib: int, cob: int) -> torch.Tensor:
-    """``[Hf, Wf, Ci, Co] -> [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]``."""
+def hwio_to_blocked(w: torch.Tensor, cib: int, cob: int, *,
+                    pad_to_block: bool = False) -> torch.Tensor:
+    """``[Hf, Wf, Ci, Co] -> [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]``;
+    ``pad_to_block=True`` zero-pads Ci and Co up to block multiples (zero
+    input channels add nothing, padded output channels are stripped)."""
     hf, wf, ci, co = w.shape
     if ci % cib or co % cob:
-        raise ValueError(
-            f"Ci={ci}/Co={co} not divisible by blocks {cib}/{cob}")
+        if not pad_to_block:
+            raise ValueError(
+                f"Ci={ci}/Co={co} not divisible by blocks {cib}/{cob} "
+                "(pass pad_to_block=True to zero-pad)")
+        w = F.pad(w, (0, -co % cob, 0, -ci % cib))
+        hf, wf, ci, co = w.shape
     w = w.reshape(hf, wf, ci // cib, cib, co // cob, cob)
     return w.permute(4, 2, 0, 1, 3, 5).contiguous()
 
@@ -163,3 +199,18 @@ def kd_to_blocked(w: torch.Tensor, db: int) -> torch.Tensor:
     if d % db:
         raise ValueError(f"D={d} not divisible by block {db}")
     return w.reshape(k, d // db, db)
+
+
+def blocked_shapes(n: int, h: int, w: int, c: int, cb: int
+                   ) -> Tuple[int, ...]:
+    """The blocked shape of an ``[N, H, W, C]`` map at pencil ``cb``."""
+    return (n, c // cb, h, w, cb)
+
+
+def assert_zero_overhead(orig_shape, blocked_shape) -> None:
+    """The paper's headline invariant: blocking never changes the element
+    count."""
+    if math.prod(orig_shape) != math.prod(blocked_shape):
+        raise AssertionError(
+            f"layout changed element count: {tuple(orig_shape)} -> "
+            f"{tuple(blocked_shape)}")

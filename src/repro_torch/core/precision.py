@@ -6,8 +6,9 @@
   residual  what a training step would store between forward and backward.
 
 Operands are cast once on kernel entry; the output is the operand dtype,
-rounded once after the fused epilogue.  The CUDA kernel of this slice takes
-f32 operands only (bf16 is queued); the plain version takes both.
+rounded once after the fused epilogue.  The dense forward kernels take f32
+and bf16 operands (bf16 with an f32 bias); the backward kernels and the
+separable family take f32 only so far; the plain version takes both.
 """
 from __future__ import annotations
 
@@ -48,6 +49,29 @@ class Precision:
     @property
     def accum_dtype(self) -> torch.dtype:
         return getattr(torch, self.accum)
+
+    @property
+    def residual_dtype(self) -> torch.dtype:
+        return getattr(torch, self.residual)
+
+    @property
+    def operand_itemsize(self) -> int:
+        """Bytes per operand element: what the shared-memory budget of the
+        forward tiles sees (``core.blocking``)."""
+        return self.op_dtype.itemsize
+
+    @property
+    def accum_itemsize(self) -> int:
+        return self.accum_dtype.itemsize
+
+    @property
+    def name(self) -> str:
+        """Short display name ("f32", "bf16", or the full triple)."""
+        if self == F32:
+            return "f32"
+        if self == BF16:
+            return "bf16"
+        return f"{self.operand}/{self.accum}/{self.residual}"
 
 
 F32 = Precision()

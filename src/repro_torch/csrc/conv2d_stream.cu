@@ -4,6 +4,7 @@
 // Replaces the Pallas TPU kernels of src/repro/kernels/conv2d_stream.py:
 //   `_stream_conv_kernel` (:78; pallas_call :238 in `stream_forward`)
 //                                                     -> stream_fwd_kernel
+//                                  (bf16 operands: stream_fwd_kernel_bf16)
 //   the same kernel in its transposed form (pallas_call :284 in
 //       `stream_dgrad`)                               -> stream_dgrad_kernel
 //   `_stream_wgrad_kernel` (:306; pallas_call :384 in `stream_wgrad`)
@@ -114,6 +115,33 @@ const void* const kFwdKernels[] = {
     (const void*)stream_fwd_kernel<8>, (const void*)stream_fwd_kernel<16>,
     (const void*)stream_fwd_kernel<32>, (const void*)stream_fwd_kernel<64>,
     (const void*)stream_fwd_kernel<128>};
+
+// The bf16 build of the same tile (fwd_tile.cuh, namespace bf16): bf16 x,
+// w, residual, out and pooled features, an f32 bias and f32 partials.
+template <int N>
+__global__ void __launch_bounds__(ft::max_threads(N), 1)
+stream_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
+                       const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const float* __restrict__ bias,
+                       const __nv_bfloat16* __restrict__ residual,
+                       __nv_bfloat16* __restrict__ out, float* partials,
+                       __nv_bfloat16* __restrict__ pooled, int* counters,
+                       ft::Geometry g) {
+  extern __shared__ __align__(16) char smem_bf16[];
+  ft::bf16::run<N>(smem_bf16, &tmw, x, w, bias, residual, out, partials,
+                   pooled, counters, g);
+}
+
+const void* const kFwdKernelsBf16[] = {
+    (const void*)stream_fwd_kernel_bf16<8>,
+    (const void*)stream_fwd_kernel_bf16<16>,
+    (const void*)stream_fwd_kernel_bf16<32>,
+    (const void*)stream_fwd_kernel_bf16<64>,
+    (const void*)stream_fwd_kernel_bf16<128>};
+
+// by a plan's operand type (as direct_conv2d_fwd's)
+const void* const* const kFwdTables[] = {kFwdKernels, kFwdKernelsBf16};
 
 // ---------------------------------------------------------------------------
 // dgrad
@@ -339,13 +367,14 @@ void conv2d_stream_geometry(int* threads, int* rows, int* consumers) {
 
 // The forward: bands of `wgs` strips of hso x tw output positions.  plan:
 // the fwd_tile::Geometry fields in order (strips == wgs), then the wgmma
-// width, the images and the dynamic shared memory.  Grid: (bands, Co
+// width, the images, the dynamic shared memory and the operand type (0:
+// f32; 1: the bf16 build, as direct_conv2d_fwd's).  Grid: (bands, Co
 // blocks x nsplit, images).  GAP as direct_conv2d_fwd's.
 int conv2d_stream_conv(const void* x, const void* w, const void* bias,
                        const void* residual, void* out, void* partials,
                        void* pooled, void* counters, const int* plan,
                        void* stream) {
-  return ft::launch(kFwdKernels, true, x, w, bias, residual, out, partials,
+  return ft::launch(kFwdTables, true, x, w, bias, residual, out, partials,
                     pooled, counters, plan, (cudaStream_t)stream);
 }
 

@@ -918,12 +918,13 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// An f32 tensor map over `rank` indices, innermost first: `dims`, byte
-// `strides` of indices 1.., `box`; no swizzle, zeros outside the bounds
-// (negative coordinates included).
+// A tensor map over `rank` indices of `type` (f32 unless given), innermost
+// first: `dims`, byte `strides` of indices 1.., `box`; no swizzle, zeros
+// outside the bounds (negative coordinates included).
 inline bool encode(CUtensorMap* map, const void* base, int rank,
                    const long long* dims, const long long* strides,
-                   const int* box) {
+                   const int* box, CUtensorMapDataType type =
+                                       CU_TENSOR_MAP_DATA_TYPE_FLOAT32) {
   const EncodeTiled fn = encoder();
   if (!fn) return false;
   cuuint64_t gdim[5], gstride[4];
@@ -934,7 +935,7 @@ inline bool encode(CUtensorMap* map, const void* base, int rank,
     estride[i] = 1;
   }
   for (int i = 1; i < rank; ++i) gstride[i - 1] = (cuuint64_t)strides[i - 1];
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, (cuuint32_t)rank,
+  return fn(map, type, (cuuint32_t)rank,
             const_cast<void*>(base), gdim, gstride, gbox, estride,
             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

@@ -2,7 +2,9 @@
 //
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (src/repro/kernels/direct_conv2d.py:102, launched by `_forward_windowed`,
-// pallas_call at :351).  Same function:
+// pallas_call at :351), in f32 (`fwd_kernel`) and in bf16
+// (`fwd_kernel_bf16`, the tile's bf16 build: bf16 operands on bf16 wgmma,
+// f32 sums, the weights read as they lie).  Same function:
 //
 //   out = act(sum_{ci, dh, dw} x_win[dh, dw] @ w[dh, dw] + b) + r
 //
@@ -69,6 +71,32 @@ const void* const kKernels[] = {
     (const void*)fwd_kernel<32>, (const void*)fwd_kernel<64>,
     (const void*)fwd_kernel<128>};
 
+// The bf16 build of the same tile (fwd_tile.cuh, namespace bf16): bf16 x,
+// w, residual, out and pooled features, an f32 bias and f32 partials; one
+// bf16 wgmma (m64nNk16) a k16 step, B read MN-major as the weights lie.
+template <int N>
+__global__ void __launch_bounds__(ft::max_threads(N), 1)
+fwd_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
+                const __nv_bfloat16* __restrict__ x,
+                const __nv_bfloat16* __restrict__ w,
+                const float* __restrict__ bias,
+                const __nv_bfloat16* __restrict__ residual,
+                __nv_bfloat16* __restrict__ out, float* partials,
+                __nv_bfloat16* __restrict__ pooled, int* counters,
+                ft::Geometry g) {
+  extern __shared__ __align__(16) char smem_bf16[];
+  ft::bf16::run<N>(smem_bf16, &tmw, x, w, bias, residual, out, partials,
+                   pooled, counters, g);
+}
+
+const void* const kKernelsBf16[] = {
+    (const void*)fwd_kernel_bf16<8>, (const void*)fwd_kernel_bf16<16>,
+    (const void*)fwd_kernel_bf16<32>, (const void*)fwd_kernel_bf16<64>,
+    (const void*)fwd_kernel_bf16<128>};
+
+// by a plan's operand type (fwd_tile's kOperandF32, kOperandBf16)
+const void* const* const kTables[] = {kKernels, kKernelsBf16};
+
 }  // namespace
 
 extern "C" {
@@ -85,18 +113,21 @@ void direct_conv2d_fwd_geometry(int* threads, int* rows, int* consumers) {
 // where the plan asks for GAP, the tiles' sums into partials and the pooled
 // features into pooled ([N, Co]), with two zeroed int32 counters an (image,
 // output block).  plan: the fwd_tile::Geometry fields in order (strips 1),
-// then the wgmma width, the images and the dynamic shared memory.
+// then the wgmma width, the images, the dynamic shared memory and the
+// operand type (0: f32; 1: the bf16 build, on bf16 x, w, residual, out and
+// pooled, an f32 bias and f32 partials, chunks multiples of 16).
 int direct_conv2d_fwd(const void* x, const void* w, const void* bias,
                       const void* residual, void* out, void* partials,
                       void* pooled, void* counters, const int* plan,
                       void* stream) {
-  return ft::launch(kKernels, false, x, w, bias, residual, out, partials,
+  return ft::launch(kTables, false, x, w, bias, residual, out, partials,
                     pooled, counters, plan, (cudaStream_t)stream);
 }
 
 // What direct_conv2d_fwd runs with the same plan (fwd_tile::plan): out[0]
 // an image's tiles, out[1] the function's MACs, out[2] the tensor-core MACs
-// issued, out[3] a CTA's shared memory.
+// issued (three products a MAC in f32, one in bf16), out[3] a CTA's shared
+// memory.
 int direct_conv2d_fwd_plan(const int* plan, long long* out) {
   return ft::plan_of(false, plan, out);
 }

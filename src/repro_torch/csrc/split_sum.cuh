@@ -32,6 +32,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -74,15 +75,23 @@ __device__ __forceinline__ void add4(float4& s, const float4& v) {
   s.w += v.w;
 }
 
+// Store an f32 sum at the output's type: as it is, or rounded once to bf16.
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // out[i] = (rows[i] + rows[pitch + i] + ... + rows[(count-1) * pitch + i])
 // * scale, the rows added in index order, for i in [0, len): `tid` of `nth`
-// threads, float4 at a time where the addresses and the pitch allow, each
-// thread with kInFlight rows' loads in flight.
-__device__ void sum_rows(const float* rows, size_t pitch, int count,
-                         float* out, int len, float scale, int tid,
-                         int nth) {
-  const bool quads = ((reinterpret_cast<uintptr_t>(rows)
-                       | reinterpret_cast<uintptr_t>(out)) & 15) == 0
+// threads, float4 at a time where the output is f32 and the addresses and
+// the pitch allow, each thread with kInFlight rows' loads in flight; a bf16
+// `out` takes each f32 result rounded once.
+template <typename T>
+__device__ void sum_rows(const float* rows, size_t pitch, int count, T* out,
+                         int len, float scale, int tid, int nth) {
+  const bool quads = sizeof(T) == sizeof(float)
+                     && ((reinterpret_cast<uintptr_t>(rows)
+                          | reinterpret_cast<uintptr_t>(out)) & 15) == 0
                      && pitch % 4 == 0 && len % 4 == 0;
   if (quads) {
     const float4* r4 = reinterpret_cast<const float4*>(rows);
@@ -116,18 +125,19 @@ __device__ void sum_rows(const float* rows, size_t pitch, int count,
       for (int j = 0; j < kInFlight; ++j) s += v[j];
     }
     for (; k < count; ++k) s += __ldcg(rows + (size_t)k * pitch + i);
-    out[i] = s * scale;
+    store(out + i, s * scale);
   }
 }
 
 // The GAP rider's fold: every one of the `count` threads on named barrier
 // `bar` calls it once its tile's sums are stored in `partials` [columns,
 // tiles, cob]; the column's last of `arrivals` CTAs writes `pooled`
-// [columns, cob], the tiles summed in order times the f32 reciprocal of
-// `hw`.  Out of line, so that none of its values is hoisted into the
-// kernel's main loop: at 128 lanes the pointwise tile has no register to
-// spare.
-__device__ __noinline__ void gap_fold(const float* partials, float* pooled,
+// [columns, cob] (f32, or bf16 rounded once at the store), the tiles summed
+// in order times the f32 reciprocal of `hw`.  Out of line, so that none of
+// its values is hoisted into the kernel's main loop: at 128 lanes the
+// pointwise tile has no register to spare.
+template <typename T>
+__device__ __noinline__ void gap_fold(const float* partials, T* pooled,
                                       int* counters, int column, int tiles,
                                       int arrivals, int cob, int hw,
                                       int* flag, int bar, int count) {

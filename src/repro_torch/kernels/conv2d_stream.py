@@ -11,6 +11,8 @@ at ``:384``), all in ``csrc/conv2d_stream.cu``.  They compute the dense
 family's functions:
 
 * ``stream_forward``: ``act(conv(x, w) + b) + r``, pooled with ``gap``;
+  under the ``BF16`` policy the tile's bf16 build
+  (``stream_fwd_kernel_bf16``: bf16 operands and output, f32 sums);
 * ``stream_dgrad``: ``dx`` of that conv from the raw cotangent ``g`` and the
   saved pre-activation ``z`` (``dz = g * act'(z)`` formed in the kernel),
   written at the unpadded input's shape;
@@ -46,6 +48,7 @@ from repro_torch.core.blocking import (H100_SXM, FwdBlocking, MachineModel,
                                        choose_stream_dgrad_blocking,
                                        choose_stream_fwd_blocking,
                                        choose_stream_wgrad_blocking)
+from repro_torch.core.conv2d_common import gap_replay
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_blocked,
@@ -58,7 +61,8 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
                                                _backward_operands, _check,
                                                _check_activation,
                                                _cuda_device, _library,
-                                               check_machine, dgrad_launch,
+                                               build_dtype, check_machine,
+                                               dgrad_launch,
                                                fwd_launch, fwd_run,
                                                split_wgrad, wgrad_launch,
                                                wgrad_launch_plan)
@@ -66,8 +70,8 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
 
-LAUNCHES = {"conv2d_stream_fwd": 0, "conv2d_stream_dgrad": 0,
-            "conv2d_stream_wgrad": 0}
+LAUNCHES = {"conv2d_stream_fwd": 0, "conv2d_stream_fwd_bf16": 0,
+            "conv2d_stream_dgrad": 0, "conv2d_stream_wgrad": 0}
 
 
 def reset_launches() -> None:
@@ -101,29 +105,23 @@ def _lib() -> ctypes.CDLL:
                                       WGRAD_GEOMETRY),))
 
 
-def gap_entry():
-    """``(library, its forward's C entry, its LAUNCHES key)``, for
-    ``kernels.direct_conv2d.gap_forward``."""
-    lib = _lib()
-    return lib, lib.conv2d_stream_conv, "conv2d_stream_fwd"
-
-
 def _prologue(z: Optional[torch.Tensor], activation: Optional[str]) -> bool:
     return z is not None and activation not in (None, "linear")
 
 
 def stream_blocking(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
-                    gap: bool, hso: Optional[int],
-                    machine: MachineModel) -> FwdBlocking:
+                    gap: bool, hso: Optional[int], machine: MachineModel,
+                    op_bytes: int = 4) -> FwdBlocking:
     """The streamed forward's tiles for operands ``x``, ``w`` of geometry
-    ``spec``; raises what the model raises (a pinned ``hso`` that does not
-    divide the rows, a misfit), on either device."""
+    ``spec`` at ``op_bytes`` operands; raises what the model raises (a
+    pinned ``hso`` that does not divide the rows, a misfit), on either
+    device."""
     check_machine(machine)
     cib, cob = x.shape[4], w.shape[5]
     return choose_stream_fwd_blocking(x.shape[0], spec.ho, spec.wo, spec.hf,
                                       spec.wf, spec.stride, spec.ci // cib,
                                       cib, spec.co // cob, cob, machine, gap,
-                                      hso)
+                                      hso, op_bytes)
 
 
 def stream_forward(x: torch.Tensor, w: torch.Tensor,
@@ -138,7 +136,8 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
     Ci/Cib, Hf, Wf, Cib, Cob]``, bias ``[Co/Cob, Cob]``, residual at the
     output's shape -> the output map, or with ``gap`` the pooled ``[N,
     Co]`` (the kernel's per-band partial sums, added by the last CTA of
-    each image and output block).
+    each image and output block); under the ``BF16`` policy the bf16
+    build, at bf16 out and pooled features.
     Inference only: the training path enters through
     ``kernels.direct_conv2d.direct_conv2d_blocked``."""
     spec = conv_spec(x, w, stride, padding)
@@ -151,20 +150,20 @@ def stream_forward(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"residual shape {tuple(residual.shape)} != "
                          f"output shape {out_shape}")
     if x.device.type == "cpu":
-        stream_blocking(x, w, spec, gap, hso, machine)
-        return direct_conv_blocked(x, w, stride, padding, bias, activation,
-                                   precision, residual=residual, gap=gap)
-    if resolve_precision(precision).op_dtype != torch.float32:
-        raise NotImplementedError(
-            "the CUDA kernels of this slice run the f32 policy only")
+        blk = stream_blocking(x, w, spec, gap, hso, machine,
+                              resolve_precision(precision).operand_itemsize)
+        out = direct_conv_blocked(x, w, stride, padding, bias, activation,
+                                  precision, residual=residual)
+        return gap_replay(out, blk) if gap else out
     check_machine(machine)
     plan = fwd_launch(spec, x.shape[4], cob, _ACT_CODES[activation], gap,
-                      True, hso, machine)
+                      True, hso, machine, dtype=build_dtype(precision))
     lib = _lib()
+    name = "conv2d_stream_fwd" + plan.suffix
     err, out, _, pooled = fwd_run(lib.conv2d_stream_conv, plan, x, w, bias,
                                   residual, spec)
-    LAUNCHES["conv2d_stream_fwd"] += 1
-    _check(err, lib, "conv2d_stream_fwd")
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return pooled if gap else out
 
 

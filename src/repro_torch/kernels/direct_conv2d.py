@@ -8,8 +8,12 @@ autograd.
   grad, it runs the fused inference kernel (``_fwd_kernel``, ``:102``):
   ``csrc/direct_conv2d_fwd.cu``'s ``fwd_kernel``, the dense forward tile of
   ``csrc/fwd_tile.cuh`` (a 3xTF32 wgmma implicit GEMM fed by a producer
-  warpgroup), on a CUDA tensor, the plain PyTorch version
-  (``core.direct_conv.direct_conv_blocked``) on a CPU tensor;
+  warpgroup), or under the ``BF16`` policy its bf16 build
+  ``fwd_kernel_bf16`` (bf16 wgmma, f32 sums, bf16 out; the f32 master
+  weights cast to bf16 once a call, as the reference casts them), on a
+  CUDA tensor, the plain PyTorch version
+  (``core.direct_conv.direct_conv_blocked``, its GAP pooled in the
+  kernel's own order by ``conv2d_common.gap_replay``) on a CPU tensor;
 * with grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of the
   reference's custom VJP (``_conv``/``_conv_fwd``/``_conv_bwd``,
@@ -44,8 +48,11 @@ CPU; a CUDA tensor launches the kernel or raises.  There is no fallback:
 no route switches after a launch fails.  Both forwards (this module's and
 the streamed one) build their launch plan (tiles, the C entry's int array)
 once per shape (``fwd_launch``).
-The wrappers check device, dtype (f32 on the card in this slice), shapes,
-contiguity and the 16-byte alignment of operands read with float4 loads.
+The wrappers check device, dtype (f32, or bf16 operands with an f32 bias
+in the forwards; f32 in the backward), shapes, contiguity and the 16-byte
+alignment of operands read with 16-byte loads.  The training path runs the
+f32 policy only: bf16 training is the next slice's (the dgrad and wgrad
+tiles in bf16).
 
 ``LAUNCHES`` counts the kernels launched (a plain integer per kernel, bumped
 where the launch happens and nowhere else), so a run can show that it went
@@ -73,6 +80,7 @@ from repro_torch.core.blocking import (FWD_CONSUMERS, FWD_ROWS,
                                        choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking, dgrad_plan,
                                        fwd_plan, fwd_smem_bytes, wgrad_plan)
+from repro_torch.core.conv2d_common import gap_replay
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
                                        route_stream)
@@ -88,13 +96,14 @@ from repro_torch.kernels import split_sum
 from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
-__all__ = ["LAUNCHES", "reset_launches", "check_machine",
+__all__ = ["LAUNCHES", "reset_launches", "check_machine", "build_dtype",
+           "bf16_operands",
            "direct_conv2d_blocked", "FwdLaunch", "fwd_launch", "fwd_plans",
            "gap_forward", "direct_conv2d_dgrad", "dgrad_plans",
            "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans"]
 
-LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_dgrad": 0,
-            "direct_conv2d_wgrad": 0}
+LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_fwd_bf16": 0,
+            "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -104,6 +113,9 @@ WGRAD_GEOMETRY = (WGRAD_THREADS, WGRAD_ROWS, WGRAD_MAX_POSITIONS)
 # the forward tile's (fwd_tile.cuh: threads of the largest CTA, rows of an
 # m-tile, consumer warpgroups), which both forward libraries report
 FWD_GEOMETRY = (FWD_THREADS, FWD_ROWS, FWD_CONSUMERS)
+# the forward tile's builds by operand dtype: the plan's operand code
+# (fwd_tile.cuh kOperandF32, kOperandBf16) and the LAUNCHES key's suffix
+_FWD_BUILDS = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16")}
 
 
 def reset_launches() -> None:
@@ -148,8 +160,8 @@ def _library(name: str, declare, geometry,
 def _declare_fwd(lib, ptr, i32) -> None:
     lib.direct_conv2d_fwd.argtypes = [ptr] * 8 + [ctypes.POINTER(i32), ptr]
     lib.direct_conv2d_fwd.restype = i32
-    lib.direct_conv2d_fwd_plan.argtypes = [
-        ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
+    lib.direct_conv2d_fwd_plan.argtypes = [ctypes.POINTER(i32),
+                                           ctypes.POINTER(ctypes.c_longlong)]
     lib.direct_conv2d_fwd_plan.restype = i32
 
 
@@ -188,20 +200,24 @@ def _ptr(t: Optional[torch.Tensor]):
 
 
 def _require(t: Optional[torch.Tensor], name: str, device: torch.device,
-             vector_loads: bool = False) -> Optional[int]:
+             vector_loads: bool = False,
+             dtype: torch.dtype = torch.float32) -> Optional[int]:
     """Raise on an operand the kernel cannot take; -> its data pointer
     (None for None), so that a launch checks and reads each operand once.
-    ``vector_loads``: the kernel reads it with float4 loads, so it must
+    ``vector_loads``: the kernel reads it with 16-byte loads, so it must
     start on 16 bytes (a contiguous view at an odd storage offset would
-    fault on the card)."""
+    fault on the card).  ``dtype`` is what the kernel reads: f32, or bf16
+    for the bf16 forwards' operands."""
     if t is None:
         return None
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x is on {device}")
-    if t.dtype != torch.float32:
+    if t.dtype != dtype:
+        want = "f32" if dtype == torch.float32 else "bf16"
         raise NotImplementedError(
-            f"{name} is {t.dtype}: the CUDA kernel of this slice takes f32 "
-            "operands (bf16 pencils are queued)")
+            f"{name} is {t.dtype}: this CUDA kernel takes {want} operands "
+            "(the dense forwards take bf16 under the BF16 policy; the "
+            "backward and separable kernels are f32 only)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     ptr = t.data_ptr()
@@ -324,8 +340,9 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
 
     With grad mode on and an operand that requires grad the call goes
     through ``BlockedConvFunction`` (the training path, f32 policy only);
-    otherwise it runs the fused inference kernel.  ``stream``/``hso``
-    route it between the window and the streamed kernels (module
+    otherwise it runs the fused inference kernel, under the ``BF16``
+    policy its bf16 build (bf16 out, bf16 pooled features).  ``stream``/
+    ``hso`` route it between the window and the streamed kernels (module
     docstring); ``machine`` is the model their tiles are fitted to.
     """
     spec = conv_spec(x, w, stride, padding)
@@ -339,42 +356,48 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"residual shape {tuple(residual.shape)} != "
                          f"output shape {out_shape}")
     operands = (x, w, bias, residual)
+    op_dtype = resolve_precision(precision).op_dtype
+    op_bytes = op_dtype.itemsize
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
-        if resolve_precision(precision).op_dtype != torch.float32:
+        if op_dtype != torch.float32:
             raise NotImplementedError(
-                "the training path runs the f32 policy only (bf16 arrives "
-                "with the bf16 kernels)")
+                "the training path runs the f32 policy only: bf16 training "
+                "(the dgrad and wgrad tiles in bf16, z saved at the residual "
+                "dtype, f32 masters) is the next slice of the port")
         route = _resolve_route(stream, hso, spec, x.shape[4], cob, machine,
                               activation)
         family = _Dense(route, machine, hso)
         return BlockedConvFunction.apply(x, w, bias, residual, family, spec,
                                          activation, gap)
-    if _routed("fwd", stream, hso, spec, x.shape[4], cob, machine, gap=gap):
+    if _routed("fwd", stream, hso, spec, x.shape[4], cob, machine, gap=gap,
+               op_bytes=op_bytes):
         return _stream_kernels().stream_forward(
             x, w, bias, stride, padding, activation, residual, gap, hso=hso,
             machine=machine, precision=precision)
     if x.device.type == "cpu":
-        # the window model's checks, as on the card
-        choose_fwd_blocking(n, spec.ho, spec.wo, spec.hf, spec.wf,
-                            spec.stride, spec.ci // x.shape[4], x.shape[4],
-                            coblk, cob, machine, gap)
-        return direct_conv_blocked(x, w, stride, padding, bias, activation,
-                                   precision, residual=residual, gap=gap)
-    if resolve_precision(precision).op_dtype != torch.float32:
-        raise NotImplementedError(
-            "the CUDA kernel of this slice runs the f32 policy only")
-    return _fwd_cuda(x, w, bias, residual, spec, activation, gap, machine)
+        # the window model's checks, as on the card; the GAP pooled over its
+        # tiles in the kernel's order
+        blk = choose_fwd_blocking(n, spec.ho, spec.wo, spec.hf, spec.wf,
+                                  spec.stride, spec.ci // x.shape[4],
+                                  x.shape[4], coblk, cob, machine, gap,
+                                  op_bytes)
+        out = direct_conv_blocked(x, w, stride, padding, bias, activation,
+                                  precision, residual=residual)
+        return gap_replay(out, blk) if gap else out
+    return _fwd_cuda(x, w, bias, residual, spec, activation, gap, machine,
+                     build_dtype(precision))
 
 
 def _routed(direction: str, stream: Stream, hso: Optional[int],
             spec: ConvSpec, cib: int, cob: int, machine: MachineModel,
-            gap: bool = False, prologue: bool = False) -> bool:
+            gap: bool = False, prologue: bool = False,
+            op_bytes: int = 4) -> bool:
     """True when this direction launches the streamed kernel."""
     flag = resolve_stream(stream, hso, direction)
     if flag is None:
         flag = route_stream(direction, spec, cib, cob, machine, gap=gap,
-                            prologue=prologue)
+                            prologue=prologue, op_bytes=op_bytes)
     return flag
 
 
@@ -392,40 +415,64 @@ def _resolve_route(stream: Stream, hso: Optional[int], spec: ConvSpec,
         for d in ("fwd", "dgrad", "wgrad")})
 
 
+def build_dtype(precision) -> torch.dtype:
+    """The operand dtype of the forward build that runs ``precision`` on
+    CUDA operands: f32 for the f32 tile, bf16 for its bf16 build.  Any
+    other operand dtype (float16) raises: no build reads it, and none
+    stands in for it at another precision."""
+    dtype = resolve_precision(precision).op_dtype
+    if dtype not in _FWD_BUILDS:
+        raise NotImplementedError(
+            f"no CUDA build of the dense forwards reads {dtype} operands: "
+            "they run the f32 policy and BF16 (bf16 operands) only")
+    return dtype
+
+
 @dataclasses.dataclass(frozen=True)
 class FwdLaunch:
     """What a forward launch at one shape needs but its pointers, stream
     and library, built once (``fwd_launch``): the tiles and the C entry's
-    int array (``fwd_tile::Geometry``'s fields, the wgmma width, the images
-    and the shared memory); ``gap`` whether it writes GAP partials."""
+    int array (``fwd_tile::Geometry``'s fields, the wgmma width, the
+    images, the shared memory and the operand code); ``gap`` whether it
+    writes GAP partials; ``dtype`` the operands', the output's and the
+    pooled features' (f32: the f32 tile; bf16: its bf16 build)."""
     blk: FwdBlocking
     ints: object
     gap: bool
+    dtype: torch.dtype = torch.float32
+
+    @property
+    def suffix(self) -> str:
+        """The build's suffix to the kernel's ``LAUNCHES`` key."""
+        return _FWD_BUILDS[self.dtype][1]
 
 
 @functools.lru_cache(maxsize=1024)
 def fwd_launch(spec: ConvSpec, cib: int, cob: int, act: int, gap: bool,
                streamed: bool, hso: Optional[int] = None,
                machine: MachineModel = H100_SXM,
-               blk: Optional[FwdBlocking] = None) -> FwdLaunch:
+               blk: Optional[FwdBlocking] = None,
+               dtype: torch.dtype = torch.float32) -> FwdLaunch:
     """The plan of a forward launch of geometry ``spec`` on ``cib``/``cob``
-    pencils: ``blk``, or the window (``streamed``: the streamed) chooser's
-    tiles."""
+    pencils by the build for ``dtype`` operands (``build_dtype``):
+    ``blk``, or the window (``streamed``: the streamed) chooser's tiles."""
+    code = _FWD_BUILDS[dtype][0]
+    op_bytes = dtype.itemsize
     ciblk, coblk = spec.ci // cib, spec.co // cob
     if blk is None:
         args = (spec.n, spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
                 ciblk, cib, coblk, cob, machine, gap)
-        blk = (choose_stream_fwd_blocking(*args, hso) if streamed
-               else choose_fwd_blocking(*args))
+        blk = (choose_stream_fwd_blocking(*args, hso, op_bytes) if streamed
+               else choose_fwd_blocking(*args, op_bytes))
     smem = fwd_smem_bytes(blk.th, blk.tw, spec.hf, spec.wf, spec.stride,
-                          blk.chunk, blk.lanes, blk.wgs, gap)
+                          blk.chunk, blk.lanes, blk.wgs, gap, op_bytes)
     (pt, _), (pl, _) = spec.pads
     ints = (ciblk, cib, spec.hi, spec.wi, coblk, cob, spec.ho, spec.wo,
             spec.hf, spec.wf, spec.stride, pt, pl, blk.th, blk.tw, blk.wgs,
             blk.strips, blk.nsplit, blk.chunk, act, int(gap), blk.lanes,
-            spec.n, smem)
+            spec.n, smem, code)
     return FwdLaunch(blk=blk, ints=(ctypes.c_int * len(ints))(*ints),
-                     gap=gap)
+                     gap=gap, dtype=dtype)
 
 
 def fwd_run(entry, plan: FwdLaunch, x: torch.Tensor, w: torch.Tensor,
@@ -434,43 +481,64 @@ def fwd_run(entry, plan: FwdLaunch, x: torch.Tensor, w: torch.Tensor,
     """Call a forward kernel's C ``entry`` (the window one or the streamed
     one) with ``plan`` on CUDA operands, each checked and read once ->
     ``(CUDA error code, out, the GAP partials and the pooled [N, Co] they
-    sum to, or None and None)``; the caller counts the launch."""
+    sum to, or None and None)``; the caller counts the launch.  A bf16 plan
+    casts ``x``, ``w`` and ``residual`` to bf16 (``bf16_operands``: f32
+    masters once a call); the bias is f32; ``out`` and the pooled features
+    come out at the plan's dtype, the partials f32."""
     dev = _cuda_device(x)
-    ptrs = (_require(x, "x", dev, vector_loads=True),
-            _require(w, "w", dev, vector_loads=True),
-            _require(bias, "bias", dev), _require(residual, "residual", dev))
+    dt = plan.dtype
+    if dt == torch.bfloat16:
+        x, w, bias, residual = bf16_operands(x, w, bias, residual)
+    ptrs = (_require(x, "x", dev, vector_loads=True, dtype=dt),
+            _require(w, "w", dev, vector_loads=True, dtype=dt),
+            _require(bias, "bias", dev),
+            _require(residual, "residual", dev, dtype=dt))
     blk = plan.blk
     n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
     if coblk * blk.nsplit > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Co/Cob={coblk}, N={n}")
     out = torch.empty((n, coblk, spec.ho, spec.wo, cob), device=dev,
-                      dtype=torch.float32)
+                      dtype=dt)
     partials = pooled = counters = None
     stream = _stream(dev)
     if plan.gap:
         partials = torch.empty((n, coblk, blk.tiles, cob), device=dev,
                                dtype=torch.float32)
-        pooled = torch.empty((n, coblk * cob), device=dev,
-                             dtype=torch.float32)
+        pooled = torch.empty((n, coblk * cob), device=dev, dtype=dt)
         counters = split_sum.counters(dev, stream, n * coblk)
     err = _call(dev, entry, *ptrs, out.data_ptr(), _ptr(partials),
                 _ptr(pooled), counters, plan.ints, stream)
     return err, out, partials, pooled
 
 
+def bf16_operands(x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor],
+                  residual: Optional[torch.Tensor]):
+    """The bf16 forwards' operands: x, w and the residual cast to bf16 once
+    (the f32 master weights once a call, as the reference's forward casts
+    them; no bf16 copy is kept), the bias to f32."""
+    bf = torch.bfloat16
+    return (x.to(bf), w.to(bf),
+            None if bias is None else bias.to(torch.float32),
+            None if residual is None else residual.to(bf))
+
+
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
               activation: Optional[str], gap: bool,
-              machine: MachineModel = H100_SXM) -> torch.Tensor:
-    """Launch the window forward kernel on CUDA operands -> the output map,
-    or with ``gap`` the pooled ``[N, Co]``."""
+              machine: MachineModel = H100_SXM,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the window forward kernel's build for ``dtype`` operands on
+    CUDA operands -> the output map, or with ``gap`` the pooled ``[N,
+    Co]``."""
     plan = fwd_launch(spec, x.shape[4], w.shape[5], _ACT_CODES[activation],
-                      gap, False, None, machine)
+                      gap, False, None, machine, dtype=dtype)
     lib = _lib()
+    name = "direct_conv2d_fwd" + plan.suffix
     err, out, _, pooled = fwd_run(lib.direct_conv2d_fwd, plan, x, w, bias,
                                   residual, spec)
-    LAUNCHES["direct_conv2d_fwd"] += 1
-    _check(err, lib, "direct_conv2d_fwd")
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return pooled if gap else out
 
 
@@ -479,53 +547,63 @@ def gap_forward(x: torch.Tensor, w: torch.Tensor,
                 padding: Padding = "VALID", activation: Optional[str] = None,
                 residual: Optional[torch.Tensor] = None, *,
                 streamed: bool = False, hso: Optional[int] = None,
-                machine: MachineModel = H100_SXM
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the window forward (``streamed``: the streamed one)
-    with the GAP rider on CUDA operands -> ``(pooled [N, Co], partials [N,
-    Co/Cob, tiles, Cob])``: the per-tile sums the kernel wrote and the
-    pooled features the last CTA of each image and output block summed
-    from them, so that a check can
-    hold the one against ``conv2d_common.gap_finalize`` of the other."""
+                machine: MachineModel = H100_SXM, precision=F32,
+                with_map: bool = False):
+    """One launch of the window forward (``streamed``: the streamed one;
+    under ``BF16`` its bf16 build) with the GAP rider on CUDA operands ->
+    ``(pooled [N, Co], partials [N, Co/Cob, tiles, Cob])``: the per-tile
+    sums the kernel wrote and the pooled features the last CTA of each
+    image and output block summed from them, so that a check can hold the
+    one against ``conv2d_common.gap_finalize`` of the other; ``with_map``
+    appends the stored map and the tiles, which ``conv2d_common
+    .gap_replay`` pools to the same bits."""
     spec = conv_spec(x, w, stride, padding)
     _check_activation(activation)
     check_machine(machine)
     _cuda_device(x)
     plan = fwd_launch(spec, x.shape[4], w.shape[5], _ACT_CODES[activation],
-                      True, streamed, hso, machine)
+                      True, streamed, hso, machine,
+                      dtype=build_dtype(precision))
     if streamed:
-        lib, entry, name = _stream_kernels().gap_entry()
+        family = _stream_kernels()
+        lib, counts, name = family._lib(), family.LAUNCHES, "conv2d_stream_fwd"
+        entry = lib.conv2d_stream_conv
     else:
-        lib = _lib()
-        entry, name = lib.direct_conv2d_fwd, "direct_conv2d_fwd"
-    err, _, partials, pooled = fwd_run(entry, plan, x, w, bias, residual,
-                                       spec)
-    (_stream_kernels().LAUNCHES if streamed else LAUNCHES)[name] += 1
+        lib, counts, name = _lib(), LAUNCHES, "direct_conv2d_fwd"
+        entry = lib.direct_conv2d_fwd
+    name += plan.suffix
+    err, out, partials, pooled = fwd_run(entry, plan, x, w, bias, residual,
+                                         spec)
+    counts[name] += 1
     _check(err, lib, name)
+    if with_map:
+        return pooled, partials, out, plan.blk
     return pooled, partials
 
 
 def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
               padding: Padding = "VALID", gap: bool = False, *,
               streamed: bool = False, hso: Optional[int] = None,
-              machine: MachineModel = H100_SXM) -> Tuple[FwdPlan, FwdPlan]:
+              machine: MachineModel = H100_SXM,
+              dtype: torch.dtype = torch.float32) -> Tuple[FwdPlan, FwdPlan]:
     """What one launch of the window forward kernel (with ``streamed``, the
-    streamed one) runs on these operands, tiled as its wrapper tiles them:
-    ``(the kernel library's own count, its *_plan entry;
-    core.blocking.fwd_plan's)``.  Reads the built library; launches
-    nothing."""
+    streamed one) in its build for ``dtype`` operands runs on these
+    operands, tiled as its wrapper tiles them: ``(the kernel library's own
+    count, its *_plan entry; core.blocking.fwd_plan's)``.  Reads the built
+    library; launches nothing."""
     spec = conv_spec(x, w, stride, padding)
     cib, cob = x.shape[4], w.shape[5]
-    plan = fwd_launch(spec, cib, cob, 0, gap, streamed, hso, machine)
+    plan = fwd_launch(spec, cib, cob, 0, gap, streamed, hso, machine,
+                      dtype=dtype)
     entry = (_stream_kernels()._lib().conv2d_stream_conv_plan if streamed
              else _lib().direct_conv2d_fwd_plan)
     out = (ctypes.c_longlong * 4)()
     if entry(plan.ints, out):
         raise ValueError(f"the forward kernel refuses the tiles {plan.blk}")
-    return FwdPlan(*out), fwd_plan(plan.blk, spec.n, spec.ho, spec.wo,
-                                   spec.hf, spec.wf, spec.stride,
-                                   spec.ci // cib, cib, spec.co // cob, cob,
-                                   gap)
+    model = fwd_plan(plan.blk, spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
+                     spec.stride, spec.ci // cib, cib, spec.co // cob, cob,
+                     gap, dtype.itemsize)
+    return FwdPlan(*out, products=model.products), model
 
 
 # ---------------------------------------------------------------------------

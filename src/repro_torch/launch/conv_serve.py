@@ -65,9 +65,12 @@ class ConvServer:
                           "batches": 0}
 
     def _forward(self, imgs: np.ndarray) -> np.ndarray:
+        """A batch of f32 images -> its logits as f32 numpy (bf16 logits of
+        a bf16 context widen exactly)."""
         x = torch.from_numpy(imgs).to(self.device, torch.float32)
         with torch.inference_mode():
-            return self.model(x, context=self.context).cpu().numpy()
+            logits = self.model(x, context=self.context)
+        return logits.to(torch.float32).cpu().numpy()
 
     def warmup(self):
         """Run every bucket once on a zero batch, so that the first request's

@@ -10,12 +10,15 @@ routes, this script times as CUDA-graph replays of ``ITERS`` calls the
 orders, the faster time kept), checks each tile's output against the plain
 version, and prints the card's name and power limit, each tile with its
 model cost and ms, and per layer and route the chooser's tile beside the
-fastest one measured, then the sums.  Needs an H100 and nvcc::
+fastest one measured, then the sums.  ``--dtype bf16`` does the same for
+the tile's bf16 build (bf16 operands, the bf16 chooser's candidates, the
+plain version under ``BF16``).  Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab
+    PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab [--dtype bf16]
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import torch
@@ -39,14 +42,16 @@ def fwd_layers(entry: int = 224):
 
 
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
-                    streamed: bool, top: int, per_kind: int):
-    """The tiles to time, as ``(model cost, FwdBlocking)``, the chooser's
-    first: the ``top`` of least cost and the ``per_kind`` cheapest of each
-    (consumer count, lane split)."""
+                    streamed: bool, top: int, per_kind: int,
+                    op_bytes: int = 4):
+    """The tiles to time at ``op_bytes`` operands, as ``(model cost,
+    FwdBlocking)``, the chooser's first: the ``top`` of least cost and the
+    ``per_kind`` cheapest of each (consumer count, lane split)."""
     cib, cob = min(ci, 128), min(co, 128)
     ho = -(-h // stride)
     found = sorted(fwd_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
-                                  co // cob, cob, H100_SXM, False, streamed),
+                                  co // cob, cob, H100_SXM, False, streamed,
+                                  op_bytes=op_bytes),
                    key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     for kind in sorted({(b.wgs, b.nsplit) for _, b in found}):
@@ -56,7 +61,14 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                        help="the build to time (default f32)")
+    args = parser.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    # the bf16 build rounds its output once: one bf16 ulp of the magnitude
+    tol = 2.0 ** -7 if args.dtype == "bf16" else 1e-4
     if not torch.cuda.is_available():
         print("fwd_tiles_ab: no CUDA device")
         return 1
@@ -65,6 +77,7 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
+    print(f"operands {args.dtype}")
     entries = {False: (direct_conv2d._lib, "direct_conv2d_fwd"),
                True: (conv2d_stream._lib, "conv2d_stream_conv")}
     dev = torch.device("cuda")
@@ -74,19 +87,21 @@ def main() -> int:
     for name, ci, co, s, h in fwd_layers():
         cib, cob = min(ci, 128), min(co, 128)
         spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
-        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
-        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
-                        generator=gen) / (9 * ci) ** 0.5
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev,
+                        generator=gen).to(dtype)
+        w = (torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
+                         generator=gen) / (9 * ci) ** 0.5).to(dtype)
         b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
-        want = direct_conv_blocked(x, w, s, "SAME", b, "relu")
+        want = direct_conv_blocked(x, w, s, "SAME", b, "relu").float()
         scale = want.abs().max().item()
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_KIND):
+                                             PER_KIND, dtype.itemsize):
                 plan = direct_conv2d.fwd_launch(spec, cib, cob, 1, False,
-                                                streamed, blk=blk)
+                                                streamed, blk=blk,
+                                                dtype=dtype)
 
                 def run(plan=plan, blk=blk):
                     err, out, _, _ = direct_conv2d.fwd_run(entry, plan, x, w,
@@ -95,8 +110,8 @@ def main() -> int:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
                     return out
-                bad = (run() - want).abs().max().item()
-                if bad > 1e-4 * (1 + scale):
+                bad = (run().float() - want).abs().max().item()
+                if bad > tol * (1 + scale):
                     raise RuntimeError(f"{symbol} {blk}: |out - plain| = "
                                        f"{bad} (max |out| {scale})")
                 runs.append((cost, blk, run))

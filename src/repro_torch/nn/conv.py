@@ -55,8 +55,8 @@ from repro_torch.kernels.conv2d_pointwise import pointwise_conv2d_blocked
 from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
 from repro_torch.nn.module import ParamSpec, init_tree
 
-__all__ = ["BlockedConv2D", "DepthwiseSeparableBlock", "BlockedCNN",
-           "blocked_global_avg_pool"]
+__all__ = ["BlockedConv2D", "ResidualBlock", "DepthwiseSeparableBlock",
+           "BlockedCNN", "blocked_global_avg_pool"]
 
 
 def _generator(generator: Optional[torch.Generator]) -> torch.Generator:
@@ -165,6 +165,37 @@ class BlockedConv2D(nn.Module):
             machine=ctx.resolve_machine_for(self.machine))
 
 
+class ResidualBlock(BlockedConv2D):
+    """Identity-skip block: ``out = act(conv(x) + b) + x``, fused.
+
+    The port of the reference's ``ResidualBlock`` (``repro/nn/conv.py:
+    316-360``): the skip add rides the conv's epilogue (the ``residual=``
+    of :class:`BlockedConv2D`), added after the activation in f32 with one
+    downcast, so the pre-activation never makes a trip through device
+    memory to be re-read for the add.  An identity skip needs a conv that
+    keeps the geometry: ``ci == co`` and ``stride == 1``, checked at
+    construction (with SAME padding the map keeps its size).  It is the
+    conv itself, so its parameters are the conv's ``w`` and ``b``, as the
+    reference's ``conv{i}`` holds the inner conv's (``convert`` carries
+    them across unchanged).  A caller's own ``residual=`` is refused.
+    """
+
+    def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
+                 stride: int = 1, padding: Padding = "SAME",
+                 activation: Optional[str] = "relu", **kw):
+        if ci != co or stride != 1:
+            raise ValueError("ResidualBlock needs an identity-shaped conv: "
+                             f"ci={ci} co={co} stride={stride}")
+        super().__init__(ci, co, hf, wf, stride, padding, activation, **kw)
+
+    def forward(self, xb: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                gap: bool = False,
+                context: Optional[ConvContext] = None) -> torch.Tensor:
+        if residual is not None:
+            raise ValueError("ResidualBlock supplies its own skip tensor")
+        return super().forward(xb, residual=xb, gap=gap, context=context)
+
+
 class DepthwiseSeparableBlock(nn.Module):
     """Depthwise conv + pointwise (1x1) conv, chained in the blocked layout.
 
@@ -210,12 +241,12 @@ class DepthwiseSeparableBlock(nn.Module):
 class BlockedCNN(nn.Module):
     """conv -> ... -> conv -> GAP -> linear head, chained in blocked layout.
 
-    Layers are ``BlockedConv2D``s or ``DepthwiseSeparableBlock``s, mixed
-    freely.  NHWC images are blocked once at entry; every layer boundary
-    after that stays in ``[N, C/Cb, H, W, Cb]``.  The last layer pools in
-    its epilogue, so its map is consumed as it is stored, and the head is a
-    plain ``torch.matmul`` outside any kernel (the reference left it to
-    XLA).
+    Layers are ``BlockedConv2D``s, ``ResidualBlock``s or
+    ``DepthwiseSeparableBlock``s, mixed freely.  NHWC images are blocked
+    once at entry; every layer boundary after that stays in ``[N, C/Cb, H,
+    W, Cb]``.  The last layer pools in its epilogue, so its map is consumed
+    as it is stored, and the head is a plain ``torch.matmul`` outside any
+    kernel (the reference left it to XLA).
     """
 
     def __init__(self, convs: Sequence[nn.Module], n_classes: int, *,
@@ -250,8 +281,14 @@ class BlockedCNN(nn.Module):
     def forward(self, x_nhwc: torch.Tensor,
                 context: Optional[ConvContext] = None) -> torch.Tensor:
         """``[N, H, W, C]`` images -> ``[N, n_classes]`` logits; ``context``
-        reaches every layer."""
-        h = nhwc_to_blocked(x_nhwc, self.convs[0].in_pencil)
+        reaches every layer.  Under a context's precision the layers chain
+        in its operand dtype, as the reference's ``BlockedCNN.__call__``
+        does: the images are cast once at entry, every conv emits the
+        operand dtype (bf16 with f32 sums inside), the pooled features come
+        out in it, the head's f32 master is cast to it and the logits come
+        back in it."""
+        op = as_context(context).resolve_precision_for(F32).op_dtype
+        h = nhwc_to_blocked(x_nhwc.to(op), self.convs[0].in_pencil)
         last = len(self.convs) - 1
         for i, conv in enumerate(self.convs):
             h = conv(h, gap=(i == last), context=context)

@@ -82,8 +82,8 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
         want = direct_conv_blocked(x, w, stride, "SAME", b, act, residual=r,
                                    gap=gap)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_dgrad": 0,
-                        "direct_conv2d_wgrad": 0}
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_fwd_bf16": 0,
+                        "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
 
@@ -494,8 +494,8 @@ def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
     loss.backward()
     torch.cuda.synchronize()
     # the first layer's dx is not needed: the images do not require grad
-    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_dgrad": 1,
-                        "direct_conv2d_wgrad": 2}
+    assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_fwd_bf16": 0,
+                        "direct_conv2d_dgrad": 1, "direct_conv2d_wgrad": 2}
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
 
@@ -508,8 +508,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     w = w.detach()
     with pytest.raises(NotImplementedError, match="f32"):
         direct_conv2d_blocked(x.bfloat16(), w.bfloat16(), None, 1, "SAME")
-    with pytest.raises(NotImplementedError, match="f32 policy"):
-        direct_conv2d_blocked(x, w, b, 1, "SAME", precision="bf16")
+    # the bf16 policy's inference runs the bf16 build, casting f32 operands
+    got = direct_conv2d_blocked(x, w, b, 1, "SAME", precision="bf16")
+    assert got.dtype == torch.bfloat16
     with pytest.raises(ValueError, match="contiguous"):
         direct_conv2d_blocked(x.transpose(2, 3), w, b, 1, "SAME")
     with pytest.raises(ValueError, match="is on"):
@@ -725,8 +726,7 @@ def test_separable_model_runs_through_the_kernels(cuda):
     torch.cuda.synchronize()
     assert pwk.LAUNCHES["conv2d_pointwise_fwd"] == 2
     assert dwk.LAUNCHES["conv2d_depthwise_fwd"] == 2
-    assert LAUNCHES == {"direct_conv2d_fwd": 0, "direct_conv2d_dgrad": 0,
-                        "direct_conv2d_wgrad": 0}     # the GAP folded in
+    assert all(v == 0 for v in LAUNCHES.values())    # the GAP folded in
     loss = model(images).square().sum()
     loss.backward()
     torch.cuda.synchronize()
@@ -793,7 +793,9 @@ def test_stream_kernels_match_plain_and_window(cuda, n, ci, co, h, cib, cob,
     dw2, db2 = direct_conv2d_wgrad(x, ct, 3, 3, stride, "SAME", zz, act,
                                    with_db=True, stream=True)
     torch.cuda.synchronize()
-    assert stk.LAUNCHES == {"conv2d_stream_fwd": 1, "conv2d_stream_dgrad": 1,
+    assert stk.LAUNCHES == {"conv2d_stream_fwd": 1,
+                            "conv2d_stream_fwd_bf16": 0,
+                            "conv2d_stream_dgrad": 1,
                             "conv2d_stream_wgrad": 2}
     assert LAUNCHES["direct_conv2d_fwd"] == 1        # the window forward
     assert LAUNCHES["direct_conv2d_dgrad"] == 1      # the window dgrad
@@ -830,11 +832,10 @@ def test_stream_context_trains_a_two_layer_model_on_the_stream_kernels(
         grads.append([p.grad.clone() for p in model.parameters()])
         if ctx is not None:
             assert stk.LAUNCHES == {"conv2d_stream_fwd": 2,
+                                    "conv2d_stream_fwd_bf16": 0,
                                     "conv2d_stream_dgrad": 1,
                                     "conv2d_stream_wgrad": 2}
-            assert LAUNCHES == {"direct_conv2d_fwd": 0,
-                                "direct_conv2d_dgrad": 0,
-                                "direct_conv2d_wgrad": 0}
+            assert all(v == 0 for v in LAUNCHES.values())
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **TOL)
 
@@ -1131,3 +1132,126 @@ def test_serve_launcher_runs_on_the_card(cuda):
                  "4", "--max-new", "4"]) == 0
     assert main(["--arch", "mamba2-780m", "--reduced", "--requests", "3",
                  "--max-new", "3"]) == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 build of the dense forward tile (fwd_kernel_bf16,
+# stream_fwd_kernel_bf16) against the plain version under BF16: both round
+# the same f32 sums of bf16 products to bf16 once, in other orders, so an
+# element may land one bf16 ulp apart; plus 1e-5 of max|y| for the sums
+# ---------------------------------------------------------------------------
+
+def _bf16_close(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    g, w = got.double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    bound = ulp + 1e-5 * w.abs().max()
+    assert bool(((g - w).abs() <= bound).all()), float(
+        ((g - w).abs() / bound).max())
+
+
+BF16_CASES = [
+    (2, 3, 64, 17, 3, 64, 1, "relu", False, False),    # Cib 3: 2-byte copies
+    (2, 3, 64, 20, 3, 64, 2, "gelu", True, True),
+    (2, 64, 128, 28, 64, 128, 1, "gelu", True, True),
+    (3, 24, 12, 9, 8, 12, 2, None, False, True),       # Cob 12: 2-byte weights
+    (2, 12, 20, 23, 4, 20, 1, "gelu", True, False),    # Cib 4: 4-byte copies
+    (2, 8, 5, 9, 8, 5, 1, "relu", True, True),         # Cob 5: odd, no pairs
+    (1, 256, 256, 14, 128, 128, 2, "relu", True, True),
+    (2, 512, 512, 14, 128, 128, 1, "relu", False, True),
+]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,res,gap", BF16_CASES)
+def test_bf16_forward_kernels_match_plain_version(cuda, streamed, n, ci, co,
+                                                  h, cib, cob, stride, act,
+                                                  res, gap):
+    x, w, b, r = _operands(cuda, n, ci, co, h, cib, cob, stride, res)
+    x = x.bfloat16()
+    r = None if r is None else r.bfloat16()
+    reset_launches()
+    stk.reset_launches()
+    with torch.no_grad():
+        got = direct_conv2d_blocked(x, w, b, stride, "SAME", act, residual=r,
+                                    gap=gap, precision="bf16",
+                                    stream=streamed)
+        want = direct_conv_blocked(x, w, stride, "SAME", b, act, "bf16",
+                                   residual=r, gap=gap)
+    torch.cuda.synchronize()
+    assert (stk.LAUNCHES["conv2d_stream_fwd_bf16"],
+            LAUNCHES["direct_conv2d_fwd_bf16"]) == ((1, 0) if streamed
+                                                    else (0, 1))
+    assert LAUNCHES["direct_conv2d_fwd"] == stk.LAUNCHES[
+        "conv2d_stream_fwd"] == 0
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,res,gap",
+                         [c for c in BF16_CASES if c[-1]])
+def test_gap_replay_is_the_kernels_pooled_features_bit_for_bit(
+        cuda, streamed, dtype, n, ci, co, h, cib, cob, stride, act, res,
+        gap):
+    x, w, b, r = _operands(cuda, n, ci, co, h, cib, cob, stride, res)
+    if dtype == "bf16":
+        x = x.bfloat16()
+        r = None if r is None else r.bfloat16()
+    pooled, parts, out, blk = gap_forward(x, w, b, stride, "SAME", act, r,
+                                          streamed=streamed, precision=dtype,
+                                          with_map=True)
+    torch.cuda.synchronize()
+    assert torch.equal(conv2d_common.gap_replay(out, blk), pooled)
+    hw = out.shape[2] * out.shape[3]
+    assert torch.equal(
+        conv2d_common.gap_finalize(parts, hw).to(pooled.dtype), pooled)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("gap", [False, True])
+def test_fp16_policy_raises_on_cuda_and_launches_nothing(cuda, streamed,
+                                                         gap):
+    from repro_torch.core.precision import Precision
+    x, w, b, _ = _operands(cuda, 2, 16, 16, 9, 8, 16, 1, False)
+    fp16 = Precision(operand="float16")
+    reset_launches()
+    stk.reset_launches()
+    with torch.no_grad():
+        with pytest.raises(NotImplementedError, match="float16"):
+            direct_conv2d_blocked(x.half(), w, b, 1, "SAME", "relu", gap=gap,
+                                  precision=fp16, stream=streamed)
+        with pytest.raises(NotImplementedError, match="float16"):
+            gap_forward(x, w, b, 1, "SAME", "relu", streamed=streamed,
+                        precision=fp16)
+    assert not any(LAUNCHES.values()) and not any(stk.LAUNCHES.values())
+
+
+def test_bf16_policy_refuses_training_and_serves_a_narrow_cnn(cuda):
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    gen = torch.Generator().manual_seed(0)
+    convs = [BlockedConv2D(3, 16, stride=1, lane=8, device=cuda,
+                           generator=gen),
+             BlockedConv2D(16, 16, stride=2, lane=8, device=cuda,
+                           generator=gen)]
+    model = BlockedCNN(convs, 4, device=cuda, generator=gen)
+    images = torch.randn((2, 12, 12, 3), device=cuda)
+    ctx = ConvContext(precision="bf16")
+    with pytest.raises(NotImplementedError, match="next slice"):
+        model(images, context=ctx)               # grad mode: training
+    reset_launches()
+    with torch.no_grad():
+        got = model(images, context=ctx)
+        want = model.cpu()(images.cpu(), context=ctx)
+        model.to(cuda)
+    assert LAUNCHES["direct_conv2d_fwd_bf16"] == 2
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float().cpu(), want.float(), rtol=2e-2,
+                               atol=2e-2 * want.abs().max().item())
+    server = ConvServer(model, [(12, 12)], 2, device=cuda, context=ctx)
+    reqs = [ConvRequest(i, images[i].cpu().numpy()) for i in range(2)]
+    for req in reqs:
+        server.submit(req)
+    server.run()
+    assert all(req.outcome is Outcome.OK for req in reqs)

@@ -180,8 +180,11 @@ def test_pad_and_bias_helpers():
     assert p[0, 0, 2].abs().sum() == 0 and p[0, 0, :, :2].abs().sum() == 0
     assert pad_blocked(x, (0, 0), (0, 0)) is x
     assert bias_to_blocked(torch.arange(8.0), 4).shape == (2, 4)
-    with pytest.raises(ValueError):
-        bias_to_blocked(torch.arange(6.0), 4)
+    # Co not a pencil multiple: zero-padded, as the reference's pad-to-block
+    # bias (and as pad-to-block maps need)
+    padded = bias_to_blocked(torch.arange(6.0), 4)
+    assert padded.shape == (2, 4)
+    assert padded.reshape(-1).tolist() == [0, 1, 2, 3, 4, 5, 0, 0]
 
 
 # ---------------------------------------------------------------------------
