@@ -198,7 +198,35 @@ and no phase catches its own failure:
     forward (f32, bf16) and one train step through the kernels against the
     plain path; per-layer and summed bf16 times (eager, CUDA graph, plain,
     cuDNN bf16 channels-last, the bound at the bf16 peak, the weight
-    cast) and the whole bf16 forward.
+    cast) and the whole bf16 forward;
+23. bf16 training: the bf16 builds of the dgrad and wgrad tiles
+    (``dgrad_kernel_bf16``, ``stream_dgrad_kernel_bf16``,
+    ``wgrad_kernel_bf16``, ``stream_wgrad_kernel_bf16``; phase 2 prints
+    their registers, spills and HGMMA under the f32 kernels' names) against
+    their plain versions under ``BF16`` at every VGG-16 layer at batch 8 on
+    both routes (dx within one bf16 ulp plus ``BF16_FWD_REL`` of max|dx|,
+    two runs bit for bit; dw and db against f64 sums of the same bf16
+    operands within ``WGRAD_REL`` of sum|x dz|, each folded sum bit for bit
+    its workspace's in-order reduce with the counters at 0; each kernel's
+    plan equal to the blocking model's), the dgrad at Cob 6 and 125, and
+    the autograd path (relu and gelu, a residual and GAP, Cib 3 and 64)
+    against the same function on the CPU's plain versions; the last main
+    paths: VGG-16 (phase 4's weights as f32 masters) trained in bf16, 3
+    AdamW steps at batch 8, window then ``stream=True``, only the bf16
+    builds launched, held to a plain bf16 trainer (the same training path
+    on the plain versions, a CPU copy) and an f32 plain trainer (autograd
+    through the plain forward): step 1's loss within 1e-2 of the plain
+    bf16 path's, each gradient within ``BF16_TOL`` of its max of the plain
+    bf16 path's (or twice that path's own max distance from the f32
+    gradient, where that is larger) and no further from the f32
+    gradients (relative L2) than twice the plain bf16 path; after 3 steps
+    no more elements off the f32 trainer's by ``PARAM_STEP`` of the
+    summed learning rate than twice the plain bf16 trainer's, none off the
+    plain bf16 trainer's by more than 2.1 times it; per
+    layer and summed times (eager, CUDA graph, plain, cuDNN's
+    ``convolution_backward`` in bf16 channels-last, the bound at 989e12
+    against the bf16 bytes), the bf16 train steps beside the f32 one, and
+    peak memory beside ``memory_model.bytes_precision_split``.
 
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -318,6 +346,15 @@ BF16_CONTROL_MULT = 4
 # of each element's magnitude (the two round f32 sums of the same bf16
 # products, in other orders, once to bf16) plus this share of max|y|
 BF16_FWD_REL = 1e-5
+# bf16 training: each step-1 gradient of the kernels against the plain bf16
+# path's, relative to its largest value (the reference's BF16_TOL,
+# tests/test_precision.py), or twice the plain bf16 path's own distance
+# from the f32 gradients where that is larger: at full VGG-16 depth from a
+# random start the first layers' gradients are a small rest of large
+# cancelling sums, and a bf16 path ends ~15 % of their max from the f32
+# ones, and ~14 % from another bf16 path that sums in another order (H100,
+# phase 23); a wrong tap or rounding moves them by O(1)
+BF16_TOL = 3e-2
 # NVIDIA H100 SXM data sheet: dense bf16 and TF32 tensor-core peaks
 PEAK_BF16_FLOPS = 989e12
 PEAK_TF32_FLOPS = 495e12
@@ -2925,8 +2962,8 @@ def bf16_phases(args, dev, t_start, model):
                           f"{pooled.dtype} over {blk.tiles} tiles of "
                           f"{blk.th}x{blk.tw}")
 
-    # an fp16 policy has no build: refused on the card, never run in bf16;
-    # bf16 training is refused until its backward tiles exist
+    # an fp16 policy has no build: refused on the card, never run in bf16,
+    # in inference and in training
     x, w, b, _, _ = operands(2, 64, 64, 8, 1)
     fp16 = Precision(operand="float16")
     for streamed in (False, True):
@@ -2936,7 +2973,7 @@ def bf16_phases(args, dev, t_start, model):
                     stream=streamed), "fp16 inference"),
                 (lambda: direct_conv2d_blocked(
                     x, w.requires_grad_(), b, 1, "SAME", "relu",
-                    precision="bf16", stream=streamed), "bf16 training")):
+                    precision=fp16, stream=streamed), "fp16 training")):
             reset_all_launches()
             try:
                 call()
@@ -2948,7 +2985,7 @@ def bf16_phases(args, dev, t_start, model):
             w.requires_grad_(False)
             if any(all_launches().values()):
                 fail(f"{what} launched {all_launches()}")
-    print("[bf16] fp16 inference and bf16 training raise NotImplementedError "
+    print("[bf16] fp16 inference and fp16 training raise NotImplementedError "
           "on both routes, no launch")
     print(f"[time] phase 22(a-b) done at {time.perf_counter() - t_start:.1f} s")
 
@@ -3208,6 +3245,450 @@ def bf16_phases(args, dev, t_start, model):
               f"window: {f32_ms:.3f} ms eager (the same call)")
     print(f"[time] phase 22 done at {time.perf_counter() - t_start:.1f} s")
     return entries, counts
+
+
+def bf16_train_phases(args, dev, t_start, model, smi):
+    """Phase 23: the bf16 builds of the dgrad and wgrad tiles on both
+    routes against their plain versions under ``BF16``, the autograd path
+    with relu and gelu, a residual and GAP, VGG-16 (``model``, phase 4's
+    weights as f32 masters) trained in bf16 for 3 AdamW steps on both
+    routes, and the builds' times.  -> (the four builds' entries of the
+    ``{"kernels": [...]}`` line, the launches of the two bf16 training
+    runs per kernel)."""
+    from repro_torch.configs.cnn import vgg16_layers
+    from repro_torch.core import conv2d_common
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_dgrad_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.kernels import conv2d_stream as stk
+    from repro_torch.kernels.direct_conv2d import (direct_conv2d_blocked,
+                                                   direct_conv2d_dgrad,
+                                                   dgrad_plans, split_wgrad,
+                                                   wgrad_partials,
+                                                   wgrad_plans)
+    from repro_torch.train.losses import cross_entropy
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainstep import make_train_step
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 50)
+    key = {(False, "dgrad"): "direct_conv2d_dgrad_bf16",
+           (True, "dgrad"): "conv2d_stream_dgrad_bf16",
+           (False, "wgrad"): "direct_conv2d_wgrad_bf16",
+           (True, "wgrad"): "conv2d_stream_wgrad_bf16"}
+    fn_of = {"direct_conv2d_dgrad_bf16": "dgrad_kernel_bf16",
+             "conv2d_stream_dgrad_bf16": "stream_dgrad_kernel_bf16",
+             "direct_conv2d_wgrad_bf16": "wgrad_kernel_bf16",
+             "conv2d_stream_wgrad_bf16": "stream_wgrad_kernel_bf16"}
+
+    def route(streamed):
+        return "streamed" if streamed else "window"
+
+    print(f"[bf16-train] card: {smi}")
+
+    def layer_shapes(entry):
+        out, h = [], entry
+        for ci, co, s in vgg16_layers():
+            out.append((ci, co, s, h))
+            h = -(-h // s)
+        return out
+
+    def operands(n, ci, co, h, s, cob=None):
+        cib, cob = min(ci, 128), cob or min(co, 128)
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
+        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
+                        generator=gen) / (9 * ci) ** 0.5
+        z = torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=dev,
+                        generator=gen)
+        g = torch.randn(z.shape, device=dev, generator=gen)
+        return x.to(bf), w.to(bf), z.to(bf), g.to(bf), spec
+
+    def wgrad_run(x, g, z, s, streamed):
+        if streamed:
+            return stk.stream_wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu",
+                                             True, precision="bf16")
+        return wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu", True,
+                              precision="bf16")
+
+    # -- 23(a) each build against its plain version, with its times ----------
+    max_err = {k: 0.0 for k in key.values()}
+    rows = {k: [] for k in key.values()}
+    for name, (ci, co, s, h) in zip(LAYER_NAMES, layer_shapes(ENTRY)):
+        x, w, z, g, spec = operands(BATCH, ci, co, h, s)
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        (pt, pb), (pl, pr) = spec.pads
+        cl = torch.channels_last
+        xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(BATCH, ci, h, h),
+                   (pl, pr, pt, pb)).contiguous(memory_format=cl)
+        w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
+                  .contiguous(memory_format=cl))
+        dz_nchw = (dz.permute(0, 1, 4, 2, 3)
+                   .reshape(BATCH, co, spec.ho, spec.wo)
+                   .contiguous(memory_format=cl))
+
+        def library(mask):
+            return lambda: torch.ops.aten.convolution_backward(
+                dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                [0, 0], 1, mask)
+        tag = f"{name} {ci}->{co} in {h}x{h} s{s} n{BATCH}"
+        if ci != 3:                       # the images' dx is never taken
+            want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z,
+                                             "relu")
+            p_ms = time_ms(lambda: direct_conv_dgrad_blocked(
+                g, w, (h, h), s, "SAME", z, "relu"), iters=3)
+            lib = library([True, False, False])
+            l_ms, l_graph = time_ms(lib), graph_ms(lib)
+            b_ms, b_by = bound(spec.flops(), 2 * (2 * g.numel() + w.numel()
+                                                  + x.numel()),
+                               PEAK_BF16_FLOPS)
+            for streamed in (False, True):
+                def dgrad():
+                    return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z,
+                                               "relu", stream=streamed,
+                                               precision="bf16")
+                got, again = dgrad(), dgrad()
+                torch.cuda.synchronize()
+                k = key[(streamed, "dgrad")]
+                max_err[k] = max(max_err[k], bf16_close(
+                    f"{route(streamed)} dgrad {tag} relu", got, want))
+                if not torch.equal(got, again):
+                    fail(f"bf16 {route(streamed)} dgrad {name}: two runs "
+                         "differ")
+                plan, model_plan = dgrad_plans(g, w, (h, h), s, "SAME", z,
+                                               "relu", streamed=streamed,
+                                               dtype=bf)
+                if plan != model_plan:
+                    fail(f"bf16 dgrad {name}: the kernel's plan {plan} != "
+                         f"the blocking model's {model_plan}")
+                k_ms, g_ms = time_ms(dgrad), graph_ms(dgrad)
+                rows[k].append((k_ms, g_ms, p_ms, l_ms, l_graph, b_ms, b_by))
+                print(f"[bf16-bwd-time] {tag} dgrad {route(streamed)}: "
+                      f"eager_ms {k_ms:.4f} graph_ms {g_ms:.4f} plain_ms "
+                      f"{p_ms:.4f} library_ms {l_ms:.4f} [{l_graph:.4f}] "
+                      f"(convolution_backward, bf16 channels-last) bound_ms "
+                      f"{b_ms:.4f} ({b_by}, bf16) bound/graph "
+                      f"{b_ms / g_ms:.3f}; {plan.tiles} tiles, tensor-core "
+                      f"MACs issued {plan.issued_macs} (padding "
+                      f"{100 * plan.padding_share:.1f} %)")
+            del want, got, again
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), dz.double(), 3, 3, s, "SAME", with_db=True)
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), 3, 3, s, "SAME",
+            with_db=True)
+        p_ms = time_ms(lambda: direct_conv_wgrad_blocked(
+            x, g, 3, 3, s, "SAME", z, "relu", with_db=True), iters=3)
+        lib = library([False, True, False])
+        l_ms, l_graph = time_ms(lib), graph_ms(lib)
+        b_ms, b_by = bound(spec.flops(), 2 * (x.numel() + 2 * g.numel())
+                           + 4 * (w.numel() + co), PEAK_BF16_FLOPS)
+        for streamed in (False, True):
+            k = key[(streamed, "wgrad")]
+            first = wgrad_run(x, g, z, s, streamed)
+            dw, db = split_wgrad(wgrad_run(x, g, z, s, streamed)[1], x.shape,
+                                 g.shape, 3, 3, True)
+            check_fold(f"bf16 {route(streamed)} wgrad {tag}", first,
+                       (dw, db))
+            max_err[k] = max(
+                max_err[k],
+                compare_scaled(f"bf16 wgrad dw {route(streamed)} {tag}", dw,
+                               want_dw, abs_dw, WGRAD_REL),
+                compare_scaled(f"bf16 wgrad db {route(streamed)} {tag}", db,
+                               want_db, abs_db, WGRAD_REL))
+            plan, model_plan = wgrad_plans(x, g, 3, 3, s, "SAME", z, "relu",
+                                           streamed=streamed, dtype=bf)
+            if plan != model_plan:
+                fail(f"bf16 wgrad {name}: the kernel's plan {plan} != the "
+                     f"blocking model's {model_plan}")
+
+            def wgrad():
+                return wgrad_run(x, g, z, s, streamed)
+            k_ms, g_ms = time_ms(wgrad), graph_ms(wgrad)
+            rows[k].append((k_ms, g_ms, p_ms, l_ms, l_graph, b_ms, b_by))
+            print(f"[bf16-bwd-time] {tag} wgrad {route(streamed)}: eager_ms "
+                  f"{k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
+                  f"library_ms {l_ms:.4f} [{l_graph:.4f}] "
+                  f"(convolution_backward, bf16 channels-last, no db) "
+                  f"bound_ms {b_ms:.4f} ({b_by}, bf16) bound/graph "
+                  f"{b_ms / g_ms:.3f}; {plan.tiles} tiles, tensor-core MACs "
+                  f"issued {plan.issued_macs} (padding "
+                  f"{100 * plan.padding_share:.1f} %), shared memory "
+                  f"{plan.smem} B")
+        del x, w, z, g, dz, xp, w_oihw, dz_nchw, want_dw, want_db, abs_dw
+        del abs_db
+    print(f"[bf16-train] wgrad worst err/bound: " + " ".join(
+        f"{kind} {max(v for lab, v in RATIOS.items() if lab.startswith(f'bf16 wgrad {kind} ')):.3f}"
+        for kind in ("dw", "db")) + f" (tol 1, |err| <= {WGRAD_REL:g} * "
+        "sum|x dz|; two runs bit for bit)")
+
+    # Cob % 8 != 0: the cp.async (Cob 6) and 2-byte (Cob 125) copies
+    for n, ci, co, h, s in C1_SHAPES:
+        cob = 6 if co == 6 else 125
+        x, w, z, g, spec = operands(n, ci, co, h, s, cob)
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
+        for streamed in (False, True):
+            def dgrad():
+                return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z,
+                                           "relu", stream=streamed,
+                                           precision="bf16")
+            got = dgrad()
+            torch.cuda.synchronize()
+            k = key[(streamed, "dgrad")]
+            tag = f"{ci}->{co} {h}x{h} s{s} n{n} relu, Cob {cob}"
+            max_err[k] = max(max_err[k], bf16_close(
+                f"{route(streamed)} dgrad {tag}", got, want))
+            print(f"[bf16-c1] {route(streamed)} dgrad {tag}: eager_ms "
+                  f"{time_ms(dgrad):.4f} graph_ms {graph_ms(dgrad):.4f}")
+        del x, w, z, g, want, got
+
+    # the autograd path: relu and gelu, a residual and GAP, Cib = 3 and 64,
+    # against the same function on the CPU's plain versions
+    for n, ci, co, h, s, act in ((2, 3, 64, 20, 2, "gelu"),
+                                 (2, 64, 128, 28, 1, "relu")):
+        x, w, _, _, spec = operands(n, ci, co, h, s)
+        x, w = x.float(), w.float()
+        b = 0.1 * torch.randn((co // min(co, 128), min(co, 128)), device=dev,
+                              generator=gen)
+        r = torch.randn((n, co // min(co, 128), spec.ho, spec.wo,
+                         min(co, 128)), device=dev, generator=gen).to(bf)
+        ct = torch.randn((n, co), device=dev, generator=gen)
+
+        def grads(streamed, device):
+            ins = [t.detach().to(device).clone().requires_grad_()
+                   for t in (x, w, b, r)]
+            out = direct_conv2d_blocked(*ins[:3], s, "SAME", act,
+                                        residual=ins[3], gap=True,
+                                        precision="bf16", stream=streamed)
+            (out.float() * ct.to(device)).sum().backward()
+            return [t.grad for t in ins]
+        for streamed in (False, True):
+            reset_all_launches()
+            got = grads(streamed, dev)
+            torch.cuda.synchronize()
+            ran = {k: v for k, v in all_launches().items() if v}
+            pre = "conv2d_stream" if streamed else "direct_conv2d"
+            if ran != {f"{pre}_fwd_bf16": 1, f"{pre}_dgrad_bf16": 1,
+                       f"{pre}_wgrad_bf16": 1}:
+                fail(f"the bf16 autograd path launched {ran}")
+            want = grads(streamed, torch.device("cpu"))
+            for nm, gk, gp in zip(("dx", "dw", "db", "dres"), got, want):
+                k = key[(streamed, "dgrad" if nm == "dx" else "wgrad")]
+                e = compare(f"bf16 autograd {nm} {route(streamed)} {ci}->{co} "
+                            f"{h}x{h} s{s} n{n} {act}+residual+gap vs the "
+                            "plain versions", gk.cpu(), gp,
+                            atol=GRAD_RTOL * gp.abs().max().item(), rtol=0.0)
+                max_err[k] = max(max_err[k], e)
+    print(f"[time] phase 23(a) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 23(b) VGG-16 trained in bf16, window then streamed ------------------
+    # The plain bf16 trainer is the same training path on the plain
+    # versions (a CPU copy of the model: the wrappers take their plain
+    # versions for CPU tensors), so that only the order of the f32 sums
+    # differs from the kernels: with its own rounding points (a bf16 forward
+    # differentiated by autograd) a plain path ends ~15 % from the f32
+    # gradients at conv1_2, and so ~15 % from the kernels as well.
+    rng = np.random.default_rng(args.seed + 50)
+    batches = [
+        {"images": torch.from_numpy(rng.standard_normal(
+            (BATCH, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+         "targets": torch.from_numpy(rng.integers(0, 1000, BATCH)).to(dev)}
+        for _ in range(3)]
+    lr = cosine_schedule(TRAIN_LR, 1, 3)
+    lr_sum = sum(lr(t) for t in (1, 2, 3))
+    bf16_ctx = ConvContext(precision="bf16")
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    # the f32 plain trainer: autograd through the plain forward, 3 steps
+    # (the f32 reference of the gradient and drift rules)
+    f32m = copy.deepcopy(model)
+    fopt = AdamW(lr=lr)
+    fparams = dict(f32m.named_parameters())
+    fstate = fopt.init(fparams)
+    for i, bt in enumerate(batches):
+        for p in fparams.values():
+            p.grad = None
+        logits = plain_cnn_forward(bt["images"], f32m)
+        loss, _ = cross_entropy(logits[:, None, :], bt["targets"][:, None],
+                                1000)
+        loss.backward()
+        if i == 0:
+            f32_loss = loss.detach()
+            f32_grads = {k: p.grad.clone() for k, p in fparams.items()}
+        fopt.update({k: p.grad for k, p in fparams.items()}, fstate,
+                    fparams)
+    f32_params = {k: p.detach().clone() for k, p in fparams.items()}
+    del f32m, fparams, fstate, logits, loss
+
+    def off(params, ref):
+        """Elements of ``params`` more than PARAM_STEP of the summed
+        learning rate from ``ref``'s, and the largest difference."""
+        n, worst = 0, 0.0
+        for k, v in params.items():
+            d = (v - ref[k]).abs()
+            n += int((d > PARAM_STEP * lr_sum).sum())
+            worst = max(worst, d.max().item())
+        return n, worst
+    # the plain bf16 trainer, 3 steps on the CPU
+    t0 = time.perf_counter()
+    pm = copy.deepcopy(model).cpu()
+    popt = AdamW(lr=lr)
+    pstate = popt.init(dict(pm.named_parameters()))
+    pstep = make_train_step(pm, popt, context=bf16_ctx)
+    plain_losses = []
+    for i, bt in enumerate(batches):
+        loss, _ = pstep(pstate, {k: v.cpu() for k, v in bt.items()})
+        plain_losses.append(loss.item())
+        if i == 0:
+            pgrads = {k: p.grad.to(dev) for k, p in pm.named_parameters()}
+    pparams = {k: p.detach().to(dev) for k, p in pm.named_parameters()}
+    n_el = sum(v.numel() for v in pparams.values())
+    del pm, pstate
+    plain_far, _ = off(pparams, f32_params)
+    print(f"[bf16-train] the plain bf16 trainer (the training path on the "
+          f"plain versions, on the CPU): 3 steps in "
+          f"{time.perf_counter() - t0:.1f} s, losses {plain_losses}; after "
+          f"3 steps {plain_far} of {n_el} elements more than {PARAM_STEP:g}"
+          f" * sum(lr)={lr_sum:g} from the f32 plain trainer's")
+    counts, runs = {}, {}
+    for streamed in (False, True):
+        ctx = ConvContext(precision="bf16", stream=streamed)
+        km = copy.deepcopy(model)
+        opt = AdamW(lr=lr)
+        kstate = opt.init(dict(km.named_parameters()))
+        step = make_train_step(km, opt, context=ctx)
+        tag = f"bf16-train {route(streamed)}"
+        reset_all_launches()
+        losses = []
+        for i, bt in enumerate(batches):
+            loss, _ = step(kstate, bt)
+            torch.cuda.synchronize()
+            losses.append(loss.item())
+            if i > 0:
+                continue
+            per_step = {k: v for k, v in all_launches().items() if v}
+            pre = "conv2d_stream" if streamed else "direct_conv2d"
+            want_step = {f"{pre}_fwd_bf16": 13, f"{pre}_dgrad_bf16": 12,
+                         f"{pre}_wgrad_bf16": 13}
+            print(f"[{tag}] launches in one step: {per_step}")
+            if per_step != want_step:
+                fail(f"a bf16 train step launched {per_step}, expected "
+                     f"{want_step}")
+            if not abs(losses[0] - plain_losses[0]) <= 1e-2 * abs(
+                    plain_losses[0]):
+                fail(f"bf16 step-1 loss {losses[0]} not within 1e-2 of the "
+                     f"plain bf16 path's {plain_losses[0]}")
+            worst, over, far, noisy = 0.0, [], [], 0
+            for k, p in km.named_parameters():
+                pg, kg, fg = pgrads[k], p.grad, f32_grads[k]
+                e = (kg - pg).abs().max().item() / pg.abs().max().item()
+                noise = (pg - fg).abs().max().item() / fg.abs().max().item()
+                worst = max(worst, e)
+                # where the plain bf16 path's own rounding noise passes
+                # BF16_TOL of max (the early layers of this random VGG-16:
+                # ~15 % from f32), twice that noise
+                tol = max(BF16_TOL, 2 * noise)
+                noisy += tol > BF16_TOL
+                if not e <= tol:
+                    over.append((k, e, tol))
+                dk, dp = rel(kg, fg), rel(pg, fg)
+                print(f"[{tag}] step-1 grad {k}: max err vs plain bf16 / "
+                      f"max {e:.2e} (tol {tol:.2e}; the plain bf16 path's "
+                      f"max err vs f32 / max {noise:.2e}); |kernel - f32| / "
+                      f"|f32| {dk:.3e}, |plain bf16 - f32| / |f32| {dp:.3e}")
+                if not dk <= 2 * dp:
+                    far.append((k, dk, dp))
+            print(f"[{tag}] step-1 loss {losses[0]:.6f}, plain bf16 "
+                  f"{plain_losses[0]:.6f}, f32 plain {f32_loss.item():.6f}; "
+                  f"worst gradient err {worst:.2e} of its max (tol "
+                  f"{BF16_TOL:g}, or twice the plain bf16 path's own max "
+                  f"err vs f32 at {noisy} of {len(pgrads)} tensors); "
+                  f"gradients no further from the f32 ones than twice the "
+                  f"plain bf16 path's: {not far}")
+            if over:
+                fail(f"bf16 step-1 gradients beyond their tolerance: {over}")
+            if far:
+                fail(f"bf16 gradients further from the f32 plain ones than "
+                     f"twice the bf16 plain path: {far}")
+        counts.update({k: v for k, v in all_launches().items() if v})
+        kparams = {k: p.detach() for k, p in km.named_parameters()}
+        far, worst = off(kparams, pparams)
+        far32, _ = off(kparams, f32_params)
+        print(f"[{tag}] n{BATCH} {ENTRY}x{ENTRY}: losses {losses}, plain "
+              f"bf16 {plain_losses}; after 3 steps {far} of {n_el} elements "
+              f"differ from the plain bf16 trainer by more than "
+              f"{PARAM_STEP:g} * sum(lr)={lr_sum:g} (largest {worst:.3e}), "
+              f"{far32} from the f32 plain trainer's (tol: twice the plain "
+              f"bf16 trainer's {plain_far}, and none from the plain bf16 "
+              f"trainer's by more than 2.1 * sum(lr))")
+        if any(not np.isfinite(v) for v in losses):
+            fail("non-finite bf16 loss")
+        if far32 > 2 * plain_far or worst > 2.1 * lr_sum:
+            fail("the bf16 kernel trainer drifted from the f32 trainer "
+                 "further than twice the plain bf16 trainer")
+        runs[streamed] = (step, kstate, km)
+    del pgrads, pparams, f32_grads, f32_params, kparams
+    torch.cuda.empty_cache()
+    print(f"[time] phase 23(b) done at {time.perf_counter() - t_start:.1f} s")
+
+    # -- 23(c) summed times, the step beside f32's, peak memory ---------------
+    f32m = copy.deepcopy(model)
+    f32opt = AdamW(lr=lr)
+    f32state = f32opt.init(dict(f32m.named_parameters()))
+    f32step = make_train_step(f32m, f32opt)
+    timed = timed_steps("bf16-train", [
+        ("f32 window", f32step, f32state),
+        ("bf16 window", runs[False][0], runs[False][1]),
+        ("bf16 streamed", runs[True][0], runs[True][1])], batches)
+    del f32m, f32state, f32step
+    torch.cuda.empty_cache()
+    print(f"[bf16-train] step medians on {smi}: " + ", ".join(
+        f"{k} {np.median(v):.3f} ms" for k, v in timed.items()))
+    shapes = [mm.ConvShape(f"conv{i}", BATCH, h, h, ci, co, 3, 3, s, "SAME")
+              for i, (ci, co, s, h) in enumerate(layer_shapes(ENTRY))]
+    modelled = sum(mm.bytes_precision_split(sh, "bf16")["total"]
+                   for sh in shapes)
+    for streamed in (False, True):
+        step, state, km = runs[streamed]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(state, batches[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        print(f"[bf16-train] {route(streamed)} step peak device memory above "
+              f"the parameters, gradients and moments it holds "
+              f"{peak / 2**20:.1f} MiB; memory_model.bytes_precision_split's"
+              f" bf16 training bytes over the 13 convs {modelled / 2**20:.1f}"
+              f" MiB ({smi})")
+    entries = []
+    for (streamed, kind), k in key.items():
+        rs = rows[k]
+        tot = [sum(r[i] for r in rs) for i in range(6)]
+        by = mostly([(r[5], r[6]) for r in rs])
+        print(f"[bf16-bwd-time] all {len(rs)} {kind} {route(streamed)} "
+              f"({fn_of[k]}) on {smi}: eager_ms {tot[0]:.4f} graph_ms "
+              f"{tot[1]:.4f} plain_ms {tot[2]:.4f} library_ms {tot[3]:.4f} "
+              f"[{tot[4]:.4f}] bound_ms {tot[5]:.4f} ({by}, bf16), "
+              f"{100 * tot[5] / tot[1]:.1f} % of the bound as a graph; "
+              f"launches in the two bf16 training runs {counts.get(k, 0)}")
+        entries.append({
+            "name": f"{k} ({fn_of[k]})", "route": "cuda",
+            "source": STREAM_SOURCE if streamed else BWD_SOURCE,
+            "replaces": {"dgrad": TPU_STREAM if streamed else TPU_DGRAD,
+                         "wgrad": TPU_STREAM_WGRAD if streamed
+                         else TPU_WGRAD}[kind],
+            "launches": counts.get(k, 0), "max_abs_err": max_err[k],
+            "ms": tot[0], "plain_ms": tot[2], "bound_ms": tot[5],
+            "bound_by": by, "library_ms": tot[3]})
+    del runs
+    torch.cuda.empty_cache()
+    print(f"[time] phase 23 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, {k: counts.get(k, 0) for k in key.values()}
 
 
 def main(argv=None) -> int:
@@ -3765,6 +4246,7 @@ def main(argv=None) -> int:
     st_entries, st_counts = stream_phases(args, dev, t_start)
     lm_entries, lm_counts = lm_phases(args, dev, t_start)
     bf_entries, bf_counts = bf16_phases(args, dev, t_start, model)
+    bt_entries, bt_counts = bf16_train_phases(args, dev, t_start, model, smi)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -3773,7 +4255,8 @@ def main(argv=None) -> int:
     print(f"[launches] VGG-16 served {served} trained {train_counts}; "
           f"MobileNet v1 served and trained {mb_counts}; VGG-16 on the "
           f"streamed route served and trained {st_counts}; VGG-16 served "
-          f"in bf16 on both routes {bf_counts}")
+          f"in bf16 on both routes {bf_counts}; VGG-16 trained in bf16 on "
+          f"both routes {bt_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -3795,6 +4278,7 @@ def main(argv=None) -> int:
     kernels.extend(st_entries)
     kernels.extend(lm_entries)
     kernels.extend(bf_entries)
+    kernels.extend(bt_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

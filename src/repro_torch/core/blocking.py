@@ -474,6 +474,11 @@ def dgrad_window(hob: int, wob: int, hf: int, wf: int,
 DGRAD_ROWS = 64                       # rows of one wgmma tile
 DGRAD_LANES = (8, 16, 32, 64, 128)    # compiled wgmma widths
 DGRAD_CONSUMERS = 3                   # the most consumer warpgroups a CTA
+# the bf16 builds of the dgrad and wgrad tiles at 128 lanes (of m-tiles,
+# lanes x mpw, in the wgrad): a consumer's running sum and its stage's
+# accumulator take 128 registers a thread, two consumers at most
+# (dgrad_tile::bf16::max_threads, wgrad_tile::bf16::max_threads)
+BF16_WIDE_CONSUMERS = 2
 # the cost model of the tile search (``dgrad_candidates``), in cycles of one
 # SM: the H100's dense TF32 rate in MACs a cycle (495e12 / 2 / 132 /
 # 1.83e9), the share of it one to three consumer warpgroups keep busy, and
@@ -533,7 +538,7 @@ def dgrad_lanes(cib: int) -> int:
 
 def dgrad_smem_bytes(hf: int, wf: int, stride: int, lanes: int, chunk: int,
                      hwin: int, wwin: int, prologue: bool,
-                     streamed: bool = False) -> int:
+                     streamed: bool = False, op_bytes: int = 4) -> int:
     """Dynamic shared memory of one dgrad CTA (``dgrad_tile::smem_bytes``):
     128 bytes to align the base; per slot of the two-slot ring the weights
     of the most taps a phase reaches, ``chunk x lanes``, and their small
@@ -543,8 +548,19 @@ def dgrad_smem_bytes(hf: int, wf: int, stride: int, lanes: int, chunk: int,
     kernel's whole window one box, padded to 128 bytes), with ``z`` beside
     it with the prologue; one
     int per k8 step of a stage (rounded up to an even count); an 8-byte
-    mbarrier per slot and copy group."""
+    mbarrier per slot and copy group.
+
+    bf16 (``op_bytes`` 2, ``dgrad_tile::bf16::smem_bytes``): per slot the
+    bf16 weights alone (no small halves) and windows of ``chunk + 8`` bf16
+    cells (rows padded to 128 bytes as f32's); an int per k16 step."""
     taps = -(-hf // stride) * -(-wf // stride)
+    if _fwd_k_step(op_bytes) == 16:
+        row = wwin * (chunk + 8)
+        window = (hwin * -(-row // 64) * 64 if streamed
+                  else -(-hwin * row // 64) * 64)
+        return (128 + 2 * 2 * (taps * chunk * lanes
+                               + (2 if prologue else 1) * window)
+                + 4 * -(-taps * chunk // 32) * 2 + 8 * 2 * DGRAD_CONSUMERS)
     row = wwin * (chunk + 4)
     window = (hwin * -(-row // 32) * 32 if streamed
               else -(-hwin * row // 32) * 32)
@@ -603,10 +619,12 @@ class DgradPlan:
     the images and Ci blocks); ``issued_macs``, the tensor-core MACs the
     tiles issue: each consumer warpgroup's whole 64-row m-tile over its
     phase's taps, Cob padded to k8 slices in every Co block, the ``lanes``
-    width, three products each."""
+    width, ``products`` each (three for 3xTF32, one in bf16, where Cob pads
+    to k16 slices)."""
     tiles: int
     function_macs: int
     issued_macs: int
+    products: int = 3
 
     @property
     def padding_share(self) -> float:
@@ -615,32 +633,35 @@ class DgradPlan:
         channels past Cob."""
         if not self.issued_macs:
             return 0.0
-        return 1 - 3 * self.function_macs / self.issued_macs
+        return 1 - self.products * self.function_macs / self.issued_macs
 
 
 def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
                wf: int, stride: int, pads, ciblk: int, cib: int, coblk: int,
-               cob: int) -> DgradPlan:
+               cob: int, op_bytes: int = 4) -> DgradPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an
-    unpadded ``hi x wi`` input with leading pads ``pads``."""
+    unpadded ``hi x wi`` input with leading pads ``pads``, with
+    ``op_bytes`` operands."""
     (pt, _), (pl, _) = pads
     tiles = dgrad_tiles(blk, hi, wi, hf, wf, stride, pads)
     cells = sum(r.extent * c.extent * r.taps * c.taps
                 for r in dgrad_phase_axes(hi, hf, stride, pt)
                 for c in dgrad_phase_axes(wi, wf, stride, pl))
     tile_taps = sum(r.taps * c.taps for r, c, _, _ in tiles)
-    kpad = -(-cob // 8) * 8
+    kpad = fwd_kpad(cob, op_bytes)
+    products = 3 if op_bytes == 4 else 1
     return DgradPlan(
         tiles=len(tiles),
         function_macs=n * ciblk * cells * cib * coblk * cob,
         issued_macs=(n * ciblk * tile_taps * DGRAD_ROWS * blk.wgs * blk.lanes
-                     * coblk * kpad * 3))
+                     * coblk * kpad * products),
+        products=products)
 
 
 def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                      stride: int, ciblk: int, cib: int, cob: int,
                      machine: MachineModel, prologue: bool, streamed: bool,
-                     hso: int | None = None):
+                     hso: int | None = None, op_bytes: int = 4):
     """The tiles the search weighs, each as ``(key, DgradBlocking)``, the
     least key the choice: for each consumer count (the streamed band's
     strips: two or three, one a warpgroup) and tile width, the tallest
@@ -653,16 +674,22 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
     share ``DGRAD_WG_EFFICIENCY`` of it they keep busy) and the rest of a
     stage: a fixed part, the producer's split and prologue, and in the
     streamed kernel its TMA boxes of window rows; ties go to more rows a
-    CTA, a larger chunk, then a smaller window."""
+    CTA, a larger chunk, then a smaller window.  ``op_bytes`` 2 weighs the
+    bf16 build: chunks of k16 slices, 2-byte cells, one product a MAC at
+    twice the TF32 rate, and no weight split."""
     lanes = dgrad_lanes(cib)
+    step = _fwd_k_step(op_bytes)
+    bf16 = step == 16
     mh, mw = -(-hf // stride), -(-wf // stride)
     hp, wp = -(-hi // stride), -(-wi // stride)
-    kpad = -(-cob // 8) * 8
-    chunks = [c for c in range(kpad, 0, -8) if kpad % c == 0]
+    kpad = fwd_kpad(cob, op_bytes)
+    chunks = [c for c in range(kpad, 0, -step) if kpad % c == 0]
     out = []
     counts = range(2, DGRAD_CONSUMERS + 1) if streamed else range(
         1, DGRAD_CONSUMERS + 1)
     for wgs in counts:
+        if bf16 and lanes == DGRAD_LANES[-1] and wgs > BF16_WIDE_CONSUMERS:
+            continue
         rows = DGRAD_ROWS * wgs
         for tw in range(1, min(wp, rows) + 1):
             if streamed:                  # wgs strips of sh rows
@@ -681,17 +708,18 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                 mstride = rows
             hwin, wwin = th + mh - 1, tw + mw - 1
             chunk = next((c for c in chunks if dgrad_smem_bytes(
-                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed)
-                <= machine.smem_block), None)
+                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed,
+                op_bytes) <= machine.smem_block), None)
             if chunk is None:
                 continue
             tiles = stride * stride * -(-hp // th) * -(-wp // tw)
             taps = hf * wf / (stride * stride)    # a phase's, on average
-            mma = (3 * rows * taps * chunk * lanes / DGRAD_MACS_PER_CYCLE
+            mma = ((1 if bf16 else 3) * rows * taps * chunk * lanes
+                   / (DGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
                    / DGRAD_WG_EFFICIENCY[wgs])
             cells = hwin * wwin * chunk
             other = DGRAD_STAGE_CYCLES + (
-                DGRAD_SPLIT_CYCLES * taps * chunk * lanes
+                (0 if bf16 else DGRAD_SPLIT_CYCLES * taps * chunk * lanes)
                 + (DGRAD_PROLOGUE_CYCLES * cells if prologue else 0)
             ) / DGRAD_ROWS / 2
             if streamed:    # its TMA boxes of window rows, g's and z's
@@ -714,10 +742,10 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
 def _dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int, stride: int,
                     ciblk: int, cib: int, cob: int, machine: MachineModel,
                     prologue: bool, streamed: bool, hso: int | None,
-                    what: str) -> DgradBlocking:
+                    what: str, op_bytes: int = 4) -> DgradBlocking:
     """The least-cost tile of ``dgrad_candidates``."""
     found = dgrad_candidates(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                             machine, prologue, streamed, hso)
+                             machine, prologue, streamed, hso, op_bytes)
     if not found:
         if hso is not None and hso > DGRAD_ROWS:
             raise ValueError(f"hso={hso} phase rows do not fit a strip of "
@@ -733,12 +761,14 @@ def _dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int, stride: int,
 def choose_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, cob: int,
                           machine: MachineModel = H100_SXM,
-                          prologue: bool = False) -> DgradBlocking:
+                          prologue: bool = False,
+                          op_bytes: int = 4) -> DgradBlocking:
     """Tile the window dgrad of ``n`` images over an unpadded ``hi x wi``
     input (``_dgrad_blocking``): a CTA stages the whole cotangent window of
-    its ``th x tw`` tile a stage, with ``z`` beside it when ``prologue``."""
+    its ``th x tw`` tile a stage, with ``z`` beside it when ``prologue``;
+    ``op_bytes`` 2 for the bf16 build."""
     return _dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                           machine, prologue, False, None, "dgrad")
+                           machine, prologue, False, None, "dgrad", op_bytes)
 
 
 # ---------------------------------------------------------------------------
@@ -791,13 +821,16 @@ def wgrad_lanes(cob: int) -> int:
     return lanes
 
 
-def wgrad_ldx(cib: int, stride: int) -> int:
-    """Floats of one staged x cell (``wgrad_tile::x_ld``): ``cib`` rounded
+def wgrad_ldx(cib: int, stride: int, op_bytes: int = 4) -> int:
+    """Elements of one staged x cell (``wgrad_tile::x_ld``): ``cib`` rounded
     up to 4, then up to the first value whose ``stride`` multiple is 8 mod
     16, so that an A load's four positions start on four distinct 8-bank
-    groups (``cib`` rounded up to 4 where no such value exists)."""
-    base = -(-cib // 4) * 4
-    return next((ld for ld in range(base, base + 32, 4)
+    groups (``cib`` rounded up to 4 where no such value exists).  bf16
+    (``op_bytes`` 2, ``wgrad_tile::bf16::x_ld``): rounded up to 8 (a TMA
+    box's 16 bytes), then likewise in steps of 8."""
+    unit = 4 if op_bytes == 4 else 8
+    base = -(-cib // unit) * unit
+    return next((ld for ld in range(base, base + 8 * unit, unit)
                  if stride * ld % 16 == 8), base)
 
 
@@ -807,16 +840,29 @@ def wgrad_mtiles(hf: int, wf: int, cib: int) -> int:
 
 
 def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
-                     cib: int, cob: int, lanes: int, prologue: bool) -> int:
+                     cib: int, cob: int, lanes: int, prologue: bool,
+                     op_bytes: int = 4) -> int:
     """Dynamic shared memory of one wgrad CTA (``wgrad_tile::smem_bytes``):
     128 bytes to align the base; per slot of the two-slot ring the x window
     ``[hwin][rf]`` (a row's ``wwin`` cells of ``ld`` floats, padded to 128
     bytes, where its TMA box lands), the staged ``g`` (and ``z``)
     ``[K][Cob]`` rounded up to 128 bytes, and B's big and small halves
     ``[K/4][lanes][4]`` (K = th * tw rounded up to 8); the position offsets,
-    the db partials and two 8-byte mbarriers a slot."""
-    kpos = -(-th * tw // 8) * 8
+    the db partials and two 8-byte mbarriers a slot.
+
+    bf16 (``op_bytes`` 2, ``wgrad_tile::bf16::smem_bytes``): 2-byte cells
+    (``wgrad_ldx`` at 2 bytes), rows padded to 128 bytes, K rounded up to
+    16, and B one ``[lanes/8][K + 1][8]`` bf16 buffer (no small half; a
+    position of padding a lane group), rounded up to 128 bytes."""
     hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    if op_bytes == 2:
+        kpos = -(-th * tw // 16) * 16
+        x = hwin * -(-wwin * wgrad_ldx(cib, stride, 2) // 64) * 64
+        raw = -(-kpos * cob // 64) * 64
+        slot = (x + (2 if prologue else 1) * raw
+                + -(-(kpos + 1) * lanes // 64) * 64)
+        return 128 + 2 * 2 * slot + 4 * (WGRAD_MAX_POSITIONS + 128) + 8 * 4
+    kpos = -(-th * tw // 8) * 8
     x = hwin * -(-wwin * wgrad_ldx(cib, stride) // 32) * 32
     raw = -(-kpos * cob // 32) * 32
     slot = x + (2 if prologue else 1) * raw + 2 * kpos * lanes
@@ -842,10 +888,11 @@ class WgradBlocking:
     tiles: int
     hwin: int
     wwin: int
+    kstep: int = 8          # K's slice: 8 (3xTF32), 16 (the bf16 build)
 
     @property
     def kpos(self) -> int:
-        return -(-self.th * self.tw // 8) * 8
+        return -(-self.th * self.tw // self.kstep) * self.kstep
 
 
 @dataclasses.dataclass(frozen=True)
@@ -874,12 +921,13 @@ class WgradPlan:
     ``tiles``, the position tiles (items) of one m-tile group, Ci and Co
     block; ``function_macs``, positions x taps x Ci x Co; ``issued_macs``,
     the tensor-core MACs: every tile's K positions over every m-tile, the
-    ``lanes`` width, three products, in every (Ci, Co) block; ``smem``, a
-    CTA's dynamic shared memory."""
+    ``lanes`` width, ``products`` each (three for 3xTF32, one in bf16), in
+    every (Ci, Co) block; ``smem``, a CTA's dynamic shared memory."""
     tiles: int
     function_macs: int
     issued_macs: int
     smem: int
+    products: int = 3
 
     @property
     def padding_share(self) -> float:
@@ -888,22 +936,25 @@ class WgradPlan:
         or the map, lanes past Cob."""
         if not self.issued_macs:
             return 0.0
-        return 1 - 3 * self.function_macs / self.issued_macs
+        return 1 - self.products * self.function_macs / self.issued_macs
 
 
 def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
                wf: int, stride: int, ciblk: int, cib: int, coblk: int,
                cob: int, prologue: bool) -> WgradPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an
-    ``ho x wo`` output."""
+    ``ho x wo`` output (the bf16 build where ``blk.kstep`` is 16)."""
+    op_bytes = 2 if blk.kstep == 16 else 4
+    products = 3 if op_bytes == 4 else 1
     return WgradPlan(
         tiles=blk.tiles,
         function_macs=n * ho * wo * hf * wf * cib * ciblk * cob * coblk,
         issued_macs=(ciblk * coblk * blk.tiles * blk.kpos
                      * wgrad_mtiles(hf, wf, cib) * WGRAD_ROWS * blk.lanes
-                     * 3),
+                     * products),
         smem=wgrad_smem_bytes(blk.th, blk.tw, hf, wf, stride, cib, cob,
-                              blk.lanes, prologue))
+                              blk.lanes, prologue, op_bytes),
+        products=products)
 
 
 def _wgrad_shapes(ho: int, wo: int, hso: int | None):
@@ -922,7 +973,7 @@ def _wgrad_shapes(ho: int, wo: int, hso: int | None):
 def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                      stride: int, ciblk: int, cib: int, coblk: int, cob: int,
                      machine: MachineModel, prologue: bool, streamed: bool,
-                     hso: int | None = None):
+                     hso: int | None = None, op_bytes: int = 4):
     """The tiles the search weighs, each as ``(key, blocking)``, the least
     key the choice.  For each stage shape (``_wgrad_shapes``) whose shared
     memory fits ``machine.smem_block``, consumer count and m-tiles a
@@ -937,36 +988,43 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     a first stage a CTA; the workspace the shares write; and the folded
     sum's tail, one column's rows read by one SM at
     ``SPLIT_SUM_BYTES_PER_CYCLE``.  Ties go to fewer shares, then larger
-    stages."""
+    stages.  ``op_bytes`` 2 weighs the bf16 build: K in k16 slices, 2-byte
+    staging, one product a MAC at twice the TF32 rate."""
     lanes = wgrad_lanes(cob)
+    kstep = _fwd_k_step(op_bytes)
+    bf16 = kstep == 16
     mt = wgrad_mtiles(hf, wf, cib)
     cols = coblk * ciblk * hf * wf * cib * cob + coblk * cob
     cls = StreamWgradBlocking if streamed else WgradBlocking
     out = []
     for th, tw in _wgrad_shapes(ho, wo, hso):
         smem = wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob, lanes,
-                                prologue)
+                                prologue, op_bytes)
         if smem > machine.smem_block:
             continue
-        kpos = -(-th * tw // 8) * 8
+        kpos = -(-th * tw // kstep) * kstep
         hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
         tiles = n * -(-ho // th) * -(-wo // tw)
         # the streamed walk's kept halo rows cost its producer a move in
         # shared memory, as much as their TMA copy from L2 costs the window
         # kernel's: both stage the whole window
-        staged = 4 * (hwin * wwin * cib
-                      + th * tw * cob * (2 if prologue else 1))
+        staged = op_bytes * (hwin * wwin * cib
+                             + th * tw * cob * (2 if prologue else 1))
         producer = (WGRAD_STAGE_CYCLES + staged / WGRAD_BYTES_PER_CYCLE
                     + kpos * lanes / 128 * WGRAD_TRANSFORM_CYCLES)
         for wgs in range(1, WGRAD_CONSUMERS + 1):
             for mpw in WGRAD_MPW:
                 if (lanes * mpw > 128 or (mpw > 1 and mt == 1)
-                        or (wgs - 1) * mpw >= mt):
+                        or (wgs - 1) * mpw >= mt
+                        or (bf16 and lanes * mpw == 128
+                            and wgs > BF16_WIDE_CONSUMERS)):
                     continue
                 groups = -(-mt // (wgs * mpw))
                 column = min(hf * wf * cib, wgs * mpw * WGRAD_ROWS) * cob
-                mma = (mt / groups * kpos / 8 * 3 * WGRAD_ROWS * lanes * 8
-                       / WGRAD_MACS_PER_CYCLE / WGRAD_WG_EFFICIENCY[wgs])
+                mma = (mt / groups * kpos / 8 * (1 if bf16 else 3)
+                       * WGRAD_ROWS * lanes * 8
+                       / (WGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
+                       / WGRAD_WG_EFFICIENCY[wgs])
                 stage = max(mma, producer)
                 base = groups * ciblk * coblk
                 # shares that fill whole waves or come just short of them,
@@ -988,15 +1046,15 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                                 cls(th=th, tw=tw, wgs=wgs, mpw=mpw,
                                     lanes=lanes, groups=groups,
                                     splits=splits, tiles=tiles, hwin=hwin,
-                                    wwin=wwin)))
+                                    wwin=wwin, kstep=kstep)))
     return out
 
 
 def _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                    machine, prologue, streamed, hso, what):
+                    machine, prologue, streamed, hso, what, op_bytes=4):
     """The least-cost tile of ``wgrad_candidates``."""
     found = wgrad_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                             cob, machine, prologue, streamed, hso)
+                             cob, machine, prologue, streamed, hso, op_bytes)
     if not found:
         raise SmemMisfitError(
             f"no {what} fits: cib={cib}, cob={cob}, filter {hf}x{wf}, "
@@ -1009,12 +1067,15 @@ def _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
 def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, coblk: int,
                           cob: int, machine: MachineModel = H100_SXM,
-                          prologue: bool = False) -> WgradBlocking:
+                          prologue: bool = False,
+                          op_bytes: int = 4) -> WgradBlocking:
     """Tile the window weight gradient of ``n`` images over an ``ho x wo``
     output (``wgrad_candidates``): each stage stages a tile's whole x
-    window, with ``z`` beside its ``g`` when ``prologue``."""
+    window, with ``z`` beside its ``g`` when ``prologue``; ``op_bytes`` 2
+    for the bf16 build."""
     return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                           machine, prologue, False, None, "wgrad tile")
+                           machine, prologue, False, None, "wgrad tile",
+                           op_bytes)
 
 
 # The split sums folded into the kernels that write their rows
@@ -1521,16 +1582,18 @@ def choose_stream_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
                                  stride: int, ciblk: int, cib: int, cob: int,
                                  machine: MachineModel = H100_SXM,
                                  prologue: bool = False,
-                                 hso: int | None = None) -> DgradBlocking:
+                                 hso: int | None = None,
+                                 op_bytes: int = 4) -> DgradBlocking:
     """Tile the streamed dgrad over the unpadded ``hi x wi`` input
     (``_dgrad_blocking``): a band of two or three strips of ``hso`` phase
     rows (``hso`` pins it), each one consumer warpgroup's m-tile, whose
     cotangent rows arrive strip by strip, with ``z`` beside them when
-    ``prologue``."""
+    ``prologue``; ``op_bytes`` 2 for the bf16 build."""
     if hso is not None and hso < 1:
         raise ValueError(f"hso={hso} must be >= 1")
     return _dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                           machine, prologue, True, hso, "streamed dgrad")
+                           machine, prologue, True, hso, "streamed dgrad",
+                           op_bytes)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -1539,12 +1602,14 @@ def choose_stream_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                                  coblk: int, cob: int,
                                  machine: MachineModel = H100_SXM,
                                  prologue: bool = False,
-                                 hso: int | None = None
+                                 hso: int | None = None,
+                                 op_bytes: int = 4
                                  ) -> StreamWgradBlocking:
     """Tile the streamed weight gradient (``wgrad_candidates``): items of
     ``hso x wob`` output positions walked strip by strip down each column,
     the shared halo rows kept, only fresh rows staged; ``hso`` pins the
-    strip height, which must divide ``ho``."""
+    strip height, which must divide ``ho``; ``op_bytes`` 2 for the bf16
+    build."""
     if hso is not None and (hso < 1 or ho % hso):
         raise ValueError(f"hso={hso} must divide Ho={ho}")
     if hso is not None and hso > WGRAD_MAX_POSITIONS:
@@ -1552,4 +1617,4 @@ def choose_stream_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                          f"{WGRAD_MAX_POSITIONS} positions")
     return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
                            machine, prologue, True, hso,
-                           "streamed wgrad strip")
+                           "streamed wgrad strip", op_bytes)

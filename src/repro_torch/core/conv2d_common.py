@@ -183,16 +183,20 @@ def gap_replay(out: torch.Tensor, blk) -> torch.Tensor:
 def cotangent_prologue(g: torch.Tensor, z: Optional[torch.Tensor],
                        activation: Optional[str]) -> torch.Tensor:
     """``dz = g * act'(z)`` on a cotangent ``g`` and the saved
-    pre-activation ``z`` of the same shape, in f32 (f64 for f64 operands),
-    returned at ``g``'s dtype.  relu' is 1 where ``z > 0``, 0 where
-    ``z < 0`` and 1/2 at 0, as the VJP of the reference's relu
-    (``jnp.maximum(z, 0)``) splits the tie; gelu is the tanh form, whose
-    derivative is written out the way the CUDA kernel computes it.  Linear,
-    or no ``z``, returns ``g`` unchanged."""
+    pre-activation ``z`` of the same shape, with the reference's cast order
+    (``repro/kernels/conv2d_common.py`` ``cotangent_prologue``): ``g`` taken
+    at ``z``'s dtype, ``act'`` evaluated in f32 (f64 for f64 operands), the
+    product rounded to ``z``'s dtype, then returned at ``g``'s dtype.
+    Under BF16 that is one rounding of the f32 product to bf16; where ``g``
+    and ``z`` share a dtype wider than bf16 it is the product in that dtype.
+    relu' is 1 where ``z > 0``, 0 where ``z < 0`` and 1/2 at 0, as the VJP
+    of the reference's relu (``jnp.maximum(z, 0)``) splits the tie; gelu is
+    the tanh form, whose derivative is written out the way the CUDA kernel
+    computes it.  Linear, or no ``z``, returns ``g`` unchanged."""
     if z is None or activation in (None, "linear"):
         return g
     dt = torch.promote_types(z.dtype, torch.float32)
-    zf, gf = z.to(dt), g.to(dt)
+    zf, gf = z.to(dt), g.to(z.dtype).to(dt)
     if activation == "relu":
         dz = torch.where(zf > 0, gf, torch.where(zf == 0, 0.5 * gf,
                                                  torch.zeros_like(gf)))
@@ -205,7 +209,7 @@ def cotangent_prologue(g: torch.Tensor, z: Optional[torch.Tensor],
     else:
         raise ValueError(f"unknown activation {activation!r}; "
                          f"have {sorted(k for k in ACTIVATIONS if k)}")
-    return dz.to(g.dtype)
+    return dz.to(z.dtype).to(g.dtype)
 
 
 def blocked_global_avg_pool(xb: torch.Tensor) -> torch.Tensor:

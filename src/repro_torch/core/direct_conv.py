@@ -212,19 +212,32 @@ def direct_conv_nhwc(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     return L.blocked_to_nhwc(yb, co)
 
 
+def _cast(policy, *ts):
+    """``ts`` cast to ``policy``'s operand dtype (None: unchanged)."""
+    if policy is None:
+        return ts
+    op = resolve_precision(policy).op_dtype
+    return tuple(None if t is None else t.to(op) for t in ts)
+
+
 def direct_conv_preactivation(x: torch.Tensor, w: torch.Tensor,
                               stride: int = 1, padding: Padding = "VALID",
                               bias: Optional[torch.Tensor] = None,
-                              groups: int = 1, dilation=1) -> torch.Tensor:
+                              groups: int = 1, dilation=1,
+                              precision=None) -> torch.Tensor:
     """The training forward's ``z = conv(x, w) + b``, the forward kernels'
     plain version with a linear epilogue, accumulated in f32 (f64 for f64
-    operands) and returned in that dtype."""
+    operands) and returned in that dtype; with ``precision`` the operands
+    are cast to its operand dtype first and ``z``, the f32 sum plus the
+    bias, is rounded to it once (bf16 under ``BF16``, as the forward's bf16
+    build stores it)."""
+    x, w = _cast(precision, x, w)
     spec = conv_spec(x, w, stride, padding, groups, dilation)
     dt = _acc_dtype(x, w)
     z = _accumulate(x, w, spec, dt)
     if bias is not None:
         z = z + bias.to(dt)[None, :, None, None, :]
-    return z
+    return z if precision is None else z.to(x.dtype)
 
 
 def backward_spec(n: int, hi: int, wi: int, w_shape, stride: int,
@@ -249,18 +262,24 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
                               padding: Padding = "VALID",
                               z: Optional[torch.Tensor] = None,
                               activation: Optional[str] = None,
-                              groups: int = 1, dilation=1) -> torch.Tensor:
+                              groups: int = 1, dilation=1,
+                              precision=None) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)`` given the raw cotangent
     ``g [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (None
     when the activation is linear) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi,
-    Cib]`` at the unpadded ``input_hw``; dense, or depthwise with ``groups
-    == C``.
+    Cib]`` at the unpadded ``input_hw`` in ``g``'s dtype; dense, or
+    depthwise with ``groups == C``.  ``precision`` casts ``g``, ``z`` and
+    ``w`` to its operand dtype first; bf16 operands are up-cast to f32
+    before any product (exact), so under ``BF16`` only the order of the
+    f32 sums differs from the bf16 kernels, and ``dx`` is rounded once to
+    bf16 as they round it.
 
     ``dz = g * act'(z)``; every tap adds ``dz @ w[tap]^T`` (depthwise:
     ``dz * w[tap]``) into the padded input rows it read (a strided view),
     over the dgrad extents; the pads are then cropped, and rows past the
     extents stay zero.
     """
+    g, z, w = _cast(precision, g, z, w)
     hi, wi = input_hw
     spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z,
                          groups, dilation)
@@ -292,13 +311,15 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
 def direct_conv_dgrad_phased(g: torch.Tensor, w: torch.Tensor, input_hw,
                              stride: int = 1, padding: Padding = "VALID",
                              z: Optional[torch.Tensor] = None,
-                             activation: Optional[str] = None) -> torch.Tensor:
-    """The dense input gradient (as ``direct_conv_dgrad_blocked``), split by
-    stride phase as the CUDA kernels split it: the dx rows ``first + s*a``
-    of a phase take taps ``phase + s*t`` from cotangent rows ``q0 + a - t``
-    (``dgrad_phase_axes``), cells outside the map read as 0, and each phase
-    is written once, so no stride hole is read and no dilated or padded
-    cotangent exists."""
+                             activation: Optional[str] = None,
+                             precision=None) -> torch.Tensor:
+    """The dense input gradient (as ``direct_conv_dgrad_blocked``, with its
+    ``precision``), split by stride phase as the CUDA kernels split it: the
+    dx rows ``first + s*a`` of a phase take taps ``phase + s*t`` from
+    cotangent rows ``q0 + a - t`` (``dgrad_phase_axes``), cells outside the
+    map read as 0, and each phase is written once, so no stride hole is
+    read and no dilated or padded cotangent exists."""
+    g, z, w = _cast(precision, g, z, w)
     hi, wi = input_hw
     spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
     if spec.is_grouped:
@@ -341,17 +362,23 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
                               z: Optional[torch.Tensor] = None,
                               activation: Optional[str] = None,
                               with_db: bool = False, groups: int = 1,
-                              dilation=1):
+                              dilation=1, precision=None):
     """Weight (and bias) gradient of ``act(conv(x, w) + b)`` given the
     forward's unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw, db [Co/Cob, Cob] or None)``, both f32
     (f64 for f64 operands); ``dw`` is ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
     Cob]``, or ``[C/Cb, 1, Hf, Wf, 1, Cb]`` with ``groups == C``.
+    ``precision`` casts ``x``, ``g`` and ``z`` to its operand dtype first;
+    bf16 operands are up-cast to f32 before any product, ``dz`` is rounded
+    to ``z``'s dtype by the prologue, and dw and db stay f32 (``db`` the
+    f32 sum of the rounded ``dz``), as the reference's wgrad under
+    ``BF16``.
 
     ``dz = g * act'(z)``; each tap's block is ``x_win^T @ dz`` contracted
     over ``(N, Ho, Wo)`` (depthwise: ``x_win * dz`` summed per lane);
     ``db`` sums ``dz`` over the same positions.
     """
+    x, g, z = _cast(precision, x, g, z)
     n, ciblk, hi, wi, cib = x.shape
     coblk, cob = g.shape[1], g.shape[4]
     if groups > 1:

@@ -107,7 +107,7 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     when neither fits.  ``spec`` is the forward's geometry (unpadded input,
     normalized pads); ``gap`` is the forward's fused pooling and
     ``prologue`` the backward's ``act'(z)`` (the dgrads and wgrads stage
-    ``z``); ``op_bytes`` the forward's operand size (2: its bf16 build)."""
+    ``z``); ``op_bytes`` the operand size (2: the bf16 builds)."""
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown direction {direction!r}; have "
                          f"{DIRECTIONS}")
@@ -126,22 +126,24 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     elif direction == "dgrad":
         def window():
             return choose_dgrad_blocking(n, spec.hi, spec.wi, hf, wf, s,
-                                         ciblk, cib, cob, machine, prologue)
+                                         ciblk, cib, cob, machine, prologue,
+                                         op_bytes)
 
         def streamed():
             return choose_stream_dgrad_blocking(n, spec.hi, spec.wi, hf, wf,
                                                 s, ciblk, cib, cob, machine,
-                                                prologue)
+                                                prologue, None, op_bytes)
     else:
         def window():
             return choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, s,
                                          ciblk, cib, coblk, cob, machine,
-                                         prologue)
+                                         prologue, op_bytes)
 
         def streamed():
             return choose_stream_wgrad_blocking(n, spec.ho, spec.wo, hf, wf,
                                                 s, ciblk, cib, coblk, cob,
-                                                machine, prologue)
+                                                machine, prologue, None,
+                                                op_bytes)
     try:
         window()
         return False

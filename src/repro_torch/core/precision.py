@@ -6,9 +6,10 @@
   residual  what a training step would store between forward and backward.
 
 Operands are cast once on kernel entry; the output is the operand dtype,
-rounded once after the fused epilogue.  The dense forward kernels take f32
-and bf16 operands (bf16 with an f32 bias); the backward kernels and the
-separable family take f32 only so far; the plain version takes both.
+rounded once after the fused epilogue.  The dense forward, dgrad and wgrad
+kernels take f32 and bf16 operands (bf16 with an f32 bias; the wgrad's dw
+and db stay f32); the separable family takes f32 only so far; the plain
+version takes both.
 """
 from __future__ import annotations
 

@@ -76,6 +76,7 @@
 // returns cudaGetLastError() after its launch (0 on success).
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -281,14 +282,16 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
 // The streamed dgrad's launch geometry: bands of `wgs` strips of hso x tw
 // phase positions, one m-tile each.  A strip's rows land as boxes of hso
 // rows where a window row fills whole 128-byte lines (each box lands on 128
-// bytes), else row by row.
+// bytes), else row by row; `bf16` for the bf16 build's cells.
 dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
                             int cib, int hi, int wi, int hf, int wf,
                             int stride, int pad_top, int pad_left, int hso,
                             int tw, int wgs, int chunk, int act,
-                            bool prologue) {
+                            bool prologue, bool bf16 = false) {
   const int wwin = tw + (wf - 1) / stride;
-  const int rows = wwin * (chunk + 4) % 32 == 0 ? hso : 1;
+  // a row's cells (chunk + 4 floats, or chunk + 8 bf16) in 128-byte lines
+  const int rows = bf16 ? (wwin * (chunk + 8) % 64 == 0 ? hso : 1)
+                        : (wwin * (chunk + 4) % 32 == 0 ? hso : 1);
   return dt::Geometry{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
                       stride, pad_top, pad_left, wgs * hso, tw, hso * tw,
                       chunk, act, prologue, rows};
@@ -302,6 +305,140 @@ dt::Kernel pick_dgrad(int lanes) {
     case 32: return stream_dgrad_kernel<32>;
     case 64: return stream_dgrad_kernel<64>;
     case 128: return stream_dgrad_kernel<128>;
+  }
+  return nullptr;
+}
+
+// The bf16 build of the same streamed tile (dgrad_tile.cuh, namespace
+// bf16): bf16 g, z, w and dx, f32 sums, every Co block in one grid; the
+// producer forms dz in place as each strip's group lands.
+template <int N>
+__global__ void __launch_bounds__(dt::bf16::max_threads(N), 1)
+stream_dgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
+                         const __grid_constant__ CUtensorMap tmg,
+                         const __grid_constant__ CUtensorMap tmz,
+                         const __nv_bfloat16* __restrict__ g,
+                         const __nv_bfloat16* __restrict__ z,
+                         const __nv_bfloat16* __restrict__ w,
+                         __nv_bfloat16* __restrict__ dx, dt::Geometry geo) {
+  namespace db = dt::bf16;
+  extern __shared__ __align__(16) char smem_bf16[];
+  const dt::Tile t = dt::tile_of(geo, blockIdx.x);
+  const int ci_b = blockIdx.y;
+  const int n = blockIdx.z;
+  const int nth = blockDim.x;
+  const int strips = nth / dt::kWarpgroup - 1;
+  const int pair = 2 * dt::kWarpgroup;  // one consumer and the producer
+  const db::Smem m = db::carve<N>(smem_bf16, geo);
+  const int taps = t.r.taps * t.c.taps;
+  const int steps = taps * geo.chunk / 16;
+  const int per_block = db::kpad(geo) / geo.chunk;
+  const int stages = taps > 0 ? geo.coblk * per_block : 0;
+  const int mh = dt::max_taps(geo.hf, geo.stride) - 1;
+  const int hso = geo.th / strips;
+  const bool tma = db::tma_copies(geo);
+  auto lo_of = [&](int k) { return k == 0 ? 0 : k * hso + mh; };
+  auto hi_of = [&](int k) { return (k + 1) * hso + mh; };
+  db::step_shifts(m.shifts, geo, t);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < dt::kSlots * dt::kMaxGroups; ++i) {
+      dt::mbar_init(&m.bars[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= strips * dt::kWarpgroup) {   // the producer warpgroup
+    const int tid = threadIdx.x - strips * dt::kWarpgroup;
+    const int o_h = t.r.q0 + t.a0 - mh;
+    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
+    auto issue_stage = [&](int s) {
+      const int slot = s & 1;
+      const int co_b = s / per_block;
+      const int c0 = (s % per_block) * geo.chunk;
+      if (!tma) {
+        for (int k = 0; k < strips; ++k) {
+          if (k == 0) {
+            db::copy_weights<N>(w, m.wts + slot * m.wst, geo, t, co_b, ci_b,
+                                c0, tid);
+          }
+          db::copy_rows(g, z, m.win + slot * m.cst, m.zwin + slot * m.cst,
+                        geo, n, co_b, c0, o_h, o_w, lo_of(k), hi_of(k), tid);
+          dt::cp_async_commit();
+        }
+        return;
+      }
+      if (tid >= 32) return;
+      uint64_t* bars = &m.bars[slot * dt::kMaxGroups];
+      if (tid == 0) {
+        for (int k = 0; k < strips; ++k) {
+          dt::mbar_expect_tx(&bars[k],
+                             (k == 0 ? db::weight_bytes<N>(geo, t) : 0)
+                                 + db::row_bytes(geo, lo_of(k), hi_of(k)));
+        }
+      }
+      __syncwarp();
+      for (int k = 0; k < strips; ++k) {
+        if (k == 0) {
+          db::issue_weights<N>(&tmw, m.wts + slot * m.wst, &bars[k], geo, t,
+                               co_b, ci_b, c0, tid, 32);
+        }
+        db::issue_rows(&tmg, &tmz, m.win + slot * m.cst,
+                       m.zwin + slot * m.cst, &bars[k], geo, n, co_b, c0,
+                       o_h, o_w, lo_of(k), hi_of(k), tid, 32);
+      }
+    };
+    if (stages > 0) issue_stage(0);
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s & 1;
+      for (int k = 0; k < strips; ++k) {
+        if (tma) {
+          dt::mbar_wait(&m.bars[slot * dt::kMaxGroups + k], (s >> 1) & 1);
+        } else {                        // every producer thread's strip k
+          dt::cp_async_wait(strips - 1 - k);
+          dt::bar_sync(dt::kBarProducer, dt::kWarpgroup);
+        }
+        if (geo.prologue) {
+          db::prologue_rows(m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
+                            lo_of(k), hi_of(k), tid, dt::kWarpgroup);
+        }
+        dt::fence_proxy_async();
+        dt::bar_arrive(dt::kBarFull + slot * dt::kMaxGroups + k, pair);
+      }
+      if (s + 1 < stages) {
+        if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
+        issue_stage(s + 1);
+      }
+    }
+    return;
+  }
+
+  const int strip = threadIdx.x / dt::kWarpgroup;
+  float total[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) total[i] = 0.0f;
+  int off[2];
+  db::row_offsets(off, geo, strip, 0);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s & 1;
+    dt::bar_sync(dt::kBarFull + slot * dt::kMaxGroups + strip, pair);
+    // the weights' TMA copy (strip 0's group), which the wgmmas read
+    if (tma) dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
+    db::mma_stage<N, (N > 64 ? 64 : N)>(total, m.win + slot * m.cst, off,
+                                        m.shifts, steps,
+                                        m.wts + slot * m.wst);
+    if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
+  }
+  db::store_dx<N>(dx, total, geo, t, n, ci_b, strip, 0);
+}
+
+dt::bf16::Kernel pick_dgrad_bf16(int lanes) {
+  switch (lanes) {
+    case 8: return stream_dgrad_kernel_bf16<8>;
+    case 16: return stream_dgrad_kernel_bf16<16>;
+    case 32: return stream_dgrad_kernel_bf16<32>;
+    case 64: return stream_dgrad_kernel_bf16<64>;
+    case 128: return stream_dgrad_kernel_bf16<128>;
   }
   return nullptr;
 }
@@ -337,6 +474,37 @@ wtile::Kernel pick_wgrad(int lanes, int mpw) {
     case 64 * 4 + 1: return stream_wgrad_kernel<64, 1>;
     case 64 * 4 + 2: return stream_wgrad_kernel<64, 2>;
     case 128 * 4 + 1: return stream_wgrad_kernel<128, 1>;
+  }
+  return nullptr;
+}
+
+// The bf16 build of the same streamed tile (wgrad_tile.cuh, namespace
+// bf16): bf16 x, g and z, the f32 workspace and sums.
+template <int N, int MPW>
+__global__ void __launch_bounds__(wtile::bf16::max_threads(N, MPW), 1)
+stream_wgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmg,
+                         const __grid_constant__ CUtensorMap tmz,
+                         const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ g,
+                         const __nv_bfloat16* __restrict__ z, float* ws,
+                         float* out, int* counters, wtile::Geometry geo) {
+  extern __shared__ __align__(16) char smem_bf16[];
+  wtile::bf16::run<N, MPW>(smem_bf16, &tmx, &tmg, &tmz, x, g, z, ws, out,
+                           counters, geo);
+}
+
+wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw) {
+  switch (lanes * 4 + mpw) {
+    case 8 * 4 + 1: return stream_wgrad_kernel_bf16<8, 1>;
+    case 8 * 4 + 2: return stream_wgrad_kernel_bf16<8, 2>;
+    case 16 * 4 + 1: return stream_wgrad_kernel_bf16<16, 1>;
+    case 16 * 4 + 2: return stream_wgrad_kernel_bf16<16, 2>;
+    case 32 * 4 + 1: return stream_wgrad_kernel_bf16<32, 1>;
+    case 32 * 4 + 2: return stream_wgrad_kernel_bf16<32, 2>;
+    case 64 * 4 + 1: return stream_wgrad_kernel_bf16<64, 1>;
+    case 64 * 4 + 2: return stream_wgrad_kernel_bf16<64, 2>;
+    case 128 * 4 + 1: return stream_wgrad_kernel_bf16<128, 1>;
   }
   return nullptr;
 }
@@ -458,6 +626,73 @@ int conv2d_stream_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
   if (!wtile::valid(geo) || pick_wgrad(lanes, mpw) == nullptr)
     return (int)cudaErrorInvalidValue;
   wtile::plan(geo, out);
+  return 0;
+}
+
+// The bf16 build of conv2d_stream_dgrad (bf16 g, z, w and dx), the same
+// arguments; one grid always.
+int conv2d_stream_dgrad_bf16(const void* g, const void* z, const void* w,
+                             void* dx, int n, int coblk, int cob, int ho,
+                             int wo, int ciblk, int cib, int hi, int wi,
+                             int hf, int wf, int stride, int pad_top,
+                             int pad_left, int hso, int tw, int wgs,
+                             int lanes, int chunk, int act, void* stream,
+                             int* launches) {
+  dt::Geometry geo = dgrad_geometry(
+      coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
+      pad_left, hso, tw, wgs, chunk, act, z != nullptr, true);
+  geo.co_first = 0;
+  geo.co_count = coblk;
+  if (wgs < 2 || hso * tw > dt::kRows) return (int)cudaErrorInvalidValue;
+  return dt::bf16::launch(pick_dgrad_bf16(lanes),
+                          (const __nv_bfloat16*)g, (const __nv_bfloat16*)z,
+                          (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, n,
+                          geo, wgs, lanes, (cudaStream_t)stream, launches);
+}
+
+// What conv2d_stream_dgrad_bf16 runs (dgrad_tile::bf16::plan).
+int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
+                                  int ciblk, int cib, int hi, int wi, int hf,
+                                  int wf, int stride, int pad_top,
+                                  int pad_left, int hso, int tw, int wgs,
+                                  int lanes, int chunk, long long* out) {
+  if (wgs < 2 || hso * tw > dt::kRows || stride < 1 || hso < 1 || tw < 1)
+    return (int)cudaErrorInvalidValue;
+  dt::bf16::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf,
+                                wf, stride, pad_top, pad_left, hso, tw, wgs,
+                                chunk, 0, false, true),
+                 n, wgs, lanes, out);
+  return 0;
+}
+
+// The bf16 build of conv2d_stream_wgrad (bf16 x, g and z; the f32
+// workspace and sums), the same plan.
+int conv2d_stream_wgrad_bf16(const void* x, const void* g, const void* z,
+                             void* ws, void* out, void* counters,
+                             const int* p, void* stream) {
+  const wtile::Geometry geo = wgrad_geometry(
+      p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
+      z != nullptr, p[21]);
+  return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
+                            (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
+                            (const __nv_bfloat16*)z, (float*)ws, (float*)out,
+                            (int*)counters, geo, (cudaStream_t)stream);
+}
+
+// What conv2d_stream_wgrad_bf16 runs (wgrad_tile::bf16::plan).
+int conv2d_stream_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
+                                  int coblk, int cob, int ho, int wo, int hf,
+                                  int wf, int stride, int pad_top,
+                                  int pad_left, int hso, int wob, int wgs,
+                                  int mpw, int lanes, int splits,
+                                  int prologue, long long* out) {
+  const wtile::Geometry geo = wgrad_geometry(
+      n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
+      pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);
+  if (!wtile::valid_bf16(geo) || pick_wgrad_bf16(lanes, mpw) == nullptr)
+    return (int)cudaErrorInvalidValue;
+  wtile::bf16::plan(geo, out);
   return 0;
 }
 

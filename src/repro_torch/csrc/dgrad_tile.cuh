@@ -83,6 +83,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <algorithm>
@@ -1019,5 +1020,665 @@ inline int launch(Kernel kernel, const float* g, const float* z,
   }
   return 0;
 }
+
+
+// ---------------------------------------------------------------------------
+// bf16 wgmma (shared by the bf16 builds of this tile, wgrad_tile.cuh and
+// fwd_tile.cuh)
+// ---------------------------------------------------------------------------
+
+// D[64 x N] += A[64 x 16] B[16 x N], bf16 in, f32 accumulators.  A from
+// registers: thread (warp w, lane l) holds a[0..3], each two bf16 of one
+// row: rows 16w + l/4 (+8 in a[1], a[3]), columns 2(l%4), +1 (+8 in a[2],
+// a[3]); the lower half of a register is the lower column.  D as the TF32
+// form's.  B from shared memory through a descriptor: K-major (TB 0) or,
+// through the transpose bit, MN-major (TB 1).
+template <int N, int TB>
+__device__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8, 0>(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<8, 1>(float* d, const uint32_t* a,
+                                                 uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, %8, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16, 0>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16, 1>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32, 0>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32, 1>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64, 0>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64, 1>(float* d, const uint32_t* a,
+                                                  uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128, 0>(float* d, const uint32_t* a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<128, 1>(float* d, const uint32_t* a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// dz = g * act'(z) on bf16 g and z, as the reference's cotangent prologue
+// under BF16: act' in f32, the product rounded once to bf16
+__device__ __forceinline__ __nv_bfloat16 prologue_bf16(__nv_bfloat16 g,
+                                                       __nv_bfloat16 z,
+                                                       int act) {
+  return __float2bfloat16_rn(
+      prologue(__bfloat162float(g), __bfloat162float(z), act));
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 build
+// ---------------------------------------------------------------------------
+//
+// The same phase-split tile on bf16 operands: the reference's `_dgrad_kernel`
+// under BF16 (bf16 g, z and w; the f32 sums rounded once to bf16 dx,
+// src/repro/kernels/direct_conv2d.py:498-506).  Each stage's k16 steps run on
+// bf16 wgmma (m64nNk16, one product a MAC) into a fresh f32 accumulator
+// that is then added to the consumer's running f32 sum (the tensor cores
+// add each k16 slice rounding toward zero, and a fresh accumulator a stage
+// keeps that to the stage's own magnitude), so no contraction is long
+// enough to need a launch a Co block: one grid always.  At 128 lanes the
+// running sum takes 64 registers a thread and the stage's accumulator 32
+// more, in 64-lane parts: two consumers at most (`max_threads`, a
+// 384-thread CTA's 168 registers; under 512 threads' 128 that spilled, and
+// so did one 128-lane accumulator under 168).
+//
+// What differs from the f32 tile:
+// * No split.  B, the weights, is w's [Cib, Cob] block with Cob contiguous:
+//   K-major for bf16 too, in core matrices of 8 lanes x 16 bytes (8 bf16),
+//   [chunk / 8][N][8] a tap, the box order of a 4-D TMA copy ([rows][Cob /
+//   8][Cib][8] over w) that lands it where the wgmma reads it.  The
+//   producer's only pass is the prologue.
+// * A is the dz window's bf16 pairs: a register's two values are channels
+//   k, k + 1 of one cell, one 4-byte load at each row's own shift.  A cell
+//   is chunk + 8 bf16 (the TMA box takes 8 channels past the chunk, never
+//   read): at chunk 16, 32 and 64 eight consecutive cells then start 12,
+//   20 and 36 words apart, eight distinct bank quads.  A row copied as a
+//   box of its own is padded to 128 bytes (64 bf16); a box of several rows
+//   lands them unpadded, so several such boxes need rows of whole 128-byte
+//   lines: wwin * (chunk + 8) a multiple of 64, i.e. wwin a multiple of 8.
+// * The chunk is a multiple of 16 (k16 steps), Cob pads to 16.
+// * TMA needs global strides of whole 16 bytes: Cob a multiple of 8.  Else
+//   the producer copies the same cells by 4-byte cp.async (Cob even) or by
+//   2-byte loads and stores (Cob odd: 125), and the weights by 2-byte loads
+//   and stores straight into the box's order.
+// * The prologue forms dz = g * act'(z) in place, eight channels at a time:
+//   act' in f32, the product rounded once to bf16 (`prologue_bf16`).
+// * The consumers wait on the slot's weight mbarrier as well before their
+//   wgmmas read what the copy wrote.
+// * dx leaves as bf16, each f32 sum rounded once.
+namespace bf16 {
+
+using bf = __nv_bfloat16;
+
+// Cob rounded up to the k16 slices of the contraction.
+__host__ __device__ inline int kpad(const Geometry& g) {
+  return ceil_div(g.cob, 16) * 16;
+}
+
+// threads of the largest CTA at wgmma width `lanes` (the launch bound)
+__host__ __device__ constexpr int max_threads(int lanes) {
+  return kWarpgroup * ((lanes >= 128 ? 2 : kMaxConsumers) + 1);
+}
+
+__host__ __device__ inline bool tma_copies(const Geometry& g) {
+  return g.cob % 8 == 0;
+}
+
+__host__ __device__ inline int cell_elems(const Geometry& g) {
+  return g.chunk + 8;
+}
+
+// elements from one window row to the next: padded to 128 bytes where each
+// row lands by a TMA copy of its own (box_rows 1)
+__host__ __device__ inline int row_elems(const Geometry& g) {
+  const int row = wwin(g) * cell_elems(g);
+  return g.box_rows == 1 ? ceil_div(row, 64) * 64 : row;
+}
+
+__host__ __device__ inline int weight_elems(const Geometry& g, int lanes) {
+  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk * lanes;
+}
+
+// a window slot, rounded up to 128 bytes
+__host__ __device__ inline int window_elems(const Geometry& g) {
+  return ceil_div(hwin(g) * row_elems(g), 64) * 64;
+}
+
+// k16 steps of a stage, at most
+__host__ __device__ inline int max_steps(const Geometry& g) {
+  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk / 16;
+}
+
+// Dynamic shared memory of one CTA (core/blocking.py dgrad_smem_bytes at
+// op_bytes 2): 128 bytes to align the base, per slot the weights, the
+// window and with the prologue z, an int a k16 step (an even count) and an
+// 8-byte mbarrier per slot and copy group.
+__host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
+  return 128
+         + 2 * (size_t)kSlots * (weight_elems(g, lanes)
+                                 + (g.prologue ? 2 : 1) * window_elems(g))
+         + 4 * ceil_div(bf16::max_steps(g), 2) * 2 + 8 * kSlots * kMaxGroups;
+}
+
+// dgrad_tile::plan at one bf16 product a MAC, Cob padded to k16 slices.
+__host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
+                          long long* out) {
+  dgrad_tile::plan(g, n, wgs, lanes, out);
+  out[2] = out[2] / (3 * dgrad_tile::kpad(g)) * bf16::kpad(g);
+}
+
+struct Smem {
+  bf* wts;             // [kSlots][wst]
+  bf* win;             // [kSlots][cst]
+  bf* zwin;            // [kSlots][cst] with the prologue
+  int* shifts;         // [max_steps]
+  uint64_t* bars;      // [kSlots][kMaxGroups]
+  int wst, cst;
+};
+
+template <int N>
+__device__ inline Smem carve(char* raw, const Geometry& g) {
+  Smem m;
+  const uint32_t a = smem_u32(raw);
+  char* base = raw + ((128 - (a & 127)) & 127);
+  m.wst = weight_elems(g, N);
+  m.cst = window_elems(g);
+  m.wts = reinterpret_cast<bf*>(base);
+  m.win = m.wts + kSlots * m.wst;
+  m.zwin = m.win + kSlots * m.cst;
+  m.shifts = reinterpret_cast<int*>(m.zwin + (g.prologue ? kSlots * m.cst
+                                                          : 0));
+  m.bars = reinterpret_cast<uint64_t*>(m.shifts
+                                       + ceil_div(bf16::max_steps(g), 2) * 2);
+  return m;
+}
+
+template <int N>
+__device__ __forceinline__ int weight_bytes(const Geometry& g, const Tile& t) {
+  return t.r.taps * t.c.taps * g.chunk * N * 2;
+}
+
+__device__ __forceinline__ int row_bytes(const Geometry& g, int lo, int hi) {
+  return row_boxes(g, lo, hi) * g.box_rows * wwin(g) * cell_elems(g) * 2
+         * (g.prologue ? 2 : 1);
+}
+
+// Issue stage s's weights (one TMA copy per phase tap: Cob channels [c0,
+// c0 + chunk) by N lanes of block (co_b, ci_b), landing as [chunk / 8][N]
+// [8]) onto `bar`, lane `lane` of `lanes` taking every lanes-th tap.
+template <int N>
+__device__ void issue_weights(const CUtensorMap* tmw, bf* dst, uint64_t* bar,
+                              const Geometry& g, const Tile& t, int co_b,
+                              int ci_b, int c0, int lane, int lanes) {
+  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+  for (int tap = lane; tap < t.r.taps * t.c.taps; tap += lanes) {
+    const int dh = t.ph + g.stride * (tap / t.c.taps);
+    const int dw = t.pw + g.stride * (tap % t.c.taps);
+    tma_load_4d(dst + tap * g.chunk * N, tmw, bar, 0, 0, c0 / 8,
+                blk + dh * g.wf + dw);
+  }
+}
+
+// Issue window rows [lo, hi) of g (and z) for channels [c0, c0 + chunk + 8)
+// as row_boxes boxes (dgrad_tile::issue_rows, in bf16).
+__device__ void issue_rows(const CUtensorMap* tmg, const CUtensorMap* tmz,
+                           bf* win, bf* zwin, uint64_t* bar,
+                           const Geometry& g, int n, int co_b, int c0,
+                           int o_h, int o_w, int lo, int hi, int lane,
+                           int lanes) {
+  const int rf = row_elems(g);
+  for (int b = lane; b < row_boxes(g, lo, hi); b += lanes) {
+    const int r = min(lo + b * g.box_rows, hi - g.box_rows);
+    tma_load_5d(win + r * rf, tmg, bar, c0, o_w, o_h + r, co_b, n);
+    if (g.prologue) {
+      tma_load_5d(zwin + r * rf, tmz, bar, c0, o_w, o_h + r, co_b, n);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Stage s's weights by 2-byte loads and stores (`tid` of the producer's
+// kWarpgroup): what issue_weights's boxes land, zeros for lanes past Cib
+// and channels past Cob.
+template <int N>
+__device__ void copy_weights(const bf* __restrict__ w, bf* dst,
+                             const Geometry& g, const Tile& t, int co_b,
+                             int ci_b, int c0, int tid) {
+  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+  const int per_tap = g.chunk * N;
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(w);
+  unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
+  for (int i = tid; i < t.r.taps * t.c.taps * per_tap; i += kWarpgroup) {
+    const int tap = i / per_tap;
+    const int e = i - tap * per_tap;          // (k / 8, lane, k % 8)
+    const int k = e / (8 * N) * 8 + (e & 7);
+    const int lane = e / 8 % N;
+    const int dh = t.ph + g.stride * (tap / t.c.taps);
+    const int dw = t.pw + g.stride * (tap % t.c.taps);
+    const bool ok = lane < g.cib && c0 + k < g.cob;
+    d16[i] = ok ? __ldg(w16 + ((size_t)(blk + dh * g.wf + dw) * g.cib + lane)
+                                  * g.cob + c0 + k)
+                : (unsigned short)0;
+  }
+}
+
+// Window rows [lo, hi) of g (and z) by copies (`tid` of the producer's
+// kWarpgroup): what issue_rows's boxes land, channels [c0, c0 + chunk + 8),
+// zeros outside the map and past Cob; 4-byte cp.async of channel pairs
+// where Cob is even, else 2-byte loads and stores.
+__device__ void copy_rows(const bf* __restrict__ gg, const bf* __restrict__ zz,
+                          bf* win, bf* zwin, const Geometry& g, int n,
+                          int co_b, int c0, int o_h, int o_w, int lo, int hi,
+                          int tid) {
+  const int rf = row_elems(g);
+  const int ld = cell_elems(g);
+  const int unit = g.cob % 2 == 0 ? 2 : 1;
+  const int per_row = wwin(g) * ld / unit;
+  const size_t map = (size_t)(n * g.coblk + co_b) * g.ho * g.wo;
+  const unsigned short* g16 = reinterpret_cast<const unsigned short*>(gg);
+  const unsigned short* z16 = reinterpret_cast<const unsigned short*>(zz);
+  unsigned short* w16 = reinterpret_cast<unsigned short*>(win);
+  unsigned short* y16 = reinterpret_cast<unsigned short*>(zwin);
+  for (int i = tid; i < (hi - lo) * per_row; i += kWarpgroup) {
+    const int r = i / per_row;
+    const int rem = (i - r * per_row) * unit;
+    const int col = rem / ld;
+    const int c = rem - col * ld;
+    const int oh = o_h + lo + r;
+    const int ow = o_w + col;
+    const bool ok = oh >= 0 && oh < g.ho && ow >= 0 && ow < g.wo
+                    && c0 + c < g.cob;
+    const size_t off = ok ? (map + (size_t)oh * g.wo + ow) * g.cob + c0 + c
+                          : 0;
+    const int at = (lo + r) * rf + col * ld + c;
+    if (unit == 2) {
+      cp_async4(w16 + at, g16 + off, ok);
+      if (g.prologue) cp_async4(y16 + at, z16 + off, ok);
+    } else {
+      w16[at] = ok ? __ldg(g16 + off) : (unsigned short)0;
+      if (g.prologue) y16[at] = ok ? __ldg(z16 + off) : (unsigned short)0;
+    }
+  }
+}
+
+// dz = g * act'(z) in place over window rows [lo, hi), eight channels at a
+// time over whole rows (`tid` of `nth`)
+__device__ void prologue_rows(bf* win, const bf* zwin, const Geometry& g,
+                              int lo, int hi, int tid, int nth) {
+  const int rf = row_elems(g);
+  uint4* w8 = reinterpret_cast<uint4*>(win + lo * rf);
+  const uint4* z8 = reinterpret_cast<const uint4*>(zwin + lo * rf);
+#pragma unroll 2
+  for (int i = tid; i < (hi - lo) * rf / 8; i += nth) {
+    uint4 v = w8[i];
+    const uint4 zz = z8[i];
+    bf* vb = reinterpret_cast<bf*>(&v);
+    const bf* zb = reinterpret_cast<const bf*>(&zz);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) vb[e] = prologue_bf16(vb[e], zb[e], g.act);
+    w8[i] = v;
+  }
+}
+
+// The A shift of each k16 step j of the tile's phase, in elements from tap
+// (0, 0) (every thread of the CTA).
+__device__ void step_shifts(int* shifts, const Geometry& g, const Tile& t) {
+  const int slices = g.chunk / 16;
+  const int rf = row_elems(g);
+  const int ld = cell_elems(g);
+  for (int j = threadIdx.x; j < t.r.taps * t.c.taps * slices;
+       j += blockDim.x) {
+    const int tap = j / slices;
+    shifts[j] = (j % slices) * 16
+                - ((tap / t.c.taps) * rf + tap % t.c.taps * ld);
+  }
+}
+
+// This consumer thread's two rows as window offsets, in elements, of tap
+// (0, 0) plus the column 2 (lane % 4) (dgrad_tile::row_offsets).
+__device__ __forceinline__ void row_offsets(int (&off)[2], const Geometry& g,
+                                            int mt0, int q0) {
+  const int lane = threadIdx.x % 32;
+  const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
+  const int rf = row_elems(g);
+  const int ld = cell_elems(g);
+  const int mh = max_taps(g.hf, g.stride) - 1;
+  const int mw = max_taps(g.wf, g.stride) - 1;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = local + 8 * h;
+    int p = mt0 * g.mstride + q;
+    if (q >= g.mstride || p >= g.th * g.tw) p = 0;
+    off[h] = (p / g.tw + mh) * rf + (p % g.tw + mw) * ld + 2 * (lane % 4);
+  }
+}
+
+// A for one k16 step at `shift` elements from each row's offset.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* win,
+                                       const int (&off)[2], int shift) {
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(win + off[0] + shift);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(win + off[1] + shift);
+  a[0] = r0[0];
+  a[1] = r1[0];
+  a[2] = r0[4];
+  a[3] = r1[4];
+}
+
+// Contract one landed stage into a consumer's running sum `total`: the
+// stage's k16 steps into a fresh accumulator, NW lanes of the N-lane B at a
+// time, each part then added into `total` in f32.  A is loaded one step
+// ahead into the register set the wgmma two steps back has released.
+// Returns with every wgmma complete.
+template <int N, int NW>
+__device__ void mma_stage(float (&total)[N / 2], const bf* win,
+                          const int (&off)[2], const int* shifts, int steps,
+                          const bf* wts) {
+  if (steps == 0) return;
+#pragma unroll
+  for (int part = 0; part < N / NW; ++part) {
+    float acc[NW / 2];
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+    // B [k/8][N][8]: a k16 step's two K halves N * 16 bytes apart, 8-lane
+    // groups 128 bytes apart; the part's first group NW * 16 bytes on
+    const uint32_t base = smem_u32(wts) + part * NW * 16;
+    auto step = [&](const uint32_t (&a)[4], int j) {
+      wgmma_fence();
+      wgmma_bf16<NW, 0>(acc, a, kmajor_desc(base + j * N * 32, N * 16, 128));
+      wgmma_commit();
+    };
+    uint32_t a0[4], a1[4];
+    load_a(a0, win, off, shifts[0]);
+    for (int j = 0; j < steps; j += 2) {
+      step(a0, j);
+      if (j + 1 < steps) {
+        wgmma_wait<1>();              // step j - 1 has released a1
+        load_a(a1, win, off, shifts[j + 1]);
+        step(a1, j + 1);
+      }
+      if (j + 2 < steps) {
+        wgmma_wait<1>();              // step j has released a0
+        load_a(a0, win, off, shifts[j + 2]);
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs<NW / 2>(acc);
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) total[part * NW / 2 + i] += acc[i];
+  }
+}
+
+// Store a consumer's rows of m-tile mt0 into dx as bf16, each f32 sum
+// rounded once (dgrad_tile::store_dx).
+template <int N>
+__device__ void store_dx(bf* __restrict__ dx, const float (&acc)[N / 2],
+                         const Geometry& g, const Tile& t, int n, int ci_b,
+                         int mt0, int q0) {
+  const int lane = threadIdx.x % 32;
+  const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
+  const int col0 = 2 * (lane % 4);
+  const bool pairs = g.cib % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = local + 8 * h;
+    const int p = mt0 * g.mstride + q;
+    if (q >= g.mstride || p >= g.th * g.tw) continue;
+    const int a = t.a0 + p / g.tw;
+    const int b = t.b0 + p % g.tw;
+    if (a >= t.r.extent || b >= t.c.extent) continue;
+    const int i = t.r.first + g.stride * a;
+    const int j = t.c.first + g.stride * b;
+    bf* out = dx + (((size_t)(n * g.ciblk + ci_b) * g.hi + i) * g.wi + j)
+              * g.cib;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const int col = 8 * jj + col0;
+      const bf v0 = __float2bfloat16_rn(acc[4 * jj + 2 * h]);
+      const bf v1 = __float2bfloat16_rn(acc[4 * jj + 2 * h + 1]);
+      if (pairs && col + 1 < g.cib) {
+        __nv_bfloat162 pr;
+        pr.x = v0;
+        pr.y = v1;
+        *reinterpret_cast<__nv_bfloat162*>(out + col) = pr;
+      } else {
+        if (col < g.cib) out[col] = v0;
+        if (col + 1 < g.cib) out[col + 1] = v1;
+      }
+    }
+  }
+}
+
+using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
+                        const CUtensorMap, const bf*, const bf*, const bf*,
+                        bf*, Geometry);
+
+// dgrad_tile::launch for the bf16 build: w as [rows, Cob/8, Cib, 8] with a
+// box of chunk/8 x lanes, g and z with a box of chunk + 8 channels, where
+// Cob is a multiple of 8; every Co block in one grid.
+inline int launch(Kernel kernel, const bf* g, const bf* z, const bf* w,
+                  bf* dx, int n, const Geometry& geo, int wgs, int lanes,
+                  cudaStream_t stream, int* launches) {
+  *launches = 0;
+  if (kernel == nullptr || wgs < 1
+      || kWarpgroup * (wgs + 1) > bf16::max_threads(lanes)
+      || lanes < geo.cib
+      || geo.chunk % 16 != 0 || bf16::kpad(geo) % geo.chunk != 0
+      || geo.mstride < 1 || geo.mstride > kRows * wgs
+      || geo.th < 1 || geo.tw < 1 || geo.stride < 1
+      || geo.co_first != 0 || geo.co_count != geo.coblk
+      || (geo.prologue != 0) != (z != nullptr)
+      || (bf16::tma_copies(geo) && geo.box_rows > 1
+          && geo.box_rows < hwin(geo)
+          && wwin(geo) * cell_elems(geo) % 64 != 0)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int tiles = grid_tiles(geo);
+  if (tiles == 0 || n == 0) return 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmw = {}, tmg = {}, tmz = {};
+  const long long cob = geo.cob;
+  const long long wdims[4] = {8, geo.cib, cob / 8,
+                              (long long)geo.coblk * geo.ciblk * geo.hf
+                                  * geo.wf};
+  const long long wstr[3] = {cob * 2, 16, geo.cib * cob * 2};
+  const int wbox[4] = {8, lanes, geo.chunk / 8, 1};
+  const long long gdims[5] = {cob, geo.wo, geo.ho, geo.coblk, n};
+  const long long gstr[4] = {cob * 2, geo.wo * cob * 2,
+                             (long long)geo.ho * geo.wo * cob * 2,
+                             (long long)geo.coblk * geo.ho * geo.wo * cob * 2};
+  const int gbox[5] = {geo.chunk + 8, wwin(geo), geo.box_rows, 1, 1};
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (bf16::tma_copies(geo)
+      && (!encode(&tmw, w, 4, wdims, wstr, wbox, type)
+          || !encode(&tmg, g, 5, gdims, gstr, gbox, type)
+          || !encode(&tmz, z != nullptr ? z : g, 5, gdims, gstr, gbox,
+                     type))) {
+    return (int)cudaErrorNotSupported;     // the encoder refused a map
+  }
+  const size_t smem = bf16::smem_bytes(geo, lanes);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(tiles, geo.ciblk, n), kWarpgroup * (wgs + 1), smem,
+           stream>>>(tmw, tmg, tmz, g, z, w, dx, geo);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  *launches = 1;
+  return 0;
+}
+
+}  // namespace bf16
+
 
 }  // namespace dgrad_tile

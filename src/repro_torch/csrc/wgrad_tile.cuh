@@ -65,6 +65,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -664,6 +665,528 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 build
+// ---------------------------------------------------------------------------
+//
+// The same tile on bf16 operands: the reference's `_wgrad_kernel` under
+// BF16 (bf16 x, g and z; dw and db leave in f32, src/repro/kernels/
+// direct_conv2d.py:638, `out_dtype=jnp.float32`).  Each stage's k16 steps
+// of positions run on bf16 wgmma (m64nNk16, one product a MAC) into a
+// fresh f32 accumulator, which is then added to the m-tile's running f32
+// sum (the tensor cores add each k16 slice rounding toward zero; a fresh
+// accumulator a stage keeps that to the stage's own magnitude), one m-tile
+// at a time.  Where the running sums take 64 registers a thread (N * MPW =
+// 128) a CTA takes two consumers at most (`max_threads`: 168 registers a
+// thread of a 384-thread CTA; under 512 threads' 128 the accumulator in
+// 64-lane parts spilled, and 32-lane parts ran a quarter of the wgmma
+// width with A loaded four times a step).  The workspace and its fold (split_sum.cuh) stay
+// f32 and unchanged.
+//
+// What differs from the f32 tile:
+// * A, x's window, pairs two consecutive positions of one (tap, c) row in
+//   a register, and those are `stride` cells apart in shared memory, not
+//   adjacent.  The pair is built from two 2-byte loads (four registers a
+//   step: eight loads and four position offsets).  Staging A for a
+//   descriptor instead would need a copy of the window with each tap's
+//   positions contiguous: wgmma's MN-major A takes core matrices of 8 rows
+//   x 16 contiguous bytes, and a tile's positions are neither contiguous
+//   (`stride` cells apart, a break at each tile row) nor one shift per
+//   m-tile below Cib 64; the loads keep one staged window for every tap.
+//   A cell is `ld` bf16 (Cib rounded up to 8, then, at odd strides, to 8
+//   mod 16): the 8 rows of a warp's load are 8 channels of one cell (16
+//   bytes), its 4 column groups positions 2 apart, 4 * stride * ld bytes
+//   apart, on distinct 16-byte bank groups where stride * ld is not a
+//   multiple of 16 (at stride 2 they fall two to a group).
+// * B, dz, is MN-major (Cob contiguous), which bf16 wgmma reads through its
+//   transpose bit: the producer writes it as [N/8][K][8], core matrices of
+//   8 positions x 8 lanes, a k16 step's two K halves 128 bytes apart, the
+//   8-lane groups (K + 1) * 16 bytes apart (fwd_tile.cuh's weight order,
+//   K the positions, one position of padding a group so that a quarter
+//   warp's stores of one position's groups fall on distinct banks), no
+//   split.  K (positions) pads to 16.  A unit of the pass is one
+//   position's 8 lanes: one 16-byte load of g (and of z) where Cob is a
+//   multiple of 8, consecutive threads on consecutive 16 bytes (the
+//   staged [K][Cob] tile is read along Cob).
+// * dz = g * act'(z) is formed as B is written: act' in f32, the product
+//   rounded once to bf16.  db sums the rounded dz per Cob lane in f32, one
+//   lane a producer thread, positions in order, on the CTAs of Ci block 0
+//   and m-tile group 0.
+// * TMA needs global strides of whole 16 bytes: Cib (x) and Cob (g, z)
+//   multiples of 8.  Else the producer copies the same cells by 4-byte
+//   cp.async of channel pairs where the pencil is even, else by 2-byte
+//   loads and stores (Cib = 3: a pixel's three channels are 6 bytes).
+namespace bf16 {
+
+using bf = __nv_bfloat16;
+
+__host__ __device__ inline int kpos(const Geometry& g) {
+  return ceil_div(g.th * g.tw, 16) * 16;
+}
+
+// threads of the largest CTA of the instance (N, MPW) (the launch bound)
+__host__ __device__ constexpr int max_threads(int lanes, int mpw) {
+  return kWarpgroup * ((lanes * mpw >= 128 ? 2 : kMaxConsumers) + 1);
+}
+
+// bf16 of one staged x cell: Cib rounded up to 8 (a TMA box's 16 bytes),
+// then up to the first value whose stride multiple is 8 mod 16, so that an
+// A load's four position pairs start on four distinct 16-byte bank groups
+// (kept at Cib rounded up to 8 where no such value exists, as at stride 2).
+__host__ __device__ inline int x_ld(int cib, int stride) {
+  const int base = ceil_div(cib, 8) * 8;
+  for (int ld = base; ld < base + 64; ld += 8) {
+    if (stride * ld % 16 == 8) return ld;
+  }
+  return base;
+}
+
+// bf16 from one window row to the next, padded to 128 bytes
+__host__ __device__ inline int row_elems(const Geometry& g) {
+  return ceil_div(wwin(g) * x_ld(g.cib, g.stride), 64) * 64;
+}
+__host__ __device__ inline bool tma_x(const Geometry& g) {
+  return g.cib % 8 == 0;
+}
+__host__ __device__ inline bool tma_d(const Geometry& g) {
+  return g.cob % 8 == 0;
+}
+__host__ __device__ inline int x_elems(const Geometry& g) {
+  return hwin(g) * row_elems(g);
+}
+__host__ __device__ inline int raw_elems(const Geometry& g) {
+  return ceil_div(bf16::kpos(g) * g.cob, 64) * 64;
+}
+// positions from one 8-lane group of B to the next: K plus one, so that
+// the eight 16-byte stores of a quarter warp (consecutive groups of one
+// position) fall on distinct bank groups
+__host__ __device__ inline int b_pitch(const Geometry& g) {
+  return bf16::kpos(g) + 1;
+}
+__host__ __device__ inline int b_elems(const Geometry& g) {
+  return ceil_div(b_pitch(g) * g.lanes, 64) * 64;
+}
+__host__ __device__ inline int slot_elems(const Geometry& g) {
+  return x_elems(g) + (g.prologue ? 2 : 1) * raw_elems(g) + b_elems(g);
+}
+
+// Dynamic shared memory of one CTA (core/blocking.py wgrad_smem_bytes at
+// op_bytes 2): 128 bytes to align the base, the two slots, the position
+// offsets, the db partials and two mbarriers a slot.
+__host__ inline size_t smem_bytes(const Geometry& g) {
+  return 128 + 2 * (size_t)kSlots * slot_elems(g)
+         + 4 * (kMaxPositions + kWarpgroup) + 8 * 2 * kSlots;
+}
+
+// wgrad_tile::plan at one bf16 product a MAC, K padded to 16.
+__host__ inline void plan(const Geometry& g, long long* out) {
+  out[0] = tiles(g);
+  out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * g.ciblk
+           * g.cob * g.coblk;
+  out[2] = (long long)g.ciblk * g.coblk * tiles(g) * bf16::kpos(g) * mtiles(g)
+           * kRows * g.lanes;
+  out[3] = (long long)bf16::smem_bytes(g);
+}
+
+struct Smem {
+  bf* x[kSlots];
+  bf* g[kSlots];
+  bf* z[kSlots];
+  bf* b[kSlots];
+  int* posoff;          // [kMaxPositions]
+  float* db;            // [kWarpgroup]
+  uint64_t* bar_x;      // [kSlots]
+  uint64_t* bar_d;      // [kSlots]
+};
+
+__device__ inline Smem carve(char* raw, const Geometry& g) {
+  Smem m;
+  bf* p = reinterpret_cast<bf*>(raw + ((128 - (dt::smem_u32(raw) & 127))
+                                       & 127));
+  for (int s = 0; s < kSlots; ++s) {
+    m.x[s] = p;
+    m.g[s] = m.x[s] + x_elems(g);
+    m.z[s] = m.g[s] + (g.prologue ? raw_elems(g) : 0);
+    m.b[s] = m.z[s] + raw_elems(g);
+    p = m.b[s] + b_elems(g);
+  }
+  m.posoff = reinterpret_cast<int*>(p);
+  m.db = reinterpret_cast<float*>(m.posoff + kMaxPositions);
+  m.bar_x = reinterpret_cast<uint64_t*>(m.db + kWarpgroup);
+  m.bar_d = m.bar_x + kSlots;
+  return m;
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dt::smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// Issue a stage's x window onto `bar` (wgrad_tile::issue_x in bf16): TMA
+// boxes of a row each where Cib is a multiple of 8, else copies of channel
+// pairs (Cib even) or of single channels (Cib odd); rows [0, lo) moved
+// from `xprev`.
+__device__ void issue_x(const CUtensorMap* tmx, const bf* __restrict__ x,
+                        const Geometry& g, const Tile& t, int ci_b, bf* xs,
+                        const bf* xprev, uint64_t* bar, int lo, int tid) {
+  const int ld = x_ld(g.cib, g.stride);
+  const int rf = row_elems(g);
+  const int ww = wwin(g);
+  const int hw = hwin(g);
+  const int ih0 = t.oh0 * g.stride - g.pad_top;
+  const int iw0 = t.ow0 * g.stride - g.pad_left;
+  if (tid < 32) {                       // warp 0: the TMA copies
+    if (tid == 0) {
+      dt::mbar_expect_tx(bar, bf16::tma_x(g) ? (hw - lo) * ww * ld * 2 : 0);
+    }
+    __syncwarp();
+    if (bf16::tma_x(g)) {
+      for (int r = lo + tid; r < hw; r += 32) {
+        dt::tma_load_5d(xs + r * rf, tmx, bar, 0, iw0, ih0 + r, ci_b, t.n);
+      }
+    }
+  }
+  if (lo > 0) {                         // the kept rows, while those land
+    const uint4* src = reinterpret_cast<const uint4*>(xprev + (hw - lo) * rf);
+    uint4* dst = reinterpret_cast<uint4*>(xs);
+    for (int i = tid; i < lo * rf / 8; i += kWarpgroup) dst[i] = src[i];
+  }
+  if (!bf16::tma_x(g)) {
+    const unsigned short* xb = reinterpret_cast<const unsigned short*>(x)
+        + (size_t)(t.n * g.ciblk + ci_b) * g.hi * g.wi * g.cib;
+    unsigned short* d16 = reinterpret_cast<unsigned short*>(xs);
+    const int unit = g.cib % 2 == 0 ? 2 : 1;
+    const int per_cell = g.cib / unit;
+    const int per_row = ww * per_cell;
+    for (int i = tid; i < (hw - lo) * per_row; i += kWarpgroup) {
+      const int r = i / per_row;
+      const int rem = i - r * per_row;
+      const int col = rem / per_cell;
+      const int c = (rem - col * per_cell) * unit;
+      const int ih = ih0 + lo + r;
+      const int iw = iw0 + col;
+      const bool ok = ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
+      const size_t off = ok ? ((size_t)ih * g.wi + iw) * g.cib + c : 0;
+      const int at = (lo + r) * rf + col * ld + c;
+      if (unit == 2) {
+        cp_async4(d16 + at, xb + off, ok);
+      } else {
+        d16[at] = ok ? __ldg(xb + off) : (unsigned short)0;
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// Issue the th x tw positions of g (and z) of tile `t` onto `bar`
+// (wgrad_tile::issue_d in bf16): one TMA box each where Cob is a multiple
+// of 8, else copies of channel pairs (Cob even) or single channels.
+__device__ void issue_d(const CUtensorMap* tmg, const CUtensorMap* tmz,
+                        const bf* __restrict__ gg, const bf* __restrict__ zz,
+                        const Geometry& g, const Tile& t, int co_b, bf* rg,
+                        bf* rz, uint64_t* bar, int tid) {
+  if (tid == 0) {
+    dt::mbar_expect_tx(bar, bf16::tma_d(g) ? g.th * g.tw * g.cob * 2
+                                           * (g.prologue ? 2 : 1)
+                                     : 0);
+    if (bf16::tma_d(g)) {
+      dt::tma_load_5d(rg, tmg, bar, 0, t.ow0, t.oh0, co_b, t.n);
+      if (g.prologue) dt::tma_load_5d(rz, tmz, bar, 0, t.ow0, t.oh0, co_b, t.n);
+    }
+  }
+  if (!bf16::tma_d(g)) {
+    const size_t map = (size_t)(t.n * g.coblk + co_b) * g.ho * g.wo * g.cob;
+    const unsigned short* g16 = reinterpret_cast<const unsigned short*>(gg);
+    const unsigned short* z16 = reinterpret_cast<const unsigned short*>(zz);
+    unsigned short* dg = reinterpret_cast<unsigned short*>(rg);
+    unsigned short* dz = reinterpret_cast<unsigned short*>(rz);
+    const int unit = g.cob % 2 == 0 ? 2 : 1;
+    for (int i = tid * unit; i < g.th * g.tw * g.cob;
+         i += kWarpgroup * unit) {
+      const int p = i / g.cob;
+      const int c = i - p * g.cob;
+      const int oh = t.oh0 + p / g.tw;
+      const int ow = t.ow0 + p % g.tw;
+      const bool ok = oh < g.ho && ow < g.wo;
+      const size_t off = ok ? map + ((size_t)oh * g.wo + ow) * g.cob + c : 0;
+      if (unit == 2) {
+        cp_async4(dg + i, g16 + off, ok);
+        if (g.prologue) cp_async4(dz + i, z16 + off, ok);
+      } else {
+        dg[i] = ok ? __ldg(g16 + off) : (unsigned short)0;
+        if (g.prologue) dz[i] = ok ? __ldg(z16 + off) : (unsigned short)0;
+      }
+    }
+    cp_async_commit();
+  }
+}
+
+// Form dz from a landed stage's g (and z), rounded to bf16, and write B as
+// [N/8][K][8], its 8-lane groups `b_pitch` positions apart (`tid` of
+// kWarpgroup, eight lanes of one position a unit, the lane groups of a
+// position on consecutive threads); positions past the tile and lanes past
+// Cob are 0.  Where Cob is a multiple of 8 a unit's g and z are one 16-byte
+// load each, consecutive threads on consecutive 16 bytes; else eight
+// 2-byte loads, clamped into the staged cells.
+template <int N>
+__device__ void transform(const bf* rg, const bf* rz, bf* b,
+                          const Geometry& g, int tid) {
+  const int live = g.th * g.tw;
+  const int kp = bf16::kpos(g);
+  const int pitch = b_pitch(g);
+  const bool vec = g.cob % 8 == 0;
+  for (int u = tid; u < N / 8 * kp; u += kWarpgroup) {
+    const int q = u % (N / 8);
+    const int p = u / (N / 8);
+    uint4 out = make_uint4(0u, 0u, 0u, 0u);
+    if (vec) {
+      if (8 * q < g.cob && p < live) {
+        out = *reinterpret_cast<const uint4*>(rg + p * g.cob + 8 * q);
+        if (g.prologue) {
+          const uint4 zv =
+              *reinterpret_cast<const uint4*>(rz + p * g.cob + 8 * q);
+          bf* ob = reinterpret_cast<bf*>(&out);
+          const bf* zb = reinterpret_cast<const bf*>(&zv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            ob[e] = dt::prologue_bf16(ob[e], zb[e], g.act);
+          }
+        }
+      }
+    } else {
+      uint32_t packed[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        bf v[2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          const int co = 8 * q + 2 * e + k;
+          // loads clamped into the staged cells (rz is rg without the
+          // prologue), then the lanes and positions outside set 0
+          const int at = min(p, live - 1) * g.cob + min(co, g.cob - 1);
+          bf d = rg[at];
+          if (g.prologue) d = dt::prologue_bf16(d, rz[at], g.act);
+          v[k] = __float2bfloat16_rn(0.0f);
+          if (co < g.cob && p < live) v[k] = d;
+        }
+        packed[e] = (uint32_t)__bfloat16_as_ushort(v[0])
+                    | ((uint32_t)__bfloat16_as_ushort(v[1]) << 16);
+      }
+      out = make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    }
+    reinterpret_cast<uint4*>(b)[q * pitch + p] = out;
+  }
+}
+
+// Contract one landed stage into a warpgroup's MPW running sums: per
+// m-tile that is on and per part of NW lanes, the stage's k16 steps of
+// positions into a fresh accumulator, then added into `total` in f32.  A
+// pairs positions p, p + 1 of each row from two 2-byte loads at the row's
+// offset `ro` plus their position offsets, loaded one step ahead into the
+// register set the wgmma two steps back has released.  Returns with every
+// wgmma complete.
+template <int N, int NW, int MPW>
+__device__ void mma_stage(float (&total)[MPW][N / 2], const bf* win,
+                          const int (&ro)[MPW][2], const bool (&on)[MPW],
+                          const int* posoff, int steps, const bf* b,
+                          int pitch) {
+  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(win);
+  const int l4 = threadIdx.x % 4;
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+    if (!on[t]) continue;
+    auto load = [&](uint32_t (&a)[4], int j) {
+      const int p = 16 * j + 2 * l4;
+      const int o0 = posoff[p], o1 = posoff[p + 1];
+      const int o8 = posoff[p + 8], o9 = posoff[p + 9];
+      a[0] = w16[ro[t][0] + o0] | ((uint32_t)w16[ro[t][0] + o1] << 16);
+      a[1] = w16[ro[t][1] + o0] | ((uint32_t)w16[ro[t][1] + o1] << 16);
+      a[2] = w16[ro[t][0] + o8] | ((uint32_t)w16[ro[t][0] + o9] << 16);
+      a[3] = w16[ro[t][1] + o8] | ((uint32_t)w16[ro[t][1] + o9] << 16);
+    };
+#pragma unroll
+    for (int part = 0; part < N / NW; ++part) {
+      float acc[NW / 2];
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
+      // the part's first 8-lane group, `pitch` positions of 16 bytes a
+      // group on
+      const uint32_t base = dt::smem_u32(b) + part * NW / 8 * pitch * 16;
+      auto step = [&](const uint32_t (&a)[4], int j) {
+        dt::wgmma_fence();
+        dt::wgmma_bf16<NW, 1>(acc, a, dt::kmajor_desc(base + j * 256, 128,
+                                                      pitch * 16));
+        dt::wgmma_commit();
+      };
+      uint32_t a0[4], a1[4];
+      load(a0, 0);
+      for (int j = 0; j < steps; j += 2) {
+        step(a0, j);
+        if (j + 1 < steps) {
+          dt::wgmma_wait<1>();        // step j - 1 has released a1
+          load(a1, j + 1);
+          step(a1, j + 1);
+        }
+        if (j + 2 < steps) {
+          dt::wgmma_wait<1>();        // step j has released a0
+          load(a0, j + 2);
+        }
+      }
+      dt::wgmma_wait<0>();
+      dt::fence_regs<NW / 2>(acc);
+#pragma unroll
+      for (int i = 0; i < NW / 2; ++i) total[t][part * NW / 2 + i] += acc[i];
+    }
+  }
+}
+
+// The consumer warpgroups of `run` (wgrad_tile::consume in bf16).
+template <int N, int MPW>
+__device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
+                                        int group, int stages, float* row,
+                                        int ci_b, int co_b) {
+  const int nth = blockDim.x;
+  const int ld = x_ld(geo.cib, geo.stride);
+  const int rf = row_elems(geo);
+  const int mt0 = (group * geo.wgs + threadIdx.x / kWarpgroup) * MPW;
+  const int rows = geo.hf * geo.wf * geo.cib;
+  int ro[MPW][2];
+  bool on[MPW];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+    on[t] = mt0 + t < mtiles(geo);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (mt0 + t) * kRows + threadIdx.x % kWarpgroup / 32 * 16
+                    + threadIdx.x % 32 / 4 + 8 * h;
+      const int tap = r / geo.cib;
+      ro[t][h] = r < rows ? (tap / geo.wf) * rf + (tap % geo.wf) * ld
+                                + (r - tap * geo.cib)
+                          : 0;
+    }
+  }
+  float total[MPW][N / 2];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) total[t][i] = 0.0f;
+  }
+  const int kp = bf16::kpos(geo);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s & 1;
+    dt::bar_sync(kBarFull + slot, nth);
+    mma_stage<N, N, MPW>(total, m.x[slot], ro, on, m.posoff, kp / 16,
+                         m.b[slot], b_pitch(geo));
+    if (s + kSlots < stages) dt::bar_arrive(kBarEmpty + slot, nth);
+  }
+  store_dw<N, MPW>(row, total, geo, ci_b, co_b, mt0);
+}
+
+// One CTA (wgrad_tile::run in bf16): its sums go to its share's row of the
+// f32 `ws`; the column's last CTA sums the rows into the f32 `out`.
+template <int N, int MPW>
+__device__ void run(char* smem, const CUtensorMap* tmx, const CUtensorMap* tmg,
+                    const CUtensorMap* tmz, const bf* __restrict__ x,
+                    const bf* __restrict__ gg, const bf* __restrict__ zz,
+                    float* ws, float* out, int* counters,
+                    const Geometry& geo) {
+  const int ngroups = groups(geo);
+  const int group = blockIdx.x % ngroups;
+  const int split = blockIdx.x / ngroups;
+  const int ci_b = blockIdx.y;
+  const int co_b = blockIdx.z;
+  const long long total = tiles(geo);
+  const long long first = total * split / geo.splits;
+  const int stages = (int)(total * (split + 1) / geo.splits - first);
+  const int nth = blockDim.x;
+  const int consumers = nth - kWarpgroup;
+  const Smem m = carve(smem, geo);
+  const int ld = x_ld(geo.cib, geo.stride);
+  const int rf = row_elems(geo);
+  for (int p = threadIdx.x; p < kMaxPositions; p += nth) {
+    m.posoff[p] = p < geo.th * geo.tw
+                      ? (p / geo.tw) * geo.stride * rf
+                            + (p % geo.tw) * geo.stride * ld
+                      : 0;
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kSlots; ++i) {
+      dt::mbar_init(&m.bar_x[i], 1);
+      dt::mbar_init(&m.bar_d[i], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const size_t dw_size = (size_t)geo.coblk * geo.ciblk * geo.hf * geo.wf
+                         * geo.cib * geo.cob;
+  const size_t cols = dw_size + (geo.with_db ? geo.coblk * geo.cob : 0);
+  float* row = ws + (size_t)split * cols;
+  const bool db_cta = geo.with_db && ci_b == 0 && group == 0;
+
+  if (threadIdx.x >= consumers) {       // the producer warpgroup
+    const int tid = threadIdx.x - consumers;
+    const int keep = max(0, hwin(geo) - geo.th * geo.stride);
+    auto issue_dz = [&](int s) {
+      issue_d(tmg, tmz, gg, zz, geo, tile_of(geo, first + s), co_b,
+              m.g[s & 1], m.z[s & 1], &m.bar_d[s & 1], tid);
+    };
+    for (int s = 0; s < min(stages, kSlots); ++s) issue_dz(s);
+    float db = 0.0f;                    // lane tid's sum of dz
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s & 1;
+      const int parity = (s >> 1) & 1;
+      if (s >= kSlots) dt::bar_sync(kBarEmpty + slot, nth);
+      const bool more = geo.streamed && s > 0
+                        && (first + s) % tiles_h(geo) != 0;
+      if (more && !bf16::tma_x(geo)) dt::bar_sync(kBarProducer, kWarpgroup);
+      bf16::issue_x(tmx, x, geo, tile_of(geo, first + s), ci_b, m.x[slot],
+                    m.x[slot ^ 1], &m.bar_x[slot], more ? keep : 0, tid);
+      if (!bf16::tma_d(geo)) cp_async_wait_all();
+      dt::mbar_wait(m.bar_d + slot, parity);
+      dt::bar_sync(kBarProducer, kWarpgroup);   // g and z of s landed
+      transform<N>(m.g[slot], m.z[slot], m.b[slot], geo, tid);
+      dt::bar_sync(kBarProducer, kWarpgroup);   // g and z read, B written
+      if (db_cta && tid < N) {
+        const bf* col = m.b[slot] + (tid / 8) * b_pitch(geo) * 8 + tid % 8;
+        const int live = geo.th * geo.tw;
+        for (int p = 0; p < live; ++p) db += __bfloat162float(col[8 * p]);
+      }
+      if (s + kSlots < stages) issue_dz(s + kSlots);
+      if (!bf16::tma_x(geo)) cp_async_wait_all();
+      dt::mbar_wait(m.bar_x + slot, parity);
+      dt::fence_proxy_async();
+      dt::bar_arrive(kBarFull + slot, nth);
+    }
+    if (db_cta && tid < geo.cob) row[dw_size + co_b * geo.cob + tid] = db;
+  } else {
+    consume<N, MPW>(m, geo, group, stages, row, ci_b, co_b);
+  }
+
+  const int column = (co_b * geo.ciblk + ci_b) * ngroups + group;
+  if (!split_sum::arrive(counters + column, geo.splits,
+                         reinterpret_cast<int*>(m.db), 0, nth,
+                         threadIdx.x == 0)) {
+    return;
+  }
+  const int span = geo.wgs * geo.mpw * kRows;
+  const int m_lo = group * span;
+  const int m_hi = min(geo.hf * geo.wf * geo.cib, m_lo + span);
+  const size_t base = ((size_t)co_b * geo.ciblk + ci_b) * geo.hf * geo.wf
+                          * geo.cib * geo.cob
+                      + (size_t)m_lo * geo.cob;
+  split_sum::sum_rows(ws + base, cols, geo.splits, out + base,
+                      (m_hi - m_lo) * geo.cob, 1.0f, threadIdx.x, nth);
+  if (db_cta) {
+    const size_t db = dw_size + (size_t)co_b * geo.cob;
+    split_sum::sum_rows(ws + db, cols, geo.splits, out + db, geo.cob, 1.0f,
+                        threadIdx.x, nth);
+  }
+}
+
+}  // namespace bf16
+
+// ---------------------------------------------------------------------------
 // host side
 // ---------------------------------------------------------------------------
 
@@ -677,15 +1200,16 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
 namespace {
 
 constexpr int kMaxDevices = 64;
-constexpr int kInstances = 10;      // (wgmma width, m-tiles a warpgroup)
+// (wgmma width, m-tiles a warpgroup) of the f32 build, then of the bf16 one
+constexpr int kInstances = 20;
 
 // Raise a kernel's dynamic shared-memory limit once per device to the most
 // any launch has asked of it (the attribute is the kernel's, per device),
 // so that a launch at a shape seen before sets nothing; the instance is
-// named by its width and m-tiles.
-inline cudaError_t allow_smem(Kernel kernel, const Geometry& g, int device,
-                              int bytes) {
-  int slot = g.mpw - 1;
+// named by its build (`bf16`), width and m-tiles.
+inline cudaError_t allow_smem(const void* kernel, const Geometry& g,
+                              int device, int bytes, bool bf16 = false) {
+  int slot = g.mpw - 1 + (bf16 ? kInstances / 2 : 0);
   for (int l = g.lanes; l > 8; l /= 2) slot += 2;
   if (device >= kMaxDevices || slot >= kInstances) {
     return cudaFuncSetAttribute(
@@ -752,7 +1276,71 @@ inline int launch(Kernel kernel, const float* x, const float* g,
       return (int)cudaErrorNotSupported;
   }
   const size_t smem = smem_bytes(geo);
-  err = allow_smem(kernel, geo, device, (int)smem);
+  err = allow_smem((const void*)kernel, geo, device, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
+  kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
+      tmx, tmg, tmz, x, g, z, ws, out, counters, geo);
+  return (int)cudaGetLastError();
+}
+
+using KernelBf16 = void (*)(const CUtensorMap, const CUtensorMap,
+                            const CUtensorMap, const __nv_bfloat16*,
+                            const __nv_bfloat16*, const __nv_bfloat16*,
+                            float*, float*, int*, Geometry);
+
+// Whether the bf16 kernels take this geometry.
+__host__ inline bool valid_bf16(const Geometry& g) {
+  return g.n >= 1 && g.wgs >= 1 && g.mpw >= 1
+         && kWarpgroup * (g.wgs + 1) <= bf16::max_threads(g.lanes, g.mpw)
+         && g.lanes >= g.cob && g.lanes * g.mpw <= kWarpgroup
+         && g.th >= 1 && g.tw >= 1 && g.th * g.tw <= kMaxPositions
+         && g.stride >= 1 && g.splits >= 1 && g.splits <= tiles(g)
+         && bf16::smem_bytes(g) <= (size_t)kSmemBlock;
+}
+
+// launch for the bf16 build: bf16 tensor maps (x a box of one window row,
+// `ld` channels a cell, where Cib is a multiple of 8; g and z a box of the
+// tile where Cob is), the f32 workspace and sums.
+inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
+                       const __nv_bfloat16* g, const __nv_bfloat16* z,
+                       float* ws, float* out, int* counters,
+                       const Geometry& geo, cudaStream_t stream) {
+  if (kernel == nullptr || !valid_bf16(geo)
+      || (geo.prologue != 0) != (z != nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmx = {}, tmg = {}, tmz = {};
+  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (bf16::tma_x(geo)) {
+    const long long cib = geo.cib;
+    const long long dims[5] = {cib, geo.wi, geo.hi, geo.ciblk, geo.n};
+    const long long str[4] = {cib * 2, geo.wi * cib * 2,
+                              (long long)geo.hi * geo.wi * cib * 2,
+                              (long long)geo.ciblk * geo.hi * geo.wi * cib
+                                  * 2};
+    const int box[5] = {bf16::x_ld(geo.cib, geo.stride), wwin(geo), 1, 1, 1};
+    if (!dt::encode(&tmx, x, 5, dims, str, box, type))
+      return (int)cudaErrorNotSupported;   // the encoder refused the map
+  }
+  if (bf16::tma_d(geo)) {
+    const long long cob = geo.cob;
+    const long long dims[5] = {cob, geo.wo, geo.ho, geo.coblk, geo.n};
+    const long long str[4] = {cob * 2, geo.wo * cob * 2,
+                              (long long)geo.ho * geo.wo * cob * 2,
+                              (long long)geo.coblk * geo.ho * geo.wo * cob
+                                  * 2};
+    const int box[5] = {geo.cob, geo.tw, geo.th, 1, 1};
+    if (!dt::encode(&tmg, g, 5, dims, str, box, type)
+        || (z != nullptr && !dt::encode(&tmz, z, 5, dims, str, box, type)))
+      return (int)cudaErrorNotSupported;
+  }
+  const size_t smem = bf16::smem_bytes(geo);
+  err = allow_smem((const void*)kernel, geo, device, (int)smem, true);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(

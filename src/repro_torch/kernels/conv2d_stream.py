@@ -15,12 +15,15 @@ family's functions:
   (``stream_fwd_kernel_bf16``: bf16 operands and output, f32 sums);
 * ``stream_dgrad``: ``dx`` of that conv from the raw cotangent ``g`` and the
   saved pre-activation ``z`` (``dz = g * act'(z)`` formed in the kernel),
-  written at the unpadded input's shape;
+  written at the unpadded input's shape; under ``BF16`` the tile's bf16
+  build (``stream_dgrad_kernel_bf16``: bf16 operands and dx, f32 sums);
 * ``stream_wgrad``: ``(dw, db)``, the kernel's per-share partial sums added
   in split order by the last CTA of each column of shares
   (``stream_wgrad_kernel``: the
   tensor-core wgrad tile of ``csrc/wgrad_tile.cuh`` walked strip by strip
-  down each column, the halo rows kept; the sums, ``csrc/split_sum.cuh``).
+  down each column, the halo rows kept; the sums, ``csrc/split_sum.cuh``);
+  under ``BF16`` its bf16 build (``stream_wgrad_kernel_bf16``: bf16
+  operands, f32 sums, dw and db).
 
 Unlike the reference they take the port's **unpadded** operands: pads and
 halos are zero-filled copies, and the dgrad reads no stride hole (each
@@ -61,17 +64,20 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
                                                _backward_operands, _check,
                                                _check_activation,
                                                _cuda_device, _library,
-                                               build_dtype, check_machine,
-                                               dgrad_launch,
+                                               _suffix, build_dtype,
+                                               check_machine,
+                                               declare_backward, dgrad_launch,
                                                fwd_launch, fwd_run,
-                                               split_wgrad, wgrad_launch,
+                                               plain_policy, split_wgrad,
+                                               wgrad_launch,
                                                wgrad_launch_plan)
 
 __all__ = ["LAUNCHES", "reset_launches", "stream_blocking", "stream_forward",
            "stream_dgrad", "stream_wgrad", "stream_wgrad_partials"]
 
 LAUNCHES = {"conv2d_stream_fwd": 0, "conv2d_stream_fwd_bf16": 0,
-            "conv2d_stream_dgrad": 0, "conv2d_stream_wgrad": 0}
+            "conv2d_stream_dgrad": 0, "conv2d_stream_dgrad_bf16": 0,
+            "conv2d_stream_wgrad": 0, "conv2d_stream_wgrad_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -85,18 +91,7 @@ def _declare(lib, ptr, i32) -> None:
     lib.conv2d_stream_conv_plan.argtypes = [
         ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
     lib.conv2d_stream_conv_plan.restype = i32
-    lib.conv2d_stream_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [
-        ptr, ctypes.POINTER(i32)]
-    lib.conv2d_stream_dgrad.restype = i32
-    lib.conv2d_stream_dgrad_plan.argtypes = [i32] * 19 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.conv2d_stream_dgrad_plan.restype = i32
-    lib.conv2d_stream_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
-                                                    ptr]
-    lib.conv2d_stream_wgrad.restype = i32
-    lib.conv2d_stream_wgrad_plan.argtypes = [i32] * 21 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.conv2d_stream_wgrad_plan.restype = i32
+    declare_backward(lib, "conv2d_stream", ptr, i32)
 
 
 def _lib() -> ctypes.CDLL:
@@ -173,29 +168,35 @@ def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
                  z: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None, *,
                  hso: Optional[int] = None,
-                 machine: MachineModel = H100_SXM) -> torch.Tensor:
+                 machine: MachineModel = H100_SXM,
+                 precision=F32) -> torch.Tensor:
     """The streamed input gradient: the raw cotangent ``g [N, Co/Cob, Ho,
     Wo, Cob]``, the saved pre-activation ``z`` (None for a linear
     epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]`` at the unpadded
-    ``input_hw``.  ``stride``/``padding`` are the forward's."""
+    ``input_hw``.  ``stride``/``padding`` are the forward's; under
+    ``BF16`` the bf16 build (``stream_dgrad_kernel_bf16``, bf16 dx)."""
     _backward_operands(g, z, activation)
     check_machine(machine)
+    dtype = build_dtype(precision)
     hi, wi = input_hw
     n, coblk, ho, wo, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     prologue = _prologue(z, activation)
     blk = choose_stream_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib,
-                                       cob, machine, prologue, hso)
+                                       cob, machine, prologue, hso,
+                                       dtype.itemsize)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
-                                         activation)
+                                         activation,
+                                         precision=plain_policy(dtype))
     lib = _lib()
-    err, dx, grids = dgrad_launch(lib.conv2d_stream_dgrad, blk.hso, blk, g,
-                                  w, spec, z if prologue else None,
-                                  activation)
-    LAUNCHES["conv2d_stream_dgrad"] += grids
-    _check(err, lib, "conv2d_stream_dgrad")
+    name = "conv2d_stream_dgrad" + _suffix(dtype)
+    err, dx, grids = dgrad_launch(getattr(lib, name), blk.hso, blk, g, w,
+                                  spec, z if prologue else None, activation,
+                                  dtype)
+    LAUNCHES[name] += grids
+    _check(err, lib, name)
     return dx
 
 
@@ -204,26 +205,29 @@ def stream_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                  z: Optional[torch.Tensor] = None,
                  activation: Optional[str] = None,
                  with_db: bool = False, *, hso: Optional[int] = None,
-                 machine: MachineModel = H100_SXM):
+                 machine: MachineModel = H100_SXM, precision=F32):
     """The streamed weight (and bias) gradient: the forward's unpadded input
     ``x``, the raw cotangent ``g`` and the saved pre-activation ``z`` ->
     ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32, db [Co/Cob, Cob] f32 or
     None)``.  On CUDA: ``stream_wgrad_partials``, whose last CTA of each
-    column adds its shares in order (identical bits run to run)."""
+    column adds its shares in order (identical bits run to run); under
+    ``BF16`` the bf16 build (``stream_wgrad_kernel_bf16``, f32 out)."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
+        dtype = build_dtype(precision)
         _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation,
-                               hso, machine)
+                               hso, machine, dtype)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
-                                         activation, with_db)
+                                         activation, with_db,
+                                         precision=plain_policy(dtype))
     _, out = stream_wgrad_partials(x, g, hf, wf, stride, padding, z,
                                    activation, with_db, hso=hso,
-                                   machine=machine)
+                                   machine=machine, precision=precision)
     return split_wgrad(out, x.shape, g.shape, hf, wf, with_db)
 
 
 def _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation, hso,
-                           machine):
+                           machine, dtype=torch.float32):
     check_machine(machine)
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
@@ -231,7 +235,8 @@ def _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z, activation, hso,
                          padding, g, z)
     blk = choose_stream_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib,
                                        coblk, cob, machine,
-                                       _prologue(z, activation), hso)
+                                       _prologue(z, activation), hso,
+                                       dtype.itemsize)
     return spec, blk
 
 
@@ -241,21 +246,24 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                           activation: Optional[str] = None,
                           with_db: bool = False, *,
                           hso: Optional[int] = None,
-                          machine: MachineModel = H100_SXM
+                          machine: MachineModel = H100_SXM, precision=F32
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The streamed wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
-    workspace ``[splits, |dw| + |db|]`` of per-share partial sums and their
-    in-order sum ``[|dw| + |db|]`` that the last CTA of each column of
-    shares wrote."""
+    """The streamed wgrad kernel on CUDA operands (under ``BF16`` its bf16
+    build) -> ``(ws, out)``: the f32 workspace ``[splits, |dw| + |db|]`` of
+    per-share partial sums and their in-order sum ``[|dw| + |db|]`` that
+    the last CTA of each column of shares wrote."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
+    dtype = build_dtype(precision)
     spec, blk = _stream_wgrad_blocking(x, g, hf, wf, stride, padding, z,
-                                       activation, hso, machine)
+                                       activation, hso, machine, dtype)
     lib = _lib()
+    name = "conv2d_stream_wgrad" + _suffix(dtype)
     plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
                              _ACT_CODES[activation], with_db)
-    err, ws, out = wgrad_launch(lib.conv2d_stream_wgrad, plan, x, g,
-                                z if _prologue(z, activation) else None)
-    LAUNCHES["conv2d_stream_wgrad"] += 1
-    _check(err, lib, "conv2d_stream_wgrad")
+    err, ws, out = wgrad_launch(getattr(lib, name), plan, x, g,
+                                z if _prologue(z, activation) else None,
+                                dtype)
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return ws, out

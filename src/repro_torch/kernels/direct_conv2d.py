@@ -48,11 +48,16 @@ CPU; a CUDA tensor launches the kernel or raises.  There is no fallback:
 no route switches after a launch fails.  Both forwards (this module's and
 the streamed one) build their launch plan (tiles, the C entry's int array)
 once per shape (``fwd_launch``).
-The wrappers check device, dtype (f32, or bf16 operands with an f32 bias
-in the forwards; f32 in the backward), shapes, contiguity and the 16-byte
-alignment of operands read with 16-byte loads.  The training path runs the
-f32 policy only: bf16 training is the next slice's (the dgrad and wgrad
-tiles in bf16).
+The wrappers check device, dtype (f32, or under ``BF16`` bf16 operands
+with an f32 bias), shapes, contiguity and the 16-byte alignment of
+operands read with 16-byte loads.  The training path runs the f32 policy
+or ``BF16`` (``training_policy``): under ``BF16`` the forward's bf16 build
+with a linear epilogue gives the bf16 ``z``, and the dgrad's and wgrad's
+bf16 builds (``dgrad_kernel_bf16``, ``wgrad_kernel_bf16`` on the bf16
+namespaces of ``csrc/dgrad_tile.cuh`` and ``csrc/wgrad_tile.cuh``) the
+bf16 ``dx`` and the f32 ``dw`` and ``db``, with the reference's cast
+discipline (``kernels.conv_autograd``).  A float16 policy raises: no build
+reads it.
 
 ``LAUNCHES`` counts the kernels launched (a plain integer per kernel, bumped
 where the launch happens and nowhere else), so a run can show that it went
@@ -91,7 +96,7 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_wgrad_blocked)
 from repro_torch.core.errors import KernelLaunchError
 from repro_torch.core.padding import Padding
-from repro_torch.core.precision import F32, resolve_precision
+from repro_torch.core.precision import BF16, F32, Precision, resolve_precision
 from repro_torch.kernels import split_sum
 from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
@@ -103,7 +108,8 @@ __all__ = ["LAUNCHES", "reset_launches", "check_machine", "build_dtype",
            "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans"]
 
 LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_fwd_bf16": 0,
-            "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0}
+            "direct_conv2d_dgrad": 0, "direct_conv2d_dgrad_bf16": 0,
+            "direct_conv2d_wgrad": 0, "direct_conv2d_wgrad_bf16": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -113,8 +119,9 @@ WGRAD_GEOMETRY = (WGRAD_THREADS, WGRAD_ROWS, WGRAD_MAX_POSITIONS)
 # the forward tile's (fwd_tile.cuh: threads of the largest CTA, rows of an
 # m-tile, consumer warpgroups), which both forward libraries report
 FWD_GEOMETRY = (FWD_THREADS, FWD_ROWS, FWD_CONSUMERS)
-# the forward tile's builds by operand dtype: the plan's operand code
-# (fwd_tile.cuh kOperandF32, kOperandBf16) and the LAUNCHES key's suffix
+# the dense tiles' builds by operand dtype: the forward plan's operand code
+# (fwd_tile.cuh kOperandF32, kOperandBf16) and the suffix of the C entries'
+# and LAUNCHES keys' names
 _FWD_BUILDS = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16")}
 
 
@@ -165,19 +172,27 @@ def _declare_fwd(lib, ptr, i32) -> None:
     lib.direct_conv2d_fwd_plan.restype = i32
 
 
+def declare_backward(lib, prefix: str, ptr, i32) -> None:
+    """Declare the dgrad and wgrad C entries ``<prefix>_dgrad``,
+    ``<prefix>_wgrad`` and their ``_plan`` entries, in f32 and in the bf16
+    builds (``_bf16`` before ``_plan``), which take the same arguments."""
+    for build in ("", "_bf16"):
+        entry = getattr(lib, f"{prefix}_dgrad{build}")
+        entry.argtypes = [ptr] * 4 + [i32] * 20 + [ptr, ctypes.POINTER(i32)]
+        entry.restype = i32
+        entry = getattr(lib, f"{prefix}_dgrad{build}_plan")
+        entry.argtypes = [i32] * 19 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.restype = i32
+        entry = getattr(lib, f"{prefix}_wgrad{build}")
+        entry.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
+        entry.restype = i32
+        entry = getattr(lib, f"{prefix}_wgrad{build}_plan")
+        entry.argtypes = [i32] * 21 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.restype = i32
+
+
 def _declare_bwd(lib, ptr, i32) -> None:
-    lib.direct_conv2d_dgrad.argtypes = [ptr] * 4 + [i32] * 20 + [
-        ptr, ctypes.POINTER(i32)]
-    lib.direct_conv2d_dgrad.restype = i32
-    lib.direct_conv2d_dgrad_plan.argtypes = [i32] * 19 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.direct_conv2d_dgrad_plan.restype = i32
-    lib.direct_conv2d_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
-                                                    ptr]
-    lib.direct_conv2d_wgrad.restype = i32
-    lib.direct_conv2d_wgrad_plan.argtypes = [i32] * 21 + [
-        ctypes.POINTER(ctypes.c_longlong)]
-    lib.direct_conv2d_wgrad_plan.restype = i32
+    declare_backward(lib, "direct_conv2d", ptr, i32)
 
 
 def _lib() -> ctypes.CDLL:
@@ -207,7 +222,7 @@ def _require(t: Optional[torch.Tensor], name: str, device: torch.device,
     ``vector_loads``: the kernel reads it with 16-byte loads, so it must
     start on 16 bytes (a contiguous view at an odd storage offset would
     fault on the card).  ``dtype`` is what the kernel reads: f32, or bf16
-    for the bf16 forwards' operands."""
+    for the dense bf16 builds' operands."""
     if t is None:
         return None
     if t.device != device:
@@ -216,8 +231,8 @@ def _require(t: Optional[torch.Tensor], name: str, device: torch.device,
         want = "f32" if dtype == torch.float32 else "bf16"
         raise NotImplementedError(
             f"{name} is {t.dtype}: this CUDA kernel takes {want} operands "
-            "(the dense forwards take bf16 under the BF16 policy; the "
-            "backward and separable kernels are f32 only)")
+            "(the dense forward, dgrad and wgrad take bf16 under the BF16 "
+            "policy; the separable kernels are f32 only)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     ptr = t.data_ptr()
@@ -339,7 +354,8 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     TF-SAME aware; on CUDA the pads are masked loads, never a padded copy.
 
     With grad mode on and an operand that requires grad the call goes
-    through ``BlockedConvFunction`` (the training path, f32 policy only);
+    through ``BlockedConvFunction`` (the training path: the f32 policy, or
+    ``BF16`` on the bf16 builds of the forward, dgrad and wgrad tiles);
     otherwise it runs the fused inference kernel, under the ``BF16``
     policy its bf16 build (bf16 out, bf16 pooled features).  ``stream``/
     ``hso`` route it between the window and the streamed kernels (module
@@ -360,16 +376,12 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     op_bytes = op_dtype.itemsize
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
-        if op_dtype != torch.float32:
-            raise NotImplementedError(
-                "the training path runs the f32 policy only: bf16 training "
-                "(the dgrad and wgrad tiles in bf16, z saved at the residual "
-                "dtype, f32 masters) is the next slice of the port")
+        policy = training_policy(precision)
         route = _resolve_route(stream, hso, spec, x.shape[4], cob, machine,
-                              activation)
-        family = _Dense(route, machine, hso)
+                              activation, policy.operand_itemsize)
+        family = _Dense(route, machine, hso, policy)
         return BlockedConvFunction.apply(x, w, bias, residual, family, spec,
-                                         activation, gap)
+                                         activation, gap, policy)
     if _routed("fwd", stream, hso, spec, x.shape[4], cob, machine, gap=gap,
                op_bytes=op_bytes):
         return _stream_kernels().stream_forward(
@@ -403,27 +415,44 @@ def _routed(direction: str, stream: Stream, hso: Optional[int],
 
 def _resolve_route(stream: Stream, hso: Optional[int], spec: ConvSpec,
                   cib: int, cob: int, machine: MachineModel,
-                  activation: Optional[str]) -> KernelRoute:
+                  activation: Optional[str],
+                  op_bytes: int = 4) -> KernelRoute:
     """The training path's route, every direction resolved: an explicit
     bool forces all three, a ``KernelRoute`` pins each, None probes each
-    direction's models on its own; ``hso`` pins the forward only (strip
-    heights are per-kernel model choices)."""
+    direction's models (at ``op_bytes`` operands) on its own; ``hso`` pins
+    the forward only (strip heights are per-kernel model choices)."""
     prologue = activation not in (None, "linear")
     return KernelRoute(**{
         d: _routed(d, stream, hso if d == "fwd" else None, spec, cib, cob,
-                   machine, prologue=prologue)
+                   machine, prologue=prologue, op_bytes=op_bytes)
         for d in ("fwd", "dgrad", "wgrad")})
 
 
+def training_policy(precision) -> Precision:
+    """The policy the dense training path runs ``precision`` under: an f32
+    operand policy as F32, or ``BF16`` (bf16 operands and saved
+    pre-activations on the bf16 builds).  Any other policy raises: no
+    backward build reads float16, and a bf16 policy that saves f32
+    residuals is not the reference's."""
+    policy = resolve_precision(precision)
+    if policy.op_dtype == torch.float32:
+        return F32
+    if policy != BF16:
+        raise NotImplementedError(
+            f"the dense training path runs the f32 policy and BF16 only; "
+            f"got {policy.name}: no CUDA build of the backward reads it")
+    return BF16
+
+
 def build_dtype(precision) -> torch.dtype:
-    """The operand dtype of the forward build that runs ``precision`` on
-    CUDA operands: f32 for the f32 tile, bf16 for its bf16 build.  Any
-    other operand dtype (float16) raises: no build reads it, and none
-    stands in for it at another precision."""
+    """The operand dtype of the dense builds (forward, dgrad, wgrad) that
+    run ``precision`` on CUDA operands: f32 for the f32 tiles, bf16 for
+    their bf16 builds.  Any other operand dtype (float16) raises: no build
+    reads it, and none stands in for it at another precision."""
     dtype = resolve_precision(precision).op_dtype
     if dtype not in _FWD_BUILDS:
         raise NotImplementedError(
-            f"no CUDA build of the dense forwards reads {dtype} operands: "
+            f"no CUDA build of the dense kernels reads {dtype} operands: "
             "they run the f32 policy and BF16 (bf16 operands) only")
     return dtype
 
@@ -621,13 +650,26 @@ def _backward_operands(g: torch.Tensor, z: Optional[torch.Tensor],
                          "pre-activation z")
 
 
+def plain_policy(dtype: torch.dtype) -> Optional[Precision]:
+    """The policy a backward's plain version casts its operands to: none
+    for the f32 build (so that f64 operands stay f64 for gradcheck), BF16
+    for the bf16 one."""
+    return None if dtype == torch.float32 else BF16
+
+
+def _suffix(dtype: torch.dtype) -> str:
+    """A build's suffix to its C entries and ``LAUNCHES`` keys."""
+    return _FWD_BUILDS[dtype][1]
+
+
 def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
                         input_hw: Tuple[int, int], stride: int = 1,
                         padding: Padding = "VALID",
                         z: Optional[torch.Tensor] = None,
                         activation: Optional[str] = None, *,
                         stream: Stream = None, hso: Optional[int] = None,
-                        machine: MachineModel = H100_SXM) -> torch.Tensor:
+                        machine: MachineModel = H100_SXM,
+                        precision=F32) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)``: the raw cotangent ``g
     [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (same shape;
     None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
@@ -636,50 +678,62 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     ``hso`` and ``machine`` route it as the forward.  On CUDA: the
     phase-split tensor-core kernel (``csrc/dgrad_tile.cuh``), all phases in
     one launch, its operands copied by TMA, or by cp.async where Cob is not
-    a multiple of 4."""
+    a multiple of 4 (8 in bf16).  Under ``BF16`` its bf16 build
+    (``dgrad_kernel_bf16``) on ``g``, ``z`` and ``w`` cast to bf16 (no-ops
+    on the training path's bf16 operands): ``dx`` comes out in bf16, each
+    f32 sum rounded once, as the reference's ``_dgrad_kernel`` under
+    ``BF16``; on the CPU the plain version on the same bf16 operands."""
     _backward_operands(g, z, activation)
     check_machine(machine)
+    dtype = build_dtype(precision)
     hi, wi = input_hw
     n, coblk, ho, wo, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     prologue = z is not None and activation not in (None, "linear")
     if _routed("dgrad", stream, hso, spec, cib, cob, machine,
-               prologue=prologue):
+               prologue=prologue, op_bytes=dtype.itemsize):
         return _stream_kernels().stream_dgrad(
             g, w, input_hw, stride, padding, z, activation, hso=hso,
-            machine=machine)
+            machine=machine, precision=precision)
     blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                                machine, prologue)
+                                machine, prologue, dtype.itemsize)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
-                                         activation)
-    err, dx, grids = dgrad_launch(_bwd_lib().direct_conv2d_dgrad, blk.th,
-                                  blk, g, w, spec,
-                                  z if prologue else None, activation)
-    LAUNCHES["direct_conv2d_dgrad"] += grids
-    _check(err, _bwd_lib(), "direct_conv2d_dgrad")
+                                         activation,
+                                         precision=plain_policy(dtype))
+    name = "direct_conv2d_dgrad" + _suffix(dtype)
+    lib = _bwd_lib()
+    err, dx, grids = dgrad_launch(getattr(lib, name), blk.th, blk, g, w,
+                                  spec, z if prologue else None, activation,
+                                  dtype)
+    LAUNCHES[name] += grids
+    _check(err, lib, name)
     return dx
 
 
 def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
                  w: torch.Tensor, spec: ConvSpec, z: Optional[torch.Tensor],
-                 activation: Optional[str]):
+                 activation: Optional[str],
+                 dtype: torch.dtype = torch.float32):
     """Call a phase-split dgrad kernel's C ``entry`` (the window one, whose
     ``rows`` are the tile's ``th``, or the streamed one, whose ``rows`` are
-    a strip's ``hso``) with the tiles ``blk`` on CUDA operands, ``z`` only
-    with the prologue -> ``(CUDA error code, dx, grids launched)``; the
+    a strip's ``hso``; the build for ``dtype`` operands) with the tiles
+    ``blk`` on CUDA operands, cast to ``dtype``, ``z`` only with the
+    prologue -> ``(CUDA error code, dx at dtype, grids launched)``; the
     caller adds the grids to its launch count."""
     dev = _cuda_device(g)
-    ptrs = (_require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True),
-            _require(w, "w", dev, vector_loads=True))
+    g, w = g.to(dtype), w.to(dtype)
+    z = None if z is None else z.to(dtype)
+    ptrs = (_require(g, "g", dev, vector_loads=True, dtype=dtype),
+            _require(z, "z", dev, vector_loads=True, dtype=dtype),
+            _require(w, "w", dev, vector_loads=True, dtype=dtype))
     n, coblk, ho, wo, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
     if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
     dx = torch.empty((n, ciblk, spec.hi, spec.wi, cib), device=dev,
-                     dtype=torch.float32)
+                     dtype=dtype)
     launches = ctypes.c_int(0)
     err = _call(dev, entry, *ptrs, dx.data_ptr(),
                 *_dgrad_ints(rows, blk, g.shape, w.shape, spec),
@@ -701,32 +755,36 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
                 input_hw: Tuple[int, int], stride: int = 1,
                 padding: Padding = "VALID", z: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None, *, streamed: bool = False,
-                machine: MachineModel = H100_SXM
+                machine: MachineModel = H100_SXM,
+                dtype: torch.dtype = torch.float32
                 ) -> Tuple[DgradPlan, DgradPlan]:
     """What one launch of the window dgrad kernel (with ``streamed``, the
-    streamed one) runs on these operands, tiled as its wrapper tiles them
-    by default: ``(the kernel library's own count, its *_plan entry;
-    core.blocking.dgrad_plan's)``.  Reads the built library; launches
-    nothing."""
+    streamed one) in its build for ``dtype`` operands runs on these
+    operands, tiled as its wrapper tiles them by default: ``(the kernel
+    library's own count, its *_plan entry; core.blocking.dgrad_plan's)``.
+    Reads the built library; launches nothing."""
     hi, wi = input_hw
     n, coblk, _, _, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     prologue = z is not None and activation not in (None, "linear")
+    ob = dtype.itemsize
     if streamed:
         blk = choose_stream_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk,
-                                           cib, cob, machine, prologue)
-        entry = _stream_kernels()._lib().conv2d_stream_dgrad_plan
-        rows = blk.hso
+                                           cib, cob, machine, prologue, None,
+                                           ob)
+        lib, prefix, rows = _stream_kernels()._lib(), "conv2d_stream", blk.hso
     else:
         blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib,
-                                    cob, machine, prologue)
-        entry, rows = _bwd_lib().direct_conv2d_dgrad_plan, blk.th
+                                    cob, machine, prologue, ob)
+        lib, prefix, rows = _bwd_lib(), "direct_conv2d", blk.th
+    entry = getattr(lib, f"{prefix}_dgrad{_suffix(dtype)}_plan")
     out = (ctypes.c_longlong * 3)()
     if entry(*_dgrad_ints(rows, blk, g.shape, w.shape, spec), out):
         raise ValueError(f"the dgrad kernel refuses the tiles {blk}")
-    return DgradPlan(*out), dgrad_plan(blk, n, hi, wi, hf, wf, stride,
-                                       spec.pads, ciblk, cib, coblk, cob)
+    model = dgrad_plan(blk, n, hi, wi, hf, wf, stride, spec.pads, ciblk, cib,
+                       coblk, cob, ob)
+    return DgradPlan(*out, products=model.products), model
 
 
 def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
@@ -735,11 +793,13 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                         activation: Optional[str] = None,
                         with_db: bool = False, *, stream: Stream = None,
                         hso: Optional[int] = None,
-                        machine: MachineModel = H100_SXM):
+                        machine: MachineModel = H100_SXM, precision=F32):
     """Weight (and bias) gradient of ``act(conv(x, w) + b)``: the forward's
     unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
-    db [Co/Cob, Cob] f32 or None)``.
+    db [Co/Cob, Cob] f32 or None)``.  Under ``BF16`` the bf16 build
+    (``wgrad_kernel_bf16``) on ``x``, ``g`` and ``z`` cast to bf16; dw and
+    db stay f32, as the reference's ``out_dtype=jnp.float32``.
 
     On CUDA the tensor-core wgrad kernel (``wgrad_partials``,
     ``csrc/wgrad_tile.cuh``) writes one partial sum per position share into
@@ -750,23 +810,26 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     forward."""
     _backward_operands(g, z, activation)
     check_machine(machine)
+    ob = build_dtype(precision).itemsize
     n, ciblk, hi, wi, cib = x.shape
     cob = g.shape[4]
     spec = backward_spec(n, hi, wi, (g.shape[1], ciblk, hf, wf, cib, cob),
                          stride, padding, g, z)
     prologue = z is not None and activation not in (None, "linear")
     if _routed("wgrad", stream, hso, spec, cib, cob, machine,
-               prologue=prologue):
+               prologue=prologue, op_bytes=ob):
         return _stream_kernels().stream_wgrad(
             x, g, hf, wf, stride, padding, z, activation, with_db, hso=hso,
-            machine=machine)
+            machine=machine, precision=precision)
     if x.device.type == "cpu":
         choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, stride, ciblk,
-                              cib, g.shape[1], cob, machine, prologue)
+                              cib, g.shape[1], cob, machine, prologue, ob)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
-                                         activation, with_db)
+                                         activation, with_db,
+                                         precision=plain_policy(
+                                             build_dtype(precision)))
     _, out = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
-                            with_db, machine)
+                            with_db, machine, precision)
     return split_wgrad(out, x.shape, g.shape, hf, wf, with_db)
 
 
@@ -787,29 +850,32 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                    z: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
                    with_db: bool = False,
-                   machine: MachineModel = H100_SXM
+                   machine: MachineModel = H100_SXM, precision=F32
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wgrad kernel on CUDA operands (tiles from
-    ``choose_wgrad_blocking``) -> ``(ws, out)``: the f32 workspace
-    ``[splits, |dw| + |db|]`` of per-share partial sums, each row laid out
-    as ``dw`` then ``db``, and ``out [|dw| + |db|]``, its rows summed in
-    split order by the last CTA of each column of shares."""
+    ``choose_wgrad_blocking``; under ``BF16`` its bf16 build) -> ``(ws,
+    out)``: the f32 workspace ``[splits, |dw| + |db|]`` of per-share
+    partial sums, each row laid out as ``dw`` then ``db``, and ``out [|dw|
+    + |db|]``, its rows summed in split order by the last CTA of each
+    column of shares."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
+    dtype = build_dtype(precision)
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
     spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
                          padding, g, z)
     prologue = z is not None and activation not in (None, "linear")
     blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                                cob, machine, prologue)
+                                cob, machine, prologue, dtype.itemsize)
     lib = _bwd_lib()
+    name = "direct_conv2d_wgrad" + _suffix(dtype)
     plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
                              _ACT_CODES[activation], with_db)
-    err, ws, out = wgrad_launch(lib.direct_conv2d_wgrad, plan, x, g,
-                                z if prologue else None)
-    LAUNCHES["direct_conv2d_wgrad"] += 1
-    _check(err, lib, "direct_conv2d_wgrad")
+    err, ws, out = wgrad_launch(getattr(lib, name), plan, x, g,
+                                z if prologue else None, dtype)
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return ws, out
 
 
@@ -844,15 +910,19 @@ def wgrad_launch_plan(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
 
 
 def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
-                 z: Optional[torch.Tensor]):
+                 z: Optional[torch.Tensor],
+                 dtype: torch.dtype = torch.float32):
     """Call a tensor-core wgrad kernel's C ``entry`` (the window one or the
-    streamed one) with ``plan`` on CUDA operands, ``z`` only with the
-    prologue -> ``(CUDA error code, workspace, its rows' sum)``; the caller
-    counts the launch."""
+    streamed one, the build for ``dtype`` operands) with ``plan`` on CUDA
+    operands, cast to ``dtype``, ``z`` only with the prologue -> ``(CUDA
+    error code, f32 workspace, its rows' f32 sum)``; the caller counts the
+    launch."""
     dev = _cuda_device(x)
-    ptrs = (_require(x, "x", dev, vector_loads=True),
-            _require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True))
+    x, g = x.to(dtype), g.to(dtype)
+    z = None if z is None else z.to(dtype)
+    ptrs = (_require(x, "x", dev, vector_loads=True, dtype=dtype),
+            _require(g, "g", dev, vector_loads=True, dtype=dtype),
+            _require(z, "z", dev, vector_loads=True, dtype=dtype))
     ws = torch.empty((plan.blk.splits, plan.cols), device=dev,
                      dtype=torch.float32)
     out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
@@ -877,13 +947,14 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                 stride: int = 1, padding: Padding = "VALID",
                 z: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None, *, streamed: bool = False,
-                machine: MachineModel = H100_SXM
+                machine: MachineModel = H100_SXM,
+                dtype: torch.dtype = torch.float32
                 ) -> Tuple[WgradPlan, WgradPlan]:
     """What one launch of the window wgrad kernel (with ``streamed``, the
-    streamed one) runs on these operands, tiled as its wrapper tiles them:
-    ``(the kernel library's own count, its *_wgrad_plan entry;
-    core.blocking.wgrad_plan's)``.  Reads the built library; launches
-    nothing."""
+    streamed one) in its build for ``dtype`` operands runs on these
+    operands, tiled as its wrapper tiles them: ``(the kernel library's own
+    count, its *_wgrad_plan entry; core.blocking.wgrad_plan's)``.  Reads
+    the built library; launches nothing."""
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
     spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
@@ -892,17 +963,19 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     args = (n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob, machine,
             prologue)
     if streamed:
-        blk = choose_stream_wgrad_blocking(*args)
-        entry = _stream_kernels()._lib().conv2d_stream_wgrad_plan
+        blk = choose_stream_wgrad_blocking(*args, None, dtype.itemsize)
+        lib, prefix = _stream_kernels()._lib(), "conv2d_stream"
     else:
-        blk = choose_wgrad_blocking(*args)
-        entry = _bwd_lib().direct_conv2d_wgrad_plan
+        blk = choose_wgrad_blocking(*args, dtype.itemsize)
+        lib, prefix = _bwd_lib(), "direct_conv2d"
+    entry = getattr(lib, f"{prefix}_wgrad{_suffix(dtype)}_plan")
     out = (ctypes.c_longlong * 4)()
     if entry(*_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
              int(prologue), out):
         raise ValueError(f"the wgrad kernel refuses the tiles {blk}")
-    return WgradPlan(*out), wgrad_plan(blk, n, ho, wo, hf, wf, stride,
-                                       ciblk, cib, coblk, cob, prologue)
+    model = wgrad_plan(blk, n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                       cob, prologue)
+    return WgradPlan(*out, products=model.products), model
 
 
 # ---------------------------------------------------------------------------
@@ -914,33 +987,42 @@ class _Dense:
     """The dense family's kernels for ``BlockedConvFunction``, each
     direction on the kernel its ``route`` resolved (the window kernels
     here, or the streamed ones; ``hso`` pins the streamed forward's
-    strips)."""
+    strips), in the builds of ``policy`` (F32, or ``BF16``: the forward's
+    bf16 build with a linear epilogue gives the bf16 ``z``, the dgrad's
+    and wgrad's bf16 builds the gradients)."""
     route: KernelRoute
     machine: MachineModel = H100_SXM
     hso: Optional[int] = None
+    policy: Precision = F32
 
     def preactivation(self, x, w, bias, spec: ConvSpec) -> torch.Tensor:
+        bf16 = self.policy == BF16
         if self.route.fwd:
             streamed = _stream_kernels()
             streamed.stream_blocking(x, w, spec, False, self.hso,
-                                     self.machine)
+                                     self.machine,
+                                     self.policy.operand_itemsize)
             if x.device.type != "cpu":
                 return streamed.stream_forward(
                     x, w, bias, spec.stride, spec.pads, hso=self.hso,
-                    machine=self.machine)
+                    machine=self.machine, precision=self.policy)
         if x.device.type == "cpu":
-            return direct_conv_preactivation(x, w, spec.stride, spec.pads,
-                                             bias)
-        return _fwd_cuda(x, w, bias, None, spec, None, False, self.machine)
+            return direct_conv_preactivation(
+                x, w, spec.stride, spec.pads, bias,
+                precision=self.policy if bf16 else None)
+        return _fwd_cuda(x, w, bias, None, spec, None, False, self.machine,
+                         build_dtype(self.policy))
 
     def dgrad(self, g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
         return direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
                                    spec.pads, z, activation,
                                    stream=self.route.dgrad,
-                                   machine=self.machine)
+                                   machine=self.machine,
+                                   precision=self.policy)
 
     def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
                                    spec.pads, z, activation, with_db,
                                    stream=self.route.wgrad,
-                                   machine=self.machine)
+                                   machine=self.machine,
+                                   precision=self.policy)

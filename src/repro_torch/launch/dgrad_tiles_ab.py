@@ -11,12 +11,16 @@ faster time kept),
 checks each tile's ``dx`` against the plain version, and prints the card's
 name and power limit, each tile with its model cost and ms, and per layer
 and route the chooser's tile beside the fastest one measured, then the sums.
-Needs an H100 and nvcc::
+``--dtype bf16`` times the bf16 builds (``dgrad_kernel_bf16``,
+``stream_dgrad_kernel_bf16``) at the bf16 chooser's candidates
+(``op_bytes`` 2) on bf16 operands, each ``dx`` within 1e-2 of max|dx| of
+the plain version on the same operands.  Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.dgrad_tiles_ab
+    PYTHONPATH=src python -m repro_torch.launch.dgrad_tiles_ab [--dtype bf16]
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import torch
@@ -43,13 +47,15 @@ def dgrad_layers(entry: int = 224):
 
 
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
-                    streamed: bool, top: int, per_count: int):
+                    streamed: bool, top: int, per_count: int,
+                    op_bytes: int = 4):
     """The tiles to time, as ``(model cost, DgradBlocking)``, the chooser's
     first: the ``top`` of least cost and the ``per_count`` cheapest of each
-    consumer count."""
+    consumer count (of the bf16 build's chooser at ``op_bytes`` 2)."""
     cib, cob = min(ci, 128), min(co, 128)
     found = sorted(dgrad_candidates(n, h, h, 3, 3, stride, ci // cib, cib,
-                                    cob, H100_SXM, True, streamed),
+                                    cob, H100_SXM, True, streamed, None,
+                                    op_bytes),
                    key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     for wgs in sorted({b.wgs for _, b in found}):
@@ -84,7 +90,12 @@ def graph_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    suffix = "_bf16" if args.dtype == "bf16" else ""
     if not torch.cuda.is_available():
         print("dgrad_tiles_ab: no CUDA device")
         return 1
@@ -93,8 +104,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    entries = {False: (direct_conv2d._bwd_lib, "direct_conv2d_dgrad"),
-               True: (conv2d_stream._lib, "conv2d_stream_dgrad")}
+    entries = {False: (direct_conv2d._bwd_lib, "direct_conv2d_dgrad" + suffix),
+               True: (conv2d_stream._lib, "conv2d_stream_dgrad" + suffix)}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
@@ -107,24 +118,26 @@ def main() -> int:
         z = torch.randn(g.shape, device=dev, generator=gen)
         w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
                         generator=gen) / (9 * co) ** 0.5
+        g, z, w = g.to(dtype), z.to(dtype), w.to(dtype)
         want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
         scale = want.abs().max().item()
+        tol = 1e-4 * (1 + scale) if args.dtype == "f32" else 1e-2 * scale
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_COUNT):
+                                             PER_COUNT, dtype.itemsize):
                 rows = blk.hso if streamed else blk.th
 
                 def run(blk=blk, rows=rows):
                     err, dx, _ = direct_conv2d.dgrad_launch(
-                        entry, rows, blk, g, w, spec, z, "relu")
+                        entry, rows, blk, g, w, spec, z, "relu", dtype)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
                     return dx
-                bad = (run() - want).abs().max().item()
-                if bad > 1e-4 * (1 + scale):
+                bad = (run().float() - want.float()).abs().max().item()
+                if bad > tol:
                     raise RuntimeError(f"{symbol} {blk}: |dx - plain| = "
                                        f"{bad} (max |dx| {scale})")
                 runs.append((cost, blk, run))
@@ -149,7 +162,8 @@ def main() -> int:
                   f"{chosen[0] / best[0]:.3f}")
         del g, z, w, want
     for streamed, (chosen, best) in sums.items():
-        print(f"[sum] {'stream' if streamed else 'window'}: chosen tiles "
+        print(f"[sum] {'stream' if streamed else 'window'} {args.dtype}: "
+              f"chosen tiles "
               f"{chosen:.4f} ms, fastest measured {best:.4f} ms, ratio "
               f"{chosen / best:.3f}")
     return 0

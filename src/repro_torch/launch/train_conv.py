@@ -3,7 +3,7 @@ port.
 
     python -m repro_torch.launch.train_conv [--model dense|separable]
                                             [--steps 150] [--device cuda]
-                                            [--seed 0]
+                                            [--seed 0] [--dtype f32|bf16]
 
 The models are the example's ``MODELS``, channel pencil ``CB = 8``:
 ``dense`` is ``conv 8->16 (relu, SAME) -> conv 16->32 (relu, SAME, stride
@@ -15,8 +15,14 @@ stamps at a random position, the class being the stamp, made with numpy
 from ``--seed``.  AdamW runs with a cosine schedule (peak 1e-2, 10 warm-up
 steps) and no weight decay.  On ``cuda`` (the default) every conv runs
 through its family's forward, dgrad and wgrad kernels (dense, or depthwise
-and pointwise); ``--device cpu`` runs their plain versions.  At the end the trained parameters classify a fresh batch
-through the fused inference path.
+and pointwise); ``--device cpu`` runs their plain versions.  ``--dtype
+bf16`` trains under the ``BF16`` policy, the counterpart of the example's
+``--dtype bf16`` (``ConvContext(precision="bf16")``: bf16 operands and
+saved pre-activations on the bf16 builds of the dense forward, dgrad and
+wgrad, f32 master weights and AdamW, the loss in f32); the separable model
+refuses it until its kernels have bf16 builds.  At the end the trained
+parameters classify a fresh batch through the fused inference path, under
+the same policy.
 """
 from __future__ import annotations
 
@@ -27,6 +33,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.context import ConvContext
 from repro_torch.core.device import resolve_device
 from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,
                                  DepthwiseSeparableBlock)
@@ -92,13 +99,18 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
+                    help="the precision policy (bf16: the dense model only)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
+    context = ConvContext(precision=args.dtype)
     model = MODELS[args.model](dev, torch.Generator().manual_seed(args.seed))
     opt = AdamW(lr=cosine_schedule(1e-2, 10, args.steps), weight_decay=0.0)
     state = opt.init(dict(model.named_parameters()))
-    step = make_train_step(model, opt)
+    step = make_train_step(model, opt, context=context)
+    tag = f"{args.model}/{dev.type}" + ("/bf16" if args.dtype == "bf16"
+                                        else "")
     rng = np.random.default_rng(args.seed)
 
     def batch():
@@ -109,12 +121,12 @@ def main(argv=None) -> int:
     for s in range(args.steps):
         loss, metrics = step(state, batch())
         if (s + 1) % 25 == 0 or s + 1 == args.steps:
-            print(f"[{args.model}/{dev.type}] step {s + 1}: "
+            print(f"[{tag}] step {s + 1}: "
                   f"loss={float(loss):.4f} "
                   f"acc={float(metrics['accuracy']):.2f}")
     b = batch()
     with torch.inference_mode():
-        logits = model(b["images"])
+        logits = model(b["images"], context=context)
     acc = float((logits.argmax(-1) == b["targets"]).float().mean())
     print(f"fused inference path: acc={acc:.2f}")
     if args.steps >= 100 and acc <= 0.9:

@@ -14,12 +14,15 @@ in which one part of the work is skipped, each into the build directory:
 Only ``whole`` computes the function; the others are timing probes.  At a
 few VGG-16 layers (batch 8, the relu prologue and ``db``, the chooser's
 tiles) it prints the card's name and power limit and each variant's
-CUDA-graph ms.  Needs an H100 and nvcc::
+CUDA-graph ms.  ``--dtype bf16`` takes the same parts out of the tile's
+bf16 build (``wgrad_kernel_bf16``, ``BF16_VARIANTS``) and times it on bf16
+operands at the bf16 chooser's tiles.  Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.wgrad_parts_ab
+    PYTHONPATH=src python -m repro_torch.launch.wgrad_parts_ab [--dtype bf16]
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import shutil
 import subprocess
@@ -47,6 +50,23 @@ VARIANTS = {
                 ("      dt::mbar_wait(&m.bar_x[slot], parity);", ""),
                 ("      db = transform<N>(",
                  "      if (0) db = transform<N>(")),
+}
+# the same parts of the bf16 build (wgrad_tile.cuh, namespace bf16)
+BF16_VARIANTS = {
+    "whole": (),
+    "no_wgmma": (("    mma_stage<N, N, MPW>(total, m.x[slot]",
+                  "    if (0) mma_stage<N, N, MPW>(total, m.x[slot]"),),
+    "no_dz": (("      transform<N>(m.g[slot], m.z[slot], m.b[slot]",
+               "      if (0) transform<N>(m.g[slot], m.z[slot], m.b[slot]"),),
+    "no_copy": (("      bf16::issue_x(tmx, x, geo,",
+                 "      if (0) bf16::issue_x(tmx, x, geo,"),
+                ("    for (int s = 0; s < min(stages, kSlots); ++s) "
+                 "issue_dz(s);", ""),
+                ("      if (s + kSlots < stages) issue_dz(s + kSlots);", ""),
+                ("      dt::mbar_wait(m.bar_d + slot, parity);", ""),
+                ("      dt::mbar_wait(m.bar_x + slot, parity);", ""),
+                ("      transform<N>(m.g[slot], m.z[slot], m.b[slot]",
+                 "      if (0) transform<N>(m.g[slot], m.z[slot], m.b[slot]")),
 }
 # (ci, co, stride, input extent)
 LAYERS = ((3, 64, 1, 224), (64, 64, 1, 224), (64, 128, 2, 224),
@@ -80,7 +100,12 @@ def build_variant(name: str, edits) -> ctypes.CDLL:
     return lib
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    args = ap.parse_args(argv)
+    bf16 = args.dtype == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     if not torch.cuda.is_available():
         print("wgrad_parts_ab: no CUDA device")
         return 1
@@ -89,8 +114,10 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    libs = {name: build_variant(name, edits)
-            for name, edits in VARIANTS.items()}
+    libs = {name: build_variant(f"{args.dtype}_{name}", edits)
+            for name, edits in (BF16_VARIANTS if bf16
+                                else VARIANTS).items()}
+    entry = "direct_conv2d_wgrad_bf16" if bf16 else "direct_conv2d_wgrad"
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
@@ -102,20 +129,23 @@ def main() -> int:
                         generator=gen) / (9 * ci) ** 0.5
         z = direct_conv_blocked(x, w, s, "SAME").contiguous()
         g = torch.randn(z.shape, device=dev, generator=gen)
+        x, z, g = x.to(dtype), z.to(dtype), g.to(dtype)
         blk = choose_wgrad_blocking(n, spec.ho, spec.wo, 3, 3, s, ci // cib,
-                                    cib, co // cob, cob, prologue=True)
+                                    cib, co // cob, cob, prologue=True,
+                                    op_bytes=dtype.itemsize)
         plan = direct_conv2d.wgrad_launch_plan(blk, x.shape, g.shape, 3, 3,
                                                spec, 1, True)
         times = {}
         for name, lib in libs.items():
             def run(lib=lib):
                 err, ws, _ = direct_conv2d.wgrad_launch(
-                    lib.direct_conv2d_wgrad, plan, x, g, z)
+                    getattr(lib, entry), plan, x, g, z, dtype)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
                 return ws
             times[name] = min(graph_ms(run, 10), graph_ms(run, 10))
-        print(f"[parts] {ci}->{co} in {h}x{h} s{s}, tiles {blk.th}x{blk.tw} "
+        print(f"[parts] {args.dtype} {ci}->{co} in {h}x{h} s{s}, tiles "
+              f"{blk.th}x{blk.tw} "
               f"wgs {blk.wgs} mpw {blk.mpw} groups {blk.groups} splits "
               f"{blk.splits}: "
               + " ".join(f"{k}_ms {v:.4f}" for k, v in times.items()),

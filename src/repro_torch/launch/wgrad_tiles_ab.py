@@ -12,12 +12,17 @@ kept), checks each tile's workspace, reduced, against the f64 plain
 version (``|dw - plain| <= 1e-5 * sum |x * dz|``), and prints the card's
 name and power limit, each tile with its model cost and ms, and per layer
 and route the chooser's tile beside the fastest one measured, then the
-sums over VGG-16's 13 layers.  Needs an H100 and nvcc::
+sums over VGG-16's 13 layers.  ``--dtype bf16`` times the bf16 builds
+(``wgrad_kernel_bf16``, ``stream_wgrad_kernel_bf16``) at the bf16
+chooser's candidates (``op_bytes`` 2) on bf16 operands, against the f64
+sums of the same bf16 operands and dz rounded to bf16.  Needs an H100 and
+nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab
+    PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab [--dtype bf16]
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import torch
@@ -42,15 +47,17 @@ def wgrad_layers(entry: int = 224):
 
 
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
-                    streamed: bool, top: int, per_count: int):
+                    streamed: bool, top: int, per_count: int,
+                    op_bytes: int = 4):
     """The tiles to time, as ``(model cost, blocking)``, the chooser's
     first: the ``top`` of least cost and the ``per_count`` cheapest of each
-    (consumer warpgroups, m-tiles a warpgroup) pair."""
+    (consumer warpgroups, m-tiles a warpgroup) pair (of the bf16 build's
+    chooser at ``op_bytes`` 2)."""
     cib, cob = min(ci, 128), min(co, 128)
     ho = -(-h // stride)
     found = sorted(wgrad_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
                                     co // cob, cob, H100_SXM, True,
-                                    streamed),
+                                    streamed, None, op_bytes),
                    key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     for pair in sorted({(b.wgs, b.mpw) for _, b in found}):
@@ -61,7 +68,12 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    args = ap.parse_args(argv)
+    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    suffix = "_bf16" if args.dtype == "bf16" else ""
     if not torch.cuda.is_available():
         print("wgrad_tiles_ab: no CUDA device")
         return 1
@@ -73,8 +85,8 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    entries = {False: (direct_conv2d._bwd_lib, "direct_conv2d_wgrad"),
-               True: (conv2d_stream._lib, "conv2d_stream_wgrad")}
+    entries = {False: (direct_conv2d._bwd_lib, "direct_conv2d_wgrad" + suffix),
+               True: (conv2d_stream._lib, "conv2d_stream_wgrad" + suffix)}
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
@@ -95,9 +107,10 @@ def main() -> int:
                         generator=gen) / (9 * ci) ** 0.5
         z = direct_conv_blocked(x, w, s, "SAME").contiguous()
         g = torch.randn(z.shape, device=dev, generator=gen)
-        want, _ = direct_conv_wgrad_blocked(x.double(), g.double(), 3, 3, s,
-                                            "SAME", z.double(), "relu")
+        x, z, g = x.to(dtype), z.to(dtype), g.to(dtype)
         dz = cotangent_prologue(g, z, "relu")
+        want, _ = direct_conv_wgrad_blocked(x.double(), dz.double(), 3, 3, s,
+                                            "SAME")
         scale, _ = direct_conv_wgrad_blocked(x.abs().double(),
                                              dz.abs().double(), 3, 3, s,
                                              "SAME")
@@ -105,13 +118,13 @@ def main() -> int:
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_COUNT):
+                                             PER_COUNT, dtype.itemsize):
                 plan = direct_conv2d.wgrad_launch_plan(
                     blk, x.shape, g.shape, 3, 3, spec, 1, True)
 
                 def run(blk=blk, plan=plan):
                     err, _, out = direct_conv2d.wgrad_launch(entry, plan, x,
-                                                             g, z)
+                                                             g, z, dtype)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
@@ -147,7 +160,8 @@ def main() -> int:
                   f"{chosen[0] / best[0]:.3f}", flush=True)
         del x, w, z, g, want, dz, scale
     for streamed, (chosen, best) in sums.items():
-        print(f"[sum] {'stream' if streamed else 'window'} (13 layers): "
+        print(f"[sum] {'stream' if streamed else 'window'} {args.dtype} "
+              f"(13 layers): "
               f"chosen tiles {chosen:.4f} ms, fastest measured {best:.4f} "
               f"ms, ratio {chosen / best:.3f}")
     return 0

@@ -31,7 +31,9 @@ raises.  ``machine`` is the model the dense family's tiles are fitted to.
 Parameters are trainable.  With grad mode on, a call goes through the
 family's autograd path (forward kernel, then the dgrad and wgrad kernels
 in the backward); under ``torch.no_grad``/``inference_mode``, as the
-server runs it, through the fused inference kernel.
+server runs it, through the fused inference kernel.  Both run under a
+context's precision: f32, or ``BF16`` (dense layers only in training: the
+separable kernels have no bf16 backward builds yet and refuse it).
 """
 from __future__ import annotations
 
@@ -286,7 +288,8 @@ class BlockedCNN(nn.Module):
         does: the images are cast once at entry, every conv emits the
         operand dtype (bf16 with f32 sums inside), the pooled features come
         out in it, the head's f32 master is cast to it and the logits come
-        back in it."""
+        back in it (a train step takes its loss in f32); under grad mode the
+        gradients reach the f32 masters through those casts."""
         op = as_context(context).resolve_precision_for(F32).op_dtype
         h = nhwc_to_blocked(x_nhwc.to(op), self.convs[0].in_pencil)
         last = len(self.convs) - 1

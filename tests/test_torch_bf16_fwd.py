@@ -379,11 +379,14 @@ def test_bf16_wrappers_run_the_plain_version_on_the_cpu(stream):
     assert got.dtype == torch.bfloat16
     _bf16_close(got.float().numpy(),
                 _jax_bf16(x, wt, b, r, 2, "SAME", "gelu", True))
-    # training under bf16 is refused, naming the next slice
+    # training runs the f32 policy and BF16 only: a float16 policy is
+    # refused (bf16 training, tests/test_torch_bf16_train.py)
     w = torch.from_numpy(wt).requires_grad_()
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(NotImplementedError, match="f32 policy and BF16"):
         direct_conv2d_blocked(torch.from_numpy(x), w, None, 2, "SAME",
-                              precision="bf16", stream=stream)
+                              precision=precision.Precision(
+                                  operand="float16", residual="float16"),
+                              stream=stream)
 
 
 @pytest.mark.parametrize("policy,want", [

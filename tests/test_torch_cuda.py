@@ -83,7 +83,10 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
                                    gap=gap)
     torch.cuda.synchronize()
     assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_fwd_bf16": 0,
-                        "direct_conv2d_dgrad": 0, "direct_conv2d_wgrad": 0}
+                        "direct_conv2d_dgrad": 0,
+                        "direct_conv2d_dgrad_bf16": 0,
+                        "direct_conv2d_wgrad": 0,
+                        "direct_conv2d_wgrad_bf16": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
 
@@ -495,16 +498,20 @@ def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
     torch.cuda.synchronize()
     # the first layer's dx is not needed: the images do not require grad
     assert LAUNCHES == {"direct_conv2d_fwd": 2, "direct_conv2d_fwd_bf16": 0,
-                        "direct_conv2d_dgrad": 1, "direct_conv2d_wgrad": 2}
+                        "direct_conv2d_dgrad": 1,
+                        "direct_conv2d_dgrad_bf16": 0,
+                        "direct_conv2d_wgrad": 2,
+                        "direct_conv2d_wgrad_bf16": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
 
 
 def test_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.core.precision import Precision
     x, w, b, _ = _operands(cuda, 1, 8, 8, 6, 8, 8, 1, False)
     with pytest.raises(NotImplementedError, match="f32 policy"):
         direct_conv2d_blocked(x, w.requires_grad_(), b, 1, "SAME",
-                              precision="bf16")
+                              precision=Precision(operand="float16"))
     w = w.detach()
     with pytest.raises(NotImplementedError, match="f32"):
         direct_conv2d_blocked(x.bfloat16(), w.bfloat16(), None, 1, "SAME")
@@ -796,7 +803,9 @@ def test_stream_kernels_match_plain_and_window(cuda, n, ci, co, h, cib, cob,
     assert stk.LAUNCHES == {"conv2d_stream_fwd": 1,
                             "conv2d_stream_fwd_bf16": 0,
                             "conv2d_stream_dgrad": 1,
-                            "conv2d_stream_wgrad": 2}
+                            "conv2d_stream_dgrad_bf16": 0,
+                            "conv2d_stream_wgrad": 2,
+                            "conv2d_stream_wgrad_bf16": 0}
     assert LAUNCHES["direct_conv2d_fwd"] == 1        # the window forward
     assert LAUNCHES["direct_conv2d_dgrad"] == 1      # the window dgrad
     assert LAUNCHES["direct_conv2d_wgrad"] == 0
@@ -834,7 +843,9 @@ def test_stream_context_trains_a_two_layer_model_on_the_stream_kernels(
             assert stk.LAUNCHES == {"conv2d_stream_fwd": 2,
                                     "conv2d_stream_fwd_bf16": 0,
                                     "conv2d_stream_dgrad": 1,
-                                    "conv2d_stream_wgrad": 2}
+                                    "conv2d_stream_dgrad_bf16": 0,
+                                    "conv2d_stream_wgrad": 2,
+                                    "conv2d_stream_wgrad_bf16": 0}
             assert all(v == 0 for v in LAUNCHES.values())
     for a, b in zip(*grads):
         torch.testing.assert_close(a, b, **TOL)
@@ -1228,6 +1239,9 @@ def test_fp16_policy_raises_on_cuda_and_launches_nothing(cuda, streamed,
 
 
 def test_bf16_policy_refuses_training_and_serves_a_narrow_cnn(cuda):
+    # training refuses a float16 policy (no backward build reads it) and,
+    # since the bf16 builds of the backward tiles, runs BF16 on them alone
+    from repro_torch.core.precision import Precision
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.serve.scheduler import ConvRequest, Outcome
     gen = torch.Generator().manual_seed(0)
@@ -1238,8 +1252,18 @@ def test_bf16_policy_refuses_training_and_serves_a_narrow_cnn(cuda):
     model = BlockedCNN(convs, 4, device=cuda, generator=gen)
     images = torch.randn((2, 12, 12, 3), device=cuda)
     ctx = ConvContext(precision="bf16")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        model(images, context=ctx)               # grad mode: training
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="f32 policy and BF16"):
+        model(images, context=ConvContext(precision=Precision(
+            operand="float16", residual="float16")))
+    assert not any(LAUNCHES.values())
+    model(images, context=ctx).float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "direct_conv2d_fwd_bf16": 2, "direct_conv2d_dgrad_bf16": 1,
+        "direct_conv2d_wgrad_bf16": 2}
+    assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
+               for p in model.parameters())
     reset_launches()
     with torch.no_grad():
         got = model(images, context=ctx)
@@ -1255,3 +1279,154 @@ def test_bf16_policy_refuses_training_and_serves_a_narrow_cnn(cuda):
         server.submit(req)
     server.run()
     assert all(req.outcome is Outcome.OK for req in reqs)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 builds of the dgrad and wgrad tiles (dgrad_tile.cuh and
+# wgrad_tile.cuh, namespace bf16) against their plain versions under BF16:
+# dx within one bf16 ulp of |dx| plus 1e-5 of max|dx| (both round f32 sums
+# of the same exact bf16 products once to bf16, in other orders); dw and db
+# against f64 sums of the same bf16 operands within WGRAD_REL of sum |x dz|
+# ---------------------------------------------------------------------------
+
+# (n, ci, co, h, cib, cob, stride, activation, padding)
+BF16_BWD_CASES = [
+    (2, 64, 64, 14, 64, 64, 1, "relu", "SAME"),
+    (2, 64, 128, 14, 64, 128, 2, "relu", "SAME"),
+    (2, 128, 128, 9, 128, 128, 1, "gelu", "SAME"),   # odd hi
+    (2, 128, 256, 11, 128, 128, 2, None, "SAME"),    # two Co blocks
+    (2, 256, 128, 7, 128, 128, 1, "relu", "SAME"),   # two Ci blocks
+    (2, 3, 64, 20, 3, 64, 2, "gelu", "SAME"),        # Cib = 3
+    (1, 8, 12, 10, 8, 12, 2, None, "VALID"),         # Cob 12: 4-byte copies
+    (2, 16, 6, 9, 16, 6, 1, "relu", "SAME"),         # Cob 6
+    (1, 64, 250, 14, 64, 125, 1, "relu", "SAME"),    # Cob 125: odd
+    (2, 12, 16, 9, 4, 16, 1, "gelu", "SAME"),        # Cib 4: 4-byte x copies
+]
+
+
+def _bf16_bwd_operands(dev, n, ci, co, h, cib, cob, stride, act, padding):
+    x, w, _, _ = _operands(dev, n, ci, co, h, cib, cob, stride, False)
+    x, w = x.bfloat16(), w.bfloat16()
+    z = direct_conv_blocked(x, w, stride, padding).contiguous()
+    g = torch.randn(z.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(7)).bfloat16()
+    return x, w, g, (None if act is None else z)
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         BF16_BWD_CASES)
+def test_bf16_dgrad_kernels_match_plain_version(cuda, n, ci, co, h, cib, cob,
+                                                stride, act, padding):
+    if ci == 3:
+        pytest.skip("the images' dx is never taken")
+    x, w, g, z = _bf16_bwd_operands(cuda, n, ci, co, h, cib, cob, stride, act,
+                                    padding)
+    want = direct_conv_dgrad_blocked(g, w, (h, h), stride, padding, z, act)
+    reset_launches()
+    stk.reset_launches()
+    for route in (False, True):
+        dx = direct_conv2d_dgrad(g, w, (h, h), stride, padding, z, act,
+                                 stream=route, precision="bf16")
+        again = direct_conv2d_dgrad(g, w, (h, h), stride, padding, z, act,
+                                    stream=route, precision="bf16")
+        torch.cuda.synchronize()
+        _bf16_close(dx, want)
+        assert torch.equal(dx, again)
+    assert LAUNCHES["direct_conv2d_dgrad_bf16"] == 2
+    assert stk.LAUNCHES["conv2d_stream_dgrad_bf16"] == 2
+    assert LAUNCHES["direct_conv2d_dgrad"] == stk.LAUNCHES[
+        "conv2d_stream_dgrad"] == 0
+    for streamed in (False, True):
+        kernel, model = dgrad_plans(g, w, (h, h), stride, padding, z, act,
+                                    streamed=streamed, dtype=torch.bfloat16)
+        assert kernel == model
+        assert kernel.issued_macs >= kernel.function_macs > 0
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         BF16_BWD_CASES)
+def test_bf16_wgrad_kernels_match_plain_version(cuda, n, ci, co, h, cib, cob,
+                                                stride, act, padding):
+    x, w, g, z = _bf16_bwd_operands(cuda, n, ci, co, h, cib, cob, stride, act,
+                                    padding)
+    dz = conv2d_common.cotangent_prologue(g, z, act)     # bf16, rounded
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), dz.double(), 3, 3, stride, padding, with_db=True)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), 3, 3, stride, padding,
+        with_db=True)
+    reset_launches()
+    stk.reset_launches()
+    for route in (False, True):
+        runs = [direct_conv2d_wgrad(x, g, 3, 3, stride, padding, z, act,
+                                    with_db=True, stream=route,
+                                    precision="bf16") for _ in range(2)]
+        torch.cuda.synchronize()
+        (dw, db), (dw2, db2) = runs
+        assert dw.dtype == db.dtype == torch.float32
+        assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+        assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+        assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert LAUNCHES["direct_conv2d_wgrad_bf16"] == 2
+    assert stk.LAUNCHES["conv2d_stream_wgrad_bf16"] == 2
+    assert LAUNCHES["direct_conv2d_wgrad"] == stk.LAUNCHES[
+        "conv2d_stream_wgrad"] == 0
+    for streamed in (False, True):
+        kernel, model = wgrad_plans(x, g, 3, 3, stride, padding, z, act,
+                                    streamed=streamed, dtype=torch.bfloat16)
+        assert kernel == model
+        assert kernel.issued_macs >= kernel.function_macs > 0
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_bf16_folded_wgrad_sums_its_workspace_in_order(cuda, streamed):
+    n, ci, co, h, cib, cob, s = ((8, 128, 128, 28, 128, 128, 2) if streamed
+                                 else (8, 64, 64, 56, 64, 64, 1))
+    x, w, g, z = _bf16_bwd_operands(cuda, n, ci, co, h, cib, cob, s, "relu",
+                                    "SAME")
+
+    def launch():
+        if streamed:
+            return stk.stream_wgrad_partials(x, g, 3, 3, s, "SAME", z,
+                                             "relu", True, precision="bf16")
+        return wgrad_partials(x, g, 3, 3, s, "SAME", z, "relu", True,
+                              precision="bf16")
+    runs = [launch(), launch(), _graph_replay(launch)]
+    torch.cuda.synchronize()
+    for ws, out in runs:
+        assert ws.shape[0] > 1
+        assert torch.equal(out, conv2d_common.wgrad_reduce(ws))
+    assert torch.equal(runs[0][1], runs[1][1])
+    assert torch.equal(runs[0][1], runs[2][1])
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_bf16_training_step_matches_the_plain_path(cuda, streamed):
+    # a gelu + residual + GAP conv at stride 2 on Cib = 3 and a 64-lane
+    # conv, both under BF16, against autograd of the same function on the
+    # CPU's plain versions: the bf16 builds alone launch
+    gen = torch.Generator().manual_seed(3)
+    convs = [BlockedConv2D(3, 64, stride=2, activation="gelu", device=cuda,
+                           generator=gen),
+             BlockedConv2D(64, 64, stride=1, device=cuda, generator=gen)]
+    model = BlockedCNN(convs, 10, device=cuda, generator=gen)
+    images = torch.randn((2, 20, 20, 3), device=cuda)
+    ctx = ConvContext(precision="bf16", stream=streamed)
+    reset_launches()
+    stk.reset_launches()
+    model(images, context=ctx).float().square().sum().backward()
+    torch.cuda.synchronize()
+    got = [p.grad.clone() for p in model.parameters()]
+    pre = "conv2d_stream" if streamed else "direct_conv2d"
+    launched = {k: v for k, v in {**LAUNCHES, **stk.LAUNCHES}.items() if v}
+    assert launched == {f"{pre}_fwd_bf16": 2, f"{pre}_dgrad_bf16": 1,
+                        f"{pre}_wgrad_bf16": 2}
+    cpu = model.cpu()
+    for p in cpu.parameters():
+        p.grad = None
+    cpu(images.cpu(), context=ctx).float().square().sum().backward()
+    for a, p in zip(got, cpu.parameters()):
+        scale = p.grad.abs().max().item()
+        torch.testing.assert_close(a.cpu(), p.grad, rtol=0.0,
+                                   atol=3e-2 * scale)

@@ -18,6 +18,7 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                _require,
                                                direct_conv2d_blocked)
 from repro_torch.nn.conv import BlockedConv2D  # noqa: E402
+from repro_torch.core.precision import Precision  # noqa: E402
 
 TOL = {"rtol": 1e-5, "atol": 1e-5}
 
@@ -390,4 +391,4 @@ def test_backward_wrappers_reject_mismatched_operands():
         direct_conv2d_wgrad(_t(x), g[:, :, :5], 3, 3, 1, "SAME")
     with pytest.raises(NotImplementedError, match="f32 policy"):
         direct_conv2d_blocked(_t(x), _t(wt).requires_grad_(), _t(b), 1,
-                              "SAME", precision="bf16")
+                              "SAME", precision=Precision(operand="float16"))

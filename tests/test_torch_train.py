@@ -286,9 +286,15 @@ def test_params_to_numpy_inverts_params_from_jax():
 
 
 def test_train_conv_runs_on_the_cpu_when_asked(capsys):
-    assert train_conv.main(["--device", "cpu", "--steps", "3"]) == 0
-    out = capsys.readouterr().out
-    assert "[dense/cpu] step 3:" in out and "fused inference path" in out
+    for dtype, tag in (("f32", "dense/cpu"), ("bf16", "dense/cpu/bf16")):
+        assert train_conv.main(["--device", "cpu", "--steps", "3",
+                                "--dtype", dtype]) == 0
+        out = capsys.readouterr().out
+        assert f"[{tag}] step 3:" in out and "fused inference path" in out
+    # the separable model has no bf16 backward builds yet
+    with pytest.raises(NotImplementedError):
+        train_conv.main(["--device", "cpu", "--steps", "1", "--model",
+                         "separable", "--dtype", "bf16"])
 
 
 # ---------------------------------------------------------------------------

@@ -435,12 +435,13 @@ def test_wgrad_parts_ab_edits_apply_to_the_header():
     # taken out by editing csrc/wgrad_tile.cuh: each edit must still find
     # its text, once
     from repro_torch.kernels._build import CSRC
-    from repro_torch.launch.wgrad_parts_ab import VARIANTS
+    from repro_torch.launch.wgrad_parts_ab import BF16_VARIANTS, VARIANTS
     text = (CSRC / "wgrad_tile.cuh").read_text()
-    assert VARIANTS["whole"] == ()
-    for name, edits in VARIANTS.items():
-        for old, _ in edits:
-            assert text.count(old) == 1, (name, old)
+    for variants in (VARIANTS, BF16_VARIANTS):
+        assert variants["whole"] == ()
+        for name, edits in variants.items():
+            for old, _ in edits:
+                assert text.count(old) == 1, (name, old)
 
 
 # ---------------------------------------------------------------------------
