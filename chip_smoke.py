@@ -13,15 +13,18 @@ and no phase catches its own failure:
    and the count of ``HGMMA`` (wgmma) instructions in each function of the
    flash-attention library's SASS where the toolkit has ``cuobjdump``: the
    bf16 kernel and the f32 tensor-core kernel (``flash_fwd_tf32``) must
-   have some, and every instance of the latter and of the depthwise wgrad
-   (``depthwise_wgrad_kernel``) spill nothing; each instance of the two
+   have some, and every instance of the latter, of the depthwise wgrad
+   (``depthwise_wgrad_kernel``, its bf16 build included) and of the
+   depthwise forward's and dgrad's bf16 builds spill nothing; each
+   instance of the two
    phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
    spill nothing, and each instance of the two wgrad kernels
    (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
    ``stream_fwd_kernel``, on ``csrc/fwd_tile.cuh``) and of the pointwise
-   forward's tile (``pointwise_tile_kernel``) HGMMA (wgmma) instructions
-   and no spill (the pointwise dgrad and wgrad run the dense dgrad's
+   forward's tile (``pointwise_tile_kernel``, its bf16 build included)
+   HGMMA (wgmma) instructions and no spill (the pointwise dgrad and wgrad
+   run the dense dgrad's
    ``dgrad_kernel`` and wgrad's ``wgrad_kernel`` at 1x1);
 3. hold each kernel against its plain PyTorch version on the card: every
    distinct VGG-16 layer shape at batch 8 that the 224x224 and 160x160
@@ -226,7 +229,30 @@ and no phase catches its own failure:
     layer and summed times (eager, CUDA graph, plain, cuDNN's
     ``convolution_backward`` in bf16 channels-last, the bound at 989e12
     against the bf16 bytes), the bf16 train steps beside the f32 one, and
-    peak memory beside ``memory_model.bytes_precision_split``.
+    peak memory beside ``memory_model.bytes_precision_split``;
+24. MobileNet v1 in bf16: the separable family's bf16 builds
+    (``pointwise_tile_kernel_bf16``, ``depthwise_{fwd,dgrad,wgrad}_
+    kernel_bf16``, and the dense ``dgrad_kernel_bf16`` and
+    ``wgrad_kernel_bf16`` at 1x1 for the pointwise backward) against
+    their plain versions under ``BF16``: the forwards at batch 8 at every
+    MobileNet shape of both buckets (the last pointwise leg with its GAP
+    folded, bit for bit its finalize; gelu, a residual and GAP at Cb 3, 6
+    and 8), the backwards at batch 32 at every shape of the 224 bucket and
+    on the depthwise tap loop's paths (dilation 2, stride 3, 5x5, Cb 3, a
+    pencil of 6, pads (1, 1) and (0, 1)), with phase 23's tolerances, two
+    runs bit for bit and the folded sums bit for bit their reduce; the
+    pointwise backward's plans equal the blocking model's, and each C
+    entry refuses a plan whose shared memory is not its kernel's; fp16
+    refused; the last main paths: MobileNet v1 (phase 11's weights)
+    served in bf16 through ``ConvServer``, 24 requests each OK with only
+    bf16 forwards launched, the logits within twice the bf16 plain
+    forward's distance from the f32 plain logits; the whole forward in
+    bf16 beside f32; MobileNet v1 trained in bf16, 3 AdamW steps at batch
+    32, held to phase 23's rules (``bf16_trainers``); per-leg and summed
+    times (eager, CUDA graph, plain, cuDNN bf16 channels-last eager and
+    graph, the bound at 989e12 against the bf16 bytes); the bf16 step
+    beside the f32 step; peak memory beside
+    ``memory_model.bytes_precision_split``.
 
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
@@ -690,7 +716,7 @@ def check_gap(label: str, launch, hw: int, other) -> None:
     from repro_torch.core import conv2d_common
     from repro_torch.kernels import split_sum
     pooled, parts = launch
-    want = conv2d_common.gap_finalize(parts, hw)
+    want = conv2d_common.gap_finalize(parts, hw).to(pooled.dtype)
     torch.cuda.synchronize()
     if not (torch.equal(pooled, want) and torch.equal(pooled, other)):
         fail(f"{label}: the folded GAP differs from the in-order finalize "
@@ -981,12 +1007,42 @@ def step_peak_bytes(tr):
     return torch.cuda.max_memory_allocated() - other, p_bytes
 
 
+def nchw(t):
+    """A blocked map ``[N, C/Cb, H, W, Cb]`` as the library's NCHW."""
+    b_, cblk, hh, ww, cb = t.shape
+    return t.permute(0, 1, 4, 2, 3).reshape(b_, cblk * cb, hh, ww)
+
+
+def oihw(w, groups):
+    """A blocked 3x3 depthwise (``groups > 1``: ``[C/Cb, 1, 3, 3, 1, Cb]``)
+    or dense weight as the library's OIHW."""
+    if groups > 1:
+        return w.permute(0, 5, 1, 2, 3, 4).reshape(-1, 1, 3, 3)
+    return w.permute(0, 5, 1, 4, 2, 3).reshape(
+        w.shape[0] * w.shape[5], w.shape[1] * w.shape[4], w.shape[2],
+        w.shape[3])
+
+
+def mobilenet_blocks(entry: int):
+    """(ci, co, stride, h) of MobileNet v1's 13 blocks at an ``entry``-pixel
+    input: h the depthwise leg's input extent."""
+    from repro_torch.configs.cnn import MOBILENET_V1_BLOCKS, MOBILENET_V1_CONV1
+    from repro_torch.core.convspec import ConvSpec
+    h = ConvSpec.make(1, entry, entry, *MOBILENET_V1_CONV1[:2], 3, 3,
+                      MOBILENET_V1_CONV1[2], "SAME").ho
+    out = []
+    for ci, co, s in MOBILENET_V1_BLOCKS:
+        out.append((ci, co, s, h))
+        h = -(-h // s)
+    return out
+
+
 def mobilenet_phases(args, dev, t_start):
     """Phases 10-14: the separable family and MobileNet v1.  -> (the new
     kernels' entries of the ``{"kernels": [...]}`` line, the launches of
-    MobileNet's two main-path runs, serving and training, per kernel)."""
-    from repro_torch.configs.cnn import (MOBILENET_V1_BLOCKS,
-                                         MOBILENET_V1_CONV1,
+    MobileNet's two main-path runs, serving and training, per kernel, the
+    served model)."""
+    from repro_torch.configs.cnn import (MOBILENET_V1_CONV1,
                                          mobilenet_v1_blocked)
     from repro_torch.core import conv2d_common
     from repro_torch.core.blocking import (choose_depthwise_wgrad_blocking,
@@ -1011,17 +1067,6 @@ def mobilenet_phases(args, dev, t_start):
         print(f"[time] phase {phase} done at "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    def blocks(entry):
-        """(ci, co, stride, h) of the 13 blocks: h the depthwise leg's
-        input extent."""
-        h = ConvSpec.make(1, entry, entry, *MOBILENET_V1_CONV1[:2], 3, 3,
-                          MOBILENET_V1_CONV1[2], "SAME").ho
-        out = []
-        for ci, co, s in MOBILENET_V1_BLOCKS:
-            out.append((ci, co, s, h))
-            h = -(-h // s)
-        return out
-
     def dw_operands(n, c, h, s, dil=1, cb=None, residual=False):
         cb = cb or min(c, 128)
         x = torch.randn((n, c // cb, h, h, cb), device=dev, generator=gen)
@@ -1044,15 +1089,18 @@ def mobilenet_phases(args, dev, t_start):
                          generator=gen) if residual else None)
         return x, w, b, r
 
-    err = {k: 0.0 for k in pwk.LAUNCHES} | {k: 0.0 for k in dwk.LAUNCHES}
+    # the f32 kernels' names (phase 24 holds the bf16 builds)
+    f32_names = [k for mod in (pwk, dwk) for k in mod.LAUNCHES
+                 if not k.endswith("_bf16")]
+    err = {k: 0.0 for k in f32_names}
 
     def track(kernel, value):
         err[kernel] = max(err[kernel], value)
 
     # -- 10. the new forward kernels vs their plain versions ----------------
-    served_blocks = [b for bh, _ in BUCKETS for b in blocks(bh)]
+    served_blocks = [b for bh, _ in BUCKETS for b in mobilenet_blocks(bh)]
     last_pw = {(ci, co, -(-h // s)) for ci, co, s, h in
-               (blocks(bh)[-1] for bh, _ in BUCKETS)}
+               (mobilenet_blocks(bh)[-1] for bh, _ in BUCKETS)}
     dw_shapes = sorted({(ci, s, h) for ci, _, s, h in served_blocks})
     pw_shapes = sorted({(ci, co, -(-h // s)) for ci, co, s, h in
                         served_blocks})
@@ -1180,7 +1228,7 @@ def mobilenet_phases(args, dev, t_start):
     stamp(11)
 
     # -- 12. the new backward kernels vs their plain versions ----------------
-    train_blocks = blocks(ENTRY)
+    train_blocks = mobilenet_blocks(ENTRY)
     n = MB_TRAIN_BATCH
     bwd = {}          # per distinct leg: the operands phase 14 times
     for c, s, h in sorted({(ci, s, h) for ci, _, s, h in train_blocks}):
@@ -1348,17 +1396,6 @@ def mobilenet_phases(args, dev, t_start):
     stamp(13)
 
     # -- 14. times: per leg, the step, the forward; peak memory --------------
-    def nchw(t):
-        b_, cblk, hh, ww, cb = t.shape
-        return t.permute(0, 1, 4, 2, 3).reshape(b_, cblk * cb, hh, ww)
-
-    def oihw(w, groups):
-        if groups > 1:       # [C/Cb, 1, 3, 3, 1, Cb] -> [C, 1, 3, 3]
-            return w.permute(0, 5, 1, 2, 3, 4).reshape(-1, 1, 3, 3)
-        return w.permute(0, 5, 1, 4, 2, 3).reshape(
-            w.shape[0] * w.shape[5], w.shape[1] * w.shape[4], w.shape[2],
-            w.shape[3])
-
     fwd_rows, bwd_rows = {}, {}
     device = {}       # per leg and kind: the kernel's time in a CUDA graph
     lib_device = {}   # the library call's, likewise
@@ -1379,7 +1416,7 @@ def mobilenet_phases(args, dev, t_start):
 
     with torch.no_grad():
         for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
-                               blocks(ENTRY)}):
+                               mobilenet_blocks(ENTRY)}):
             x, w, b, _, spec = dw_operands(MB_BATCH, c, h, s)
             (pt, pb), (pl, pr) = spec.pads
             xp = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous()
@@ -1398,7 +1435,7 @@ def mobilenet_phases(args, dev, t_start):
                                           + MB_BATCH * c * spec.ho
                                           * spec.wo)))
         for ci, co, h in sorted({(ci, co, -(-h // s)) for ci, co, s, h in
-                                 blocks(ENTRY)}):
+                                 mobilenet_blocks(ENTRY)}):
             gap = (ci, co, h) == (1024, 1024, 7)
             x, w, b, _ = pw_operands(MB_BATCH, ci, co, h)
             xl, wl, bl = nchw(x).contiguous(), oihw(w, 1).contiguous(), \
@@ -1461,10 +1498,11 @@ def mobilenet_phases(args, dev, t_start):
                 flops, 4 * (2 * g.numel() + w.numel() + x.numel()))
             # the dgrad runs the dense dgrad's tile at 1x1: its kernel
             # library's own plan must be the blocking model's
-            plan, model = dgrad_plans(g, w, (h, h), 1, "VALID", z, "relu")
-            if plan != model:
+            plan, model_plan = dgrad_plans(g, w, (h, h), 1, "VALID", z,
+                                           "relu")
+            if plan != model_plan:
                 fail(f"pw dgrad {ci}->{co} {h}x{h}: the kernel's plan {plan} "
-                     f"!= the blocking model's {model}")
+                     f"!= the blocking model's {model_plan}")
             issued[key + ("dgrad",)] = (plan.issued_macs, plan.function_macs)
             # the wgrad runs the dense wgrad's tile at 1x1, likewise
             wplan, wmodel = wgrad_plans(x, g, 1, 1, 1, "VALID", z, "relu")
@@ -1514,8 +1552,7 @@ def mobilenet_phases(args, dev, t_start):
         del dz, dzl
 
     # sums over the 13 legs of each kind, in the network's order
-    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in pwk.LAUNCHES} | \
-        {k: [0.0, 0.0, 0.0, 0.0] for k in dwk.LAUNCHES}
+    sums = {k: [0.0, 0.0, 0.0, 0.0] for k in f32_names}
     device_sums = {k: 0.0 for k in sums}
     lib_sums = {k: 0.0 for k in sums}
     host_sums = {k: 0.0 for k in sums}
@@ -1523,7 +1560,7 @@ def mobilenet_phases(args, dev, t_start):
     dw_taps_sum = [0, 0]
     f32_sums = {k: 0.0 for k in sums}
     kinds = {k: [] for k in sums}
-    for i, (ci, co, s, h) in enumerate(blocks(ENTRY)):
+    for i, (ci, co, s, h) in enumerate(mobilenet_blocks(ENTRY)):
         ho = -(-h // s)
         legs = (("dw", ("dw", ci, s, h), "conv2d_depthwise", ci, h, s),
                 ("pw", ("pw", ci, co, ho), "conv2d_pointwise", co, ho, 1))
@@ -1612,7 +1649,7 @@ def mobilenet_phases(args, dev, t_start):
     ws_max = 4 * choose_wgrad_blocking(n, h0, h0, 3, 3, s0, 1, ci0, 1,
                                        co0, prologue=True).splits * (
         9 * ci0 * co0 + co0)
-    for ci, co, s, h in blocks(ENTRY):
+    for ci, co, s, h in mobilenet_blocks(ENTRY):
         ho = -(-h // s)
         cb, cob = min(ci, 128), min(co, 128)
         # depthwise leg: x and z; pointwise leg: its x and z
@@ -1648,7 +1685,7 @@ def mobilenet_phases(args, dev, t_start):
             "bound_ms": b_ms, "bound_by": mostly(kinds[name]),
             "library_ms": l_ms})
     counts = {k: served[k] + trained[k] for k in served}
-    return entries, counts
+    return entries, counts, model
 
 
 def stream_phases(args, dev, t_start):
@@ -3247,6 +3284,172 @@ def bf16_phases(args, dev, t_start, model):
     return entries, counts
 
 
+def bf16_trainers(model, n, seed, runs_spec, dev):
+    """Phase 23's and 24's bf16 training check.  ``model`` (f32 masters)
+    trained 3 AdamW steps (cosine, peak ``TRAIN_LR``) at batch ``n`` on
+    ``ENTRY``-pixel images drawn from ``seed``: by an f32 plain trainer
+    (autograd through the plain forward), by a plain bf16 trainer (the same
+    training path on the plain versions, a CPU copy of the model: the
+    wrappers take their plain versions for CPU tensors, so that only the
+    order of the f32 sums differs from the kernels; with its own rounding
+    points a plain path ends ~15 % from the f32 gradients at VGG-16's
+    conv1_2, and so ~15 % from the kernels as well), and by a kernel trainer
+    for each ``(tag, context, launches of one step)`` of ``runs_spec``.
+    Each kernel trainer must launch those builds, its step-1 loss be within
+    1e-2 of the plain bf16 path's, each gradient within ``BF16_TOL`` of its
+    max of the plain bf16 path's (or twice that path's own max distance
+    from the f32 gradient, where that is larger) and no further from the
+    f32 gradients (relative L2) than twice the plain bf16 path; after 3
+    steps no more elements off the f32 trainer's by ``PARAM_STEP`` of the
+    summed learning rate than twice the plain bf16 trainer's, none off the
+    plain bf16 trainer's by more than 2.1 times it.  -> (the launches of
+    the kernel trainers' steps, [(step, state, model) a run], the batches,
+    the learning-rate schedule)."""
+    from repro_torch.core.context import ConvContext
+    from repro_torch.train.losses import cross_entropy
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainstep import make_train_step
+
+    rng = np.random.default_rng(seed)
+    batches = [
+        {"images": torch.from_numpy(rng.standard_normal(
+            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+         "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
+        for _ in range(3)]
+    lr = cosine_schedule(TRAIN_LR, 1, 3)
+    lr_sum = sum(lr(t) for t in (1, 2, 3))
+
+    def rel(a, b):
+        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+
+    # the f32 plain trainer: autograd through the plain forward, 3 steps
+    # (the f32 reference of the gradient and drift rules)
+    f32m = copy.deepcopy(model)
+    fopt = AdamW(lr=lr)
+    fparams = dict(f32m.named_parameters())
+    fstate = fopt.init(fparams)
+    for i, bt in enumerate(batches):
+        for p in fparams.values():
+            p.grad = None
+        logits = plain_cnn_forward(bt["images"], f32m)
+        loss, _ = cross_entropy(logits[:, None, :], bt["targets"][:, None],
+                                1000)
+        loss.backward()
+        if i == 0:
+            f32_loss = loss.detach()
+            f32_grads = {k: p.grad.clone() for k, p in fparams.items()}
+        fopt.update({k: p.grad for k, p in fparams.items()}, fstate,
+                    fparams)
+    f32_params = {k: p.detach().clone() for k, p in fparams.items()}
+    del f32m, fparams, fstate, logits, loss
+
+    def off(params, ref):
+        """Elements of ``params`` more than PARAM_STEP of the summed
+        learning rate from ``ref``'s, and the largest difference."""
+        n_off, worst = 0, 0.0
+        for k, v in params.items():
+            d = (v - ref[k]).abs()
+            n_off += int((d > PARAM_STEP * lr_sum).sum())
+            worst = max(worst, d.max().item())
+        return n_off, worst
+    # the plain bf16 trainer, 3 steps on the CPU
+    t0 = time.perf_counter()
+    pm = copy.deepcopy(model).cpu()
+    popt = AdamW(lr=lr)
+    pstate = popt.init(dict(pm.named_parameters()))
+    pstep = make_train_step(pm, popt, context=ConvContext(precision="bf16"))
+    plain_losses = []
+    for i, bt in enumerate(batches):
+        loss, _ = pstep(pstate, {k: v.cpu() for k, v in bt.items()})
+        plain_losses.append(loss.item())
+        if i == 0:
+            pgrads = {k: p.grad.to(dev) for k, p in pm.named_parameters()}
+    pparams = {k: p.detach().to(dev) for k, p in pm.named_parameters()}
+    n_el = sum(v.numel() for v in pparams.values())
+    del pm, pstate
+    plain_far, _ = off(pparams, f32_params)
+    print(f"[bf16-train] the plain bf16 trainer (the training path on the "
+          f"plain versions, on the CPU): 3 steps in "
+          f"{time.perf_counter() - t0:.1f} s, losses {plain_losses}; after "
+          f"3 steps {plain_far} of {n_el} elements more than {PARAM_STEP:g}"
+          f" * sum(lr)={lr_sum:g} from the f32 plain trainer's")
+    counts, runs = {}, []
+    for tag, ctx, want_step in runs_spec:
+        km = copy.deepcopy(model)
+        opt = AdamW(lr=lr)
+        kstate = opt.init(dict(km.named_parameters()))
+        step = make_train_step(km, opt, context=ctx)
+        reset_all_launches()
+        losses = []
+        for i, bt in enumerate(batches):
+            loss, _ = step(kstate, bt)
+            torch.cuda.synchronize()
+            losses.append(loss.item())
+            if i > 0:
+                continue
+            per_step = {k: v for k, v in all_launches().items() if v}
+            print(f"[{tag}] launches in one step: {per_step}")
+            if per_step != want_step:
+                fail(f"a bf16 train step launched {per_step}, expected "
+                     f"{want_step}")
+            if not abs(losses[0] - plain_losses[0]) <= 1e-2 * abs(
+                    plain_losses[0]):
+                fail(f"bf16 step-1 loss {losses[0]} not within 1e-2 of the "
+                     f"plain bf16 path's {plain_losses[0]}")
+            worst, over, far, noisy = 0.0, [], [], 0
+            for k, p in km.named_parameters():
+                pg, kg, fg = pgrads[k], p.grad, f32_grads[k]
+                e = (kg - pg).abs().max().item() / pg.abs().max().item()
+                noise = (pg - fg).abs().max().item() / fg.abs().max().item()
+                worst = max(worst, e)
+                # where the plain bf16 path's own rounding noise passes
+                # BF16_TOL of max (the early layers of a random VGG-16:
+                # ~15 % from f32), twice that noise
+                tol = max(BF16_TOL, 2 * noise)
+                noisy += tol > BF16_TOL
+                if not e <= tol:
+                    over.append((k, e, tol))
+                dk, dp = rel(kg, fg), rel(pg, fg)
+                print(f"[{tag}] step-1 grad {k}: max err vs plain bf16 / "
+                      f"max {e:.2e} (tol {tol:.2e}; the plain bf16 path's "
+                      f"max err vs f32 / max {noise:.2e}); |kernel - f32| / "
+                      f"|f32| {dk:.3e}, |plain bf16 - f32| / |f32| {dp:.3e}")
+                if not dk <= 2 * dp:
+                    far.append((k, dk, dp))
+            print(f"[{tag}] step-1 loss {losses[0]:.6f}, plain bf16 "
+                  f"{plain_losses[0]:.6f}, f32 plain {f32_loss.item():.6f}; "
+                  f"worst gradient err {worst:.2e} of its max (tol "
+                  f"{BF16_TOL:g}, or twice the plain bf16 path's own max "
+                  f"err vs f32 at {noisy} of {len(pgrads)} tensors); "
+                  f"gradients no further from the f32 ones than twice the "
+                  f"plain bf16 path's: {not far}")
+            if over:
+                fail(f"bf16 step-1 gradients beyond their tolerance: {over}")
+            if far:
+                fail(f"bf16 gradients further from the f32 plain ones than "
+                     f"twice the bf16 plain path: {far}")
+        counts.update({k: v for k, v in all_launches().items() if v})
+        kparams = {k: p.detach() for k, p in km.named_parameters()}
+        far, worst = off(kparams, pparams)
+        far32, _ = off(kparams, f32_params)
+        print(f"[{tag}] n{n} {ENTRY}x{ENTRY}: losses {losses}, plain "
+              f"bf16 {plain_losses}; after 3 steps {far} of {n_el} elements "
+              f"differ from the plain bf16 trainer by more than "
+              f"{PARAM_STEP:g} * sum(lr)={lr_sum:g} (largest {worst:.3e}), "
+              f"{far32} from the f32 plain trainer's (tol: twice the plain "
+              f"bf16 trainer's {plain_far}, and none from the plain bf16 "
+              f"trainer's by more than 2.1 * sum(lr))")
+        if any(not np.isfinite(v) for v in losses):
+            fail("non-finite bf16 loss")
+        if far32 > 2 * plain_far or worst > 2.1 * lr_sum:
+            fail("the bf16 kernel trainer drifted from the f32 trainer "
+                 "further than twice the plain bf16 trainer")
+        runs.append((step, kstate, km))
+    del pgrads, pparams, f32_grads, f32_params, kparams
+    torch.cuda.empty_cache()
+    return counts, runs, batches, lr
+
+
 def bf16_train_phases(args, dev, t_start, model, smi):
     """Phase 23: the bf16 builds of the dgrad and wgrad tiles on both
     routes against their plain versions under ``BF16``, the autograd path
@@ -3268,8 +3471,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
                                                    dgrad_plans, split_wgrad,
                                                    wgrad_partials,
                                                    wgrad_plans)
-    from repro_torch.train.losses import cross_entropy
-    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.optimizer import AdamW
     from repro_torch.train.trainstep import make_train_step
 
     bf = torch.bfloat16
@@ -3484,155 +3686,16 @@ def bf16_train_phases(args, dev, t_start, model, smi):
     print(f"[time] phase 23(a) done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 23(b) VGG-16 trained in bf16, window then streamed ------------------
-    # The plain bf16 trainer is the same training path on the plain
-    # versions (a CPU copy of the model: the wrappers take their plain
-    # versions for CPU tensors), so that only the order of the f32 sums
-    # differs from the kernels: with its own rounding points (a bf16 forward
-    # differentiated by autograd) a plain path ends ~15 % from the f32
-    # gradients at conv1_2, and so ~15 % from the kernels as well.
-    rng = np.random.default_rng(args.seed + 50)
-    batches = [
-        {"images": torch.from_numpy(rng.standard_normal(
-            (BATCH, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
-         "targets": torch.from_numpy(rng.integers(0, 1000, BATCH)).to(dev)}
-        for _ in range(3)]
-    lr = cosine_schedule(TRAIN_LR, 1, 3)
-    lr_sum = sum(lr(t) for t in (1, 2, 3))
-    bf16_ctx = ConvContext(precision="bf16")
-
-    def rel(a, b):
-        return ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
-
-    # the f32 plain trainer: autograd through the plain forward, 3 steps
-    # (the f32 reference of the gradient and drift rules)
-    f32m = copy.deepcopy(model)
-    fopt = AdamW(lr=lr)
-    fparams = dict(f32m.named_parameters())
-    fstate = fopt.init(fparams)
-    for i, bt in enumerate(batches):
-        for p in fparams.values():
-            p.grad = None
-        logits = plain_cnn_forward(bt["images"], f32m)
-        loss, _ = cross_entropy(logits[:, None, :], bt["targets"][:, None],
-                                1000)
-        loss.backward()
-        if i == 0:
-            f32_loss = loss.detach()
-            f32_grads = {k: p.grad.clone() for k, p in fparams.items()}
-        fopt.update({k: p.grad for k, p in fparams.items()}, fstate,
-                    fparams)
-    f32_params = {k: p.detach().clone() for k, p in fparams.items()}
-    del f32m, fparams, fstate, logits, loss
-
-    def off(params, ref):
-        """Elements of ``params`` more than PARAM_STEP of the summed
-        learning rate from ``ref``'s, and the largest difference."""
-        n, worst = 0, 0.0
-        for k, v in params.items():
-            d = (v - ref[k]).abs()
-            n += int((d > PARAM_STEP * lr_sum).sum())
-            worst = max(worst, d.max().item())
-        return n, worst
-    # the plain bf16 trainer, 3 steps on the CPU
-    t0 = time.perf_counter()
-    pm = copy.deepcopy(model).cpu()
-    popt = AdamW(lr=lr)
-    pstate = popt.init(dict(pm.named_parameters()))
-    pstep = make_train_step(pm, popt, context=bf16_ctx)
-    plain_losses = []
-    for i, bt in enumerate(batches):
-        loss, _ = pstep(pstate, {k: v.cpu() for k, v in bt.items()})
-        plain_losses.append(loss.item())
-        if i == 0:
-            pgrads = {k: p.grad.to(dev) for k, p in pm.named_parameters()}
-    pparams = {k: p.detach().to(dev) for k, p in pm.named_parameters()}
-    n_el = sum(v.numel() for v in pparams.values())
-    del pm, pstate
-    plain_far, _ = off(pparams, f32_params)
-    print(f"[bf16-train] the plain bf16 trainer (the training path on the "
-          f"plain versions, on the CPU): 3 steps in "
-          f"{time.perf_counter() - t0:.1f} s, losses {plain_losses}; after "
-          f"3 steps {plain_far} of {n_el} elements more than {PARAM_STEP:g}"
-          f" * sum(lr)={lr_sum:g} from the f32 plain trainer's")
-    counts, runs = {}, {}
+    runs_spec = []
     for streamed in (False, True):
-        ctx = ConvContext(precision="bf16", stream=streamed)
-        km = copy.deepcopy(model)
-        opt = AdamW(lr=lr)
-        kstate = opt.init(dict(km.named_parameters()))
-        step = make_train_step(km, opt, context=ctx)
-        tag = f"bf16-train {route(streamed)}"
-        reset_all_launches()
-        losses = []
-        for i, bt in enumerate(batches):
-            loss, _ = step(kstate, bt)
-            torch.cuda.synchronize()
-            losses.append(loss.item())
-            if i > 0:
-                continue
-            per_step = {k: v for k, v in all_launches().items() if v}
-            pre = "conv2d_stream" if streamed else "direct_conv2d"
-            want_step = {f"{pre}_fwd_bf16": 13, f"{pre}_dgrad_bf16": 12,
-                         f"{pre}_wgrad_bf16": 13}
-            print(f"[{tag}] launches in one step: {per_step}")
-            if per_step != want_step:
-                fail(f"a bf16 train step launched {per_step}, expected "
-                     f"{want_step}")
-            if not abs(losses[0] - plain_losses[0]) <= 1e-2 * abs(
-                    plain_losses[0]):
-                fail(f"bf16 step-1 loss {losses[0]} not within 1e-2 of the "
-                     f"plain bf16 path's {plain_losses[0]}")
-            worst, over, far, noisy = 0.0, [], [], 0
-            for k, p in km.named_parameters():
-                pg, kg, fg = pgrads[k], p.grad, f32_grads[k]
-                e = (kg - pg).abs().max().item() / pg.abs().max().item()
-                noise = (pg - fg).abs().max().item() / fg.abs().max().item()
-                worst = max(worst, e)
-                # where the plain bf16 path's own rounding noise passes
-                # BF16_TOL of max (the early layers of this random VGG-16:
-                # ~15 % from f32), twice that noise
-                tol = max(BF16_TOL, 2 * noise)
-                noisy += tol > BF16_TOL
-                if not e <= tol:
-                    over.append((k, e, tol))
-                dk, dp = rel(kg, fg), rel(pg, fg)
-                print(f"[{tag}] step-1 grad {k}: max err vs plain bf16 / "
-                      f"max {e:.2e} (tol {tol:.2e}; the plain bf16 path's "
-                      f"max err vs f32 / max {noise:.2e}); |kernel - f32| / "
-                      f"|f32| {dk:.3e}, |plain bf16 - f32| / |f32| {dp:.3e}")
-                if not dk <= 2 * dp:
-                    far.append((k, dk, dp))
-            print(f"[{tag}] step-1 loss {losses[0]:.6f}, plain bf16 "
-                  f"{plain_losses[0]:.6f}, f32 plain {f32_loss.item():.6f}; "
-                  f"worst gradient err {worst:.2e} of its max (tol "
-                  f"{BF16_TOL:g}, or twice the plain bf16 path's own max "
-                  f"err vs f32 at {noisy} of {len(pgrads)} tensors); "
-                  f"gradients no further from the f32 ones than twice the "
-                  f"plain bf16 path's: {not far}")
-            if over:
-                fail(f"bf16 step-1 gradients beyond their tolerance: {over}")
-            if far:
-                fail(f"bf16 gradients further from the f32 plain ones than "
-                     f"twice the bf16 plain path: {far}")
-        counts.update({k: v for k, v in all_launches().items() if v})
-        kparams = {k: p.detach() for k, p in km.named_parameters()}
-        far, worst = off(kparams, pparams)
-        far32, _ = off(kparams, f32_params)
-        print(f"[{tag}] n{BATCH} {ENTRY}x{ENTRY}: losses {losses}, plain "
-              f"bf16 {plain_losses}; after 3 steps {far} of {n_el} elements "
-              f"differ from the plain bf16 trainer by more than "
-              f"{PARAM_STEP:g} * sum(lr)={lr_sum:g} (largest {worst:.3e}), "
-              f"{far32} from the f32 plain trainer's (tol: twice the plain "
-              f"bf16 trainer's {plain_far}, and none from the plain bf16 "
-              f"trainer's by more than 2.1 * sum(lr))")
-        if any(not np.isfinite(v) for v in losses):
-            fail("non-finite bf16 loss")
-        if far32 > 2 * plain_far or worst > 2.1 * lr_sum:
-            fail("the bf16 kernel trainer drifted from the f32 trainer "
-                 "further than twice the plain bf16 trainer")
-        runs[streamed] = (step, kstate, km)
-    del pgrads, pparams, f32_grads, f32_params, kparams
-    torch.cuda.empty_cache()
+        pre = "conv2d_stream" if streamed else "direct_conv2d"
+        runs_spec.append((f"bf16-train {route(streamed)}",
+                          ConvContext(precision="bf16", stream=streamed),
+                          {f"{pre}_fwd_bf16": 13, f"{pre}_dgrad_bf16": 12,
+                           f"{pre}_wgrad_bf16": 13}))
+    counts, trained, batches, lr = bf16_trainers(model, BATCH, args.seed + 50,
+                                                 runs_spec, dev)
+    runs = {streamed: trained[i] for i, streamed in enumerate((False, True))}
     print(f"[time] phase 23(b) done at {time.perf_counter() - t_start:.1f} s")
 
     # -- 23(c) summed times, the step beside f32's, peak memory ---------------
@@ -3689,6 +3752,578 @@ def bf16_train_phases(args, dev, t_start, model, smi):
     torch.cuda.empty_cache()
     print(f"[time] phase 23 done at {time.perf_counter() - t_start:.1f} s")
     return entries, {k: counts.get(k, 0) for k in key.values()}
+
+
+def separable_bf16_phases(args, dev, t_start, smi, model):
+    """Phase 24: the separable family's bf16 builds (the pointwise forward
+    tile's, ``pointwise_tile_kernel_bf16``; the three depthwise walks',
+    ``depthwise_{fwd,dgrad,wgrad}_kernel_bf16``; the dense bf16 dgrad and
+    wgrad tiles at 1x1 for the pointwise backward) against their plain
+    versions under ``BF16``, MobileNet v1 (``model``, phase 11's weights)
+    served in bf16 through ``ConvServer`` and trained in bf16 (its weights
+    as f32 masters), the legs' times, the bf16 step beside the f32 one and
+    peak memory.  -> (the six builds' entries of the ``{"kernels": [...]}``
+    line, the launches of the two bf16 main-path runs per kernel)."""
+    from repro_torch.configs.cnn import MOBILENET_V1_CONV1
+    from repro_torch.core import conv2d_common
+    from repro_torch.core import memory_model as mm
+    from repro_torch.core.blocking import (choose_pointwise_blocking,
+                                           pointwise_issued_macs)
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                              direct_conv_dgrad_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.core.precision import Precision
+    from repro_torch.kernels import conv2d_depthwise as dwk
+    from repro_torch.kernels import conv2d_pointwise as pwk
+    from repro_torch.kernels.direct_conv2d import dgrad_plans, wgrad_plans
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainstep import make_train_step
+
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 60)
+    fn_of = {"conv2d_pointwise_fwd_bf16": "pointwise_tile_kernel_bf16",
+             "conv2d_pointwise_dgrad_bf16": "dgrad_kernel_bf16 at 1x1",
+             "conv2d_pointwise_wgrad_bf16": "wgrad_kernel_bf16 at 1x1",
+             "conv2d_depthwise_fwd_bf16": "depthwise_fwd_kernel_bf16",
+             "conv2d_depthwise_dgrad_bf16": "depthwise_dgrad_kernel_bf16",
+             "conv2d_depthwise_wgrad_bf16": "depthwise_wgrad_kernel_bf16"}
+    err = {k: 0.0 for k in fn_of}
+
+    def track(name, value):
+        err[name] = max(err[name], value)
+
+    def stamp(part):
+        print(f"[time] phase 24({part}) done at "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def dw_operands(n, c, h, cb=None, hf=3):
+        """bf16 x and w (as the bf16 chain and the training path hand them
+        over) and an f32 bias."""
+        cb = cb or min(c, 128)
+        x = torch.randn((n, c // cb, h, h, cb), device=dev,
+                        generator=gen).to(bf)
+        w = (torch.randn((c // cb, 1, hf, hf, 1, cb), device=dev,
+                         generator=gen) / hf).to(bf)
+        b = 0.1 * torch.randn((c // cb, cb), device=dev, generator=gen)
+        return x, w, b
+
+    def pw_operands(n, ci, co, h):
+        cib, cob = min(ci, 128), min(co, 128)
+        x = torch.randn((n, ci // cib, h, h, cib), device=dev,
+                        generator=gen).to(bf)
+        w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=dev,
+                         generator=gen) / ci ** 0.5).to(bf)
+        b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
+        return x, w, b
+
+    def wgrad_held(label, name, run, partials, x, dz, hf, s, groups, dil=1):
+        """dw and db of two runs bit for bit, the folded sum bit for bit its
+        workspace's in-order reduce, both against f64 sums of the same bf16
+        operands within WGRAD_REL of sum|x dz|."""
+        (dw, db), (dw2, db2) = run(), run()
+        torch.cuda.synchronize()
+        if not (torch.equal(dw, dw2) and torch.equal(db, db2)):
+            fail(f"{label}: two runs differ")
+        check_fold(label, partials(), (dw, db))
+        pad = "VALID" if hf == 1 else "SAME"
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), dz.double(), hf, hf, s, pad, with_db=True,
+            groups=groups, dilation=dil)
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), hf, hf, s, pad,
+            with_db=True, groups=groups, dilation=dil)
+        track(name, max(
+            compare_scaled(f"bf16 {label} dw (2 runs identical)", dw,
+                           want_dw, abs_dw, WGRAD_REL),
+            compare_scaled(f"bf16 {label} db", db, want_db, abs_db,
+                           WGRAD_REL)))
+
+    # -- 24(a) each build against its plain version ---------------------------
+    served_blocks = [b for bh, _ in BUCKETS for b in mobilenet_blocks(bh)]
+    last_pw = {(ci, co, -(-h // s)) for ci, co, s, h in
+               (mobilenet_blocks(bh)[-1] for bh, _ in BUCKETS)}
+    with torch.no_grad():
+        for c, s, h in sorted({(ci, s, h) for ci, _, s, h in served_blocks}):
+            x, w, b = dw_operands(MB_BATCH, c, h)
+            got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                               precision="bf16")
+            want = direct_conv_blocked(x, w, s, "SAME", b, "relu", "bf16",
+                                       groups=c)
+            torch.cuda.synchronize()
+            track("conv2d_depthwise_fwd_bf16", bf16_close(
+                f"dw fwd {c} Cb={min(c, 128)} {h}x{h} s{s} n{MB_BATCH} relu",
+                got, want))
+        for ci, co, h in sorted({(ci, co, -(-h // s))
+                                 for ci, co, s, h in served_blocks}):
+            gap = (ci, co, h) in last_pw
+            x, w, b = pw_operands(MB_BATCH, ci, co, h)
+            got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", "relu",
+                                               gap=gap, precision="bf16")
+            want = direct_conv_blocked(x, w, 1, "VALID", b, "relu", "bf16",
+                                       gap=gap)
+            torch.cuda.synchronize()
+            tag = f"pw fwd {ci}->{co} {h}x{h} n{MB_BATCH} relu"
+            track("conv2d_pointwise_fwd_bf16", bf16_close(
+                tag + ("+gap" if gap else ""), got, want))
+            if gap:
+                check_gap(f"bf16 {tag}+gap", pwk.pointwise_gap(
+                    x, w, b, "relu", precision="bf16"), h * h, got)
+            cib, cob = x.shape[4], w.shape[5]
+            blk = choose_pointwise_blocking(MB_BATCH, h * h, ci // cib, cib,
+                                            co // cob, cob, gap=gap,
+                                            op_bytes=2)
+            issued = pointwise_issued_macs(blk, MB_BATCH, ci // cib, cib,
+                                           co // cob, 2)
+            print(f"[bf16-sep] {tag}: {blk.tiles} tiles of {blk.rows} "
+                  f"positions an image, {blk.wgs} consumer warpgroup(s), "
+                  f"lanes {blk.lanes} x {blk.nsplit}, chunk {blk.chunk}, "
+                  f"tensor-core MACs issued {issued} for the function's "
+                  f"{MB_BATCH * h * h * ci * co}")
+        # gelu, a residual and GAP through the bf16 forwards' epilogues,
+        # and the depthwise tap loop at dilation 2 with Cb 3 and 6
+        for n, c, h, cb, s, dil in ((2, 24, 13, 8, 1, 2), (2, 6, 9, 3, 2, 1),
+                                    (2, 12, 10, 6, 1, 2)):
+            x, w, b = dw_operands(n, c, h, cb)
+            spec = ConvSpec.make(n, h, h, c, c, 3, 3, s, "SAME", groups=c,
+                                 dilation=dil)
+            r = torch.randn((n, c // cb, spec.ho, spec.wo, cb), device=dev,
+                            generator=gen).to(bf)
+            got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", "gelu",
+                                               residual=r, gap=True,
+                                               dilation=dil, precision="bf16")
+            want = direct_conv_blocked(x, w, s, "SAME", b, "gelu", "bf16",
+                                       groups=c, dilation=dil, residual=r,
+                                       gap=True)
+            tag = (f"dw fwd {c} Cb={cb} {h}x{h} s{s} dilation {dil} n{n} "
+                   "gelu+residual+gap")
+            track("conv2d_depthwise_fwd_bf16", bf16_close(tag, got, want))
+            check_gap(f"bf16 {tag}", dwk.depthwise_gap(
+                x, w, b, s, "SAME", "gelu", r, dil, precision="bf16"),
+                spec.ho * spec.wo, got)
+        x = torch.randn((2, 3, 9, 9, 8), device=dev, generator=gen).to(bf)
+        w = (torch.randn((5, 3, 1, 1, 8, 8), device=dev, generator=gen)
+             / 24 ** 0.5).to(bf)
+        b = 0.1 * torch.randn((5, 8), device=dev, generator=gen)
+        r = torch.randn((2, 5, 9, 9, 8), device=dev, generator=gen).to(bf)
+        got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", "gelu",
+                                           residual=r, gap=True,
+                                           precision="bf16")
+        want = direct_conv_blocked(x, w, 1, "VALID", b, "gelu", "bf16",
+                                   residual=r, gap=True)
+        track("conv2d_pointwise_fwd_bf16", bf16_close(
+            "pw fwd 24->40 Cib=Cob=8 9x9 n2 gelu+residual+gap", got, want))
+    stamp("a fwd")
+
+    n = MB_TRAIN_BATCH
+    bwd = {}       # per distinct leg at the training entry: operands to time
+    for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
+                           mobilenet_blocks(ENTRY)}):
+        x, w, b = dw_operands(n, c, h)
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, s, "SAME", b, None, "bf16",
+                                    groups=c).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen).to(bf)
+        bwd[("dw", c, s, h)] = (x, w, z, g)
+        tag = f"dw {c} Cb={min(c, 128)} {h}x{h} s{s} n{n} relu"
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu",
+                                         c, precision="bf16")
+        got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", z, "relu",
+                                  precision="bf16")
+        again = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", z, "relu",
+                                    precision="bf16")
+        torch.cuda.synchronize()
+        track("conv2d_depthwise_dgrad_bf16", bf16_close(f"{tag} dgrad", got,
+                                                        want))
+        if not torch.equal(got, again):
+            fail(f"bf16 dw dgrad {tag}: two runs differ")
+        del got, again, want
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        wgrad_held(
+            f"dw wgrad {tag}", "conv2d_depthwise_wgrad_bf16",
+            lambda: dwk.depthwise_wgrad(x, g, 3, 3, s, "SAME", z, "relu",
+                                        True, precision="bf16"),
+            lambda: dwk.depthwise_wgrad_partials(
+                x, g, 3, 3, s, "SAME", z, "relu", True, precision="bf16"),
+            x, dz, 3, s, c)
+        del dz
+    # the depthwise dgrad's and wgrad's other paths: the tap loop (dilation
+    # 2, stride 3, 5x5), Cb = 3 (2-byte cells) at stride 2, a pencil of 6
+    # (4-byte copies), TF-SAME pads (1, 1) and (0, 1) at stride 2
+    for nn, c, h, cb, s, dil, hf, act in (
+            (2, 24, 13, 8, 1, 2, 3, "gelu"), (2, 16, 11, 8, 3, 1, 3, "relu"),
+            (2, 16, 12, 16, 1, 1, 5, "gelu"), (2, 6, 9, 3, 2, 1, 3, "relu"),
+            (2, 12, 10, 6, 1, 1, 3, None), (2, 32, 7, 32, 2, 1, 3, "gelu"),
+            (2, 64, 12, 64, 2, 1, 3, "relu")):
+        x, w, b = dw_operands(nn, c, h, cb, hf)
+        z = direct_conv_blocked(x, w, s, "SAME", b, None, "bf16", groups=c,
+                                dilation=dil).contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen).to(bf)
+        zz = z if act else None
+        tag = (f"dw {c} Cb={cb} {h}x{h} {hf}x{hf} s{s} dilation {dil} n{nn} "
+               f"{act}")
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", zz, act, c,
+                                         dil, precision="bf16")
+        got = dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", zz, act, dil,
+                                  precision="bf16")
+        torch.cuda.synchronize()
+        track("conv2d_depthwise_dgrad_bf16", bf16_close(f"{tag} dgrad", got,
+                                                        want))
+        dz = conv2d_common.cotangent_prologue(g, zz, act)
+        wgrad_held(
+            f"dw wgrad {tag}", "conv2d_depthwise_wgrad_bf16",
+            lambda: dwk.depthwise_wgrad(x, g, hf, hf, s, "SAME", zz, act,
+                                        True, dil, precision="bf16"),
+            lambda: dwk.depthwise_wgrad_partials(
+                x, g, hf, hf, s, "SAME", zz, act, True, dil,
+                precision="bf16"), x, dz, hf, s, c, dil)
+    for ci, co, h in sorted({(ci, co, -(-h // s))
+                             for ci, co, s, h in mobilenet_blocks(ENTRY)}):
+        x, w, b = pw_operands(n, ci, co, h)
+        with torch.no_grad():
+            z = direct_conv_blocked(x, w, 1, "VALID", b, None,
+                                    "bf16").contiguous()
+        g = torch.randn(z.shape, device=dev, generator=gen).to(bf)
+        bwd[("pw", ci, co, h)] = (x, w, z, g)
+        tag = f"pw {ci}->{co} {h}x{h} n{n} relu"
+        want = direct_conv_dgrad_blocked(g, w, (h, h), 1, "VALID", z, "relu",
+                                         precision="bf16")
+        got = pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
+        again = pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
+        torch.cuda.synchronize()
+        track("conv2d_pointwise_dgrad_bf16", bf16_close(f"{tag} dgrad", got,
+                                                        want))
+        if not torch.equal(got, again):
+            fail(f"bf16 pw dgrad {tag}: two runs differ")
+        del got, again, want
+        plan, model_plan = dgrad_plans(g, w, (h, h), 1, "VALID", z, "relu",
+                                       dtype=bf)
+        wplan, wmodel = wgrad_plans(x, g, 1, 1, 1, "VALID", z, "relu",
+                                    dtype=bf)
+        if plan != model_plan or wplan != wmodel:
+            fail(f"bf16 pw {tag}: the kernels' plans {plan} {wplan} != the "
+                 f"blocking model's {model_plan} {wmodel}")
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        wgrad_held(
+            f"pw wgrad {tag}", "conv2d_pointwise_wgrad_bf16",
+            lambda: pwk.pointwise_wgrad(x, g, z, "relu", True,
+                                        precision="bf16"),
+            lambda: pwk.pointwise_wgrad_partials(x, g, z, "relu", True,
+                                                 precision="bf16"),
+            x, dz, 1, 1, 1)
+        del dz
+    print("[bf16-sep] every launch above passed its C entry's check that "
+          "the plan's shared memory is the kernel's own carve-up "
+          "(core.blocking's *_smem_bytes at op_bytes 2), and the pointwise "
+          "dgrad's and wgrad's plans (the dense bf16 tiles at 1x1) equal "
+          "core.blocking's")
+    # an fp16 policy has no build: refused on the card in inference and in
+    # training, by both families, with no launch
+    x, w, b = dw_operands(2, 16, 8)
+    fp16 = Precision(operand="float16", residual="float16")
+    calls = (
+        lambda: dwk.depthwise_conv2d_blocked(x.half(), w.float(), b, 1,
+                                             "SAME", precision=fp16),
+        lambda: dwk.depthwise_conv2d_blocked(
+            x.float(), w.float().requires_grad_(), b, 1, "SAME",
+            precision=fp16),
+        lambda: pwk.pointwise_conv2d_blocked(
+            x.half(), torch.zeros((2, 1, 1, 1, 16, 8), device=dev), None,
+            precision=fp16),
+        lambda: pwk.pointwise_conv2d_blocked(
+            x.float(), torch.zeros((2, 1, 1, 1, 16, 8), device=dev,
+                                   requires_grad=True), None,
+            precision=fp16))
+    reset_all_launches()
+    for call in calls:
+        try:
+            call()
+        except NotImplementedError:
+            continue
+        fail("an fp16 separable call ran instead of raising "
+             "NotImplementedError")
+    if any(all_launches().values()):
+        fail(f"an fp16 separable call launched {all_launches()}")
+    print("[bf16-sep] fp16 inference and training raise NotImplementedError "
+          "in both separable families, no launch")
+    stamp("a bwd")
+
+    # -- 24(b) MobileNet v1 served in bf16 ----------------------------------
+    ctx = ConvContext(precision="bf16")
+    server = ConvServer(model, list(BUCKETS), MB_BATCH, device=dev,
+                        context=ctx)
+    server.warmup()
+    rng = np.random.default_rng(args.seed + 60)
+    reqs = []
+    for rid in range(24):
+        hh, ww = (int(v) for v in rng.integers(96, ENTRY + 1, size=2))
+        reqs.append(ConvRequest(rid, rng.standard_normal(
+            (hh, ww, 3), dtype=np.float32)))
+    reset_all_launches()
+    for r in reqs:
+        server.submit(r)
+    server.run()
+    torch.cuda.synchronize()
+    served = {k: v for k, v in all_launches().items() if v}
+    n_fwd = server.health()["batches"]
+    one = {"direct_conv2d_fwd_bf16": 1, "conv2d_depthwise_fwd_bf16": 13,
+           "conv2d_pointwise_fwd_bf16": 13}
+    print(f"[bf16-mobilenet-serve] launches {served} batches {n_fwd}")
+    if n_fwd == 0 or served != {k: v * n_fwd for k, v in one.items()}:
+        fail(f"the bf16 MobileNet serve launched {served}, not {one} a "
+             "batch (no f32, backward or plain route)")
+    bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
+    if bad:
+        fail(f"bf16 MobileNet requests not OK: {bad}")
+    served_err = plain_err = 0.0
+    with torch.no_grad():
+        for r in reqs:
+            img = torch.from_numpy(server.bucketer.pad(
+                r.image, r.bucket))[None].to(dev)
+            f32 = plain_cnn_forward(img, model)[0]
+            scale = f32.abs().max().item()
+            served_err = max(served_err, float(
+                (torch.from_numpy(r.logits).to(dev) - f32).abs().max())
+                / scale)
+            pb = plain_cnn_forward(img, model, "bf16")[0].float()
+            plain_err = max(plain_err, float((pb - f32).abs().max()) / scale)
+    lat = server.latencies() * 1e3
+    print(f"[bf16-mobilenet-serve] 24 requests OK; served logits vs the f32 "
+          f"plain forward: max rel-to-max err {served_err:.3e}, the bf16 "
+          f"plain forward's {plain_err:.3e} (limit 2x: {2 * plain_err:.3e}); "
+          f"latency p50 {np.percentile(lat, 50):.3f} ms p99 "
+          f"{np.percentile(lat, 99):.3f} ms")
+    if not served_err <= 2 * plain_err:
+        fail("bf16 MobileNet served logits are further from the f32 plain "
+             "forward than twice the bf16 plain forward")
+    del server
+    # the whole forward at batch 8, in bf16 beside f32, in this call
+    with torch.no_grad():
+        img = torch.randn((MB_BATCH, ENTRY, ENTRY, 3), device=dev,
+                          generator=gen)
+        for tag, c in (("bf16", ctx), ("f32", None)):
+            def forward(c=c):
+                return model(img, context=c)
+            print(f"[bf16-mobilenet-serve] MobileNet v1 forward n{MB_BATCH} "
+                  f"{ENTRY}x{ENTRY} {tag}: {time_ms(forward):.3f} ms eager, "
+                  f"{graph_ms(forward):.3f} ms as a CUDA graph (weight casts "
+                  f"included) on {smi}")
+    stamp("b")
+
+    # -- 24(c) MobileNet v1 trained in bf16 ---------------------------------
+    want_step = {"direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1}
+    for fam in ("depthwise", "pointwise"):
+        for kind in ("fwd", "dgrad", "wgrad"):
+            want_step[f"conv2d_{fam}_{kind}_bf16"] = 13
+    trained, runs, batches, lr = bf16_trainers(
+        model, n, args.seed + 60,
+        [("bf16-mobilenet-train", ctx, want_step)], dev)
+    bstep, bstate, bmodel = runs[0]
+    stamp("c")
+
+    # -- 24(d) per-leg times: eager, graph, plain, cuDNN bf16, the bound -----
+    cl = torch.channels_last
+    # (leg key, kind) -> (eager, graph, plain, cuDNN eager, cuDNN graph,
+    # bound, bound_by)
+    rows = {}
+    with torch.no_grad():
+        for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
+                               mobilenet_blocks(ENTRY)}):
+            x, w, b = dw_operands(MB_BATCH, c, h)
+            spec = ConvSpec.make(MB_BATCH, h, h, c, c, 3, 3, s, "SAME",
+                                 groups=c)
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous(
+                memory_format=cl)
+            wl = oihw(w, c).contiguous(memory_format=cl)
+            bl = b.reshape(-1).to(bf)
+
+            def fwd():
+                return dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME",
+                                                    "relu", precision="bf16")
+
+            def lib():
+                return F.conv2d(xp, wl, bl, stride=s, groups=c)
+            rows[(("dw", c, s, h), "fwd")] = (
+                time_ms(fwd), graph_ms(fwd),
+                time_ms(lambda: direct_conv_blocked(
+                    x, w, s, "SAME", b, "relu", "bf16", groups=c), iters=3),
+                time_ms(lib), graph_ms(lib), *bound(spec.flops(), 2 * (
+                    x.numel() + w.numel() + MB_BATCH * c * spec.ho * spec.wo)
+                    + 4 * b.numel(), PEAK_BF16_FLOPS))
+        for ci, co, h in sorted({(ci, co, -(-h // s)) for ci, co, s, h in
+                                 mobilenet_blocks(ENTRY)}):
+            gap = (ci, co, h) == (1024, 1024, 7)
+            x, w, b = pw_operands(MB_BATCH, ci, co, h)
+            xl = nchw(x).contiguous(memory_format=cl)
+            wl = oihw(w, 1).contiguous(memory_format=cl)
+            bl = b.reshape(-1).to(bf)
+            out_elems = MB_BATCH * co * (1 if gap else h * h)
+
+            def fwd():
+                return pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID",
+                                                    "relu", gap=gap,
+                                                    precision="bf16")
+
+            def lib():
+                return F.conv2d(xl, wl, bl)
+            rows[(("pw", ci, co, h), "fwd")] = (
+                time_ms(fwd), graph_ms(fwd),
+                time_ms(lambda: direct_conv_blocked(
+                    x, w, 1, "VALID", b, "relu", "bf16", gap=gap), iters=3),
+                time_ms(lib), graph_ms(lib), *bound(
+                    2 * MB_BATCH * h * h * ci * co,
+                    2 * (x.numel() + w.numel() + out_elems) + 4 * b.numel(),
+                    PEAK_BF16_FLOPS))
+    for key, (x, w, z, g) in bwd.items():
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        dzl = nchw(dz).contiguous(memory_format=cl)
+        if key[0] == "dw":
+            _, c, s, h = key
+            spec = ConvSpec.make(n, h, h, c, c, 3, 3, s, "SAME", groups=c)
+            (pt, pb), (pl, pr) = spec.pads
+            xin = F.pad(nchw(x), (pl, pr, pt, pb)).contiguous(
+                memory_format=cl)
+            wl = oihw(w, c).contiguous(memory_format=cl)
+            flops, st, groups, out_c = spec.flops(), s, c, c
+
+            def dgrad():
+                return dwk.depthwise_dgrad(g, w, (h, h), s, "SAME", z,
+                                           "relu", precision="bf16")
+
+            def wgrad():
+                return dwk.depthwise_wgrad_partials(
+                    x, g, 3, 3, s, "SAME", z, "relu", True, precision="bf16")
+
+            def plain_d():
+                return direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z,
+                                                 "relu", c, precision="bf16")
+
+            def plain_w():
+                return direct_conv_wgrad_blocked(
+                    x, g, 3, 3, s, "SAME", z, "relu", True, c,
+                    precision="bf16")
+        else:
+            _, ci, co, h = key
+            xin = nchw(x).contiguous(memory_format=cl)
+            wl = oihw(w, 1).contiguous(memory_format=cl)
+            flops, st, groups, out_c = 2 * n * h * h * ci * co, 1, 1, co
+
+            def dgrad():
+                return pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
+
+            def wgrad():
+                return pwk.pointwise_wgrad_partials(x, g, z, "relu", True,
+                                                    precision="bf16")
+
+            def plain_d():
+                return direct_conv_dgrad_blocked(g, w, (h, h), 1, "VALID", z,
+                                                 "relu", precision="bf16")
+
+            def plain_w():
+                return direct_conv_wgrad_blocked(
+                    x, g, 1, 1, 1, "VALID", z, "relu", True,
+                    precision="bf16")
+        for kind, fn, plain, mask, nbytes in (
+                ("dgrad", dgrad, plain_d, [True, False, False],
+                 2 * (2 * g.numel() + w.numel() + x.numel())),
+                ("wgrad", wgrad, plain_w, [False, True, False],
+                 2 * (x.numel() + 2 * g.numel())
+                 + 4 * (w.numel() + out_c))):
+            def lib(mask=mask):
+                return torch.ops.aten.convolution_backward(
+                    dzl, xin, wl, None, [st, st], [0, 0], [1, 1], False,
+                    [0, 0], groups, mask)
+            rows[(key, kind)] = (time_ms(fn), graph_ms(fn),
+                                 time_ms(plain, iters=3), time_ms(lib),
+                                 graph_ms(lib),
+                                 *bound(flops, nbytes, PEAK_BF16_FLOPS))
+        del dz, dzl, xin
+    del bwd
+    sums = {k: [0.0] * 6 for k in fn_of}
+    kinds = {k: [] for k in fn_of}
+    for i, (ci, co, s, h) in enumerate(mobilenet_blocks(ENTRY)):
+        ho = -(-h // s)
+        for leg, key, fam, cout, ext, st in (
+                ("dw", ("dw", ci, s, h), "depthwise", ci, h, s),
+                ("pw", ("pw", ci, co, ho), "pointwise", co, ho, 1)):
+            for kind in ("fwd", "dgrad", "wgrad"):
+                *times, b_by = rows[(key, kind)]
+                k_ms, g_ms, p_ms, l_ms, l_graph, b_ms = times
+                name = f"conv2d_{fam}_{kind}_bf16"
+                for j, v in enumerate(times):
+                    sums[name][j] += v
+                kinds[name].append((b_ms, b_by))
+                print(f"[bf16-sep-time] block{i + 1} {leg} {kind} {ci}->"
+                      f"{cout} in {ext}x{ext} s{st} "
+                      f"n{MB_BATCH if kind == 'fwd' else n}: eager_ms "
+                      f"{k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
+                      f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] "
+                      f"(channels-last) bound_ms {b_ms:.4f} ({b_by}, bf16) "
+                      f"bound/graph {b_ms / g_ms:.3f}")
+    for name, (k_ms, g_ms, p_ms, l_ms, l_graph, b_ms) in sums.items():
+        print(f"[bf16-sep-time] all 13 {name} ({fn_of[name]}) on {smi}: "
+              f"eager_ms {k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
+              f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] bound_ms "
+              f"{b_ms:.4f} ({mostly(kinds[name])}, bf16), "
+              f"{100 * b_ms / g_ms:.1f} % of the bound as a graph")
+    stamp("d")
+
+    # -- 24(e) the bf16 step beside the f32 step; peak memory -----------------
+    f32m = copy.deepcopy(model)
+    f32opt = AdamW(lr=lr)
+    f32state = f32opt.init(dict(f32m.named_parameters()))
+    f32step = make_train_step(f32m, f32opt)
+    timed = timed_steps(f"bf16-mobilenet-train n{n}", [
+        ("f32", f32step, f32state), ("bf16", bstep, bstate)], batches)
+    del f32m, f32state, f32step
+    torch.cuda.empty_cache()
+    print(f"[bf16-mobilenet-train] step medians on {smi}: " + ", ".join(
+        f"{k} {np.median(v):.3f} ms" for k, v in timed.items()))
+    ci0, co0, s0 = MOBILENET_V1_CONV1
+    shapes = [mm.ConvShape("conv1", n, ENTRY, ENTRY, ci0, co0, 3, 3, s0,
+                           "SAME")]
+    for i, (ci, co, s, h) in enumerate(mobilenet_blocks(ENTRY)):
+        ho = -(-h // s)
+        shapes += [mm.ConvShape(f"dw{i + 1}", n, h, h, ci, ci, 3, 3, s,
+                                "SAME", groups=ci),
+                   mm.ConvShape(f"pw{i + 1}", n, ho, ho, ci, co, 1, 1, 1,
+                                "VALID")]
+    split = [mm.bytes_precision_split(sh, "bf16") for sh in shapes]
+    modelled = sum(sp["total"] for sp in split)
+    f32_total = sum(sp["f32_total"] for sp in split)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    bstep(bstate, batches[0])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    print(f"[bf16-mobilenet-train] step peak device memory above the "
+          f"parameters, gradients and moments it holds {peak / 2**20:.1f} "
+          f"MiB; memory_model.bytes_precision_split's bf16 training bytes "
+          f"over conv1 and the 26 legs {modelled / 2**20:.1f} MiB (the f32 "
+          f"policy's {f32_total / 2**20:.1f} MiB) ({smi})")
+    del runs, bstep, bstate, bmodel
+    torch.cuda.empty_cache()
+
+    counts = {k: served.get(k, 0) + trained.get(k, 0) for k in fn_of}
+    entries = []
+    for name, (k_ms, g_ms, p_ms, l_ms, l_graph, b_ms) in sums.items():
+        fam_kind = name[:-len("_bf16")]
+        source = BWD_SOURCE if name in ("conv2d_pointwise_dgrad_bf16",
+                                        "conv2d_pointwise_wgrad_bf16") else \
+            (PW_SOURCE if "pointwise" in name else DW_SOURCE)
+        entries.append({
+            "name": f"{name} ({fn_of[name]})", "route": "cuda",
+            "source": source, "replaces": TPU_SEPARABLE[fam_kind],
+            "launches": counts[name], "max_abs_err": err[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": mostly(kinds[name]), "library_ms": l_ms})
+    print(f"[time] phase 24 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, counts
 
 
 def main(argv=None) -> int:
@@ -3766,7 +4401,9 @@ def main(argv=None) -> int:
     # the f32 flash kernel on the tensor cores and the depthwise wgrad:
     # registers and no spill in every compiled instance
     for name, kernel in (("flash_attention", FLASH_F32_KERNEL),
-                         ("conv2d_depthwise", DW_WGRAD_KERNEL)):
+                         ("conv2d_depthwise", DW_WGRAD_KERNEL),
+                         ("conv2d_depthwise", "depthwise_fwd_kernel_bf16"),
+                         ("conv2d_depthwise", "depthwise_dgrad_kernel_bf16")):
         res = next(r for r in built if r.name == name)
         ptx = {fn: v for fn, v in ptxas_report(res.log).items()
                if kernel in fn}
@@ -4242,11 +4879,13 @@ def main(argv=None) -> int:
     del tr, bwd_ops
     torch.cuda.empty_cache()
 
-    mb_entries, mb_counts = mobilenet_phases(args, dev, t_start)
+    mb_entries, mb_counts, mb_model = mobilenet_phases(args, dev, t_start)
     st_entries, st_counts = stream_phases(args, dev, t_start)
     lm_entries, lm_counts = lm_phases(args, dev, t_start)
     bf_entries, bf_counts = bf16_phases(args, dev, t_start, model)
     bt_entries, bt_counts = bf16_train_phases(args, dev, t_start, model, smi)
+    sb_entries, sb_counts = separable_bf16_phases(args, dev, t_start, smi,
+                                                  mb_model)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -4256,7 +4895,8 @@ def main(argv=None) -> int:
           f"MobileNet v1 served and trained {mb_counts}; VGG-16 on the "
           f"streamed route served and trained {st_counts}; VGG-16 served "
           f"in bf16 on both routes {bf_counts}; VGG-16 trained in bf16 on "
-          f"both routes {bt_counts}")
+          f"both routes {bt_counts}; MobileNet v1 served and trained in "
+          f"bf16 {sb_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -4279,6 +4919,7 @@ def main(argv=None) -> int:
     kernels.extend(lm_entries)
     kernels.extend(bf_entries)
     kernels.extend(bt_entries)
+    kernels.extend(sb_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1127,10 +1127,20 @@ def _splits(tiles: int, base: int, row_bytes: int,
 # the tiles at MobileNet's shapes, so a change here that moves one shows.
 # (The pointwise dgrad runs the dense dgrad tile at 1x1, which timed
 # faster than this tile with the weight read transposed.)
+#
+# The bf16 build of the tile (``op_bytes`` 2) contracts bf16 operands on
+# bf16 wgmma, k16 steps, one product a MAC: its chunk is a multiple of 16
+# (Kw pads to 16), its staged rows and weights take 2 bytes a cell, and the
+# weights land by cp.async straight into the order the wgmma reads (no raw
+# chunk, no split), so chunks up to PW_MAX_CHUNK_BF16 fit.  Its cost is the
+# same model at the bf16 rate (twice the TF32 MACs a cycle, once a MAC),
+# its copies 16 bytes (8 cells) where the pencils allow, with no weight
+# split; its constants are the f32 fit's, not timed for bf16.
 PW_ROWS = 64
 PW_CONSUMERS = 3
 PW_SLOTS = 2
 PW_MAX_CHUNK = 64
+PW_MAX_CHUNK_BF16 = 128
 PW_STAGE_CYCLES = 2000      # a stage's copy latency past the ring, barriers
 PW_COPY_CYCLES = 30         # one 16-byte cp.async of a producer thread
 PW_SPLIT_CYCLES = 3         # a weight transposed and split into halves
@@ -1152,25 +1162,44 @@ class PointwiseBlocking:
 
 
 def pointwise_smem_bytes(rows: int, chunk: int, lanes: int, wgs: int,
-                         gap: bool = False) -> int:
+                         gap: bool = False, op_bytes: int = 4) -> int:
     """Dynamic shared memory of one pointwise tile CTA (the kernel's
-    ``smem_bytes``): 128 bytes to align the base; per slot of its
-    two-slot ring the input rows ``[rows][chunk + 4]``, the raw weight
-    chunk ``[chunk][lanes]`` and its TF32 halves; an int per k8 step; with
-    ``gap`` the consumer warps' ``[4 * wgs][lanes]`` sums."""
+    ``smem_bytes``, ``pwbf16::smem_bytes`` for ``op_bytes`` 2).
+
+    f32: 128 bytes to align the base; per slot of its two-slot ring the
+    input rows ``[rows][chunk + 4]``, the raw weight chunk ``[chunk][lanes]``
+    and its TF32 halves; an int per k8 step; with ``gap`` the consumer
+    warps' ``[4 * wgs][lanes]`` sums.
+
+    bf16: 128 bytes to align the base; per slot the bf16 input rows
+    ``[rows][chunk + 8]`` and the bf16 weight chunk ``[lanes / 8][chunk][8]``;
+    the GAP sums as f32's."""
+    red = 4 * wgs * lanes if gap else 0
+    if _fwd_k_step(op_bytes) == 16:
+        return 128 + 2 * PW_SLOTS * (rows * (chunk + 8) + chunk * lanes) \
+            + 4 * red
     return 128 + 4 * (PW_SLOTS * (rows * (chunk + 4) + 3 * chunk * lanes)
-                      + chunk // 8 + (4 * wgs * lanes if gap else 0))
+                      + chunk // 8 + red)
+
+
+def pointwise_kpad(kw: int, op_bytes: int = 4) -> int:
+    """The input pencil ``kw`` rounded up to the tile's k-slices."""
+    k = _fwd_k_step(op_bytes)
+    return -(-kw // k) * k
 
 
 def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
                          ow: int, machine: MachineModel = H100_SXM,
-                         gap: bool = False):
+                         gap: bool = False, op_bytes: int = 4):
     """The tiles the search weighs, each as ``(key, PointwiseBlocking)``,
     the least key the choice (see the constants above); ties go to a
-    larger chunk, more rows, then fewer splits."""
-    kpad = -(-kw // 8) * 8
-    chunks = [c for c in range(min(kpad, PW_MAX_CHUNK), 0, -8)
-              if kpad % c == 0]
+    larger chunk, more rows, then fewer splits.  ``op_bytes`` 2 weighs the
+    bf16 build."""
+    step = _fwd_k_step(op_bytes)
+    bf16 = step == 16
+    kpad = pointwise_kpad(kw, op_bytes)
+    top = PW_MAX_CHUNK_BF16 if bf16 else PW_MAX_CHUNK
+    chunks = [c for c in range(min(kpad, top), 0, -step) if kpad % c == 0]
     out = []
     for wgs in range(1, PW_CONSUMERS + 1):
         rows = PW_ROWS * wgs
@@ -1182,17 +1211,25 @@ def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
             if (nsplit - 1) * lanes >= ow:
                 continue
             chunk = next((c for c in chunks if pointwise_smem_bytes(
-                rows, c, lanes, wgs, gap) <= machine.smem_block), None)
+                rows, c, lanes, wgs, gap, op_bytes) <= machine.smem_block),
+                None)
             if chunk is None:
                 continue
             stages = kblk * kpad // chunk
             ctas = n * tiles * oblk * nsplit
-            mma = (3 * rows * chunk * lanes / DGRAD_MACS_PER_CYCLE
-                   / DGRAD_WG_EFFICIENCY[wgs])
-            copies = (rows * chunk + chunk * lanes) / 4
-            other = PW_STAGE_CYCLES + (
-                PW_COPY_CYCLES * copies + PW_SPLIT_CYCLES * chunk * lanes
-            ) / 128
+            if bf16:     # one product a MAC at twice TF32's rate
+                mma = (rows * chunk * lanes / (2 * DGRAD_MACS_PER_CYCLE)
+                       / DGRAD_WG_EFFICIENCY[wgs])
+                copies = (rows * chunk / (8 if kw % 8 == 0 else
+                                          2 if kw % 2 == 0 else 1)
+                          + chunk * lanes / (8 if ow % 8 == 0 else 1))
+                split = 0
+            else:
+                mma = (3 * rows * chunk * lanes / DGRAD_MACS_PER_CYCLE
+                       / DGRAD_WG_EFFICIENCY[wgs])
+                copies = (rows * chunk + chunk * lanes) / 4
+                split = PW_SPLIT_CYCLES * chunk * lanes
+            other = PW_STAGE_CYCLES + (PW_COPY_CYCLES * copies + split) / 128
             cost = -(-ctas // machine.sms) * stages * max(mma, other)
             out.append(((cost, -chunk, -rows, nsplit),
                         PointwiseBlocking(rows=rows, wgs=wgs, lanes=lanes,
@@ -1205,14 +1242,17 @@ def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
 def choose_pointwise_blocking(n: int, hw: int, kblk: int, kw: int,
                               oblk: int, ow: int,
                               machine: MachineModel = H100_SXM,
-                              gap: bool = False) -> PointwiseBlocking:
+                              gap: bool = False,
+                              op_bytes: int = 4) -> PointwiseBlocking:
     """Tile a channel matmul over ``n`` images of ``hw`` positions that
     contracts ``kblk`` input pencils of ``kw`` channels into ``oblk``
     output pencils of ``ow`` lanes: the least-cost tile of
-    ``pointwise_candidates``."""
+    ``pointwise_candidates`` (``op_bytes`` 4: the f32 tile, 2: its bf16
+    build)."""
     if hw <= 0 or n <= 0:
         raise ValueError(f"empty map: n={n}, hw={hw}")
-    found = pointwise_candidates(n, hw, kblk, kw, oblk, ow, machine, gap)
+    found = pointwise_candidates(n, hw, kblk, kw, oblk, ow, machine, gap,
+                                 op_bytes)
     if not found:
         raise SmemMisfitError(
             f"no pointwise tile fits: kw={kw}, ow={ow} need more than "
@@ -1221,13 +1261,14 @@ def choose_pointwise_blocking(n: int, hw: int, kblk: int, kw: int,
 
 
 def pointwise_issued_macs(blk: PointwiseBlocking, n: int, kblk: int,
-                          kw: int, oblk: int) -> int:
+                          kw: int, oblk: int, op_bytes: int = 4) -> int:
     """The tensor-core MACs a launch of ``blk`` issues: every CTA's whole
     ``rows x lanes`` tile over K padded to whole chunks in every input
-    block, three products each."""
-    kpad = -(-kw // 8) * 8
-    return (3 * n * blk.tiles * oblk * blk.nsplit * blk.rows * blk.lanes
-            * kblk * (-(-kpad // blk.chunk) * blk.chunk))
+    block, three products each (one in the bf16 build)."""
+    kpad = pointwise_kpad(kw, op_bytes)
+    products = 3 if op_bytes == 4 else 1
+    return (products * n * blk.tiles * oblk * blk.nsplit * blk.rows
+            * blk.lanes * kblk * (-(-kpad // blk.chunk) * blk.chunk))
 
 
 # ---------------------------------------------------------------------------
@@ -1263,15 +1304,22 @@ class DepthwiseBlocking:
     grid: int
 
 
+def _ring_cells(n: int, op_bytes: int) -> int:
+    """``n`` cells of ``op_bytes`` rounded up to whole 16 bytes."""
+    k = 16 // op_bytes
+    return -(-n // k) * k
+
+
 def depthwise_fwd_smem_bytes(hwin: int, wwin: int, lanes: int,
                              machine: MachineModel = H100_SXM,
-                             gap: bool = False) -> int:
-    """The forward's two staged f32 windows (each rounded up to 16 bytes)
-    and with ``gap`` the ``[position groups, lanes]`` sums beside them."""
-    stage = 2 * _round4(hwin * wwin * lanes)
+                             gap: bool = False, op_bytes: int = 4) -> int:
+    """The forward's two staged windows of ``op_bytes`` cells (4: f32, 2:
+    the bf16 build; each rounded up to 16 bytes) and with ``gap`` the f32
+    ``[position groups, lanes]`` sums beside them."""
+    stage = op_bytes * 2 * _ring_cells(hwin * wwin * lanes, op_bytes)
     if gap:
-        stage += (machine.threads // lanes) * lanes
-    return 4 * stage
+        stage += 4 * (machine.threads // lanes) * lanes
+    return stage
 
 
 def _depthwise_groups(cb: int, machine: MachineModel) -> int:
@@ -1343,16 +1391,17 @@ def choose_depthwise_blocking(n: int, cblk: int, ho: int, wo: int, cb: int,
                               hf: int, wf: int, stride: int = 1,
                               dilation=(1, 1),
                               machine: MachineModel = H100_SXM,
-                              gap: bool = False) -> DepthwiseBlocking:
+                              gap: bool = False,
+                              op_bytes: int = 4) -> DepthwiseBlocking:
     """Tile the depthwise forward over its ``ho x wo`` output
     (``_depthwise_items``): a tile's window is its halo'd input, two of
     them (and with ``gap`` the position groups' sums) in a CTA's shared
-    memory."""
+    memory, at ``op_bytes`` a cell (2: the bf16 build)."""
     return _depthwise_items(
         n, cblk, ho, wo, cb,
         lambda hob, wob: halo_dims(hob, wob, hf, wf, stride, dilation),
         lambda hob, wob, hwin, wwin, lanes: depthwise_fwd_smem_bytes(
-            hwin, wwin, lanes, machine, gap),
+            hwin, wwin, lanes, machine, gap, op_bytes),
         machine, f"depthwise tile (filter {hf}x{wf}, stride {stride}, "
         f"dilation {dilation})")
 
@@ -1376,11 +1425,12 @@ def depthwise_dgrad_window(hob: int, wob: int, hi: int, wi: int, hf: int,
 
 
 def depthwise_dgrad_smem_bytes(hwin: int, wwin: int, lanes: int,
-                               prologue: bool) -> int:
+                               prologue: bool, op_bytes: int = 4) -> int:
     """The dgrad's ring: two slots, each the cotangent window ``[hwin, wwin,
-    lanes]`` (rounded up to 16 bytes), and with the prologue the window of
-    ``z`` beside it."""
-    return 4 * 2 * (2 if prologue else 1) * _round4(hwin * wwin * lanes)
+    lanes]`` of ``op_bytes`` cells (rounded up to 16 bytes), and with the
+    prologue the window of ``z`` beside it."""
+    return op_bytes * 2 * (2 if prologue else 1) * _ring_cells(
+        hwin * wwin * lanes, op_bytes)
 
 
 def depthwise_dgrad_variant(hf: int, wf: int, stride: int,
@@ -1399,20 +1449,21 @@ def choose_depthwise_dgrad_blocking(n: int, cblk: int, hi: int, wi: int,
                                     stride: int = 1, dilation=(1, 1),
                                     pads=((1, 1), (1, 1)),
                                     prologue: bool = True,
-                                    machine: MachineModel = H100_SXM
+                                    machine: MachineModel = H100_SXM,
+                                    op_bytes: int = 4
                                     ) -> DepthwiseBlocking:
     """Tile the depthwise dgrad over the unpadded ``hi x wi`` input
     (``_depthwise_items``): an item is a tile of dx, its window the
     cotangent cells that feed it (``depthwise_dgrad_window``, under the
     forward's ``pads``, SAME's at a 3x3 filter by default), two of them
     (with the ``prologue``, with ``z`` beside each) in a CTA's shared
-    memory."""
+    memory, at ``op_bytes`` a cell (2: the bf16 build)."""
     return _depthwise_items(
         n, cblk, hi, wi, cb,
         lambda hob, wob: depthwise_dgrad_window(hob, wob, hi, wi, hf, wf,
                                                 stride, dilation, pads),
         lambda hob, wob, hwin, wwin, lanes: depthwise_dgrad_smem_bytes(
-            hwin, wwin, lanes, prologue),
+            hwin, wwin, lanes, prologue, op_bytes),
         machine, f"depthwise dgrad tile (filter {hf}x{wf}, stride {stride}, "
         f"dilation {dilation})")
 
@@ -1460,16 +1511,17 @@ class DepthwiseWgradBlocking:
 
 def depthwise_wgrad_smem_bytes(hwin: int, wwin: int, hob: int, wob: int,
                                lanes: int, taps: int, prologue: bool,
-                               machine: MachineModel = H100_SXM) -> int:
+                               machine: MachineModel = H100_SXM,
+                               op_bytes: int = 4) -> int:
     """The wgrad's ring: two slots, each an item's x window ``[hwin, wwin,
     lanes]`` and its g tile ``[hob, wob, lanes]`` (with the prologue z's
-    beside it), each rounded up to 16 bytes; or the position groups'
-    ``[threads / lanes, taps + 1, lanes]`` sums where those are larger
-    (they reuse the ring once the walk is done)."""
-    slot = _round4(hwin * wwin * lanes) \
-        + (2 if prologue else 1) * _round4(hob * wob * lanes)
+    beside it) of ``op_bytes`` cells, each rounded up to 16 bytes; or the
+    f32 position groups' ``[threads / lanes, taps + 1, lanes]`` sums where
+    those are larger (they reuse the ring once the walk is done)."""
+    slot = _ring_cells(hwin * wwin * lanes, op_bytes) \
+        + (2 if prologue else 1) * _ring_cells(hob * wob * lanes, op_bytes)
     red = (machine.threads // lanes) * (taps + 1) * lanes
-    return 4 * max(2 * slot, red)
+    return max(op_bytes * 2 * slot, 4 * red)
 
 
 @functools.lru_cache(maxsize=4096)
@@ -1477,17 +1529,19 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
                                     cb: int, hf: int, wf: int,
                                     stride: int = 1, dilation=(1, 1),
                                     prologue: bool = True,
-                                    machine: MachineModel = H100_SXM
+                                    machine: MachineModel = H100_SXM,
+                                    op_bytes: int = 4
                                     ) -> DepthwiseWgradBlocking:
     """Tile the depthwise weight gradient as the forward's items
     (``_depthwise_items``) over its ``ho x wo`` output: a tile's window is
     its halo'd input, staged with its g (and with the ``prologue`` z) tile,
     two items' worth (or the position groups' sums) in a CTA's shared
-    memory.  Each column's items go to as many contiguous shares as one
-    wave of CTAs holds, or one CTA an SM where that would give a column's
-    summing CTA too many rows (``_splits``)."""
+    memory, at ``op_bytes`` a cell (2: the bf16 build).  Each column's
+    items go to as many contiguous shares as one wave of CTAs holds, or one
+    CTA an SM where that would give a column's summing CTA too many rows
+    (``_splits``)."""
     window, smem = _depthwise_wgrad_rules(hf, wf, stride, dilation,
-                                          prologue, machine)
+                                          prologue, machine, op_bytes)
     items = _depthwise_items(
         n, cblk, ho, wo, cb, window, smem, machine,
         f"depthwise wgrad tile (filter {hf}x{wf}, stride {stride}, "
@@ -1498,7 +1552,8 @@ def choose_depthwise_wgrad_blocking(n: int, cblk: int, ho: int, wo: int,
 
 
 def _depthwise_wgrad_rules(hf: int, wf: int, stride: int, dilation,
-                           prologue: bool, machine: MachineModel):
+                           prologue: bool, machine: MachineModel,
+                           op_bytes: int = 4):
     """The wgrad's ``window`` and ``smem`` rules for ``_depthwise_fits``."""
     taps = hf * wf
     if taps > DW_MAX_TAPS:
@@ -1506,7 +1561,8 @@ def _depthwise_wgrad_rules(hf: int, wf: int, stride: int, dilation,
     dilation = tuple(dilation)
     return (lambda hob, wob: halo_dims(hob, wob, hf, wf, stride, dilation),
             lambda hob, wob, hwin, wwin, lanes: depthwise_wgrad_smem_bytes(
-                hwin, wwin, hob, wob, lanes, taps, prologue, machine))
+                hwin, wwin, hob, wob, lanes, taps, prologue, machine,
+                op_bytes))
 
 
 def _depthwise_wgrad_shares(n, cblk, ho, wo, cb, hob, wob, hwin, wwin,
@@ -1522,12 +1578,13 @@ def _depthwise_wgrad_shares(n, cblk, ho, wo, cb, hob, wob, hwin, wwin,
 def depthwise_wgrad_candidates(n: int, cblk: int, ho: int, wo: int, cb: int,
                                hf: int, wf: int, stride: int = 1,
                                dilation=(1, 1), prologue: bool = True,
-                               machine: MachineModel = H100_SXM
+                               machine: MachineModel = H100_SXM,
+                               op_bytes: int = 4
                                ) -> list[DepthwiseWgradBlocking]:
     """Every item the wgrad's chooser weighs, with its shares
     (``launch/separable_bwd_ab.py`` times them)."""
     window, smem = _depthwise_wgrad_rules(hf, wf, stride, dilation,
-                                          prologue, machine)
+                                          prologue, machine, op_bytes)
     return [_depthwise_wgrad_shares(n, cblk, ho, wo, cb, hob, wob, *win,
                                     lanes, hf * wf, machine)
             for hob, wob, win, lanes, _ in _depthwise_fits(
@@ -1552,10 +1609,6 @@ def depthwise_wgrad_candidates(n: int, cblk: int, ho: int, wo: int, cb: int,
 # stage is an item of ``hso`` output rows by ``wob`` columns, walked strip
 # by strip down each column, and the halo rows two strips share stay in the
 # ring (``choose_stream_wgrad_blocking``).
-
-
-def _round4(n: int) -> int:
-    return -(-n // 4) * 4
 
 
 @functools.lru_cache(maxsize=4096)

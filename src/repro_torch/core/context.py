@@ -16,7 +16,8 @@ field:
              blocking models decide per direction (``route_stream``).
              Pointwise and depthwise legs ignore it.
   precision  the precision policy (None -> f32; a concrete policy reaches
-             every layer).  The CUDA kernels run f32 only so far.
+             every layer).  The CUDA kernels run F32 and ``BF16`` (their
+             bf16 builds); a float16 policy raises on the card.
 
 The reference's ``dispatch`` and ``impl`` fields arrive with the measured
 dispatcher.  Its ``interpret`` has no counterpart: the tensor's device

@@ -1,4 +1,4 @@
-// Depthwise convolution, f32 — hand-written for Hopper (sm_90a).
+// Depthwise convolution, f32 and bf16 — hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/conv2d_depthwise.py:
 //   `_dw_fwd_kernel`   (:72,  pallas_call :215), which is also the reference's
@@ -93,10 +93,29 @@
 // and the column's last CTA sums the rows in split order into dw and db
 // (split_sum.cuh).  No sum depends on the order CTAs run in.
 //
+// bf16 builds (`depthwise_fwd_kernel_bf16`, `depthwise_dgrad_kernel_bf16`,
+// `depthwise_wgrad_kernel_bf16`): the same three walks on 2-byte cells, the
+// reference's kernels under its BF16 policy.  x, w, g, z, the residual, out
+// and dx are bf16; the bias, every tap product and sum, the epilogue and dw
+// and db are f32.  Each walk is one template over the cell type (`fwd_walk`,
+// `dgrad_walk`, `wgrad_walk`) that the f32 and the bf16 kernels both run:
+// the shared-memory ring holds the type's cells and a read converts a cell
+// to f32.  The forward rounds act(sum + b) (+ r) once to bf16 and sums the
+// rounded values for the GAP; the dgrad's and the wgrad's dz = g * act'(z)
+// is rounded to bf16 before any tap reads it (the reference's
+// cotangent_prologue); dx is rounded once.  Staging copies 16 bytes (8
+// lanes) where the lane count allows, else 4 (2 lanes), else, for an odd
+// pencil (Cb = 3), each 2-byte cell by a plain load and store, zero outside
+// the map, since cp.async has no 2-byte copy.
+//
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
 // forward's geometry as one int array, built once per shape); each entry
-// point returns cudaGetLastError() after its launch (0 on success).
+// point (and its `_bf16` twin, which takes the same arguments) returns
+// cudaGetLastError() after its launch (0 on success), and refuses a plan
+// whose shared memory is not the walk's own carve-up (core/blocking.py's
+// depthwise_*_smem_bytes at the build's cell size).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -104,6 +123,8 @@
 #include "split_sum.cuh"
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;   // threads per CTA
 constexpr int kMaxTaps = 25;    // filter taps a thread holds (5x5)
@@ -146,6 +167,34 @@ __device__ __forceinline__ float prologue(float g, float z, int act) {
 __device__ __forceinline__ int floordiv(int a, int b) {
   const int q = a / b;
   return (a % b != 0 && (a < 0) != (b < 0)) ? q - 1 : q;
+}
+
+// A cell's value in f32, and an f32 value stored as a cell (bf16: rounded
+// to nearest, once).
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// a read-only global load, in f32
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const bf16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// Cells of a ring buffer of `n` cells, rounded up to 16 bytes.
+template <typename T>
+__host__ __device__ __forceinline__ int ring_cells(int n) {
+  constexpr int k = 16 / sizeof(T);
+  return (n + k - 1) / k * k;
 }
 
 // ---------------------------------------------------------------------------
@@ -198,14 +247,14 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 // cp.async: `valid` false copies no byte and zero-fills the destination
 // (src-size 0); `src` must still be a global address.
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool valid) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
                :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
@@ -227,13 +276,16 @@ __device__ __forceinline__ void cp_async_wait_one() {
 // the group).  A thread takes one (column, lane unit) pair and a residue of
 // the rows and walks them by an offset it steps, so that a copy costs no
 // division: per-copy index arithmetic ran the forward's staging at 1.8x
-// its bytes' bound.
-__device__ __forceinline__ void stage_rows(float* dst, const float* src,
-                                           const float* any, int hs, int ws,
+// its bytes' bound.  A unit is 16 bytes where the lanes allow, else 4;
+// an odd bf16 pencil's cells go one by one as 2-byte loads and stores.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* dst, const T* src,
+                                           const T* any, int hs, int ws,
                                            int cb, int lanes, int r0, int c0,
                                            int hwin, int wwin) {
-  const bool vec = lanes % 4 == 0;
-  const int unit = vec ? 4 : 1;
+  constexpr int k16 = 16 / sizeof(T);    // cells of a 16-byte copy
+  constexpr int k4 = 4 / sizeof(T);      // of a 4-byte one
+  const int unit = lanes % k16 == 0 ? k16 : (lanes % k4 == 0 ? k4 : 1);
   const int units = lanes / unit;
   const int pairs = wwin * units;
   const int rstep = pairs >= kThreads ? 1 : kThreads / pairs;
@@ -247,14 +299,18 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     const bool w_ok = w >= 0 && w < ws;
     long long off = ((long long)(r0 + r) * ws + w) * cb + c;
     const long long src_row = (long long)ws * cb * rstep;
-    float* d = dst + (r * wwin + col) * lanes + c;
+    T* d = dst + (r * wwin + col) * lanes + c;
     for (int h = r0 + r; h < r0 + hwin; h += rstep) {
       const bool ok = w_ok && h >= 0 && h < hs;
-      const float* s = ok ? src + off : any;
-      if (vec) {
+      const T* s = ok ? src + off : any;
+      if (unit == k16) {
         cp_async16(d, s, ok);
-      } else {
+      } else if (unit == k4) {
         cp_async4(d, s, ok);
+      } else {
+        *reinterpret_cast<unsigned short*>(d) =
+            ok ? __ldg(reinterpret_cast<const unsigned short*>(s))
+               : (unsigned short)0;
       }
       off += src_row;
       d += dst_row;
@@ -264,8 +320,8 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
 
 // Issue the copies of item m's input window [hwin, wwin, lanes] into
 // `dst` (every thread of the CTA; the caller commits the group).
-__device__ __forceinline__ void stage_item(float* dst,
-                                           const float* __restrict__ x,
+template <typename T>
+__device__ __forceinline__ void stage_item(T* dst, const T* __restrict__ x,
                                            const FwdGeometry& g,
                                            const Item& m) {
   stage_rows(dst, x + (size_t)m.map * g.hi * g.wi * g.cb + m.lane0, x, g.hi,
@@ -273,21 +329,24 @@ __device__ __forceinline__ void stage_item(float* dst,
              m.j0 * g.stride - g.pad_left, g.hwin, g.wwin);
 }
 
-// kS: 1 or 2 for a 3x3 filter at dilation 1 and that stride (tap columns
-// kept in registers along a run), 0 for any filter, stride and dilation.
-template <int kS>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-depthwise_fwd_kernel(const float* __restrict__ x,
-                     const float* __restrict__ w,
-                     const float* __restrict__ bias,
-                     const float* __restrict__ residual,
-                     float* __restrict__ out, float* partials,
-                     float* __restrict__ pooled, int* counters,
-                     FwdGeometry g) {
-  extern __shared__ __align__(16) float smem[];
+// The forward's walk on cells of type T (float, or bf16 with f32 taps,
+// sums and epilogue, the result rounded once).  kS: 1 or 2 for a 3x3 filter
+// at dilation 1 and that stride (tap columns kept in registers along a
+// run), 0 for any filter, stride and dilation.
+template <typename T, int kS>
+__device__ __forceinline__ void fwd_walk(const T* __restrict__ x,
+                                         const T* __restrict__ w,
+                                         const float* __restrict__ bias,
+                                         const T* __restrict__ residual,
+                                         T* __restrict__ out, float* partials,
+                                         T* __restrict__ pooled,
+                                         int* counters, const FwdGeometry& g) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  T* smem = reinterpret_cast<T*>(dw_smem);
   const int L = g.lanes;
-  const int slot_floats = (g.hwin * g.wwin * L + 3) & ~3;
-  float* red = smem + kSlots * slot_floats;          // [npg, L] GAP sums
+  const int slot_floats = ring_cells<T>(g.hwin * g.wwin * L);
+  // [npg, L] GAP sums
+  float* red = reinterpret_cast<float*>(smem + kSlots * slot_floats);
   const int t = threadIdx.x;
   const int lane = t % L;
   const int npg = kThreads / L;
@@ -320,14 +379,14 @@ depthwise_fwd_kernel(const float* __restrict__ x,
 #pragma unroll
     for (int q = 0; q < (kS ? 9 : kMaxTaps); ++q) {
       wv[q] = (computes && q < taps)
-                  ? __ldg(w + ((size_t)c_b * taps + q) * g.cb + lg) : 0.0f;
+                  ? ldg_f32(w + ((size_t)c_b * taps + q) * g.cb + lg) : 0.0f;
     }
     const float bv = (bias != nullptr && computes) ? __ldg(bias + c_b * g.cb
                                                            + lg) : 0.0f;
     cp_async_wait_one();
     __syncthreads();
 
-    const float* win = smem + slot * slot_floats + lane;
+    const T* win = smem + slot * slot_floats + lane;
     float gsum = 0.0f;
     if (computes) {
       for (int u = pg; u < units; u += npg) {
@@ -339,14 +398,14 @@ depthwise_fwd_kernel(const float* __restrict__ x,
         if constexpr (kS != 0) {
           // rows i*s .. i*s + 2 of the window; a[d][e]: tap (d, e) of the
           // current output
-          const float* rp = win + (size_t)i * kS * g.wwin * L;
+          const T* rp = win + (size_t)i * kS * g.wwin * L;
           const int rs = g.wwin * L;
           float a[3][3];
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
 #pragma unroll
             for (int e = 0; e < 3; ++e) {
-              a[d][e] = rp[d * rs + (jb * kS + e) * L];
+              a[d][e] = to_f32(rp[d * rs + (jb * kS + e) * L]);
             }
           }
           for (int j = jb; j < je; ++j) {
@@ -356,11 +415,11 @@ depthwise_fwd_kernel(const float* __restrict__ x,
                 if constexpr (kS == 1) {
                   a[d][0] = a[d][1];
                   a[d][1] = a[d][2];
-                  a[d][2] = rp[d * rs + (j + 2) * L];
+                  a[d][2] = to_f32(rp[d * rs + (j + 2) * L]);
                 } else {
                   a[d][0] = a[d][2];
-                  a[d][1] = rp[d * rs + (2 * j + 1) * L];
-                  a[d][2] = rp[d * rs + (2 * j + 2) * L];
+                  a[d][1] = to_f32(rp[d * rs + (2 * j + 1) * L]);
+                  a[d][2] = to_f32(rp[d * rs + (2 * j + 2) * L]);
                 }
               }
             }
@@ -374,13 +433,14 @@ depthwise_fwd_kernel(const float* __restrict__ x,
             }
             const size_t o = o0 + (size_t)j * g.cb;
             float v = activate(acc + bv, g.act);
-            if (residual != nullptr) v += __ldg(residual + o);
-            out[o] = v;
-            gsum += v;
+            if (residual != nullptr) v += ldg_f32(residual + o);
+            const T stored = from_f32<T>(v);
+            out[o] = stored;
+            gsum += to_f32(stored);
           }
         } else {
           for (int j = jb; j < je; ++j) {
-            const float* base =
+            const T* base =
                 win + ((size_t)i * g.stride * g.wwin + j * g.stride) * L;
             float acc = 0.0f;
 #pragma unroll
@@ -388,14 +448,16 @@ depthwise_fwd_kernel(const float* __restrict__ x,
               if (q == taps) break;
               const int dh = q / g.wf;
               const int dw = q - dh * g.wf;
-              acc = fmaf(base[(dh * g.dil_h * g.wwin + dw * g.dil_w) * L],
+              acc = fmaf(to_f32(base[(dh * g.dil_h * g.wwin + dw * g.dil_w)
+                                     * L]),
                          wv[q], acc);
             }
             const size_t o = o0 + (size_t)j * g.cb;
             float v = activate(acc + bv, g.act);
-            if (residual != nullptr) v += __ldg(residual + o);
-            out[o] = v;
-            gsum += v;
+            if (residual != nullptr) v += ldg_f32(residual + o);
+            const T stored = from_f32<T>(v);
+            out[o] = stored;
+            gsum += to_f32(stored);
           }
         }
       }
@@ -419,6 +481,34 @@ depthwise_fwd_kernel(const float* __restrict__ x,
   }
 }
 
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_fwd_kernel(const float* __restrict__ x,
+                     const float* __restrict__ w,
+                     const float* __restrict__ bias,
+                     const float* __restrict__ residual,
+                     float* __restrict__ out, float* partials,
+                     float* __restrict__ pooled, int* counters,
+                     FwdGeometry g) {
+  fwd_walk<float, kS>(x, w, bias, residual, out, partials, pooled, counters,
+                      g);
+}
+
+// the bf16 build: bf16 cells, f32 bias, partials and sums; out and the
+// pooled features bf16
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_fwd_kernel_bf16(const bf16* __restrict__ x,
+                          const bf16* __restrict__ w,
+                          const float* __restrict__ bias,
+                          const bf16* __restrict__ residual,
+                          bf16* __restrict__ out, float* partials,
+                          bf16* __restrict__ pooled, int* counters,
+                          FwdGeometry g) {
+  fwd_walk<bf16, kS>(x, w, bias, residual, out, partials, pooled, counters,
+                     g);
+}
+
 // ---------------------------------------------------------------------------
 // dgrad: a persistent walk over items of dx, two cotangent windows in flight
 // ---------------------------------------------------------------------------
@@ -436,18 +526,32 @@ struct DgradGeometry {
 };
 constexpr int kDgradInts = sizeof(DgradGeometry) / sizeof(int);
 
-// dz = g * act'(z) over a landed slot, in place of g (floats [0, n), n a
-// multiple of 4).
-__device__ __forceinline__ void prologue_pass(float* gs, const float* zs,
-                                              int n, int act) {
-  for (int i = threadIdx.x; i < n / 4; i += kThreads) {
-    float4 v = reinterpret_cast<float4*>(gs)[i];
-    const float4 zz = reinterpret_cast<const float4*>(zs)[i];
-    v.x = prologue(v.x, zz.x, act);
-    v.y = prologue(v.y, zz.y, act);
-    v.z = prologue(v.z, zz.z, act);
-    v.w = prologue(v.w, zz.w, act);
-    reinterpret_cast<float4*>(gs)[i] = v;
+// dz = g * act'(z) over a landed slot, in place of g (cells [0, n), n a
+// whole number of 16 bytes); bf16 cells take the f32 product rounded once
+// to bf16, the reference's cotangent_prologue under BF16.
+template <typename T>
+__device__ __forceinline__ void prologue_pass(T* gs, const T* zs, int n,
+                                              int act) {
+  if constexpr (sizeof(T) == 4) {
+    for (int i = threadIdx.x; i < n / 4; i += kThreads) {
+      float4 v = reinterpret_cast<float4*>(gs)[i];
+      const float4 zz = reinterpret_cast<const float4*>(zs)[i];
+      v.x = prologue(v.x, zz.x, act);
+      v.y = prologue(v.y, zz.y, act);
+      v.z = prologue(v.z, zz.z, act);
+      v.w = prologue(v.w, zz.w, act);
+      reinterpret_cast<float4*>(gs)[i] = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < n / 2; i += kThreads) {
+      __nv_bfloat162 v = reinterpret_cast<__nv_bfloat162*>(gs)[i];
+      const __nv_bfloat162 zz = reinterpret_cast<const __nv_bfloat162*>(zs)[i];
+      v.x = __float2bfloat16_rn(prologue(__bfloat162float(v.x),
+                                         __bfloat162float(zz.x), act));
+      v.y = __float2bfloat16_rn(prologue(__bfloat162float(v.y),
+                                         __bfloat162float(zz.y), act));
+      reinterpret_cast<__nv_bfloat162*>(gs)[i] = v;
+    }
   }
 }
 
@@ -457,23 +561,24 @@ __device__ __forceinline__ void prologue_pass(float* gs, const float* zs,
 // (2: dw 0 at window column wc + k and dw 2 one left of it; 1: dw 1 at wc +
 // k).  Output k + 1 reads the column right of output k's, so the columns a
 // step along the run brings are one load per row tap.
-template <int RT, int CT>
-__device__ __forceinline__ void phase_run(const float* cell,
+template <int RT, int CT, typename T>
+__device__ __forceinline__ void phase_run(const T* cell,
                                           const float (&w9)[9], int rs,
                                           int L, int wr, int wc, int k0,
-                                          int k1, float* out, int ostep) {
+                                          int k1, T* out, int ostep) {
   float cur[RT], prv[RT];
 #pragma unroll
   for (int t = 0; t < RT; ++t) {
-    cur[t] = cell[(wr - t) * rs + (wc + k0) * L];
-    prv[t] = CT == 2 ? cell[(wr - t) * rs + (wc + k0 - 1) * L] : 0.0f;
+    cur[t] = to_f32(cell[(wr - t) * rs + (wc + k0) * L]);
+    prv[t] = CT == 2 ? to_f32(cell[(wr - t) * rs + (wc + k0 - 1) * L])
+                     : 0.0f;
   }
   for (int k = k0; k < k1; ++k) {
     if (k > k0) {
 #pragma unroll
       for (int t = 0; t < RT; ++t) {
         if constexpr (CT == 2) prv[t] = cur[t];
-        cur[t] = cell[(wr - t) * rs + (wc + k) * L];
+        cur[t] = to_f32(cell[(wr - t) * rs + (wc + k) * L]);
       }
     }
     float acc = 0.0f;
@@ -483,23 +588,26 @@ __device__ __forceinline__ void phase_run(const float* cell,
       acc = fmaf(cur[t], w9[3 * dh + (CT == 2 ? 0 : 1)], acc);
       if constexpr (CT == 2) acc = fmaf(prv[t], w9[3 * dh + 2], acc);
     }
-    out[(size_t)k * ostep] = acc;
+    out[(size_t)k * ostep] = from_f32<T>(acc);
   }
 }
 
-// kS: 1 for a 3x3 filter at dilation 1 and stride 1 (the forward's register
-// path with the taps turned by 180 degrees), 2 for it at stride 2 (dx split
-// by phase, each phase over only its own taps), 0 for any filter up to 5x5,
-// stride and dilation (a tap loop that tests each tap's divisions).
-template <int kS>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-depthwise_dgrad_kernel(const float* __restrict__ g,
-                       const float* __restrict__ z,
-                       const float* __restrict__ w,
-                       float* __restrict__ dx, DgradGeometry geo) {
-  extern __shared__ __align__(16) float smem[];
+// The dgrad's walk on cells of type T (float, or bf16 with f32 taps and
+// sums, dz rounded to bf16 before the taps and dx once).  kS: 1 for a 3x3
+// filter at dilation 1 and stride 1 (the forward's register path with the
+// taps turned by 180 degrees), 2 for it at stride 2 (dx split by phase,
+// each phase over only its own taps), 0 for any filter up to 5x5, stride
+// and dilation (a tap loop that tests each tap's divisions).
+template <typename T, int kS>
+__device__ __forceinline__ void dgrad_walk(const T* __restrict__ g,
+                                           const T* __restrict__ z,
+                                           const T* __restrict__ w,
+                                           T* __restrict__ dx,
+                                           const DgradGeometry& geo) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  T* smem = reinterpret_cast<T*>(dw_smem);
   const int L = geo.lanes;
-  const int win_floats = (geo.hwin * geo.wwin * L + 3) & ~3;
+  const int win_floats = ring_cells<T>(geo.hwin * geo.wwin * L);
   const int slot_floats = (geo.prologue ? 2 : 1) * win_floats;
   const int t = threadIdx.x;
   const int lane = t % L;
@@ -523,7 +631,7 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
     c0 = floordiv(m.j0 + geo.pad_left - (geo.wf - 1) * geo.dil_w,
                   geo.stride);
   };
-  auto stage = [&](float* slot, const Item& m) {
+  auto stage = [&](T* slot, const Item& m) {
     int r0, c0;
     origin(m, r0, c0);
     const size_t base = (size_t)m.map * map_floats + m.lane0;
@@ -559,7 +667,7 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
       // kS 1 reads the taps turned by 180 degrees
       const int tap = kS == 1 ? 8 - q : q;
       wv[q] = (computes && q < taps)
-                  ? __ldg(w + ((size_t)c_b * taps + tap) * geo.cb + lg)
+                  ? ldg_f32(w + ((size_t)c_b * taps + tap) * geo.cb + lg)
                   : 0.0f;
     }
     cp_async_wait_one();
@@ -567,12 +675,12 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
 
     // dz once per staged cell, in place of g: each cell is read by up to
     // three outputs' taps, and forming it at each read timed slower
-    float* gs = smem + slot * slot_floats;
+    T* gs = smem + slot * slot_floats;
     if (geo.prologue) {
       prologue_pass(gs, gs + win_floats, win_floats, geo.act);
       __syncthreads();
     }
-    const float* cell = gs + lane;
+    const T* cell = gs + lane;
     int r0, c0;
     origin(m, r0, c0);
     if (computes) {
@@ -581,8 +689,8 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
         const int rest = u - i * parts * segs;
         const int part = rest / segs;
         const int seg = rest - part * segs;
-        float* orow = dx + (((size_t)m.map * geo.hi + m.i0 + i) * geo.wi
-                            + m.j0) * geo.cb + lg;
+        T* orow = dx + (((size_t)m.map * geo.hi + m.i0 + i) * geo.wi
+                        + m.j0) * geo.cb + lg;
         if constexpr (kS == 1) {
           // window rows i .. i + 2 turned: a[d][e] is tap (2 - d, 2 - e)
           const int run = (geo.wob + segs - 1) / segs;
@@ -593,7 +701,9 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
 #pragma unroll
-            for (int e = 0; e < 3; ++e) a[d][e] = cell[rp + d * rs + (jb + e) * L];
+            for (int e = 0; e < 3; ++e) {
+              a[d][e] = to_f32(cell[rp + d * rs + (jb + e) * L]);
+            }
           }
           for (int j = jb; j < je; ++j) {
             if (j > jb) {
@@ -601,7 +711,7 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
               for (int d = 0; d < 3; ++d) {
                 a[d][0] = a[d][1];
                 a[d][1] = a[d][2];
-                a[d][2] = cell[rp + d * rs + (j + 2) * L];
+                a[d][2] = to_f32(cell[rp + d * rs + (j + 2) * L]);
               }
             }
             float acc = 0.0f;
@@ -612,7 +722,7 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
                 acc = fmaf(a[d][e], wv[3 * d + e], acc);
               }
             }
-            orow[(size_t)j * geo.cb] = acc;
+            orow[(size_t)j * geo.cb] = from_f32<T>(acc);
           }
         } else if constexpr (kS == 2) {
           // the row's phase fixes its row taps, `part` the column phase
@@ -626,7 +736,7 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
           if (k0 < k1) {
             const int wr = (ut >> 1) - r0;           // dh 0 (even), dh 1 (odd)
             const int wc = ((v0 + jf) >> 1) - c0;    // dw 0 (even), dw 1 (odd)
-            float* o = orow + (size_t)jf * geo.cb;
+            T* o = orow + (size_t)jf * geo.cb;
             const int ostep = 2 * geo.cb;
             if (ut & 1) {
               if (part) {
@@ -656,19 +766,39 @@ depthwise_dgrad_kernel(const float* __restrict__ g,
               const int uh = ah - (q / geo.wf) * geo.dil_h;
               const int uw = aw - (q % geo.wf) * geo.dil_w;
               if (geo.stride == 1) {
-                acc = fmaf(cell[uh * rs + uw * L], wv[q], acc);
+                acc = fmaf(to_f32(cell[uh * rs + uw * L]), wv[q], acc);
               } else if (uh % geo.stride == 0 && uw % geo.stride == 0) {
-                acc = fmaf(cell[(uh / geo.stride) * rs
-                                + (uw / geo.stride) * L], wv[q], acc);
+                acc = fmaf(to_f32(cell[(uh / geo.stride) * rs
+                                       + (uw / geo.stride) * L]),
+                           wv[q], acc);
               }
             }
-            orow[(size_t)j * geo.cb] = acc;
+            orow[(size_t)j * geo.cb] = from_f32<T>(acc);
           }
         }
       }
     }
     __syncthreads();                 // the slot is refilled next iteration
   }
+}
+
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_dgrad_kernel(const float* __restrict__ g,
+                       const float* __restrict__ z,
+                       const float* __restrict__ w,
+                       float* __restrict__ dx, DgradGeometry geo) {
+  dgrad_walk<float, kS>(g, z, w, dx, geo);
+}
+
+// the bf16 build: g, z, w and dx bf16
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_dgrad_kernel_bf16(const bf16* __restrict__ g,
+                            const bf16* __restrict__ z,
+                            const bf16* __restrict__ w,
+                            bf16* __restrict__ dx, DgradGeometry geo) {
+  dgrad_walk<bf16, kS>(g, z, w, dx, geo);
 }
 
 // ---------------------------------------------------------------------------
@@ -690,23 +820,27 @@ struct WgradGeometry {
 };
 constexpr int kWgradInts = sizeof(WgradGeometry) / sizeof(int);
 
-// kS: 1 or 2 for a 3x3 filter at dilation 1 and that stride (a run of a
-// row with the three tap columns in registers), 0 for any filter up to 5x5,
-// stride and dilation (a tap loop).
-template <int kS>
-__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
-depthwise_wgrad_kernel(const float* __restrict__ x,
-                       const float* __restrict__ g,
-                       const float* __restrict__ z, float* ws, float* out,
-                       int* counters, WgradGeometry geo) {
-  extern __shared__ __align__(16) float smem[];
+// The wgrad's walk on cells of type T (float, or bf16: dz rounded to bf16
+// before the taps, every product and sum f32).  kS: 1 or 2 for a 3x3 filter
+// at dilation 1 and that stride (a run of a row with the three tap columns
+// in registers), 0 for any filter up to 5x5, stride and dilation (a tap
+// loop).
+template <typename T, int kS>
+__device__ __forceinline__ void wgrad_walk(const T* __restrict__ x,
+                                           const T* __restrict__ g,
+                                           const T* __restrict__ z,
+                                           float* ws, float* out,
+                                           int* counters,
+                                           const WgradGeometry& geo) {
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  T* smem = reinterpret_cast<T*>(dw_smem);
   const int L = geo.lanes;
   const int split = blockIdx.x, column = blockIdx.y;
   const int groups = geo.cb / L;
   const int c_b = column / groups;
   const int lane0 = (column - c_b * groups) * L;
-  const int x_floats = (geo.hwin * geo.wwin * L + 3) & ~3;
-  const int t_floats = (geo.hob * geo.wob * L + 3) & ~3;
+  const int x_floats = ring_cells<T>(geo.hwin * geo.wwin * L);
+  const int t_floats = ring_cells<T>(geo.hob * geo.wob * L);
   const int slot_floats = x_floats + (geo.prologue ? 2 : 1) * t_floats;
   const int t = threadIdx.x;
   const int lane = t % L;
@@ -727,7 +861,7 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
 
   // item `it` of the column: image it / tiles, tile it % tiles; its x
   // window (zeros outside the map: the pads), g tile and z tile
-  auto stage = [&](float* slot, int it) {
+  auto stage = [&](T* slot, int it) {
     const int img = it / tiles, tile = it - img * tiles;
     const int i0 = tile / tiles_w * geo.hob, j0 = tile % tiles_w * geo.wob;
     const size_t map = (size_t)img * geo.cblk + c_b;
@@ -766,31 +900,31 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
     cp_async_wait_one();
     __syncthreads();
 
-    const float* xs = smem + slot * slot_floats;
-    float* gs = smem + slot * slot_floats + x_floats;
+    const T* xs = smem + slot * slot_floats;
+    T* gs = smem + slot * slot_floats + x_floats;
     // dz once per staged cell, in place of g
     if (geo.prologue) {
       prologue_pass(gs, gs + t_floats, t_floats, geo.act);
       __syncthreads();
     }
     if (computes) {
-      const float* xw = xs + lane;
+      const T* xw = xs + lane;
       for (int u = pg; u < units; u += npg) {
         const int i = u / segs;
         const int jb = (u - i * segs) * run;
         const int je = min(geo.wob, jb + run);
-        const float* dzr = gs + (size_t)i * geo.wob * L + lane;
+        const T* dzr = gs + (size_t)i * geo.wob * L + lane;
         if constexpr (kS != 0) {
           // window rows i*s .. i*s + 2; a[d][e]: tap (d, e)'s x for the
           // current output
-          const float* rp = xw + (size_t)i * kS * rs;
+          const T* rp = xw + (size_t)i * kS * rs;
           float a[3][3];
           if (jb < je) {
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
 #pragma unroll
               for (int e = 0; e < 3; ++e) {
-                a[d][e] = rp[d * rs + (jb * kS + e) * L];
+                a[d][e] = to_f32(rp[d * rs + (jb * kS + e) * L]);
               }
             }
           }
@@ -801,15 +935,15 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
                 if constexpr (kS == 1) {
                   a[d][0] = a[d][1];
                   a[d][1] = a[d][2];
-                  a[d][2] = rp[d * rs + (j + 2) * L];
+                  a[d][2] = to_f32(rp[d * rs + (j + 2) * L]);
                 } else {
                   a[d][0] = a[d][2];
-                  a[d][1] = rp[d * rs + (2 * j + 1) * L];
-                  a[d][2] = rp[d * rs + (2 * j + 2) * L];
+                  a[d][1] = to_f32(rp[d * rs + (2 * j + 1) * L]);
+                  a[d][2] = to_f32(rp[d * rs + (2 * j + 2) * L]);
                 }
               }
             }
-            const float dv = dzr[j * L];
+            const float dv = to_f32(dzr[j * L]);
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
 #pragma unroll
@@ -821,13 +955,13 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
           }
         } else {
           for (int j = jb; j < je; ++j) {
-            const float* base =
+            const T* base =
                 xw + ((size_t)i * geo.stride * geo.wwin + j * geo.stride) * L;
-            const float dv = dzr[j * L];
+            const float dv = to_f32(dzr[j * L]);
 #pragma unroll
             for (int q = 0; q < kMaxTaps; ++q) {
               if (q == taps) break;
-              acc[q] = fmaf(base[toff[q]], dv, acc[q]);
+              acc[q] = fmaf(to_f32(base[toff[q]]), dv, acc[q]);
             }
             dbacc += dv;
           }
@@ -839,7 +973,7 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
 
   // the position groups' sums [npg, taps + 1, L], added in group order into
   // the share's row (the ring is free: every copy has landed and been read)
-  float* red = smem;
+  float* red = reinterpret_cast<float*>(dw_smem);
   const int stride_g = (taps + 1) * L;
   if (computes) {
 #pragma unroll
@@ -880,11 +1014,32 @@ depthwise_wgrad_kernel(const float* __restrict__ x,
   }
 }
 
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_wgrad_kernel(const float* __restrict__ x,
+                       const float* __restrict__ g,
+                       const float* __restrict__ z, float* ws, float* out,
+                       int* counters, WgradGeometry geo) {
+  wgrad_walk<float, kS>(x, g, z, ws, out, counters, geo);
+}
+
+// the bf16 build: x, g and z bf16; the workspace, dw and db f32
+template <int kS>
+__global__ void __launch_bounds__(kThreads, kMinBlocksPerSm)
+depthwise_wgrad_kernel_bf16(const bf16* __restrict__ x,
+                            const bf16* __restrict__ g,
+                            const bf16* __restrict__ z, float* ws,
+                            float* out, int* counters, WgradGeometry geo) {
+  wgrad_walk<bf16, kS>(x, g, z, ws, out, counters, geo);
+}
+
 // Raise a kernel's dynamic shared-memory limit once per device to the most
-// any launch has asked of it (the attribute is the kernel's, per device).
+// any launch has asked of it (the attribute is the kernel's, per device);
+// `slot` names the kernel among its entry's instances (the f32 variants,
+// then the bf16 ones).
 template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int variant, int bytes) {
-  static int allowed[kMaxDevices][4];
+cudaError_t allow_smem(Kernel kernel, int slot, int bytes) {
+  static int allowed[kMaxDevices][6];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -892,12 +1047,153 @@ cudaError_t allow_smem(Kernel kernel, int variant, int bytes) {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   }
-  int& have = allowed[device][variant];
+  int& have = allowed[device][slot];
   if (bytes <= have || bytes <= 48 * 1024) return cudaSuccess;
   err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) have = bytes;
   return err;
+}
+
+// The walks' shared memory at cells of type T (core/blocking.py
+// depthwise_fwd_smem_bytes, depthwise_dgrad_smem_bytes,
+// depthwise_wgrad_smem_bytes): the two-slot ring of T cells, each buffer
+// rounded up to 16 bytes; the forward's GAP sums and the wgrad's position
+// groups' sums (which reuse the ring) f32.
+template <typename T>
+size_t fwd_smem(const FwdGeometry& g, bool gap) {
+  return sizeof(T) * kSlots * (size_t)ring_cells<T>(g.hwin * g.wwin * g.lanes)
+         + (gap ? 4 * (size_t)(kThreads / g.lanes) * g.lanes : 0);
+}
+
+template <typename T>
+size_t dgrad_smem(const DgradGeometry& g) {
+  return sizeof(T) * kSlots * (g.prologue ? 2 : 1)
+         * (size_t)ring_cells<T>(g.hwin * g.wwin * g.lanes);
+}
+
+template <typename T>
+size_t wgrad_smem(const WgradGeometry& g) {
+  const size_t slot = ring_cells<T>(g.hwin * g.wwin * g.lanes)
+                      + (g.prologue ? 2 : 1)
+                            * (size_t)ring_cells<T>(g.hob * g.wob * g.lanes);
+  const size_t red = 4 * (size_t)(kThreads / g.lanes)
+                     * (g.hf * g.wf + 1) * g.lanes;
+  const size_t ring = sizeof(T) * kSlots * slot;
+  return ring > red ? ring : red;
+}
+
+// The entries' launches, by cell type (the f32 kernels, or their bf16
+// builds); each refuses a plan whose shared memory is not its walk's.
+template <typename T>
+int fwd_launch(const void* x, const void* w, const void* bias,
+               const void* residual, void* out, void* partials, void* pooled,
+               void* counters, const int* plan, void* stream) {
+  FwdGeometry g;
+  int* fields = reinterpret_cast<int*>(&g);
+  for (int i = 0; i < kFwdInts; ++i) fields[i] = plan[i];
+  const int grid = plan[kFwdInts];
+  const int smem = plan[kFwdInts + 1];
+  const int variant = plan[kFwdInts + 2];
+  if (partials != nullptr && (pooled == nullptr || counters == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (variant < 0 || variant > 2 || g.lanes < 1 || g.cb % g.lanes != 0
+      || (size_t)smem != fwd_smem<T>(g, partials != nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (grid <= 0) return 0;
+  using Kernel = void (*)(const T*, const T*, const float*, const T*, T*,
+                          float*, T*, int*, FwdGeometry);
+  Kernel kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = variant == 1   ? depthwise_fwd_kernel<1>
+             : variant == 2 ? depthwise_fwd_kernel<2>
+                            : depthwise_fwd_kernel<0>;
+  } else {
+    kernel = variant == 1   ? depthwise_fwd_kernel_bf16<1>
+             : variant == 2 ? depthwise_fwd_kernel_bf16<2>
+                            : depthwise_fwd_kernel_bf16<0>;
+  }
+  cudaError_t err = allow_smem(kernel, variant + (sizeof(T) == 4 ? 0 : 3),
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)w, (const float*)bias, (const T*)residual,
+      (T*)out, (float*)partials, (T*)pooled, (int*)counters, g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dgrad_launch(const void* g, const void* z, const void* w, void* dx,
+                 const int* plan, void* stream) {
+  DgradGeometry geo;
+  int* fields = reinterpret_cast<int*>(&geo);
+  for (int i = 0; i < kDgradInts; ++i) fields[i] = plan[i];
+  const int grid = plan[kDgradInts];
+  const int smem = plan[kDgradInts + 1];
+  const int variant = plan[kDgradInts + 2];
+  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
+      || geo.lanes < 1
+      || geo.cb % geo.lanes != 0 || geo.hf * geo.wf > kMaxTaps
+      || (size_t)smem != dgrad_smem<T>(geo)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (grid <= 0) return 0;
+  using Kernel = void (*)(const T*, const T*, const T*, T*, DgradGeometry);
+  Kernel kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = variant == 1   ? depthwise_dgrad_kernel<1>
+             : variant == 2 ? depthwise_dgrad_kernel<2>
+                            : depthwise_dgrad_kernel<0>;
+  } else {
+    kernel = variant == 1   ? depthwise_dgrad_kernel_bf16<1>
+             : variant == 2 ? depthwise_dgrad_kernel_bf16<2>
+                            : depthwise_dgrad_kernel_bf16<0>;
+  }
+  cudaError_t err = allow_smem(kernel, variant + (sizeof(T) == 4 ? 0 : 3),
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)g, (const T*)z, (const T*)w, (T*)dx, geo);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int wgrad_launch(const void* x, const void* g, const void* z, void* ws,
+                 void* out, void* counters, const int* plan, void* stream) {
+  WgradGeometry geo;
+  int* fields = reinterpret_cast<int*>(&geo);
+  for (int i = 0; i < kWgradInts; ++i) fields[i] = plan[i];
+  const int columns = plan[kWgradInts];
+  const int smem = plan[kWgradInts + 1];
+  const int variant = plan[kWgradInts + 2];
+  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
+      || geo.lanes < 1 || geo.cb % geo.lanes != 0 || geo.splits < 1
+      || geo.hf * geo.wf > kMaxTaps
+      || columns != geo.cblk * (geo.cb / geo.lanes)
+      || (size_t)smem != wgrad_smem<T>(geo)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (columns <= 0 || geo.per_column <= 0) return 0;
+  using Kernel = void (*)(const T*, const T*, const T*, float*, float*, int*,
+                          WgradGeometry);
+  Kernel kernel;
+  if constexpr (sizeof(T) == 4) {
+    kernel = variant == 1   ? depthwise_wgrad_kernel<1>
+             : variant == 2 ? depthwise_wgrad_kernel<2>
+                            : depthwise_wgrad_kernel<0>;
+  } else {
+    kernel = variant == 1   ? depthwise_wgrad_kernel_bf16<1>
+             : variant == 2 ? depthwise_wgrad_kernel_bf16<2>
+                            : depthwise_wgrad_kernel_bf16<0>;
+  }
+  cudaError_t err = allow_smem(kernel, variant + (sizeof(T) == 4 ? 0 : 3),
+                               smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3(geo.splits, columns), kThreads, smem,
+           (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)g, (const T*)z, (float*)ws, (float*)out,
+      (int*)counters, geo);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -921,25 +1217,18 @@ int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
                          const void* residual, void* out, void* partials,
                          void* pooled, void* counters, const int* plan,
                          void* stream) {
-  FwdGeometry g;
-  int* fields = reinterpret_cast<int*>(&g);
-  for (int i = 0; i < kFwdInts; ++i) fields[i] = plan[i];
-  const int grid = plan[kFwdInts];
-  const int smem = plan[kFwdInts + 1];
-  const int variant = plan[kFwdInts + 2];
-  if (grid <= 0) return 0;
-  if (partials != nullptr && (pooled == nullptr || counters == nullptr))
-    return (int)cudaErrorInvalidValue;
-  auto kernel = variant == 1   ? depthwise_fwd_kernel<1>
-                : variant == 2 ? depthwise_fwd_kernel<2>
-                               : depthwise_fwd_kernel<0>;
-  cudaError_t err = allow_smem(kernel, variant, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)w, (const float*)bias,
-      (const float*)residual, (float*)out, (float*)partials, (float*)pooled,
-      (int*)counters, g);
-  return (int)cudaGetLastError();
+  return fwd_launch<float>(x, w, bias, residual, out, partials, pooled,
+                           counters, plan, stream);
+}
+
+// The bf16 build of the forward: x, w, residual, out and pooled bf16; the
+// bias and partials f32.
+int conv2d_depthwise_fwd_bf16(const void* x, const void* w, const void* bias,
+                              const void* residual, void* out,
+                              void* partials, void* pooled, void* counters,
+                              const int* plan, void* stream) {
+  return fwd_launch<bf16>(x, w, bias, residual, out, partials, pooled,
+                          counters, plan, stream);
 }
 
 // The dgrad: g, and z where the plan asks for the prologue, into dx.  plan:
@@ -948,28 +1237,13 @@ int conv2d_depthwise_fwd(const void* x, const void* w, const void* bias,
 // dilation 1 and that stride).
 int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
                            void* dx, const int* plan, void* stream) {
-  DgradGeometry geo;
-  int* fields = reinterpret_cast<int*>(&geo);
-  for (int i = 0; i < kDgradInts; ++i) fields[i] = plan[i];
-  const int grid = plan[kDgradInts];
-  const int smem = plan[kDgradInts + 1];
-  const int variant = plan[kDgradInts + 2];
-  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
-      || geo.lanes < 1
-      || geo.cb % geo.lanes != 0 || geo.hf * geo.wf > kMaxTaps) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (grid <= 0) return 0;
-  using Kernel = void (*)(const float*, const float*, const float*, float*,
-                          DgradGeometry);
-  const Kernel kernel = variant == 1   ? depthwise_dgrad_kernel<1>
-                        : variant == 2 ? depthwise_dgrad_kernel<2>
-                                       : depthwise_dgrad_kernel<0>;
-  cudaError_t err = allow_smem(kernel, variant, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)g, (const float*)z, (const float*)w, (float*)dx, geo);
-  return (int)cudaGetLastError();
+  return dgrad_launch<float>(g, z, w, dx, plan, stream);
+}
+
+// The bf16 build of the dgrad: g, z, w and dx bf16.
+int conv2d_depthwise_dgrad_bf16(const void* g, const void* z, const void* w,
+                                void* dx, const int* plan, void* stream) {
+  return dgrad_launch<bf16>(g, z, w, dx, plan, stream);
 }
 
 // The wgrad: `splits` position shares of each (channel block, lane group)
@@ -981,31 +1255,14 @@ int conv2d_depthwise_dgrad(const void* g, const void* z, const void* w,
 int conv2d_depthwise_wgrad(const void* x, const void* g, const void* z,
                            void* ws, void* out, void* counters,
                            const int* plan, void* stream) {
-  WgradGeometry geo;
-  int* fields = reinterpret_cast<int*>(&geo);
-  for (int i = 0; i < kWgradInts; ++i) fields[i] = plan[i];
-  const int columns = plan[kWgradInts];
-  const int smem = plan[kWgradInts + 1];
-  const int variant = plan[kWgradInts + 2];
-  if ((geo.prologue != 0) != (z != nullptr) || variant < 0 || variant > 2
-      || geo.lanes < 1 || geo.cb % geo.lanes != 0 || geo.splits < 1
-      || geo.hf * geo.wf > kMaxTaps
-      || columns != geo.cblk * (geo.cb / geo.lanes)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (columns <= 0 || geo.per_column <= 0) return 0;
-  using Kernel = void (*)(const float*, const float*, const float*, float*,
-                          float*, int*, WgradGeometry);
-  const Kernel kernel = variant == 1   ? depthwise_wgrad_kernel<1>
-                        : variant == 2 ? depthwise_wgrad_kernel<2>
-                                       : depthwise_wgrad_kernel<0>;
-  cudaError_t err = allow_smem(kernel, variant, smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(geo.splits, columns), kThreads, smem,
-           (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)z, (float*)ws,
-      (float*)out, (int*)counters, geo);
-  return (int)cudaGetLastError();
+  return wgrad_launch<float>(x, g, z, ws, out, counters, plan, stream);
+}
+
+// The bf16 build of the wgrad: x, g and z bf16; ws and out f32.
+int conv2d_depthwise_wgrad_bf16(const void* x, const void* g, const void* z,
+                                void* ws, void* out, void* counters,
+                                const int* plan, void* stream) {
+  return wgrad_launch<bf16>(x, g, z, ws, out, counters, plan, stream);
 }
 
 const char* cuda_error_name(int code) {

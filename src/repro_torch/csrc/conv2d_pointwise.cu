@@ -1,4 +1,5 @@
-// Pointwise (1x1, stride 1) convolution, f32 — hand-written for Hopper (sm_90a).
+// Pointwise (1x1, stride 1) convolution, f32 and bf16 — hand-written for
+// Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel `_pw_fwd_kernel` of
 // src/repro/kernels/conv2d_pointwise.py (:56, pallas_call :211), out =
@@ -67,11 +68,15 @@
 // give few CTAs (the N split doubles them) and short contractions give few
 // stages to hide a stage's copies behind.
 //
+// The bf16 build (`pointwise_tile_kernel_bf16`, namespace `pwbf16` below)
+// is the same tile on bf16 operands, the reference's forward under BF16.
+//
 // C interface for ctypes: pointers and the stream as void*, ints as int (the
 // tile's plan as one int array, built once per shape); each entry point
 // returns cudaGetLastError() after its launch (0 on success).
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
@@ -419,21 +424,353 @@ pointwise_tile_kernel(const float* __restrict__ x,
   }
 }
 
-void* pick_tile(int lanes) {
+// ---------------------------------------------------------------------------
+// the bf16 build of the tile
+// ---------------------------------------------------------------------------
+//
+// `pointwise_tile_kernel_bf16<N>`: the tile above on bf16 operands, the
+// reference's fused inference forward under BF16 (src/repro/kernels/
+// conv2d_pointwise.py `_pwconv`, :351: x, w and the residual cast to bf16;
+// the wrapper casts the f32 master weights once a call).  What differs:
+// * One bf16 wgmma (m64nNk16) a k16 step, one product a MAC: no TF32 split,
+//   so the producer neither splits nor transposes the weights.  The weight
+//   chunk [chunk][N] is N-contiguous (MN-major), which wgmma reads for
+//   16-bit types through its transpose bit: the producer copies each 8-lane
+//   run of a channel (16 bytes) by cp.async straight into the core-matrix
+//   order [N/8][chunk][8] the descriptor reads (fwd_tile.cuh's bf16 weight
+//   order at one tap), or, where Cob is not a multiple of 8, each cell by a
+//   2-byte load and store.  A (the input rows, K-contiguous) is read from
+//   shared memory into registers as bf16 pairs.
+// * The chunk is a multiple of 16 (k16 steps) and Cib pads to 16 with
+//   zero-filled cells; a staged row is chunk + 8 bf16 (16 bytes never read),
+//   so that the eight rows a warp loads fall on distinct bank quads.  Row
+//   copies are 16 bytes where Cib is a multiple of 8, 4 where it is even,
+//   else 2-byte loads and stores (cp.async has no 2-byte copy).
+// * One f32 accumulator over the whole contraction, as the f32 tile keeps
+//   (MobileNet's K is at most 1024).  The epilogue is act(acc + b) with an
+//   f32 bias, then + r (bf16, in f32), then one rounding to bf16 at the
+//   store; the GAP sums the stored bf16 values in f32, and the pooled
+//   features leave as bf16 (split_sum.cuh's fold of the f32 partials).
+namespace pwbf16 {
+
+using bf = __nv_bfloat16;
+
+// Cib rounded up to the k16 slices of the contraction.
+__host__ __device__ inline int kpad(const Geometry& g) {
+  return (g.kw + 15) / 16 * 16;
+}
+
+__host__ __device__ inline int row_elems(const Geometry& g) {
+  return g.chunk + 8;
+}
+
+// Dynamic shared memory of one CTA (core/blocking.py pointwise_smem_bytes
+// at op_bytes 2): 128 bytes to align the base; per ring slot the input rows
+// [rows][chunk + 8] and the weight chunk [N/8][chunk][8], bf16; with GAP
+// the consumer warps' f32 sums.
+__host__ inline size_t smem_bytes(const Geometry& g, int n, int wgs) {
+  return 128 + 2 * (size_t)kSlots * ((size_t)g.rows * row_elems(g)
+                                     + (size_t)g.chunk * n)
+         + (g.gap ? (size_t)16 * wgs * n : 0);
+}
+
+// The carve-up of one CTA (smem_bytes): kSlots slots of [rows | weights],
+// each 128-byte aligned, then the GAP sums.
+struct Smem {
+  char* base;
+  int slot;            // bytes of one slot
+  int wts;             // the weights' offset in a slot, in bytes
+  float* red;          // [4 * wgs][N] the consumer warps' GAP sums
+
+  __device__ bf* rows_of(int s) const {
+    return reinterpret_cast<bf*>(base + s * slot);
+  }
+  __device__ bf* wts_of(int s) const {
+    return reinterpret_cast<bf*>(base + s * slot + wts);
+  }
+};
+
+template <int N>
+__device__ inline Smem carve(char* smem, const Geometry& g) {
+  Smem m;
+  m.base = smem + ((128 - (dt::smem_u32(smem) & 127)) & 127);
+  m.wts = 2 * g.rows * row_elems(g);
+  m.slot = m.wts + 2 * g.chunk * N;
+  m.red = reinterpret_cast<float*>(m.base + kSlots * m.slot);
+  return m;
+}
+
+// Issue stage s's copies (the producer's 128 threads, `tid`; the caller
+// commits them as one group): the tile's input rows [rows][chunk] of
+// channels [c0, c0 + chunk) of input block kb, zero past the map and past
+// Cib, and the weight chunk as [N/8][chunk][8], zero past Cib and Cob.
+template <int N>
+__device__ inline void issue_stage(const Smem& m, int slot,
+                                   const bf* __restrict__ x,
+                                   const bf* __restrict__ w,
+                                   const Geometry& g, int n, int o_b, int o0,
+                                   int kb, int c0, int p0, int tid) {
+  const int unit = g.kw % 8 == 0 ? 8 : (g.kw % 2 == 0 ? 2 : 1);
+  const int per_row = g.chunk / unit;
+  const int ld = row_elems(g);
+  const size_t slab = ((size_t)(n * g.kblk + kb) * g.hw + p0) * g.kw + c0;
+  const int valid_rows = min(g.rows, g.hw - p0);
+  const int valid_k = min(g.chunk, g.kw - c0);
+  bf* rows = m.rows_of(slot);
+  for (int i = tid; i < g.rows * per_row; i += kWarpgroup) {
+    const int r = i / per_row;
+    const int e = (i - r * per_row) * unit;
+    const bool ok = r < valid_rows && e < valid_k;
+    const bf* src = ok ? x + slab + (size_t)r * g.kw + e : x;
+    bf* dst = rows + r * ld + e;
+    if (unit == 8) {
+      cp_async16(reinterpret_cast<float*>(dst),
+                 reinterpret_cast<const float*>(src), ok);
+    } else if (unit == 2) {
+      cp_async4(reinterpret_cast<float*>(dst),
+                reinterpret_cast<const float*>(src), ok);
+    } else {
+      *reinterpret_cast<unsigned short*>(dst) =
+          ok ? __ldg(reinterpret_cast<const unsigned short*>(src))
+             : (unsigned short)0;
+    }
+  }
+  // w[o_b][kb][c0 + k][o0 + 8q + e] at (q, k, e)
+  const int valid_n = min(N, g.ow - o0);
+  const bf* wb = w + ((size_t)(o_b * g.kblk + kb) * g.kw + c0) * g.ow + o0;
+  bf* wts = m.wts_of(slot);
+  if (g.ow % 8 == 0) {
+    for (int u = tid; u < N / 8 * g.chunk; u += kWarpgroup) {
+      const int q = u / g.chunk;
+      const int k = u - q * g.chunk;
+      const bool ok = k < valid_k && 8 * q < valid_n;
+      const bf* src = ok ? wb + (size_t)k * g.ow + 8 * q : w;
+      cp_async16(reinterpret_cast<float*>(wts + (size_t)u * 8),
+                 reinterpret_cast<const float*>(src), ok);
+    }
+  } else {
+    const unsigned short* ws = reinterpret_cast<const unsigned short*>(wb);
+    unsigned short* d = reinterpret_cast<unsigned short*>(wts);
+    for (int i = tid; i < N * g.chunk; i += kWarpgroup) {
+      const int k = (i >> 3) % g.chunk;
+      const int l = (i >> 3) / g.chunk * 8 + (i & 7);
+      const bool ok = k < valid_k && l < valid_n;
+      d[i] = ok ? __ldg(ws + (size_t)k * g.ow + l) : (unsigned short)0;
+    }
+  }
+}
+
+// A of one k16 step at `shift` elements from each row's offset: rows r and
+// r + 8 at columns 2 (lane % 4), + 1, and the same 8 columns on.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* rows,
+                                       const int (&off)[2], int shift) {
+  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(rows + off[0]
+                                                         + shift);
+  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(rows + off[1]
+                                                         + shift);
+  a[0] = r0[0];
+  a[1] = r1[0];
+  a[2] = r0[4];
+  a[3] = r1[4];
+}
+
+// One landed stage into a consumer's m-tile: its `steps` k16 steps into the
+// accumulator, A loaded one step ahead into the register set the wgmma two
+// steps back has released.  B is read MN-major through the transpose bit:
+// interleaved core matrices of 8 lanes x 8 channels (128 bytes), a step's
+// two channel halves 128 bytes apart (the leading byte offset), the 8-lane
+// groups chunk * 16 bytes apart (the stride byte offset), step j 256 j
+// bytes on (16 j in the descriptor's address field).  Returns with every
+// wgmma complete.
+template <int N>
+__device__ void mma_stage(float (&acc)[N / 2], const bf* rows,
+                          const int (&off)[2], int steps, const bf* wts,
+                          int chunk) {
+  const uint64_t desc0 = dt::kmajor_desc(dt::smem_u32(wts), 128, chunk * 16);
+  auto step = [&](const uint32_t (&a)[4], int j) {
+    dt::wgmma_fence();
+    dt::wgmma_bf16<N, 1>(acc, a, desc0 + (uint64_t)(16 * j));
+    dt::wgmma_commit();
+  };
+  uint32_t a0[4], a1[4];
+  load_a(a0, rows, off, 0);
+  for (int j = 0; j < steps; j += 2) {
+    step(a0, j);
+    if (j + 1 < steps) {
+      dt::wgmma_wait<1>();            // step j - 1 has released a1
+      load_a(a1, rows, off, 16 * (j + 1));
+      step(a1, j + 1);
+    }
+    if (j + 2 < steps) {
+      dt::wgmma_wait<1>();            // step j has released a0
+      load_a(a0, rows, off, 16 * (j + 2));
+    }
+  }
+  dt::wgmma_wait<0>();
+  dt::fence_regs<N / 2>(acc);
+}
+
+}  // namespace pwbf16
+
+// N: the wgmma width (the output lanes a CTA owns, padded up).  x, w, the
+// residual, out and pooled bf16; the bias and the partials f32.
+template <int N>
+__global__ void __launch_bounds__(kTileThreads, 1)
+pointwise_tile_kernel_bf16(const __nv_bfloat16* __restrict__ x,
+                           const __nv_bfloat16* __restrict__ w,
+                           const float* __restrict__ bias,
+                           const __nv_bfloat16* __restrict__ residual,
+                           __nv_bfloat16* __restrict__ out, float* partials,
+                           __nv_bfloat16* __restrict__ pooled, int* counters,
+                           Geometry g) {
+  using bf = __nv_bfloat16;
+  extern __shared__ __align__(16) char smem_raw[];
+  const int tile = blockIdx.x;
+  const int o_b = blockIdx.y / g.nsplit;
+  const int o0 = blockIdx.y % g.nsplit * N;
+  const int n = blockIdx.z;
+  const int p0 = tile * g.rows;
+  const int nth = blockDim.x;
+  const int consumers = nth - kWarpgroup;
+  const pwbf16::Smem m = pwbf16::carve<N>(smem_raw, g);
+  const int per_block = pwbf16::kpad(g) / g.chunk;
+  const int stages = g.kblk * per_block;
+
+  if (threadIdx.x >= consumers) {       // the producer warpgroup
+    const int tid = threadIdx.x - consumers;
+    auto issue = [&](int s) {
+      pwbf16::issue_stage<N>(m, s % kSlots, x, w, g, n, o_b, o0,
+                             s / per_block, s % per_block * g.chunk, p0, tid);
+    };
+    for (int s = 0; s < kSlots - 1; ++s) {
+      if (s < stages) issue(s);
+      cp_async_commit();
+    }
+    for (int s = 0; s < stages; ++s) {
+      const int slot = s % kSlots;
+      cp_async_wait_ring();
+      dt::bar_sync(kBarProducer, kWarpgroup);   // every thread's copies
+      dt::fence_proxy_async();    // the landed weights, for wgmma
+      dt::bar_arrive(kBarFull + slot, nth);
+      const int next = s + kSlots - 1;
+      if (next < stages) {
+        if (s >= 1) dt::bar_sync(kBarEmpty + (s - 1) % kSlots, nth);
+        issue(next);
+      }
+      cp_async_commit();
+    }
+    return;
+  }
+
+  // a consumer thread: rows r and r + 8 of its warpgroup's m-tile
+  const int lane = threadIdx.x % 32;
+  const int r = threadIdx.x / kWarpgroup * kRows
+                + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
+  const int ld = pwbf16::row_elems(g);
+  const int off[2] = {r * ld + 2 * (lane % 4), (r + 8) * ld + 2 * (lane % 4)};
+  float acc[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % kSlots;
+    dt::bar_sync(kBarFull + slot, nth);
+    pwbf16::mma_stage<N>(acc, m.rows_of(slot), off, g.chunk / 16,
+                         m.wts_of(slot), g.chunk);
+    if (s + kSlots < stages) dt::bar_arrive(kBarEmpty + slot, nth);
+  }
+
+  // the epilogue in f32, one rounding to bf16 at the store; acc keeps the
+  // stored (rounded) values, zero where nothing is stored, for the GAP
+  const int col0 = 2 * (lane % 4);
+  const bool pairs = g.ow % 2 == 0;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int p = p0 + r + 8 * h;
+    const bool row_ok = p < g.hw;
+    const size_t base = ((size_t)(n * g.oblk + o_b) * g.hw + p) * g.ow + o0;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+      const int col = 8 * jj + col0;
+      bf v[2];
+      bool ok[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        ok[e] = row_ok && o0 + col + e < g.ow;
+        float f = acc[4 * jj + 2 * h + e];
+        if (ok[e]) {
+          const int o = o0 + col + e;
+          f = activate(f + (bias != nullptr
+                                ? __ldg(bias + o_b * g.ow + o) : 0.0f),
+                       g.act);
+          if (residual != nullptr) {
+            f += __bfloat162float(residual[base + col + e]);
+          }
+        }
+        v[e] = __float2bfloat16_rn(f);
+        acc[4 * jj + 2 * h + e] = ok[e] ? __bfloat162float(v[e]) : 0.0f;
+      }
+      if (pairs && ok[1]) {
+        __nv_bfloat162 pr;
+        pr.x = v[0];
+        pr.y = v[1];
+        *reinterpret_cast<__nv_bfloat162*>(out + base + col) = pr;
+      } else {
+        if (ok[0]) out[base + col] = v[0];
+        if (ok[1]) out[base + col + 1] = v[1];
+      }
+    }
+  }
+
+  if (g.gap) {
+    // the tile's sums of the stored values, as the f32 tile sums them
+    const int wid = threadIdx.x / 32;
+#pragma unroll
+    for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float s = acc[4 * jj + e] + acc[4 * jj + 2 + e];
+        s += __shfl_xor_sync(0xffffffffu, s, 4);
+        s += __shfl_xor_sync(0xffffffffu, s, 8);
+        s += __shfl_xor_sync(0xffffffffu, s, 16);
+        if (lane < 4) m.red[wid * N + 8 * jj + col0 + e] = s;
+      }
+    }
+    dt::bar_sync(kBarGap, consumers);
+    const int c = threadIdx.x;
+    if (c < N && o0 + c < g.ow) {
+      float s = 0.0f;
+      for (int q = 0; q < consumers / 32; ++q) s += m.red[q * N + c];
+      partials[((size_t)(n * g.oblk + o_b) * gridDim.x + tile) * g.ow + o0
+               + c] = s;
+    }
+    split_sum::gap_fold(partials, pooled, counters, n * g.oblk + o_b,
+                        gridDim.x, gridDim.x * g.nsplit, g.ow, g.hw,
+                        reinterpret_cast<int*>(m.red), kBarGap, consumers);
+  }
+}
+
+// The instance of a build (0: f32, 1: bf16) at wgmma width `lanes`.
+void* pick_tile(int lanes, bool bf16) {
   switch (lanes) {
-    case 8: return (void*)pointwise_tile_kernel<8>;
-    case 16: return (void*)pointwise_tile_kernel<16>;
-    case 32: return (void*)pointwise_tile_kernel<32>;
-    case 64: return (void*)pointwise_tile_kernel<64>;
-    case 128: return (void*)pointwise_tile_kernel<128>;
+    case 8: return bf16 ? (void*)pointwise_tile_kernel_bf16<8>
+                        : (void*)pointwise_tile_kernel<8>;
+    case 16: return bf16 ? (void*)pointwise_tile_kernel_bf16<16>
+                         : (void*)pointwise_tile_kernel<16>;
+    case 32: return bf16 ? (void*)pointwise_tile_kernel_bf16<32>
+                         : (void*)pointwise_tile_kernel<32>;
+    case 64: return bf16 ? (void*)pointwise_tile_kernel_bf16<64>
+                         : (void*)pointwise_tile_kernel<64>;
+    case 128: return bf16 ? (void*)pointwise_tile_kernel_bf16<128>
+                          : (void*)pointwise_tile_kernel<128>;
   }
   return nullptr;
 }
 
 // Raise a kernel's dynamic shared-memory limit once per device to the most
-// any launch has asked of it (the attribute is the kernel's, per device).
+// any launch has asked of it (the attribute is the kernel's, per device);
+// `slot` names the instance (five f32 widths, then five bf16).
 cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
-  static int allowed[kMaxDevices][5];
+  static int allowed[kMaxDevices][10];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -447,6 +784,45 @@ cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) have = bytes;
   return err;
+}
+
+// The launch of the f32 tile or (bf16) its bf16 build on the plan's int
+// array; the shared memory must be that build's smem_bytes.
+int launch_tile(bool bf16, const void* x, const void* w, const void* bias,
+                const void* residual, void* out, void* partials,
+                void* pooled, void* counters, const int* plan,
+                void* stream) {
+  Geometry g;
+  int* fields = reinterpret_cast<int*>(&g);
+  for (int i = 0; i < kGeometryInts; ++i) fields[i] = plan[i];
+  const int* more = plan + kGeometryInts;
+  const int lanes = more[0], wgs = more[1];
+  const int tiles = more[2], n = more[3], smem = more[4];
+  const void* kernel = pick_tile(lanes, bf16);
+  const int kstep = bf16 ? 16 : 8;
+  const int padded = bf16 ? pwbf16::kpad(g) : kpad(g);
+  const size_t need = bf16 ? pwbf16::smem_bytes(g, lanes, wgs)
+                           : smem_bytes(g, lanes, wgs);
+  if (kernel == nullptr || wgs < 1 || wgs > kMaxConsumers
+      || g.rows != kRows * wgs || g.chunk % kstep != 0 || g.chunk < kstep
+      || padded % g.chunk != 0 || g.nsplit < 1
+      || (g.nsplit - 1) * lanes >= g.ow || g.nsplit * lanes < g.ow
+      || tiles != (g.hw + g.rows - 1) / g.rows || (size_t)smem != need
+      || (g.gap && (!partials || !pooled || !counters))) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (tiles == 0 || n == 0) return 0;
+  int slot = bf16 ? 5 : 0;
+  for (int l = lanes; l > 8; l /= 2) ++slot;
+  cudaError_t err = allow_smem(kernel, slot, smem);
+  if (err != cudaSuccess) return (int)err;
+  void* args[] = {&x, &w, &bias, &residual, &out, &partials, &pooled,
+                  &counters, &g};
+  err = cudaLaunchKernel(kernel, dim3(tiles, g.oblk * g.nsplit, n),
+                         dim3(kWarpgroup * (wgs + 1)), args, smem,
+                         (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -471,41 +847,20 @@ int conv2d_pointwise_tile(const void* x, const void* w, const void* bias,
                           const void* residual, void* out, void* partials,
                           void* pooled, void* counters, const int* plan,
                           void* stream) {
-  Geometry g;
-  int* fields = reinterpret_cast<int*>(&g);
-  for (int i = 0; i < kGeometryInts; ++i) fields[i] = plan[i];
-  const int* more = plan + kGeometryInts;
-  const int lanes = more[0], wgs = more[1];
-  const int tiles = more[2], n = more[3], smem = more[4];
-  const void* kernel = pick_tile(lanes);
-  if (kernel == nullptr || wgs < 1 || wgs > kMaxConsumers
-      || g.rows != kRows * wgs || g.chunk % 8 != 0 || g.chunk < 8
-      || kpad(g) % g.chunk != 0 || g.nsplit < 1
-      || (g.nsplit - 1) * lanes >= g.ow || g.nsplit * lanes < g.ow
-      || tiles != (g.hw + g.rows - 1) / g.rows
-      || (size_t)smem != smem_bytes(g, lanes, wgs)
-      || (g.gap && (!partials || !pooled || !counters))) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (tiles == 0 || n == 0) return 0;
-  int slot = 0;
-  for (int l = lanes; l > 8; l /= 2) ++slot;
-  cudaError_t err = allow_smem(kernel, slot, smem);
-  if (err != cudaSuccess) return (int)err;
-  const float* x_f = (const float*)x;
-  const float* w_f = (const float*)w;
-  const float* b_f = (const float*)bias;
-  const float* r_f = (const float*)residual;
-  float* out_f = (float*)out;
-  float* p_f = (float*)partials;
-  float* pool_f = (float*)pooled;
-  int* c_i = (int*)counters;
-  void* args[] = {&x_f, &w_f, &b_f, &r_f, &out_f, &p_f, &pool_f, &c_i, &g};
-  err = cudaLaunchKernel(kernel, dim3(tiles, g.oblk * g.nsplit, n),
-                         dim3(kWarpgroup * (wgs + 1)), args, smem,
-                         (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  return launch_tile(false, x, w, bias, residual, out, partials, pooled,
+                     counters, plan, stream);
+}
+
+// The bf16 build of the forward: the same arguments, x, w, the residual,
+// out and pooled bf16, the bias and partials f32; the plan's chunk a
+// multiple of 16 and its shared memory pwbf16::smem_bytes's.
+int conv2d_pointwise_tile_bf16(const void* x, const void* w,
+                               const void* bias, const void* residual,
+                               void* out, void* partials, void* pooled,
+                               void* counters, const int* plan,
+                               void* stream) {
+  return launch_tile(true, x, w, bias, residual, out, partials, pooled,
+                     counters, plan, stream);
 }
 
 const char* cuda_error_name(int code) {

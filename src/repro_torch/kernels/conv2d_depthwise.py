@@ -10,7 +10,11 @@ and the fused epilogue (bias, activation, residual, GAP).
   grad, it runs the fused inference kernel (``_dw_fwd_kernel``, ``:72``):
   ``csrc/conv2d_depthwise.cu``'s ``depthwise_fwd_kernel`` (a persistent
   walk over items, each staged by cp.async under the taps of the one
-  before) on a CUDA tensor, the plain version
+  before), or under the ``BF16`` policy its bf16 build
+  (``depthwise_fwd_kernel_bf16``: bf16 cells, f32 taps and sums, bf16 out;
+  x, the f32 master weights and the residual cast to bf16 once a call, as
+  the reference's ``_dwconv`` casts them) on a CUDA tensor, the plain
+  version
   (``core.direct_conv.direct_conv_blocked`` with ``groups=C``) on a CPU
   tensor.  With ``gap`` the kernel writes per-item partial sums and the CTA
   of each (image, channel block)'s last item adds them into the pooled
@@ -24,7 +28,13 @@ and the fused epilogue (bias, activation, residual, GAP).
   items walked in shares of each (channel block, lane group), whose last
   CTA adds the shares in split order), with the ``dz = g * act'(z)``
   prologue and ``db``.  No padded, dilated or cropped copy
-  exists on the card.
+  exists on the card.  The training path runs the f32 policy or ``BF16``
+  (``direct_conv2d.training_policy``): under ``BF16`` the forward's bf16
+  build with a linear epilogue gives the bf16 ``z``, and the bf16 builds
+  of the dgrad and wgrad (``depthwise_dgrad_kernel_bf16``,
+  ``depthwise_wgrad_kernel_bf16``: dz rounded to bf16 before the taps, as
+  the reference's ``cotangent_prologue``) the bf16 ``dx`` and the f32
+  ``dw`` and ``db``.  A float16 policy raises: no build reads it.
 
 A forward call's host path is lean, because at MobileNet's small legs it,
 not the device, sets the pace: the checks that depend only on shapes and
@@ -34,7 +44,8 @@ launch skips entering the device's context when it is current.
 
 Every wrapper takes its plain version only because the tensor lies on the
 CPU; a CUDA tensor launches the kernel or raises.  ``LAUNCHES`` counts the
-launches of this module's kernels.
+launches of this module's kernels, each build under its own name (the bf16
+builds' with ``_bf16``).
 """
 from __future__ import annotations
 
@@ -62,13 +73,16 @@ from repro_torch.core.direct_conv import (backward_spec, conv_spec,
                                           direct_conv_preactivation,
                                           direct_conv_wgrad_blocked)
 from repro_torch.core.padding import Padding
-from repro_torch.core.precision import F32, resolve_precision
+from repro_torch.core.precision import BF16, F32, Precision
 from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _backward_operands,
                                                _by_shapes, _call, _check,
                                                _check_activation,
                                                _cuda_device, _library, _ptr,
-                                               _require, _stream)
+                                               _require, _stream, _suffix,
+                                               bf16_operands, build_dtype,
+                                               plain_policy,
+                                               training_policy)
 from repro_torch.kernels import split_sum
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
@@ -76,8 +90,9 @@ __all__ = ["LAUNCHES", "reset_launches", "depthwise_conv2d_blocked",
            "depthwise_gap", "depthwise_dgrad", "depthwise_wgrad",
            "depthwise_wgrad_partials"]
 
-LAUNCHES = {"conv2d_depthwise_fwd": 0, "conv2d_depthwise_dgrad": 0,
-            "conv2d_depthwise_wgrad": 0}
+LAUNCHES = {"conv2d_depthwise_fwd": 0, "conv2d_depthwise_fwd_bf16": 0,
+            "conv2d_depthwise_dgrad": 0, "conv2d_depthwise_dgrad_bf16": 0,
+            "conv2d_depthwise_wgrad": 0, "conv2d_depthwise_wgrad_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -86,15 +101,12 @@ def reset_launches() -> None:
 
 
 def _declare(lib, ptr, i32) -> None:
-    lib.conv2d_depthwise_fwd.argtypes = [ptr] * 8 + [ctypes.POINTER(i32),
-                                                     ptr]
-    lib.conv2d_depthwise_fwd.restype = i32
-    lib.conv2d_depthwise_dgrad.argtypes = [ptr] * 4 + [ctypes.POINTER(i32),
-                                                       ptr]
-    lib.conv2d_depthwise_dgrad.restype = i32
-    lib.conv2d_depthwise_wgrad.argtypes = [ptr] * 6 + [ctypes.POINTER(i32),
-                                                       ptr]
-    lib.conv2d_depthwise_wgrad.restype = i32
+    # each entry and its bf16 build, which takes the same arguments
+    for kind, pointers in (("fwd", 8), ("dgrad", 4), ("wgrad", 6)):
+        for build in ("", "_bf16"):
+            entry = getattr(lib, f"conv2d_depthwise_{kind}{build}")
+            entry.argtypes = [ptr] * pointers + [ctypes.POINTER(i32), ptr]
+            entry.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
@@ -127,7 +139,8 @@ def depthwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     ``[C/Cb, Cb]`` or None; residual: the output's shape or None, added
     after the activation -> ``[N, C/Cb, Ho, Wo, Cb]``, or with ``gap=True``
     the pooled ``[N, C]`` features.  ``padding`` is TF-SAME aware against
-    the dilated filter; on CUDA the pads are masked loads.
+    the dilated filter; on CUDA the pads are masked loads.  Under ``BF16``
+    the output (and the pooled features) are bf16.
     """
     spec = _forward_spec(x.shape, w.shape, stride, padding, dilation,
                          None if bias is None else bias.shape,
@@ -135,20 +148,17 @@ def depthwise_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
                          activation)
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, w, bias, residual)):
-        if resolve_precision(precision).op_dtype != torch.float32:
-            raise NotImplementedError(
-                "the training path runs the f32 policy only")
-        return BlockedConvFunction.apply(x, w, bias, residual, _Depthwise,
-                                         spec, activation, gap)
+        policy = training_policy(precision)
+        return BlockedConvFunction.apply(x, w, bias, residual,
+                                         _Depthwise(policy), spec,
+                                         activation, gap, policy)
     if x.device.type == "cpu":
         return direct_conv_blocked(x, w, stride, padding, bias, activation,
                                    precision, groups=spec.groups,
                                    dilation=spec.dilation, residual=residual,
                                    gap=gap)
-    if resolve_precision(precision).op_dtype != torch.float32:
-        raise NotImplementedError(
-            "the CUDA kernel of this slice runs the f32 policy only")
-    return _fwd_cuda(x, w, bias, residual, spec, activation, gap)
+    return _fwd_cuda(x, w, bias, residual, spec, activation, gap,
+                     build_dtype(precision))
 
 
 @_by_shapes
@@ -187,13 +197,15 @@ class _FwdPlan:
 
 @functools.lru_cache(maxsize=1024)
 def _fwd_plan(x_shape: Tuple[int, ...], spec: ConvSpec, act: int,
-              gap: bool) -> _FwdPlan:
+              gap: bool, op_bytes: int = 4) -> _FwdPlan:
+    """The plan of a forward launch by the build for ``op_bytes``
+    operands (4: f32, 2: bf16)."""
     n, cblk, hi, wi, cb = x_shape
     blk = choose_depthwise_blocking(n, cblk, spec.ho, spec.wo, cb, spec.hf,
                                     spec.wf, spec.stride, spec.dilation,
-                                    gap=gap)
+                                    gap=gap, op_bytes=op_bytes)
     smem = depthwise_fwd_smem_bytes(blk.hwin, blk.wwin, blk.lanes, H100_SXM,
-                                    gap)
+                                    gap, op_bytes)
     # the kernel's variants: 3x3 at dilation 1 and stride 1 or 2 keep their
     # tap columns in registers; 0 takes any filter, stride and dilation
     fast = (spec.hf, spec.wf, spec.dilation) == (3, 3, (1, 1))
@@ -212,10 +224,12 @@ def _fwd_plan(x_shape: Tuple[int, ...], spec: ConvSpec, act: int,
 
 def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
               residual: Optional[torch.Tensor], spec: ConvSpec,
-              activation: Optional[str], gap: bool) -> torch.Tensor:
-    """Launch the forward kernel on CUDA operands -> the output map, or
-    with ``gap`` the pooled ``[N, C]``."""
-    out, pooled, _ = _launch_cuda(x, w, bias, residual, spec, activation, gap)
+              activation: Optional[str], gap: bool,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the forward kernel's build for ``dtype`` operands on CUDA
+    operands -> the output map, or with ``gap`` the pooled ``[N, C]``."""
+    out, pooled, _ = _launch_cuda(x, w, bias, residual, spec, activation, gap,
+                                  dtype)
     return pooled if gap else out
 
 
@@ -223,44 +237,53 @@ def depthwise_gap(x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None, stride: int = 1,
                   padding: Padding = "VALID",
                   activation: Optional[str] = None,
-                  residual: Optional[torch.Tensor] = None, dilation=1
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the forward with the GAP rider on CUDA operands ->
-    ``(pooled [N, C], partials [N, C/Cb, tiles, Cb])``: the per-item sums
-    the kernel wrote and the pooled features summed from them in the same
-    launch."""
+                  residual: Optional[torch.Tensor] = None, dilation=1,
+                  precision=F32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the forward (under ``BF16`` its bf16 build) with the
+    GAP rider on CUDA operands -> ``(pooled [N, C], partials [N, C/Cb,
+    tiles, Cb])``: the per-item f32 sums the kernel wrote and the pooled
+    features summed from them in the same launch."""
     spec = _forward_spec(x.shape, w.shape, stride, padding, dilation,
                          None if bias is None else bias.shape,
                          None if residual is None else residual.shape,
                          activation)
     _, pooled, partials = _launch_cuda(x, w, bias, residual, spec,
-                                       activation, True)
+                                       activation, True,
+                                       build_dtype(precision))
     return pooled, partials
 
 
-def _launch_cuda(x, w, bias, residual, spec, activation, gap):
-    """Launch the forward kernel on CUDA operands, each checked and read
-    once, the shape's plan from ``_fwd_plan`` -> ``(out, pooled or None,
-    partials or None)``."""
+def _launch_cuda(x, w, bias, residual, spec, activation, gap,
+                 dtype: torch.dtype = torch.float32):
+    """Launch the forward kernel's build for ``dtype`` on CUDA operands
+    (cast to bf16 by ``bf16_operands`` for the bf16 build), each checked
+    and read once, the shape's plan from ``_fwd_plan`` -> ``(out, pooled or
+    None, partials or None)``: out and pooled at ``dtype``, the partials
+    f32."""
     dev = _cuda_device(x)
-    ptrs = [_require(t, name, dev, vector_loads=name == "x")
+    if dtype == torch.bfloat16:
+        x, w, bias, residual = bf16_operands(x, w, bias, residual)
+    ptrs = [_require(t, name, dev, vector_loads=name == "x",
+                     dtype=torch.float32 if name == "bias" else dtype)
             for name, t in (("x", x), ("w", w), ("bias", bias),
                             ("residual", residual))]
-    plan = _fwd_plan(x.shape, spec, _ACT_CODES[activation], gap)
-    out = torch.empty(plan.out_shape, device=dev, dtype=torch.float32)
+    plan = _fwd_plan(x.shape, spec, _ACT_CODES[activation], gap,
+                     dtype.itemsize)
+    out = torch.empty(plan.out_shape, device=dev, dtype=dtype)
     partials = pooled = counters = None
     stream = _stream(dev)
     if gap:
         n, cblk, _, cb = plan.partials_shape
         partials = torch.empty(plan.partials_shape, device=dev,
                                dtype=torch.float32)
-        pooled = torch.empty((n, cblk * cb), device=dev, dtype=torch.float32)
+        pooled = torch.empty((n, cblk * cb), device=dev, dtype=dtype)
         counters = split_sum.counters(dev, stream, n * cblk)
     lib = _lib()
-    err = _call(dev, lib.conv2d_depthwise_fwd, *ptrs, out.data_ptr(),
+    name = "conv2d_depthwise_fwd" + _suffix(dtype)
+    err = _call(dev, getattr(lib, name), *ptrs, out.data_ptr(),
                 _ptr(partials), _ptr(pooled), counters, plan.ints, stream)
-    LAUNCHES["conv2d_depthwise_fwd"] += 1
-    _check(err, lib, "conv2d_depthwise_fwd")
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return out, pooled, partials
 
 
@@ -273,23 +296,28 @@ def depthwise_dgrad(g: torch.Tensor, w: torch.Tensor,
                     padding: Padding = "VALID",
                     z: Optional[torch.Tensor] = None,
                     activation: Optional[str] = None,
-                    dilation=1) -> torch.Tensor:
+                    dilation=1, precision=F32) -> torch.Tensor:
     """Input gradient of ``act(dwconv(x, w) + b)``: the raw cotangent ``g
     [N, C/Cb, Ho, Wo, Cb]``, the saved pre-activation ``z`` (None for a
     linear epilogue) and ``w`` -> ``dx [N, C/Cb, Hi, Wi, Cb]`` at the
     unpadded ``input_hw``.  ``stride``/``padding``/``dilation`` are the
     forward's.  On CUDA the kernel walks items of dx (``_dgrad_plan``):
-    3x3 at stride 1 on the register path, at stride 2 split by phase."""
+    3x3 at stride 1 on the register path, at stride 2 split by phase;
+    under ``BF16`` its bf16 build on ``g``, ``z`` and ``w`` cast to bf16
+    (dz rounded to bf16 before the taps, dx bf16); on the CPU the plain
+    version on the same bf16 operands."""
     _backward_operands(g, z, activation)
+    dtype = build_dtype(precision)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation, g.shape[1] * g.shape[4],
-                                         dilation)
+                                         dilation,
+                                         precision=plain_policy(dtype))
     prologue = z is not None and activation not in (None, "linear")
     plan = _dgrad_plan(g.shape, w.shape, tuple(input_hw), stride,
                        _hashable(padding), _hashable(dilation),
-                       _ACT_CODES[activation], prologue)
-    return dgrad_launch(plan, g, w, z if prologue else None)
+                       _ACT_CODES[activation], prologue, dtype.itemsize)
+    return dgrad_launch(plan, g, w, z if prologue else None, dtype)
 
 
 def _hashable(v):
@@ -314,9 +342,10 @@ class _DgradPlan:
 @functools.lru_cache(maxsize=1024)
 def _dgrad_plan(g_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
                 input_hw: Tuple[int, int], stride, padding, dilation,
-                act: int, prologue: bool) -> _DgradPlan:
-    """The plan of a dgrad launch: the items of
-    ``choose_depthwise_dgrad_blocking`` and the kernel variant."""
+                act: int, prologue: bool, op_bytes: int = 4) -> _DgradPlan:
+    """The plan of a dgrad launch by the build for ``op_bytes`` operands:
+    the items of ``choose_depthwise_dgrad_blocking`` and the kernel
+    variant."""
     n, cblk, ho, wo, cb = g_shape
     hi, wi = input_hw
     spec = backward_spec(n, hi, wi, w_shape, stride, padding,
@@ -327,13 +356,14 @@ def _dgrad_plan(g_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
         raise ValueError(f"grid too large: C/Cb={cblk}, N={n}")
     blk = choose_depthwise_dgrad_blocking(n, cblk, hi, wi, cb, spec.hf,
                                           spec.wf, spec.stride,
-                                          spec.dilation, spec.pads, prologue)
+                                          spec.dilation, spec.pads, prologue,
+                                          op_bytes=op_bytes)
     if blk.items >= 2 ** 31:
         raise ValueError(f"grid too large: {blk.items} items")
     variant = depthwise_dgrad_variant(spec.hf, spec.wf, spec.stride,
                                       spec.dilation)
     smem = depthwise_dgrad_smem_bytes(blk.hwin, blk.wwin, blk.lanes,
-                                      prologue)
+                                      prologue, op_bytes)
     ints = (cblk, cb, ho, wo, hi, wi, spec.hf, spec.wf, spec.stride,
             *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
             blk.wob, blk.hwin, blk.wwin, blk.lanes, blk.items, act,
@@ -343,22 +373,27 @@ def _dgrad_plan(g_shape: Tuple[int, ...], w_shape: Tuple[int, ...],
 
 
 def dgrad_launch(plan: _DgradPlan, g: torch.Tensor, w: torch.Tensor,
-                 z: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the dgrad of ``plan`` on CUDA operands (``z`` only with the
-    prologue), each checked and read once -> dx; counts the launch."""
+                 z: Optional[torch.Tensor],
+                 dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Launch the dgrad of ``plan`` (a plan for ``dtype``'s build) on
+    CUDA operands cast to ``dtype`` (``z`` only with the prologue), each
+    checked and read once -> dx at ``dtype``; counts the launch."""
     dev = _cuda_device(g)
-    ptrs = (_require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True),
-            _require(w, "w", dev))
+    g, w = g.to(dtype), w.to(dtype)
+    z = None if z is None else z.to(dtype)
+    ptrs = (_require(g, "g", dev, vector_loads=True, dtype=dtype),
+            _require(z, "z", dev, vector_loads=True, dtype=dtype),
+            _require(w, "w", dev, dtype=dtype))
     if z is not None and z.shape != g.shape:
         raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
                          f"{tuple(g.shape)}")
-    dx = torch.empty(plan.dx_shape, device=dev, dtype=torch.float32)
+    dx = torch.empty(plan.dx_shape, device=dev, dtype=dtype)
     lib = _lib()
-    err = _call(dev, lib.conv2d_depthwise_dgrad, *ptrs, dx.data_ptr(),
-                plan.ints, _stream(dev))
-    LAUNCHES["conv2d_depthwise_dgrad"] += 1
-    _check(err, lib, "conv2d_depthwise_dgrad")
+    name = "conv2d_depthwise_dgrad" + _suffix(dtype)
+    err = _call(dev, getattr(lib, name), *ptrs, dx.data_ptr(), plan.ints,
+                _stream(dev))
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return dx
 
 
@@ -366,21 +401,24 @@ def depthwise_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                     stride: int = 1, padding: Padding = "VALID",
                     z: Optional[torch.Tensor] = None,
                     activation: Optional[str] = None,
-                    with_db: bool = False, dilation=1):
+                    with_db: bool = False, dilation=1, precision=F32):
     """Weight (and bias) gradient of ``act(dwconv(x, w) + b)``: the
     forward's unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw [C/Cb, 1, Hf, Wf, 1, Cb] f32, db [C/Cb,
     Cb] f32 or None)``.  On CUDA the wgrad kernel
-    (``depthwise_wgrad_partials``) writes one partial sum per position
-    share and the last CTA of each channel block adds the shares in order:
-    two runs give identical bits."""
+    (``depthwise_wgrad_partials``; under ``BF16`` its bf16 build on ``x``,
+    ``g`` and ``z`` cast to bf16, dz rounded to bf16, dw and db f32) writes
+    one partial sum per position share and the last CTA of each channel
+    block adds the shares in order: two runs give identical bits."""
     _backward_operands(g, z, activation)
     if x.device.type == "cpu":
-        return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
-                                         activation, with_db,
-                                         g.shape[1] * g.shape[4], dilation)
+        return direct_conv_wgrad_blocked(
+            x, g, hf, wf, stride, padding, z, activation, with_db,
+            g.shape[1] * g.shape[4], dilation,
+            precision=plain_policy(build_dtype(precision)))
     _, out = depthwise_wgrad_partials(x, g, hf, wf, stride, padding, z,
-                                      activation, with_db, dilation)
+                                      activation, with_db, dilation,
+                                      precision)
     cblk, cb = g.shape[1], g.shape[4]
     dw_size = cblk * hf * wf * cb
     dw = out[:dw_size].view(cblk, 1, hf, wf, 1, cb)
@@ -394,18 +432,21 @@ def depthwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int,
                              z: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
                              with_db: bool = False,
-                             dilation=1
+                             dilation=1, precision=F32
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The wgrad kernel on CUDA operands -> ``(ws, out)``: the f32
-    workspace ``[splits, |dw| + |db|]``, each row laid out as ``dw`` then
-    ``db``, and ``out [|dw| + |db|]``, its rows summed in split order by
-    the last CTA of each (channel block, lane group)."""
+    """The wgrad kernel (under ``BF16`` its bf16 build) on CUDA operands
+    -> ``(ws, out)``: the f32 workspace ``[splits, |dw| + |db|]``, each row
+    laid out as ``dw`` then ``db``, and ``out [|dw| + |db|]``, its rows
+    summed in split order by the last CTA of each (channel block, lane
+    group)."""
     _backward_operands(g, z, activation)
+    dtype = build_dtype(precision)
     prologue = z is not None and activation not in (None, "linear")
     plan = _wgrad_plan(tuple(x.shape), tuple(g.shape), hf, wf, stride,
                        _hashable(padding), _hashable(dilation),
-                       _ACT_CODES[activation], prologue, with_db)
-    return wgrad_launch(plan, x, g, z if prologue else None)
+                       _ACT_CODES[activation], prologue, with_db,
+                       op_bytes=dtype.itemsize)
+    return wgrad_launch(plan, x, g, z if prologue else None, dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -425,11 +466,12 @@ class _WgradPlan:
 def _wgrad_plan(x_shape: Tuple[int, ...], g_shape: Tuple[int, ...],
                 hf: int, wf: int, stride, padding, dilation, act: int,
                 prologue: bool, with_db: bool,
-                blk: Optional[DepthwiseWgradBlocking] = None) -> _WgradPlan:
-    """The plan of a wgrad launch: the items and shares of
-    ``choose_depthwise_wgrad_blocking`` (or ``blk``, as
-    ``launch/separable_bwd_ab.py`` times other items) and the kernel
-    variant."""
+                blk: Optional[DepthwiseWgradBlocking] = None,
+                op_bytes: int = 4) -> _WgradPlan:
+    """The plan of a wgrad launch by the build for ``op_bytes`` operands:
+    the items and shares of ``choose_depthwise_wgrad_blocking`` (or
+    ``blk``, as ``launch/separable_bwd_ab.py`` times other items) and the
+    kernel variant."""
     n, cblk, hi, wi, cb = x_shape
     if (g_shape[1], g_shape[4]) != (cblk, cb):
         raise ValueError(f"cotangent blocks {(g_shape[1], g_shape[4])} do "
@@ -441,13 +483,15 @@ def _wgrad_plan(x_shape: Tuple[int, ...], g_shape: Tuple[int, ...],
     if blk is None:
         blk = choose_depthwise_wgrad_blocking(n, cblk, spec.ho, spec.wo, cb,
                                               hf, wf, spec.stride,
-                                              spec.dilation, prologue)
+                                              spec.dilation, prologue,
+                                              op_bytes=op_bytes)
     columns = blk.columns(cblk, cb)
     if columns > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: {columns} columns")
     variant = depthwise_dgrad_variant(hf, wf, spec.stride, spec.dilation)
     smem = depthwise_wgrad_smem_bytes(blk.hwin, blk.wwin, blk.hob, blk.wob,
-                                      blk.lanes, hf * wf, prologue)
+                                      blk.lanes, hf * wf, prologue,
+                                      op_bytes=op_bytes)
     ints = (cblk, cb, hi, wi, spec.ho, spec.wo, hf, wf, spec.stride,
             *spec.dilation, spec.pads[0][0], spec.pads[1][0], blk.hob,
             blk.wob, blk.hwin, blk.wwin, blk.lanes, blk.per_column,
@@ -460,15 +504,18 @@ def _wgrad_plan(x_shape: Tuple[int, ...], g_shape: Tuple[int, ...],
 
 
 def wgrad_launch(plan: _WgradPlan, x: torch.Tensor, g: torch.Tensor,
-                 z: Optional[torch.Tensor]
+                 z: Optional[torch.Tensor],
+                 dtype: torch.dtype = torch.float32
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the wgrad of ``plan`` on CUDA operands (``z`` only with the
-    prologue), each checked and read once -> ``(ws, out)``; counts the
-    launch."""
+    """Launch the wgrad of ``plan`` (a plan for ``dtype``'s build) on CUDA
+    operands cast to ``dtype`` (``z`` only with the prologue), each checked
+    and read once -> ``(ws, out)``, both f32; counts the launch."""
     dev = _cuda_device(x)
-    ptrs = (_require(x, "x", dev, vector_loads=True),
-            _require(g, "g", dev, vector_loads=True),
-            _require(z, "z", dev, vector_loads=True))
+    x, g = x.to(dtype), g.to(dtype)
+    z = None if z is None else z.to(dtype)
+    ptrs = (_require(x, "x", dev, vector_loads=True, dtype=dtype),
+            _require(g, "g", dev, vector_loads=True, dtype=dtype),
+            _require(z, "z", dev, vector_loads=True, dtype=dtype))
     if z is not None and z.shape != g.shape:
         raise ValueError(f"pre-activation shape {tuple(z.shape)} != "
                          f"{tuple(g.shape)}")
@@ -477,11 +524,12 @@ def wgrad_launch(plan: _WgradPlan, x: torch.Tensor, g: torch.Tensor,
     out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
     stream = _stream(dev)
     lib = _lib()
-    err = _call(dev, lib.conv2d_depthwise_wgrad, *ptrs, ws.data_ptr(),
+    name = "conv2d_depthwise_wgrad" + _suffix(dtype)
+    err = _call(dev, getattr(lib, name), *ptrs, ws.data_ptr(),
                 out.data_ptr(), split_sum.counters(dev, stream, plan.columns),
                 plan.ints, stream)
-    LAUNCHES["conv2d_depthwise_wgrad"] += 1
-    _check(err, lib, "conv2d_depthwise_wgrad")
+    LAUNCHES[name] += 1
+    _check(err, lib, name)
     return ws, out
 
 
@@ -489,22 +537,29 @@ def wgrad_launch(plan: _WgradPlan, x: torch.Tensor, g: torch.Tensor,
 # autograd: the reference's custom VJP
 # ---------------------------------------------------------------------------
 
+@dataclasses.dataclass(frozen=True)
 class _Depthwise:
-    """The depthwise family's kernels for ``BlockedConvFunction``."""
+    """The depthwise family's kernels for ``BlockedConvFunction``, in the
+    builds of ``policy`` (F32, or ``BF16``: the forward's bf16 build with a
+    linear epilogue gives the bf16 ``z``, the dgrad's and wgrad's bf16
+    builds the gradients)."""
+    policy: Precision = F32
 
-    @staticmethod
-    def preactivation(x, w, bias, spec: ConvSpec) -> torch.Tensor:
+    def preactivation(self, x, w, bias, spec: ConvSpec) -> torch.Tensor:
         if x.device.type == "cpu":
-            return direct_conv_preactivation(x, w, spec.stride, spec.pads,
-                                             bias, spec.groups, spec.dilation)
-        return _fwd_cuda(x, w, bias, None, spec, None, False)
+            return direct_conv_preactivation(
+                x, w, spec.stride, spec.pads, bias, spec.groups,
+                spec.dilation,
+                precision=self.policy if self.policy == BF16 else None)
+        return _fwd_cuda(x, w, bias, None, spec, None, False,
+                         build_dtype(self.policy))
 
-    @staticmethod
-    def dgrad(g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
+    def dgrad(self, g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
         return depthwise_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
-                               spec.pads, z, activation, spec.dilation)
+                               spec.pads, z, activation, spec.dilation,
+                               self.policy)
 
-    @staticmethod
-    def wgrad(x, g, spec: ConvSpec, z, activation, with_db: bool):
+    def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return depthwise_wgrad(x, g, spec.hf, spec.wf, spec.stride, spec.pads,
-                               z, activation, with_db, spec.dilation)
+                               z, activation, with_db, spec.dilation,
+                               self.policy)

@@ -23,9 +23,10 @@ needs no grad, as for the images at a network's first layer.  On CPU
 tensors the families' wrappers run their plain versions, in the operands'
 dtype when that is wider than f32, so gradcheck can run in f64.
 
-Under ``BF16`` (the dense family only; the others refuse it before they
-get here) the cast discipline is the reference's ``_conv_fwd`` /
-``_conv_bwd`` (``repro/kernels/direct_conv2d.py:680-787``): ``x`` and ``w``
+Under ``BF16`` (all three families: dense, pointwise and depthwise) the
+cast discipline is the reference's ``_conv_fwd`` / ``_conv_bwd``
+(``repro/kernels/direct_conv2d.py:680-787``; ``_pwconv_fwd`` /
+``_pwconv_bwd`` and ``_dwconv_fwd`` / ``_dwconv_bwd`` alike): ``x`` and ``w``
 are cast to bf16 once, and those bf16 copies are what is saved (the f32
 masters are not); ``z`` (f32 sums plus the f32 bias, rounded once) is saved
 at the policy's residual dtype; the activation, the residual add and the
@@ -56,8 +57,7 @@ def _wide(t: torch.Tensor) -> torch.dtype:
 
 class BlockedConvFunction(torch.autograd.Function):
     """``act(conv(x, w) + b) + r``, pooled with ``gap``, with the family's
-    backward kernels as its VJP, under ``precision`` (F32, or BF16 for the
-    dense family)."""
+    backward kernels as its VJP, under ``precision`` (F32, or BF16)."""
 
     @staticmethod
     def forward(ctx, x, w, bias, residual, family, spec: ConvSpec,

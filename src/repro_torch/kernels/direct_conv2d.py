@@ -231,8 +231,8 @@ def _require(t: Optional[torch.Tensor], name: str, device: torch.device,
         want = "f32" if dtype == torch.float32 else "bf16"
         raise NotImplementedError(
             f"{name} is {t.dtype}: this CUDA kernel takes {want} operands "
-            "(the dense forward, dgrad and wgrad take bf16 under the BF16 "
-            "policy; the separable kernels are f32 only)")
+            "(every conv kernel's bf16 build takes bf16 under the BF16 "
+            "policy)")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     ptr = t.data_ptr()
@@ -429,30 +429,31 @@ def _resolve_route(stream: Stream, hso: Optional[int], spec: ConvSpec,
 
 
 def training_policy(precision) -> Precision:
-    """The policy the dense training path runs ``precision`` under: an f32
-    operand policy as F32, or ``BF16`` (bf16 operands and saved
-    pre-activations on the bf16 builds).  Any other policy raises: no
-    backward build reads float16, and a bf16 policy that saves f32
-    residuals is not the reference's."""
+    """The policy a conv family's training path (dense, pointwise or
+    depthwise) runs ``precision`` under: an f32 operand policy as F32, or
+    ``BF16`` (bf16 operands and saved pre-activations on the bf16 builds).
+    Any other policy raises: no backward build reads float16, and a bf16
+    policy that saves f32 residuals is not the reference's."""
     policy = resolve_precision(precision)
     if policy.op_dtype == torch.float32:
         return F32
     if policy != BF16:
         raise NotImplementedError(
-            f"the dense training path runs the f32 policy and BF16 only; "
+            f"the training path runs the f32 policy and BF16 only; "
             f"got {policy.name}: no CUDA build of the backward reads it")
     return BF16
 
 
 def build_dtype(precision) -> torch.dtype:
-    """The operand dtype of the dense builds (forward, dgrad, wgrad) that
-    run ``precision`` on CUDA operands: f32 for the f32 tiles, bf16 for
-    their bf16 builds.  Any other operand dtype (float16) raises: no build
-    reads it, and none stands in for it at another precision."""
+    """The operand dtype of the builds (forward, dgrad, wgrad; dense,
+    pointwise and depthwise) that run ``precision`` on CUDA operands: f32
+    for the f32 kernels, bf16 for their bf16 builds.  Any other operand
+    dtype (float16) raises: no build reads it, and none stands in for it
+    at another precision."""
     dtype = resolve_precision(precision).op_dtype
     if dtype not in _FWD_BUILDS:
         raise NotImplementedError(
-            f"no CUDA build of the dense kernels reads {dtype} operands: "
+            f"no CUDA build of the conv kernels reads {dtype} operands: "
             "they run the f32 policy and BF16 (bf16 operands) only")
     return dtype
 

@@ -13,12 +13,18 @@ prologue) this script times every candidate as a CUDA-graph replay of
 kept) and checks each one's output against the plain version.  It prints
 the card's name and power limit, each tile with its ms (the forward's with
 its model cost), per leg the chooser's tile beside the fastest, and the
-sums over the 13 legs.  Needs an H100 and nvcc::
+sums over the 13 legs.  ``--dtype bf16`` times the bf16 builds
+(``pointwise_tile_kernel_bf16``, ``dgrad_kernel_bf16``) at their
+choosers' candidates (``op_bytes`` 2) on bf16 operands, each output held
+to the plain version under ``BF16`` within one bf16 ulp plus 1e-5 of its
+max.  Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.pointwise_tiles_ab
+    PYTHONPATH=src python -m repro_torch.launch.pointwise_tiles_ab \
+        [--dtype bf16]
 """
 from __future__ import annotations
 
+import argparse
 import subprocess
 
 import torch
@@ -54,21 +60,23 @@ def _dgrad_args(ci: int, co: int, h: int):
     return DGRAD_BATCH, h, h, 1, 1, 1, ci // cib, cib, cob
 
 
-def tile_candidates(ci: int, co: int, h: int):
-    """The forward tiles to time at a leg, the chooser's first."""
+def tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4):
+    """The forward tiles to time at a leg (``op_bytes`` 2: the bf16
+    build's), the chooser's first."""
     args, gap = _fwd_args(ci, co, h)
-    chosen = choose_pointwise_blocking(*args, gap=gap)
-    found = sorted(pointwise_candidates(*args, H100_SXM, gap),
+    chosen = choose_pointwise_blocking(*args, gap=gap, op_bytes=op_bytes)
+    found = sorted(pointwise_candidates(*args, H100_SXM, gap, op_bytes),
                    key=lambda kb: kb[0])
     return [chosen] + [b for _, b in found if b != chosen]
 
 
-def dgrad_tile_candidates(ci: int, co: int, h: int):
-    """The dense dgrad tiles at 1x1 to time at a leg, the chooser's
-    first."""
+def dgrad_tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4):
+    """The dense dgrad tiles at 1x1 to time at a leg (``op_bytes`` 2:
+    the bf16 build's), the chooser's first."""
     args = _dgrad_args(ci, co, h)
-    chosen = choose_dgrad_blocking(*args, prologue=True)
-    found = sorted(dgrad_candidates(*args, H100_SXM, True, False),
+    chosen = choose_dgrad_blocking(*args, prologue=True, op_bytes=op_bytes)
+    found = sorted(dgrad_candidates(*args, H100_SXM, True, False, None,
+                                    op_bytes),
                    key=lambda kb: kb[0])
     return [chosen] + [b for _, b in found if b != chosen]
 
@@ -89,10 +97,29 @@ def _check_run(what, run, want, scale):
                            f"{scale})")
 
 
-def main() -> int:
+def _check_bf16_run(what, run, want, scale):
+    """One bf16 ulp of each element's magnitude plus 1e-5 of max|want|:
+    both round f32 sums of the same bf16 products once, in other orders."""
+    got, want = run().double(), want.double()
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    worst = ((got - want).abs() / (ulp + 1e-5 * scale)).max().item()
+    if worst > 1.0:
+        raise RuntimeError(f"{what}: err / (1 bf16 ulp + 1e-5 max) = "
+                           f"{worst}")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("pointwise_tiles_ab: no CUDA device")
         return 1
+    bf16 = args.dtype == "bf16"
+    dt = torch.bfloat16 if bf16 else torch.float32
+    op_bytes = dt.itemsize
+    suffix = "_bf16" if bf16 else ""
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.direct_conv import (direct_conv_blocked,
                                               direct_conv_dgrad_blocked)
@@ -111,25 +138,28 @@ def main() -> int:
         for kind in ("fwd", "dgrad"):
             n = FWD_BATCH if kind == "fwd" else DGRAD_BATCH
             x = torch.randn((n, ci // cib, h, h, cib), device=dev,
-                            generator=gen)
-            w = torch.randn((co // cob, ci // cib, 1, 1, cib, cob),
-                            device=dev, generator=gen) / ci ** 0.5
+                            generator=gen).to(dt)
+            w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob),
+                             device=dev, generator=gen) / ci ** 0.5).to(dt)
             b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
             runs = []
             if kind == "fwd":
                 (_, hw, kblk, kw, oblk, ow), gap = _fwd_args(ci, co, h)
                 want = direct_conv_blocked(x, w, 1, "VALID", b, "relu",
-                                           gap=gap)
-                tiles = tile_candidates(ci, co, h)
+                                           args.dtype, gap=gap)
+                tiles = tile_candidates(ci, co, h, op_bytes)
                 for blk in tiles:
                     plan = pwk._tile_plan(n, hw, kblk, kw, oblk, ow,
-                                          _ACT_CODES["relu"], gap, blk)
+                                          _ACT_CODES["relu"], gap, blk,
+                                          op_bytes)
 
                     def run(plan=plan):
-                        out = torch.empty((n, oblk, h, h, ow), device=dev)
+                        out = torch.empty((n, oblk, h, h, ow), device=dev,
+                                          dtype=dt)
                         part = (torch.empty((n, oblk, plan.blk.tiles, ow),
                                             device=dev) if gap else None)
-                        pooled = (torch.empty((n, oblk * ow), device=dev)
+                        pooled = (torch.empty((n, oblk * ow), device=dev,
+                                              dtype=dt)
                                   if gap else None)
                         err = pwk.tile_launch(
                             plan, dev, (x.data_ptr(), w.data_ptr(),
@@ -141,22 +171,23 @@ def main() -> int:
                         return pooled if gap else out
                     runs.append(run)
                 cost = {bk: k[0] for k, bk in pointwise_candidates(
-                    n, hw, kblk, kw, oblk, ow, H100_SXM, gap)}
+                    n, hw, kblk, kw, oblk, ow, H100_SXM, gap, op_bytes)}
                 names = [f"rows {bk.rows} lanes {bk.lanes} nsplit "
                          f"{bk.nsplit} chunk {bk.chunk} model_cost "
                          f"{cost[bk]:.0f}" for bk in tiles]
             else:
                 z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
-                g = torch.randn(z.shape, device=dev, generator=gen)
-                want = direct_conv_dgrad_blocked(g, w, (h, h), 1, "VALID", z,
-                                                 "relu")
+                g = torch.randn(z.shape, device=dev, generator=gen).to(dt)
+                want = direct_conv_dgrad_blocked(
+                    g, w, (h, h), 1, "VALID", z, "relu",
+                    precision=args.dtype if bf16 else None)
                 spec = ConvSpec.make(n, h, h, ci, co, 1, 1)
-                tiles = dgrad_tile_candidates(ci, co, h)
+                tiles = dgrad_tile_candidates(ci, co, h, op_bytes)
+                entry = getattr(_bwd_lib(), "direct_conv2d_dgrad" + suffix)
                 for blk in tiles:
                     def run(blk=blk):
-                        err, dx, _ = dgrad_launch(
-                            _bwd_lib().direct_conv2d_dgrad, blk.th, blk, g,
-                            w, spec, z, "relu")
+                        err, dx, _ = dgrad_launch(entry, blk.th, blk, g, w,
+                                                  spec, z, "relu", dt)
                         if err:
                             raise RuntimeError(f"dgrad {blk}: CUDA error "
                                                f"{err}")
@@ -165,8 +196,9 @@ def main() -> int:
                 names = [f"th {bk.th} tw {bk.tw} wgs {bk.wgs} chunk "
                          f"{bk.chunk}" for bk in tiles]
             scale = want.abs().max().item()
+            check = _check_bf16_run if bf16 else _check_run
             for blk, run in zip(tiles, runs):
-                _check_run(f"{kind} {blk}", run, want, scale)
+                check(f"{kind} {blk}", run, want, scale)
             ms = _time_all(runs)
             for name, t in zip(names, ms):
                 print(f"[tile] {kind} {ci}->{co} {h}x{h} {name} graph_ms "
@@ -179,8 +211,8 @@ def main() -> int:
                   f"{ms[0] / ms[best]:.3f}", flush=True)
             del x, w, b, want, runs
     for kind, (chosen, best) in sums.items():
-        print(f"[sum] {kind} over the 13 legs: chosen {chosen:.4f} ms, "
-              f"fastest measured {best:.4f} ms")
+        print(f"[sum] {args.dtype} {kind} over the 13 legs: chosen "
+              f"{chosen:.4f} ms, fastest measured {best:.4f} ms")
     return 0
 
 

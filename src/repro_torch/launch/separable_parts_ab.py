@@ -18,8 +18,11 @@ entry, relu; the last pointwise leg with its GAP):
   CUDA-graph replay through the public wrapper at every depthwise leg;
   likewise the pointwise dgrad, the dense dgrad tile at 1x1
   (``DGRAD_PARTS``, ``csrc/direct_conv2d_bwd.cu``; batch 32, the relu
-  prologue).  Only ``whole`` computes the function; the others are timing
-  probes.
+  prologue), and the pointwise forward's bf16 build
+  (``pointwise_tile_kernel_bf16``, ``PW_BF16_PARTS``: without its weight
+  copies, what a TMA weight box could save at most, and without its
+  wgmmas; batch 8, bf16 operands).  Only ``whole`` computes the function;
+  the others are timing probes.
 
 The variants are built from this checkout's sources; another tree is
 measured by running its own copy of this script.  Prints the card's name
@@ -63,6 +66,21 @@ DGRAD_PARTS = {
                      "      if (0) dt::split_weights(m.big + slot * m.wst,"),
                     ("        dt::prologue_rows(m.win + slot * m.cst,",
                      "        if (0) dt::prologue_rows(m.win + slot * m.cst,")),
+}
+
+
+# the pointwise forward's bf16 build (conv2d_pointwise.cu
+# `pointwise_tile_kernel_bf16`): its weight chunk's cp.async copies, and its
+# wgmmas
+PW_BF16_PARTS = {
+    "whole": (),
+    "no_weight_copies": (
+        ("  // w[o_b][kb][c0 + k][o0 + 8q + e] at (q, k, e)\n",
+         "  return;\n"),),
+    "no_wgmma": (
+        ("    pwbf16::mma_stage<N>(acc, m.rows_of(slot), off, g.chunk / 16,",
+         "    if (0) pwbf16::mma_stage<N>(acc, m.rows_of(slot), off, "
+         "g.chunk / 16,"),),
 }
 
 
@@ -235,6 +253,25 @@ def main() -> int:
                          g, w, z, "relu")))
     time_parts("pw dgrad (dense tile at 1x1)", "direct_conv2d_bwd",
                DGRAD_PARTS, legs)
+
+    legs = []
+    for ci, co, h in sorted(set(pw_legs()), key=pw_legs().index):
+        cib, cob = min(ci, 128), min(co, 128)
+        x = torch.randn((BATCH, ci // cib, h, h, cib), device=dev,
+                        generator=gen).bfloat16()
+        w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=dev,
+                         generator=gen) / ci ** 0.5).bfloat16()
+        b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
+
+        def fwd(x=x, w=w, b=b, gap=(ci, co) == (1024, 1024)):
+            with torch.no_grad():
+                return pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID",
+                                                    "relu", gap=gap,
+                                                    precision="bf16")
+        legs.append((f"{ci}->{co} {h}x{h}", pw_legs().count((ci, co, h)),
+                     fwd))
+    time_parts("pw fwd bf16 (pointwise_tile_kernel_bf16)",
+               "conv2d_pointwise", PW_BF16_PARTS, legs)
     return 0
 
 

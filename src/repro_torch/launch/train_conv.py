@@ -18,9 +18,9 @@ through its family's forward, dgrad and wgrad kernels (dense, or depthwise
 and pointwise); ``--device cpu`` runs their plain versions.  ``--dtype
 bf16`` trains under the ``BF16`` policy, the counterpart of the example's
 ``--dtype bf16`` (``ConvContext(precision="bf16")``: bf16 operands and
-saved pre-activations on the bf16 builds of the dense forward, dgrad and
-wgrad, f32 master weights and AdamW, the loss in f32); the separable model
-refuses it until its kernels have bf16 builds.  At the end the trained
+saved pre-activations on the bf16 builds of the forward, dgrad and wgrad
+kernels, dense or depthwise and pointwise, f32 master weights and AdamW,
+the loss in f32).  At the end the trained
 parameters classify a fresh batch through the fused inference path, under
 the same policy.
 """
@@ -100,7 +100,7 @@ def main(argv=None) -> int:
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
-                    help="the precision policy (bf16: the dense model only)")
+                    help="the precision policy")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)

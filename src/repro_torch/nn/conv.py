@@ -32,8 +32,8 @@ Parameters are trainable.  With grad mode on, a call goes through the
 family's autograd path (forward kernel, then the dgrad and wgrad kernels
 in the backward); under ``torch.no_grad``/``inference_mode``, as the
 server runs it, through the fused inference kernel.  Both run under a
-context's precision: f32, or ``BF16`` (dense layers only in training: the
-separable kernels have no bf16 backward builds yet and refuse it).
+context's precision: f32, or ``BF16`` (every family's bf16 builds, dense,
+pointwise and depthwise, in serving and in training).
 """
 from __future__ import annotations
 

@@ -11,10 +11,10 @@ through their plain versions on the CPU.  ``context`` (a ``ConvContext``,
 the counterpart of the reference's ``TrainSettings.context``) reaches every
 layer of the forward, and through the autograd functions the backward: with
 ``ConvContext(stream=True)`` the streamed forward, dgrad and wgrad kernels
-carry the step, and under ``ConvContext(precision="bf16")`` their bf16
-builds (the dense model; the separable kernels refuse it): the layers
-chain in bf16, the masters, their gradients and AdamW stay f32, and the
-logits reach the loss in f32.  With ``accum_steps > 1`` the batch
+carry the step, and under ``ConvContext(precision="bf16")`` the bf16
+builds of every family (dense, pointwise, depthwise): the layers chain in
+bf16, the masters, their gradients and AdamW stay f32, and the logits
+reach the loss in f32.  With ``accum_steps > 1`` the batch
 is split along dim 0 into microbatches whose gradients are averaged, as the
 reference's ``lax.scan`` does.
 """

@@ -31,8 +31,8 @@ Also here: the kernels' tile arithmetic in numpy against the plain version
 f32 accumulator a stage whose adds round toward zero, added into a running
 f32 sum, dz rounded to bf16 as the producer forms it, the ``db`` pass), the
 choosers at 2-byte operands at every VGG-16 shape of both routes, and the
-refusals (float16 training, the separable families' bf16 training, no
-build reached from a CPU tensor).
+refusals (float16 training, no build reached from a CPU tensor).  The
+separable families' bf16 training is in ``tests/test_torch_separable_bf16.py``.
 """
 import dataclasses
 
@@ -66,8 +66,7 @@ from repro_torch.kernels import conv2d_stream as stk  # noqa: E402
 from repro_torch.kernels import direct_conv2d as dck  # noqa: E402
 from repro_torch.kernels.direct_conv2d import (  # noqa: E402
     direct_conv2d_blocked, direct_conv2d_dgrad, direct_conv2d_wgrad)
-from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,  # noqa: E402
-                                 DepthwiseSeparableBlock)
+from repro_torch.nn.conv import BlockedCNN, BlockedConv2D  # noqa: E402
 from repro_torch.train.trainstep import make_loss_fn  # noqa: E402
 
 BF16_TOL = 3e-2          # the reference's tests/test_precision.py BF16_TOL
@@ -613,19 +612,6 @@ def test_fp16_training_raises(stream):
     with pytest.raises(NotImplementedError, match="float16"):
         direct_conv2d_dgrad(torch.zeros((1, 1, 6, 6, 8)), w.detach(), (6, 6),
                             1, "SAME", precision=FP16)
-
-
-def test_separable_families_still_refuse_bf16_training():
-    gen = torch.Generator().manual_seed(0)
-    block = DepthwiseSeparableBlock(8, 16, lane=8, device="cpu",
-                                    generator=gen)
-    x = torch.randn((1, 1, 6, 6, 8))
-    with pytest.raises(NotImplementedError):
-        block(x, context=ConvContext(precision="bf16"))
-    pw = BlockedConv2D(8, 16, 1, 1, padding="VALID", lane=8, device="cpu",
-                       generator=gen)
-    with pytest.raises(NotImplementedError):
-        pw(x, context=ConvContext(precision="bf16"))
 
 
 def test_cpu_tensors_never_reach_a_build(monkeypatch):

@@ -528,6 +528,11 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         direct_conv2d_blocked(offset, w, b, 1, "SAME")
 
 
+def _ran(mod) -> dict:
+    """The kernels of a wrapper module that launched, with their counts."""
+    return {k: v for k, v in mod.LAUNCHES.items() if v}
+
+
 # (n, ci, co, h, cib, cob, activation, residual, gap)
 PW_CASES = [
     (2, 32, 64, 28, 32, 64, "relu", False, False),
@@ -561,9 +566,9 @@ def test_pointwise_kernels_match_plain_versions(cuda, n, ci, co, h, cib, cob,
     dw, db = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     dw2, db2 = pwk.pointwise_wgrad(x, ct, z, act, with_db=True)
     torch.cuda.synchronize()
-    assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 1,
-                            "conv2d_pointwise_dgrad": 1,
-                            "conv2d_pointwise_wgrad": 2}
+    assert _ran(pwk) == {"conv2d_pointwise_fwd": 1,
+                         "conv2d_pointwise_dgrad": 1,
+                         "conv2d_pointwise_wgrad": 2}
     torch.testing.assert_close(got, want, **TOL)
     torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
         ct, w, (h, h), 1, "VALID", z, act), **TOL)
@@ -608,9 +613,9 @@ def test_depthwise_kernels_match_plain_versions(cuda, n, c, h, cb, s, dil,
     dw, db = dwk.depthwise_wgrad(x, ct, 3, 3, s, "SAME", zz, act, True, dil)
     dw2, db2 = dwk.depthwise_wgrad(x, ct, 3, 3, s, "SAME", zz, act, True, dil)
     torch.cuda.synchronize()
-    assert dwk.LAUNCHES == {"conv2d_depthwise_fwd": 1,
-                            "conv2d_depthwise_dgrad": 1,
-                            "conv2d_depthwise_wgrad": 2}
+    assert _ran(dwk) == {"conv2d_depthwise_fwd": 1,
+                         "conv2d_depthwise_dgrad": 1,
+                         "conv2d_depthwise_wgrad": 2}
     torch.testing.assert_close(got, want, **TOL)
     torch.testing.assert_close(dx, direct_conv_dgrad_blocked(
         ct, w, (h, h), s, "SAME", zz, act, c, dil), **TOL)
@@ -738,12 +743,12 @@ def test_separable_model_runs_through_the_kernels(cuda):
     loss.backward()
     torch.cuda.synchronize()
     # the first block's dx is not needed: the images do not require grad
-    assert pwk.LAUNCHES == {"conv2d_pointwise_fwd": 4,
-                            "conv2d_pointwise_dgrad": 2,
-                            "conv2d_pointwise_wgrad": 2}
-    assert dwk.LAUNCHES == {"conv2d_depthwise_fwd": 4,
-                            "conv2d_depthwise_dgrad": 1,
-                            "conv2d_depthwise_wgrad": 2}
+    assert _ran(pwk) == {"conv2d_pointwise_fwd": 4,
+                         "conv2d_pointwise_dgrad": 2,
+                         "conv2d_pointwise_wgrad": 2}
+    assert _ran(dwk) == {"conv2d_depthwise_fwd": 4,
+                         "conv2d_depthwise_dgrad": 1,
+                         "conv2d_depthwise_wgrad": 2}
     assert all(v == 0 for v in LAUNCHES.values())    # the sums folded in
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
@@ -1430,3 +1435,203 @@ def test_bf16_training_step_matches_the_plain_path(cuda, streamed):
         scale = p.grad.abs().max().item()
         torch.testing.assert_close(a.cpu(), p.grad, rtol=0.0,
                                    atol=3e-2 * scale)
+
+
+# ---------------------------------------------------------------------------
+# the separable family's bf16 builds (pointwise_tile_kernel_bf16, the
+# depthwise_*_kernel_bf16 walks, the dense dgrad_kernel_bf16 and
+# wgrad_kernel_bf16 at 1x1) against their plain versions under BF16, with
+# the tolerances of the dense bf16 builds above
+# ---------------------------------------------------------------------------
+
+# (n, ci, co, h, cib, cob, activation, residual, gap): Cib 3 (2-byte row
+# copies) and 4 (4-byte), Cob 6 and 20 (2-byte weights, the dgrad's
+# cp.async), MobileNet's last leg with its GAP
+PW_BF16_CASES = [
+    (2, 32, 64, 28, 32, 64, "relu", False, False),
+    (2, 12, 20, 9, 4, 20, "gelu", True, False),
+    (3, 1024, 1024, 7, 128, 128, "relu", False, True),
+    (2, 16, 24, 5, 8, 8, "gelu", True, True),
+    (2, 12, 18, 7, 4, 6, "relu", True, True),
+    (2, 6, 16, 5, 3, 8, "gelu", False, True),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,act,res,gap", PW_BF16_CASES)
+def test_pointwise_bf16_builds_match_plain_versions(cuda, n, ci, co, h, cib,
+                                                    cob, act, res, gap):
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda,
+                    generator=g).bfloat16()
+    w = torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=cuda,
+                    generator=g) / ci ** 0.5
+    b = torch.randn((co // cob, cob), device=cuda, generator=g)
+    r = (torch.randn((n, co // cob, h, h, cob), device=cuda,
+                     generator=g).bfloat16() if res else None)
+    pwk.reset_launches()
+    with torch.no_grad():
+        got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", act,
+                                           residual=r, gap=gap,
+                                           precision="bf16")
+    want = direct_conv_blocked(x, w, 1, "VALID", b, act, "bf16", residual=r,
+                               gap=gap)
+    _bf16_close(got, want)
+    if gap:
+        pooled, parts = pwk.pointwise_gap(x, w, b, act, r, precision="bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(pooled, got) and torch.equal(
+            conv2d_common.gap_finalize(parts, h * h).to(pooled.dtype), pooled)
+    wq = w.bfloat16()
+    z = direct_conv_blocked(x, wq, 1, "VALID", b, None, "bf16").contiguous()
+    ct = torch.randn(z.shape, device=cuda, generator=g).bfloat16()
+    zz = None if act is None else z
+    dx = pwk.pointwise_dgrad(ct, wq, zz, act, precision="bf16")
+    _bf16_close(dx, direct_conv_dgrad_blocked(ct, wq, (h, h), 1, "VALID",
+                                              zz, act, precision="bf16"))
+    dz = conv2d_common.cotangent_prologue(ct, zz, act)
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), dz.double(), 1, 1, 1, "VALID", with_db=True)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), 1, 1, 1, "VALID", with_db=True)
+    runs = [pwk.pointwise_wgrad(x, ct, zz, act, True, precision="bf16")
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    (dw, db), (dw2, db2) = runs
+    assert dw.dtype == db.dtype == torch.float32
+    assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+    assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert _ran(pwk) == {"conv2d_pointwise_fwd_bf16": 2 if gap else 1,
+                         "conv2d_pointwise_dgrad_bf16": 1,
+                         "conv2d_pointwise_wgrad_bf16": 2}
+
+
+# (n, c, h, cb, stride, dilation, filter, activation, residual, gap): the
+# register paths (3x3 at stride 1 and 2), the tap loop (dilation 2, stride
+# 3, 5x5), Cb 3 (2-byte cells), 6 (4-byte copies), 8, 32 and 128
+DW_BF16_CASES = [
+    (2, 32, 28, 32, 1, 1, 3, "relu", False, False),
+    (2, 64, 28, 64, 2, 1, 3, "relu", True, False),
+    (2, 256, 14, 128, 2, 1, 3, "relu", True, True),
+    (2, 24, 13, 8, 1, 2, 3, "gelu", True, True),
+    (2, 6, 9, 3, 2, 1, 3, None, False, False),
+    (2, 16, 11, 8, 3, 1, 3, "relu", False, False),
+    (2, 16, 12, 16, 1, 1, 5, "gelu", False, True),
+    (2, 12, 10, 6, 1, 1, 3, None, True, False),
+    (2, 24, 15, 6, 2, 1, 3, "relu", False, False),
+]
+
+
+@pytest.mark.parametrize("n,c,h,cb,s,dil,hf,act,res,gap", DW_BF16_CASES)
+def test_depthwise_bf16_builds_match_plain_versions(cuda, n, c, h, cb, s,
+                                                    dil, hf, act, res, gap):
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((n, c // cb, h, h, cb), device=cuda,
+                    generator=g).bfloat16()
+    w = torch.randn((c // cb, 1, hf, hf, 1, cb), device=cuda,
+                    generator=g) / hf
+    b = torch.randn((c // cb, cb), device=cuda, generator=g)
+    wq = w.bfloat16()
+    z = direct_conv_blocked(x, wq, s, "SAME", b, None, "bf16", groups=c,
+                            dilation=dil).contiguous()
+    r = (torch.randn(z.shape, device=cuda, generator=g).bfloat16() if res
+         else None)
+    dwk.reset_launches()
+    with torch.no_grad():
+        got = dwk.depthwise_conv2d_blocked(x, w, b, s, "SAME", act,
+                                           residual=r, gap=gap, dilation=dil,
+                                           precision="bf16")
+    want = direct_conv_blocked(x, w, s, "SAME", b, act, "bf16", groups=c,
+                               dilation=dil, residual=r, gap=gap)
+    _bf16_close(got, want)
+    if gap:
+        pooled, parts = dwk.depthwise_gap(x, w, b, s, "SAME", act, r, dil,
+                                          precision="bf16")
+        torch.cuda.synchronize()
+        hw = z.shape[2] * z.shape[3]
+        assert torch.equal(pooled, got) and torch.equal(
+            conv2d_common.gap_finalize(parts, hw).to(pooled.dtype), pooled)
+    ct = torch.randn(z.shape, device=cuda, generator=g).bfloat16()
+    zz = None if act is None else z
+    dx = dwk.depthwise_dgrad(ct, wq, (h, h), s, "SAME", zz, act, dil,
+                             precision="bf16")
+    _bf16_close(dx, direct_conv_dgrad_blocked(ct, wq, (h, h), s, "SAME", zz,
+                                              act, c, dil, precision="bf16"))
+    dz = conv2d_common.cotangent_prologue(ct, zz, act)
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), dz.double(), hf, hf, s, "SAME", with_db=True, groups=c,
+        dilation=dil)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), hf, hf, s, "SAME", with_db=True,
+        groups=c, dilation=dil)
+    runs = [dwk.depthwise_wgrad(x, ct, hf, hf, s, "SAME", zz, act, True, dil,
+                                precision="bf16") for _ in range(2)]
+    torch.cuda.synchronize()
+    (dw, db), (dw2, db2) = runs
+    assert dw.dtype == db.dtype == torch.float32
+    assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+    assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
+    assert _ran(dwk) == {"conv2d_depthwise_fwd_bf16": 2 if gap else 1,
+                         "conv2d_depthwise_dgrad_bf16": 1,
+                         "conv2d_depthwise_wgrad_bf16": 2}
+
+
+def test_separable_cnn_trains_and_serves_in_bf16_on_the_bf16_builds(cuda):
+    # a small separable CNN (a dense first conv, then two blocks) one bf16
+    # step on the card: only bf16 builds launch, each block's legs once
+    # forward, the first block's dx skipped; the same step on a CPU copy
+    # launches nothing and gives the gradients within BF16_TOL of their
+    # max; then served in bf16 by ConvServer
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    gen = torch.Generator().manual_seed(5)
+    convs = [BlockedConv2D(3, 16, stride=2, lane=8, device=cuda,
+                           generator=gen),
+             DepthwiseSeparableBlock(16, 24, stride=1, lane=8, device=cuda,
+                                     generator=gen),
+             DepthwiseSeparableBlock(24, 32, stride=2, lane=8, device=cuda,
+                                     generator=gen)]
+    model = BlockedCNN(convs, 4, device=cuda, generator=gen)
+    images = torch.randn((2, 16, 16, 3), device=cuda)
+    ctx = ConvContext(precision="bf16")
+    mods = (pwk, dwk)
+    for mod in mods:
+        mod.reset_launches()
+    reset_launches()
+    model(images, context=ctx).float().square().sum().backward()
+    torch.cuda.synchronize()
+    got = [p.grad.clone() for p in model.parameters()]
+    assert {k: v for k, v in LAUNCHES.items() if v} == {
+        "direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1}
+    assert _ran(pwk) == {"conv2d_pointwise_fwd_bf16": 2,
+                         "conv2d_pointwise_dgrad_bf16": 2,
+                         "conv2d_pointwise_wgrad_bf16": 2}
+    assert _ran(dwk) == {"conv2d_depthwise_fwd_bf16": 2,
+                         "conv2d_depthwise_dgrad_bf16": 2,
+                         "conv2d_depthwise_wgrad_bf16": 2}
+    cpu = model.cpu()
+    for p in cpu.parameters():
+        p.grad = None
+    for mod in mods:
+        mod.reset_launches()
+    reset_launches()
+    cpu(images.cpu(), context=ctx).float().square().sum().backward()
+    assert not any(v for mod in mods for v in mod.LAUNCHES.values())
+    assert not any(LAUNCHES.values())
+    for a, p in zip(got, cpu.parameters()):
+        assert a.dtype == torch.float32
+        torch.testing.assert_close(a.cpu(), p.grad, rtol=0.0,
+                                   atol=3e-2 * p.grad.abs().max().item())
+    model.to(cuda)
+    server = ConvServer(model, [(16, 16)], 2, device=cuda, context=ctx)
+    reqs = [ConvRequest(i, images[i].cpu().numpy()) for i in range(2)]
+    for mod in mods:
+        mod.reset_launches()
+    for req in reqs:
+        server.submit(req)
+    server.run()
+    assert all(req.outcome is Outcome.OK for req in reqs)
+    assert _ran(pwk) == {"conv2d_pointwise_fwd_bf16": 2}
+    assert _ran(dwk) == {"conv2d_depthwise_fwd_bf16": 2}
