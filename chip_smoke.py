@@ -211,9 +211,14 @@ and no phase catches its own failure:
     two runs bit for bit; dw and db against f64 sums of the same bf16
     operands within ``WGRAD_REL`` of sum|x dz|, each folded sum bit for bit
     its workspace's in-order reduce with the counters at 0; each kernel's
-    plan equal to the blocking model's), the dgrad at Cob 6 and 125, and
-    the autograd path (relu and gelu, a residual and GAP, Cib 3 and 64)
-    against the same function on the CPU's plain versions; the last main
+    plan equal to the blocking model's) and the bf16 dz pass
+    (``dz_kernel_bf16``: dz bit for bit ``cotangent_prologue``, its folded
+    db bit for bit its reduce; each bf16 dgrad on its dz bit for bit the
+    same dgrad with its prologue; the wgrad lines time the pass and the
+    GEMM together, the pass apart too), the dgrad at Cob 6 and 125 beside
+    cuDNN bf16, and the autograd path (relu and gelu, a residual and GAP,
+    Cib 3 and 64) against the same function on the CPU's plain versions;
+    the last main
     paths: VGG-16 (phase 4's weights as f32 masters) trained in bf16, 3
     AdamW steps at batch 8, window then ``stream=True``, only the bf16
     builds launched, held to a plain bf16 trainer (the same training path
@@ -229,7 +234,8 @@ and no phase catches its own failure:
     layer and summed times (eager, CUDA graph, plain, cuDNN's
     ``convolution_backward`` in bf16 channels-last, the bound at 989e12
     against the bf16 bytes), the bf16 train steps beside the f32 one, and
-    peak memory beside ``memory_model.bytes_precision_split``;
+    peak memory beside ``memory_model.bytes_precision_split`` and the
+    largest dz (``bytes_backward_transient``);
 24. MobileNet v1 in bf16: the separable family's bf16 builds
     (``pointwise_tile_kernel_bf16``, ``depthwise_{fwd,dgrad,wgrad}_
     kernel_bf16``, and the dense ``dgrad_kernel_bf16`` and
@@ -316,6 +322,8 @@ BWD_SOURCE = "src/repro_torch/csrc/direct_conv2d_bwd.cu"
 TPU_KERNEL = "src/repro/kernels/direct_conv2d.py:102"
 TPU_DGRAD = "src/repro/kernels/direct_conv2d.py:138"
 TPU_WGRAD = "src/repro/kernels/direct_conv2d.py:175"
+# the dz pass replaces no kernel of its own: the prologue both of them run
+TPU_PROLOGUE = "src/repro/kernels/conv2d_common.py:313 (cotangent_prologue)"
 BATCH, ENTRY = 8, 224
 BUCKETS = ((160, 160), (224, 224))
 SOURCES = ("direct_conv2d_fwd", "direct_conv2d_bwd", "conv2d_pointwise",
@@ -689,8 +697,9 @@ def compare_scaled(label: str, got, want, scale, rel: float) -> float:
 
 def check_fold(label: str, launch, views) -> None:
     """``launch``: a wgrad kernel's ``(ws, out)``, its workspace and the sum
-    of the rows its last CTA of each column wrote; ``views``: ``(dw, db)``
-    of another run.
+    of the rows its last CTA of each column wrote (a bf16 GEMM's ``ws``
+    holds dw's rows alone, ``out``'s db tail is the dz pass's, held by
+    ``check_dz_pass``); ``views``: ``(dw, db)`` of another run.
     Fail unless ``out`` is bit for bit ``conv2d_common.wgrad_reduce(ws)``
     and the other run's dw and db, and every counter is back at 0."""
     from repro_torch.core import conv2d_common
@@ -699,13 +708,48 @@ def check_fold(label: str, launch, views) -> None:
     want = conv2d_common.wgrad_reduce(ws)
     other = torch.cat([v.reshape(-1) for v in views if v is not None])
     torch.cuda.synchronize()
-    if not (torch.equal(out, want) and torch.equal(out, other)):
+    if not (torch.equal(out[:want.numel()], want)
+            and torch.equal(out, other)):
         fail(f"{label}: the folded sum of {ws.shape[0]} shares differs from "
              "the in-order sum of its workspace rows")
     if any(int(a.count_nonzero()) for a in split_sum.arenas()):
         fail(f"{label}: a split-sum counter was left set")
     print(f"[check] {label}: the folded sum of {ws.shape[0]} shares is bit "
           "for bit the in-order sum of its rows; counters at 0")
+
+
+def check_dz_pass(label: str, g, z, act, want_db, abs_db) -> float:
+    """The bf16 dz pass at ``g``, ``z``: dz bit for bit
+    ``conv2d_common.cotangent_prologue`` (relu; one bf16 ulp for gelu, whose
+    f32 derivative the kernel and torch round differently), two runs bit
+    for bit, db within WGRAD_REL of ``abs_db`` from the f64 ``want_db``,
+    the folded db bit for bit the in-order sum of its shares' rows and the
+    counters at 0.  -> max abs error of db."""
+    from repro_torch.core import conv2d_common
+    from repro_torch.kernels import split_sum
+    from repro_torch.kernels.direct_conv2d import dz_partials
+    (ws, dz, db), (_, dz2, db2) = (dz_partials(g, z, act, True)
+                                   for _ in range(2))
+    torch.cuda.synchronize()
+    want = conv2d_common.cotangent_prologue(g, z, act)
+    same = torch.equal(dz, want)
+    if act == "gelu":
+        bf16_close(f"{label} dz", dz, want)
+    elif not same:
+        fail(f"{label}: dz differs from cotangent_prologue")
+    if not (torch.equal(dz, dz2) and torch.equal(db, db2)):
+        fail(f"{label}: two runs differ")
+    if not torch.equal(db.reshape(-1), conv2d_common.wgrad_reduce(ws)):
+        fail(f"{label}: the folded db of {ws.shape[0]} shares differs from "
+             "the in-order sum of its rows")
+    if any(int(a.count_nonzero()) for a in split_sum.arenas()):
+        fail(f"{label}: a split-sum counter was left set")
+    err = compare_scaled(f"bf16 dz pass db {label}", db, want_db, abs_db,
+                         WGRAD_REL)
+    print(f"[check] {label}: dz {'bit for bit' if same else 'within a bf16 ulp of'} "
+          f"cotangent_prologue, db folded from {ws.shape[0]} shares bit for "
+          "bit their in-order sum, two runs bit for bit, counters at 0")
+    return err
 
 
 def check_gap(label: str, launch, hw: int, other) -> None:
@@ -3466,7 +3510,8 @@ def bf16_train_phases(args, dev, t_start, model, smi):
     from repro_torch.core.direct_conv import (direct_conv_dgrad_blocked,
                                               direct_conv_wgrad_blocked)
     from repro_torch.kernels import conv2d_stream as stk
-    from repro_torch.kernels.direct_conv2d import (direct_conv2d_blocked,
+    from repro_torch.kernels.direct_conv2d import (cotangent_pass,
+                                                   direct_conv2d_blocked,
                                                    direct_conv2d_dgrad,
                                                    dgrad_plans, split_wgrad,
                                                    wgrad_partials,
@@ -3484,6 +3529,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
              "conv2d_stream_dgrad_bf16": "stream_dgrad_kernel_bf16",
              "direct_conv2d_wgrad_bf16": "wgrad_kernel_bf16",
              "conv2d_stream_wgrad_bf16": "stream_wgrad_kernel_bf16"}
+    dz_key = "direct_conv2d_dz_bf16"
 
     def route(streamed):
         return "streamed" if streamed else "window"
@@ -3516,8 +3562,8 @@ def bf16_train_phases(args, dev, t_start, model, smi):
                               precision="bf16")
 
     # -- 23(a) each build against its plain version, with its times ----------
-    max_err = {k: 0.0 for k in key.values()}
-    rows = {k: [] for k in key.values()}
+    max_err = {k: 0.0 for k in (*key.values(), dz_key)}
+    rows = {k: [] for k in (*key.values(), dz_key)}
     for name, (ci, co, s, h) in zip(LAYER_NAMES, layer_shapes(ENTRY)):
         x, w, z, g, spec = operands(BATCH, ci, co, h, s)
         dz = conv2d_common.cotangent_prologue(g, z, "relu")
@@ -3552,6 +3598,10 @@ def bf16_train_phases(args, dev, t_start, model, smi):
                                                "relu", stream=streamed,
                                                precision="bf16")
                 got, again = dgrad(), dgrad()
+                on_dz = direct_conv2d_dgrad(dz, w, (h, h), s, "SAME",
+                                            stream=streamed,
+                                            precision="bf16",
+                                            prologue_tiles=True)
                 torch.cuda.synchronize()
                 k = key[(streamed, "dgrad")]
                 max_err[k] = max(max_err[k], bf16_close(
@@ -3559,6 +3609,13 @@ def bf16_train_phases(args, dev, t_start, model, smi):
                 if not torch.equal(got, again):
                     fail(f"bf16 {route(streamed)} dgrad {name}: two runs "
                          "differ")
+                if not torch.equal(on_dz, got):
+                    fail(f"bf16 {route(streamed)} dgrad {name}: on the dz "
+                         "pass's dz it differs from its own prologue")
+                print(f"[check] bf16 {route(streamed)} dgrad {tag} on the "
+                      "dz pass's dz (prologue off): bit for bit the same "
+                      "dgrad with its prologue")
+                del on_dz
                 plan, model_plan = dgrad_plans(g, w, (h, h), s, "SAME", z,
                                                "relu", streamed=streamed,
                                                dtype=bf)
@@ -3587,6 +3644,25 @@ def bf16_train_phases(args, dev, t_start, model, smi):
         l_ms, l_graph = time_ms(lib), graph_ms(lib)
         b_ms, b_by = bound(spec.flops(), 2 * (x.numel() + 2 * g.numel())
                            + 4 * (w.numel() + co), PEAK_BF16_FLOPS)
+        # the dz pass: dz and db once a layer, against cotangent_prologue
+        max_err[dz_key] = max(max_err[dz_key], check_dz_pass(
+            f"dz pass {tag} relu", g, z, "relu", want_db, abs_db))
+
+        def dz_pass():
+            return cotangent_pass(g, z, "relu", True)
+
+        def dz_plain():
+            d = conv2d_common.cotangent_prologue(g, z, "relu")
+            return d, d.float().sum(dim=(0, 2, 3))
+        d_ms, d_graph = time_ms(dz_pass), graph_ms(dz_pass)
+        dp_ms = time_ms(dz_plain, iters=3)
+        db_ms, db_by = bound(g.numel(), 2 * 3 * g.numel() + 4 * co,
+                             PEAK_BF16_FLOPS)
+        rows[dz_key].append((d_ms, d_graph, dp_ms, 0.0, 0.0, db_ms, db_by))
+        print(f"[bf16-bwd-time] {tag} dz pass (dz_kernel_bf16, with db): "
+              f"eager_ms {d_ms:.4f} graph_ms {d_graph:.4f} plain_ms "
+              f"{dp_ms:.4f} bound_ms {db_ms:.4f} ({db_by}, 6 bytes an "
+              f"element) bound/graph {db_ms / d_graph:.3f}")
         for streamed in (False, True):
             k = key[(streamed, "wgrad")]
             first = wgrad_run(x, g, z, s, streamed)
@@ -3610,7 +3686,8 @@ def bf16_train_phases(args, dev, t_start, model, smi):
                 return wgrad_run(x, g, z, s, streamed)
             k_ms, g_ms = time_ms(wgrad), graph_ms(wgrad)
             rows[k].append((k_ms, g_ms, p_ms, l_ms, l_graph, b_ms, b_by))
-            print(f"[bf16-bwd-time] {tag} wgrad {route(streamed)}: eager_ms "
+            print(f"[bf16-bwd-time] {tag} wgrad {route(streamed)} (the dz "
+                  f"pass and the GEMM): eager_ms "
                   f"{k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
                   f"library_ms {l_ms:.4f} [{l_graph:.4f}] "
                   f"(convolution_backward, bf16 channels-last, no db) "
@@ -3626,11 +3703,27 @@ def bf16_train_phases(args, dev, t_start, model, smi):
         for kind in ("dw", "db")) + f" (tol 1, |err| <= {WGRAD_REL:g} * "
         "sum|x dz|; two runs bit for bit)")
 
-    # Cob % 8 != 0: the cp.async (Cob 6) and 2-byte (Cob 125) copies
+    # Cob % 8 != 0: the cp.async (Cob 6) and 2-byte (Cob 125) copies, each
+    # beside cuDNN bf16's dgrad in channels-last at the same shape
     for n, ci, co, h, s in C1_SHAPES:
         cob = 6 if co == 6 else 125
         x, w, z, g, spec = operands(n, ci, co, h, s, cob)
         want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        (pt, pb), (pl, pr) = spec.pads
+        cl = torch.channels_last
+        xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(n, ci, h, h),
+                   (pl, pr, pt, pb)).contiguous(memory_format=cl)
+        w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 3, 3)
+                  .contiguous(memory_format=cl))
+        dz_nchw = (dz.permute(0, 1, 4, 2, 3).reshape(n, co, spec.ho, spec.wo)
+                   .contiguous(memory_format=cl))
+
+        def cudnn():
+            return torch.ops.aten.convolution_backward(
+                dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                [0, 0], 1, [True, False, False])
+        c_ms, c_graph = time_ms(cudnn), graph_ms(cudnn)
         for streamed in (False, True):
             def dgrad():
                 return direct_conv2d_dgrad(g, w, (h, h), s, "SAME", z,
@@ -3643,8 +3736,10 @@ def bf16_train_phases(args, dev, t_start, model, smi):
             max_err[k] = max(max_err[k], bf16_close(
                 f"{route(streamed)} dgrad {tag}", got, want))
             print(f"[bf16-c1] {route(streamed)} dgrad {tag}: eager_ms "
-                  f"{time_ms(dgrad):.4f} graph_ms {graph_ms(dgrad):.4f}")
-        del x, w, z, g, want, got
+                  f"{time_ms(dgrad):.4f} graph_ms {graph_ms(dgrad):.4f}; "
+                  f"cuDNN bf16 (convolution_backward, channels-last) "
+                  f"{c_ms:.4f} [{c_graph:.4f}] on {smi}")
+        del x, w, z, g, want, got, dz, xp, w_oihw, dz_nchw
 
     # the autograd path: relu and gelu, a residual and GAP, Cib = 3 and 64,
     # against the same function on the CPU's plain versions
@@ -3673,7 +3768,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
             ran = {k: v for k, v in all_launches().items() if v}
             pre = "conv2d_stream" if streamed else "direct_conv2d"
             if ran != {f"{pre}_fwd_bf16": 1, f"{pre}_dgrad_bf16": 1,
-                       f"{pre}_wgrad_bf16": 1}:
+                       f"{pre}_wgrad_bf16": 1, dz_key: 1}:
                 fail(f"the bf16 autograd path launched {ran}")
             want = grads(streamed, torch.device("cpu"))
             for nm, gk, gp in zip(("dx", "dw", "db", "dres"), got, want):
@@ -3692,7 +3787,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
         runs_spec.append((f"bf16-train {route(streamed)}",
                           ConvContext(precision="bf16", stream=streamed),
                           {f"{pre}_fwd_bf16": 13, f"{pre}_dgrad_bf16": 12,
-                           f"{pre}_wgrad_bf16": 13}))
+                           f"{pre}_wgrad_bf16": 13, dz_key: 13}))
     counts, trained, batches, lr = bf16_trainers(model, BATCH, args.seed + 50,
                                                  runs_spec, dev)
     runs = {streamed: trained[i] for i, streamed in enumerate((False, True))}
@@ -3715,6 +3810,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
               for i, (ci, co, s, h) in enumerate(layer_shapes(ENTRY))]
     modelled = sum(mm.bytes_precision_split(sh, "bf16")["total"]
                    for sh in shapes)
+    transient = max(mm.bytes_backward_transient(sh, "bf16") for sh in shapes)
     for streamed in (False, True):
         step, state, km = runs[streamed]
         torch.cuda.synchronize()
@@ -3727,8 +3823,27 @@ def bf16_train_phases(args, dev, t_start, model, smi):
               f"the parameters, gradients and moments it holds "
               f"{peak / 2**20:.1f} MiB; memory_model.bytes_precision_split's"
               f" bf16 training bytes over the 13 convs {modelled / 2**20:.1f}"
-              f" MiB ({smi})")
+              f" MiB, the largest dz a backward holds besides "
+              f"(bytes_backward_transient) {transient / 2**20:.1f} MiB "
+              f"({smi})")
     entries = []
+    print("[bf16-bwd-time] the parent's, recorded (PERF.md, H100 80GB HBM3 at "
+          "700.00 W; not measured here): window wgrad 5.278 [5.192] ms, "
+          "streamed 5.464 [5.353], window dgrad 2.132 [2.055], streamed "
+          "2.461 [2.363]; bf16 steps 12.863 ms window, 13.565 streamed")
+    rs = rows[dz_key]
+    tot = [sum(r[i] for r in rs) for i in range(6)]
+    print(f"[bf16-bwd-time] all {len(rs)} dz passes (dz_kernel_bf16, inside "
+          f"each wgrad line above) on {smi}: eager_ms {tot[0]:.4f} graph_ms "
+          f"{tot[1]:.4f} plain_ms {tot[2]:.4f} bound_ms {tot[5]:.4f} "
+          f"(bytes), {100 * tot[5] / tot[1]:.1f} % of the bound as a graph; "
+          f"launches in the two bf16 training runs {counts.get(dz_key, 0)}")
+    entries.append({
+        "name": f"{dz_key} (dz_kernel_bf16)", "route": "cuda",
+        "source": BWD_SOURCE, "replaces": TPU_PROLOGUE,
+        "launches": counts.get(dz_key, 0), "max_abs_err": max_err[dz_key],
+        "ms": tot[0], "plain_ms": tot[2], "bound_ms": tot[5],
+        "bound_by": "bytes", "library_ms": None})
     for (streamed, kind), k in key.items():
         rs = rows[k]
         tot = [sum(r[i] for r in rs) for i in range(6)]
@@ -3751,7 +3866,7 @@ def bf16_train_phases(args, dev, t_start, model, smi):
     del runs
     torch.cuda.empty_cache()
     print(f"[time] phase 23 done at {time.perf_counter() - t_start:.1f} s")
-    return entries, {k: counts.get(k, 0) for k in key.values()}
+    return entries, {k: counts.get(k, 0) for k in (*key.values(), dz_key)}
 
 
 def separable_bf16_phases(args, dev, t_start, smi, model):
@@ -4114,7 +4229,8 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     stamp("b")
 
     # -- 24(c) MobileNet v1 trained in bf16 ---------------------------------
-    want_step = {"direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1}
+    want_step = {"direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1,
+                 "direct_conv2d_dz_bf16": 14}
     for fam in ("depthwise", "pointwise"):
         for kind in ("fwd", "dgrad", "wgrad"):
             want_step[f"conv2d_{fam}_{kind}_bf16"] = 13
@@ -4309,7 +4425,8 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     del runs, bstep, bstate, bmodel
     torch.cuda.empty_cache()
 
-    counts = {k: served.get(k, 0) + trained.get(k, 0) for k in fn_of}
+    counts = {k: served.get(k, 0) + trained.get(k, 0)
+              for k in (*fn_of, "direct_conv2d_dz_bf16")}
     entries = []
     for name, (k_ms, g_ms, p_ms, l_ms, l_graph, b_ms) in sums.items():
         fam_kind = name[:-len("_bf16")]
@@ -4403,7 +4520,8 @@ def main(argv=None) -> int:
     for name, kernel in (("flash_attention", FLASH_F32_KERNEL),
                          ("conv2d_depthwise", DW_WGRAD_KERNEL),
                          ("conv2d_depthwise", "depthwise_fwd_kernel_bf16"),
-                         ("conv2d_depthwise", "depthwise_dgrad_kernel_bf16")):
+                         ("conv2d_depthwise", "depthwise_dgrad_kernel_bf16"),
+                         ("direct_conv2d_bwd", "dz_kernel_bf16")):
         res = next(r for r in built if r.name == name)
         ptx = {fn: v for fn, v in ptxas_report(res.log).items()
                if kernel in fn}
@@ -4918,6 +5036,9 @@ def main(argv=None) -> int:
     kernels.extend(st_entries)
     kernels.extend(lm_entries)
     kernels.extend(bf_entries)
+    for e in bt_entries:            # the dz pass runs MobileNet's too
+        if e["name"].startswith("direct_conv2d_dz_bf16"):
+            e["launches"] += sb_counts.get("direct_conv2d_dz_bf16", 0)
     kernels.extend(bt_entries)
     kernels.extend(sb_entries)
     print(json.dumps({"kernels": kernels}))

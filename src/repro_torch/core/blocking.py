@@ -821,16 +821,13 @@ def wgrad_lanes(cob: int) -> int:
     return lanes
 
 
-def wgrad_ldx(cib: int, stride: int, op_bytes: int = 4) -> int:
-    """Elements of one staged x cell (``wgrad_tile::x_ld``): ``cib`` rounded
+def wgrad_ldx(cib: int, stride: int) -> int:
+    """Floats of one staged x cell (``wgrad_tile::x_ld``): ``cib`` rounded
     up to 4, then up to the first value whose ``stride`` multiple is 8 mod
     16, so that an A load's four positions start on four distinct 8-bank
-    groups (``cib`` rounded up to 4 where no such value exists).  bf16
-    (``op_bytes`` 2, ``wgrad_tile::bf16::x_ld``): rounded up to 8 (a TMA
-    box's 16 bytes), then likewise in steps of 8."""
-    unit = 4 if op_bytes == 4 else 8
-    base = -(-cib // unit) * unit
-    return next((ld for ld in range(base, base + 8 * unit, unit)
+    groups (``cib`` rounded up to 4 where no such value exists)."""
+    base = -(-cib // 4) * 4
+    return next((ld for ld in range(base, base + 32, 4)
                  if stride * ld % 16 == 8), base)
 
 
@@ -841,7 +838,7 @@ def wgrad_mtiles(hf: int, wf: int, cib: int) -> int:
 
 def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                      cib: int, cob: int, lanes: int, prologue: bool,
-                     op_bytes: int = 4) -> int:
+                     op_bytes: int = 4, span: int = 1) -> int:
     """Dynamic shared memory of one wgrad CTA (``wgrad_tile::smem_bytes``):
     128 bytes to align the base; per slot of the two-slot ring the x window
     ``[hwin][rf]`` (a row's ``wwin`` cells of ``ld`` floats, padded to 128
@@ -850,23 +847,85 @@ def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     ``[K/4][lanes][4]`` (K = th * tw rounded up to 8); the position offsets,
     the db partials and two 8-byte mbarriers a slot.
 
-    bf16 (``op_bytes`` 2, ``wgrad_tile::bf16::smem_bytes``): 2-byte cells
-    (``wgrad_ldx`` at 2 bytes), rows padded to 128 bytes, K rounded up to
-    16, and B one ``[lanes/8][K + 1][8]`` bf16 buffer (no small half; a
-    position of padding a lane group), rounded up to 128 bytes."""
-    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    bf16 (``op_bytes`` 2, ``wgrad_tile::bf16::smem_bytes``): a 1024-byte
+    swizzle atom to align the base, ``wgrad_bf16_slots`` slots of
+    ``wgrad_bf16_slot_bytes`` (a CTA of ``span`` m-tiles), 256 bytes of
+    tables; no g, z or prologue."""
     if op_bytes == 2:
-        kpos = -(-th * tw // 16) * 16
-        x = hwin * -(-wwin * wgrad_ldx(cib, stride, 2) // 64) * 64
-        raw = -(-kpos * cob // 64) * 64
-        slot = (x + (2 if prologue else 1) * raw
-                + -(-(kpos + 1) * lanes // 64) * 64)
-        return 128 + 2 * 2 * slot + 4 * (WGRAD_MAX_POSITIONS + 128) + 8 * 4
+        slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib, lanes, span)
+        return (WGRAD_BF16_ATOM + wgrad_bf16_slots(slot) * slot
+                + WGRAD_BF16_TABLES)
+    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
     kpos = -(-th * tw // 8) * 8
     x = hwin * -(-wwin * wgrad_ldx(cib, stride) // 32) * 32
     raw = -(-kpos * cob // 32) * 32
     slot = x + (2 if prologue else 1) * raw + 2 * kpos * lanes
     return 128 + 4 * (2 * slot + WGRAD_MAX_POSITIONS + 128) + 8 * 4
+
+
+# The bf16 build of the tile (``wgrad_tile::bf16``) is another GEMM on the
+# same rows and columns: an m-tile is one tap x 64 channels (a half of the
+# Ci block), A the staged x window and B the dz tile, both read from shared
+# memory by descriptor in 128-byte swizzled rows (a cell or a position a
+# row), K in k16 steps of 8-position groups that are 8 consecutive cells
+# (``tw`` a multiple of 8 but at 1x1 stride 1), the window staged in
+# ``min(stride, wf)`` column phases, up to WGRAD_BF16_MAX_POSITIONS
+# positions a stage in a ring of 2-4 slots.  A CTA's ``span`` = wgs * mpw
+# m-tiles are taps of one half, or whole halves where they cover a half's
+# taps (``wgrad_bf16_groups``); widths 64 and 128 only.
+WGRAD_BF16_ROW = 128                # bytes of a swizzled row (64 bf16)
+WGRAD_BF16_ATOM = 1024              # the swizzle's period, 8 rows
+WGRAD_BF16_TABLES = 256
+WGRAD_BF16_MAX_POSITIONS = 256
+WGRAD_BF16_SLOTS = (2, 4)
+WGRAD_BF16_LANES = (64, 128)
+# the CTA's limit the C++ sizes its ring against (kSmemBlock)
+WGRAD_SMEM_BLOCK = 232448
+
+
+def wgrad_bf16_lanes(cob: int) -> int:
+    """The bf16 build's wgmma width for a ``cob`` pencil: 64 or 128."""
+    lanes = next((n for n in WGRAD_BF16_LANES if cob <= n), None)
+    if lanes is None:
+        raise SmemMisfitError(f"cob={cob} is wider than the wgrad tile's "
+                              f"widest wgmma, {WGRAD_BF16_LANES[-1]} lanes")
+    return lanes
+
+
+def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int):
+    """``(taps a group, groups a half's taps take, halves a group, groups)``
+    of a CTA of ``span`` m-tiles (``wgrad_tile::bf16::tpg``, ``gph``,
+    ``hpg``, ``groups``)."""
+    taps, halves = hf * wf, -(-cib // 64)
+    tpg = min(span, taps)
+    gph = -(-taps // tpg)
+    hpg = max(1, span // tpg)
+    return tpg, gph, hpg, -(-halves // hpg) * gph
+
+
+def wgrad_bf16_slot_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
+                          cib: int, lanes: int, span: int) -> int:
+    """One slot of the bf16 ring: the CTA's staged halves, each in every
+    column phase, a window of ``hwin`` rows of ``tw + (wf - 1) // stride``
+    cells (at least the tile's positions rounded to 8) of 128 bytes in
+    whole 1024-byte atoms, then B, ``lanes / 64`` blocks of K (positions
+    rounded to 16) rows."""
+    hwin = (th - 1) * stride + hf
+    wph = tw + (wf - 1) // stride
+    cells = max(hwin * wph, -(-th * tw // 8) * 8)
+    region = -(-cells * WGRAD_BF16_ROW // WGRAD_BF16_ATOM) * WGRAD_BF16_ATOM
+    _, _, hpg, _ = wgrad_bf16_groups(hf, wf, cib, span)
+    staged = min(hpg, -(-cib // 64))
+    kpos = -(-th * tw // 16) * 16
+    return (staged * min(stride, wf) * region
+            + lanes // 64 * kpos * WGRAD_BF16_ROW)
+
+
+def wgrad_bf16_slots(slot: int) -> int:
+    """Slots of ``slot`` bytes the ring takes: as many as fit, up to 4 (0 or
+    1: the tile does not fit)."""
+    fit = (WGRAD_SMEM_BLOCK - WGRAD_BF16_ATOM - WGRAD_BF16_TABLES) // slot
+    return min(WGRAD_BF16_SLOTS[1], fit)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -946,14 +1005,16 @@ def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
     ``ho x wo`` output (the bf16 build where ``blk.kstep`` is 16)."""
     op_bytes = 2 if blk.kstep == 16 else 4
     products = 3 if op_bytes == 4 else 1
+    mtiles = (-(-cib // 64) * hf * wf if op_bytes == 2
+              else wgrad_mtiles(hf, wf, cib))
     return WgradPlan(
         tiles=blk.tiles,
         function_macs=n * ho * wo * hf * wf * cib * ciblk * cob * coblk,
-        issued_macs=(ciblk * coblk * blk.tiles * blk.kpos
-                     * wgrad_mtiles(hf, wf, cib) * WGRAD_ROWS * blk.lanes
-                     * products),
+        issued_macs=(ciblk * coblk * blk.tiles * blk.kpos * mtiles
+                     * WGRAD_ROWS * blk.lanes * products),
         smem=wgrad_smem_bytes(blk.th, blk.tw, hf, wf, stride, cib, cob,
-                              blk.lanes, prologue, op_bytes),
+                              blk.lanes, prologue, op_bytes,
+                              blk.wgs * blk.mpw),
         products=products)
 
 
@@ -988,11 +1049,13 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     a first stage a CTA; the workspace the shares write; and the folded
     sum's tail, one column's rows read by one SM at
     ``SPLIT_SUM_BYTES_PER_CYCLE``.  Ties go to fewer shares, then larger
-    stages.  ``op_bytes`` 2 weighs the bf16 build: K in k16 slices, 2-byte
-    staging, one product a MAC at twice the TF32 rate."""
-    lanes = wgrad_lanes(cob)
+    stages.  ``op_bytes`` 2 weighs the bf16 build
+    (``_wgrad_bf16_candidates``)."""
     kstep = _fwd_k_step(op_bytes)
-    bf16 = kstep == 16
+    if kstep == 16:
+        return _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
+                                      coblk, cob, machine, streamed, hso)
+    lanes = wgrad_lanes(cob)
     mt = wgrad_mtiles(hf, wf, cib)
     cols = coblk * ciblk * hf * wf * cib * cob + coblk * cob
     cls = StreamWgradBlocking if streamed else WgradBlocking
@@ -1015,16 +1078,12 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
         for wgs in range(1, WGRAD_CONSUMERS + 1):
             for mpw in WGRAD_MPW:
                 if (lanes * mpw > 128 or (mpw > 1 and mt == 1)
-                        or (wgs - 1) * mpw >= mt
-                        or (bf16 and lanes * mpw == 128
-                            and wgs > BF16_WIDE_CONSUMERS)):
+                        or (wgs - 1) * mpw >= mt):
                     continue
                 groups = -(-mt // (wgs * mpw))
                 column = min(hf * wf * cib, wgs * mpw * WGRAD_ROWS) * cob
-                mma = (mt / groups * kpos / 8 * (1 if bf16 else 3)
-                       * WGRAD_ROWS * lanes * 8
-                       / (WGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
-                       / WGRAD_WG_EFFICIENCY[wgs])
+                mma = (mt / groups * kpos / 8 * 3 * WGRAD_ROWS * lanes * 8
+                       / WGRAD_MACS_PER_CYCLE / WGRAD_WG_EFFICIENCY[wgs])
                 stage = max(mma, producer)
                 base = groups * ciblk * coblk
                 # shares that fill whole waves or come just short of them,
@@ -1047,6 +1106,109 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                                     lanes=lanes, groups=groups,
                                     splits=splits, tiles=tiles, hwin=hwin,
                                     wwin=wwin, kstep=kstep)))
+    return out
+
+
+# The bf16 GEMM's cost model (``_wgrad_bf16_candidates``), in cycles of one
+# SM: the dense bf16 rate in MACs a cycle, the share of it one to three
+# consumer warpgroups keep busy, and a stage's staged bytes at an SM's share
+# of the L2's rate (TMA, no producer pass), a fixed part a stage and a
+# CTA's first stage.  Fitted to ``python -m repro_torch.launch.
+# wgrad_tiles_ab --dtype bf16`` on an H100.
+WGRAD_BF16_MACS_PER_CYCLE = 2048
+WGRAD_BF16_WG_EFFICIENCY = {1: 0.55, 2: 0.8, 3: 0.8}
+WGRAD_BF16_BYTES_PER_CYCLE = 24
+WGRAD_BF16_STAGE_CYCLES = 400
+WGRAD_BF16_FIRST_CYCLES = 16000
+
+
+def _wgrad_bf16_shapes(ho: int, wo: int, hf: int, wf: int, stride: int,
+                       hso: int | None):
+    """The bf16 stage shapes: tw a multiple of 8 (8 consecutive cells a
+    position group) up to the row rounded to 8, or at 1x1 stride 1 whole
+    rows (positions run on across the row breaks; multiples of 16 for rows
+    longer than a stage); th rows (``hso`` pinned) up to
+    WGRAD_BF16_MAX_POSITIONS positions."""
+    top = WGRAD_BF16_MAX_POSITIONS
+    if hf == wf == stride == 1:
+        widths = [wo] if wo <= top else list(range(16, top + 1, 16))
+    else:
+        widths = list(range(8, min(-(-wo // 8) * 8, top) + 1, 8))
+    out = []
+    for tw in widths:
+        rows = [hso] if hso is not None else range(1, min(ho, 16) + 1)
+        for th in rows:
+            if th * tw <= top:
+                out.append((th, tw))
+    return out
+
+
+def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                           machine, streamed, hso):
+    """``wgrad_candidates`` for the bf16 GEMM: each stage shape whose ring
+    holds two slots, consumer count and m-tiles a warpgroup (two only at 64
+    lanes; two consumers at most where a warpgroup's m-tiles take 128
+    lanes), and share count; the key's cost the busiest SM's cycles (its
+    CTAs' stages, each the longer of the wgmmas and the staged bytes, plus
+    a fixed part, and a first stage a CTA; the workspace; the folded sum's
+    tail), ties to fewer shares, then larger stages."""
+    lanes = wgrad_bf16_lanes(cob)
+    taps, halves = hf * wf, -(-cib // 64)
+    mt = halves * taps
+    cols = coblk * ciblk * taps * cib * cob
+    cls = StreamWgradBlocking if streamed else WgradBlocking
+    phases = min(stride, wf)
+    out = []
+    for th, tw in _wgrad_bf16_shapes(ho, wo, hf, wf, stride, hso):
+        kpos = -(-th * tw // 16) * 16
+        hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+        wph = tw + (wf - 1) // stride
+        tiles = n * -(-ho // th) * -(-wo // tw)
+        for wgs in range(1, WGRAD_CONSUMERS + 1):
+            for mpw in WGRAD_MPW:
+                if (lanes * mpw > 128 or (mpw > 1 and mt == 1)
+                        or (wgs - 1) * mpw >= mt
+                        or (lanes * mpw == 128
+                            and wgs > BF16_WIDE_CONSUMERS)):
+                    continue
+                span = wgs * mpw
+                slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib,
+                                             lanes, span)
+                if (wgrad_bf16_slots(slot) < WGRAD_BF16_SLOTS[0]
+                        or wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob,
+                                            lanes, False, 2, span)
+                        > machine.smem_block):
+                    continue
+                tpg, _, hpg, groups = wgrad_bf16_groups(hf, wf, cib, span)
+                held = min(span, hpg * tpg, mt)
+                staged = (min(hpg, halves) * phases * hwin * wph
+                          + lanes // 64 * th * tw) * WGRAD_BF16_ROW
+                mma = (held * kpos * WGRAD_ROWS * lanes
+                       / (WGRAD_BF16_MACS_PER_CYCLE
+                          * WGRAD_BF16_WG_EFFICIENCY[wgs]))
+                stage = (max(mma, staged / WGRAD_BF16_BYTES_PER_CYCLE)
+                         + WGRAD_BF16_STAGE_CYCLES)
+                base = groups * ciblk * coblk
+                column = held * 64 * cob
+                most = max(1, min(tiles, WGRAD_WORKSPACE_BYTES // (4 * cols)))
+                shares = {most}
+                for waves in range(1, 9):
+                    shares |= {max(1, waves * machine.sms // base),
+                               -(-waves * machine.sms // base)}
+                for splits in sorted(k for k in shares if k <= most):
+                    ctas = base * splits
+                    cost = (-(-ctas // machine.sms)
+                            * (-(-tiles // splits) * stage
+                               + WGRAD_BF16_FIRST_CYCLES)
+                            + (splits + 1) * cols * 4
+                            / WGRAD_CARD_BYTES_PER_CYCLE
+                            + splits * column * 4
+                            / SPLIT_SUM_BYTES_PER_CYCLE)
+                    out.append(((cost, splits, -kpos, -span),
+                                cls(th=th, tw=tw, wgs=wgs, mpw=mpw,
+                                    lanes=lanes, groups=groups,
+                                    splits=splits, tiles=tiles, hwin=hwin,
+                                    wwin=wwin, kstep=16)))
     return out
 
 
@@ -1076,6 +1238,22 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
     return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
                            machine, prologue, False, None, "wgrad tile",
                            op_bytes)
+
+
+# The bf16 dz pass (direct_conv2d_bwd.cu ``dz_kernel_bf16``): one CTA a
+# (position share, Co block), enough shares for DZ_WAVES waves of CTAs, at
+# least DZ_MIN_POSITIONS positions each; bytes-bound, so any share count
+# that fills the card will do, and few shares keep its folded db short.
+DZ_WAVES = 2
+DZ_MIN_POSITIONS = 64
+
+
+def dz_splits(n: int, coblk: int, hw: int,
+              machine: MachineModel = H100_SXM) -> int:
+    """Position shares of each Co block the dz pass takes over ``n``
+    images of ``hw`` positions."""
+    return max(1, min(n * hw // DZ_MIN_POSITIONS,
+                      DZ_WAVES * machine.sms // coblk))
 
 
 # The split sums folded into the kernels that write their rows

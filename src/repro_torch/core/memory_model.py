@@ -26,7 +26,8 @@ from repro_torch.core.padding import Padding, normalize_padding, out_size
 from repro_torch.core.precision import resolve_precision
 
 __all__ = ["ConvShape", "bytes_overhead", "bytes_channel_pad",
-           "bytes_precision_split", "bytes_halo_refetch", "overhead_table",
+           "bytes_precision_split", "bytes_backward_transient",
+           "bytes_halo_refetch", "overhead_table",
            "bytes_repack_boundary", "chain_repack_bytes",
            "bytes_epilogue_fusion"]
 
@@ -168,6 +169,19 @@ def bytes_precision_split(s: ConvShape, precision="bf16",
         "total": total, "f32_total": f32_total,
         "saved": f32_total - total,
     }
+
+
+def bytes_backward_transient(s: ConvShape, precision="bf16") -> int:
+    """Bytes a layer's backward holds only while it runs, past the working
+    set ``bytes_precision_split`` counts: under a narrow policy the port's
+    dz (``g * act'(z)`` formed once a layer by the dz pass, the size of the
+    layer's output at the operand dtype, freed when its backward returns);
+    0 at f32, whose backward kernels form dz as they stage ``g``.  A step
+    holds the largest of its layers' at once."""
+    pol = resolve_precision(precision)
+    if pol.operand_itemsize == 4:
+        return 0
+    return s.n * s.ho * s.wo * s.co * pol.operand_itemsize
 
 
 def _fetched(extent: int, out: int, tile: int, stride: int, f: int) -> int:

@@ -64,7 +64,11 @@
 //   rows the two share (moved slot to slot, as the TPU kernel moves them)
 //   and only its fresh rows come from device memory, with its cotangent
 //   strip and `z` beside it, a slot ahead of the wgmmas.  db rides the
-//   producer of the CTAs of Ci block 0 and m-tile group 0.
+//   producer of the CTAs of Ci block 0 and m-tile group 0.  Its bf16 build
+//   (stream_wgrad_kernel_bf16) is wgrad_tile.cuh's bf16 GEMM on dz (formed
+//   once a layer by direct_conv2d_bwd.cu's dz pass, which sums db) in the
+//   same column walk, each stage's whole window landing by TMA in 128-byte
+//   swizzled rows, where a row moved between slots would change its swizzle.
 //
 // What bounds them on this card: the TF32 tensor-core rate spent three
 // times over by the split, held below it by the producer's per-stage copies,
@@ -478,30 +482,24 @@ wtile::Kernel pick_wgrad(int lanes, int mpw) {
   return nullptr;
 }
 
-// The bf16 build of the same streamed tile (wgrad_tile.cuh, namespace
-// bf16): bf16 x, g and z, the f32 workspace and sums.
+// The bf16 build of the same streamed GEMM (wgrad_tile.cuh, namespace
+// bf16): bf16 x and dz, the f32 workspace and sums; the tiles walked column
+// by column, each stage's whole window staged.
 template <int N, int MPW>
 __global__ void __launch_bounds__(wtile::bf16::max_threads(N, MPW), 1)
 stream_wgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmx,
-                         const __grid_constant__ CUtensorMap tmg,
-                         const __grid_constant__ CUtensorMap tmz,
+                         const __grid_constant__ CUtensorMap tmd,
                          const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ g,
-                         const __nv_bfloat16* __restrict__ z, float* ws,
-                         float* out, int* counters, wtile::Geometry geo) {
+                         const __nv_bfloat16* __restrict__ dz, float* ws,
+                         float* out, int* counters, wtile::Geometry geo,
+                         const __grid_constant__ wtile::bf16::Steps steps) {
   extern __shared__ __align__(16) char smem_bf16[];
-  wtile::bf16::run<N, MPW>(smem_bf16, &tmx, &tmg, &tmz, x, g, z, ws, out,
-                           counters, geo);
+  wtile::bf16::run<N, MPW>(smem_bf16, &tmx, &tmd, x, dz, ws, out, counters,
+                           geo, steps);
 }
 
 wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw) {
   switch (lanes * 4 + mpw) {
-    case 8 * 4 + 1: return stream_wgrad_kernel_bf16<8, 1>;
-    case 8 * 4 + 2: return stream_wgrad_kernel_bf16<8, 2>;
-    case 16 * 4 + 1: return stream_wgrad_kernel_bf16<16, 1>;
-    case 16 * 4 + 2: return stream_wgrad_kernel_bf16<16, 2>;
-    case 32 * 4 + 1: return stream_wgrad_kernel_bf16<32, 1>;
-    case 32 * 4 + 2: return stream_wgrad_kernel_bf16<32, 2>;
     case 64 * 4 + 1: return stream_wgrad_kernel_bf16<64, 1>;
     case 64 * 4 + 2: return stream_wgrad_kernel_bf16<64, 2>;
     case 128 * 4 + 1: return stream_wgrad_kernel_bf16<128, 1>;
@@ -665,8 +663,8 @@ int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
   return 0;
 }
 
-// The bf16 build of conv2d_stream_wgrad (bf16 x, g and z; the f32
-// workspace and sums), the same plan.
+// The bf16 build of conv2d_stream_wgrad on dz (`g` takes dz; `z` null and
+// with_db 0, as direct_conv2d_wgrad_bf16), the same plan.
 int conv2d_stream_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
@@ -676,8 +674,8 @@ int conv2d_stream_wgrad_bf16(const void* x, const void* g, const void* z,
       z != nullptr, p[21]);
   return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
-                            (const __nv_bfloat16*)z, (float*)ws, (float*)out,
-                            (int*)counters, geo, (cudaStream_t)stream);
+                            (float*)ws, (float*)out, (int*)counters, geo,
+                            (cudaStream_t)stream);
 }
 
 // What conv2d_stream_wgrad_bf16 runs (wgrad_tile::bf16::plan).

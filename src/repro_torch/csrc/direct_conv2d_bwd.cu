@@ -62,6 +62,13 @@
 // whose latency a two-slot ring hides only while a stage's wgmmas outlast
 // it; at stride 2 the x window is four times a tile's positions.
 //
+// Under BF16 the backward forms dz once a layer (`dz_kernel_bf16`, with
+// db), the bf16 dgrad reads it with its prologue off, and the bf16 wgrad
+// (`wgrad_kernel_bf16`) is wgrad_tile.cuh's bf16 GEMM on it: x's window and
+// the dz tile land by TMA in 128-byte swizzled rows and both wgmma operands
+// are read from shared memory by descriptor.  Bound by the bf16 tensor-core
+// rate; in practice by the L2 bytes each m-tile group stages a stage.
+//
 // C interface for ctypes: pointers and the stream as void*, ints as int; each
 // entry point returns cudaGetLastError() after its launch (0 on success).
 
@@ -366,36 +373,197 @@ wtile::Kernel pick_wgrad(int lanes, int mpw) {
   return nullptr;
 }
 
-// The bf16 build of the same tile (wgrad_tile.cuh, namespace bf16): bf16 x,
-// g and z, the f32 workspace and sums.
+// The bf16 build of the same GEMM (wgrad_tile.cuh, namespace bf16): bf16 x
+// and dz, both wgmma operands from shared memory, the f32 workspace and sums.
 template <int N, int MPW>
 __global__ void __launch_bounds__(wtile::bf16::max_threads(N, MPW), 1)
 wgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmx,
-                  const __grid_constant__ CUtensorMap tmg,
-                  const __grid_constant__ CUtensorMap tmz,
+                  const __grid_constant__ CUtensorMap tmd,
                   const __nv_bfloat16* __restrict__ x,
-                  const __nv_bfloat16* __restrict__ g,
-                  const __nv_bfloat16* __restrict__ z, float* ws, float* out,
-                  int* counters, wtile::Geometry geo) {
+                  const __nv_bfloat16* __restrict__ dz, float* ws, float* out,
+                  int* counters, wtile::Geometry geo,
+                  const __grid_constant__ wtile::bf16::Steps steps) {
   extern __shared__ __align__(16) char smem_bf16[];
-  wtile::bf16::run<N, MPW>(smem_bf16, &tmx, &tmg, &tmz, x, g, z, ws, out,
-                           counters, geo);
+  wtile::bf16::run<N, MPW>(smem_bf16, &tmx, &tmd, x, dz, ws, out, counters,
+                           geo, steps);
 }
 
-// The compiled bf16 wgrad instances, as the f32 ones.
+// The compiled bf16 wgrad instances: wgmma widths 64 and 128 (Cob up to 64
+// takes 64), one or two m-tiles a warpgroup (one at 128).
 wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw) {
   switch (lanes * 4 + mpw) {
-    case 8 * 4 + 1: return wgrad_kernel_bf16<8, 1>;
-    case 8 * 4 + 2: return wgrad_kernel_bf16<8, 2>;
-    case 16 * 4 + 1: return wgrad_kernel_bf16<16, 1>;
-    case 16 * 4 + 2: return wgrad_kernel_bf16<16, 2>;
-    case 32 * 4 + 1: return wgrad_kernel_bf16<32, 1>;
-    case 32 * 4 + 2: return wgrad_kernel_bf16<32, 2>;
     case 64 * 4 + 1: return wgrad_kernel_bf16<64, 1>;
     case 64 * 4 + 2: return wgrad_kernel_bf16<64, 2>;
     case 128 * 4 + 1: return wgrad_kernel_bf16<128, 1>;
   }
   return nullptr;
+}
+
+// The bf16 tile's one-tap unit (wgrad_tile::bf16::probe).
+__global__ void __launch_bounds__(wtile::kWarpgroup, 1)
+wgrad_probe_bf16(const __grid_constant__ CUtensorMap tmx,
+                 const __grid_constant__ CUtensorMap tmd, float* out,
+                 int shift, int gap) {
+  extern __shared__ __align__(16) char smem_probe[];
+  wtile::bf16::probe(smem_probe, &tmx, &tmd, out, shift, gap);
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 dz pass
+// ---------------------------------------------------------------------------
+
+// dz = g * act'(z) once a layer for the bf16 backward (the dgrads read it
+// with their prologue off, the wgrads take it as B), with db's per-lane sums.
+// Replaces no TPU kernel of its own: the reference forms dz inside each of
+// `_dgrad_kernel` and `_wgrad_kernel` (conv2d_common.py cotangent_prologue);
+// here it is formed once, bit for bit the tiles' dgrad_tile::prologue_bf16.
+// Bytes-bound: 2 + 2 bytes read and 2 written an element (g alone for db
+// where the activation is linear).
+//
+//   g, z, dz [N, Co/Cob, Ho, Wo, Cob] bf16;  db [Co/Cob, Cob] f32
+//
+// A CTA walks a contiguous share of the N * Ho * Wo positions of one Co
+// block, a unit of `u` lanes (8: one 16-byte load where Cob is a multiple
+// of 8, else 1) a thread, its units' f32 sums in position order; the CTA's
+// sums go through shared memory in a fixed order to its share's row of `ws`
+// [splits, Co/Cob * Cob], and the column's (Co block's) last CTA (split_sum
+// ::arrive) sums the rows in split order into db, every thread staging rows
+// in shared memory first: two runs give the same bits.
+constexpr int kDzThreads = 256;
+// floats of shared memory a CTA stages its rows of sums in, and the
+// last CTA of a Co block the shares' rows in, a chunk at a time
+constexpr int kDzStage = 8192;
+
+struct DzGeometry {
+  int n, coblk, hw, cob;
+  int act;          // 0 linear, 1 relu, 2 gelu
+  int splits;       // position shares a Co block
+  int write;        // 1: dz is written (a prologue); 0: db alone
+  int with_db;
+};
+
+__global__ void __launch_bounds__(kDzThreads)
+dz_kernel_bf16(const __nv_bfloat16* __restrict__ g,
+               const __nv_bfloat16* __restrict__ z, __nv_bfloat16* dz,
+               float* ws, float* db, int* counters, DzGeometry geo) {
+  __shared__ float red[kDzStage];
+  __shared__ int flag;
+  const int split = blockIdx.x;
+  const int co_b = blockIdx.y;
+  const int tid = threadIdx.x;
+  const int u = geo.cob % 8 == 0 ? 8 : 1;
+  const int units = geo.cob / u;                 // a position's units
+  const int rows = kDzThreads / units;           // positions a pass
+  const int unit = tid % units;
+  const int row = tid / units;
+  // positions (n * hw of them, under 2^31: the wrapper checks) of a share
+  const int total = geo.n * geo.hw;
+  const int first = (int)((long long)total * split / geo.splits);
+  const int last = (int)((long long)total * (split + 1) / geo.splits);
+  float sum[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  auto offset = [&](int p) {
+    const int img = p / geo.hw;
+    return (((size_t)img * geo.coblk + co_b) * geo.hw + (p - img * geo.hw))
+               * geo.cob + unit * u;
+  };
+  if (row < rows && u == 8) {
+    // kDzBatch positions' loads in flight a thread, then in order
+    constexpr int kDzBatch = 8;
+    for (int p0 = first + row; p0 < last; p0 += kDzBatch * rows) {
+      uint4 v[kDzBatch], zv[kDzBatch];
+      size_t at[kDzBatch];
+#pragma unroll
+      for (int k = 0; k < kDzBatch; ++k) {
+        const int p = p0 + k * rows;
+        if (p < last) {
+          at[k] = offset(p);
+          v[k] = *reinterpret_cast<const uint4*>(g + at[k]);
+          if (geo.write) zv[k] = *reinterpret_cast<const uint4*>(z + at[k]);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kDzBatch; ++k) {
+        if (p0 + k * rows >= last) break;
+        __nv_bfloat16* vb = reinterpret_cast<__nv_bfloat16*>(&v[k]);
+        if (geo.write) {
+          const __nv_bfloat16* zb =
+              reinterpret_cast<const __nv_bfloat16*>(&zv[k]);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            vb[e] = dt::prologue_bf16(vb[e], zb[e], geo.act);
+          }
+          *reinterpret_cast<uint4*>(dz + at[k]) = v[k];
+        }
+#pragma unroll
+        for (int e = 0; e < 8; ++e) sum[e] += __bfloat162float(vb[e]);
+      }
+    }
+  } else if (row < rows) {
+    for (int p = first + row; p < last; p += rows) {
+      const size_t at = offset(p);
+      {
+        __nv_bfloat16 v = g[at];
+        if (geo.write) {
+          v = dt::prologue_bf16(v, z[at], geo.act);
+          dz[at] = v;
+        }
+        sum[0] += __bfloat162float(v);
+      }
+    }
+  }
+  if (!geo.with_db) return;
+  // the CTA's rows of sums, added row by row in order
+  if (row < rows) {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      if (e < u) red[row * geo.cob + unit * u + e] = sum[e];
+    }
+  }
+  __syncthreads();
+  const size_t cols = (size_t)geo.coblk * geo.cob;
+  for (int c = tid; c < geo.cob; c += kDzThreads) {
+    float s = red[c];
+    for (int r = 1; r < rows; ++r) s += red[r * geo.cob + c];
+    ws[(size_t)split * cols + (size_t)co_b * geo.cob + c] = s;
+  }
+  if (!split_sum::arrive(counters + co_b, geo.splits, &flag, 0, kDzThreads,
+                         tid == 0)) {
+    return;
+  }
+  // the shares' rows in split order (split_sum::sum_rows's sum), staged a
+  // chunk of rows at a time by every thread so that the loads of many rows
+  // are in flight at once, the adds then lane by lane in order
+  const float* rows_of = ws + (size_t)co_b * geo.cob;
+  const int chunk = kDzStage / geo.cob;
+  float acc = 0.0f;
+  for (int r0 = 0; r0 < geo.splits; r0 += chunk) {
+    const int nr = min(chunk, geo.splits - r0);
+    __syncthreads();
+    constexpr int kInFlight = 8;        // loads a thread has in flight
+    for (int i0 = tid; i0 < nr * geo.cob; i0 += kInFlight * kDzThreads) {
+      float v[kInFlight];
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        const int i = i0 + k * kDzThreads;
+        const int r = i / geo.cob;
+        v[k] = i < nr * geo.cob
+                   ? __ldcg(rows_of + (size_t)(r0 + r) * cols
+                            + (i - r * geo.cob))
+                   : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < kInFlight; ++k) {
+        if (i0 + k * kDzThreads < nr * geo.cob) red[i0 + k * kDzThreads] = v[k];
+      }
+    }
+    __syncthreads();
+    if (tid < geo.cob) {
+      for (int r = 0; r < nr; ++r) {
+        acc = r0 + r == 0 ? red[tid] : acc + red[r * geo.cob + tid];
+      }
+    }
+  }
+  if (tid < geo.cob) db[(size_t)co_b * geo.cob + tid] = acc;
 }
 
 // The window wgrad's launch geometry.
@@ -529,8 +697,9 @@ int direct_conv2d_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
   return 0;
 }
 
-// The bf16 build of direct_conv2d_wgrad (bf16 x, g and z; the f32
-// workspace and sums), the same plan.
+// The bf16 build of direct_conv2d_wgrad on dz (`g` takes dz; `z` must be
+// null and the plan's with_db 0: the dz pass forms dz and db), the f32
+// workspace and sums, the same plan.
 int direct_conv2d_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
@@ -540,8 +709,8 @@ int direct_conv2d_wgrad_bf16(const void* x, const void* g, const void* z,
       z != nullptr, p[21]);
   return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
-                            (const __nv_bfloat16*)z, (float*)ws, (float*)out,
-                            (int*)counters, geo, (cudaStream_t)stream);
+                            (float*)ws, (float*)out, (int*)counters, geo,
+                            (cudaStream_t)stream);
 }
 
 // What direct_conv2d_wgrad_bf16 runs (wgrad_tile::bf16::plan).
@@ -558,6 +727,38 @@ int direct_conv2d_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
     return (int)cudaErrorInvalidValue;
   wtile::bf16::plan(geo, out);
   return 0;
+}
+
+// The bf16 wgrad tile's one-tap unit: out[c][l] = sum_k<8 x[shift + k][c]
+// d[k][l] + x[shift + gap + k][c] d[8 + k][l] from x [64][64] and d
+// [16][64] bf16, staged and read as the tile stages and reads them.
+int direct_conv2d_wgrad_bf16_probe(const void* x, const void* d, void* out,
+                                   int shift, int gap, void* stream) {
+  return wtile::launch_probe(wgrad_probe_bf16, (const __nv_bfloat16*)x,
+                             (const __nv_bfloat16*)d, (float*)out, shift,
+                             gap, (cudaStream_t)stream);
+}
+
+// The bf16 dz pass: dz = g * act'(z) (`z` null and `dz` null for db alone,
+// linear), db [Co/Cob, Cob] f32 through `ws` [splits, Co/Cob * Cob] and a
+// zeroed int32 counter a Co block; grid (splits, Co/Cob).
+int direct_conv2d_dz_bf16(const void* g, const void* z, void* dz, void* ws,
+                          void* db, void* counters, int n, int coblk, int hw,
+                          int cob, int act, int splits, int with_db,
+                          void* stream) {
+  const bool write = z != nullptr && dz != nullptr;
+  if (n < 1 || coblk < 1 || hw < 1 || cob < 1 || cob > 256 || splits < 1
+      || (long long)n * hw >= (1ll << 31)
+      || (long long)splits > (long long)n * hw || (z != nullptr) != write
+      || (!write && !with_db) || coblk > 65535)
+    return (int)cudaErrorInvalidValue;
+  const DzGeometry geo{n, coblk, hw, cob, act, splits, write ? 1 : 0,
+                       with_db};
+  dz_kernel_bf16<<<dim3(splits, coblk), kDzThreads, 0,
+                   (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)g, (const __nv_bfloat16*)z, (__nv_bfloat16*)dz,
+      (float*)ws, (float*)db, (int*)counters, geo);
+  return (int)cudaGetLastError();
 }
 
 const char* cuda_error_name(int code) {

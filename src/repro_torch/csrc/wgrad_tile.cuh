@@ -668,56 +668,70 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
 // the bf16 build
 // ---------------------------------------------------------------------------
 //
-// The same tile on bf16 operands: the reference's `_wgrad_kernel` under
-// BF16 (bf16 x, g and z; dw and db leave in f32, src/repro/kernels/
-// direct_conv2d.py:638, `out_dtype=jnp.float32`).  Each stage's k16 steps
-// of positions run on bf16 wgmma (m64nNk16, one product a MAC) into a
-// fresh f32 accumulator, which is then added to the m-tile's running f32
-// sum (the tensor cores add each k16 slice rounding toward zero; a fresh
-// accumulator a stage keeps that to the stage's own magnitude), one m-tile
-// at a time.  Where the running sums take 64 registers a thread (N * MPW =
-// 128) a CTA takes two consumers at most (`max_threads`: 168 registers a
-// thread of a 384-thread CTA; under 512 threads' 128 the accumulator in
-// 64-lane parts spilled, and 32-lane parts ran a quarter of the wgmma
-// width with A loaded four times a step).  The workspace and its fold (split_sum.cuh) stay
-// f32 and unchanged.
+// The same GEMM on bf16 operands: the reference's `_wgrad_kernel` under
+// BF16 (bf16 x and dz; dw leaves in f32, src/repro/kernels/
+// direct_conv2d.py:638, `out_dtype=jnp.float32`).  It takes dz, formed once
+// a layer by the dz pass (direct_conv2d_bwd.cu `dz_kernel_bf16`, which
+// also sums db), and nothing else of the cotangent: no z, no prologue, no
+// db.  Both operands of every wgmma come from shared memory by descriptor,
+// as TMA lands them:
 //
-// What differs from the f32 tile:
-// * A, x's window, pairs two consecutive positions of one (tap, c) row in
-//   a register, and those are `stride` cells apart in shared memory, not
-//   adjacent.  The pair is built from two 2-byte loads (four registers a
-//   step: eight loads and four position offsets).  Staging A for a
-//   descriptor instead would need a copy of the window with each tap's
-//   positions contiguous: wgmma's MN-major A takes core matrices of 8 rows
-//   x 16 contiguous bytes, and a tile's positions are neither contiguous
-//   (`stride` cells apart, a break at each tile row) nor one shift per
-//   m-tile below Cib 64; the loads keep one staged window for every tap.
-//   A cell is `ld` bf16 (Cib rounded up to 8, then, at odd strides, to 8
-//   mod 16): the 8 rows of a warp's load are 8 channels of one cell (16
-//   bytes), its 4 column groups positions 2 apart, 4 * stride * ld bytes
-//   apart, on distinct 16-byte bank groups where stride * ld is not a
-//   multiple of 16 (at stride 2 they fall two to a group).
-// * B, dz, is MN-major (Cob contiguous), which bf16 wgmma reads through its
-//   transpose bit: the producer writes it as [N/8][K][8], core matrices of
-//   8 positions x 8 lanes, a k16 step's two K halves 128 bytes apart, the
-//   8-lane groups (K + 1) * 16 bytes apart (fwd_tile.cuh's weight order,
-//   K the positions, one position of padding a group so that a quarter
-//   warp's stores of one position's groups fall on distinct banks), no
-//   split.  K (positions) pads to 16.  A unit of the pass is one
-//   position's 8 lanes: one 16-byte load of g (and of z) where Cob is a
-//   multiple of 8, consecutive threads on consecutive 16 bytes (the
-//   staged [K][Cob] tile is read along Cob).
-// * dz = g * act'(z) is formed as B is written: act' in f32, the product
-//   rounded once to bf16.  db sums the rounded dz per Cob lane in f32, one
-//   lane a producer thread, positions in order, on the CTAs of Ci block 0
-//   and m-tile group 0.
-// * TMA needs global strides of whole 16 bytes: Cib (x) and Cob (g, z)
-//   multiples of 8.  Else the producer copies the same cells by 4-byte
-//   cp.async of channel pairs where the pencil is even, else by 2-byte
-//   loads and stores (Cib = 3: a pixel's three channels are 6 bytes).
+// * An m-tile is one tap x 64 channels (a "half" of the Ci block: Cib 128
+//   has two, Cib <= 64 one, its rows past Cib zero).  The x window of a
+//   stage is staged once for every tap, a half at a time, as 128-byte rows
+//   of 64 channels, one row a cell, in TMA's 128-byte swizzle.  A is the
+//   window read MN-major (channels contiguous) through wgmma's transpose
+//   bit: the descriptor of a k16 step starts at the tap's cell plus the
+//   step's first position, 128 bytes a cell, its two 8-position groups
+//   `sbo` bytes apart.  Each group must be 8 consecutive cells: tw is a
+//   multiple of 8 (columns past Wo meet zero dz), except at 1x1 stride 1,
+//   where the window is the tile and positions run on across row breaks.
+//   A start off a 1024-byte atom takes no base offset: the card swizzles by
+//   the address bits themselves (on the H100 a one-tap unit launch read a
+//   start at any row and any gap right with the field 0, and wrong with
+//   it (addr >> 7) & 7; `probe` holds the tile's descriptors so).
+// * At stride s the window is staged in s column phases (a TMA tensor map
+//   over x whose W index splits into (W / s, s), so each box walks one
+//   phase): tap (dh, dw) reads phase dw % s at column offset dw / s, and
+//   its positions are consecutive cells there.
+// * B, the dz tile [K][Cob], lands the same way, a box per 64 lanes (Cob
+//   128 is two 64-lane blocks `kpos * 128` bytes apart), MN-major through
+//   the transpose bit.  K (positions) pads to 16; the padding rows are
+//   zeroed once and never written, positions outside the map land as TMA's
+//   zeros.
+// * Where TMA cannot take a stride (Cib or Cob not a multiple of 8, or W
+//   not a multiple of the stride) the producer copies the same cells into
+//   the same swizzled rows: 4-byte cp.async of channel pairs where the
+//   pencil is even, 2-byte loads and stores where it is odd (Cib 3, Cb 3;
+//   Cob 6 and 125 take the pairs).
+//
+// A stage holds up to kMaxPositions positions in a ring of 2-4 slots (as
+// many as fit); consumers wait on the slot's mbarrier, run every k16 step
+// of each of their m-tiles into a fresh f32 accumulator (the tensor cores'
+// adds truncate; a fresh accumulator a stage keeps that to the stage's own
+// magnitude), add it into the m-tile's running f32 sum and release the slot.
+// A CTA holds `wgs` consumer warpgroups of `mpw` m-tiles: `span` m-tiles of
+// one half's taps, or, where span covers a half's taps, whole halves (1x1);
+// `groups` CTAs cover the m-tiles.  At 128 lanes the running sum and the
+// stage's accumulator take 128 registers a thread: two consumers at most
+// (`max_threads`).  The workspace and its fold (split_sum.cuh) stay f32.
 namespace bf16 {
 
 using bf = __nv_bfloat16;
+
+constexpr int kLanes = 64;              // channels (lanes) of a 128-byte row
+constexpr int kRowBytes = 128;
+constexpr int kAtomBytes = 1024;        // 8 rows: the swizzle's period
+constexpr int kMaxPositions = 256;      // output positions of one stage
+constexpr int kMaxSteps = kMaxPositions / 16;
+constexpr int kUnroll = 4;              // k16 steps a pass of the issue loop
+constexpr int kMaxSlots = 4;
+constexpr int kMinSlots = 2;
+// the slots' mbarriers and a flag, after the slots
+constexpr int kTableBytes = 256;
+// named barriers (0 is __syncthreads): slot s consumed, the producer's own
+constexpr int kBarEmpty = 1;            // + s
+constexpr int kBarProducer = kBarEmpty + kMaxSlots;
 
 __host__ __device__ inline int kpos(const Geometry& g) {
   return ceil_div(g.th * g.tw, 16) * 16;
@@ -728,92 +742,221 @@ __host__ __device__ constexpr int max_threads(int lanes, int mpw) {
   return kWarpgroup * ((lanes * mpw >= 128 ? 2 : kMaxConsumers) + 1);
 }
 
-// bf16 of one staged x cell: Cib rounded up to 8 (a TMA box's 16 bytes),
-// then up to the first value whose stride multiple is 8 mod 16, so that an
-// A load's four position pairs start on four distinct 16-byte bank groups
-// (kept at Cib rounded up to 8 where no such value exists, as at stride 2).
-__host__ __device__ inline int x_ld(int cib, int stride) {
-  const int base = ceil_div(cib, 8) * 8;
-  for (int ld = base; ld < base + 64; ld += 8) {
-    if (stride * ld % 16 == 8) return ld;
-  }
-  return base;
+__host__ __device__ inline int taps(const Geometry& g) {
+  return g.hf * g.wf;
+}
+// 64-channel halves of the Ci block, and the m-tiles (half, tap)
+__host__ __device__ inline int halves(const Geometry& g) {
+  return ceil_div(g.cib, kLanes);
+}
+__host__ __device__ inline int mtiles(const Geometry& g) {
+  return halves(g) * taps(g);
+}
+// column phases of the staged window, and cells of a phase's row
+__host__ __device__ inline int phases(const Geometry& g) {
+  return g.stride < g.wf ? g.stride : g.wf;
+}
+__host__ __device__ inline int wph(const Geometry& g) {
+  return g.tw + (g.wf - 1) / g.stride;
+}
+// 1x1 at stride 1: the window is the tile, positions consecutive cells
+__host__ __device__ inline bool flat(const Geometry& g) {
+  return g.hf == 1 && g.wf == 1 && g.stride == 1;
+}
+// A CTA's m-tiles: taps a group (`tpg`, of one half), groups a half's taps
+// take, halves a group, halves a CTA stages; groups
+__host__ __device__ inline int tpg(const Geometry& g) {
+  const int span = g.wgs * g.mpw;
+  return span < taps(g) ? span : taps(g);
+}
+__host__ __device__ inline int gph(const Geometry& g) {
+  return ceil_div(taps(g), tpg(g));
+}
+__host__ __device__ inline int hpg(const Geometry& g) {
+  const int h = g.wgs * g.mpw / tpg(g);
+  return h > 1 ? h : 1;
+}
+__host__ __device__ inline int staged(const Geometry& g) {
+  return hpg(g) < halves(g) ? hpg(g) : halves(g);
+}
+__host__ __device__ inline int groups(const Geometry& g) {
+  return ceil_div(halves(g), hpg(g)) * gph(g);
 }
 
-// bf16 from one window row to the next, padded to 128 bytes
-__host__ __device__ inline int row_elems(const Geometry& g) {
-  return ceil_div(wwin(g) * x_ld(g.cib, g.stride), 64) * 64;
+// bytes of one (half, phase) window: its cells (and the K padding's reads
+// past a flat tile), 128 bytes each, in whole swizzle atoms
+__host__ __device__ inline int region_bytes(const Geometry& g) {
+  const int cells = hwin(g) * wph(g);
+  const int padded = ceil_div(g.th * g.tw, 8) * 8;
+  return ceil_div((cells > padded ? cells : padded) * kRowBytes, kAtomBytes)
+         * kAtomBytes;
 }
+__host__ __device__ inline int x_bytes(const Geometry& g) {
+  return staged(g) * phases(g) * region_bytes(g);
+}
+__host__ __device__ inline int b_bytes(const Geometry& g) {
+  return g.lanes / kLanes * bf16::kpos(g) * kRowBytes;
+}
+__host__ __device__ inline int slot_bytes(const Geometry& g) {
+  return x_bytes(g) + b_bytes(g);
+}
+// ring slots: as many as fit, up to kMaxSlots
+__host__ __device__ inline int slots(const Geometry& g) {
+  const int fit = (kSmemBlock - kAtomBytes - kTableBytes) / slot_bytes(g);
+  return fit < kMaxSlots ? fit : kMaxSlots;
+}
+// x and dz arrive by TMA where their global strides are whole 16 bytes
+// (and W splits into its phases), else by the producer's copies
 __host__ __device__ inline bool tma_x(const Geometry& g) {
-  return g.cib % 8 == 0;
+  return g.cib % 8 == 0 && g.wi % g.stride == 0;
 }
 __host__ __device__ inline bool tma_d(const Geometry& g) {
   return g.cob % 8 == 0;
 }
-__host__ __device__ inline int x_elems(const Geometry& g) {
-  return hwin(g) * row_elems(g);
-}
-__host__ __device__ inline int raw_elems(const Geometry& g) {
-  return ceil_div(bf16::kpos(g) * g.cob, 64) * 64;
-}
-// positions from one 8-lane group of B to the next: K plus one, so that
-// the eight 16-byte stores of a quarter warp (consecutive groups of one
-// position) fall on distinct bank groups
-__host__ __device__ inline int b_pitch(const Geometry& g) {
-  return bf16::kpos(g) + 1;
-}
-__host__ __device__ inline int b_elems(const Geometry& g) {
-  return ceil_div(b_pitch(g) * g.lanes, 64) * 64;
-}
-__host__ __device__ inline int slot_elems(const Geometry& g) {
-  return x_elems(g) + (g.prologue ? 2 : 1) * raw_elems(g) + b_elems(g);
-}
 
 // Dynamic shared memory of one CTA (core/blocking.py wgrad_smem_bytes at
-// op_bytes 2): 128 bytes to align the base, the two slots, the position
-// offsets, the db partials and two mbarriers a slot.
+// op_bytes 2): a swizzle atom to align the base, the slots, the tables.
 __host__ inline size_t smem_bytes(const Geometry& g) {
-  return 128 + 2 * (size_t)kSlots * slot_elems(g)
-         + 4 * (kMaxPositions + kWarpgroup) + 8 * 2 * kSlots;
+  return (size_t)kAtomBytes + (size_t)slots(g) * slot_bytes(g) + kTableBytes;
 }
 
-// wgrad_tile::plan at one bf16 product a MAC, K padded to 16.
+// wgrad_tile::plan at one bf16 product a MAC: K padded to 16, the
+// (half, tap) m-tiles, every one of the wgmma's N lanes.
 __host__ inline void plan(const Geometry& g, long long* out) {
   out[0] = tiles(g);
   out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * g.ciblk
            * g.cob * g.coblk;
-  out[2] = (long long)g.ciblk * g.coblk * tiles(g) * bf16::kpos(g) * mtiles(g)
-           * kRows * g.lanes;
+  out[2] = (long long)g.ciblk * g.coblk * tiles(g) * bf16::kpos(g)
+           * bf16::mtiles(g) * kRows * g.lanes;
   out[3] = (long long)bf16::smem_bytes(g);
 }
 
+// Whether the bf16 kernels take this geometry: dz alone (no z, no db), the
+// compiled widths, 8 consecutive cells a position group, two slots.
+__host__ inline bool valid(const Geometry& g) {
+  return g.n >= 1 && g.wgs >= 1 && g.mpw >= 1 && g.prologue == 0
+         && g.with_db == 0 && kWarpgroup * (g.wgs + 1)
+                                  <= max_threads(g.lanes, g.mpw)
+         && (g.lanes == 64 || g.lanes == 128) && g.lanes >= g.cob
+         && g.lanes * g.mpw <= kWarpgroup && g.th >= 1 && g.tw >= 1
+         && g.th * g.tw <= kMaxPositions && (flat(g) || g.tw % 8 == 0)
+         && g.stride >= 1 && wph(g) <= 256 && hwin(g) <= 256
+         && g.splits >= 1 && g.splits <= tiles(g) && slots(g) >= kMinSlots;
+}
+
+// A wgmma operand in 128-byte swizzle: `lbo` bytes between 64-element
+// blocks of the MN dimension, `sbo` between 8-row groups of K; the base
+// offset 0 at any `addr` (the card swizzles by the address's own bits).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4)
+         | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, f32 accumulators, both
+// operands MN-major in shared memory (transpose bits set); `scale_d` 0
+// starts a fresh sum.  D's fragments as wgmma_bf16's.
+template <int N>
+__device__ void wgmma_tt(float* d, uint64_t a, uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_tt<64>(float* d, uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_tt<128>(float* d, uint64_t a,
+                                              uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The shared-memory carve-up of one CTA (smem_bytes): the slots from a
+// 1024-byte aligned base (each slot its staged (half, phase) windows, then
+// B's 64-lane blocks), then the step tables, the slots' mbarriers, a flag.
 struct Smem {
-  bf* x[kSlots];
-  bf* g[kSlots];
-  bf* z[kSlots];
-  bf* b[kSlots];
-  int* posoff;          // [kMaxPositions]
-  float* db;            // [kWarpgroup]
-  uint64_t* bar_x;      // [kSlots]
-  uint64_t* bar_d;      // [kSlots]
+  char* slot0;
+  uint64_t* full;       // [kMaxSlots] slot s landed
+  int* flag;
 };
+
+// Each k16 step's A offsets, in bytes: its first 8 positions' first cell
+// and the distance to its second 8 positions' (0 past the tile, where B is
+// zero).  Built by the host (`steps_of`) and passed as a kernel parameter,
+// so that every wgmma's descriptor is a uniform value: a table in shared
+// memory is read per thread, and the compiler then waits for each wgmma
+// to finish before it builds the next one's descriptor.
+struct Steps {
+  int off[kMaxSteps];
+  int sbo[kMaxSteps];
+};
+
+__host__ inline Steps steps_of(const Geometry& g) {
+  Steps st = {};
+  auto cell = [&](int p) { return (p / g.tw) * g.stride * wph(g) + p % g.tw; };
+  for (int j = 0; j < bf16::kpos(g) / 16; ++j) {
+    st.off[j] = cell(16 * j) * kRowBytes;
+    st.sbo[j] = 16 * j + 8 < g.th * g.tw
+                    ? (cell(16 * j + 8) - cell(16 * j)) * kRowBytes
+                    : 0;
+  }
+  return st;
+}
 
 __device__ inline Smem carve(char* raw, const Geometry& g) {
   Smem m;
-  bf* p = reinterpret_cast<bf*>(raw + ((128 - (dt::smem_u32(raw) & 127))
-                                       & 127));
-  for (int s = 0; s < kSlots; ++s) {
-    m.x[s] = p;
-    m.g[s] = m.x[s] + x_elems(g);
-    m.z[s] = m.g[s] + (g.prologue ? raw_elems(g) : 0);
-    m.b[s] = m.z[s] + raw_elems(g);
-    p = m.b[s] + b_elems(g);
-  }
-  m.posoff = reinterpret_cast<int*>(p);
-  m.db = reinterpret_cast<float*>(m.posoff + kMaxPositions);
-  m.bar_x = reinterpret_cast<uint64_t*>(m.db + kWarpgroup);
-  m.bar_d = m.bar_x + kSlots;
+  m.slot0 = raw + ((kAtomBytes - (dt::smem_u32(raw) & (kAtomBytes - 1)))
+                   & (kAtomBytes - 1));
+  m.full = reinterpret_cast<uint64_t*>(m.slot0
+                                       + (size_t)slots(g) * slot_bytes(g));
+  m.flag = reinterpret_cast<int*>(m.full + kMaxSlots);
   return m;
+}
+
+// The byte offset of lane `c` of row `row` in a swizzled block whose base
+// is on an atom: 16-byte chunk c / 8 of the row, XORed with the row's place
+// in its atom, as TMA's 128-byte swizzle lands it.
+__device__ __forceinline__ int swizzled(int row, int c) {
+  return row * kRowBytes + ((((c >> 3) ^ row) & 7) << 4) + (c & 7) * 2;
 }
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
@@ -823,248 +966,210 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
                : "memory");
 }
 
-// Issue a stage's x window onto `bar` (wgrad_tile::issue_x in bf16): TMA
-// boxes of a row each where Cib is a multiple of 8, else copies of channel
-// pairs (Cib even) or of single channels (Cib odd); rows [0, lo) moved
-// from `xprev`.
-__device__ void issue_x(const CUtensorMap* tmx, const bf* __restrict__ x,
-                        const Geometry& g, const Tile& t, int ci_b, bf* xs,
-                        const bf* xprev, uint64_t* bar, int lo, int tid) {
-  const int ld = x_ld(g.cib, g.stride);
-  const int rf = row_elems(g);
-  const int ww = wwin(g);
+// One 64-lane block of cells by the producer's threads (`tid` of
+// kWarpgroup) where TMA cannot take it: `count` rows, row i at global cell
+// `src(i)` (null: outside the map, zeros), `lanes` lanes each (the rest of
+// the row stays the zeros it was set to), pairs by cp.async where `pairs`
+// (`any`, a global address for the copies that read nothing).
+template <typename Src>
+__device__ void copy_rows(char* dst, int count, int lanes, bool pairs,
+                          Src src, const unsigned short* any, int tid) {
+  if (pairs) {
+    const int per = ceil_div(lanes, 2);
+    for (int i = tid; i < count * per; i += kWarpgroup) {
+      const int r = i / per;
+      const int c = (i - r * per) * 2;
+      const unsigned short* s = src(r);
+      cp_async4(dst + swizzled(r, c), s != nullptr ? s + c : any,
+                s != nullptr);
+    }
+    return;
+  }
+  // 2-byte lanes: kBatch loads in flight a thread before their stores
+  constexpr int kBatch = 8;
+  for (int i0 = tid; i0 < count * lanes; i0 += kBatch * kWarpgroup) {
+    unsigned short v[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * kWarpgroup;
+      const int r = i / lanes;
+      const unsigned short* s = i < count * lanes ? src(r) : nullptr;
+      v[k] = s != nullptr ? __ldg(s + (i - r * lanes)) : (unsigned short)0;
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * kWarpgroup;
+      if (i < count * lanes) {
+        const int r = i / lanes;
+        *reinterpret_cast<unsigned short*>(dst + swizzled(r, i - r * lanes))
+            = v[k];
+      }
+    }
+  }
+}
+
+// Stage s of tile `t` into its slot (`tid` of the producer's kWarpgroup
+// threads): the CTA's `nh` halves from `h0`, each in every phase, then B's
+// 64-lane blocks, by TMA onto the slot's mbarrier where the strides allow
+// and by copies otherwise; the mbarrier completes once everything landed.
+__device__ void issue(const Smem& m, const CUtensorMap* tmx,
+                      const CUtensorMap* tmd, const bf* __restrict__ x,
+                      const bf* __restrict__ dz, const Geometry& g,
+                      const Tile& t, int slot, int ci_b, int co_b, int h0,
+                      int nh, int tid) {
+  char* xs = m.slot0 + (size_t)slot * slot_bytes(g);
+  char* bs = xs + x_bytes(g);
+  uint64_t* bar = m.full + slot;
+  const int np = phases(g);
+  const int cells = wph(g);
   const int hw = hwin(g);
   const int ih0 = t.oh0 * g.stride - g.pad_top;
   const int iw0 = t.ow0 * g.stride - g.pad_left;
-  if (tid < 32) {                       // warp 0: the TMA copies
-    if (tid == 0) {
-      dt::mbar_expect_tx(bar, bf16::tma_x(g) ? (hw - lo) * ww * ld * 2 : 0);
-    }
-    __syncwarp();
+  const int bh = g.lanes / kLanes;
+  if (tid == 0) {
+    dt::mbar_expect_tx(
+        bar, (bf16::tma_x(g) ? nh * np * hw * cells * kRowBytes : 0)
+                 + (bf16::tma_d(g) ? bh * g.th * g.tw * kRowBytes : 0));
     if (bf16::tma_x(g)) {
-      for (int r = lo + tid; r < hw; r += 32) {
-        dt::tma_load_5d(xs + r * rf, tmx, bar, 0, iw0, ih0 + r, ci_b, t.n);
+      for (int h = 0; h < nh; ++h) {
+        for (int ph = 0; ph < np; ++ph) {
+          const int iw = iw0 + ph;
+          const int gp = ((iw % g.stride) + g.stride) % g.stride;
+          dt::tma_load_5d(xs + (h * np + ph) * region_bytes(g), tmx, bar,
+                          kLanes * (h0 + h), gp, (iw - gp) / g.stride, ih0,
+                          t.n * g.ciblk + ci_b);
+        }
+      }
+    }
+    if (bf16::tma_d(g)) {
+      for (int b = 0; b < bh; ++b) {
+        dt::tma_load_5d(bs + b * bf16::kpos(g) * kRowBytes, tmd, bar,
+                        kLanes * b, t.ow0, t.oh0, co_b, t.n);
       }
     }
   }
-  if (lo > 0) {                         // the kept rows, while those land
-    const uint4* src = reinterpret_cast<const uint4*>(xprev + (hw - lo) * rf);
-    uint4* dst = reinterpret_cast<uint4*>(xs);
-    for (int i = tid; i < lo * rf / 8; i += kWarpgroup) dst[i] = src[i];
-  }
+  if (bf16::tma_x(g) && bf16::tma_d(g)) return;
   if (!bf16::tma_x(g)) {
     const unsigned short* xb = reinterpret_cast<const unsigned short*>(x)
         + (size_t)(t.n * g.ciblk + ci_b) * g.hi * g.wi * g.cib;
-    unsigned short* d16 = reinterpret_cast<unsigned short*>(xs);
-    const int unit = g.cib % 2 == 0 ? 2 : 1;
-    const int per_cell = g.cib / unit;
-    const int per_row = ww * per_cell;
-    for (int i = tid; i < (hw - lo) * per_row; i += kWarpgroup) {
-      const int r = i / per_row;
-      const int rem = i - r * per_row;
-      const int col = rem / per_cell;
-      const int c = (rem - col * per_cell) * unit;
-      const int ih = ih0 + lo + r;
-      const int iw = iw0 + col;
-      const bool ok = ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
-      const size_t off = ok ? ((size_t)ih * g.wi + iw) * g.cib + c : 0;
-      const int at = (lo + r) * rf + col * ld + c;
-      if (unit == 2) {
-        cp_async4(d16 + at, xb + off, ok);
-      } else {
-        d16[at] = ok ? __ldg(xb + off) : (unsigned short)0;
+    for (int h = 0; h < nh; ++h) {
+      const int c0 = kLanes * (h0 + h);
+      const int lanes = min(kLanes, g.cib - c0);
+      for (int ph = 0; ph < np; ++ph) {
+        copy_rows(xs + (h * np + ph) * region_bytes(g), hw * cells, lanes,
+                  g.cib % 2 == 0,
+                  [&](int r) -> const unsigned short* {
+                    const int ih = ih0 + r / cells;
+                    const int iw = iw0 + ph + g.stride * (r % cells);
+                    return ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi
+                               ? xb + ((size_t)ih * g.wi + iw) * g.cib + c0
+                               : nullptr;
+                  },
+                  xb, tid);
       }
-    }
-    cp_async_commit();
-  }
-}
-
-// Issue the th x tw positions of g (and z) of tile `t` onto `bar`
-// (wgrad_tile::issue_d in bf16): one TMA box each where Cob is a multiple
-// of 8, else copies of channel pairs (Cob even) or single channels.
-__device__ void issue_d(const CUtensorMap* tmg, const CUtensorMap* tmz,
-                        const bf* __restrict__ gg, const bf* __restrict__ zz,
-                        const Geometry& g, const Tile& t, int co_b, bf* rg,
-                        bf* rz, uint64_t* bar, int tid) {
-  if (tid == 0) {
-    dt::mbar_expect_tx(bar, bf16::tma_d(g) ? g.th * g.tw * g.cob * 2
-                                           * (g.prologue ? 2 : 1)
-                                     : 0);
-    if (bf16::tma_d(g)) {
-      dt::tma_load_5d(rg, tmg, bar, 0, t.ow0, t.oh0, co_b, t.n);
-      if (g.prologue) dt::tma_load_5d(rz, tmz, bar, 0, t.ow0, t.oh0, co_b, t.n);
     }
   }
   if (!bf16::tma_d(g)) {
-    const size_t map = (size_t)(t.n * g.coblk + co_b) * g.ho * g.wo * g.cob;
-    const unsigned short* g16 = reinterpret_cast<const unsigned short*>(gg);
-    const unsigned short* z16 = reinterpret_cast<const unsigned short*>(zz);
-    unsigned short* dg = reinterpret_cast<unsigned short*>(rg);
-    unsigned short* dz = reinterpret_cast<unsigned short*>(rz);
-    const int unit = g.cob % 2 == 0 ? 2 : 1;
-    for (int i = tid * unit; i < g.th * g.tw * g.cob;
-         i += kWarpgroup * unit) {
-      const int p = i / g.cob;
-      const int c = i - p * g.cob;
-      const int oh = t.oh0 + p / g.tw;
-      const int ow = t.ow0 + p % g.tw;
-      const bool ok = oh < g.ho && ow < g.wo;
-      const size_t off = ok ? map + ((size_t)oh * g.wo + ow) * g.cob + c : 0;
-      if (unit == 2) {
-        cp_async4(dg + i, g16 + off, ok);
-        if (g.prologue) cp_async4(dz + i, z16 + off, ok);
-      } else {
-        dg[i] = ok ? __ldg(g16 + off) : (unsigned short)0;
-        if (g.prologue) dz[i] = ok ? __ldg(z16 + off) : (unsigned short)0;
-      }
+    const unsigned short* db = reinterpret_cast<const unsigned short*>(dz)
+        + (size_t)(t.n * g.coblk + co_b) * g.ho * g.wo * g.cob;
+    for (int b = 0; b < bh; ++b) {
+      const int c0 = kLanes * b;
+      copy_rows(bs + b * bf16::kpos(g) * kRowBytes, g.th * g.tw,
+                min(kLanes, g.cob - c0), g.cob % 2 == 0,
+                [&](int p) -> const unsigned short* {
+                  const int oh = t.oh0 + p / g.tw;
+                  const int ow = t.ow0 + p % g.tw;
+                  return oh < g.ho && ow < g.wo
+                             ? db + ((size_t)oh * g.wo + ow) * g.cob + c0
+                             : nullptr;
+                },
+                db, tid);
     }
-    cp_async_commit();
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  dt::fence_proxy_async();                  // the copies, for wgmma
+  dt::bar_sync(kBarProducer, kWarpgroup);
+  if (tid == 0) dt::mbar_expect_tx(bar, 0);   // the copies' arrival
+}
+
+// The producer warpgroup: every stage of the CTA's share into the ring, a
+// slot once the consumers have released it.
+__device__ void produce(const Smem& m, const CUtensorMap* tmx,
+                        const CUtensorMap* tmd, const bf* __restrict__ x,
+                        const bf* __restrict__ dz, const Geometry& g,
+                        long long first, int stages, int ci_b, int co_b,
+                        int h0, int nh) {
+  const int tid = threadIdx.x - g.wgs * kWarpgroup;
+  const int ns = slots(g);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % ns;
+    if (s >= ns) dt::bar_sync(kBarEmpty + slot, blockDim.x);
+    issue(m, tmx, tmd, x, dz, g, tile_of(g, first + s), slot, ci_b, co_b, h0,
+          nh, tid);
   }
 }
 
-// Form dz from a landed stage's g (and z), rounded to bf16, and write B as
-// [N/8][K][8], its 8-lane groups `b_pitch` positions apart (`tid` of
-// kWarpgroup, eight lanes of one position a unit, the lane groups of a
-// position on consecutive threads); positions past the tile and lanes past
-// Cob are 0.  Where Cob is a multiple of 8 a unit's g and z are one 16-byte
-// load each, consecutive threads on consecutive 16 bytes; else eight
-// 2-byte loads, clamped into the staged cells.
-template <int N>
-__device__ void transform(const bf* rg, const bf* rz, bf* b,
-                          const Geometry& g, int tid) {
-  const int live = g.th * g.tw;
-  const int kp = bf16::kpos(g);
-  const int pitch = b_pitch(g);
-  const bool vec = g.cob % 8 == 0;
-  for (int u = tid; u < N / 8 * kp; u += kWarpgroup) {
-    const int q = u % (N / 8);
-    const int p = u / (N / 8);
-    uint4 out = make_uint4(0u, 0u, 0u, 0u);
-    if (vec) {
-      if (8 * q < g.cob && p < live) {
-        out = *reinterpret_cast<const uint4*>(rg + p * g.cob + 8 * q);
-        if (g.prologue) {
-          const uint4 zv =
-              *reinterpret_cast<const uint4*>(rz + p * g.cob + 8 * q);
-          bf* ob = reinterpret_cast<bf*>(&out);
-          const bf* zb = reinterpret_cast<const bf*>(&zv);
-#pragma unroll
-          for (int e = 0; e < 8; ++e) {
-            ob[e] = dt::prologue_bf16(ob[e], zb[e], g.act);
-          }
-        }
-      }
-    } else {
-      uint32_t packed[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        bf v[2];
-#pragma unroll
-        for (int k = 0; k < 2; ++k) {
-          const int co = 8 * q + 2 * e + k;
-          // loads clamped into the staged cells (rz is rg without the
-          // prologue), then the lanes and positions outside set 0
-          const int at = min(p, live - 1) * g.cob + min(co, g.cob - 1);
-          bf d = rg[at];
-          if (g.prologue) d = dt::prologue_bf16(d, rz[at], g.act);
-          v[k] = __float2bfloat16_rn(0.0f);
-          if (co < g.cob && p < live) v[k] = d;
-        }
-        packed[e] = (uint32_t)__bfloat16_as_ushort(v[0])
-                    | ((uint32_t)__bfloat16_as_ushort(v[1]) << 16);
-      }
-      out = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-    }
-    reinterpret_cast<uint4*>(b)[q * pitch + p] = out;
-  }
-}
-
-// Contract one landed stage into a warpgroup's MPW running sums: per
-// m-tile that is on and per part of NW lanes, the stage's k16 steps of
-// positions into a fresh accumulator, then added into `total` in f32.  A
-// pairs positions p, p + 1 of each row from two 2-byte loads at the row's
-// offset `ro` plus their position offsets, loaded one step ahead into the
-// register set the wgmma two steps back has released.  Returns with every
-// wgmma complete.
-template <int N, int NW, int MPW>
-__device__ void mma_stage(float (&total)[MPW][N / 2], const bf* win,
-                          const int (&ro)[MPW][2], const bool (&on)[MPW],
-                          const int* posoff, int steps, const bf* b,
-                          int pitch) {
-  const unsigned short* w16 = reinterpret_cast<const unsigned short*>(win);
-  const int l4 = threadIdx.x % 4;
+// Store a consumer's m-tiles into its share's workspace row: m-tile t is
+// (half hh[t], tap tp[t]); its row 16 * warp + lane / 4 (+ 8) is channel
+// 64 * hh + row of that tap, stored where it is < Cib, lanes < Cob.
+template <int N, int MPW>
+__device__ void store_dw(float* __restrict__ row,
+                         const float (&acc)[MPW][N / 2], const Geometry& g,
+                         int ci_b, int co_b, const bool (&on)[MPW],
+                         const int (&hh)[MPW], const int (&tp)[MPW]) {
+  const int lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);
 #pragma unroll
   for (int t = 0; t < MPW; ++t) {
     if (!on[t]) continue;
-    auto load = [&](uint32_t (&a)[4], int j) {
-      const int p = 16 * j + 2 * l4;
-      const int o0 = posoff[p], o1 = posoff[p + 1];
-      const int o8 = posoff[p + 8], o9 = posoff[p + 9];
-      a[0] = w16[ro[t][0] + o0] | ((uint32_t)w16[ro[t][0] + o1] << 16);
-      a[1] = w16[ro[t][1] + o0] | ((uint32_t)w16[ro[t][1] + o1] << 16);
-      a[2] = w16[ro[t][0] + o8] | ((uint32_t)w16[ro[t][0] + o9] << 16);
-      a[3] = w16[ro[t][1] + o8] | ((uint32_t)w16[ro[t][1] + o9] << 16);
-    };
 #pragma unroll
-    for (int part = 0; part < N / NW; ++part) {
-      float acc[NW / 2];
+    for (int h = 0; h < 2; ++h) {
+      const int c = kLanes * hh[t] + threadIdx.x % kWarpgroup / 32 * 16
+                    + lane / 4 + 8 * h;
+      if (c >= g.cib) continue;
+      float* out = row + ((((size_t)co_b * g.ciblk + ci_b) * taps(g) + tp[t])
+                          * g.cib + c) * g.cob;
 #pragma unroll
-      for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
-      // the part's first 8-lane group, `pitch` positions of 16 bytes a
-      // group on
-      const uint32_t base = dt::smem_u32(b) + part * NW / 8 * pitch * 16;
-      auto step = [&](const uint32_t (&a)[4], int j) {
-        dt::wgmma_fence();
-        dt::wgmma_bf16<NW, 1>(acc, a, dt::kmajor_desc(base + j * 256, 128,
-                                                      pitch * 16));
-        dt::wgmma_commit();
-      };
-      uint32_t a0[4], a1[4];
-      load(a0, 0);
-      for (int j = 0; j < steps; j += 2) {
-        step(a0, j);
-        if (j + 1 < steps) {
-          dt::wgmma_wait<1>();        // step j - 1 has released a1
-          load(a1, j + 1);
-          step(a1, j + 1);
-        }
-        if (j + 2 < steps) {
-          dt::wgmma_wait<1>();        // step j has released a0
-          load(a0, j + 2);
-        }
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int col = 8 * jj + col0;
+        if (col < g.cob) out[col] = acc[t][4 * jj + 2 * h];
+        if (col + 1 < g.cob) out[col + 1] = acc[t][4 * jj + 2 * h + 1];
       }
-      dt::wgmma_wait<0>();
-      dt::fence_regs<NW / 2>(acc);
-#pragma unroll
-      for (int i = 0; i < NW / 2; ++i) total[t][part * NW / 2 + i] += acc[i];
     }
   }
 }
 
-// The consumer warpgroups of `run` (wgrad_tile::consume in bf16).
+// The consumer warpgroups of `run`: each stage's k16 steps of every m-tile
+// into a fresh accumulator (all of the warpgroup's m-tiles issued before
+// the first wait), added into the running sums; then the sums into the
+// share's workspace row.  Every descriptor is built from uniform values
+// (the slot, `st`, the warpgroup's index read warp-uniform), so the
+// wgmmas of a stage issue back to back.
 template <int N, int MPW>
-__device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
-                                        int group, int stages, float* row,
-                                        int ci_b, int co_b) {
-  const int nth = blockDim.x;
-  const int ld = x_ld(geo.cib, geo.stride);
-  const int rf = row_elems(geo);
-  const int mt0 = (group * geo.wgs + threadIdx.x / kWarpgroup) * MPW;
-  const int rows = geo.hf * geo.wf * geo.cib;
-  int ro[MPW][2];
+__device__ __forceinline__ void consume(const Smem& m, const Geometry& g,
+                                        const Steps& st, int group,
+                                        int stages, float* row, int ci_b,
+                                        int co_b) {
+  const int ns = slots(g);
+  const int np = phases(g);
+  const int steps = bf16::kpos(g) / 16;
+  const int first = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0)
+                    * MPW;
   bool on[MPW];
+  int hh[MPW], tp[MPW];
+  uint32_t abase[MPW];
 #pragma unroll
   for (int t = 0; t < MPW; ++t) {
-    on[t] = mt0 + t < mtiles(geo);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (mt0 + t) * kRows + threadIdx.x % kWarpgroup / 32 * 16
-                    + threadIdx.x % 32 / 4 + 8 * h;
-      const int tap = r / geo.cib;
-      ro[t][h] = r < rows ? (tap / geo.wf) * rf + (tap % geo.wf) * ld
-                                + (r - tap * geo.cib)
-                          : 0;
-    }
+    const int i = first + t;
+    const int lh = i / tpg(g);
+    hh[t] = group / gph(g) * hpg(g) + lh;
+    tp[t] = group % gph(g) * tpg(g) + i % tpg(g);
+    on[t] = lh < hpg(g) && hh[t] < halves(g) && tp[t] < taps(g);
+    const int dh = tp[t] / g.wf;
+    const int dw = tp[t] - dh * g.wf;
+    abase[t] = (lh * np + dw % g.stride) * region_bytes(g)
+               + (dh * wph(g) + dw / g.stride) * kRowBytes;
   }
   float total[MPW][N / 2];
 #pragma unroll
@@ -1072,26 +1177,58 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) total[t][i] = 0.0f;
   }
-  const int kp = bf16::kpos(geo);
+  const uint32_t lbo = bf16::kpos(g) * kRowBytes;     // B's second 64 lanes
   for (int s = 0; s < stages; ++s) {
-    const int slot = s & 1;
-    dt::bar_sync(kBarFull + slot, nth);
-    mma_stage<N, N, MPW>(total, m.x[slot], ro, on, m.posoff, kp / 16,
-                         m.b[slot], b_pitch(geo));
-    if (s + kSlots < stages) dt::bar_arrive(kBarEmpty + slot, nth);
+    const int slot = s % ns;
+    const uint32_t xs = dt::smem_u32(m.slot0) + slot * slot_bytes(g);
+    const uint32_t bs = xs + x_bytes(g);
+    dt::mbar_wait(m.full + slot, s / ns & 1);
+    float acc[MPW][N / 2];
+    dt::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < MPW; ++t) {
+      if (!on[t]) continue;
+      // kUnroll steps a pass of straight-line wgmmas (a pass of all of
+      // them spilled the 128-lane instance's registers)
+      for (int j0 = 0; j0 < steps; j0 += kUnroll) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int j = j0 + k;
+          if (j < steps) {
+            wgmma_tt<N>(acc[t],
+                        sw128_desc(xs + abase[t] + st.off[j], 16,
+                                   st.sbo[j]),
+                        sw128_desc(bs + j * 16 * kRowBytes, lbo,
+                                   kAtomBytes),
+                        j > 0);
+          }
+        }
+      }
+      dt::wgmma_commit();
+    }
+    dt::wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < MPW; ++t) {
+      if (!on[t]) continue;
+      dt::fence_regs<N / 2>(acc[t]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) total[t][i] += acc[t][i];
+    }
+    if (s + ns < stages) dt::bar_arrive(kBarEmpty + slot, blockDim.x);
   }
-  store_dw<N, MPW>(row, total, geo, ci_b, co_b, mt0);
+  store_dw<N, MPW>(row, total, g, ci_b, co_b, on, hh, tp);
 }
 
-// One CTA (wgrad_tile::run in bf16): its sums go to its share's row of the
-// f32 `ws`; the column's last CTA sums the rows into the f32 `out`.
+// One CTA: m-tile group blockIdx.x % groups, share blockIdx.x / groups, Ci
+// block blockIdx.y, Co block blockIdx.z; its sums go to its share's row of
+// the f32 `ws` ([splits, |dw|]); the column's last CTA sums the rows of
+// each of its (tap, half) blocks into `out`.
 template <int N, int MPW>
-__device__ void run(char* smem, const CUtensorMap* tmx, const CUtensorMap* tmg,
-                    const CUtensorMap* tmz, const bf* __restrict__ x,
-                    const bf* __restrict__ gg, const bf* __restrict__ zz,
-                    float* ws, float* out, int* counters,
-                    const Geometry& geo) {
-  const int ngroups = groups(geo);
+__device__ void run(char* smem, const CUtensorMap* tmx,
+                    const CUtensorMap* tmd, const bf* __restrict__ x,
+                    const bf* __restrict__ dz, float* ws, float* out,
+                    int* counters, const Geometry& geo, const Steps& st) {
+  const int ngroups = bf16::groups(geo);
   const int group = blockIdx.x % ngroups;
   const int split = blockIdx.x / ngroups;
   const int ci_b = blockIdx.y;
@@ -1100,87 +1237,95 @@ __device__ void run(char* smem, const CUtensorMap* tmx, const CUtensorMap* tmg,
   const long long first = total * split / geo.splits;
   const int stages = (int)(total * (split + 1) / geo.splits - first);
   const int nth = blockDim.x;
-  const int consumers = nth - kWarpgroup;
   const Smem m = carve(smem, geo);
-  const int ld = x_ld(geo.cib, geo.stride);
-  const int rf = row_elems(geo);
-  for (int p = threadIdx.x; p < kMaxPositions; p += nth) {
-    m.posoff[p] = p < geo.th * geo.tw
-                      ? (p / geo.tw) * geo.stride * rf
-                            + (p % geo.tw) * geo.stride * ld
-                      : 0;
+  const int h0 = group / gph(geo) * hpg(geo);
+  const int nh = min(hpg(geo), halves(geo) - h0);
+  // the slots zeroed once: K's padding rows, the rows past Cib and Cob
+  {
+    uint4* p = reinterpret_cast<uint4*>(m.slot0);
+    const int n16 = slots(geo) * slot_bytes(geo) / 16;
+    for (int i = threadIdx.x; i < n16; i += nth) p[i] = make_uint4(0, 0, 0, 0);
   }
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kSlots; ++i) {
-      dt::mbar_init(&m.bar_x[i], 1);
-      dt::mbar_init(&m.bar_d[i], 1);
+    for (int i = 0; i < kMaxSlots; ++i) {
+      dt::mbar_init(m.full + i,
+                    bf16::tma_x(geo) && bf16::tma_d(geo) ? 1 : 2);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  dt::fence_proxy_async();      // the zeros, before TMA and wgmma see them
   __syncthreads();
-  const size_t dw_size = (size_t)geo.coblk * geo.ciblk * geo.hf * geo.wf
-                         * geo.cib * geo.cob;
-  const size_t cols = dw_size + (geo.with_db ? geo.coblk * geo.cob : 0);
-  float* row = ws + (size_t)split * cols;
-  const bool db_cta = geo.with_db && ci_b == 0 && group == 0;
+  const size_t dw_size = (size_t)geo.coblk * geo.ciblk * taps(geo) * geo.cib
+                         * geo.cob;
+  float* row = ws + (size_t)split * dw_size;
 
-  if (threadIdx.x >= consumers) {       // the producer warpgroup
-    const int tid = threadIdx.x - consumers;
-    const int keep = max(0, hwin(geo) - geo.th * geo.stride);
-    auto issue_dz = [&](int s) {
-      issue_d(tmg, tmz, gg, zz, geo, tile_of(geo, first + s), co_b,
-              m.g[s & 1], m.z[s & 1], &m.bar_d[s & 1], tid);
-    };
-    for (int s = 0; s < min(stages, kSlots); ++s) issue_dz(s);
-    float db = 0.0f;                    // lane tid's sum of dz
-    for (int s = 0; s < stages; ++s) {
-      const int slot = s & 1;
-      const int parity = (s >> 1) & 1;
-      if (s >= kSlots) dt::bar_sync(kBarEmpty + slot, nth);
-      const bool more = geo.streamed && s > 0
-                        && (first + s) % tiles_h(geo) != 0;
-      if (more && !bf16::tma_x(geo)) dt::bar_sync(kBarProducer, kWarpgroup);
-      bf16::issue_x(tmx, x, geo, tile_of(geo, first + s), ci_b, m.x[slot],
-                    m.x[slot ^ 1], &m.bar_x[slot], more ? keep : 0, tid);
-      if (!bf16::tma_d(geo)) cp_async_wait_all();
-      dt::mbar_wait(m.bar_d + slot, parity);
-      dt::bar_sync(kBarProducer, kWarpgroup);   // g and z of s landed
-      transform<N>(m.g[slot], m.z[slot], m.b[slot], geo, tid);
-      dt::bar_sync(kBarProducer, kWarpgroup);   // g and z read, B written
-      if (db_cta && tid < N) {
-        const bf* col = m.b[slot] + (tid / 8) * b_pitch(geo) * 8 + tid % 8;
-        const int live = geo.th * geo.tw;
-        for (int p = 0; p < live; ++p) db += __bfloat162float(col[8 * p]);
-      }
-      if (s + kSlots < stages) issue_dz(s + kSlots);
-      if (!bf16::tma_x(geo)) cp_async_wait_all();
-      dt::mbar_wait(m.bar_x + slot, parity);
-      dt::fence_proxy_async();
-      dt::bar_arrive(kBarFull + slot, nth);
-    }
-    if (db_cta && tid < geo.cob) row[dw_size + co_b * geo.cob + tid] = db;
+  if (threadIdx.x >= geo.wgs * kWarpgroup) {
+    produce(m, tmx, tmd, x, dz, geo, first, stages, ci_b, co_b, h0, nh);
   } else {
-    consume<N, MPW>(m, geo, group, stages, row, ci_b, co_b);
+    consume<N, MPW>(m, geo, st, group, stages, row, ci_b, co_b);
   }
 
   const int column = (co_b * geo.ciblk + ci_b) * ngroups + group;
-  if (!split_sum::arrive(counters + column, geo.splits,
-                         reinterpret_cast<int*>(m.db), 0, nth,
+  if (!split_sum::arrive(counters + column, geo.splits, m.flag, 0, nth,
                          threadIdx.x == 0)) {
     return;
   }
-  const int span = geo.wgs * geo.mpw * kRows;
-  const int m_lo = group * span;
-  const int m_hi = min(geo.hf * geo.wf * geo.cib, m_lo + span);
-  const size_t base = ((size_t)co_b * geo.ciblk + ci_b) * geo.hf * geo.wf
-                          * geo.cib * geo.cob
-                      + (size_t)m_lo * geo.cob;
-  split_sum::sum_rows(ws + base, cols, geo.splits, out + base,
-                      (m_hi - m_lo) * geo.cob, 1.0f, threadIdx.x, nth);
-  if (db_cta) {
-    const size_t db = dw_size + (size_t)co_b * geo.cob;
-    split_sum::sum_rows(ws + db, cols, geo.splits, out + db, geo.cob, 1.0f,
-                        threadIdx.x, nth);
+  // the group's (half, tap) blocks, each a run of (tap, c) rows
+  const int t0 = group % gph(geo) * tpg(geo);
+  for (int h = h0; h < h0 + nh; ++h) {
+    for (int tp = t0; tp < min(t0 + tpg(geo), taps(geo)); ++tp) {
+      const size_t base = ((((size_t)co_b * geo.ciblk + ci_b) * taps(geo)
+                            + tp) * geo.cib + kLanes * h) * geo.cob;
+      split_sum::sum_rows(ws + base, dw_size, geo.splits, out + base,
+                          min(kLanes, geo.cib - kLanes * h) * geo.cob, 1.0f,
+                          threadIdx.x, nth);
+    }
+  }
+}
+
+// A one-tap unit of the tile (the launch `direct_conv2d_wgrad_bf16_probe`
+// makes): x [64][64] and d [16][64] bf16 land by TMA in the swizzle, and one
+// wgmma reads A from row `shift` of x with its second 8 rows `gap` rows on,
+// B from d: out[c][l] = sum_k<8 x[shift + k][c] d[k][l] + x[shift + gap +
+// k][c] d[8 + k][l], f32 [64][64].  One warpgroup.
+__device__ void probe(char* smem, const CUtensorMap* tmx,
+                      const CUtensorMap* tmd, float* out, int shift,
+                      int gap) {
+  char* base = smem + ((kAtomBytes - (dt::smem_u32(smem) & (kAtomBytes - 1)))
+                       & (kAtomBytes - 1));
+  char* xs = base;
+  char* ds = base + 64 * kRowBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(ds + 16 * kRowBytes);
+  if (threadIdx.x == 0) {
+    dt::mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    dt::mbar_expect_tx(bar, 80 * kRowBytes);
+    dt::tma_load_5d(xs, tmx, bar, 0, 0, 0, 0, 0);
+    dt::tma_load_5d(ds, tmd, bar, 0, 0, 0, 0, 0);
+  }
+  dt::mbar_wait(bar, 0);
+  float acc[32];
+  dt::wgmma_fence();
+  wgmma_tt<64>(acc,
+               sw128_desc(dt::smem_u32(xs) + shift * kRowBytes, 16,
+                          gap * kRowBytes),
+               sw128_desc(dt::smem_u32(ds), 16 * kRowBytes, kAtomBytes), 0);
+  dt::wgmma_commit();
+  dt::wgmma_wait<0>();
+  dt::fence_regs<32>(acc);
+  const int lane = threadIdx.x % 32;
+  const int r = threadIdx.x / 32 * 16 + lane / 4;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float* o = out + (r + 8 * h) * 64 + 8 * jj + 2 * (lane % 4);
+      o[0] = acc[4 * jj + 2 * h];
+      o[1] = acc[4 * jj + 2 * h + 1];
+    }
   }
 }
 
@@ -1285,46 +1430,62 @@ inline int launch(Kernel kernel, const float* x, const float* g,
 }
 
 using KernelBf16 = void (*)(const CUtensorMap, const CUtensorMap,
-                            const CUtensorMap, const __nv_bfloat16*,
                             const __nv_bfloat16*, const __nv_bfloat16*,
-                            float*, float*, int*, Geometry);
+                            float*, float*, int*, Geometry, bf16::Steps);
 
 // Whether the bf16 kernels take this geometry.
 __host__ inline bool valid_bf16(const Geometry& g) {
-  return g.n >= 1 && g.wgs >= 1 && g.mpw >= 1
-         && kWarpgroup * (g.wgs + 1) <= bf16::max_threads(g.lanes, g.mpw)
-         && g.lanes >= g.cob && g.lanes * g.mpw <= kWarpgroup
-         && g.th >= 1 && g.tw >= 1 && g.th * g.tw <= kMaxPositions
-         && g.stride >= 1 && g.splits >= 1 && g.splits <= tiles(g)
-         && bf16::smem_bytes(g) <= (size_t)kSmemBlock;
+  return bf16::valid(g);
 }
 
-// launch for the bf16 build: bf16 tensor maps (x a box of one window row,
-// `ld` channels a cell, where Cib is a multiple of 8; g and z a box of the
-// tile where Cob is), the f32 workspace and sums.
+// A bf16 tensor map over 5 indices, innermost first: `dims`, byte
+// `strides` of indices 1.., `box`; 128-byte swizzle, zeros outside the
+// bounds (negative coordinates included).
+inline bool encode_sw128(CUtensorMap* map, const void* base,
+                         const long long* dims, const long long* strides,
+                         const int* box) {
+  const dt::EncodeTiled fn = dt::encoder();
+  if (!fn) return false;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t gbox[5], estride[5];
+  for (int i = 0; i < 5; ++i) {
+    gdim[i] = (cuuint64_t)dims[i];
+    gbox[i] = (cuuint32_t)box[i];
+    estride[i] = 1;
+  }
+  for (int i = 0; i < 4; ++i) gstride[i] = (cuuint64_t)strides[i];
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5,
+            const_cast<void*>(base), gdim, gstride, gbox, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// launch for the bf16 build on dz (no z, no db): x as [N * Ci/Cib, Hi,
+// Wi / s, s, Cib] (a box a (64-channel half, phase): 64 channels, one
+// phase, the phase's cells of each window row), dz as [N, Co/Cob, Ho, Wo,
+// Cob] (a box a 64-lane block of the tile), both 128-byte swizzled; the f32
+// workspace and sums.
 inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
-                       const __nv_bfloat16* g, const __nv_bfloat16* z,
-                       float* ws, float* out, int* counters,
-                       const Geometry& geo, cudaStream_t stream) {
-  if (kernel == nullptr || !valid_bf16(geo)
-      || (geo.prologue != 0) != (z != nullptr)) {
+                       const __nv_bfloat16* dz, float* ws, float* out,
+                       int* counters, const Geometry& geo,
+                       cudaStream_t stream) {
+  if (kernel == nullptr || !valid_bf16(geo)) {
     return (int)cudaErrorInvalidValue;
   }
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  CUtensorMap tmx = {}, tmg = {}, tmz = {};
-  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap tmx = {}, tmd = {};
   if (bf16::tma_x(geo)) {
-    const long long cib = geo.cib;
-    const long long dims[5] = {cib, geo.wi, geo.hi, geo.ciblk, geo.n};
-    const long long str[4] = {cib * 2, geo.wi * cib * 2,
-                              (long long)geo.hi * geo.wi * cib * 2,
-                              (long long)geo.ciblk * geo.hi * geo.wi * cib
-                                  * 2};
-    const int box[5] = {bf16::x_ld(geo.cib, geo.stride), wwin(geo), 1, 1, 1};
-    if (!dt::encode(&tmx, x, 5, dims, str, box, type))
+    const long long cib = geo.cib, s = geo.stride;
+    const long long dims[5] = {cib, s, geo.wi / s, geo.hi,
+                               (long long)geo.n * geo.ciblk};
+    const long long str[4] = {cib * 2, s * cib * 2, geo.wi * cib * 2,
+                              (long long)geo.hi * geo.wi * cib * 2};
+    const int box[5] = {bf16::kLanes, 1, bf16::wph(geo), hwin(geo), 1};
+    if (!encode_sw128(&tmx, x, dims, str, box))
       return (int)cudaErrorNotSupported;   // the encoder refused the map
   }
   if (bf16::tma_d(geo)) {
@@ -1334,17 +1495,49 @@ inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
                               (long long)geo.ho * geo.wo * cob * 2,
                               (long long)geo.coblk * geo.ho * geo.wo * cob
                                   * 2};
-    const int box[5] = {geo.cob, geo.tw, geo.th, 1, 1};
-    if (!dt::encode(&tmg, g, 5, dims, str, box, type)
-        || (z != nullptr && !dt::encode(&tmz, z, 5, dims, str, box, type)))
+    const int box[5] = {bf16::kLanes, geo.tw, geo.th, 1, 1};
+    if (!encode_sw128(&tmd, dz, dims, str, box))
       return (int)cudaErrorNotSupported;
   }
   const size_t smem = bf16::smem_bytes(geo);
   err = allow_smem((const void*)kernel, geo, device, (int)smem, true);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
+  const dim3 grid(bf16::groups(geo) * geo.splits, geo.ciblk, geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
-      tmx, tmg, tmz, x, g, z, ws, out, counters, geo);
+      tmx, tmd, x, dz, ws, out, counters, geo, bf16::steps_of(geo));
+  return (int)cudaGetLastError();
+}
+
+using ProbeKernel = void (*)(const CUtensorMap, const CUtensorMap, float*,
+                             int, int);
+
+// The one-tap unit launch (bf16::probe): x [64][64] and d [16][64] bf16,
+// out [64][64] f32; 0 <= shift, 8 <= gap, shift + gap + 8 <= 64.
+inline int launch_probe(ProbeKernel kernel, const __nv_bfloat16* x,
+                        const __nv_bfloat16* d, float* out, int shift,
+                        int gap, cudaStream_t stream) {
+  if (shift < 0 || gap < 8 || shift + gap + 8 > 64)
+    return (int)cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmx = {}, tmd = {};
+  const long long xdims[5] = {64, 64, 1, 1, 1};
+  const long long ddims[5] = {64, 16, 1, 1, 1};
+  const long long xstr[4] = {128, 64 * 128, 64 * 128, 64 * 128};
+  const long long dstr[4] = {128, 16 * 128, 16 * 128, 16 * 128};
+  const int xbox[5] = {64, 64, 1, 1, 1};
+  const int dbox[5] = {64, 16, 1, 1, 1};
+  if (!encode_sw128(&tmx, x, xdims, xstr, xbox)
+      || !encode_sw128(&tmd, d, ddims, dstr, dbox))
+    return (int)cudaErrorNotSupported;
+  const int smem = 2 * bf16::kAtomBytes + 80 * bf16::kRowBytes;
+  err = cudaFuncSetAttribute((const void*)kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<1, kWarpgroup, smem, stream>>>(tmx, tmd, out, shift, gap);
   return (int)cudaGetLastError();
 }
 

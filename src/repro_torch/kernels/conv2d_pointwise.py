@@ -57,7 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.blocking import (PW_CONSUMERS, PW_ROWS,
+from repro_torch.core.blocking import (H100_SXM, PW_CONSUMERS, PW_ROWS,
                                        PointwiseBlocking,
                                        choose_dgrad_blocking,
                                        choose_pointwise_blocking,
@@ -78,7 +78,8 @@ from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _GRID_YZ_MAX,
                                                _cuda_device, _library, _ptr,
                                                _bwd_lib, _require, _stream,
                                                _suffix, bf16_operands,
-                                               build_dtype, dgrad_launch,
+                                               bf16_wgrad, build_dtype,
+                                               cotangent_pass, dgrad_launch,
                                                plain_policy, split_wgrad,
                                                training_policy, wgrad_launch,
                                                wgrad_launch_plan,
@@ -316,7 +317,8 @@ def _check_backward(g: torch.Tensor, w: torch.Tensor,
 def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
                     z: Optional[torch.Tensor] = None,
                     activation: Optional[str] = None,
-                    precision=F32) -> torch.Tensor:
+                    precision=F32,
+                    prologue_tiles: Optional[bool] = None) -> torch.Tensor:
     """Input gradient of ``act(x @ w + b)``: the raw cotangent ``g [N,
     Co/Cob, H, W, Cob]``, the saved pre-activation ``z`` (None for a
     linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, H, W, Cib]``, with ``dz
@@ -325,7 +327,8 @@ def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     Cob: TMA copies, or cp.async where Cob is not a multiple of 4, 8 in
     bf16); under ``BF16`` its bf16 build (``dgrad_kernel_bf16``) on ``g``,
     ``z`` and ``w`` cast to bf16, dx bf16; on the CPU the plain version on
-    the same bf16 operands."""
+    the same bf16 operands.  ``prologue_tiles`` as
+    ``direct_conv2d.direct_conv2d_dgrad``'s."""
     _backward_operands(g, z, activation)
     _check_backward(g, w, z)
     dtype = build_dtype(precision)
@@ -338,8 +341,10 @@ def pointwise_dgrad(g: torch.Tensor, w: torch.Tensor,
     ciblk, cib = w.shape[1], w.shape[4]
     prologue = z is not None and activation not in (None, "linear")
     spec = backward_spec(n, h, wd, w.shape, 1, "VALID", g, z)
-    blk = choose_dgrad_blocking(n, h, wd, 1, 1, 1, ciblk, cib, cob,
-                                prologue=prologue, op_bytes=dtype.itemsize)
+    blk = choose_dgrad_blocking(
+        n, h, wd, 1, 1, 1, ciblk, cib, cob,
+        prologue=prologue if prologue_tiles is None else prologue_tiles,
+        op_bytes=dtype.itemsize)
     lib = _bwd_lib()
     err, dx, grids = dgrad_launch(
         getattr(lib, "direct_conv2d_dgrad" + _suffix(dtype)), blk.th, blk,
@@ -414,13 +419,22 @@ def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
     _check_wgrad(x, g, z)
     dtype = build_dtype(precision)
     prologue = z is not None and activation not in (None, "linear")
+    lib = _bwd_lib()
+    name = "conv2d_pointwise_wgrad" + _suffix(dtype)
+    if dtype == torch.bfloat16:
+        n, ciblk, h, wd, cib = x.shape
+        coblk, cob = g.shape[1], g.shape[4]
+        blk = choose_wgrad_blocking(n, h, wd, 1, 1, 1, ciblk, cib, coblk,
+                                    cob, op_bytes=2)
+        spec = ConvSpec.make(n, h, wd, ciblk * cib, coblk * cob, 1, 1)
+        return bf16_wgrad(getattr(lib, "direct_conv2d_wgrad_bf16"), blk, x,
+                          g, spec, z, activation, with_db, H100_SXM,
+                          LAUNCHES, name, lib)
     plan = _wgrad_plan(x.shape, g.shape, _ACT_CODES[activation], prologue,
                        with_db, dtype.itemsize)
-    lib = _bwd_lib()
     err, ws, out = wgrad_launch(
         getattr(lib, "direct_conv2d_wgrad" + _suffix(dtype)), plan, x, g,
         z if prologue else None, dtype)
-    name = "conv2d_pointwise_wgrad" + _suffix(dtype)
     LAUNCHES[name] += 1
     _check(err, lib, name)
     return ws, out
@@ -434,8 +448,8 @@ def pointwise_wgrad_partials(x: torch.Tensor, g: torch.Tensor,
 class _Pointwise:
     """The pointwise family's kernels for ``BlockedConvFunction``, in the
     builds of ``policy`` (F32, or ``BF16``: the forward's bf16 build with a
-    linear epilogue gives the bf16 ``z``, the dense dgrad's and wgrad's
-    bf16 builds at 1x1 the gradients)."""
+    linear epilogue gives the bf16 ``z``, the dz pass dz and db, the dense
+    dgrad's and wgrad's bf16 builds on dz at 1x1 the gradients)."""
     policy: Precision = F32
 
     def preactivation(self, x, w, bias, spec: ConvSpec) -> torch.Tensor:
@@ -446,8 +460,13 @@ class _Pointwise:
         return _fwd_cuda(x, w, bias, None, None, False,
                          build_dtype(self.policy))
 
-    def dgrad(self, g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
-        return pointwise_dgrad(g, w, z, activation, self.policy)
+    def dgrad(self, g, w, spec: ConvSpec, z, activation,
+              prologue_tiles: Optional[bool] = None) -> torch.Tensor:
+        return pointwise_dgrad(g, w, z, activation, self.policy,
+                               prologue_tiles)
 
     def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return pointwise_wgrad(x, g, z, activation, with_db, self.policy)
+
+    def cotangent(self, g, z, activation, with_db: bool):
+        return cotangent_pass(g, z, activation, with_db)

@@ -64,8 +64,8 @@ from repro_torch.kernels.direct_conv2d import (FWD_GEOMETRY, WGRAD_GEOMETRY,
                                                _backward_operands, _check,
                                                _check_activation,
                                                _cuda_device, _library,
-                                               _suffix, build_dtype,
-                                               check_machine,
+                                               _suffix, bf16_wgrad,
+                                               build_dtype, check_machine,
                                                declare_backward, dgrad_launch,
                                                fwd_launch, fwd_run,
                                                plain_policy, split_wgrad,
@@ -169,12 +169,14 @@ def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
                  activation: Optional[str] = None, *,
                  hso: Optional[int] = None,
                  machine: MachineModel = H100_SXM,
-                 precision=F32) -> torch.Tensor:
+                 precision=F32,
+                 prologue_tiles: Optional[bool] = None) -> torch.Tensor:
     """The streamed input gradient: the raw cotangent ``g [N, Co/Cob, Ho,
     Wo, Cob]``, the saved pre-activation ``z`` (None for a linear
     epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]`` at the unpadded
     ``input_hw``.  ``stride``/``padding`` are the forward's; under
-    ``BF16`` the bf16 build (``stream_dgrad_kernel_bf16``, bf16 dx)."""
+    ``BF16`` the bf16 build (``stream_dgrad_kernel_bf16``, bf16 dx);
+    ``prologue_tiles`` as ``direct_conv2d_dgrad``'s."""
     _backward_operands(g, z, activation)
     check_machine(machine)
     dtype = build_dtype(precision)
@@ -183,9 +185,10 @@ def stream_dgrad(g: torch.Tensor, w: torch.Tensor,
     _, ciblk, hf, wf, cib, _ = w.shape
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     prologue = _prologue(z, activation)
-    blk = choose_stream_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib,
-                                       cob, machine, prologue, hso,
-                                       dtype.itemsize)
+    blk = choose_stream_dgrad_blocking(
+        n, hi, wi, hf, wf, stride, ciblk, cib, cob, machine,
+        prologue if prologue_tiles is None else prologue_tiles, hso,
+        dtype.itemsize)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation,
@@ -249,9 +252,10 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                           machine: MachineModel = H100_SXM, precision=F32
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The streamed wgrad kernel on CUDA operands (under ``BF16`` its bf16
-    build) -> ``(ws, out)``: the f32 workspace ``[splits, |dw| + |db|]`` of
-    per-share partial sums and their in-order sum ``[|dw| + |db|]`` that
-    the last CTA of each column of shares wrote."""
+    build, after the dz pass: ``direct_conv2d.bf16_wgrad``) -> ``(ws,
+    out)``: the f32 workspace ``[splits, |dw| + |db|]`` of per-share
+    partial sums and their in-order sum ``[|dw| + |db|]`` that the last CTA
+    of each column of shares wrote."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
     dtype = build_dtype(precision)
@@ -259,6 +263,9 @@ def stream_wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                                        activation, hso, machine, dtype)
     lib = _lib()
     name = "conv2d_stream_wgrad" + _suffix(dtype)
+    if dtype == torch.bfloat16:
+        return bf16_wgrad(getattr(lib, name), blk, x, g, spec, z, activation,
+                          with_db, machine, LAUNCHES, name, lib)
     plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
                              _ACT_CODES[activation], with_db)
     err, ws, out = wgrad_launch(getattr(lib, name), plan, x, g,

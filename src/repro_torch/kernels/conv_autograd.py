@@ -8,7 +8,13 @@ pre-activation ``z``; the activation, the residual add and the GAP follow
 outside the kernel; the backward spreads a pooled cotangent over the map,
 passes the cotangent on as the residual's gradient, and runs the family's
 dgrad and wgrad kernels, which form ``dz = g * act'(z)`` themselves, with
-``db`` from the wgrad pass.  ``BlockedConvFunction`` is that shape once;
+``db`` from the wgrad pass.  Under ``BF16`` a family with a fourth
+function forms dz once a layer instead:
+
+* ``cotangent(g, z, activation, with_db)`` -> ``(dz, db)``, the bf16 dz
+  pass (and its db), whose dz both the dgrad and the wgrad then take with
+  a linear epilogue (the dgrad with ``prologue_tiles``: the tiles it takes
+  with its prologue, so that dx keeps its bits).  ``BlockedConvFunction`` is that shape once;
 each family hands it an object with three functions of the family's own
 wrappers:
 
@@ -100,11 +106,23 @@ class BlockedConvFunction(torch.autograd.Function):
         g = g.contiguous()
         need_x, need_w, need_b, need_r = ctx.needs_input_grad[:4]
         dx = dw = db = None
+        dz, act, tiles = g, ctx.activation, {}
+        if ctx.op is not None and hasattr(ctx.family, "cotangent"):
+            # dz (and db) once a layer, for the dgrad and the wgrad both: a
+            # transient the size of g, which autograd (and the residual's
+            # gradient) still owns; the dgrad on dz keeps the tiles (and
+            # so the bits) of the dgrad with its prologue
+            dz, db = ctx.family.cotangent(g, z, act, (need_w or need_b)
+                                          and b_dtype is not None)
+            tiles = {"prologue_tiles": z is not None
+                     and act not in (None, "linear")}
+            z, act = None, None
         if need_x:
-            dx = ctx.family.dgrad(g, w, spec, z, ctx.activation).to(x_dtype)
+            dx = ctx.family.dgrad(dz, w, spec, z, act, **tiles).to(x_dtype)
         if need_w or need_b:
-            dw, db = ctx.family.wgrad(x, g, spec, z, ctx.activation,
-                                      b_dtype is not None)
+            dw, db_w = ctx.family.wgrad(x, dz, spec, z, act,
+                                        b_dtype is not None and db is None)
+            db = db_w if db is None else db
             dw = dw.to(w_dtype)
             db = None if db is None else db.to(b_dtype)
         return (dx, dw if need_w else None, db if need_b else None,

@@ -52,12 +52,14 @@ The wrappers check device, dtype (f32, or under ``BF16`` bf16 operands
 with an f32 bias), shapes, contiguity and the 16-byte alignment of
 operands read with 16-byte loads.  The training path runs the f32 policy
 or ``BF16`` (``training_policy``): under ``BF16`` the forward's bf16 build
-with a linear epilogue gives the bf16 ``z``, and the dgrad's and wgrad's
-bf16 builds (``dgrad_kernel_bf16``, ``wgrad_kernel_bf16`` on the bf16
-namespaces of ``csrc/dgrad_tile.cuh`` and ``csrc/wgrad_tile.cuh``) the
-bf16 ``dx`` and the f32 ``dw`` and ``db``, with the reference's cast
-discipline (``kernels.conv_autograd``).  A float16 policy raises: no build
-reads it.
+with a linear epilogue gives the bf16 ``z``; the backward forms ``dz = g *
+act'(z)`` once a layer with ``db`` (``cotangent_pass``: the dz pass,
+``dz_kernel_bf16`` of ``csrc/direct_conv2d_bwd.cu``), and the dgrad's and
+wgrad's bf16 builds (``dgrad_kernel_bf16`` with its prologue off,
+``wgrad_kernel_bf16``: the bf16 GEMM of ``csrc/wgrad_tile.cuh``, both
+wgmma operands from shared memory) take dz and give the bf16 ``dx`` and
+the f32 ``dw``, with the reference's cast discipline
+(``kernels.conv_autograd``).  A float16 policy raises: no build reads it.
 
 ``LAUNCHES`` counts the kernels launched (a plain integer per kernel, bumped
 where the launch happens and nowhere else), so a run can show that it went
@@ -84,8 +86,9 @@ from repro_torch.core.blocking import (FWD_CONSUMERS, FWD_ROWS,
                                        choose_stream_fwd_blocking,
                                        choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking, dgrad_plan,
-                                       fwd_plan, fwd_smem_bytes, wgrad_plan)
-from repro_torch.core.conv2d_common import gap_replay
+                                       dz_splits, fwd_plan, fwd_smem_bytes,
+                                       wgrad_plan)
+from repro_torch.core.conv2d_common import cotangent_prologue, gap_replay
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.dispatch import (KernelRoute, Stream, resolve_stream,
                                        route_stream)
@@ -105,11 +108,13 @@ __all__ = ["LAUNCHES", "reset_launches", "check_machine", "build_dtype",
            "bf16_operands",
            "direct_conv2d_blocked", "FwdLaunch", "fwd_launch", "fwd_plans",
            "gap_forward", "direct_conv2d_dgrad", "dgrad_plans",
-           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans"]
+           "direct_conv2d_wgrad", "wgrad_partials", "wgrad_plans",
+           "cotangent_pass", "dz_partials", "wgrad_bf16_probe"]
 
 LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_fwd_bf16": 0,
             "direct_conv2d_dgrad": 0, "direct_conv2d_dgrad_bf16": 0,
-            "direct_conv2d_wgrad": 0, "direct_conv2d_wgrad_bf16": 0}
+            "direct_conv2d_wgrad": 0, "direct_conv2d_wgrad_bf16": 0,
+            "direct_conv2d_dz_bf16": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -193,6 +198,11 @@ def declare_backward(lib, prefix: str, ptr, i32) -> None:
 
 def _declare_bwd(lib, ptr, i32) -> None:
     declare_backward(lib, "direct_conv2d", ptr, i32)
+    lib.direct_conv2d_dz_bf16.argtypes = [ptr] * 6 + [i32] * 7 + [ptr]
+    lib.direct_conv2d_dz_bf16.restype = i32
+    lib.direct_conv2d_wgrad_bf16_probe.argtypes = [ptr] * 3 + [i32] * 2 \
+        + [ptr]
+    lib.direct_conv2d_wgrad_bf16_probe.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
@@ -670,7 +680,9 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
                         activation: Optional[str] = None, *,
                         stream: Stream = None, hso: Optional[int] = None,
                         machine: MachineModel = H100_SXM,
-                        precision=F32) -> torch.Tensor:
+                        precision=F32,
+                        prologue_tiles: Optional[bool] = None
+                        ) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)``: the raw cotangent ``g
     [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (same shape;
     None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
@@ -683,7 +695,11 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     (``dgrad_kernel_bf16``) on ``g``, ``z`` and ``w`` cast to bf16 (no-ops
     on the training path's bf16 operands): ``dx`` comes out in bf16, each
     f32 sum rounded once, as the reference's ``_dgrad_kernel`` under
-    ``BF16``; on the CPU the plain version on the same bf16 operands."""
+    ``BF16``; on the CPU the plain version on the same bf16 operands.
+    ``prologue_tiles``: tile it as a call with the prologue (True) or
+    without (False), whatever ``z`` is (None: as this call is): the bf16
+    backward hands the dz pass's dz to the dgrad with its prologue off and
+    keeps the tiles, and so the bits, of the dgrad with its prologue."""
     _backward_operands(g, z, activation)
     check_machine(machine)
     dtype = build_dtype(precision)
@@ -692,13 +708,14 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     _, ciblk, hf, wf, cib, _ = w.shape
     spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
     prologue = z is not None and activation not in (None, "linear")
+    tiles = prologue if prologue_tiles is None else prologue_tiles
     if _routed("dgrad", stream, hso, spec, cib, cob, machine,
-               prologue=prologue, op_bytes=dtype.itemsize):
+               prologue=tiles, op_bytes=dtype.itemsize):
         return _stream_kernels().stream_dgrad(
             g, w, input_hw, stride, padding, z, activation, hso=hso,
-            machine=machine, precision=precision)
+            machine=machine, precision=precision, prologue_tiles=tiles)
     blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                                machine, prologue, dtype.itemsize)
+                                machine, tiles, dtype.itemsize)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
                                          activation,
@@ -798,9 +815,10 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     """Weight (and bias) gradient of ``act(conv(x, w) + b)``: the forward's
     unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
-    db [Co/Cob, Cob] f32 or None)``.  Under ``BF16`` the bf16 build
-    (``wgrad_kernel_bf16``) on ``x``, ``g`` and ``z`` cast to bf16; dw and
-    db stay f32, as the reference's ``out_dtype=jnp.float32``.
+    db [Co/Cob, Cob] f32 or None)``.  Under ``BF16`` the bf16 dz pass
+    (``cotangent_pass``: dz and db, where there is a prologue or a db) and
+    the bf16 build (``wgrad_kernel_bf16``) on ``x`` and dz, cast to bf16; dw
+    and db stay f32, as the reference's ``out_dtype=jnp.float32``.
 
     On CUDA the tensor-core wgrad kernel (``wgrad_partials``,
     ``csrc/wgrad_tile.cuh``) writes one partial sum per position share into
@@ -858,7 +876,9 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     out)``: the f32 workspace ``[splits, |dw| + |db|]`` of per-share
     partial sums, each row laid out as ``dw`` then ``db``, and ``out [|dw|
     + |db|]``, its rows summed in split order by the last CTA of each
-    column of shares."""
+    column of shares.  Under ``BF16`` the dz pass forms dz and db first
+    (``bf16_wgrad``): ``ws`` is the bf16 GEMM's ``[splits, |dw|]`` and
+    ``out``'s db the pass's."""
     _backward_operands(g, z, activation)
     _cuda_device(x)
     dtype = build_dtype(precision)
@@ -871,6 +891,9 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                                 cob, machine, prologue, dtype.itemsize)
     lib = _bwd_lib()
     name = "direct_conv2d_wgrad" + _suffix(dtype)
+    if dtype == torch.bfloat16:
+        return bf16_wgrad(getattr(lib, name), blk, x, g, spec, z, activation,
+                          with_db, machine, LAUNCHES, name, lib)
     plan = wgrad_launch_plan(blk, x.shape, g.shape, hf, wf, spec,
                              _ACT_CODES[activation], with_db)
     err, ws, out = wgrad_launch(getattr(lib, name), plan, x, g,
@@ -878,6 +901,118 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     LAUNCHES[name] += 1
     _check(err, lib, name)
     return ws, out
+
+
+def bf16_wgrad(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
+               spec: ConvSpec, z: Optional[torch.Tensor],
+               activation: Optional[str], with_db: bool,
+               machine: MachineModel, launches: dict, name: str,
+               lib: ctypes.CDLL) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A bf16 wgrad GEMM's C ``entry`` (window or streamed) with the tiles
+    ``blk`` on CUDA operands: the dz pass first where there is a prologue
+    or a db (``dz_partials``, its db written into ``out``'s tail), then the
+    GEMM on x and dz -> ``(ws [splits, |dw|], out [|dw| + |db|])``; counts
+    the GEMM's launch in ``launches[name]``."""
+    _, coblk, _, _, cob = g.shape
+    plan = wgrad_launch_plan(blk, x.shape, g.shape, spec.hf, spec.wf, spec,
+                             0, False)
+    out = torch.empty((plan.cols + (coblk * cob if with_db else 0),),
+                      device=x.device, dtype=torch.float32)
+    prologue = z is not None and activation not in (None, "linear")
+    if prologue or with_db:
+        _, g, _ = dz_partials(g, z if prologue else None, activation,
+                              with_db, machine=machine,
+                              db_out=out[plan.cols:] if with_db else None)
+    err, ws, _ = wgrad_launch(entry, plan, x, g, None, torch.bfloat16, out)
+    launches[name] += 1
+    _check(err, lib, name)
+    return ws, out
+
+
+def cotangent_pass(g: torch.Tensor, z: Optional[torch.Tensor],
+                   activation: Optional[str], with_db: bool, *,
+                   machine: MachineModel = H100_SXM):
+    """The bf16 backward's cotangent, once a layer: ``g`` (bf16), the saved
+    pre-activation ``z`` -> ``(dz, db [Co/Cob, Cob] f32 or None)``, dz = g *
+    act'(z) rounded once to bf16 (``g`` itself where the activation is
+    linear) and db its f32 sum over positions.  On CUDA the dz pass
+    (``dz_kernel_bf16``, ``dz_partials``), launched only where there is a
+    prologue or a db; on the CPU its plain version,
+    ``conv2d_common.cotangent_prologue`` and a sum."""
+    _backward_operands(g, z, activation)
+    prologue = z is not None and activation not in (None, "linear")
+    if g.device.type == "cpu":
+        dz = cotangent_prologue(g, z if prologue else None, activation)
+        db = (dz.to(torch.promote_types(dz.dtype, torch.float32))
+              .sum(dim=(0, 2, 3)) if with_db else None)
+        return dz, db
+    if not (prologue or with_db):
+        return g, None
+    _, dz, db = dz_partials(g, z if prologue else None, activation, with_db,
+                            machine=machine)
+    return dz, db
+
+
+def dz_partials(g: torch.Tensor, z: Optional[torch.Tensor],
+                activation: Optional[str], with_db: bool, *,
+                machine: MachineModel = H100_SXM,
+                db_out: Optional[torch.Tensor] = None):
+    """The dz pass on CUDA operands -> ``(ws [splits, Co/Cob * Cob] or None,
+    dz, db [Co/Cob, Cob] or None)``: dz = g * act'(z) in bf16 (``g`` where
+    ``z`` is None: db alone), and db summed per lane by each share into
+    ``ws`` and the shares' rows in split order by the last CTA of each Co
+    block (into ``db_out`` where given)."""
+    dev = _cuda_device(g)
+    bf = torch.bfloat16
+    g = g.to(bf)
+    z = None if z is None else z.to(bf)
+    gp = _require(g, "g", dev, vector_loads=True, dtype=bf)
+    zp = _require(z, "z", dev, vector_loads=True, dtype=bf)
+    n, coblk, ho, wo, cob = g.shape
+    if z is not None and z.shape != g.shape:
+        raise ValueError(f"z {tuple(z.shape)} must match g {tuple(g.shape)}")
+    if coblk > _GRID_YZ_MAX:
+        raise ValueError(f"grid too large: Co/Cob={coblk}")
+    splits = dz_splits(n, coblk, ho * wo, machine)
+    dz = None if z is None else torch.empty_like(g)
+    ws = db = None
+    if with_db:
+        ws = torch.empty((splits, coblk * cob), device=dev,
+                         dtype=torch.float32)
+        db = (db_out if db_out is not None else
+              torch.empty((coblk * cob,), device=dev, dtype=torch.float32))
+    stream = _stream(dev)
+    lib = _bwd_lib()
+    err = _call(dev, lib.direct_conv2d_dz_bf16, gp, zp, _ptr(dz), _ptr(ws),
+                _ptr(db), split_sum.counters(dev, stream, coblk)
+                if with_db else None, n, coblk, ho * wo, cob,
+                _ACT_CODES[activation], splits, int(with_db), stream)
+    LAUNCHES["direct_conv2d_dz_bf16"] += 1
+    _check(err, lib, "direct_conv2d_dz_bf16")
+    return ws, g if dz is None else dz, (None if db is None
+                                          else db.view(coblk, cob))
+
+
+def wgrad_bf16_probe(x: torch.Tensor, d: torch.Tensor, shift: int,
+                     gap: int) -> torch.Tensor:
+    """The bf16 wgrad tile's one-tap unit on CUDA operands: ``x [64, 64]``
+    and ``d [16, 64]`` bf16, staged and read by descriptor as the tile
+    stages and reads its window and dz tile, A from row ``shift`` with its
+    second 8 rows ``gap`` rows on -> ``out [64, 64]`` f32, ``out[c, l] =
+    sum_k x[shift + k, c] d[k, l] + x[shift + gap + k, c] d[8 + k, l]``
+    (k < 8)."""
+    dev = _cuda_device(x)
+    bf = torch.bfloat16
+    if x.shape != (64, 64) or d.shape != (16, 64):
+        raise ValueError("x must be [64, 64] and d [16, 64]")
+    xp = _require(x, "x", dev, vector_loads=True, dtype=bf)
+    dp = _require(d, "d", dev, vector_loads=True, dtype=bf)
+    lib = _bwd_lib()
+    out = torch.empty((64, 64), device=dev, dtype=torch.float32)
+    err = _call(dev, lib.direct_conv2d_wgrad_bf16_probe, xp, dp,
+                out.data_ptr(), shift, gap, _stream(dev))
+    _check(err, lib, "direct_conv2d_wgrad_bf16_probe")
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -912,12 +1047,13 @@ def wgrad_launch_plan(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
 
 def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
                  z: Optional[torch.Tensor],
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 out: Optional[torch.Tensor] = None):
     """Call a tensor-core wgrad kernel's C ``entry`` (the window one or the
     streamed one, the build for ``dtype`` operands) with ``plan`` on CUDA
     operands, cast to ``dtype``, ``z`` only with the prologue -> ``(CUDA
-    error code, f32 workspace, its rows' f32 sum)``; the caller counts the
-    launch."""
+    error code, f32 workspace, its rows' f32 sum)`` (into ``out``'s first
+    ``plan.cols`` floats where given); the caller counts the launch."""
     dev = _cuda_device(x)
     x, g = x.to(dtype), g.to(dtype)
     z = None if z is None else z.to(dtype)
@@ -926,7 +1062,8 @@ def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
             _require(z, "z", dev, vector_loads=True, dtype=dtype))
     ws = torch.empty((plan.blk.splits, plan.cols), device=dev,
                      dtype=torch.float32)
-    out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
+    if out is None:
+        out = torch.empty((plan.cols,), device=dev, dtype=torch.float32)
     stream = _stream(dev)
     err = _call(dev, entry, *ptrs, ws.data_ptr(), out.data_ptr(),
                 split_sum.counters(dev, stream, plan.columns), plan.ints,
@@ -971,8 +1108,9 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
         lib, prefix = _bwd_lib(), "direct_conv2d"
     entry = getattr(lib, f"{prefix}_wgrad{_suffix(dtype)}_plan")
     out = (ctypes.c_longlong * 4)()
+    # the bf16 GEMM stages dz alone: never a prologue
     if entry(*_wgrad_ints(blk, x.shape, g.shape, hf, wf, spec),
-             int(prologue), out):
+             int(prologue and dtype == torch.float32), out):
         raise ValueError(f"the wgrad kernel refuses the tiles {blk}")
     model = wgrad_plan(blk, n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
                        cob, prologue)
@@ -989,8 +1127,8 @@ class _Dense:
     direction on the kernel its ``route`` resolved (the window kernels
     here, or the streamed ones; ``hso`` pins the streamed forward's
     strips), in the builds of ``policy`` (F32, or ``BF16``: the forward's
-    bf16 build with a linear epilogue gives the bf16 ``z``, the dgrad's
-    and wgrad's bf16 builds the gradients)."""
+    bf16 build with a linear epilogue gives the bf16 ``z``, the dz pass
+    dz and db, the dgrad's and wgrad's bf16 builds on dz the gradients)."""
     route: KernelRoute
     machine: MachineModel = H100_SXM
     hso: Optional[int] = None
@@ -1014,12 +1152,14 @@ class _Dense:
         return _fwd_cuda(x, w, bias, None, spec, None, False, self.machine,
                          build_dtype(self.policy))
 
-    def dgrad(self, g, w, spec: ConvSpec, z, activation) -> torch.Tensor:
+    def dgrad(self, g, w, spec: ConvSpec, z, activation,
+              prologue_tiles: Optional[bool] = None) -> torch.Tensor:
         return direct_conv2d_dgrad(g, w, (spec.hi, spec.wi), spec.stride,
                                    spec.pads, z, activation,
                                    stream=self.route.dgrad,
                                    machine=self.machine,
-                                   precision=self.policy)
+                                   precision=self.policy,
+                                   prologue_tiles=prologue_tiles)
 
     def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
@@ -1027,3 +1167,6 @@ class _Dense:
                                    stream=self.route.wgrad,
                                    machine=self.machine,
                                    precision=self.policy)
+
+    def cotangent(self, g, z, activation, with_db: bool):
+        return cotangent_pass(g, z, activation, with_db, machine=self.machine)

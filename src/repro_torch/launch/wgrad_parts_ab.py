@@ -14,9 +14,11 @@ in which one part of the work is skipped, each into the build directory:
 Only ``whole`` computes the function; the others are timing probes.  At a
 few VGG-16 layers (batch 8, the relu prologue and ``db``, the chooser's
 tiles) it prints the card's name and power limit and each variant's
-CUDA-graph ms.  ``--dtype bf16`` takes the same parts out of the tile's
-bf16 build (``wgrad_kernel_bf16``, ``BF16_VARIANTS``) and times it on bf16
-operands at the bf16 chooser's tiles.  Needs an H100 and nvcc::
+CUDA-graph ms.  ``--dtype bf16`` takes the parts of ``BF16_VARIANTS`` out
+of the bf16 GEMM (``wgrad_kernel_bf16``: ``whole``, ``no_wgmma``,
+``no_copy``), times it on bf16 x and dz at the bf16 chooser's tiles, and
+times the dz pass that forms dz and db (``dz_pass``) apart.  Needs an H100
+and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.wgrad_parts_ab [--dtype bf16]
 """
@@ -51,22 +53,22 @@ VARIANTS = {
                 ("      db = transform<N>(",
                  "      if (0) db = transform<N>(")),
 }
-# the same parts of the bf16 build (wgrad_tile.cuh, namespace bf16)
+# the same parts of the bf16 GEMM (wgrad_tile.cuh, namespace bf16): no
+# wgmma, or no copy (the producer arrives on each slot's mbarrier with
+# nothing staged); its dz pass is timed apart, `dz_pass`
 BF16_VARIANTS = {
     "whole": (),
-    "no_wgmma": (("    mma_stage<N, N, MPW>(total, m.x[slot]",
-                  "    if (0) mma_stage<N, N, MPW>(total, m.x[slot]"),),
-    "no_dz": (("      transform<N>(m.g[slot], m.z[slot], m.b[slot]",
-               "      if (0) transform<N>(m.g[slot], m.z[slot], m.b[slot]"),),
-    "no_copy": (("      bf16::issue_x(tmx, x, geo,",
-                 "      if (0) bf16::issue_x(tmx, x, geo,"),
-                ("    for (int s = 0; s < min(stages, kSlots); ++s) "
-                 "issue_dz(s);", ""),
-                ("      if (s + kSlots < stages) issue_dz(s + kSlots);", ""),
-                ("      dt::mbar_wait(m.bar_d + slot, parity);", ""),
-                ("      dt::mbar_wait(m.bar_x + slot, parity);", ""),
-                ("      transform<N>(m.g[slot], m.z[slot], m.b[slot]",
-                 "      if (0) transform<N>(m.g[slot], m.z[slot], m.b[slot]")),
+    "no_wgmma": (("            wgmma_tt<N>(acc[t],",
+                  "            if (0) wgmma_tt<N>(acc[t],"),),
+    "no_copy": (("      dt::mbar_init(m.full + i,\n"
+                 "                    bf16::tma_x(geo) && bf16::tma_d(geo) "
+                 "? 1 : 2);",
+                 "      dt::mbar_init(m.full + i, 1);"),
+                ("    issue(m, tmx, tmd, x, dz, g, tile_of(g, first + s), "
+                 "slot, ci_b, co_b, h0,",
+                 "    if (tid == 0) dt::mbar_expect_tx(m.full + slot, 0);\n"
+                 "    if (0) issue(m, tmx, tmd, x, dz, g, tile_of(g, first "
+                 "+ s), slot, ci_b, co_b, h0,")),
 }
 # (ci, co, stride, input extent)
 LAYERS = ((3, 64, 1, 224), (64, 64, 1, 224), (64, 128, 2, 224),
@@ -133,13 +135,23 @@ def main(argv=None) -> int:
         blk = choose_wgrad_blocking(n, spec.ho, spec.wo, 3, 3, s, ci // cib,
                                     cib, co // cob, cob, prologue=True,
                                     op_bytes=dtype.itemsize)
-        plan = direct_conv2d.wgrad_launch_plan(blk, x.shape, g.shape, 3, 3,
-                                               spec, 1, True)
         times = {}
+        if bf16:        # the GEMM on dz, its dz pass (with db) apart
+            plan = direct_conv2d.wgrad_launch_plan(blk, x.shape, g.shape, 3,
+                                                   3, spec, 0, False)
+            operands = (x, direct_conv2d.cotangent_pass(g, z, "relu",
+                                                        False)[0], None)
+            times["dz_pass"] = min(graph_ms(
+                lambda: direct_conv2d.cotangent_pass(g, z, "relu", True),
+                10) for _ in range(2))
+        else:
+            plan = direct_conv2d.wgrad_launch_plan(blk, x.shape, g.shape, 3,
+                                                   3, spec, 1, True)
+            operands = (x, g, z)
         for name, lib in libs.items():
             def run(lib=lib):
                 err, ws, _ = direct_conv2d.wgrad_launch(
-                    getattr(lib, entry), plan, x, g, z, dtype)
+                    getattr(lib, entry), plan, *operands, dtype)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
                 return ws
@@ -150,7 +162,7 @@ def main(argv=None) -> int:
               f"{blk.splits}: "
               + " ".join(f"{k}_ms {v:.4f}" for k, v in times.items()),
               flush=True)
-        del x, w, z, g
+        del x, w, z, g, operands
     return 0
 
 

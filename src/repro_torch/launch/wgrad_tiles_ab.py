@@ -12,11 +12,11 @@ kept), checks each tile's workspace, reduced, against the f64 plain
 version (``|dw - plain| <= 1e-5 * sum |x * dz|``), and prints the card's
 name and power limit, each tile with its model cost and ms, and per layer
 and route the chooser's tile beside the fastest one measured, then the
-sums over VGG-16's 13 layers.  ``--dtype bf16`` times the bf16 builds
+sums over VGG-16's 13 layers.  ``--dtype bf16`` times the bf16 GEMMs
 (``wgrad_kernel_bf16``, ``stream_wgrad_kernel_bf16``) at the bf16
-chooser's candidates (``op_bytes`` 2) on bf16 operands, against the f64
-sums of the same bf16 operands and dz rounded to bf16.  Needs an H100 and
-nvcc::
+chooser's candidates (``op_bytes`` 2) on bf16 x and dz (formed once by the
+dz pass, which no candidate changes), against the f64 sums of the same
+bf16 operands.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab [--dtype bf16]
 """
@@ -72,7 +72,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     args = ap.parse_args(argv)
-    dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
+    bf16 = args.dtype == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
     suffix = "_bf16" if args.dtype == "bf16" else ""
     if not torch.cuda.is_available():
         print("wgrad_tiles_ab: no CUDA device")
@@ -119,18 +120,21 @@ def main(argv=None) -> int:
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
                                              PER_COUNT, dtype.itemsize):
+                # the bf16 GEMM takes dz alone, no db
                 plan = direct_conv2d.wgrad_launch_plan(
-                    blk, x.shape, g.shape, 3, 3, spec, 1, True)
+                    blk, x.shape, g.shape, 3, 3, spec, 0 if bf16 else 1,
+                    not bf16)
+                operands = (x, dz, None) if bf16 else (x, g, z)
 
-                def run(blk=blk, plan=plan):
-                    err, _, out = direct_conv2d.wgrad_launch(entry, plan, x,
-                                                             g, z, dtype)
+                def run(blk=blk, plan=plan, operands=operands):
+                    err, _, out = direct_conv2d.wgrad_launch(
+                        entry, plan, *operands, dtype)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
                     return out
                 dw, _ = direct_conv2d.split_wgrad(run(), x.shape, g.shape, 3,
-                                                  3, True)
+                                                  3, not bf16)
                 ratio = ((dw.double() - want).abs()
                          / (REL * scale).clamp_min(1e-300)).max().item()
                 if not ratio <= 1:

@@ -315,32 +315,40 @@ def _tile_dgrad_bf16(dz, wt, hw, stride, pads, blk, streamed):
 
 
 def _tile_wgrad_bf16(x, dz, blk, hf, wf, stride, pads, streamed):
-    """``wgrad_kernel_bf16`` / ``stream_wgrad_kernel_bf16`` in numpy: per
-    CTA (Ci block, Co block, m-tile group, share) each stage's x window
-    staged as ``issue_x`` stages it (the streamed walk keeping the halo rows
-    of the stage before; channels past Cib of a cell never read), bf16 dz
-    written as ``transform`` writes B ([N/8][K][8], K padded to 16, zero
-    past the tile), A read at ``ro[m] + posoff[p]``, each stage into a fresh
-    f32 accumulator taking each k16 slice's exact sum rounding toward zero,
-    then added into the share's running f32 sum; db the f32 sum of the
-    stage's dz lane by lane, positions in order; the shares' rows added in
-    split order.  -> ``(dw, db)``."""
+    """``wgrad_kernel_bf16`` / ``stream_wgrad_kernel_bf16`` in numpy, on dz
+    as the dz pass leaves it: per CTA (Ci block, Co block, m-tile group,
+    share) each stage's window staged as ``issue`` stages it, a
+    ``[hwin][tw + (wf - 1) // s][64]`` block a (64-channel half, column
+    phase) the CTA holds (zero outside the map and past Cib), B the tile's
+    dz ``[kpos][lanes]`` (zero past the map, past the tile's positions up
+    to K padded to 16, and past Cob); an m-tile (half, tap) reads A by its
+    descriptors: a k16 step's two 8-position groups from the step tables
+    (each group 8 consecutive cells of the tap's phase, the second group's
+    offset 0 past the tile), each step's exact sum added into a fresh f32
+    accumulator rounding toward zero, the stage's accumulator then added
+    into the running f32 sum; the shares' rows added in split order.
+    -> dw."""
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = dz.shape
     (pt, _), (pl, _) = pads
     th, tw, lanes, kpos = blk.th, blk.tw, blk.lanes, blk.kpos
-    assert blk.kstep == 16 and kpos % 16 == 0
-    ld = blocking.wgrad_ldx(cib, stride, 2)
-    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
-    rf = -(-wwin * ld // 64) * 64        # a row padded to 128 bytes
-    rows = hf * wf * cib
-    mt = blocking.wgrad_mtiles(hf, wf, cib)
-    posoff = np.array([(p // tw) * stride * rf + (p % tw) * stride * ld
-                       if p < th * tw else 0 for p in range(kpos)])
-    ro = np.zeros(mt * 64, int)
-    for m in range(rows):
-        tap, c = divmod(m, cib)
-        ro[m] = (tap // wf) * rf + (tap % wf) * ld + c
+    assert blk.kstep == 16 and kpos % 16 == 0 and lanes in (64, 128)
+    flat = hf == wf == stride == 1
+    assert flat or tw % 8 == 0
+    taps, halves = hf * wf, -(-cib // 64)
+    phases, wph = min(stride, wf), tw + (wf - 1) // stride
+    hwin = (th - 1) * stride + hf
+    span = blk.wgs * blk.mpw
+    tpg, gph, hpg, groups = blocking.wgrad_bf16_groups(hf, wf, cib, span)
+    assert groups == blk.groups
+    # a region's cells (the window, and the reads of a flat tile's padding)
+    cells = max(hwin * wph, -(-th * tw // 8) * 8)
+    region = -(-cells * 128 // 1024) * 1024 // 128
+
+    def cell(p):
+        return (p // tw) * stride * wph + p % tw
+    steps = [(cell(16 * j), cell(16 * j + 8) if 16 * j + 8 < th * tw
+              else cell(16 * j)) for j in range(kpos // 16)]
     tiles_h, tiles_w = -(-ho // th), -(-wo // tw)
     total_tiles = n * tiles_h * tiles_w
     assert total_tiles == blk.tiles
@@ -351,68 +359,98 @@ def _tile_wgrad_bf16(x, dz, blk, hf, wf, stride, pads, streamed):
                 else divmod(rem, tiles_w))
         return img, a * th, b * tw
 
-    dw_size = coblk * ciblk * hf * wf * cib * cob
-    ws = np.full((blk.splits, dw_size + coblk * cob), np.nan, np.float32)
-    keep = max(0, hwin - th * stride)
+    dw_size = coblk * ciblk * taps * cib * cob
+    ws = np.full((blk.splits, dw_size), np.nan, np.float32)
     for ci_b in range(ciblk):
         for co_b in range(coblk):
-            for group in range(blk.groups):
-                m0 = group * blk.wgs * blk.mpw * 64
-                m1 = min(m0 + blk.wgs * blk.mpw * 64, mt * 64)
+            for group in range(groups):
+                h0 = group // gph * hpg
+                mts = []
+                for i in range(span):
+                    lh, tp = i // tpg, group % gph * tpg + i % tpg
+                    if lh < hpg and h0 + lh < halves and tp < taps:
+                        mts.append((lh, h0 + lh, tp))
                 for split in range(blk.splits):
                     first = total_tiles * split // blk.splits
                     last = total_tiles * (split + 1) // blk.splits
-                    total = np.zeros((m1 - m0, lanes), np.float32)
-                    db = np.zeros(lanes, np.float32)
-                    prev = None
+                    total = np.zeros((len(mts), 64, lanes), np.float32)
                     for t in range(first, last):
                         img, oh0, ow0 = tile_of(t)
-                        xs = np.zeros(hwin * rf, np.float32)
-                        lo = keep if (streamed and t > first
-                                      and t % tiles_h) else 0
-                        if lo:
-                            xs[:lo * rf] = prev[(hwin - lo) * rf:]
-                        for r in range(lo, hwin):
-                            for col in range(wwin):
-                                ih = oh0 * stride - pt + r
-                                iw = ow0 * stride - pl + col
-                                inside = 0 <= ih < hi and 0 <= iw < wi
-                                at = r * rf + col * ld
-                                xs[at:at + cib] = (x[img, ci_b, ih, iw]
-                                                   if inside else 0.0)
-                        b_op = np.zeros(lanes // 8 * kpos * 8, np.float32)
+                        win = np.zeros((hpg, phases, region, 64), np.float32)
+                        for lh in range(min(hpg, halves - h0)):
+                            c0 = 64 * (h0 + lh)
+                            c1 = min(cib, c0 + 64)
+                            for ph in range(phases):
+                                for r in range(hwin):
+                                    for k in range(wph):
+                                        ih = oh0 * stride - pt + r
+                                        iw = ow0 * stride - pl + ph \
+                                            + stride * k
+                                        if 0 <= ih < hi and 0 <= iw < wi:
+                                            win[lh, ph, r * wph + k,
+                                                :c1 - c0] = x[img, ci_b, ih,
+                                                              iw, c0:c1]
+                        b_op = np.zeros((kpos, lanes), np.float32)
                         for p in range(th * tw):
                             oh, ow = oh0 + p // tw, ow0 + p % tw
                             if oh < ho and ow < wo:
-                                for co in range(cob):
-                                    b_op[((co // 8) * kpos + p) * 8
-                                         + co % 8] = dz[img, co_b, oh, ow,
-                                                        co]
-                        bm = (b_op.reshape(lanes // 8, kpos, 8)
-                              .transpose(1, 0, 2).reshape(kpos, lanes))
-                        a_op = xs[ro[m0:m1, None] + posoff[None, :]]
-                        acc = np.zeros_like(total)
-                        for k in range(0, kpos, 16):
-                            acc = _add_rz(acc, a_op[:, k:k + 16].astype(
-                                np.float64) @ bm[k:k + 16].astype(np.float64))
-                        total = total + acc
-                        for p in range(th * tw):
-                            db = db + bm[p]
-                        prev = xs
-                    for m in range(m0, min(m1, rows)):
-                        tap, c = divmod(m, cib)
-                        base = (((co_b * ciblk + ci_b) * hf * wf + tap) * cib
-                                + c) * cob
-                        ws[split, base:base + cob] = total[m - m0, :cob]
-                    if group == 0 and ci_b == 0:
-                        ws[split, dw_size + co_b * cob:
-                           dw_size + (co_b + 1) * cob] = db[:cob]
-    assert not np.isnan(ws).any()
+                                b_op[p, :cob] = dz[img, co_b, oh, ow]
+                        for m, (lh, hh, tp) in enumerate(mts):
+                            dh, dwi = divmod(tp, wf)
+                            shift = dh * wph + dwi // stride
+                            acc = np.zeros((64, lanes), np.float32)
+                            for j, (g0, g1) in enumerate(steps):
+                                rows = [g0 + shift + k for k in range(8)] \
+                                    + [g1 + shift + k for k in range(8)]
+                                assert max(rows) < region
+                                a_op = win[lh, dwi % stride, rows].T
+                                acc = _add_rz(acc, a_op.astype(np.float64)
+                                              @ b_op[16 * j:16 * j + 16]
+                                              .astype(np.float64))
+                            total[m] = total[m] + acc
+                    for m, (lh, hh, tp) in enumerate(mts):
+                        for c in range(64 * hh, min(cib, 64 * hh + 64)):
+                            base = (((co_b * ciblk + ci_b) * taps + tp) * cib
+                                    + c) * cob
+                            ws[split, base:base + cob] = \
+                                total[m, c - 64 * hh, :cob]
+    assert not np.isnan(ws).any()            # every (tap, c) written once
     out = ws[0].copy()
     for k in range(1, blk.splits):
         out = out + ws[k]
-    return (out[:dw_size].reshape(coblk, ciblk, hf, wf, cib, cob),
-            out[dw_size:].reshape(coblk, cob))
+    return out.reshape(coblk, ciblk, hf, wf, cib, cob)
+
+
+def _dz_pass_bf16(g, z, act, splits):
+    """``dz_kernel_bf16`` in numpy: dz = g * act'(z) rounded once to bf16
+    (``cotangent_prologue``), and db as the kernel sums it: per Co block
+    ``splits`` contiguous shares of the N * Ho * Wo positions; in a share a
+    thread a (unit of 8 lanes, or 1 where Cob % 8 != 0) and row of ``256 /
+    units`` positions, each summing its positions in order in f32; the rows
+    added in order; the shares in split order.  -> (dz, db)."""
+    dz = cotangent_prologue(_tb(g), _tb(z) if act else None, act).float() \
+        .numpy()
+    n, coblk, ho, wo, cob = dz.shape
+    u = 8 if cob % 8 == 0 else 1
+    rows = 256 // (cob // u)
+    flat = dz.transpose(1, 0, 2, 3, 4).reshape(coblk, n * ho * wo, cob)
+    total = n * ho * wo
+    db = np.zeros((coblk, cob), np.float32)
+    for co_b in range(coblk):
+        out = None
+        for split in range(splits):
+            first = total * split // splits
+            last = total * (split + 1) // splits
+            part = np.zeros((rows, cob), np.float32)
+            for r in range(rows):
+                for p in range(first + r, last, rows):
+                    part[r] = part[r] + flat[co_b, p]
+            row = part[0].copy()
+            for r in range(1, rows):
+                row = row + part[r]
+            out = row if out is None else out + row
+        db[co_b] = out
+    return dz, db
 
 
 TILE_CASES = [
@@ -420,6 +458,12 @@ TILE_CASES = [
     (2, 16, 12, 9, 16, 12, 2, "SAME", "gelu"),       # Cob 12, stride 2
     (1, 3, 8, 10, 3, 8, 2, "VALID", "relu"),          # Cib = 3
     (2, 32, 32, 6, 16, 16, 1, "SAME", None),          # two Ci, Co blocks
+]
+# more for the bf16 GEMM: asymmetric SAME pads at stride 2 (pad (0, 1)),
+# Cib 8 at stride 2, a Ci block of two 64-channel halves
+TILE_CASES_GEMM = [
+    (2, 8, 12, 10, 8, 12, 2, "SAME", "gelu"),
+    (1, 128, 8, 6, 128, 8, 1, "SAME", "relu"),
 ]
 
 
@@ -450,25 +494,95 @@ def test_bf16_dgrad_tile_arithmetic_matches_plain_version(
 
 
 @pytest.mark.parametrize("streamed", [False, True])
-@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,padding,act", TILE_CASES)
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,padding,act",
+                         TILE_CASES + TILE_CASES_GEMM)
 def test_bf16_wgrad_tile_arithmetic_matches_plain_version(
         streamed, n, ci, co, h, cib, cob, stride, padding, act):
+    # the GEMM on dz and the dz pass, each held against the reference's
+    # streamed Pallas VJP under BF16 in interpret mode (its own cast
+    # discipline: dz rounded once, f32 dw and db) and the plain version
     x, w, z, g, spec = _operands(4, n, ci, co, h, cib, cob, stride, padding)
-    zz = _tb(z) if act else None
-    dz = cotangent_prologue(_tb(g), zz, act).float().numpy()
-    want_dw, want_db = direct_conv_wgrad_blocked(
-        _tb(x), _tb(g), 3, 3, stride, padding, zz, act, with_db=True)
+    zz = z if act else None
+    dz, db = _dz_pass_bf16(g, zz, act, blocking.dz_splits(
+        n, co // cob, spec.ho * spec.wo))
+    want_dw, want_db = direct_conv2d_wgrad_pallas(
+        _jb(_padded(x, spec.pads)), _jb(g), 3, 3, stride=stride,
+        stream=True, interpret=True, out_dtype=jnp.float32, z=_jb(zz),
+        activation=act, with_db=True)
+    plain_dw, plain_db = direct_conv_wgrad_blocked(
+        _tb(x), _tb(g), 3, 3, stride, padding, _tb(zz), act, with_db=True)
     pads = normalize_padding(padding, 3, 3, stride, h, h)
     choose = (blocking.choose_stream_wgrad_blocking if streamed
               else blocking.choose_wgrad_blocking)
     blk = choose(n, spec.ho, spec.wo, 3, 3, stride, ci // cib, cib,
                  co // cob, cob, prologue=act is not None, op_bytes=2)
-    small = dataclasses.replace(blk, th=1, tw=3, splits=2,
-                                tiles=n * spec.ho * -(-spec.wo // 3))
+    # a small tile: two rows of 8 (K 16, no padding group), two shares
+    small = dataclasses.replace(blk, th=2, tw=8, splits=2,
+                                tiles=n * -(-spec.ho // 2)
+                                * -(-spec.wo // 8))
     for b in (blk, small):
-        dw, db = _tile_wgrad_bf16(x, dz, b, 3, 3, stride, pads, streamed)
-        _close_to_max(dw, want_dw.numpy(), 1e-5)
-        _close_to_max(db, want_db.numpy(), 1e-5)
+        dw = _tile_wgrad_bf16(x, dz, b, 3, 3, stride, pads, streamed)
+        _close_to_max(dw, np.asarray(want_dw), 1e-5)
+        _close_to_max(dw, plain_dw.numpy(), 1e-5)
+    _close_to_max(db, np.asarray(want_db), 1e-5)
+    _close_to_max(db, plain_db.numpy(), 1e-5)
+
+
+# (n, ci, co, h, cib, cob, act) at a 1x1 filter: whole rows a stage,
+# positions run on across the row breaks (7x7: 49 padded to 64), Cib 3
+# and 8, Cob % 8 != 0, two Ci and Co blocks
+PW_TILE_CASES = [
+    (2, 16, 12, 7, 16, 12, "relu"),
+    (1, 3, 8, 9, 3, 8, "gelu"),
+    (2, 16, 16, 6, 8, 8, None),
+]
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,act", PW_TILE_CASES)
+def test_bf16_wgrad_tile_arithmetic_at_1x1_full_rows(n, ci, co, h, cib, cob,
+                                                     act):
+    rng = np.random.default_rng(5)
+    x = _bf16(rng.normal(size=(n, ci // cib, h, h, cib)))
+    z = _bf16(rng.normal(size=(n, co // cob, h, h, cob)))
+    g = _bf16(rng.normal(size=z.shape))
+    zz = z if act else None
+    dz, _ = _dz_pass_bf16(g, zz, act, 1)
+    want_dw = direct_conv2d_wgrad_pallas(
+        _jb(x), _jb(g), 1, 1, stride=1, stream=True, interpret=True,
+        out_dtype=jnp.float32, z=_jb(zz), activation=act, with_db=False)
+    blk = blocking.choose_wgrad_blocking(n, h, h, 1, 1, 1, ci // cib, cib,
+                                         co // cob, cob, op_bytes=2)
+    assert blk.tw == h and blk.kpos >= blk.th * h
+    for b in (blk, dataclasses.replace(blk, th=1, splits=2, tiles=n * h)):
+        dw = _tile_wgrad_bf16(x, dz, b, 1, 1, 1, ((0, 0), (0, 0)), False)
+        _close_to_max(dw, np.asarray(want_dw), 1e-5)
+
+
+@pytest.mark.parametrize("act", ["relu", "gelu", None])
+@pytest.mark.parametrize("cob", [16, 6, 3])
+def test_dz_pass_plain_version_is_the_prologue_with_an_f64_db(act, cob):
+    # cotangent_pass on the CPU: bit for bit cotangent_prologue (f32 g with
+    # bf16 z as well: the reference's cast order), db against an f64 sum
+    rng = np.random.default_rng(cob)
+    g = rng.normal(size=(2, 2, 5, 6, cob)).astype(np.float32)
+    z = _bf16(rng.normal(size=g.shape))
+    z[0, 0, 0, 0, 0] = 0.0                          # relu's tie
+    zz = _tb(z) if act else None
+    for gt in (_tb(g), torch.from_numpy(g)):
+        dz, db = dck.cotangent_pass(gt, zz, act, True)
+        assert torch.equal(dz, cotangent_prologue(gt, zz, act))
+        exact = dz.double().sum(dim=(0, 2, 3))
+        scale = dz.double().abs().sum(dim=(0, 2, 3))
+        assert ((db.double() - exact).abs() <= 1e-6 * scale).all()
+        _, none = dck.cotangent_pass(gt, zz, act, False)
+        assert none is None
+    # the kernel's summation order in numpy (shares, rows, units) meets the
+    # same bound
+    _, db = _dz_pass_bf16(g, z if act else None, act, 3)
+    dz = cotangent_prologue(_tb(g), zz, act).double()
+    exact = dz.sum(dim=(0, 2, 3)).numpy()
+    scale = dz.abs().sum(dim=(0, 2, 3)).numpy()
+    assert (np.abs(db - exact) <= 1e-6 * scale).all()
 
 
 # ---------------------------------------------------------------------------
@@ -496,7 +610,8 @@ def test_bf16_backward_choosers_fit_the_cta_at_vgg16_shapes(streamed, ci, co,
                      op_bytes=ob) for ob in (4, 2))
     assert bf.kstep == 16 and f32.kstep == 8
     assert blocking.wgrad_smem_bytes(bf.th, bf.tw, 3, 3, s, cib, cob,
-                                     bf.lanes, True, 2) <= H100_SXM.smem_block
+                                     bf.lanes, True, 2, bf.wgs * bf.mpw) \
+        <= H100_SXM.smem_block
     assert bf.lanes * bf.mpw <= 128 and 1 <= bf.wgs <= (
         2 if bf.lanes * bf.mpw == 128 else 3)
     # no less work a stage: positions x rows a CTA contracts

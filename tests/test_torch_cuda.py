@@ -13,11 +13,14 @@ from repro_torch.core import conv2d_common  # noqa: E402
 from repro_torch.core.direct_conv import (  # noqa: E402
     direct_conv_blocked, direct_conv_dgrad_blocked, direct_conv_wgrad_blocked)
 from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
+                                               cotangent_pass,
                                                direct_conv2d_blocked,
                                                direct_conv2d_dgrad,
                                                direct_conv2d_wgrad,
                                                dgrad_plans, fwd_plans,
-                                               gap_forward, reset_launches,
+                                               dz_partials, gap_forward,
+                                               reset_launches,
+                                               wgrad_bf16_probe,
                                                wgrad_partials, wgrad_plans)
 from repro_torch.core.blocking import (choose_fwd_blocking,  # noqa: E402
                                        choose_stream_fwd_blocking)
@@ -86,7 +89,8 @@ def test_kernel_matches_plain_version(cuda, n, ci, co, h, cib, cob, stride,
                         "direct_conv2d_dgrad": 0,
                         "direct_conv2d_dgrad_bf16": 0,
                         "direct_conv2d_wgrad": 0,
-                        "direct_conv2d_wgrad_bf16": 0}
+                        "direct_conv2d_wgrad_bf16": 0,
+                        "direct_conv2d_dz_bf16": 0}
     torch.testing.assert_close(got, want, **TOL)
     assert torch.equal(got, again)                  # no atomics: same bits
 
@@ -501,7 +505,8 @@ def test_backward_of_a_two_layer_model_launches_the_kernels(cuda):
                         "direct_conv2d_dgrad": 1,
                         "direct_conv2d_dgrad_bf16": 0,
                         "direct_conv2d_wgrad": 2,
-                        "direct_conv2d_wgrad_bf16": 0}
+                        "direct_conv2d_wgrad_bf16": 0,
+                        "direct_conv2d_dz_bf16": 0}
     assert all(p.grad is not None and torch.isfinite(p.grad).all()
                for p in model.parameters())
 
@@ -1264,9 +1269,10 @@ def test_bf16_policy_refuses_training_and_serves_a_narrow_cnn(cuda):
     assert not any(LAUNCHES.values())
     model(images, context=ctx).float().square().sum().backward()
     torch.cuda.synchronize()
+    # and the dz pass once a layer (relu, and db)
     assert {k: v for k, v in LAUNCHES.items() if v} == {
         "direct_conv2d_fwd_bf16": 2, "direct_conv2d_dgrad_bf16": 1,
-        "direct_conv2d_wgrad_bf16": 2}
+        "direct_conv2d_wgrad_bf16": 2, "direct_conv2d_dz_bf16": 2}
     assert all(p.grad.dtype == torch.float32 and torch.isfinite(p.grad).all()
                for p in model.parameters())
     reset_launches()
@@ -1383,6 +1389,107 @@ def test_bf16_wgrad_kernels_match_plain_version(cuda, n, ci, co, h, cib, cob,
         assert kernel.issued_macs >= kernel.function_macs > 0
 
 
+# the bf16 wgrad tile's one-tap unit: A read by descriptor from a swizzled
+# row `shift` (off a 1024-byte atom for shift % 8 != 0), its second 8 rows
+# `gap` rows on (a row break of the window: gap != 8)
+PROBE_CASES = [(0, 8), (1, 8), (3, 8), (7, 8), (5, 11), (2, 34), (9, 18),
+               (6, 9)]
+
+
+@pytest.mark.parametrize("shift,gap", PROBE_CASES)
+def test_bf16_wgrad_unit_reads_a_by_descriptor_at_any_row(cuda, shift, gap):
+    gen = torch.Generator(device=cuda).manual_seed(shift * 64 + gap)
+    x = torch.randn((64, 64), device=cuda, generator=gen).bfloat16()
+    d = torch.randn((16, 64), device=cuda, generator=gen).bfloat16()
+    rows = torch.cat([x[shift:shift + 8], x[shift + gap:shift + gap + 8]])
+    want = rows.double().t() @ d.double()
+    got = wgrad_bf16_probe(x, d, shift, gap)
+    torch.cuda.synchronize()
+    # 16 exact bf16 products a sum, added in f32
+    torch.testing.assert_close(got.double(), want, rtol=0, atol=1e-4)
+
+
+# (n, coblk, h, w, cob, act): Cob a multiple of 8 (16-byte units) and not
+# (6 even, 125 and 3 odd: single lanes), linear (db alone)
+DZ_CASES = [(2, 2, 9, 7, 64, "relu"), (3, 1, 14, 14, 128, "gelu"),
+            (2, 3, 5, 6, 6, "relu"), (1, 2, 7, 7, 125, "gelu"),
+            (2, 1, 8, 8, 3, "relu"), (4, 2, 6, 5, 16, None)]
+
+
+@pytest.mark.parametrize("n,coblk,h,w,cob,act", DZ_CASES)
+def test_dz_pass_is_the_prologue_bit_for_bit_with_its_db(cuda, n, coblk, h,
+                                                         w, cob, act):
+    gen = torch.Generator(device=cuda).manual_seed(cob)
+    g = torch.randn((n, coblk, h, w, cob), device=cuda,
+                    generator=gen).bfloat16()
+    z = torch.randn(g.shape, device=cuda, generator=gen).bfloat16()
+    z[0, 0, 0, 0, 0] = 0.0                       # relu's tie
+    zz = None if act is None else z
+    reset_launches()
+    runs = [dz_partials(g, zz, act, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert LAUNCHES["direct_conv2d_dz_bf16"] == 2
+    want = conv2d_common.cotangent_prologue(g, zz, act)
+    (ws, dz, db), (_, dz2, db2) = runs
+    assert dz.dtype == torch.bfloat16
+    if act == "gelu":
+        # the kernel's f32 gelu' (tanhf, contracted multiply-adds) against
+        # torch's elementwise ops: the same rounding to bf16 but where the
+        # two f32 values straddle a bf16 tie, one bf16 ulp
+        _bf16_close(dz, want)
+    else:
+        assert torch.equal(dz, want)
+    assert torch.equal(dz, dz2) and torch.equal(db, db2)
+    assert torch.equal(db.reshape(-1), conv2d_common.wgrad_reduce(ws))
+    exact = want.double().sum(dim=(0, 2, 3))
+    scale = want.double().abs().sum(dim=(0, 2, 3))
+    assert ((db.double() - exact).abs() <= WGRAD_REL * scale).all()
+    assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
+    dz3, db3 = cotangent_pass(g, zz, act, False)
+    assert db3 is None and torch.equal(dz3, dz)
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,act,padding",
+                         [c for c in BF16_BWD_CASES if c[1] != 3
+                          and c[7] is not None])
+def test_bf16_dgrads_on_dz_are_their_prologue_bit_for_bit(
+        cuda, n, ci, co, h, cib, cob, stride, act, padding):
+    x, w, g, z = _bf16_bwd_operands(cuda, n, ci, co, h, cib, cob, stride, act,
+                                    padding)
+    dz, _ = cotangent_pass(g, z, act, False)
+    for route in (False, True):
+        with_prologue = direct_conv2d_dgrad(g, w, (h, h), stride, padding, z,
+                                            act, stream=route,
+                                            precision="bf16")
+        on_dz = direct_conv2d_dgrad(dz, w, (h, h), stride, padding,
+                                    stream=route, precision="bf16",
+                                    prologue_tiles=True)
+        torch.cuda.synchronize()
+        assert torch.equal(on_dz, with_prologue)
+
+
+def test_bf16_pointwise_wgrad_at_a_7x7_leg(cuda):
+    # 49 positions a tile padded to 64 (K past the map zero), 1x1 flat rows
+    n, ci, co, h, cib, cob = 4, 256, 192, 7, 128, 64
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda,
+                    generator=gen).bfloat16()
+    g = torch.randn((n, co // cob, h, h, cob), device=cuda,
+                    generator=gen).bfloat16()
+    z = torch.randn(g.shape, device=cuda, generator=gen).bfloat16()
+    dz = conv2d_common.cotangent_prologue(g, z, "relu")
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), dz.double(), 1, 1, 1, "VALID", with_db=True)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), 1, 1, 1, "VALID", with_db=True)
+    pwk.reset_launches()
+    dw, db = pwk.pointwise_wgrad(x, g, z, "relu", True, precision="bf16")
+    torch.cuda.synchronize()
+    assert pwk.LAUNCHES["conv2d_pointwise_wgrad_bf16"] == 1
+    assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+    assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 def test_bf16_folded_wgrad_sums_its_workspace_in_order(cuda, streamed):
     n, ci, co, h, cib, cob, s = ((8, 128, 128, 28, 128, 128, 2) if streamed
@@ -1399,8 +1506,10 @@ def test_bf16_folded_wgrad_sums_its_workspace_in_order(cuda, streamed):
     runs = [launch(), launch(), _graph_replay(launch)]
     torch.cuda.synchronize()
     for ws, out in runs:
+        # the bf16 GEMM's rows are dw's; db is the dz pass's, at out's tail
         assert ws.shape[0] > 1
-        assert torch.equal(out, conv2d_common.wgrad_reduce(ws))
+        assert torch.equal(out[:ws.shape[1]],
+                           conv2d_common.wgrad_reduce(ws))
     assert torch.equal(runs[0][1], runs[1][1])
     assert torch.equal(runs[0][1], runs[2][1])
     assert all(int(a.count_nonzero()) == 0 for a in split_sum.arenas())
@@ -1426,7 +1535,7 @@ def test_bf16_training_step_matches_the_plain_path(cuda, streamed):
     pre = "conv2d_stream" if streamed else "direct_conv2d"
     launched = {k: v for k, v in {**LAUNCHES, **stk.LAUNCHES}.items() if v}
     assert launched == {f"{pre}_fwd_bf16": 2, f"{pre}_dgrad_bf16": 1,
-                        f"{pre}_wgrad_bf16": 2}
+                        f"{pre}_wgrad_bf16": 2, "direct_conv2d_dz_bf16": 2}
     cpu = model.cpu()
     for p in cpu.parameters():
         p.grad = None
@@ -1603,8 +1712,10 @@ def test_separable_cnn_trains_and_serves_in_bf16_on_the_bf16_builds(cuda):
     model(images, context=ctx).float().square().sum().backward()
     torch.cuda.synchronize()
     got = [p.grad.clone() for p in model.parameters()]
+    # the dz pass for the dense conv and the two pointwise legs
     assert {k: v for k, v in LAUNCHES.items() if v} == {
-        "direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1}
+        "direct_conv2d_fwd_bf16": 1, "direct_conv2d_wgrad_bf16": 1,
+        "direct_conv2d_dz_bf16": 3}
     assert _ran(pwk) == {"conv2d_pointwise_fwd_bf16": 2,
                          "conv2d_pointwise_dgrad_bf16": 2,
                          "conv2d_pointwise_wgrad_bf16": 2}

@@ -587,6 +587,106 @@ def test_pointwise_wgrad_tiles_at_mobilenet_legs():
             assert plan.padding_share >= 0.5
 
 
+# ---------------------------------------------------------------------------
+# the bf16 GEMM's layout and its choosers
+# ---------------------------------------------------------------------------
+
+def _bf16_smem_reckoned(th, tw, hf, wf, s, cib, lanes, span):
+    """The bf16 tile's shared memory from its layout: the m-tiles (half,
+    tap) dealt to CTAs of ``span`` (a half's taps in runs of ``span``, or
+    whole halves together where ``span`` covers a half's taps), the most
+    halves a CTA touches staged in every column phase its taps read, each
+    (half, phase) window ``hwin`` rows of the phase's cells (and at least
+    the tile's positions rounded to 8) at 128 bytes, in 1024-byte atoms;
+    B one 128-byte row a position (K rounded to 16) a 64-lane block; as many
+    slots as fit up to 4; an atom to align, 256 bytes of tables."""
+    taps, halves = hf * wf, -(-cib // 64)
+    ctas = []
+    if span < taps:
+        for h in range(halves):
+            for t0 in range(0, taps, span):
+                ctas.append({h})
+    else:
+        per = span // taps
+        for h0 in range(0, halves, per):
+            ctas.append(set(range(h0, min(halves, h0 + per))))
+    staged = max(len(c) for c in ctas)
+    phases = len({dw % s for dw in range(wf)})
+    cells = max(tw - 1 + dw // s + 1 for dw in range(wf))
+    hwin = (th - 1) * s + hf
+    region = -(-max(hwin * cells, -(-th * tw // 8) * 8) * 128 // 1024) * 1024
+    slot = staged * phases * region + lanes // 64 * -(-th * tw // 16) * 16 \
+        * 128
+    slots = min(4, (232448 - 1024 - 256) // slot)
+    return 1024 + slots * slot + 256, slots
+
+
+def _bf16_shapes():
+    """(n, ho, wo, hf, wf, s, ciblk, cib, coblk, cob): VGG-16's 13 layers
+    (batch 8), MobileNet v1's conv1 and 13 pointwise legs (batch 32)."""
+    from repro_torch.launch.separable_bwd_ab import mobilenet_legs
+    out = []
+    for ci, co, s, h in _vgg_layers():
+        cib, cob = min(ci, 128), min(co, 128)
+        ho = -(-h // s)
+        out.append((8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob))
+    ci, co, s = MOBILENET_V1_CONV1
+    out.append((32, 112, 112, 3, 3, s, 1, ci, 1, co))
+    for ci, co, s, h in mobilenet_legs():
+        ho = -(-h // s)
+        cib, cob = min(ci, 128), min(co, 128)
+        out.append((32, ho, ho, 1, 1, 1, ci // cib, cib, co // cob, cob))
+    return out
+
+
+def test_bf16_wgrad_smem_is_its_layout_reckoned():
+    for th, tw, hf, wf, s, cib, cob, span in [
+            (4, 32, 3, 3, 1, 128, 128, 2), (8, 16, 3, 3, 2, 64, 128, 2),
+            (16, 16, 3, 3, 1, 3, 64, 3), (7, 7, 1, 1, 1, 128, 128, 2),
+            (2, 112, 1, 1, 1, 32, 64, 4), (1, 8, 3, 3, 1, 128, 6, 6),
+            (3, 16, 1, 1, 2, 64, 64, 2), (2, 8, 5, 5, 3, 16, 8, 3)]:
+        lanes = blocking.wgrad_bf16_lanes(cob)
+        want, slots = _bf16_smem_reckoned(th, tw, hf, wf, s, cib, lanes,
+                                          span)
+        got = blocking.wgrad_smem_bytes(th, tw, hf, wf, s, cib, cob, lanes,
+                                        True, 2, span)
+        assert got == want, (th, tw, hf, wf, s, cib, cob, span)
+        slot = blocking.wgrad_bf16_slot_bytes(th, tw, hf, wf, s, cib, lanes,
+                                              span)
+        assert blocking.wgrad_bf16_slots(slot) == slots
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_bf16_wgrad_choosers_fit_every_vgg16_and_mobilenet_shape(streamed):
+    # the tile fits 232,448 bytes with two slots at least; 8-position
+    # groups of consecutive cells: tw % 8 == 0 but at 1x1 stride 1, where a
+    # stage is whole rows; widths 64 and 128; the plan counts the function
+    choose = (blocking.choose_stream_wgrad_blocking if streamed
+              else blocking.choose_wgrad_blocking)
+    for n, ho, wo, hf, wf, s, ciblk, cib, coblk, cob in _bf16_shapes():
+        blk = choose(n, ho, wo, hf, wf, s, ciblk, cib, coblk, cob,
+                     prologue=True, op_bytes=2)
+        span = blk.wgs * blk.mpw
+        smem, slots = _bf16_smem_reckoned(blk.th, blk.tw, hf, wf, s, cib,
+                                          blk.lanes, span)
+        assert smem <= 232448 and slots >= 2
+        assert blk.lanes in (64, 128) and blk.lanes >= cob
+        assert blk.lanes * blk.mpw <= 128
+        assert blk.th * blk.tw <= blocking.WGRAD_BF16_MAX_POSITIONS
+        if hf == wf == s == 1:
+            assert blk.tw == wo
+        else:
+            assert blk.tw % 8 == 0
+        plan = blocking.wgrad_plan(blk, n, ho, wo, hf, wf, s, ciblk, cib,
+                                   coblk, cob, True)
+        assert plan.smem == smem and plan.products == 1
+        assert plan.function_macs == n * ho * wo * hf * wf * cib * ciblk \
+            * cob * coblk
+        assert plan.issued_macs == (ciblk * coblk * blk.tiles * blk.kpos
+                                    * -(-cib // 64) * hf * wf * 64
+                                    * blk.lanes)
+
+
 def test_wgrad_launch_plan_is_built_once_a_shape():
     # the C entries take the geometry as one int array, built once per
     # shape: the _plan entry's ints, then the activation and db
