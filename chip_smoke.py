@@ -19,7 +19,9 @@ and no phase catches its own failure:
    instance of the two
    phase-split dgrad
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
-   spill nothing, and each instance of the two wgrad kernels
+   spill nothing (each line counts HGMMA, HMMA and ``WARPGROUP.DEPBAR``,
+   a wait for wgmmas in flight: the bf16 builds, ``dgrad_kernel_bf16`` and
+   ``stream_dgrad_kernel_bf16``, must hold fewer waits than HGMMA), and each instance of the two wgrad kernels
    (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
    ``stream_fwd_kernel``, on ``csrc/fwd_tile.cuh``) and of the pointwise
    forward's tile (``pointwise_tile_kernel``, its bf16 build included)
@@ -246,7 +248,9 @@ and no phase catches its own failure:
     and 8), the backwards at batch 32 at every shape of the 224 bucket and
     on the depthwise tap loop's paths (dilation 2, stride 3, 5x5, Cb 3, a
     pencil of 6, pads (1, 1) and (0, 1)), with phase 23's tolerances, two
-    runs bit for bit and the folded sums bit for bit their reduce; the
+    runs bit for bit and the folded sums bit for bit their reduce, the
+    pointwise dgrad on the dz pass's dz bit for bit itself with its
+    prologue; the
     pointwise backward's plans equal the blocking model's, and each C
     entry refuses a plan whose shared memory is not its kernel's; fp16
     refused; the last main paths: MobileNet v1 (phase 11's weights)
@@ -396,6 +400,10 @@ PEAK_TF32_FLOPS = 495e12
 # executes three TF32 products for each of the function's MACs
 DGRAD_KERNELS = {"direct_conv2d_bwd": "dgrad_kernel",
                  "conv2d_stream": "stream_dgrad_kernel"}
+# the bf16 builds of the two dgrads (dgrad_kernel_bf16,
+# stream_dgrad_kernel_bf16): wgmma from shared memory, a filter row's
+# issued back to back
+BF16_DGRAD_KERNEL = "dgrad_kernel_bf16"
 # the wgrad kernels' functions (csrc/wgrad_tile.cuh), 3xTF32 as the dgrads
 WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
                  "conv2d_stream": "stream_wgrad_kernel"}
@@ -530,28 +538,35 @@ def device_split(fn, top: int = 8):
     return wall, sum(r[1] for r in rows), rows[:top]
 
 
-def hgmma_counts(lib: Path):
-    """Tensor-core instructions per function in ``lib``'s SASS, by
-    ``cuobjdump -sass``, as (HGMMA: wgmma, HMMA: mma.sync); None when the
-    toolkit has no cuobjdump."""
+def sass_counts(sass: str) -> dict:
+    """Per function of a ``cuobjdump -sass`` listing: (HGMMA: wgmma, HMMA:
+    mma.sync, WARPGROUP.DEPBAR: a wait for wgmmas in flight)."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not Path(tool).exists():
-        return None
-    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn is not None and "HGMMA" in line:
             counts[fn][0] += 1
         elif fn is not None and "HMMA" in line:
             counts[fn][1] += 1
+        elif fn is not None and "WARPGROUP.DEPBAR" in line:
+            counts[fn][2] += 1
     return {fn: tuple(n) for fn, n in counts.items()}
+
+
+def hgmma_counts(lib: Path):
+    """``sass_counts`` of ``lib``'s SASS, by ``cuobjdump -sass``; None when
+    the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return None
+    return sass_counts(subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True,
+        check=True, timeout=300).stdout)
 
 
 def ptxas_report(log: str) -> dict:
@@ -3892,7 +3907,8 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     from repro_torch.core.precision import Precision
     from repro_torch.kernels import conv2d_depthwise as dwk
     from repro_torch.kernels import conv2d_pointwise as pwk
-    from repro_torch.kernels.direct_conv2d import dgrad_plans, wgrad_plans
+    from repro_torch.kernels.direct_conv2d import (cotangent_pass,
+                                                   dgrad_plans, wgrad_plans)
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.serve.scheduler import ConvRequest, Outcome
     from repro_torch.train.optimizer import AdamW
@@ -4108,12 +4124,20 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
                                          precision="bf16")
         got = pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
         again = pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
+        # as bf16 training calls it: on the dz pass's dz, prologue off
+        on_dz = pwk.pointwise_dgrad(cotangent_pass(g, z, "relu", False)[0],
+                                    w, precision="bf16", prologue_tiles=True)
         torch.cuda.synchronize()
         track("conv2d_pointwise_dgrad_bf16", bf16_close(f"{tag} dgrad", got,
                                                         want))
         if not torch.equal(got, again):
             fail(f"bf16 pw dgrad {tag}: two runs differ")
-        del got, again, want
+        if not torch.equal(on_dz, got):
+            fail(f"bf16 pw dgrad {tag}: on the dz pass's dz it differs from "
+                 "its own prologue")
+        print(f"[check] bf16 {tag} dgrad on the dz pass's dz (prologue "
+              "off): bit for bit the same dgrad with its prologue")
+        del got, again, want, on_dz
         plan, model_plan = dgrad_plans(g, w, (h, h), 1, "VALID", z, "relu",
                                        dtype=bf)
         wplan, wmodel = wgrad_plans(x, g, 1, 1, 1, "VALID", z, "relu",
@@ -4508,10 +4532,10 @@ def main(argv=None) -> int:
         print("[build] no cuobjdump in this toolkit: the HGMMA count of the "
               "flash-attention SASS is not taken")
     else:
-        for fn, (n, _) in hgmma.items():
+        for fn, (n, *_) in hgmma.items():
             print(f"[build] HGMMA instructions {n:4d} in {fn}")
         for kernel in (FLASH_BF16_KERNEL, FLASH_F32_KERNEL):
-            wgmma = {fn: n for fn, (n, _) in hgmma.items() if kernel in fn}
+            wgmma = {fn: n for fn, (n, *_) in hgmma.items() if kernel in fn}
             if not wgmma or not all(wgmma.values()):
                 fail(f"the flash kernel {kernel}'s SASS holds no HGMMA: "
                      f"{wgmma}")
@@ -4548,17 +4572,25 @@ def main(argv=None) -> int:
                if kernel in fn and (wgrad or "wgrad" not in fn)}
         tc = sass[res.name]
         for fn, (regs, st, ld) in sorted(ptx.items()):
+            n_hg, n_hm, n_dep = (0, 0, 0) if tc is None else tc.get(
+                fn, (0, 0, 0))
             n_tc = ("not taken" if tc is None else
-                    "HGMMA {} HMMA {}".format(*tc.get(fn, (0, 0))))
+                    f"HGMMA {n_hg} HMMA {n_hm} WARPGROUP.DEPBAR {n_dep}")
             print(f"[build] {res.name} {fn}: tensor-core instructions "
                   f"{n_tc}, {regs} registers, spill stores {st} B, spill "
                   f"loads {ld} B")
             if st or ld:
                 fail(f"{fn} spills ({st} B stores, {ld} B loads)")
-            if tc is not None and not any(tc.get(fn, (0, 0))):
+            if tc is not None and not (n_hg or n_hm):
                 fail(f"{fn}'s SASS holds no tensor-core instruction")
-            if tc is not None and wgrad and not tc.get(fn, (0, 0))[0]:
+            if tc is not None and wgrad and not n_hg:
                 fail(f"{fn}'s SASS holds no HGMMA (wgmma)")
+            # the bf16 dgrads issue a filter row's wgmmas back to back:
+            # fewer waits for them than wgmmas
+            if tc is not None and BF16_DGRAD_KERNEL in fn and (
+                    not n_hg or n_dep >= n_hg):
+                fail(f"{fn} waits for its wgmmas {n_dep} times for "
+                     f"{n_hg} HGMMA")
         if not ptx:
             fail(f"{res.name}: no {kernel} instance in the ptxas report")
     print(f"[time] phase 2 done at {time.perf_counter() - t_start:.1f} s")

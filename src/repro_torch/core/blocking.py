@@ -70,7 +70,9 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
            "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
            "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
-           "dgrad_smem_bytes", "dgrad_tiles", "DgradPlan", "dgrad_plan",
+           "dgrad_smem_bytes", "dgrad_bf16_wpitch", "dgrad_bf16_window_bytes",
+           "dgrad_bf16_row_bytes", "dgrad_bf16_rings", "dgrad_bf16_smem_bytes",
+           "dgrad_tiles", "DgradPlan", "dgrad_plan",
            "dgrad_candidates", "choose_dgrad_blocking",
            "WGRAD_ROWS", "WGRAD_CONSUMERS", "WGRAD_THREADS",
            "WGRAD_MAX_POSITIONS", "WGRAD_MPW", "WGRAD_WORKSPACE_BYTES",
@@ -474,11 +476,14 @@ def dgrad_window(hob: int, wob: int, hf: int, wf: int,
 DGRAD_ROWS = 64                       # rows of one wgmma tile
 DGRAD_LANES = (8, 16, 32, 64, 128)    # compiled wgmma widths
 DGRAD_CONSUMERS = 3                   # the most consumer warpgroups a CTA
-# the bf16 builds of the dgrad and wgrad tiles at 128 lanes (of m-tiles,
-# lanes x mpw, in the wgrad): a consumer's running sum and its stage's
-# accumulator take 128 registers a thread, two consumers at most
-# (dgrad_tile::bf16::max_threads, wgrad_tile::bf16::max_threads)
+# the bf16 build of the wgrad tile at 128 lanes (of m-tiles, lanes x mpw): a
+# consumer's running sum and its stage's accumulator take 128 registers a
+# thread, two consumers at most (wgrad_tile::bf16::max_threads)
 BF16_WIDE_CONSUMERS = 2
+# the bf16 build of the dgrad tile: one accumulator over the contraction, 64
+# registers a thread at 128 lanes, three consumers at every width
+# (dgrad_tile::bf16::max_threads)
+BF16_DGRAD_CONSUMERS = 3
 # the cost model of the tile search (``dgrad_candidates``), in cycles of one
 # SM: the H100's dense TF32 rate in MACs a cycle (495e12 / 2 / 132 /
 # 1.83e9), the share of it one to three consumer warpgroups keep busy, and
@@ -538,29 +543,18 @@ def dgrad_lanes(cib: int) -> int:
 
 def dgrad_smem_bytes(hf: int, wf: int, stride: int, lanes: int, chunk: int,
                      hwin: int, wwin: int, prologue: bool,
-                     streamed: bool = False, op_bytes: int = 4) -> int:
-    """Dynamic shared memory of one dgrad CTA (``dgrad_tile::smem_bytes``):
-    128 bytes to align the base; per slot of the two-slot ring the weights
-    of the most taps a phase reaches, ``chunk x lanes``, and their small
-    halves, and a ``hwin``-row cotangent window of ``wwin`` cells of
-    ``chunk + 4`` floats a row (the streamed kernel's rows padded to 128
-    bytes, which boxes of several rows need them to be already; the window
-    kernel's whole window one box, padded to 128 bytes), with ``z`` beside
-    it with the prologue; one
-    int per k8 step of a stage (rounded up to an even count); an 8-byte
-    mbarrier per slot and copy group.
-
-    bf16 (``op_bytes`` 2, ``dgrad_tile::bf16::smem_bytes``): per slot the
-    bf16 weights alone (no small halves) and windows of ``chunk + 8`` bf16
-    cells (rows padded to 128 bytes as f32's); an int per k16 step."""
+                     streamed: bool = False) -> int:
+    """Dynamic shared memory of one f32 dgrad CTA
+    (``dgrad_tile::smem_bytes``): 128 bytes to align the base; per slot of
+    the two-slot ring the weights of the most taps a phase reaches,
+    ``chunk x lanes``, and their small halves, and a ``hwin``-row cotangent
+    window of ``wwin`` cells of ``chunk + 4`` floats a row (the streamed
+    kernel's rows padded to 128 bytes, which boxes of several rows need them
+    to be already; the window kernel's whole window one box, padded to 128
+    bytes), with ``z`` beside it with the prologue; one int per k8 step of a
+    stage (rounded up to an even count); an 8-byte mbarrier per slot and
+    copy group.  The bf16 build's is ``dgrad_bf16_smem_bytes``."""
     taps = -(-hf // stride) * -(-wf // stride)
-    if _fwd_k_step(op_bytes) == 16:
-        row = wwin * (chunk + 8)
-        window = (hwin * -(-row // 64) * 64 if streamed
-                  else -(-hwin * row // 64) * 64)
-        return (128 + 2 * 2 * (taps * chunk * lanes
-                               + (2 if prologue else 1) * window)
-                + 4 * -(-taps * chunk // 32) * 2 + 8 * 2 * DGRAD_CONSUMERS)
     row = wwin * (chunk + 4)
     window = (hwin * -(-row // 32) * 32 if streamed
               else -(-hwin * row // 32) * 32)
@@ -578,7 +572,10 @@ class DgradBlocking:
     streamed kernel's band ``strips = wgs`` strips of ``hso`` rows, one
     warpgroup's 64-row m-tile each, ``mstride`` positions apart.  Its
     columns are the ``lanes`` wgmma width, and a stage contracts ``chunk``
-    Cob channels over a ``hwin x wwin`` cotangent window."""
+    Cob channels over a ``hwin x wwin`` cotangent window.  In the bf16
+    build an m-tile's rows are the window's cells flattened
+    (``dgrad_bf16_wpitch`` a window row), so ``mstride`` counts cells:
+    ``64 * wgs``, or a strip's ``hso`` window rows."""
     th: int
     tw: int
     strips: int
@@ -620,10 +617,15 @@ class DgradPlan:
     tiles issue: each consumer warpgroup's whole 64-row m-tile over its
     phase's taps, Cob padded to k8 slices in every Co block, the ``lanes``
     width, ``products`` each (three for 3xTF32, one in bf16, where Cob pads
-    to k16 slices)."""
+    to k16 slices); ``smem``, a CTA's dynamic shared memory;
+    ``window_slots`` and ``weight_slots``, its rings' slots (the f32 tile's
+    one ring holds a stage's window and weights in each of its slots)."""
     tiles: int
     function_macs: int
     issued_macs: int
+    smem: int
+    window_slots: int
+    weight_slots: int
     products: int = 3
 
     @property
@@ -638,10 +640,11 @@ class DgradPlan:
 
 def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
                wf: int, stride: int, pads, ciblk: int, cib: int, coblk: int,
-               cob: int, op_bytes: int = 4) -> DgradPlan:
+               cob: int, op_bytes: int = 4,
+               prologue: bool = False) -> DgradPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an
     unpadded ``hi x wi`` input with leading pads ``pads``, with
-    ``op_bytes`` operands."""
+    ``op_bytes`` operands, ``z`` staged where ``prologue``."""
     (pt, _), (pl, _) = pads
     tiles = dgrad_tiles(blk, hi, wi, hf, wf, stride, pads)
     cells = sum(r.extent * c.extent * r.taps * c.taps
@@ -650,11 +653,19 @@ def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
     tile_taps = sum(r.taps * c.taps for r, c, _, _ in tiles)
     kpad = fwd_kpad(cob, op_bytes)
     products = 3 if op_bytes == 4 else 1
+    if op_bytes == 4:
+        smem = dgrad_smem_bytes(hf, wf, stride, blk.lanes, blk.chunk,
+                                blk.hwin, blk.wwin, prologue, blk.strips > 1)
+        windows = rows = 2
+    else:
+        smem = dgrad_bf16_smem_bytes(blk, hf, wf, stride, prologue)
+        windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue)
     return DgradPlan(
         tiles=len(tiles),
         function_macs=n * ciblk * cells * cib * coblk * cob,
         issued_macs=(n * ciblk * tile_taps * DGRAD_ROWS * blk.wgs * blk.lanes
                      * coblk * kpad * products),
+        smem=smem, window_slots=windows, weight_slots=rows,
         products=products)
 
 
@@ -675,21 +686,19 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
     stage: a fixed part, the producer's split and prologue, and in the
     streamed kernel its TMA boxes of window rows; ties go to more rows a
     CTA, a larger chunk, then a smaller window.  ``op_bytes`` 2 weighs the
-    bf16 build: chunks of k16 slices, 2-byte cells, one product a MAC at
-    twice the TF32 rate, and no weight split."""
+    bf16 build (``_dgrad_bf16_candidates``)."""
+    if _fwd_k_step(op_bytes) == 16:
+        return _dgrad_bf16_candidates(n, hi, wi, hf, wf, stride, ciblk, cib,
+                                      cob, machine, prologue, streamed, hso)
     lanes = dgrad_lanes(cib)
-    step = _fwd_k_step(op_bytes)
-    bf16 = step == 16
     mh, mw = -(-hf // stride), -(-wf // stride)
     hp, wp = -(-hi // stride), -(-wi // stride)
-    kpad = fwd_kpad(cob, op_bytes)
-    chunks = [c for c in range(kpad, 0, -step) if kpad % c == 0]
+    kpad = fwd_kpad(cob)
+    chunks = [c for c in range(kpad, 0, -8) if kpad % c == 0]
     out = []
     counts = range(2, DGRAD_CONSUMERS + 1) if streamed else range(
         1, DGRAD_CONSUMERS + 1)
     for wgs in counts:
-        if bf16 and lanes == DGRAD_LANES[-1] and wgs > BF16_WIDE_CONSUMERS:
-            continue
         rows = DGRAD_ROWS * wgs
         for tw in range(1, min(wp, rows) + 1):
             if streamed:                  # wgs strips of sh rows
@@ -708,18 +717,17 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                 mstride = rows
             hwin, wwin = th + mh - 1, tw + mw - 1
             chunk = next((c for c in chunks if dgrad_smem_bytes(
-                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed,
-                op_bytes) <= machine.smem_block), None)
+                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed)
+                <= machine.smem_block), None)
             if chunk is None:
                 continue
             tiles = stride * stride * -(-hp // th) * -(-wp // tw)
             taps = hf * wf / (stride * stride)    # a phase's, on average
-            mma = ((1 if bf16 else 3) * rows * taps * chunk * lanes
-                   / (DGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
+            mma = (3 * rows * taps * chunk * lanes / DGRAD_MACS_PER_CYCLE
                    / DGRAD_WG_EFFICIENCY[wgs])
             cells = hwin * wwin * chunk
             other = DGRAD_STAGE_CYCLES + (
-                (0 if bf16 else DGRAD_SPLIT_CYCLES * taps * chunk * lanes)
+                DGRAD_SPLIT_CYCLES * taps * chunk * lanes
                 + (DGRAD_PROLOGUE_CYCLES * cells if prologue else 0)
             ) / DGRAD_ROWS / 2
             if streamed:    # its TMA boxes of window rows, g's and z's
@@ -737,6 +745,178 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                             wgs=wgs, lanes=lanes, chunk=chunk,
                             mstride=mstride, hwin=hwin, wwin=wwin)))
     return out
+
+
+# The bf16 build (dgrad_tile.cuh, namespace bf16) reads both wgmma operands
+# from shared memory: a window cell (a position's `chunk` channels, 16, 32
+# or 64) is one row of the 32-, 64- or 128-byte swizzle, an m-tile is 64
+# consecutive cells of the window flattened row-major, `dgrad_bf16_wpitch`
+# cells a window row, and a tap is the same descriptor started further on.
+# Rows on the window's halo columns are computed and not stored, so a tile
+# of th x tw positions takes (th - 1) * wpitch + tw m-tile rows.  A stage
+# is a chunk's window, in a ring of 2-4 window slots, and the weights of
+# each filter row of its phase in turn, in a ring of 2-4 weight slots
+# (`dgrad_bf16_rings`), so that chunk 64 fits at 3x3; one accumulator over
+# the contraction, three consumers at every width (BF16_DGRAD_CONSUMERS);
+# a persistent grid of CTAs walks the (tile, Ci block, image) items.  The
+# chooser takes the longest chunk that fits, and weighs the rest by a cost,
+# per SM in cycles, on dz as bf16 training calls it: the busiest SM's items
+# of `stages` stages, each the longer of the consumers' wgmmas (every
+# m-tile row, at DGRAD_BF16_MACS_PER_CYCLE, the share
+# DGRAD_BF16_WG_EFFICIENCY of it one to three consumers keep busy) and the
+# stage's copies (a fixed latency shared by the slots in flight, the bytes
+# landed at DGRAD_BF16_BYTES_PER_CYCLE, a cost a TMA box), and an item's
+# epilogue.  The constants were fitted by hand (a random search) to the
+# card's times of the candidates `python -m
+# repro_torch.launch.dgrad_tiles_ab --dtype bf16` times at VGG-16's 12
+# dgrads (571, both routes) and `python -m
+# repro_torch.launch.pointwise_tiles_ab --dtype bf16 --kind dgrad` at
+# MobileNet's 9 distinct pointwise legs (231), on an H100 80GB HBM3 at
+# 700 W; tests/test_torch_bf16_train.py pins the tiles chosen there
+# (CHOSEN_BF16_DGRAD_TILES).
+DGRAD_BF16_MACS_PER_CYCLE = 2048
+DGRAD_BF16_WG_EFFICIENCY = {1: 0.75, 2: 0.75, 3: 0.8}
+DGRAD_BF16_STAGE_CYCLES = 150
+DGRAD_BF16_BYTES_PER_CYCLE = 45
+DGRAD_BF16_BOX_CYCLES = 370        # one TMA box of window rows
+DGRAD_BF16_TILE_CYCLES = 260
+DGRAD_BF16_CHUNKS = (64, 32, 16)
+DGRAD_BF16_WINDOWS = 4             # window ring slots at most
+DGRAD_BF16_ROWS = 4                # weight ring slots at most (filter rows)
+DGRAD_BF16_BAR_BYTES = 8 * (DGRAD_BF16_WINDOWS * (2 * DGRAD_CONSUMERS + 1)
+                            + 2 * DGRAD_BF16_ROWS)
+
+
+def dgrad_bf16_wpitch(wwin: int, chunk: int, streamed: bool) -> int:
+    """Cells from one window row to the next in the bf16 build
+    (``dgrad_tile::bf16::wpitch``): ``wwin``, or in the streamed kernel,
+    whose strips' boxes land at each row, rounded up so that a row of
+    ``2 * chunk``-byte cells is whole 128 bytes."""
+    per = 128 // (2 * chunk) if 2 * chunk < 128 else 1
+    return -(-wwin // per) * per if streamed else wwin
+
+
+def dgrad_bf16_window_bytes(blk: DgradBlocking, hf: int, wf: int,
+                            stride: int, prologue: bool) -> int:
+    """Bytes of one window slot of a bf16 dgrad CTA
+    (``dgrad_tile::bf16::window_slot_bytes``): the window's cells as far as
+    the last consumer's 64 rows read at the largest tap shift, in whole 1024
+    bytes, with ``z``'s beside it with the prologue."""
+    mh, mw = -(-hf // stride), -(-wf // stride)
+    streamed = blk.strips > 1
+    pitch = dgrad_bf16_wpitch(blk.wwin, blk.chunk, streamed)
+    last = (blk.wgs - 1) * (blk.mstride if streamed else DGRAD_ROWS)
+    cells = max(blk.hwin * pitch,
+                last + DGRAD_ROWS + (mh - 1) * pitch + mw - 1)
+    window = -(-cells * 2 * blk.chunk // 1024) * 1024
+    return (2 if prologue else 1) * window
+
+
+def dgrad_bf16_row_bytes(blk: DgradBlocking, wf: int, stride: int) -> int:
+    """Bytes of one weight slot of a bf16 dgrad CTA
+    (``dgrad_tile::bf16::row_weight_bytes``): the taps of one filter row of
+    a phase, at most, ``lanes`` rows of ``2 * chunk`` bytes a tap, in whole
+    1024 bytes."""
+    mw = -(-wf // stride)
+    return -(-mw * blk.lanes * 2 * blk.chunk // 1024) * 1024
+
+
+def dgrad_bf16_rings(blk: DgradBlocking, hf: int, wf: int, stride: int,
+                     prologue: bool, smem_block: int = 232448):
+    """``(window slots, weight slots)`` of a bf16 dgrad CTA
+    (``dgrad_tile::bf16::window_slots``, ``row_slots``): as many weight
+    slots as fit in ``smem_block`` beside two window slots, up to
+    DGRAD_BF16_ROWS, then as many window slots as fit beside them, up to
+    DGRAD_BF16_WINDOWS."""
+    win = dgrad_bf16_window_bytes(blk, hf, wf, stride, prologue)
+    row = dgrad_bf16_row_bytes(blk, wf, stride)
+    room = smem_block - 1024 - DGRAD_BF16_BAR_BYTES
+    rows = min(DGRAD_BF16_ROWS, max(room - 2 * win, 0) // row)
+    return min(DGRAD_BF16_WINDOWS, (room - rows * row) // win), rows
+
+
+def dgrad_bf16_smem_bytes(blk: DgradBlocking, hf: int, wf: int, stride: int,
+                          prologue: bool) -> int:
+    """Dynamic shared memory of one bf16 dgrad CTA
+    (``dgrad_tile::bf16::smem_bytes``): 1024 bytes to align the base, the
+    window slots and the weight slots (``dgrad_bf16_rings``), the mbarriers
+    (full and ready per window slot and copy group, empty per window slot,
+    full and empty per weight slot)."""
+    windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue)
+    return (1024 + windows * dgrad_bf16_window_bytes(blk, hf, wf, stride,
+                                                     prologue)
+            + rows * dgrad_bf16_row_bytes(blk, wf, stride)
+            + DGRAD_BF16_BAR_BYTES)
+
+
+def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
+                           stride: int, ciblk: int, cib: int, cob: int,
+                           machine: MachineModel, prologue: bool,
+                           streamed: bool, hso: int | None):
+    """``dgrad_candidates`` of the bf16 build: for each consumer count,
+    chunk and tile width, the tallest tile (a streamed strip: ``(hso - 1) *
+    wpitch + tw <= 64``; the window tile: ``(th - 1) * wpitch + tw <= 64 *
+    wgs``) balanced over the phase's rows, where its shared memory fits;
+    keyed by the cost above, ties to more positions a CTA, a larger chunk,
+    then a smaller window."""
+    lanes = dgrad_lanes(cib)
+    mh, mw = -(-hf // stride), -(-wf // stride)
+    hp, wp = -(-hi // stride), -(-wi // stride)
+    kpad = fwd_kpad(cob, 2)
+    taps = hf * wf / (stride * stride)        # a phase's, on average
+    out = []
+    counts = range(2, BF16_DGRAD_CONSUMERS + 1) if streamed else range(
+        1, BF16_DGRAD_CONSUMERS + 1)
+    for wgs in counts:
+        for chunk in (c for c in DGRAD_BF16_CHUNKS if kpad % c == 0):
+            for tw in range(1, min(wp, DGRAD_ROWS * wgs) + 1):
+                wwin = tw + mw - 1
+                pitch = dgrad_bf16_wpitch(wwin, chunk, streamed)
+                if streamed:              # wgs strips of sh rows
+                    fit = (DGRAD_ROWS - tw) // pitch + 1
+                    sh = hso if hso is not None else min(-(-hp // wgs), fit)
+                    if sh < 1 or tw > DGRAD_ROWS or sh > fit:
+                        continue
+                    if hso is None:       # balance the bands over the rows
+                        sh = -(-hp // (wgs * -(-hp // (wgs * sh))))
+                    th, mstride = wgs * sh, sh * pitch
+                else:
+                    th = min(hp, (DGRAD_ROWS * wgs - tw) // pitch + 1)
+                    th = -(-hp // -(-hp // th))
+                    mstride = DGRAD_ROWS * wgs
+                    if (th - 1) * pitch + tw <= DGRAD_ROWS * (wgs - 1):
+                        continue          # a consumer with no row stored
+                hwin = th + mh - 1
+                blk = DgradBlocking(th=th, tw=tw,
+                                    strips=wgs if streamed else 1, wgs=wgs,
+                                    lanes=lanes, chunk=chunk,
+                                    mstride=mstride, hwin=hwin, wwin=wwin)
+                windows, rows = dgrad_bf16_rings(blk, hf, wf, stride,
+                                                 prologue, machine.smem_block)
+                if windows < 2 or rows < 2:
+                    continue
+                ns = min(windows, rows)
+                tiles = stride * stride * -(-hp // th) * -(-wp // tw)
+                mma = (DGRAD_ROWS * wgs * taps * chunk * lanes
+                       / DGRAD_BF16_MACS_PER_CYCLE
+                       / DGRAD_BF16_WG_EFFICIENCY[wgs])
+                # the bytes a stage lands on dz (the training path: no z)
+                staged = 2 * chunk * (mh * mw * lanes + hwin * pitch)
+                boxes = (wgs + -(-(th // wgs + mh - 1) // (th // wgs)) - 1
+                         if streamed else 1)
+                copy = (DGRAD_BF16_STAGE_CYCLES / (ns - 1)
+                        + staged / DGRAD_BF16_BYTES_PER_CYCLE
+                        + DGRAD_BF16_BOX_CYCLES * boxes)
+                stages = kpad // chunk
+                cost = (-(-tiles * ciblk * n // machine.sms)
+                        * (stages * max(mma, copy) + DGRAD_BF16_TILE_CYCLES))
+                out.append(((cost, -th * tw * wgs // blk.strips, -chunk,
+                             hwin * wwin, tiles), blk))
+    # only the longest chunk that fits: at equal tiles chunk 64 (the
+    # 128-byte swizzle, four k16 steps a tap) ran 1.34-1.76x faster than 32,
+    # and 16 (one step a tap) about half the rate of the longer ones
+    longest = max((b.chunk for _, b in out), default=0)
+    return [kb for kb in out if kb[1].chunk == longest]
 
 
 def _dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int, stride: int,

@@ -286,19 +286,22 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
 // The streamed dgrad's launch geometry: bands of `wgs` strips of hso x tw
 // phase positions, one m-tile each.  A strip's rows land as boxes of hso
 // rows where a window row fills whole 128-byte lines (each box lands on 128
-// bytes), else row by row; `bf16` for the bf16 build's cells.
+// bytes), else row by row.  `bf16` for the bf16 build: boxes of hso rows
+// always (its rows are padded to 128 bytes, dgrad_tile::bf16::wpitch), and
+// a strip's m-tile starts hso window rows of wpitch cells on.
 dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
                             int cib, int hi, int wi, int hf, int wf,
                             int stride, int pad_top, int pad_left, int hso,
                             int tw, int wgs, int chunk, int act,
                             bool prologue, bool bf16 = false) {
   const int wwin = tw + (wf - 1) / stride;
-  // a row's cells (chunk + 4 floats, or chunk + 8 bf16) in 128-byte lines
-  const int rows = bf16 ? (wwin * (chunk + 8) % 64 == 0 ? hso : 1)
-                        : (wwin * (chunk + 4) % 32 == 0 ? hso : 1);
-  return dt::Geometry{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
-                      stride, pad_top, pad_left, wgs * hso, tw, hso * tw,
-                      chunk, act, prologue, rows};
+  // a row's cells (chunk + 4 floats) in 128-byte lines
+  const int rows = bf16 || wwin * (chunk + 4) % 32 == 0 ? hso : 1;
+  dt::Geometry geo{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                   stride, pad_top, pad_left, wgs * hso, tw, hso * tw,
+                   chunk, act, prologue, rows};
+  if (bf16 && chunk > 0) geo.mstride = hso * dt::bf16::wpitch(geo);
+  return geo;
 }
 
 // The compiled dgrad instances: wgmma widths 8, 16, 32, 64 and 128.
@@ -314,8 +317,10 @@ dt::Kernel pick_dgrad(int lanes) {
 }
 
 // The bf16 build of the same streamed tile (dgrad_tile.cuh, namespace
-// bf16): bf16 g, z, w and dx, f32 sums, every Co block in one grid; the
-// producer forms dz in place as each strip's group lands.
+// bf16): bf16 g, z, w and dx, f32 sums, every Co block in one persistent
+// grid over the `n` images' (band, Ci block) items; a strip is one 64-row
+// m-tile of the band's flattened window cells, its fresh rows one copy
+// group, and the producer forms dz in place as each group lands.
 template <int N>
 __global__ void __launch_bounds__(dt::bf16::max_threads(N), 1)
 stream_dgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
@@ -324,116 +329,10 @@ stream_dgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
                          const __nv_bfloat16* __restrict__ g,
                          const __nv_bfloat16* __restrict__ z,
                          const __nv_bfloat16* __restrict__ w,
-                         __nv_bfloat16* __restrict__ dx, dt::Geometry geo) {
-  namespace db = dt::bf16;
+                         __nv_bfloat16* __restrict__ dx, dt::Geometry geo,
+                         int n) {
   extern __shared__ __align__(16) char smem_bf16[];
-  const dt::Tile t = dt::tile_of(geo, blockIdx.x);
-  const int ci_b = blockIdx.y;
-  const int n = blockIdx.z;
-  const int nth = blockDim.x;
-  const int strips = nth / dt::kWarpgroup - 1;
-  const int pair = 2 * dt::kWarpgroup;  // one consumer and the producer
-  const db::Smem m = db::carve<N>(smem_bf16, geo);
-  const int taps = t.r.taps * t.c.taps;
-  const int steps = taps * geo.chunk / 16;
-  const int per_block = db::kpad(geo) / geo.chunk;
-  const int stages = taps > 0 ? geo.coblk * per_block : 0;
-  const int mh = dt::max_taps(geo.hf, geo.stride) - 1;
-  const int hso = geo.th / strips;
-  const bool tma = db::tma_copies(geo);
-  auto lo_of = [&](int k) { return k == 0 ? 0 : k * hso + mh; };
-  auto hi_of = [&](int k) { return (k + 1) * hso + mh; };
-  db::step_shifts(m.shifts, geo, t);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < dt::kSlots * dt::kMaxGroups; ++i) {
-      dt::mbar_init(&m.bars[i], 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= strips * dt::kWarpgroup) {   // the producer warpgroup
-    const int tid = threadIdx.x - strips * dt::kWarpgroup;
-    const int o_h = t.r.q0 + t.a0 - mh;
-    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
-    auto issue_stage = [&](int s) {
-      const int slot = s & 1;
-      const int co_b = s / per_block;
-      const int c0 = (s % per_block) * geo.chunk;
-      if (!tma) {
-        for (int k = 0; k < strips; ++k) {
-          if (k == 0) {
-            db::copy_weights<N>(w, m.wts + slot * m.wst, geo, t, co_b, ci_b,
-                                c0, tid);
-          }
-          db::copy_rows(g, z, m.win + slot * m.cst, m.zwin + slot * m.cst,
-                        geo, n, co_b, c0, o_h, o_w, lo_of(k), hi_of(k), tid);
-          dt::cp_async_commit();
-        }
-        return;
-      }
-      if (tid >= 32) return;
-      uint64_t* bars = &m.bars[slot * dt::kMaxGroups];
-      if (tid == 0) {
-        for (int k = 0; k < strips; ++k) {
-          dt::mbar_expect_tx(&bars[k],
-                             (k == 0 ? db::weight_bytes<N>(geo, t) : 0)
-                                 + db::row_bytes(geo, lo_of(k), hi_of(k)));
-        }
-      }
-      __syncwarp();
-      for (int k = 0; k < strips; ++k) {
-        if (k == 0) {
-          db::issue_weights<N>(&tmw, m.wts + slot * m.wst, &bars[k], geo, t,
-                               co_b, ci_b, c0, tid, 32);
-        }
-        db::issue_rows(&tmg, &tmz, m.win + slot * m.cst,
-                       m.zwin + slot * m.cst, &bars[k], geo, n, co_b, c0,
-                       o_h, o_w, lo_of(k), hi_of(k), tid, 32);
-      }
-    };
-    if (stages > 0) issue_stage(0);
-    for (int s = 0; s < stages; ++s) {
-      const int slot = s & 1;
-      for (int k = 0; k < strips; ++k) {
-        if (tma) {
-          dt::mbar_wait(&m.bars[slot * dt::kMaxGroups + k], (s >> 1) & 1);
-        } else {                        // every producer thread's strip k
-          dt::cp_async_wait(strips - 1 - k);
-          dt::bar_sync(dt::kBarProducer, dt::kWarpgroup);
-        }
-        if (geo.prologue) {
-          db::prologue_rows(m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
-                            lo_of(k), hi_of(k), tid, dt::kWarpgroup);
-        }
-        dt::fence_proxy_async();
-        dt::bar_arrive(dt::kBarFull + slot * dt::kMaxGroups + k, pair);
-      }
-      if (s + 1 < stages) {
-        if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
-        issue_stage(s + 1);
-      }
-    }
-    return;
-  }
-
-  const int strip = threadIdx.x / dt::kWarpgroup;
-  float total[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) total[i] = 0.0f;
-  int off[2];
-  db::row_offsets(off, geo, strip, 0);
-  for (int s = 0; s < stages; ++s) {
-    const int slot = s & 1;
-    dt::bar_sync(dt::kBarFull + slot * dt::kMaxGroups + strip, pair);
-    // the weights' TMA copy (strip 0's group), which the wgmmas read
-    if (tma) dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
-    db::mma_stage<N, (N > 64 ? 64 : N)>(total, m.win + slot * m.cst, off,
-                                        m.shifts, steps,
-                                        m.wts + slot * m.wst);
-    if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
-  }
-  db::store_dx<N>(dx, total, geo, t, n, ci_b, strip, 0);
+  dt::bf16::run<N, true>(smem_bf16, &tmw, &tmg, &tmz, g, z, w, dx, geo, n);
 }
 
 dt::bf16::Kernel pick_dgrad_bf16(int lanes) {
@@ -571,17 +470,19 @@ int conv2d_stream_dgrad(const void* g, const void* z, const void* w, void* dx,
 }
 
 // What conv2d_stream_dgrad runs with the same arguments (dgrad_tile::plan):
-// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued.
+// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued,
+// out[3] a CTA's shared memory, out[4] and out[5] its ring's slots; z staged
+// beside the cotangent where `prologue`.
 int conv2d_stream_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
                              int ciblk, int cib, int hi, int wi, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int hso, int tw, int wgs, int lanes, int chunk,
-                             long long* out) {
+                             int prologue, long long* out) {
   if (wgs < 2 || hso * tw > dt::kRows || stride < 1 || hso < 1 || tw < 1)
     return (int)cudaErrorInvalidValue;
   dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
                           stride, pad_top, pad_left, hso, tw, wgs, chunk, 0,
-                          false),
+                          prologue != 0),
            n, wgs, lanes, out);
   return 0;
 }
@@ -641,7 +542,7 @@ int conv2d_stream_dgrad_bf16(const void* g, const void* z, const void* w,
       pad_left, hso, tw, wgs, chunk, act, z != nullptr, true);
   geo.co_first = 0;
   geo.co_count = coblk;
-  if (wgs < 2 || hso * tw > dt::kRows) return (int)cudaErrorInvalidValue;
+  if (wgs < 2) return (int)cudaErrorInvalidValue;
   return dt::bf16::launch(pick_dgrad_bf16(lanes),
                           (const __nv_bfloat16*)g, (const __nv_bfloat16*)z,
                           (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, n,
@@ -653,13 +554,18 @@ int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
                                   int ciblk, int cib, int hi, int wi, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int hso, int tw, int wgs,
-                                  int lanes, int chunk, long long* out) {
-  if (wgs < 2 || hso * tw > dt::kRows || stride < 1 || hso < 1 || tw < 1)
+                                  int lanes, int chunk, int prologue,
+                                  long long* out) {
+  if (wgs < 2 || stride < 1 || hso < 1 || tw < 1 || chunk < 16)
     return (int)cudaErrorInvalidValue;
-  dt::bf16::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf,
-                                wf, stride, pad_top, pad_left, hso, tw, wgs,
-                                chunk, 0, false, true),
-                 n, wgs, lanes, out);
+  dt::Geometry geo = dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi,
+                                    hf, wf, stride, pad_top, pad_left, hso,
+                                    tw, wgs, chunk, 0, prologue != 0,
+                                    true);
+  geo.co_first = 0;
+  geo.co_count = coblk;
+  if (!dt::bf16::valid(geo, wgs, lanes)) return (int)cudaErrorInvalidValue;
+  dt::bf16::plan(geo, n, wgs, lanes, out);
   return 0;
 }
 

@@ -87,6 +87,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <algorithm>
+#include <mutex>
 #include <stdint.h>
 
 namespace dgrad_tile {
@@ -234,7 +235,9 @@ __host__ inline int grid_tiles(const Geometry& g) {
 // the grid's tiles, out[1] the function's MACs as the phases split them
 // (positions x reachable taps x Cib x Co), out[2] the tensor-core MACs the
 // tiles issue: each consumer's whole m64 tile over its phase's taps, Cob
-// padded to k8 slices in every Co block, `lanes` wide, three products each.
+// padded to k8 slices in every Co block, `lanes` wide, three products each;
+// out[3] a CTA's shared memory, out[4] and out[5] its ring's slots (a slot
+// holds a stage's window and weights).
 __host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
                           long long* out) {
   long long tiles = 0, cells = 0, tile_taps = 0;
@@ -250,6 +253,9 @@ __host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
   out[0] = tiles;
   out[1] = images * cells * g.cib * g.coblk * g.cob;
   out[2] = images * tile_taps * kRows * wgs * lanes * g.coblk * kpad(g) * 3;
+  out[3] = (long long)smem_bytes(g, lanes);
+  out[4] = kSlots;
+  out[5] = kSlots;
 }
 
 __device__ inline Tile tile_of(const Geometry& g, int idx) {
@@ -1023,30 +1029,18 @@ inline int launch(Kernel kernel, const float* g, const float* z,
 
 
 // ---------------------------------------------------------------------------
-// bf16 wgmma (shared by the bf16 builds of this tile, wgrad_tile.cuh and
-// fwd_tile.cuh)
+// bf16 wgmma with A from registers (the forward tiles' bf16 builds:
+// fwd_tile.cuh, conv2d_pointwise.cu)
 // ---------------------------------------------------------------------------
 
 // D[64 x N] += A[64 x 16] B[16 x N], bf16 in, f32 accumulators.  A from
 // registers: thread (warp w, lane l) holds a[0..3], each two bf16 of one
 // row: rows 16w + l/4 (+8 in a[1], a[3]), columns 2(l%4), +1 (+8 in a[2],
 // a[3]); the lower half of a register is the lower column.  D as the TF32
-// form's.  B from shared memory through a descriptor: K-major (TB 0) or,
-// through the transpose bit, MN-major (TB 1).
+// form's.  B from shared memory through a descriptor, MN-major through the
+// transpose bit (TB 1: the forward tiles' weights).
 template <int N, int TB>
 __device__ void wgmma_bf16(float* d, const uint32_t* a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<8, 0>(float* d, const uint32_t* a,
-                                                 uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
 
 template <>
 __device__ __forceinline__ void wgmma_bf16<8, 1>(float* d, const uint32_t* a,
@@ -1061,19 +1055,6 @@ __device__ __forceinline__ void wgmma_bf16<8, 1>(float* d, const uint32_t* a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_bf16<16, 0>(float* d, const uint32_t* a,
-                                                  uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
 __device__ __forceinline__ void wgmma_bf16<16, 1>(float* d, const uint32_t* a,
                                                   uint64_t b) {
   asm volatile(
@@ -1083,22 +1064,6 @@ __device__ __forceinline__ void wgmma_bf16<16, 1>(float* d, const uint32_t* a,
       "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<32, 0>(float* d, const uint32_t* a,
-                                                  uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -1119,26 +1084,6 @@ __device__ __forceinline__ void wgmma_bf16<32, 1>(float* d, const uint32_t* a,
 }
 
 template <>
-__device__ __forceinline__ void wgmma_bf16<64, 0>(float* d, const uint32_t* a,
-                                                  uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
 __device__ __forceinline__ void wgmma_bf16<64, 1>(float* d, const uint32_t* a,
                                                   uint64_t b) {
   asm volatile(
@@ -1155,36 +1100,6 @@ __device__ __forceinline__ void wgmma_bf16<64, 1>(float* d, const uint32_t* a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_bf16<128, 0>(float* d, const uint32_t* a,
-                                                   uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
-      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
-      "%60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
@@ -1231,253 +1146,531 @@ __device__ __forceinline__ __nv_bfloat16 prologue_bf16(__nv_bfloat16 g,
 // the bf16 build
 // ---------------------------------------------------------------------------
 //
-// The same phase-split tile on bf16 operands: the reference's `_dgrad_kernel`
-// under BF16 (bf16 g, z and w; the f32 sums rounded once to bf16 dx,
-// src/repro/kernels/direct_conv2d.py:498-506).  Each stage's k16 steps run on
-// bf16 wgmma (m64nNk16, one product a MAC) into a fresh f32 accumulator
-// that is then added to the consumer's running f32 sum (the tensor cores
-// add each k16 slice rounding toward zero, and a fresh accumulator a stage
-// keeps that to the stage's own magnitude), so no contraction is long
-// enough to need a launch a Co block: one grid always.  At 128 lanes the
-// running sum takes 64 registers a thread and the stage's accumulator 32
-// more, in 64-lane parts: two consumers at most (`max_threads`, a
-// 384-thread CTA's 168 registers; under 512 threads' 128 that spilled, and
-// so did one 128-lane accumulator under 168).
+// The same phase-split correlation on bf16 operands: the reference's
+// `_dgrad_kernel` under BF16 (bf16 g, z and w; the f32 sums rounded once to
+// bf16 dx, src/repro/kernels/direct_conv2d.py:498-506), on bf16 wgmma
+// (m64nNk16, one product a MAC) whose operands both come from shared memory
+// by descriptor.  `run` is both kernels' body: the window kernel's tile is
+// one m-tile of 64 * wgs rows (one copy group a stage), the streamed
+// kernel's band `wgs` strips of one 64-row m-tile each (a copy group a
+// strip).  The grid is persistent: a CTA walks (tile, Ci block, image)
+// items, and its rings run on across them, so that an item's
+// first copies land while the item before computes (a CTA a tile spent
+// most of a short item, 2 stages at Co 64, waiting for its first copies).
 //
-// What differs from the f32 tile:
-// * No split.  B, the weights, is w's [Cib, Cob] block with Cob contiguous:
-//   K-major for bf16 too, in core matrices of 8 lanes x 16 bytes (8 bf16),
-//   [chunk / 8][N][8] a tap, the box order of a 4-D TMA copy ([rows][Cob /
-//   8][Cib][8] over w) that lands it where the wgmma reads it.  The
-//   producer's only pass is the prologue.
-// * A is the dz window's bf16 pairs: a register's two values are channels
-//   k, k + 1 of one cell, one 4-byte load at each row's own shift.  A cell
-//   is chunk + 8 bf16 (the TMA box takes 8 channels past the chunk, never
-//   read): at chunk 16, 32 and 64 eight consecutive cells then start 12,
-//   20 and 36 words apart, eight distinct bank quads.  A row copied as a
-//   box of its own is padded to 128 bytes (64 bf16); a box of several rows
-//   lands them unpadded, so several such boxes need rows of whole 128-byte
-//   lines: wwin * (chunk + 8) a multiple of 64, i.e. wwin a multiple of 8.
-// * The chunk is a multiple of 16 (k16 steps), Cob pads to 16.
+// A, the cotangent window.  A cell (one window position's `chunk` channels)
+// is one row of a swizzled K-major operand: chunk 64 is 128 bytes in the
+// 128-byte swizzle, chunk 32 and 16 are 64 and 32 bytes in the 64- and
+// 32-byte swizzles.  The window lands by TMA in that swizzle (boxes of
+// {chunk, wpitch, rows}), its cells flattened row-major with `wpitch`
+// cells a window row (wwin; in the streamed kernel rounded up so that each
+// row, where a strip's box lands, starts on 128 bytes).  An m-tile's 64
+// rows are consecutive cells: row f is dx position (f / wpitch, f %
+// wpitch) of the tile, and tap (t_h, t_w) of the phase reads cell f +
+// (mh - t_h) * wpitch + (mw - t_w) (mh, mw: the most taps a phase takes
+// along each axis, less one), so every tap is the same descriptor started
+// that many rows on.  The base-offset field stays 0 at any start: the card
+// swizzles by the address's own bits (wgrad_tile.cuh, bf16).  Rows whose
+// column f % wpitch falls past the tile's tw columns are computed and not
+// stored; the last tap's reads past the window's cells fall on the slot's
+// spare cells (`window_cells`), which only such rows read.
+//
+// B, the weights: per tap w's [Cib, Cob] block, Cob contiguous, is K-major
+// with the lanes as rows: one TMA box {chunk, N} a tap lands [N][chunk] in
+// the same swizzle.  A k16 step of a cell advances both descriptors by 32
+// bytes within the swizzled row.
+//
+// A stage (Co block, chunk) lands its window once in a ring of 2-4 window
+// slots, and the weights of each filter row of its phase in turn in a ring
+// of 2-4 weight slots (`window_slots`, `row_slots`): a row's weights are
+// 16 KB at chunk 64 and 128 lanes, so chunk 64 (the 128-byte swizzle)
+// fits at 3x3, where a stage of every tap's weights fitted only chunk 32.
+// Each filter row is one wgmma fence, its k16 steps (its taps x chunk / 16,
+// each the full N-lane m64nNk16 into the one f32 accumulator, straight-line
+// code for rows of up to 3 taps) and one commit; the consumer then waits
+// for the row before (wait<1>) and frees its weight slot, and with a
+// stage's last row its window slot, so a row's wgmmas queue behind the one
+// before without a wait between them.
+// Every descriptor is built from values the compiler knows are uniform
+// (kernel parameters, the item from blockIdx, the warpgroup index read
+// with __shfl_sync): a per-thread value there made the compiler wait for
+// each HGMMA (wgrad_tile.cuh, bf16).
+//
+// What bounds it on this card: the bf16 tensor-core rate over the m-tile
+// rows it issues; in practice both its wgmmas (one consumer keeps the
+// tensor cores about half busy, three about 80 %; splitting a 128-lane
+// step into two independent 64-lane chains did not help) and its copies (a
+// CTA restages every tap's weights of its Ci block for each tile, from
+// L2), each near the kernel's time without the other
+// (launch/dgrad_parts_ab.py).
+//
+// One accumulator over the whole contraction: the tensor cores add each k16
+// slice rounding toward zero, so over VGG-16's longest contraction (9 x
+// 512: 288 k16 slices) the f32 sum drifts by at most 288 f32 ulps of its
+// running magnitude (3.4e-5 relative), about 1 % of the half-ulp at which dx
+// rounds to bf16; tests/test_torch_bf16_train.py emulates it.  At 128 lanes
+// the accumulator takes 64 registers a thread, so a CTA takes three
+// consumers at every width (`max_threads`).
+//
+// * The chunk is 16, 32 or 64 channels (k16 steps, one swizzle row), Cob
+//   pads to 16; the chooser takes 16 only where Cob pads to 16.
 // * TMA needs global strides of whole 16 bytes: Cob a multiple of 8.  Else
-//   the producer copies the same cells by 4-byte cp.async (Cob even) or by
-//   2-byte loads and stores (Cob odd: 125), and the weights by 2-byte loads
-//   and stores straight into the box's order.
-// * The prologue forms dz = g * act'(z) in place, eight channels at a time:
-//   act' in f32, the product rounded once to bf16 (`prologue_bf16`).
-// * The consumers wait on the slot's weight mbarrier as well before their
-//   wgmmas read what the copy wrote.
+//   the producer writes the same cells into the same swizzled rows, zeros
+//   outside the map and past Cob: 4-byte cp.async of channel pairs (Cob
+//   even) or 2-byte loads and stores (Cob odd: 125), the weights by 2-byte
+//   loads and stores.
+// * The prologue forms dz = g * act'(z) in place over a landed window, 16
+//   bytes at a time (g and z share the swizzled layout): act' in f32, the
+//   product rounded once to bf16 (`prologue_bf16`).
+// * The consumers wait on their copy groups' TMA mbarriers as well before
+//   their wgmmas read what TMA wrote.
 // * dx leaves as bf16, each f32 sum rounded once.
 namespace bf16 {
 
 using bf = __nv_bfloat16;
+
+constexpr int kAtom = 1024;     // bytes of the 128-byte swizzle's period
+constexpr int kMaxWindows = 4;  // window ring slots at most
+constexpr int kMaxRows = 4;     // weight ring slots (filter rows) at most
+// the mbarriers after the slots: full (TMA landed) and ready (the
+// producer's pass done) per window slot and copy group, empty (consumed)
+// per window slot; full and empty per weight slot
+constexpr int kBarBytes =
+    8 * (kMaxWindows * (2 * kMaxGroups + 1) + 2 * kMaxRows);
+constexpr int kSmemBlock = 232448;   // a CTA's shared memory on an H100
 
 // Cob rounded up to the k16 slices of the contraction.
 __host__ __device__ inline int kpad(const Geometry& g) {
   return ceil_div(g.cob, 16) * 16;
 }
 
-// threads of the largest CTA at wgmma width `lanes` (the launch bound)
-__host__ __device__ constexpr int max_threads(int lanes) {
-  return kWarpgroup * ((lanes >= 128 ? 2 : kMaxConsumers) + 1);
-}
+// threads of the largest CTA (the launch bound): three consumers at every
+// width, the accumulator 64 registers at 128 lanes
+__host__ __device__ constexpr int max_threads(int) { return kMaxThreads; }
 
 __host__ __device__ inline bool tma_copies(const Geometry& g) {
   return g.cob % 8 == 0;
 }
 
-__host__ __device__ inline int cell_elems(const Geometry& g) {
-  return g.chunk + 8;
+// bytes of a cell: one swizzled row of `chunk` channels
+__host__ __device__ inline int cell_bytes(const Geometry& g) {
+  return g.chunk * 2;
 }
 
-// elements from one window row to the next: padded to 128 bytes where each
-// row lands by a TMA copy of its own (box_rows 1)
-__host__ __device__ inline int row_elems(const Geometry& g) {
-  const int row = wwin(g) * cell_elems(g);
-  return g.box_rows == 1 ? ceil_div(row, 64) * 64 : row;
+// the streamed kernel lands its window in boxes of a strip's rows, the
+// window kernel in one box
+__host__ __device__ inline bool streamed(const Geometry& g) {
+  return g.box_rows < hwin(g);
 }
 
-__host__ __device__ inline int weight_elems(const Geometry& g, int lanes) {
-  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk * lanes;
+// cells from one window row to the next: wwin, or where boxes of rows land
+// at each strip, rounded up to whole 128 bytes (a TMA destination's
+// alignment)
+__host__ __device__ inline int wpitch(const Geometry& g) {
+  const int per = cell_bytes(g) < 128 ? 128 / cell_bytes(g) : 1;
+  return streamed(g) ? ceil_div(wwin(g), per) * per : wwin(g);
 }
 
-// a window slot, rounded up to 128 bytes
-__host__ __device__ inline int window_elems(const Geometry& g) {
-  return ceil_div(hwin(g) * row_elems(g), 64) * 64;
+// cells from an m-tile row to its read at tap (t_h, t_w) of the phase
+__host__ __device__ inline int tap_shift(const Geometry& g, int t_h,
+                                         int t_w) {
+  return (max_taps(g.hf, g.stride) - 1 - t_h) * wpitch(g)
+         + max_taps(g.wf, g.stride) - 1 - t_w;
 }
 
-// k16 steps of a stage, at most
-__host__ __device__ inline int max_steps(const Geometry& g) {
-  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk / 16;
+// the first window cell (m-tile row) of consumer c: 64 rows a consumer of
+// the window kernel's one m-tile, a strip's mstride of the streamed band's
+__host__ __device__ inline int first_row(const Geometry& g, int c) {
+  return streamed(g) ? c * g.mstride : c * kRows;
 }
 
-// Dynamic shared memory of one CTA (core/blocking.py dgrad_smem_bytes at
-// op_bytes 2): 128 bytes to align the base, per slot the weights, the
-// window and with the prologue z, an int a k16 step (an even count) and an
-// 8-byte mbarrier per slot and copy group.
-__host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
-  return 128
-         + 2 * (size_t)kSlots * (weight_elems(g, lanes)
-                                 + (g.prologue ? 2 : 1) * window_elems(g))
-         + 4 * ceil_div(bf16::max_steps(g), 2) * 2 + 8 * kSlots * kMaxGroups;
+// cells of a window slot: the window's, or as far as the last of `wgs`
+// consumers' 64 rows read at the largest shift
+__host__ __device__ inline int window_cells(const Geometry& g, int wgs) {
+  const int read = first_row(g, wgs - 1) + kRows + tap_shift(g, 0, 0);
+  const int cells = hwin(g) * wpitch(g);
+  return read > cells ? read : cells;
 }
 
-// dgrad_tile::plan at one bf16 product a MAC, Cob padded to k16 slices.
+__host__ __device__ inline int round_atom(int bytes) {
+  return ceil_div(bytes, kAtom) * kAtom;
+}
+
+// bytes of a weight slot (the taps of one filter row of a phase, at most,
+// x N lanes) and of one window, each in whole swizzle periods
+__host__ __device__ inline int row_weight_bytes(const Geometry& g,
+                                                int lanes) {
+  return round_atom(max_taps(g.wf, g.stride) * lanes * cell_bytes(g));
+}
+__host__ __device__ inline int window_bytes(const Geometry& g, int wgs) {
+  return round_atom(window_cells(g, wgs) * cell_bytes(g));
+}
+// a window slot: the window, and z's beside it with the prologue
+__host__ __device__ inline int window_slot_bytes(const Geometry& g,
+                                                 int wgs) {
+  return (g.prologue ? 2 : 1) * window_bytes(g, wgs);
+}
+
+// The two rings (core/blocking.py dgrad_bf16_rings): as many weight slots
+// as fit beside two window slots, up to kMaxRows, then as many window slots
+// as fit beside them, up to kMaxWindows.
+__host__ __device__ inline int row_slots(const Geometry& g, int lanes,
+                                         int wgs) {
+  const int room = kSmemBlock - kAtom - kBarBytes
+                   - 2 * window_slot_bytes(g, wgs);
+  const int fit = room > 0 ? room / row_weight_bytes(g, lanes) : 0;
+  return fit < kMaxRows ? fit : kMaxRows;
+}
+__host__ __device__ inline int window_slots(const Geometry& g, int lanes,
+                                            int wgs) {
+  const int fit = (kSmemBlock - kAtom - kBarBytes
+                   - row_slots(g, lanes, wgs) * row_weight_bytes(g, lanes))
+                  / window_slot_bytes(g, wgs);
+  return fit < kMaxWindows ? fit : kMaxWindows;
+}
+
+// Dynamic shared memory of one CTA of `wgs` consumers (core/blocking.py
+// dgrad_bf16_smem_bytes): a swizzle period to align the base, the window
+// slots, the weight slots, the mbarriers.
+__host__ inline size_t smem_bytes(const Geometry& g, int lanes, int wgs) {
+  return (size_t)kAtom
+         + (size_t)window_slots(g, lanes, wgs) * window_slot_bytes(g, wgs)
+         + (size_t)row_slots(g, lanes, wgs) * row_weight_bytes(g, lanes)
+         + kBarBytes;
+}
+
+// Whether the kernels take this geometry at `wgs` consumers and wgmma width
+// `lanes` (the chooser's rules, core/blocking.py _dgrad_bf16_candidates):
+// the window kernel's tile in its one m-tile of 64 * wgs rows, the streamed
+// kernel's strips of th / wgs rows each in its 64-row m-tile (mstride
+// wpitch cells a strip row apart), a chunk of one swizzle row dividing the
+// padded Cob, every Co block in one grid, two slots or more in each ring.
+__host__ inline bool valid(const Geometry& g, int wgs, int lanes) {
+  if (wgs < 1 || wgs > kMaxConsumers || lanes < g.cib || g.th < 1
+      || g.tw < 1 || g.stride < 1 || g.hf < 1 || g.wf < 1
+      || (g.chunk != 16 && g.chunk != 32 && g.chunk != 64)
+      || bf16::kpad(g) % g.chunk != 0 || g.co_first != 0
+      || g.co_count != g.coblk
+      || g.box_rows < 1 || g.box_rows > hwin(g) || wpitch(g) > 256
+      || hwin(g) > 256) {
+    return false;
+  }
+  if (streamed(g)) {
+    const int hso = g.th / wgs;
+    if (wgs < 2 || hso * wgs != g.th || g.box_rows != hso
+        || g.mstride != hso * wpitch(g)
+        || (hso - 1) * wpitch(g) + g.tw > kRows) {
+      return false;
+    }
+  } else if (g.box_rows != hwin(g) || g.mstride != kRows * wgs
+             || (g.th - 1) * wpitch(g) + g.tw > kRows * wgs) {
+    return false;
+  }
+  return row_slots(g, lanes, wgs) >= 2 && window_slots(g, lanes, wgs) >= 2
+         && bf16::smem_bytes(g, lanes, wgs) <= kSmemBlock;
+}
+
+// dgrad_tile::plan at one bf16 product a MAC, Cob padded to k16 slices;
+// out[3] the CTA's shared memory, out[4] and out[5] its window and weight
+// slots.
 __host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
                           long long* out) {
   dgrad_tile::plan(g, n, wgs, lanes, out);
   out[2] = out[2] / (3 * dgrad_tile::kpad(g)) * bf16::kpad(g);
+  out[3] = (long long)bf16::smem_bytes(g, lanes, wgs);
+  out[4] = window_slots(g, lanes, wgs);
+  out[5] = row_slots(g, lanes, wgs);
 }
 
+// The carve-up of one CTA (smem_bytes): the window slots (each the window
+// and with the prologue z's), the weight slots, then the mbarriers.
 struct Smem {
-  bf* wts;             // [kSlots][wst]
-  bf* win;             // [kSlots][cst]
-  bf* zwin;            // [kSlots][cst] with the prologue
-  int* shifts;         // [max_steps]
-  uint64_t* bars;      // [kSlots][kMaxGroups]
-  int wst, cst;
+  char* win0;
+  char* row0;
+  uint64_t* wfull;     // [kMaxWindows][kMaxGroups]
+  uint64_t* wready;    // [kMaxWindows][kMaxGroups]
+  uint64_t* wempty;    // [kMaxWindows]
+  uint64_t* rfull;     // [kMaxRows]
+  uint64_t* rempty;    // [kMaxRows]
+  int cbytes, wslot, rslot, nw, nr;
 };
 
 template <int N>
-__device__ inline Smem carve(char* raw, const Geometry& g) {
+__device__ inline Smem carve(char* raw, const Geometry& g, int wgs) {
   Smem m;
-  const uint32_t a = smem_u32(raw);
-  char* base = raw + ((128 - (a & 127)) & 127);
-  m.wst = weight_elems(g, N);
-  m.cst = window_elems(g);
-  m.wts = reinterpret_cast<bf*>(base);
-  m.win = m.wts + kSlots * m.wst;
-  m.zwin = m.win + kSlots * m.cst;
-  m.shifts = reinterpret_cast<int*>(m.zwin + (g.prologue ? kSlots * m.cst
-                                                          : 0));
-  m.bars = reinterpret_cast<uint64_t*>(m.shifts
-                                       + ceil_div(bf16::max_steps(g), 2) * 2);
+  m.win0 = raw + ((kAtom - (smem_u32(raw) & (kAtom - 1))) & (kAtom - 1));
+  m.cbytes = window_bytes(g, wgs);
+  m.wslot = window_slot_bytes(g, wgs);
+  m.rslot = row_weight_bytes(g, N);
+  m.nw = window_slots(g, N, wgs);
+  m.nr = row_slots(g, N, wgs);
+  m.row0 = m.win0 + m.nw * m.wslot;
+  m.wfull = reinterpret_cast<uint64_t*>(m.row0 + m.nr * m.rslot);
+  m.wready = m.wfull + kMaxWindows * kMaxGroups;
+  m.wempty = m.wready + kMaxWindows * kMaxGroups;
+  m.rfull = m.wempty + kMaxWindows;
+  m.rempty = m.rfull + kMaxRows;
   return m;
 }
 
-template <int N>
-__device__ __forceinline__ int weight_bytes(const Geometry& g, const Tile& t) {
-  return t.r.taps * t.c.taps * g.chunk * N * 2;
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
 }
 
+// The shared address `a` of a byte of a cell row, as the `cb`-byte swizzle
+// places it: its 16-byte chunk XORed with address bits 7.. (7-9 at 128
+// bytes, 7-8 at 64, 7 at 32), as TMA lands it.
+__device__ __forceinline__ uint32_t swizzled(uint32_t a, int cb) {
+  return a ^ (((a >> 7) & (cb / 16 - 1)) << 4);
+}
+
+// A K-major wgmma operand in the `cb`-byte swizzle less its start address:
+// 8-row groups 8 * cb bytes apart, the leading offset unused (1).
+__device__ __forceinline__ uint64_t desc_of(int cb) {
+  const uint64_t layout = cb == 128 ? 1 : (cb == 64 ? 2 : 3);
+  return (1ull << 16) | ((uint64_t)((8 * cb) >> 4) << 32) | (layout << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_at(uint64_t desc, uint32_t addr) {
+  return desc | ((addr & 0x3FFFF) >> 4);
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N], bf16 in, f32 accumulators, both
+// operands K-major in shared memory (transpose bits 0).  D's fragments as
+// wgmma_bf16's.
+template <int N>
+__device__ void wgmma_ss(float* d, uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float* d, uint64_t a,
+                                            uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3}, %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<16>(float* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<32>(float* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float* d, uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float* d, uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Bytes the boxes of window rows [lo, hi) bring, of g and (with the
+// prologue) z.
 __device__ __forceinline__ int row_bytes(const Geometry& g, int lo, int hi) {
-  return row_boxes(g, lo, hi) * g.box_rows * wwin(g) * cell_elems(g) * 2
+  return row_boxes(g, lo, hi) * g.box_rows * wpitch(g) * cell_bytes(g)
          * (g.prologue ? 2 : 1);
 }
 
-// Issue stage s's weights (one TMA copy per phase tap: Cob channels [c0,
-// c0 + chunk) by N lanes of block (co_b, ci_b), landing as [chunk / 8][N]
-// [8]) onto `bar`, lane `lane` of `lanes` taking every lanes-th tap.
+// Issue the weights of filter row `r` of a stage's phase (one TMA box a
+// tap: Cob channels [c0, c0 + chunk) by N lanes of block (co_b, ci_b),
+// landing as [N][chunk] in the swizzle) onto `bar`, lane `lane` of `lanes`
+// taking every lanes-th tap.
 template <int N>
-__device__ void issue_weights(const CUtensorMap* tmw, bf* dst, uint64_t* bar,
-                              const Geometry& g, const Tile& t, int co_b,
-                              int ci_b, int c0, int lane, int lanes) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
-  for (int tap = lane; tap < t.r.taps * t.c.taps; tap += lanes) {
-    const int dh = t.ph + g.stride * (tap / t.c.taps);
-    const int dw = t.pw + g.stride * (tap % t.c.taps);
-    tma_load_4d(dst + tap * g.chunk * N, tmw, bar, 0, 0, c0 / 8,
-                blk + dh * g.wf + dw);
+__device__ void issue_row_weights(const CUtensorMap* tmw, char* dst,
+                                  uint64_t* bar, const Geometry& g,
+                                  const Tile& t, int r, int co_b, int ci_b,
+                                  int c0, int lane, int lanes) {
+  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf
+                  + (t.ph + g.stride * r) * g.wf;
+  for (int j = lane; j < t.c.taps; j += lanes) {
+    tma_load_3d(dst + j * N * cell_bytes(g), tmw, bar, c0, 0,
+                blk + t.pw + g.stride * j);
   }
 }
 
-// Issue window rows [lo, hi) of g (and z) for channels [c0, c0 + chunk + 8)
-// as row_boxes boxes (dgrad_tile::issue_rows, in bf16).
+// Issue window rows [lo, hi) of g (and z) for channels [c0, c0 + chunk) as
+// row_boxes boxes of {chunk, wpitch, box_rows}: row r is cotangent row o_h
+// + r from column o_w.
 __device__ void issue_rows(const CUtensorMap* tmg, const CUtensorMap* tmz,
-                           bf* win, bf* zwin, uint64_t* bar,
+                           char* win, char* zwin, uint64_t* bar,
                            const Geometry& g, int n, int co_b, int c0,
                            int o_h, int o_w, int lo, int hi, int lane,
                            int lanes) {
-  const int rf = row_elems(g);
+  const int rb = wpitch(g) * cell_bytes(g);
   for (int b = lane; b < row_boxes(g, lo, hi); b += lanes) {
     const int r = min(lo + b * g.box_rows, hi - g.box_rows);
-    tma_load_5d(win + r * rf, tmg, bar, c0, o_w, o_h + r, co_b, n);
+    tma_load_5d(win + r * rb, tmg, bar, c0, o_w, o_h + r, co_b, n);
     if (g.prologue) {
-      tma_load_5d(zwin + r * rf, tmz, bar, c0, o_w, o_h + r, co_b, n);
+      tma_load_5d(zwin + r * rb, tmz, bar, c0, o_w, o_h + r, co_b, n);
     }
   }
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
                                           bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
+               :: "r"(dst), "l"(src), "r"(valid ? 4 : 0) : "memory");
 }
 
-// Stage s's weights by 2-byte loads and stores (`tid` of the producer's
-// kWarpgroup): what issue_weights's boxes land, zeros for lanes past Cib
-// and channels past Cob.
+__device__ __forceinline__ void st_u16(uint32_t dst, unsigned short v) {
+  asm volatile("st.shared.u16 [%0], %1;\n" :: "r"(dst), "h"(v) : "memory");
+}
+
+// Filter row r's weights by 2-byte loads and stores (`tid` of the
+// producer's kWarpgroup): what issue_row_weights's boxes land, zeros for
+// lanes past Cib and channels past Cob.
 template <int N>
-__device__ void copy_weights(const bf* __restrict__ w, bf* dst,
-                             const Geometry& g, const Tile& t, int co_b,
-                             int ci_b, int c0, int tid) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+__device__ void copy_row_weights(const bf* __restrict__ w, char* dst,
+                                 const Geometry& g, const Tile& t, int r,
+                                 int co_b, int ci_b, int c0, int tid) {
+  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf
+                  + (t.ph + g.stride * r) * g.wf;
+  const int cb = cell_bytes(g);
   const int per_tap = g.chunk * N;
+  const uint32_t base = smem_u32(dst);
   const unsigned short* w16 = reinterpret_cast<const unsigned short*>(w);
-  unsigned short* d16 = reinterpret_cast<unsigned short*>(dst);
-  for (int i = tid; i < t.r.taps * t.c.taps * per_tap; i += kWarpgroup) {
-    const int tap = i / per_tap;
-    const int e = i - tap * per_tap;          // (k / 8, lane, k % 8)
-    const int k = e / (8 * N) * 8 + (e & 7);
-    const int lane = e / 8 % N;
-    const int dh = t.ph + g.stride * (tap / t.c.taps);
-    const int dw = t.pw + g.stride * (tap % t.c.taps);
+  for (int i = tid; i < t.c.taps * per_tap; i += kWarpgroup) {
+    const int j = i / per_tap;
+    const int e = i - j * per_tap;            // (lane, k)
+    const int lane = e / g.chunk;
+    const int k = e - lane * g.chunk;
+    const int dw = t.pw + g.stride * j;
     const bool ok = lane < g.cib && c0 + k < g.cob;
-    d16[i] = ok ? __ldg(w16 + ((size_t)(blk + dh * g.wf + dw) * g.cib + lane)
-                                  * g.cob + c0 + k)
-                : (unsigned short)0;
+    st_u16(swizzled(base + (j * N + lane) * cb + 2 * k, cb),
+           ok ? __ldg(w16 + ((size_t)(blk + dw) * g.cib + lane) * g.cob
+                          + c0 + k)
+              : (unsigned short)0);
   }
 }
 
 // Window rows [lo, hi) of g (and z) by copies (`tid` of the producer's
-// kWarpgroup): what issue_rows's boxes land, channels [c0, c0 + chunk + 8),
-// zeros outside the map and past Cob; 4-byte cp.async of channel pairs
-// where Cob is even, else 2-byte loads and stores.
+// kWarpgroup): what issue_rows's boxes land, channels [c0, c0 + chunk) of
+// wpitch cells a row, zeros outside the map and past Cob; 4-byte cp.async
+// of channel pairs where Cob is even, else 2-byte loads and stores.
 __device__ void copy_rows(const bf* __restrict__ gg, const bf* __restrict__ zz,
-                          bf* win, bf* zwin, const Geometry& g, int n,
+                          char* win, char* zwin, const Geometry& g, int n,
                           int co_b, int c0, int o_h, int o_w, int lo, int hi,
                           int tid) {
-  const int rf = row_elems(g);
-  const int ld = cell_elems(g);
+  const int cb = cell_bytes(g);
+  const int wp = wpitch(g);
   const int unit = g.cob % 2 == 0 ? 2 : 1;
-  const int per_row = wwin(g) * ld / unit;
+  const int per_cell = g.chunk / unit;
+  const int per_row = wp * per_cell;
   const size_t map = (size_t)(n * g.coblk + co_b) * g.ho * g.wo;
   const unsigned short* g16 = reinterpret_cast<const unsigned short*>(gg);
   const unsigned short* z16 = reinterpret_cast<const unsigned short*>(zz);
-  unsigned short* w16 = reinterpret_cast<unsigned short*>(win);
-  unsigned short* y16 = reinterpret_cast<unsigned short*>(zwin);
+  const uint32_t wbase = smem_u32(win);
+  const uint32_t zbase = smem_u32(zwin);
   for (int i = tid; i < (hi - lo) * per_row; i += kWarpgroup) {
     const int r = i / per_row;
-    const int rem = (i - r * per_row) * unit;
-    const int col = rem / ld;
-    const int c = rem - col * ld;
+    const int rem = i - r * per_row;
+    const int col = rem / per_cell;
+    const int c = (rem - col * per_cell) * unit;
     const int oh = o_h + lo + r;
     const int ow = o_w + col;
     const bool ok = oh >= 0 && oh < g.ho && ow >= 0 && ow < g.wo
                     && c0 + c < g.cob;
     const size_t off = ok ? (map + (size_t)oh * g.wo + ow) * g.cob + c0 + c
                           : 0;
-    const int at = (lo + r) * rf + col * ld + c;
+    const int at = ((lo + r) * wp + col) * cb + 2 * c;
     if (unit == 2) {
-      cp_async4(w16 + at, g16 + off, ok);
-      if (g.prologue) cp_async4(y16 + at, z16 + off, ok);
+      cp_async4(swizzled(wbase + at, cb), g16 + off, ok);
+      if (g.prologue) cp_async4(swizzled(zbase + at, cb), z16 + off, ok);
     } else {
-      w16[at] = ok ? __ldg(g16 + off) : (unsigned short)0;
-      if (g.prologue) y16[at] = ok ? __ldg(z16 + off) : (unsigned short)0;
+      st_u16(swizzled(wbase + at, cb), ok ? __ldg(g16 + off)
+                                          : (unsigned short)0);
+      if (g.prologue) {
+        st_u16(swizzled(zbase + at, cb), ok ? __ldg(z16 + off)
+                                            : (unsigned short)0);
+      }
     }
   }
 }
 
 // dz = g * act'(z) in place over window rows [lo, hi), eight channels at a
-// time over whole rows (`tid` of `nth`)
-__device__ void prologue_rows(bf* win, const bf* zwin, const Geometry& g,
+// time (`tid` of `nth`): the two windows share their swizzled layout.
+__device__ void prologue_rows(char* win, const char* zwin, const Geometry& g,
                               int lo, int hi, int tid, int nth) {
-  const int rf = row_elems(g);
-  uint4* w8 = reinterpret_cast<uint4*>(win + lo * rf);
-  const uint4* z8 = reinterpret_cast<const uint4*>(zwin + lo * rf);
+  const int rb = wpitch(g) * cell_bytes(g);
+  uint4* w8 = reinterpret_cast<uint4*>(win + lo * rb);
+  const uint4* z8 = reinterpret_cast<const uint4*>(zwin + lo * rb);
 #pragma unroll 2
-  for (int i = tid; i < (hi - lo) * rf / 8; i += nth) {
+  for (int i = tid; i < (hi - lo) * rb / 16; i += nth) {
     uint4 v = w8[i];
     const uint4 zz = z8[i];
     bf* vb = reinterpret_cast<bf*>(&v);
@@ -1488,96 +1681,83 @@ __device__ void prologue_rows(bf* win, const bf* zwin, const Geometry& g,
   }
 }
 
-// The A shift of each k16 step j of the tile's phase, in elements from tap
-// (0, 0) (every thread of the CTA).
-__device__ void step_shifts(int* shifts, const Geometry& g, const Tile& t) {
-  const int slices = g.chunk / 16;
-  const int rf = row_elems(g);
-  const int ld = cell_elems(g);
-  for (int j = threadIdx.x; j < t.r.taps * t.c.taps * slices;
-       j += blockDim.x) {
-    const int tap = j / slices;
-    shifts[j] = (j % slices) * 16
-                - ((tap / t.c.taps) * rf + tap % t.c.taps * ld);
-  }
-}
-
-// This consumer thread's two rows as window offsets, in elements, of tap
-// (0, 0) plus the column 2 (lane % 4) (dgrad_tile::row_offsets).
-__device__ __forceinline__ void row_offsets(int (&off)[2], const Geometry& g,
-                                            int mt0, int q0) {
-  const int lane = threadIdx.x % 32;
-  const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
-  const int rf = row_elems(g);
-  const int ld = cell_elems(g);
-  const int mh = max_taps(g.hf, g.stride) - 1;
-  const int mw = max_taps(g.wf, g.stride) - 1;
+// Issue filter row `i` of a landed stage into `acc` as one wgmma group:
+// the row's CT taps, each the m-tile's rows at the tap's shift from `a0`
+// against its weights from `b0`, its S = chunk / 16 steps 32 bytes apart.
+// The steps are straight-line code (CT and S template arguments): a branch
+// between two wgmmas made the compiler fence before each one
+// (WARPGROUP.ARRIVE) and close a group after it.
+template <int N, int S, int CT>
+__device__ __forceinline__ void mma_row(float (&acc)[N / 2], uint32_t a0,
+                                        uint32_t b0, const Geometry& g,
+                                        int i, uint64_t desc) {
+  constexpr int cb = 32 * S;
+  const uint32_t a = a0 + tap_shift(g, i, 0) * cb;
+  wgmma_fence();
 #pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int q = local + 8 * h;
-    int p = mt0 * g.mstride + q;
-    if (q >= g.mstride || p >= g.th * g.tw) p = 0;
-    off[h] = (p / g.tw + mh) * rf + (p % g.tw + mw) * ld + 2 * (lane % 4);
-  }
-}
-
-// A for one k16 step at `shift` elements from each row's offset.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* win,
-                                       const int (&off)[2], int shift) {
-  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(win + off[0] + shift);
-  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(win + off[1] + shift);
-  a[0] = r0[0];
-  a[1] = r1[0];
-  a[2] = r0[4];
-  a[3] = r1[4];
-}
-
-// Contract one landed stage into a consumer's running sum `total`: the
-// stage's k16 steps into a fresh accumulator, NW lanes of the N-lane B at a
-// time, each part then added into `total` in f32.  A is loaded one step
-// ahead into the register set the wgmma two steps back has released.
-// Returns with every wgmma complete.
-template <int N, int NW>
-__device__ void mma_stage(float (&total)[N / 2], const bf* win,
-                          const int (&off)[2], const int* shifts, int steps,
-                          const bf* wts) {
-  if (steps == 0) return;
+  for (int j = 0; j < CT; ++j) {
 #pragma unroll
-  for (int part = 0; part < N / NW; ++part) {
-    float acc[NW / 2];
-#pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
-    // B [k/8][N][8]: a k16 step's two K halves N * 16 bytes apart, 8-lane
-    // groups 128 bytes apart; the part's first group NW * 16 bytes on
-    const uint32_t base = smem_u32(wts) + part * NW * 16;
-    auto step = [&](const uint32_t (&a)[4], int j) {
-      wgmma_fence();
-      wgmma_bf16<NW, 0>(acc, a, kmajor_desc(base + j * N * 32, N * 16, 128));
-      wgmma_commit();
-    };
-    uint32_t a0[4], a1[4];
-    load_a(a0, win, off, shifts[0]);
-    for (int j = 0; j < steps; j += 2) {
-      step(a0, j);
-      if (j + 1 < steps) {
-        wgmma_wait<1>();              // step j - 1 has released a1
-        load_a(a1, win, off, shifts[j + 1]);
-        step(a1, j + 1);
-      }
-      if (j + 2 < steps) {
-        wgmma_wait<1>();              // step j has released a0
-        load_a(a0, win, off, shifts[j + 2]);
-      }
+    for (int k = 0; k < S; ++k) {
+      wgmma_ss<N>(acc, desc_at(desc, a - j * cb + 32 * k),
+                  desc_at(desc, b0 + j * N * cb + 32 * k));
     }
-    wgmma_wait<0>();
-    fence_regs<NW / 2>(acc);
+  }
+  wgmma_commit();
+}
+
+// The same for any tap count (a filter past 3x3 at its stride): a loop over
+// the row's taps, S straight-line steps a tap.
+template <int N, int S>
+__device__ __forceinline__ void mma_row_any(float (&acc)[N / 2],
+                                            uint32_t a0, uint32_t b0,
+                                            const Geometry& g, int i, int ct,
+                                            uint64_t desc) {
+  constexpr int cb = 32 * S;
+  const uint32_t a = a0 + tap_shift(g, i, 0) * cb;
+  wgmma_fence();
+  for (int j = 0; j < ct; ++j) {
 #pragma unroll
-    for (int i = 0; i < NW / 2; ++i) total[part * NW / 2 + i] += acc[i];
+    for (int k = 0; k < S; ++k) {
+      wgmma_ss<N>(acc, desc_at(desc, a - j * cb + 32 * k),
+                  desc_at(desc, b0 + j * N * cb + 32 * k));
+    }
+  }
+  wgmma_commit();
+}
+
+template <int N, int S>
+__device__ __forceinline__ void mma_row_of(float (&acc)[N / 2], uint32_t a0,
+                                           uint32_t b0, const Geometry& g,
+                                           int i, int ct, uint64_t desc) {
+  if (ct == 3) {
+    mma_row<N, S, 3>(acc, a0, b0, g, i, desc);
+  } else if (ct == 2) {
+    mma_row<N, S, 2>(acc, a0, b0, g, i, desc);
+  } else if (ct == 1) {
+    mma_row<N, S, 1>(acc, a0, b0, g, i, desc);
+  } else {
+    mma_row_any<N, S>(acc, a0, b0, g, i, ct, desc);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void mma_filter_row(float (&acc)[N / 2],
+                                               uint32_t a0, uint32_t b0,
+                                               const Geometry& g, int i,
+                                               int ct, uint64_t desc) {
+  if (g.chunk == 64) {
+    mma_row_of<N, 4>(acc, a0, b0, g, i, ct, desc);
+  } else if (g.chunk == 32) {
+    mma_row_of<N, 2>(acc, a0, b0, g, i, ct, desc);
+  } else {
+    mma_row_of<N, 1>(acc, a0, b0, g, i, ct, desc);
   }
 }
 
 // Store a consumer's rows of m-tile mt0 into dx as bf16, each f32 sum
-// rounded once (dgrad_tile::store_dx).
+// rounded once: m-tile row q (< mstride) is window cell f = mt0 * mstride +
+// q, dx position (f / wpitch, f % wpitch) of the tile, stored where that
+// lies in the tile's th x tw and the phase.
 template <int N>
 __device__ void store_dx(bf* __restrict__ dx, const float (&acc)[N / 2],
                          const Geometry& g, const Tile& t, int n, int ci_b,
@@ -1585,14 +1765,16 @@ __device__ void store_dx(bf* __restrict__ dx, const float (&acc)[N / 2],
   const int lane = threadIdx.x % 32;
   const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
   const int col0 = 2 * (lane % 4);
+  const int wp = wpitch(g);
   const bool pairs = g.cib % 2 == 0;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = local + 8 * h;
-    const int p = mt0 * g.mstride + q;
-    if (q >= g.mstride || p >= g.th * g.tw) continue;
-    const int a = t.a0 + p / g.tw;
-    const int b = t.b0 + p % g.tw;
+    if (q >= g.mstride) continue;
+    const int f = mt0 * g.mstride + q;
+    if (f / wp >= g.th || f % wp >= g.tw) continue;
+    const int a = t.a0 + f / wp;
+    const int b = t.b0 + f % wp;
     if (a >= t.r.extent || b >= t.c.extent) continue;
     const int i = t.r.first + g.stride * a;
     const int j = t.c.first + g.stride * b;
@@ -1616,28 +1798,308 @@ __device__ void store_dx(bf* __restrict__ dx, const float (&acc)[N / 2],
   }
 }
 
+// The phases' tiles of one image and Ci block (grid_tiles on the device).
+__device__ __forceinline__ int tiles_of(const Geometry& g) {
+  int total = 0;
+  for (int p = 0; p < g.stride * g.stride; ++p) {
+    Axis r, c;
+    total += phase_tiles(g, p, &r, &c);
+  }
+  return total;
+}
+
+// A work item of the persistent grid: item i is tile i % tiles of Ci block
+// i / tiles % Ci/Cib of image i / (tiles * Ci/Cib), its phase's stages.
+struct Item {
+  Tile t;
+  int ci_b, n, stages;
+};
+
+__device__ __forceinline__ Item item_of(const Geometry& g, int tiles,
+                                        int per_block, int i) {
+  Item it;
+  it.t = tile_of(g, i % tiles);
+  it.ci_b = i / tiles % g.ciblk;
+  it.n = i / tiles / g.ciblk;
+  it.stages = it.t.r.taps * it.t.c.taps > 0 ? g.coblk * per_block : 0;
+  return it;
+}
+
+// Both kernels' body: a persistent CTA walks the items blockIdx.x,
+// blockIdx.x + gridDim.x, ... of `n` images' (tile, Ci block) pairs; the
+// streamed band (`kStream`: a copy group and a 64-row m-tile a strip) or
+// the window tile (one group, one m-tile of 64 rows a consumer).  A stage
+// (Co block, chunk) lands its window in a ring of nw window slots and the
+// weights of each filter row of its phase in a ring of nr weight slots; the
+// window stays while the stage's rows pass through the weight ring, and
+// both rings run on across items, so that one item's first copies land
+// while the item before computes.  A window slot's `full` mbarriers
+// complete as its TMA copies land, its `ready` ones once the producer's
+// pass (the prologue, or the copies' completion) is done, and its `empty`
+// one once every consumer thread's wgmmas of the stage's last row are; a
+// weight slot's `full` one as its copies land, its `empty` one once the
+// wgmmas of its row are.  With TMA, warp 0 of the producer issues every
+// copy in the consumers' order and its other warps run the prologue; with
+// copies, the whole producer copies one slot at a time.
+template <int N, bool kStream>
+__device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
+                                    const CUtensorMap* tmg,
+                                    const CUtensorMap* tmz,
+                                    const bf* __restrict__ g,
+                                    const bf* __restrict__ z,
+                                    const bf* __restrict__ w,
+                                    bf* __restrict__ dx,
+                                    const Geometry& geo, int n_images) {
+  const int nth = blockDim.x;
+  const int wgs = nth / kWarpgroup - 1;
+  const int groups = kStream ? wgs : 1;
+  const Smem m = carve<N>(raw, geo, wgs);
+  const int nw = m.nw, nr = m.nr;
+  const int per_block = bf16::kpad(geo) / geo.chunk;
+  const int tiles = tiles_of(geo);
+  const int items = tiles * geo.ciblk * n_images;
+  const int mh = max_taps(geo.hf, geo.stride) - 1;
+  const int mw = max_taps(geo.wf, geo.stride) - 1;
+  const int hso = geo.th / groups;
+  const bool tma = bf16::tma_copies(geo);
+  // the producer's pass over a landed window before the consumers read it:
+  // the prologue, or the copies' completion
+  const bool pass = geo.prologue || !tma;
+  // window rows of copy group k: strip 0's all, a later strip's fresh ones
+  auto lo_of = [&](int k) { return k == 0 ? 0 : k * hso + mh; };
+  auto hi_of = [&](int k) { return (k + 1) * hso + mh; };
+  auto win = [&](int slot) { return m.win0 + slot * m.wslot; };
+  auto zwin = [&](int slot) { return win(slot) + m.cbytes; };
+  auto wrow = [&](int slot) { return m.row0 + slot * m.rslot; };
+  if (threadIdx.x == 0) {
+    // the prologue's pass with TMA is the producer's warps 1-3
+    const int passers = tma ? kWarpgroup - 32 : kWarpgroup;
+    for (int i = 0; i < kMaxWindows * kMaxGroups; ++i) {
+      mbar_init(&m.wfull[i], 1);
+      mbar_init(&m.wready[i], passers);
+    }
+    for (int i = 0; i < kMaxWindows; ++i) {
+      mbar_init(&m.wempty[i], nth - kWarpgroup);
+    }
+    for (int i = 0; i < kMaxRows; ++i) {
+      mbar_init(&m.rfull[i], tma ? 1 : kWarpgroup);
+      mbar_init(&m.rempty[i], nth - kWarpgroup);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= wgs * kWarpgroup) {      // the producer warpgroup
+    const int tid = threadIdx.x - wgs * kWarpgroup;
+    if (tma && tid >= 32 && !geo.prologue) return;
+    int gw = 0, gr = 0;       // window stages and filter rows so far
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const Item it = item_of(geo, tiles, per_block, i);
+      const Tile& t = it.t;
+      const int o_h = t.r.q0 + t.a0 - mh;
+      const int o_w = t.c.q0 + t.b0 - mw;
+      for (int s = 0; s < it.stages; ++s, ++gw) {
+        const int co_b = s / per_block;
+        const int c0 = (s % per_block) * geo.chunk;
+        const int ws = gw % nw;
+        const int wpar = (gw / nw) & 1;
+        if (tma && tid >= 32) {         // the prologue over landed rows
+          for (int k = 0; k < groups; ++k) {
+            mbar_wait(&m.wfull[ws * kMaxGroups + k], wpar);
+            prologue_rows(win(ws), zwin(ws), geo, lo_of(k), hi_of(k),
+                          tid - 32, kWarpgroup - 32);
+            fence_proxy_async();
+            mbar_arrive(&m.wready[ws * kMaxGroups + k]);
+          }
+          continue;
+        }
+        if (gw >= nw) mbar_wait(&m.wempty[ws], wpar ^ 1);
+        if (tma) {                      // warp 0: TMA, a group a strip
+          uint64_t* full = &m.wfull[ws * kMaxGroups];
+          if (tid == 0) {
+            for (int k = 0; k < groups; ++k) {
+              mbar_expect_tx(&full[k], bf16::row_bytes(geo, lo_of(k),
+                                                       hi_of(k)));
+            }
+          }
+          __syncwarp();
+          for (int k = 0; k < groups; ++k) {
+            issue_rows(tmg, tmz, win(ws), zwin(ws), &full[k], geo, it.n,
+                       co_b, c0, o_h, o_w, lo_of(k), hi_of(k), tid, 32);
+          }
+        } else {                        // every producer thread copies
+          copy_rows(g, z, win(ws), zwin(ws), geo, it.n, co_b, c0, o_h, o_w,
+                    0, hi_of(groups - 1), tid);
+          cp_async_commit();
+          cp_async_wait(0);
+          if (geo.prologue) {
+            bar_sync(kBarProducer, kWarpgroup);
+            prologue_rows(win(ws), zwin(ws), geo, 0, hi_of(groups - 1), tid,
+                          kWarpgroup);
+          }
+          fence_proxy_async();
+          for (int k = 0; k < groups; ++k) {
+            mbar_arrive(&m.wready[ws * kMaxGroups + k]);
+          }
+        }
+        for (int r = 0; r < t.r.taps; ++r, ++gr) {
+          const int rs = gr % nr;
+          if (gr >= nr) mbar_wait(&m.rempty[rs], ((gr / nr) & 1) ^ 1);
+          if (tma) {
+            if (tid == 0) {
+              mbar_expect_tx(&m.rfull[rs], t.c.taps * N * cell_bytes(geo));
+            }
+            __syncwarp();
+            issue_row_weights<N>(tmw, wrow(rs), &m.rfull[rs], geo, t, r,
+                                 co_b, it.ci_b, c0, tid, 32);
+          } else {
+            copy_row_weights<N>(w, wrow(rs), geo, t, r, co_b, it.ci_b, c0,
+                                tid);
+            fence_proxy_async();
+            mbar_arrive(&m.rfull[rs]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // a consumer: the window tile's rows 64c.. or the streamed band's strip
+  // c, its index read warp-uniform so that the descriptors are uniform
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0);
+  const int group = kStream ? c : 0;
+  const int mt0 = kStream ? c : 0;
+  const int q0 = kStream ? 0 : c * kRows;
+  const uint32_t row0 = first_row(geo, c) * cell_bytes(geo);
+  const uint64_t desc = desc_of(cell_bytes(geo));
+  int gw = 0, gr = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_of(geo, tiles, per_block, i);
+    float acc[N / 2];
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) acc[j] = 0.0f;
+    for (int s = 0; s < it.stages; ++s, ++gw) {
+      const int ws = gw % nw;
+      const int wpar = (gw / nw) & 1;
+      if (tma) {            // the copies the wgmmas read have landed
+        for (int k = 0; k <= group; ++k) {
+          mbar_wait(&m.wfull[ws * kMaxGroups + k], wpar);
+        }
+      }
+      if (pass) mbar_wait(&m.wready[ws * kMaxGroups + group], wpar);
+      for (int r = 0; r < it.t.r.taps; ++r, ++gr) {
+        const int rs = gr % nr;
+        mbar_wait(&m.rfull[rs], (gr / nr) & 1);
+        mma_filter_row<N>(acc, smem_u32(win(ws)) + row0,
+                          smem_u32(wrow(rs)), geo, r, it.t.c.taps, desc);
+        if (s > 0 || r > 0) {
+          wgmma_wait<1>();      // the row before is done: free its slots
+          mbar_arrive(&m.rempty[(gr - 1) % nr]);
+          if (r == 0) mbar_arrive(&m.wempty[(gw - 1) % nw]);
+        }
+      }
+    }
+    wgmma_wait<0>();
+    if (it.stages > 0) {
+      mbar_arrive(&m.rempty[(gr - 1) % nr]);
+      mbar_arrive(&m.wempty[(gw - 1) % nw]);
+    }
+    fence_regs<N / 2>(acc);
+    store_dx<N>(dx, acc, geo, it.t, it.n, it.ci_b, mt0, q0);
+  }
+}
+
 using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
                         const CUtensorMap, const bf*, const bf*, const bf*,
-                        bf*, Geometry);
+                        bf*, Geometry, int);
 
-// dgrad_tile::launch for the bf16 build: w as [rows, Cob/8, Cib, 8] with a
-// box of chunk/8 x lanes, g and z with a box of chunk + 8 channels, where
-// Cob is a multiple of 8; every Co block in one grid.
+// A bf16 tensor map over `rank` indices, innermost first: `dims`, byte
+// `strides` of indices 1.., `box`; the `swizzle`-byte swizzle (32, 64 or
+// 128), zeros outside the bounds (negative coordinates included).
+inline bool encode_swizzled(CUtensorMap* map, const void* base, int rank,
+                            const long long* dims, const long long* strides,
+                            const int* box, int swizzle) {
+  const EncodeTiled fn = encoder();
+  if (!fn) return false;
+  cuuint64_t gdim[5], gstride[4];
+  cuuint32_t gbox[5], estride[5];
+  for (int i = 0; i < rank; ++i) {
+    gdim[i] = (cuuint64_t)dims[i];
+    gbox[i] = (cuuint32_t)box[i];
+    estride[i] = 1;
+  }
+  for (int i = 1; i < rank; ++i) gstride[i - 1] = (cuuint64_t)strides[i - 1];
+  const CUtensorMapSwizzle sw =
+      swizzle == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                     : (swizzle == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                      : CU_TENSOR_MAP_SWIZZLE_32B);
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
+            const_cast<void*>(base), gdim, gstride, gbox, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The CTAs of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) that `device` holds at once, the kernel's shared-memory limit
+// raised to `smem` on the way: asked of the runtime once per (kernel,
+// device, threads, smem), then read from a table, so that a launch makes no
+// query of its own.  The limit is only ever raised, so that every size in
+// the table stays launchable.
+inline cudaError_t resident_ctas(Kernel kernel, int device, int threads,
+                                 size_t smem, int* ctas) {
+  struct Entry {
+    Kernel kernel;
+    int device, threads;
+    size_t smem;
+    int ctas;
+  };
+  constexpr int kEntries = 256;
+  static Entry table[kEntries];
+  static int used = 0;
+  static std::mutex lock;
+  std::lock_guard<std::mutex> hold(lock);
+  size_t allowed = 48 * 1024;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = table[i];
+    if (e.kernel != kernel || e.device != device) continue;
+    if (e.threads == threads && e.smem == smem) {
+      *ctas = e.ctas;
+      return cudaSuccess;
+    }
+    allowed = std::max(allowed, e.smem);
+  }
+  cudaError_t err = cudaSuccess;
+  if (smem > allowed || used == kEntries) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)std::max(allowed, smem));
+  }
+  int sms = 0, per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  }
+  if (err != cudaSuccess) return err;
+  *ctas = sms * (per_sm > 0 ? per_sm : 1);
+  if (used < kEntries) table[used++] = {kernel, device, threads, smem, *ctas};
+  return cudaSuccess;
+}
+
+// dgrad_tile::launch for the bf16 build: w as [rows, Cib, Cob] with a box
+// of {chunk, lanes, 1}, g and z with a box of {chunk, wpitch, box_rows},
+// all in the chunk's swizzle, where Cob is a multiple of 8; every Co block
+// in one persistent grid of as many CTAs as the card holds at once (or as
+// there are items).
 inline int launch(Kernel kernel, const bf* g, const bf* z, const bf* w,
                   bf* dx, int n, const Geometry& geo, int wgs, int lanes,
                   cudaStream_t stream, int* launches) {
   *launches = 0;
-  if (kernel == nullptr || wgs < 1
-      || kWarpgroup * (wgs + 1) > bf16::max_threads(lanes)
-      || lanes < geo.cib
-      || geo.chunk % 16 != 0 || bf16::kpad(geo) % geo.chunk != 0
-      || geo.mstride < 1 || geo.mstride > kRows * wgs
-      || geo.th < 1 || geo.tw < 1 || geo.stride < 1
-      || geo.co_first != 0 || geo.co_count != geo.coblk
-      || (geo.prologue != 0) != (z != nullptr)
-      || (bf16::tma_copies(geo) && geo.box_rows > 1
-          && geo.box_rows < hwin(geo)
-          && wwin(geo) * cell_elems(geo) % 64 != 0)) {
+  if (kernel == nullptr || !bf16::valid(geo, wgs, lanes)
+      || (geo.prologue != 0) != (z != nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int tiles = grid_tiles(geo);
@@ -1648,30 +2110,34 @@ inline int launch(Kernel kernel, const bf* g, const bf* z, const bf* w,
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tmw = {}, tmg = {}, tmz = {};
   const long long cob = geo.cob;
-  const long long wdims[4] = {8, geo.cib, cob / 8,
+  const long long wdims[3] = {cob, geo.cib,
                               (long long)geo.coblk * geo.ciblk * geo.hf
                                   * geo.wf};
-  const long long wstr[3] = {cob * 2, 16, geo.cib * cob * 2};
-  const int wbox[4] = {8, lanes, geo.chunk / 8, 1};
+  const long long wstr[2] = {cob * 2, geo.cib * cob * 2};
+  const int wbox[3] = {geo.chunk, lanes, 1};
   const long long gdims[5] = {cob, geo.wo, geo.ho, geo.coblk, n};
   const long long gstr[4] = {cob * 2, geo.wo * cob * 2,
                              (long long)geo.ho * geo.wo * cob * 2,
                              (long long)geo.coblk * geo.ho * geo.wo * cob * 2};
-  const int gbox[5] = {geo.chunk + 8, wwin(geo), geo.box_rows, 1, 1};
-  const CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  const int gbox[5] = {geo.chunk, wpitch(geo), geo.box_rows, 1, 1};
+  const int sw = cell_bytes(geo);
   if (bf16::tma_copies(geo)
-      && (!encode(&tmw, w, 4, wdims, wstr, wbox, type)
-          || !encode(&tmg, g, 5, gdims, gstr, gbox, type)
-          || !encode(&tmz, z != nullptr ? z : g, 5, gdims, gstr, gbox,
-                     type))) {
+      && (!encode_swizzled(&tmw, w, 3, wdims, wstr, wbox, sw)
+          || !encode_swizzled(&tmg, g, 5, gdims, gstr, gbox, sw)
+          || !encode_swizzled(&tmz, z != nullptr ? z : g, 5, gdims, gstr,
+                              gbox, sw))) {
     return (int)cudaErrorNotSupported;     // the encoder refused a map
   }
-  const size_t smem = bf16::smem_bytes(geo, lanes);
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t smem = bf16::smem_bytes(geo, lanes, wgs);
+  // a persistent grid: as many CTAs as the card holds at once, or items
+  int ctas = 0;
+  err = resident_ctas(kernel, device, kWarpgroup * (wgs + 1), smem, &ctas);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<dim3(tiles, geo.ciblk, n), kWarpgroup * (wgs + 1), smem,
-           stream>>>(tmw, tmg, tmz, g, z, w, dx, geo);
+  const long long items = (long long)tiles * geo.ciblk * n;
+  if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  const int grid = (int)std::min<long long>(items, ctas);
+  kernel<<<grid, kWarpgroup * (wgs + 1), smem, stream>>>(
+      tmw, tmg, tmz, g, z, w, dx, geo, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   *launches = 1;

@@ -63,7 +63,9 @@
 // it; at stride 2 the x window is four times a tile's positions.
 //
 // Under BF16 the backward forms dz once a layer (`dz_kernel_bf16`, with
-// db), the bf16 dgrad reads it with its prologue off, and the bf16 wgrad
+// db), the bf16 dgrad (`dgrad_kernel_bf16`, dgrad_tile.cuh's bf16 build:
+// both wgmma operands from shared memory, the window's cells a flattened
+// A) reads it with its prologue off, and the bf16 wgrad
 // (`wgrad_kernel_bf16`) is wgrad_tile.cuh's bf16 GEMM on it: x's window and
 // the dz tile land by TMA in 128-byte swizzled rows and both wgmma operands
 // are read from shared memory by descriptor.  Bound by the bf16 tensor-core
@@ -221,8 +223,11 @@ dt::Kernel pick_dgrad(int lanes) {
 }
 
 // The bf16 build of the same tile (dgrad_tile.cuh, namespace bf16): bf16 g,
-// z, w and dx, f32 sums, every Co block in one grid.  The producer forms dz
-// in place once a stage lands; there is no weight split.
+// z, w and dx, f32 sums, every Co block in one persistent grid over the
+// `n` images' (tile, Ci block) items.  Both wgmma operands come from shared
+// memory by descriptor: the window's cells flattened, an m-tile of 64 *
+// wgs consecutive cells, a tap a shifted start; the producer forms dz in
+// place once a stage lands.
 template <int N>
 __global__ void __launch_bounds__(dt::bf16::max_threads(N), 1)
 dgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
@@ -231,98 +236,11 @@ dgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
                   const __nv_bfloat16* __restrict__ g,
                   const __nv_bfloat16* __restrict__ z,
                   const __nv_bfloat16* __restrict__ w,
-                  __nv_bfloat16* __restrict__ dx, dt::Geometry geo) {
-  namespace db = dt::bf16;
+                  __nv_bfloat16* __restrict__ dx, dt::Geometry geo,
+                  int n) {
   extern __shared__ __align__(16) char smem_bf16[];
-  const dt::Tile t = dt::tile_of(geo, blockIdx.x);
-  const int ci_b = blockIdx.y;
-  const int n = blockIdx.z;
-  const int nth = blockDim.x;
-  const int consumers = nth - dt::kWarpgroup;
-  const db::Smem m = db::carve<N>(smem_bf16, geo);
-  const int taps = t.r.taps * t.c.taps;
-  const int steps = taps * geo.chunk / 16;
-  const int per_block = db::kpad(geo) / geo.chunk;
-  const int stages = taps > 0 ? geo.coblk * per_block : 0;
-  const bool tma = db::tma_copies(geo);
-  db::step_shifts(m.shifts, geo, t);
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < dt::kSlots; ++i) {
-      dt::mbar_init(&m.bars[i * dt::kMaxGroups], 1);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= consumers) {       // the producer warpgroup
-    const int tid = threadIdx.x - consumers;
-    const int rows = dt::hwin(geo);
-    const int o_h = t.r.q0 + t.a0 - (dt::max_taps(geo.hf, geo.stride) - 1);
-    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
-    auto issue_stage = [&](int s) {
-      const int slot = s & 1;
-      const int co_b = s / per_block;
-      const int c0 = (s % per_block) * geo.chunk;
-      if (!tma) {
-        db::copy_weights<N>(w, m.wts + slot * m.wst, geo, t, co_b, ci_b, c0,
-                            tid);
-        db::copy_rows(g, z, m.win + slot * m.cst, m.zwin + slot * m.cst, geo,
-                      n, co_b, c0, o_h, o_w, 0, rows, tid);
-        dt::cp_async_commit();
-        return;
-      }
-      if (tid >= 32) return;
-      uint64_t* bar = &m.bars[slot * dt::kMaxGroups];
-      if (tid == 0) {
-        dt::mbar_expect_tx(bar, db::weight_bytes<N>(geo, t)
-                                    + db::row_bytes(geo, 0, rows));
-      }
-      __syncwarp();
-      db::issue_weights<N>(&tmw, m.wts + slot * m.wst, bar, geo, t, co_b,
-                           ci_b, c0, tid, 32);
-      db::issue_rows(&tmg, &tmz, m.win + slot * m.cst, m.zwin + slot * m.cst,
-                     bar, geo, n, co_b, c0, o_h, o_w, 0, rows, tid, 32);
-    };
-    if (stages > 0) issue_stage(0);
-    for (int s = 0; s < stages; ++s) {
-      const int slot = s & 1;
-      if (tma) {
-        dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
-      } else {                          // every producer thread's copies
-        dt::cp_async_wait(0);
-        dt::bar_sync(dt::kBarProducer, dt::kWarpgroup);
-      }
-      if (geo.prologue) {
-        db::prologue_rows(m.win + slot * m.cst, m.zwin + slot * m.cst, geo, 0,
-                          rows, tid, dt::kWarpgroup);
-      }
-      dt::fence_proxy_async();
-      dt::bar_arrive(dt::kBarFull + slot * dt::kMaxGroups, nth);
-      if (s + 1 < stages) {
-        if (s >= 1) dt::bar_sync(dt::kBarEmpty + (slot ^ 1), nth);
-        issue_stage(s + 1);
-      }
-    }
-    return;
-  }
-
-  const int q0 = threadIdx.x / dt::kWarpgroup * dt::kRows;
-  float total[N / 2];
-#pragma unroll
-  for (int i = 0; i < N / 2; ++i) total[i] = 0.0f;
-  int off[2];
-  db::row_offsets(off, geo, 0, q0);
-  for (int s = 0; s < stages; ++s) {
-    const int slot = s & 1;
-    dt::bar_sync(dt::kBarFull + slot * dt::kMaxGroups, nth);
-    // the weights' TMA copy, which the wgmmas read, has landed
-    if (tma) dt::mbar_wait(&m.bars[slot * dt::kMaxGroups], (s >> 1) & 1);
-    db::mma_stage<N, (N > 64 ? 64 : N)>(total, m.win + slot * m.cst, off,
-                                        m.shifts, steps,
-                                        m.wts + slot * m.wst);
-    if (s + 2 < stages) dt::bar_arrive(dt::kBarEmpty + slot, nth);
-  }
-  db::store_dx<N>(dx, total, geo, t, n, ci_b, 0, q0);
+  dt::bf16::run<N, false>(smem_bf16, &tmw, &tmg, &tmz, g, z, w, dx, geo,
+                          n);
 }
 
 // The compiled bf16 dgrad instances, as the f32 ones.
@@ -609,17 +527,19 @@ int direct_conv2d_dgrad(const void* g, const void* z, const void* w, void* dx,
 }
 
 // What direct_conv2d_dgrad runs with the same arguments (dgrad_tile::plan):
-// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued.
+// out[0] tiles, out[1] the function's MACs, out[2] tensor-core MACs issued,
+// out[3] a CTA's shared memory, out[4] and out[5] its ring's slots; z staged
+// beside the cotangent where `prologue`.
 int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
                              int ciblk, int cib, int hi, int wi, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int th, int tw, int wgs, int lanes, int chunk,
-                             long long* out) {
+                             int prologue, long long* out) {
   if (th * tw > dt::kRows * wgs || stride < 1 || th < 1 || tw < 1)
     return (int)cudaErrorInvalidValue;
   dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
                           stride, pad_top, pad_left, th, tw, wgs, chunk, 0,
-                          false),
+                          prologue != 0),
            n, wgs, lanes, out);
   return 0;
 }
@@ -675,7 +595,6 @@ int direct_conv2d_dgrad_bf16(const void* g, const void* z, const void* w,
       pad_left, th, tw, wgs, chunk, act, z != nullptr);
   geo.co_first = 0;
   geo.co_count = coblk;
-  if (th * tw > dt::kRows * wgs) return (int)cudaErrorInvalidValue;
   return dt::bf16::launch(pick_dgrad_bf16(lanes),
                           (const __nv_bfloat16*)g, (const __nv_bfloat16*)z,
                           (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, n,
@@ -687,13 +606,17 @@ int direct_conv2d_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
                                   int ciblk, int cib, int hi, int wi, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int th, int tw, int wgs,
-                                  int lanes, int chunk, long long* out) {
-  if (th * tw > dt::kRows * wgs || stride < 1 || th < 1 || tw < 1)
+                                  int lanes, int chunk, int prologue,
+                                  long long* out) {
+  if (stride < 1 || th < 1 || tw < 1 || wgs < 1 || chunk < 16)
     return (int)cudaErrorInvalidValue;
-  dt::bf16::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf,
-                                wf, stride, pad_top, pad_left, th, tw, wgs,
-                                chunk, 0, false),
-                 n, wgs, lanes, out);
+  dt::Geometry geo = dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi,
+                                    hf, wf, stride, pad_top, pad_left, th,
+                                    tw, wgs, chunk, 0, prologue != 0);
+  geo.co_first = 0;
+  geo.co_count = coblk;
+  if (!dt::bf16::valid(geo, wgs, lanes)) return (int)cudaErrorInvalidValue;
+  dt::bf16::plan(geo, n, wgs, lanes, out);
   return 0;
 }
 

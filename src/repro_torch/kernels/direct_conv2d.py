@@ -186,7 +186,7 @@ def declare_backward(lib, prefix: str, ptr, i32) -> None:
         entry.argtypes = [ptr] * 4 + [i32] * 20 + [ptr, ctypes.POINTER(i32)]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_dgrad{build}_plan")
-        entry.argtypes = [i32] * 19 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.argtypes = [i32] * 20 + [ctypes.POINTER(ctypes.c_longlong)]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_wgrad{build}")
         entry.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
@@ -779,8 +779,10 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
     """What one launch of the window dgrad kernel (with ``streamed``, the
     streamed one) in its build for ``dtype`` operands runs on these
     operands, tiled as its wrapper tiles them by default: ``(the kernel
-    library's own count, its *_plan entry; core.blocking.dgrad_plan's)``.
-    Reads the built library; launches nothing."""
+    library's own count, its *_plan entry; core.blocking.dgrad_plan's)``,
+    the shared memory and ring slots included, so that the two tell whether
+    the C++ carve-up and its Python model agree.  Reads the built library;
+    launches nothing."""
     hi, wi = input_hw
     n, coblk, _, _, cob = g.shape
     _, ciblk, hf, wf, cib, _ = w.shape
@@ -797,11 +799,12 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
                                     cob, machine, prologue, ob)
         lib, prefix, rows = _bwd_lib(), "direct_conv2d", blk.th
     entry = getattr(lib, f"{prefix}_dgrad{_suffix(dtype)}_plan")
-    out = (ctypes.c_longlong * 3)()
-    if entry(*_dgrad_ints(rows, blk, g.shape, w.shape, spec), out):
+    out = (ctypes.c_longlong * 6)()
+    if entry(*_dgrad_ints(rows, blk, g.shape, w.shape, spec), int(prologue),
+             out):
         raise ValueError(f"the dgrad kernel refuses the tiles {blk}")
     model = dgrad_plan(blk, n, hi, wi, hf, wf, stride, spec.pads, ciblk, cib,
-                       coblk, cob, ob)
+                       coblk, cob, ob, prologue)
     return DgradPlan(*out, products=model.products), model
 
 

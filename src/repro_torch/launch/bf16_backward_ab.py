@@ -2,14 +2,14 @@
 
 The bf16 wgrads (window and streamed) at VGG-16's 13 layers (batch 8, the
 relu prologue and ``db``, as the training path calls them) and the
-pointwise bf16 wgrad at MobileNet v1's 13 pointwise legs (batch 32), each
-through its public wrapper, so that a tree that forms dz once a layer
-times its dz pass with its GEMM; where the tree has the dz pass
+pointwise bf16 wgrad and dgrad at MobileNet v1's 13 pointwise legs (batch
+32), each through its public wrapper, so that a tree that forms dz once a
+layer times its dz pass with its GEMM; where the tree has the dz pass
 (``direct_conv2d.cotangent_pass``) the pass alone too, and the bf16 dgrads
-with their prologue and on dz; then VGG-16's bf16 train step on both
-routes (the median of 4 host-clock steps) and its peak device memory above
+(VGG-16's and the pointwise one) with their prologue and on dz; then VGG-16's bf16 train step on both
+routes (the median of 8 host-clock steps) and its peak device memory above
 the parameters, gradients and moments.  Every time is a CUDA-graph replay
-(eager beside it for the wgrad sums).  Prints the card's name and power
+(eager beside it for the wgrads and the dgrads on dz).  Prints the card's name and power
 limit and the tree it imported.  To hold two trees in one call, run it
 with each tree's ``src`` first on ``PYTHONPATH``, in turns (parent, this,
 this, parent)::
@@ -215,10 +215,13 @@ def main(argv=None) -> int:
             if ci != 3:
                 for route in (False, True):
                     name = "streamed" if route else "window"
-                    row[f"dgrad_{name}_on_dz"] = graph_ms(
-                        lambda route=route: dck.direct_conv2d_dgrad(
+
+                    def on_dz(route=route):
+                        return dck.direct_conv2d_dgrad(
                             dz, w, (h, h), s, "SAME", stream=route,
-                            precision="bf16", prologue_tiles=True), 10)
+                            precision="bf16", prologue_tiles=True)
+                    row[f"dgrad_{name}_on_dz"] = graph_ms(on_dz, 10)
+                    row[f"dgrad_{name}_on_dz_eager"] = eager_ms(on_dz)
             del dz
         res["vgg"].append(row)
         print("[bf16-ab] vgg " + " ".join(
@@ -233,21 +236,36 @@ def main(argv=None) -> int:
         z = torch.randn((N_MOBILENET, co // cob, h, h, cob), device=dev,
                         generator=gen).to(bf)
         g = torch.randn(z.shape, device=dev, generator=gen).to(bf)
+        w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=dev,
+                         generator=gen) / ci ** 0.5).to(bf)
+
         def wgrad():
             return pwk.pointwise_wgrad(x, g, z, "relu", True,
                                        precision="bf16")
+
+        def dgrad():
+            return pwk.pointwise_dgrad(g, w, z, "relu", precision="bf16")
         row = {"leg": f"{ci}->{co} {h}x{h}", "wgrad": graph_ms(wgrad, 10),
-               "wgrad_eager": eager_ms(wgrad)}
+               "wgrad_eager": eager_ms(wgrad), "dgrad": graph_ms(dgrad, 10),
+               "dgrad_eager": eager_ms(dgrad)}
         if has_pass:
             row["dz_pass"] = graph_ms(
                 lambda: dck.cotangent_pass(g, z, "relu", True), 10)
             row["dz_pass_eager"] = eager_ms(
                 lambda: dck.cotangent_pass(g, z, "relu", True))
+            dz, _ = dck.cotangent_pass(g, z, "relu", False)
+
+            def on_dz():
+                return pwk.pointwise_dgrad(dz, w, precision="bf16",
+                                           prologue_tiles=True)
+            row["dgrad_on_dz"] = graph_ms(on_dz, 10)
+            row["dgrad_on_dz_eager"] = eager_ms(on_dz)
+            del dz
         res["pointwise"].append(row)
         print("[bf16-ab] pointwise " + " ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in row.items()), flush=True)
-        del x, z, g
+        del x, z, g, w
 
     sums = {k: sum(r[k] for r in res["vgg"] if k in r)
             for k in res["vgg"][-1] if k != "layer"}

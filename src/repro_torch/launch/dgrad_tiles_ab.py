@@ -13,8 +13,11 @@ name and power limit, each tile with its model cost and ms, and per layer
 and route the chooser's tile beside the fastest one measured, then the sums.
 ``--dtype bf16`` times the bf16 builds (``dgrad_kernel_bf16``,
 ``stream_dgrad_kernel_bf16``) at the bf16 chooser's candidates
-(``op_bytes`` 2) on bf16 operands, each ``dx`` within 1e-2 of max|dx| of
-the plain version on the same operands.  Needs an H100 and nvcc::
+(``op_bytes`` 2) on bf16 operands, on the dz pass's dz with the prologue
+off as bf16 training calls them, each ``dx`` within 1e-2 of max|dx| of the
+plain version on the same operands, and also times the ``BF16_PER_CHUNK``
+cheapest of each (consumer count, chunk), the set the bf16 cost model was
+fitted to.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.dgrad_tiles_ab [--dtype bf16]
 """
@@ -30,6 +33,7 @@ from repro_torch.core.blocking import H100_SXM, dgrad_candidates
 from repro_torch.core.convspec import ConvSpec
 
 TOP, PER_COUNT, ITERS = 12, 3, 10
+BF16_PER_CHUNK = 4
 NAMES = [f"conv{st}_{k}" for st, k in
          ((1, 1), (1, 2), (2, 1), (2, 2), (3, 1), (3, 2), (3, 3),
           (4, 1), (4, 2), (4, 3), (5, 1), (5, 2), (5, 3))]
@@ -48,10 +52,11 @@ def dgrad_layers(entry: int = 224):
 
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     streamed: bool, top: int, per_count: int,
-                    op_bytes: int = 4):
+                    op_bytes: int = 4, per_chunk: int = 0):
     """The tiles to time, as ``(model cost, DgradBlocking)``, the chooser's
     first: the ``top`` of least cost and the ``per_count`` cheapest of each
-    consumer count (of the bf16 build's chooser at ``op_bytes`` 2)."""
+    consumer count (of the bf16 build's chooser at ``op_bytes`` 2), and
+    with ``per_chunk`` that many of each (consumer count, chunk)."""
     cib, cob = min(ci, 128), min(co, 128)
     found = sorted(dgrad_candidates(n, h, h, 3, 3, stride, ci // cib, cib,
                                     cob, H100_SXM, True, streamed, None,
@@ -60,6 +65,9 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
     keep = [b for _, b in found[:top]]
     for wgs in sorted({b.wgs for _, b in found}):
         keep += [b for _, b in found if b.wgs == wgs][:per_count]
+        for chunk in sorted({b.chunk for _, b in found}):
+            keep += [b for _, b in found
+                     if (b.wgs, b.chunk) == (wgs, chunk)][:per_chunk]
     cost = {b: k[0] for k, b in found}
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
@@ -96,6 +104,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     suffix = "_bf16" if args.dtype == "bf16" else ""
+    per_chunk = BF16_PER_CHUNK if args.dtype == "bf16" else 0
     if not torch.cuda.is_available():
         print("dgrad_tiles_ab: no CUDA device")
         return 1
@@ -120,18 +129,25 @@ def main(argv=None) -> int:
                         generator=gen) / (9 * co) ** 0.5
         g, z, w = g.to(dtype), z.to(dtype), w.to(dtype)
         want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
+        # the bf16 builds run on the dz pass's dz, as bf16 training calls
+        # them (prologue off, the tiles of the dgrad with its prologue)
+        operands = ((direct_conv2d.cotangent_pass(g, z, "relu", False)[0],
+                     None, None) if args.dtype == "bf16"
+                    else (g, z, "relu"))
         scale = want.abs().max().item()
         tol = 1e-4 * (1 + scale) if args.dtype == "f32" else 1e-2 * scale
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_COUNT, dtype.itemsize):
+                                             PER_COUNT, dtype.itemsize,
+                                             per_chunk):
                 rows = blk.hso if streamed else blk.th
 
                 def run(blk=blk, rows=rows):
+                    d, zz, act = operands
                     err, dx, _ = direct_conv2d.dgrad_launch(
-                        entry, rows, blk, g, w, spec, z, "relu", dtype)
+                        entry, rows, blk, d, w, spec, zz, act, dtype)
                     if err:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
@@ -160,7 +176,7 @@ def main(argv=None) -> int:
                   f"{best[1].th}, tw {best[1].tw}, wgs {best[1].wgs}, chunk "
                   f"{best[1].chunk}) {best[0]:.4f} ms, ratio "
                   f"{chosen[0] / best[0]:.3f}")
-        del g, z, w, want
+        del g, z, w, want, operands
     for streamed, (chosen, best) in sums.items():
         print(f"[sum] {'stream' if streamed else 'window'} {args.dtype}: "
               f"chosen tiles "

@@ -15,12 +15,14 @@ the card's name and power limit, each tile with its ms (the forward's with
 its model cost), per leg the chooser's tile beside the fastest, and the
 sums over the 13 legs.  ``--dtype bf16`` times the bf16 builds
 (``pointwise_tile_kernel_bf16``, ``dgrad_kernel_bf16``) at their
-choosers' candidates (``op_bytes`` 2) on bf16 operands, each output held
-to the plain version under ``BF16`` within one bf16 ulp plus 1e-5 of its
-max.  Needs an H100 and nvcc::
+choosers' candidates (``op_bytes`` 2; the dgrad's a selection,
+``dgrad_tile_candidates``) on bf16 operands, each output held to the plain
+version under ``BF16`` within one bf16 ulp plus 1e-5 of its max (the
+dgrad on the dz pass's dz, as bf16 training calls it); ``--kind``
+times one kernel's tiles alone.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.pointwise_tiles_ab \
-        [--dtype bf16]
+        [--dtype bf16] [--kind fwd|dgrad|both]
 """
 from __future__ import annotations
 
@@ -38,6 +40,9 @@ from repro_torch.launch.separable_parts_ab import pw_legs
 
 ITERS = 10
 FWD_BATCH, DGRAD_BATCH = 8, 32
+# the bf16 dgrad's candidates timed at a leg: the least model cost, and the
+# cheapest of each (consumer count, chunk)
+BF16_TOP, BF16_PER_CHUNK = 12, 4
 
 
 def pointwise_legs():
@@ -71,14 +76,22 @@ def tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4):
 
 
 def dgrad_tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4):
-    """The dense dgrad tiles at 1x1 to time at a leg (``op_bytes`` 2:
-    the bf16 build's), the chooser's first."""
+    """The dense dgrad tiles at 1x1 to time at a leg, the chooser's first:
+    every candidate of the f32 build; of the bf16 build (``op_bytes`` 2)
+    the ``BF16_TOP`` of least model cost and the ``BF16_PER_CHUNK``
+    cheapest of each (consumer count, chunk)."""
     args = _dgrad_args(ci, co, h)
     chosen = choose_dgrad_blocking(*args, prologue=True, op_bytes=op_bytes)
     found = sorted(dgrad_candidates(*args, H100_SXM, True, False, None,
                                     op_bytes),
                    key=lambda kb: kb[0])
-    return [chosen] + [b for _, b in found if b != chosen]
+    keep = [b for _, b in found]
+    if op_bytes == 2:
+        keep = keep[:BF16_TOP] + [
+            b for group in sorted({(b.wgs, b.chunk) for b in keep})
+            for b in [b for b in keep
+                      if (b.wgs, b.chunk) == group][:BF16_PER_CHUNK]]
+    return [chosen] + [b for b in dict.fromkeys(keep) if b != chosen]
 
 
 def _time_all(runs):
@@ -112,6 +125,8 @@ def _check_bf16_run(what, run, want, scale):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--kind", choices=("fwd", "dgrad", "both"),
+                    default="both", help="the tiles of one kernel alone")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("pointwise_tiles_ab: no CUDA device")
@@ -125,6 +140,7 @@ def main(argv=None) -> int:
                                               direct_conv_dgrad_blocked)
     from repro_torch.kernels import conv2d_pointwise as pwk
     from repro_torch.kernels.direct_conv2d import (_ACT_CODES, _bwd_lib,
+                                                   cotangent_pass,
                                                    dgrad_launch)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -132,10 +148,11 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     weight = {leg: pw_legs().count(leg) for leg in pointwise_legs()}
-    sums = {kind: [0.0, 0.0] for kind in ("fwd", "dgrad")}
+    kinds = ("fwd", "dgrad") if args.kind == "both" else (args.kind,)
+    sums = {kind: [0.0, 0.0] for kind in kinds}
     for ci, co, h in pointwise_legs():
         cib, cob = min(ci, 128), min(co, 128)
-        for kind in ("fwd", "dgrad"):
+        for kind in kinds:
             n = FWD_BATCH if kind == "fwd" else DGRAD_BATCH
             x = torch.randn((n, ci // cib, h, h, cib), device=dev,
                             generator=gen).to(dt)
@@ -184,10 +201,14 @@ def main(argv=None) -> int:
                 spec = ConvSpec.make(n, h, h, ci, co, 1, 1)
                 tiles = dgrad_tile_candidates(ci, co, h, op_bytes)
                 entry = getattr(_bwd_lib(), "direct_conv2d_dgrad" + suffix)
+                # the bf16 build on the dz pass's dz, as training calls it
+                operands = ((cotangent_pass(g, z, "relu", False)[0], None,
+                             None) if bf16 else (g, z, "relu"))
                 for blk in tiles:
                     def run(blk=blk):
-                        err, dx, _ = dgrad_launch(entry, blk.th, blk, g, w,
-                                                  spec, z, "relu", dt)
+                        err, dx, _ = dgrad_launch(entry, blk.th, blk,
+                                                  operands[0], w, spec,
+                                                  *operands[1:], dt)
                         if err:
                             raise RuntimeError(f"dgrad {blk}: CUDA error "
                                                f"{err}")

@@ -27,12 +27,17 @@ Tolerances, and why:
   layers, each rounded once per layer in both, may round apart.
 
 Also here: the kernels' tile arithmetic in numpy against the plain version
-(k16 slices, Cob and the positions padded to 16, the phase split, a fresh
-f32 accumulator a stage whose adds round toward zero, added into a running
-f32 sum, dz rounded to bf16 as the producer forms it, the ``db`` pass), the
-choosers at 2-byte operands at every VGG-16 shape of both routes, and the
-refusals (float16 training, no build reached from a CPU tensor).  The
-separable families' bf16 training is in ``tests/test_torch_separable_bf16.py``.
+(k16 slices, Cob and the positions padded to 16, the phase split; the
+dgrad's m-tile rows the window's flattened cells, halo columns computed and
+not stored, one f32 accumulator over the whole contraction whose adds round
+toward zero, VGG-16's longest contraction and the 1x1 tile among the cases;
+the wgrad's fresh accumulator a stage added into a running f32 sum; dz
+rounded to bf16 as the producer forms it, the ``db`` pass), the choosers at
+2-byte operands at every VGG-16 shape of both routes and the bf16 dgrad's
+tiles pinned as timed on the card, the dgrad's parts A/B and chip_smoke.py's
+SASS count, and the refusals (float16 training, no build reached from a CPU
+tensor).  The separable families' bf16 training is in
+``tests/test_torch_separable_bf16.py``.
 """
 import dataclasses
 
@@ -257,19 +262,37 @@ def _add_rz(acc, v):
     return r
 
 
-def _tile_dgrad_bf16(dz, wt, hw, stride, pads, blk, streamed):
+def _tile_dgrad_bf16(dz, wt, hw, stride, pads, blk, streamed, f32=False):
     """``dgrad_kernel_bf16`` / ``stream_dgrad_kernel_bf16`` in numpy: per
-    CTA the window of bf16 dz (zero outside the map, Cob padded to 16); per
-    stage (Co block, chunk of a multiple of 16 channels) a fresh f32
-    accumulator that takes each k16 slice's exact sum rounding toward zero,
-    tap by tap of the phase, then is added into the running f32 sum; dx the
-    sum rounded once to bf16.  -> dx as f32 holding bf16 values."""
+    CTA the window of bf16 dz (zero outside the map, Cob padded to 16)
+    flattened row-major, ``dgrad_bf16_wpitch`` cells a window row; each
+    consumer's m-tile 64 consecutive cells (the window tile's consumers 64
+    apart, the streamed band's strips ``mstride`` apart); one f32
+    accumulator over (Co block, chunk, tap, k16 slice) that takes each
+    slice's exact sum rounding toward zero, a tap's rows read ``(mh - t_h)
+    * wpitch + mw - t_w`` cells on; rows on the window's halo columns or
+    past the tile computed and not stored; dx the sum rounded once to bf16
+    (``f32``: the f32 sums).  -> dx as f32."""
     n, coblk, ho, wo, cob = dz.shape
     _, ciblk, hf, wf, cib, _ = wt.shape
     hi, wi = hw
     mh, mw = -(-hf // stride), -(-wf // stride)
     kpad = -(-cob // 16) * 16
-    assert blk.chunk % 16 == 0 and kpad % blk.chunk == 0
+    assert blk.chunk in (16, 32, 64) and kpad % blk.chunk == 0
+    pitch = blocking.dgrad_bf16_wpitch(blk.wwin, blk.chunk, streamed)
+    rows = 64
+    starts = ([k * blk.mstride for k in range(blk.strips)] if streamed
+              else [rows * k for k in range(blk.wgs)])
+    if streamed:
+        assert (blk.hso - 1) * pitch + blk.tw <= rows
+        assert blk.mstride == blk.hso * pitch
+    else:
+        assert (blk.th - 1) * pitch + blk.tw <= rows * blk.wgs
+    # the slot's cells: the window's and as far as the last m-tile reads
+    cells = max(blk.hwin * pitch, starts[-1] + rows + (mh - 1) * pitch
+                + mw - 1)
+    assert cells * 2 * blk.chunk <= blocking.dgrad_bf16_smem_bytes(
+        blk, hf, wf, stride, False)
     dzp = np.zeros(dz.shape[:4] + (kpad,), np.float32)
     dzp[..., :cob] = dz
     wp = np.zeros(wt.shape[:5] + (kpad,), np.float32)
@@ -278,40 +301,41 @@ def _tile_dgrad_bf16(dz, wt, hw, stride, pads, blk, streamed):
     for r, c, a0, b0 in blocking.dgrad_tiles(blk, hi, wi, hf, wf, stride,
                                              pads):
         o_h, o_w = r.q0 + a0 - (mh - 1), c.q0 + b0 - (mw - 1)
-        win = np.zeros((n, coblk, blk.hwin, blk.wwin, kpad), np.float32)
+        win = np.zeros((n, coblk, cells, kpad), np.float32)
         for rr in range(blk.hwin):
-            for cc in range(blk.wwin):
+            for cc in range(pitch):
                 if 0 <= o_h + rr < ho and 0 <= o_w + cc < wo:
-                    win[:, :, rr, cc] = dzp[:, :, o_h + rr, o_w + cc]
-        mtiles = blk.strips if streamed else 1
-        qs = 64 if streamed else 64 * blk.wgs
-        positions = [mt * blk.mstride + q for mt in range(mtiles)
-                     for q in range(qs) if q < blk.mstride]
-        assert sorted(p for p in positions if p < blk.th * blk.tw) == list(
-            range(blk.th * blk.tw))
-        for p in range(blk.th * blk.tw):
-            a, bb = a0 + p // blk.tw, b0 + p % blk.tw
-            total = np.zeros((n, ciblk, cib), np.float32)
+                    win[:, :, rr * pitch + cc] = dzp[:, :, o_h + rr, o_w + cc]
+        for k, f0 in enumerate(starts):
+            acc = np.zeros((n, ciblk, rows, cib), np.float32)
             for o_b in range(coblk):
                 for c0 in range(0, kpad, blk.chunk):
-                    acc = np.zeros((n, ciblk, cib), np.float32)
                     for th in range(r.taps):
                         for tw in range(c.taps):
-                            cell = win[:, o_b, p // blk.tw + mh - 1 - th,
-                                       p % blk.tw + mw - 1 - tw]
+                            shift = (mh - 1 - th) * pitch + mw - 1 - tw
+                            a = win[:, o_b, f0 + shift:f0 + shift + rows]
                             dh = r.phase + stride * th
                             dw = c.phase + stride * tw
-                            for k in range(c0, c0 + blk.chunk, 16):
+                            for kk in range(c0, c0 + blk.chunk, 16):
                                 acc = _add_rz(acc, np.einsum(
-                                    "nk,bck->nbc",
-                                    cell[:, k:k + 16].astype(np.float64),
-                                    wp[o_b, :, dh, dw, :, k:k + 16]
+                                    "nmk,bck->nbmc",
+                                    a[..., kk:kk + 16].astype(np.float64),
+                                    wp[o_b, :, dh, dw, :, kk:kk + 16]
                                     .astype(np.float64)))
-                    total = total + acc
-            if a < r.extent and bb < c.extent:
-                dx[:, :, r.first + stride * a, c.first + stride * bb] = total
+            for q in range(rows):
+                if streamed and q >= blk.mstride:
+                    continue                     # the next strip's rows
+                ra, rb = divmod(f0 + q, pitch)
+                if ra >= blk.th or rb >= blk.tw:
+                    continue                     # a halo column or past
+                a, bb = a0 + ra, b0 + rb
+                if a < r.extent and bb < c.extent:
+                    at = (slice(None), slice(None), r.first + stride * a,
+                          c.first + stride * bb)
+                    assert np.isnan(dx[at]).all()       # stored once
+                    dx[at] = acc[:, :, q]
     assert not np.isnan(dx).any()           # every position written once
-    return _bf16(dx)
+    return dx if f32 else _bf16(dx)
 
 
 def _tile_wgrad_bf16(x, dz, blk, hf, wf, stride, pads, streamed):
@@ -467,8 +491,17 @@ TILE_CASES_GEMM = [
 ]
 
 
+# more for the bf16 dgrad: the longest contraction on the main paths
+# (VGG-16's 9 x 512: Cob 128, four Co blocks, 288 k16 slices into the one
+# accumulator) on a narrow map
+DGRAD_TILE_CASES = [
+    (1, 8, 512, 5, 8, 128, 1, "SAME", "relu"),
+]
+
+
 @pytest.mark.parametrize("streamed", [False, True])
-@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,padding,act", TILE_CASES)
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,stride,padding,act",
+                         TILE_CASES + DGRAD_TILE_CASES)
 def test_bf16_dgrad_tile_arithmetic_matches_plain_version(
         streamed, n, ci, co, h, cib, cob, stride, padding, act):
     x, w, z, g, spec = _operands(3, n, ci, co, h, cib, cob, stride, padding)
@@ -484,13 +517,66 @@ def test_bf16_dgrad_tile_arithmetic_matches_plain_version(
     # a small tile overhanging the phases' edges at chunk 16
     rows, tw = 1, 3
     th = rows * blks[0].strips if streamed else 2
+    wwin = tw + -(-3 // stride) - 1
     blks.append(dataclasses.replace(
         blks[0], th=th, tw=tw, chunk=16, hwin=th + -(-3 // stride) - 1,
-        wwin=tw + -(-3 // stride) - 1,
-        mstride=rows * tw if streamed else blks[0].mstride))
+        wwin=wwin,
+        mstride=(rows * blocking.dgrad_bf16_wpitch(wwin, 16, True)
+                 if streamed else blks[0].mstride)))
     for blk in blks:
         got = _tile_dgrad_bf16(dz, w, (h, h), stride, pads, blk, streamed)
         _bf16_close(got, want)
+    if ci // cib * cob * 9 < 9 * 512:
+        return
+    # the longest contraction: the one truncating accumulator's f32 sums
+    # within a rounding toward zero of each of the 288 slice additions of
+    # the exact sums (2^-23 of the running magnitude, at most the sum of
+    # the terms' magnitudes), and far inside dx's bf16 rounding
+    steps = co // 16 * 9
+    f32 = _tile_dgrad_bf16(dz, w, (h, h), stride, pads, blks[0], streamed,
+                           f32=True)
+    td, tw_ = torch.from_numpy(dz).double(), torch.from_numpy(w).double()
+    exact = direct_conv_dgrad_blocked(td, tw_, (h, h), stride,
+                                      padding).numpy()
+    mag = direct_conv_dgrad_blocked(td.abs(), tw_.abs(), (h, h), stride,
+                                    padding).numpy()
+    drift = np.abs(f32.astype(np.float64) - exact)
+    assert (drift <= steps * 2.0 ** -23 * mag).all()
+    assert drift.max() <= 0.01 * 2.0 ** -8 * np.abs(exact).max()
+
+
+PW_DGRAD_CASES = [
+    (2, 16, 64, 7, 16, 64, "relu"),
+    (1, 64, 256, 5, 64, 128, "gelu"),        # two Co blocks, Cib 64
+    (2, 8, 12, 6, 8, 12, None),              # Cob 12: k16 padding
+]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,act", PW_DGRAD_CASES)
+def test_bf16_dgrad_tile_arithmetic_at_1x1(streamed, n, ci, co, h, cib, cob,
+                                           act):
+    # MobileNet's pointwise dgrad runs the dense bf16 dgrad at a 1x1
+    # filter: no halo, an m-tile's rows the tile's positions
+    rng = np.random.default_rng(11)
+    x = _bf16(rng.normal(size=(n, ci // cib, h, h, cib)))
+    w = _bf16(rng.normal(size=(co // cob, ci // cib, 1, 1, cib, cob))
+              / np.sqrt(ci))
+    z = dck.direct_conv_preactivation(_tb(x), _tb(w), 1, "VALID",
+                                      precision="bf16").float().numpy()
+    g = _bf16(rng.normal(size=z.shape))
+    zz = _tb(z) if act else None
+    dz = cotangent_prologue(_tb(g), zz, act).float().numpy()
+    want = direct_conv_dgrad_blocked(_tb(g), _tb(w), (h, h), 1, "VALID", zz,
+                                     act).float().numpy()
+    pads = normalize_padding("VALID", 1, 1, 1, h, h)
+    choose = (blocking.choose_stream_dgrad_blocking if streamed
+              else blocking.choose_dgrad_blocking)
+    blk = choose(n, h, h, 1, 1, 1, ci // cib, cib, cob,
+                 prologue=act is not None, op_bytes=2)
+    assert blk.hwin == blk.th and blk.wwin == blk.tw
+    _bf16_close(_tile_dgrad_bf16(dz, w, (h, h), 1, pads, blk, streamed),
+                want)
 
 
 @pytest.mark.parametrize("streamed", [False, True])
@@ -625,18 +711,112 @@ def test_bf16_backward_choosers_fit_the_cta_at_vgg16_shapes(streamed, ci, co,
              else blocking.choose_dgrad_blocking)
     f32, bf = (dgrad(n, h, h, 3, 3, s, ci // cib, cib, cob, prologue=True,
                      op_bytes=ob) for ob in (4, 2))
-    assert bf.chunk % 16 == 0 and (-(-cob // 16) * 16) % bf.chunk == 0
-    assert blocking.dgrad_smem_bytes(
-        3, 3, s, bf.lanes, bf.chunk, bf.hwin, bf.wwin, True, streamed,
-        2) <= H100_SXM.smem_block
-    assert 1 <= bf.wgs <= (2 if bf.lanes == 128 else 3)
-    assert bf.th * bf.tw <= 64 * bf.wgs
+    # a chunk of one swizzle row; the tile's flattened window rows (halo
+    # columns included) in its m-tiles; three consumers at every width
+    assert bf.chunk in (16, 32, 64) and (-(-cob // 16) * 16) % bf.chunk == 0
+    assert blocking.dgrad_bf16_smem_bytes(bf, 3, 3, s, True) \
+        <= H100_SXM.smem_block
+    assert 1 <= bf.wgs <= 3
+    pitch = blocking.dgrad_bf16_wpitch(bf.wwin, bf.chunk, streamed)
+    assert (bf.hso - 1) * pitch + bf.tw <= 64 * (1 if streamed else bf.wgs)
     assert bf.th * bf.tw * bf.chunk >= f32.th * f32.tw * f32.chunk
     plan = blocking.dgrad_plan(bf, n, h, h, 3, 3, s,
                                ConvSpec.make(n, h, h, ci, co, 3, 3, s,
                                              "SAME").pads,
                                ci // cib, cib, co // cob, cob, 2)
     assert plan.products == 1 and plan.issued_macs >= plan.function_macs
+
+
+# (th, tw, wgs, chunk) that the bf16 dgrad choosers take at each of VGG-16's
+# dgrads (batch 8, 224x224 entry, the relu prologue's tiles: window, then
+# streamed) and at MobileNet v1's distinct pointwise legs (batch 32, 1x1),
+# each with its time over the fastest candidate's on dz in `python -m
+# repro_torch.launch.dgrad_tiles_ab --dtype bf16` and
+# `python -m repro_torch.launch.pointwise_tiles_ab --dtype bf16 --kind
+# dgrad` on an H100 80GB HBM3 at 700 W: summed, 0.7971 ms window and
+# 1.0450 ms streamed against 0.7888 and 1.0279 for the fastest tile timed
+# at each layer, and 0.4166 ms over MobileNet's 13 legs against 0.4076.
+# A change to the cost model that moves a tile shows here; time it with
+# those scripts before repinning.
+CHOSEN_BF16_DGRAD_TILES = {
+    "conv1_2": ((4, 46, 3, 64), 1.008, (6, 31, 3, 64), 1.010),
+    "conv2_1": ((8, 23, 3, 64), 1.000, (9, 19, 3, 64), 1.005),
+    "conv2_2": ((7, 25, 3, 64), 1.013, (9, 20, 3, 64), 1.046),
+    "conv3_1": ((14, 12, 3, 64), 1.012, (12, 14, 3, 64), 1.023),
+    "conv3_2": ((4, 30, 2, 64), 1.024, (4, 31, 2, 64), 1.009),
+    "conv3_3": ((4, 30, 2, 64), 1.025, (4, 31, 2, 64), 1.021),
+    "conv4_1": ((14, 10, 3, 64), 1.013, (15, 10, 3, 64), 1.014),
+    "conv4_2": ((7, 16, 2, 64), 1.011, (8, 14, 2, 64), 1.000),
+    "conv4_3": ((7, 16, 2, 64), 1.004, (8, 14, 2, 64), 1.000),
+    "conv5_1": ((14, 7, 2, 64), 1.000, (14, 7, 2, 64), 1.002),
+    "conv5_2": ((7, 7, 1, 64), 1.004, (8, 14, 2, 64), 1.074),
+    "conv5_3": ((7, 7, 1, 64), 1.000, (8, 14, 2, 64), 1.051),
+}
+CHOSEN_BF16_POINTWISE_DGRAD_TILES = {
+    (32, 64, 112): ((23, 8, 3, 64), 1.002),
+    (64, 128, 56): ((56, 3, 3, 64), 1.034),
+    (128, 128, 56): ((56, 3, 3, 64), 1.080),
+    (128, 256, 28): ((14, 7, 2, 64), 1.037),
+    (256, 256, 28): ((28, 5, 3, 64), 1.009),
+    (256, 512, 14): ((14, 7, 2, 64), 1.021),
+    (512, 512, 14): ((14, 7, 2, 64), 1.016),
+    (512, 1024, 7): ((7, 7, 1, 64), 1.000),
+    (1024, 1024, 7): ((7, 7, 1, 64), 1.000),
+}
+
+
+def test_bf16_dgrad_choosers_take_the_tiles_timed_on_the_card():
+    from repro_torch.launch.dgrad_tiles_ab import dgrad_layers
+    from repro_torch.launch.pointwise_tiles_ab import pointwise_legs
+    got = {}
+    for name, ci, co, s, h in dgrad_layers():
+        cib, cob = min(ci, 128), min(co, 128)
+        tiles = [choose(8, h, h, 3, 3, s, ci // cib, cib, cob, prologue=True,
+                        op_bytes=2)
+                 for choose in (blocking.choose_dgrad_blocking,
+                                blocking.choose_stream_dgrad_blocking)]
+        got[name] = tuple((b.th, b.tw, b.wgs, b.chunk) for b in tiles)
+    assert got == {name: (w, st) for name, (w, _, st, _)
+                   in CHOSEN_BF16_DGRAD_TILES.items()}
+    got = {}
+    for ci, co, h in pointwise_legs():
+        cib, cob = min(ci, 128), min(co, 128)
+        b = blocking.choose_dgrad_blocking(32, h, h, 1, 1, 1, ci // cib, cib,
+                                           cob, prologue=True, op_bytes=2)
+        got[(ci, co, h)] = (b.th, b.tw, b.wgs, b.chunk)
+    assert got == {leg: tile for leg, (tile, _)
+                   in CHOSEN_BF16_POINTWISE_DGRAD_TILES.items()}
+    # the f32 choosers' tiles stay as timed (test_torch_dgrad_phases.py)
+    from test_torch_dgrad_phases import CHOSEN_DGRAD_TILES
+    for name, ci, co, s, h in dgrad_layers():
+        cib, cob = min(ci, 128), min(co, 128)
+        b = blocking.choose_dgrad_blocking(8, h, h, 3, 3, s, ci // cib, cib,
+                                           cob, prologue=True)
+        assert (b.th, b.tw, b.wgs, b.chunk) == CHOSEN_DGRAD_TILES[name][0]
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+@pytest.mark.parametrize("n,ci,co,h,s,cob", [
+    (8, 64, 6, 56, 2, 6),            # Cob 6: 4-byte copies
+    (8, 512, 1000, 14, 1, 125),      # Co 1000 at Cob 125: 2-byte copies
+    (1, 64, 250, 14, 1, 125),
+])
+def test_bf16_dgrad_choosers_fit_both_rings_on_the_copies_path(streamed, n,
+                                                                ci, co, h, s,
+                                                                cob):
+    # where Cob is no multiple of 8 the producer copies a slot at a time:
+    # the tile chosen must still hold two window slots and two weight slots
+    # in the CTA with the rest (a chooser that took this for granted failed
+    # a Co 1000 launch on the card)
+    cib = min(ci, 128)
+    choose = (blocking.choose_stream_dgrad_blocking if streamed
+              else blocking.choose_dgrad_blocking)
+    blk = choose(n, h, h, 3, 3, s, ci // cib, cib, cob, prologue=True,
+                 op_bytes=2)
+    windows, rows = blocking.dgrad_bf16_rings(blk, 3, 3, s, True)
+    assert windows >= 2 and rows >= 2
+    assert blocking.dgrad_bf16_smem_bytes(blk, 3, 3, s, True) \
+        <= H100_SXM.smem_block
 
 
 # ---------------------------------------------------------------------------
@@ -746,3 +926,59 @@ def test_cpu_tensors_never_reach_a_build(monkeypatch):
                               "relu", precision="bf16",
                               stream=stream).float().sum().backward()
         assert wt.grad is not None
+
+
+# ---------------------------------------------------------------------------
+# the bf16 dgrad's scripts: its parts A/B and chip_smoke.py's SASS count
+# ---------------------------------------------------------------------------
+
+def test_dgrad_parts_ab_parses_its_layers_flags_and_edits():
+    # launch/dgrad_parts_ab.py: VGG-16's 12 dgrad layers (3x3, batch 8),
+    # then two MobileNet pointwise legs (1x1, batch 32); its edits name
+    # this tree's sources
+    from repro_torch.kernels._build import CSRC
+    from repro_torch.launch import dgrad_parts_ab as ab
+    from repro_torch.launch import dgrad_tiles_ab
+    layers = ab.layers()
+    assert [name for name, *_ in layers[:12]] == dgrad_tiles_ab.NAMES[1:]
+    assert [(n, f) for _, n, *_, f in layers] == [(8, 3)] * 12 + [(32, 1)] * 2
+    assert set(ab.VARIANTS) == {"whole", "no_wgmma", "no_copy"}
+    for edits in ab.VARIANTS.values():
+        for name, old, new in edits:
+            assert (CSRC / name).read_text().count(old) == 1, (name, old)
+            assert new != old
+    assert ab.main(["--dtype", "bf16"]) == 1       # no CUDA device here
+    with pytest.raises(SystemExit):
+        ab.main(["--dtype", "f32"])
+
+
+SASS_EXCERPT = """
+\tcode for sm_90a
+\t\tFunction : _ZN12_GLOBAL__N_117dgrad_kernel_bf16ILi128EEEvPK13__nv_bf16
+\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS"
+        /*0a10*/                   WARPGROUP.ARRIVE ;
+        /*0a20*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24 ;
+        /*0a30*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;
+        /*0a40*/                   WARPGROUP.DEPBAR.LE gsb0, 0x1 ;
+        /*0a50*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+\t\tFunction : _ZN12_GLOBAL__N_112dgrad_kernelILi64EEEvPKf
+        /*0100*/                   HMMA.1684.F32.TF32 R4, R8, R12, R4 ;
+        /*0110*/                   HGMMA.64x64x8.F32.TF32 R24, R16, gdesc[UR4], R24 ;
+        /*0120*/                   WARPGROUP.DEPBAR.LE gsb0, 0x0 ;
+"""
+
+
+def test_chip_smoke_counts_wgmmas_and_their_waits_in_sass():
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_sass", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    counts = smoke.sass_counts(SASS_EXCERPT)
+    assert counts == {
+        "_ZN12_GLOBAL__N_117dgrad_kernel_bf16ILi128EEEvPK13__nv_bf16":
+            (2, 0, 2),
+        "_ZN12_GLOBAL__N_112dgrad_kernelILi64EEEvPKf": (1, 1, 1)}
+    assert smoke.BF16_DGRAD_KERNEL in next(iter(counts))
+    assert smoke.sass_counts("") == {}

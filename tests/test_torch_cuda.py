@@ -1468,6 +1468,60 @@ def test_bf16_dgrads_on_dz_are_their_prologue_bit_for_bit(
         assert torch.equal(on_dz, with_prologue)
 
 
+# the bf16 dgrads at a filter whose phases take more taps than 3x3's do
+# (5x5: 5 x 5 taps at stride 1; 3 x 3, 3 x 2, 2 x 3, 2 x 2 at stride 2),
+# which the tap loop runs where the straight-line stages of filters up to
+# 3x3 do not
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_dgrad_kernels_take_a_5x5_filter(cuda, stride):
+    gen = torch.Generator(device=cuda).manual_seed(5 + stride)
+    n, ci, co, h = 2, 64, 128, 13
+    ho = -(-h // stride)
+    g = torch.randn((n, 1, ho, ho, co), device=cuda, generator=gen).bfloat16()
+    z = torch.randn(g.shape, device=cuda, generator=gen).bfloat16()
+    w = (torch.randn((1, 1, 5, 5, ci, co), device=cuda, generator=gen)
+         / (25 * ci) ** 0.5).bfloat16()
+    want = direct_conv_dgrad_blocked(g, w, (h, h), stride, "SAME", z, "relu")
+    reset_launches()
+    stk.reset_launches()
+    for route in (False, True):
+        dx = direct_conv2d_dgrad(g, w, (h, h), stride, "SAME", z, "relu",
+                                 stream=route, precision="bf16")
+        torch.cuda.synchronize()
+        _bf16_close(dx, want)
+    assert LAUNCHES["direct_conv2d_dgrad_bf16"] == 1
+    assert stk.LAUNCHES["conv2d_stream_dgrad_bf16"] == 1
+
+
+# the kernel library's own carve-up of a bf16 dgrad CTA (its shared memory
+# and both rings' slots, from its *_plan entry) is the Python model's
+# (core.blocking.dgrad_bf16_smem_bytes, dgrad_bf16_rings) at every tile the
+# choosers take on the main paths: VGG-16's dgrads on both routes, with the
+# prologue and without, MobileNet's pointwise legs, and the copies' paths
+def test_bf16_dgrad_plans_hold_the_model_carve_up_at_the_chosen_tiles(cuda):
+    from repro_torch.launch.dgrad_tiles_ab import dgrad_layers
+    from repro_torch.launch.pointwise_tiles_ab import pointwise_legs
+    cases = [(8, ci, co, s, h, 3, min(co, 128))
+             for _, ci, co, s, h in dgrad_layers()]
+    cases += [(32, ci, co, 1, h, 1, min(co, 128))
+              for ci, co, h in pointwise_legs()]
+    cases += [(8, 64, 6, 2, 56, 3, 6), (8, 512, 1000, 1, 14, 3, 125)]
+    bf = torch.bfloat16
+    for n, ci, co, s, h, f, cob in cases:
+        cib = min(ci, 128)
+        ho = -(-h // s)
+        g = torch.empty((n, co // cob, ho, ho, cob), device=cuda, dtype=bf)
+        w = torch.empty((co // cob, ci // cib, f, f, cib, cob), device=cuda,
+                        dtype=bf)
+        padding = "SAME" if f > 1 else "VALID"
+        for z, act in ((g, "relu"), (None, None)):
+            for streamed in (False, True):
+                kernel, model = dgrad_plans(g, w, (h, h), s, padding, z, act,
+                                            streamed=streamed, dtype=bf)
+                assert kernel == model, (n, ci, co, s, h, streamed, act)
+                assert kernel.window_slots >= 2 and kernel.weight_slots >= 2
+
+
 def test_bf16_pointwise_wgrad_at_a_7x7_leg(cuda):
     # 49 positions a tile padded to 64 (K past the map zero), 1x1 flat rows
     n, ci, co, h, cib, cob = 4, 256, 192, 7, 128, 64
