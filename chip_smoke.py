@@ -21,7 +21,9 @@ and no phase catches its own failure:
    kernels (``csrc/dgrad_tile.cuh``) must have tensor-core instructions and
    spill nothing (each line counts HGMMA, HMMA and ``WARPGROUP.DEPBAR``,
    a wait for wgmmas in flight: the bf16 builds, ``dgrad_kernel_bf16`` and
-   ``stream_dgrad_kernel_bf16``, must hold fewer waits than HGMMA), and each instance of the two wgrad kernels
+   ``stream_dgrad_kernel_bf16``, must hold fewer waits than HGMMA, and so
+   must the dense forwards' bf16 builds, ``fwd_kernel_bf16`` and
+   ``stream_fwd_kernel_bf16``), and each instance of the two wgrad kernels
    (``csrc/wgrad_tile.cuh``), of the two dense forwards (``fwd_kernel``,
    ``stream_fwd_kernel``, on ``csrc/fwd_tile.cuh``) and of the pointwise
    forward's tile (``pointwise_tile_kernel``, its bf16 build included)
@@ -191,7 +193,9 @@ and no phase catches its own failure:
     ``stream_fwd_kernel_bf16``) against the plain version under ``BF16``
     at every VGG-16 shape of both buckets and at gelu + residual + GAP
     shapes with ``Cib = 3`` and 64 (one bf16 ulp plus ``BF16_FWD_REL`` of
-    max|y|); the GAP replay (``conv2d_common.gap_replay``) bit for bit the
+    max|y|; at every VGG-16 shape two runs bit for bit, and the kernel
+    library's ``*_plan``, its ring slots included, ``core.blocking``'s);
+    the GAP replay (``conv2d_common.gap_replay``) bit for bit the
     kernel's pooled features on its own stored map, f32 and bf16, both
     routes; the last main paths: VGG-16 (phase 4's weights) served in
     bf16 through ``ConvServer``, window then ``stream=True``, 24 requests
@@ -203,7 +207,8 @@ and no phase catches its own failure:
     forward (f32, bf16) and one train step through the kernels against the
     plain path; per-layer and summed bf16 times (eager, CUDA graph, plain,
     cuDNN bf16 channels-last, the bound at the bf16 peak, the weight
-    cast) and the whole bf16 forward;
+    cast; MobileNet v1's ``conv1`` after VGG-16's 13, outside their sums)
+    and the whole bf16 forward;
 23. bf16 training: the bf16 builds of the dgrad and wgrad tiles
     (``dgrad_kernel_bf16``, ``stream_dgrad_kernel_bf16``,
     ``wgrad_kernel_bf16``, ``stream_wgrad_kernel_bf16``; phase 2 prints
@@ -404,6 +409,10 @@ DGRAD_KERNELS = {"direct_conv2d_bwd": "dgrad_kernel",
 # stream_dgrad_kernel_bf16): wgmma from shared memory, a filter row's
 # issued back to back
 BF16_DGRAD_KERNEL = "dgrad_kernel_bf16"
+# the bf16 builds of the two dense forwards (fwd_kernel_bf16,
+# stream_fwd_kernel_bf16): the same design, a filter row's wgmmas issued
+# back to back
+BF16_FWD_KERNEL = "fwd_kernel_bf16"
 # the wgrad kernels' functions (csrc/wgrad_tile.cuh), 3xTF32 as the dgrads
 WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
                  "conv2d_stream": "stream_wgrad_kernel"}
@@ -3011,11 +3020,28 @@ def bf16_phases(args, dev, t_start, model):
                 got = direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
                                             precision="bf16",
                                             stream=streamed)
+                again = direct_conv2d_blocked(x, w, b, s, "SAME", "relu",
+                                              precision="bf16",
+                                              stream=streamed)
                 torch.cuda.synchronize()
+                label = (f"{'streamed' if streamed else 'window'} conv "
+                         f"{ci}->{co} {h}x{h} s{s} n{BATCH} relu")
                 max_err[streamed] = max(max_err[streamed], bf16_close(
-                    f"{'streamed' if streamed else 'window'} conv {ci}->{co}"
-                    f" {h}x{h} s{s} n{BATCH} relu", got, want))
-            del x, w, want, got
+                    label, got, want))
+                # no sum depends on which CTA of the persistent grid ran
+                # first
+                if not torch.equal(got, again):
+                    fail(f"{label}: two runs differ")
+                kernel, model_plan = fwd_plans(x, w, s, "SAME",
+                                               streamed=streamed,
+                                               dtype=torch.bfloat16)
+                if kernel != model_plan:
+                    fail(f"{label}: the kernel's plan {kernel} != the "
+                         f"blocking model's {model_plan}")
+            del x, w, want, got, again
+        print("[bf16] every bf16 forward above: two runs, identical bits; "
+              "its *_plan (tiles, MACs, shared memory, ring slots) the "
+              "blocking model's")
         for n, ci, co, h, s in ((2, 3, 64, 20, 2), (2, 64, 128, 28, 1)):
             x, w, b, r, _ = operands(n, ci, co, h, s, residual=True)
             want = direct_conv_blocked(x, w, s, "SAME", b, "gelu", "bf16",
@@ -3254,8 +3280,12 @@ def bf16_phases(args, dev, t_start, model):
     # -- 22(f) per-layer times of the bf16 forwards ---------------------------
     rows = {False: [], True: []}
     cast = []
+    # VGG-16's 13 convs (summed below), then MobileNet v1's conv1 (Cib 3,
+    # stride 2: the copies path into phase planes), timed alone
+    timed = list(zip(LAYER_NAMES, layer_shapes(ENTRY))) + [
+        ("mobilenet.conv1", (3, 32, 2, ENTRY))]
     with torch.no_grad():
-        for name, (ci, co, s, h) in zip(LAYER_NAMES, layer_shapes(ENTRY)):
+        for name, (ci, co, s, h) in timed:
             x, w32, b, _, spec = operands(BATCH, ci, co, h, s)
             w = w32.bfloat16()
             (pt, pb), (pl, pr) = spec.pads
@@ -3287,8 +3317,9 @@ def bf16_phases(args, dev, t_start, model):
                     fail(f"bf16 {name}: the kernel's plan {kernel} != the "
                          f"blocking model's {model_plan}")
                 k_ms, g_ms = time_ms(fwd), graph_ms(fwd)
-                rows[streamed].append((k_ms, g_ms, p_ms, l_ms, l_graph, b_ms,
-                                       b_by, kernel))
+                if name != "mobilenet.conv1":
+                    rows[streamed].append((k_ms, g_ms, p_ms, l_ms, l_graph,
+                                           b_ms, b_by, kernel))
                 route = "streamed" if streamed else "window"
                 print(f"[bf16-time] {name} {route} {ci}->{co} in {h}x{h} "
                       f"s{s} n{BATCH}: kernel_ms "
@@ -3299,7 +3330,8 @@ def bf16_phases(args, dev, t_start, model):
                       f"{kernel.tiles} tiles, tensor-core MACs issued "
                       f"{kernel.issued_macs} (padding "
                       f"{100 * kernel.padding_share:.1f} %), shared memory "
-                      f"{kernel.smem} B")
+                      f"{kernel.smem} B, window/weight slots "
+                      f"{kernel.window_slots}/{kernel.weight_slots}")
             del x, w, w32, xp, w_oihw
     entries = []
     for streamed in (False, True):
@@ -4585,9 +4617,10 @@ def main(argv=None) -> int:
                 fail(f"{fn}'s SASS holds no tensor-core instruction")
             if tc is not None and wgrad and not n_hg:
                 fail(f"{fn}'s SASS holds no HGMMA (wgmma)")
-            # the bf16 dgrads issue a filter row's wgmmas back to back:
-            # fewer waits for them than wgmmas
-            if tc is not None and BF16_DGRAD_KERNEL in fn and (
+            # the bf16 dgrads and forwards issue a filter row's wgmmas back
+            # to back: fewer waits for them than wgmmas
+            if tc is not None and (BF16_DGRAD_KERNEL in fn
+                                   or BF16_FWD_KERNEL in fn) and (
                     not n_hg or n_dep >= n_hg):
                 fail(f"{fn} waits for its wgmmas {n_dep} times for "
                      f"{n_hg} HGMMA")

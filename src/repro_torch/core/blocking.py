@@ -66,7 +66,9 @@ from repro_torch.core.layout import divisors
 __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "FWD_ROWS", "FWD_CONSUMERS", "FWD_THREADS", "FWD_WIDE_CONSUMERS",
            "FWD_K_STEP", "fwd_kpad", "FwdBlocking",
-           "fwd_smem_bytes", "FwdPlan", "fwd_plan", "fwd_candidates",
+           "fwd_smem_bytes", "FWD_BF16_CHUNKS", "fwd_bf16_pitch",
+           "FwdBf16Layout", "fwd_bf16_layout", "FwdPlan", "fwd_plan",
+           "fwd_candidates",
            "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
            "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
            "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
@@ -161,19 +163,20 @@ H100_SXM = MachineModel(
 # tests/test_torch_fwd_tiles.py pins the tiles chosen there, so a change
 # here that moves one shows.
 #
-# The bf16 build of the tile (``op_bytes`` 2) contracts bf16 operands on
-# bf16 wgmma, k16 steps, one product a MAC: its chunk is a multiple of 16,
-# Cib pads to k16 slices, its window and weights take 2 bytes an element,
-# and the weights land by TMA straight into the slot the wgmma reads (no
-# raw buffer, no split), so a CTA stages chunks four to five times the f32
-# tile's.  Its cost is the same model at the bf16 rate (twice the TF32
-# MACs a cycle, once a MAC) with no weight split; its constants are the f32
-# fit's, not timed for bf16.
+# The bf16 build of the tile (``op_bytes`` 2) is another design
+# (``fwd_tile.cuh`` namespace bf16, the dgrad's of ``dgrad_tile.cuh``): both
+# wgmma operands from shared memory, the window's cells flattened
+# (``fwd_bf16_pitch`` cells a plane row) so that an m-tile is 64 consecutive
+# cells and a tap the same descriptor started further on, stride ``s`` staged
+# as ``s x s`` phase planes, a window ring and a ring of filter rows' weights
+# (``fwd_bf16_layout``), one accumulator and three consumers at every width,
+# a persistent grid walking (tile, output block x split, image) items.  Its
+# search is ``_fwd_bf16_candidates``, with constants of its own.
 FWD_ROWS = 64
 FWD_CONSUMERS = 3
 FWD_THREADS = 128 * (FWD_CONSUMERS + 1)     # the largest CTA (kMaxThreads)
 # at 128 lanes a consumer's running sum and stage accumulator take 96
-# registers: two consumers at most (kWideConsumers)
+# registers: two consumers at most (kWideConsumers); the f32 tile only
 FWD_WIDE_CONSUMERS = 2
 FWD_WG_EFFICIENCY = {1: 1.0, 2: 1.0, 3: 0.47}
 FWD_STEP_CYCLES = 180       # a warpgroup's A load, split and issue a k8 step
@@ -222,6 +225,11 @@ class FwdBlocking:
     tiles: int
     hwin: int
     wwin: int
+    # m-tile rows from one tile row to the next: 0 where an m-tile's rows
+    # are the tile's positions (the f32 tile), else the bf16 build's
+    # flattened plane rows (``fwd_bf16_pitch``), whose rows past ``tw`` are
+    # computed and not stored
+    pitch: int = 0
 
     @property
     def hso(self) -> int:
@@ -229,12 +237,17 @@ class FwdBlocking:
 
     @property
     def mstride(self) -> int:
-        return FWD_ROWS * self.wgs if self.strips == 1 else self.hso * self.tw
+        """m-tile rows from one consumer's m-tile to the next in the
+        streamed band (a strip's), or the window tile's ``64 * wgs``."""
+        if self.strips == 1:
+            return FWD_ROWS * self.wgs
+        return self.hso * (self.pitch or self.tw)
 
 
 def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                    chunk: int, lanes: int, wgs: int,
-                   gap: bool = False, op_bytes: int = 4) -> int:
+                   gap: bool = False, op_bytes: int = 4,
+                   strips: int = 1) -> int:
     """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``,
     ``fwd_tile::bf16::smem_bytes`` for ``op_bytes`` 2).
 
@@ -246,19 +259,14 @@ def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     the weights' 8-byte mbarrier; with ``gap`` the consumer warps' ``[4 *
     wgs][lanes]`` f32 sums.
 
-    bf16: 128 bytes to align the base; per slot the window (cells of
-    ``chunk + 8`` bf16, rounded up to 128 bytes) and the bf16 weight chunk
-    ``[taps][lanes / 8][chunk][8]`` as the TMA copy lands it; two ints a
-    k16 step (its A and B offsets); an 8-byte mbarrier a slot; the GAP sums
-    as f32's."""
+    bf16: ``fwd_bf16_layout``'s, ``strips`` the streamed band's strips
+    (1: the window kernel)."""
+    if _fwd_k_step(op_bytes) == 16:
+        return fwd_bf16_layout(th, tw, hf, wf, stride, chunk, lanes, wgs,
+                               strips, gap).smem
     hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
     weights = hf * wf * chunk * lanes
     red = 4 * wgs * lanes if gap else 0
-    if _fwd_k_step(op_bytes) == 16:
-        row = stride * -(-wwin // stride) * (chunk + 8)
-        window = -(-hwin * row // 64) * 64
-        steps = hf * wf * chunk // 16
-        return 128 + 2 * 2 * (window + weights) + 8 * steps + 8 * 2 + 4 * red
     row = stride * -(-wwin // stride) * (chunk + 4)
     window = -(-hwin * row // 32) * 32
     steps = hf * wf * chunk // 8
@@ -266,18 +274,96 @@ def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                           + -(-steps // 2) * 2 + red)
 
 
+# The bf16 build's shared memory (fwd_tile.cuh, namespace bf16): a window
+# slot holds the stage's ``s x s`` phase planes, each ``th + ceil(hf/s) - 1``
+# rows of ``fwd_bf16_pitch`` cells of ``2 * chunk`` bytes (one swizzled row),
+# whole 128-byte lines, and past the last plane as far as the last
+# consumer's 64 rows read at the farthest tap; a weight slot one filter
+# row's ``wf`` taps by ``lanes`` by ``chunk``; both in whole 1024 bytes, as
+# many weight slots as fit beside two window slots (up to four), then as
+# many window slots as fit beside them (up to four).
+FWD_BF16_CHUNKS = (64, 32, 16)
+FWD_BF16_WINDOWS = 4
+FWD_BF16_ROWS = 4
+FWD_BF16_BAR_BYTES = 8 * (FWD_BF16_WINDOWS * (2 * FWD_CONSUMERS + 1)
+                          + 2 * FWD_BF16_ROWS)
+FWD_BF16_ATOM = 1024
+# a TMA box's extent along an index, and its element stride, at most
+FWD_BF16_BOX = 256
+FWD_BF16_MAX_STRIDE = 8
+
+
+def fwd_bf16_pitch(tw: int, wf: int, stride: int, chunk: int,
+                   streamed: bool) -> int:
+    """Cells from one plane row to the next in the bf16 build
+    (``fwd_tile::bf16::wpitch``): a plane's ``tw + ceil(wf / stride) - 1``
+    columns, or in the streamed kernel, whose strips' boxes land at each
+    row, that rounded up to whole 128 bytes of ``2 * chunk``-byte cells."""
+    return dgrad_bf16_wpitch(tw + -(-wf // stride) - 1, chunk, streamed)
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdBf16Layout:
+    """One bf16 forward CTA's shared memory (``fwd_tile::bf16``): the
+    plane ``pitch`` and ``plane_cells``, the bytes of a window slot and of
+    a weight slot, the ``windows`` and ``rows`` slots of the two rings, and
+    ``smem`` in all."""
+    pitch: int
+    plane_cells: int
+    window_bytes: int
+    row_bytes: int
+    windows: int
+    rows: int
+    smem: int
+
+
+def fwd_bf16_layout(th: int, tw: int, hf: int, wf: int, stride: int,
+                    chunk: int, lanes: int, wgs: int, strips: int = 1,
+                    gap: bool = False,
+                    smem_block: int = 232448) -> FwdBf16Layout:
+    """The carve-up of one bf16 forward CTA of ``wgs`` consumers (``strips``
+    the streamed band's, 1 the window kernel's): a 1024-byte alignment, the
+    window and weight slots, the mbarriers, with ``gap`` the consumer warps'
+    ``[4 * wgs][lanes]`` f32 sums and a flag (``fwd_tile::bf16::smem_bytes``,
+    ``window_slots``, ``row_slots``)."""
+    streamed = strips > 1
+    cb = 2 * chunk
+    per = 128 // cb if cb < 128 else 1
+    mh, mw = -(-hf // stride), -(-wf // stride)
+    pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed)
+    plane = -(-(th + mh - 1) * pitch // per) * per
+    first = (wgs - 1) * (th // strips * pitch if streamed else FWD_ROWS)
+    read = first + FWD_ROWS + (mh - 1) * pitch + mw - 1
+    cells = (stride * stride - 1) * plane + max(plane, read)
+    atom = FWD_BF16_ATOM
+    window = -(-cells * cb // atom) * atom
+    row = -(-wf * lanes * cb // atom) * atom
+    red = 16 * wgs * lanes + 16 if gap else 0
+    room = smem_block - atom - FWD_BF16_BAR_BYTES - red
+    rows = min(FWD_BF16_ROWS, max(room - 2 * window, 0) // row)
+    windows = min(FWD_BF16_WINDOWS, max(room - rows * row, 0) // window)
+    return FwdBf16Layout(
+        pitch=pitch, plane_cells=plane, window_bytes=window, row_bytes=row,
+        windows=windows, rows=rows,
+        smem=atom + windows * window + rows * row + FWD_BF16_BAR_BYTES + red)
+
+
 @dataclasses.dataclass(frozen=True)
 class FwdPlan:
     """What one forward launch runs (``fwd_tile::plan`` is its C++ twin):
     ``tiles``, an image's tiles; ``function_macs``, positions x taps x Ci
-    x Co; ``issued_macs``, the tensor-core MACs: every CTA's ``64 * wgs``
-    rows by ``lanes`` over every tap and Cib padded to the k-slices,
-    ``products`` each (three for 3xTF32, one for bf16); ``smem``, a CTA's
-    dynamic shared memory."""
+    x Co; ``issued_macs``, the tensor-core MACs: every CTA's (bf16: every
+    item's) ``64 * wgs`` rows by ``lanes`` over every tap and Cib padded to
+    the k-slices, ``products`` each (three for 3xTF32, one for bf16);
+    ``smem``, a CTA's dynamic shared memory; ``window_slots`` and
+    ``weight_slots``, its rings' slots (the f32 tile's one ring holds a
+    stage's window and weights in each of its two)."""
     tiles: int
     function_macs: int
     issued_macs: int
     smem: int
+    window_slots: int = 2
+    weight_slots: int = 2
     products: int = 3
 
     @property
@@ -296,6 +382,11 @@ def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
     """What a launch of the tiles ``blk`` runs over ``n`` images of an ``ho
     x wo`` output, with ``op_bytes`` operands."""
     products = 3 if op_bytes == 4 else 1
+    windows = rows = 2
+    if products == 1:
+        lay = fwd_bf16_layout(blk.th, blk.tw, hf, wf, stride, blk.chunk,
+                              blk.lanes, blk.wgs, blk.strips, gap)
+        windows, rows = lay.windows, lay.rows
     return FwdPlan(
         tiles=blk.tiles,
         function_macs=n * ho * wo * hf * wf * ciblk * cib * coblk * cob,
@@ -303,8 +394,8 @@ def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
                      * blk.wgs * blk.lanes * hf * wf * ciblk
                      * fwd_kpad(cib, op_bytes)),
         smem=fwd_smem_bytes(blk.th, blk.tw, hf, wf, stride, blk.chunk,
-                            blk.lanes, blk.wgs, gap, op_bytes),
-        products=products)
+                            blk.lanes, blk.wgs, gap, op_bytes, blk.strips),
+        window_slots=windows, weight_slots=rows, products=products)
 
 
 def _fwd_shapes(ho: int, wo: int, wgs: int, streamed: bool,
@@ -337,13 +428,15 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
     """The tiles the search weighs, each as ``(key, FwdBlocking)``, the
     least key the choice (see the constants above); ties go to more rows a
     CTA, a larger chunk, fewer splits, fewer tiles, then a smaller
-    window.  ``op_bytes`` 2 weighs the bf16 build."""
-    step = _fwd_k_step(op_bytes)
-    bf16 = step == 16
-    kpad = fwd_kpad(cib, op_bytes)
+    window.  ``op_bytes`` 2 weighs the bf16 build
+    (``_fwd_bf16_candidates``)."""
+    if _fwd_k_step(op_bytes) == 16:
+        return _fwd_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
+                                    coblk, cob, machine, gap, streamed, hso)
+    kpad = fwd_kpad(cib)
     # powers of two: a staged cell's copies then divide the producer's 128
     # threads
-    chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0 and c >= step]
+    chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0]
     taps = hf * wf
     out = []
     for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
@@ -353,17 +446,11 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                 continue                  # a consumer with no row of its own
             hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
             tiles = -(-ho // th) * -(-wo // tw)
-            for nsplit in (1, 2):
-                if nsplit > 1 and cob <= DGRAD_LANES[0]:
-                    continue
-                lanes = next((n_ for n_ in DGRAD_LANES
-                              if -(-cob // nsplit) <= n_), None)
-                if lanes is None or (nsplit - 1) * lanes >= cob or (
-                        lanes == DGRAD_LANES[-1]
-                        and wgs > FWD_WIDE_CONSUMERS):
+            for nsplit, lanes in _fwd_splits(cob):
+                if lanes == DGRAD_LANES[-1] and wgs > FWD_WIDE_CONSUMERS:
                     continue
                 fits = [(c, fwd_smem_bytes(th, tw, hf, wf, stride, c, lanes,
-                                           wgs, gap, op_bytes))
+                                           wgs, gap))
                         for c in chunks]
                 chunk, smem = next(((c, b) for c, b in fits
                                     if b <= machine.smem_block),
@@ -373,23 +460,14 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                 res = 2 if wgs == 1 and 2 * smem <= FWD_SM_SMEM else 1
                 ctas = n * tiles * coblk * nsplit
                 stages = ciblk * kpad // chunk
-                # the tensor cores' MACs a cycle: TF32's, twice that in bf16
-                # at one product a MAC
-                mma = ((1 if bf16 else 3) * res * rows * taps * chunk * lanes
-                       / (DGRAD_MACS_PER_CYCLE * (2 if bf16 else 1))
+                mma = (3 * res * rows * taps * chunk * lanes
+                       / DGRAD_MACS_PER_CYCLE
                        / FWD_WG_EFFICIENCY[min(FWD_CONSUMERS, wgs * res)]
-                       + FWD_STEP_CYCLES * taps * chunk // step)
-                if bf16:     # 16-, 4- or 2-byte window copies; TMA weights
-                    copies = (hwin * wwin * chunk
-                              / (8 if cib % 8 == 0 else 2 if cib % 2 == 0
-                                 else 1)
-                              + (0 if cob % 8 == 0 else taps * chunk * lanes))
-                    split = 0
-                else:
-                    copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
-                              + taps * chunk * lanes / (4 if cob % 4 == 0
-                                                        else 1))
-                    split = FWD_SPLIT_CYCLES * taps * chunk * lanes
+                       + FWD_STEP_CYCLES * taps * chunk // 8)
+                copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
+                          + taps * chunk * lanes / (4 if cob % 4 == 0
+                                                    else 1))
+                split = FWD_SPLIT_CYCLES * taps * chunk * lanes
                 other = FWD_STAGE_CYCLES + (
                     FWD_COPY_CYCLES * copies + split) / 128
                 rounds = -(-(-(-ctas // machine.sms)) // res)
@@ -401,6 +479,139 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                                         lanes=lanes, nsplit=nsplit,
                                         chunk=chunk, tiles=tiles, hwin=hwin,
                                         wwin=wwin)))
+    return out
+
+
+def _fwd_splits(cob: int):
+    """``(nsplit, lanes)``: an output block in one CTA's lanes, or split in
+    two, each at the narrowest compiled wgmma width that holds its half."""
+    out = []
+    for nsplit in (1, 2):
+        if nsplit > 1 and cob <= DGRAD_LANES[0]:
+            continue
+        lanes = next((n_ for n_ in DGRAD_LANES if -(-cob // nsplit) <= n_),
+                     None)
+        if lanes is not None and (nsplit - 1) * lanes < cob:
+            out.append((nsplit, lanes))
+    return out
+
+
+# The bf16 build's search (``_fwd_bf16_candidates``): for each consumer
+# count (1-3 at every width; the streamed band's strips 2-3), chunk (64, 32
+# or 16 dividing Cib padded to 16) and tile width, the tallest tile its
+# m-tiles hold in flattened plane rows (the window tile: ``(th - 1) * pitch
+# + tw <= 64 * wgs``; a streamed strip: ``(hso - 1) * pitch + tw <= 64``),
+# balanced over the map's rows, with both rings of two slots or more, each
+# lane split.  The cost, per SM in cycles: the busiest SM's share of the
+# items (the persistent grid walks them in rounds of the card's SMs) of
+# ``stages`` stages each, a stage the longer of the consumers' wgmmas (every
+# m-tile row, halo columns and rows past the tile included, at
+# FWD_BF16_MACS_PER_CYCLE, the share FWD_BF16_WG_EFFICIENCY of it one to
+# three consumers keep busy) and the producer's copies (a fixed latency
+# shared by the slots in flight, the bytes landed at
+# FWD_BF16_BYTES_PER_CYCLE, a cost a TMA box, and where a pencil takes no
+# TMA a cost a producer thread's copy), and an item's epilogue; ties go to
+# fewer bytes staged a position, then more positions a CTA.  The constants
+# were fitted (a random search, the worst route's chosen-over-fastest sum
+# the objective) to the card's times of the 884 candidates that
+# ``python -m repro_torch.launch.fwd_tiles_ab --dtype bf16 --mobilenet``
+# timed at VGG-16's 13 layers and MobileNet's conv1, both routes, in two
+# runs on an H100 80GB HBM3 at 700 W (PERF.md); they are a fit, not
+# a description of the card.  tests/test_torch_bf16_fwd.py pins the tiles
+# chosen there (CHOSEN_BF16_FWD_TILES).
+FWD_BF16_MACS_PER_CYCLE = 2048
+FWD_BF16_WG_EFFICIENCY = {1: 0.48, 2: 0.93, 3: 1.0}
+FWD_BF16_STAGE_CYCLES = 182
+FWD_BF16_BYTES_PER_CYCLE = 43
+FWD_BF16_BOX_CYCLES = 217
+FWD_BF16_COPY_CYCLES = 11
+FWD_BF16_TILE_CYCLES = 209
+
+
+def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
+                         stride: int, ciblk: int, cib: int, coblk: int,
+                         cob: int, machine: MachineModel, gap: bool,
+                         streamed: bool, hso: int | None):
+    """``fwd_candidates`` of the bf16 build (see the constants above), each
+    tile's ``pitch`` its flattened plane rows'; the same rules as the
+    kernels' ``fwd_tile::bf16::valid``."""
+    if stride > FWD_BF16_MAX_STRIDE:
+        return []
+    kpad = fwd_kpad(cib, 2)
+    taps = hf * wf
+    mh, mw = -(-hf // stride), -(-wf // stride)
+    planes = stride * stride
+    out = []
+    for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
+        for chunk in (c for c in FWD_BF16_CHUNKS if kpad % c == 0):
+            for tw in range(1, min(wo, FWD_ROWS * wgs) + 1):
+                pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed)
+                if stride * pitch > FWD_BF16_BOX:
+                    continue
+                if streamed:              # wgs strips of sh rows
+                    fit = (FWD_ROWS - tw) // pitch + 1
+                    sh = hso if hso is not None else min(-(-ho // wgs), fit)
+                    if sh < 1 or tw > FWD_ROWS or sh > fit:
+                        continue
+                    if hso is None:       # balance the bands over the rows
+                        sh = -(-ho // (wgs * -(-ho // (wgs * sh))))
+                    th, box = wgs * sh, sh
+                else:
+                    th = min(ho, (FWD_ROWS * wgs - tw) // pitch + 1)
+                    th = -(-ho // -(-ho // th))
+                    if (th - 1) * pitch + tw <= FWD_ROWS * (wgs - 1):
+                        continue          # a consumer with no row stored
+                    sh, box = th, th + mh - 1
+                if stride * box > FWD_BF16_BOX:
+                    continue
+                tiles = -(-ho // th) * -(-wo // tw)
+                for nsplit, lanes in _fwd_splits(cob):
+                    lay = fwd_bf16_layout(th, tw, hf, wf, stride, chunk,
+                                          lanes, wgs,
+                                          wgs if streamed else 1, gap,
+                                          machine.smem_block)
+                    if lay.windows < 2 or lay.rows < 2:
+                        continue
+                    ns = min(lay.windows, lay.rows)
+                    mma = (FWD_ROWS * wgs * taps * chunk * lanes
+                           / FWD_BF16_MACS_PER_CYCLE
+                           / FWD_BF16_WG_EFFICIENCY[wgs])
+                    cells = planes * (th + mh - 1) * pitch
+                    staged = 2 * chunk * (taps * lanes + cells)
+                    copies = 0
+                    if cib % 8:           # the window by copies
+                        boxes = 0
+                        copies += cells * chunk // (2 if cib % 2 == 0
+                                                    else 1)
+                    else:
+                        boxes = planes * (
+                            wgs + -(-(sh + mh - 1) // sh) - 1 if streamed
+                            else 1)
+                    if cob % 8 or cob % min(lanes, 64):
+                        # the weights by 2-byte copies
+                        copies += taps * lanes * chunk
+                    copy = (FWD_BF16_STAGE_CYCLES / (ns - 1)
+                            + staged / FWD_BF16_BYTES_PER_CYCLE
+                            + FWD_BF16_BOX_CYCLES * boxes
+                            + FWD_BF16_COPY_CYCLES * copies / 128)
+                    items = n * tiles * coblk * nsplit
+                    stages = ciblk * kpad // chunk
+                    cost = (-(-items // machine.sms)
+                            * (stages * max(mma, copy)
+                               + FWD_BF16_TILE_CYCLES))
+                    hwin = (th - 1) * stride + hf
+                    wwin = (tw - 1) * stride + wf
+                    # ties: fewer bytes staged a position, then more
+                    # positions a CTA
+                    out.append(((cost, staged * stages / (th * tw),
+                                 -th * tw * wgs // (wgs if streamed else 1),
+                                 -chunk, nsplit, tiles, hwin * wwin),
+                                FwdBlocking(th=th, tw=tw, wgs=wgs,
+                                            strips=wgs if streamed else 1,
+                                            lanes=lanes, nsplit=nsplit,
+                                            chunk=chunk, tiles=tiles,
+                                            hwin=hwin, wwin=wwin,
+                                            pitch=lay.pitch)))
     return out
 
 
@@ -1166,6 +1377,8 @@ class WgradPlan:
     function_macs: int
     issued_macs: int
     smem: int
+    window_slots: int = 2
+    weight_slots: int = 2
     products: int = 3
 
     @property

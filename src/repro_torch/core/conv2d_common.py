@@ -132,26 +132,33 @@ def gap_finalize(partials: torch.Tensor, hw: int) -> torch.Tensor:
 
 def gap_replay(out: torch.Tensor, blk) -> torch.Tensor:
     """Pool a stored map ``[N, Co/Cob, Ho, Wo, Cob]`` as the dense forward
-    tile pools it (``csrc/fwd_tile.cuh`` ``run``, the GAP epilogue, and
-    ``split_sum.cuh`` ``gap_fold``) over the tiles ``blk``
-    (``core.blocking.FwdBlocking``: ``th``, ``tw``, ``wgs``, ``strips``)
-    -> ``[N, Co]`` at the map's dtype.
+    tile pools it (``csrc/fwd_tile.cuh`` ``run`` and ``bf16::store_out``,
+    the GAP epilogue, and ``split_sum.cuh`` ``gap_fold``) over the tiles
+    ``blk`` (``core.blocking.FwdBlocking``: ``th``, ``tw``, ``wgs``,
+    ``strips``, ``pitch``) -> ``[N, Co]`` at the map's dtype.
 
     In each tile every consumer thread adds its two rows (m-tile rows
     ``16 * warp + lane / 4`` and 8 below), the eight row groups of a warp
     are added by the ``shfl_xor`` 4, 8, 16 tree, and the consumer warps'
-    sums are added in warp order from 0; a row past the tile, its m-tile
-    or the map adds 0.  The window kernel's m-tile is the tile's ``64 *
-    wgs`` rows; the streamed kernel's warpgroup ``k`` holds strip ``k``.
-    The tiles' sums are then added in index order and multiplied by the f32
-    reciprocal of ``Ho * Wo``, then cast to the map's dtype.  Every step is
-    one f32 addition in that order, so the result is the kernel's pooled
+    sums are added in warp order from 0; a row that stores nothing adds 0.
+    The f32 tile's m-tile rows are the tile's positions (the window
+    kernel's m-tile the tile's ``64 * wgs`` rows, the streamed kernel's
+    warpgroup ``k`` strip ``k``); the bf16 build's (``pitch`` > 0) are
+    window cells, row ``f`` of the tile output position ``(f // pitch, f %
+    pitch)``, stored where the column is below ``tw`` (the window kernel's
+    consumer ``k`` from cell ``64 k``, the streamed kernel's from strip
+    ``k``'s first plane row, ``hso * pitch`` cells a strip).  The tiles'
+    sums are then added in index order and multiplied by the f32
+    reciprocal of ``Ho * Wo``, then cast to the map's dtype.  Every step
+    is one f32 addition in that order, so the result is the kernel's pooled
     features bit for bit when ``out`` is the map the kernel stored (its
     bf16 values for a bf16 map)."""
     n, coblk, ho, wo, cob = out.shape
     th, tw, wgs = blk.th, blk.tw, blk.wgs
     streamed = blk.strips > 1
-    mstride = th // blk.strips * tw if streamed else 64 * wgs
+    pitch = getattr(blk, "pitch", 0) or tw
+    # m-tile rows a consumer's m-tile holds, and its first row's cell
+    rows = blk.hso * pitch if streamed else 64 * wgs
     across = -(-wo // tw)
     tiles = -(-ho // th) * across
     dev = out.device
@@ -161,10 +168,11 @@ def gap_replay(out: torch.Tensor, blk) -> torch.Tensor:
     half = torch.arange(2, device=dev)[None, None, None, :]
     wg = wid // 4
     q = (0 if streamed else 64 * wg) + 16 * (wid % 4) + grp + 8 * half
-    p = (wg * mstride if streamed else 0) + q
-    oh = tile // across * th + p // tw
-    ow = tile % across * tw + p % tw
-    live = (q < mstride) & (p < th * tw) & (oh < ho) & (ow < wo)
+    f = (wg * rows if streamed else 0) + q
+    oh = tile // across * th + f // pitch
+    ow = tile % across * tw + f % pitch
+    live = ((q < rows) & (f % pitch < tw) & (f // pitch < th) & (oh < ho)
+            & (ow < wo))
     at = torch.where(live, oh * wo + ow, ho * wo)      # ho * wo: a zero row
     flat = out.to(torch.float32).reshape(n, coblk, ho * wo, cob)
     flat = torch.cat([flat, flat.new_zeros((n, coblk, 1, cob))], dim=2)

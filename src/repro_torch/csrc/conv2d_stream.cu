@@ -121,21 +121,24 @@ const void* const kFwdKernels[] = {
     (const void*)stream_fwd_kernel<32>, (const void*)stream_fwd_kernel<64>,
     (const void*)stream_fwd_kernel<128>};
 
-// The bf16 build of the same tile (fwd_tile.cuh, namespace bf16): bf16 x,
-// w, residual, out and pooled features, an f32 bias and f32 partials.
+// The bf16 build (fwd_tile.cuh, namespace bf16): bf16 x, w, residual, out
+// and pooled features, an f32 bias and f32 partials; the window build's
+// persistent walk, a strip one 64-row m-tile of the band's flattened plane
+// rows and its fresh rows one copy group.
 template <int N>
-__global__ void __launch_bounds__(ft::max_threads(N), 1)
+__global__ void __launch_bounds__(ft::bf16::max_threads(N), 1)
 stream_fwd_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
+                       const __grid_constant__ CUtensorMap tmx,
                        const __nv_bfloat16* __restrict__ x,
                        const __nv_bfloat16* __restrict__ w,
                        const float* __restrict__ bias,
                        const __nv_bfloat16* __restrict__ residual,
                        __nv_bfloat16* __restrict__ out, float* partials,
                        __nv_bfloat16* __restrict__ pooled, int* counters,
-                       ft::Geometry g) {
+                       ft::Geometry g, int n) {
   extern __shared__ __align__(16) char smem_bf16[];
-  ft::bf16::run<N>(smem_bf16, &tmw, x, w, bias, residual, out, partials,
-                   pooled, counters, g);
+  ft::bf16::run<N>(smem_bf16, &tmw, &tmx, x, w, bias, residual, out,
+                   partials, pooled, counters, g, n);
 }
 
 const void* const kFwdKernelsBf16[] = {
@@ -434,7 +437,8 @@ void conv2d_stream_geometry(int* threads, int* rows, int* consumers) {
 // the fwd_tile::Geometry fields in order (strips == wgs), then the wgmma
 // width, the images, the dynamic shared memory and the operand type (0:
 // f32; 1: the bf16 build, as direct_conv2d_fwd's).  Grid: (bands, Co
-// blocks x nsplit, images).  GAP as direct_conv2d_fwd's.
+// blocks x nsplit, images); the bf16 build's persistent.  GAP as
+// direct_conv2d_fwd's.
 int conv2d_stream_conv(const void* x, const void* w, const void* bias,
                        const void* residual, void* out, void* partials,
                        void* pooled, void* counters, const int* plan,
@@ -443,9 +447,10 @@ int conv2d_stream_conv(const void* x, const void* w, const void* bias,
                     pooled, counters, plan, (cudaStream_t)stream);
 }
 
-// What conv2d_stream_conv runs with the same plan (fwd_tile::plan): out[0]
-// an image's bands, out[1] the function's MACs, out[2] the tensor-core MACs
-// issued, out[3] a CTA's shared memory.
+// What conv2d_stream_conv runs with the same plan (fwd_tile::plan_of):
+// out[0] an image's bands, out[1] the function's MACs, out[2] the
+// tensor-core MACs issued, out[3] a CTA's shared memory, out[4] and out[5]
+// its window and weight slots.
 int conv2d_stream_conv_plan(const int* plan, long long* out) {
   return ft::plan_of(true, plan, out);
 }

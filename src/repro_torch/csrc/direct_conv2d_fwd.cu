@@ -3,8 +3,10 @@
 // Replaces the Pallas TPU kernel `_fwd_kernel`
 // (src/repro/kernels/direct_conv2d.py:102, launched by `_forward_windowed`,
 // pallas_call at :351), in f32 (`fwd_kernel`) and in bf16
-// (`fwd_kernel_bf16`, the tile's bf16 build: bf16 operands on bf16 wgmma,
-// f32 sums, the weights read as they lie).  Same function:
+// (`fwd_kernel_bf16`, the tile's bf16 build: bf16 operands on bf16 wgmma
+// read from shared memory by descriptor, stride 2 staged as phase planes,
+// one f32 accumulator, a persistent grid; fwd_tile.cuh, namespace bf16).
+// Same function:
 //
 //   out = act(sum_{ci, dh, dw} x_win[dh, dw] @ w[dh, dw] + b) + r
 //
@@ -71,22 +73,25 @@ const void* const kKernels[] = {
     (const void*)fwd_kernel<32>, (const void*)fwd_kernel<64>,
     (const void*)fwd_kernel<128>};
 
-// The bf16 build of the same tile (fwd_tile.cuh, namespace bf16): bf16 x,
-// w, residual, out and pooled features, an f32 bias and f32 partials; one
-// bf16 wgmma (m64nNk16) a k16 step, B read MN-major as the weights lie.
+// The bf16 build (fwd_tile.cuh, namespace bf16): bf16 x, w, residual, out
+// and pooled features, an f32 bias and f32 partials; a persistent grid
+// over the `n` images' (tile, output block x split) items, A (the window's
+// cells, in the chunk's swizzle) and B (a filter row's weights, MN-major as
+// they lie) read by bf16 wgmma (m64nNk16) from shared memory.
 template <int N>
-__global__ void __launch_bounds__(ft::max_threads(N), 1)
+__global__ void __launch_bounds__(ft::bf16::max_threads(N), 1)
 fwd_kernel_bf16(const __grid_constant__ CUtensorMap tmw,
+                const __grid_constant__ CUtensorMap tmx,
                 const __nv_bfloat16* __restrict__ x,
                 const __nv_bfloat16* __restrict__ w,
                 const float* __restrict__ bias,
                 const __nv_bfloat16* __restrict__ residual,
                 __nv_bfloat16* __restrict__ out, float* partials,
                 __nv_bfloat16* __restrict__ pooled, int* counters,
-                ft::Geometry g) {
+                ft::Geometry g, int n) {
   extern __shared__ __align__(16) char smem_bf16[];
-  ft::bf16::run<N>(smem_bf16, &tmw, x, w, bias, residual, out, partials,
-                   pooled, counters, g);
+  ft::bf16::run<N>(smem_bf16, &tmw, &tmx, x, w, bias, residual, out,
+                   partials, pooled, counters, g, n);
 }
 
 const void* const kKernelsBf16[] = {
@@ -124,10 +129,11 @@ int direct_conv2d_fwd(const void* x, const void* w, const void* bias,
                     pooled, counters, plan, (cudaStream_t)stream);
 }
 
-// What direct_conv2d_fwd runs with the same plan (fwd_tile::plan): out[0]
-// an image's tiles, out[1] the function's MACs, out[2] the tensor-core MACs
-// issued (three products a MAC in f32, one in bf16), out[3] a CTA's shared
-// memory.
+// What direct_conv2d_fwd runs with the same plan (fwd_tile::plan_of):
+// out[0] an image's tiles, out[1] the function's MACs, out[2] the
+// tensor-core MACs issued (three products a MAC in f32, one in bf16),
+// out[3] a CTA's shared memory, out[4] and out[5] its window and weight
+// slots.
 int direct_conv2d_fwd_plan(const int* plan, long long* out) {
   return ft::plan_of(false, plan, out);
 }

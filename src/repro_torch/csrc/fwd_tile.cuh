@@ -2,7 +2,8 @@
 // the window forward (direct_conv2d_fwd.cu, `fwd_kernel`) and the streamed
 // forward (conv2d_stream.cu, `stream_fwd_kernel`) share, in f32 (3xTF32)
 // and, in namespace `bf16` below, on bf16 operands (`fwd_kernel_bf16`,
-// `stream_fwd_kernel_bf16`).
+// `stream_fwd_kernel_bf16`: a design of its own, described there; what
+// follows here is the f32 tile's).
 //
 // The function, on the paper's blocked layouts:
 //
@@ -715,42 +716,147 @@ __device__ void run(float* smem, const CUtensorMap* tmw,
   }
 }
 
+// The wgmma widths a library compiles, and a width's instance index.
+__host__ __device__ inline int lane_slot(int lanes) {
+  switch (lanes) {
+    case 8: return 0;
+    case 16: return 1;
+    case 32: return 2;
+    case 64: return 3;
+    case 128: return 4;
+  }
+  return -1;
+}
+
 // ---------------------------------------------------------------------------
 // the bf16 build
 // ---------------------------------------------------------------------------
 //
-// The same tile on bf16 operands: the reference's fused inference forward
-// under BF16 (src/repro/kernels/direct_conv2d.py:667-672).  x, w and the
-// residual are bf16 (the wrapper casts the f32 master weights once a
-// call); each stage's k16 steps run on bf16 wgmma (m64nNk16) into a fresh
-// f32 accumulator that is added to the running f32 sum, as in the f32 tile
-// (the tensor cores' truncating adds drift the same way at K = 4608).  The
-// epilogue is act(acc + b) with an f32 bias, then + r in f32, then one
-// rounding to bf16 at the store; the GAP sums the stored bf16 values in
-// f32, and the pooled features leave as bf16.
+// The same function on bf16 operands: the reference's `_fwd_kernel` under
+// BF16 (src/repro/kernels/direct_conv2d.py:102, pallas_call :351, casts
+// :660-672), and its streamed form `_stream_conv_kernel`
+// (src/repro/kernels/conv2d_stream.py:78, pallas_call :238).  x, w and the
+// residual are bf16 (the wrapper casts the f32 master weights once a call),
+// the sums f32 on bf16 wgmma (m64nNk16, one product a MAC), the epilogue
+// act(acc + b) with an f32 bias, then + r in f32, rounded once to bf16 at
+// the store; the GAP sums the stored bf16 values in f32 and the pooled
+// features leave as bf16.  `run` is both kernels' body (`fwd_kernel_bf16`,
+// `stream_fwd_kernel_bf16`), the dgrad's Hopper design (dgrad_tile.cuh,
+// bf16) carried over:
 //
-// What differs from the f32 tile:
-// * No split.  A is the window's bf16 pairs, loaded as they lie.  B, the
-//   weights, is N-contiguous, and wgmma reads a 16-bit B MN-major through
-//   its transpose bit, so the producer neither transposes nor splits it:
-//   one TMA copy a stage (a 5-D box over [blocks][taps][Cib][Cob/8][8])
-//   lands the chunk as [taps][N/8][chunk][8] in the slot the wgmma reads:
-//   the core matrices of 8 lanes by 8 channels of the interleaved MN-major
-//   layout.  Where Cob is not a multiple of 8 (TMA's 16-byte strides) the
-//   producer copies the same cells by 2-byte loads and stores.
-// * The chunk is a multiple of 16 (k16 steps), and Cib pads to 16.  A
-//   window cell is chunk + 8 bf16 (16 bytes never read), so that the eight
-//   rows a warp loads fall on distinct bank quads.
-// * Window copies are 16 bytes where Cib is a multiple of 8, 4 where it is
-//   even, else 2-byte loads and stores (Cib = 3: a pixel's three channels
-//   are 6 bytes, so half the cells start off 4-byte alignment).  No padded
-//   copy of x exists.
-// * Each slot has its own mbarrier for its weights (the next stage's
-//   weights land in the other slot while this one computes); the consumers
-//   wait on it as well before their wgmmas read what the copy wrote.
+// * A persistent grid.  As many CTAs as the card holds at once (asked of
+//   the runtime once per kernel and size, dgrad_tile::bf16::resident_ctas)
+//   walk the items (tile, output block x lane split, image), tile fastest,
+//   and both rings run on across items, so that an item's first copies land
+//   while the one before computes and stores.
+// * A from shared memory by descriptor.  A cell (one window position's
+//   `chunk` channels, 16, 32 or 64) is one row of a K-major operand in the
+//   32-, 64- or 128-byte swizzle.  The window lands in that swizzle, its
+//   cells flattened row-major, `wpitch` cells a window row (the window
+//   kernel's plane width; the streamed kernel's rounded up to whole 128
+//   bytes, where a strip's boxes land).  An m-tile is 64 consecutive cells:
+//   row f is output position (f / wpitch, f % wpitch) of the tile, and tap
+//   (dh, dw) is the same descriptor started dh * wpitch + dw cells on.  Rows
+//   whose column falls past the tile's tw are computed and not stored; the
+//   reads past the window's cells fall on the slot's spare cells
+//   (`window_cells`), which only such rows read.
+// * Stride s as s x s phase planes.  An output at stride s reads input (s
+//   oh + dh - pt, s ow + dw - pl); the window is staged as s x s planes,
+//   plane (ph, pw) holding the window's rows ph, ph + s, ... and columns
+//   pw, pw + s, ..., so tap (dh, dw) reads plane (dh % s, dw % s) as a
+//   stride-1 correlation, at (dh / s) * wpitch + dw / s cells on: again one
+//   shifted descriptor.  Each plane lands by one TMA box a copy group that
+//   traverses H and W at stride s (the map's element strides), so the
+//   planes cost no pass and no more bytes than the window; a plane is
+//   th + ceil(hf / s) - 1 rows of tw + ceil(wf / s) - 1 columns, so at 3x3
+//   stride 2 the odd planes carry a row or column no tap reads (a 2x2 tile's
+//   window of 5x5 cells is staged as 36).
+// * B, the weights of one filter row (its wf taps), read MN-major through
+//   the transpose bit as they lie (Cob contiguous, no transpose): a tap is
+//   [N / nin][chunk][nin] bf16, rows of nin = min(N, 64) lanes in the
+//   swizzle of their nin * 2 bytes, one TMA box a row.  (A box of 8-lane,
+//   16-byte runs, the interleaved core matrices of the first bf16 build,
+//   held the producer to a few bytes a cycle.)
+//   The rows pass through a ring of 2-4 weight slots while the stage's
+//   window stays in one of 2-4 window slots (`window_slots`, `row_slots`),
+//   so chunk 64 fits at 3x3 and 128 lanes.
+// * Straight-line rows, one accumulator.  A filter row is one wgmma fence,
+//   its wf x chunk / 16 k16 steps at the full N width into the one f32
+//   accumulator (straight-line code for rows of up to 3 taps, `mma_row`),
+//   and one commit; the consumer then waits for the row before (wait<1>)
+//   and frees its weight slot, and with a stage's first row the window
+//   slot of the stage before.  Every descriptor is built from values the
+//   compiler knows are uniform (kernel parameters, the item, the warpgroup
+//   index read with __shfl_sync): a per-thread value there made the
+//   compiler wait for each HGMMA (wgrad_tile.cuh, bf16).  With one
+//   accumulator a 128-lane consumer holds 64 registers, so a CTA takes
+//   three consumers at every width (`max_threads`).
+// * Warp roles.  One producer warpgroup: where x's and w's pencils are
+//   multiples of 8 channels (TMA's 16-byte strides), its warp 0 issues
+//   every TMA copy in the consumers' order and its other warps leave; else
+//   every producer thread writes the same cells into the same swizzled
+//   rows (a cell a thread: its valid channels by 2-byte loads, eight in
+//   flight, then 16-byte stores: Cib 3 is a 6-byte pixel; a copy an element
+//   with its own index arithmetic ran conv1_1 at 0.27 ms) and the weights
+//   into the same order by 2-byte copies (where Cob is not
+//   a multiple of 8 and of nin), zeros outside the map, past the pencil and
+//   past Cob.  The streamed kernel's window lands as a copy
+//   group a strip (strip 0's rows, then each later strip's fresh ones), so
+//   strip k computes while strip k + 1's rows are in flight, each halo row
+//   from device memory once a stage.
+// * The epilogue and the GAP as the f32 tile's, on the flattened rows: a
+//   consumer thread's rows are cells (f / wpitch, f % wpitch), which
+//   conv2d_common.gap_replay follows from the blocking's `pitch`.  The GAP
+//   partial of each item's tile, then the last item of an (image, output
+//   block) to arrive sums its tiles in tile order (split_sum::gap_fold): no
+//   sum depends on which CTA ran first, two runs give identical bits, and
+//   where the window and the streamed kernels take the same chunk they sum
+//   in the same order (stages, filter rows, taps, k16 slices).
+//
+// One accumulator over the whole contraction: the tensor cores add each
+// k16 slice rounding toward zero, so over VGG-16's longest contraction (9 x
+// 512: 288 k16 slices) the f32 sum drifts by at most 288 f32 ulps of its
+// running magnitude (3.4e-5 relative), about 1 % of the half-ulp at which
+// the output rounds to bf16; tests/test_torch_bf16_fwd.py emulates it.
+//
+// What bounds it on this card (launch/fwd_parts_ab.py --dtype bf16, on an
+// H100 80GB HBM3 at 700 W, PERF.md): the consumers, not the copies (over
+// VGG-16's 13 layers at batch 8 the kernel keeps 90 % of its time without
+// its copies, 62 % without its wgmmas); and of the consumers' time, an
+// item's end: its last rows drained (wait<0>) while the tensor cores idle,
+// every consumer at once (without the epilogue the kernel takes 49 % of
+// its time; with the accumulator only tested, 75 %).  Every tap's weights
+// of a stage come again from L2 for every item.  What was tried and not
+// kept: the first bf16 build (A loaded into registers at each k16 step, a
+// wait between consecutive steps, a per-thread step table in shared
+// memory, two 64-lane parts into a fresh accumulator a stage at 128 lanes,
+// two consumers at 128 lanes, a CTA a tile; 2.265 ms as a CUDA graph);
+// weight boxes of 8-lane, 16-byte runs (1.90 ms: the producer bound it); a
+// copy an element on the Cib-3 path (conv1_1 0.27 ms, now 0.10); two
+// accumulators at up to 64 lanes, an item's epilogue under the next item's
+// first row (ptxas then waited after every wgmma, spilled the
+// accumulators at 32 and 64 lanes, and the sums came out wrong); the
+// activation and the GAP tested an element, a bias load an element and
+// row, a store a column pair (1.30 ms; now 1.03).
 namespace bf16 {
 
 using bf = __nv_bfloat16;
+namespace db = dgrad_tile::bf16;
+
+// the dgrad's rings: a swizzle period's alignment, 2-4 window slots and
+// 2-4 weight slots, their mbarriers after the slots (full (TMA landed) and
+// ready (the copies' pass done) per window slot and copy group, empty per
+// window slot; full and empty per weight slot)
+constexpr int kAtom = db::kAtom;
+constexpr int kMaxWindows = db::kMaxWindows;
+constexpr int kMaxRows = db::kMaxRows;
+constexpr int kBarBytes = db::kBarBytes;
+constexpr int kSmemBlock = db::kSmemBlock;
+constexpr int kMaxStride = 8;          // a TMA map's element stride at most
+
+// threads of the largest CTA (the launch bound): three consumers at every
+// width, the accumulator 64 registers at 128 lanes
+__host__ __device__ constexpr int max_threads(int) { return kMaxThreads; }
 
 // Cib rounded up to the k16 slices of the contraction.
 __host__ __device__ inline int kpad(const Geometry& g) {
@@ -761,46 +867,185 @@ __host__ __device__ inline int stages(const Geometry& g) {
   return g.ciblk * (bf16::kpad(g) / g.chunk);
 }
 
-__host__ __device__ inline int cell_elems(const Geometry& g) {
-  return g.chunk + 8;
+// A filter row's weights lie as w does, Cob contiguous (MN-major): a tap's
+// block is [N / nin][chunk][nin] bf16, rows of nin = min(N, 64) lanes in
+// the swizzle of their nin * 2 bytes (none at 8 lanes: the interleaved
+// core matrices), so that a TMA box lands them in runs of up to 128 bytes.
+__host__ __device__ constexpr int b_lanes(int lanes) {
+  return lanes < 64 ? lanes : 64;
 }
 
-__host__ __device__ inline int row_elems(const Geometry& g) {
-  return g.stride * wph(g) * cell_elems(g);
+// TMA needs global strides of whole 16 bytes: the window where Cib is a
+// multiple of 8, the weights where Cob is, and a whole number of nin-lane
+// runs
+__host__ __device__ inline bool tma_window(const Geometry& g) {
+  return g.cib % 8 == 0;
+}
+__host__ __device__ inline bool tma_weights(const Geometry& g, int lanes) {
+  return g.cob % 8 == 0 && g.cob % b_lanes(lanes) == 0;
 }
 
-// a window slot, rounded up to 128 bytes
-__host__ __device__ inline int window_elems(const Geometry& g) {
-  return ceil_div(hwin(g) * row_elems(g), 64) * 64;
+// bytes of a cell: one swizzled row of `chunk` channels
+__host__ __device__ inline int cell_bytes(const Geometry& g) {
+  return 2 * g.chunk;
 }
 
-__host__ __device__ inline int weight_elems(const Geometry& g, int lanes) {
-  return taps(g) * g.chunk * lanes;
+__host__ __device__ inline bool streamed(const Geometry& g) {
+  return g.strips > 1;
 }
 
-// k16 steps of a stage: taps x chunk / 16
-__host__ __device__ inline int steps(const Geometry& g) {
-  return taps(g) * g.chunk / 16;
+__host__ __device__ inline int planes(const Geometry& g) {
+  return g.stride * g.stride;
+}
+
+// the most taps a plane takes along each axis
+__host__ __device__ inline int mh(const Geometry& g) {
+  return ceil_div(g.hf, g.stride);
+}
+__host__ __device__ inline int mw(const Geometry& g) {
+  return ceil_div(g.wf, g.stride);
+}
+
+// a plane's rows and columns: the tile's and the taps' reach
+__host__ __device__ inline int plane_rows(const Geometry& g) {
+  return g.th + mh(g) - 1;
+}
+__host__ __device__ inline int plane_cols(const Geometry& g) {
+  return g.tw + mw(g) - 1;
+}
+
+// cells of one 128-byte line
+__host__ __device__ inline int line_cells(const Geometry& g) {
+  return cell_bytes(g) < 128 ? 128 / cell_bytes(g) : 1;
+}
+
+// cells from one plane row to the next: the plane's width, or where a
+// strip's boxes land at each row, rounded up to whole 128 bytes (a TMA
+// destination's alignment)
+__host__ __device__ inline int wpitch(const Geometry& g) {
+  const int per = line_cells(g);
+  return streamed(g) ? ceil_div(plane_cols(g), per) * per : plane_cols(g);
+}
+
+// cells of a plane, in whole 128-byte lines, so that each plane's box lands
+// aligned
+__host__ __device__ inline int plane_cells(const Geometry& g) {
+  const int per = line_cells(g);
+  return ceil_div(plane_rows(g) * wpitch(g), per) * per;
+}
+
+__host__ __device__ inline int hso(const Geometry& g) {
+  return g.th / g.strips;
+}
+
+// plane rows a TMA box of window rows brings: the window kernel's whole
+// plane, a strip's rows in the streamed kernel
+__host__ __device__ inline int box_rows(const Geometry& g) {
+  return streamed(g) ? bf16::hso(g) : plane_rows(g);
+}
+
+// the first window cell (m-tile row) of consumer c: 64 rows a consumer of
+// the window kernel's one m-tile, a strip's hso plane rows in the streamed
+// band
+__host__ __device__ inline int first_row(const Geometry& g, int c) {
+  return streamed(g) ? c * bf16::hso(g) * wpitch(g) : c * kRows;
+}
+
+// cells from an m-tile row to its read at the farthest tap of a plane
+__host__ __device__ inline int tap_reach(const Geometry& g) {
+  return (mh(g) - 1) * wpitch(g) + mw(g) - 1;
+}
+
+// cells of a window slot: the planes', and past the last as far as the last
+// consumer's 64 rows read at the farthest tap
+__host__ __device__ inline int window_cells(const Geometry& g) {
+  const int read = first_row(g, g.wgs - 1) + kRows + tap_reach(g);
+  return (planes(g) - 1) * plane_cells(g)
+         + (read > plane_cells(g) ? read : plane_cells(g));
+}
+
+__host__ __device__ inline int round_atom(int bytes) {
+  return ceil_div(bytes, kAtom) * kAtom;
+}
+
+// bytes of a window slot and of a weight slot (one filter row's wf taps x N
+// lanes), each in whole swizzle periods
+__host__ __device__ inline int window_bytes(const Geometry& g) {
+  return round_atom(window_cells(g) * cell_bytes(g));
+}
+__host__ __device__ inline int row_weight_bytes(const Geometry& g,
+                                                int lanes) {
+  return round_atom(g.wf * lanes * cell_bytes(g));
+}
+
+// with GAP, the consumer warps' f32 sums [4 * wgs][lanes] and the last
+// arrival's flag
+__host__ __device__ inline int gap_bytes(const Geometry& g, int lanes) {
+  return g.gap ? 16 * g.wgs * lanes + 16 : 0;
+}
+
+// The two rings (core/blocking.py fwd_bf16_layout): as many weight slots
+// as fit beside two window slots, up to kMaxRows, then as many window slots
+// as fit beside them, up to kMaxWindows.
+__host__ __device__ inline int room(const Geometry& g, int lanes) {
+  return kSmemBlock - kAtom - kBarBytes - gap_bytes(g, lanes);
+}
+__host__ __device__ inline int row_slots(const Geometry& g, int lanes) {
+  const int left = room(g, lanes) - 2 * window_bytes(g);
+  const int fit = left > 0 ? left / row_weight_bytes(g, lanes) : 0;
+  return fit < kMaxRows ? fit : kMaxRows;
+}
+__host__ __device__ inline int window_slots(const Geometry& g, int lanes) {
+  const int left = room(g, lanes)
+                   - row_slots(g, lanes) * row_weight_bytes(g, lanes);
+  const int fit = left > 0 ? left / window_bytes(g) : 0;
+  return fit < kMaxWindows ? fit : kMaxWindows;
 }
 
 // Dynamic shared memory of one CTA (core/blocking.py fwd_smem_bytes at
-// op_bytes 2): 128 bytes to align the base; per ring slot the window and
-// the weights; two ints a k16 step (its A and B offsets); an mbarrier a
-// slot; with GAP the consumer warps' f32 sums.
+// op_bytes 2): a swizzle period to align the base, the window slots, the
+// weight slots, the mbarriers, the GAP sums.
 __host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
-  return 128 + 2 * (size_t)kSlots * (window_elems(g) + weight_elems(g, lanes))
-         + 8 * (size_t)bf16::steps(g) + 8 * kSlots
-         + (g.gap ? (size_t)16 * g.wgs * lanes : 0);
+  return (size_t)kAtom + (size_t)window_slots(g, lanes) * window_bytes(g)
+         + (size_t)row_slots(g, lanes) * row_weight_bytes(g, lanes)
+         + kBarBytes + gap_bytes(g, lanes);
 }
 
-// The weights come by one TMA copy a stage where Cob is a multiple of 8
-// (the map's strides are whole 16 bytes), else by 2-byte copies.
-__host__ __device__ inline bool tma_weights(const Geometry& g) {
-  return g.cob % 8 == 0;
+// Whether the kernels take this geometry at wgmma width `lanes` (the
+// chooser's rules, core/blocking.py _fwd_bf16_candidates): the window
+// kernel's tile in its one m-tile of 64 * wgs rows, the streamed kernel's
+// strips of th / wgs plane rows each in its 64-row m-tile, a chunk of one
+// swizzle row dividing the padded Cib, boxes within TMA's 256 elements an
+// index, two slots or more in each ring.
+__host__ inline bool valid(const Geometry& g, int lanes) {
+  if (lane_slot(lanes) < 0 || g.wgs < 1 || g.wgs > kMaxConsumers
+      || (g.chunk != 16 && g.chunk != 32 && g.chunk != 64)
+      || bf16::kpad(g) % g.chunk != 0 || g.th < 1 || g.tw < 1
+      || g.stride < 1 || g.stride > kMaxStride || g.hf < 1 || g.wf < 1
+      || g.nsplit < 1 || (g.nsplit - 1) * lanes >= g.cob
+      || g.nsplit * lanes < g.cob || g.act < 0 || g.act > kActGelu
+      || g.stride * wpitch(g) > 256 || g.wf > 256) {
+    return false;
+  }
+  if (streamed(g)) {
+    if (g.strips != g.wgs || g.wgs < 2 || g.th % g.strips != 0
+        || (bf16::hso(g) - 1) * wpitch(g) + g.tw > kRows) {
+      return false;
+    }
+  } else if (g.strips != 1
+             || (g.th - 1) * wpitch(g) + g.tw > kRows * g.wgs) {
+    return false;
+  }
+  return g.stride * box_rows(g) <= 256 && row_slots(g, lanes) >= 2
+         && window_slots(g, lanes) >= 2
+         && bf16::smem_bytes(g, lanes) <= (size_t)kSmemBlock;
 }
 
-// What a launch runs (the f32 tile's plan at one bf16 product a MAC, Cib
-// padded to k16 slices).
+// What a launch runs (core/blocking.py fwd_plan at op_bytes 2): out[0] an
+// image's tiles, out[1] the function's MACs, out[2] the tensor-core MACs
+// the items issue (every consumer's 64 m-tile rows by `lanes` over every
+// tap and Cib padded to k16 slices, one product each), out[3] a CTA's
+// shared memory, out[4] and out[5] its window and weight slots.
 __host__ inline void plan(const Geometry& g, int n, int lanes,
                           long long* out) {
   const long long t = tiles(g);
@@ -809,413 +1054,717 @@ __host__ inline void plan(const Geometry& g, int n, int lanes,
            * g.cob;
   out[2] = (long long)n * t * g.coblk * g.nsplit * kRows * g.wgs * lanes
            * taps(g) * g.ciblk * bf16::kpad(g);
+  out[3] = (long long)bf16::smem_bytes(g, lanes);
+  out[4] = window_slots(g, lanes);
+  out[5] = row_slots(g, lanes);
 }
 
-// The carve-up of one CTA (smem_bytes): kSlots slots of [window | weights],
-// then the steps' A and B offsets, the slots' mbarriers and the GAP sums.
+// The carve-up of one CTA (smem_bytes): the window slots, the weight
+// slots, the mbarriers, then with GAP the consumer warps' sums and a flag.
 struct Smem {
-  char* base;
-  int slot;                   // bytes of one slot
-  int wts;                    // the weights' offset in a slot, in bytes
-  int* shifts;                // [2][steps]
-  uint64_t* bar;              // [kSlots] the slot's weights have landed
-  float* red;                 // [4 * wgs][N]
-
-  __device__ bf* win_of(int s) const {
-    return reinterpret_cast<bf*>(base + s * slot);
-  }
-  __device__ bf* wts_of(int s) const {
-    return reinterpret_cast<bf*>(base + s * slot + wts);
-  }
+  char* win0;
+  char* row0;
+  uint64_t* wfull;     // [kMaxWindows][kMaxGroups]
+  uint64_t* wready;    // [kMaxWindows][kMaxGroups]
+  uint64_t* wempty;    // [kMaxWindows]
+  uint64_t* rfull;     // [kMaxRows]
+  uint64_t* rempty;    // [kMaxRows]
+  float* red;          // [4 * wgs][N]
+  int* flag;
+  int wslot, rslot, nw, nr;
 };
 
 template <int N>
-__device__ inline Smem carve(char* smem, const Geometry& g) {
+__device__ inline Smem carve(char* raw, const Geometry& g) {
   Smem m;
-  m.base = smem + ((128 - (dt::smem_u32(smem) & 127)) & 127);
-  m.wts = 2 * window_elems(g);
-  m.slot = m.wts + 2 * weight_elems(g, N);
-  m.shifts = reinterpret_cast<int*>(m.base + kSlots * m.slot);
-  m.bar = reinterpret_cast<uint64_t*>(m.shifts + 2 * bf16::steps(g));
-  m.red = reinterpret_cast<float*>(m.bar + kSlots);
+  m.win0 = raw + ((kAtom - (dt::smem_u32(raw) & (kAtom - 1))) & (kAtom - 1));
+  m.wslot = window_bytes(g);
+  m.rslot = row_weight_bytes(g, N);
+  m.nw = window_slots(g, N);
+  m.nr = row_slots(g, N);
+  m.row0 = m.win0 + m.nw * m.wslot;
+  m.wfull = reinterpret_cast<uint64_t*>(m.row0 + m.nr * m.rslot);
+  m.wready = m.wfull + kMaxWindows * kMaxGroups;
+  m.wempty = m.wready + kMaxWindows * kMaxGroups;
+  m.rfull = m.wempty + kMaxWindows;
+  m.rempty = m.rfull + kMaxRows;
+  m.red = reinterpret_cast<float*>(m.rempty + kMaxRows);
+  m.flag = reinterpret_cast<int*>(m.red + 4 * g.wgs * N);
   return m;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(dt::smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
+// Bytes the boxes of plane rows [lo, hi) bring, every plane's.
+__device__ __forceinline__ int group_bytes(const Geometry& g, int lo,
+                                           int hi) {
+  return planes(g) * ceil_div(hi - lo, box_rows(g)) * box_rows(g)
+         * wpitch(g) * cell_bytes(g);
+}
+
+// Issue plane rows [lo, hi) of every plane for channels [c0, c0 + chunk) of
+// input block i_b of image n (lane `lane` of `lanes` taking every lanes-th
+// box): plane (ph, pw) row r is input row h0 + ph + s r from column w0 +
+// pw, every s-th column, wpitch of them; boxes of box_rows rows, the last
+// moved back to end at `hi`.
+__device__ void issue_window(const CUtensorMap* tmx, char* win, uint64_t* bar,
+                             const Geometry& g, int n, int i_b, int c0,
+                             int h0, int w0, int lo, int hi, int lane,
+                             int lanes) {
+  const int br = box_rows(g);
+  const int boxes = ceil_div(hi - lo, br);
+  const int pb = plane_cells(g) * cell_bytes(g);
+  const int rb = wpitch(g) * cell_bytes(g);
+  for (int i = lane; i < planes(g) * boxes; i += lanes) {
+    const int p = i / boxes;
+    const int r = min(lo + (i - p * boxes) * br, hi - br);
+    dt::tma_load_5d(win + p * pb + r * rb, tmx, bar, c0,
+                    w0 + p % g.stride, h0 + p / g.stride + g.stride * r, i_b,
+                    n);
+  }
+}
+
+// 2-byte loads a producer thread has in flight before it stores them
+constexpr int kLoadBatch = 8;
+
+__device__ __forceinline__ void st_v4(uint32_t dst, const uint32_t (&v)[4]) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(dst), "r"(v[0]), "r"(v[1]), "r"(v[2]), "r"(v[3])
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(dt::smem_u32(dst)), "l"(src), "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-// Issue window rows [lo, hi) for channels [c0, c0 + chunk) of input block
-// i_b of image n, as the f32 tile's issue_rows does: 8-channel (16-byte)
-// cp.async units where Cib is a multiple of 8, 2-channel (4-byte) ones
-// where it is even, else one channel by a 2-byte load and store; zeros
-// outside the map and past the pencil.
-__device__ inline void issue_rows(bf* win, const bf* __restrict__ x,
-                                  const Geometry& g, int n, int i_b, int c0,
-                                  int h0, int w0, int lo, int hi, int tid) {
-  const int unit = g.cib % 8 == 0 ? 8 : (g.cib % 2 == 0 ? 2 : 1);
-  const int per_cell = g.chunk / unit;          // divides 128
-  const int ww = wwin(g);
-  const int ld = cell_elems(g);
-  const int rf = row_elems(g);
-  const int ph = wph(g);
+// The same cells by copies (`tid` of the producer's kWarpgroup), a cell a
+// thread a pass: its pixel's valid channels by 2-byte loads (a 16-byte
+// piece's eight in flight at once), zeros outside the map and past the
+// pencil, the cell stored as its 16-byte pieces at their swizzled places.
+__device__ void copy_window(const bf* __restrict__ x, char* win,
+                            const Geometry& g, int n, int i_b, int c0,
+                            int h0, int w0, int lo, int hi, int tid) {
+  const int cb = cell_bytes(g);
+  const int wp = wpitch(g);
+  const int pb = plane_cells(g) * cb;
+  const int per_plane = (hi - lo) * wp;
   const int valid_c = min(g.chunk, g.cib - c0);
-  const int cells = (hi - lo) * ww;
-  const bf* xb = x + (size_t)(n * g.ciblk + i_b) * g.hi * g.wi * g.cib + c0;
-  const int step = kWarpgroup / per_cell;       // cells a pass
-  const int dr = step / ww, dj = step - dr * ww;
-  const int e = tid % per_cell * unit;
-  int c = tid / per_cell;
-  int r = lo + c / ww, j = c % ww;
-  for (; c < cells; c += step) {
-    const int ih = h0 + r;
-    const int iw = w0 + j;
-    const bool ok = ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi
-                    && e < valid_c;
-    const bf* src = ok ? xb + ((size_t)ih * g.wi + iw) * g.cib + e : x;
-    bf* dst = win + r * rf + cell_of(g, j, ph) * ld + e;
-    if (unit == 8) {
-      cp_async16(dst, src, ok);
-    } else if (unit == 2) {
-      cp_async4(dst, src, ok);
-    } else {
-      *reinterpret_cast<unsigned short*>(dst) =
-          ok ? __ldg(reinterpret_cast<const unsigned short*>(src))
-             : (unsigned short)0;
-    }
-    r += dr;
-    j += dj;
-    if (j >= ww) {
-      j -= ww;
-      ++r;
+  const size_t map = (size_t)(n * g.ciblk + i_b) * g.hi * g.wi;
+  const unsigned short* x16 = reinterpret_cast<const unsigned short*>(x);
+  const uint32_t base = dt::smem_u32(win);
+  for (int i = tid; i < planes(g) * per_plane; i += kWarpgroup) {
+    const int p = i / per_plane;
+    const int rem = i - p * per_plane;
+    const int r = rem / wp;
+    const int col = rem - r * wp;
+    const int ih = h0 + p / g.stride + g.stride * (lo + r);
+    const int iw = w0 + p % g.stride + g.stride * col;
+    const int valid = ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi
+                      ? valid_c : 0;
+    const unsigned short* src =
+        x16 + ((map + (size_t)(valid > 0 ? ih : 0) * g.wi
+                + (valid > 0 ? iw : 0)) * g.cib + c0);
+    const uint32_t at = base + p * pb + ((lo + r) * wp + col) * cb;
+    for (int q = 0; q < g.chunk / 8; ++q) {     // the cell's 16-byte pieces
+      unsigned short v[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        v[e] = 8 * q + e < valid ? __ldg(src + 8 * q + e)
+                                 : (unsigned short)0;
+      }
+      uint32_t words[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        words[e] = (uint32_t)v[2 * e] | ((uint32_t)v[2 * e + 1] << 16);
+      }
+      st_v4(db::swizzled(at + 16 * q, cb), words);
     }
   }
 }
 
-// Issue the stage's weights into slot `slot` as [taps][N/8][chunk][8]:
-// element (tap, q, k, e) = w[o_b, i_b, tap, c0 + k, o0 + 8q + e], zero past
-// Cib and past Cob.  With the tensor map one TMA copy (thread 0, onto the
-// slot's mbarrier); else 2-byte loads and stores.
+// Issue the weights of filter row dh of a stage (thread 0): one TMA box of
+// [wf][N / nin][chunk][nin] (b_lanes), element (j, q, k, e) = w[o_b, i_b,
+// dh, j, c0 + k, o0 + nin q + e], zeros past Cib.
 template <int N>
-__device__ inline void issue_weights(const Smem& m, int slot,
-                                     const CUtensorMap* tmw,
-                                     const bf* __restrict__ w,
-                                     const Geometry& g, int o_b, int i_b,
-                                     int c0, int o0, int tid) {
-  bf* dst = m.wts_of(slot);
-  if (bf16::tma_weights(g)) {
-    if (tid == 0) {
-      dt::mbar_expect_tx(m.bar + slot, weight_elems(g, N) * 2);
-      dt::tma_load_5d(dst, tmw, m.bar + slot, 0, c0, o0 / 8, 0,
-                      o_b * g.ciblk + i_b);
-    }
-    return;
-  }
+__device__ __forceinline__ void issue_row_weights(const CUtensorMap* tmw,
+                                                  char* dst, uint64_t* bar,
+                                                  const Geometry& g, int o_b,
+                                                  int i_b, int dh, int c0,
+                                                  int o0) {
+  dt::tma_load_5d(dst, tmw, bar, 0, c0, o0 / b_lanes(N), dh * g.wf,
+                  o_b * g.ciblk + i_b);
+}
+
+// The byte of weight (tap j, lane l, channel k) in a row slot at `base`, as
+// the TMA box lands it.
+template <int N>
+__device__ __forceinline__ uint32_t weight_at(uint32_t base,
+                                              const Geometry& g, int j,
+                                              int l, int k) {
+  constexpr int nin = b_lanes(N);
+  const uint32_t a = base + ((j * (N / nin) + l / nin) * g.chunk + k) * nin * 2
+                     + (l % nin) * 2;
+  return nin >= 16 ? db::swizzled(a, nin * 2) : a;
+}
+
+// The same row by 2-byte loads, kLoadBatch in flight, and stores (`tid` of
+// the producer's kWarpgroup), zeros past Cib and past Cob.
+template <int N>
+__device__ void copy_row_weights(const bf* __restrict__ w, char* dst,
+                                 const Geometry& g, int o_b, int i_b, int dh,
+                                 int c0, int o0, int tid) {
   const int valid_k = min(g.chunk, g.cib - c0);
   const unsigned short* wb = reinterpret_cast<const unsigned short*>(w)
-      + ((size_t)(o_b * g.ciblk + i_b) * taps(g) * g.cib + c0) * g.cob + o0;
-  unsigned short* d = reinterpret_cast<unsigned short*>(dst);
-  for (int i = tid; i < weight_elems(g, N); i += kWarpgroup) {
-    const int e = i & 7;
-    const int k = (i >> 3) % g.chunk;
-    const int rest = (i >> 3) / g.chunk;        // tap * (N / 8) + q
-    const int tap = rest / (N / 8);
-    const int l = (rest - tap * (N / 8)) * 8 + e;
-    const bool ok = k < valid_k && o0 + l < g.cob;
-    d[i] = ok ? __ldg(wb + ((size_t)tap * g.cib + k) * g.cob + l)
-              : (unsigned short)0;
+      + ((size_t)((o_b * g.ciblk + i_b) * taps(g) + dh * g.wf) * g.cib + c0)
+            * g.cob + o0;
+  const uint32_t base = dt::smem_u32(dst);
+  const int total = g.wf * N * g.chunk;
+  for (int i0 = tid; i0 < total; i0 += kWarpgroup * kLoadBatch) {
+    unsigned short v[kLoadBatch];
+    uint32_t at[kLoadBatch];
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      const int i = i0 + b * kWarpgroup;
+      const int l = i % N;                      // (j, k, l), lanes fastest
+      const int k = i / N % g.chunk;
+      const int j = i / N / g.chunk;
+      const bool ok = i < total && k < valid_k && o0 + l < g.cob;
+      v[b] = ok ? __ldg(wb + ((size_t)j * g.cib + k) * g.cob + l)
+                : (unsigned short)0;
+      at[b] = weight_at<N>(base, g, j, l, k);
+    }
+#pragma unroll
+    for (int b = 0; b < kLoadBatch; ++b) {
+      if (i0 + b * kWarpgroup < total) db::st_u16(at[b], v[b]);
+    }
   }
 }
 
-// The offsets of each k16 step j (slice j % slices of tap j / slices),
-// every thread of the CTA: shifts[j], A's in elements from the row's
-// offset; shifts[steps + j], B's in 16-byte units from the weights' part
-// (the descriptor's address field).
+// B of a k16 step less its address, MN-major (read through the transpose
+// bit): at 8 lanes the interleaved core matrices (8 lanes x 8 channels, 128
+// bytes; the leading byte offset 128, the step's two channel halves; the
+// stride byte offset chunk * 16, the 8-lane groups), else rows of nin lanes
+// in their swizzle (the leading byte offset chunk * nin * 2, the nin-lane
+// blocks; the stride byte offset 8 rows, the 8-channel groups).  A k16 step
+// starts 16 rows (32 nin bytes) on.
 template <int N>
-__device__ inline void step_shifts(int* shifts, const Geometry& g) {
-  const int slices = g.chunk / 16;
-  const int rf = row_elems(g);
-  const int ld = cell_elems(g);
-  const int ph = wph(g);
-  const int count = bf16::steps(g);
-  for (int j = threadIdx.x; j < count; j += blockDim.x) {
-    const int tap = j / slices;
-    const int sl = j - tap * slices;
-    const int dh = tap / g.wf;
-    const int dw = tap - dh * g.wf;
-    shifts[j] = dh * rf + ((dw % g.stride) * ph + dw / g.stride) * ld
-                + sl * 16;
-    shifts[count + j] = tap * (N / 8) * g.chunk + sl * 16;
+__device__ __forceinline__ uint64_t b_desc(int chunk) {
+  constexpr int nin = b_lanes(N);
+  if (nin == 8) return dt::kmajor_desc(0, 128, chunk * 16);
+  const uint64_t layout = nin == 64 ? 1 : (nin == 32 ? 2 : 3);
+  return ((uint64_t)((chunk * nin * 2 >> 4) & 0x3FFF) << 16)
+         | ((uint64_t)((8 * nin * 2) >> 4) << 32) | (layout << 62);
+}
+
+// Issue filter row `r`'s CT taps of a landed stage into `acc` as one wgmma
+// group: tap j reads the m-tile's cells from `a` plus its offset (0, t1,
+// t2: the next tap's plane or cell) against its weights from `b`, its S =
+// chunk / 16 steps 32 bytes (A) and 32 nin bytes (B) apart.  Straight-line
+// code (CT and S template arguments): a branch between two wgmmas made the
+// compiler fence before each one and close a group after it.
+template <int N, int S, int CT>
+__device__ __forceinline__ void mma_row(float (&acc)[N / 2], uint32_t a,
+                                        uint32_t b, uint32_t t1, uint32_t t2,
+                                        uint64_t adesc, uint64_t bdesc) {
+  dt::wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < CT; ++j) {
+    const uint32_t aj = a + (j == 0 ? 0u : (j == 1 ? t1 : t2));
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      db::wgmma_ss<N, 1>(acc, db::desc_at(adesc, aj + 32 * k),
+                         db::desc_at(bdesc, b + j * N * 32 * S
+                                                + 32 * b_lanes(N) * k));
+    }
+  }
+  dt::wgmma_commit();
+}
+
+// The same for any tap count (a filter wider than 3 taps): a loop over the
+// row's taps, S straight-line steps a tap; tap j at plane j % s, cell j / s.
+template <int N, int S>
+__device__ __forceinline__ void mma_row_any(float (&acc)[N / 2], uint32_t a,
+                                            uint32_t b, const Geometry& g,
+                                            uint32_t pb, uint64_t adesc,
+                                            uint64_t bdesc) {
+  constexpr int cb = 32 * S;
+  dt::wgmma_fence();
+  for (int j = 0; j < g.wf; ++j) {
+    const uint32_t aj = a + (j % g.stride) * pb + (j / g.stride) * cb;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      db::wgmma_ss<N, 1>(acc, db::desc_at(adesc, aj + 32 * k),
+                         db::desc_at(bdesc, b + j * N * cb
+                                                + 32 * b_lanes(N) * k));
+    }
+  }
+  dt::wgmma_commit();
+}
+
+template <int N, int S>
+__device__ __forceinline__ void mma_row_of(float (&acc)[N / 2], uint32_t a,
+                                           uint32_t b, const Geometry& g,
+                                           uint32_t t1, uint32_t t2,
+                                           uint32_t pb, uint64_t adesc,
+                                           uint64_t bdesc) {
+  if (g.wf == 3) {
+    mma_row<N, S, 3>(acc, a, b, t1, t2, adesc, bdesc);
+  } else if (g.wf == 2) {
+    mma_row<N, S, 2>(acc, a, b, t1, t2, adesc, bdesc);
+  } else if (g.wf == 1) {
+    mma_row<N, S, 1>(acc, a, b, t1, t2, adesc, bdesc);
+  } else {
+    mma_row_any<N, S>(acc, a, b, g, pb, adesc, bdesc);
   }
 }
 
-// The producer warpgroup: every stage's copies a stage ahead and the
-// hand-over of each copy group to its consumers (the f32 tile's produce,
-// with the weights landing in the slot itself).
 template <int N>
-__device__ void produce(const Smem& m, const CUtensorMap* tmw,
-                        const bf* __restrict__ x, const bf* __restrict__ w,
-                        const Geometry& g, int n, int o_b, int o0, int h0,
-                        int w0) {
-  const int tid = threadIdx.x - g.wgs * kWarpgroup;
-  const int nth = blockDim.x;
-  const int pair = g.strips == 1 ? nth : 2 * kWarpgroup;
-  const int per_block = bf16::kpad(g) / g.chunk;
-  const int count = bf16::stages(g);
-  auto issue = [&](int s) {
-    const int i_b = s / per_block;
-    const int c0 = (s - i_b * per_block) * g.chunk;
-    const int slot = s % kSlots;
-    bf* win = m.win_of(slot);
-    for (int k = 0; k < g.strips; ++k) {
-      if (k == 0) issue_weights<N>(m, slot, tmw, w, g, o_b, i_b, c0, o0, tid);
-      int lo, hi;
-      group_rows(g, k, lo, hi);
-      bf16::issue_rows(win, x, g, n, i_b, c0, h0, w0, lo, hi, tid);
-      cp_async_commit();
-    }
-  };
-  issue(0);
-  for (int s = 0; s < count; ++s) {
-    const int slot = s % kSlots;
-    for (int k = 0; k < g.strips; ++k) {
-      cp_async_wait(g.strips - 1 - k);
-      dt::bar_sync(kBarProducer, kWarpgroup);   // every thread's copies
-      if (k == 0 && bf16::tma_weights(g)) {
-        dt::mbar_wait(m.bar + slot, s / kSlots & 1);
-      }
-      dt::fence_proxy_async();    // the 2-byte weight stores, for wgmma
-      dt::bar_arrive(kBarFull + slot * kMaxGroups + k, pair);
-    }
-    // the other slot is free once the consumers are done with stage s - 1
-    if (s + 1 < count) {
-      if (s >= 1) dt::bar_sync(kBarEmpty + (slot ^ 1), nth);
-      issue(s + 1);
-    }
+__device__ __forceinline__ void mma_filter_row(float (&acc)[N / 2],
+                                               uint32_t a, uint32_t b,
+                                               const Geometry& g, uint32_t t1,
+                                               uint32_t t2, uint32_t pb,
+                                               uint64_t adesc,
+                                               uint64_t bdesc) {
+  if (g.chunk == 64) {
+    mma_row_of<N, 4>(acc, a, b, g, t1, t2, pb, adesc, bdesc);
+  } else if (g.chunk == 32) {
+    mma_row_of<N, 2>(acc, a, b, g, t1, t2, pb, adesc, bdesc);
+  } else {
+    mma_row_of<N, 1>(acc, a, b, g, t1, t2, pb, adesc, bdesc);
   }
 }
 
-// This consumer thread's two rows as window offsets of tap (0, 0) plus the
-// columns 2 (lane % 4) and + 1 (the f32 tile's row_offsets, in elements).
-__device__ __forceinline__ void row_offsets(int (&off)[2], const Geometry& g,
-                                            int mt, int q0) {
+// A work item of the persistent grid: item i is tile i % tiles of output
+// column (block x lane split) i / tiles % (Co/Cob x nsplit) of image i /
+// (tiles x Co/Cob x nsplit).
+struct Item {
+  int tile, o_b, split, n, oh0, ow0;
+};
+
+__device__ __forceinline__ Item item_of(const Geometry& g, int tiles, int i) {
+  Item it;
+  const int cols = g.coblk * g.nsplit;
+  const int across = ceil_div(g.wo, g.tw);
+  it.tile = i % tiles;
+  const int col = i / tiles % cols;
+  it.o_b = col / g.nsplit;
+  it.split = col - it.o_b * g.nsplit;
+  it.n = i / tiles / cols;
+  it.oh0 = it.tile / across * g.th;
+  it.ow0 = it.tile % across * g.tw;
+  return it;
+}
+
+// The epilogue of consumer c's m-tile in f32, one rounding to bf16 at the
+// store: m-tile row q is window cell f = first_row(c) + q, output position
+// (f / wpitch, f % wpitch) of the tile, stored where that lies in the tile
+// (in the streamed band, in strip c) and the map.  With GAP, the tile's sums
+// of the stored values into `partials` and the (image, output block)'s last
+// item's fold into `pooled`.
+template <int N, int kAct, bool kGap>
+__device__ __forceinline__ void store_out(float (&acc)[N / 2],
+                                          const Geometry& g, const Item& it,
+                                          int c, int tiles, const Smem& m,
+                                          const float* __restrict__ bias,
+                                          const bf* __restrict__ residual,
+                                          bf* __restrict__ out,
+                                          float* partials,
+                                          bf* __restrict__ pooled,
+                                          int* counters) {
   const int lane = threadIdx.x % 32;
-  const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
-  const int ms = mstride(g);
+  const int local = threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
+  const int wp = wpitch(g);
+  const int strip = streamed(g) ? bf16::hso(g) * wp : kRows;
+  const int o0 = it.split * N;
+  const int col0 = 2 * (lane % 4);
+  const bool pairs = g.cob % 2 == 0;
+  bool row_ok[2];
+  size_t base[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = local + 8 * h;
-    int p = mt * ms + q;
-    if (q >= ms || p >= g.th * g.tw) p = 0;
-    off[h] = (p / g.tw) * g.stride * row_elems(g)
-             + (p % g.tw) * cell_elems(g) + 2 * (lane % 4);
+    const int f = first_row(g, c) + q;
+    const int a = f / wp;
+    const int b = f - a * wp;
+    const int oh = it.oh0 + a;
+    const int ow = it.ow0 + b;
+    row_ok[h] = q < strip && a < g.th && b < g.tw && oh < g.ho && ow < g.wo;
+    base[h] = (((size_t)(it.n * g.coblk + it.o_b) * g.ho + oh) * g.wo + ow)
+              * g.cob + o0;
   }
-}
-
-// A for one k16 step at `shift` elements from each row's offset: rows r
-// and r + 8 at columns 2 (lane % 4), + 1, and the same 8 columns on.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* win,
-                                       const int (&off)[2], int shift) {
-  const uint32_t* r0 = reinterpret_cast<const uint32_t*>(win + off[0] + shift);
-  const uint32_t* r1 = reinterpret_cast<const uint32_t*>(win + off[1] + shift);
-  a[0] = r0[0];
-  a[1] = r1[0];
-  a[2] = r0[4];
-  a[3] = r1[4];
-}
-
-// B of a k16 step: interleaved MN-major core matrices (8 lanes x 8
-// channels, 128 bytes), the step's two channel halves 128 bytes apart (the
-// leading byte offset: the K direction, as for a K-major operand), the
-// 8-lane groups `chunk * 16` bytes apart (the stride byte offset).  The
-// descriptor's fields pack as the K-major one's.
-__device__ __forceinline__ uint64_t mn_desc(uint32_t addr, int chunk) {
-  return dt::kmajor_desc(addr, 128, chunk * 16);
-}
-
-// One landed stage into a consumer's m-tile: its k16 steps into a fresh
-// accumulator, NW lanes of the N-lane B at a time, each part then added
-// into the running f32 sum `total` (the f32 tile's mma_stage at one
-// product a step).  A is loaded one step ahead into the register set the
-// wgmma two steps back has released.  Returns with every wgmma complete.
-template <int N, int NW>
-__device__ void mma_stage(float (&total)[N / 2], const bf* win,
-                          const int (&off)[2], const int* shifts, int steps,
-                          const bf* wts, int chunk) {
+  const float* bias_row =
+      bias != nullptr ? bias + it.o_b * g.cob + o0 : nullptr;
+  // a column pair's bias by one 8-byte load where it lies on 8 bytes
+  const bool bias_pairs =
+      pairs && (reinterpret_cast<uintptr_t>(bias_row) & 7) == 0;
+  // A quad of lanes (t = lane % 4) holds a row's 8-column groups, a column
+  // pair a lane; four groups at a time are turned among the quad by
+  // shuffles so that lane t stores group 4q + t's 16 bytes in one store,
+  // where Cob is a multiple of 8 (a store a pair stored a row in 16-byte
+  // pieces: 0.29 ms over VGG-16's layers).
+  constexpr int kGJ = N / 8 < 4 ? N / 8 : 4;       // groups turned at once
+  const bool vec = kGJ == 4 && g.cob % 8 == 0;
+  const int t = lane % 4;
 #pragma unroll
-  for (int part = 0; part < N / NW; ++part) {
-    float acc[NW / 2];
+  for (int q = 0; q < N / 8 / kGJ; ++q) {
+    uint32_t pk[2][kGJ];        // each row's bf16 pair of each group
+    bool cok[kGJ][2];           // the pair's columns below Cob
 #pragma unroll
-    for (int i = 0; i < NW / 2; ++i) acc[i] = 0.0f;
-    // the descriptor of step 0 at the part's first 8-lane group; a step's
-    // B offset adds to its address field
-    const uint64_t desc0 =
-        mn_desc(dt::smem_u32(wts) + part * NW / 8 * chunk * 16, chunk);
-    auto step = [&](const uint32_t (&a)[4], int j) {
-      dt::wgmma_fence();
-      // B MN-major: dgrad_tile's bf16 wgmma through the transpose bit
-      dt::wgmma_bf16<NW, 1>(acc, a, desc0 + (uint64_t)shifts[steps + j]);
-      dt::wgmma_commit();
-    };
-    uint32_t a0[4], a1[4];
-    load_a(a0, win, off, shifts[0]);
-    for (int j = 0; j < steps; j += 2) {
-      step(a0, j);
-      if (j + 1 < steps) {
-        dt::wgmma_wait<1>();          // step j - 1 has released a1
-        load_a(a1, win, off, shifts[j + 1]);
-        step(a1, j + 1);
+    for (int u = 0; u < kGJ; ++u) {
+      const int jj = q * kGJ + u;
+      const int col = 8 * jj + col0;
+      // the column pair's bias, once for both rows
+      float bv[2] = {0.0f, 0.0f};
+      if (bias_row != nullptr) {
+        if (bias_pairs && o0 + col + 1 < g.cob) {
+          const float2 b2 = __ldg(reinterpret_cast<const float2*>(bias_row
+                                                                  + col));
+          bv[0] = b2.x;
+          bv[1] = b2.y;
+        } else {
+          if (o0 + col < g.cob) bv[0] = __ldg(bias_row + col);
+          if (o0 + col + 1 < g.cob) bv[1] = __ldg(bias_row + col + 1);
+        }
       }
-      if (j + 2 < steps) {
-        dt::wgmma_wait<1>();          // step j has released a0
-        load_a(a0, win, off, shifts[j + 2]);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) cok[u][e] = o0 + col + e < g.cob;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        bf v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = row_ok[h] && cok[u][e];
+          float v32 = activate(acc[4 * jj + 2 * h + e] + bv[e], kAct);
+          if (residual != nullptr && ok) {
+            v32 += __bfloat162float(residual[base[h] + col + e]);
+          }
+          v[e] = __float2bfloat16_rn(v32);
+          if (kGap) {
+            acc[4 * jj + 2 * h + e] = ok ? __bfloat162float(v[e]) : 0.0f;
+          }
+        }
+        pk[h][u] = (uint32_t)__bfloat16_as_ushort(v[0])
+                   | ((uint32_t)__bfloat16_as_ushort(v[1]) << 16);
       }
     }
-    dt::wgmma_wait<0>();
-    dt::fence_regs<NW / 2>(acc);
 #pragma unroll
-    for (int i = 0; i < NW / 2; ++i) total[part * NW / 2 + i] += acc[i];
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (kGJ == 4) {
+        if (vec) {
+          // lane t gathers group 4q + t's pair from each lane s of its
+          // quad into word s
+          auto pick = [&](int i) {
+            return i == 0 ? pk[h][0]
+                          : (i == 1 ? pk[h][1] : (i == 2 ? pk[h][2]
+                                                          : pk[h][3]));
+          };
+          uint32_t w[4];
+          const uint32_t own = pick(t);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) w[s] = s == t ? own : 0u;
+#pragma unroll
+          for (int k = 1; k < 4; ++k) {
+            const uint32_t got = __shfl_xor_sync(0xffffffffu, pick(t ^ k),
+                                                 k);
+#pragma unroll
+            for (int s = 0; s < 4; ++s) w[s] = s == (t ^ k) ? got : w[s];
+          }
+          const int col8 = 8 * (4 * q + t);
+          if (row_ok[h] && o0 + col8 < g.cob) {
+            asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};\n"
+                         :: "l"(out + base[h] + col8), "r"(w[0]), "r"(w[1]),
+                            "r"(w[2]), "r"(w[3])
+                         : "memory");
+          }
+          continue;
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kGJ; ++u) {
+        const int col = 8 * (q * kGJ + u) + col0;
+        if (!row_ok[h]) continue;
+        if (pairs && cok[u][1]) {
+          *reinterpret_cast<uint32_t*>(out + base[h] + col) = pk[h][u];
+        } else {
+          if (cok[u][0]) {
+            out[base[h] + col] =
+                __ushort_as_bfloat16((unsigned short)(pk[h][u] & 0xFFFF));
+          }
+          if (cok[u][1]) {
+            out[base[h] + col + 1] =
+                __ushort_as_bfloat16((unsigned short)(pk[h][u] >> 16));
+          }
+        }
+      }
+    }
   }
+  if (!kGap) return;
+  // a thread's two rows, a warp's eight row groups by shuffles, then the
+  // consumer warps in order
+  const int consumers = g.wgs * kWarpgroup;
+  const int wid = threadIdx.x / 32;
+#pragma unroll
+  for (int jj = 0; jj < N / 8; ++jj) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      float s = acc[4 * jj + e] + acc[4 * jj + 2 + e];
+      s += __shfl_xor_sync(0xffffffffu, s, 4);
+      s += __shfl_xor_sync(0xffffffffu, s, 8);
+      s += __shfl_xor_sync(0xffffffffu, s, 16);
+      if (lane < 4) m.red[wid * N + 8 * jj + col0 + e] = s;
+    }
+  }
+  dt::bar_sync(kBarGap, consumers);
+  const int column = it.n * g.coblk + it.o_b;
+  if ((int)threadIdx.x < N && o0 + (int)threadIdx.x < g.cob) {
+    float s = 0.0f;
+    for (int w = 0; w < consumers / 32; ++w) s += m.red[w * N + threadIdx.x];
+    partials[((size_t)column * tiles + it.tile) * g.cob + o0 + threadIdx.x] =
+        s;
+  }
+  // the last item of (n, o_b), both lane halves: its tiles in order, times
+  // the f32 reciprocal of Ho * Wo
+  split_sum::gap_fold(partials, pooled, counters, column, tiles,
+                      tiles * g.nsplit, g.cob, g.ho * g.wo, m.flag, kBarGap,
+                      consumers);
 }
 
-// The whole CTA (the f32 tile's run): grid (tiles, Co blocks x nsplit,
-// images).  With GAP: `partials` [N, Co/Cob, tiles, Cob] f32, `pooled` [N,
-// Co] bf16, `counters` two zeroed int32 an (image, output block).
+// store_out at the geometry's activation and GAP, each a compile-time
+// constant of its own copy (a runtime test an element cost the epilogue,
+// which the tensor cores wait out).
 template <int N>
-__device__ void run(char* smem, const CUtensorMap* tmw,
-                    const bf* __restrict__ x, const bf* __restrict__ w,
-                    const float* __restrict__ bias,
-                    const bf* __restrict__ residual, bf* __restrict__ out,
-                    float* partials, bf* __restrict__ pooled, int* counters,
-                    const Geometry& g) {
-  const int tile = blockIdx.x;
-  const int o_b = blockIdx.y / g.nsplit;
-  const int o0 = blockIdx.y % g.nsplit * N;
-  const int n = blockIdx.z;
-  const int across = ceil_div(g.wo, g.tw);
-  const int oh0 = tile / across * g.th;
-  const int ow0 = tile % across * g.tw;
+__device__ __forceinline__ void store_any(float (&acc)[N / 2],
+                                          const Geometry& g, const Item& it,
+                                          int c, int tiles, const Smem& m,
+                                          const float* __restrict__ bias,
+                                          const bf* __restrict__ residual,
+                                          bf* __restrict__ out,
+                                          float* partials,
+                                          bf* __restrict__ pooled,
+                                          int* counters) {
+#define FWD_STORE(act, gap)                                                \
+  store_out<N, act, gap>(acc, g, it, c, tiles, m, bias, residual, out,      \
+                         partials, pooled, counters)
+  if (g.gap) {
+    if (g.act == kActRelu) {
+      FWD_STORE(kActRelu, true);
+    } else if (g.act == kActGelu) {
+      FWD_STORE(kActGelu, true);
+    } else {
+      FWD_STORE(0, true);
+    }
+  } else if (g.act == kActRelu) {
+    FWD_STORE(kActRelu, false);
+  } else if (g.act == kActGelu) {
+    FWD_STORE(kActGelu, false);
+  } else {
+    FWD_STORE(0, false);
+  }
+#undef FWD_STORE
+}
+
+// Both kernels' body: a persistent CTA walks the items blockIdx.x,
+// blockIdx.x + gridDim.x, ... of `n_images` images (item_of); the streamed
+// band (a copy group and a 64-row m-tile a strip) or the window tile (one
+// group, one m-tile of 64 rows a consumer).  A stage (input block, chunk)
+// lands its window in a ring of nw window slots and the weights of each
+// filter row in turn in a ring of nr weight slots; the window stays while
+// the stage's rows pass through the weight ring.  A window slot's `full`
+// mbarriers complete as its TMA copies land, its `ready` ones once the
+// producer's copies have, its `empty` one once every consumer thread's
+// wgmmas of the stage's last row are done; a weight slot's `full` one as
+// its copy lands, its `empty` one once the wgmmas of its row are done.
+// With GAP: `partials` [N, Co/Cob, tiles, Cob] f32, `pooled` [N, Co] bf16,
+// `counters` an int32 an (image, output block), zeroed.
+template <int N>
+__device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
+                                    const CUtensorMap* tmx,
+                                    const bf* __restrict__ x,
+                                    const bf* __restrict__ w,
+                                    const float* __restrict__ bias,
+                                    const bf* __restrict__ residual,
+                                    bf* __restrict__ out, float* partials,
+                                    bf* __restrict__ pooled, int* counters,
+                                    const Geometry& g, int n_images) {
   const int nth = blockDim.x;
   const int consumers = g.wgs * kWarpgroup;
-  const Smem m = carve<N>(smem, g);
-  bf16::step_shifts<N>(m.shifts, g);
+  const int groups = streamed(g) ? g.wgs : 1;
+  const Smem m = carve<N>(raw, g);
+  const int nw = m.nw, nr = m.nr;
+  const int per_block = bf16::kpad(g) / g.chunk;
+  const int count = bf16::stages(g);
+  const int tiles = fwd_tile::tiles(g);
+  const int items = tiles * g.coblk * g.nsplit * n_images;
+  const int h = bf16::hso(g);
+  const int mh1 = mh(g) - 1;
+  const bool twin = tma_window(g);
+  const bool twts = bf16::tma_weights(g, N);
+  // plane rows of copy group k: strip 0's all, a later strip's fresh ones
+  auto lo_of = [&](int k) { return k == 0 ? 0 : k * h + mh1; };
+  auto hi_of = [&](int k) { return (k + 1) * h + mh1; };
+  auto win = [&](int slot) { return m.win0 + slot * m.wslot; };
+  auto wrow = [&](int slot) { return m.row0 + slot * m.rslot; };
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kSlots; ++s) dt::mbar_init(m.bar + s, 1);
+    for (int i = 0; i < kMaxWindows * kMaxGroups; ++i) {
+      dt::mbar_init(&m.wfull[i], 1);
+      dt::mbar_init(&m.wready[i], kWarpgroup);
+    }
+    for (int i = 0; i < kMaxWindows; ++i) {
+      dt::mbar_init(&m.wempty[i], consumers);
+    }
+    for (int i = 0; i < kMaxRows; ++i) {
+      dt::mbar_init(&m.rfull[i], twts ? 1 : kWarpgroup);
+      dt::mbar_init(&m.rempty[i], consumers);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (threadIdx.x >= consumers) {
-    produce<N>(m, tmw, x, w, g, n, o_b, o0, oh0 * g.stride - g.pad_top,
-               ow0 * g.stride - g.pad_left);
+  if (threadIdx.x >= consumers) {             // the producer warpgroup
+    const int tid = threadIdx.x - consumers;
+    // TMA alone needs warp 0; copies need every producer thread
+    if (twin && twts && tid >= 32) return;
+    int gw = 0, gr = 0;       // stages and filter rows so far
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const Item it = item_of(g, tiles, i);
+      const int h0 = it.oh0 * g.stride - g.pad_top;
+      const int w0 = it.ow0 * g.stride - g.pad_left;
+      for (int s = 0; s < count; ++s, ++gw) {
+        const int i_b = s / per_block;
+        const int c0 = (s - i_b * per_block) * g.chunk;
+        const int ws = gw % nw;
+        if (gw >= nw) dt::mbar_wait(&m.wempty[ws], ((gw / nw) & 1) ^ 1);
+        if (twin) {                   // warp 0: TMA, a group a strip
+          if (tid < 32) {
+            uint64_t* full = &m.wfull[ws * kMaxGroups];
+            if (tid == 0) {
+              for (int k = 0; k < groups; ++k) {
+                dt::mbar_expect_tx(&full[k],
+                                   group_bytes(g, lo_of(k), hi_of(k)));
+              }
+            }
+            __syncwarp();
+            for (int k = 0; k < groups; ++k) {
+              issue_window(tmx, win(ws), &full[k], g, it.n, i_b, c0, h0, w0,
+                           lo_of(k), hi_of(k), tid, 32);
+            }
+          }
+        } else {                      // every producer thread copies
+          copy_window(x, win(ws), g, it.n, i_b, c0, h0, w0, 0,
+                      hi_of(groups - 1), tid);
+          dt::fence_proxy_async();    // the stores, for wgmma's reads
+          for (int k = 0; k < groups; ++k) {
+            db::mbar_arrive(&m.wready[ws * kMaxGroups + k]);
+          }
+        }
+        for (int r = 0; r < g.hf; ++r, ++gr) {
+          const int rs = gr % nr;
+          if (gr >= nr) dt::mbar_wait(&m.rempty[rs], ((gr / nr) & 1) ^ 1);
+          if (twts) {
+            if (tid == 0) {
+              dt::mbar_expect_tx(&m.rfull[rs], g.wf * N * cell_bytes(g));
+              issue_row_weights<N>(tmw, wrow(rs), &m.rfull[rs], g, it.o_b,
+                                   i_b, r, c0, it.split * N);
+            }
+          } else {
+            copy_row_weights<N>(w, wrow(rs), g, it.o_b, i_b, r, c0,
+                                it.split * N, tid);
+            dt::fence_proxy_async();
+            db::mbar_arrive(&m.rfull[rs]);
+          }
+        }
+      }
+    }
     return;
   }
 
-  const int wg = threadIdx.x / kWarpgroup;
-  const bool streamed = g.strips > 1;
-  const int group = streamed ? wg : 0;
-  const int pair = streamed ? 2 * kWarpgroup : nth;
-  const int mt = streamed ? wg : 0;
-  const int q0 = streamed ? 0 : kRows * wg;
-  int off[2];
-  bf16::row_offsets(off, g, mt, q0);
-  const int count = bf16::stages(g);
-  float acc[N / 2];
+  // a consumer: the window tile's rows 64c.. or the streamed band's strip
+  // c, its index read warp-uniform so that the descriptors are uniform
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0);
+  const int group = streamed(g) ? c : 0;
+  const uint32_t cb = cell_bytes(g);
+  const uint32_t pb = plane_cells(g) * cb;
+  const uint32_t rb = wpitch(g) * cb;
+  // the offsets of taps 1 and 2 of a filter row: the next plane, or the
+  // next cell
+  const uint32_t t1 = (1 % g.stride) * pb + (1 / g.stride) * cb;
+  const uint32_t t2 = (2 % g.stride) * pb + (2 / g.stride) * cb;
+  const uint32_t row0 = first_row(g, c) * cb;
+  const uint64_t adesc = db::desc_of(cb);
+  const uint64_t bdesc = b_desc<N>(g.chunk);
+  int gw = 0, gr = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_of(g, tiles, i);
+    float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < N / 2; ++i) acc[i] = 0.0f;
-  for (int s = 0; s < count; ++s) {
-    const int slot = s % kSlots;
-    dt::bar_sync(kBarFull + slot * kMaxGroups + group, pair);
-    if (bf16::tma_weights(g)) dt::mbar_wait(m.bar + slot, s / kSlots & 1);
-    mma_stage<N, (N > 64 ? 64 : N)>(acc, m.win_of(slot), off, m.shifts,
-                                    bf16::steps(g), m.wts_of(slot), g.chunk);
-    if (s + kSlots < count) dt::bar_arrive(kBarEmpty + slot, nth);
-  }
-
-  // the epilogue in f32, one rounding to bf16 at the store; acc keeps the
-  // stored (rounded) values, zero where nothing is stored, for the GAP
-  const int lane = threadIdx.x % 32;
-  const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
-  const int ms = mstride(g);
-  const int col0 = 2 * (lane % 4);
-  const bool pairs = g.cob % 2 == 0;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int q = local + 8 * h;
-    const int p = mt * ms + q;
-    const int oh = oh0 + p / g.tw;
-    const int ow = ow0 + p % g.tw;
-    const bool row_ok = q < ms && p < g.th * g.tw && oh < g.ho && ow < g.wo;
-    const size_t base =
-        (((size_t)(n * g.coblk + o_b) * g.ho + oh) * g.wo + ow) * g.cob + o0;
-#pragma unroll
-    for (int jj = 0; jj < N / 8; ++jj) {
-      const int col = 8 * jj + col0;
-      bf v[2];
-      bool ok[2];
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        ok[e] = row_ok && o0 + col + e < g.cob;
-        float f = acc[4 * jj + 2 * h + e];
-        if (ok[e]) {
-          const int o = o0 + col + e;
-          f = activate(
-              f + (bias != nullptr ? __ldg(bias + o_b * g.cob + o) : 0.0f),
-              g.act);
-          if (residual != nullptr) {
-            f += __bfloat162float(residual[base + col + e]);
-          }
+    for (int j = 0; j < N / 2; ++j) acc[j] = 0.0f;
+    for (int s = 0; s < count; ++s, ++gw) {
+      const int ws = gw % nw;
+      const int wpar = (gw / nw) & 1;
+      if (twin) {           // the copies the wgmmas read have landed
+        for (int k = 0; k <= group; ++k) {
+          dt::mbar_wait(&m.wfull[ws * kMaxGroups + k], wpar);
         }
-        v[e] = __float2bfloat16_rn(f);
-        acc[4 * jj + 2 * h + e] = ok[e] ? __bfloat162float(v[e]) : 0.0f;
-      }
-      if (pairs && ok[1]) {
-        __nv_bfloat162 pr;
-        pr.x = v[0];
-        pr.y = v[1];
-        *reinterpret_cast<__nv_bfloat162*>(out + base + col) = pr;
       } else {
-        if (ok[0]) out[base + col] = v[0];
-        if (ok[1]) out[base + col + 1] = v[1];
+        dt::mbar_wait(&m.wready[ws * kMaxGroups + group], wpar);
+      }
+      const uint32_t a0 = dt::smem_u32(win(ws)) + row0;
+      for (int r = 0; r < g.hf; ++r, ++gr) {
+        const int rs = gr % nr;
+        dt::mbar_wait(&m.rfull[rs], (gr / nr) & 1);
+        // filter row r reads plane row phase r % s, r / s plane rows on
+        mma_filter_row<N>(acc,
+                          a0 + (r % g.stride) * g.stride * pb
+                              + (r / g.stride) * rb,
+                          dt::smem_u32(wrow(rs)), g, t1, t2, pb, adesc,
+                          bdesc);
+        if (s > 0 || r > 0) {
+          dt::wgmma_wait<1>();    // the row before is done: free its slots
+          db::mbar_arrive(&m.rempty[(gr - 1) % nr]);
+          if (r == 0) db::mbar_arrive(&m.wempty[(gw - 1) % nw]);
+        }
       }
     }
+    dt::wgmma_wait<0>();
+    if (count > 0) {
+      db::mbar_arrive(&m.rempty[(gr - 1) % nr]);
+      db::mbar_arrive(&m.wempty[(gw - 1) % nw]);
+    }
+    dt::fence_regs<N / 2>(acc);
+    store_any<N>(acc, g, it, c, tiles, m, bias, residual, out, partials,
+                 pooled, counters);
   }
+}
 
-  if (g.gap) {
-    const int wid = threadIdx.x / 32;
-#pragma unroll
-    for (int jj = 0; jj < N / 8; ++jj) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float s = acc[4 * jj + e] + acc[4 * jj + 2 + e];
-        s += __shfl_xor_sync(0xffffffffu, s, 4);
-        s += __shfl_xor_sync(0xffffffffu, s, 8);
-        s += __shfl_xor_sync(0xffffffffu, s, 16);
-        if (lane < 4) m.red[wid * N + 8 * jj + col0 + e] = s;
-      }
-    }
-    dt::bar_sync(kBarGap, consumers);
-    const int c = threadIdx.x;
-    if (c < N && o0 + c < g.cob) {
-      float s = 0.0f;
-      for (int q = 0; q < consumers / 32; ++q) s += m.red[q * N + c];
-      partials[((size_t)(n * g.coblk + o_b) * gridDim.x + tile) * g.cob + o0
-               + c] = s;
-    }
-    split_sum::gap_fold(partials, pooled, counters, n * g.coblk + o_b,
-                        gridDim.x, gridDim.x * g.nsplit, g.cob, g.ho * g.wo,
-                        reinterpret_cast<int*>(m.red), kBarGap, consumers);
+// The weights' tensor map: [blocks][taps][Cib][Cob / nin][nin] bf16 with a
+// box of one filter row, [wf][chunk][lanes / nin][nin] (landing [wf][lanes /
+// nin][chunk][nin] in the swizzle of nin * 2 bytes), where tma_weights.  ->
+// false where the encoder refuses it.
+inline bool encode_weights(CUtensorMap* tmw, const void* w, const Geometry& g,
+                           int lanes) {
+  const int nin = b_lanes(lanes);
+  const long long cob = g.cob, blocks = (long long)g.coblk * g.ciblk;
+  const long long dims[5] = {nin, g.cib, cob / nin, taps(g), blocks};
+  const long long strides[4] = {cob * 2, nin * 2, g.cib * cob * 2,
+                                taps(g) * g.cib * cob * 2};
+  const int box[5] = {nin, g.chunk, lanes / nin, g.wf, 1};
+  if (nin == 8) {
+    return dt::encode(tmw, w, 5, dims, strides, box,
+                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   }
+  return db::encode_swizzled(tmw, w, 5, dims, strides, box, nin * 2);
+}
+
+// x's tensor map: [N][Ci/Cib][Hi][Wi][Cib] bf16 with a box of {chunk, s
+// wpitch, s box_rows} traversed at stride s along W and H, landing box_rows
+// plane rows of wpitch cells in the chunk's swizzle, where Cib is a multiple
+// of 8.
+inline bool encode_window(CUtensorMap* tmx, const void* x, const Geometry& g,
+                          int n) {
+  const long long cib = g.cib;
+  const long long dims[5] = {cib, g.wi, g.hi, g.ciblk, n};
+  const long long strides[4] = {cib * 2, g.wi * cib * 2,
+                                (long long)g.hi * g.wi * cib * 2,
+                                (long long)g.ciblk * g.hi * g.wi * cib * 2};
+  const int box[5] = {g.chunk, g.stride * wpitch(g), g.stride * box_rows(g),
+                      1, 1};
+  const int steps[5] = {1, g.stride, g.stride, 1, 1};
+  return db::encode_swizzled(tmx, x, 5, dims, strides, box, cell_bytes(g),
+                             steps);
 }
 
 }  // namespace bf16
@@ -1226,10 +1775,9 @@ __device__ void run(char* smem, const CUtensorMap* tmw,
 
 // Raise a kernel's dynamic shared-memory limit once per device to the most
 // any launch has asked of it (the attribute is the kernel's, per device);
-// `slot` names the kernel among a library's instances (five f32, then
-// five bf16).
+// `slot` names the kernel among a library's five f32 instances.
 inline cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
-  static int allowed[kMaxDevices][10];
+  static int allowed[kMaxDevices][5];
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -1245,29 +1793,14 @@ inline cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
   return err;
 }
 
-// The wgmma widths a library compiles, and a width's instance index.
-inline int lane_slot(int lanes) {
-  switch (lanes) {
-    case 8: return 0;
-    case 16: return 1;
-    case 32: return 2;
-    case 64: return 3;
-    case 128: return 4;
-  }
-  return -1;
-}
-
-// Whether the tiles of `g` at wgmma width `lanes` are ones the kernels
-// take: `streamed` asks for bands of two or three strips of at most 64
-// positions, else one m-tile of 64 * wgs rows holding the tile; `kstep` is
-// the wgmma's k-slice (8: the f32 tile, 16: its bf16 build), which the
-// chunk and Cib's padding are multiples of.
-__host__ inline bool valid(const Geometry& g, int lanes, bool streamed,
-                           int kstep = 8) {
+// Whether the f32 tile takes the tiles of `g` at wgmma width `lanes`:
+// `streamed` asks for bands of two or three strips of at most 64 positions,
+// else one m-tile of 64 * wgs rows holding the tile.
+__host__ inline bool valid(const Geometry& g, int lanes, bool streamed) {
   if (lane_slot(lanes) < 0 || g.wgs < 1
       || kWarpgroup * (g.wgs + 1) > max_threads(lanes)
-      || g.chunk < kstep || (g.chunk & (g.chunk - 1)) != 0
-      || ceil_div(g.cib, kstep) * kstep % g.chunk != 0
+      || g.chunk < 8 || (g.chunk & (g.chunk - 1)) != 0
+      || kpad(g) % g.chunk != 0
       || g.th < 1 || g.tw < 1 || g.stride < 1 || g.hf < 1 || g.wf < 1
       || g.nsplit < 1 || (g.nsplit - 1) * lanes >= g.cob
       || g.nsplit * lanes < g.cob || g.act < 0 || g.act > kActGelu)
@@ -1291,8 +1824,8 @@ struct Plan {
   int lanes, n, smem, operand;
 };
 
-// Read `ints` into `p` -> whether the kernels of that operand type take its
-// tiles.
+// Read `ints` into `p` -> whether the kernels of that operand type (the
+// streamed ones where `streamed`) take its tiles.
 inline bool read_plan(const int* ints, bool streamed, Plan* p) {
   int* fields = reinterpret_cast<int*>(&p->g);
   for (int i = 0; i < kGeometryInts; ++i) fields[i] = ints[i];
@@ -1301,9 +1834,10 @@ inline bool read_plan(const int* ints, bool streamed, Plan* p) {
   p->n = more[1];
   p->smem = more[2];
   p->operand = more[3];
-  return (p->operand == kOperandF32 || p->operand == kOperandBf16)
-         && valid(p->g, p->lanes, streamed,
-                  p->operand == kOperandBf16 ? 16 : 8);
+  if (p->operand == kOperandBf16) {
+    return bf16::streamed(p->g) == streamed && bf16::valid(p->g, p->lanes);
+  }
+  return p->operand == kOperandF32 && valid(p->g, p->lanes, streamed);
 }
 
 __host__ inline size_t smem_of(const Plan& p) {
@@ -1311,21 +1845,11 @@ __host__ inline size_t smem_of(const Plan& p) {
                                    : smem_bytes(p.g, p.lanes);
 }
 
-// The weights' tensor map: f32 [blocks][taps][Cib][Cob] with a box of one
-// block's [taps][chunk][lanes]; bf16 [blocks][taps][Cib][Cob/8][8] with a
-// box of [taps][chunk][lanes/8][8], where Cob is a multiple of 8.  -> false
-// where the encoder refuses it.
+// The f32 weights' tensor map: [blocks][taps][Cib][Cob] with a box of one
+// block's [taps][chunk][lanes].  -> false where the encoder refuses it.
 inline bool encode_weights(CUtensorMap* tmw, const void* w, const Plan& p) {
   const Geometry& g = p.g;
   const long long cob = g.cob, blocks = (long long)g.coblk * g.ciblk;
-  if (p.operand == kOperandBf16) {
-    const long long dims[5] = {8, g.cib, cob / 8, taps(g), blocks};
-    const long long strides[4] = {cob * 2, 16, g.cib * cob * 2,
-                                  taps(g) * g.cib * cob * 2};
-    const int box[5] = {8, g.chunk, p.lanes / 8, taps(g), 1};
-    return dt::encode(tmw, w, 5, dims, strides, box,
-                      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
-  }
   const long long dims[4] = {cob, g.cib, taps(g), blocks};
   const long long strides[3] = {cob * 4, g.cib * cob * 4,
                                 taps(g) * g.cib * cob * 4};
@@ -1333,10 +1857,52 @@ inline bool encode_weights(CUtensorMap* tmw, const void* w, const Plan& p) {
   return dt::encode(tmw, w, 4, dims, strides, box);
 }
 
+// The bf16 build's launch: the tensor maps of w and x where their pencils
+// take TMA, then one persistent grid of as many CTAs as the card holds at
+// once (or as there are items).
+inline int launch_bf16(const void* kernel, const Plan& p, const void* x,
+                       const void* w, const void* bias, const void* residual,
+                       void* out, void* partials, void* pooled,
+                       void* counters, cudaStream_t stream) {
+  const Geometry& g = p.g;
+  const long long items =
+      (long long)tiles(g) * g.coblk * g.nsplit * p.n;
+  if (items >= (1ll << 31)) return (int)cudaErrorInvalidValue;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  // cuTensorMapEncodeTiled needs the device's context current on this
+  // thread
+  if (err == cudaSuccess) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap tmw, tmx;
+  memset(&tmw, 0, sizeof(tmw));
+  memset(&tmx, 0, sizeof(tmx));
+  if ((bf16::tma_weights(g, p.lanes)
+       && !bf16::encode_weights(&tmw, w, g, p.lanes))
+      || (bf16::tma_window(g) && !bf16::encode_window(&tmx, x, g, p.n))) {
+    return (int)cudaErrorNotSupported;     // the encoder refused a map
+  }
+  const int threads = kWarpgroup * (g.wgs + 1);
+  int ctas = 0;
+  err = dt::bf16::resident_ctas(kernel, device, threads, (size_t)p.smem,
+                                &ctas);
+  if (err != cudaSuccess) return (int)err;
+  int n = p.n;
+  Geometry geo = g;
+  void* args[] = {&tmw, &tmx, &x, &w, &bias, &residual, &out, &partials,
+                  &pooled, &counters, &geo, &n};
+  err = cudaLaunchKernel(kernel,
+                         dim3((unsigned)std::min<long long>(items, ctas)),
+                         dim3(threads), args, p.smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
 // Launch `kernels[operand][lane_slot(lanes)]` on the plan's int array (Plan
 // above; the shared memory must be smem_bytes's of that build): x, w,
 // residual, out and pooled at the operand type, the bias and the partials
-// f32.  Grid: (tiles, Co blocks x nsplit, images).
+// f32.  The f32 tile's grid: (tiles, Co blocks x nsplit, images); the bf16
+// build's: persistent (launch_bf16).
 inline int launch(const void* const* const* kernels, bool streamed,
                   const void* x, const void* w, const void* bias,
                   const void* residual, void* out, void* partials,
@@ -1352,14 +1918,17 @@ inline int launch(const void* const* const* kernels, bool streamed,
   if (p.n == 0) return 0;
   const int slot = lane_slot(p.lanes);
   const void* kernel = kernels[p.operand][slot];
-  cudaError_t err = allow_smem(kernel, 5 * p.operand + slot, p.smem);
+  if (p.operand == kOperandBf16) {
+    return launch_bf16(kernel, p, x, w, bias, residual, out, partials,
+                       pooled, counters, stream);
+  }
+  cudaError_t err = allow_smem(kernel, slot, p.smem);
   if (err != cudaSuccess) return (int)err;
   // cuTensorMapEncodeTiled needs the device's context current on this
   // thread
   CUtensorMap tmw;
   memset(&tmw, 0, sizeof(tmw));
-  if (p.operand == kOperandBf16 ? bf16::tma_weights(p.g)
-                                : tma_weights(p.g)) {
+  if (tma_weights(p.g)) {
     int device = 0;
     err = cudaGetDevice(&device);
     if (err == cudaSuccess) err = cudaSetDevice(device);
@@ -1378,17 +1947,21 @@ inline int launch(const void* const* const* kernels, bool streamed,
   return (int)cudaGetLastError();
 }
 
-// What a launch of the same plan runs (`plan` and bf16::plan): 0, or
-// cudaErrorInvalidValue where the kernels refuse the tiles.
+// What a launch of the same plan runs (`plan` and bf16::plan): out[0..3],
+// and out[4], out[5] the window and weight slots (the f32 tile's one ring
+// holds both in each of its kSlots); or cudaErrorInvalidValue where the
+// kernels refuse the tiles.
 inline int plan_of(bool streamed, const int* ints, long long* out) {
   Plan p;
   if (!read_plan(ints, streamed, &p)) return (int)cudaErrorInvalidValue;
   if (p.operand == kOperandBf16) {
     bf16::plan(p.g, p.n, p.lanes, out);
-  } else {
-    plan(p.g, p.n, p.lanes, out);
+    return 0;
   }
+  plan(p.g, p.n, p.lanes, out);
   out[3] = (long long)smem_of(p);
+  out[4] = kSlots;
+  out[5] = kSlots;
   return 0;
 }
 

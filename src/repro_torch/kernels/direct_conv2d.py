@@ -505,7 +505,8 @@ def fwd_launch(spec: ConvSpec, cib: int, cob: int, act: int, gap: bool,
         blk = (choose_stream_fwd_blocking(*args, hso, op_bytes) if streamed
                else choose_fwd_blocking(*args, op_bytes))
     smem = fwd_smem_bytes(blk.th, blk.tw, spec.hf, spec.wf, spec.stride,
-                          blk.chunk, blk.lanes, blk.wgs, gap, op_bytes)
+                          blk.chunk, blk.lanes, blk.wgs, gap, op_bytes,
+                          blk.strips)
     (pt, _), (pl, _) = spec.pads
     ints = (ciblk, cib, spec.hi, spec.wi, coblk, cob, spec.ho, spec.wo,
             spec.hf, spec.wf, spec.stride, pt, pl, blk.th, blk.tw, blk.wgs,
@@ -637,7 +638,7 @@ def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
                       dtype=dtype)
     entry = (_stream_kernels()._lib().conv2d_stream_conv_plan if streamed
              else _lib().direct_conv2d_fwd_plan)
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 6)()
     if entry(plan.ints, out):
         raise ValueError(f"the forward kernel refuses the tiles {plan.blk}")
     model = fwd_plan(plan.blk, spec.n, spec.ho, spec.wo, spec.hf, spec.wf,

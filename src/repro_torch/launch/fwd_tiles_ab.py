@@ -12,9 +12,12 @@ version, and prints the card's name and power limit, each tile with its
 model cost and ms, and per layer and route the chooser's tile beside the
 fastest one measured, then the sums.  ``--dtype bf16`` does the same for
 the tile's bf16 build (bf16 operands, the bf16 chooser's candidates, the
-plain version under ``BF16``).  Needs an H100 and nvcc::
+cheapest of each (consumer count, lane split, chunk), the plain version
+under ``BF16``), and with ``--mobilenet`` MobileNet v1's ``conv1`` as well.
+Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab [--dtype bf16]
+    PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab \\
+        [--dtype bf16] [--mobilenet]
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ import subprocess
 
 import torch
 
-from repro_torch.configs.cnn import vgg16_layers
+from repro_torch.configs.cnn import mobilenet_v1_layers, vgg16_layers
 from repro_torch.core.blocking import H100_SXM, fwd_candidates
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
@@ -46,7 +49,8 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     op_bytes: int = 4):
     """The tiles to time at ``op_bytes`` operands, as ``(model cost,
     FwdBlocking)``, the chooser's first: the ``top`` of least cost and the
-    ``per_kind`` cheapest of each (consumer count, lane split)."""
+    ``per_kind`` cheapest of each (consumer count, lane split), and at 2-byte
+    operands of each chunk too."""
     cib, cob = min(ci, 128), min(co, 128)
     ho = -(-h // stride)
     found = sorted(fwd_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
@@ -54,9 +58,10 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                                   op_bytes=op_bytes),
                    key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
-    for kind in sorted({(b.wgs, b.nsplit) for _, b in found}):
-        keep += [b for _, b in found
-                 if (b.wgs, b.nsplit) == kind][:per_kind]
+    def kind(b):
+        return (b.wgs, b.nsplit) + ((b.chunk,) if op_bytes == 2 else ())
+    for k in sorted({kind(b) for _, b in found}):
+        keep += [b for _, b in found if kind(b) == k][:per_kind]
     cost = {b: k[0] for k, b in found}
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
@@ -65,6 +70,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--dtype", choices=("f32", "bf16"), default="f32",
                         help="the build to time (default f32)")
+    parser.add_argument("--mobilenet", action="store_true",
+                        help="MobileNet v1's conv1 after VGG-16's layers")
     args = parser.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     # the bf16 build rounds its output once: one bf16 ulp of the magnitude
@@ -84,7 +91,11 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
     sums = {route: [0.0, 0.0] for route in entries}
-    for name, ci, co, s, h in fwd_layers():
+    layers = fwd_layers()
+    if args.mobilenet:
+        _, ci, co, s = mobilenet_v1_layers()[0]
+        layers.append(("mobilenet.conv1", ci, co, s, 224))
+    for name, ci, co, s, h in layers:
         cib, cob = min(ci, 128), min(co, 128)
         spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
         x = torch.randn((n, ci // cib, h, h, cib), device=dev,

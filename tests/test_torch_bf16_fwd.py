@@ -1,25 +1,32 @@
 """The bf16 build of the dense forward tile (``csrc/fwd_tile.cuh``,
 namespace ``bf16``) on the CPU, and the dense main path served in bf16.
 
-The kernels' arithmetic written out in numpy CTA by CTA, as the window
+The kernels' arithmetic written out in numpy item by item, as the window
 forward (``fwd_kernel_bf16``) and the streamed one
-(``stream_fwd_kernel_bf16``) run it: x, w and the residual rounded to
-bf16 once, the halo window staged zero outside the map and past the pencil
-(Cib padded to 16), the weight chunk in the interleaved MN-major order the
-TMA box lands, each k16 slice's bf16 products added to a stage's f32
-accumulator rounded toward zero, each stage's sum added to the running f32
-sum, the epilogue (+ f32 bias, activation, + r in f32) rounded once to
-bf16, and the GAP of the stored bf16 values in the tile's order
+(``stream_fwd_kernel_bf16``) run it: the persistent grid's items (tile,
+output block x lane split, image) in their walk's order, each output stored
+once; x, w and the residual rounded to bf16 once; each stage's window staged
+as the slot holds it (``s x s`` phase planes of ``pitch`` cells a row, zero
+outside the map and past the pencil, Cib padded to 16), each consumer's 64
+m-tile rows consecutive cells, tap (dh, dw) read from plane (dh % s, dw % s)
+at (dh // s) * pitch + dw // s cells on; the weights of each filter row in
+the MN-major order their TMA box lands (rows of up to 64 lanes); every k16
+slice's bf16 products added to the one f32 accumulator rounded toward zero,
+in the order stages, filter rows, taps, slices; the epilogue (+ f32 bias,
+activation, + r in f32) rounded once to bf16 on the rows whose cell lies in
+the tile; and the GAP of the stored bf16 values in the tile's order
 (``conv2d_common.gap_replay``).  Held against the reference's jnp oracle
-under ``BF16`` (``direct_conv_blocked(precision=BF16)``): every element
-within one bf16 ulp of its magnitude plus 1e-5 of max|y| (the two round
-f32 sums of the same bf16 products, taken in other orders, once to bf16).
+under ``BF16`` (``direct_conv_blocked(precision=BF16)``) and its streamed
+Pallas kernel in interpret mode: every element within one bf16 ulp of its
+magnitude plus 1e-5 of max|y| (the two round f32 sums of the same bf16
+products, taken in other orders, once to bf16).
 
-Also: the precision policy's new fields against the reference's, the
-forward choosers at 2-byte operands at every VGG-16 shape (they fit one
-CTA and never take less work a stage than at f32), the wrappers' bf16
-routes and refusals, and a narrow VGG-16 served in bf16 by ``ConvServer``
-against the JAX model under ``BF16`` with the same tolerance.
+Also: the one accumulator's drift at VGG-16's longest contraction, the GAP
+replay on the flattened rows, the precision policy's fields against the
+reference's, the bf16 choosers at every VGG-16 and MobileNet ``conv1`` shape
+(they fit one CTA by the kernels' rules, and ``fwd_smem_bytes`` reckons the
+layout), the wrappers' bf16 routes and refusals, and a narrow VGG-16 served
+in bf16 by ``ConvServer`` against the JAX model under ``BF16``.
 """
 import dataclasses
 
@@ -33,8 +40,11 @@ import numpy as np  # noqa: E402
 from repro.core import precision as jprecision  # noqa: E402
 from repro.core.context import ConvContext as JContext  # noqa: E402
 from repro.core.direct_conv import direct_conv_blocked as jax_conv  # noqa: E402
+from repro.kernels.direct_conv2d import (  # noqa: E402
+    direct_conv2d_blocked_pallas)
 from repro.nn import conv as jconv  # noqa: E402
-from repro_torch.configs.cnn import vgg16_blocked, vgg16_layers  # noqa: E402
+from repro_torch.configs.cnn import (mobilenet_v1_layers,  # noqa: E402
+                                     vgg16_blocked, vgg16_layers)
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core import blocking, conv2d_common, precision  # noqa: E402
 from repro_torch.core.context import ConvContext  # noqa: E402
@@ -65,13 +75,14 @@ def _add_rz(acc, v):
 
 
 def _mn_major(b):
-    """B [K, N] as the TMA box lands it, [N/8][K][8], read back as the
-    wgmma descriptor reads it: core matrices of 8 lanes by 8 channels, a
-    k16 step's two channel halves 128 bytes apart, the lane groups K * 16
-    bytes apart."""
+    """B [K, N] as the TMA box lands a tap, [N / nin][K][nin] (nin = min(N,
+    64) lanes a row, as they lie in w), read back as the wgmma descriptor
+    reads it MN-major: rows of nin lanes, a k16 step 16 rows, the nin-lane
+    blocks K rows apart."""
     k, n = b.shape
-    flat = b.reshape(k, n // 8, 8).transpose(1, 0, 2).reshape(-1)
-    return flat.reshape(n // 8, k, 8).transpose(1, 0, 2).reshape(k, n)
+    nin = min(n, 64)
+    flat = b.reshape(k, n // nin, nin).transpose(1, 0, 2).reshape(-1)
+    return flat.reshape(n // nin, k, nin).transpose(1, 0, 2).reshape(k, n)
 
 
 def _act(v, act):
@@ -85,73 +96,103 @@ def _act(v, act):
     return v
 
 
-def _tile_forward(x, wt, b, r, pads, stride, act, gap, blk, streamed):
-    """The bf16 forward as the tiles compute and store it (module
+def _mtile_rows(blk, streamed):
+    """The window cells of the consumers' m-tile rows, consumer by consumer
+    (``fwd_tile::bf16::first_row``), and each row's index in its m-tile."""
+    first = [k * blk.hso * blk.pitch if streamed else 64 * k
+             for k in range(blk.wgs)]
+    f = np.concatenate([s + np.arange(64) for s in first])
+    return f, np.tile(np.arange(64), blk.wgs)
+
+
+def _tile_forward(x, wt, b, r, pads, stride, act, gap, blk, streamed,
+                  f32=False):
+    """The bf16 forward as the kernels compute and store it (module
     docstring) -> the stored map, or with ``gap`` the pooled features, as
-    bf16 torch tensors."""
+    bf16 torch tensors; with ``f32`` the f32 sums before the epilogue, as
+    an f32 numpy map."""
     x, wt = _bf16(x), _bf16(wt)
     r = None if r is None else _bf16(r)
     n, ciblk, hi, wi, cib = x.shape
     coblk, _, hf, wf, _, cob = wt.shape
     (pt, _), (pl, _) = pads
-    ho = (hi + sum(pads[0]) - hf) // stride + 1
-    wo = (wi + sum(pads[1]) - wf) // stride + 1
+    s = stride
+    ho = (hi + sum(pads[0]) - hf) // s + 1
+    wo = (wi + sum(pads[1]) - wf) // s + 1
     kpad = -(-cib // 16) * 16
-    lanes, chunk, s = blk.lanes, blk.chunk, stride
-    mtiles = blk.strips if streamed else 1
-    rows = 64 if streamed else 64 * blk.wgs
+    lanes, chunk, pitch = blk.lanes, blk.chunk, blk.pitch
+    assert pitch == blocking.fwd_bf16_pitch(blk.tw, wf, s, chunk, streamed)
+    lay = blocking.fwd_bf16_layout(blk.th, blk.tw, hf, wf, s, chunk, lanes,
+                                   blk.wgs, blk.strips, gap)
+    assert lay.windows >= 2 and lay.rows >= 2
+    mh = -(-hf // s)
+    prows = blk.th + mh - 1
+    cells = lay.window_bytes // (2 * chunk)
     across = -(-wo // blk.tw)
+    tiles = -(-ho // blk.th) * across
+    assert tiles == blk.tiles
+    cols = coblk * blk.nsplit
+    f, q = _mtile_rows(blk, streamed)
+    a, c = f // pitch, f % pitch
+    stored = (c < blk.tw) & (a < blk.th)
+    if streamed:                      # a strip's rows past its plane rows
+        stored &= q < blk.hso * pitch
     out = np.full((n, coblk, ho, wo, cob), np.nan, np.float32)
-    for tile in range(blk.tiles):
+    xp = np.zeros((n, ciblk, hi + 2 * s * prows, wi + 2 * s * pitch, kpad),
+                  np.float32)          # x inside a frame of zeros
+    oy, ox = s * prows, s * pitch
+    xp[:, :, oy:oy + hi, ox:ox + wi, :cib] = x
+    for i in range(tiles * cols * n):          # the persistent walk's order
+        tile, col, img = i % tiles, i // tiles % cols, i // tiles // cols
+        o_b, split = divmod(col, blk.nsplit)
         oh0, ow0 = tile // across * blk.th, tile % across * blk.tw
         h0, w0 = oh0 * s - pt, ow0 * s - pl
-        win = np.zeros((n, ciblk, blk.hwin, blk.wwin, kpad), np.float32)
-        for i in range(blk.hwin):
-            for j in range(blk.wwin):
-                if 0 <= h0 + i < hi and 0 <= w0 + j < wi:
-                    win[:, :, i, j, :cib] = x[:, :, h0 + i, w0 + j]
-        for mt in range(mtiles):
-            q = np.arange(rows)
-            p = mt * blk.mstride + q
-            live = (q < blk.mstride) & (p < blk.th * blk.tw)
-            p = np.where(live, p, 0)          # the kernel reads position 0
-            pr, pc = p // blk.tw, p % blk.tw
-            oh, ow = oh0 + pr, ow0 + pc
-            keep = live & (oh < ho) & (ow < wo)
-            for o_b in range(coblk):
-                for split in range(blk.nsplit):
-                    o0 = split * lanes
-                    vn = max(0, min(lanes, cob - o0))
-                    total = np.zeros((n, rows, lanes), np.float32)
-                    for i_b in range(ciblk):
-                        for c0 in range(0, kpad, chunk):
-                            acc = np.zeros((n, rows, lanes), np.float32)
-                            vk = max(0, min(chunk, cib - c0))
-                            for dh in range(hf):
-                                for dw in range(wf):
-                                    a = win[:, i_b, pr * s + dh, pc * s + dw,
-                                            c0:c0 + chunk]
-                                    bm = np.zeros((chunk, lanes), np.float32)
-                                    bm[:vk, :vn] = wt[o_b, i_b, dh, dw,
-                                                      c0:c0 + vk, o0:o0 + vn]
-                                    bm = _mn_major(bm)
-                                    for k in range(0, chunk, 16):
-                                        sl = slice(k, k + 16)
-                                        acc = _add_rz(acc, np.einsum(
-                                            "nmk,kl->nml",
-                                            a[..., sl].astype(np.float64),
-                                            bm[sl].astype(np.float64)))
-                            total = total + acc
-                    v = _act(total[:, keep, :vn]
-                             + b[o_b, o0:o0 + vn].astype(np.float32), act)
-                    if r is not None:
-                        v = v + r[:, o_b, oh[keep], ow[keep], o0:o0 + vn]
-                    block = out[:, o_b, oh[keep], ow[keep], o0:o0 + vn]
-                    assert np.isnan(block).all()      # stored once
-                    out[:, o_b, oh[keep], ow[keep], o0:o0 + vn] = v
+        o0 = split * lanes
+        vn = max(0, min(lanes, cob - o0))
+        keep = stored & (oh0 + a < ho) & (ow0 + c < wo)
+        acc = np.zeros((len(f), lanes), np.float32)
+        for i_b in range(ciblk):
+            for c0 in range(0, kpad, chunk):
+                # the stage's window slot: plane (ph, pw) row pr, column pc
+                # is input (h0 + ph + s pr, w0 + pw + s pc); spare cells 0
+                win = np.zeros((cells, chunk), np.float32)
+                for p in range(s * s):
+                    ph, pw = divmod(p, s)
+                    rows = oy + h0 + ph + s * np.arange(prows)
+                    cs = ox + w0 + pw + s * np.arange(pitch)
+                    plane = xp[img, i_b][rows][:, cs, c0:c0 + chunk]
+                    at = p * lay.plane_cells
+                    win[at:at + prows * pitch] = plane.reshape(-1, chunk)
+                vk = max(0, min(chunk, cib - c0))
+                for dh in range(hf):            # a filter row a wgmma group
+                    for dw in range(wf):
+                        p = (dh % s) * s + dw % s
+                        shift = (p * lay.plane_cells + dh // s * pitch
+                                 + dw // s)
+                        am = win[f + shift]
+                        bm = np.zeros((chunk, lanes), np.float32)
+                        bm[:vk, :vn] = wt[o_b, i_b, dh, dw, c0:c0 + vk,
+                                          o0:o0 + vn]
+                        bm = _mn_major(bm)
+                        for k in range(0, chunk, 16):
+                            sl = slice(k, k + 16)
+                            acc = _add_rz(acc, am[:, sl].astype(np.float64)
+                                          @ bm[sl].astype(np.float64))
+        oh, ow = oh0 + a[keep], ow0 + c[keep]
+        if f32:
+            v = acc[keep, :vn]
+        else:
+            v = _act(acc[keep, :vn] + b[o_b, o0:o0 + vn].astype(np.float32),
+                     act)
+            if r is not None:
+                v = v + r[img, o_b, oh, ow, o0:o0 + vn]
+        assert np.isnan(out[img, o_b, oh, ow, o0:o0 + vn]).all()  # once
+        out[img, o_b, oh, ow, o0:o0 + vn] = v
     assert not np.isnan(out).any()
-    stored = torch.from_numpy(out).bfloat16()
-    return conv2d_common.gap_replay(stored, blk) if gap else stored
+    if f32:
+        return out
+    stored_map = torch.from_numpy(out).bfloat16()
+    return conv2d_common.gap_replay(stored_map, blk) if gap else stored_map
 
 
 def _operands(seed, n, ci, co, h, w, cib, cob, stride, pads, residual):
@@ -166,21 +207,34 @@ def _operands(seed, n, ci, co, h, w, cib, cob, stride, pads, residual):
     return x, wt, b, r, spec
 
 
+def _reshaped(blk, spec, streamed, **changes):
+    """``blk`` with ``changes`` (th, tw, chunk, wgs, ...), its tiles, window
+    and pitch made to agree."""
+    blk = dataclasses.replace(blk, **changes)
+    if streamed:
+        blk = dataclasses.replace(blk, strips=blk.wgs)
+    s = spec.stride
+    return dataclasses.replace(
+        blk, tiles=-(-spec.ho // blk.th) * -(-spec.wo // blk.tw),
+        hwin=(blk.th - 1) * s + 3, wwin=(blk.tw - 1) * s + 3,
+        pitch=blocking.fwd_bf16_pitch(blk.tw, 3, s, blk.chunk, streamed))
+
+
 def _tiles(n, spec, cib, cob, gap, streamed):
     """The bf16 chooser's tile, then a small one that overhangs the map at
-    chunk 16 (the streamed band: strips of one row)."""
+    chunk 16 (the streamed band: strips of one row), then one of three
+    consumers with its rows past the map."""
     args = (n, spec.ho, spec.wo, 3, 3, spec.stride, spec.ci // cib, cib,
             spec.co // cob, cob)
     chosen = (blocking.choose_stream_fwd_blocking(*args, gap=gap,
                                                   op_bytes=2)
               if streamed else blocking.choose_fwd_blocking(*args, gap=gap,
                                                             op_bytes=2))
-    th = chosen.strips if streamed else 2
-    small = dataclasses.replace(
-        chosen, th=th, tw=3, chunk=16,
-        tiles=-(-spec.ho // th) * -(-spec.wo // 3),
-        hwin=(th - 1) * spec.stride + 3, wwin=2 * spec.stride + 3)
-    return [chosen, small]
+    small = _reshaped(chosen, spec, streamed, th=chosen.strips if streamed
+                      else 2, tw=3, chunk=16)
+    three = _reshaped(chosen, spec, streamed, wgs=3, th=3 if streamed else 5,
+                      tw=5, chunk=16)
+    return [chosen, small, three]
 
 
 def _bf16_close(got, want):
@@ -211,6 +265,8 @@ CASES = [
     (2, 3, 16, 11, 10, 3, 16, 2, "SAME", "relu", True, True),   # Cib = 3
     (2, 32, 12, 9, 9, 32, 12, 1, "SAME", "gelu", False, True),  # Cob 12
     (1, 48, 24, 6, 6, 24, 24, 1, "SAME", "relu", True, True),   # Cib 24
+    (1, 6, 20, 7, 8, 6, 10, 1, "VALID", "gelu", False, True),   # Cib 6
+    (1, 64, 64, 10, 10, 64, 64, 2, ((1, 0), (0, 1)), None, True, False),
 ]
 
 
@@ -230,13 +286,36 @@ def test_bf16_tile_arithmetic_matches_the_jnp_oracle(streamed, n, ci, co, h,
         _bf16_close(got.float().numpy(), want)
 
 
-def test_bf16_window_and_strip_walks_agree_bit_for_bit_at_one_chunk():
-    # one K order for every output: where both take the same chunk the two
-    # walks store the same bits, whatever the tiles
-    x, wt, b, _, spec = _operands(3, 2, 32, 16, 10, 10, 32, 16, 1, "SAME",
-                                  False)
-    outs = [_tile_forward(x, wt, b, None, spec.pads, 1, "relu", False,
-                          dataclasses.replace(blk, chunk=16), streamed)
+@pytest.mark.parametrize("n,ci,co,h,w,cib,cob,stride,padding,act,res,gap",
+                         [CASES[i] for i in (0, 1, 4, 6)])
+def test_bf16_strip_walk_matches_pallas_stream_interpret(n, ci, co, h, w,
+                                                         cib, cob, stride,
+                                                         padding, act, res,
+                                                         gap):
+    # the reference's streamed kernel under BF16 in interpret mode
+    x, wt, b, r, spec = _operands(2, n, ci, co, h, w, cib, cob, stride,
+                                  padding, res)
+    want = np.asarray(direct_conv2d_blocked_pallas(
+        jnp.asarray(x), jnp.asarray(wt), jnp.asarray(b), stride=stride,
+        padding=padding, activation=act, stream=True, interpret=True,
+        precision=jprecision.BF16,
+        residual=None if r is None else jnp.asarray(r), gap=gap)
+        .astype(jnp.float32))
+    for blk in _tiles(n, spec, cib, cob, gap, True):
+        got = _tile_forward(x, wt, b, r, spec.pads, stride, act, gap, blk,
+                            True)
+        _bf16_close(got.float().numpy(), want)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_window_and_strip_walks_agree_bit_for_bit_at_one_chunk(stride):
+    # one K order for every output (stages, filter rows, taps, k16 slices):
+    # where both take the same chunk the two walks store the same bits,
+    # whatever the tiles
+    x, wt, b, _, spec = _operands(3, 2, 32, 16, 10, 10, 32, 16, stride,
+                                  "SAME", False)
+    outs = [_tile_forward(x, wt, b, None, spec.pads, stride, "relu", False,
+                          _reshaped(blk, spec, streamed, chunk=16), streamed)
             for streamed in (False, True)
             for blk in _tiles(2, spec, 32, 16, False, streamed)]
     for other in outs[1:]:
@@ -244,37 +323,100 @@ def test_bf16_window_and_strip_walks_agree_bit_for_bit_at_one_chunk():
 
 
 def test_the_mn_major_order_is_a_permutation_read_back():
-    b = np.arange(32 * 16, dtype=np.float32).reshape(32, 16)
-    np.testing.assert_array_equal(_mn_major(b), b)
+    for n in (8, 16, 32, 64, 128):
+        b = np.arange(32 * n, dtype=np.float32).reshape(32, n)
+        np.testing.assert_array_equal(_mn_major(b), b)
 
 
-def test_a_fresh_accumulator_a_stage_holds_bf16_products_to_f32_sums():
-    # K = 9 * 512 bf16 products into one truncating accumulator drift
-    # toward zero; a fresh one a stage (9 taps x chunk 32), added into an
-    # f32 sum, stays near f32 rounding of the exact sum of the same bf16
-    # products
-    rng = np.random.default_rng(5)
-    k, m = 9 * 512, 256
-    a = _bf16(rng.normal(size=(m, k)))
-    b = _bf16(rng.normal(size=k) / np.sqrt(k))
-    exact = a.astype(np.float64) @ b.astype(np.float64)
+def test_one_accumulator_drift_stays_within_its_bound_at_vgg16_k():
+    # VGG-16's longest contraction, 9 x 512 (288 k16 slices at chunk 64),
+    # into the one truncating accumulator: each f32 sum within a rounding
+    # toward zero of each slice addition of the exact sum of the same bf16
+    # products (2^-23 of the running magnitude, at most the sum of the
+    # terms' magnitudes), and far inside the output's bf16 rounding
+    # (fwd_tile.cuh bf16: at most 3.4e-5 relative, ~1 % of a half-ulp)
+    x, wt, b, _, spec = _operands(5, 1, 512, 16, 5, 5, 128, 16, 1, "SAME",
+                                  False)
+    blk = blocking.choose_fwd_blocking(1, 5, 5, 3, 3, 1, 4, 128, 1, 16,
+                                       op_bytes=2)
+    assert blk.chunk == 64
+    f32 = _tile_forward(x, wt, b, None, spec.pads, 1, None, False, blk,
+                        False, f32=True)
+    tx, tw_ = (torch.from_numpy(_bf16(a)).double() for a in (x, wt))
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    exact = direct_conv_blocked(tx, tw_, 1, "SAME").numpy()
+    mag = direct_conv_blocked(tx.abs(), tw_.abs(), 1, "SAME").numpy()
+    drift = np.abs(f32.astype(np.float64) - exact)
+    steps = 512 // 16 * 9
+    assert (drift <= steps * 2.0 ** -23 * mag).all()
+    assert drift.max() <= 0.01 * 2.0 ** -8 * np.abs(exact).max()
+    # truncation is what drifts: a round-to-nearest accumulator stays
+    # closer on the whole
+    assert drift.max() > 0
 
-    def walk(stage_slices):
-        total = np.zeros(m, np.float32)
-        acc = np.zeros(m, np.float32)
-        for j, k0 in enumerate(range(0, k, 16)):
-            sl = slice(k0, k0 + 16)
-            acc = _add_rz(acc, a[:, sl].astype(np.float64)
-                          @ b[sl].astype(np.float64))
-            if (j + 1) % stage_slices == 0:
-                total = total + acc
-                acc = np.zeros(m, np.float32)
-        return total + acc
 
-    scale = np.abs(exact).max()
-    one = np.abs(walk(k // 16) - exact).max() / scale
-    staged = np.abs(walk(18) - exact).max() / scale
-    assert staged < 3e-6 and staged * 5 < one
+def _kernel_gap(out, blk, streamed):
+    """The bf16 tile's GAP written out thread by thread in numpy f32 on
+    its flattened rows (``fwd_tile::bf16::store_out``): consumer k's m-tile
+    row q is window cell f (``_mtile_rows``), output position (f // pitch,
+    f % pitch) of the tile, stored where its column is below tw; each
+    thread's two rows, the warp's shfl_xor 4, 8, 16 steps, the warps in
+    order, the tiles in index order, times the f32 reciprocal of Ho*Wo."""
+    v = out.to(torch.float32).numpy()
+    n, coblk, ho, wo, cob = v.shape
+    across = -(-wo // blk.tw)
+    tiles = -(-ho // blk.th) * across
+    zero = np.zeros((n, coblk, cob), np.float32)
+    f_all, _ = _mtile_rows(blk, streamed)
+    strip = blk.hso * blk.pitch if streamed else 64
+    parts = []
+    for tile in range(tiles):
+        oh0, ow0 = tile // across * blk.th, tile % across * blk.tw
+        red = []
+        for wid in range(4 * blk.wgs):
+            wg, w4 = divmod(wid, 4)
+            t = []
+            for g in range(8):
+                pair = []
+                for h in range(2):
+                    q = 16 * w4 + g + 8 * h
+                    f = f_all[64 * wg + q]
+                    a, c = f // blk.pitch, f % blk.pitch
+                    live = (q < strip and c < blk.tw and a < blk.th
+                            and oh0 + a < ho and ow0 + c < wo)
+                    pair.append(v[:, :, oh0 + a, ow0 + c] if live else zero)
+                t.append(pair[0] + pair[1])
+            for m in (1, 2, 4):          # shfl_xor 4, 8, 16 lanes
+                t = [t[g] + t[g ^ m] for g in range(8)]
+            red.append(t[0])
+        s = zero
+        for r in red:
+            s = s + r
+        parts.append(s)
+    acc = parts[0]
+    for s in parts[1:]:
+        acc = acc + s
+    return (acc * (np.float32(1) / np.float32(ho * wo))).reshape(n, -1)
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_gap_replay_follows_the_bf16_tiles_rows(streamed):
+    out = torch.from_numpy(np.random.default_rng(10).normal(
+        size=(2, 2, 11, 13, 8)).astype(np.float32)).bfloat16()
+    spec = ConvSpec.make(2, 11, 13, 8, 16, 3, 3, 1, "SAME")
+    for blk in _tiles(2, spec, 8, 8, True, streamed):
+        assert blk.pitch > blk.tw or blk.tw >= 13 or streamed
+        got = conv2d_common.gap_replay(out, blk)
+        want = torch.from_numpy(_kernel_gap(out, blk, streamed)).bfloat16()
+        assert torch.equal(got, want), blk
+    # the rows are cells: the f32 tile's position order pools f32 values
+    # otherwise (sums of a few bf16 values are exact in f32 in any order)
+    f32 = torch.from_numpy(np.random.default_rng(11).normal(
+        size=(2, 2, 11, 13, 8)).astype(np.float32))
+    assert not all(torch.equal(
+        conv2d_common.gap_replay(f32, blk),
+        conv2d_common.gap_replay(f32, dataclasses.replace(blk, pitch=0)))
+        for blk in _tiles(2, spec, 8, 8, True, streamed))
 
 
 # ---------------------------------------------------------------------------
@@ -305,40 +447,68 @@ def _vgg16_shapes():
     return out
 
 
+def _main_path_shapes():
+    """VGG-16's 13 layers and MobileNet v1's ``conv1`` at both buckets'
+    entries, as ``(name, ci, co, stride, ho)``."""
+    kind, ci, co, s = mobilenet_v1_layers()[0]
+    assert kind == "conv"
+    return _vgg16_shapes() + [(f"mobilenet.conv1@{e}", ci, co, s, -(-e // s))
+                              for e in (224, 160)]
+
+
+def _kernel_rules(blk, s, gap, streamed):
+    """``fwd_tile::bf16::valid``'s rules on a chooser's tile (3x3)."""
+    lay = blocking.fwd_bf16_layout(blk.th, blk.tw, 3, 3, s, blk.chunk,
+                                   blk.lanes, blk.wgs, blk.strips, gap)
+    assert blk.pitch == lay.pitch == blocking.fwd_bf16_pitch(
+        blk.tw, 3, s, blk.chunk, streamed)
+    assert lay.windows >= 2 and lay.rows >= 2
+    assert lay.smem <= blocking.H100_SXM.smem_block == 232448
+    assert blk.chunk in blocking.FWD_BF16_CHUNKS
+    assert s * blk.pitch <= 256
+    if streamed:
+        assert blk.strips == blk.wgs >= 2 and blk.th % blk.strips == 0
+        assert (blk.hso - 1) * blk.pitch + blk.tw <= 64
+        assert s * blk.hso <= 256
+    else:
+        assert blk.strips == 1 and 1 <= blk.wgs <= 3
+        assert 64 * (blk.wgs - 1) < (blk.th - 1) * blk.pitch + blk.tw \
+            <= 64 * blk.wgs
+        assert s * (blk.th + -(-3 // s) - 1) <= 256
+    return lay
+
+
 @pytest.mark.parametrize("gap", [False, True])
 @pytest.mark.parametrize("streamed", [False, True])
 def test_bf16_choosers_fit_and_take_no_less_a_stage(gap, streamed):
     choose = (blocking.choose_stream_fwd_blocking if streamed
               else blocking.choose_fwd_blocking)
-    for name, ci, co, s, ho in _vgg16_shapes():
+    for name, ci, co, s, ho in _main_path_shapes():
         cib, cob = min(ci, 128), min(co, 128)
         args = (8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob)
         f32 = choose(*args, gap=gap)
         bf = choose(*args, gap=gap, op_bytes=2)
+        lay = _kernel_rules(bf, s, gap, streamed)
         smem = blocking.fwd_smem_bytes(bf.th, bf.tw, 3, 3, s, bf.chunk,
-                                       bf.lanes, bf.wgs, gap, 2)
-        assert smem <= blocking.H100_SXM.smem_block, name
-        assert bf.chunk % 16 == 0 and blocking.fwd_kpad(cib, 2) % bf.chunk \
-            == 0, name
-        # never less work a stage: positions x channels staged
-        assert bf.th * bf.tw * bf.chunk >= f32.th * f32.tw * f32.chunk, name
+                                       bf.lanes, bf.wgs, gap, 2, bf.strips)
+        assert smem == lay.smem, name
+        assert blocking.fwd_kpad(cib, 2) % bf.chunk == 0, name
+        # never less a stage: no fewer channels contracted a stage than the
+        # f32 tile's (a chunk of one swizzle row, 16 to 64)
+        assert bf.chunk >= f32.chunk, name
         plan = blocking.fwd_plan(bf, 8, ho, ho, 3, 3, s, ci // cib, cib,
                                  co // cob, cob, gap, 2)
         assert plan.smem == smem and plan.products == 1
+        assert (plan.window_slots, plan.weight_slots) == (lay.windows,
+                                                          lay.rows)
         assert plan.function_macs == 8 * ho * ho * 9 * ci * co
         assert plan.issued_macs >= plan.function_macs
         if cib == 3:                      # k16 slices: 3 channels of 16
             assert plan.padding_share >= 1 - 3 / 16
-        # every tile the f32 search weighs fits at bf16, at a chunk no
-        # smaller (half the bytes an element, no raw or split buffers)
-        f32_found = {(b.th, b.tw, b.wgs, b.nsplit): b.chunk for _, b in
-                     blocking.fwd_candidates(*args, blocking.H100_SXM, gap,
-                                             streamed)}
-        bf_found = {(b.th, b.tw, b.wgs, b.nsplit): b.chunk for _, b in
-                    blocking.fwd_candidates(*args, blocking.H100_SXM, gap,
-                                            streamed, op_bytes=2)}
-        for key, chunk in f32_found.items():
-            assert bf_found.get(key, 0) >= chunk, (name, key)
+        # every candidate the search weighs is one the kernels take
+        for _, blk in blocking.fwd_candidates(*args, blocking.H100_SXM, gap,
+                                              streamed, op_bytes=2):
+            _kernel_rules(blk, s, gap, streamed)
         assert route_stream("fwd", ConvSpec.make(8, ho * s, ho * s, ci, co,
                                                  3, 3, s, "SAME"),
                             cib, cob, blocking.H100_SXM, gap=gap,
@@ -347,19 +517,125 @@ def test_bf16_choosers_fit_and_take_no_less_a_stage(gap, streamed):
         blocking.fwd_kpad(3, 8)
 
 
+@pytest.mark.parametrize("streamed", [False, True])
+def test_bf16_choosers_fit_every_main_path_shape_of_both_buckets(streamed):
+    # one CTA's 232,448 bytes at every VGG-16 and MobileNet conv1 shape of
+    # both buckets, with and without the GAP, three consumers allowed at
+    # every width (one accumulator: no two-consumer cap at 128 lanes)
+    choose = (blocking.choose_stream_fwd_blocking if streamed
+              else blocking.choose_fwd_blocking)
+    widest = 0
+    for name, ci, co, s, ho in _main_path_shapes():
+        cib, cob = min(ci, 128), min(co, 128)
+        for gap in (False, True):
+            blk = choose(8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob,
+                         gap=gap, op_bytes=2)
+            _kernel_rules(blk, s, gap, streamed)
+            if blk.lanes == 128:
+                widest = max(widest, blk.wgs)
+        found = blocking.fwd_candidates(8, ho, ho, 3, 3, s, ci // cib, cib,
+                                        co // cob, cob, blocking.H100_SXM,
+                                        False, streamed, op_bytes=2)
+        # three consumers at 128 lanes wherever the map has the rows
+        assert any(b.lanes == 128 and b.wgs == 3 for _, b in found) or \
+            cob < 128 or s > 1 or ho < 14, name
+    assert widest >= 2
+
+
+# (th, tw, wgs, nsplit, chunk) that the bf16 window and streamed choosers
+# take at each of VGG-16's 13 layers and MobileNet v1's conv1 (batch 8,
+# 224x224), each with its time over the fastest candidate's in `python -m
+# repro_torch.launch.fwd_tiles_ab --dtype bf16 --mobilenet` on an H100 80GB
+# HBM3 at 700 W (PERF.md): summed over VGG-16's layers, 1.027
+# (window) and 1.034 (streamed) of the fastest tile measured at each.  A
+# change to the cost model that moves a tile shows here; time it with that
+# script before repinning.
+CHOSEN_BF16_FWD_TILES = {
+    "conv1_1": ((7, 25, 3, 1, 16), 1.033, (12, 14, 3, 1, 16), 1.000),
+    "conv1_2": ((4, 46, 3, 1, 64), 1.000, (9, 20, 3, 1, 64), 1.021),
+    "conv2_1": ((23, 7, 3, 1, 32), 1.000, (9, 19, 3, 1, 32), 1.015),
+    "conv2_2": ((6, 30, 3, 1, 64), 1.006, (6, 31, 3, 1, 64), 1.008),
+    "conv3_1": ((19, 7, 3, 1, 32), 1.000, (14, 7, 2, 1, 64), 1.043),
+    "conv3_2": ((6, 30, 3, 2, 64), 1.105, (6, 30, 3, 2, 64), 1.134),
+    "conv3_3": ((6, 30, 3, 2, 64), 1.113, (6, 30, 3, 2, 64), 1.143),
+    "conv4_1": ((14, 7, 2, 1, 64), 1.003, (14, 7, 2, 1, 64), 1.000),
+    "conv4_2": ((7, 16, 2, 1, 64), 1.002, (8, 14, 2, 1, 64), 1.015),
+    "conv4_3": ((7, 16, 2, 1, 64), 1.009, (8, 14, 2, 1, 64), 1.000),
+    "conv5_1": ((14, 7, 2, 2, 64), 1.000, (14, 7, 2, 2, 64), 1.000),
+    "conv5_2": ((14, 7, 2, 2, 64), 1.042, (14, 7, 2, 2, 64), 1.002),
+    "conv5_3": ((14, 7, 2, 2, 64), 1.033, (14, 7, 2, 2, 64), 1.000),
+    "mobilenet.conv1": ((23, 7, 3, 1, 16), 1.008, (9, 19, 3, 1, 16), 1.000),
+}
+
+
+def _timed_layers():
+    from repro_torch.launch.fwd_tiles_ab import fwd_layers
+    kind, ci, co, s = mobilenet_v1_layers()[0]
+    return fwd_layers() + [("mobilenet.conv1", ci, co, s, 224)]
+
+
+def test_bf16_fwd_choosers_take_the_tiles_timed_on_the_card():
+    got = {}
+    for name, ci, co, s, h in _timed_layers():
+        cib, cob = min(ci, 128), min(co, 128)
+        ho = -(-h // s)
+        args = (8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob)
+        got[name] = tuple((b.th, b.tw, b.wgs, b.nsplit, b.chunk) for b in (
+            blocking.choose_fwd_blocking(*args, op_bytes=2),
+            blocking.choose_stream_fwd_blocking(*args, op_bytes=2)))
+    assert got == {name: (w, st) for name, (w, _, st, _)
+                   in CHOSEN_BF16_FWD_TILES.items()}
+
+
+def test_fwd_tiles_ab_times_the_bf16_chosen_tile_first():
+    # launch/fwd_tiles_ab.py --dtype bf16: each route's candidates led by
+    # the chooser's tile, every (consumer count, lane split, chunk) among
+    # them
+    from repro_torch.launch import fwd_tiles_ab as ab
+    for name, ci, co, s, h in _timed_layers():
+        cib, cob = min(ci, 128), min(co, 128)
+        ho = -(-h // s)
+        args = (8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob)
+        for streamed, choose in ((False, blocking.choose_fwd_blocking),
+                                 (True, blocking.choose_stream_fwd_blocking)):
+            tiles = ab.tile_candidates(8, ci, co, s, h, streamed, 4, 1, 2)
+            assert tiles[0][1] == choose(*args, op_bytes=2), name
+            assert len({b for _, b in tiles}) == len(tiles)
+            found = blocking.fwd_candidates(*args, blocking.H100_SXM, False,
+                                            streamed, op_bytes=2)
+            assert {(b.wgs, b.nsplit, b.chunk) for _, b in tiles} == {
+                (b.wgs, b.nsplit, b.chunk) for _, b in found}
+
+
 def test_bf16_smem_counts_the_tiles_buffers():
-    # 128 to align; two slots of (window + weights) in bf16; two ints a k16
-    # step; two mbarriers; the GAP sums in f32
-    th, tw, s, chunk, lanes, wgs = 4, 8, 1, 32, 64, 2
-    hwin, wwin = th + 2, tw + 2
-    window = -(-hwin * wwin * (chunk + 8) // 64) * 64
-    weights = 9 * chunk * lanes
-    steps = 9 * chunk // 16
-    want = 128 + 2 * 2 * (window + weights) + 8 * steps + 16
-    assert blocking.fwd_smem_bytes(th, tw, 3, 3, s, chunk, lanes, wgs, False,
-                                   2) == want
-    assert blocking.fwd_smem_bytes(th, tw, 3, 3, s, chunk, lanes, wgs, True,
-                                   2) == want + 16 * wgs * lanes
+    # a window kernel's tile at stride 2: four phase planes of th + 1 rows
+    # of tw + 1 cells (128 bytes at chunk 64), then past the last plane as
+    # far as the last consumer's rows read; a filter row's 3 taps x lanes;
+    # each in whole 1024 bytes; the rings; the mbarriers; the GAP's sums
+    th, tw, s, chunk, lanes, wgs = 5, 9, 2, 64, 64, 1
+    pitch = tw + 1
+    plane = (th + 1) * pitch
+    read = 64 + pitch + 1
+    cells = 3 * plane + max(plane, read)
+    window = -(-cells * 128 // 1024) * 1024
+    row = -(-3 * lanes * 128 // 1024) * 1024
+    bars = 8 * (4 * 7 + 2 * 4)
+    for gap in (False, True):
+        red = 16 * wgs * lanes + 16 if gap else 0
+        room = 232448 - 1024 - bars - red
+        rows = min(4, (room - 2 * window) // row)
+        windows = min(4, (room - rows * row) // window)
+        want = 1024 + windows * window + rows * row + bars + red
+        lay = blocking.fwd_bf16_layout(th, tw, 3, 3, s, chunk, lanes, wgs,
+                                       1, gap)
+        assert (lay.pitch, lay.plane_cells, lay.window_bytes, lay.row_bytes,
+                lay.windows, lay.rows, lay.smem) == (
+                    pitch, plane, window, row, windows, rows, want)
+        assert blocking.fwd_smem_bytes(th, tw, 3, 3, s, chunk, lanes, wgs,
+                                       gap, 2) == want
+    # the streamed band's rows are padded to 128 bytes (chunk 16: 4 cells)
+    lay = blocking.fwd_bf16_layout(6, 7, 3, 3, 1, 16, 32, 2, 2)
+    assert lay.pitch == 12 and lay.plane_cells == 8 * 12
 
 
 # ---------------------------------------------------------------------------

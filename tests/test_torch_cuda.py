@@ -22,13 +22,17 @@ from repro_torch.kernels.direct_conv2d import (LAUNCHES,  # noqa: E402
                                                reset_launches,
                                                wgrad_bf16_probe,
                                                wgrad_partials, wgrad_plans)
-from repro_torch.core.blocking import (choose_fwd_blocking,  # noqa: E402
-                                       choose_stream_fwd_blocking)
+from repro_torch.core.blocking import (FwdBlocking,  # noqa: E402
+                                       choose_fwd_blocking,
+                                       choose_stream_fwd_blocking,
+                                       fwd_bf16_layout, fwd_bf16_pitch,
+                                       fwd_plan)
 from repro_torch.core.context import ConvContext  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
 from repro_torch.kernels import conv2d_stream as stk  # noqa: E402
 from repro_torch.kernels import conv2d_pointwise as pwk  # noqa: E402
+from repro_torch.kernels import direct_conv2d as dck  # noqa: E402
 from repro_torch.kernels import split_sum  # noqa: E402
 from repro_torch.nn.conv import (BlockedCNN, BlockedConv2D,  # noqa: E402
                                  DepthwiseSeparableBlock)
@@ -1227,6 +1231,116 @@ def test_gap_replay_is_the_kernels_pooled_features_bit_for_bit(
     hw = out.shape[2] * out.shape[3]
     assert torch.equal(
         conv2d_common.gap_finalize(parts, hw).to(pooled.dtype), pooled)
+
+
+def _bf16_tile(spec, cob, streamed, th, tw, wgs, chunk, nsplit):
+    """A bf16 forward tile pinned past the chooser, as the chooser would
+    describe it (its plane pitch, tiles and window)."""
+    s = spec.stride
+    lanes = next(n for n in (8, 16, 32, 64, 128) if -(-cob // nsplit) <= n)
+    blk = FwdBlocking(th=th, tw=tw, wgs=wgs, strips=wgs if streamed else 1,
+                      lanes=lanes, nsplit=nsplit, chunk=chunk,
+                      tiles=-(-spec.ho // th) * -(-spec.wo // tw),
+                      hwin=(th - 1) * s + 3, wwin=(tw - 1) * s + 3,
+                      pitch=fwd_bf16_pitch(tw, 3, s, chunk, streamed))
+    lay = fwd_bf16_layout(th, tw, 3, 3, s, chunk, lanes, wgs, blk.strips,
+                          True)
+    assert lay.windows >= 2 and lay.rows >= 2
+    return blk
+
+
+def _bf16_launch(spec, cib, cob, blk, streamed, x, w, b, r):
+    """One launch of the bf16 forward at the pinned tiles ``blk`` (gelu,
+    GAP) -> (out, pooled), counted as the wrappers count it."""
+    plan = dck.fwd_launch(spec, cib, cob, 2, True, streamed, blk=blk,
+                          dtype=torch.bfloat16)
+    if streamed:
+        lib, name, entry = (stk._lib(), "conv2d_stream_fwd_bf16",
+                            stk._lib().conv2d_stream_conv)
+        stk.LAUNCHES[name] += 1
+    else:
+        lib, name, entry = (dck._lib(), "direct_conv2d_fwd_bf16",
+                            dck._lib().direct_conv2d_fwd)
+        LAUNCHES[name] += 1
+    err, out, _, pooled = dck.fwd_run(entry, plan, x, w, b, r, spec)
+    dck._check(err, lib, name)
+    return out, pooled, plan
+
+
+# (n, ci, co, h, cib, cob, stride, streamed, th, tw, wgs, chunk, nsplit):
+# stride 2 as phase planes by TMA at chunks 64 and 32; three consumers at
+# 128 lanes, at chunk 64 and at chunk 16 with the lanes split; the copies
+# paths (Cib 3 at stride 2: 2-byte window copies into four planes; Cib 6
+# and Cob 12: 4-byte window copies and 2-byte weight copies); the weights'
+# rows of 16 and 8 lanes (the 32-byte swizzle, the interleaved core
+# matrices); each walked by a persistent grid of more items than the card
+# holds CTAs
+PINNED_BF16 = [
+    (16, 64, 128, 56, 64, 128, 2, False, 6, 5, 1, 64, 1),
+    (16, 64, 128, 56, 64, 128, 2, True, 4, 6, 2, 32, 1),
+    (32, 128, 128, 28, 128, 128, 1, False, 6, 20, 3, 64, 1),
+    (16, 128, 128, 28, 128, 128, 1, True, 6, 13, 3, 16, 2),
+    (16, 3, 32, 62, 3, 32, 2, False, 7, 8, 1, 16, 1),
+    (16, 6, 12, 40, 6, 12, 1, True, 4, 9, 2, 16, 1),
+    (16, 16, 16, 40, 16, 16, 1, False, 4, 12, 1, 16, 1),
+    (32, 8, 8, 40, 8, 8, 2, True, 4, 9, 2, 16, 1),
+]
+
+
+@pytest.mark.parametrize(
+    "n,ci,co,h,cib,cob,stride,streamed,th,tw,wgs,chunk,nsplit", PINNED_BF16)
+def test_bf16_forward_tiles_pinned_past_the_chooser(cuda, n, ci, co, h, cib,
+                                                    cob, stride, streamed,
+                                                    th, tw, wgs, chunk,
+                                                    nsplit):
+    x, w, b, r = _operands(cuda, n, ci, co, h, cib, cob, stride, True)
+    x, r = x.bfloat16(), r.bfloat16()
+    spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
+    blk = _bf16_tile(spec, cob, streamed, th, tw, wgs, chunk, nsplit)
+    assert n * blk.tiles * (co // cob) * nsplit > 2 * 132   # items > CTAs
+    with torch.no_grad():
+        out, pooled, plan = _bf16_launch(spec, cib, cob, blk, streamed, x, w,
+                                         b, r)
+        out2, pooled2, _ = _bf16_launch(spec, cib, cob, blk, streamed, x, w,
+                                        b, r)
+        want = direct_conv_blocked(x, w, stride, "SAME", b, "gelu", "bf16",
+                                   residual=r)
+    torch.cuda.synchronize()
+    _bf16_close(out, want)
+    # no sum depends on which CTA ran first: two runs, identical bits; the
+    # GAP replay on the flattened rows bit for bit the kernel's
+    assert torch.equal(out, out2) and torch.equal(pooled, pooled2)
+    assert torch.equal(conv2d_common.gap_replay(out, blk), pooled)
+    # the kernel library's count of the launch is the model's
+    got = (__import__("ctypes").c_longlong * 6)()
+    plan_entry = (stk._lib().conv2d_stream_conv_plan if streamed
+                  else dck._lib().direct_conv2d_fwd_plan)
+    assert plan_entry(plan.ints, got) == 0
+    model = fwd_plan(blk, n, spec.ho, spec.wo, 3, 3, stride, ci // cib, cib,
+                     co // cob, cob, True, 2)
+    assert tuple(got) == (model.tiles, model.function_macs,
+                          model.issued_macs, model.smem, model.window_slots,
+                          model.weight_slots)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_window_and_streamed_kernels_agree_bit_for_bit(cuda, stride):
+    # one K order (stages, filter rows, taps, k16 slices) in both kernels:
+    # at one chunk they store the same bits, whatever their tiles
+    n, ci, co, h = 4, 128, 128, 30
+    x, w, b, r = _operands(cuda, n, ci, co, h, 64, 64, stride, True)
+    x, r = x.bfloat16(), r.bfloat16()
+    spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
+    outs = []
+    with torch.no_grad():
+        for streamed, th, tw, wgs in ((False, 8, 9, 2), (True, 6, 7, 3),
+                                      (False, 3, 15, 1), (True, 4, 11, 2)):
+            blk = _bf16_tile(spec, 64, streamed, th, tw, wgs, 32, 1)
+            outs.append(_bf16_launch(spec, 64, 64, blk, streamed, x, w, b,
+                                     r)[0])
+    torch.cuda.synchronize()
+    for other in outs[1:]:
+        assert torch.equal(other, outs[0])
 
 
 @pytest.mark.parametrize("streamed", [False, True])

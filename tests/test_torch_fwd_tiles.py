@@ -496,11 +496,14 @@ def test_fwd_tiles_ab_times_the_chosen_tile_first():
 
 def test_fwd_parts_ab_edits_hold_in_the_sources():
     # launch/fwd_parts_ab.py builds variants by text edits: each must still
-    # find its text
+    # find its text, for the f32 tile and for its bf16 build
     from repro_torch.kernels._build import CSRC
-    from repro_torch.launch.fwd_parts_ab import VARIANTS
+    from repro_torch.launch.fwd_parts_ab import VARIANTS, VARIANTS_BF16
     assert set(VARIANTS) == {"whole", "no_wgmma", "no_a_split", "no_split",
                              "no_copy"}
-    for edits in VARIANTS.values():
+    assert set(VARIANTS_BF16) == {"whole", "no_wgmma", "no_copy",
+                                  "no_epilogue", "no_store", "acc_live",
+                                  "a_aligned"}
+    for edits in (*VARIANTS.values(), *VARIANTS_BF16.values()):
         for header, old, _ in edits:
             assert (CSRC / header).read_text().count(old) == 1, old
