@@ -413,6 +413,9 @@ BF16_DGRAD_KERNEL = "dgrad_kernel_bf16"
 # stream_fwd_kernel_bf16): the same design, a filter row's wgmmas issued
 # back to back
 BF16_FWD_KERNEL = "fwd_kernel_bf16"
+# the bf16 build of the pointwise forward (pointwise_tile_kernel_bf16): a
+# stage's wgmmas issued back to back, one wait a stage
+BF16_PW_KERNEL = "pointwise_tile_kernel_bf16"
 # the wgrad kernels' functions (csrc/wgrad_tile.cuh), 3xTF32 as the dgrads
 WGRAD_KERNELS = {"direct_conv2d_bwd": "wgrad_kernel",
                  "conv2d_stream": "stream_wgrad_kernel"}
@@ -3929,8 +3932,7 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     from repro_torch.configs.cnn import MOBILENET_V1_CONV1
     from repro_torch.core import conv2d_common
     from repro_torch.core import memory_model as mm
-    from repro_torch.core.blocking import (choose_pointwise_blocking,
-                                           pointwise_issued_macs)
+    from repro_torch.core.blocking import choose_pointwise_blocking
     from repro_torch.core.context import ConvContext
     from repro_torch.core.convspec import ConvSpec
     from repro_torch.core.direct_conv import (direct_conv_blocked,
@@ -3940,7 +3942,9 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     from repro_torch.kernels import conv2d_depthwise as dwk
     from repro_torch.kernels import conv2d_pointwise as pwk
     from repro_torch.kernels.direct_conv2d import (cotangent_pass,
-                                                   dgrad_plans, wgrad_plans)
+                                                   dgrad_plans,
+                                                   direct_conv2d_blocked,
+                                                   wgrad_plans)
     from repro_torch.launch.conv_serve import ConvServer
     from repro_torch.serve.scheduler import ConvRequest, Outcome
     from repro_torch.train.optimizer import AdamW
@@ -4032,6 +4036,12 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
             tag = f"pw fwd {ci}->{co} {h}x{h} n{MB_BATCH} relu"
             track("conv2d_pointwise_fwd_bf16", bf16_close(
                 tag + ("+gap" if gap else ""), got, want))
+            again = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID",
+                                                 "relu", gap=gap,
+                                                 precision="bf16")
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                fail(f"bf16 {tag}: two runs differ")
             if gap:
                 check_gap(f"bf16 {tag}+gap", pwk.pointwise_gap(
                     x, w, b, "relu", precision="bf16"), h * h, got)
@@ -4039,13 +4049,21 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
             blk = choose_pointwise_blocking(MB_BATCH, h * h, ci // cib, cib,
                                             co // cob, cob, gap=gap,
                                             op_bytes=2)
-            issued = pointwise_issued_macs(blk, MB_BATCH, ci // cib, cib,
-                                           co // cob, 2)
-            print(f"[bf16-sep] {tag}: {blk.tiles} tiles of {blk.rows} "
-                  f"positions an image, {blk.wgs} consumer warpgroup(s), "
-                  f"lanes {blk.lanes} x {blk.nsplit}, chunk {blk.chunk}, "
-                  f"tensor-core MACs issued {issued} for the function's "
-                  f"{MB_BATCH * h * h * ci * co}")
+            plan, model_plan = pwk.pointwise_plans(x, w, gap, "relu")
+            if plan != model_plan:
+                fail(f"bf16 {tag}: the kernel's plan {plan} != the blocking "
+                     f"model's {model_plan}")
+            print(f"[bf16-sep] {tag}: {plan.items} items of {blk.rows} "
+                  f"flattened (image, position) rows by lanes {blk.lanes} x "
+                  f"{blk.nsplit}, {blk.wgs} consumer warpgroup(s), chunk "
+                  f"{blk.chunk}, ring {plan.ring}, x boxes of {blk.brows} "
+                  f"rows, shared memory {plan.smem} B, GAP slots "
+                  f"{plan.slots}; tensor-core MACs issued "
+                  f"{plan.issued_macs} for the function's "
+                  f"{plan.function_macs} "
+                  f"({plan.issued_macs / plan.function_macs:.3f}x); the "
+                  "kernel's plan is the blocking model's, two runs bit for "
+                  "bit")
         # gelu, a residual and GAP through the bf16 forwards' epilogues,
         # and the depthwise tap loop at dilation 2 with Cb 3 and 6
         for n, c, h, cb, s, dil in ((2, 24, 13, 8, 1, 2), (2, 6, 9, 3, 2, 1),
@@ -4079,6 +4097,21 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
                                    residual=r, gap=True)
         track("conv2d_pointwise_fwd_bf16", bf16_close(
             "pw fwd 24->40 Cib=Cob=8 9x9 n2 gelu+residual+gap", got, want))
+        # the copies path (Cib 4, Cob 6: no TMA), items across 7x7 images
+        x = torch.randn((3, 3, 7, 7, 4), device=dev, generator=gen).to(bf)
+        w = (torch.randn((2, 3, 1, 1, 4, 6), device=dev, generator=gen)
+             / 12 ** 0.5).to(bf)
+        b = 0.1 * torch.randn((2, 6), device=dev, generator=gen)
+        r = torch.randn((3, 2, 7, 7, 6), device=dev, generator=gen).to(bf)
+        got = pwk.pointwise_conv2d_blocked(x, w, b, 1, "VALID", "gelu",
+                                           residual=r, gap=True,
+                                           precision="bf16")
+        want = direct_conv_blocked(x, w, 1, "VALID", b, "gelu", "bf16",
+                                   residual=r, gap=True)
+        tag = "pw fwd 12->12 Cib=4 Cob=6 7x7 n3 gelu+residual+gap"
+        track("conv2d_pointwise_fwd_bf16", bf16_close(tag, got, want))
+        check_gap(f"bf16 {tag}", pwk.pointwise_gap(
+            x, w, b, "gelu", r, precision="bf16"), 49, got)
     stamp("a fwd")
 
     n = MB_TRAIN_BATCH
@@ -4299,8 +4332,9 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     # -- 24(d) per-leg times: eager, graph, plain, cuDNN bf16, the bound -----
     cl = torch.channels_last
     # (leg key, kind) -> (eager, graph, plain, cuDNN eager, cuDNN graph,
-    # bound, bound_by)
-    rows = {}
+    # bound, bound_by); per pointwise leg the dense 1x1 control's (eager,
+    # graph)
+    rows, controls = {}, {}
     with torch.no_grad():
         for c, s, h in sorted({(ci, s, h) for ci, _, s, h in
                                mobilenet_blocks(ENTRY)}):
@@ -4342,6 +4376,13 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
 
             def lib():
                 return F.conv2d(xl, wl, bl)
+
+            def dense():
+                return direct_conv2d_blocked(x, w, b, 1, "VALID", "relu",
+                                             gap=gap, precision="bf16",
+                                             stream=False)
+            # the control: the dense bf16 forward (fwd_kernel_bf16) at 1x1
+            controls[(ci, co, h)] = (time_ms(dense), graph_ms(dense))
             rows[(("pw", ci, co, h), "fwd")] = (
                 time_ms(fwd), graph_ms(fwd),
                 time_ms(lambda: direct_conv_blocked(
@@ -4417,6 +4458,7 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     del bwd
     sums = {k: [0.0] * 6 for k in fn_of}
     kinds = {k: [] for k in fn_of}
+    control = [0.0, 0.0]
     for i, (ci, co, s, h) in enumerate(mobilenet_blocks(ENTRY)):
         ho = -(-h // s)
         for leg, key, fam, cout, ext, st in (
@@ -4436,12 +4478,22 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
                       f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] "
                       f"(channels-last) bound_ms {b_ms:.4f} ({b_by}, bf16) "
                       f"bound/graph {b_ms / g_ms:.3f}")
+                if leg == "pw" and kind == "fwd":
+                    c_ms, c_graph = controls[key[1:]]
+                    control[0] += c_ms
+                    control[1] += c_graph
+                    print(f"[bf16-sep-time] block{i + 1} pw fwd control: "
+                          f"the dense bf16 forward (fwd_kernel_bf16) at 1x1 "
+                          f"eager_ms {c_ms:.4f} graph_ms {c_graph:.4f}")
     for name, (k_ms, g_ms, p_ms, l_ms, l_graph, b_ms) in sums.items():
         print(f"[bf16-sep-time] all 13 {name} ({fn_of[name]}) on {smi}: "
               f"eager_ms {k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
               f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] bound_ms "
               f"{b_ms:.4f} ({mostly(kinds[name])}, bf16), "
               f"{100 * b_ms / g_ms:.1f} % of the bound as a graph")
+    print(f"[bf16-sep-time] all 13 pw fwd legs' control, the dense bf16 "
+          f"forward (fwd_kernel_bf16) at 1x1, on {smi}: eager_ms "
+          f"{control[0]:.4f} graph_ms {control[1]:.4f}")
     stamp("d")
 
     # -- 24(e) the bf16 step beside the f32 step; peak memory -----------------
@@ -4620,7 +4672,8 @@ def main(argv=None) -> int:
             # the bf16 dgrads and forwards issue a filter row's wgmmas back
             # to back: fewer waits for them than wgmmas
             if tc is not None and (BF16_DGRAD_KERNEL in fn
-                                   or BF16_FWD_KERNEL in fn) and (
+                                   or BF16_FWD_KERNEL in fn
+                                   or BF16_PW_KERNEL in fn) and (
                     not n_hg or n_dep >= n_hg):
                 fail(f"{fn} waits for its wgmmas {n_dep} times for "
                      f"{n_hg} HGMMA")

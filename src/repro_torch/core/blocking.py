@@ -85,6 +85,9 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "PW_ROWS", "PW_CONSUMERS", "PW_MAX_CHUNK", "PointwiseBlocking",
            "pointwise_smem_bytes", "pointwise_candidates",
            "choose_pointwise_blocking", "pointwise_issued_macs",
+           "PointwisePlan", "pointwise_plan", "pointwise_plan_ints",
+           "pointwise_bf16_brows", "pointwise_bf16_tma",
+           "pointwise_bf16_gap_slots",
            "DW_MAX_TAPS", "DW_THREAD_POSITIONS", "DW_LANE_SPLITS",
            "DW_ITEMS_PER_CTA", "DepthwiseBlocking", "depthwise_fwd_smem_bytes",
            "choose_depthwise_blocking", "depthwise_dgrad_window",
@@ -1698,42 +1701,136 @@ def _splits(tiles: int, base: int, row_bytes: int,
 # the tiles at MobileNet's shapes, so a change here that moves one shows.
 # (The pointwise dgrad runs the dense dgrad tile at 1x1, which timed
 # faster than this tile with the weight read transposed.)
-#
-# The bf16 build of the tile (``op_bytes`` 2) contracts bf16 operands on
-# bf16 wgmma, k16 steps, one product a MAC: its chunk is a multiple of 16
-# (Kw pads to 16), its staged rows and weights take 2 bytes a cell, and the
-# weights land by cp.async straight into the order the wgmma reads (no raw
-# chunk, no split), so chunks up to PW_MAX_CHUNK_BF16 fit.  Its cost is the
-# same model at the bf16 rate (twice the TF32 MACs a cycle, once a MAC),
-# its copies 16 bytes (8 cells) where the pencils allow, with no weight
-# split; its constants are the f32 fit's, not timed for bf16.
 PW_ROWS = 64
 PW_CONSUMERS = 3
 PW_SLOTS = 2
 PW_MAX_CHUNK = 64
-PW_MAX_CHUNK_BF16 = 128
 PW_STAGE_CYCLES = 2000      # a stage's copy latency past the ring, barriers
 PW_COPY_CYCLES = 30         # one 16-byte cp.async of a producer thread
 PW_SPLIT_CYCLES = 3         # a weight transposed and split into halves
 
+# The bf16 build (``op_bytes`` 2; csrc/conv2d_pointwise.cu
+# ``pointwise_tile_kernel_bf16``, namespace ``pwbf16``) is a design of its
+# own, the dense forward's bf16 design at 1x1: its GEMM rows are the
+# flattened (image, position) axis, so an item of ``rows`` = 64 x consumers
+# rows may span images and only the batch's last m-tile is ragged; A (x's
+# rows, ``chunk`` channels: one 128-, 64- or 32-byte swizzled row a
+# position, two at 128 channels) and B (the weights, MN-major) land by TMA
+# in a ring of 2-4 slots and are read by descriptor; a persistent grid of
+# CTAs walks the (row item, output column) items.  x lands in boxes of
+# ``brows`` rows of one image (at most PW_BF16_BOX_ROWS), each at its row's
+# place in the slot, so a slot holds ``brows`` spare rows on either side of
+# the item's.  The search weighs the consumers (1-3), the chunk, the lane
+# split and the ring's slots; the cost, per SM in cycles, is the busiest
+# SM's items (in rounds of the card's SMs) of ``stages`` stages each, a
+# stage the longer of its wgmmas (the item's live m-tiles at
+# PW_BF16_MACS_PER_CYCLE, the share PW_BF16_WG_EFFICIENCY of it one to
+# three consumers keep busy) and its copies (a fixed latency shared by the
+# slots in flight, the bytes landed at PW_BF16_BYTES_PER_CYCLE, a cost a
+# TMA box, and where a pencil takes no TMA a cost a producer thread's
+# copy), and an item's epilogue; the rounds count two CTAs an SM where a
+# one-consumer CTA's shared memory lets two share it (at batch 8's 14x14
+# legs a ring of two slots, so held, timed 1.3x faster than three).  The
+# copies path is weighed only where no tile takes TMA.  The constants were
+# fitted (a random search, the legs' chosen-over-fastest sum the
+# objective, the worse batch's first) to the card's times of the
+# candidates at MobileNet's forward legs at batch 8 and 32 that ``python
+# -m repro_torch.launch.pointwise_tiles_ab --dtype bf16 --kind fwd
+# [--batch 32]`` timed on an H100 80GB HBM3 at 700 W (PERF.md); they are
+# a fit, not a description of the card.
+PW_BF16_CHUNKS = (128, 64, 32, 16)
+PW_BF16_HALF = 64           # channels of one 128-byte swizzled row
+PW_BF16_MAX_RING = 4
+PW_BF16_BAR_BYTES = 8 * 2 * PW_BF16_MAX_RING
+PW_BF16_ATOM = 1024
+PW_BF16_BOX_ROWS = 32
+PW_BF16_MAX_BOX = 256
+# consumers at 128 lanes with GAP, at most (the kernel's launch bound:
+# its epilogue at three spilled)
+PW_BF16_GAP_WIDE_CONSUMERS = 2
+PW_BF16_SM_SMEM = 233472          # an SM's shared memory
+PW_BF16_CTA_RESERVED = 1024       # the runtime's share of it a CTA
+PW_BF16_MACS_PER_CYCLE = 1197
+PW_BF16_WG_EFFICIENCY = {1: 0.44, 2: 0.85, 3: 0.86}
+PW_BF16_STAGE_CYCLES = 37
+PW_BF16_BYTES_PER_CYCLE = 63
+PW_BF16_BOX_CYCLES = 4
+PW_BF16_COPY_CYCLES = 11
+PW_BF16_ITEM_CYCLES = 277
+
 
 @dataclasses.dataclass(frozen=True)
 class PointwiseBlocking:
-    """Launch parameters of the pointwise forward's tile.  A CTA of
-    ``wgs`` consumer warpgroups owns ``rows = 64 * wgs`` consecutive
+    """Launch parameters of the pointwise forward's tile.  The f32 tile: a
+    CTA of ``wgs`` consumer warpgroups owns ``rows = 64 * wgs`` consecutive
     positions of one image (``tiles`` an image, the last one ragged) by
     ``lanes`` output lanes (the wgmma width; an output block splits into
-    ``nsplit`` CTAs), and contracts ``chunk`` channels a stage."""
+    ``nsplit`` CTAs), and contracts ``chunk`` channels a stage.  The bf16
+    build: an item is ``rows`` consecutive rows of the flattened (image,
+    position) axis by ``lanes`` lanes, ``tiles`` the GAP's partial slots an
+    image (the most items that touch one image), ``ring`` the ring's slots
+    and ``brows`` the rows of a box of x (both 0 for the f32 tile)."""
     rows: int
     wgs: int
     lanes: int
     nsplit: int
     chunk: int
     tiles: int
+    ring: int = 0
+    brows: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class PointwisePlan:
+    """What a launch of the bf16 build runs (``pwbf16::plan``): its items,
+    the function's MACs, the tensor-core MACs its live m-tiles issue, a
+    CTA's shared memory, its ring slots and the GAP slots an image (0
+    without GAP)."""
+    items: int
+    function_macs: int
+    issued_macs: int
+    smem: int
+    ring: int
+    slots: int
+
+
+def _pw_bf16_cell(chunk: int):
+    """``(channels, bytes)`` of one swizzled row of a ``chunk`` stage, and
+    the rows of one 128-byte line."""
+    half = min(chunk, PW_BF16_HALF)
+    return half, 2 * half, 128 // (2 * half)
+
+
+def pointwise_bf16_brows(hw: int, chunk: int) -> int:
+    """Rows of a TMA box of x: up to PW_BF16_BOX_ROWS of one image, whole
+    128-byte lines of them."""
+    line = _pw_bf16_cell(chunk)[2]
+    return max(line, min(hw, PW_BF16_BOX_ROWS) // line * line)
+
+
+def pointwise_bf16_tma(hw: int, kw: int, ow: int, chunk: int, lanes: int,
+                       brows: int) -> bool:
+    """Whether the bf16 build lands x and the weights by TMA
+    (``pwbf16::tma``): 16-byte strides, whole ``min(lanes, 64)``-lane weight
+    rows, x's boxes on whole 128-byte lines inside an image; else the
+    producer's copies."""
+    line = _pw_bf16_cell(chunk)[2]
+    return (kw % 8 == 0 and hw % line == 0 and brows % line == 0
+            and brows <= hw and ow % 8 == 0 and ow % min(lanes, 64) == 0)
+
+
+def pointwise_bf16_gap_slots(n: int, hw: int, rows: int) -> int:
+    """The most items of ``rows`` flattened rows that touch one of ``n``
+    images of ``hw`` positions (``pwbf16::gap_slots``; the count repeats
+    every ``rows`` images)."""
+    return max((((k + 1) * hw - 1) // rows - k * hw // rows + 1
+                for k in range(min(n, rows))), default=0)
 
 
 def pointwise_smem_bytes(rows: int, chunk: int, lanes: int, wgs: int,
-                         gap: bool = False, op_bytes: int = 4) -> int:
+                         gap: bool = False, op_bytes: int = 4, *,
+                         ring: int = 2,
+                         brows: int = PW_BF16_BOX_ROWS) -> int:
     """Dynamic shared memory of one pointwise tile CTA (the kernel's
     ``smem_bytes``, ``pwbf16::smem_bytes`` for ``op_bytes`` 2).
 
@@ -1742,13 +1839,20 @@ def pointwise_smem_bytes(rows: int, chunk: int, lanes: int, wgs: int,
     and its TF32 halves; an int per k8 step; with ``gap`` the consumer
     warps' ``[4 * wgs][lanes]`` sums.
 
-    bf16: 128 bytes to align the base; per slot the bf16 input rows
-    ``[rows][chunk + 8]`` and the bf16 weight chunk ``[lanes / 8][chunk][8]``;
-    the GAP sums as f32's."""
+    bf16: a swizzle period (1024 bytes) to align the base; ``ring`` slots,
+    each the A halves (``front + rows + brows`` swizzled rows, ``front`` the
+    box rows in whole 128-byte lines) and the weights ``[chunk][lanes]``,
+    each in whole swizzle periods; the ring's mbarriers; two f32 bias rows
+    of ``lanes``; with ``gap`` the consumer warps' f32 sums and a flag."""
     red = 4 * wgs * lanes if gap else 0
     if _fwd_k_step(op_bytes) == 16:
-        return 128 + 2 * PW_SLOTS * (rows * (chunk + 8) + chunk * lanes) \
-            + 4 * red
+        atom = PW_BF16_ATOM
+        half, cb, line = _pw_bf16_cell(chunk)
+        front = -(-brows // line) * line
+        a = -(-(front + rows + brows) * cb // atom) * atom
+        stage = chunk // half * a + -(-2 * chunk * lanes // atom) * atom
+        return (atom + ring * stage + PW_BF16_BAR_BYTES + 8 * lanes
+                + (4 * red + 16 if gap else 0))
     return 128 + 4 * (PW_SLOTS * (rows * (chunk + 4) + 3 * chunk * lanes)
                       + chunk // 8 + red)
 
@@ -1759,18 +1863,80 @@ def pointwise_kpad(kw: int, op_bytes: int = 4) -> int:
     return -(-kw // k) * k
 
 
+def _pointwise_bf16_candidates(n: int, hw: int, kblk: int, kw: int,
+                               oblk: int, ow: int, machine: MachineModel,
+                               gap: bool):
+    """``pointwise_candidates`` of the bf16 build (see the constants
+    above); the same rules as ``pwbf16::valid``."""
+    kpad = pointwise_kpad(kw, 2)
+    total = n * hw
+    out = []
+    for wgs in range(1, PW_CONSUMERS + 1):
+        rows = PW_ROWS * wgs
+        ritems = -(-total // rows)
+        live = -(-total // PW_ROWS) / ritems      # live m-tiles an item
+        slots = pointwise_bf16_gap_slots(n, hw, rows)
+        # images an item touches, on average
+        images = (rows - 1) / hw + 1
+        for chunk in (c for c in PW_BF16_CHUNKS if kpad % c == 0):
+            brows = pointwise_bf16_brows(hw, chunk)
+            half = _pw_bf16_cell(chunk)[0]
+            stages = kblk * kpad // chunk
+            for nsplit, lanes in _fwd_splits(ow):
+                if gap and lanes == 128 and wgs > PW_BF16_GAP_WIDE_CONSUMERS:
+                    continue
+                tma = pointwise_bf16_tma(hw, kw, ow, chunk, lanes, brows)
+                items = ritems * oblk * nsplit
+                mma = (PW_ROWS * live * chunk * lanes
+                       / PW_BF16_MACS_PER_CYCLE / PW_BF16_WG_EFFICIENCY[wgs])
+                if tma:
+                    landed = rows + min(brows, hw) * min(images, 2)
+                    boxes = chunk // half * (rows / min(brows, hw) + images)
+                    copies = 0
+                else:
+                    landed, boxes = rows, 0
+                    copies = rows * chunk // 8 + 2 * chunk * lanes // 8
+                staged = 2 * chunk * (lanes + landed)
+                for ring in range(2, PW_BF16_MAX_RING + 1):
+                    smem = pointwise_smem_bytes(rows, chunk, lanes, wgs, gap,
+                                                2, ring=ring, brows=brows)
+                    if smem > machine.smem_block:
+                        break
+                    # CTAs an SM holds: two of one consumer where their
+                    # shared memory fits (the registers do at 128 a thread)
+                    per_sm = (2 if wgs == 1 and smem + PW_BF16_CTA_RESERVED
+                              <= PW_BF16_SM_SMEM // 2 else 1)
+                    copy = (PW_BF16_STAGE_CYCLES / (ring - 1)
+                            + staged / PW_BF16_BYTES_PER_CYCLE
+                            + PW_BF16_BOX_CYCLES * boxes
+                            + PW_BF16_COPY_CYCLES * copies / 128)
+                    cost = (-(-items // (machine.sms * per_sm))
+                            * (stages * max(mma, copy)
+                               + PW_BF16_ITEM_CYCLES))
+                    out.append(((cost, -chunk, -ring, -rows, nsplit),
+                                PointwiseBlocking(rows=rows, wgs=wgs,
+                                                  lanes=lanes,
+                                                  nsplit=nsplit, chunk=chunk,
+                                                  tiles=slots, ring=ring,
+                                                  brows=brows), tma))
+    # the copies path only where no tile takes TMA
+    tma = any(t for *_, t in out)
+    return [(key, blk) for key, blk, t in out if t or not tma]
+
+
 def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
                          ow: int, machine: MachineModel = H100_SXM,
                          gap: bool = False, op_bytes: int = 4):
     """The tiles the search weighs, each as ``(key, PointwiseBlocking)``,
     the least key the choice (see the constants above); ties go to a
     larger chunk, more rows, then fewer splits.  ``op_bytes`` 2 weighs the
-    bf16 build."""
-    step = _fwd_k_step(op_bytes)
-    bf16 = step == 16
+    bf16 build (``_pointwise_bf16_candidates``)."""
+    if _fwd_k_step(op_bytes) == 16:
+        return _pointwise_bf16_candidates(n, hw, kblk, kw, oblk, ow, machine,
+                                          gap)
     kpad = pointwise_kpad(kw, op_bytes)
-    top = PW_MAX_CHUNK_BF16 if bf16 else PW_MAX_CHUNK
-    chunks = [c for c in range(min(kpad, top), 0, -step) if kpad % c == 0]
+    chunks = [c for c in range(min(kpad, PW_MAX_CHUNK), 0, -8)
+              if kpad % c == 0]
     out = []
     for wgs in range(1, PW_CONSUMERS + 1):
         rows = PW_ROWS * wgs
@@ -1788,18 +1954,10 @@ def pointwise_candidates(n: int, hw: int, kblk: int, kw: int, oblk: int,
                 continue
             stages = kblk * kpad // chunk
             ctas = n * tiles * oblk * nsplit
-            if bf16:     # one product a MAC at twice TF32's rate
-                mma = (rows * chunk * lanes / (2 * DGRAD_MACS_PER_CYCLE)
-                       / DGRAD_WG_EFFICIENCY[wgs])
-                copies = (rows * chunk / (8 if kw % 8 == 0 else
-                                          2 if kw % 2 == 0 else 1)
-                          + chunk * lanes / (8 if ow % 8 == 0 else 1))
-                split = 0
-            else:
-                mma = (3 * rows * chunk * lanes / DGRAD_MACS_PER_CYCLE
-                       / DGRAD_WG_EFFICIENCY[wgs])
-                copies = (rows * chunk + chunk * lanes) / 4
-                split = PW_SPLIT_CYCLES * chunk * lanes
+            mma = (3 * rows * chunk * lanes / DGRAD_MACS_PER_CYCLE
+                   / DGRAD_WG_EFFICIENCY[wgs])
+            copies = (rows * chunk + chunk * lanes) / 4
+            split = PW_SPLIT_CYCLES * chunk * lanes
             other = PW_STAGE_CYCLES + (PW_COPY_CYCLES * copies + split) / 128
             cost = -(-ctas // machine.sms) * stages * max(mma, other)
             out.append(((cost, -chunk, -rows, nsplit),
@@ -1832,14 +1990,47 @@ def choose_pointwise_blocking(n: int, hw: int, kblk: int, kw: int,
 
 
 def pointwise_issued_macs(blk: PointwiseBlocking, n: int, kblk: int,
-                          kw: int, oblk: int, op_bytes: int = 4) -> int:
-    """The tensor-core MACs a launch of ``blk`` issues: every CTA's whole
-    ``rows x lanes`` tile over K padded to whole chunks in every input
-    block, three products each (one in the bf16 build)."""
+                          kw: int, oblk: int, op_bytes: int = 4,
+                          hw: int = 0) -> int:
+    """The tensor-core MACs a launch of ``blk`` issues.  f32: every CTA's
+    whole ``rows x lanes`` tile over K padded to whole chunks in every
+    input block, three products each.  bf16 (over ``n`` images of ``hw``
+    positions): every m-tile of 64 flattened rows that holds a row, by
+    ``lanes`` over Cib padded to k16 slices, one product each."""
     kpad = pointwise_kpad(kw, op_bytes)
-    products = 3 if op_bytes == 4 else 1
-    return (products * n * blk.tiles * oblk * blk.nsplit * blk.rows
+    if op_bytes == 2:
+        if hw <= 0:
+            raise ValueError("the bf16 build's issued MACs need hw")
+        return (-(-n * hw // PW_ROWS) * PW_ROWS * oblk * blk.nsplit
+                * blk.lanes * kblk * kpad)
+    return (3 * n * blk.tiles * oblk * blk.nsplit * blk.rows
             * blk.lanes * kblk * (-(-kpad // blk.chunk) * blk.chunk))
+
+
+def pointwise_plan_ints(blk: PointwiseBlocking, n: int, hw: int, kblk: int,
+                        kw: int, oblk: int, ow: int, act: int,
+                        gap: bool) -> tuple:
+    """The bf16 build's plan as the C entry reads it: the
+    ``pwbf16::Geometry`` fields in order, the wgmma width and the dynamic
+    shared memory."""
+    return (kblk, kw, oblk, ow, hw, n, blk.rows, blk.nsplit, blk.chunk, act,
+            int(gap), blk.ring, blk.brows, blk.tiles, blk.lanes,
+            pointwise_smem_bytes(blk.rows, blk.chunk, blk.lanes, blk.wgs,
+                                 gap, 2, ring=blk.ring, brows=blk.brows))
+
+
+def pointwise_plan(blk: PointwiseBlocking, n: int, hw: int, kblk: int,
+                   kw: int, oblk: int, ow: int,
+                   gap: bool = False) -> PointwisePlan:
+    """What a launch of the bf16 build's tiles ``blk`` runs
+    (``pwbf16::plan``)."""
+    return PointwisePlan(
+        items=-(-n * hw // blk.rows) * oblk * blk.nsplit,
+        function_macs=n * hw * kblk * kw * oblk * ow,
+        issued_macs=pointwise_issued_macs(blk, n, kblk, kw, oblk, 2, hw),
+        smem=pointwise_smem_bytes(blk.rows, blk.chunk, blk.lanes, blk.wgs,
+                                  gap, 2, ring=blk.ring, brows=blk.brows),
+        ring=blk.ring, slots=blk.tiles if gap else 0)
 
 
 # ---------------------------------------------------------------------------

@@ -10,12 +10,14 @@ reference it refuses any other geometry.
   grad, it runs the fused inference kernel (``_pw_fwd_kernel``, ``:56``):
   ``csrc/conv2d_pointwise.cu``'s tensor-core tile (``pointwise_tile_kernel``,
   a 3xTF32 wgmma GEMM fed by a producer warpgroup), or under the ``BF16``
-  policy its bf16 build (``pointwise_tile_kernel_bf16``: bf16 wgmma, f32
-  sums, bf16 out; x, the f32 master weights and the residual cast to bf16
-  once a call, as the reference's ``_pwconv`` casts them), on a CUDA
-  tensor.  With ``gap`` the kernel writes per-tile partial sums and its
-  last CTA of each (image, output block) adds them into the pooled
-  features (``csrc/split_sum.cuh``).
+  policy its bf16 build (``pointwise_tile_kernel_bf16``: bf16 wgmma from
+  shared memory landed by TMA, f32 sums, bf16 out, a persistent grid over
+  items of rows that may span images; x, the f32 master weights and the
+  residual cast to bf16 once a call, as the reference's ``_pwconv`` casts
+  them), on a CUDA tensor.  With ``gap`` the kernel writes per-tile (bf16:
+  per item and image) partial sums and the last arrival of each (image,
+  output block) adds them into the pooled features
+  (``csrc/split_sum.cuh``).
 * With grad mode on and an operand that requires grad it enters
   ``kernels.conv_autograd.BlockedConvFunction``, the counterpart of
   ``_pwconv`` / ``_pwconv_fwd`` / ``_pwconv_bwd`` (``:351-420``), with this
@@ -58,10 +60,11 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.blocking import (H100_SXM, PW_CONSUMERS, PW_ROWS,
-                                       PointwiseBlocking,
+                                       PointwiseBlocking, PointwisePlan,
                                        choose_dgrad_blocking,
                                        choose_pointwise_blocking,
                                        choose_wgrad_blocking,
+                                       pointwise_plan, pointwise_plan_ints,
                                        pointwise_smem_bytes)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.core.direct_conv import (backward_spec,
@@ -89,7 +92,7 @@ from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
 __all__ = ["LAUNCHES", "reset_launches", "pointwise_conv2d_blocked",
            "pointwise_gap", "pointwise_dgrad", "pointwise_wgrad",
-           "pointwise_wgrad_partials"]
+           "pointwise_wgrad_partials", "pointwise_plans"]
 
 LAUNCHES = {"conv2d_pointwise_fwd": 0, "conv2d_pointwise_fwd_bf16": 0,
             "conv2d_pointwise_dgrad": 0, "conv2d_pointwise_dgrad_bf16": 0,
@@ -106,6 +109,9 @@ def _declare(lib, ptr, i32) -> None:
         entry = getattr(lib, f"conv2d_pointwise_tile{build}")
         entry.argtypes = [ptr] * 8 + [ctypes.POINTER(i32), ptr]
         entry.restype = i32
+    lib.conv2d_pointwise_plan_bf16.argtypes = [
+        ctypes.POINTER(i32), ctypes.POINTER(ctypes.c_longlong)]
+    lib.conv2d_pointwise_plan_bf16.restype = i32
 
 
 def _lib() -> ctypes.CDLL:
@@ -207,15 +213,37 @@ def _tile_plan(n: int, hw: int, kblk: int, kw: int, oblk: int, ow: int,
                blk: Optional[PointwiseBlocking] = None,
                op_bytes: int = 4) -> _TilePlan:
     """The plan of a tile launch by the build for ``op_bytes`` operands
-    (4: f32, 2: bf16): ``blk``, or the chooser's tiles."""
+    (4: f32, 2: bf16, ``core.blocking.pointwise_plan_ints``): ``blk``, or
+    the chooser's tiles."""
     if blk is None:
         blk = choose_pointwise_blocking(n, hw, kblk, kw, oblk, ow, gap=gap,
                                         op_bytes=op_bytes)
-    smem = pointwise_smem_bytes(blk.rows, blk.chunk, blk.lanes, blk.wgs, gap,
-                                op_bytes)
-    ints = (kblk, kw, oblk, ow, hw, blk.rows, blk.nsplit, blk.chunk, act,
-            int(gap), blk.lanes, blk.wgs, blk.tiles, n, smem)
+    if op_bytes == 2:
+        ints = pointwise_plan_ints(blk, n, hw, kblk, kw, oblk, ow, act, gap)
+    else:
+        smem = pointwise_smem_bytes(blk.rows, blk.chunk, blk.lanes, blk.wgs,
+                                    gap, op_bytes)
+        ints = (kblk, kw, oblk, ow, hw, blk.rows, blk.nsplit, blk.chunk, act,
+                int(gap), blk.lanes, blk.wgs, blk.tiles, n, smem)
     return _TilePlan(blk=blk, ints=(ctypes.c_int * len(ints))(*ints))
+
+
+def pointwise_plans(x: torch.Tensor, w: torch.Tensor, gap: bool = False,
+                    activation: Optional[str] = None
+                    ) -> Tuple[PointwisePlan, PointwisePlan]:
+    """What one launch of the bf16 build runs on these operands' shapes,
+    tiled as its wrapper tiles them: ``(the kernel library's own count, its
+    conv2d_pointwise_plan_bf16 entry; core.blocking.pointwise_plan's)``.
+    Reads the built library; launches nothing."""
+    n, kblk, h, wd, kw = x.shape
+    oblk, ow = w.shape[0], w.shape[5]
+    plan = _tile_plan(n, h * wd, kblk, kw, oblk, ow, _ACT_CODES[activation],
+                      gap, op_bytes=2)
+    out = (ctypes.c_longlong * 6)()
+    if _lib().conv2d_pointwise_plan_bf16(plan.ints, out):
+        raise ValueError(f"the bf16 tile refuses the tiles {plan.blk}")
+    return (PointwisePlan(*out),
+            pointwise_plan(plan.blk, n, h * wd, kblk, kw, oblk, ow, gap))
 
 
 def tile_launch(plan: _TilePlan, dev: torch.device, ptrs, out: torch.Tensor,
@@ -252,9 +280,10 @@ def pointwise_gap(x: torch.Tensor, w: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the tile forward (under ``BF16`` its bf16 build) with
     the GAP rider on CUDA operands -> ``(pooled [N, Co], partials [N,
-    Co/Cob, tiles, Cob])``: the per-tile f32 sums the kernel wrote and the
-    pooled features the last CTA of each image and output block summed from
-    them."""
+    Co/Cob, tiles, Cob])``: the per-tile f32 sums the kernel wrote (the
+    bf16 build's: an image's per-item sums in its slots, unused slots 0) and
+    the pooled features the last arrival of each image and output block
+    summed from them."""
     _forward_checks(x.shape, w.shape, 1, "VALID",
                     None if bias is None else bias.shape,
                     None if residual is None else residual.shape, activation)

@@ -9,29 +9,44 @@ the bound (the function's FLOPs at 989e12 against its bf16 bytes at
 3.35e12); then VGG-16's bf16 serving forward (the model under a bf16
 context, eager and graph) and, with ``--steps``, VGG-16's bf16 train step
 on both routes (``bf16_backward_ab.train_steps``: host-clock medians and
-the device-busy ms under ``torch.profiler``).  Prints the card's name and
-power limit and the tree it imported.  To hold two trees in one call, copy
-this file into the other tree and run it there with that tree's ``src``
-first on ``PYTHONPATH``, in turns (parent, this, this, parent)::
+the device-busy ms under ``torch.profiler``).  With ``--mobilenet`` it
+times MobileNet v1's bf16 pointwise forward instead: its 13 pointwise legs
+(a 224x224 entry, relu, the last leg with its GAP at batch 8) at batch 8
+and 32 through ``pointwise_conv2d_blocked(precision="bf16")``
+(``pointwise_tile_kernel_bf16``), eager and as a CUDA graph, each checked
+against the plain version, beside the dense bf16 forward at a 1x1 filter
+(``direct_conv2d_blocked(precision="bf16", stream=False)``,
+``fwd_kernel_bf16``: the control), cuDNN bf16 in channels-last and the
+bound; then MobileNet's bf16 serving forward at batch 8 (eager and graph)
+and its bf16 train step at batch 32 (host-clock median and the device-busy
+ms under ``torch.profiler``).  Prints the card's name and power limit and
+the tree it imported.  To hold two trees in one call, copy this file into
+the other tree and run it there with that tree's ``src`` first on
+``PYTHONPATH``, in turns (parent, this, this, parent)::
 
     PYTHONPATH=src python -m repro_torch.launch.bf16_forward_ab \\
-        [--steps] [--out bf16_forward.json]
+        [--steps | --mobilenet] [--out bf16_forward.json]
 """
 from __future__ import annotations
 
 import argparse
 import json
 import subprocess
+import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 import repro_torch
-from repro_torch.configs.cnn import (mobilenet_v1_layers, vgg16_blocked,
+from repro_torch.configs.cnn import (mobilenet_v1_blocked,
+                                     mobilenet_v1_layers, vgg16_blocked,
                                      vgg16_layers)
 from repro_torch.core.convspec import ConvSpec
-from repro_torch.launch.bf16_backward_ab import eager_ms, train_steps
+from repro_torch.launch.bf16_backward_ab import (device_split, eager_ms,
+                                                train_steps)
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
+from repro_torch.launch.separable_parts_ab import pw_legs
 
 N, ENTRY = 8, 224
 PEAK_BF16_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -49,10 +64,143 @@ def layers():
     return out
 
 
+def mobilenet(dev, gen, res) -> None:
+    """``--mobilenet``: the pointwise legs, the serving forward and the
+    train step (module docstring) into ``res``."""
+    import torch.nn.functional as F
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    from repro_torch.kernels import conv2d_pointwise as pwk
+    from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainstep import make_train_step
+    bf = torch.bfloat16
+    legs = pw_legs()
+    res["pw_legs"] = []
+    keys = ("pointwise", "pointwise_eager", "dense_1x1", "dense_1x1_eager",
+            "cudnn", "cudnn_eager", "bound_ms")
+    with torch.no_grad():
+        for n in (8, 32):
+            sums = dict.fromkeys(keys, 0.0)
+            timed = {}
+            for ci, co, h in legs:
+                gap = n == 8 and (ci, co) == (1024, 1024)
+                key = (ci, co, h, gap)
+                if key not in timed:
+                    cib, cob = min(ci, 128), min(co, 128)
+                    x = torch.randn((n, ci // cib, h, h, cib), device=dev,
+                                    generator=gen).to(bf)
+                    w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob),
+                                     device=dev, generator=gen)
+                         / ci ** 0.5).to(bf)
+                    b = 0.1 * torch.randn((co // cob, cob), device=dev,
+                                          generator=gen)
+                    want = direct_conv_blocked(x, w, 1, "VALID", b, "relu",
+                                               "bf16", gap=gap).float()
+                    scale = want.abs().max().item()
+
+                    def pw(x=x, w=w, b=b, gap=gap):
+                        return pwk.pointwise_conv2d_blocked(
+                            x, w, b, 1, "VALID", "relu", gap=gap,
+                            precision="bf16")
+
+                    def dense(x=x, w=w, b=b, gap=gap):
+                        return direct_conv2d_blocked(
+                            x, w, b, 1, "VALID", "relu", gap=gap,
+                            precision="bf16", stream=False)
+                    for tag, fn in (("pointwise", pw), ("dense_1x1", dense)):
+                        err = (fn().float() - want).abs().max().item()
+                        if err > 2.0 ** -7 * (1 + scale):
+                            raise RuntimeError(
+                                f"{tag} {ci}->{co} {h}x{h} n{n}: |out - "
+                                f"plain| = {err} (max |out| {scale})")
+                    xl = (x.permute(0, 1, 4, 2, 3).reshape(n, ci, h, h)
+                          .contiguous(memory_format=torch.channels_last))
+                    wl = (w.permute(0, 5, 1, 4, 2, 3).reshape(co, ci, 1, 1)
+                          .contiguous(memory_format=torch.channels_last))
+                    bl = b.reshape(co).to(bf)
+
+                    def cudnn(xl=xl, wl=wl, bl=bl):
+                        return F.conv2d(xl, wl, bl)
+                    out_elems = n * co * (1 if gap else h * h)
+                    nbytes = 2 * (x.numel() + w.numel() + out_elems) \
+                        + 4 * co
+                    row = {"leg": f"{ci}->{co} {h}x{h}", "n": n, "gap": gap,
+                           "bound_ms": 1e3 * max(
+                               2 * n * h * h * ci * co / PEAK_BF16_FLOPS,
+                               nbytes / PEAK_BYTES)}
+                    for tag, fn in (("pointwise", pw), ("dense_1x1", dense),
+                                    ("cudnn", cudnn)):
+                        row[tag] = graph_ms(fn, 10)
+                        row[f"{tag}_eager"] = eager_ms(fn)
+                    timed[key] = row
+                    print("[pw-ab] " + " ".join(
+                        f"{k} {v:.4f}" if isinstance(v, float)
+                        else f"{k} {v}" for k, v in row.items()),
+                        flush=True)
+                    del x, w, b, want, xl, wl
+                for k in keys:
+                    sums[k] += timed[key][k]
+            res["pw_legs"] += list(timed.values())
+            res[f"pw_sums_n{n}"] = sums
+            print(f"[pw-ab] MobileNet's 13 pointwise legs n{n} summed (ms; "
+                  "graphs unless _eager): " + " ".join(
+                      f"{k} {v:.4f}" for k, v in sums.items())
+                  + f"; share of the bound as a graph: pointwise "
+                  f"{100 * sums['bound_ms'] / sums['pointwise']:.1f} %",
+                  flush=True)
+        model = mobilenet_v1_blocked(1000, device=dev,
+                                     generator=torch.Generator().manual_seed(2))
+        img = torch.randn((N, ENTRY, ENTRY, 3), device=dev, generator=gen)
+        ctx = ConvContext(precision="bf16")
+
+        def forward():
+            return model(img, context=ctx)
+        res["mobilenet_forward"] = graph_ms(forward, 5)
+        res["mobilenet_forward_eager"] = eager_ms(forward, 5)
+        print(f"[pw-ab] MobileNet v1 bf16 serving forward n{N}: "
+              f"{res['mobilenet_forward_eager']:.4f} ms eager, "
+              f"{res['mobilenet_forward']:.4f} ms as a graph (weight casts "
+              "included)", flush=True)
+    nt = 32
+    rng = np.random.default_rng(0)
+    batches = [{"images": torch.from_numpy(rng.standard_normal(
+        (nt, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+        "targets": torch.from_numpy(rng.integers(0, 1000, nt)).to(dev)}
+        for _ in range(3)]
+    opt = AdamW(lr=lambda step: 1e-5)
+    state = opt.init(dict(model.named_parameters()))
+    step = make_train_step(model, opt, context=ctx)
+    step(state, batches[0])                     # warm-up
+    times = []
+    for k in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, batches[k % 3])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    split = device_split(lambda: step(state, batches[1]))
+    res["mobilenet_step_ms"] = float(np.median(times))
+    res["mobilenet_step_device_busy_ms"] = None if split is None \
+        else split[0]
+    print(f"[pw-ab] MobileNet v1 bf16 train step n{nt}: median "
+          f"{np.median(times):.3f} ms of {[round(t, 3) for t in times]}; "
+          f"device busy "
+          f"{'not measured' if split is None else f'{split[0]:.3f} ms'}",
+          flush=True)
+    if split is not None:
+        for kname, ms, count in split[1]:
+            print(f"[pw-ab]   step kernel {ms:.3f} ms x{count} {kname[:90]}",
+                  flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", action="store_true",
                     help="time VGG-16's bf16 train steps as well")
+    ap.add_argument("--mobilenet", action="store_true",
+                    help="time MobileNet's bf16 pointwise legs, serving "
+                    "forward and train step instead")
     ap.add_argument("--out", default=None, help="write the times as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -70,6 +218,12 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     res = {"card": card, "tree": tree, "layers": []}
+    if args.mobilenet:
+        mobilenet(dev, gen, res)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     with torch.no_grad():
         for name, ci, co, s, h in layers():
             cib, cob = min(ci, 128), min(co, 128)

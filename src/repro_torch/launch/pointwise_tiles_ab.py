@@ -7,14 +7,15 @@ The pointwise forward (``csrc/conv2d_pointwise.cu``,
 dgrad tile at 1x1 (``csrc/dgrad_tile.cuh`` through ``direct_conv2d_bwd.cu``'s
 ``dgrad_kernel``), tiled by ``core.blocking.dgrad_candidates``.  For each
 distinct MobileNet v1 pointwise leg (a 224x224 entry; the forward at batch
-8, the last leg with its GAP; the dgrad at batch 32 with the relu
-prologue) this script times every candidate as a CUDA-graph replay of
-``ITERS`` calls (twice, the candidates in opposite orders, the faster time
-kept) and checks each one's output against the plain version.  It prints
+8, the last leg with its GAP, or at ``--batch``; the dgrad at batch 32
+with the relu prologue) this script times every candidate as a CUDA-graph
+replay of ``ITERS`` calls (twice, the candidates in opposite orders, the
+faster time kept) and checks each one's output against the plain version.  It prints
 the card's name and power limit, each tile with its ms (the forward's with
 its model cost), per leg the chooser's tile beside the fastest, and the
 sums over the 13 legs.  ``--dtype bf16`` times the bf16 builds
-(``pointwise_tile_kernel_bf16``, ``dgrad_kernel_bf16``) at their
+(``pointwise_tile_kernel_bf16``: every candidate of its search, each
+consumer count, chunk, lane split and ring; ``dgrad_kernel_bf16``) at their
 choosers' candidates (``op_bytes`` 2; the dgrad's a selection,
 ``dgrad_tile_candidates``) on bf16 operands, each output held to the plain
 version under ``BF16`` within one bf16 ulp plus 1e-5 of its max (the
@@ -22,7 +23,7 @@ dgrad on the dz pass's dz, as bf16 training calls it); ``--kind``
 times one kernel's tiles alone.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.pointwise_tiles_ab \
-        [--dtype bf16] [--kind fwd|dgrad|both]
+        [--dtype bf16] [--kind fwd|dgrad|both] [--batch N]
 """
 from __future__ import annotations
 
@@ -50,12 +51,12 @@ def pointwise_legs():
     return sorted(set(pw_legs()), key=pw_legs().index)
 
 
-def _fwd_args(ci: int, co: int, h: int):
+def _fwd_args(ci: int, co: int, h: int, n: int = FWD_BATCH):
     """The forward chooser's arguments at a leg: ``(n, hw, kblk, kw, oblk,
-    ow)``, gap."""
+    ow)``, gap (the last leg's at batch 8, as it is served)."""
     cib, cob = min(ci, 128), min(co, 128)
-    return ((FWD_BATCH, h * h, ci // cib, cib, co // cob, cob),
-            (ci, co) == (1024, 1024))
+    return ((n, h * h, ci // cib, cib, co // cob, cob),
+            n == FWD_BATCH and (ci, co) == (1024, 1024))
 
 
 def _dgrad_args(ci: int, co: int, h: int):
@@ -65,10 +66,11 @@ def _dgrad_args(ci: int, co: int, h: int):
     return DGRAD_BATCH, h, h, 1, 1, 1, ci // cib, cib, cob
 
 
-def tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4):
+def tile_candidates(ci: int, co: int, h: int, op_bytes: int = 4,
+                    n: int = FWD_BATCH):
     """The forward tiles to time at a leg (``op_bytes`` 2: the bf16
-    build's), the chooser's first."""
-    args, gap = _fwd_args(ci, co, h)
+    build's) at batch ``n``, the chooser's first."""
+    args, gap = _fwd_args(ci, co, h, n)
     chosen = choose_pointwise_blocking(*args, gap=gap, op_bytes=op_bytes)
     found = sorted(pointwise_candidates(*args, H100_SXM, gap, op_bytes),
                    key=lambda kb: kb[0])
@@ -127,6 +129,8 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
     ap.add_argument("--kind", choices=("fwd", "dgrad", "both"),
                     default="both", help="the tiles of one kernel alone")
+    ap.add_argument("--batch", type=int, default=FWD_BATCH,
+                    help="the forward's batch (the last leg's GAP at 8)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("pointwise_tiles_ab: no CUDA device")
@@ -153,7 +157,7 @@ def main(argv=None) -> int:
     for ci, co, h in pointwise_legs():
         cib, cob = min(ci, 128), min(co, 128)
         for kind in kinds:
-            n = FWD_BATCH if kind == "fwd" else DGRAD_BATCH
+            n = args.batch if kind == "fwd" else DGRAD_BATCH
             x = torch.randn((n, ci // cib, h, h, cib), device=dev,
                             generator=gen).to(dt)
             w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob),
@@ -161,10 +165,10 @@ def main(argv=None) -> int:
             b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
             runs = []
             if kind == "fwd":
-                (_, hw, kblk, kw, oblk, ow), gap = _fwd_args(ci, co, h)
+                (_, hw, kblk, kw, oblk, ow), gap = _fwd_args(ci, co, h, n)
                 want = direct_conv_blocked(x, w, 1, "VALID", b, "relu",
                                            args.dtype, gap=gap)
-                tiles = tile_candidates(ci, co, h, op_bytes)
+                tiles = tile_candidates(ci, co, h, op_bytes, n)
                 for blk in tiles:
                     plan = pwk._tile_plan(n, hw, kblk, kw, oblk, ow,
                                           _ACT_CODES["relu"], gap, blk,
@@ -190,8 +194,10 @@ def main(argv=None) -> int:
                 cost = {bk: k[0] for k, bk in pointwise_candidates(
                     n, hw, kblk, kw, oblk, ow, H100_SXM, gap, op_bytes)}
                 names = [f"rows {bk.rows} lanes {bk.lanes} nsplit "
-                         f"{bk.nsplit} chunk {bk.chunk} model_cost "
-                         f"{cost[bk]:.0f}" for bk in tiles]
+                         f"{bk.nsplit} chunk {bk.chunk}"
+                         + (f" ring {bk.ring} brows {bk.brows}" if bf16
+                            else "")
+                         + f" model_cost {cost[bk]:.0f}" for bk in tiles]
             else:
                 z = direct_conv_blocked(x, w, 1, "VALID", b).contiguous()
                 g = torch.randn(z.shape, device=dev, generator=gen).to(dt)

@@ -19,10 +19,11 @@ entry, relu; the last pointwise leg with its GAP):
   likewise the pointwise dgrad, the dense dgrad tile at 1x1
   (``DGRAD_PARTS``, ``csrc/direct_conv2d_bwd.cu``; batch 32, the relu
   prologue), and the pointwise forward's bf16 build
-  (``pointwise_tile_kernel_bf16``, ``PW_BF16_PARTS``: without its weight
-  copies, what a TMA weight box could save at most, and without its
-  wgmmas; batch 8, bf16 operands).  Only ``whole`` computes the function;
-  the others are timing probes.
+  (``pointwise_tile_kernel_bf16``, ``PW_BF16_PARTS``: without its wgmmas,
+  without its TMA copies, without its epilogue, without the epilogue's
+  stores, the epilogue only a test of the accumulators, no bias read;
+  batch 8, bf16 operands).
+  Only ``whole`` computes the function; the others are timing probes.
 
 The variants are built from this checkout's sources; another tree is
 measured by running its own copy of this script.  Prints the card's name
@@ -70,17 +71,41 @@ DGRAD_PARTS = {
 
 
 # the pointwise forward's bf16 build (conv2d_pointwise.cu
-# `pointwise_tile_kernel_bf16`): its weight chunk's cp.async copies, and its
-# wgmmas
+# `pointwise_tile_kernel_bf16`): without its wgmmas, without its TMA copies
+# (the producer arrives on each slot's mbarrier with nothing landed),
+# without its epilogue (the items' stores and GAP), with the epilogue's
+# arithmetic but not its output stores, with the epilogue replaced by a
+# test of two accumulators (the wgmmas waited for, nothing stored), and
+# with no bias read
 PW_BF16_PARTS = {
     "whole": (),
-    "no_weight_copies": (
-        ("  // w[o_b][kb][c0 + k][o0 + 8q + e] at (q, k, e)\n",
-         "  return;\n"),),
     "no_wgmma": (
-        ("    pwbf16::mma_stage<N>(acc, m.rows_of(slot), off, g.chunk / 16,",
-         "    if (0) pwbf16::mma_stage<N>(acc, m.rows_of(slot), off, "
-         "g.chunk / 16,"),),
+        ("      if (live) {\n        pb::mma_any<N>(",
+         "      if (0) {\n        pb::mma_any<N>("),),
+    "no_copy": (
+        ("            dt::mbar_expect_tx(&m.full[slot],\n"
+         "                               boxes * pb::halves(g) * g.brows * cb\n"
+         "                                   + 2 * g.chunk * N);",
+         "            pb::db::mbar_arrive(&m.full[slot]);"),
+        ("          pb::issue_x(&tmx, a, &m.full[slot], g, it, kb, c0, tid);\n"
+         "          if (tid == 0) {",
+         "          if (0) {")),
+    "no_epilogue": (
+        ("    pb::store_any<N, kGap>(acc, g, it, c, m, brow,",
+         "    if (0) pb::store_any<N, kGap>(acc, g, it, c, m, brow,"),),
+    "no_store": (
+        ("          if (row_ok[h] && o0 + col8 < g.ow) {", "          if (0) {"),
+        ("        if (!row_ok[h]) continue;", "        if (true) continue;")),
+    "acc_live": (
+        ("    pb::store_any<N, kGap>(acc, g, it, c, m, brow, residual, out, "
+         "partials,\n                           pooled, counters);",
+         "    if (acc[0] == 1234.5f && acc[N / 2 - 1] == 1.5f) {\n"
+         "      out[threadIdx.x] = __float2bfloat16_rn(acc[1]);\n"
+         "    }"),),
+    "no_bias": (
+        ("    float* brow = bias != nullptr ? m.bias + (walked & 1) * N : "
+         "nullptr;",
+         "    float* brow = nullptr;"),),
 }
 
 

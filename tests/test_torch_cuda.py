@@ -1783,6 +1783,100 @@ def test_pointwise_bf16_builds_match_plain_versions(cuda, n, ci, co, h, cib,
                          "conv2d_pointwise_wgrad_bf16": 2}
 
 
+# (n, ci, co, h, cib, cob, activation, residual, gap, tile changes): items
+# that span 7x7 and 5x5 images at one to three consumers (two at 128 lanes
+# with GAP), a chunk of 128 as two swizzled halves, a lane split, the
+# copies path (Cib 4, Cob 6), and more items than the card holds CTAs (the
+# persistent grid walks them)
+PW_BF16_TILES = [
+    (8, 512, 256, 7, 128, 128, "relu", True, True,
+     {"wgs": 3, "chunk": 64, "nsplit": 2}),
+    (4, 256, 128, 7, 128, 128, "gelu", False, True, {"wgs": 2}),
+    (8, 1024, 256, 7, 128, 128, "relu", False, True,
+     {"wgs": 1, "chunk": 128}),
+    (6, 256, 256, 5, 128, 128, "gelu", True, True, {"wgs": 2, "nsplit": 2}),
+    (3, 12, 12, 7, 4, 6, "gelu", True, True, {}),
+    (64, 256, 512, 14, 128, 128, "relu", False, False, {"wgs": 1}),
+]
+
+
+def _pw_bf16_tile(n, hw, kblk, kw, oblk, ow, gap, changes):
+    """The chooser's bf16 tile with ``changes``, its GAP slots, box rows and
+    the most ring slots that fit a CTA."""
+    import dataclasses
+    from repro_torch.core import blocking
+    blk = blocking.choose_pointwise_blocking(n, hw, kblk, kw, oblk, ow,
+                                             gap=gap, op_bytes=2)
+    if "wgs" in changes:
+        changes = dict(changes, rows=64 * changes["wgs"])
+    if "nsplit" in changes:
+        changes = dict(changes, lanes=blocking.dgrad_lanes(
+            -(-ow // changes["nsplit"])))
+    blk = dataclasses.replace(blk, **changes)
+    brows = blocking.pointwise_bf16_brows(hw, blk.chunk)
+    ring = max(r for r in range(2, 5) if blocking.pointwise_smem_bytes(
+        blk.rows, blk.chunk, blk.lanes, blk.wgs, gap, 2, ring=r,
+        brows=brows) <= blocking.H100_SXM.smem_block)
+    return dataclasses.replace(
+        blk, brows=brows, ring=ring,
+        tiles=blocking.pointwise_bf16_gap_slots(n, hw, blk.rows))
+
+
+@pytest.mark.parametrize("n,ci,co,h,cib,cob,act,res,gap,changes",
+                         PW_BF16_TILES)
+def test_pointwise_bf16_tiles_span_images(cuda, n, ci, co, h, cib, cob, act,
+                                          res, gap, changes):
+    import ctypes
+    from repro_torch.core import blocking
+    from repro_torch.kernels.direct_conv2d import _ACT_CODES
+    g = torch.Generator(device=cuda).manual_seed(12)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda,
+                    generator=g).bfloat16()
+    w = (torch.randn((co // cob, ci // cib, 1, 1, cib, cob), device=cuda,
+                     generator=g) / ci ** 0.5).bfloat16()
+    b = torch.randn((co // cob, cob), device=cuda, generator=g)
+    r = (torch.randn((n, co // cob, h, h, cob), device=cuda,
+                     generator=g).bfloat16() if res else None)
+    hw, kblk, oblk = h * h, ci // cib, co // cob
+    blk = _pw_bf16_tile(n, hw, kblk, cib, oblk, cob, gap, changes)
+    plan = pwk._tile_plan(n, hw, kblk, cib, oblk, cob, _ACT_CODES[act], gap,
+                          blk, 2)
+    got = (ctypes.c_longlong * 6)()
+    assert pwk._lib().conv2d_pointwise_plan_bf16(plan.ints, got) == 0
+    model = blocking.pointwise_plan(blk, n, hw, kblk, cib, oblk, cob, gap)
+    assert blocking.PointwisePlan(*got) == model
+    if changes.get("wgs") == 1 and n == 64:
+        assert model.items > torch.cuda.get_device_properties(
+            cuda).multi_processor_count
+
+    def run():
+        out = torch.empty((n, oblk, h, h, cob), device=cuda,
+                          dtype=torch.bfloat16)
+        parts = (torch.empty((n, oblk, blk.tiles, cob), device=cuda)
+                 if gap else None)
+        pooled = (torch.empty((n, oblk * cob), device=cuda,
+                              dtype=torch.bfloat16) if gap else None)
+        err = pwk.tile_launch(plan, cuda, (x.data_ptr(), w.data_ptr(),
+                                           b.data_ptr(),
+                                           None if r is None
+                                           else r.data_ptr()),
+                              out, parts, pooled)
+        assert err == 0
+        return out, parts, pooled
+    (out, parts, pooled), (out2, parts2, pooled2) = run(), run()
+    torch.cuda.synchronize()
+    _bf16_close(out, direct_conv_blocked(x, w, 1, "VALID", b, act, "bf16",
+                                         residual=r))
+    assert torch.equal(out, out2)
+    if gap:
+        assert torch.equal(pooled, pooled2) and torch.equal(parts, parts2)
+        assert torch.equal(conv2d_common.gap_finalize(parts, hw).to(
+            pooled.dtype), pooled)
+        _bf16_close(pooled, direct_conv_blocked(x, w, 1, "VALID", b, act,
+                                                "bf16", residual=r, gap=True))
+    assert not any(int(a.count_nonzero()) for a in split_sum.arenas())
+
+
 # (n, c, h, cb, stride, dilation, filter, activation, residual, gap): the
 # register paths (3x3 at stride 1 and 2), the tap loop (dilation 2, stride
 # 3, 5x5), Cb 3 (2-byte cells), 6 (4-byte copies), 8, 32 and 128

@@ -156,6 +156,8 @@ PW_CASES = [
     (2, 12, 12, 9, 10, 4, 6, "gelu", True, False),     # 3 Ci x 2 Co blocks
     (1, 16, 32, 12, 12, 16, 16, None, False, True),
     (3, 8, 24, 8, 8, 8, 8, "relu", True, True),
+    # several small images: the bf16 tile's items span images
+    (4, 16, 32, 7, 7, 16, 16, "relu", True, True),
 ]
 
 
@@ -488,10 +490,10 @@ def test_choosers_at_two_byte_operands_at_mobilenets_legs(entry):
             assert pw.chunk % 16 == 0 and \
                 blocking.pointwise_kpad(cb, 2) % pw.chunk == 0
             assert blocking.pointwise_smem_bytes(
-                pw.rows, pw.chunk, pw.lanes, pw.wgs, gap, 2) <= \
-                blocking.H100_SXM.smem_block
+                pw.rows, pw.chunk, pw.lanes, pw.wgs, gap, 2, ring=pw.ring,
+                brows=pw.brows) <= blocking.H100_SXM.smem_block
             issued = blocking.pointwise_issued_macs(pw, n, ci // cb, cb,
-                                                    co // cob, 2)
+                                                    co // cob, 2, ho * ho)
             assert issued >= n * ho * ho * ci * co
         for n in (8, 32):
             fwd = blocking.choose_depthwise_blocking(
@@ -523,9 +525,21 @@ def test_smem_models_at_two_byte_cells():
     assert blocking.depthwise_wgrad_smem_bytes(4, 4, 2, 2, 8, 9, True,
                                                op_bytes=2) == \
         max(2 * 2 * (128 + 2 * 32), 4 * 32 * 10 * 8)
-    # the pointwise tile: bf16 rows [rows][chunk + 8], weights [chunk][N]
-    assert blocking.pointwise_smem_bytes(128, 64, 64, 2, True, 2) == \
-        128 + 2 * 2 * (128 * 72 + 64 * 64) + 4 * 4 * 2 * 64
+    # the pointwise tile: a 1024-byte alignment; per ring slot x's rows
+    # (32 spare, 128, 32 spare) of 128 swizzled bytes and the weights
+    # [chunk][N], each in whole 1024 bytes; 8 mbarriers; two f32 bias rows;
+    # the GAP sums and a flag
+    assert blocking.pointwise_smem_bytes(128, 64, 64, 2, True, 2, ring=2,
+                                         brows=32) == \
+        1024 + 2 * ((32 + 128 + 32) * 128 + 64 * 64 * 2) + 64 + 2 * 4 * 64 \
+        + 4 * 4 * 2 * 64 + 16
+    # a chunk of 128 is two such halves; 16 channels, 32-byte rows
+    assert blocking.pointwise_smem_bytes(64, 128, 128, 1, False, 2, ring=3,
+                                         brows=25) == \
+        1024 + 3 * (2 * 15 * 1024 + 128 * 128 * 2) + 64 + 2 * 4 * 128
+    assert blocking.pointwise_smem_bytes(64, 16, 8, 1, False, 2, ring=4,
+                                         brows=32) == \
+        1024 + 4 * (4 * 1024 + 1024) + 64 + 2 * 4 * 8
     with pytest.raises(ValueError, match="4- or 2-byte"):
         blocking.pointwise_smem_bytes(64, 16, 8, 1, op_bytes=1)
 
