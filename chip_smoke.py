@@ -269,6 +269,23 @@ and no phase catches its own failure:
     beside the f32 step; peak memory beside
     ``memory_model.bytes_precision_split``.
 
+25. grouped and dilated geometry on the window forward, f32 and bf16
+    (``grouped_dilated_phases``): AlexNet's two-tower layers
+    (``configs.cnn.alexnet_blocked``, lane 64) at batch 8 and its conv4/
+    conv5 at lane 128 (Cib 96, Cob 96/128), DeepLab-LargeFOV's conv5
+    (dilation 2) and fc6 (dilation 12) on their 41x41 map, groups 4 with
+    dilation 2 at stride 2, dilation 3 at stride 2: each kernel against its
+    plain version (phases 3 and 22's tolerances), two runs bit for bit, the
+    GAP of conv5 folded (``check_gap``); AlexNet served by ``ConvServer``
+    (24 requests, batch 8, 227x227) in f32 (logits within ``LOGIT_RTOL``)
+    and bf16 (twice the bf16 plain forward's distance), only the forward
+    kernel of each build launched; per layer eager and graph ms, plain ms,
+    cuDNN ``F.conv2d(groups=, dilation=)``, the bound and its share, the
+    kernel's MAC count equal to the grouped function's and the padding its
+    tiles issue, at Cob 48/96 the chosen TMA split beside the best two-way
+    split on 2-byte copies; the AlexNet forward; a forced stream and
+    autograd on a grouped layer raise.
+
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints neither.
@@ -4551,6 +4568,364 @@ def separable_bf16_phases(args, dev, t_start, smi, model):
     return entries, counts
 
 
+# Phase 25: AlexNet's two towers (Krizhevsky et al. 2012; Caffe's
+# bvlc_alexnet keeps group 2 on conv2, conv4, conv5) and two dilated
+# layers of DeepLab-LargeFOV (Chen et al. 2015, arXiv:1412.7062: conv5 at
+# dilation 2, fc6 at dilation 12, on the 41x41 map of a 321 input at output
+# stride 8), on the window forward's grouped map and dilated taps
+ALEXNET_ENTRY = 227
+# (name, n, ci, co, h, filter, stride, padding, groups, dilation, lane, gap)
+GROUPED_DILATED_SHAPES = [
+    ("alexnet.conv4@128", 8, 384, 384, 13, 3, 1, "SAME", 2, 1, 128, False),
+    ("alexnet.conv5@128", 8, 384, 256, 13, 3, 1, "SAME", 2, 1, 128, True),
+    ("deeplab.conv5", 8, 512, 512, 41, 3, 1, "SAME", 1, 2, 128, False),
+    ("deeplab.fc6", 8, 512, 1024, 41, 3, 1, "SAME", 1, 12, 128, False),
+    ("g4.d2.s2", 8, 256, 256, 56, 3, 2, "SAME", 4, 2, 64, False),
+    ("d3.s2", 8, 128, 128, 28, 3, 2, "SAME", 1, 3, 128, False),
+]
+
+
+def unread_share(blk, f: int, d: int) -> float:
+    """The share of a stride-1 bf16 window plane's cells that no tap reads:
+    a tile's rows (columns) read ``a + t d`` over its ``th`` (``tw``)
+    outputs and ``f`` taps, against the plane's rows and pitch."""
+    rows = len({a + t * d for a in range(blk.th) for t in range(f)})
+    cols = len({a + t * d for a in range(blk.tw) for t in range(f)})
+    plane_rows = blk.th + (f - 1) * d
+    return 1 - rows * cols / (plane_rows * blk.pitch)
+
+
+def grouped_dilated_phases(args, dev, t_start, smi):
+    """Phase 25: the window forward's grouped map and dilated taps, both
+    builds.  (a) each AlexNet layer (``configs.cnn.alexnet_blocked``: its
+    weights, lane 64) at batch 8 on its own input extent, and conv4/conv5 at
+    lane 128 (Cib 96, Cob 96 and 128), kernel against plain version (f32:
+    phase 3's tolerance; bf16: phase 22's), two runs bit for bit, the GAP
+    of conv5 folded (``check_gap``); (b) DeepLab-LargeFOV's conv5 and fc6,
+    groups 4 with dilation 2 at stride 2, dilation 3 at stride 2, likewise;
+    (c) AlexNet served by ``ConvServer`` (24 requests, batch 8, 227x227) in
+    f32 (logits within ``LOGIT_RTOL`` of the largest of the plain forward)
+    and in bf16 (within twice the bf16 plain forward's distance from f32),
+    only the forward kernel of each build launched; (d) per layer eager and
+    CUDA-graph ms, plain ms, cuDNN ``F.conv2d(groups=, dilation=)`` (f32
+    with TF32 off; bf16 channels-last), the bound and its share, the
+    kernel's own MAC count (its ``*_plan`` entry, equal to the grouped
+    function's) with the padding its tiles issue, and the AlexNet forward;
+    (e) a forced stream and autograd on grouped geometry raise, launching
+    nothing.  -> (kernels-line entries, the served launches)."""
+    from repro_torch.configs.cnn import ALEXNET_LANE, alexnet_blocked
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    from repro_torch.core.blocking import H100_SXM, fwd_candidates
+    from repro_torch.core.layout import BlockedConvLayout
+    from repro_torch.kernels import direct_conv2d as dck
+    from repro_torch.kernels.direct_conv2d import (direct_conv2d_blocked,
+                                                   fwd_launch, fwd_plans,
+                                                   gap_forward)
+    from repro_torch.launch.conv_serve import ConvServer
+    from repro_torch.serve.scheduler import ConvRequest, Outcome
+    names = {False: "direct_conv2d_fwd", True: "direct_conv2d_fwd_bf16"}
+    gen = torch.Generator().manual_seed(args.seed + 250)
+    model = alexnet_blocked(device=dev, generator=gen)
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 251)
+
+    def stamp(part):
+        print(f"[time] phase 25({part}) done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
+    # the shapes of (a) and (b): (name, x, w, b, spec, gap)
+    cases = []
+    h = ALEXNET_ENTRY
+    for i, conv in enumerate(model.convs):
+        spec = conv.spec(BATCH, h, h)
+        x = torch.randn((BATCH, conv.ci // conv.in_pencil, h, h,
+                         conv.in_pencil), device=dev, generator=dgen)
+        cases.append((f"alexnet.conv{i + 1}", x, conv.w.detach(),
+                      conv.b.detach(), spec, i == len(model.convs) - 1))
+        h = spec.ho
+    for (name, n, ci, co, hh, f, s, pad, g, d, lane,
+         gap) in GROUPED_DILATED_SHAPES:
+        lay = BlockedConvLayout.choose(ci, co, lane, groups=g)
+        spec = ConvSpec.make(n, hh, hh, ci, co, f, f, s, pad, g, d)
+        cig = ci // g
+        x = torch.randn((n, ci // lay.cb_in, hh, hh, lay.cb_in), device=dev,
+                        generator=dgen)
+        w = torch.randn((co // lay.cb_out, cig // lay.cb_in, f, f,
+                         lay.cb_in, lay.cb_out), device=dev,
+                        generator=dgen) / (f * f * cig) ** 0.5
+        b = 0.1 * torch.randn((co // lay.cb_out, lay.cb_out), device=dev,
+                              generator=dgen)
+        cases.append((name, x, w, b, spec, gap))
+
+    # -- 25(a-b) kernel against plain version, both builds -------------------
+    max_err = {False: 0.0, True: 0.0}
+    with torch.no_grad():
+        for name, x, w, b, spec, gap in cases:
+            pad, g, d = spec.pads, spec.groups, spec.dilation
+            for bf16 in (False, True):
+                prec = "bf16" if bf16 else "f32"
+                xin = x.bfloat16() if bf16 else x
+                reset_all_launches()
+                got = direct_conv2d_blocked(xin, w, b, spec.stride, pad,
+                                            "relu", precision=prec, groups=g,
+                                            dilation=d)
+                again = direct_conv2d_blocked(xin, w, b, spec.stride, pad,
+                                              "relu", precision=prec,
+                                              groups=g, dilation=d)
+                torch.cuda.synchronize()
+                launched = {k: v for k, v in all_launches().items() if v}
+                if launched != {names[bf16]: 2}:
+                    fail(f"{name} {prec}: launched {launched}, not two "
+                         f"{names[bf16]}")
+                want = direct_conv_blocked(xin, w, spec.stride, pad, b,
+                                           "relu", prec, g, d)
+                label = (f"{name} {prec} {spec.ci}->{spec.co} groups {g} "
+                         f"dilation {d[0]} s{spec.stride} in "
+                         f"{spec.hi}x{spec.wi}")
+                err = (bf16_close(label, got, want) if bf16 else
+                       compare(label, got, want, **TOL))
+                max_err[bf16] = max(max_err[bf16], err)
+                if not torch.equal(got, again):
+                    fail(f"{label}: two runs differ")
+                if gap:
+                    launch = gap_forward(xin, w, b, spec.stride, pad, "relu",
+                                         precision=prec, groups=g,
+                                         dilation=d)
+                    other, _ = gap_forward(xin, w, b, spec.stride, pad,
+                                           "relu", precision=prec, groups=g,
+                                           dilation=d)
+                    check_gap(f"{label} GAP", launch, spec.ho * spec.wo,
+                              other)
+                    pooled = launch[0].double()
+                    want_p = direct_conv_blocked(xin, w, spec.stride, pad, b,
+                                                 "relu", prec, g, d,
+                                                 gap=True).double()
+                    rel = ((pooled - want_p).abs().max()
+                           / want_p.abs().max()).item()
+                    print(f"[grouped] {label} GAP: pooled vs the plain "
+                          f"pooled features, max rel-to-max {rel:.3e}")
+                    if rel > (1e-2 if bf16 else 1e-4):
+                        fail(f"{label}: pooled features off the plain ones")
+    stamp("a-b")
+
+    # -- 25(c) AlexNet served in f32 and bf16 ---------------------------------
+    rng = np.random.default_rng(args.seed + 252)
+    images = [rng.standard_normal((ALEXNET_ENTRY, ALEXNET_ENTRY, 3),
+                                  dtype=np.float32) for _ in range(24)]
+    bucket = [(ALEXNET_ENTRY, ALEXNET_ENTRY)]
+    served_counts, runs = {}, {}
+    for bf16 in (False, True):
+        ctx = ConvContext(precision="bf16" if bf16 else "f32")
+        server = ConvServer(model, bucket, BATCH, device=dev, context=ctx)
+        server.warmup()
+        reqs = [ConvRequest(i, img) for i, img in enumerate(images)]
+        reset_all_launches()
+        for r in reqs:
+            server.submit(r)
+        server.run()
+        torch.cuda.synchronize()
+        got = {k: v for k, v in all_launches().items() if v}
+        n_fwd = server.health()["batches"]
+        prec = "bf16" if bf16 else "f32"
+        print(f"[alexnet-serve] {prec}: launches {got} batches {n_fwd}")
+        if n_fwd == 0 or got != {names[bf16]: 5 * n_fwd}:
+            fail(f"the {prec} AlexNet serve launched {got}, not 5 "
+                 f"{names[bf16]} a batch")
+        bad = [r.rid for r in reqs if r.outcome is not Outcome.OK]
+        if bad:
+            fail(f"AlexNet {prec} requests not OK: {bad}")
+        served_counts[names[bf16]] = got.get(names[bf16], 0)
+        runs[bf16] = (reqs, server)
+    err = {False: 0.0, True: 0.0}
+    plain_err = 0.0
+    with torch.no_grad():
+        for i in range(24):
+            img = torch.from_numpy(images[i])[None].to(dev)
+            f32 = plain_cnn_forward(img, model)[0]
+            scale = f32.abs().max().item()
+            for bf16 in (False, True):
+                logits = torch.from_numpy(runs[bf16][0][i].logits).to(dev)
+                err[bf16] = max(err[bf16], float(
+                    (logits.float() - f32).abs().max()) / scale)
+            pb = plain_cnn_forward(img, model, "bf16")[0].float()
+            plain_err = max(plain_err, float((pb - f32).abs().max()) / scale)
+    for bf16 in (False, True):
+        lat = runs[bf16][1].latencies() * 1e3
+        limit = 2 * plain_err if bf16 else LOGIT_RTOL
+        print(f"[alexnet-serve] {'bf16' if bf16 else 'f32'}: 24 requests OK; "
+              f"logits vs the f32 plain forward: max rel-to-max err "
+              f"{err[bf16]:.3e} (limit {limit:.3e}"
+              f"{', twice the bf16 plain forward' if bf16 else ''}); latency "
+              f"p50 {np.percentile(lat, 50):.3f} ms p99 "
+              f"{np.percentile(lat, 99):.3f} ms")
+        if not err[bf16] <= limit:
+            fail(f"AlexNet {'bf16' if bf16 else 'f32'} served logits off "
+                 "the plain forward")
+    del runs
+    stamp("c")
+
+    # -- 25(d) times, MACs, bounds --------------------------------------------
+    print(f"[grouped-time] {smi}")
+    sums = {False: [0.0] * 5, True: [0.0] * 5}
+    kinds = {False: [], True: []}
+    with torch.no_grad():
+        for name, x, w, b, spec, gap in cases:
+            pad, g, d, s = spec.pads, spec.groups, spec.dilation, spec.stride
+            n, co = spec.n, spec.co
+            (pt, pb_), (pl, pr) = pad
+            macs = spec.flops() // 2
+            for bf16 in (False, True):
+                prec = "bf16" if bf16 else "f32"
+                dt = torch.bfloat16 if bf16 else torch.float32
+                xin, wl = x.to(dt), w.to(dt)
+                xp = F.pad(nchw(xin), (pl, pr, pt, pb_))
+                w_oihw = w.permute(0, 5, 1, 4, 2, 3).reshape(
+                    co, spec.cig, spec.hf, spec.wf).to(dt)
+                b_flat = b.reshape(co).to(dt)
+                if bf16:
+                    xp = xp.contiguous(memory_format=torch.channels_last)
+                    w_oihw = w_oihw.contiguous(
+                        memory_format=torch.channels_last)
+                else:
+                    xp, w_oihw = xp.contiguous(), w_oihw.contiguous()
+
+                def lib():
+                    return F.conv2d(xp, w_oihw, b_flat, stride=s, groups=g,
+                                    dilation=d)
+
+                def fwd():
+                    return direct_conv2d_blocked(xin, w, b, s, pad, "relu",
+                                                 precision=prec, groups=g,
+                                                 dilation=d)
+                kernel, model_plan = fwd_plans(xin, w, s, pad, dtype=dt,
+                                               groups=g, dilation=d)
+                if kernel != model_plan:
+                    fail(f"{name} {prec}: the kernel's plan {kernel} != the "
+                         f"blocking model's {model_plan}")
+                if kernel.function_macs != macs:
+                    fail(f"{name} {prec}: the kernel counts "
+                         f"{kernel.function_macs} MACs, the grouped function "
+                         f"{macs}")
+                blk = fwd_launch(spec, x.shape[4], w.shape[5], 1, False,
+                                 False, dtype=dt).blk
+                k_ms, g_ms = time_ms(fwd), graph_ms(fwd)
+                l_ms, l_graph = time_ms(lib), graph_ms(lib)
+                p_ms = time_ms(lambda: direct_conv_blocked(
+                    xin, w, s, pad, b, "relu", prec, g, d), iters=3)
+                esize = 2 if bf16 else 4
+                nbytes = (esize * (x.numel() + w.numel()
+                                   + n * co * spec.ho * spec.wo)
+                          + 4 * b.numel())
+                if bf16:
+                    b_ms, b_by = bound(spec.flops(), nbytes, PEAK_BF16_FLOPS)
+                    fma = ""
+                else:
+                    b_ms, b_by, f_ms = tf32x3_bound(spec.flops(), nbytes)
+                    fma = f" [f32 FMA {f_ms:.4f}]"
+                unread = (f", window cells no tap reads "
+                          f"{100 * unread_share(blk, spec.hf, d[0]):.1f} %"
+                          if bf16 and d[0] > 1 and s == 1 else "")
+                slow = g_ms / l_graph
+                print(f"[grouped-time] {name} {prec} {spec.ci}->{co} groups "
+                      f"{g} dilation {d[0]} s{s} {spec.hi}->{spec.ho} "
+                      f"n{n}: kernel_ms {k_ms:.4f} graph_ms {g_ms:.4f} "
+                      f"plain_ms {p_ms:.4f} cuDNN ms {l_ms:.4f} "
+                      f"[{l_graph:.4f}] ({slow:.2f}x as graphs"
+                      f"{'; more than 2x cuDNN' if slow > 2 else ''}) "
+                      f"bound_ms {b_ms:.4f} ({b_by}{fma}) bound/graph "
+                      f"{b_ms / g_ms:.3f}; tiles {blk.th}x{blk.tw}, "
+                      f"{blk.wgs} consumer(s), lanes {blk.lanes} x "
+                      f"{blk.nsplit}, chunk {blk.chunk}, window "
+                      f"{blk.hwin}x{blk.wwin}, pitch {blk.pitch}, filter "
+                      f"rows a stage {blk.stage_rows(spec.hf)}; "
+                      f"MACs {macs} (1/{g} of the dense {macs * g}), issued "
+                      f"{kernel.issued_macs} ({kernel.products} a MAC; "
+                      f"padding {100 * kernel.padding_share:.1f} %), "
+                      f"shared memory {kernel.smem} B{unread}")
+                if bf16 and blk.nsplit > 2:
+                    # Cob 48/96: the chosen split (three ways or more)
+                    # lands whole weight rows by TMA; time the best two-way
+                    # split, whose weights come by 2-byte copies, beside it
+                    alt = min((kb for kb in fwd_candidates(
+                        n, spec.ho, spec.wo, spec.hf, spec.wf, s,
+                        spec.cig // x.shape[4], x.shape[4], w.shape[0],
+                        w.shape[5], H100_SXM, False, False, None, 2, d)
+                        if kb[1].nsplit <= 2), key=lambda kb: kb[0])[1]
+                    aplan = fwd_launch(spec, x.shape[4], w.shape[5], 1, False,
+                                       False, blk=alt, dtype=dt)
+                    entry = dck._lib().direct_conv2d_fwd
+
+                    def copies():
+                        err_, out_, _, _ = dck.fwd_run(entry, aplan, xin, w,
+                                                       b, None, spec)
+                        if err_:
+                            fail(f"{name}: the two-way split failed ({err_})")
+                        return out_
+                    bf16_close(f"{name} bf16, the two-way split "
+                               f"(lanes {alt.lanes} x {alt.nsplit})",
+                               copies(), fwd())
+                    a_ms = graph_ms(copies)
+                    print(f"[grouped-time] {name} bf16 Cob {w.shape[5]}: "
+                          f"{blk.nsplit} x {blk.lanes} lanes (weights by TMA) "
+                          f"{g_ms:.4f} ms against {alt.nsplit} x {alt.lanes} "
+                          f"(weights by 2-byte copies) {a_ms:.4f} ms, as "
+                          "graphs")
+                if name.startswith("alexnet.conv") and "@" not in name:
+                    for j, v in enumerate((k_ms, p_ms, b_ms, l_ms, g_ms)):
+                        sums[bf16][j] += v
+                    kinds[bf16].append((b_ms, b_by))
+        img = torch.randn((BATCH, ALEXNET_ENTRY, ALEXNET_ENTRY, 3),
+                          device=dev)
+        for bf16 in (False, True):
+            ctx = ConvContext(precision="bf16" if bf16 else "f32")
+            f_ms = time_ms(lambda: model(img, context=ctx), iters=5)
+            f_graph = graph_ms(lambda: model(img, context=ctx), iters=3)
+            k_ms, p_ms, b_ms, l_ms, g_ms = sums[bf16]
+            print(f"[grouped-time] AlexNet forward n{BATCH} "
+                  f"{ALEXNET_ENTRY}x{ALEXNET_ENTRY} "
+                  f"{'bf16' if bf16 else 'f32'}: {f_ms:.3f} ms eager, "
+                  f"{f_graph:.3f} ms as a CUDA graph; its 5 convs: kernel "
+                  f"{k_ms:.4f} ms eager, {g_ms:.4f} as graphs, plain "
+                  f"{p_ms:.4f}, cuDNN {l_ms:.4f}, bound {b_ms:.4f} "
+                  f"({100 * b_ms / g_ms:.1f} % as graphs)")
+    stamp("d")
+
+    # -- 25(e) refusals -------------------------------------------------------
+    name, x, w, b, spec, _ = cases[1]           # conv2, groups 2
+    reset_all_launches()
+    try:
+        with torch.no_grad():
+            direct_conv2d_blocked(x, w, b, spec.stride, spec.pads, "relu",
+                                  groups=2, stream=True)
+        fail("a forced stream on a grouped layer ran")
+    except ValueError as e:
+        print(f"[grouped] forced stream on {name}: ValueError ({e})")
+    wg = w.clone().requires_grad_(True)
+    try:
+        direct_conv2d_blocked(x, wg, b, spec.stride, spec.pads, "relu",
+                              groups=2)
+        fail("autograd through a grouped layer ran")
+    except NotImplementedError as e:
+        print(f"[grouped] autograd on {name}: NotImplementedError ({e})")
+    if any(all_launches().values()):
+        fail(f"a refused call launched {all_launches()}")
+    entries = []
+    for bf16 in (False, True):
+        k_ms, p_ms, b_ms, l_ms, _ = sums[bf16]
+        entries.append({
+            "name": f"{names[bf16]} ({'fwd_kernel_bf16' if bf16 else 'fwd_kernel'}"
+                    ": grouped and dilated, AlexNet)",
+            "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": TPU_KERNEL + " (grouped map :319-325)",
+            "launches": served_counts[names[bf16]],
+            "max_abs_err": max_err[bf16], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": mostly(kinds[bf16]),
+            "library_ms": l_ms})
+    print(f"[time] phase 25 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, served_counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5122,6 +5497,7 @@ def main(argv=None) -> int:
     bt_entries, bt_counts = bf16_train_phases(args, dev, t_start, model, smi)
     sb_entries, sb_counts = separable_bf16_phases(args, dev, t_start, smi,
                                                   mb_model)
+    gd_entries, gd_counts = grouped_dilated_phases(args, dev, t_start, smi)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -5132,7 +5508,7 @@ def main(argv=None) -> int:
           f"streamed route served and trained {st_counts}; VGG-16 served "
           f"in bf16 on both routes {bf_counts}; VGG-16 trained in bf16 on "
           f"both routes {bt_counts}; MobileNet v1 served and trained in "
-          f"bf16 {sb_counts}")
+          f"bf16 {sb_counts}; AlexNet served in f32 and bf16 {gd_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -5159,6 +5535,7 @@ def main(argv=None) -> int:
             e["launches"] += sb_counts.get("direct_conv2d_dz_bf16", 0)
     kernels.extend(bt_entries)
     kernels.extend(sb_entries)
+    kernels.extend(gd_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

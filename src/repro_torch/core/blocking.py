@@ -66,7 +66,7 @@ from repro_torch.core.layout import divisors
 __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "FWD_ROWS", "FWD_CONSUMERS", "FWD_THREADS", "FWD_WIDE_CONSUMERS",
            "FWD_K_STEP", "fwd_kpad", "FwdBlocking",
-           "fwd_smem_bytes", "FWD_BF16_CHUNKS", "fwd_bf16_pitch",
+           "fwd_reach", "fwd_smem_bytes", "FWD_BF16_CHUNKS", "fwd_bf16_pitch",
            "FwdBf16Layout", "fwd_bf16_layout", "FwdPlan", "fwd_plan",
            "fwd_candidates",
            "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
@@ -233,6 +233,14 @@ class FwdBlocking:
     # flattened plane rows (``fwd_bf16_pitch``), whose rows past ``tw`` are
     # computed and not stored
     pitch: int = 0
+    # the f32 tile's filter rows a stage where a stage's weights of every
+    # tap would not fit (AlexNet's 11x11 conv1); 0: every row, as the bf16
+    # build always stages them
+    frows: int = 0
+
+    def stage_rows(self, hf: int) -> int:
+        """Filter rows a stage of a filter ``hf`` rows tall."""
+        return self.frows or hf
 
     @property
     def hso(self) -> int:
@@ -247,10 +255,16 @@ class FwdBlocking:
         return self.hso * (self.pitch or self.tw)
 
 
+def fwd_reach(f: int, dilation: int) -> int:
+    """The rows (columns) a filter of ``f`` taps at ``dilation`` spans:
+    its dilated extent ``(f - 1) * dilation + 1``."""
+    return (f - 1) * dilation + 1
+
+
 def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                    chunk: int, lanes: int, wgs: int,
                    gap: bool = False, op_bytes: int = 4,
-                   strips: int = 1) -> int:
+                   strips: int = 1, dilation=(1, 1), frows: int = 0) -> int:
     """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``,
     ``fwd_tile::bf16::smem_bytes`` for ``op_bytes`` 2).
 
@@ -260,19 +274,24 @@ def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     and the weight chunk's big and small halves ``[taps * chunk /
     4][lanes][4]``; the raw weight chunk; an int a k8 step (an even count);
     the weights' 8-byte mbarrier; with ``gap`` the consumer warps' ``[4 *
-    wgs][lanes]`` f32 sums.
+    wgs][lanes]`` f32 sums.  ``frows`` (0: ``hf``) filter rows a stage:
+    its taps and the window rows they reach.
 
     bf16: ``fwd_bf16_layout``'s, ``strips`` the streamed band's strips
-    (1: the window kernel)."""
+    (1: the window kernel).  ``dilation`` ``(dh, dw)`` widens the window to
+    the filter's dilated reach (``fwd_reach``); the taps stay ``hf x
+    wf``."""
     if _fwd_k_step(op_bytes) == 16:
         return fwd_bf16_layout(th, tw, hf, wf, stride, chunk, lanes, wgs,
-                               strips, gap).smem
-    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
-    weights = hf * wf * chunk * lanes
+                               strips, gap, dilation=dilation).smem
+    frows = frows or hf
+    hwin = (th - 1) * stride + fwd_reach(frows, dilation[0])
+    wwin = (tw - 1) * stride + fwd_reach(wf, dilation[1])
+    weights = frows * wf * chunk * lanes
     red = 4 * wgs * lanes if gap else 0
     row = stride * -(-wwin // stride) * (chunk + 4)
     window = -(-hwin * row // 32) * 32
-    steps = hf * wf * chunk // 8
+    steps = frows * wf * chunk // 8
     return 128 + 8 + 4 * (2 * (window + 2 * weights) + weights
                           + -(-steps // 2) * 2 + red)
 
@@ -297,12 +316,14 @@ FWD_BF16_MAX_STRIDE = 8
 
 
 def fwd_bf16_pitch(tw: int, wf: int, stride: int, chunk: int,
-                   streamed: bool) -> int:
+                   streamed: bool, dilation: int = 1) -> int:
     """Cells from one plane row to the next in the bf16 build
-    (``fwd_tile::bf16::wpitch``): a plane's ``tw + ceil(wf / stride) - 1``
-    columns, or in the streamed kernel, whose strips' boxes land at each
-    row, that rounded up to whole 128 bytes of ``2 * chunk``-byte cells."""
-    return dgrad_bf16_wpitch(tw + -(-wf // stride) - 1, chunk, streamed)
+    (``fwd_tile::bf16::wpitch``): a plane's ``tw + (reach - 1) // stride``
+    columns (``reach`` the filter's dilated width, ``fwd_reach``), or in
+    the streamed kernel, whose strips' boxes land at each row, that rounded
+    up to whole 128 bytes of ``2 * chunk``-byte cells."""
+    return dgrad_bf16_wpitch(tw + (fwd_reach(wf, dilation) - 1) // stride,
+                             chunk, streamed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -323,17 +344,20 @@ class FwdBf16Layout:
 def fwd_bf16_layout(th: int, tw: int, hf: int, wf: int, stride: int,
                     chunk: int, lanes: int, wgs: int, strips: int = 1,
                     gap: bool = False,
-                    smem_block: int = 232448) -> FwdBf16Layout:
+                    smem_block: int = 232448,
+                    dilation=(1, 1)) -> FwdBf16Layout:
     """The carve-up of one bf16 forward CTA of ``wgs`` consumers (``strips``
     the streamed band's, 1 the window kernel's): a 1024-byte alignment, the
     window and weight slots, the mbarriers, with ``gap`` the consumer warps'
     ``[4 * wgs][lanes]`` f32 sums and a flag (``fwd_tile::bf16::smem_bytes``,
-    ``window_slots``, ``row_slots``)."""
+    ``window_slots``, ``row_slots``).  A plane spans the filter's dilated
+    reach: ``mh = (reach - 1) // stride + 1`` plane rows of taps."""
     streamed = strips > 1
     cb = 2 * chunk
     per = 128 // cb if cb < 128 else 1
-    mh, mw = -(-hf // stride), -(-wf // stride)
-    pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed)
+    mh = (fwd_reach(hf, dilation[0]) - 1) // stride + 1
+    mw = (fwd_reach(wf, dilation[1]) - 1) // stride + 1
+    pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed, dilation[1])
     plane = -(-(th + mh - 1) * pitch // per) * per
     first = (wgs - 1) * (th // strips * pitch if streamed else FWD_ROWS)
     read = first + FWD_ROWS + (mh - 1) * pitch + mw - 1
@@ -381,14 +405,18 @@ class FwdPlan:
 
 def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
              stride: int, ciblk: int, cib: int, coblk: int, cob: int,
-             gap: bool = False, op_bytes: int = 4) -> FwdPlan:
+             gap: bool = False, op_bytes: int = 4,
+             dilation=(1, 1)) -> FwdPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an ``ho
-    x wo`` output, with ``op_bytes`` operands."""
+    x wo`` output, with ``op_bytes`` operands.  ``ciblk`` is the input
+    blocks an output block contracts: a grouped conv's ``Cig/Cib``, so the
+    MACs are the grouped function's."""
     products = 3 if op_bytes == 4 else 1
     windows = rows = 2
     if products == 1:
         lay = fwd_bf16_layout(blk.th, blk.tw, hf, wf, stride, blk.chunk,
-                              blk.lanes, blk.wgs, blk.strips, gap)
+                              blk.lanes, blk.wgs, blk.strips, gap,
+                              dilation=dilation)
         windows, rows = lay.windows, lay.rows
     return FwdPlan(
         tiles=blk.tiles,
@@ -397,7 +425,8 @@ def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
                      * blk.wgs * blk.lanes * hf * wf * ciblk
                      * fwd_kpad(cib, op_bytes)),
         smem=fwd_smem_bytes(blk.th, blk.tw, hf, wf, stride, blk.chunk,
-                            blk.lanes, blk.wgs, gap, op_bytes, blk.strips),
+                            blk.lanes, blk.wgs, gap, op_bytes, blk.strips,
+                            dilation, blk.frows),
         window_slots=windows, weight_slots=rows, products=products)
 
 
@@ -427,33 +456,59 @@ def _fwd_shapes(ho: int, wo: int, wgs: int, streamed: bool,
 def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                    ciblk: int, cib: int, coblk: int, cob: int,
                    machine: MachineModel, gap: bool, streamed: bool,
-                   hso: int | None = None, op_bytes: int = 4):
+                   hso: int | None = None, op_bytes: int = 4,
+                   dilation=(1, 1)):
     """The tiles the search weighs, each as ``(key, FwdBlocking)``, the
     least key the choice (see the constants above); ties go to more rows a
     CTA, a larger chunk, fewer splits, fewer tiles, then a smaller
     window.  ``op_bytes`` 2 weighs the bf16 build
-    (``_fwd_bf16_candidates``)."""
+    (``_fwd_bf16_candidates``).  ``ciblk`` is the input blocks an output
+    block contracts (a grouped conv's ``Cig/Cib``, so the cost counts the
+    grouped MACs); ``dilation`` widens each window to the filter's dilated
+    reach."""
     if _fwd_k_step(op_bytes) == 16:
         return _fwd_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
-                                    coblk, cob, machine, gap, streamed, hso)
+                                    coblk, cob, machine, gap, streamed, hso,
+                                    dilation)
     kpad = fwd_kpad(cib)
     # powers of two: a staged cell's copies then divide the producer's 128
     # threads
     chunks = [c for c in (128, 64, 32, 16, 8) if kpad % c == 0]
-    taps = hf * wf
+    # a stage's taps are every filter row's; where no tile fits so (AlexNet's
+    # 11x11 conv1), the window kernel's stages take the most rows of a
+    # divisor of hf that fits, each within a TMA box of 256 taps
+    for frows in [hf] if streamed else [r for r in range(hf, 0, -1)
+                                         if hf % r == 0 and r * wf <= 256]:
+        out = _fwd_f32_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
+                                  coblk, cob, machine, gap, streamed, hso,
+                                  dilation, frows, chunks, kpad)
+        if out:
+            break
+    return out
+
+
+def _fwd_f32_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                        machine, gap, streamed, hso, dilation, frows, chunks,
+                        kpad):
+    """``fwd_candidates`` of the f32 tile with ``frows`` filter rows a
+    stage."""
+    st = frows * wf                     # taps a stage
     out = []
     for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
         rows = FWD_ROWS * wgs
         for th, tw in _fwd_shapes(ho, wo, wgs, streamed, hso):
             if not streamed and th * tw <= FWD_ROWS * (wgs - 1):
                 continue                  # a consumer with no row of its own
-            hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+            hwin = (th - 1) * stride + fwd_reach(hf, dilation[0])
+            wwin = (tw - 1) * stride + fwd_reach(wf, dilation[1])
+            srows = (th - 1) * stride + fwd_reach(frows, dilation[0])
             tiles = -(-ho // th) * -(-wo // tw)
             for nsplit, lanes in _fwd_splits(cob):
                 if lanes == DGRAD_LANES[-1] and wgs > FWD_WIDE_CONSUMERS:
                     continue
                 fits = [(c, fwd_smem_bytes(th, tw, hf, wf, stride, c, lanes,
-                                           wgs, gap))
+                                           wgs, gap, dilation=dilation,
+                                           frows=frows))
                         for c in chunks]
                 chunk, smem = next(((c, b) for c, b in fits
                                     if b <= machine.smem_block),
@@ -462,15 +517,15 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                     continue
                 res = 2 if wgs == 1 and 2 * smem <= FWD_SM_SMEM else 1
                 ctas = n * tiles * coblk * nsplit
-                stages = ciblk * kpad // chunk
-                mma = (3 * res * rows * taps * chunk * lanes
+                stages = ciblk * kpad // chunk * (hf // frows)
+                mma = (3 * res * rows * st * chunk * lanes
                        / DGRAD_MACS_PER_CYCLE
                        / FWD_WG_EFFICIENCY[min(FWD_CONSUMERS, wgs * res)]
-                       + FWD_STEP_CYCLES * taps * chunk // 8)
-                copies = (hwin * wwin * chunk / (4 if cib % 4 == 0 else 1)
-                          + taps * chunk * lanes / (4 if cob % 4 == 0
-                                                    else 1))
-                split = FWD_SPLIT_CYCLES * taps * chunk * lanes
+                       + FWD_STEP_CYCLES * st * chunk // 8)
+                copies = (srows * wwin * chunk / (4 if cib % 4 == 0 else 1)
+                          + st * chunk * lanes / (4 if cob % 4 == 0
+                                                  else 1))
+                split = FWD_SPLIT_CYCLES * st * chunk * lanes
                 other = FWD_STAGE_CYCLES + (
                     FWD_COPY_CYCLES * copies + split) / 128
                 rounds = -(-(-(-ctas // machine.sms)) // res)
@@ -481,7 +536,8 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                                         strips=wgs if streamed else 1,
                                         lanes=lanes, nsplit=nsplit,
                                         chunk=chunk, tiles=tiles, hwin=hwin,
-                                        wwin=wwin)))
+                                        wwin=wwin,
+                                        frows=0 if frows == hf else frows)))
     return out
 
 
@@ -534,7 +590,7 @@ FWD_BF16_TILE_CYCLES = 209
 def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                          stride: int, ciblk: int, cib: int, coblk: int,
                          cob: int, machine: MachineModel, gap: bool,
-                         streamed: bool, hso: int | None):
+                         streamed: bool, hso: int | None, dilation=(1, 1)):
     """``fwd_candidates`` of the bf16 build (see the constants above), each
     tile's ``pitch`` its flattened plane rows'; the same rules as the
     kernels' ``fwd_tile::bf16::valid``."""
@@ -542,13 +598,21 @@ def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
         return []
     kpad = fwd_kpad(cib, 2)
     taps = hf * wf
-    mh, mw = -(-hf // stride), -(-wf // stride)
+    mh = (fwd_reach(hf, dilation[0]) - 1) // stride + 1
     planes = stride * stride
+    splits = _fwd_splits(cob)
+    if all(cob % 8 or cob % min(lanes, 64) for _, lanes in splits):
+        # each split lands its weights by copies (Cob 48, 96: no TMA box of
+        # whole 64-lane rows): also narrower widths that tile Cob in whole
+        # rows, three ways or more (Cob 96 as 3 x 32 lanes)
+        splits += [(cob // n_, n_) for n_ in (16, 32, 64)
+                   if cob % n_ == 0 and cob // n_ > 2]
     out = []
     for wgs in range(2 if streamed else 1, FWD_CONSUMERS + 1):
         for chunk in (c for c in FWD_BF16_CHUNKS if kpad % c == 0):
             for tw in range(1, min(wo, FWD_ROWS * wgs) + 1):
-                pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed)
+                pitch = fwd_bf16_pitch(tw, wf, stride, chunk, streamed,
+                                       dilation[1])
                 if stride * pitch > FWD_BF16_BOX:
                     continue
                 if streamed:              # wgs strips of sh rows
@@ -568,11 +632,11 @@ def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                 if stride * box > FWD_BF16_BOX:
                     continue
                 tiles = -(-ho // th) * -(-wo // tw)
-                for nsplit, lanes in _fwd_splits(cob):
+                for nsplit, lanes in splits:
                     lay = fwd_bf16_layout(th, tw, hf, wf, stride, chunk,
                                           lanes, wgs,
                                           wgs if streamed else 1, gap,
-                                          machine.smem_block)
+                                          machine.smem_block, dilation)
                     if lay.windows < 2 or lay.rows < 2:
                         continue
                     ns = min(lay.windows, lay.rows)
@@ -602,8 +666,8 @@ def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                     cost = (-(-items // machine.sms)
                             * (stages * max(mma, copy)
                                + FWD_BF16_TILE_CYCLES))
-                    hwin = (th - 1) * stride + hf
-                    wwin = (tw - 1) * stride + wf
+                    hwin = (th - 1) * stride + fwd_reach(hf, dilation[0])
+                    wwin = (tw - 1) * stride + fwd_reach(wf, dilation[1])
                     # ties: fewer bytes staged a position, then more
                     # positions a CTA
                     out.append(((cost, staged * stages / (th * tw),
@@ -622,17 +686,19 @@ def _fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                   ciblk: int, cib: int, coblk: int, cob: int,
                   machine: MachineModel, gap: bool, streamed: bool,
                   hso: int | None, what: str,
-                  op_bytes: int = 4) -> FwdBlocking:
+                  op_bytes: int = 4, dilation=(1, 1)) -> FwdBlocking:
     """The least-cost tile of ``fwd_candidates``."""
     if ho <= 0 or wo <= 0 or n <= 0:
         raise ValueError(f"empty forward: n={n}, output {ho}x{wo}")
     found = fwd_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                           cob, machine, gap, streamed, hso, op_bytes)
+                           cob, machine, gap, streamed, hso, op_bytes,
+                           tuple(dilation))
     if not found:
         raise SmemMisfitError(
             f"no {what} fits the forward (filter {hf}x{wf}, stride {stride},"
-            f" cib={cib}, cob={cob}): needs more than {machine.smem_block} "
-            "bytes of shared memory even at one position")
+            f" dilation {tuple(dilation)}, cib={cib}, cob={cob}): needs more "
+            f"than {machine.smem_block} bytes of shared memory even at one "
+            "position")
     return min(found, key=lambda kb: kb[0])[1]
 
 
@@ -640,13 +706,18 @@ def _fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
 def choose_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                         stride: int, ciblk: int, cib: int, coblk: int,
                         cob: int, machine: MachineModel = H100_SXM,
-                        gap: bool = False, op_bytes: int = 4) -> FwdBlocking:
+                        gap: bool = False, op_bytes: int = 4,
+                        dilation=(1, 1)) -> FwdBlocking:
     """Tile the window forward of ``n`` images into an ``ho x wo`` output
     (``fwd_candidates``): a CTA stages the whole input window of its tile a
     stage; ``cib``/``cob`` are the operands' channel pencils, ``op_bytes``
-    their element size (4: the f32 tile, 2: its bf16 build)."""
+    their element size (4: the f32 tile, 2: its bf16 build).  A grouped
+    conv passes its ``Cig/Cib`` as ``ciblk`` (an output block contracts its
+    group's input blocks alone), a dilated one its ``(dh, dw)``: the window
+    spans the dilated reach.  The streamed chooser stays dense-only."""
     return _fwd_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                         machine, gap, False, None, "tile", op_bytes)
+                         machine, gap, False, None, "tile", op_bytes,
+                         tuple(dilation))
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,13 @@ dense dgrad the way the CUDA dgrad kernels split it, phase by phase against
 the stride (``core.blocking.dgrad_phase_axes``); only the tests use it, to
 hold that geometry to the reference.
 
-Grouped convolutions with more than one input channel per group raise
-``NotImplementedError``: they belong to the grouped/dilated dense slice.
+A grouped forward (``groups > 1`` with more than one input channel per
+group, weight ``[Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]``) contracts each
+group's input blocks with that group's weight blocks alone, as the
+reference's oracle does: output block ``co`` reads input blocks ``(co //
+cogblk) * cigblk + ci`` for ``ci < cigblk``.  The grouped backward (the
+dgrad and wgrad twins, ``direct_conv_dgrad_phased``) raises
+``NotImplementedError``: it is the backward half of ROADMAP item A2.
 """
 from __future__ import annotations
 
@@ -70,20 +75,25 @@ def bias_to_blocked(bias: torch.Tensor, cb_out: int) -> torch.Tensor:
 
 
 def _geometry(n: int, hi: int, wi: int, w_shape, stride: int,
-              padding: Padding, groups: int, dilation) -> ConvSpec:
-    """The spec of a conv with blocked weights of ``w_shape``: dense
-    ``[Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]`` or, with ``groups > 1``,
-    depthwise ``[C/Cb, 1, Hf, Wf, 1, Cb]``."""
+              padding: Padding, groups: int, dilation,
+              ci: Optional[int] = None) -> ConvSpec:
+    """The spec of a conv with blocked weights of ``w_shape`` over an input
+    of ``ci`` channels: dense ``[Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob]``,
+    grouped ``[Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]`` (``Cig = Ci /
+    groups``) or depthwise ``[C/Cb, 1, Hf, Wf, 1, Cb]``; ``ci`` None takes
+    it from the weight (``Cig x groups``, the depthwise ``C``)."""
     coblk, ciblk_w, hf, wf, cib_w, cob = w_shape
     co = coblk * cob
-    ci = co if groups > 1 else ciblk_w * cib_w
+    if ci is None:
+        ci = co if groups > 1 and cib_w == 1 else ciblk_w * cib_w * groups
     spec = ConvSpec.make(n, hi, wi, ci, co, hf, wf, stride=stride,
                          padding=padding, groups=groups, dilation=dilation)
     if spec.is_grouped and not spec.is_depthwise:
-        raise NotImplementedError(
-            f"groups={groups} with {spec.cig} input channels per group: "
-            "grouped convolutions arrive with the grouped/dilated slice of "
-            "the kernel zoo")
+        if spec.cig != ciblk_w * cib_w or coblk % groups:
+            raise ValueError(
+                f"a grouped weight is [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob] "
+                f"with Cig = {spec.cig} and groups={groups} dividing the "
+                f"output blocks; got {tuple(w_shape)}")
     if spec.is_depthwise and (ciblk_w, cib_w) != (1, 1):
         raise ValueError(f"a depthwise weight is [C/Cb, 1, Hf, Wf, 1, Cb]; "
                          f"got {tuple(w_shape)}")
@@ -95,17 +105,19 @@ def _geometry(n: int, hi: int, wi: int, w_shape, stride: int,
 def conv_spec(x: torch.Tensor, w: torch.Tensor, stride: int,
               padding: Padding, groups: int = 1,
               dilation=1) -> ConvSpec:
-    """The conv geometry of blocked operands, dense or depthwise; raises on
-    grouped geometry and on operands that do not chain."""
+    """The conv geometry of blocked operands, dense, grouped or depthwise;
+    raises on operands that do not chain."""
     if x.dim() != 5 or w.dim() != 6:
         raise ValueError(f"expected x [N, Ci/Cib, H, W, Cib] and w [Co/Cob, "
                          f"Ci/Cib, Hf, Wf, Cib, Cob]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}")
     n, ciblk, hi, wi, cib = x.shape
-    spec = _geometry(n, hi, wi, w.shape, stride, padding, groups, dilation)
-    # a depthwise conv keeps the map's pencil; a dense one contracts it
+    spec = _geometry(n, hi, wi, w.shape, stride, padding, groups, dilation,
+                     ciblk * cib)
+    # a depthwise conv keeps the map's pencil; a dense or grouped one
+    # contracts it, each group its own Cig/Cib blocks
     want = (w.shape[0], w.shape[5]) if spec.is_depthwise else \
-        (w.shape[1], w.shape[4])
+        (w.shape[1] * groups, w.shape[4])
     if want != (ciblk, cib):
         raise ValueError(f"weight input blocks {want} do not match the "
                          f"map's {(ciblk, cib)}")
@@ -121,15 +133,27 @@ def _acc_dtype(*tensors: torch.Tensor) -> torch.dtype:
 
 def _accumulate(x: torch.Tensor, w: torch.Tensor, spec: ConvSpec,
                 dtype: torch.dtype) -> torch.Tensor:
-    """``sum_taps x_win @ w[tap]`` (dense) or ``x_win * w[tap]`` (depthwise)
-    in ``dtype`` -> ``[N, Co/Cob, Ho, Wo, Cob]``."""
+    """``sum_taps x_win @ w[tap]`` (dense; grouped: block-diagonal, each
+    group's output blocks over its own input blocks) or ``x_win * w[tap]``
+    (depthwise) in ``dtype`` -> ``[N, Co/Cob, Ho, Wo, Cob]``."""
     xp = pad_blocked(x, *spec.pads).to(dtype)
     wd = w.to(dtype)
+    g = spec.groups
     acc = None
     for (dh, dw), win in tap_windows(xp, spec.hf, spec.wf, spec.ho, spec.wo,
                                      spec.stride, spec.dilation):
         if spec.is_depthwise:
             term = win * wd[:, 0, dh, dw, 0][None, :, None, None, :]
+        elif g > 1:
+            # [N, G, Cig/Cib, Ho, Wo, Cib] x [G, Cog/Cob, Cig/Cib, Cib, Cob]
+            #   -> [N, G, Cog/Cob, Ho, Wo, Cob]
+            n, ciblk, ho, wo, cib = win.shape
+            coblk, cigblk, _, _, _, cob = wd.shape
+            term = torch.einsum(
+                "ngchwb,gocbk->ngohwk",
+                win.reshape(n, g, cigblk, ho, wo, cib),
+                wd[:, :, dh, dw].reshape(g, coblk // g, cigblk, cib, cob),
+            ).reshape(n, coblk, ho, wo, cob)
         else:
             # [N, Ci/Cib, Ho, Wo, Cib] x [Co/Cob, Ci/Cib, Cib, Cob]
             #   -> [N, Co/Cob, Ho, Wo, Cob]
@@ -248,6 +272,11 @@ def backward_spec(n: int, hi: int, wi: int, w_shape, stride: int,
     input, checked against the cotangent ``g`` (and the saved
     pre-activation ``z``) that the backward is handed."""
     spec = _geometry(n, hi, wi, w_shape, stride, padding, groups, dilation)
+    if spec.is_grouped and not spec.is_depthwise:
+        raise NotImplementedError(
+            f"groups={groups} with {spec.cig} input channels per group: the "
+            "grouped dgrad and wgrad are the backward half of ROADMAP item "
+            "A2 (only the grouped forward is ported)")
     want = (n, w_shape[0], spec.ho, spec.wo, w_shape[5])
     if g.dim() != 5 or tuple(g.shape) != want:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != the forward's "
@@ -322,8 +351,10 @@ def direct_conv_dgrad_phased(g: torch.Tensor, w: torch.Tensor, input_hw,
     g, z, w = _cast(precision, g, z, w)
     hi, wi = input_hw
     spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
-    if spec.is_grouped:
-        raise NotImplementedError("the phase split is the dense dgrad's")
+    if spec.is_grouped or spec.dilation != (1, 1):
+        raise NotImplementedError(
+            "the phase split is the dense dgrad's: its grouped and dilated "
+            "form is the backward half of ROADMAP item A2")
     dt = _acc_dtype(g, w)
     dz = cotangent_prologue(g, z, activation).to(dt)
     wd = w.to(dt)
@@ -381,6 +412,11 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
     x, g, z = _cast(precision, x, g, z)
     n, ciblk, hi, wi, cib = x.shape
     coblk, cob = g.shape[1], g.shape[4]
+    if 1 < groups != ciblk * cib:
+        raise NotImplementedError(
+            f"groups={groups} with more than one input channel per group: "
+            "the grouped wgrad is the backward half of ROADMAP item A2 (only "
+            "the grouped forward is ported)")
     if groups > 1:
         w_shape = (coblk, 1, hf, wf, 1, cob)
     else:

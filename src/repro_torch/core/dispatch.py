@@ -39,7 +39,7 @@ from repro_torch.core.blocking import (MachineModel, SmemMisfitError,
                                        choose_stream_fwd_blocking,
                                        choose_stream_wgrad_blocking,
                                        choose_wgrad_blocking)
-from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.convspec import ConvSpec, as_dilation
 
 __all__ = ["Direction", "KernelRoute", "stream_flag", "resolve_stream",
            "route_stream"]
@@ -91,11 +91,12 @@ def resolve_stream(stream: Stream, hso: Optional[int], direction: Direction,
             raise ValueError("hso= is the streamed variant's strip height; "
                              "it cannot combine with stream=False")
         flag = True
-    dense = groups == 1 and tuple(dilation) == (1, 1)
+    dilation = as_dilation(dilation)
+    dense = groups == 1 and dilation == (1, 1)
     if flag and not dense:
         raise ValueError(
             f"the streamed halo-ring kernels are dense-only; got "
-            f"groups={groups}, dilation={tuple(dilation)}")
+            f"groups={groups}, dilation={dilation}")
     return flag if dense else False
 
 
@@ -107,12 +108,21 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     when neither fits.  ``spec`` is the forward's geometry (unpadded input,
     normalized pads); ``gap`` is the forward's fused pooling and
     ``prologue`` the backward's ``act'(z)`` (the dgrads and wgrads stage
-    ``z``); ``op_bytes`` the operand size (2: the bf16 builds)."""
+    ``z``); ``op_bytes`` the operand size (2: the bf16 builds).  Grouped or
+    dilated geometry pins the window path (the streamed kernels are
+    dense-only, as the reference's): the forward's window model is asked,
+    and its misfit raises."""
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown direction {direction!r}; have "
                          f"{DIRECTIONS}")
     n, hf, wf, s = spec.n, spec.hf, spec.wf, spec.stride
     ciblk, coblk = spec.ci // cib, spec.co // cob
+    if not spec.is_dense:
+        if direction == "fwd":
+            choose_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s,
+                                ciblk // spec.groups, cib, coblk, cob,
+                                machine, gap, op_bytes, spec.dilation)
+        return False
     if direction == "fwd":
         def window():
             return choose_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s, ciblk,

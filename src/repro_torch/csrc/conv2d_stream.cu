@@ -422,6 +422,13 @@ wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
                          mpw, splits, act, prologue, with_db, 1};
 }
 
+// Whether a forward plan's geometry is dense: groups 1, no dilation.
+bool dense_plan(const int* plan) {
+  ft::Geometry g;
+  memcpy(&g, plan, sizeof(g));
+  return g.groups == 1 && g.dil_h == 1 && g.dil_w == 1;
+}
+
 }  // namespace
 
 extern "C" {
@@ -438,11 +445,14 @@ void conv2d_stream_geometry(int* threads, int* rows, int* consumers) {
 // width, the images, the dynamic shared memory and the operand type (0:
 // f32; 1: the bf16 build, as direct_conv2d_fwd's).  Grid: (bands, Co
 // blocks x nsplit, images); the bf16 build's persistent.  GAP as
-// direct_conv2d_fwd's.
+// direct_conv2d_fwd's.  Dense only, as the reference's streamed kernels:
+// a plan with groups other than 1 or a dilation is refused
+// (cudaErrorInvalidValue).
 int conv2d_stream_conv(const void* x, const void* w, const void* bias,
                        const void* residual, void* out, void* partials,
                        void* pooled, void* counters, const int* plan,
                        void* stream) {
+  if (!dense_plan(plan)) return (int)cudaErrorInvalidValue;
   return ft::launch(kFwdTables, true, x, w, bias, residual, out, partials,
                     pooled, counters, plan, (cudaStream_t)stream);
 }
@@ -452,6 +462,7 @@ int conv2d_stream_conv(const void* x, const void* w, const void* bias,
 // tensor-core MACs issued, out[3] a CTA's shared memory, out[4] and out[5]
 // its window and weight slots.
 int conv2d_stream_conv_plan(const int* plan, long long* out) {
+  if (!dense_plan(plan)) return (int)cudaErrorInvalidValue;
   return ft::plan_of(true, plan, out);
 }
 

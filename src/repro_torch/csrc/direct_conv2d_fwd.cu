@@ -12,7 +12,10 @@
 //
 // on the paper's blocked layouts (unpadded x: the pads are zero-filled
 // copies, no padded copy of x exists), with an optional fused
-// global-average-pool (GAP) into the pooled [N, Co] features.
+// global-average-pool (GAP) into the pooled [N, Co] features; grouped
+// (`Cig > 1`: an output block contracts its group's input blocks, the
+// reference's map at :319-325) and dilated (the taps' origins strided)
+// geometry included, as fwd_tile.cuh sets out.
 //
 // `fwd_kernel<N>` is the dense forward tile of fwd_tile.cuh, one CTA per
 // (tile of th x tw output positions, output block or half of one, image):

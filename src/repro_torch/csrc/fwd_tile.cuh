@@ -78,6 +78,37 @@
 // is `chunk + 4` floats (the 4 never read), so the eight rows of a warp's A
 // load fall on eight distinct bank quads.
 //
+// Grouped and dilated geometry, both builds (the reference's
+// `_forward_windowed`, src/repro/kernels/direct_conv2d.py:286-358).  With
+// `groups` > 1 the weight is [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob], and
+// output block o_b contracts its group's cigblk = (Ci/Cib) / groups input
+// blocks alone: stage i_b reads x's block (o_b / cogblk) * cigblk + i_b
+// (`x_block`) against weight block o_b * cigblk + i_b.  Cross-group blocks
+// are never staged, so the tiles issue the grouped function's MACs (1 /
+// groups of the dense count; `plan`).  Dilation (dil_h, dil_w) widens the
+// window to the filter's dilated reach, (th - 1) s + (hf - 1) dil_h + 1
+// rows, and starts tap (dh, dw) dh dil_h rows and dw dil_w columns on: the
+// f32 tile adds that to each k8 step's A shift (`step_shifts`); the bf16
+// build reads tap t of a filter row (column) in phase plane (t d) % s,
+// (t d) / s plane rows (cells) on (`tap_phase`, `tap_shift`), so stride 2
+// with an even dilation reads one row and column phase only.  At stride 1
+// the bf16 window is one plane of th + (hf - 1) dil_h rows by tw + (wf - 1)
+// dil_w cells.  The other design, which would land each of the d x d
+// output phases' inputs as an undilated window through TMA's element
+// stride (d <= 8; not at DeepLab-LargeFOV's fc6, d = 12), was not built:
+// this one serves both, and at fc6 two thirds of its window's cells are
+// read by no tap (PERF.md, PR 31).  Where a stage's weights of every tap do
+// not fit one CTA (AlexNet's 11x11 conv1), the f32 tile's stages take
+// `frows` filter rows each, and the window the rows they reach.  The
+// streamed kernels stay dense-only: their C entry refuses such a plan.
+// What bounds the new widths on this card (H100 80GB HBM3 at 700 W,
+// PERF.md, PR 31): Cob 48 and 96 take no 64-lane TMA row, so the bf16
+// chooser splits them 3 x 16 and 3 x 32 lanes, whose rows land by TMA (the
+// two-way splits' 2-byte weight copies ran 1.3x and 2.6x slower); Cib 3 at
+// stride 4 (conv1) lands its 16 phase planes by copies (2.61x cuDNN bf16),
+// and the f32 tile issues 12.4x conv1's MACs (Cib padded to 8, 48 lanes to
+// 64, a stage a filter row).
+//
 // Epilogue: the reference's order (+ b, activation, + r, one store); with
 // GAP each CTA writes its tile's sums of the stored values (a thread's two
 // rows, a warp's eight row groups by shuffles, then the consumer warps in
@@ -150,6 +181,10 @@ struct Geometry {
   int chunk;                        // Cib channels a stage (8, 16, ... 128)
   int act;                          // 0 linear, 1 relu, 2 gelu
   int gap;                          // 1: write the tile's GAP sums
+  int groups;                       // channel groups (1: dense)
+  int dil_h, dil_w;                 // filter dilation
+  int frows;                        // filter rows a stage (f32 tile; hf
+                                    // unless a stage's taps do not fit)
 };
 constexpr int kGeometryInts = sizeof(Geometry) / sizeof(int);
 
@@ -157,13 +192,49 @@ __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; 
 
 __host__ __device__ inline int taps(const Geometry& g) { return g.hf * g.wf; }
 
+// The grouped map: an output block contracts its group's cigblk input
+// blocks alone, x's block (o_b / cogblk) * cigblk + i_b against the weight
+// block (o_b, i_b) of [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob].
+__host__ __device__ inline int cigblk(const Geometry& g) {
+  return g.ciblk / g.groups;
+}
+__host__ __device__ inline int x_block(const Geometry& g, int o_b, int i_b) {
+  return o_b / (g.coblk / g.groups) * cigblk(g) + i_b;
+}
+
+// The dilated reach of the filter along H and W: tap (dh, dw) reads input
+// (s oh + dh dil_h - pt, s ow + dw dil_w - pl).
+__host__ __device__ inline int hreach(const Geometry& g) {
+  return (g.hf - 1) * g.dil_h + 1;
+}
+__host__ __device__ inline int wreach(const Geometry& g) {
+  return (g.wf - 1) * g.dil_w + 1;
+}
+
+// Whether the grouped and dilated fields make sense.
+__host__ inline bool valid_map(const Geometry& g) {
+  return g.groups >= 1 && g.ciblk % g.groups == 0 && g.coblk % g.groups == 0
+         && g.dil_h >= 1 && g.dil_w >= 1 && g.frows >= 1
+         && g.hf % g.frows == 0;
+}
+
+// The f32 tile's taps a stage: `frows` filter rows of wf taps (all of them
+// unless a stage's weights would not fit, AlexNet's 11x11 conv1), and the
+// stages a (block, chunk) takes for the whole filter.
+__host__ __device__ inline int stage_taps(const Geometry& g) {
+  return g.frows * g.wf;
+}
+__host__ __device__ inline int row_groups(const Geometry& g) {
+  return g.hf / g.frows;
+}
+
 // Cib rounded up to the k8 slices of the contraction.
 __host__ __device__ inline int kpad(const Geometry& g) {
   return ceil_div(g.cib, 8) * 8;
 }
 
 __host__ __device__ inline int stages(const Geometry& g) {
-  return g.ciblk * (kpad(g) / g.chunk);
+  return cigblk(g) * (kpad(g) / g.chunk) * row_groups(g);
 }
 
 __host__ __device__ inline int hso(const Geometry& g) {
@@ -176,12 +247,14 @@ __host__ __device__ inline int mstride(const Geometry& g) {
   return g.strips == 1 ? kRows * g.wgs : hso(g) * g.tw;
 }
 
+// a stage's window: the rows its frows filter rows reach, the columns the
+// whole filter reaches
 __host__ __device__ inline int hwin(const Geometry& g) {
-  return (g.th - 1) * g.stride + g.hf;
+  return (g.th - 1) * g.stride + (g.frows - 1) * g.dil_h + 1;
 }
 
 __host__ __device__ inline int wwin(const Geometry& g) {
-  return (g.tw - 1) * g.stride + g.wf;
+  return (g.tw - 1) * g.stride + wreach(g);
 }
 
 // cells of one column phase of a window row
@@ -203,12 +276,12 @@ __host__ __device__ inline int window_floats(const Geometry& g) {
 }
 
 __host__ __device__ inline int weight_floats(const Geometry& g, int lanes) {
-  return taps(g) * g.chunk * lanes;
+  return stage_taps(g) * g.chunk * lanes;
 }
 
-// k8 steps of a stage: taps x chunk / 8
+// k8 steps of a stage: its taps x chunk / 8
 __host__ __device__ inline int steps(const Geometry& g) {
-  return taps(g) * g.chunk / 8;
+  return stage_taps(g) * g.chunk / 8;
 }
 
 __host__ __device__ inline int tiles(const Geometry& g) {
@@ -235,17 +308,19 @@ __host__ __device__ inline bool tma_weights(const Geometry& g) {
 
 // What a launch at wgmma width `lanes` runs over n images (core/blocking.py
 // `fwd_plan` is its Python twin): out[0] the grid's tiles (an image's, a
-// lane split's), out[1] the function's MACs (positions x taps x Ci x Co),
-// out[2] the tensor-core MACs the tiles issue: every CTA's 64 * wgs rows by
-// `lanes` over every tap and Cib padded to k8 slices, three products each.
+// lane split's), out[1] the function's MACs (positions x taps x Cig x Co:
+// a grouped conv's are 1/groups of the dense count), out[2] the
+// tensor-core MACs the tiles issue: every CTA's 64 * wgs rows by `lanes`
+// over every tap and its group's Cib padded to k8 slices, three products
+// each.
 __host__ inline void plan(const Geometry& g, int n, int lanes,
                           long long* out) {
   const long long t = tiles(g);
   out[0] = t;
-  out[1] = (long long)n * g.ho * g.wo * taps(g) * g.ciblk * g.cib * g.coblk
+  out[1] = (long long)n * g.ho * g.wo * taps(g) * cigblk(g) * g.cib * g.coblk
            * g.cob;
   out[2] = (long long)n * t * g.coblk * g.nsplit * kRows * g.wgs * lanes
-           * taps(g) * g.ciblk * kpad(g) * 3;
+           * taps(g) * cigblk(g) * kpad(g) * 3;
 }
 
 // ---------------------------------------------------------------------------
@@ -323,15 +398,16 @@ __device__ __forceinline__ int cell_of(const Geometry& g, int j, int ph) {
   return (j % g.stride) * ph + j / g.stride;
 }
 
-// Issue window rows [lo, hi) for channels [c0, c0 + chunk) of input block
-// i_b of image n: window row r is input row h0 + r, column j input column
-// w0 + j (the tile's origin times the stride, less the leading pads), each
+// Issue window rows [lo, hi) for channels [c0, c0 + chunk) of x's input
+// block x_b of image n: window row r is input row h0 + r, column j input
+// column w0 + j (the tile's origin times the stride, less the leading pads,
+// plus the stage's first filter row's dilated offset), each
 // cell landing at its column phase's place (the producer's 128 threads,
 // `tid`).  A cell's copies (the chunk, a power of two, in units of 4 or 1
 // floats) divide 128, so a thread keeps one channel offset and steps its
 // (row, column) by a fixed stride, with no division a copy.
 __device__ inline void issue_rows(float* win, const float* __restrict__ x,
-                                  const Geometry& g, int n, int i_b, int c0,
+                                  const Geometry& g, int n, int x_b, int c0,
                                   int h0, int w0, int lo, int hi, int tid) {
   const bool vec = g.cib % 4 == 0;
   const int unit = vec ? 4 : 1;
@@ -342,7 +418,7 @@ __device__ inline void issue_rows(float* win, const float* __restrict__ x,
   const int ph = wph(g);
   const int valid_c = min(g.chunk, g.cib - c0);
   const int cells = (hi - lo) * ww;
-  const float* xb = x + (size_t)(n * g.ciblk + i_b) * g.hi * g.wi * g.cib
+  const float* xb = x + (size_t)(n * g.ciblk + x_b) * g.hi * g.wi * g.cib
                     + c0;
   const int step = kWarpgroup / per_cell;       // cells a pass
   const int dr = step / ww, dj = step - dr * ww;
@@ -366,19 +442,21 @@ __device__ inline void issue_rows(float* win, const float* __restrict__ x,
 }
 
 // Issue the stage's raw weights: raw[(tap * chunk + k) * N + l] = w[o_b,
-// i_b, tap, c0 + k, o0 + l], zero past Cib and past Cob.  With a tensor map
-// one TMA copy of the box [taps][chunk][N] (thread 0, onto m.wbar); else
-// cp.async, a thread keeping one lane offset (a row's copies divide 128)
-// and walking taps and channels.
+// i_b, t0 + tap, c0 + k, o0 + l] (t0 the stage's first tap), zero past Cib
+// and past Cob.  With a tensor map one TMA copy of the box [stage
+// taps][chunk][N] (thread 0, onto m.wbar); else cp.async, a thread keeping
+// one lane offset (a row's copies divide 128) and walking taps and
+// channels.
 template <int N>
 __device__ inline void issue_weights(const Smem& m, const CUtensorMap* tmw,
                                      const float* __restrict__ w,
                                      const Geometry& g, int o_b, int i_b,
-                                     int c0, int o0, int tid) {
+                                     int c0, int o0, int t0, int tid) {
+  const int wblk = o_b * cigblk(g) + i_b;
   if (tma_weights(g)) {
     if (tid == 0) {
       dt::mbar_expect_tx(m.wbar, weight_floats(g, N) * 4);
-      dt::tma_load_4d(m.raw, tmw, m.wbar, o0, c0, 0, o_b * g.ciblk + i_b);
+      dt::tma_load_4d(m.raw, tmw, m.wbar, o0, c0, t0, wblk);
     }
     return;
   }
@@ -390,9 +468,9 @@ __device__ inline void issue_weights(const Smem& m, const CUtensorMap* tmw,
   const int l = tid % per_row * unit;
   const int valid_k = min(g.chunk, g.cib - c0);
   const bool lane_ok = l < min(N, g.cob - o0);
-  const float* wb = w + ((size_t)(o_b * g.ciblk + i_b) * taps(g) * g.cib
-                         + c0) * g.cob + o0 + l;
-  for (int tap = 0; tap < taps(g); ++tap) {
+  const float* wb = w + (((size_t)wblk * taps(g) + t0) * g.cib + c0) * g.cob
+                   + o0 + l;
+  for (int tap = 0; tap < stage_taps(g); ++tap) {
     for (int k = tid / per_row; k < g.chunk; k += step) {
       const bool ok = lane_ok && k < valid_k;
       const float* src = ok ? wb + ((size_t)tap * g.cib + k) * g.cob : w;
@@ -414,7 +492,7 @@ __device__ inline void split_weights(const Smem& m, int slot,
   };
   float4* big = reinterpret_cast<float4*>(m.big_of(slot));
   float4* small = reinterpret_cast<float4*>(m.small_of(slot));
-  for (int u = tid; u < taps(g) * g.chunk / 4 * N; u += kWarpgroup) {
+  for (int u = tid; u < stage_taps(g) * g.chunk / 4 * N; u += kWarpgroup) {
     const int q = u / N;
     const int l = u - q * N;
     const float* r = m.raw + 4 * q * N + l;
@@ -429,8 +507,10 @@ __device__ inline void split_weights(const Smem& m, int slot,
   }
 }
 
-// The A shift of each k8 step j (slice j % slices of tap j / slices), in
-// floats from the row's offset (every thread of the CTA).
+// The A shift of each k8 step j (slice j % slices of the stage's tap j /
+// slices), in floats from the row's offset (every thread of the CTA): tap
+// (dh, dw) of the stage's filter rows starts dh dil_h window rows and dw
+// dil_w columns on, the column at its stride phase's cell.
 __device__ inline void step_shifts(int* shifts, const Geometry& g) {
   const int slices = g.chunk / 8;
   const int rf = row_floats(g);
@@ -439,8 +519,9 @@ __device__ inline void step_shifts(int* shifts, const Geometry& g) {
   for (int j = threadIdx.x; j < steps(g); j += blockDim.x) {
     const int tap = j / slices;
     const int dh = tap / g.wf;
-    const int dw = tap - dh * g.wf;
-    shifts[j] = dh * rf + ((dw % g.stride) * ph + dw / g.stride) * ld
+    const int col = (tap - dh * g.wf) * g.dil_w;
+    shifts[j] = dh * g.dil_h * rf
+                + ((col % g.stride) * ph + col / g.stride) * ld
                 + (j - tap * slices) * 8;
   }
 }
@@ -471,17 +552,24 @@ __device__ void produce(const Smem& m, const CUtensorMap* tmw,
   const int tid = threadIdx.x - g.wgs * kWarpgroup;
   const int nth = blockDim.x;
   const int pair = g.strips == 1 ? nth : 2 * kWarpgroup;
-  const int per_block = kpad(g) / g.chunk;
+  const int rgs = row_groups(g);
+  const int per_block = kpad(g) / g.chunk * rgs;
   const int count = stages(g);
+  // stage s: (input block, chunk, filter rows), the filter rows fastest
   auto issue = [&](int s) {
     const int i_b = s / per_block;
-    const int c0 = (s - i_b * per_block) * g.chunk;
+    const int rem = s - i_b * per_block;
+    const int c0 = rem / rgs * g.chunk;
+    const int r0 = rem % rgs * g.frows;
     float* win = m.win_of(s % kSlots);
     for (int k = 0; k < g.strips; ++k) {
-      if (k == 0) issue_weights<N>(m, tmw, w, g, o_b, i_b, c0, o0, tid);
+      if (k == 0) {
+        issue_weights<N>(m, tmw, w, g, o_b, i_b, c0, o0, r0 * g.wf, tid);
+      }
       int lo, hi;
       group_rows(g, k, lo, hi);
-      issue_rows(win, x, g, n, i_b, c0, h0, w0, lo, hi, tid);
+      issue_rows(win, x, g, n, x_block(g, o_b, i_b), c0, h0 + r0 * g.dil_h,
+                 w0, lo, hi, tid);
       cp_async_commit();
     }
   };
@@ -864,7 +952,7 @@ __host__ __device__ inline int kpad(const Geometry& g) {
 }
 
 __host__ __device__ inline int stages(const Geometry& g) {
-  return g.ciblk * (bf16::kpad(g) / g.chunk);
+  return cigblk(g) * (bf16::kpad(g) / g.chunk);
 }
 
 // A filter row's weights lie as w does, Cob contiguous (MN-major): a tap's
@@ -898,12 +986,22 @@ __host__ __device__ inline int planes(const Geometry& g) {
   return g.stride * g.stride;
 }
 
-// the most taps a plane takes along each axis
+// the plane rows (columns) from a plane's first tap to its farthest, plus
+// one: the dilated reach over the stride
 __host__ __device__ inline int mh(const Geometry& g) {
-  return ceil_div(g.hf, g.stride);
+  return (hreach(g) - 1) / g.stride + 1;
 }
 __host__ __device__ inline int mw(const Geometry& g) {
-  return ceil_div(g.wf, g.stride);
+  return (wreach(g) - 1) / g.stride + 1;
+}
+
+// Where tap t of a filter row (column) at dilation d lands in the phase
+// planes: plane phase (t d) % s, (t d) / s plane rows (cells) on.
+__host__ __device__ inline int tap_phase(const Geometry& g, int t, int d) {
+  return t * d % g.stride;
+}
+__host__ __device__ inline int tap_shift(const Geometry& g, int t, int d) {
+  return t * d / g.stride;
 }
 
 // a plane's rows and columns: the tile's and the taps' reach
@@ -1018,7 +1116,8 @@ __host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
 // swizzle row dividing the padded Cib, boxes within TMA's 256 elements an
 // index, two slots or more in each ring.
 __host__ inline bool valid(const Geometry& g, int lanes) {
-  if (lane_slot(lanes) < 0 || g.wgs < 1 || g.wgs > kMaxConsumers
+  if (!valid_map(g) || g.frows != g.hf || lane_slot(lanes) < 0 || g.wgs < 1
+      || g.wgs > kMaxConsumers
       || (g.chunk != 16 && g.chunk != 32 && g.chunk != 64)
       || bf16::kpad(g) % g.chunk != 0 || g.th < 1 || g.tw < 1
       || g.stride < 1 || g.stride > kMaxStride || g.hf < 1 || g.wf < 1
@@ -1042,18 +1141,19 @@ __host__ inline bool valid(const Geometry& g, int lanes) {
 }
 
 // What a launch runs (core/blocking.py fwd_plan at op_bytes 2): out[0] an
-// image's tiles, out[1] the function's MACs, out[2] the tensor-core MACs
-// the items issue (every consumer's 64 m-tile rows by `lanes` over every
-// tap and Cib padded to k16 slices, one product each), out[3] a CTA's
-// shared memory, out[4] and out[5] its window and weight slots.
+// image's tiles, out[1] the function's MACs (a grouped conv's: over its
+// group's Cig), out[2] the tensor-core MACs the items issue (every
+// consumer's 64 m-tile rows by `lanes` over every tap and the group's Cib
+// padded to k16 slices, one product each), out[3] a CTA's shared memory,
+// out[4] and out[5] its window and weight slots.
 __host__ inline void plan(const Geometry& g, int n, int lanes,
                           long long* out) {
   const long long t = tiles(g);
   out[0] = t;
-  out[1] = (long long)n * g.ho * g.wo * taps(g) * g.ciblk * g.cib * g.coblk
+  out[1] = (long long)n * g.ho * g.wo * taps(g) * cigblk(g) * g.cib * g.coblk
            * g.cob;
   out[2] = (long long)n * t * g.coblk * g.nsplit * kRows * g.wgs * lanes
-           * taps(g) * g.ciblk * bf16::kpad(g);
+           * taps(g) * cigblk(g) * bf16::kpad(g);
   out[3] = (long long)bf16::smem_bytes(g, lanes);
   out[4] = window_slots(g, lanes);
   out[5] = row_slots(g, lanes);
@@ -1101,12 +1201,12 @@ __device__ __forceinline__ int group_bytes(const Geometry& g, int lo,
 }
 
 // Issue plane rows [lo, hi) of every plane for channels [c0, c0 + chunk) of
-// input block i_b of image n (lane `lane` of `lanes` taking every lanes-th
-// box): plane (ph, pw) row r is input row h0 + ph + s r from column w0 +
-// pw, every s-th column, wpitch of them; boxes of box_rows rows, the last
-// moved back to end at `hi`.
+// x's input block x_b of image n (lane `lane` of `lanes` taking every
+// lanes-th box): plane (ph, pw) row r is input row h0 + ph + s r from
+// column w0 + pw, every s-th column, wpitch of them; boxes of box_rows
+// rows, the last moved back to end at `hi`.
 __device__ void issue_window(const CUtensorMap* tmx, char* win, uint64_t* bar,
-                             const Geometry& g, int n, int i_b, int c0,
+                             const Geometry& g, int n, int x_b, int c0,
                              int h0, int w0, int lo, int hi, int lane,
                              int lanes) {
   const int br = box_rows(g);
@@ -1117,7 +1217,7 @@ __device__ void issue_window(const CUtensorMap* tmx, char* win, uint64_t* bar,
     const int p = i / boxes;
     const int r = min(lo + (i - p * boxes) * br, hi - br);
     dt::tma_load_5d(win + p * pb + r * rb, tmx, bar, c0,
-                    w0 + p % g.stride, h0 + p / g.stride + g.stride * r, i_b,
+                    w0 + p % g.stride, h0 + p / g.stride + g.stride * r, x_b,
                     n);
   }
 }
@@ -1136,14 +1236,14 @@ __device__ __forceinline__ void st_v4(uint32_t dst, const uint32_t (&v)[4]) {
 // piece's eight in flight at once), zeros outside the map and past the
 // pencil, the cell stored as its 16-byte pieces at their swizzled places.
 __device__ void copy_window(const bf* __restrict__ x, char* win,
-                            const Geometry& g, int n, int i_b, int c0,
+                            const Geometry& g, int n, int x_b, int c0,
                             int h0, int w0, int lo, int hi, int tid) {
   const int cb = cell_bytes(g);
   const int wp = wpitch(g);
   const int pb = plane_cells(g) * cb;
   const int per_plane = (hi - lo) * wp;
   const int valid_c = min(g.chunk, g.cib - c0);
-  const size_t map = (size_t)(n * g.ciblk + i_b) * g.hi * g.wi;
+  const size_t map = (size_t)(n * g.ciblk + x_b) * g.hi * g.wi;
   const unsigned short* x16 = reinterpret_cast<const unsigned short*>(x);
   const uint32_t base = dt::smem_u32(win);
   for (int i = tid; i < planes(g) * per_plane; i += kWarpgroup) {
@@ -1178,7 +1278,8 @@ __device__ void copy_window(const bf* __restrict__ x, char* win,
 
 // Issue the weights of filter row dh of a stage (thread 0): one TMA box of
 // [wf][N / nin][chunk][nin] (b_lanes), element (j, q, k, e) = w[o_b, i_b,
-// dh, j, c0 + k, o0 + nin q + e], zeros past Cib.
+// dh, j, c0 + k, o0 + nin q + e], zeros past Cib; the weight's input blocks
+// are its group's, Cig/Cib of them.
 template <int N>
 __device__ __forceinline__ void issue_row_weights(const CUtensorMap* tmw,
                                                   char* dst, uint64_t* bar,
@@ -1186,7 +1287,7 @@ __device__ __forceinline__ void issue_row_weights(const CUtensorMap* tmw,
                                                   int i_b, int dh, int c0,
                                                   int o0) {
   dt::tma_load_5d(dst, tmw, bar, 0, c0, o0 / b_lanes(N), dh * g.wf,
-                  o_b * g.ciblk + i_b);
+                  o_b * cigblk(g) + i_b);
 }
 
 // The byte of weight (tap j, lane l, channel k) in a row slot at `base`, as
@@ -1209,8 +1310,8 @@ __device__ void copy_row_weights(const bf* __restrict__ w, char* dst,
                                  int c0, int o0, int tid) {
   const int valid_k = min(g.chunk, g.cib - c0);
   const unsigned short* wb = reinterpret_cast<const unsigned short*>(w)
-      + ((size_t)((o_b * g.ciblk + i_b) * taps(g) + dh * g.wf) * g.cib + c0)
-            * g.cob + o0;
+      + ((size_t)((o_b * cigblk(g) + i_b) * taps(g) + dh * g.wf) * g.cib
+         + c0) * g.cob + o0;
   const uint32_t base = dt::smem_u32(dst);
   const int total = g.wf * N * g.chunk;
   for (int i0 = tid; i0 < total; i0 += kWarpgroup * kLoadBatch) {
@@ -1275,7 +1376,8 @@ __device__ __forceinline__ void mma_row(float (&acc)[N / 2], uint32_t a,
 }
 
 // The same for any tap count (a filter wider than 3 taps): a loop over the
-// row's taps, S straight-line steps a tap; tap j at plane j % s, cell j / s.
+// row's taps, S straight-line steps a tap; tap j at plane (j dil_w) % s,
+// cell (j dil_w) / s.
 template <int N, int S>
 __device__ __forceinline__ void mma_row_any(float (&acc)[N / 2], uint32_t a,
                                             uint32_t b, const Geometry& g,
@@ -1284,7 +1386,8 @@ __device__ __forceinline__ void mma_row_any(float (&acc)[N / 2], uint32_t a,
   constexpr int cb = 32 * S;
   dt::wgmma_fence();
   for (int j = 0; j < g.wf; ++j) {
-    const uint32_t aj = a + (j % g.stride) * pb + (j / g.stride) * cb;
+    const uint32_t aj = a + tap_phase(g, j, g.dil_w) * pb
+                        + tap_shift(g, j, g.dil_w) * cb;
 #pragma unroll
     for (int k = 0; k < S; ++k) {
       db::wgmma_ss<N, 1>(acc, db::desc_at(adesc, aj + 32 * k),
@@ -1639,13 +1742,14 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
             }
             __syncwarp();
             for (int k = 0; k < groups; ++k) {
-              issue_window(tmx, win(ws), &full[k], g, it.n, i_b, c0, h0, w0,
-                           lo_of(k), hi_of(k), tid, 32);
+              issue_window(tmx, win(ws), &full[k], g, it.n,
+                           x_block(g, it.o_b, i_b), c0, h0, w0, lo_of(k),
+                           hi_of(k), tid, 32);
             }
           }
         } else {                      // every producer thread copies
-          copy_window(x, win(ws), g, it.n, i_b, c0, h0, w0, 0,
-                      hi_of(groups - 1), tid);
+          copy_window(x, win(ws), g, it.n, x_block(g, it.o_b, i_b), c0, h0,
+                      w0, 0, hi_of(groups - 1), tid);
           dt::fence_proxy_async();    // the stores, for wgmma's reads
           for (int k = 0; k < groups; ++k) {
             db::mbar_arrive(&m.wready[ws * kMaxGroups + k]);
@@ -1679,10 +1783,12 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
   const uint32_t cb = cell_bytes(g);
   const uint32_t pb = plane_cells(g) * cb;
   const uint32_t rb = wpitch(g) * cb;
-  // the offsets of taps 1 and 2 of a filter row: the next plane, or the
-  // next cell
-  const uint32_t t1 = (1 % g.stride) * pb + (1 / g.stride) * cb;
-  const uint32_t t2 = (2 % g.stride) * pb + (2 / g.stride) * cb;
+  // the offsets of taps 1 and 2 of a filter row: dil_w and 2 dil_w columns
+  // on, each in its column phase's plane
+  const uint32_t t1 = tap_phase(g, 1, g.dil_w) * pb
+                      + tap_shift(g, 1, g.dil_w) * cb;
+  const uint32_t t2 = tap_phase(g, 2, g.dil_w) * pb
+                      + tap_shift(g, 2, g.dil_w) * cb;
   const uint32_t row0 = first_row(g, c) * cb;
   const uint64_t adesc = db::desc_of(cb);
   const uint64_t bdesc = b_desc<N>(g.chunk);
@@ -1706,10 +1812,11 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
       for (int r = 0; r < g.hf; ++r, ++gr) {
         const int rs = gr % nr;
         dt::mbar_wait(&m.rfull[rs], (gr / nr) & 1);
-        // filter row r reads plane row phase r % s, r / s plane rows on
+        // filter row r reads row phase (r dil_h) % s, (r dil_h) / s plane
+        // rows on
         mma_filter_row<N>(acc,
-                          a0 + (r % g.stride) * g.stride * pb
-                              + (r / g.stride) * rb,
+                          a0 + tap_phase(g, r, g.dil_h) * g.stride * pb
+                              + tap_shift(g, r, g.dil_h) * rb,
                           dt::smem_u32(wrow(rs)), g, t1, t2, pb, adesc,
                           bdesc);
         if (s > 0 || r > 0) {
@@ -1737,7 +1844,7 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
 inline bool encode_weights(CUtensorMap* tmw, const void* w, const Geometry& g,
                            int lanes) {
   const int nin = b_lanes(lanes);
-  const long long cob = g.cob, blocks = (long long)g.coblk * g.ciblk;
+  const long long cob = g.cob, blocks = (long long)g.coblk * cigblk(g);
   const long long dims[5] = {nin, g.cib, cob / nin, taps(g), blocks};
   const long long strides[4] = {cob * 2, nin * 2, g.cib * cob * 2,
                                 taps(g) * g.cib * cob * 2};
@@ -1797,7 +1904,8 @@ inline cudaError_t allow_smem(const void* kernel, int slot, int bytes) {
 // `streamed` asks for bands of two or three strips of at most 64 positions,
 // else one m-tile of 64 * wgs rows holding the tile.
 __host__ inline bool valid(const Geometry& g, int lanes, bool streamed) {
-  if (lane_slot(lanes) < 0 || g.wgs < 1
+  if (!valid_map(g) || stage_taps(g) > 256 || lane_slot(lanes) < 0
+      || g.wgs < 1
       || kWarpgroup * (g.wgs + 1) > max_threads(lanes)
       || g.chunk < 8 || (g.chunk & (g.chunk - 1)) != 0
       || kpad(g) % g.chunk != 0
@@ -1807,7 +1915,7 @@ __host__ inline bool valid(const Geometry& g, int lanes, bool streamed) {
     return false;
   if (streamed) {
     return g.strips == g.wgs && g.wgs >= 2 && g.th % g.strips == 0
-           && hso(g) * g.tw <= kRows;
+           && hso(g) * g.tw <= kRows && g.frows == g.hf;
   }
   return g.strips == 1 && g.th * g.tw <= kRows * g.wgs;
 }
@@ -1849,11 +1957,11 @@ __host__ inline size_t smem_of(const Plan& p) {
 // block's [taps][chunk][lanes].  -> false where the encoder refuses it.
 inline bool encode_weights(CUtensorMap* tmw, const void* w, const Plan& p) {
   const Geometry& g = p.g;
-  const long long cob = g.cob, blocks = (long long)g.coblk * g.ciblk;
+  const long long cob = g.cob, blocks = (long long)g.coblk * cigblk(g);
   const long long dims[4] = {cob, g.cib, taps(g), blocks};
   const long long strides[3] = {cob * 4, g.cib * cob * 4,
                                 taps(g) * g.cib * cob * 4};
-  const int box[4] = {p.lanes, g.chunk, taps(g), 1};
+  const int box[4] = {p.lanes, g.chunk, stage_taps(g), 1};
   return dt::encode(tmw, w, 4, dims, strides, box);
 }
 

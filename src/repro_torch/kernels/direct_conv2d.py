@@ -354,14 +354,24 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
                           residual: Optional[torch.Tensor] = None,
                           gap: bool = False, precision=F32, *,
                           stream: Stream = None, hso: Optional[int] = None,
-                          machine: MachineModel = H100_SXM) -> torch.Tensor:
+                          machine: MachineModel = H100_SXM,
+                          groups: int = 1, dilation=1) -> torch.Tensor:
     """Blocked direct convolution with the fused epilogue, differentiable.
 
-    x: ``[N, Ci/Cib, Hi, Wi, Cib]``; w: ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
-    Cob]``; bias: ``[Co/Cob, Cob]`` or None; residual: ``[N, Co/Cob, Ho,
-    Wo, Cob]`` or None, added after the activation -> the output map, or
-    with ``gap=True`` the pooled ``[N, Co]`` features.  ``padding`` is
-    TF-SAME aware; on CUDA the pads are masked loads, never a padded copy.
+    x: ``[N, Ci/Cib, Hi, Wi, Cib]``; w: ``[Co/Cob, Cig/Cib, Hf, Wf, Cib,
+    Cob]`` (``Cig = Ci / groups``; dense at ``groups`` 1); bias: ``[Co/Cob,
+    Cob]`` or None; residual: ``[N, Co/Cob, Ho, Wo, Cob]`` or None, added
+    after the activation -> the output map, or with ``gap=True`` the pooled
+    ``[N, Co]`` features.  ``padding`` is TF-SAME aware (against the dilated
+    filter); on CUDA the pads are masked loads, never a padded copy.
+
+    Grouped (``groups > 1``) and dilated geometry runs the window kernel,
+    as the reference's ``_forward_windowed``: output block ``co`` contracts
+    its group's input blocks ``(co // cogblk) * cigblk + ci`` alone, and tap
+    ``(dh, dw)`` starts ``(dh * dil_h, dw * dil_w)`` on.  A forced stream
+    raises ``ValueError`` (the streamed kernels are dense-only), and so far
+    only the forward exists: with grad mode on and an operand that requires
+    grad such geometry raises ``NotImplementedError`` on every device.
 
     With grad mode on and an operand that requires grad the call goes
     through ``BlockedConvFunction`` (the training path: the f32 policy, or
@@ -371,7 +381,7 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     ``hso`` route it between the window and the streamed kernels (module
     docstring); ``machine`` is the model their tiles are fitted to.
     """
-    spec = conv_spec(x, w, stride, padding)
+    spec = conv_spec(x, w, stride, padding, groups, dilation)
     _check_activation(activation)
     check_machine(machine)
     n, coblk, cob = x.shape[0], w.shape[0], w.shape[5]
@@ -386,6 +396,12 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     op_bytes = op_dtype.itemsize
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
+        if not spec.is_dense:
+            raise NotImplementedError(
+                f"groups={spec.groups}, dilation={spec.dilation}: only the "
+                "forward of grouped and dilated geometry is ported; its dgrad "
+                "and wgrad are the backward half of ROADMAP item A2.  Call it "
+                "under torch.no_grad()")
         policy = training_policy(precision)
         route = _resolve_route(stream, hso, spec, x.shape[4], cob, machine,
                               activation, policy.operand_itemsize)
@@ -401,11 +417,12 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
         # the window model's checks, as on the card; the GAP pooled over its
         # tiles in the kernel's order
         blk = choose_fwd_blocking(n, spec.ho, spec.wo, spec.hf, spec.wf,
-                                  spec.stride, spec.ci // x.shape[4],
+                                  spec.stride, spec.cig // x.shape[4],
                                   x.shape[4], coblk, cob, machine, gap,
-                                  op_bytes)
+                                  op_bytes, spec.dilation)
         out = direct_conv_blocked(x, w, stride, padding, bias, activation,
-                                  precision, residual=residual)
+                                  precision, groups, dilation,
+                                  residual=residual)
         return gap_replay(out, blk) if gap else out
     return _fwd_cuda(x, w, bias, residual, spec, activation, gap, machine,
                      build_dtype(precision))
@@ -415,8 +432,10 @@ def _routed(direction: str, stream: Stream, hso: Optional[int],
             spec: ConvSpec, cib: int, cob: int, machine: MachineModel,
             gap: bool = False, prologue: bool = False,
             op_bytes: int = 4) -> bool:
-    """True when this direction launches the streamed kernel."""
-    flag = resolve_stream(stream, hso, direction)
+    """True when this direction launches the streamed kernel; grouped or
+    dilated ``spec`` pins the window kernel, and a forced stream on it
+    raises ``ValueError``."""
+    flag = resolve_stream(stream, hso, direction, spec.groups, spec.dilation)
     if flag is None:
         flag = route_stream(direction, spec, cib, cob, machine, gap=gap,
                             prologue=prologue, op_bytes=op_bytes)
@@ -495,23 +514,26 @@ def fwd_launch(spec: ConvSpec, cib: int, cob: int, act: int, gap: bool,
                dtype: torch.dtype = torch.float32) -> FwdLaunch:
     """The plan of a forward launch of geometry ``spec`` on ``cib``/``cob``
     pencils by the build for ``dtype`` operands (``build_dtype``):
-    ``blk``, or the window (``streamed``: the streamed) chooser's tiles."""
+    ``blk``, or the window (``streamed``: the streamed) chooser's tiles.  A
+    grouped ``spec`` is tiled on its group's ``Cig/Cib`` input blocks, a
+    dilated one on its dilated reach (the window kernel only)."""
     code = _FWD_BUILDS[dtype][0]
     op_bytes = dtype.itemsize
     ciblk, coblk = spec.ci // cib, spec.co // cob
     if blk is None:
         args = (spec.n, spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
-                ciblk, cib, coblk, cob, machine, gap)
+                spec.cig // cib, cib, coblk, cob, machine, gap)
         blk = (choose_stream_fwd_blocking(*args, hso, op_bytes) if streamed
-               else choose_fwd_blocking(*args, op_bytes))
+               else choose_fwd_blocking(*args, op_bytes, spec.dilation))
     smem = fwd_smem_bytes(blk.th, blk.tw, spec.hf, spec.wf, spec.stride,
                           blk.chunk, blk.lanes, blk.wgs, gap, op_bytes,
-                          blk.strips)
+                          blk.strips, spec.dilation, blk.frows)
     (pt, _), (pl, _) = spec.pads
     ints = (ciblk, cib, spec.hi, spec.wi, coblk, cob, spec.ho, spec.wo,
             spec.hf, spec.wf, spec.stride, pt, pl, blk.th, blk.tw, blk.wgs,
-            blk.strips, blk.nsplit, blk.chunk, act, int(gap), blk.lanes,
-            spec.n, smem, code)
+            blk.strips, blk.nsplit, blk.chunk, act, int(gap), spec.groups,
+            *spec.dilation, blk.stage_rows(spec.hf), blk.lanes, spec.n, smem,
+            code)
     return FwdLaunch(blk=blk, ints=(ctypes.c_int * len(ints))(*ints),
                      gap=gap, dtype=dtype)
 
@@ -589,16 +611,18 @@ def gap_forward(x: torch.Tensor, w: torch.Tensor,
                 residual: Optional[torch.Tensor] = None, *,
                 streamed: bool = False, hso: Optional[int] = None,
                 machine: MachineModel = H100_SXM, precision=F32,
-                with_map: bool = False):
+                with_map: bool = False, groups: int = 1, dilation=1):
     """One launch of the window forward (``streamed``: the streamed one;
-    under ``BF16`` its bf16 build) with the GAP rider on CUDA operands ->
+    under ``BF16`` its bf16 build; ``groups``/``dilation`` the window
+    kernel's grouped and dilated geometry) with the GAP rider on CUDA
+    operands ->
     ``(pooled [N, Co], partials [N, Co/Cob, tiles, Cob])``: the per-tile
     sums the kernel wrote and the pooled features the last CTA of each
     image and output block summed from them, so that a check can hold the
     one against ``conv2d_common.gap_finalize`` of the other; ``with_map``
     appends the stored map and the tiles, which ``conv2d_common
     .gap_replay`` pools to the same bits."""
-    spec = conv_spec(x, w, stride, padding)
+    spec = conv_spec(x, w, stride, padding, groups, dilation)
     _check_activation(activation)
     check_machine(machine)
     _cuda_device(x)
@@ -626,13 +650,14 @@ def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
               padding: Padding = "VALID", gap: bool = False, *,
               streamed: bool = False, hso: Optional[int] = None,
               machine: MachineModel = H100_SXM,
-              dtype: torch.dtype = torch.float32) -> Tuple[FwdPlan, FwdPlan]:
+              dtype: torch.dtype = torch.float32, groups: int = 1,
+              dilation=1) -> Tuple[FwdPlan, FwdPlan]:
     """What one launch of the window forward kernel (with ``streamed``, the
     streamed one) in its build for ``dtype`` operands runs on these
     operands, tiled as its wrapper tiles them: ``(the kernel library's own
-    count, its *_plan entry; core.blocking.fwd_plan's)``.  Reads the built
-    library; launches nothing."""
-    spec = conv_spec(x, w, stride, padding)
+    count, its *_plan entry; core.blocking.fwd_plan's)``, the MACs a
+    grouped conv's.  Reads the built library; launches nothing."""
+    spec = conv_spec(x, w, stride, padding, groups, dilation)
     cib, cob = x.shape[4], w.shape[5]
     plan = fwd_launch(spec, cib, cob, 0, gap, streamed, hso, machine,
                       dtype=dtype)
@@ -642,8 +667,8 @@ def fwd_plans(x: torch.Tensor, w: torch.Tensor, stride: int = 1,
     if entry(plan.ints, out):
         raise ValueError(f"the forward kernel refuses the tiles {plan.blk}")
     model = fwd_plan(plan.blk, spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
-                     spec.stride, spec.ci // cib, cib, spec.co // cob, cob,
-                     gap, dtype.itemsize)
+                     spec.stride, spec.cig // cib, cib, spec.co // cob, cob,
+                     gap, dtype.itemsize, spec.dilation)
     return FwdPlan(*out, products=model.products), model
 
 

@@ -69,14 +69,15 @@ VARIANTS = {
                   "      if (k == 0) split_weights<N>(m, slot, g, tid);",
                   "      if (0) split_weights<N>(m, slot, g, tid);"),),
     "no_copy": (("fwd_tile.cuh",
-                 "      if (k == 0) issue_weights<N>(m, tmw, w, g, o_b, i_b,"
-                 " c0, o0, tid);", ""),
+                 "        issue_weights<N>(m, tmw, w, g, o_b, i_b, c0, o0, "
+                 "r0 * g.wf, tid);", ""),
                 ("fwd_tile.cuh",
                  "      if (k == 0 && tma_weights(g)) dt::mbar_wait(m.wbar, "
                  "s & 1);", ""),
                 ("fwd_tile.cuh",
-                 "      issue_rows(win, x, g, n, i_b, c0, h0, w0, lo, hi, "
-                 "tid);", "")),
+                 "      issue_rows(win, x, g, n, x_block(g, o_b, i_b), c0, "
+                 "h0 + r0 * g.dil_h,\n                 w0, lo, hi, tid);",
+                 "")),
 }
 # the same for the bf16 build (fwd_tile.cuh, namespace bf16, `run`)
 VARIANTS_BF16 = {
@@ -89,10 +90,10 @@ VARIANTS_BF16 = {
                  "hi_of(k)));",
                  "                dt::mbar_expect_tx(&full[k], 0);"),
                 ("fwd_tile.cuh",
-                 "              issue_window(tmx, win(ws), &full[k], g, it.n, "
-                 "i_b, c0, h0, w0,",
+                 "              issue_window(tmx, win(ws), &full[k], g, "
+                 "it.n,",
                  "              if (0) issue_window(tmx, win(ws), &full[k], "
-                 "g, it.n, i_b, c0, h0, w0,"),
+                 "g, it.n,"),
                 ("fwd_tile.cuh",
                  "              dt::mbar_expect_tx(&m.rfull[rs], g.wf * N * "
                  "cell_bytes(g));",

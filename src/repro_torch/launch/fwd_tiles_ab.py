@@ -14,10 +14,13 @@ fastest one measured, then the sums.  ``--dtype bf16`` does the same for
 the tile's bf16 build (bf16 operands, the bf16 chooser's candidates, the
 cheapest of each (consumer count, lane split, chunk), the plain version
 under ``BF16``), and with ``--mobilenet`` MobileNet v1's ``conv1`` as well.
-Needs an H100 and nvcc::
+``--grouped`` times instead the window kernel's grouped and dilated
+geometry: AlexNet's five two-tower layers (``configs.cnn.alexnet_blocked``,
+its pencils at lane 64; a 227x227 entry) and DeepLab-LargeFOV's dilated
+conv5 and fc6 on a 41x41 map.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab \\
-        [--dtype bf16] [--mobilenet]
+        [--dtype bf16] [--mobilenet | --grouped]
 """
 from __future__ import annotations
 
@@ -26,9 +29,11 @@ import subprocess
 
 import torch
 
-from repro_torch.configs.cnn import mobilenet_v1_layers, vgg16_layers
+from repro_torch.configs.cnn import (ALEXNET_LANE, alexnet_layers,
+                                     mobilenet_v1_layers, vgg16_layers)
 from repro_torch.core.blocking import H100_SXM, fwd_candidates
 from repro_torch.core.convspec import ConvSpec
+from repro_torch.core.layout import BlockedConvLayout
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
 
 TOP, PER_KIND, ITERS = 10, 2, 10
@@ -44,18 +49,39 @@ def fwd_layers(entry: int = 224):
     return out
 
 
+def grouped_layers(n: int = 8):
+    """AlexNet's five layers (a 227x227 entry) and DeepLab-LargeFOV's conv5
+    (dilation 2, 512 -> 512) and fc6 (dilation 12, 512 -> 1024) on a 41x41
+    map, as ``(name, ConvSpec, cib, cob)``."""
+    out, h = [], 227
+    for i, (ci, co, f, s, pad, g) in enumerate(alexnet_layers()):
+        spec = ConvSpec.make(n, h, h, ci, co, f, f, s, pad, g)
+        lay = BlockedConvLayout.choose(ci, co, ALEXNET_LANE, groups=g)
+        out.append((f"alexnet.conv{i + 1}", spec, lay.cb_in, lay.cb_out))
+        h = spec.ho
+    for name, co, d in (("deeplab.conv5", 512, 2), ("deeplab.fc6", 1024, 12)):
+        out.append((name, ConvSpec.make(n, 41, 41, 512, co, 3, 3, 1, "SAME",
+                                        1, d), 128, 128))
+    return out
+
+
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     streamed: bool, top: int, per_kind: int,
-                    op_bytes: int = 4):
+                    op_bytes: int = 4, spec=None, cib=None, cob=None):
     """The tiles to time at ``op_bytes`` operands, as ``(model cost,
     FwdBlocking)``, the chooser's first: the ``top`` of least cost and the
     ``per_kind`` cheapest of each (consumer count, lane split), and at 2-byte
-    operands of each chunk too."""
-    cib, cob = min(ci, 128), min(co, 128)
-    ho = -(-h // stride)
-    found = sorted(fwd_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
-                                  co // cob, cob, H100_SXM, False, streamed,
-                                  op_bytes=op_bytes),
+    operands of each chunk too.  ``spec`` (with its pencils ``cib``,
+    ``cob``) gives any geometry, grouped and dilated included, in place of
+    a 3x3 SAME layer."""
+    if spec is None:
+        cib, cob = min(ci, 128), min(co, 128)
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
+    found = sorted(fwd_candidates(n, spec.ho, spec.wo, spec.hf, spec.wf,
+                                  spec.stride, spec.cig // cib, cib,
+                                  spec.co // cob, cob, H100_SXM, False,
+                                  streamed, op_bytes=op_bytes,
+                                  dilation=spec.dilation),
                    key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     def kind(b):
@@ -72,6 +98,9 @@ def main(argv=None) -> int:
                         help="the build to time (default f32)")
     parser.add_argument("--mobilenet", action="store_true",
                         help="MobileNet v1's conv1 after VGG-16's layers")
+    parser.add_argument("--grouped", action="store_true",
+                        help="AlexNet's and DeepLab-LargeFOV's grouped and "
+                             "dilated layers, window kernel, instead")
     args = parser.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     # the bf16 build rounds its output once: one bf16 ulp of the magnitude
@@ -91,25 +120,34 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
     sums = {route: [0.0, 0.0] for route in entries}
-    layers = fwd_layers()
+    layers = [(name, ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME"),
+               min(ci, 128), min(co, 128)) for name, ci, co, s, h in
+              fwd_layers()]
     if args.mobilenet:
         _, ci, co, s = mobilenet_v1_layers()[0]
-        layers.append(("mobilenet.conv1", ci, co, s, 224))
-    for name, ci, co, s, h in layers:
-        cib, cob = min(ci, 128), min(co, 128)
-        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
+        layers.append(("mobilenet.conv1", ConvSpec.make(
+            n, 224, 224, ci, co, 3, 3, s, "SAME"), ci, co))
+    if args.grouped:            # the streamed kernels are dense-only
+        layers, entries = grouped_layers(n), {False: entries[False]}
+        sums = {False: [0.0, 0.0]}
+    for name, spec, cib, cob in layers:
+        ci, co, s, h = spec.ci, spec.co, spec.stride, spec.hi
+        g, f = spec.groups, spec.hf
         x = torch.randn((n, ci // cib, h, h, cib), device=dev,
                         generator=gen).to(dtype)
-        w = (torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
-                         generator=gen) / (9 * ci) ** 0.5).to(dtype)
+        w = (torch.randn((co // cob, spec.cig // cib, f, f, cib, cob),
+                         device=dev, generator=gen)
+             / (f * f * spec.cig) ** 0.5).to(dtype)
         b = 0.1 * torch.randn((co // cob, cob), device=dev, generator=gen)
-        want = direct_conv_blocked(x, w, s, "SAME", b, "relu").float()
+        want = direct_conv_blocked(x, w, s, spec.pads, b, "relu", None, g,
+                                   spec.dilation).float()
         scale = want.abs().max().item()
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_KIND, dtype.itemsize):
+                                             PER_KIND, dtype.itemsize, spec,
+                                             cib, cob):
                 plan = direct_conv2d.fwd_launch(spec, cib, cob, 1, False,
                                                 streamed, blk=blk,
                                                 dtype=dtype)
@@ -133,8 +171,9 @@ def main(argv=None) -> int:
             route = "stream" if streamed else "window"
             for (cost, blk, _), t in zip(runs, ms):
                 print(f"[tile] {name} {route} th {blk.th} tw {blk.tw} wgs "
-                      f"{blk.wgs} nsplit {blk.nsplit} chunk {blk.chunk} "
-                      f"model_cost {cost:.0f} graph_ms {t:.4f}")
+                      f"{blk.wgs} nsplit {blk.nsplit} lanes {blk.lanes} chunk "
+                      f"{blk.chunk} frows {blk.stage_rows(f)} model_cost "
+                      f"{cost:.0f} graph_ms {t:.4f}")
             times = [(t, blk) for t, (_, blk, _) in zip(ms, runs)]
             chosen, best = times[0], min(times, key=lambda t: t[0])
             sums[streamed][0] += chosen[0]
@@ -142,7 +181,7 @@ def main(argv=None) -> int:
 
             def text(blk):
                 return (f"(th {blk.th}, tw {blk.tw}, wgs {blk.wgs}, nsplit "
-                        f"{blk.nsplit}, chunk {blk.chunk})")
+                        f"{blk.nsplit}, lanes {blk.lanes}, chunk {blk.chunk})")
             print(f"[layer] {name} {route} {ci}->{co} in {h}x{h} s{s}: "
                   f"chosen {text(chosen[1])} {chosen[0]:.4f} ms; fastest "
                   f"{text(best[1])} {best[0]:.4f} ms, ratio "

@@ -15,9 +15,12 @@ layer (1x1, stride 1, no pads) goes to
 .depthwise_conv2d_blocked``, and a dense layer to
 ``kernels.direct_conv2d.direct_conv2d_blocked``: the CUDA kernels for
 tensors on the GPU, the plain versions for tensors on the CPU.  The
-measured dispatcher is not ported yet.  Grouped layers with more than one
-input channel per group, and dilated dense layers, raise
-``NotImplementedError``: no kernel of the port runs them yet.
+measured dispatcher is not ported yet.  A grouped layer with more than one
+input channel per group (AlexNet's two towers) and a dilated dense layer
+go to the same dense wrapper with their ``groups`` and ``dilation``: the
+window kernel's grouped map and dilated taps.  Only their forward is
+ported: under grad mode such a layer raises ``NotImplementedError`` (the
+backward half of ROADMAP item A2).
 
 A dense layer runs on the window kernels or on the streamed halo-ring
 kernels (``kernels.conv2d_stream``): the layer's ``stream`` field, or a
@@ -69,8 +72,9 @@ class BlockedConv2D(nn.Module):
     """Conv whose maps, weights and bias live in the blocked layouts.
 
     In: ``[N, Ci/Cib, H, W, Cib]`` -> out: ``[N, Co/Cob, Ho, Wo, Cob]``.
-    ``groups == ci == co`` makes it depthwise; dilation is served on
-    depthwise layers.
+    ``groups == ci == co`` makes it depthwise; other ``groups`` make it
+    grouped (its weight ``[Co/Cob, Cig/Cib, ...]``, pencils per group); any
+    layer may be dilated.
     """
 
     def __init__(self, ci: int, co: int, hf: int = 3, wf: int = 3,
@@ -88,23 +92,14 @@ class BlockedConv2D(nn.Module):
         self.stride, self.padding, self.activation = stride, padding, activation
         self.groups, self.dilation = groups, as_dilation(dilation)
         self.layout = BlockedConvLayout.choose(ci, co, lane, groups=groups)
-        if groups > 1 and not groups == ci == co:
-            raise NotImplementedError(
-                f"groups={groups} with {ci // groups} input channels per "
-                "group: grouped convolutions arrive with the grouped/dilated "
-                "slice of the kernel zoo")
-        if groups == 1 and self.dilation != (1, 1):
-            raise NotImplementedError(
-                f"dilation={self.dilation} on a dense conv: the dense "
-                "kernels' dilated taps arrive with the grouped/dilated slice "
-                "of the kernel zoo")
         self.stream, self.machine = stream, machine
         geometry = ConvSpec.make(1, hf, wf, ci, co, hf, wf, stride, padding,
                                  groups, self.dilation)
         forced = (any(stream.get(d) for d in ("fwd", "dgrad", "wgrad"))
                   if isinstance(stream, KernelRoute) else bool(stream))
-        if forced and (geometry.is_pointwise or geometry.is_depthwise):
-            kind = "pointwise" if geometry.is_pointwise else "depthwise"
+        if forced and not (geometry.is_dense and not geometry.is_pointwise):
+            kind = ("pointwise" if geometry.is_pointwise else "depthwise"
+                    if geometry.is_depthwise else "grouped or dilated")
             raise ValueError(
                 "the streamed halo-ring kernels are dense-only: stream="
                 f"{stream!r} on a {kind} layer")
@@ -164,7 +159,8 @@ class BlockedConv2D(nn.Module):
             xb, self.w, self.b, self.stride, self.padding, self.activation,
             residual=residual, gap=gap, precision=precision,
             stream=ctx.resolve_stream_for(self.stream),
-            machine=ctx.resolve_machine_for(self.machine))
+            machine=ctx.resolve_machine_for(self.machine),
+            groups=self.groups, dilation=self.dilation)
 
 
 class ResidualBlock(BlockedConv2D):

@@ -2008,3 +2008,65 @@ def test_separable_cnn_trains_and_serves_in_bf16_on_the_bf16_builds(cuda):
     assert all(req.outcome is Outcome.OK for req in reqs)
     assert _ran(pwk) == {"conv2d_pointwise_fwd_bf16": 2}
     assert _ran(dwk) == {"conv2d_depthwise_fwd_bf16": 2}
+
+
+# grouped (Cig > 1) and dilated geometry on the window forward, both builds:
+# (n, ci, co, h, cib, cob, filter, stride, padding, groups, dilation, act,
+# residual, gap)
+GROUPED_DILATED_CASES = [
+    # AlexNet's conv2 at lane 128: Cib 48, Cob 96, pads (1, 1) at stride 2
+    (2, 96, 192, 27, 48, 96, 5, 2, ((1, 1), (1, 1)), 2, 1, "relu", False,
+     False),
+    (2, 64, 64, 17, 64, 64, 3, 1, "SAME", 1, 2, "relu", True, False),
+    (2, 16, 32, 29, 16, 32, 3, 1, "SAME", 1, 12, "gelu", False, False),
+    (2, 64, 64, 19, 16, 16, 3, 2, "SAME", 4, 2, "relu", False, True),
+    (2, 32, 64, 21, 16, 32, 3, 2, "SAME", 2, 3, None, True, False),
+    # AlexNet's conv1: 11x11 at stride 4, Cib 3
+    (1, 3, 48, 63, 3, 48, 11, 4, "VALID", 1, 1, "relu", False, False),
+    # the GAP on a grouped layer (conv5 at lane 128: Cib 96, Cob 128)
+    (2, 384, 256, 13, 96, 128, 3, 1, "SAME", 2, 1, "relu", False, True),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "n,ci,co,h,cib,cob,f,stride,padding,groups,dil,act,res,gap",
+    GROUPED_DILATED_CASES)
+def test_grouped_and_dilated_forward_matches_plain_version(
+        cuda, dtype, n, ci, co, h, cib, cob, f, stride, padding, groups, dil,
+        act, res, gap):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    cig = ci // groups
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda, generator=g)
+    w = torch.randn((co // cob, cig // cib, f, f, cib, cob), device=cuda,
+                    generator=g) / (f * f * cig) ** 0.5
+    b = torch.randn((co // cob, cob), device=cuda, generator=g)
+    spec = ConvSpec.make(n, h, h, ci, co, f, f, stride, padding, groups, dil)
+    r = (torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=cuda,
+                     generator=g) if res else None)
+    prec = "bf16" if dtype == "bf16" else "f32"
+    if dtype == "bf16":
+        x = x.bfloat16()
+        r = None if r is None else r.bfloat16()
+    reset_launches()
+    with torch.no_grad():
+        got = direct_conv2d_blocked(x, w, b, stride, padding, act,
+                                    residual=r, gap=gap, precision=prec,
+                                    groups=groups, dilation=dil)
+        again = direct_conv2d_blocked(x, w, b, stride, padding, act,
+                                      residual=r, gap=gap, precision=prec,
+                                      groups=groups, dilation=dil)
+        want = direct_conv_blocked(x, w, stride, padding, b, act, prec,
+                                   groups, dil, residual=r, gap=gap)
+    torch.cuda.synchronize()
+    name = "direct_conv2d_fwd" + ("_bf16" if dtype == "bf16" else "")
+    assert LAUNCHES[name] == 2 and sum(LAUNCHES.values()) == 2
+    if dtype == "bf16":
+        _bf16_close(got, want)
+    else:
+        torch.testing.assert_close(got, want, **TOL)
+    assert torch.equal(got, again)                  # no atomics: same bits
+    kernel, model = fwd_plans(x, w, stride, padding, gap,
+                              dtype=x.dtype, groups=groups, dilation=dil)
+    assert kernel == model
+    assert kernel.function_macs == spec.flops() // 2

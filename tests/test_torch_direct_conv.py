@@ -141,12 +141,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
         direct_conv2d_blocked(x, wt[:, :, :, :, :2], b, 1, "SAME")
     with pytest.raises(ValueError, match="expected x"):
         direct_conv2d_blocked(x[0], wt, b, 1, "SAME")
-    with pytest.raises(NotImplementedError, match="kernel zoo"):
+    # a grouped weight carries the per-group input extent Cig = Ci / groups
+    with pytest.raises(ValueError, match="grouped weight"):
         direct_conv_blocked(x, wt, 1, "SAME", groups=2)
-    # the plain conv computes dilation (the depthwise kernels take it); the
-    # dense kernels do not, so a dilated dense layer is refused
-    with pytest.raises(NotImplementedError, match="kernel zoo"):
-        BlockedConv2D(4, 8, dilation=2, device="cpu")
+    # a dilated dense layer serves (the window kernels' dilated taps); its
+    # backward is not ported, so training it is refused
+    conv = BlockedConv2D(4, 8, dilation=2, lane=4, device="cpu")
+    with pytest.raises(NotImplementedError, match="backward half"):
+        conv(x)
 
 
 def test_float4_operands_must_be_16_byte_aligned():
