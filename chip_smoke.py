@@ -960,12 +960,12 @@ def all_launches() -> dict:
 
 
 def lockstep_train(tag, train_model, n, batch_seed, want_step, dev,
-                   context=None):
+                   context=None, entry=ENTRY):
     """Three AdamW steps (cosine, peak ``TRAIN_LR``) of ``train_model``
     through ``make_train_step`` under ``context``, in lockstep with a
     plain-path trainer from the same start on the same ``n``-image batches
-    (drawn from ``batch_seed``).  Fails unless one step launches
-    ``want_step``, step 1's loss and every gradient agree with torch
+    of ``entry`` pixels (drawn from ``batch_seed``).  Fails unless one step
+    launches ``want_step``, step 1's loss and every gradient agree with torch
     autograd through the plain forward (``GRAD_RTOL``), and the parameters
     after step 3 agree with the plain trainer's (``PARAM_FRAC``,
     ``PARAM_STEP``).  -> a namespace: the model, both steps and states, the
@@ -997,7 +997,7 @@ def lockstep_train(tag, train_model, n, batch_seed, want_step, dev,
     rng = np.random.default_rng(batch_seed)
     batches = [
         {"images": torch.from_numpy(rng.standard_normal(
-            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+            (n, entry, entry, 3), dtype=np.float32)).to(dev),
          "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
         for _ in range(3)]
     losses, plain_losses = [], []
@@ -1032,7 +1032,7 @@ def lockstep_train(tag, train_model, n, batch_seed, want_step, dev,
                     plain_losses[0]):
                 fail(f"step-1 loss {losses[0]} != plain {plain_losses[0]}")
     counts = all_launches()
-    print(f"[{tag}] n{n} {ENTRY}x{ENTRY} 1000 classes, AdamW cosine: losses "
+    print(f"[{tag}] n{n} {entry}x{entry} 1000 classes, AdamW cosine: losses "
           f"{losses} plain path {plain_losses}")
     print(f"[{tag}] launches in 3 steps: {counts}")
     if any(not np.isfinite(v) for v in losses):
@@ -3395,12 +3395,12 @@ def bf16_phases(args, dev, t_start, model):
     return entries, counts
 
 
-def bf16_trainers(model, n, seed, runs_spec, dev):
-    """Phase 23's and 24's bf16 training check.  ``model`` (f32 masters)
-    trained 3 AdamW steps (cosine, peak ``TRAIN_LR``) at batch ``n`` on
-    ``ENTRY``-pixel images drawn from ``seed``: by an f32 plain trainer
-    (autograd through the plain forward), by a plain bf16 trainer (the same
-    training path on the plain versions, a CPU copy of the model: the
+def bf16_trainers(model, n, seed, runs_spec, dev, entry=ENTRY):
+    """Phase 23's, 24's and 26's bf16 training check.  ``model`` (f32
+    masters) trained 3 AdamW steps (cosine, peak ``TRAIN_LR``) at batch
+    ``n`` on ``entry``-pixel images drawn from ``seed``: by an f32 plain
+    trainer (autograd through the plain forward), by a plain bf16 trainer
+    (the same training path on the plain versions, a CPU copy of the model: the
     wrappers take their plain versions for CPU tensors, so that only the
     order of the f32 sums differs from the kernels; with its own rounding
     points a plain path ends ~15 % from the f32 gradients at VGG-16's
@@ -3424,7 +3424,7 @@ def bf16_trainers(model, n, seed, runs_spec, dev):
     rng = np.random.default_rng(seed)
     batches = [
         {"images": torch.from_numpy(rng.standard_normal(
-            (n, ENTRY, ENTRY, 3), dtype=np.float32)).to(dev),
+            (n, entry, entry, 3), dtype=np.float32)).to(dev),
          "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
         for _ in range(3)]
     lr = cosine_schedule(TRAIN_LR, 1, 3)
@@ -3543,7 +3543,7 @@ def bf16_trainers(model, n, seed, runs_spec, dev):
         kparams = {k: p.detach() for k, p in km.named_parameters()}
         far, worst = off(kparams, pparams)
         far32, _ = off(kparams, f32_params)
-        print(f"[{tag}] n{n} {ENTRY}x{ENTRY}: losses {losses}, plain "
+        print(f"[{tag}] n{n} {entry}x{entry}: losses {losses}, plain "
               f"bf16 {plain_losses}; after 3 steps {far} of {n_el} elements "
               f"differ from the plain bf16 trainer by more than "
               f"{PARAM_STEP:g} * sum(lr)={lr_sum:g} (largest {worst:.3e}), "
@@ -4891,7 +4891,8 @@ def grouped_dilated_phases(args, dev, t_start, smi):
                   f"({100 * b_ms / g_ms:.1f} % as graphs)")
     stamp("d")
 
-    # -- 25(e) refusals -------------------------------------------------------
+    # -- 25(e) a forced stream refused; gradients through grouped and ------
+    # dilated layers (their backward, phase 26)
     name, x, w, b, spec, _ = cases[1]           # conv2, groups 2
     reset_all_launches()
     try:
@@ -4901,15 +4902,30 @@ def grouped_dilated_phases(args, dev, t_start, smi):
         fail("a forced stream on a grouped layer ran")
     except ValueError as e:
         print(f"[grouped] forced stream on {name}: ValueError ({e})")
-    wg = w.clone().requires_grad_(True)
-    try:
-        direct_conv2d_blocked(x, wg, b, spec.stride, spec.pads, "relu",
-                              groups=2)
-        fail("autograd through a grouped layer ran")
-    except NotImplementedError as e:
-        print(f"[grouped] autograd on {name}: NotImplementedError ({e})")
     if any(all_launches().values()):
         fail(f"a refused call launched {all_launches()}")
+    for case in (cases[1], cases[len(model.convs) + 3]):   # conv2, fc6
+        name, x, w, b, spec, _ = case
+        xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        reset_all_launches()
+        direct_conv2d_blocked(xg, wg, b, spec.stride, spec.pads, "relu",
+                              groups=spec.groups,
+                              dilation=spec.dilation).square().sum().backward()
+        torch.cuda.synchronize()
+        ran = {k: v for k, v in all_launches().items() if v}
+        # a dgrad whose contraction passes kMaxTruncatingK (fc6's) is a grid
+        # a Co block
+        want = {"direct_conv2d_fwd": 1, "direct_conv2d_dgrad":
+                ran.get("direct_conv2d_dgrad", 0) or 1,
+                "direct_conv2d_wgrad": 1}
+        if ran != want or not all(
+                torch.isfinite(t).all() and t.abs().sum() > 0
+                for t in (xg.grad, wg.grad)):
+            fail(f"autograd through {name}: launched {ran}, not {want} "
+                 "with finite nonzero gradients")
+        print(f"[grouped] autograd through {name} (groups {spec.groups}, "
+              f"dilation {spec.dilation[0]}): finite nonzero dx and dw, "
+              f"launched {ran}")
     entries = []
     for bf16 in (False, True):
         k_ms, p_ms, b_ms, l_ms, _ = sums[bf16]
@@ -4924,6 +4940,386 @@ def grouped_dilated_phases(args, dev, t_start, smi):
             "library_ms": l_ms})
     print(f"[time] phase 25 done at {time.perf_counter() - t_start:.1f} s")
     return entries, served_counts
+
+
+# Phase 26: the backward of phase 25's grouped and dilated geometry (the
+# reference's _dgrad_windowed and _wgrad_windowed), and AlexNet's two towers
+# trained on it at batch 32
+ALEXNET_TRAIN_BATCH = 32
+
+
+def dgrad_pairs(spec):
+    """``(the dgrad's MACs, the phase split's)`` of ``spec``: the (input
+    position, tap) pairs whose output lies in the map, and those whose
+    division is exact wherever the output lies (the phases' taps, whose
+    rows outside the map the kernels read as zeros), each times Cib x the
+    group's Co, over the images."""
+    (pt, _), (pl, _) = spec.pads
+    true, split = 1, 1
+    for e, f, p, d, o in ((spec.hi, spec.hf, pt, spec.dilation[0], spec.ho),
+                          (spec.wi, spec.wf, pl, spec.dilation[1], spec.wo)):
+        hits = [(i + p - k * d) // spec.stride for i in range(e)
+                for k in range(f) if (i + p - k * d) % spec.stride == 0]
+        true *= sum(1 for q in hits if 0 <= q < o)
+        split *= len(hits)
+    per = spec.n * spec.ci * spec.co // spec.groups
+    return true * per, split * per
+
+
+def kernel_name(key: str) -> str:
+    """A profiler row's kernel name without its return type, namespace and
+    parameter list (``void (anonymous namespace)::fwd_kernel<32>(...)`` ->
+    ``fwd_kernel<32>``)."""
+    import re
+    return re.sub(r"^void |\(anonymous namespace\)::", "",
+                  key).split("(")[0][:60]
+
+
+def bwd_window_unread(kind: str, bf16: bool, spec, cib: int, cob: int):
+    """The share of a backward tile's staged window that no tap reads, at
+    the tile the chooser takes for ``spec``: the dgrad's cotangent window
+    (the f32 tile's rows gathered into the taps' bands where they are
+    sparse), or the wgrad's x window (the f32 tile's bands, the bf16
+    build's column phases)."""
+    from repro_torch.core import blocking as B
+    ob = 2 if bf16 else 4
+    s, (dh, dw) = spec.stride, spec.dilation
+
+    def share(positions, offsets, staged):
+        return len({p + o for p in positions for o in offsets}) / staged
+    if kind == "dgrad":
+        blk = B.choose_dgrad_blocking(spec.n, spec.hi, spec.wi, spec.hf,
+                                      spec.wf, s, spec.ci // cib, cib, cob,
+                                      B.H100_SXM, True, ob, spec.dilation)
+        (th_, qh), (tw_, qw) = (B.dgrad_tap_steps(s, d) for d in (dh, dw))
+        mh = B.dgrad_max_taps(spec.hf, s, dh)
+        mw = B.dgrad_max_taps(spec.wf, s, dw)
+        band = blk.th if (not bf16 and B.dgrad_gathered(
+            blk.th, spec.hf, s, dh)) else qh
+        rows = share(range(blk.th), [u * band for u in range(mh)], blk.hwin)
+        cols = share(range(blk.tw), [u * qw for u in range(mw)], blk.wwin)
+        return 1 - rows * cols
+    blk = B.choose_wgrad_blocking(spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
+                                  s, spec.ci // cib, cib, spec.co // cob, cob,
+                                  B.H100_SXM, True, ob, spec.groups,
+                                  spec.dilation)
+    pos_h = [a * s for a in range(blk.th)]
+    pos_w = [b * s for b in range(blk.tw)]
+    if bf16:
+        rows = share(pos_h, [k * dh for k in range(spec.hf)], blk.hwin)
+        cells = {((p + k * dw) % s, (p + k * dw) // s) for p in pos_w
+                 for k in range(spec.wf)}
+        cols = len(cells) / (B.wgrad_bf16_phases(spec.wf, s, dw)
+                             * B.wgrad_bf16_wph(blk.tw, spec.wf, s, dw))
+        return 1 - rows * cols
+    nrows, bands, cells = B.wgrad_staged(blk.th, blk.tw, spec.hf, spec.wf, s,
+                                         spec.dilation)
+    bh = nrows // spec.hf if nrows != blk.hwin else dh
+    bw = cells if bands > 1 else dw
+    rows = share(pos_h, [k * bh for k in range(spec.hf)], nrows)
+    cols = share(pos_w, [k * bw for k in range(spec.wf)], bands * cells)
+    return 1 - rows * cols
+
+
+def grouped_dilated_bwd_phases(args, dev, t_start, smi):
+    """Phase 26: the window dgrad and wgrad on grouped (Cig > 1) and dilated
+    geometry, both builds.  (a) AlexNet (``alexnet_blocked``, lane 64, its
+    weights) at batch 8: the wgrad of conv1-5 and the dgrad of conv2-5 (the
+    images take no gradient); DeepLab-LargeFOV's conv5 (dilation 2) and fc6
+    (dilation 12) at 41x41, groups 4 with dilation 2 at stride 2, dilation
+    3 at stride 2 (phase 25's shapes): each against its plain version by
+    phase 9's and 23's rules (f32 dx within ``TOL``; bf16 dx within a bf16
+    ulp + 1e-5 of max and bit for bit the same dgrad on the dz pass's dz;
+    dw and db against f64 sums within ``WGRAD_REL`` of sum|x dz|, the folded
+    split sums bit for bit their in-order sum), two runs bit for bit, each
+    kernel's plan (its C entry) equal to the blocking model's; (b) AlexNet
+    trained 3 AdamW steps at batch 32 on 227x227 images, in f32 in lockstep
+    with a plain trainer (``lockstep_train``) and in bf16 by
+    ``bf16_trainers``' rules, each step launching that build's window
+    kernels alone; (c) per layer the dgrad and the wgrad eager and as CUDA
+    graphs beside cuDNN's ``convolution_backward(groups=, dilation=)`` (f32
+    with TF32 off; bf16 channels-last; no db), the bound and its share, the
+    kernels' MAC counts (the dgrad's: the (input, tap) pairs whose output
+    lies in the map, and the phases' count beside it), and the AlexNet step
+    under ``torch.profiler`` and on the host clock.  -> (kernels-line
+    entries, the launches of the two AlexNet trainings)."""
+    from repro_torch.configs.cnn import alexnet_blocked
+    from repro_torch.core import conv2d_common
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_dgrad_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.core.layout import BlockedConvLayout
+    from repro_torch.kernels.direct_conv2d import (cotangent_pass,
+                                                   direct_conv2d_dgrad,
+                                                   direct_conv2d_wgrad,
+                                                   dgrad_plans, split_wgrad,
+                                                   wgrad_partials,
+                                                   wgrad_plans)
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainstep import make_train_step
+    bf = torch.bfloat16
+    key = {(False, "dgrad"): "direct_conv2d_dgrad",
+           (True, "dgrad"): "direct_conv2d_dgrad_bf16",
+           (False, "wgrad"): "direct_conv2d_wgrad",
+           (True, "wgrad"): "direct_conv2d_wgrad_bf16"}
+    fn_of = {"direct_conv2d_dgrad": "dgrad_kernel",
+             "direct_conv2d_dgrad_bf16": "dgrad_kernel_bf16",
+             "direct_conv2d_wgrad": "wgrad_kernel",
+             "direct_conv2d_wgrad_bf16": "wgrad_kernel_bf16"}
+    gen = torch.Generator().manual_seed(args.seed + 260)
+    model = alexnet_blocked(device=dev, generator=gen)
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 261)
+
+    def stamp(part):
+        print(f"[time] phase 26({part}) done at "
+              f"{time.perf_counter() - t_start:.1f} s")
+
+    # (name, spec, w, cib, dgrad): AlexNet's five layers, then the dilated
+    # and strided shapes of phase 25
+    cases, h = [], ALEXNET_ENTRY
+    for i, conv in enumerate(model.convs):
+        spec = conv.spec(BATCH, h, h)
+        cases.append((f"alexnet.conv{i + 1}", spec, conv.w.detach(),
+                      conv.in_pencil, i > 0))
+        h = spec.ho
+    for (name, n, ci, co, hh, f, s, pad, g, d, lane,
+         _) in GROUPED_DILATED_SHAPES[2:]:
+        lay = BlockedConvLayout.choose(ci, co, lane, groups=g)
+        spec = ConvSpec.make(n, hh, hh, ci, co, f, f, s, pad, g, d)
+        w = torch.randn((co // lay.cb_out, ci // g // lay.cb_in, f, f,
+                         lay.cb_in, lay.cb_out), device=dev,
+                        generator=dgen) / (f * f * ci // g) ** 0.5
+        cases.append((name, spec, w, lay.cb_in, True))
+
+    def operands(spec, w, cib):
+        x = torch.randn((spec.n, spec.ci // cib, spec.hi, spec.wi, cib),
+                        device=dev, generator=dgen)
+        z = torch.randn((spec.n, w.shape[0], spec.ho, spec.wo, w.shape[5]),
+                        device=dev, generator=dgen)
+        return x, z, torch.randn(z.shape, device=dev, generator=dgen)
+
+    # -- 26(a) each build against its plain version ---------------------------
+    print(f"[grouped-bwd] card: {smi}")
+    max_err = {k: 0.0 for k in key.values()}
+    timing = []
+    for name, spec, w, cib, dgrad in cases:
+        x, z, g = operands(spec, w, cib)
+        hw, s, pad = (spec.hi, spec.wi), spec.stride, spec.pads
+        kw = dict(groups=spec.groups, dilation=spec.dilation)
+        for bf16 in (False, True):
+            prec = "bf16" if bf16 else "f32"
+            dt = bf if bf16 else torch.float32
+            xx, ww, zz, gg = (t.to(dt) for t in (x, w, z, g))
+            tag = (f"{name} {prec} {spec.ci}->{spec.co} groups "
+                   f"{spec.groups} dilation {spec.dilation[0]} s{s} in "
+                   f"{spec.hi}x{spec.wi} n{spec.n}")
+            if dgrad:
+                k = key[(bf16, "dgrad")]
+
+                def run_dgrad(ww=ww, zz=zz, gg=gg, prec=prec, hw=hw, s=s,
+                              pad=pad, kw=kw):
+                    return direct_conv2d_dgrad(gg, ww, hw, s, pad, zz,
+                                               "relu", precision=prec, **kw)
+                got, again = run_dgrad(), run_dgrad()
+                want = direct_conv_dgrad_blocked(gg, ww, hw, s, pad, zz,
+                                                 "relu", **kw)
+                torch.cuda.synchronize()
+                max_err[k] = max(max_err[k], bf16_close(
+                    f"grouped dgrad {tag}", got, want) if bf16 else compare(
+                    f"grouped dgrad {tag}", got, want, **TOL))
+                if not torch.equal(got, again):
+                    fail(f"grouped dgrad {tag}: two runs differ")
+                if bf16:
+                    dz, _ = cotangent_pass(gg, zz, "relu", False)
+                    on_dz = direct_conv2d_dgrad(dz, ww, hw, s, pad,
+                                                precision=prec,
+                                                prologue_tiles=True, **kw)
+                    if not torch.equal(on_dz, got):
+                        fail(f"grouped dgrad {tag}: on the dz pass's dz it "
+                             "differs from its own prologue")
+                plan, model_plan = dgrad_plans(gg, ww, hw, s, pad, zz, "relu",
+                                               dtype=dt, **kw)
+                if plan != model_plan:
+                    fail(f"grouped dgrad {tag}: the kernel's plan {plan} != "
+                         f"the blocking model's {model_plan}")
+                timing.append((name, spec, bf16, "dgrad", run_dgrad, plan,
+                               (xx, ww, zz, gg)))
+                del got, again, want
+            k = key[(bf16, "wgrad")]
+
+            def run_wgrad(xx=xx, zz=zz, gg=gg, prec=prec, spec=spec, s=s,
+                          pad=pad, kw=kw):
+                return wgrad_partials(xx, gg, spec.hf, spec.wf, s, pad, zz,
+                                      "relu", True, precision=prec, **kw)
+            first = run_wgrad()
+            dw, db = split_wgrad(run_wgrad()[1], xx.shape, gg.shape, spec.hf,
+                                 spec.wf, True, spec.groups)
+            check_fold(f"grouped wgrad {tag}", first, (dw, db))
+            dz = conv2d_common.cotangent_prologue(gg, zz, "relu")
+            want_dw, want_db = direct_conv_wgrad_blocked(
+                xx.double(), dz.double(), spec.hf, spec.wf, s, pad,
+                with_db=True, **kw)
+            abs_dw, abs_db = direct_conv_wgrad_blocked(
+                xx.abs().double(), dz.abs().double(), spec.hf, spec.wf, s,
+                pad, with_db=True, **kw)
+            max_err[k] = max(
+                max_err[k],
+                compare_scaled(f"grouped wgrad dw {tag}", dw, want_dw,
+                               abs_dw, WGRAD_REL),
+                compare_scaled(f"grouped wgrad db {tag}", db, want_db,
+                               abs_db, WGRAD_REL))
+            plan, model_plan = wgrad_plans(xx, gg, spec.hf, spec.wf, s, pad,
+                                           zz, "relu", dtype=dt, **kw)
+            if plan != model_plan:
+                fail(f"grouped wgrad {tag}: the kernel's plan {plan} != the "
+                     f"blocking model's {model_plan}")
+            if plan.function_macs != spec.flops() // 2:
+                fail(f"grouped wgrad {tag}: the kernel counts "
+                     f"{plan.function_macs} MACs, the grouped function "
+                     f"{spec.flops() // 2}")
+            timing.append((name, spec, bf16, "wgrad", run_wgrad, plan,
+                           (xx, ww, zz, gg)))
+            del first, dw, db, dz, want_dw, want_db, abs_dw, abs_db
+    print(f"[grouped-bwd] wgrad worst err/bound: " + " ".join(
+        f"{kind} {max(v for lab, v in RATIOS.items() if lab.startswith(f'grouped wgrad {kind} ')):.3f}"
+        for kind in ("dw", "db")) + f" (tol 1, |err| <= {WGRAD_REL:g} * "
+        "sum|x dz|; two runs bit for bit)")
+    stamp("a")
+
+    # -- 26(b) AlexNet trained in f32 and in bf16 -----------------------------
+    n_train = ALEXNET_TRAIN_BATCH
+    tr = lockstep_train(
+        "alexnet-train", copy.deepcopy(model), n_train, args.seed + 262,
+        {"direct_conv2d_fwd": 5, "direct_conv2d_dgrad": 4,
+         "direct_conv2d_wgrad": 5}, dev, entry=ALEXNET_ENTRY)
+    train_counts = dict(tr.counts)
+    counts, trained, batches, _ = bf16_trainers(
+        model, n_train, args.seed + 263,
+        [("alexnet-bf16-train", ConvContext(precision="bf16"),
+          {"direct_conv2d_fwd_bf16": 5, "direct_conv2d_dgrad_bf16": 4,
+           "direct_conv2d_wgrad_bf16": 5, "direct_conv2d_dz_bf16": 5})],
+        dev, entry=ALEXNET_ENTRY)
+    for k, v in counts.items():
+        train_counts[k] = train_counts.get(k, 0) + v
+    stamp("b")
+
+    # -- 26(c) times, MACs, bounds, the step ----------------------------------
+    print(f"[grouped-bwd-time] {smi}")
+    sums = {k: [0.0] * 4 for k in key.values()}
+    kinds = {k: [] for k in key.values()}
+    for name, spec, bf16, kind, fn, plan, (xx, ww, zz, gg) in timing:
+        k = key[(bf16, kind)]
+        prec = "bf16" if bf16 else "f32"
+        s, (pt, pb_), (pl, pr) = spec.stride, *spec.pads
+        dz = conv2d_common.cotangent_prologue(gg, zz, "relu")
+        cl = torch.channels_last if bf16 else torch.contiguous_format
+        xp = F.pad(nchw(xx), (pl, pr, pt, pb_)).contiguous(memory_format=cl)
+        # a grouped weight [Co/Cob, Cig/Cib, ...] is the library's [Co, Cig,
+        # Hf, Wf] as a dense one is
+        w_oihw = oihw(ww, 1).contiguous(memory_format=cl)
+        dz_nchw = nchw(dz).contiguous(memory_format=cl)
+        mask = [kind == "dgrad", kind == "wgrad", False]
+
+        def lib():
+            return torch.ops.aten.convolution_backward(
+                dz_nchw, xp, w_oihw, None, [s, s], [0, 0],
+                list(spec.dilation), False, [0, 0], spec.groups, mask)
+        if kind == "dgrad":
+            def plain():
+                return direct_conv_dgrad_blocked(gg, ww, (spec.hi, spec.wi),
+                                                 s, spec.pads, zz, "relu",
+                                                 spec.groups, spec.dilation)
+            macs, split = dgrad_pairs(spec)
+            nbytes = xx.element_size() * (2 * gg.numel() + ww.numel()
+                                          + xx.numel())
+            mac_text = (f"MACs {macs} (input positions x taps whose output "
+                        f"lies in the map; the phases' taps {split}, "
+                        f"{100 * (1 - macs / split):.1f} % of them read rows "
+                        f"outside the map as zeros; 1/{spec.groups} of the "
+                        f"dense count)")
+            if plan.function_macs != split:
+                fail(f"{name} {prec} dgrad: the kernel counts "
+                     f"{plan.function_macs} phase MACs, not {split}")
+        else:
+            def plain():
+                return direct_conv_wgrad_blocked(xx, gg, spec.hf, spec.wf, s,
+                                                 spec.pads, zz, "relu", True,
+                                                 spec.groups, spec.dilation)
+            macs = spec.flops() // 2
+            nbytes = (xx.element_size() * (xx.numel() + 2 * gg.numel())
+                      + 4 * (ww.numel() + spec.co))
+            mac_text = (f"MACs {macs} (the grouped function's, 1/"
+                        f"{spec.groups} of the dense count)")
+        k_ms, g_ms = time_ms(fn), graph_ms(fn)
+        l_ms, l_graph = time_ms(lib), graph_ms(lib)
+        p_ms = time_ms(plain, iters=2, warmup=1)
+        if bf16:
+            b_ms, b_by = bound(2 * macs, nbytes, PEAK_BF16_FLOPS)
+            fma = ""
+        else:
+            b_ms, b_by, f_ms = tf32x3_bound(2 * macs, nbytes)
+            fma = f" [f32 FMA {f_ms:.4f}]"
+        slow = g_ms / l_graph
+        unread = ""
+        if spec.dilation[0] > 1:
+            left = bwd_window_unread(kind, bf16, spec, xx.shape[4],
+                                     ww.shape[5])
+            unread = f", staged window cells no tap reads {100 * left:.1f} %"
+        print(f"[grouped-bwd-time] {name} {prec} {kind} {spec.ci}->{spec.co}"
+              f" groups {spec.groups} dilation {spec.dilation[0]} s{s} "
+              f"{spec.hi}->{spec.ho} n{spec.n}: eager_ms {k_ms:.4f} "
+              f"graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} cuDNN ms "
+              f"{l_ms:.4f} [{l_graph:.4f}] ({slow:.2f}x as graphs"
+              f"{'; more than 2x cuDNN' if slow > 2 else ''}) bound_ms "
+              f"{b_ms:.4f} ({b_by}{fma}) bound/graph {b_ms / g_ms:.3f}; "
+              f"{mac_text}; issued {plan.issued_macs} ({plan.products} a "
+              f"MAC; padding {100 * plan.padding_share:.1f} %), "
+              f"{plan.tiles} tiles, shared memory {plan.smem} B{unread}")
+        if name.startswith("alexnet.conv"):
+            for j, v in enumerate((k_ms, p_ms, b_ms, l_ms)):
+                sums[k][j] += v
+            kinds[k].append((b_ms, b_by))
+        del dz, xp, w_oihw, dz_nchw
+    for k, (k_ms, p_ms, b_ms, l_ms) in sums.items():
+        print(f"[grouped-bwd-time] AlexNet {fn_of[k]} summed over its "
+              f"layers: {k_ms:.4f} ms eager, plain {p_ms:.4f}, cuDNN "
+              f"{l_ms:.4f}, bound {b_ms:.4f}")
+    del timing
+    step_runs = [("f32", tr.step, tr.state), ("bf16", trained[0][0],
+                                               trained[0][1])]
+    times = timed_steps("alexnet-step", step_runs, batches)
+    for tag, step, state in step_runs:
+        split = device_split(lambda: step(state, batches[0]))
+        if split is None:
+            print(f"[alexnet-step] {tag}: the profiler recorded no device "
+                  "time")
+            continue
+        wall, busy, top = split
+        print(f"[alexnet-step] {tag} n{n_train} {ALEXNET_ENTRY}x"
+              f"{ALEXNET_ENTRY}: host-clock median "
+              f"{np.median(times[tag]):.3f} ms; under torch.profiler "
+              f"{wall:.3f} ms wall, device busy {busy:.3f} ms "
+              f"({100 * busy / wall:.1f} %); largest kernels: " + "; ".join(
+                  f"{kernel_name(n_)} {ms:.3f} ms x{c}" for n_, ms, c in top))
+    del tr, trained
+    torch.cuda.empty_cache()
+    entries = []
+    for (bf16, kind), k in key.items():
+        k_ms, p_ms, b_ms, l_ms = sums[k]
+        entries.append({
+            "name": f"{k} ({fn_of[k]}: grouped and dilated, AlexNet "
+                    "trained)",
+            "route": "cuda", "source": BWD_SOURCE,
+            "replaces": (TPU_DGRAD + " (grouped map :481-494)"
+                         if kind == "dgrad"
+                         else TPU_WGRAD + " (grouped walk :606-613)"),
+            "launches": train_counts.get(k, 0),
+            "max_abs_err": max_err[k], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": mostly(kinds[k]),
+            "library_ms": l_ms})
+    print(f"[time] phase 26 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, train_counts
 
 
 def main(argv=None) -> int:
@@ -5498,6 +5894,8 @@ def main(argv=None) -> int:
     sb_entries, sb_counts = separable_bf16_phases(args, dev, t_start, smi,
                                                   mb_model)
     gd_entries, gd_counts = grouped_dilated_phases(args, dev, t_start, smi)
+    gb_entries, gb_counts = grouped_dilated_bwd_phases(args, dev, t_start,
+                                                       smi)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -5508,7 +5906,8 @@ def main(argv=None) -> int:
           f"streamed route served and trained {st_counts}; VGG-16 served "
           f"in bf16 on both routes {bf_counts}; VGG-16 trained in bf16 on "
           f"both routes {bt_counts}; MobileNet v1 served and trained in "
-          f"bf16 {sb_counts}; AlexNet served in f32 and bf16 {gd_counts}")
+          f"bf16 {sb_counts}; AlexNet served in f32 and bf16 {gd_counts}; "
+          f"AlexNet trained in f32 and bf16 {gb_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -5536,6 +5935,7 @@ def main(argv=None) -> int:
     kernels.extend(bt_entries)
     kernels.extend(sb_entries)
     kernels.extend(gd_entries)
+    kernels.extend(gb_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 from repro_torch.core.conv2d_common import halo_dims
 from repro_torch.core.errors import TransientError
@@ -71,6 +72,8 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "fwd_candidates",
            "choose_fwd_blocking", "dgrad_extents", "dgrad_window",
            "DGRAD_ROWS", "DGRAD_LANES", "DGRAD_CONSUMERS", "PhaseAxis",
+           "dgrad_tap_steps", "dgrad_max_taps", "dgrad_reach",
+           "dgrad_gathered", "dgrad_rows",
            "dgrad_phase_axes", "dgrad_lanes", "DgradBlocking",
            "dgrad_smem_bytes", "dgrad_bf16_wpitch", "dgrad_bf16_window_bytes",
            "dgrad_bf16_row_bytes", "dgrad_bf16_rings", "dgrad_bf16_smem_bytes",
@@ -79,7 +82,9 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "WGRAD_ROWS", "WGRAD_CONSUMERS", "WGRAD_THREADS",
            "WGRAD_MAX_POSITIONS", "WGRAD_MPW", "WGRAD_WORKSPACE_BYTES",
            "SPLIT_SUM_BYTES_PER_CYCLE", "SPLIT_SUM_COLUMN_BYTES",
-           "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "WgradBlocking",
+           "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "wgrad_window",
+           "wgrad_staged",
+           "wgrad_bf16_phases", "wgrad_bf16_wph", "WgradBlocking",
            "StreamWgradBlocking", "wgrad_smem_bytes", "WgradPlan",
            "wgrad_plan", "wgrad_candidates", "choose_wgrad_blocking",
            "PW_ROWS", "PW_CONSUMERS", "PW_MAX_CHUNK", "PointwiseBlocking",
@@ -725,12 +730,14 @@ def choose_fwd_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
 # ---------------------------------------------------------------------------
 
 def dgrad_extents(ho: int, wo: int, hf: int, wf: int,
-                  stride: int = 1) -> tuple[int, int]:
+                  stride: int = 1, dilation=(1, 1)) -> tuple[int, int]:
     """Rows/cols of the *padded* input that a VALID forward ever read,
-    ``E = (out - 1) * stride + filter``; rows beyond ``E`` have zero
+    ``E = (out - 1) * stride + (filter - 1) * dilation + 1`` (the dilated
+    filter's reach, as the reference's); rows beyond ``E`` have zero
     gradient.  The kernel writes dx at the unpadded shape and gets those
     zeros from its masks; the plain version sizes its buffer with this."""
-    return (ho - 1) * stride + hf, (wo - 1) * stride + wf
+    return ((ho - 1) * stride + fwd_reach(hf, dilation[0]),
+            (wo - 1) * stride + fwd_reach(wf, dilation[1]))
 
 
 def dgrad_window(hob: int, wob: int, hf: int, wf: int,
@@ -750,7 +757,9 @@ def dgrad_window(hob: int, wob: int, hf: int, wf: int,
 # The phase-split tensor-core dgrad (csrc/dgrad_tile.cuh).  dx rows with
 # (i + pad) % s == ph take exactly the taps dh = ph + s*t from cotangent row
 # q - t (i + pad = s*q + ph), so each phase (ph, pw) is a stride-1
-# correlation over the taps it reaches.  A CTA owns th x tw positions of
+# correlation over the taps it reaches; at dilation d the taps dh with dh*d
+# = ph mod s, every s / gcd(d, s)-th from the least one, d / gcd(d, s)
+# cotangent rows apart (``dgrad_phase_axes``).  A CTA owns th x tw positions of
 # one phase: one to three consumer warpgroups (DGRAD_CONSUMERS), each one
 # 64-row wgmma tile (DGRAD_ROWS) of positions by the Cib lanes (padded up
 # to a compiled width), and a producer warpgroup that stages through TMA;
@@ -793,27 +802,81 @@ DGRAD_BOX_CYCLES = 200      # one TMA box of window rows (streamed)
 @dataclasses.dataclass(frozen=True)
 class PhaseAxis:
     """One axis of a stride phase: the dx rows ``first + s*a`` (``a <
-    extent``) take taps ``phase + s*t`` (``t < taps``) from cotangent rows
-    ``q0 + a - t``."""
+    extent``) take taps ``tap0 + tstep*t`` (``t < taps``) from cotangent
+    rows ``q0 + a - qstep*t``; at dilation 1 ``tap0`` is the phase,
+    ``tstep`` the stride and ``qstep`` 1."""
     phase: int
     first: int
     extent: int
     q0: int
     taps: int
+    tap0: int
+    tstep: int
+    qstep: int
+
+
+def dgrad_tap_steps(stride: int, d: int = 1) -> tuple[int, int]:
+    """``(tstep, qstep)`` of a phase axis at stride ``s`` and dilation
+    ``d``: the taps that reach a phase are ``s / gcd(d, s)`` apart, and
+    each reads ``d / gcd(d, s)`` cotangent rows before the one before it
+    (``dgrad_tile::tap_step``, ``q_step``)."""
+    g = math.gcd(d, stride)
+    return stride // g, d // g
+
+
+def dgrad_max_taps(f: int, stride: int, d: int = 1) -> int:
+    """The most taps of a filter ``f`` one phase reaches at stride ``s``
+    and dilation ``d`` (phase 0 always reaches tap 0)."""
+    return -(-f // dgrad_tap_steps(stride, d)[0])
+
+
+def dgrad_reach(f: int, stride: int, d: int = 1) -> int:
+    """Cotangent rows from a phase row's last tap's read to its first's:
+    ``(max taps - 1) * qstep``; a tile of ``th`` phase rows reads ``th +
+    reach`` of them."""
+    return (dgrad_max_taps(f, stride, d) - 1) * dgrad_tap_steps(stride, d)[1]
+
+
+def dgrad_gathered(th: int, f: int, stride: int, d: int = 1) -> bool:
+    """Whether the f32 dgrad stages only the bands of rows its taps read
+    (``dgrad_tile::gather_h``): where the tile's ``th`` rows are fewer than
+    the ``qstep`` rows between two taps' reads (never at dilation 1)."""
+    return dgrad_max_taps(f, stride, d) > 1 and th < dgrad_tap_steps(
+        stride, d)[1]
+
+
+def dgrad_rows(th: int, f: int, stride: int, d: int = 1) -> int:
+    """Rows of the f32 dgrad's staged window (``dgrad_tile::win_rows``): the
+    ``th + reach`` rows, or where gathered the taps' bands of ``th``."""
+    if dgrad_gathered(th, f, stride, d):
+        return dgrad_max_taps(f, stride, d) * th
+    return th + dgrad_reach(f, stride, d)
 
 
 def dgrad_phase_axes(extent: int, f: int, stride: int,
-                     pad: int) -> tuple[PhaseAxis, ...]:
+                     pad: int, dilation: int = 1) -> tuple[PhaseAxis, ...]:
     """The ``stride`` phases of one axis of an unpadded input of ``extent``
-    rows, filter ``f``, leading pad ``pad`` (the kernels' ``phase_axis``)."""
+    rows, filter ``f``, leading pad ``pad``, filter dilation ``dilation``
+    (the kernels' ``phase_axis``).  Phase ``ph`` holds the rows with ``(i +
+    pad) % s == ph``; the taps ``dh`` that reach it are those with ``dh * d
+    = ph (mod s)``: none where ``gcd(d, s)`` does not divide ``ph`` (those
+    rows of dx are zeros), else ``tap0 + (s / g) t`` from the least solution
+    ``tap0``, tap ``t`` reading cotangent row ``q0 + a - (d / g) t`` with
+    ``q0 = (first + pad - tap0 d) / s``, which may be negative."""
+    tstep, qstep = dgrad_tap_steps(stride, dilation)
     out = []
     for ph in range(stride):
         first = (ph - pad) % stride
+        tap0 = next((k for k in range(tstep)
+                     if k * dilation % stride == ph), None)
+        taps = (0 if tap0 is None or tap0 >= f
+                else (f - 1 - tap0) // tstep + 1)
+        tap0 = 0 if tap0 is None else tap0
         out.append(PhaseAxis(
             phase=ph, first=first,
             extent=-(-(extent - first) // stride) if first < extent else 0,
-            q0=(first + pad - ph) // stride,
-            taps=(f - 1 - ph) // stride + 1 if ph < f else 0))
+            q0=(first + pad - tap0 * dilation) // stride,
+            taps=taps, tap0=tap0, tstep=tstep, qstep=qstep))
     return tuple(out)
 
 
@@ -828,18 +891,21 @@ def dgrad_lanes(cib: int) -> int:
 
 def dgrad_smem_bytes(hf: int, wf: int, stride: int, lanes: int, chunk: int,
                      hwin: int, wwin: int, prologue: bool,
-                     streamed: bool = False) -> int:
+                     streamed: bool = False, dilation=(1, 1)) -> int:
     """Dynamic shared memory of one f32 dgrad CTA
     (``dgrad_tile::smem_bytes``): 128 bytes to align the base; per slot of
     the two-slot ring the weights of the most taps a phase reaches,
     ``chunk x lanes``, and their small halves, and a ``hwin``-row cotangent
     window of ``wwin`` cells of ``chunk + 4`` floats a row (the streamed
-    kernel's rows padded to 128 bytes, which boxes of several rows need them
-    to be already; the window kernel's whole window one box, padded to 128
-    bytes), with ``z`` beside it with the prologue; one int per k8 step of a
+    kernel's rows, and a gathered window's (``dgrad_rows``), padded to 128
+    bytes, which boxes of several rows need them to be already; the window
+    kernel's whole window one box, padded to 128 bytes), with ``z`` beside
+    it with the prologue; one int per k8 step of a
     stage (rounded up to an even count); an 8-byte mbarrier per slot and
-    copy group.  The bf16 build's is ``dgrad_bf16_smem_bytes``."""
-    taps = -(-hf // stride) * -(-wf // stride)
+    copy group; the taps those of a phase at ``dilation``.  The bf16
+    build's is ``dgrad_bf16_smem_bytes``."""
+    taps = (dgrad_max_taps(hf, stride, dilation[0])
+            * dgrad_max_taps(wf, stride, dilation[1]))
     row = wwin * (chunk + 4)
     window = (hwin * -(-row // 32) * 32 if streamed
               else -(-hwin * row // 32) * 32)
@@ -877,13 +943,14 @@ class DgradBlocking:
 
 
 def dgrad_tiles(blk: DgradBlocking, hi: int, wi: int, hf: int, wf: int,
-                stride: int, pads) -> list[tuple[PhaseAxis, PhaseAxis, int,
-                                                 int]]:
+                stride: int, pads, dilation=(1, 1)
+                ) -> list[tuple[PhaseAxis, PhaseAxis, int, int]]:
     """The CTAs of one image and Ci block, in grid order (``tile_of``):
-    ``(row axis, column axis, a0, b0)``, phase by phase, row-major."""
+    ``(row axis, column axis, a0, b0)``, phase by phase, row-major; a phase
+    that no tap reaches keeps its tiles, which write its zeros."""
     (pt, _), (pl, _) = pads
-    rows = dgrad_phase_axes(hi, hf, stride, pt)
-    cols = dgrad_phase_axes(wi, wf, stride, pl)
+    rows = dgrad_phase_axes(hi, hf, stride, pt, dilation[0])
+    cols = dgrad_phase_axes(wi, wf, stride, pl, dilation[1])
     out = []
     for r in rows:
         for c in cols:
@@ -925,31 +992,39 @@ class DgradPlan:
 
 def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
                wf: int, stride: int, pads, ciblk: int, cib: int, coblk: int,
-               cob: int, op_bytes: int = 4,
-               prologue: bool = False) -> DgradPlan:
+               cob: int, op_bytes: int = 4, prologue: bool = False,
+               groups: int = 1, dilation=(1, 1)) -> DgradPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an
     unpadded ``hi x wi`` input with leading pads ``pads``, with
-    ``op_bytes`` operands, ``z`` staged where ``prologue``."""
+    ``op_bytes`` operands, ``z`` staged where ``prologue``; a Ci block of a
+    grouped conv contracts its group's ``coblk / groups`` Co blocks alone
+    (1 / groups of the dense MACs), and ``dilation`` strides the taps."""
     (pt, _), (pl, _) = pads
-    tiles = dgrad_tiles(blk, hi, wi, hf, wf, stride, pads)
+    tiles = dgrad_tiles(blk, hi, wi, hf, wf, stride, pads, dilation)
     cells = sum(r.extent * c.extent * r.taps * c.taps
-                for r in dgrad_phase_axes(hi, hf, stride, pt)
-                for c in dgrad_phase_axes(wi, wf, stride, pl))
+                for r in dgrad_phase_axes(hi, hf, stride, pt, dilation[0])
+                for c in dgrad_phase_axes(wi, wf, stride, pl, dilation[1]))
     tile_taps = sum(r.taps * c.taps for r, c, _, _ in tiles)
     kpad = fwd_kpad(cob, op_bytes)
     products = 3 if op_bytes == 4 else 1
+    cogblk = coblk // groups
     if op_bytes == 4:
+        padded = blk.strips > 1 or dgrad_gathered(blk.th, hf, stride,
+                                                  dilation[0])
         smem = dgrad_smem_bytes(hf, wf, stride, blk.lanes, blk.chunk,
-                                blk.hwin, blk.wwin, prologue, blk.strips > 1)
+                                blk.hwin, blk.wwin, prologue, padded,
+                                dilation)
         windows = rows = 2
     else:
-        smem = dgrad_bf16_smem_bytes(blk, hf, wf, stride, prologue)
-        windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue)
+        smem = dgrad_bf16_smem_bytes(blk, hf, wf, stride, prologue,
+                                     dilation)
+        windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue,
+                                         dilation=dilation)
     return DgradPlan(
         tiles=len(tiles),
-        function_macs=n * ciblk * cells * cib * coblk * cob,
+        function_macs=n * ciblk * cells * cib * cogblk * cob,
         issued_macs=(n * ciblk * tile_taps * DGRAD_ROWS * blk.wgs * blk.lanes
-                     * coblk * kpad * products),
+                     * cogblk * kpad * products),
         smem=smem, window_slots=windows, weight_slots=rows,
         products=products)
 
@@ -957,7 +1032,8 @@ def dgrad_plan(blk: DgradBlocking, n: int, hi: int, wi: int, hf: int,
 def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                      stride: int, ciblk: int, cib: int, cob: int,
                      machine: MachineModel, prologue: bool, streamed: bool,
-                     hso: int | None = None, op_bytes: int = 4):
+                     hso: int | None = None, op_bytes: int = 4,
+                     dilation=(1, 1)):
     """The tiles the search weighs, each as ``(key, DgradBlocking)``, the
     least key the choice: for each consumer count (the streamed band's
     strips: two or three, one a warpgroup) and tile width, the tallest
@@ -971,64 +1047,82 @@ def dgrad_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
     stage: a fixed part, the producer's split and prologue, and in the
     streamed kernel its TMA boxes of window rows; ties go to more rows a
     CTA, a larger chunk, then a smaller window.  ``op_bytes`` 2 weighs the
-    bf16 build (``_dgrad_bf16_candidates``)."""
+    bf16 build (``_dgrad_bf16_candidates``).  ``dilation`` sets the taps a
+    phase reaches and the window's reach (``dgrad_phase_axes``); a grouped
+    conv takes the dense tiles (the cost is per Co block: a Ci block's
+    contraction is only shorter)."""
     if _fwd_k_step(op_bytes) == 16:
         return _dgrad_bf16_candidates(n, hi, wi, hf, wf, stride, ciblk, cib,
-                                      cob, machine, prologue, streamed, hso)
+                                      cob, machine, prologue, streamed, hso,
+                                      dilation)
     lanes = dgrad_lanes(cib)
-    mh, mw = -(-hf // stride), -(-wf // stride)
+    mh = dgrad_max_taps(hf, stride, dilation[0])
+    mw = dgrad_max_taps(wf, stride, dilation[1])
+    rh, rw = (dgrad_reach(hf, stride, dilation[0]),
+              dgrad_reach(wf, stride, dilation[1]))
     hp, wp = -(-hi // stride), -(-wi // stride)
     kpad = fwd_kpad(cob)
     chunks = [c for c in range(kpad, 0, -8) if kpad % c == 0]
     out = []
     counts = range(2, DGRAD_CONSUMERS + 1) if streamed else range(
         1, DGRAD_CONSUMERS + 1)
-    for wgs in counts:
-        rows = DGRAD_ROWS * wgs
-        for tw in range(1, min(wp, rows) + 1):
-            if streamed:                  # wgs strips of sh rows
-                sh = hso if hso is not None else min(-(-hp // wgs),
-                                                     DGRAD_ROWS // tw)
-                if sh < 1 or sh * tw > DGRAD_ROWS:
+    # where no tile of the tallest height fits (a dilated filter's window),
+    # shorter ones are weighed
+    for shorter in (False, True):
+        if out or streamed and shorter:
+            break
+        for wgs in counts:
+            rows = DGRAD_ROWS * wgs
+            for tw in range(1, min(wp, rows) + 1):
+                if streamed:                  # wgs strips of sh rows
+                    sh = hso if hso is not None else min(-(-hp // wgs),
+                                                         DGRAD_ROWS // tw)
+                    if sh < 1 or sh * tw > DGRAD_ROWS:
+                        continue
+                    if hso is None:           # balance the bands over the rows
+                        sh = -(-hp // (wgs * -(-hp // (wgs * sh))))
+                    th, mstride = wgs * sh, sh * tw
+                else:
+                    th = min(hp, rows // tw)
+                    if th < 1:
+                        continue
+                    th = -(-hp // -(-hp // th))
+                    mstride = rows
+                for th in range(th, 0, -1) if shorter else (th,):
+                    hwin = dgrad_rows(th, hf, stride, dilation[0])
+                    wwin = tw + rw
+                    padded = streamed or dgrad_gathered(th, hf, stride,
+                                                        dilation[0])
+                    chunk = next((c for c in chunks if dgrad_smem_bytes(
+                        hf, wf, stride, lanes, c, hwin, wwin, prologue,
+                        padded, dilation) <= machine.smem_block), None)
+                    if chunk is not None:
+                        break
+                if chunk is None:
                     continue
-                if hso is None:           # balance the bands over the rows
-                    sh = -(-hp // (wgs * -(-hp // (wgs * sh))))
-                th, mstride = wgs * sh, sh * tw
-            else:
-                th = min(hp, rows // tw)
-                if th < 1:
-                    continue
-                th = -(-hp // -(-hp // th))
-                mstride = rows
-            hwin, wwin = th + mh - 1, tw + mw - 1
-            chunk = next((c for c in chunks if dgrad_smem_bytes(
-                hf, wf, stride, lanes, c, hwin, wwin, prologue, streamed)
-                <= machine.smem_block), None)
-            if chunk is None:
-                continue
-            tiles = stride * stride * -(-hp // th) * -(-wp // tw)
-            taps = hf * wf / (stride * stride)    # a phase's, on average
-            mma = (3 * rows * taps * chunk * lanes / DGRAD_MACS_PER_CYCLE
-                   / DGRAD_WG_EFFICIENCY[wgs])
-            cells = hwin * wwin * chunk
-            other = DGRAD_STAGE_CYCLES + (
-                DGRAD_SPLIT_CYCLES * taps * chunk * lanes
-                + (DGRAD_PROLOGUE_CYCLES * cells if prologue else 0)
-            ) / DGRAD_ROWS / 2
-            if streamed:    # its TMA boxes of window rows, g's and z's
-                # a box of sh rows lands on 128 bytes only where a row
-                # fills whole 128-byte lines (wwin cells of chunk + 4 = 4
-                # mod 8 floats: wwin a multiple of 8); else one box a row
-                boxes = (-(-(sh + mh - 1) // sh) + wgs - 1
-                         if (tw + mw - 1) % 8 == 0 else hwin)
-                other += DGRAD_BOX_CYCLES * boxes * (2 if prologue else 1)
-            cost = (-(-tiles * ciblk * n // machine.sms) * (kpad // chunk)
-                    * max(mma, other))
-            out.append(((cost, -rows, -chunk, hwin * wwin, tiles),
-                        DgradBlocking(
-                            th=th, tw=tw, strips=wgs if streamed else 1,
-                            wgs=wgs, lanes=lanes, chunk=chunk,
-                            mstride=mstride, hwin=hwin, wwin=wwin)))
+                tiles = stride * stride * -(-hp // th) * -(-wp // tw)
+                taps = hf * wf / (stride * stride)    # a phase's, on average
+                mma = (3 * rows * taps * chunk * lanes / DGRAD_MACS_PER_CYCLE
+                       / DGRAD_WG_EFFICIENCY[wgs])
+                cells = hwin * wwin * chunk
+                other = DGRAD_STAGE_CYCLES + (
+                    DGRAD_SPLIT_CYCLES * taps * chunk * lanes
+                    + (DGRAD_PROLOGUE_CYCLES * cells if prologue else 0)
+                ) / DGRAD_ROWS / 2
+                if streamed:    # its TMA boxes of window rows, g's and z's
+                    # a box of sh rows lands on 128 bytes only where a row
+                    # fills whole 128-byte lines (wwin cells of chunk + 4 = 4
+                    # mod 8 floats: wwin a multiple of 8); else one box a row
+                    boxes = (-(-(sh + mh - 1) // sh) + wgs - 1
+                             if (tw + mw - 1) % 8 == 0 else hwin)
+                    other += DGRAD_BOX_CYCLES * boxes * (2 if prologue else 1)
+                cost = (-(-tiles * ciblk * n // machine.sms) * (kpad // chunk)
+                        * max(mma, other))
+                out.append(((cost, -rows, -chunk, hwin * wwin, tiles),
+                            DgradBlocking(
+                                th=th, tw=tw, strips=wgs if streamed else 1,
+                                wgs=wgs, lanes=lanes, chunk=chunk,
+                                mstride=mstride, hwin=hwin, wwin=wwin)))
     return out
 
 
@@ -1082,62 +1176,66 @@ def dgrad_bf16_wpitch(wwin: int, chunk: int, streamed: bool) -> int:
 
 
 def dgrad_bf16_window_bytes(blk: DgradBlocking, hf: int, wf: int,
-                            stride: int, prologue: bool) -> int:
+                            stride: int, prologue: bool,
+                            dilation=(1, 1)) -> int:
     """Bytes of one window slot of a bf16 dgrad CTA
     (``dgrad_tile::bf16::window_slot_bytes``): the window's cells as far as
     the last consumer's 64 rows read at the largest tap shift, in whole 1024
     bytes, with ``z``'s beside it with the prologue."""
-    mh, mw = -(-hf // stride), -(-wf // stride)
+    rh, rw = (dgrad_reach(hf, stride, dilation[0]),
+              dgrad_reach(wf, stride, dilation[1]))
     streamed = blk.strips > 1
     pitch = dgrad_bf16_wpitch(blk.wwin, blk.chunk, streamed)
     last = (blk.wgs - 1) * (blk.mstride if streamed else DGRAD_ROWS)
-    cells = max(blk.hwin * pitch,
-                last + DGRAD_ROWS + (mh - 1) * pitch + mw - 1)
+    cells = max(blk.hwin * pitch, last + DGRAD_ROWS + rh * pitch + rw)
     window = -(-cells * 2 * blk.chunk // 1024) * 1024
     return (2 if prologue else 1) * window
 
 
-def dgrad_bf16_row_bytes(blk: DgradBlocking, wf: int, stride: int) -> int:
+def dgrad_bf16_row_bytes(blk: DgradBlocking, wf: int, stride: int,
+                         dilation: int = 1) -> int:
     """Bytes of one weight slot of a bf16 dgrad CTA
     (``dgrad_tile::bf16::row_weight_bytes``): the taps of one filter row of
     a phase, at most, ``lanes`` rows of ``2 * chunk`` bytes a tap, in whole
     1024 bytes."""
-    mw = -(-wf // stride)
+    mw = dgrad_max_taps(wf, stride, dilation)
     return -(-mw * blk.lanes * 2 * blk.chunk // 1024) * 1024
 
 
 def dgrad_bf16_rings(blk: DgradBlocking, hf: int, wf: int, stride: int,
-                     prologue: bool, smem_block: int = 232448):
+                     prologue: bool, smem_block: int = 232448,
+                     dilation=(1, 1)):
     """``(window slots, weight slots)`` of a bf16 dgrad CTA
     (``dgrad_tile::bf16::window_slots``, ``row_slots``): as many weight
     slots as fit in ``smem_block`` beside two window slots, up to
     DGRAD_BF16_ROWS, then as many window slots as fit beside them, up to
     DGRAD_BF16_WINDOWS."""
-    win = dgrad_bf16_window_bytes(blk, hf, wf, stride, prologue)
-    row = dgrad_bf16_row_bytes(blk, wf, stride)
+    win = dgrad_bf16_window_bytes(blk, hf, wf, stride, prologue, dilation)
+    row = dgrad_bf16_row_bytes(blk, wf, stride, dilation[1])
     room = smem_block - 1024 - DGRAD_BF16_BAR_BYTES
     rows = min(DGRAD_BF16_ROWS, max(room - 2 * win, 0) // row)
     return min(DGRAD_BF16_WINDOWS, (room - rows * row) // win), rows
 
 
 def dgrad_bf16_smem_bytes(blk: DgradBlocking, hf: int, wf: int, stride: int,
-                          prologue: bool) -> int:
+                          prologue: bool, dilation=(1, 1)) -> int:
     """Dynamic shared memory of one bf16 dgrad CTA
     (``dgrad_tile::bf16::smem_bytes``): 1024 bytes to align the base, the
     window slots and the weight slots (``dgrad_bf16_rings``), the mbarriers
     (full and ready per window slot and copy group, empty per window slot,
     full and empty per weight slot)."""
-    windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue)
+    windows, rows = dgrad_bf16_rings(blk, hf, wf, stride, prologue,
+                                     dilation=dilation)
     return (1024 + windows * dgrad_bf16_window_bytes(blk, hf, wf, stride,
-                                                     prologue)
-            + rows * dgrad_bf16_row_bytes(blk, wf, stride)
+                                                     prologue, dilation)
+            + rows * dgrad_bf16_row_bytes(blk, wf, stride, dilation[1])
             + DGRAD_BF16_BAR_BYTES)
 
 
 def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                            stride: int, ciblk: int, cib: int, cob: int,
                            machine: MachineModel, prologue: bool,
-                           streamed: bool, hso: int | None):
+                           streamed: bool, hso: int | None, dilation=(1, 1)):
     """``dgrad_candidates`` of the bf16 build: for each consumer count,
     chunk and tile width, the tallest tile (a streamed strip: ``(hso - 1) *
     wpitch + tw <= 64``; the window tile: ``(th - 1) * wpitch + tw <= 64 *
@@ -1145,7 +1243,10 @@ def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
     keyed by the cost above, ties to more positions a CTA, a larger chunk,
     then a smaller window."""
     lanes = dgrad_lanes(cib)
-    mh, mw = -(-hf // stride), -(-wf // stride)
+    mh = dgrad_max_taps(hf, stride, dilation[0])
+    mw = dgrad_max_taps(wf, stride, dilation[1])
+    rh, rw = (dgrad_reach(hf, stride, dilation[0]),
+              dgrad_reach(wf, stride, dilation[1]))
     hp, wp = -(-hi // stride), -(-wi // stride)
     kpad = fwd_kpad(cob, 2)
     taps = hf * wf / (stride * stride)        # a phase's, on average
@@ -1155,7 +1256,7 @@ def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
     for wgs in counts:
         for chunk in (c for c in DGRAD_BF16_CHUNKS if kpad % c == 0):
             for tw in range(1, min(wp, DGRAD_ROWS * wgs) + 1):
-                wwin = tw + mw - 1
+                wwin = tw + rw
                 pitch = dgrad_bf16_wpitch(wwin, chunk, streamed)
                 if streamed:              # wgs strips of sh rows
                     fit = (DGRAD_ROWS - tw) // pitch + 1
@@ -1171,13 +1272,14 @@ def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
                     mstride = DGRAD_ROWS * wgs
                     if (th - 1) * pitch + tw <= DGRAD_ROWS * (wgs - 1):
                         continue          # a consumer with no row stored
-                hwin = th + mh - 1
+                hwin = th + rh
                 blk = DgradBlocking(th=th, tw=tw,
                                     strips=wgs if streamed else 1, wgs=wgs,
                                     lanes=lanes, chunk=chunk,
                                     mstride=mstride, hwin=hwin, wwin=wwin)
                 windows, rows = dgrad_bf16_rings(blk, hf, wf, stride,
-                                                 prologue, machine.smem_block)
+                                                 prologue, machine.smem_block,
+                                                 dilation)
                 if windows < 2 or rows < 2:
                     continue
                 ns = min(windows, rows)
@@ -1207,18 +1309,21 @@ def _dgrad_bf16_candidates(n: int, hi: int, wi: int, hf: int, wf: int,
 def _dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int, stride: int,
                     ciblk: int, cib: int, cob: int, machine: MachineModel,
                     prologue: bool, streamed: bool, hso: int | None,
-                    what: str, op_bytes: int = 4) -> DgradBlocking:
+                    what: str, op_bytes: int = 4,
+                    dilation=(1, 1)) -> DgradBlocking:
     """The least-cost tile of ``dgrad_candidates``."""
     found = dgrad_candidates(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                             machine, prologue, streamed, hso, op_bytes)
+                             machine, prologue, streamed, hso, op_bytes,
+                             dilation)
     if not found:
         if hso is not None and hso > DGRAD_ROWS:
             raise ValueError(f"hso={hso} phase rows do not fit a strip of "
                              f"at most {DGRAD_ROWS} positions")
         raise SmemMisfitError(
             f"no {what} tile fits: filter {hf}x{wf}, stride {stride}, "
-            f"cib={cib}, cob={cob} need more than {machine.smem_block} bytes "
-            "of shared memory even at one position")
+            f"dilation {tuple(dilation)}, cib={cib}, cob={cob} need more "
+            f"than {machine.smem_block} bytes of shared memory even at one "
+            "position")
     return min(found, key=lambda kb: kb[0])[1]
 
 
@@ -1227,13 +1332,16 @@ def choose_dgrad_blocking(n: int, hi: int, wi: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, cob: int,
                           machine: MachineModel = H100_SXM,
                           prologue: bool = False,
-                          op_bytes: int = 4) -> DgradBlocking:
+                          op_bytes: int = 4,
+                          dilation=(1, 1)) -> DgradBlocking:
     """Tile the window dgrad of ``n`` images over an unpadded ``hi x wi``
     input (``_dgrad_blocking``): a CTA stages the whole cotangent window of
     its ``th x tw`` tile a stage, with ``z`` beside it when ``prologue``;
-    ``op_bytes`` 2 for the bf16 build."""
+    ``op_bytes`` 2 for the bf16 build; ``dilation`` ``(dh, dw)`` the
+    filter's (the window then spans a phase's dilated taps)."""
     return _dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                           machine, prologue, False, None, "dgrad", op_bytes)
+                           machine, prologue, False, None, "dgrad", op_bytes,
+                           tuple(dilation))
 
 
 # ---------------------------------------------------------------------------
@@ -1303,7 +1411,8 @@ def wgrad_mtiles(hf: int, wf: int, cib: int) -> int:
 
 def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                      cib: int, cob: int, lanes: int, prologue: bool,
-                     op_bytes: int = 4, span: int = 1) -> int:
+                     op_bytes: int = 4, span: int = 1,
+                     dilation=(1, 1)) -> int:
     """Dynamic shared memory of one wgrad CTA (``wgrad_tile::smem_bytes``):
     128 bytes to align the base; per slot of the two-slot ring the x window
     ``[hwin][rf]`` (a row's ``wwin`` cells of ``ld`` floats, padded to 128
@@ -1315,14 +1424,16 @@ def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     bf16 (``op_bytes`` 2, ``wgrad_tile::bf16::smem_bytes``): a 1024-byte
     swizzle atom to align the base, ``wgrad_bf16_slots`` slots of
     ``wgrad_bf16_slot_bytes`` (a CTA of ``span`` m-tiles), 256 bytes of
-    tables; no g, z or prologue."""
+    tables; no g, z or prologue.  ``dilation`` widens the x window to the
+    filter's dilated reach."""
     if op_bytes == 2:
-        slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib, lanes, span)
+        slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib, lanes, span,
+                                     dilation)
         return (WGRAD_BF16_ATOM + wgrad_bf16_slots(slot) * slot
                 + WGRAD_BF16_TABLES)
-    hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+    rows, bands, cells = wgrad_staged(th, tw, hf, wf, stride, dilation)
     kpos = -(-th * tw // 8) * 8
-    x = hwin * -(-wwin * wgrad_ldx(cib, stride) // 32) * 32
+    x = rows * bands * -(-cells * wgrad_ldx(cib, stride) // 32) * 32
     raw = -(-kpos * cob // 32) * 32
     slot = x + (2 if prologue else 1) * raw + 2 * kpos * lanes
     return 128 + 4 * (2 * slot + WGRAD_MAX_POSITIONS + 128) + 8 * 4
@@ -1334,7 +1445,8 @@ def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
 # memory by descriptor in 128-byte swizzled rows (a cell or a position a
 # row), K in k16 steps of 8-position groups that are 8 consecutive cells
 # (``tw`` a multiple of 8 but at 1x1 stride 1), the window staged in
-# ``min(stride, wf)`` column phases, up to WGRAD_BF16_MAX_POSITIONS
+# ``wgrad_bf16_phases`` column phases (tap (dh, dw) at dilation d reads
+# phase (dw d) % s, (dw d) / s cells on), up to WGRAD_BF16_MAX_POSITIONS
 # positions a stage in a ring of 2-4 slots.  A CTA's ``span`` = wgs * mpw
 # m-tiles are taps of one half, or whole halves where they cover a half's
 # taps (``wgrad_bf16_groups``); widths 64 and 128 only.
@@ -1357,6 +1469,41 @@ def wgrad_bf16_lanes(cob: int) -> int:
     return lanes
 
 
+def wgrad_window(th: int, tw: int, hf: int, wf: int, stride: int,
+                 dilation=(1, 1)) -> tuple[int, int]:
+    """The x window of a ``th x tw`` tile of output positions: ``(th - 1) s
+    + (hf - 1) dh + 1`` rows by the same in columns (``wgrad_tile::hwin``,
+    ``wwin``)."""
+    return ((th - 1) * stride + fwd_reach(hf, dilation[0]),
+            (tw - 1) * stride + fwd_reach(wf, dilation[1]))
+
+
+def wgrad_staged(th: int, tw: int, hf: int, wf: int, stride: int,
+                 dilation=(1, 1)) -> tuple[int, int, int]:
+    """``(rows, bands a row, cells a band)`` of the f32 wgrad's staged x
+    window (``wgrad_tile::x_rows``, ``box_cells``): where a tap's band of
+    ``(th - 1) s + 1`` rows is shorter than the dilation, the ``hf`` bands
+    alone, else the whole span; columns likewise (never at dilation 1)."""
+    hwin, wwin = wgrad_window(th, tw, hf, wf, stride, dilation)
+    bh, bw = (th - 1) * stride + 1, (tw - 1) * stride + 1
+    rows = hf * bh if hf > 1 and bh < dilation[0] else hwin
+    if wf > 1 and bw < dilation[1]:
+        return rows, wf, bw
+    return rows, 1, wwin
+
+
+def wgrad_bf16_phases(wf: int, stride: int, dw: int = 1) -> int:
+    """Column phases the bf16 build stages (``wgrad_tile::bf16::phases``):
+    the stride's, or fewer where the filter's dilated reach is shorter."""
+    return min(stride, fwd_reach(wf, dw))
+
+
+def wgrad_bf16_wph(tw: int, wf: int, stride: int, dw: int = 1) -> int:
+    """Cells of a column phase's window row (``wgrad_tile::bf16::wph``):
+    ``tw + ((wf - 1) dw) // s``."""
+    return tw + (fwd_reach(wf, dw) - 1) // stride
+
+
 def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int):
     """``(taps a group, groups a half's taps take, halves a group, groups)``
     of a CTA of ``span`` m-tiles (``wgrad_tile::bf16::tpg``, ``gph``,
@@ -1369,20 +1516,21 @@ def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int):
 
 
 def wgrad_bf16_slot_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
-                          cib: int, lanes: int, span: int) -> int:
+                          cib: int, lanes: int, span: int,
+                          dilation=(1, 1)) -> int:
     """One slot of the bf16 ring: the CTA's staged halves, each in every
-    column phase, a window of ``hwin`` rows of ``tw + (wf - 1) // stride``
-    cells (at least the tile's positions rounded to 8) of 128 bytes in
-    whole 1024-byte atoms, then B, ``lanes / 64`` blocks of K (positions
-    rounded to 16) rows."""
-    hwin = (th - 1) * stride + hf
-    wph = tw + (wf - 1) // stride
+    column phase (``wgrad_bf16_phases``), a window of ``hwin`` rows of
+    ``wgrad_bf16_wph`` cells (at least the tile's positions rounded to 8)
+    of 128 bytes in whole 1024-byte atoms, then B, ``lanes / 64`` blocks of
+    K (positions rounded to 16) rows."""
+    hwin, _ = wgrad_window(th, tw, hf, wf, stride, dilation)
+    wph = wgrad_bf16_wph(tw, wf, stride, dilation[1])
     cells = max(hwin * wph, -(-th * tw // 8) * 8)
     region = -(-cells * WGRAD_BF16_ROW // WGRAD_BF16_ATOM) * WGRAD_BF16_ATOM
     _, _, hpg, _ = wgrad_bf16_groups(hf, wf, cib, span)
     staged = min(hpg, -(-cib // 64))
     kpos = -(-th * tw // 16) * 16
-    return (staged * min(stride, wf) * region
+    return (staged * wgrad_bf16_phases(wf, stride, dilation[1]) * region
             + lanes // 64 * kpos * WGRAD_BF16_ROW)
 
 
@@ -1467,21 +1615,25 @@ class WgradPlan:
 
 def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
                wf: int, stride: int, ciblk: int, cib: int, coblk: int,
-               cob: int, prologue: bool) -> WgradPlan:
+               cob: int, prologue: bool, groups: int = 1,
+               dilation=(1, 1)) -> WgradPlan:
     """What a launch of the tiles ``blk`` runs over ``n`` images of an
-    ``ho x wo`` output (the bf16 build where ``blk.kstep`` is 16)."""
+    ``ho x wo`` output (the bf16 build where ``blk.kstep`` is 16); ``ciblk``
+    is the map's, of which a grouped conv's Co block contracts its group's
+    ``ciblk / groups`` (1 / groups of the dense MACs)."""
     op_bytes = 2 if blk.kstep == 16 else 4
     products = 3 if op_bytes == 4 else 1
     mtiles = (-(-cib // 64) * hf * wf if op_bytes == 2
               else wgrad_mtiles(hf, wf, cib))
+    cigblk = ciblk // groups
     return WgradPlan(
         tiles=blk.tiles,
-        function_macs=n * ho * wo * hf * wf * cib * ciblk * cob * coblk,
-        issued_macs=(ciblk * coblk * blk.tiles * blk.kpos * mtiles
+        function_macs=n * ho * wo * hf * wf * cib * cigblk * cob * coblk,
+        issued_macs=(cigblk * coblk * blk.tiles * blk.kpos * mtiles
                      * WGRAD_ROWS * blk.lanes * products),
         smem=wgrad_smem_bytes(blk.th, blk.tw, hf, wf, stride, cib, cob,
                               blk.lanes, prologue, op_bytes,
-                              blk.wgs * blk.mpw),
+                              blk.wgs * blk.mpw, dilation),
         products=products)
 
 
@@ -1501,7 +1653,8 @@ def _wgrad_shapes(ho: int, wo: int, hso: int | None):
 def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                      stride: int, ciblk: int, cib: int, coblk: int, cob: int,
                      machine: MachineModel, prologue: bool, streamed: bool,
-                     hso: int | None = None, op_bytes: int = 4):
+                     hso: int | None = None, op_bytes: int = 4,
+                     groups: int = 1, dilation=(1, 1)):
     """The tiles the search weighs, each as ``(key, blocking)``, the least
     key the choice.  For each stage shape (``_wgrad_shapes``) whose shared
     memory fits ``machine.smem_block``, consumer count and m-tiles a
@@ -1517,11 +1670,15 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     sum's tail, one column's rows read by one SM at
     ``SPLIT_SUM_BYTES_PER_CYCLE``.  Ties go to fewer shares, then larger
     stages.  ``op_bytes`` 2 weighs the bf16 build
-    (``_wgrad_bf16_candidates``)."""
+    (``_wgrad_bf16_candidates``).  A grouped conv's grid walks its
+    ``ciblk / groups`` input blocks a Co block, and its dw has that many;
+    ``dilation`` widens the x window to the filter's dilated reach."""
     kstep = _fwd_k_step(op_bytes)
+    ciblk //= groups
     if kstep == 16:
         return _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
-                                      coblk, cob, machine, streamed, hso)
+                                      coblk, cob, machine, streamed, hso,
+                                      dilation)
     lanes = wgrad_lanes(cob)
     mt = wgrad_mtiles(hf, wf, cib)
     cols = coblk * ciblk * hf * wf * cib * cob + coblk * cob
@@ -1529,16 +1686,17 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     out = []
     for th, tw in _wgrad_shapes(ho, wo, hso):
         smem = wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob, lanes,
-                                prologue, op_bytes)
+                                prologue, op_bytes, dilation=dilation)
         if smem > machine.smem_block:
             continue
         kpos = -(-th * tw // kstep) * kstep
-        hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
+        hwin, wwin = wgrad_window(th, tw, hf, wf, stride, dilation)
         tiles = n * -(-ho // th) * -(-wo // tw)
         # the streamed walk's kept halo rows cost its producer a move in
         # shared memory, as much as their TMA copy from L2 costs the window
         # kernel's: both stage the whole window
-        staged = op_bytes * (hwin * wwin * cib
+        rows, bands, cells = wgrad_staged(th, tw, hf, wf, stride, dilation)
+        staged = op_bytes * (rows * bands * cells * cib
                              + th * tw * cob * (2 if prologue else 1))
         producer = (WGRAD_STAGE_CYCLES + staged / WGRAD_BYTES_PER_CYCLE
                     + kpos * lanes / 128 * WGRAD_TRANSFORM_CYCLES)
@@ -1611,7 +1769,7 @@ def _wgrad_bf16_shapes(ho: int, wo: int, hf: int, wf: int, stride: int,
 
 
 def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                           machine, streamed, hso):
+                           machine, streamed, hso, dilation=(1, 1)):
     """``wgrad_candidates`` for the bf16 GEMM: each stage shape whose ring
     holds two slots, consumer count and m-tiles a warpgroup (two only at 64
     lanes; two consumers at most where a warpgroup's m-tiles take 128
@@ -1624,12 +1782,12 @@ def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
     mt = halves * taps
     cols = coblk * ciblk * taps * cib * cob
     cls = StreamWgradBlocking if streamed else WgradBlocking
-    phases = min(stride, wf)
+    phases = wgrad_bf16_phases(wf, stride, dilation[1])
     out = []
     for th, tw in _wgrad_bf16_shapes(ho, wo, hf, wf, stride, hso):
         kpos = -(-th * tw // 16) * 16
-        hwin, wwin = (th - 1) * stride + hf, (tw - 1) * stride + wf
-        wph = tw + (wf - 1) // stride
+        hwin, wwin = wgrad_window(th, tw, hf, wf, stride, dilation)
+        wph = wgrad_bf16_wph(tw, wf, stride, dilation[1])
         tiles = n * -(-ho // th) * -(-wo // tw)
         for wgs in range(1, WGRAD_CONSUMERS + 1):
             for mpw in WGRAD_MPW:
@@ -1640,10 +1798,11 @@ def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
                     continue
                 span = wgs * mpw
                 slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib,
-                                             lanes, span)
+                                             lanes, span, dilation)
                 if (wgrad_bf16_slots(slot) < WGRAD_BF16_SLOTS[0]
+                        or hwin > 256 or wph > 256
                         or wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob,
-                                            lanes, False, 2, span)
+                                            lanes, False, 2, span, dilation)
                         > machine.smem_block):
                     continue
                 tpg, _, hpg, groups = wgrad_bf16_groups(hf, wf, cib, span)
@@ -1680,15 +1839,18 @@ def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
 
 
 def _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                    machine, prologue, streamed, hso, what, op_bytes=4):
+                    machine, prologue, streamed, hso, what, op_bytes=4,
+                    groups=1, dilation=(1, 1)):
     """The least-cost tile of ``wgrad_candidates``."""
     found = wgrad_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                             cob, machine, prologue, streamed, hso, op_bytes)
+                             cob, machine, prologue, streamed, hso, op_bytes,
+                             groups, dilation)
     if not found:
         raise SmemMisfitError(
             f"no {what} fits: cib={cib}, cob={cob}, filter {hf}x{wf}, "
-            f"stride {stride} needs more than {machine.smem_block} bytes of "
-            "shared memory even at one position")
+            f"stride {stride}, dilation {tuple(dilation)} needs more than "
+            f"{machine.smem_block} bytes of shared memory even at one "
+            "position")
     return min(found, key=lambda kb: kb[0])[1]
 
 
@@ -1697,14 +1859,16 @@ def choose_wgrad_blocking(n: int, ho: int, wo: int, hf: int, wf: int,
                           stride: int, ciblk: int, cib: int, coblk: int,
                           cob: int, machine: MachineModel = H100_SXM,
                           prologue: bool = False,
-                          op_bytes: int = 4) -> WgradBlocking:
+                          op_bytes: int = 4, groups: int = 1,
+                          dilation=(1, 1)) -> WgradBlocking:
     """Tile the window weight gradient of ``n`` images over an ``ho x wo``
     output (``wgrad_candidates``): each stage stages a tile's whole x
     window, with ``z`` beside its ``g`` when ``prologue``; ``op_bytes`` 2
-    for the bf16 build."""
+    for the bf16 build; ``ciblk`` is the map's, ``groups`` and ``dilation``
+    ``(dh, dw)`` the conv's."""
     return _wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
                            machine, prologue, False, None, "wgrad tile",
-                           op_bytes)
+                           op_bytes, groups, tuple(dilation))
 
 
 # The bf16 dz pass (direct_conv2d_bwd.cu ``dz_kernel_bf16``): one CTA a

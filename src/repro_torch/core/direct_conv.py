@@ -12,24 +12,26 @@ strides the tap origins.  The CPU path of every layer runs it, and
 ``chip_smoke.py`` holds the CUDA kernels against it on the card.
 
 ``direct_conv_dgrad_blocked`` and ``direct_conv_wgrad_blocked`` are the
-plain versions of the backward kernels, dense and depthwise: the
-transposes of that tap loop (what ``jax.vjp`` of the reference gives), tap
-by tap, with the ``dz = g * act'(z)`` prologue and ``db``.  They
+plain versions of the backward kernels, dense, grouped and depthwise, at
+any dilation: the transposes of that tap loop (what ``jax.vjp`` of the
+reference gives), tap by tap, with the ``dz = g * act'(z)`` prologue and
+``db``.  They
 accumulate in f32, or in f64 for f64 operands, so that the CPU can check
 gradients numerically and ``chip_smoke.py`` can hold the wgrad kernels'
 long sums against f64.  They pad and crop copies freely: they are
 references, not the main path.  ``direct_conv_dgrad_phased`` computes the
-dense dgrad the way the CUDA dgrad kernels split it, phase by phase against
-the stride (``core.blocking.dgrad_phase_axes``); only the tests use it, to
-hold that geometry to the reference.
+dense or grouped dgrad at any dilation the way the CUDA dgrad kernels split
+it, phase by phase against the stride (``core.blocking.dgrad_phase_axes``);
+only the tests use it, to hold that geometry to the reference.
 
-A grouped forward (``groups > 1`` with more than one input channel per
-group, weight ``[Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]``) contracts each
-group's input blocks with that group's weight blocks alone, as the
-reference's oracle does: output block ``co`` reads input blocks ``(co //
-cogblk) * cigblk + ci`` for ``ci < cigblk``.  The grouped backward (the
-dgrad and wgrad twins, ``direct_conv_dgrad_phased``) raises
-``NotImplementedError``: it is the backward half of ROADMAP item A2.
+A grouped conv (``groups > 1`` with more than one input channel per group,
+weight ``[Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]``) contracts each group's
+blocks with that group's weight blocks alone, as the reference's oracle
+does and ``jax.vjp`` of it gives: output block ``co`` reads input blocks
+``(co // cogblk) * cigblk + ci`` for ``ci < cigblk``; input block ``ci``'s
+gradient contracts the cotangent blocks ``(ci // cigblk) * cogblk + co``
+for ``co < cogblk``; weight block ``(co, ci)`` takes input block ``(co //
+cogblk) * cigblk + ci``.  Cross-group blocks are never formed.
 """
 from __future__ import annotations
 
@@ -272,11 +274,6 @@ def backward_spec(n: int, hi: int, wi: int, w_shape, stride: int,
     input, checked against the cotangent ``g`` (and the saved
     pre-activation ``z``) that the backward is handed."""
     spec = _geometry(n, hi, wi, w_shape, stride, padding, groups, dilation)
-    if spec.is_grouped and not spec.is_depthwise:
-        raise NotImplementedError(
-            f"groups={groups} with {spec.cig} input channels per group: the "
-            "grouped dgrad and wgrad are the backward half of ROADMAP item "
-            "A2 (only the grouped forward is ported)")
     want = (n, w_shape[0], spec.ho, spec.wo, w_shape[5])
     if g.dim() != 5 or tuple(g.shape) != want:
         raise ValueError(f"cotangent shape {tuple(g.shape)} != the forward's "
@@ -296,15 +293,17 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
     """Input gradient of ``act(conv(x, w) + b)`` given the raw cotangent
     ``g [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (None
     when the activation is linear) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi,
-    Cib]`` at the unpadded ``input_hw`` in ``g``'s dtype; dense, or
-    depthwise with ``groups == C``.  ``precision`` casts ``g``, ``z`` and
+    Cib]`` at the unpadded ``input_hw`` in ``g``'s dtype; dense, grouped
+    (``w [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]``), or depthwise with ``groups
+    == C``, at any ``dilation``.  ``precision`` casts ``g``, ``z`` and
     ``w`` to its operand dtype first; bf16 operands are up-cast to f32
     before any product (exact), so under ``BF16`` only the order of the
     f32 sums differs from the bf16 kernels, and ``dx`` is rounded once to
     bf16 as they round it.
 
     ``dz = g * act'(z)``; every tap adds ``dz @ w[tap]^T`` (depthwise:
-    ``dz * w[tap]``) into the padded input rows it read (a strided view),
+    ``dz * w[tap]``; grouped: each group's cotangent blocks against its
+    weight blocks) into the padded input rows it read (a strided view),
     over the dgrad extents; the pads are then cropped, and rows past the
     extents stay zero.
     """
@@ -315,13 +314,13 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
     dt = _acc_dtype(g, w)
     dz = cotangent_prologue(g, z, activation).to(dt)
     wd = w.to(dt)
-    eh, ew = dgrad_extents(spec.ho, spec.wo, spec.hf_eff, spec.wf_eff,
-                           spec.stride)
+    eh, ew = dgrad_extents(spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
+                           spec.dilation)
     n = g.shape[0]
     if spec.is_depthwise:
         dx_blocks = (g.shape[1], g.shape[4])
     else:
-        dx_blocks = (w.shape[1], w.shape[4])
+        dx_blocks = (w.shape[1] * groups, w.shape[4])
     dxp = torch.zeros((n, dx_blocks[0], eh, ew, dx_blocks[1]), dtype=dt,
                       device=g.device)
     for (dh, dw), win in tap_windows(dxp, spec.hf, spec.wf, spec.ho, spec.wo,
@@ -329,60 +328,79 @@ def direct_conv_dgrad_blocked(g: torch.Tensor, w: torch.Tensor,
         if spec.is_depthwise:
             win.add_(dz * wd[:, 0, dh, dw, 0][None, :, None, None, :])
         else:
-            # [N, Co/Cob, Ho, Wo, Cob] x [Co/Cob, Ci/Cib, Cib, Cob]
-            #   -> [N, Ci/Cib, Ho, Wo, Cib], into the view of dxp
-            win.add_(torch.einsum("nohwk,ocbk->nchwb", dz, wd[:, :, dh, dw]))
+            win.add_(_grouped_dgrad_term(dz, wd[:, :, dh, dw], groups))
     (pt, pb), (pl, pr) = spec.pads
     dxp = pad_blocked(dxp, (0, spec.padded_hi - eh), (0, spec.padded_wi - ew))
     return dxp[:, :, pt:pt + hi, pl:pl + wi, :].to(g.dtype)
+
+
+def _grouped_dgrad_term(dz: torch.Tensor, wt: torch.Tensor,
+                        groups: int) -> torch.Tensor:
+    """One tap's ``dz @ w[tap]^T``: ``dz [N, Co/Cob, H, W, Cob]`` and the
+    tap's weights ``[Co/Cob, Cig/Cib, Cib, Cob]`` -> ``[N, Ci/Cib, H, W,
+    Cib]``, each group's input blocks from its own cotangent and weight
+    blocks (dense at ``groups`` 1)."""
+    n, coblk, h, w, cob = dz.shape
+    _, cigblk, cib, _ = wt.shape
+    # [N, G, Cog/Cob, H, W, Cob] x [G, Cog/Cob, Cig/Cib, Cib, Cob]
+    #   -> [N, G, Cig/Cib, H, W, Cib]
+    return torch.einsum(
+        "ngohwk,gocbk->ngchwb",
+        dz.reshape(n, groups, coblk // groups, h, w, cob),
+        wt.reshape(groups, coblk // groups, cigblk, cib, cob),
+    ).reshape(n, groups * cigblk, h, w, cib)
 
 
 def direct_conv_dgrad_phased(g: torch.Tensor, w: torch.Tensor, input_hw,
                              stride: int = 1, padding: Padding = "VALID",
                              z: Optional[torch.Tensor] = None,
                              activation: Optional[str] = None,
+                             groups: int = 1, dilation=1,
                              precision=None) -> torch.Tensor:
-    """The dense input gradient (as ``direct_conv_dgrad_blocked``, with its
-    ``precision``), split by stride phase as the CUDA kernels split it: the
-    dx rows ``first + s*a`` of a phase take taps ``phase + s*t`` from
-    cotangent rows ``q0 + a - t`` (``dgrad_phase_axes``), cells outside the
-    map read as 0, and each phase is written once, so no stride hole is
-    read and no dilated or padded cotangent exists."""
+    """The dense or grouped input gradient at any ``dilation`` (as
+    ``direct_conv_dgrad_blocked``, with its ``precision``), split by stride
+    phase as the CUDA kernels split it: the dx rows ``first + s*a`` of a
+    phase take taps ``tap0 + tstep*t`` from cotangent rows ``q0 + a -
+    qstep*t`` (``dgrad_phase_axes``), cells outside the map read as 0, a
+    phase no tap reaches is zeros, and each phase is written once, so no
+    stride hole is read and no dilated or padded cotangent exists."""
     g, z, w = _cast(precision, g, z, w)
     hi, wi = input_hw
-    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z)
-    if spec.is_grouped or spec.dilation != (1, 1):
-        raise NotImplementedError(
-            "the phase split is the dense dgrad's: its grouped and dilated "
-            "form is the backward half of ROADMAP item A2")
+    spec = backward_spec(g.shape[0], hi, wi, w.shape, stride, padding, g, z,
+                         groups, dilation)
+    if spec.is_depthwise:
+        raise ValueError("the phase split is the dense and grouped dgrad's; "
+                         "the depthwise dgrad has its own walk")
     dt = _acc_dtype(g, w)
     dz = cotangent_prologue(g, z, activation).to(dt)
     wd = w.to(dt)
     (pt, _), (pl, _) = spec.pads
-    n, ciblk, cib = g.shape[0], w.shape[1], w.shape[4]
+    dil_h, dil_w = spec.dilation
+    n, ciblk, cib = g.shape[0], w.shape[1] * groups, w.shape[4]
     dx = torch.zeros((n, ciblk, hi, wi, cib), dtype=dt, device=g.device)
 
-    def taps_of(ax, f, extent):
+    def taps_of(ax, extent):
         # per tap: (filter index, cotangent index of each phase row, mask)
         out = []
         for t in range(ax.taps):
-            o = ax.q0 + torch.arange(ax.extent, device=g.device) - t
+            o = (ax.q0 + torch.arange(ax.extent, device=g.device)
+                 - ax.qstep * t)
             ok = (o >= 0) & (o < extent)
-            out.append((ax.phase + stride * t, o.clamp(0, extent - 1), ok))
+            out.append((ax.tap0 + ax.tstep * t, o.clamp(0, extent - 1), ok))
         return out
 
-    for r in dgrad_phase_axes(hi, spec.hf, stride, pt):
-        for c in dgrad_phase_axes(wi, spec.wf, stride, pl):
+    for r in dgrad_phase_axes(hi, spec.hf, stride, pt, dil_h):
+        for c in dgrad_phase_axes(wi, spec.wf, stride, pl, dil_w):
             if not (r.extent and c.extent):
                 continue
             acc = dx.new_zeros((n, ciblk, r.extent, c.extent, cib))
-            for dh, oh, okh in taps_of(r, spec.hf, spec.ho):
-                for dw, ow, okw in taps_of(c, spec.wf, spec.wo):
+            for dh, oh, okh in taps_of(r, spec.ho):
+                for dw, ow, okw in taps_of(c, spec.wo):
                     cells = dz[:, :, oh][:, :, :, ow]
                     cells = cells * (okh[:, None] & okw[None, :]).to(dt)[
                         None, None, :, :, None]
-                    acc += torch.einsum("nohwk,ocbk->nchwb", cells,
-                                        wd[:, :, dh, dw])
+                    acc += _grouped_dgrad_term(cells, wd[:, :, dh, dw],
+                                               groups)
             dx[:, :, r.first::stride, c.first::stride] = acc
     return dx.to(g.dtype)
 
@@ -398,7 +416,8 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
     forward's unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw, db [Co/Cob, Cob] or None)``, both f32
     (f64 for f64 operands); ``dw`` is ``[Co/Cob, Ci/Cib, Hf, Wf, Cib,
-    Cob]``, or ``[C/Cb, 1, Hf, Wf, 1, Cb]`` with ``groups == C``.
+    Cob]``, grouped ``[Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]``, or ``[C/Cb, 1,
+    Hf, Wf, 1, Cb]`` with ``groups == C``; any ``dilation``.
     ``precision`` casts ``x``, ``g`` and ``z`` to its operand dtype first;
     bf16 operands are up-cast to f32 before any product, ``dz`` is rounded
     to ``z``'s dtype by the prologue, and dw and db stay f32 (``db`` the
@@ -406,21 +425,17 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
     ``BF16``.
 
     ``dz = g * act'(z)``; each tap's block is ``x_win^T @ dz`` contracted
-    over ``(N, Ho, Wo)`` (depthwise: ``x_win * dz`` summed per lane);
-    ``db`` sums ``dz`` over the same positions.
+    over ``(N, Ho, Wo)`` (depthwise: ``x_win * dz`` summed per lane;
+    grouped: each Co block against its group's input blocks); ``db`` sums
+    ``dz`` over the same positions.
     """
     x, g, z = _cast(precision, x, g, z)
     n, ciblk, hi, wi, cib = x.shape
     coblk, cob = g.shape[1], g.shape[4]
-    if 1 < groups != ciblk * cib:
-        raise NotImplementedError(
-            f"groups={groups} with more than one input channel per group: "
-            "the grouped wgrad is the backward half of ROADMAP item A2 (only "
-            "the grouped forward is ported)")
-    if groups > 1:
+    if groups > 1 and groups == ciblk * cib:
         w_shape = (coblk, 1, hf, wf, 1, cob)
     else:
-        w_shape = (coblk, ciblk, hf, wf, cib, cob)
+        w_shape = (coblk, ciblk // groups, hf, wf, cib, cob)
     spec = backward_spec(n, hi, wi, w_shape, stride, padding, g, z, groups,
                          dilation)
     dt = _acc_dtype(x, g)
@@ -432,7 +447,14 @@ def direct_conv_wgrad_blocked(x: torch.Tensor, g: torch.Tensor, hf: int,
         if spec.is_depthwise:
             dw[:, 0, dh, dwi, 0] = (win * dz).sum(dim=(0, 2, 3))
         else:
-            dw[:, :, dh, dwi] = torch.einsum("nchwb,nohwk->ocbk", win, dz)
+            # [N, G, Cig/Cib, Ho, Wo, Cib] x [N, G, Cog/Cob, Ho, Wo, Cob]
+            #   -> [G, Cog/Cob, Cig/Cib, Cib, Cob]
+            _, cigblk, _, _, _, _ = w_shape
+            dw[:, :, dh, dwi] = torch.einsum(
+                "ngchwb,ngohwk->gocbk",
+                win.reshape(n, groups, cigblk, *win.shape[2:]),
+                dz.reshape(n, groups, coblk // groups, *dz.shape[2:]),
+            ).reshape(coblk, cigblk, cib, cob)
     db = dz.sum(dim=(0, 2, 3)) if with_db else None
     return dw, db
 

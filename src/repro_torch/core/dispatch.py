@@ -111,7 +111,9 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
     ``z``); ``op_bytes`` the operand size (2: the bf16 builds).  Grouped or
     dilated geometry pins the window path (the streamed kernels are
     dense-only, as the reference's): the forward's window model is asked,
-    and its misfit raises."""
+    and so are the dgrad's and the wgrad's, whichever ``direction`` routes,
+    so that a layer whose backward cannot fit raises at its forward and not
+    at its backward's launch."""
     if direction not in DIRECTIONS:
         raise ValueError(f"unknown direction {direction!r}; have "
                          f"{DIRECTIONS}")
@@ -122,6 +124,11 @@ def route_stream(direction: Direction, spec: ConvSpec, cib: int, cob: int,
             choose_fwd_blocking(n, spec.ho, spec.wo, hf, wf, s,
                                 ciblk // spec.groups, cib, coblk, cob,
                                 machine, gap, op_bytes, spec.dilation)
+        choose_dgrad_blocking(n, spec.hi, spec.wi, hf, wf, s, ciblk, cib, cob,
+                              machine, prologue, op_bytes, spec.dilation)
+        choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, s, ciblk, cib,
+                              coblk, cob, machine, prologue, op_bytes,
+                              spec.groups, spec.dilation)
         return False
     if direction == "fwd":
         def window():

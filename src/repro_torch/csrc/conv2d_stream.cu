@@ -183,7 +183,7 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
   const int steps = taps * geo.chunk / 8;
   const int per_block = dt::kpad(geo) / geo.chunk;
   const int stages = taps > 0 ? geo.co_count * per_block : 0;
-  const int mh = dt::max_taps(geo.hf, geo.stride) - 1;
+  const int mh = dt::reach_h(geo);
   const int hso = geo.th / strips;
   // window rows of copy group k: strip 0's all, a later strip's fresh ones
   auto lo_of = [&](int k) { return k == 0 ? 0 : k * hso + mh; };
@@ -200,7 +200,7 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
   if (threadIdx.x >= strips * dt::kWarpgroup) {   // the producer warpgroup
     const int tid = threadIdx.x - strips * dt::kWarpgroup;
     const int o_h = t.r.q0 + t.a0 - mh;
-    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
+    const int o_w = t.c.q0 + t.b0 - dt::reach_w(geo);
     const bool tma = dt::tma_copies(geo);
     // stage s's copies: TMA by warp 0, or cp.async by every thread, one
     // commit group a strip
@@ -291,7 +291,8 @@ stream_dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
 // rows where a window row fills whole 128-byte lines (each box lands on 128
 // bytes), else row by row.  `bf16` for the bf16 build: boxes of hso rows
 // always (its rows are padded to 128 bytes, dgrad_tile::bf16::wpitch), and
-// a strip's m-tile starts hso window rows of wpitch cells on.
+// a strip's m-tile starts hso window rows of wpitch cells on.  Dense only:
+// groups 1 and no dilation (the C entries refuse any other).
 dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
                             int cib, int hi, int wi, int hf, int wf,
                             int stride, int pad_top, int pad_left, int hso,
@@ -303,6 +304,9 @@ dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
   dt::Geometry geo{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
                    stride, pad_top, pad_left, wgs * hso, tw, hso * tw,
                    chunk, act, prologue, rows};
+  geo.groups = 1;
+  geo.dil_h = geo.dil_w = 1;
+  geo = dt::with_steps(geo);
   if (bf16 && chunk > 0) geo.mstride = hso * dt::bf16::wpitch(geo);
   return geo;
 }
@@ -410,7 +414,7 @@ wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw) {
 }
 
 // The streamed wgrad's launch geometry: items of hso x wob positions,
-// walked column by column.
+// walked column by column; dense only (groups 1, no dilation).
 wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
                                int coblk, int cob, int ho, int wo, int hf,
                                int wf, int stride, int pad_top, int pad_left,
@@ -419,7 +423,14 @@ wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
                                int with_db) {
   return wtile::Geometry{n, ciblk, cib, hi, wi, coblk, cob, ho, wo, hf, wf,
                          stride, pad_top, pad_left, hso, wob, lanes, wgs,
-                         mpw, splits, act, prologue, with_db, 1};
+                         mpw, splits, act, prologue, with_db, 1, 1, 1, 1};
+}
+
+// Whether a backward's grouped and dilated arguments are dense ones: the
+// streamed dgrads and wgrads take them as the window ones do, and refuse
+// anything but groups 1 and dilation 1.
+bool dense_args(int groups, int dil_h, int dil_w) {
+  return groups == 1 && dil_h == 1 && dil_w == 1;
 }
 
 // Whether a forward plan's geometry is dense: groups 1, no dilation.
@@ -469,17 +480,20 @@ int conv2d_stream_conv_plan(const int* plan, long long* out) {
 // The dgrad: bands of `wgs` strips (two or three) of hso x tw phase
 // positions, one consumer warpgroup each, the wgmma width `lanes`, `chunk`
 // Cob channels a stage; `*launches` is how many grids it launched
-// (dgrad_tile::launch).
+// (dgrad_tile::launch).  Dense only, as the reference's streamed kernels:
+// groups other than 1 or a dilation are refused (cudaErrorInvalidValue).
 int conv2d_stream_dgrad(const void* g, const void* z, const void* w, void* dx,
                         int n, int coblk, int cob, int ho, int wo, int ciblk,
                         int cib, int hi, int wi, int hf, int wf, int stride,
                         int pad_top, int pad_left, int hso, int tw, int wgs,
-                        int lanes, int chunk, int act, void* stream,
-                        int* launches) {
+                        int lanes, int chunk, int groups, int dil_h,
+                        int dil_w, int act, void* stream, int* launches) {
+  *launches = 0;
   const dt::Geometry geo = dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
       pad_left, hso, tw, wgs, chunk, act, z != nullptr);
-  if (wgs < 2 || hso * tw > dt::kRows) return (int)cudaErrorInvalidValue;
+  if (!dense_args(groups, dil_h, dil_w) || wgs < 2 || hso * tw > dt::kRows)
+    return (int)cudaErrorInvalidValue;
   return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
                     (const float*)w, (float*)dx, n, geo, wgs, lanes,
                     (cudaStream_t)stream, launches);
@@ -493,8 +507,10 @@ int conv2d_stream_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
                              int ciblk, int cib, int hi, int wi, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int hso, int tw, int wgs, int lanes, int chunk,
-                             int prologue, long long* out) {
-  if (wgs < 2 || hso * tw > dt::kRows || stride < 1 || hso < 1 || tw < 1)
+                             int groups, int dil_h, int dil_w, int prologue,
+                             long long* out) {
+  if (!dense_args(groups, dil_h, dil_w) || wgs < 2 || hso * tw > dt::kRows
+      || stride < 1 || hso < 1 || tw < 1)
     return (int)cudaErrorInvalidValue;
   dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
                           stride, pad_top, pad_left, hso, tw, wgs, chunk, 0,
@@ -513,14 +529,16 @@ void conv2d_stream_wgrad_geometry(int* threads, int* rows, int* positions) {
 // The wgrad: items of hso x wob output positions, `wgs` consumer warpgroups
 // of `mpw` m-tiles, the wgmma width `lanes`, `splits` position shares into
 // `ws`, summed by each column's last CTA into `out` (as
-// direct_conv2d_wgrad, whose plan it takes with hso, wob for th, tw).
+// direct_conv2d_wgrad, whose plan it takes with hso, wob for th, tw; dense
+// only: its groups and dilation must be 1).
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
                         void* out, void* counters, const int* p,
                         void* stream) {
+  if (!dense_args(p[20], p[21], p[22])) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      z != nullptr, p[21]);
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[23],
+      z != nullptr, p[24]);
   return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
@@ -534,7 +552,9 @@ int conv2d_stream_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
                              int coblk, int cob, int ho, int wo, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int hso, int wob, int wgs, int mpw, int lanes,
-                             int splits, int prologue, long long* out) {
+                             int splits, int groups, int dil_h, int dil_w,
+                             int prologue, long long* out) {
+  if (!dense_args(groups, dil_h, dil_w)) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);
@@ -551,14 +571,17 @@ int conv2d_stream_dgrad_bf16(const void* g, const void* z, const void* w,
                              int wo, int ciblk, int cib, int hi, int wi,
                              int hf, int wf, int stride, int pad_top,
                              int pad_left, int hso, int tw, int wgs,
-                             int lanes, int chunk, int act, void* stream,
+                             int lanes, int chunk, int groups, int dil_h,
+                             int dil_w, int act, void* stream,
                              int* launches) {
+  *launches = 0;
   dt::Geometry geo = dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
       pad_left, hso, tw, wgs, chunk, act, z != nullptr, true);
   geo.co_first = 0;
   geo.co_count = coblk;
-  if (wgs < 2) return (int)cudaErrorInvalidValue;
+  if (!dense_args(groups, dil_h, dil_w) || wgs < 2)
+    return (int)cudaErrorInvalidValue;
   return dt::bf16::launch(pick_dgrad_bf16(lanes),
                           (const __nv_bfloat16*)g, (const __nv_bfloat16*)z,
                           (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, n,
@@ -570,9 +593,11 @@ int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
                                   int ciblk, int cib, int hi, int wi, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int hso, int tw, int wgs,
-                                  int lanes, int chunk, int prologue,
+                                  int lanes, int chunk, int groups,
+                                  int dil_h, int dil_w, int prologue,
                                   long long* out) {
-  if (wgs < 2 || stride < 1 || hso < 1 || tw < 1 || chunk < 16)
+  if (!dense_args(groups, dil_h, dil_w) || wgs < 2 || stride < 1 || hso < 1
+      || tw < 1 || chunk < 16)
     return (int)cudaErrorInvalidValue;
   dt::Geometry geo = dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi,
                                     hf, wf, stride, pad_top, pad_left, hso,
@@ -590,10 +615,11 @@ int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
 int conv2d_stream_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
+  if (!dense_args(p[20], p[21], p[22])) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      z != nullptr, p[21]);
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[23],
+      z != nullptr, p[24]);
   return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
                             (float*)ws, (float*)out, (int*)counters, geo,
@@ -605,8 +631,10 @@ int conv2d_stream_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
                                   int coblk, int cob, int ho, int wo, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int hso, int wob, int wgs,
-                                  int mpw, int lanes, int splits,
-                                  int prologue, long long* out) {
+                                  int mpw, int lanes, int splits, int groups,
+                                  int dil_h, int dil_w, int prologue,
+                                  long long* out) {
+  if (!dense_args(groups, dil_h, dil_w)) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);

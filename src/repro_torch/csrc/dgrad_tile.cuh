@@ -22,6 +22,29 @@
 // At stride 1 there is one phase with every tap.  `phase_axis` lists one
 // axis of a phase; core/blocking.py `dgrad_phase_axes` is its Python twin.
 //
+// Dilated taps.  At dilation d tap dh sits dh*d rows from its origin, so it
+// reaches the phase ph = (dh*d) % s.  With g = gcd(d, s) a phase whose ph
+// g does not divide takes no tap: its tiles stage nothing and write zeros,
+// so dx is still written whole (d 2 at stride 2: the odd phases).  Else its
+// taps are dh = tap0 + (s/g) t from the least solution tap0, and tap t
+// reads cotangent row q0 + a - (d/g) t, with q0 = (first + pad - tap0 d) /
+// s (exact, and negative where the first taps read above the map: the
+// copies land zeros there).  At d = 1 this is dh = ph + s t from row q0 +
+// a - t.  A tile's window is th + (T - 1)(d/g) rows (T the most taps a
+// phase takes, ceil(Hf / (s/g))), and the same in columns; each tap's A
+// shift steps (d/g) rows or cells (`step_shifts`, bf16 `tap_shift`).
+// Dilation 12 at stride 1 widens a 3x3 window by 24 rows and columns; where
+// a tile's th rows are fewer than the d/g rows between two taps' reads, the
+// f32 tile stages only the T bands of th rows the taps read, band u the
+// window rows u (d/g) + [0, th), one TMA box a row (`gather_h`): at th 1
+// three of fc6's 25 rows.
+//
+// Grouped maps (Cig > 1; w [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]).  Ci block
+// ci_b of group ci_b / cigblk contracts only its group's cogblk cotangent
+// blocks, (ci_b / cigblk) cogblk + co for co < cogblk, against weight block
+// ((ci_b / cigblk) cogblk + co, ci_b % cigblk) (`w_block`): the stages of a
+// CTA walk cogblk Co blocks, not Co/Cob, and no cross-group block is staged.
+//
 // The implicit GEMM.  A CTA owns a tile of th x tw positions of one phase
 // of one image (rows M, row-major), all Cib lanes (columns N, padded up to
 // the compiled wgmma width), and contracts K = (reachable tap, Cob
@@ -106,7 +129,8 @@ constexpr int kBarProducer = kBarEmpty + kSlots;
 static_assert(kBarProducer < 16, "16 named barriers");
 constexpr int kActRelu = 1;
 constexpr int kActGelu = 2;
-// The longest contraction one accumulator runs (VGG-16's, 9 x 512): wgmma
+// The longest contraction one accumulator runs (VGG-16's, 9 x 512; a
+// grouped conv's is its group's, cogblk x Cob x a phase's taps): wgmma
 // rounds each add toward zero, and past it the drift passes the plain
 // version's tolerance (9 x 1000 drifted to 3.4e-4 of outputs of ~1 on an
 // H100).  A longer one is launched a Co block at a time, each launch after
@@ -124,7 +148,17 @@ struct Geometry {
   int act;                          // 0 linear, 1 relu, 2 gelu
   int prologue;                     // 1: z is staged and dz formed
   int box_rows;                     // window rows one TMA copy brings
-  int co_first, co_count;           // the Co blocks this launch contracts
+  int co_first, co_count;           // the Co blocks of a group this launch
+                                    // contracts (from the group's first)
+  int groups;                       // channel groups (1: dense)
+  int dil_h, dil_w;                 // filter dilation
+  // set on the host from the stride and the dilation (`with_steps`): the
+  // taps that reach one phase are tstep apart, and each reads qstep
+  // cotangent rows (columns) before the one before it.  Kept as fields so
+  // that no device code takes a gcd: the bf16 build's wgmma descriptors
+  // derive from them, and a loop there made the compiler wait after every
+  // wgmma.
+  int tstep_h, tstep_w, qstep_h, qstep_w;
 };
 
 __host__ __device__ inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
@@ -135,15 +169,103 @@ __host__ __device__ inline bool tma_copies(const Geometry& g) {
   return g.cob % 4 == 0;
 }
 
-// The most taps one phase reaches along an axis of a filter f at stride s.
-__host__ __device__ inline int max_taps(int f, int s) { return ceil_div(f, s); }
+__host__ inline int gcd(int a, int b) {
+  while (b != 0) {
+    const int r = a % b;
+    a = b;
+    b = r;
+  }
+  return a;
+}
+
+// The taps that reach one phase at stride s and dilation d are tap_step
+// apart, and each reads q_step cotangent rows before the one before it.
+__host__ inline int tap_step(int s, int d) { return s / gcd(d, s); }
+__host__ inline int q_step(int s, int d) { return d / gcd(d, s); }
+
+// The geometry with its steps set from its stride and dilation.
+__host__ inline Geometry with_steps(Geometry g) {
+  g.tstep_h = tap_step(g.stride, g.dil_h);
+  g.tstep_w = tap_step(g.stride, g.dil_w);
+  g.qstep_h = q_step(g.stride, g.dil_h);
+  g.qstep_w = q_step(g.stride, g.dil_w);
+  return g;
+}
+
+// The most taps one phase reaches along each axis (phase 0 always reaches
+// tap 0), and the cotangent rows (columns) from a phase row's last tap's
+// read to its first's.
+__host__ __device__ inline int taps_h(const Geometry& g) {
+  return ceil_div(g.hf, g.tstep_h);
+}
+__host__ __device__ inline int taps_w(const Geometry& g) {
+  return ceil_div(g.wf, g.tstep_w);
+}
+__host__ __device__ inline int reach_h(const Geometry& g) {
+  return (taps_h(g) - 1) * g.qstep_h;
+}
+__host__ __device__ inline int reach_w(const Geometry& g) {
+  return (taps_w(g) - 1) * g.qstep_w;
+}
+
+// The grouped map: Ci block ci_b contracts its group's cogblk Co blocks,
+// Co block (ci_b / cigblk) cogblk + co against the weight block (that Co
+// block, ci_b % cigblk) of [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob].
+__host__ __device__ inline int cigblk(const Geometry& g) {
+  return g.ciblk / g.groups;
+}
+__host__ __device__ inline int cogblk(const Geometry& g) {
+  return g.coblk / g.groups;
+}
+__host__ __device__ inline int co_base(const Geometry& g, int ci_b) {
+  return ci_b / cigblk(g) * cogblk(g);
+}
+__host__ __device__ inline int w_block(const Geometry& g, int co_b,
+                                       int ci_b) {
+  return co_b * cigblk(g) + ci_b % cigblk(g);
+}
+
+// Whether the grouped and dilated fields make sense.
+__host__ inline bool valid_map(const Geometry& g) {
+  return g.groups >= 1 && g.ciblk % g.groups == 0 && g.coblk % g.groups == 0
+         && g.dil_h >= 1 && g.dil_w >= 1 && g.stride >= 1
+         && g.tstep_h == tap_step(g.stride, g.dil_h)
+         && g.tstep_w == tap_step(g.stride, g.dil_w)
+         && g.qstep_h == q_step(g.stride, g.dil_h)
+         && g.qstep_w == q_step(g.stride, g.dil_w);
+}
 
 __host__ __device__ inline int hwin(const Geometry& g) {
-  return g.th + max_taps(g.hf, g.stride) - 1;
+  return g.th + reach_h(g);
 }
 
 __host__ __device__ inline int wwin(const Geometry& g) {
-  return g.tw + max_taps(g.wf, g.stride) - 1;
+  return g.tw + reach_w(g);
+}
+
+// The f32 tile's staged rows (the bf16 build stages the hwin rows whole):
+// where the th rows of a tile are fewer than the q_step rows between two
+// taps' reads, only the taps_h bands of th rows the taps read (`gather_h`),
+// band u at window row u q_step; `row_step` staged rows lie between two
+// taps' reads, and staged row r is window row `win_row`.
+__host__ __device__ inline bool gather_h(const Geometry& g) {
+  return taps_h(g) > 1 && g.th < g.qstep_h;
+}
+__host__ __device__ inline int row_step(const Geometry& g) {
+  return gather_h(g) ? g.th : g.qstep_h;
+}
+__host__ __device__ inline int win_rows(const Geometry& g) {
+  return gather_h(g) ? taps_h(g) * g.th : hwin(g);
+}
+__host__ __device__ inline int win_row(const Geometry& g, int r) {
+  return gather_h(g) ? r / g.th * g.qstep_h + r % g.th : r;
+}
+
+// The f32 window kernel's geometry: the whole window one TMA box, or, where
+// its rows are gathered, a box a row.
+__host__ __device__ inline Geometry f32_window(Geometry g) {
+  g.box_rows = gather_h(g) ? 1 : hwin(g);
+  return g;
 }
 
 __host__ __device__ inline int cell_floats(const Geometry& g) {
@@ -164,17 +286,17 @@ __host__ __device__ inline int kpad(const Geometry& g) {
 }
 
 __host__ __device__ inline int weight_floats(const Geometry& g, int lanes) {
-  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk * lanes;
+  return taps_h(g) * taps_w(g) * g.chunk * lanes;
 }
 
 // a window slot, rounded up to 128 bytes (a TMA destination's alignment)
 __host__ __device__ inline int window_floats(const Geometry& g) {
-  return ceil_div(hwin(g) * row_floats(g), 32) * 32;
+  return ceil_div(win_rows(g) * row_floats(g), 32) * 32;
 }
 
 // k8 steps of a stage, at most: taps x chunk / 8
 __host__ __device__ inline int max_steps(const Geometry& g) {
-  return max_taps(g.hf, g.stride) * max_taps(g.wf, g.stride) * g.chunk / 8;
+  return taps_h(g) * taps_w(g) * g.chunk / 8;
 }
 
 // Dynamic shared memory of one CTA (core/blocking.py dgrad_smem_bytes):
@@ -189,20 +311,26 @@ __host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
          + 8 * kSlots * kMaxGroups;
 }
 
-// One axis of the stride phase `ph` of an input of `extent` rows: its first
-// row, its row count, the cotangent row q0 of its first row's tap t = 0, and
-// the taps it reaches (dh = ph + s*t).
+// One axis of the stride phase `ph` of an input of `extent` rows at filter
+// dilation d: its first row, its row count, the cotangent row q0 of its
+// first row's tap t = 0, the taps it reaches (dh = tap0 + tap_step t, tap t
+// at row q0 + a - q_step t) and the first of them.
 struct Axis {
-  int first, extent, q0, taps;
+  int first, extent, q0, taps, tap0;
 };
 
 __host__ __device__ inline Axis phase_axis(int ph, int extent, int f, int s,
-                                           int pad) {
+                                           int pad, int d, int step) {
   Axis a;
   a.first = ((ph - pad) % s + s) % s;
   a.extent = a.first < extent ? ceil_div(extent - a.first, s) : 0;
-  a.q0 = (a.first + pad - ph) / s;
-  a.taps = ph < f ? (f - 1 - ph) / s + 1 : 0;
+  int t0 = -1;                      // the least dh with dh d = ph (mod s)
+  for (int k = 0; k < step && t0 < 0; ++k) {
+    if (k * d % s == ph) t0 = k;
+  }
+  a.taps = t0 >= 0 && t0 < f ? (f - 1 - t0) / step + 1 : 0;
+  a.tap0 = t0 >= 0 ? t0 : 0;
+  a.q0 = (a.first + pad - a.tap0 * d) / s;    // exact, maybe negative
   return a;
 }
 
@@ -215,8 +343,10 @@ struct Tile {
 
 __host__ __device__ inline int phase_tiles(const Geometry& g, int p, Axis* r,
                                            Axis* c) {
-  *r = phase_axis(p / g.stride, g.hi, g.hf, g.stride, g.pad_top);
-  *c = phase_axis(p % g.stride, g.wi, g.wf, g.stride, g.pad_left);
+  *r = phase_axis(p / g.stride, g.hi, g.hf, g.stride, g.pad_top, g.dil_h,
+                  g.tstep_h);
+  *c = phase_axis(p % g.stride, g.wi, g.wf, g.stride, g.pad_left, g.dil_w,
+                  g.tstep_w);
   return ceil_div(r->extent, g.th) * ceil_div(c->extent, g.tw);
 }
 
@@ -233,9 +363,11 @@ __host__ inline int grid_tiles(const Geometry& g) {
 // What a launch of `wgs` consumer warpgroups at wgmma width `lanes` runs
 // over n images (core/blocking.py `dgrad_plan` is its Python twin): out[0]
 // the grid's tiles, out[1] the function's MACs as the phases split them
-// (positions x reachable taps x Cib x Co), out[2] the tensor-core MACs the
-// tiles issue: each consumer's whole m64 tile over its phase's taps, Cob
-// padded to k8 slices in every Co block, `lanes` wide, three products each;
+// (positions x reachable taps x Cib x the group's Co: a grouped conv's are
+// 1/groups of the dense count), out[2] the tensor-core MACs the tiles
+// issue: each consumer's whole m64 tile over its phase's taps, Cob padded
+// to k8 slices in each of the group's Co blocks, `lanes` wide, three
+// products each;
 // out[3] a CTA's shared memory, out[4] and out[5] its ring's slots (a slot
 // holds a stage's window and weights).
 __host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
@@ -251,8 +383,8 @@ __host__ inline void plan(const Geometry& g, int n, int wgs, int lanes,
   }
   const long long images = (long long)n * g.ciblk;
   out[0] = tiles;
-  out[1] = images * cells * g.cib * g.coblk * g.cob;
-  out[2] = images * tile_taps * kRows * wgs * lanes * g.coblk * kpad(g) * 3;
+  out[1] = images * cells * g.cib * cogblk(g) * g.cob;
+  out[2] = images * tile_taps * kRows * wgs * lanes * cogblk(g) * kpad(g) * 3;
   out[3] = (long long)smem_bytes(g, lanes);
   out[4] = kSlots;
   out[5] = kSlots;
@@ -425,26 +557,34 @@ __device__ __forceinline__ int row_bytes(const Geometry& g, int lo, int hi) {
          * (g.prologue ? 2 : 1);
 }
 
+// Filter tap (dh, dw) of phase tap `tap` of the tile's phase, row-major
+// over its r.taps x c.taps.
+__device__ __forceinline__ int tap_index(const Geometry& g, const Tile& t,
+                                         int tap) {
+  const int dh = t.r.tap0 + g.tstep_h * (tap / t.c.taps);
+  const int dw = t.c.tap0 + g.tstep_w * (tap % t.c.taps);
+  return dh * g.wf + dw;
+}
+
 // Issue stage s's weights (one TMA copy per phase tap: Cob channels [c0,
-// c0 + chunk) by N lanes of block (co_b, ci_b)) onto `bar`, lane `lane` of
-// `lanes` taking every lanes-th tap.
+// c0 + chunk) by N lanes of Co block co_b against Ci block ci_b,
+// `w_block`) onto `bar`, lane `lane` of `lanes` taking every lanes-th tap.
 template <int N>
 __device__ void issue_weights(const CUtensorMap* tmw, float* dst,
                               uint64_t* bar, const Geometry& g,
                               const Tile& t, int co_b, int ci_b, int c0,
                               int lane, int lanes) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+  const int blk = w_block(g, co_b, ci_b) * g.hf * g.wf;
   for (int tap = lane; tap < t.r.taps * t.c.taps; tap += lanes) {
-    const int dh = t.ph + g.stride * (tap / t.c.taps);
-    const int dw = t.pw + g.stride * (tap % t.c.taps);
     tma_load_4d(dst + tap * g.chunk * N, tmw, bar, 0, 0, c0 / 4,
-                blk + dh * g.wf + dw);
+                blk + tap_index(g, t, tap));
   }
 }
 
-// Issue window rows [lo, hi) of g (and z) for channels [c0, c0 + chunk + 4)
-// of block (n, co_b) as row_boxes boxes: row r is cotangent row o_h + r
-// from column o_w; lane `lane` of `lanes` takes every lanes-th box.
+// Issue staged rows [lo, hi) of g (and z) for channels [c0, c0 + chunk +
+// 4) of block (n, co_b) as row_boxes boxes: staged row r is cotangent row
+// o_h + win_row(r) from column o_w (a gathered window's boxes are a row
+// each); lane `lane` of `lanes` takes every lanes-th box.
 __device__ void issue_rows(const CUtensorMap* tmg, const CUtensorMap* tmz,
                            float* win, float* zwin, uint64_t* bar,
                            const Geometry& g, int n, int co_b, int c0,
@@ -453,9 +593,10 @@ __device__ void issue_rows(const CUtensorMap* tmg, const CUtensorMap* tmz,
   const int rf = row_floats(g);
   for (int b = lane; b < row_boxes(g, lo, hi); b += lanes) {
     const int r = min(lo + b * g.box_rows, hi - g.box_rows);
-    tma_load_5d(win + r * rf, tmg, bar, c0, o_w, o_h + r, co_b, n);
+    const int oh = o_h + win_row(g, r);
+    tma_load_5d(win + r * rf, tmg, bar, c0, o_w, oh, co_b, n);
     if (g.prologue) {
-      tma_load_5d(zwin + r * rf, tmz, bar, c0, o_w, o_h + r, co_b, n);
+      tma_load_5d(zwin + r * rf, tmz, bar, c0, o_w, oh, co_b, n);
     }
   }
 }
@@ -495,19 +636,17 @@ template <int N>
 __device__ void copy_weights(const float* __restrict__ w, float* dst,
                              const Geometry& g, const Tile& t, int co_b,
                              int ci_b, int c0, int tid) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf;
+  const int blk = w_block(g, co_b, ci_b) * g.hf * g.wf;
   const int per_tap = g.chunk * N;
   for (int i = tid; i < t.r.taps * t.c.taps * per_tap; i += kWarpgroup) {
     const int tap = i / per_tap;
     const int e = i - tap * per_tap;          // (k / 4, lane, k % 4)
     const int k = e / (4 * N) * 4 + (e & 3);
     const int lane = e / 4 % N;
-    const int dh = t.ph + g.stride * (tap / t.c.taps);
-    const int dw = t.pw + g.stride * (tap % t.c.taps);
     const bool ok = lane < g.cib && c0 + k < g.cob;
     const float* src =
-        ok ? w + ((size_t)(blk + dh * g.wf + dw) * g.cib + lane) * g.cob + c0
-                 + k
+        ok ? w + ((size_t)(blk + tap_index(g, t, tap)) * g.cib + lane)
+                         * g.cob + c0 + k
            : w;
     cp_async4(dst + i, src, ok);
   }
@@ -530,7 +669,7 @@ __device__ void copy_rows(const float* __restrict__ gg,
     const int rem = i - r * per_row;
     const int col = rem / ld;
     const int c = rem - col * ld;
-    const int oh = o_h + lo + r;
+    const int oh = o_h + win_row(g, lo + r);
     const int ow = o_w + col;
     const bool ok = oh >= 0 && oh < g.ho && ow >= 0 && ow < g.wo
                     && c0 + c < g.cob;
@@ -586,11 +725,12 @@ __device__ void split_weights(float* big, float* small, int count, int tid,
 }
 
 // The A shift of each k8 step j of the tile's phase, in floats from tap
-// (0, 0): slice j % slices of tap j / slices (every thread of the CTA).
+// (0, 0): slice j % slices of tap j / slices, phase tap (t_h, t_w)
+// row_step rows and q_step cells before tap 0's (every thread of the CTA).
 __device__ void step_shifts(int* shifts, const Geometry& g, const Tile& t) {
   const int slices = g.chunk / 8;
-  const int rf = row_floats(g);
-  const int ld = cell_floats(g);
+  const int rf = row_floats(g) * row_step(g);
+  const int ld = cell_floats(g) * g.qstep_w;
   for (int j = threadIdx.x; j < t.r.taps * t.c.taps * slices;
        j += blockDim.x) {
     const int tap = j / slices;
@@ -781,8 +921,8 @@ __device__ __forceinline__ void row_offsets(int (&off)[2], const Geometry& g,
   const int local = q0 + threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
   const int rf = row_floats(g);
   const int ld = cell_floats(g);
-  const int mh = max_taps(g.hf, g.stride) - 1;
-  const int mw = max_taps(g.wf, g.stride) - 1;
+  const int mh = (taps_h(g) - 1) * row_step(g);
+  const int mw = reach_w(g);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = local + 8 * h;
@@ -961,14 +1101,15 @@ inline int launch(Kernel kernel, const float* g, const float* z,
                   const float* w, float* dx, int n, const Geometry& geo,
                   int wgs, int lanes, cudaStream_t stream, int* launches) {
   *launches = 0;
-  if (kernel == nullptr || wgs < 1 || wgs > kMaxConsumers || lanes < geo.cib
-      || geo.chunk % 8 != 0 || kpad(geo) % geo.chunk != 0
+  if (kernel == nullptr || !valid_map(geo) || wgs < 1 || wgs > kMaxConsumers
+      || lanes < geo.cib || geo.chunk % 8 != 0 || kpad(geo) % geo.chunk != 0
+      || (gather_h(geo) && geo.box_rows != 1)
       || geo.mstride < 1 || geo.mstride > kRows * wgs
       || geo.th < 1 || geo.tw < 1 || geo.stride < 1
       || (geo.prologue != 0) != (z != nullptr)
       // a box must land on 128 bytes: several boxes of several rows need
       // rows of a multiple of 128 bytes (cp.async copies have no such rule)
-      || (tma_copies(geo) && geo.box_rows > 1 && geo.box_rows < hwin(geo)
+      || (tma_copies(geo) && geo.box_rows > 1 && geo.box_rows < win_rows(geo)
           && wwin(geo) * cell_floats(geo) % 32 != 0)) {
     return (int)cudaErrorInvalidValue;
   }
@@ -984,7 +1125,7 @@ inline int launch(Kernel kernel, const float* g, const float* z,
   CUtensorMap tmw = {}, tmg = {}, tmz = {};
   const long long cob = geo.cob;
   const long long wdims[4] = {4, geo.cib, cob / 4,
-                              (long long)geo.coblk * geo.ciblk * geo.hf
+                              (long long)geo.coblk * cigblk(geo) * geo.hf
                                   * geo.wf};
   const long long wstr[3] = {cob * 4, 16, geo.cib * cob * 4};
   const int wbox[4] = {4, lanes, geo.chunk / 4, 1};
@@ -1004,20 +1145,19 @@ inline int launch(Kernel kernel, const float* g, const float* z,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(tiles, geo.ciblk, n);
-  // every Co block in one launch, or where that contraction is longer than
-  // kMaxTruncatingK one launch a Co block, each after the first adding
-  // into dx: launches of four Co-1000 blocks (9 x 512 rows, as VGG-16's
-  // longest) drifted to 1.35e-4 of outputs of ~0.07 on an H100, past the
-  // plain version's tolerance, where one block a launch holds it
-  const bool whole = (long long)geo.coblk * kpad(geo)
-                         * max_taps(geo.hf, geo.stride)
-                         * max_taps(geo.wf, geo.stride)
+  // every Co block of a group in one launch, or where that contraction is
+  // longer than kMaxTruncatingK one launch a Co block, each after the first
+  // adding into dx: launches of four Co-1000 blocks (9 x 512 rows, as
+  // VGG-16's longest) drifted to 1.35e-4 of outputs of ~0.07 on an H100,
+  // past the plain version's tolerance, where one block a launch holds it
+  const bool whole = (long long)cogblk(geo) * kpad(geo) * taps_h(geo)
+                         * taps_w(geo)
                      <= kMaxTruncatingK;
-  const int blocks = whole ? geo.coblk : 1;
+  const int blocks = whole ? cogblk(geo) : 1;
   Geometry part = geo;
-  for (part.co_first = 0; part.co_first < geo.coblk;
+  for (part.co_first = 0; part.co_first < cogblk(geo);
        part.co_first += part.co_count) {
-    part.co_count = std::min(blocks, geo.coblk - part.co_first);
+    part.co_count = std::min(blocks, cogblk(geo) - part.co_first);
     kernel<<<grid, kWarpgroup * (wgs + 1), smem, stream>>>(tmw, tmg, tmz, g,
                                                            z, w, dx, part);
     err = cudaGetLastError();
@@ -1271,11 +1411,12 @@ __host__ __device__ inline int wpitch(const Geometry& g) {
   return streamed(g) ? ceil_div(wwin(g), per) * per : wwin(g);
 }
 
-// cells from an m-tile row to its read at tap (t_h, t_w) of the phase
+// cells from an m-tile row to its read at tap (t_h, t_w) of the phase: the
+// window's reach less q_step rows (cells) a tap
 __host__ __device__ inline int tap_shift(const Geometry& g, int t_h,
                                          int t_w) {
-  return (max_taps(g.hf, g.stride) - 1 - t_h) * wpitch(g)
-         + max_taps(g.wf, g.stride) - 1 - t_w;
+  return (reach_h(g) - t_h * g.qstep_h) * wpitch(g)
+         + reach_w(g) - t_w * g.qstep_w;
 }
 
 // the first window cell (m-tile row) of consumer c: 64 rows a consumer of
@@ -1300,7 +1441,7 @@ __host__ __device__ inline int round_atom(int bytes) {
 // x N lanes) and of one window, each in whole swizzle periods
 __host__ __device__ inline int row_weight_bytes(const Geometry& g,
                                                 int lanes) {
-  return round_atom(max_taps(g.wf, g.stride) * lanes * cell_bytes(g));
+  return round_atom(taps_w(g) * lanes * cell_bytes(g));
 }
 __host__ __device__ inline int window_bytes(const Geometry& g, int wgs) {
   return round_atom(window_cells(g, wgs) * cell_bytes(g));
@@ -1344,13 +1485,14 @@ __host__ inline size_t smem_bytes(const Geometry& g, int lanes, int wgs) {
 // the window kernel's tile in its one m-tile of 64 * wgs rows, the streamed
 // kernel's strips of th / wgs rows each in its 64-row m-tile (mstride
 // wpitch cells a strip row apart), a chunk of one swizzle row dividing the
-// padded Cob, every Co block in one grid, two slots or more in each ring.
+// padded Cob, every Co block of a group in one grid, two slots or more in
+// each ring.
 __host__ inline bool valid(const Geometry& g, int wgs, int lanes) {
-  if (wgs < 1 || wgs > kMaxConsumers || lanes < g.cib || g.th < 1
-      || g.tw < 1 || g.stride < 1 || g.hf < 1 || g.wf < 1
+  if (!valid_map(g) || wgs < 1 || wgs > kMaxConsumers || lanes < g.cib
+      || g.th < 1 || g.tw < 1 || g.stride < 1 || g.hf < 1 || g.wf < 1
       || (g.chunk != 16 && g.chunk != 32 && g.chunk != 64)
       || bf16::kpad(g) % g.chunk != 0 || g.co_first != 0
-      || g.co_count != g.coblk
+      || g.co_count != cogblk(g)
       || g.box_rows < 1 || g.box_rows > hwin(g) || wpitch(g) > 256
       || hwin(g) > 256) {
     return false;
@@ -1564,20 +1706,28 @@ __device__ __forceinline__ int row_bytes(const Geometry& g, int lo, int hi) {
          * (g.prologue ? 2 : 1);
 }
 
+// The first tap of phase tap row `r` of the tile's phase (its filter row's
+// tap t.c.tap0) in the weight block of Co block co_b against Ci block ci_b.
+__device__ __forceinline__ int row_tap(const Geometry& g, const Tile& t,
+                                       int r, int co_b, int ci_b) {
+  return w_block(g, co_b, ci_b) * g.hf * g.wf
+         + (t.r.tap0 + g.tstep_h * r) * g.wf + t.c.tap0;
+}
+
 // Issue the weights of filter row `r` of a stage's phase (one TMA box a
-// tap: Cob channels [c0, c0 + chunk) by N lanes of block (co_b, ci_b),
-// landing as [N][chunk] in the swizzle) onto `bar`, lane `lane` of `lanes`
-// taking every lanes-th tap.
+// tap: Cob channels [c0, c0 + chunk) by N lanes of Co block co_b against
+// Ci block ci_b, landing as [N][chunk] in the swizzle) onto `bar`, lane
+// `lane` of `lanes` taking every lanes-th tap.
 template <int N>
 __device__ void issue_row_weights(const CUtensorMap* tmw, char* dst,
                                   uint64_t* bar, const Geometry& g,
                                   const Tile& t, int r, int co_b, int ci_b,
                                   int c0, int lane, int lanes) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf
-                  + (t.ph + g.stride * r) * g.wf;
+  const int blk = row_tap(g, t, r, co_b, ci_b);
+  const int step = g.tstep_w;
   for (int j = lane; j < t.c.taps; j += lanes) {
     tma_load_3d(dst + j * N * cell_bytes(g), tmw, bar, c0, 0,
-                blk + t.pw + g.stride * j);
+                blk + step * j);
   }
 }
 
@@ -1616,8 +1766,8 @@ template <int N>
 __device__ void copy_row_weights(const bf* __restrict__ w, char* dst,
                                  const Geometry& g, const Tile& t, int r,
                                  int co_b, int ci_b, int c0, int tid) {
-  const int blk = (co_b * g.ciblk + ci_b) * g.hf * g.wf
-                  + (t.ph + g.stride * r) * g.wf;
+  const int blk = row_tap(g, t, r, co_b, ci_b);
+  const int step = g.tstep_w;
   const int cb = cell_bytes(g);
   const int per_tap = g.chunk * N;
   const uint32_t base = smem_u32(dst);
@@ -1627,10 +1777,9 @@ __device__ void copy_row_weights(const bf* __restrict__ w, char* dst,
     const int e = i - j * per_tap;            // (lane, k)
     const int lane = e / g.chunk;
     const int k = e - lane * g.chunk;
-    const int dw = t.pw + g.stride * j;
     const bool ok = lane < g.cib && c0 + k < g.cob;
     st_u16(swizzled(base + (j * N + lane) * cb + 2 * k, cb),
-           ok ? __ldg(w16 + ((size_t)(blk + dw) * g.cib + lane) * g.cob
+           ok ? __ldg(w16 + ((size_t)(blk + step * j) * g.cib + lane) * g.cob
                           + c0 + k)
               : (unsigned short)0);
   }
@@ -1711,12 +1860,13 @@ __device__ __forceinline__ void mma_row(float (&acc)[N / 2], uint32_t a0,
                                         int i, uint64_t desc) {
   constexpr int cb = 32 * S;
   const uint32_t a = a0 + tap_shift(g, i, 0) * cb;
+  const uint32_t step = g.qstep_w * cb;
   wgmma_fence();
 #pragma unroll
   for (int j = 0; j < CT; ++j) {
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      wgmma_ss<N>(acc, desc_at(desc, a - j * cb + 32 * k),
+      wgmma_ss<N>(acc, desc_at(desc, a - j * step + 32 * k),
                   desc_at(desc, b0 + j * N * cb + 32 * k));
     }
   }
@@ -1732,11 +1882,12 @@ __device__ __forceinline__ void mma_row_any(float (&acc)[N / 2],
                                             uint64_t desc) {
   constexpr int cb = 32 * S;
   const uint32_t a = a0 + tap_shift(g, i, 0) * cb;
+  const uint32_t step = g.qstep_w * cb;
   wgmma_fence();
   for (int j = 0; j < ct; ++j) {
 #pragma unroll
     for (int k = 0; k < S; ++k) {
-      wgmma_ss<N>(acc, desc_at(desc, a - j * cb + 32 * k),
+      wgmma_ss<N>(acc, desc_at(desc, a - j * step + 32 * k),
                   desc_at(desc, b0 + j * N * cb + 32 * k));
     }
   }
@@ -1827,7 +1978,8 @@ __device__ __forceinline__ int tiles_of(const Geometry& g) {
 }
 
 // A work item of the persistent grid: item i is tile i % tiles of Ci block
-// i / tiles % Ci/Cib of image i / (tiles * Ci/Cib), its phase's stages.
+// i / tiles % Ci/Cib of image i / (tiles * Ci/Cib), its phase's stages (the
+// group's Co blocks by chunks; none where no tap reaches the phase).
 struct Item {
   Tile t;
   int ci_b, n, stages;
@@ -1839,7 +1991,7 @@ __device__ __forceinline__ Item item_of(const Geometry& g, int tiles,
   it.t = tile_of(g, i % tiles);
   it.ci_b = i / tiles % g.ciblk;
   it.n = i / tiles / g.ciblk;
-  it.stages = it.t.r.taps * it.t.c.taps > 0 ? g.coblk * per_block : 0;
+  it.stages = it.t.r.taps * it.t.c.taps > 0 ? cogblk(g) * per_block : 0;
   return it;
 }
 
@@ -1876,8 +2028,8 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
   const int per_block = bf16::kpad(geo) / geo.chunk;
   const int tiles = tiles_of(geo);
   const int items = tiles * geo.ciblk * n_images;
-  const int mh = max_taps(geo.hf, geo.stride) - 1;
-  const int mw = max_taps(geo.wf, geo.stride) - 1;
+  const int mh = reach_h(geo);
+  const int mw = reach_w(geo);
   const int hso = geo.th / groups;
   const bool tma = bf16::tma_copies(geo);
   // the producer's pass over a landed window before the consumers read it:
@@ -1917,7 +2069,7 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
       const int o_h = t.r.q0 + t.a0 - mh;
       const int o_w = t.c.q0 + t.b0 - mw;
       for (int s = 0; s < it.stages; ++s, ++gw) {
-        const int co_b = s / per_block;
+        const int co_b = co_base(geo, it.ci_b) + s / per_block;
         const int c0 = (s % per_block) * geo.chunk;
         const int ws = gw % nw;
         const int wpar = (gw / nw) & 1;
@@ -2132,7 +2284,7 @@ inline int launch(Kernel kernel, const bf* g, const bf* z, const bf* w,
   CUtensorMap tmw = {}, tmg = {}, tmz = {};
   const long long cob = geo.cob;
   const long long wdims[3] = {cob, geo.cib,
-                              (long long)geo.coblk * geo.ciblk * geo.hf
+                              (long long)geo.coblk * cigblk(geo) * geo.hf
                                   * geo.wf};
   const long long wstr[2] = {cob * 2, geo.cib * cob * 2};
   const int wbox[3] = {geo.chunk, lanes, 1};

@@ -14,7 +14,11 @@
 //   dw  [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32, db [Co/Cob, Cob] f32
 //
 // with dz = g * act'(z) (relu, tanh-gelu) formed once per staged element of
-// g — the reference's `cotangent_prologue`.
+// g — the reference's `cotangent_prologue`.  A grouped conv (`groups` > 1,
+// w and dw [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]) contracts each group's
+// blocks alone, and a dilated one strides its taps, as the reference's
+// `_dgrad_windowed` and `_wgrad_windowed` (:439-513, :585-650): the tiles
+// say how (dgrad_tile.cuh, wgrad_tile.cuh, "Grouped maps").
 //
 // dgrad (`dgrad_kernel`): the reference runs a stride-1 conv with mirrored
 // taps over a stride-dilated, halo-padded copy of the cotangent and crops
@@ -126,14 +130,16 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
 
   if (threadIdx.x >= consumers) {       // the producer warpgroup
     const int tid = threadIdx.x - consumers;
-    const int rows = dt::hwin(geo);
-    const int o_h = t.r.q0 + t.a0 - (dt::max_taps(geo.hf, geo.stride) - 1);
-    const int o_w = t.c.q0 + t.b0 - (dt::max_taps(geo.wf, geo.stride) - 1);
+    const int rows = dt::win_rows(geo);
+    const int o_h = t.r.q0 + t.a0 - dt::reach_h(geo);
+    const int o_w = t.c.q0 + t.b0 - dt::reach_w(geo);
     const bool tma = dt::tma_copies(geo);
+    // the first Co block of the Ci block's group this launch contracts
+    const int co0 = dt::co_base(geo, ci_b) + geo.co_first;
     // stage s's copies: TMA by warp 0, or cp.async by every thread
     auto issue_stage = [&](int s) {
       const int slot = s & 1;
-      const int co_b = geo.co_first + s / per_block;
+      const int co_b = co0 + s / per_block;
       const int c0 = (s % per_block) * geo.chunk;
       if (!tma) {
         dt::copy_weights<N>(w, m.big + slot * m.wst, geo, t, co_b, ci_b, c0,
@@ -199,15 +205,20 @@ dgrad_kernel(const __grid_constant__ CUtensorMap tmw,
 }
 
 // The window dgrad's launch geometry: tiles of th x tw phase positions, one
-// m-tile of 64 * wgs rows, the whole window one TMA box.
+// m-tile of 64 * wgs rows, the whole window one TMA box (the f32 build's
+// gathered rows a box each: dgrad_tile::f32_window); `groups` channel
+// groups, filter dilation (dil_h, dil_w).
 dt::Geometry dgrad_geometry(int coblk, int cob, int ho, int wo, int ciblk,
                             int cib, int hi, int wi, int hf, int wf,
                             int stride, int pad_top, int pad_left, int th,
-                            int tw, int wgs, int chunk, int act,
-                            bool prologue) {
-  return dt::Geometry{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
-                      stride, pad_top, pad_left, th, tw, dt::kRows * wgs,
-                      chunk, act, prologue, th + (hf - 1) / stride};
+                            int tw, int wgs, int chunk, int groups, int dil_h,
+                            int dil_w, int act, bool prologue) {
+  dt::Geometry geo{coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
+                   stride, pad_top, pad_left, th, tw, dt::kRows * wgs,
+                   chunk, act, prologue, 0, 0, 0, groups, dil_h, dil_w};
+  geo = dt::with_steps(geo);
+  geo.box_rows = dt::hwin(geo);
+  return geo;
 }
 
 // The compiled dgrad instances: wgmma widths 8, 16, 32, 64 and 128.
@@ -484,16 +495,18 @@ dz_kernel_bf16(const __nv_bfloat16* __restrict__ g,
   if (tid < geo.cob) db[(size_t)co_b * geo.cob + tid] = acc;
 }
 
-// The window wgrad's launch geometry.
+// The window wgrad's launch geometry; `groups` channel groups, filter
+// dilation (dil_h, dil_w).
 wtile::Geometry wgrad_geometry(int n, int ciblk, int hi, int wi, int cib,
                                int coblk, int cob, int ho, int wo, int hf,
                                int wf, int stride, int pad_top, int pad_left,
                                int th, int tw, int wgs, int mpw, int lanes,
-                               int splits, int act, int prologue,
-                               int with_db) {
+                               int splits, int groups, int dil_h, int dil_w,
+                               int act, int prologue, int with_db) {
   return wtile::Geometry{n, ciblk, cib, hi, wi, coblk, cob, ho, wo, hf, wf,
                          stride, pad_top, pad_left, th, tw, lanes, wgs, mpw,
-                         splits, act, prologue, with_db, 0};
+                         splits, act, prologue, with_db, 0, groups, dil_h,
+                         dil_w};
 }
 
 }  // namespace
@@ -509,17 +522,20 @@ void direct_conv2d_bwd_geometry(int* threads, int* rows, int* positions) {
 }
 
 // Tiles of th x tw phase positions, `wgs` consumer warpgroups a CTA, the
-// wgmma width `lanes`, `chunk` Cob channels a stage; `*launches` is how
-// many grids it launched (dgrad_tile::launch).
+// wgmma width `lanes`, `chunk` Cob channels a stage, `groups` channel
+// groups (w [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]), filter dilation (dil_h,
+// dil_w); `*launches` is how many grids it launched (dgrad_tile::launch).
 int direct_conv2d_dgrad(const void* g, const void* z, const void* w, void* dx,
                         int n, int coblk, int cob, int ho, int wo, int ciblk,
                         int cib, int hi, int wi, int hf, int wf, int stride,
                         int pad_top, int pad_left, int th, int tw, int wgs,
-                        int lanes, int chunk, int act, void* stream,
-                        int* launches) {
-  const dt::Geometry geo = dgrad_geometry(
+                        int lanes, int chunk, int groups, int dil_h,
+                        int dil_w, int act, void* stream, int* launches) {
+  *launches = 0;
+  if (groups < 1 || stride < 1) return (int)cudaErrorInvalidValue;
+  const dt::Geometry geo = dt::f32_window(dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
-      pad_left, th, tw, wgs, chunk, act, z != nullptr);
+      pad_left, th, tw, wgs, chunk, groups, dil_h, dil_w, act, z != nullptr));
   if (th * tw > dt::kRows * wgs) return (int)cudaErrorInvalidValue;
   return dt::launch(pick_dgrad(lanes), (const float*)g, (const float*)z,
                     (const float*)w, (float*)dx, n, geo, wgs, lanes,
@@ -534,13 +550,16 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
                              int ciblk, int cib, int hi, int wi, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int th, int tw, int wgs, int lanes, int chunk,
-                             int prologue, long long* out) {
-  if (th * tw > dt::kRows * wgs || stride < 1 || th < 1 || tw < 1)
+                             int groups, int dil_h, int dil_w, int prologue,
+                             long long* out) {
+  if (th * tw > dt::kRows * wgs || stride < 1 || th < 1 || tw < 1
+      || groups < 1)
     return (int)cudaErrorInvalidValue;
-  dt::plan(dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf,
-                          stride, pad_top, pad_left, th, tw, wgs, chunk, 0,
-                          prologue != 0),
-           n, wgs, lanes, out);
+  const dt::Geometry geo = dt::f32_window(dgrad_geometry(
+      coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
+      pad_left, th, tw, wgs, chunk, groups, dil_h, dil_w, 0, prologue != 0));
+  if (!dt::valid_map(geo)) return (int)cudaErrorInvalidValue;
+  dt::plan(geo, n, wgs, lanes, out);
   return 0;
 }
 
@@ -550,14 +569,16 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
 // `counters`: a zeroed int32 a column (wgrad_tile::columns).  plan, built
 // once per shape by the wrapper: n, ciblk, hi, wi, cib, coblk, cob, ho,
 // wo, hf, wf, stride, pad_top, pad_left, th, tw, wgs, mpw, lanes, splits,
-// act, with_db (as the _plan entry's ints, then those two).
+// groups, dil_h, dil_w, act, with_db (as the _plan entry's ints, then
+// those two).
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,
                         void* out, void* counters, const int* p,
                         void* stream) {
+  if (p[20] < 1) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      z != nullptr, p[21]);
+      p[21], p[22], p[23], z != nullptr, p[24]);
   return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
@@ -571,10 +592,13 @@ int direct_conv2d_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
                              int coblk, int cob, int ho, int wo, int hf,
                              int wf, int stride, int pad_top, int pad_left,
                              int th, int tw, int wgs, int mpw, int lanes,
-                             int splits, int prologue, long long* out) {
+                             int splits, int groups, int dil_h, int dil_w,
+                             int prologue, long long* out) {
+  if (groups < 1) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
-      pad_left, th, tw, wgs, mpw, lanes, splits, 0, prologue, 0);
+      pad_left, th, tw, wgs, mpw, lanes, splits, groups, dil_h, dil_w, 0,
+      prologue, 0);
   if (!wtile::valid(geo) || pick_wgrad(lanes, mpw) == nullptr)
     return (int)cudaErrorInvalidValue;
   wtile::plan(geo, out);
@@ -588,13 +612,16 @@ int direct_conv2d_dgrad_bf16(const void* g, const void* z, const void* w,
                              int wo, int ciblk, int cib, int hi, int wi,
                              int hf, int wf, int stride, int pad_top,
                              int pad_left, int th, int tw, int wgs,
-                             int lanes, int chunk, int act, void* stream,
+                             int lanes, int chunk, int groups, int dil_h,
+                             int dil_w, int act, void* stream,
                              int* launches) {
+  *launches = 0;
+  if (groups < 1 || stride < 1) return (int)cudaErrorInvalidValue;
   dt::Geometry geo = dgrad_geometry(
       coblk, cob, ho, wo, ciblk, cib, hi, wi, hf, wf, stride, pad_top,
-      pad_left, th, tw, wgs, chunk, act, z != nullptr);
+      pad_left, th, tw, wgs, chunk, groups, dil_h, dil_w, act, z != nullptr);
   geo.co_first = 0;
-  geo.co_count = coblk;
+  geo.co_count = coblk / groups;
   return dt::bf16::launch(pick_dgrad_bf16(lanes),
                           (const __nv_bfloat16*)g, (const __nv_bfloat16*)z,
                           (const __nv_bfloat16*)w, (__nv_bfloat16*)dx, n,
@@ -606,15 +633,17 @@ int direct_conv2d_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
                                   int ciblk, int cib, int hi, int wi, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int th, int tw, int wgs,
-                                  int lanes, int chunk, int prologue,
+                                  int lanes, int chunk, int groups,
+                                  int dil_h, int dil_w, int prologue,
                                   long long* out) {
-  if (stride < 1 || th < 1 || tw < 1 || wgs < 1 || chunk < 16)
+  if (stride < 1 || th < 1 || tw < 1 || wgs < 1 || chunk < 16 || groups < 1)
     return (int)cudaErrorInvalidValue;
   dt::Geometry geo = dgrad_geometry(coblk, cob, ho, wo, ciblk, cib, hi, wi,
                                     hf, wf, stride, pad_top, pad_left, th,
-                                    tw, wgs, chunk, 0, prologue != 0);
+                                    tw, wgs, chunk, groups, dil_h, dil_w, 0,
+                                    prologue != 0);
   geo.co_first = 0;
-  geo.co_count = coblk;
+  geo.co_count = coblk / groups;
   if (!dt::bf16::valid(geo, wgs, lanes)) return (int)cudaErrorInvalidValue;
   dt::bf16::plan(geo, n, wgs, lanes, out);
   return 0;
@@ -626,10 +655,11 @@ int direct_conv2d_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
 int direct_conv2d_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
+  if (p[20] < 1) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      z != nullptr, p[21]);
+      p[21], p[22], p[23], z != nullptr, p[24]);
   return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
                             (float*)ws, (float*)out, (int*)counters, geo,
@@ -641,11 +671,14 @@ int direct_conv2d_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
                                   int coblk, int cob, int ho, int wo, int hf,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int th, int tw, int wgs,
-                                  int mpw, int lanes, int splits,
-                                  int prologue, long long* out) {
+                                  int mpw, int lanes, int splits, int groups,
+                                  int dil_h, int dil_w, int prologue,
+                                  long long* out) {
+  if (groups < 1) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
-      pad_left, th, tw, wgs, mpw, lanes, splits, 0, prologue, 0);
+      pad_left, th, tw, wgs, mpw, lanes, splits, groups, dil_h, dil_w, 0,
+      prologue, 0);
   if (!wtile::valid_bf16(geo) || pick_wgrad_bf16(lanes, mpw) == nullptr)
     return (int)cudaErrorInvalidValue;
   wtile::bf16::plan(geo, out);

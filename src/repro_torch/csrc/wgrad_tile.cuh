@@ -55,6 +55,29 @@
 // 0 and m-tile group 0 sums dz per Cob lane as it forms it (the reference's
 // `ci == 0` pass), in a fixed order.
 //
+// Grouped maps and dilated taps (the reference's `_wgrad_windowed`,
+// src/repro/kernels/direct_conv2d.py:585-650).  With `groups` > 1, dw is
+// [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob]: the grid's Ci axis runs over the
+// group's cigblk = (Ci/Cib) / groups input blocks, and CTA (co_b, ci_b)
+// stages x's block (co_b / cogblk) cigblk + ci_b (`x_block`), writing dw
+// block co_b cigblk + ci_b; cross-group blocks are never staged, so the
+// tiles issue 1 / groups of the dense MACs.  db is still summed by the CTAs
+// of ci_b 0, once a Co block.  At dilation (dil_h, dil_w) the x window is
+// (th - 1) s + (hf - 1) dil_h + 1 rows by the same in columns, and tap (dh,
+// dw) reads it dh dil_h rows and dw dil_w cells on.  Where a tap's band of
+// the window, (th - 1) s + 1 rows, is shorter than the dilation, most rows
+// are read by no tap (DeepLab-LargeFOV's fc6, dilation 12: 22 of a 3x3
+// window's 25 rows and columns at th 1), and the f32 tile stages the hf
+// bands alone, band dh the input rows dh dil_h + [0, band) (`gather_h`),
+// and the same in columns, a TMA box a (row, band) each 128 bytes apart
+// (`gather_w`); tap (dh, dw) then starts band dh's first row and band dw's
+// first cell on.  At dilation 1 the bands overlap and the window is whole,
+// as before.  The bf16 build stages min(s, (wf - 1) dil_w + 1) column phases
+// of tw + ((wf - 1) dil_w) / s cells, and tap (dh, dw) reads phase (dw
+// dil_w) % s from cell (dw dil_w) / s of window row dh dil_h (`abase`): at
+// stride 2 with an even dilation every tap reads phase 0, and phase 1 is
+// staged and never read.
+//
 // Shared memory, in floats, from a 128-byte aligned base, per slot: the x
 // window [hwin][rf] (a row's wwin cells of ld floats, padded to 128 bytes;
 // ld = Cib padded so that four positions a stride apart fall on four
@@ -105,6 +128,9 @@ struct Geometry {
   int prologue;                     // 1: z is staged and dz formed
   int with_db;
   int streamed;                     // 1: column by column, halo rows kept
+  int groups;                       // channel groups (1: dense; `groups()`
+                                    // below counts m-tile groups)
+  int dil_h, dil_w;                 // filter dilation
 };
 
 __host__ __device__ inline int tiles_h(const Geometry& g) {
@@ -117,10 +143,31 @@ __host__ __device__ inline int kpos(const Geometry& g) {
   return ceil_div(g.th * g.tw, 8) * 8;
 }
 __host__ __device__ inline int hwin(const Geometry& g) {
-  return (g.th - 1) * g.stride + g.hf;
+  return (g.th - 1) * g.stride + (g.hf - 1) * g.dil_h + 1;
 }
 __host__ __device__ inline int wwin(const Geometry& g) {
-  return (g.tw - 1) * g.stride + g.wf;
+  return (g.tw - 1) * g.stride + (g.wf - 1) * g.dil_w + 1;
+}
+
+// The grouped map: the grid's Ci axis runs over a group's cigblk input
+// blocks; Co block co_b against its ci_b reads x's block x_block and
+// writes dw's block dw_block of [Co/Cob, Cig/Cib, Hf, Wf, Cib, Cob].
+__host__ __device__ inline int cigblk(const Geometry& g) {
+  return g.ciblk / g.groups;
+}
+__host__ __device__ inline int x_block(const Geometry& g, int co_b,
+                                       int ci_b) {
+  return co_b / (g.coblk / g.groups) * cigblk(g) + ci_b;
+}
+__host__ __device__ inline int dw_block(const Geometry& g, int co_b,
+                                        int ci_b) {
+  return co_b * cigblk(g) + ci_b;
+}
+
+// Whether the grouped and dilated fields make sense.
+__host__ inline bool valid_map(const Geometry& g) {
+  return g.groups >= 1 && g.ciblk % g.groups == 0 && g.coblk % g.groups == 0
+         && g.dil_h >= 1 && g.dil_w >= 1;
 }
 
 // Floats of one staged x cell: Cib rounded up to 4, then up to the first
@@ -136,10 +183,49 @@ __host__ __device__ inline int x_ld(int cib, int stride) {
 }
 
 __host__ __device__ inline int round32(int n) { return ceil_div(n, 32) * 32; }
-// floats from one window row to the next: a row's cells, padded to 128
-// bytes, where its TMA box lands
+
+// The f32 tile's staged window (the bf16 build stages hwin x wph phase
+// cells): where a tap's band of rows (columns), the tile's (th - 1) s + 1,
+// is shorter than the dilation, only the hf (wf) bands the taps read, band
+// dh at input row dh dil_h (`gather_h`, `gather_w`), else the whole span.
+__host__ __device__ inline int band_h(const Geometry& g) {
+  return (g.th - 1) * g.stride + 1;
+}
+__host__ __device__ inline int band_w(const Geometry& g) {
+  return (g.tw - 1) * g.stride + 1;
+}
+__host__ __device__ inline bool gather_h(const Geometry& g) {
+  return g.hf > 1 && band_h(g) < g.dil_h;
+}
+__host__ __device__ inline bool gather_w(const Geometry& g) {
+  return g.wf > 1 && band_w(g) < g.dil_w;
+}
+// staged rows, and the input row (from the tile's first) of staged row r
+__host__ __device__ inline int x_rows(const Geometry& g) {
+  return gather_h(g) ? g.hf * band_h(g) : hwin(g);
+}
+__host__ __device__ inline int x_row(const Geometry& g, int r) {
+  return gather_h(g) ? r / band_h(g) * g.dil_h + r % band_h(g) : r;
+}
+// a TMA box of a row: the row's cells, or a band's
+__host__ __device__ inline int box_cells(const Geometry& g) {
+  return gather_w(g) ? band_w(g) : wwin(g);
+}
+// floats from one band of a row to the next, padded to 128 bytes, where
+// its box lands
+__host__ __device__ inline int band_floats(const Geometry& g) {
+  return round32(box_cells(g) * x_ld(g.cib, g.stride));
+}
+// floats from one window row to the next: its boxes, each padded to 128
+// bytes
 __host__ __device__ inline int row_floats(const Geometry& g) {
-  return round32(wwin(g) * x_ld(g.cib, g.stride));
+  return (gather_w(g) ? g.wf : 1) * band_floats(g);
+}
+// the window offset, in floats, of tap (dh, dw)'s first cell
+__host__ __device__ inline int tap_floats(const Geometry& g, int dh, int dw) {
+  const int ld = x_ld(g.cib, g.stride);
+  return (gather_h(g) ? dh * band_h(g) : dh * g.dil_h) * row_floats(g)
+         + (gather_w(g) ? dw * band_floats(g) : dw * g.dil_w * ld);
 }
 // x and g / z arrive by TMA where their global strides are multiples of 16
 // bytes, else by cp.async
@@ -150,7 +236,7 @@ __host__ __device__ inline bool tma_d(const Geometry& g) {
   return g.cob % 4 == 0;
 }
 __host__ __device__ inline int x_floats(const Geometry& g) {
-  return round32(hwin(g) * row_floats(g));
+  return round32(x_rows(g) * row_floats(g));
 }
 __host__ __device__ inline int raw_floats(const Geometry& g) {
   return round32(kpos(g) * g.cob);
@@ -171,9 +257,10 @@ __host__ __device__ inline int groups(const Geometry& g) {
 __host__ __device__ inline long long tiles(const Geometry& g) {
   return (long long)g.n * tiles_h(g) * tiles_w(g);
 }
-// columns of split_sum.cuh: one per (m-tile group, Ci block, Co block)
+// columns of split_sum.cuh: one per (m-tile group, Ci block of the group,
+// Co block)
 __host__ __device__ inline int columns(const Geometry& g) {
-  return groups(g) * g.ciblk * g.coblk;
+  return groups(g) * cigblk(g) * g.coblk;
 }
 
 // Dynamic shared memory of one CTA (core/blocking.py wgrad_smem_bytes): 128
@@ -187,15 +274,16 @@ __host__ inline size_t smem_bytes(const Geometry& g) {
 
 // What a launch runs (core/blocking.py `wgrad_plan` is its Python twin):
 // out[0] the stages of all CTAs of one m-tile group, Ci and Co block (the
-// position tiles), out[1] the function's MACs (positions x taps x Ci x Co),
-// out[2] the tensor-core MACs the tiles issue: every tile's K positions
-// over every m-tile, N wide, three products, in every (Ci, Co) block;
+// position tiles), out[1] the function's MACs (positions x taps x Cig x
+// Co: a grouped conv's are 1/groups of the dense count), out[2] the
+// tensor-core MACs the tiles issue: every tile's K positions over every
+// m-tile, N wide, three products, in every (Ci of the group, Co) block;
 // out[3] the dynamic shared memory of a CTA.
 __host__ inline void plan(const Geometry& g, long long* out) {
   out[0] = tiles(g);
-  out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * g.ciblk
+  out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * cigblk(g)
            * g.cob * g.coblk;
-  out[2] = (long long)g.ciblk * g.coblk * tiles(g) * kpos(g) * mtiles(g)
+  out[2] = (long long)cigblk(g) * g.coblk * tiles(g) * kpos(g) * mtiles(g)
            * kRows * g.lanes * 3;
   out[3] = (long long)smem_bytes(g);
 }
@@ -280,28 +368,36 @@ __device__ inline Smem carve(float* raw, const Geometry& g) {
 }
 
 // Issue a stage's x window onto `bar` (`tid` of the producer's kWarpgroup
-// threads), rows [lo, hwin) of tile `t`, as TMA boxes of a row each (`ld`
-// floats a cell, so channels past Cib land as zeros) or, where Cib is not a
-// multiple of 4, as 4-byte cp.async copies of one group; rows [0, lo) are
-// moved from `xprev`, the previous stage's window, whose rows [hwin - lo,
-// hwin) they are.  Cells outside the map land as zeros.
+// threads), staged rows [lo, x_rows) of tile `t` of x's block `x_b`, as TMA
+// boxes of a row (or of a band of one) each (`ld` floats a cell, so
+// channels past Cib land as zeros) or, where Cib is not a multiple of 4, as
+// 4-byte cp.async copies of one group; rows [0, lo) are moved from
+// `xprev`, the previous stage's window, whose rows [hwin - lo, hwin) they
+// are (the streamed walk, whose windows are whole).  Cells outside the map
+// land as zeros.
 __device__ void issue_x(const CUtensorMap* tmx, const float* __restrict__ x,
-                        const Geometry& g, const Tile& t, int ci_b, float* xs,
+                        const Geometry& g, const Tile& t, int x_b, float* xs,
                         const float* xprev, uint64_t* bar, int lo, int tid) {
   const int ld = x_ld(g.cib, g.stride);
   const int rf = row_floats(g);
-  const int ww = wwin(g);
-  const int hw = hwin(g);
+  const int hw = x_rows(g);
+  const int bands = gather_w(g) ? g.wf : 1;
+  const int bc = box_cells(g);
+  const int bf = band_floats(g);
   const int ih0 = t.oh0 * g.stride - g.pad_top;
   const int iw0 = t.ow0 * g.stride - g.pad_left;
   if (tid < 32) {                       // warp 0: the TMA copies
     if (tid == 0) {
-      dt::mbar_expect_tx(bar, tma_x(g) ? (hw - lo) * ww * ld * 4 : 0);
+      dt::mbar_expect_tx(bar, tma_x(g) ? (hw - lo) * bands * bc * ld * 4
+                                       : 0);
     }
     __syncwarp();
     if (tma_x(g)) {
-      for (int r = lo + tid; r < hw; r += 32) {
-        dt::tma_load_5d(xs + r * rf, tmx, bar, 0, iw0, ih0 + r, ci_b, t.n);
+      for (int i = lo * bands + tid; i < hw * bands; i += 32) {
+        const int r = i / bands;
+        const int q = i - r * bands;
+        dt::tma_load_5d(xs + r * rf + q * bf, tmx, bar, 0,
+                        iw0 + q * g.dil_w, ih0 + x_row(g, r), x_b, t.n);
       }
     }
   }
@@ -311,19 +407,21 @@ __device__ void issue_x(const CUtensorMap* tmx, const float* __restrict__ x,
     for (int i = tid; i < lo * rf / 4; i += kWarpgroup) dst[i] = src[i];
   }
   if (!tma_x(g)) {                      // Cib = 3: 4-byte copies
-    const float* xb = x + (size_t)(t.n * g.ciblk + ci_b) * g.hi * g.wi
+    const float* xb = x + (size_t)(t.n * g.ciblk + x_b) * g.hi * g.wi
                       * g.cib;
-    const int per_row = ww * g.cib;
+    const int per_row = bands * bc * g.cib;
     for (int i = tid; i < (hw - lo) * per_row; i += kWarpgroup) {
       const int r = i / per_row;
       const int rem = i - r * per_row;
-      const int col = rem / g.cib;
-      const int c = rem - col * g.cib;
-      const int ih = ih0 + lo + r;
-      const int iw = iw0 + col;
+      const int cell = rem / g.cib;
+      const int c = rem - cell * g.cib;
+      const int q = cell / bc;
+      const int col = cell - q * bc;
+      const int ih = ih0 + x_row(g, lo + r);
+      const int iw = iw0 + q * g.dil_w + col;
       const bool ok = ih >= 0 && ih < g.hi && iw >= 0 && iw < g.wi;
       const float* src = ok ? xb + ((size_t)ih * g.wi + iw) * g.cib + c : xb;
-      cp_async4(xs + (lo + r) * rf + col * ld + c, src, ok);
+      cp_async4(xs + (lo + r) * rf + q * bf + col * ld + c, src, ok);
     }
     cp_async_commit();
   }
@@ -472,7 +570,7 @@ __device__ void mma_stage(float (&acc)[MPW][N / 2], const float* win,
 
 // Store a consumer's rows of its m-tiles into its share's workspace row:
 // m-tile mt0 + t, rows 16 * warp + lane / 4 (+ 8) of it, each (tap, c)
-// row's lanes < Cob.
+// row's lanes < Cob, in dw block (co_b, ci_b) of the group's.
 template <int N, int MPW>
 __device__ void store_dw(float* __restrict__ row,
                          const float (&acc)[MPW][N / 2], const Geometry& g,
@@ -489,7 +587,7 @@ __device__ void store_dw(float* __restrict__ row,
       if (m >= rows) continue;
       const int tap = m / g.cib;
       const int c = m - tap * g.cib;
-      float* out = row + ((((size_t)co_b * g.ciblk + ci_b) * g.hf * g.wf
+      float* out = row + (((size_t)dw_block(g, co_b, ci_b) * g.hf * g.wf
                            + tap) * g.cib + c) * g.cob;
 #pragma unroll
       for (int jj = 0; jj < N / 8; ++jj) {
@@ -512,8 +610,6 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
                                         int group, int stages, float* row,
                                         int ci_b, int co_b) {
   const int nth = blockDim.x;
-  const int ld = x_ld(geo.cib, geo.stride);
-  const int rf = row_floats(geo);
   const int mt0 = (group * geo.wgs + threadIdx.x / kWarpgroup) * MPW;
   const int rows = geo.hf * geo.wf * geo.cib;
   int ro[MPW][2];
@@ -526,7 +622,7 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
       const int r = (mt0 + t) * kRows + threadIdx.x % kWarpgroup / 32 * 16
                     + threadIdx.x % 32 / 4 + 8 * h;
       const int tap = r / geo.cib;
-      ro[t][h] = r < rows ? (tap / geo.wf) * rf + (tap % geo.wf) * ld
+      ro[t][h] = r < rows ? tap_floats(geo, tap / geo.wf, tap % geo.wf)
                                 + (r - tap * geo.cib)
                           : 0;
     }
@@ -548,8 +644,8 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& geo,
 }
 
 // One CTA: m-tile group blockIdx.x % groups, share blockIdx.x / groups, Ci
-// block blockIdx.y, Co block blockIdx.z; `wgs` consumer warpgroups of MPW
-// m-tiles each and one producer warpgroup.  Its sums go to its share's row
+// block blockIdx.y of the Co block's group, Co block blockIdx.z; `wgs`
+// consumer warpgroups of MPW m-tiles each and one producer warpgroup.  Its sums go to its share's row
 // of `ws` ([splits, |dw| + |db|]); the column's last CTA sums the rows into
 // `out` ([|dw| + |db|]).
 template <int N, int MPW>
@@ -586,7 +682,7 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const size_t dw_size = (size_t)geo.coblk * geo.ciblk * geo.hf * geo.wf
+  const size_t dw_size = (size_t)geo.coblk * cigblk(geo) * geo.hf * geo.wf
                          * geo.cib * geo.cob;
   const size_t cols = dw_size + (geo.with_db ? geo.coblk * geo.cob : 0);
   float* row = ws + (size_t)split * cols;
@@ -614,8 +710,9 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
       // rows of stage s - 1 that other threads copied by cp.async have
       // landed (TMA's are, once this thread has waited on their mbarrier)
       if (more && !tma_x(geo)) dt::bar_sync(kBarProducer, kWarpgroup);
-      issue_x(tmx, x, geo, tile_of(geo, first + s), ci_b, m.x[slot],
-              m.x[slot ^ 1], &m.bar_x[slot], more ? keep : 0, tid);
+      issue_x(tmx, x, geo, tile_of(geo, first + s), x_block(geo, co_b, ci_b),
+              m.x[slot], m.x[slot ^ 1], &m.bar_x[slot], more ? keep : 0,
+              tid);
       if (!tma_d(geo)) cp_async_wait_all();
       dt::mbar_wait(&m.bar_d[slot], parity);
       dt::bar_sync(kBarProducer, kWarpgroup);   // g and z of s landed
@@ -643,7 +740,7 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
 
   // the column's last CTA sums its rows in split order: the (tap, c) rows
   // of the group's m-tiles, and db where the column has it
-  const int column = (co_b * geo.ciblk + ci_b) * ngroups + group;
+  const int column = dw_block(geo, co_b, ci_b) * ngroups + group;
   if (!split_sum::arrive(counters + column, geo.splits,
                          reinterpret_cast<int*>(m.db), 0, nth,
                          threadIdx.x == 0)) {
@@ -652,7 +749,7 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
   const int span = geo.wgs * geo.mpw * kRows;
   const int m_lo = group * span;
   const int m_hi = min(geo.hf * geo.wf * geo.cib, m_lo + span);
-  const size_t base = ((size_t)co_b * geo.ciblk + ci_b) * geo.hf * geo.wf
+  const size_t base = (size_t)dw_block(geo, co_b, ci_b) * geo.hf * geo.wf
                           * geo.cib * geo.cob
                       + (size_t)m_lo * geo.cob;
   split_sum::sum_rows(ws + base, cols, geo.splits, out + base,
@@ -752,12 +849,14 @@ __host__ __device__ inline int halves(const Geometry& g) {
 __host__ __device__ inline int mtiles(const Geometry& g) {
   return halves(g) * taps(g);
 }
-// column phases of the staged window, and cells of a phase's row
+// column phases of the staged window (the stride's, or the filter's dilated
+// reach where that is shorter), and cells of a phase's row
 __host__ __device__ inline int phases(const Geometry& g) {
-  return g.stride < g.wf ? g.stride : g.wf;
+  const int reach = (g.wf - 1) * g.dil_w + 1;
+  return g.stride < reach ? g.stride : reach;
 }
 __host__ __device__ inline int wph(const Geometry& g) {
-  return g.tw + (g.wf - 1) / g.stride;
+  return g.tw + (g.wf - 1) * g.dil_w / g.stride;
 }
 // 1x1 at stride 1: the window is the tile, positions consecutive cells
 __host__ __device__ inline bool flat(const Geometry& g) {
@@ -824,9 +923,9 @@ __host__ inline size_t smem_bytes(const Geometry& g) {
 // (half, tap) m-tiles, every one of the wgmma's N lanes.
 __host__ inline void plan(const Geometry& g, long long* out) {
   out[0] = tiles(g);
-  out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * g.ciblk
+  out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * cigblk(g)
            * g.cob * g.coblk;
-  out[2] = (long long)g.ciblk * g.coblk * tiles(g) * bf16::kpos(g)
+  out[2] = (long long)cigblk(g) * g.coblk * tiles(g) * bf16::kpos(g)
            * bf16::mtiles(g) * kRows * g.lanes;
   out[3] = (long long)bf16::smem_bytes(g);
 }
@@ -834,7 +933,8 @@ __host__ inline void plan(const Geometry& g, long long* out) {
 // Whether the bf16 kernels take this geometry: dz alone (no z, no db), the
 // compiled widths, 8 consecutive cells a position group, two slots.
 __host__ inline bool valid(const Geometry& g) {
-  return g.n >= 1 && g.wgs >= 1 && g.mpw >= 1 && g.prologue == 0
+  return valid_map(g) && g.n >= 1 && g.wgs >= 1 && g.mpw >= 1
+         && g.prologue == 0
          && g.with_db == 0 && kWarpgroup * (g.wgs + 1)
                                   <= max_threads(g.lanes, g.mpw)
          && (g.lanes == 64 || g.lanes == 128) && g.lanes >= g.cob
@@ -1009,13 +1109,13 @@ __device__ void copy_rows(char* dst, int count, int lanes, bool pairs,
 }
 
 // Stage s of tile `t` into its slot (`tid` of the producer's kWarpgroup
-// threads): the CTA's `nh` halves from `h0`, each in every phase, then B's
-// 64-lane blocks, by TMA onto the slot's mbarrier where the strides allow
+// threads): the CTA's `nh` halves from `h0` of x's block `x_b`, each in
+// every phase, then B's 64-lane blocks, by TMA onto the slot's mbarrier where the strides allow
 // and by copies otherwise; the mbarrier completes once everything landed.
 __device__ void issue(const Smem& m, const CUtensorMap* tmx,
                       const CUtensorMap* tmd, const bf* __restrict__ x,
                       const bf* __restrict__ dz, const Geometry& g,
-                      const Tile& t, int slot, int ci_b, int co_b, int h0,
+                      const Tile& t, int slot, int x_b, int co_b, int h0,
                       int nh, int tid) {
   char* xs = m.slot0 + (size_t)slot * slot_bytes(g);
   char* bs = xs + x_bytes(g);
@@ -1037,7 +1137,7 @@ __device__ void issue(const Smem& m, const CUtensorMap* tmx,
           const int gp = ((iw % g.stride) + g.stride) % g.stride;
           dt::tma_load_5d(xs + (h * np + ph) * region_bytes(g), tmx, bar,
                           kLanes * (h0 + h), gp, (iw - gp) / g.stride, ih0,
-                          t.n * g.ciblk + ci_b);
+                          t.n * g.ciblk + x_b);
         }
       }
     }
@@ -1051,7 +1151,7 @@ __device__ void issue(const Smem& m, const CUtensorMap* tmx,
   if (bf16::tma_x(g) && bf16::tma_d(g)) return;
   if (!bf16::tma_x(g)) {
     const unsigned short* xb = reinterpret_cast<const unsigned short*>(x)
-        + (size_t)(t.n * g.ciblk + ci_b) * g.hi * g.wi * g.cib;
+        + (size_t)(t.n * g.ciblk + x_b) * g.hi * g.wi * g.cib;
     for (int h = 0; h < nh; ++h) {
       const int c0 = kLanes * (h0 + h);
       const int lanes = min(kLanes, g.cib - c0);
@@ -1105,8 +1205,8 @@ __device__ void produce(const Smem& m, const CUtensorMap* tmx,
   for (int s = 0; s < stages; ++s) {
     const int slot = s % ns;
     if (s >= ns) dt::bar_sync(kBarEmpty + slot, blockDim.x);
-    issue(m, tmx, tmd, x, dz, g, tile_of(g, first + s), slot, ci_b, co_b, h0,
-          nh, tid);
+    issue(m, tmx, tmd, x, dz, g, tile_of(g, first + s), slot,
+          x_block(g, co_b, ci_b), co_b, h0, nh, tid);
   }
 }
 
@@ -1128,7 +1228,7 @@ __device__ void store_dw(float* __restrict__ row,
       const int c = kLanes * hh[t] + threadIdx.x % kWarpgroup / 32 * 16
                     + lane / 4 + 8 * h;
       if (c >= g.cib) continue;
-      float* out = row + ((((size_t)co_b * g.ciblk + ci_b) * taps(g) + tp[t])
+      float* out = row + (((size_t)dw_block(g, co_b, ci_b) * taps(g) + tp[t])
                           * g.cib + c) * g.cob;
 #pragma unroll
       for (int jj = 0; jj < N / 8; ++jj) {
@@ -1166,10 +1266,12 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& g,
     hh[t] = group / gph(g) * hpg(g) + lh;
     tp[t] = group % gph(g) * tpg(g) + i % tpg(g);
     on[t] = lh < hpg(g) && hh[t] < halves(g) && tp[t] < taps(g);
+    // tap (dh, dw) reads column phase (dw dil_w) % s from cell (dw dil_w)
+    // / s of window row dh dil_h
     const int dh = tp[t] / g.wf;
-    const int dw = tp[t] - dh * g.wf;
-    abase[t] = (lh * np + dw % g.stride) * region_bytes(g)
-               + (dh * wph(g) + dw / g.stride) * kRowBytes;
+    const int col = (tp[t] - dh * g.wf) * g.dil_w;
+    abase[t] = (lh * np + col % g.stride) * region_bytes(g)
+               + (dh * g.dil_h * wph(g) + col / g.stride) * kRowBytes;
   }
   float total[MPW][N / 2];
 #pragma unroll
@@ -1255,8 +1357,8 @@ __device__ void run(char* smem, const CUtensorMap* tmx,
   }
   dt::fence_proxy_async();      // the zeros, before TMA and wgmma see them
   __syncthreads();
-  const size_t dw_size = (size_t)geo.coblk * geo.ciblk * taps(geo) * geo.cib
-                         * geo.cob;
+  const size_t dw_size = (size_t)geo.coblk * cigblk(geo) * taps(geo)
+                         * geo.cib * geo.cob;
   float* row = ws + (size_t)split * dw_size;
 
   if (threadIdx.x >= geo.wgs * kWarpgroup) {
@@ -1265,7 +1367,7 @@ __device__ void run(char* smem, const CUtensorMap* tmx,
     consume<N, MPW>(m, geo, st, group, stages, row, ci_b, co_b);
   }
 
-  const int column = (co_b * geo.ciblk + ci_b) * ngroups + group;
+  const int column = dw_block(geo, co_b, ci_b) * ngroups + group;
   if (!split_sum::arrive(counters + column, geo.splits, m.flag, 0, nth,
                          threadIdx.x == 0)) {
     return;
@@ -1274,7 +1376,7 @@ __device__ void run(char* smem, const CUtensorMap* tmx,
   const int t0 = group % gph(geo) * tpg(geo);
   for (int h = h0; h < h0 + nh; ++h) {
     for (int tp = t0; tp < min(t0 + tpg(geo), taps(geo)); ++tp) {
-      const size_t base = ((((size_t)co_b * geo.ciblk + ci_b) * taps(geo)
+      const size_t base = (((size_t)dw_block(geo, co_b, ci_b) * taps(geo)
                             + tp) * geo.cib + kLanes * h) * geo.cob;
       split_sum::sum_rows(ws + base, dw_size, geo.splits, out + base,
                           min(kLanes, geo.cib - kLanes * h) * geo.cob, 1.0f,
@@ -1371,7 +1473,8 @@ inline cudaError_t allow_smem(const void* kernel, const Geometry& g,
 
 // Whether the kernels take this geometry.
 __host__ inline bool valid(const Geometry& g) {
-  return g.n >= 1 && g.wgs >= 1 && g.wgs <= kMaxConsumers && g.mpw >= 1
+  return valid_map(g) && g.n >= 1 && g.wgs >= 1 && g.wgs <= kMaxConsumers
+         && g.mpw >= 1
          && g.lanes >= g.cob && g.lanes * g.mpw <= kWarpgroup
          && g.th >= 1 && g.tw >= 1 && g.th * g.tw <= kMaxPositions
          && g.stride >= 1 && g.splits >= 1 && g.splits <= tiles(g)
@@ -1381,7 +1484,7 @@ __host__ inline bool valid(const Geometry& g) {
 // Check the launch, encode its tensor maps (x as [N, Ci/Cib, Hi, Wi, Cib]
 // with a box of one window row, `ld` channels a cell; g and z as [N,
 // Co/Cob, Ho, Wo, Cob] with a box of the tile), size its shared memory and
-// launch (groups * splits, Ci/Cib, Co/Cob) CTAs of `wgs` consumer
+// launch (groups * splits, Cig/Cib, Co/Cob) CTAs of `wgs` consumer
 // warpgroups and the producer.
 inline int launch(Kernel kernel, const float* x, const float* g,
                   const float* z, float* ws, float* out, int* counters,
@@ -1404,7 +1507,7 @@ inline int launch(Kernel kernel, const float* x, const float* g,
                               (long long)geo.hi * geo.wi * cib * 4,
                               (long long)geo.ciblk * geo.hi * geo.wi * cib
                                   * 4};
-    const int box[5] = {x_ld(geo.cib, geo.stride), wwin(geo), 1, 1, 1};
+    const int box[5] = {x_ld(geo.cib, geo.stride), box_cells(geo), 1, 1, 1};
     if (!dt::encode(&tmx, x, 5, dims, str, box))
       return (int)cudaErrorNotSupported;   // the encoder refused the map
   }
@@ -1423,7 +1526,7 @@ inline int launch(Kernel kernel, const float* x, const float* g,
   const size_t smem = smem_bytes(geo);
   err = allow_smem((const void*)kernel, geo, device, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(groups(geo) * geo.splits, geo.ciblk, geo.coblk);
+  const dim3 grid(groups(geo) * geo.splits, cigblk(geo), geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
       tmx, tmg, tmz, x, g, z, ws, out, counters, geo);
   return (int)cudaGetLastError();
@@ -1502,7 +1605,7 @@ inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
   const size_t smem = bf16::smem_bytes(geo);
   err = allow_smem((const void*)kernel, geo, device, (int)smem, true);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bf16::groups(geo) * geo.splits, geo.ciblk, geo.coblk);
+  const dim3 grid(bf16::groups(geo) * geo.splits, cigblk(geo), geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
       tmx, tmd, x, dz, ws, out, counters, geo, bf16::steps_of(geo));
   return (int)cudaGetLastError();

@@ -180,19 +180,21 @@ def _declare_fwd(lib, ptr, i32) -> None:
 def declare_backward(lib, prefix: str, ptr, i32) -> None:
     """Declare the dgrad and wgrad C entries ``<prefix>_dgrad``,
     ``<prefix>_wgrad`` and their ``_plan`` entries, in f32 and in the bf16
-    builds (``_bf16`` before ``_plan``), which take the same arguments."""
+    builds (``_bf16`` before ``_plan``), which take the same arguments (the
+    groups and the dilation among them: the streamed entries refuse any but
+    1)."""
     for build in ("", "_bf16"):
         entry = getattr(lib, f"{prefix}_dgrad{build}")
-        entry.argtypes = [ptr] * 4 + [i32] * 20 + [ptr, ctypes.POINTER(i32)]
+        entry.argtypes = [ptr] * 4 + [i32] * 23 + [ptr, ctypes.POINTER(i32)]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_dgrad{build}_plan")
-        entry.argtypes = [i32] * 20 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.argtypes = [i32] * 23 + [ctypes.POINTER(ctypes.c_longlong)]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_wgrad{build}")
         entry.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_wgrad{build}_plan")
-        entry.argtypes = [i32] * 21 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.argtypes = [i32] * 24 + [ctypes.POINTER(ctypes.c_longlong)]
         entry.restype = i32
 
 
@@ -365,13 +367,13 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     ``[N, Co]`` features.  ``padding`` is TF-SAME aware (against the dilated
     filter); on CUDA the pads are masked loads, never a padded copy.
 
-    Grouped (``groups > 1``) and dilated geometry runs the window kernel,
-    as the reference's ``_forward_windowed``: output block ``co`` contracts
-    its group's input blocks ``(co // cogblk) * cigblk + ci`` alone, and tap
-    ``(dh, dw)`` starts ``(dh * dil_h, dw * dil_w)`` on.  A forced stream
-    raises ``ValueError`` (the streamed kernels are dense-only), and so far
-    only the forward exists: with grad mode on and an operand that requires
-    grad such geometry raises ``NotImplementedError`` on every device.
+    Grouped (``groups > 1``) and dilated geometry runs the window kernels,
+    as the reference's ``_forward_windowed``, ``_dgrad_windowed`` and
+    ``_wgrad_windowed``: output block ``co`` contracts its group's input
+    blocks ``(co // cogblk) * cigblk + ci`` alone, and tap ``(dh, dw)``
+    starts ``(dh * dil_h, dw * dil_w)`` on; its dgrad and wgrad do the
+    same, and it trains as a dense layer does.  A forced stream raises
+    ``ValueError`` (the streamed kernels are dense-only).
 
     With grad mode on and an operand that requires grad the call goes
     through ``BlockedConvFunction`` (the training path: the f32 policy, or
@@ -396,12 +398,6 @@ def direct_conv2d_blocked(x: torch.Tensor, w: torch.Tensor,
     op_bytes = op_dtype.itemsize
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in operands):
-        if not spec.is_dense:
-            raise NotImplementedError(
-                f"groups={spec.groups}, dilation={spec.dilation}: only the "
-                "forward of grouped and dilated geometry is ported; its dgrad "
-                "and wgrad are the backward half of ROADMAP item A2.  Call it "
-                "under torch.no_grad()")
         policy = training_policy(precision)
         route = _resolve_route(stream, hso, spec, x.shape[4], cob, machine,
                               activation, policy.operand_itemsize)
@@ -707,14 +703,19 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
                         stream: Stream = None, hso: Optional[int] = None,
                         machine: MachineModel = H100_SXM,
                         precision=F32,
-                        prologue_tiles: Optional[bool] = None
-                        ) -> torch.Tensor:
+                        prologue_tiles: Optional[bool] = None,
+                        groups: int = 1, dilation=1) -> torch.Tensor:
     """Input gradient of ``act(conv(x, w) + b)``: the raw cotangent ``g
     [N, Co/Cob, Ho, Wo, Cob]``, the saved pre-activation ``z`` (same shape;
     None for a linear epilogue) and ``w`` -> ``dx [N, Ci/Cib, Hi, Wi, Cib]``
     at the unpadded ``input_hw``, with ``dz = g * act'(z)`` formed as ``g``
-    is staged.  ``stride``/``padding`` are the forward's; ``stream``,
-    ``hso`` and ``machine`` route it as the forward.  On CUDA: the
+    is staged.  ``groups`` and ``dilation`` as the forward's (``w [Co/Cob,
+    Cig/Cib, Hf, Wf, Cib, Cob]``): Ci block ``ci`` contracts its group's
+    cotangent blocks ``(ci // cigblk) * cogblk + co`` alone, as the
+    reference's ``_dgrad_windowed``, and each phase takes the dilated taps
+    that reach it (the window kernel; a forced stream raises).
+    ``stride``/``padding`` are the forward's; ``stream``, ``hso`` and
+    ``machine`` route it as the forward.  On CUDA: the
     phase-split tensor-core kernel (``csrc/dgrad_tile.cuh``), all phases in
     one launch, its operands copied by TMA, or by cp.async where Cob is not
     a multiple of 4 (8 in bf16).  Under ``BF16`` its bf16 build
@@ -731,8 +732,9 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
     dtype = build_dtype(precision)
     hi, wi = input_hw
     n, coblk, ho, wo, cob = g.shape
-    _, ciblk, hf, wf, cib, _ = w.shape
-    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
+    _, _, hf, wf, cib, _ = w.shape
+    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z, groups,
+                         dilation)
     prologue = z is not None and activation not in (None, "linear")
     tiles = prologue if prologue_tiles is None else prologue_tiles
     if _routed("dgrad", stream, hso, spec, cib, cob, machine,
@@ -740,11 +742,13 @@ def direct_conv2d_dgrad(g: torch.Tensor, w: torch.Tensor,
         return _stream_kernels().stream_dgrad(
             g, w, input_hw, stride, padding, z, activation, hso=hso,
             machine=machine, precision=precision, prologue_tiles=tiles)
-    blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib, cob,
-                                machine, tiles, dtype.itemsize)
+    blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, spec.ci // cib,
+                                cib, cob, machine, tiles, dtype.itemsize,
+                                spec.dilation)
     if g.device.type == "cpu":
         return direct_conv_dgrad_blocked(g, w, input_hw, stride, padding, z,
-                                         activation,
+                                         activation, spec.groups,
+                                         spec.dilation,
                                          precision=plain_policy(dtype))
     name = "direct_conv2d_dgrad" + _suffix(dtype)
     lib = _bwd_lib()
@@ -773,7 +777,8 @@ def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
             _require(z, "z", dev, vector_loads=True, dtype=dtype),
             _require(w, "w", dev, vector_loads=True, dtype=dtype))
     n, coblk, ho, wo, cob = g.shape
-    _, ciblk, hf, wf, cib, _ = w.shape
+    cib = w.shape[4]
+    ciblk = spec.ci // cib
     if ciblk > _GRID_YZ_MAX or n > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, N={n}")
     dx = torch.empty((n, ciblk, spec.hi, spec.wi, cib), device=dev,
@@ -787,12 +792,14 @@ def dgrad_launch(entry, rows: int, blk: DgradBlocking, g: torch.Tensor,
 
 def _dgrad_ints(rows: int, blk: DgradBlocking, g_shape, w_shape,
                 spec: ConvSpec) -> tuple:
-    """The geometry arguments of a dgrad kernel's C entries."""
+    """The geometry arguments of a dgrad kernel's C entries: the map's Ci
+    blocks (``Cig/Cib * groups`` of a grouped weight), the tiles, the
+    groups and the dilation."""
     n, coblk, ho, wo, cob = g_shape
-    _, ciblk, hf, wf, cib, _ = w_shape
-    return (n, coblk, cob, ho, wo, ciblk, cib, spec.hi, spec.wi, hf, wf,
-            spec.stride, spec.pads[0][0], spec.pads[1][0], rows, blk.tw,
-            blk.wgs, blk.lanes, blk.chunk)
+    _, _, hf, wf, cib, _ = w_shape
+    return (n, coblk, cob, ho, wo, spec.ci // cib, cib, spec.hi, spec.wi, hf,
+            wf, spec.stride, spec.pads[0][0], spec.pads[1][0], rows, blk.tw,
+            blk.wgs, blk.lanes, blk.chunk, spec.groups, *spec.dilation)
 
 
 def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
@@ -800,8 +807,8 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
                 padding: Padding = "VALID", z: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None, *, streamed: bool = False,
                 machine: MachineModel = H100_SXM,
-                dtype: torch.dtype = torch.float32
-                ) -> Tuple[DgradPlan, DgradPlan]:
+                dtype: torch.dtype = torch.float32, groups: int = 1,
+                dilation=1) -> Tuple[DgradPlan, DgradPlan]:
     """What one launch of the window dgrad kernel (with ``streamed``, the
     streamed one) in its build for ``dtype`` operands runs on these
     operands, tiled as its wrapper tiles them by default: ``(the kernel
@@ -811,8 +818,10 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
     launches nothing."""
     hi, wi = input_hw
     n, coblk, _, _, cob = g.shape
-    _, ciblk, hf, wf, cib, _ = w.shape
-    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z)
+    _, _, hf, wf, cib, _ = w.shape
+    spec = backward_spec(n, hi, wi, w.shape, stride, padding, g, z, groups,
+                         dilation)
+    ciblk = spec.ci // cib
     prologue = z is not None and activation not in (None, "linear")
     ob = dtype.itemsize
     if streamed:
@@ -822,7 +831,7 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
         lib, prefix, rows = _stream_kernels()._lib(), "conv2d_stream", blk.hso
     else:
         blk = choose_dgrad_blocking(n, hi, wi, hf, wf, stride, ciblk, cib,
-                                    cob, machine, prologue, ob)
+                                    cob, machine, prologue, ob, spec.dilation)
         lib, prefix, rows = _bwd_lib(), "direct_conv2d", blk.th
     entry = getattr(lib, f"{prefix}_dgrad{_suffix(dtype)}_plan")
     out = (ctypes.c_longlong * 6)()
@@ -830,7 +839,7 @@ def dgrad_plans(g: torch.Tensor, w: torch.Tensor,
              out):
         raise ValueError(f"the dgrad kernel refuses the tiles {blk}")
     model = dgrad_plan(blk, n, hi, wi, hf, wf, stride, spec.pads, ciblk, cib,
-                       coblk, cob, ob, prologue)
+                       coblk, cob, ob, prologue, spec.groups, spec.dilation)
     return DgradPlan(*out, products=model.products), model
 
 
@@ -840,11 +849,16 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                         activation: Optional[str] = None,
                         with_db: bool = False, *, stream: Stream = None,
                         hso: Optional[int] = None,
-                        machine: MachineModel = H100_SXM, precision=F32):
+                        machine: MachineModel = H100_SXM, precision=F32,
+                        groups: int = 1, dilation=1):
     """Weight (and bias) gradient of ``act(conv(x, w) + b)``: the forward's
     unpadded input ``x``, the raw cotangent ``g`` and the saved
     pre-activation ``z`` -> ``(dw [Co/Cob, Ci/Cib, Hf, Wf, Cib, Cob] f32,
-    db [Co/Cob, Cob] f32 or None)``.  Under ``BF16`` the bf16 dz pass
+    db [Co/Cob, Cob] f32 or None)``; with ``groups`` dw is ``[Co/Cob,
+    Cig/Cib, Hf, Wf, Cib, Cob]``, Co block ``co`` contracting its group's
+    input blocks ``(co // cogblk) * cigblk + ci`` alone, and ``dilation``
+    strides the taps (the reference's ``_wgrad_windowed``; the window
+    kernel, a forced stream raises).  Under ``BF16`` the bf16 dz pass
     (``cotangent_pass``: dz and db, where there is a prologue or a db) and
     the bf16 build (``wgrad_kernel_bf16``) on ``x`` and dz, cast to bf16; dw
     and db stay f32, as the reference's ``out_dtype=jnp.float32``.
@@ -861,8 +875,9 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     ob = build_dtype(precision).itemsize
     n, ciblk, hi, wi, cib = x.shape
     cob = g.shape[4]
-    spec = backward_spec(n, hi, wi, (g.shape[1], ciblk, hf, wf, cib, cob),
-                         stride, padding, g, z)
+    spec = backward_spec(n, hi, wi,
+                         (g.shape[1], ciblk // groups, hf, wf, cib, cob),
+                         stride, padding, g, z, groups, dilation)
     prologue = z is not None and activation not in (None, "linear")
     if _routed("wgrad", stream, hso, spec, cib, cob, machine,
                prologue=prologue, op_bytes=ob):
@@ -871,22 +886,27 @@ def direct_conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
             machine=machine, precision=precision)
     if x.device.type == "cpu":
         choose_wgrad_blocking(n, spec.ho, spec.wo, hf, wf, stride, ciblk,
-                              cib, g.shape[1], cob, machine, prologue, ob)
+                              cib, g.shape[1], cob, machine, prologue, ob,
+                              spec.groups, spec.dilation)
         return direct_conv_wgrad_blocked(x, g, hf, wf, stride, padding, z,
-                                         activation, with_db,
+                                         activation, with_db, spec.groups,
+                                         spec.dilation,
                                          precision=plain_policy(
                                              build_dtype(precision)))
     _, out = wgrad_partials(x, g, hf, wf, stride, padding, z, activation,
-                            with_db, machine, precision)
-    return split_wgrad(out, x.shape, g.shape, hf, wf, with_db)
+                            with_db, machine, precision, spec.groups,
+                            spec.dilation)
+    return split_wgrad(out, x.shape, g.shape, hf, wf, with_db, spec.groups)
 
 
 def split_wgrad(out: torch.Tensor, x_shape, g_shape, hf: int, wf: int,
-                with_db: bool):
+                with_db: bool, groups: int = 1):
     """The summed workspace row ``[|dw| + |db|]`` -> ``(dw, db or None)``,
-    views of it."""
+    views of it; a grouped dw has the group's ``Ci/Cib / groups`` input
+    blocks."""
     _, ciblk, _, _, cib = x_shape
     _, coblk, _, _, cob = g_shape
+    ciblk //= groups
     dw_size = coblk * ciblk * hf * wf * cib * cob
     dw = out[:dw_size].view(coblk, ciblk, hf, wf, cib, cob)
     db = out[dw_size:].view(coblk, cob) if with_db else None
@@ -898,10 +918,12 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                    z: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
                    with_db: bool = False,
-                   machine: MachineModel = H100_SXM, precision=F32
+                   machine: MachineModel = H100_SXM, precision=F32,
+                   groups: int = 1, dilation=1
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The wgrad kernel on CUDA operands (tiles from
-    ``choose_wgrad_blocking``; under ``BF16`` its bf16 build) -> ``(ws,
+    ``choose_wgrad_blocking``; under ``BF16`` its bf16 build; ``groups``
+    and ``dilation`` as ``direct_conv2d_wgrad``'s) -> ``(ws,
     out)``: the f32 workspace ``[splits, |dw| + |db|]`` of per-share
     partial sums, each row laid out as ``dw`` then ``db``, and ``out [|dw|
     + |db|]``, its rows summed in split order by the last CTA of each
@@ -913,11 +935,12 @@ def wgrad_partials(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     dtype = build_dtype(precision)
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
-    spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
-                         padding, g, z)
+    spec = backward_spec(n, hi, wi, (coblk, ciblk // groups, hf, wf, cib, cob),
+                         stride, padding, g, z, groups, dilation)
     prologue = z is not None and activation not in (None, "linear")
     blk = choose_wgrad_blocking(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                                cob, machine, prologue, dtype.itemsize)
+                                cob, machine, prologue, dtype.itemsize,
+                                spec.groups, spec.dilation)
     lib = _bwd_lib()
     name = "direct_conv2d_wgrad" + _suffix(dtype)
     if dtype == torch.bfloat16:
@@ -1060,17 +1083,19 @@ class WgradLaunch:
 def wgrad_launch_plan(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
                       spec: ConvSpec, act: int, with_db: bool) -> WgradLaunch:
     """The plan of a wgrad launch with the tiles ``blk`` over operands of
-    these shapes (cached: a layer called again builds nothing)."""
+    these shapes (cached: a layer called again builds nothing); the grid
+    and dw walk a group's ``Ci/Cib / spec.groups`` input blocks."""
     n, ciblk, _, _, cib = x_shape
     _, coblk, _, _, cob = g_shape
     if ciblk > _GRID_YZ_MAX or coblk > _GRID_YZ_MAX:
         raise ValueError(f"grid too large: Ci/Cib={ciblk}, Co/Cob={coblk}")
+    cigblk = ciblk // spec.groups
     ints = (*_wgrad_ints(blk, x_shape, g_shape, hf, wf, spec), act,
             int(with_db))
     return WgradLaunch(
-        blk=blk, cols=coblk * ciblk * hf * wf * cib * cob + (
+        blk=blk, cols=coblk * cigblk * hf * wf * cib * cob + (
             coblk * cob if with_db else 0),
-        columns=blk.groups * ciblk * coblk,
+        columns=blk.groups * cigblk * coblk,
         ints=(ctypes.c_int * len(ints))(*ints))
 
 
@@ -1102,12 +1127,13 @@ def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
 
 def _wgrad_ints(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
                 spec: ConvSpec) -> tuple:
-    """The geometry arguments of a wgrad kernel's C entries."""
+    """The geometry arguments of a wgrad kernel's C entries: the map's, the
+    tiles, the groups and the dilation."""
     n, ciblk, hi, wi, cib = x_shape
     _, coblk, ho, wo, cob = g_shape
     return (n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, spec.stride,
             spec.pads[0][0], spec.pads[1][0], blk.th, blk.tw, blk.wgs,
-            blk.mpw, blk.lanes, blk.splits)
+            blk.mpw, blk.lanes, blk.splits, spec.groups, *spec.dilation)
 
 
 def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
@@ -1115,8 +1141,8 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
                 z: Optional[torch.Tensor] = None,
                 activation: Optional[str] = None, *, streamed: bool = False,
                 machine: MachineModel = H100_SXM,
-                dtype: torch.dtype = torch.float32
-                ) -> Tuple[WgradPlan, WgradPlan]:
+                dtype: torch.dtype = torch.float32, groups: int = 1,
+                dilation=1) -> Tuple[WgradPlan, WgradPlan]:
     """What one launch of the window wgrad kernel (with ``streamed``, the
     streamed one) in its build for ``dtype`` operands runs on these
     operands, tiled as its wrapper tiles them: ``(the kernel library's own
@@ -1124,8 +1150,8 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
     the built library; launches nothing."""
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = g.shape
-    spec = backward_spec(n, hi, wi, (coblk, ciblk, hf, wf, cib, cob), stride,
-                         padding, g, z)
+    spec = backward_spec(n, hi, wi, (coblk, ciblk // groups, hf, wf, cib, cob),
+                         stride, padding, g, z, groups, dilation)
     prologue = z is not None and activation not in (None, "linear")
     args = (n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob, machine,
             prologue)
@@ -1133,7 +1159,8 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
         blk = choose_stream_wgrad_blocking(*args, None, dtype.itemsize)
         lib, prefix = _stream_kernels()._lib(), "conv2d_stream"
     else:
-        blk = choose_wgrad_blocking(*args, dtype.itemsize)
+        blk = choose_wgrad_blocking(*args, dtype.itemsize, spec.groups,
+                                    spec.dilation)
         lib, prefix = _bwd_lib(), "direct_conv2d"
     entry = getattr(lib, f"{prefix}_wgrad{_suffix(dtype)}_plan")
     out = (ctypes.c_longlong * 4)()
@@ -1142,7 +1169,7 @@ def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,
              int(prologue and dtype == torch.float32), out):
         raise ValueError(f"the wgrad kernel refuses the tiles {blk}")
     model = wgrad_plan(blk, n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
-                       cob, prologue)
+                       cob, prologue, spec.groups, spec.dilation)
     return WgradPlan(*out, products=model.products), model
 
 
@@ -1176,8 +1203,8 @@ class _Dense:
                     machine=self.machine, precision=self.policy)
         if x.device.type == "cpu":
             return direct_conv_preactivation(
-                x, w, spec.stride, spec.pads, bias,
-                precision=self.policy if bf16 else None)
+                x, w, spec.stride, spec.pads, bias, spec.groups,
+                spec.dilation, precision=self.policy if bf16 else None)
         return _fwd_cuda(x, w, bias, None, spec, None, False, self.machine,
                          build_dtype(self.policy))
 
@@ -1188,14 +1215,18 @@ class _Dense:
                                    stream=self.route.dgrad,
                                    machine=self.machine,
                                    precision=self.policy,
-                                   prologue_tiles=prologue_tiles)
+                                   prologue_tiles=prologue_tiles,
+                                   groups=spec.groups,
+                                   dilation=spec.dilation)
 
     def wgrad(self, x, g, spec: ConvSpec, z, activation, with_db: bool):
         return direct_conv2d_wgrad(x, g, spec.hf, spec.wf, spec.stride,
                                    spec.pads, z, activation, with_db,
                                    stream=self.route.wgrad,
                                    machine=self.machine,
-                                   precision=self.policy)
+                                   precision=self.policy,
+                                   groups=spec.groups,
+                                   dilation=spec.dilation)
 
     def cotangent(self, g, z, activation, with_db: bool):
         return cotangent_pass(g, z, activation, with_db, machine=self.machine)

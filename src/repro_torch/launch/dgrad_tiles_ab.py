@@ -17,9 +17,14 @@ and route the chooser's tile beside the fastest one measured, then the sums.
 off as bf16 training calls them, each ``dx`` within 1e-2 of max|dx| of the
 plain version on the same operands, and also times the ``BF16_PER_CHUNK``
 cheapest of each (consumer count, chunk), the set the bf16 cost model was
-fitted to.  Needs an H100 and nvcc::
+fitted to.  ``--grouped`` times instead the window kernel's grouped and
+dilated geometry: AlexNet's dgrad layers (conv2-5 of ``alexnet_blocked``,
+a 227x227 entry; the images take no gradient) and DeepLab-LargeFOV's conv5
+(dilation 2) and fc6 (dilation 12) on a 41x41 map (``grouped_layers``).
+Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.dgrad_tiles_ab [--dtype bf16]
+    PYTHONPATH=src python -m repro_torch.launch.dgrad_tiles_ab \
+        [--dtype bf16] [--grouped]
 """
 from __future__ import annotations
 
@@ -50,6 +55,25 @@ def dgrad_layers(entry: int = 224):
     return out
 
 
+def grouped_layers(n: int = 8):
+    """AlexNet's dgrad layers (conv2-5) and DeepLab-LargeFOV's conv5 and
+    fc6 (``fwd_tiles_ab.grouped_layers``), as ``(name, ConvSpec, cib,
+    cob)``."""
+    from repro_torch.launch.fwd_tiles_ab import grouped_layers as layers
+    return [layer for layer in layers(n) if layer[0] != "alexnet.conv1"]
+
+
+def grouped_candidates(spec: ConvSpec, cib: int, cob: int, op_bytes: int,
+                       top: int = TOP, per_count: int = PER_COUNT):
+    """``tile_candidates`` of the window dgrad at ``spec``'s grouped and
+    dilated geometry, the relu prologue's tiles (as training takes
+    them)."""
+    found = dgrad_candidates(spec.n, spec.hi, spec.wi, spec.hf, spec.wf,
+                             spec.stride, spec.ci // cib, cib, cob, H100_SXM,
+                             True, False, None, op_bytes, spec.dilation)
+    return _keep(found, top, per_count, 0)
+
+
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     streamed: bool, top: int, per_count: int,
                     op_bytes: int = 4, per_chunk: int = 0):
@@ -58,10 +82,15 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
     consumer count (of the bf16 build's chooser at ``op_bytes`` 2), and
     with ``per_chunk`` that many of each (consumer count, chunk)."""
     cib, cob = min(ci, 128), min(co, 128)
-    found = sorted(dgrad_candidates(n, h, h, 3, 3, stride, ci // cib, cib,
-                                    cob, H100_SXM, True, streamed, None,
-                                    op_bytes),
-                   key=lambda kb: kb[0])
+    return _keep(dgrad_candidates(n, h, h, 3, 3, stride, ci // cib, cib, cob,
+                                  H100_SXM, True, streamed, None, op_bytes),
+                 top, per_count, per_chunk)
+
+
+def _keep(found, top: int, per_count: int, per_chunk: int):
+    """The ``top`` of least cost among ``found`` and the ``per_count`` (and
+    ``per_chunk``) cheapest of each kind, the least first."""
+    found = sorted(found, key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     for wgs in sorted({b.wgs for _, b in found}):
         keep += [b for _, b in found if b.wgs == wgs][:per_count]
@@ -101,6 +130,9 @@ def graph_ms(fn, iters: int) -> float:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--grouped", action="store_true",
+                    help="AlexNet's and DeepLab-LargeFOV's grouped and "
+                         "dilated dgrads, the window kernel")
     args = ap.parse_args(argv)
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     suffix = "_bf16" if args.dtype == "bf16" else ""
@@ -118,17 +150,25 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
+    if args.grouped:            # the streamed kernels are dense-only
+        entries = {False: entries[False]}
+        layers = grouped_layers(n)
+    else:
+        layers = [(name, ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME"),
+                   min(ci, 128), min(co, 128))
+                  for name, ci, co, s, h in dgrad_layers()]
     sums = {route: [0.0, 0.0] for route in entries}
-    for name, ci, co, s, h in dgrad_layers():
-        cib, cob = min(ci, 128), min(co, 128)
-        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
+    for name, spec, cib, cob in layers:
+        ci, co, s, h = spec.ci, spec.co, spec.stride, spec.hi
         g = torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=dev,
                         generator=gen)
         z = torch.randn(g.shape, device=dev, generator=gen)
-        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
-                        generator=gen) / (9 * co) ** 0.5
+        w = torch.randn((co // cob, spec.cig // cib, spec.hf, spec.wf, cib,
+                         cob), device=dev, generator=gen) / (
+            spec.hf * spec.wf * co / spec.groups) ** 0.5
         g, z, w = g.to(dtype), z.to(dtype), w.to(dtype)
-        want = direct_conv_dgrad_blocked(g, w, (h, h), s, "SAME", z, "relu")
+        want = direct_conv_dgrad_blocked(g, w, (h, h), s, spec.pads, z,
+                                         "relu", spec.groups, spec.dilation)
         # the bf16 builds run on the dz pass's dz, as bf16 training calls
         # them (prologue off, the tiles of the dgrad with its prologue)
         operands = ((direct_conv2d.cotangent_pass(g, z, "relu", False)[0],
@@ -139,9 +179,11 @@ def main(argv=None) -> int:
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
-            for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_COUNT, dtype.itemsize,
-                                             per_chunk):
+            for cost, blk in (
+                    grouped_candidates(spec, cib, cob, dtype.itemsize)
+                    if args.grouped else
+                    tile_candidates(n, ci, co, s, h, streamed, TOP,
+                                    PER_COUNT, dtype.itemsize, per_chunk)):
                 rows = blk.hso if streamed else blk.th
 
                 def run(blk=blk, rows=rows):
@@ -170,7 +212,8 @@ def main(argv=None) -> int:
             sums[streamed][0] += chosen[0]
             sums[streamed][1] += best[0]
             print(f"[layer] {name} {'stream' if streamed else 'window'} "
-                  f"{ci}->{co} in {h}x{h} s{s}: chosen (th {chosen[1].th}, "
+                  f"{ci}->{co} in {h}x{h} s{s} groups {spec.groups} "
+                  f"dilation {spec.dilation[0]}: chosen (th {chosen[1].th}, "
                   f"tw {chosen[1].tw}, wgs {chosen[1].wgs}, chunk "
                   f"{chosen[1].chunk}) {chosen[0]:.4f} ms; fastest (th "
                   f"{best[1].th}, tw {best[1].tw}, wgs {best[1].wgs}, chunk "
@@ -178,8 +221,8 @@ def main(argv=None) -> int:
                   f"{chosen[0] / best[0]:.3f}")
         del g, z, w, want, operands
     for streamed, (chosen, best) in sums.items():
-        print(f"[sum] {'stream' if streamed else 'window'} {args.dtype}: "
-              f"chosen tiles "
+        print(f"[sum] {'stream' if streamed else 'window'} {args.dtype}"
+              f"{' grouped' if args.grouped else ''}: chosen tiles "
               f"{chosen:.4f} ms, fastest measured {best:.4f} ms, ratio "
               f"{chosen / best:.3f}")
     return 0

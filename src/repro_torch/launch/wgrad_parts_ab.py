@@ -65,10 +65,10 @@ BF16_VARIANTS = {
                  "? 1 : 2);",
                  "      dt::mbar_init(m.full + i, 1);"),
                 ("    issue(m, tmx, tmd, x, dz, g, tile_of(g, first + s), "
-                 "slot, ci_b, co_b, h0,",
+                 "slot,",
                  "    if (tid == 0) dt::mbar_expect_tx(m.full + slot, 0);\n"
                  "    if (0) issue(m, tmx, tmd, x, dz, g, tile_of(g, first "
-                 "+ s), slot, ci_b, co_b, h0,")),
+                 "+ s), slot,")),
 }
 # (ci, co, stride, input extent)
 LAYERS = ((3, 64, 1, 224), (64, 64, 1, 224), (64, 128, 2, 224),

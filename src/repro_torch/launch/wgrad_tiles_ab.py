@@ -16,9 +16,13 @@ sums over VGG-16's 13 layers.  ``--dtype bf16`` times the bf16 GEMMs
 (``wgrad_kernel_bf16``, ``stream_wgrad_kernel_bf16``) at the bf16
 chooser's candidates (``op_bytes`` 2) on bf16 x and dz (formed once by the
 dz pass, which no candidate changes), against the f64 sums of the same
-bf16 operands.  Needs an H100 and nvcc::
+bf16 operands.  ``--grouped`` times instead the window kernel's grouped and
+dilated geometry: AlexNet's five layers (``alexnet_blocked``, a 227x227
+entry) and DeepLab-LargeFOV's conv5 (dilation 2) and fc6 (dilation 12) on
+a 41x41 map (``grouped_layers``).  Needs an H100 and nvcc::
 
-    PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab [--dtype bf16]
+    PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab \
+        [--dtype bf16] [--grouped]
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.configs.cnn import vgg16_layers
 from repro_torch.core.blocking import H100_SXM, wgrad_candidates
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
+from repro_torch.launch.fwd_tiles_ab import grouped_layers
 
 TOP, PER_COUNT, ITERS = 8, 2, 10
 REL = 1e-5
@@ -46,6 +51,17 @@ def wgrad_layers(entry: int = 224):
     return out
 
 
+def grouped_candidates(spec: ConvSpec, cib: int, cob: int, op_bytes: int,
+                       top: int = TOP, per_count: int = PER_COUNT):
+    """``tile_candidates`` of the window wgrad at ``spec``'s grouped and
+    dilated geometry (``grouped_layers``), with the relu prologue."""
+    return _keep(wgrad_candidates(spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
+                                  spec.stride, spec.ci // cib, cib,
+                                  spec.co // cob, cob, H100_SXM, True, False,
+                                  None, op_bytes, spec.groups, spec.dilation),
+                 top, per_count)
+
+
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     streamed: bool, top: int, per_count: int,
                     op_bytes: int = 4):
@@ -55,10 +71,16 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
     chooser at ``op_bytes`` 2)."""
     cib, cob = min(ci, 128), min(co, 128)
     ho = -(-h // stride)
-    found = sorted(wgrad_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
-                                    co // cob, cob, H100_SXM, True,
-                                    streamed, None, op_bytes),
-                   key=lambda kb: kb[0])
+    return _keep(wgrad_candidates(n, ho, ho, 3, 3, stride, ci // cib, cib,
+                                  co // cob, cob, H100_SXM, True, streamed,
+                                  None, op_bytes), top, per_count)
+
+
+def _keep(found, top: int, per_count: int):
+    """The ``top`` of least cost among ``found`` and the ``per_count``
+    cheapest of each (consumer warpgroups, m-tiles a warpgroup) pair, the
+    least first."""
+    found = sorted(found, key=lambda kb: kb[0])
     keep = [b for _, b in found[:top]]
     for pair in sorted({(b.wgs, b.mpw) for _, b in found}):
         keep += [b for _, b in found if (b.wgs, b.mpw) == pair][:per_count]
@@ -71,6 +93,9 @@ def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--dtype", choices=("f32", "bf16"), default="f32")
+    ap.add_argument("--grouped", action="store_true",
+                    help="AlexNet's and DeepLab-LargeFOV's grouped and "
+                         "dilated wgrads, the window kernel")
     args = ap.parse_args(argv)
     bf16 = args.dtype == "bf16"
     dtype = torch.bfloat16 if bf16 else torch.float32
@@ -91,38 +116,51 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
+    if args.grouped:            # the streamed kernels are dense-only
+        entries = {False: entries[False]}
+        layers = grouped_layers(n)
+    else:
+        layers = [(name, ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME"),
+                   min(ci, 128), min(co, 128))
+                  for name, ci, co, s, h in wgrad_layers()]
     sums = {route: [0.0, 0.0] for route in entries}
     timed = {}
-    for name, ci, co, s, h in wgrad_layers():
-        key = (ci, co, s, h)
+    for name, spec, cib, cob in layers:
+        ci, co, s, h = spec.ci, spec.co, spec.stride, spec.hi
+        hf, wf, pad, gr, dil = (spec.hf, spec.wf, spec.pads, spec.groups,
+                                spec.dilation)
+        key = (ci, co, s, h, hf, gr, dil)
         if key in timed:                 # a repeated shape: its times again
             for streamed, (chosen, best) in timed[key].items():
                 sums[streamed][0] += chosen
                 sums[streamed][1] += best
             continue
         timed[key] = {}
-        cib, cob = min(ci, 128), min(co, 128)
-        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME")
         x = torch.randn((n, ci // cib, h, h, cib), device=dev, generator=gen)
-        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=dev,
-                        generator=gen) / (9 * ci) ** 0.5
-        z = direct_conv_blocked(x, w, s, "SAME").contiguous()
+        w = torch.randn((co // cob, spec.cig // cib, hf, wf, cib, cob),
+                        device=dev, generator=gen) / (
+            hf * wf * spec.cig) ** 0.5
+        z = direct_conv_blocked(x, w, s, pad, groups=gr,
+                                dilation=dil).contiguous()
         g = torch.randn(z.shape, device=dev, generator=gen)
         x, z, g = x.to(dtype), z.to(dtype), g.to(dtype)
         dz = cotangent_prologue(g, z, "relu")
-        want, _ = direct_conv_wgrad_blocked(x.double(), dz.double(), 3, 3, s,
-                                            "SAME")
+        want, _ = direct_conv_wgrad_blocked(x.double(), dz.double(), hf, wf,
+                                            s, pad, groups=gr, dilation=dil)
         scale, _ = direct_conv_wgrad_blocked(x.abs().double(),
-                                             dz.abs().double(), 3, 3, s,
-                                             "SAME")
+                                             dz.abs().double(), hf, wf, s,
+                                             pad, groups=gr, dilation=dil)
         for streamed, (lib, symbol) in entries.items():
             entry = getattr(lib(), symbol)
             runs = []
-            for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
-                                             PER_COUNT, dtype.itemsize):
+            for cost, blk in (
+                    grouped_candidates(spec, cib, cob, dtype.itemsize)
+                    if args.grouped else
+                    tile_candidates(n, ci, co, s, h, streamed, TOP,
+                                    PER_COUNT, dtype.itemsize)):
                 # the bf16 GEMM takes dz alone, no db
                 plan = direct_conv2d.wgrad_launch_plan(
-                    blk, x.shape, g.shape, 3, 3, spec, 0 if bf16 else 1,
+                    blk, x.shape, g.shape, hf, wf, spec, 0 if bf16 else 1,
                     not bf16)
                 operands = (x, dz, None) if bf16 else (x, g, z)
 
@@ -133,8 +171,8 @@ def main(argv=None) -> int:
                         raise RuntimeError(f"{symbol} {blk}: CUDA error "
                                            f"{err}")
                     return out
-                dw, _ = direct_conv2d.split_wgrad(run(), x.shape, g.shape, 3,
-                                                  3, not bf16)
+                dw, _ = direct_conv2d.split_wgrad(run(), x.shape, g.shape, hf,
+                                                  wf, not bf16, gr)
                 ratio = ((dw.double() - want).abs()
                          / (REL * scale).clamp_min(1e-300)).max().item()
                 if not ratio <= 1:
@@ -158,14 +196,15 @@ def main(argv=None) -> int:
             def tile(b):
                 return (f"(th {b.th}, tw {b.tw}, wgs {b.wgs}, mpw {b.mpw}, "
                         f"splits {b.splits})")
-            print(f"[layer] {name} {route} {ci}->{co} in {h}x{h} s{s}: "
+            print(f"[layer] {name} {route} {ci}->{co} in {h}x{h} s{s} "
+                  f"groups {gr} dilation {dil[0]}: "
                   f"chosen {tile(chosen[1])} {chosen[0]:.4f} ms; fastest "
                   f"{tile(best[1])} {best[0]:.4f} ms, ratio "
                   f"{chosen[0] / best[0]:.3f}", flush=True)
         del x, w, z, g, want, dz, scale
     for streamed, (chosen, best) in sums.items():
         print(f"[sum] {'stream' if streamed else 'window'} {args.dtype} "
-              f"(13 layers): "
+              f"({len(layers)} layers{', grouped' if args.grouped else ''}): "
               f"chosen tiles {chosen:.4f} ms, fastest measured {best:.4f} "
               f"ms, ratio {chosen / best:.3f}")
     return 0

@@ -18,9 +18,8 @@ tensors on the GPU, the plain versions for tensors on the CPU.  The
 measured dispatcher is not ported yet.  A grouped layer with more than one
 input channel per group (AlexNet's two towers) and a dilated dense layer
 go to the same dense wrapper with their ``groups`` and ``dilation``: the
-window kernel's grouped map and dilated taps.  Only their forward is
-ported: under grad mode such a layer raises ``NotImplementedError`` (the
-backward half of ROADMAP item A2).
+window kernels' grouped map and dilated taps, in the forward and, under
+grad mode, in the dgrad and wgrad (the streamed kernels are dense-only).
 
 A dense layer runs on the window kernels or on the streamed halo-ring
 kernels (``kernels.conv2d_stream``): the layer's ``stream`` field, or a

@@ -2070,3 +2070,168 @@ def test_grouped_and_dilated_forward_matches_plain_version(
                               dtype=x.dtype, groups=groups, dilation=dil)
     assert kernel == model
     assert kernel.function_macs == spec.flops() // 2
+
+
+# grouped (Cig > 1) and dilated geometry on the window dgrad and wgrad, both
+# builds: (n, ci, co, h, cib, cob, filter, stride, padding, groups,
+# dilation, dgrad)
+GROUPED_DILATED_BWD_CASES = [
+    # AlexNet's conv2: the grouped dgrad at Cib 48, the wgrad of its towers
+    (2, 96, 256, 27, 48, 64, 5, 2, ((1, 1), (1, 1)), 2, 1, True),
+    # dilation 2 at stride 2 (gcd 2: half the phases take no tap), and 3
+    (2, 64, 64, 19, 16, 16, 3, 2, "SAME", 4, 2, True),
+    (2, 64, 64, 18, 32, 32, 3, 2, "VALID", 1, 2, True),
+    (2, 32, 64, 21, 16, 32, 3, 2, "SAME", 2, 3, True),
+    # dilation 12 on a small map: the f32 tiles gather the taps' bands
+    (2, 128, 128, 29, 128, 128, 3, 1, "SAME", 1, 12, True),
+    # AlexNet's conv1 wgrad: 11x11 at stride 4, Cib 3
+    (2, 3, 96, 63, 3, 48, 11, 4, "VALID", 1, 1, False),
+]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize(
+    "n,ci,co,h,cib,cob,f,stride,padding,groups,dil,dgrad",
+    GROUPED_DILATED_BWD_CASES)
+def test_grouped_and_dilated_backward_matches_plain_version(
+        cuda, dtype, n, ci, co, h, cib, cob, f, stride, padding, groups, dil,
+        dgrad):
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    cig = ci // groups
+    spec = ConvSpec.make(n, h, h, ci, co, f, f, stride, padding, groups, dil)
+    x = torch.randn((n, ci // cib, h, h, cib), device=cuda, generator=gen)
+    w = torch.randn((co // cob, cig // cib, f, f, cib, cob), device=cuda,
+                    generator=gen) / (f * f * cig) ** 0.5
+    z = torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=cuda,
+                    generator=gen)
+    g = torch.randn(z.shape, device=cuda, generator=gen)
+    bf16 = dtype == "bf16"
+    prec = "bf16" if bf16 else "f32"
+    if bf16:
+        x, w, z, g = x.bfloat16(), w.bfloat16(), z.bfloat16(), g.bfloat16()
+    kw = dict(groups=groups, dilation=dil)
+    sfx = "_bf16" if bf16 else ""
+    if dgrad:
+        reset_launches()
+        got = direct_conv2d_dgrad(g, w, (h, h), stride, padding, z, "relu",
+                                  precision=prec, **kw)
+        again = direct_conv2d_dgrad(g, w, (h, h), stride, padding, z, "relu",
+                                    precision=prec, **kw)
+        torch.cuda.synchronize()
+        assert LAUNCHES["direct_conv2d_dgrad" + sfx] >= 2
+        want = direct_conv_dgrad_blocked(g, w, (h, h), stride, padding, z,
+                                         "relu", **kw)
+        if bf16:
+            _bf16_close(got, want)
+            dz, _ = cotangent_pass(g, z, "relu", False)
+            on_dz = direct_conv2d_dgrad(dz, w, (h, h), stride, padding,
+                                        precision=prec, prologue_tiles=True,
+                                        **kw)
+            assert torch.equal(on_dz, got)
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+        kernel, model = dgrad_plans(g, w, (h, h), stride, padding, z, "relu",
+                                    dtype=x.dtype, **kw)
+        assert kernel == model
+    reset_launches()
+    dw, db = direct_conv2d_wgrad(x, g, f, f, stride, padding, z, "relu",
+                                 True, precision=prec, **kw)
+    dw2, db2 = direct_conv2d_wgrad(x, g, f, f, stride, padding, z, "relu",
+                                   True, precision=prec, **kw)
+    torch.cuda.synchronize()
+    assert LAUNCHES["direct_conv2d_wgrad" + sfx] == 2
+    assert dw.shape == w.shape and dw.dtype == torch.float32
+    dz = conv2d_common.cotangent_prologue(g, z, "relu")
+    want_dw, want_db = direct_conv_wgrad_blocked(
+        x.double(), dz.double(), f, f, stride, padding, with_db=True, **kw)
+    abs_dw, abs_db = direct_conv_wgrad_blocked(
+        x.abs().double(), dz.abs().double(), f, f, stride, padding,
+        with_db=True, **kw)
+    assert ((dw.double() - want_dw).abs() <= WGRAD_REL * abs_dw).all()
+    assert ((db.double() - want_db).abs() <= WGRAD_REL * abs_db).all()
+    assert torch.equal(dw, dw2) and torch.equal(db, db2)
+    kernel, model = wgrad_plans(x, g, f, f, stride, padding, z, "relu",
+                                dtype=x.dtype, **kw)
+    assert kernel == model
+    assert kernel.function_macs == spec.flops() // 2
+
+
+def test_grouped_and_dilated_layer_trains_on_the_window_kernels(cuda):
+    # autograd through a grouped and a dilated layer: gradients flow, the
+    # window forward, dgrad and wgrad launched, the plain backward's values
+    for kw in (dict(groups=2), dict(dilation=2)):
+        conv = BlockedConv2D(32, 64, 3, 3, 2, "SAME", "relu", lane=16,
+                             device=cuda, **kw)
+        cb = conv.in_pencil
+        x = torch.randn((2, 32 // cb, 15, 15, cb), device=cuda,
+                        requires_grad=True)
+        reset_launches()
+        y = conv(x)
+        ct = torch.randn_like(y)
+        y.backward(ct)
+        torch.cuda.synchronize()
+        assert {k for k, v in LAUNCHES.items() if v} == {
+            "direct_conv2d_fwd", "direct_conv2d_dgrad", "direct_conv2d_wgrad"}
+        w, b = conv.w.detach(), conv.b.detach()
+        z = direct_conv_blocked(x.detach(), w, 2, "SAME", b, None,
+                                groups=conv.groups, dilation=conv.dilation)
+        want = direct_conv_dgrad_blocked(ct, w, (15, 15), 2, "SAME", z,
+                                         "relu", conv.groups, conv.dilation)
+        torch.testing.assert_close(x.grad, want, **TOL)
+        assert torch.isfinite(conv.w.grad).all()
+
+
+def test_gathered_dilated_windows_match_plain_version(cuda):
+    # the f32 tiles' band gather where the window is sparse: the wgrad's
+    # rows and columns (TMA boxes a band; Cib 3 by cp.async) and the
+    # dgrad's rows (a box a row; Cob 6 by cp.async), at tiles the choosers
+    # weigh or that the launches take, each against the plain version
+    from repro_torch.core import blocking as B
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    for n, ci, co, h, cib, cob, d in ((2, 128, 128, 29, 128, 128, 12),
+                                       (2, 3, 32, 33, 3, 32, 4)):
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, 1, "SAME", 1, d)
+        x = torch.randn((n, ci // cib, h, h, cib), device=cuda, generator=gen)
+        z = torch.randn((n, co // cob, h, h, cob), device=cuda, generator=gen)
+        g = torch.randn(z.shape, device=cuda, generator=gen)
+        dz = conv2d_common.cotangent_prologue(g, z, "relu")
+        want, _ = direct_conv_wgrad_blocked(x.double(), dz.double(), 3, 3, 1,
+                                            "SAME", dilation=d)
+        scale, _ = direct_conv_wgrad_blocked(x.abs().double(),
+                                             dz.abs().double(), 3, 3, 1,
+                                             "SAME", dilation=d)
+        found = {(b.th, b.tw, b.wgs, b.mpw): b for _, b in B.wgrad_candidates(
+            n, h, h, 3, 3, 1, ci // cib, cib, co // cob, cob, B.H100_SXM,
+            True, False, None, 4, 1, (d, d))
+            if B.wgrad_staged(b.th, b.tw, 3, 3, 1, (d, d))[1] > 1}
+        assert found
+        for blk in list(found.values())[::max(1, len(found) // 3)][:3]:
+            plan = dck.wgrad_launch_plan(blk, x.shape, g.shape, 3, 3, spec,
+                                         1, True)
+            err, _, out = dck.wgrad_launch(dck._bwd_lib().direct_conv2d_wgrad,
+                                           plan, x, g, z)
+            assert err == 0
+            dw, _ = dck.split_wgrad(out, x.shape, g.shape, 3, 3, True)
+            assert ((dw.double() - want).abs() <= WGRAD_REL * scale).all()
+    for n, ci, co, h, cib, cob, d in ((2, 16, 16, 27, 16, 16, 12),
+                                       (2, 16, 6, 27, 16, 6, 12)):
+        spec = ConvSpec.make(n, h, h, ci, co, 3, 3, 1, "SAME", 1, d)
+        w = torch.randn((co // cob, ci // cib, 3, 3, cib, cob), device=cuda,
+                        generator=gen) / (9 * ci) ** 0.5
+        z = torch.randn((n, co // cob, h, h, cob), device=cuda, generator=gen)
+        g = torch.randn(z.shape, device=cuda, generator=gen)
+        want = direct_conv_dgrad_blocked(g, w, (h, h), 1, "SAME", z, "relu",
+                                         dilation=d)
+        for th, tw in ((2, 8), (3, 21)):
+            assert B.dgrad_gathered(th, 3, 1, d)
+            blk = B.DgradBlocking(th=th, tw=tw, strips=1, wgs=1,
+                                  lanes=B.dgrad_lanes(cib), chunk=8,
+                                  mstride=64,
+                                  hwin=B.dgrad_rows(th, 3, 1, d),
+                                  wwin=tw + 2 * d)
+            err, dx, _ = dck.dgrad_launch(
+                dck._bwd_lib().direct_conv2d_dgrad, th, blk, g, w, spec, z,
+                "relu")
+            assert err == 0
+            torch.testing.assert_close(dx, want, **TOL)

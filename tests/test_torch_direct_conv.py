@@ -144,11 +144,14 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     # a grouped weight carries the per-group input extent Cig = Ci / groups
     with pytest.raises(ValueError, match="grouped weight"):
         direct_conv_blocked(x, wt, 1, "SAME", groups=2)
-    # a dilated dense layer serves (the window kernels' dilated taps); its
-    # backward is not ported, so training it is refused
+    # a dilated dense layer serves and trains (the window kernels' dilated
+    # taps, forward and backward): its gradients reach the input and weight
     conv = BlockedConv2D(4, 8, dilation=2, lane=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="backward half"):
-        conv(x)
+    xg = x.clone().requires_grad_(True)
+    conv(xg).square().sum().backward()
+    assert xg.grad.shape == x.shape and conv.w.grad.shape == conv.w.shape
+    assert torch.isfinite(xg.grad).all() and xg.grad.abs().sum() > 0
+    assert torch.isfinite(conv.w.grad).all() and conv.w.grad.abs().sum() > 0
 
 
 def test_float4_operands_must_be_16_byte_aligned():

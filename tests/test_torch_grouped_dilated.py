@@ -16,7 +16,9 @@ phase plane and offset at stride s, each (co, ci) stage's x and weight
 blocks) held against the plain version; the forward choosers at every
 AlexNet layer and DeepLab-LargeFOV's dilated shapes; the routing (grouped
 or dilated geometry pins the window kernel, a forced stream raises); and
-the refusal of autograd, whose dgrad and wgrad are not ported yet.
+autograd through such a layer, whose gradients are the plain backward's
+(tests/test_torch_grouped_dilated_bwd.py holds the backward itself to the
+reference).
 """
 import pytest
 
@@ -37,7 +39,8 @@ from repro_torch.core import layout as L  # noqa: E402
 from repro_torch.core.context import ConvContext  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
 from repro_torch.core.direct_conv import (  # noqa: E402
-    direct_conv_blocked, direct_conv_dgrad_blocked, direct_conv_wgrad_blocked)
+    direct_conv_blocked, direct_conv_dgrad_blocked,
+    direct_conv_preactivation, direct_conv_wgrad_blocked)
 from repro_torch.core.dispatch import resolve_stream, route_stream  # noqa: E402
 from repro_torch.kernels.direct_conv2d import (  # noqa: E402
     direct_conv2d_blocked, fwd_launch)
@@ -447,6 +450,9 @@ def test_grouped_and_dilated_geometry_pins_the_window_kernel():
 
 
 def test_forced_stream_and_autograd_raise():
+    # a forced stream on grouped or dilated geometry still raises, served
+    # and trained; autograd itself now runs the grouped and dilated
+    # backward, whose gradients are the plain backward's
     _, _, _, _, xb, wb, bb = _case(3, 2, 16, 16, 9, 9, 3, 2, 8)
     with pytest.raises(ValueError, match="dense-only"):
         with torch.no_grad():
@@ -454,19 +460,29 @@ def test_forced_stream_and_autograd_raise():
                                   stream=True)
     with pytest.raises(ValueError, match="dense-only"):
         BlockedConv2D(16, 16, groups=2, lane=8, stream=True, device="cpu")
-    wg = wb.clone().requires_grad_(True)
     for kw in (dict(groups=2), dict(groups=2, dilation=2)):
-        with pytest.raises(NotImplementedError, match="backward half"):
-            direct_conv2d_blocked(xb, wg, bb, 1, "SAME", "relu", **kw)
+        wg = wb.clone().requires_grad_(True)
+        with pytest.raises(ValueError, match="dense-only"):
+            direct_conv2d_blocked(xb, wg, bb, 1, "SAME", "relu", stream=True,
+                                  **kw)
+        y = direct_conv2d_blocked(xb, wg, bb, 1, "SAME", "relu", **kw)
+        g = torch.randn_like(y)
+        y.backward(g)
+        z = direct_conv_preactivation(xb, wb, 1, "SAME", bb, **kw)
+        dw, _ = direct_conv_wgrad_blocked(xb, g, 3, 3, 1, "SAME", z, "relu",
+                                          **kw)
+        torch.testing.assert_close(wg.grad, dw, rtol=0, atol=0)
     conv = BlockedConv2D(16, 16, groups=2, dilation=3, lane=8, device="cpu")
-    with pytest.raises(NotImplementedError, match="backward half"):
-        conv(xb)
-    # the plain backward versions refuse grouped geometry too
+    x = xb.clone().requires_grad_(True)
+    conv(x).square().sum().backward()
+    assert torch.isfinite(x.grad).all() and x.grad.abs().sum() > 0
+    assert conv.w.grad.shape == conv.w.shape
+    # the plain backward versions take grouped geometry: dx has the map's
+    # blocks, dw the group's
     g = torch.randn(2, 2, 9, 9, 8)
-    with pytest.raises(NotImplementedError, match="backward half"):
-        direct_conv_dgrad_blocked(g, wb, (9, 9), 1, "SAME", groups=2)
-    with pytest.raises(NotImplementedError, match="backward half"):
-        direct_conv_wgrad_blocked(xb, g, 3, 3, 1, "SAME", groups=2)
+    dx = direct_conv_dgrad_blocked(g, wb, (9, 9), 1, "SAME", groups=2)
+    dw, _ = direct_conv_wgrad_blocked(xb, g, 3, 3, 1, "SAME", groups=2)
+    assert dx.shape == xb.shape and dw.shape == wb.shape
 
 
 def test_fwd_tiles_ab_weighs_the_grouped_and_dilated_layers():

@@ -32,7 +32,9 @@ from repro_torch.configs.cnn import (mobilenet_v1_blocked,  # noqa: E402
                                      mobilenet_v1_layers)
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.convspec import ConvSpec  # noqa: E402
-from repro_torch.core.direct_conv import direct_conv_blocked  # noqa: E402
+from repro_torch.core.direct_conv import (  # noqa: E402
+    direct_conv_blocked, direct_conv_dgrad_blocked,
+    direct_conv_preactivation, direct_conv_wgrad_blocked)
 from repro_torch.kernels import conv2d_depthwise as dwk  # noqa: E402
 from repro_torch.kernels import conv2d_pointwise as pwk  # noqa: E402
 from repro_torch.kernels import direct_conv2d as dck  # noqa: E402
@@ -267,8 +269,10 @@ def test_blocked_conv2d_routes_by_geometry(monkeypatch, layer, kind):
 
 
 def test_grouped_and_dilated_dense_layers_are_refused(monkeypatch):
-    # served on the dense wrapper's grouped map and dilated taps; refused
-    # only under autograd, whose dgrad and wgrad are not ported yet
+    # grouped and dilated dense layers go to the dense wrapper, never to
+    # the separable family: served on its grouped map and dilated taps, and
+    # (now that their dgrad and wgrad are ported) trained through it too,
+    # the gradients those of the plain backward
     calls = _spy(monkeypatch)
     for layer in (dict(groups=2), dict(dilation=2)):
         conv = tconv.BlockedConv2D(8, 16, **layer, lane=8, device="cpu")
@@ -280,8 +284,22 @@ def test_grouped_and_dilated_dense_layers_are_refused(monkeypatch):
                                    groups=conv.groups,
                                    dilation=conv.dilation)
         torch.testing.assert_close(got, want, rtol=0, atol=0)
-        with pytest.raises(NotImplementedError, match="backward half"):
-            conv(x)
+        xg = x.clone().requires_grad_(True)
+        y = conv(xg)
+        torch.testing.assert_close(y, want, rtol=0, atol=0)
+        g = torch.randn_like(y)
+        y.backward(g)
+        z = direct_conv_preactivation(x, conv.w.detach(), 1, "SAME",
+                                      conv.b.detach(), conv.groups,
+                                      conv.dilation)
+        dx = direct_conv_dgrad_blocked(g, conv.w.detach(), (10, 10), 1,
+                                       "SAME", z, "relu", conv.groups,
+                                       conv.dilation)
+        dw, db = direct_conv_wgrad_blocked(x, g, 3, 3, 1, "SAME", z, "relu",
+                                           True, conv.groups, conv.dilation)
+        torch.testing.assert_close(xg.grad, dx, rtol=0, atol=0)
+        torch.testing.assert_close(conv.w.grad, dw, rtol=0, atol=0)
+        torch.testing.assert_close(conv.b.grad, db, rtol=0, atol=0)
     assert calls == {"pointwise": 0, "depthwise": 0, "dense": 4}
 
 
