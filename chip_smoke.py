@@ -286,6 +286,21 @@ and no phase catches its own failure:
     split on 2-byte copies; the AlexNet forward; a forced stream and
     autograd on a grouped layer raise.
 
+27. the bf16 window forward and wgrad where AlexNet lost
+    (``narrow_rows_phases``): the narrow rows (``csrc/narrow_rows.cuh``: a
+    filter row's (dw, c) run a 128-byte operand row, the kernels
+    ``fwd_kernel_bf16_narrow`` and ``wgrad_kernel_bf16_narrow``) at
+    AlexNet's conv1, VGG-16's conv1_1, MobileNet's conv1, Cib 3 at 7x7
+    stride 2 and Cib 8 at 5x5, and the wgrad's x by element-strided TMA
+    boxes at AlexNet's conv2-3 and odd widths (31 at stride 2, Cib 64 and
+    48), each against its plain version (phase 23's rules, two runs bit for
+    bit, conv1's GAP folded), each plan equal to the blocking model's with
+    the issued MACs beside the function's; per layer eager and graph ms
+    beside cuDNN bf16, the bound and its share; AlexNet's (bf16 and f32),
+    VGG-16's and MobileNet's train steps at batch 32 under
+    ``torch.profiler`` and on the host clock, the bf16 ones launching the
+    narrow rows at the first conv.
+
 ``[time]`` lines say when each phase ended.  The line before the last is one JSON object ``{"kernels": [...]}``; the
 last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints neither.
@@ -542,29 +557,48 @@ def tf32x3_bound(flops: float, nbytes: float):
     return (*min(f32, bound(3 * flops, nbytes, PEAK_TF32_FLOPS)), f32[0])
 
 
-def device_split(fn, top: int = 8):
-    """One call of ``fn`` under ``torch.profiler``: (wall ms, device-busy
-    ms, the ``top`` kernels by device time as (name, ms, launches)), or None
-    where the profiler records no device time.  The wall time includes the
-    profiler's own host cost."""
+def device_split(fn, top: int | None = 8):
+    """One call of ``fn`` under ``torch.profiler``, recorded after a call in
+    the profiler's warm-up cycle (a profile that records from its first
+    call can miss the kernels launched as it starts): (wall ms, device-busy
+    ms, the ``top`` kernels by device time, all of them with None, as
+    (name, ms, launches)), or None where the profiler records no device
+    time.  ``fn`` runs three times.  The wall time includes the profiler's
+    own host cost."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    # kernels only: an operator's row repeats its kernels' device time
+    saved, wall = [], []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: saved.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            prof.step()
+    # kernels only: an operator's row repeats its kernels' device time, and
+    # the step's own annotation spans it on the device
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in (saved[0] if saved else [])
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
     if not rows:
         return None
-    return wall, sum(r[1] for r in rows), rows[:top]
+    return wall[1], sum(r[1] for r in rows), rows[:top]
+
+
+def port_rows(rows) -> int:
+    """The launches of the port's own kernels (each in its source's
+    anonymous namespace) among a profile's kernel rows."""
+    return sum(c for key, _, c in rows
+               if key.removeprefix("void ").startswith(
+                   "(anonymous namespace)::"))
 
 
 def sass_counts(sass: str) -> dict:
@@ -5290,18 +5324,23 @@ def grouped_dilated_bwd_phases(args, dev, t_start, smi):
                                                trained[0][1])]
     times = timed_steps("alexnet-step", step_runs, batches)
     for tag, step, state in step_runs:
-        split = device_split(lambda: step(state, batches[0]))
+        reset_all_launches()
+        split = device_split(lambda: step(state, batches[0]), None)
         if split is None:
             print(f"[alexnet-step] {tag}: the profiler recorded no device "
                   "time")
             continue
-        wall, busy, top = split
+        wall, busy, rows = split
         print(f"[alexnet-step] {tag} n{n_train} {ALEXNET_ENTRY}x"
               f"{ALEXNET_ENTRY}: host-clock median "
               f"{np.median(times[tag]):.3f} ms; under torch.profiler "
               f"{wall:.3f} ms wall, device busy {busy:.3f} ms "
-              f"({100 * busy / wall:.1f} %); largest kernels: " + "; ".join(
-                  f"{kernel_name(n_)} {ms:.3f} ms x{c}" for n_, ms, c in top))
+              f"({100 * busy / wall:.1f} %); the port's launches in the "
+              f"profile {port_rows(rows)} of "
+              f"{sum(all_launches().values()) // 3} counted; largest "
+              f"kernels: " + "; ".join(
+                  f"{kernel_name(n_)} {ms:.3f} ms x{c}"
+                  for n_, ms, c in rows[:8]))
     del tr, trained
     torch.cuda.empty_cache()
     entries = []
@@ -5320,6 +5359,351 @@ def grouped_dilated_bwd_phases(args, dev, t_start, smi):
             "library_ms": l_ms})
     print(f"[time] phase 26 done at {time.perf_counter() - t_start:.1f} s")
     return entries, train_counts
+
+# Phase 27's shapes beside AlexNet's conv1-3: (name, n, ci, co, h, filter,
+# stride, pads, cib, cob, forward too): VGG-16's conv1_1 and MobileNet's
+# conv1 (Cib 3), Cib 3 at 7x7 stride 2 pads 3, Cib 8 at 5x5 (40-value runs),
+# odd widths at stride 2 with Cib 64 and 48 (element-strided boxes)
+NARROW_SHAPES = [
+    ("vgg16.conv1_1", 8, 3, 64, 224, 3, 1, "SAME", 3, 64, True),
+    ("mobilenet.conv1", 8, 3, 32, 224, 3, 2, "SAME", 3, 32, True),
+    ("cib3.7x7s2", 8, 3, 64, 112, 7, 2, ((3, 3), (3, 3)), 3, 64, True),
+    ("cib8.5x5", 8, 8, 64, 56, 5, 1, "SAME", 8, 64, True),
+    ("odd31.cib64", 8, 64, 64, 31, 3, 2, "SAME", 64, 64, False),
+    ("odd31.cib48", 8, 48, 64, 31, 3, 2, "SAME", 48, 64, False),
+]
+NARROW_TRAIN_BATCH = 32
+
+
+def narrow_rows_phases(args, dev, t_start, smi, vgg, mobilenet):
+    """Phase 27: the bf16 window forward and wgrad redesigned where AlexNet
+    loses: the narrow rows (``csrc/narrow_rows.cuh``: a filter row's (dw,
+    c) run a 128-byte operand row, ``fwd_kernel_bf16_narrow`` and
+    ``wgrad_kernel_bf16_narrow``) and the wgrad's x by element-strided TMA
+    boxes at any width.  (a) AlexNet's conv1 (forward, its GAP folded, and
+    wgrad), conv2 and conv3 (wgrad), and ``NARROW_SHAPES`` at batch 8,
+    each against its plain version under BF16 by phase 23's rules (the
+    forward within a bf16 ulp + 1e-5 of max; dw and db against f64 sums
+    within ``WGRAD_REL`` of sum|x dz|, the folded sums bit for bit), two
+    runs bit for bit; (b) each plan (the C entries') equal to the blocking
+    model's, with the issued tensor-core MACs beside the function's; (c)
+    per layer eager and graph ms beside cuDNN bf16 (channels-last; the
+    wgrad without db), the bound and its share; then AlexNet's, VGG-16's
+    and MobileNet's bf16 train steps (3 AdamW steps at batch 32) under
+    ``torch.profiler`` (device busy) and on the host clock, the f32 AlexNet
+    step's beside, each step launching kernels alone, the narrow rows at
+    the first conv.  -> (kernels-line entries, the steps' launches)."""
+    from repro_torch.configs.cnn import alexnet_blocked
+    from repro_torch.core import blocking as B
+    from repro_torch.core import conv2d_common
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.convspec import ConvSpec
+    from repro_torch.core.direct_conv import (direct_conv_blocked,
+                                              direct_conv_wgrad_blocked)
+    from repro_torch.kernels import direct_conv2d as dck
+    from repro_torch.train.optimizer import AdamW, cosine_schedule
+    from repro_torch.train.trainstep import make_train_step
+    bf = torch.bfloat16
+    gen = torch.Generator().manual_seed(args.seed + 270)
+    alexnet = alexnet_blocked(device=dev, generator=gen)
+    dgen = torch.Generator(device=dev).manual_seed(args.seed + 271)
+    print(f"[narrow] card: {smi}")
+
+    # (name, spec, cib, cob, w, forward too)
+    cases, h = [], ALEXNET_ENTRY
+    for i, conv in enumerate(alexnet.convs[:3]):
+        spec = conv.spec(BATCH, h, h)
+        cases.append((f"alexnet.conv{i + 1}", spec, conv.in_pencil,
+                      conv.w.shape[5], conv.w.detach(), i == 0))
+        h = spec.ho
+    for (name, n, ci, co, hh, f, st, pad, cib, cob,
+         fwd) in NARROW_SHAPES:
+        spec = ConvSpec.make(n, hh, hh, ci, co, f, f, st, pad)
+        w = torch.randn((co // cob, ci // cib, f, f, cib, cob), device=dev,
+                        generator=dgen) / (f * f * ci) ** 0.5
+        cases.append((name, spec, cib, cob, w, fwd))
+
+    # -- 27(a-b) kernels against plain versions; plans ----------------------
+    err = {"fwd": 0.0, "wgrad": 0.0}
+    timing = []
+    for name, spec, cib, cob, w, fwd in cases:
+        s, pad, g = spec.stride, spec.pads, spec.groups
+        x = torch.randn((spec.n, spec.ci // cib, spec.hi, spec.wi, cib),
+                        device=dev, generator=dgen).to(bf)
+        z = torch.randn((spec.n, spec.co // cob, spec.ho, spec.wo, cob),
+                        device=dev, generator=dgen).to(bf)
+        gg = torch.randn(z.shape, device=dev, generator=dgen).to(bf)
+        b = 0.1 * torch.randn((spec.co // cob, cob), device=dev,
+                              generator=dgen)
+        tag = (f"{name} bf16 {spec.ci}->{spec.co} {spec.hf}x{spec.wf} s{s} "
+               f"groups {g} in {spec.hi}x{spec.wi} n{spec.n}")
+        # where the rows fit but the chooser keeps the per-tap tiles, each
+        # kernel also runs the narrow rows asked for
+        asked = {k: B.narrow_fits(spec.hf, spec.wf, cib, spec.dilation)
+                 and not B.narrow_chosen(spec.hf, spec.wf, cib, spec.dilation,
+                                         widths=widths)
+                 for k, widths in (("fwd", B.NARROW_FWD_CIBS),
+                                   ("wgrad", B.NARROW_WGRAD_CIBS))}
+        if fwd:
+            with torch.no_grad():
+                dck.reset_launches()
+                got = dck.direct_conv2d_blocked(x, w, b, s, pad, "relu",
+                                                precision="bf16", groups=g)
+                again = dck.direct_conv2d_blocked(x, w, b, s, pad, "relu",
+                                                  precision="bf16", groups=g)
+                torch.cuda.synchronize()
+                narrow = dck.NARROW_LAUNCHES["fwd_kernel_bf16_narrow"]
+                want = direct_conv_blocked(x, w, s, pad, b, "relu", "bf16", g)
+                err["fwd"] = max(err["fwd"], bf16_close(f"narrow fwd {tag}",
+                                                        got, want))
+                if not torch.equal(got, again):
+                    fail(f"narrow fwd {tag}: two runs differ")
+                plan, model = dck.fwd_plans(x, w, s, pad, dtype=bf, groups=g)
+                if plan != model:
+                    fail(f"narrow fwd {tag}: the kernel's plan {plan} != the "
+                         f"blocking model's {model}")
+                if name == "alexnet.conv1":
+                    if narrow != 2:
+                        fail(f"narrow fwd {tag}: {narrow} of 2 launches on "
+                             "the narrow rows")
+                    launch = dck.gap_forward(x, w, b, s, pad, "relu",
+                                             precision="bf16")
+                    other, _ = dck.gap_forward(x, w, b, s, pad, "relu",
+                                               precision="bf16")
+                    check_gap(f"narrow fwd {tag} GAP", launch,
+                              spec.ho * spec.wo, other)
+                print(f"[narrow] fwd {tag}: narrow rows {narrow > 0}, MACs "
+                      f"{plan.function_macs}, issued {plan.issued_macs} "
+                      f"({plan.issued_macs / plan.function_macs:.2f}x), "
+                      f"shared memory {plan.smem} B")
+                if asked["fwd"]:
+                    # the narrow rows asked for, by their least-cost tile
+                    blk = min(B.fwd_candidates(
+                        spec.n, spec.ho, spec.wo, spec.hf, spec.wf, s,
+                        spec.cig // cib, cib, spec.co // cob, cob,
+                        B.H100_SXM, False, False, op_bytes=2, narrow=True),
+                        key=lambda kb: kb[0])[1]
+                    lp = dck.fwd_launch(spec, cib, cob, 1, False, False,
+                                        blk=blk, dtype=bf)
+                    runs = [dck.fwd_run(dck._lib().direct_conv2d_fwd, lp, x,
+                                        w, b, None, spec) for _ in range(2)]
+                    torch.cuda.synchronize()
+                    if any(r[0] for r in runs):
+                        fail(f"narrow fwd {tag} (asked): CUDA error "
+                             f"{[r[0] for r in runs]}")
+                    err["fwd"] = max(err["fwd"], bf16_close(
+                        f"narrow fwd {tag} (asked: {blk})", runs[0][1], want))
+                    if not torch.equal(runs[0][1], runs[1][1]):
+                        fail(f"narrow fwd {tag} (asked): two runs differ")
+
+                def run_fwd(x=x, w=w, b=b, s=s, pad=pad, g=g):
+                    return dck.direct_conv2d_blocked(x, w, b, s, pad, "relu",
+                                                     precision="bf16",
+                                                     groups=g)
+                timing.append((name, spec, "fwd", run_fwd, plan,
+                               (x, w, b, gg)))
+
+        def run_wgrad(x=x, z=z, gg=gg, spec=spec, s=s, pad=pad, g=g):
+            return dck.wgrad_partials(x, gg, spec.hf, spec.wf, s, pad, z,
+                                      "relu", True, precision="bf16",
+                                      groups=g)
+        dck.reset_launches()
+        first = run_wgrad()
+        dw, db = dck.split_wgrad(run_wgrad()[1], x.shape, gg.shape, spec.hf,
+                                 spec.wf, True, g)
+        narrow = dck.NARROW_LAUNCHES["wgrad_kernel_bf16_narrow"]
+        check_fold(f"narrow wgrad {tag}", first, (dw, db))
+        dz = conv2d_common.cotangent_prologue(gg, z, "relu")
+        want_dw, want_db = direct_conv_wgrad_blocked(
+            x.double(), dz.double(), spec.hf, spec.wf, s, pad, with_db=True,
+            groups=g)
+        abs_dw, abs_db = direct_conv_wgrad_blocked(
+            x.abs().double(), dz.abs().double(), spec.hf, spec.wf, s, pad,
+            with_db=True, groups=g)
+        err["wgrad"] = max(
+            err["wgrad"],
+            compare_scaled(f"narrow wgrad dw {tag}", dw, want_dw, abs_dw,
+                           WGRAD_REL),
+            compare_scaled(f"narrow wgrad db {tag}", db, want_db, abs_db,
+                           WGRAD_REL))
+        if not torch.equal(first[1], torch.cat([dw.reshape(-1),
+                                                db.reshape(-1)])):
+            fail(f"narrow wgrad {tag}: two runs differ")
+        plan, model = dck.wgrad_plans(x, gg, spec.hf, spec.wf, s, pad, z,
+                                      "relu", dtype=bf, groups=g)
+        if plan != model:
+            fail(f"narrow wgrad {tag}: the kernel's plan {plan} != the "
+                 f"blocking model's {model}")
+        if name == "alexnet.conv1" and narrow != 2:
+            fail(f"narrow wgrad {tag}: {narrow} of 2 launches on the narrow "
+                 "rows")
+        if asked["wgrad"]:
+            blk = min(B.wgrad_candidates(
+                spec.n, spec.ho, spec.wo, spec.hf, spec.wf, s,
+                spec.ci // cib, cib, spec.co // cob, cob, B.H100_SXM, True,
+                False, op_bytes=2, groups=g, narrow=True),
+                key=lambda kb: kb[0])[1]
+            lib = dck._bwd_lib()
+            outs = [dck.bf16_wgrad(
+                lib.direct_conv2d_wgrad_bf16, blk, x, gg, spec, z, "relu",
+                True, B.H100_SXM, {"direct_conv2d_wgrad_bf16": 0},
+                "direct_conv2d_wgrad_bf16", lib)[1] for _ in range(2)]
+            adw, adb = dck.split_wgrad(outs[0], x.shape, gg.shape, spec.hf,
+                                       spec.wf, True, g)
+            err["wgrad"] = max(
+                err["wgrad"],
+                compare_scaled(f"narrow wgrad dw {tag} (asked: {blk})", adw,
+                               want_dw, abs_dw, WGRAD_REL),
+                compare_scaled(f"narrow wgrad db {tag} (asked)", adb,
+                               want_db, abs_db, WGRAD_REL))
+            if not torch.equal(outs[0], outs[1]):
+                fail(f"narrow wgrad {tag} (asked): two runs differ")
+            del outs, adw, adb
+        print(f"[narrow] wgrad {tag}: narrow rows {narrow > 0}, MACs "
+              f"{plan.function_macs}, issued {plan.issued_macs} "
+              f"({plan.issued_macs / plan.function_macs:.2f}x), shared "
+              f"memory {plan.smem} B")
+        timing.append((name, spec, "wgrad", run_wgrad, plan, (x, w, b, gg)))
+        del first, dw, db, dz, want_dw, want_db, abs_dw, abs_db
+    print(f"[time] phase 27(a-b) done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- 27(c) times per layer ----------------------------------------------
+    print(f"[narrow-time] {smi}")
+    sums = {("fwd", True): [0.0] * 4, ("wgrad", True): [0.0] * 4}
+    kinds = {k: [] for k in sums}
+    cl = torch.channels_last
+    for name, spec, kind, fn, plan, (x, w, b, gg) in timing:
+        s, (pt, pb_), (pl, pr) = spec.stride, *spec.pads
+        xp = F.pad(nchw(x), (pl, pr, pt, pb_)).contiguous(memory_format=cl)
+        w_oihw = oihw(w.to(bf), 1).contiguous(memory_format=cl)
+        if kind == "fwd":
+            def lib():
+                return F.conv2d(xp, w_oihw, None, s, 0, 1, spec.groups)
+
+            def plain():
+                return direct_conv_blocked(x, w, s, spec.pads, b, "relu",
+                                           "bf16", spec.groups)
+            nbytes = 2 * (x.numel() + w.numel()) + 2 * spec.n * spec.co \
+                * spec.ho * spec.wo
+        else:
+            g_nchw = nchw(gg).contiguous(memory_format=cl)
+
+            def lib():
+                return torch.ops.aten.convolution_backward(
+                    g_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                    [0, 0], spec.groups, [False, True, False])
+
+            def plain():
+                return direct_conv_wgrad_blocked(x, gg, spec.hf, spec.wf, s,
+                                                 spec.pads, with_db=True,
+                                                 groups=spec.groups)
+            nbytes = 2 * (x.numel() + gg.numel()) + 4 * (w.numel() + spec.co)
+        k_ms, g_ms = time_ms(fn), graph_ms(fn)
+        l_ms, l_graph = time_ms(lib), graph_ms(lib)
+        p_ms = time_ms(plain, iters=2, warmup=1)
+        macs = plan.function_macs
+        b_ms, b_by = bound(2 * macs, nbytes, PEAK_BF16_FLOPS)
+        print(f"[narrow-time] {name} bf16 {kind} {spec.ci}->{spec.co} "
+              f"{spec.hf}x{spec.wf} s{s} {spec.hi}->{spec.ho} n{spec.n}: "
+              f"eager_ms {k_ms:.4f} graph_ms {g_ms:.4f} plain_ms {p_ms:.4f} "
+              f"cuDNN bf16 ms {l_ms:.4f} [{l_graph:.4f}] "
+              f"({g_ms / l_graph:.2f}x as graphs) bound_ms {b_ms:.4f} "
+              f"({b_by}) bound/graph {b_ms / g_ms:.3f}; MACs {macs}, issued "
+              f"{plan.issued_macs} ({plan.issued_macs / macs:.2f}x)")
+        key = (kind, True)
+        if B.narrow_chosen(spec.hf, spec.wf, x.shape[4], spec.dilation,
+                           widths=B.NARROW_FWD_CIBS if kind == "fwd"
+                           else B.NARROW_WGRAD_CIBS):
+            for j, v in enumerate((k_ms, p_ms, b_ms, l_ms)):
+                sums[key][j] += v
+            kinds[key].append((b_ms, b_by))
+        del xp, w_oihw
+    del timing
+    torch.cuda.empty_cache()
+    print(f"[time] phase 27(c) layers done at "
+          f"{time.perf_counter() - t_start:.1f} s")
+
+    # -- 27(c) the three nets' bf16 train steps ------------------------------
+    n_train = NARROW_TRAIN_BATCH
+    rng = np.random.default_rng(args.seed + 272)
+    lr = cosine_schedule(TRAIN_LR, 1, 3)
+    counts = {}
+    narrow_counts = dict.fromkeys(dck.NARROW_LAUNCHES, 0)
+    for tag, model, entry, prec in (
+            ("alexnet", alexnet, ALEXNET_ENTRY, "bf16"),
+            ("alexnet", alexnet, ALEXNET_ENTRY, "f32"),
+            ("vgg16", vgg, ENTRY, "bf16"),
+            ("mobilenet", mobilenet, ENTRY, "bf16")):
+        batches = [
+            {"images": torch.from_numpy(rng.standard_normal(
+                (n_train, entry, entry, 3), dtype=np.float32)).to(dev),
+             "targets": torch.from_numpy(rng.integers(0, 1000,
+                                                      n_train)).to(dev)}
+            for _ in range(3)]
+        km = copy.deepcopy(model)
+        opt = AdamW(lr=lr)
+        state = opt.init(dict(km.named_parameters()))
+        step = make_train_step(km, opt, context=ConvContext(precision=prec))
+        reset_all_launches()
+        losses = []
+        for bt in batches:
+            loss, _ = step(state, bt)
+            torch.cuda.synchronize()
+            losses.append(loss.item())
+        launched = {k: v for k, v in all_launches().items() if v}
+        narrow = dict(dck.NARROW_LAUNCHES)
+        if not all(np.isfinite(losses)):
+            fail(f"{tag} {prec} step: non-finite losses {losses}")
+        if prec == "bf16":
+            if any(not k.endswith("_bf16") for k in launched):
+                fail(f"{tag} bf16 steps launched {launched}")
+            if min(narrow.values()) < 3:
+                fail(f"{tag} bf16 steps: the first conv's narrow-row "
+                     f"kernels launched {narrow}, not each of 3 steps")
+            for k, v in narrow.items():
+                narrow_counts[k] += v
+            for k, v in launched.items():
+                counts[k] = counts.get(k, 0) + v
+        times = timed_steps(f"narrow-step {tag} {prec}",
+                            [(prec, step, state)], batches)
+        reset_all_launches()
+        split = device_split(lambda: step(state, batches[0]), None)
+        if split is None:
+            print(f"[narrow-step] {tag} {prec}: the profiler recorded no "
+                  "device time")
+        else:
+            wall, busy, rows = split
+            print(f"[narrow-step] {tag} {prec} n{n_train} {entry}x{entry}: "
+                  f"losses {[round(v, 4) for v in losses]}; launches of 3 "
+                  f"steps {launched}, on the narrow rows {narrow}; "
+                  f"host-clock median {np.median(times[prec]):.3f} ms; under "
+                  f"torch.profiler {wall:.3f} ms wall, device busy "
+                  f"{busy:.3f} ms ({100 * busy / wall:.1f} %); the port's "
+                  f"launches in the profile {port_rows(rows)} of "
+                  f"{sum(all_launches().values()) // 3} counted; largest "
+                  f"kernels: " + "; ".join(
+                      f"{kernel_name(n_)} {ms:.3f} ms x{c}"
+                      for n_, ms, c in rows[:8]))
+        del km, state, step, batches
+        torch.cuda.empty_cache()
+    entries = []
+    for kind, key, fn, tpu, where in (
+            ("fwd", "direct_conv2d_fwd_bf16", "fwd_kernel_bf16_narrow",
+             TPU_KERNEL, "the Cib 3 first layers and Cib 8 5x5"),
+            ("wgrad", "direct_conv2d_wgrad_bf16", "wgrad_kernel_bf16_narrow",
+             TPU_WGRAD, "the Cib 3 first layers")):
+        k_ms, p_ms, b_ms, l_ms = sums[(kind, True)]
+        entries.append({
+            "name": f"{key} ({fn}: the narrow rows, {where})",
+            "route": "cuda",
+            "source": KERNEL_SOURCE if kind == "fwd" else BWD_SOURCE,
+            "replaces": tpu, "launches": narrow_counts[fn],
+            "max_abs_err": err[kind], "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": mostly(kinds[(kind, True)]),
+            "library_ms": l_ms})
+    print(f"[time] phase 27 done at {time.perf_counter() - t_start:.1f} s")
+    return entries, counts
 
 
 def main(argv=None) -> int:
@@ -5896,6 +6280,8 @@ def main(argv=None) -> int:
     gd_entries, gd_counts = grouped_dilated_phases(args, dev, t_start, smi)
     gb_entries, gb_counts = grouped_dilated_bwd_phases(args, dev, t_start,
                                                        smi)
+    nr_entries, nr_counts = narrow_rows_phases(args, dev, t_start, smi, model,
+                                               mb_model)
 
     # launches of each main-path run: VGG-16 served and trained, MobileNet
     # v1 served and trained, VGG-16 served and trained on the streamed route
@@ -5907,7 +6293,8 @@ def main(argv=None) -> int:
           f"in bf16 on both routes {bf_counts}; VGG-16 trained in bf16 on "
           f"both routes {bt_counts}; MobileNet v1 served and trained in "
           f"bf16 {sb_counts}; AlexNet served in f32 and bf16 {gd_counts}; "
-          f"AlexNet trained in f32 and bf16 {gb_counts}")
+          f"AlexNet trained in f32 and bf16 {gb_counts}; the three nets "
+          f"trained in bf16 at batch 32 {nr_counts}")
     kernels = [
         {"name": "direct_conv2d_fwd (fwd_kernel)", "route": "cuda",
          "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
@@ -5936,6 +6323,7 @@ def main(argv=None) -> int:
     kernels.extend(sb_entries)
     kernels.extend(gd_entries)
     kernels.extend(gb_entries)
+    kernels.extend(nr_entries)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

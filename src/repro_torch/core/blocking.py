@@ -67,6 +67,12 @@ from repro_torch.core.layout import divisors
 __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "FWD_ROWS", "FWD_CONSUMERS", "FWD_THREADS", "FWD_WIDE_CONSUMERS",
            "FWD_K_STEP", "fwd_kpad", "FwdBlocking",
+           "NARROW_ROW_VALUES", "NARROW_FWD_CIBS", "NARROW_WGRAD_CIBS",
+           "narrow_fits",
+           "narrow_chosen", "narrow_rows_a_group",
+           "narrow_run_pad", "narrow_groups", "narrow_values",
+           "narrow_chunks", "narrow_kpad",
+           "narrow_raw_bytes",
            "fwd_reach", "fwd_smem_bytes", "FWD_BF16_CHUNKS", "fwd_bf16_pitch",
            "FwdBf16Layout", "fwd_bf16_layout", "FwdPlan", "fwd_plan",
            "fwd_candidates",
@@ -84,7 +90,8 @@ __all__ = ["SmemMisfitError", "MachineModel", "H100_SXM",
            "SPLIT_SUM_BYTES_PER_CYCLE", "SPLIT_SUM_COLUMN_BYTES",
            "wgrad_lanes", "wgrad_ldx", "wgrad_mtiles", "wgrad_window",
            "wgrad_staged",
-           "wgrad_bf16_phases", "wgrad_bf16_wph", "WgradBlocking",
+           "wgrad_bf16_phases", "wgrad_bf16_wph", "wgrad_bf16_raw_bytes",
+           "WgradBlocking",
            "StreamWgradBlocking", "wgrad_smem_bytes", "WgradPlan",
            "wgrad_plan", "wgrad_candidates", "choose_wgrad_blocking",
            "PW_ROWS", "PW_CONSUMERS", "PW_MAX_CHUNK", "PointwiseBlocking",
@@ -242,6 +249,9 @@ class FwdBlocking:
     # tap would not fit (AlexNet's 11x11 conv1); 0: every row, as the bf16
     # build always stages them
     frows: int = 0
+    # 1: the bf16 window kernel's narrow rows (``narrow_fits``): a 128-byte
+    # operand row an output position and filter-row group, ``pitch`` tw
+    narrow: int = 0
 
     def stage_rows(self, hf: int) -> int:
         """Filter rows a stage of a filter ``hf`` rows tall."""
@@ -266,10 +276,86 @@ def fwd_reach(f: int, dilation: int) -> int:
     return (f - 1) * dilation + 1
 
 
+# The narrow rows (csrc/narrow_rows.cuh), the bf16 window forward's and
+# wgrad's path where a filter row's (dw, c) run of ``L = wf * cib`` values
+# fits one 128-byte operand row at dilation 1 (Cib 3 at 11x11 and 3x3): the
+# producer builds a row an output position and group of ``r`` filter rows
+# from the tile's input rows (staged by 16-byte copies into raw rows), run
+# k at value ``k * Lp`` (``narrow_run_pad``, whole 16-byte chunks).
+NARROW_ROW_VALUES = 64
+
+
+# The pencil widths at which the choosers take the narrow rows unasked:
+# those where they were timed faster than the per-tap tiles (PERF.md), the
+# forward at Cib 3 (3x3, 7x7 and 11x11 filters) and Cib 8 (5x5), the wgrad
+# at Cib 3 alone (at Cib 8, 5x5, the per-tap wgrad was the faster).  Other
+# widths keep their per-tap tiles unless ``narrow=True`` asks.
+NARROW_FWD_CIBS = (3, 8)
+NARROW_WGRAD_CIBS = (3,)
+
+
+def narrow_fits(hf: int, wf: int, cib: int, dilation=(1, 1)) -> bool:
+    """Whether a conv takes the narrow rows (``narrow_rows::fits``)."""
+    return (tuple(dilation) == (1, 1) and hf * wf > 1
+            and wf * cib <= NARROW_ROW_VALUES)
+
+
+def narrow_chosen(hf: int, wf: int, cib: int, dilation=(1, 1),
+                  narrow: bool | None = None,
+                  widths=NARROW_WGRAD_CIBS) -> bool:
+    """Whether a bf16 chooser weighs the narrow rows: where they fit and
+    ``narrow`` asks for them, or, ``narrow`` None, at one of its timed
+    ``widths`` (``NARROW_FWD_CIBS``, ``NARROW_WGRAD_CIBS``)."""
+    return (narrow is not False and narrow_fits(hf, wf, cib, dilation)
+            and (bool(narrow) or cib in widths))
+
+
+def narrow_run_pad(wf: int, cib: int) -> int:
+    """``Lp``: a run's place in a row, its ``wf * cib`` values rounded up to
+    a 16-byte chunk's 8."""
+    return -(-wf * cib // 8) * 8
+
+
+def narrow_rows_a_group(hf: int, wf: int, cib: int) -> int:
+    """``r``: the filter rows (runs) one 128-byte row holds."""
+    return min(NARROW_ROW_VALUES // narrow_run_pad(wf, cib), hf)
+
+
+def narrow_groups(hf: int, wf: int, cib: int) -> int:
+    """``G``: the groups of ``r`` filter rows, the wgrad's m-tiles and the
+    forward's k16 slice groups."""
+    return -(-hf // narrow_rows_a_group(hf, wf, cib))
+
+
+def narrow_values(hf: int, wf: int, cib: int) -> int:
+    """``r * L``: the (tap, c) rows of dw (and w) a group covers."""
+    return narrow_rows_a_group(hf, wf, cib) * wf * cib
+
+
+def narrow_chunks(hf: int, wf: int, cib: int) -> int:
+    """The 16-byte chunks of a row that hold values, ``r * Lp / 8``."""
+    return narrow_rows_a_group(hf, wf, cib) * narrow_run_pad(wf, cib) // 8
+
+
+def narrow_kpad(hf: int, wf: int, cib: int) -> int:
+    """A group's packed K (``r * Lp``) padded to the forward's k16
+    slices."""
+    return -(-8 * narrow_chunks(hf, wf, cib) // 16) * 16
+
+
+def narrow_raw_bytes(rows: int, cib: int, pixels: int) -> int:
+    """One raw buffer: ``rows`` rows of ``2 cib pixels`` bytes, a lead and
+    the partial chunks at either end (16-byte pitch), then the rows' table
+    of three ints each (``narrow_rows::raw_bytes``)."""
+    pitch = -(-(2 * cib * pixels + 32) // 16) * 16
+    return rows * pitch + -(-12 * rows // 16) * 16
+
+
 def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                    chunk: int, lanes: int, wgs: int,
                    gap: bool = False, op_bytes: int = 4,
-                   strips: int = 1, dilation=(1, 1), frows: int = 0) -> int:
+                   strips: int = 1, dilation=(1, 1), frows: int = 0,
+                   narrow: int = 0, cib: int = 0) -> int:
     """Dynamic shared memory of one forward CTA (``fwd_tile::smem_bytes``,
     ``fwd_tile::bf16::smem_bytes`` for ``op_bytes`` 2).
 
@@ -285,10 +371,11 @@ def fwd_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     bf16: ``fwd_bf16_layout``'s, ``strips`` the streamed band's strips
     (1: the window kernel).  ``dilation`` ``(dh, dw)`` widens the window to
     the filter's dilated reach (``fwd_reach``); the taps stay ``hf x
-    wf``."""
+    wf``.  ``narrow`` the narrow rows' carve-up, on ``cib`` pencils."""
     if _fwd_k_step(op_bytes) == 16:
         return fwd_bf16_layout(th, tw, hf, wf, stride, chunk, lanes, wgs,
-                               strips, gap, dilation=dilation).smem
+                               strips, gap, dilation=dilation,
+                               narrow=narrow, cib=cib).smem
     frows = frows or hf
     hwin = (th - 1) * stride + fwd_reach(frows, dilation[0])
     wwin = (tw - 1) * stride + fwd_reach(wf, dilation[1])
@@ -350,13 +437,36 @@ def fwd_bf16_layout(th: int, tw: int, hf: int, wf: int, stride: int,
                     chunk: int, lanes: int, wgs: int, strips: int = 1,
                     gap: bool = False,
                     smem_block: int = 232448,
-                    dilation=(1, 1)) -> FwdBf16Layout:
+                    dilation=(1, 1), narrow: int = 0,
+                    cib: int = 0) -> FwdBf16Layout:
     """The carve-up of one bf16 forward CTA of ``wgs`` consumers (``strips``
     the streamed band's, 1 the window kernel's): a 1024-byte alignment, the
     window and weight slots, the mbarriers, with ``gap`` the consumer warps'
     ``[4 * wgs][lanes]`` f32 sums and a flag (``fwd_tile::bf16::smem_bytes``,
     ``window_slots``, ``row_slots``).  A plane spans the filter's dilated
-    reach: ``mh = (reach - 1) // stride + 1`` plane rows of taps."""
+    reach: ``mh = (reach - 1) // stride + 1`` plane rows of taps.
+
+    ``narrow`` (the window kernel on ``cib`` pencils): a window slot is a
+    raw buffer of the tile's input rows (``narrow_raw_bytes``), two or three
+    of them (FWD_NARROW_RAW); a weight slot a group's weights
+    (``narrow_kpad`` rows of ``lanes``) and its A rows, 128 bytes a
+    consumer's 64 positions."""
+    atom = FWD_BF16_ATOM
+    red = 16 * wgs * lanes + 16 if gap else 0
+    room = smem_block - atom - FWD_BF16_BAR_BYTES - red
+    if narrow:
+        hwin = (th - 1) * stride + hf
+        wwin = (tw - 1) * stride + wf
+        window = -(-narrow_raw_bytes(hwin, cib, wwin) // atom) * atom
+        row = (-(-narrow_kpad(hf, wf, cib) * lanes * 2 // atom) * atom
+               + FWD_ROWS * wgs * 128)
+        rows = min(FWD_BF16_ROWS, max(room - 2 * window, 0) // row)
+        windows = min(FWD_NARROW_RAW, max(room - rows * row, 0) // window)
+        return FwdBf16Layout(
+            pitch=tw, plane_cells=0, window_bytes=window, row_bytes=row,
+            windows=windows, rows=rows,
+            smem=atom + windows * window + rows * row + FWD_BF16_BAR_BYTES
+            + red)
     streamed = strips > 1
     cb = 2 * chunk
     per = 128 // cb if cb < 128 else 1
@@ -367,11 +477,8 @@ def fwd_bf16_layout(th: int, tw: int, hf: int, wf: int, stride: int,
     first = (wgs - 1) * (th // strips * pitch if streamed else FWD_ROWS)
     read = first + FWD_ROWS + (mh - 1) * pitch + mw - 1
     cells = (stride * stride - 1) * plane + max(plane, read)
-    atom = FWD_BF16_ATOM
     window = -(-cells * cb // atom) * atom
     row = -(-wf * lanes * cb // atom) * atom
-    red = 16 * wgs * lanes + 16 if gap else 0
-    room = smem_block - atom - FWD_BF16_BAR_BYTES - red
     rows = min(FWD_BF16_ROWS, max(room - 2 * window, 0) // row)
     windows = min(FWD_BF16_WINDOWS, max(room - rows * row, 0) // window)
     return FwdBf16Layout(
@@ -421,17 +528,20 @@ def fwd_plan(blk: FwdBlocking, n: int, ho: int, wo: int, hf: int, wf: int,
     if products == 1:
         lay = fwd_bf16_layout(blk.th, blk.tw, hf, wf, stride, blk.chunk,
                               blk.lanes, blk.wgs, blk.strips, gap,
-                              dilation=dilation)
+                              dilation=dilation, narrow=blk.narrow, cib=cib)
         windows, rows = lay.windows, lay.rows
+    # K a tile issues: every tap's Cib padded to the k-slices, or on the
+    # narrow rows every group's packed (dh, dw, c) padded to k16
+    k = (narrow_groups(hf, wf, cib) * narrow_kpad(hf, wf, cib) if blk.narrow
+         else hf * wf * fwd_kpad(cib, op_bytes))
     return FwdPlan(
         tiles=blk.tiles,
         function_macs=n * ho * wo * hf * wf * ciblk * cib * coblk * cob,
         issued_macs=(products * n * blk.tiles * coblk * blk.nsplit * FWD_ROWS
-                     * blk.wgs * blk.lanes * hf * wf * ciblk
-                     * fwd_kpad(cib, op_bytes)),
+                     * blk.wgs * blk.lanes * k * ciblk),
         smem=fwd_smem_bytes(blk.th, blk.tw, hf, wf, stride, blk.chunk,
                             blk.lanes, blk.wgs, gap, op_bytes, blk.strips,
-                            dilation, blk.frows),
+                            dilation, blk.frows, blk.narrow, cib),
         window_slots=windows, weight_slots=rows, products=products)
 
 
@@ -462,19 +572,19 @@ def fwd_candidates(n: int, ho: int, wo: int, hf: int, wf: int, stride: int,
                    ciblk: int, cib: int, coblk: int, cob: int,
                    machine: MachineModel, gap: bool, streamed: bool,
                    hso: int | None = None, op_bytes: int = 4,
-                   dilation=(1, 1)):
+                   dilation=(1, 1), narrow: bool | None = None):
     """The tiles the search weighs, each as ``(key, FwdBlocking)``, the
     least key the choice (see the constants above); ties go to more rows a
     CTA, a larger chunk, fewer splits, fewer tiles, then a smaller
     window.  ``op_bytes`` 2 weighs the bf16 build
-    (``_fwd_bf16_candidates``).  ``ciblk`` is the input blocks an output
-    block contracts (a grouped conv's ``Cig/Cib``, so the cost counts the
-    grouped MACs); ``dilation`` widens each window to the filter's dilated
-    reach."""
+    (``_fwd_bf16_candidates``; ``narrow`` as there).  ``ciblk`` is the
+    input blocks an output block contracts (a grouped conv's ``Cig/Cib``,
+    so the cost counts the grouped MACs); ``dilation`` widens each window
+    to the filter's dilated reach."""
     if _fwd_k_step(op_bytes) == 16:
         return _fwd_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
                                     coblk, cob, machine, gap, streamed, hso,
-                                    dilation)
+                                    dilation, narrow)
     kpad = fwd_kpad(cib)
     # powers of two: a staged cell's copies then divide the producer's 128
     # threads
@@ -595,10 +705,26 @@ FWD_BF16_TILE_CYCLES = 209
 def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                          stride: int, ciblk: int, cib: int, coblk: int,
                          cob: int, machine: MachineModel, gap: bool,
-                         streamed: bool, hso: int | None, dilation=(1, 1)):
+                         streamed: bool, hso: int | None, dilation=(1, 1),
+                         narrow: bool | None = None):
     """``fwd_candidates`` of the bf16 build (see the constants above), each
     tile's ``pitch`` its flattened plane rows'; the same rules as the
-    kernels' ``fwd_tile::bf16::valid``."""
+    kernels' ``fwd_tile::bf16::valid``.  Where the narrow rows fit the
+    window kernel at Cib 3 or 8 (``narrow_chosen``, Cob a multiple of 8,
+    a tile of 16 lanes or more) their tiles alone
+    (``_fwd_narrow_candidates``; timed faster than the per-tap tiles at
+    each of the three nets' first layers and at Cib 8 5x5, PERF.md), else
+    the per-tap tiles; ``narrow`` True or False asks for one path's (True:
+    the rows at any width they fit)."""
+    fits = (not streamed and narrow_chosen(hf, wf, cib, dilation, narrow,
+                                           NARROW_FWD_CIBS)
+            and cob % 8 == 0)
+    if narrow is not False:
+        found = (_fwd_narrow_candidates(n, ho, wo, hf, wf, stride, ciblk,
+                                        cib, coblk, cob, machine, gap)
+                 if fits else [])
+        if narrow or found:
+            return found
     if stride > FWD_BF16_MAX_STRIDE:
         return []
     kpad = fwd_kpad(cib, 2)
@@ -684,6 +810,72 @@ def _fwd_bf16_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                                             chunk=chunk, tiles=tiles,
                                             hwin=hwin, wwin=wwin,
                                             pitch=lay.pitch)))
+    return out
+
+
+# The narrow rows' forward (``_fwd_narrow_candidates``), in cycles of one SM:
+# the items in rounds of the card's SMs times the CTAs an SM holds (two
+# one-consumer CTAs where their shared memory fits), an item a fixed part
+# and, a stage (input block), a part a staged raw row (its copies, its
+# clear), a part a filter-row group (its weight box, the slot's handshake)
+# and a part a 16-byte chunk of the group's rows a producer thread builds;
+# the producer bounds it, the wgmmas hide under it.  Fitted (least squares
+# on the card's times) to the narrow tiles ``python -m
+# repro_torch.launch.fwd_tiles_ab --first`` timed at AlexNet's conv1,
+# VGG-16's conv1_1 and MobileNet's conv1 on an H100 80GB HBM3 at 700 W
+# (PERF.md), where it picks the fastest tile timed or one within 1.03 of
+# it (1.13 and 1.16 at Cib 3 7x7 stride 2 and Cib 8 5x5, shapes off the
+# three nets: it counts the raw rows, not their widths).
+FWD_NARROW_ITEM_CYCLES = 2470
+FWD_NARROW_ROW_CYCLES = 135
+FWD_NARROW_GROUP_CYCLES = 1570
+FWD_NARROW_CHUNK_CYCLES = 272
+# raw buffers at most: a stage's input rows land two stages ahead
+FWD_NARROW_RAW = 3
+
+
+def _fwd_narrow_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
+                           machine, gap):
+    """The window kernel's narrow-row tiles (``narrow_fits``; the rules of
+    ``fwd_tile::bf16::valid`` on ``narrow``): the tile's positions in one
+    m-tile of ``64 * wgs`` rows (``pitch`` tw), widths of 16 lanes or more,
+    two raw buffers and two weight slots."""
+    ng = narrow_groups(hf, wf, cib)
+    kp = narrow_kpad(hf, wf, cib)
+    nq = narrow_chunks(hf, wf, cib)
+    mh = (hf - 1) // stride + 1
+    out = []
+    for wgs in range(1, FWD_CONSUMERS + 1):
+        for th, tw in _fwd_shapes(ho, wo, wgs, False, None):
+            if (th * tw <= FWD_ROWS * (wgs - 1) or stride * tw > FWD_BF16_BOX
+                    or stride * (th + mh - 1) > FWD_BF16_BOX
+                    or stride > FWD_BF16_MAX_STRIDE):
+                continue
+            hwin = (th - 1) * stride + hf
+            wwin = (tw - 1) * stride + wf
+            tiles = -(-ho // th) * -(-wo // tw)
+            raw = hwin * wwin * cib * 2
+            stage = (FWD_NARROW_ROW_CYCLES * hwin
+                     + ng * (FWD_NARROW_GROUP_CYCLES + FWD_NARROW_CHUNK_CYCLES
+                             * th * tw * nq / 128))
+            for nsplit, lanes in _fwd_splits(cob):
+                if lanes < 16:
+                    continue
+                lay = fwd_bf16_layout(th, tw, hf, wf, stride, 16, lanes, wgs,
+                                      1, gap, machine.smem_block,
+                                      narrow=1, cib=cib)
+                if lay.windows < 2 or lay.rows < 2:
+                    continue
+                res = 2 if wgs == 1 and 2 * lay.smem <= FWD_SM_SMEM else 1
+                items = n * tiles * coblk * nsplit
+                cost = (-(-items // (machine.sms * res))
+                        * (FWD_NARROW_ITEM_CYCLES + ciblk * stage))
+                out.append(((cost, raw / (th * tw), -th * tw * wgs, -16,
+                             nsplit, tiles, hwin * wwin),
+                            FwdBlocking(th=th, tw=tw, wgs=wgs, strips=1,
+                                        lanes=lanes, nsplit=nsplit, chunk=16,
+                                        tiles=tiles, hwin=hwin, wwin=wwin,
+                                        pitch=tw, narrow=1)))
     return out
 
 
@@ -1412,7 +1604,7 @@ def wgrad_mtiles(hf: int, wf: int, cib: int) -> int:
 def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                      cib: int, cob: int, lanes: int, prologue: bool,
                      op_bytes: int = 4, span: int = 1,
-                     dilation=(1, 1)) -> int:
+                     dilation=(1, 1), narrow: int = 0) -> int:
     """Dynamic shared memory of one wgrad CTA (``wgrad_tile::smem_bytes``):
     128 bytes to align the base; per slot of the two-slot ring the x window
     ``[hwin][rf]`` (a row's ``wwin`` cells of ``ld`` floats, padded to 128
@@ -1425,11 +1617,13 @@ def wgrad_smem_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
     swizzle atom to align the base, ``wgrad_bf16_slots`` slots of
     ``wgrad_bf16_slot_bytes`` (a CTA of ``span`` m-tiles), 256 bytes of
     tables; no g, z or prologue.  ``dilation`` widens the x window to the
-    filter's dilated reach."""
+    filter's dilated reach.  ``narrow``: the narrow rows' two raw buffers
+    after the slots (``wgrad_bf16_raw_bytes``)."""
     if op_bytes == 2:
         slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib, lanes, span,
-                                     dilation)
-        return (WGRAD_BF16_ATOM + wgrad_bf16_slots(slot) * slot
+                                     dilation, narrow)
+        raw = wgrad_bf16_raw_bytes(th, tw, hf, wf, stride, cib, narrow)
+        return (WGRAD_BF16_ATOM + wgrad_bf16_slots(slot, raw) * slot + raw
                 + WGRAD_BF16_TABLES)
     rows, bands, cells = wgrad_staged(th, tw, hf, wf, stride, dilation)
     kpos = -(-th * tw // 8) * 8
@@ -1504,11 +1698,14 @@ def wgrad_bf16_wph(tw: int, wf: int, stride: int, dw: int = 1) -> int:
     return tw + (fwd_reach(wf, dw) - 1) // stride
 
 
-def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int):
+def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int,
+                      narrow: int = 0):
     """``(taps a group, groups a half's taps take, halves a group, groups)``
     of a CTA of ``span`` m-tiles (``wgrad_tile::bf16::tpg``, ``gph``,
-    ``hpg``, ``groups``)."""
-    taps, halves = hf * wf, -(-cib // 64)
+    ``hpg``, ``groups``); on the narrow rows a "tap" is a group of filter
+    rows (``narrow_groups``)."""
+    taps = narrow_groups(hf, wf, cib) if narrow else hf * wf
+    halves = -(-cib // 64)
     tpg = min(span, taps)
     gph = -(-taps // tpg)
     hpg = max(1, span // tpg)
@@ -1517,28 +1714,44 @@ def wgrad_bf16_groups(hf: int, wf: int, cib: int, span: int):
 
 def wgrad_bf16_slot_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
                           cib: int, lanes: int, span: int,
-                          dilation=(1, 1)) -> int:
+                          dilation=(1, 1), narrow: int = 0) -> int:
     """One slot of the bf16 ring: the CTA's staged halves, each in every
     column phase (``wgrad_bf16_phases``), a window of ``hwin`` rows of
     ``wgrad_bf16_wph`` cells (at least the tile's positions rounded to 8)
     of 128 bytes in whole 1024-byte atoms, then B, ``lanes / 64`` blocks of
-    K (positions rounded to 16) rows."""
+    K (positions rounded to 16) rows.  On the narrow rows the CTA's groups'
+    rows, K of 128 bytes each, in place of the window."""
+    kpos = -(-th * tw // 16) * 16
+    if narrow:
+        tpg, _, _, _ = wgrad_bf16_groups(hf, wf, cib, span, narrow)
+        return (tpg + lanes // 64) * kpos * WGRAD_BF16_ROW
     hwin, _ = wgrad_window(th, tw, hf, wf, stride, dilation)
     wph = wgrad_bf16_wph(tw, wf, stride, dilation[1])
     cells = max(hwin * wph, -(-th * tw // 8) * 8)
     region = -(-cells * WGRAD_BF16_ROW // WGRAD_BF16_ATOM) * WGRAD_BF16_ATOM
     _, _, hpg, _ = wgrad_bf16_groups(hf, wf, cib, span)
     staged = min(hpg, -(-cib // 64))
-    kpos = -(-th * tw // 16) * 16
     return (staged * wgrad_bf16_phases(wf, stride, dilation[1]) * region
             + lanes // 64 * kpos * WGRAD_BF16_ROW)
 
 
-def wgrad_bf16_slots(slot: int) -> int:
-    """Slots of ``slot`` bytes the ring takes: as many as fit, up to 4 (0 or
-    1: the tile does not fit)."""
-    fit = (WGRAD_SMEM_BLOCK - WGRAD_BF16_ATOM - WGRAD_BF16_TABLES) // slot
+def wgrad_bf16_slots(slot: int, raw: int = 0) -> int:
+    """Slots of ``slot`` bytes the ring takes beside ``raw`` bytes of the
+    narrow rows' raw buffers: as many as fit, up to 4 (0 or 1: the tile
+    does not fit)."""
+    fit = (WGRAD_SMEM_BLOCK - WGRAD_BF16_ATOM - WGRAD_BF16_TABLES
+           - raw) // slot
     return min(WGRAD_BF16_SLOTS[1], fit)
+
+
+def wgrad_bf16_raw_bytes(th: int, tw: int, hf: int, wf: int, stride: int,
+                         cib: int, narrow: int) -> int:
+    """The narrow rows' two raw buffers of the tile's input rows, each
+    rounded to 128 bytes (``wgrad_tile::bf16::raw_region``); 0 elsewhere."""
+    if not narrow:
+        return 0
+    hwin, wwin = wgrad_window(th, tw, hf, wf, stride)
+    return 2 * (-(-narrow_raw_bytes(hwin, cib, wwin) // 128) * 128)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1561,6 +1774,9 @@ class WgradBlocking:
     hwin: int
     wwin: int
     kstep: int = 8          # K's slice: 8 (3xTF32), 16 (the bf16 build)
+    # 1: the bf16 window GEMM on the narrow rows (``narrow_fits``): an
+    # m-tile a group of filter rows, a 128-byte row a position of it
+    narrow: int = 0
 
     @property
     def kpos(self) -> int:
@@ -1623,8 +1839,11 @@ def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
     ``ciblk / groups`` (1 / groups of the dense MACs)."""
     op_bytes = 2 if blk.kstep == 16 else 4
     products = 3 if op_bytes == 4 else 1
-    mtiles = (-(-cib // 64) * hf * wf if op_bytes == 2
-              else wgrad_mtiles(hf, wf, cib))
+    if blk.narrow:
+        mtiles = narrow_groups(hf, wf, cib)
+    else:
+        mtiles = (-(-cib // 64) * hf * wf if op_bytes == 2
+                  else wgrad_mtiles(hf, wf, cib))
     cigblk = ciblk // groups
     return WgradPlan(
         tiles=blk.tiles,
@@ -1633,7 +1852,7 @@ def wgrad_plan(blk: WgradBlocking, n: int, ho: int, wo: int, hf: int,
                      * WGRAD_ROWS * blk.lanes * products),
         smem=wgrad_smem_bytes(blk.th, blk.tw, hf, wf, stride, cib, cob,
                               blk.lanes, prologue, op_bytes,
-                              blk.wgs * blk.mpw, dilation),
+                              blk.wgs * blk.mpw, dilation, blk.narrow),
         products=products)
 
 
@@ -1654,7 +1873,8 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
                      stride: int, ciblk: int, cib: int, coblk: int, cob: int,
                      machine: MachineModel, prologue: bool, streamed: bool,
                      hso: int | None = None, op_bytes: int = 4,
-                     groups: int = 1, dilation=(1, 1)):
+                     groups: int = 1, dilation=(1, 1),
+                     narrow: bool | None = None):
     """The tiles the search weighs, each as ``(key, blocking)``, the least
     key the choice.  For each stage shape (``_wgrad_shapes``) whose shared
     memory fits ``machine.smem_block``, consumer count and m-tiles a
@@ -1670,15 +1890,16 @@ def wgrad_candidates(n: int, ho: int, wo: int, hf: int, wf: int,
     sum's tail, one column's rows read by one SM at
     ``SPLIT_SUM_BYTES_PER_CYCLE``.  Ties go to fewer shares, then larger
     stages.  ``op_bytes`` 2 weighs the bf16 build
-    (``_wgrad_bf16_candidates``).  A grouped conv's grid walks its
-    ``ciblk / groups`` input blocks a Co block, and its dw has that many;
-    ``dilation`` widens the x window to the filter's dilated reach."""
+    (``_wgrad_bf16_candidates``; ``narrow`` as there).  A grouped conv's
+    grid walks its ``ciblk / groups`` input blocks a Co block, and its dw
+    has that many; ``dilation`` widens the x window to the filter's dilated
+    reach."""
     kstep = _fwd_k_step(op_bytes)
     ciblk //= groups
     if kstep == 16:
         return _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib,
                                       coblk, cob, machine, streamed, hso,
-                                      dilation)
+                                      dilation, narrow)
     lanes = wgrad_lanes(cob)
     mt = wgrad_mtiles(hf, wf, cib)
     cols = coblk * ciblk * hf * wf * cib * cob + coblk * cob
@@ -1769,14 +1990,29 @@ def _wgrad_bf16_shapes(ho: int, wo: int, hf: int, wf: int, stride: int,
 
 
 def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
-                           machine, streamed, hso, dilation=(1, 1)):
+                           machine, streamed, hso, dilation=(1, 1),
+                           narrow=None):
     """``wgrad_candidates`` for the bf16 GEMM: each stage shape whose ring
     holds two slots, consumer count and m-tiles a warpgroup (two only at 64
     lanes; two consumers at most where a warpgroup's m-tiles take 128
     lanes), and share count; the key's cost the busiest SM's cycles (its
     CTAs' stages, each the longer of the wgmmas and the staged bytes, plus
     a fixed part, and a first stage a CTA; the workspace; the folded sum's
-    tail), ties to fewer shares, then larger stages."""
+    tail), ties to fewer shares, then larger stages.  Where the narrow rows
+    fit the window kernel at Cib 3 (``narrow_chosen``, Cob a multiple of 8
+    and at most 64) their tiles alone (``_wgrad_narrow_candidates``; timed
+    faster than the per-tap tiles at each of the three nets' first layers,
+    PERF.md), else the per-tap tiles; ``narrow`` True or False asks for one
+    path's (True: the rows at any width they fit)."""
+    fits = (not streamed and narrow_chosen(hf, wf, cib, dilation, narrow,
+                                           NARROW_WGRAD_CIBS)
+            and cob % 8 == 0 and cob <= 64)
+    if narrow is not False:
+        found = (_wgrad_narrow_candidates(n, ho, wo, hf, wf, stride, ciblk,
+                                          cib, coblk, cob, machine, hso)
+                 if fits else [])
+        if narrow or found:
+            return found
     lanes = wgrad_bf16_lanes(cob)
     taps, halves = hf * wf, -(-cib // 64)
     mt = halves * taps
@@ -1835,6 +2071,94 @@ def _wgrad_bf16_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk, cob,
                                     lanes=lanes, groups=groups,
                                     splits=splits, tiles=tiles, hwin=hwin,
                                     wwin=wwin, kstep=16)))
+    return out
+
+
+# The narrow rows' wgrad (``_wgrad_narrow_candidates``), in cycles of one
+# SM: a stage a fixed part, a part a 128 bytes of its staged raw rows and a
+# part a 16-byte chunk of the CTA's groups' rows a producer thread builds
+# (the producer bounds it, the wgmmas hide under it), a CTA's first stage
+# apart, with the workspace and the folded sum's tail as the per-tap
+# tiles'.  Fitted (least squares on the card's times) to the narrow tiles
+# ``python -m repro_torch.launch.wgrad_tiles_ab --first`` timed at
+# AlexNet's conv1, VGG-16's conv1_1 and MobileNet's conv1 on an H100 80GB
+# HBM3 at 700 W; timed again after the fit (PERF.md), it picks the fastest
+# tile timed at all three and one within 1.012 of it at Cib 3 7x7 stride 2.
+WGRAD_NARROW_STAGE_CYCLES = 1900
+WGRAD_NARROW_LINE_CYCLES = 13.5
+WGRAD_NARROW_CHUNK_CYCLES = 400
+WGRAD_NARROW_FIRST_CYCLES = 22500
+
+
+def _wgrad_narrow_shapes(ho: int, wo: int, hso: int | None):
+    """The narrow rows' stage shapes: positions run on across row breaks,
+    so any width: the whole row, the row in two to four balanced parts and
+    the multiples of 8 below it; th rows (``hso`` pinned) up to
+    WGRAD_BF16_MAX_POSITIONS positions."""
+    top = WGRAD_BF16_MAX_POSITIONS
+    widths = sorted({-(-wo // k) for k in range(1, 5)}
+                    | set(range(8, wo + 1, 8)))
+    out = []
+    for tw in (w for w in widths if w <= top):
+        rows = [hso] if hso is not None else range(1, min(ho, 16) + 1)
+        out += [(th, tw) for th in rows if th * tw <= top]
+    return out
+
+
+def _wgrad_narrow_candidates(n, ho, wo, hf, wf, stride, ciblk, cib, coblk,
+                             cob, machine, hso):
+    """``_wgrad_bf16_candidates`` on the narrow rows (the window kernel; the
+    rules of ``wgrad_tile::bf16::valid`` on ``narrow``): an m-tile a group
+    of filter rows, 64 lanes and an m-tile a warpgroup (the compiled
+    instance), the same consumers and shares."""
+    lanes = wgrad_bf16_lanes(cob)
+    if lanes != 64:
+        return []
+    mt = narrow_groups(hf, wf, cib)
+    nq = narrow_chunks(hf, wf, cib)
+    cols = coblk * ciblk * hf * wf * cib * cob
+    out = []
+    for th, tw in _wgrad_narrow_shapes(ho, wo, hso):
+        kpos = -(-th * tw // 16) * 16
+        hwin, wwin = wgrad_window(th, tw, hf, wf, stride)
+        tiles = n * -(-ho // th) * -(-wo // tw)
+        raw = wgrad_bf16_raw_bytes(th, tw, hf, wf, stride, cib, 1)
+        for wgs in range(1, min(WGRAD_CONSUMERS, mt) + 1):
+            span = wgs           # an m-tile a warpgroup
+            slot = wgrad_bf16_slot_bytes(th, tw, hf, wf, stride, cib,
+                                         lanes, span, narrow=1)
+            if (wgrad_bf16_slots(slot, raw) < WGRAD_BF16_SLOTS[0]
+                    or wgrad_smem_bytes(th, tw, hf, wf, stride, cib, cob,
+                                        lanes, False, 2, span,
+                                        narrow=1) > machine.smem_block):
+                continue
+            tpg, _, _, groups = wgrad_bf16_groups(hf, wf, cib, span, 1)
+            stage = (WGRAD_NARROW_STAGE_CYCLES
+                     + WGRAD_NARROW_LINE_CYCLES * hwin * wwin * cib * 2 / 128
+                     + WGRAD_NARROW_CHUNK_CYCLES * tpg * kpos * nq / 128)
+            base = groups * ciblk * coblk
+            column = min(tpg * narrow_values(hf, wf, cib),
+                         hf * wf * cib) * cob
+            most = max(1, min(tiles, WGRAD_WORKSPACE_BYTES // (4 * cols)))
+            shares = {most}
+            for waves in range(1, 9):
+                shares |= {max(1, waves * machine.sms // base),
+                           -(-waves * machine.sms // base)}
+            for splits in sorted(k for k in shares if k <= most):
+                ctas = base * splits
+                cost = (-(-ctas // machine.sms)
+                        * (-(-tiles // splits) * stage
+                           + WGRAD_NARROW_FIRST_CYCLES)
+                        + (splits + 1) * cols * 4
+                        / WGRAD_CARD_BYTES_PER_CYCLE
+                        + splits * column * 4
+                        / SPLIT_SUM_BYTES_PER_CYCLE)
+                out.append(((cost, splits, -kpos, -span),
+                            WgradBlocking(th=th, tw=tw, wgs=wgs, mpw=1,
+                                          lanes=lanes, groups=groups,
+                                          splits=splits, tiles=tiles,
+                                          hwin=hwin, wwin=wwin, kstep=16,
+                                          narrow=1)))
     return out
 
 

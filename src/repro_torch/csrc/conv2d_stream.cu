@@ -534,11 +534,12 @@ void conv2d_stream_wgrad_geometry(int* threads, int* rows, int* positions) {
 int conv2d_stream_wgrad(const void* x, const void* g, const void* z, void* ws,
                         void* out, void* counters, const int* p,
                         void* stream) {
-  if (!dense_args(p[20], p[21], p[22])) return (int)cudaErrorInvalidValue;
+  if (!dense_args(p[20], p[21], p[22]) || p[23] != 0)
+    return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[23],
-      z != nullptr, p[24]);
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[24],
+      z != nullptr, p[25]);
   return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
@@ -553,8 +554,9 @@ int conv2d_stream_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
                              int wf, int stride, int pad_top, int pad_left,
                              int hso, int wob, int wgs, int mpw, int lanes,
                              int splits, int groups, int dil_h, int dil_w,
-                             int prologue, long long* out) {
-  if (!dense_args(groups, dil_h, dil_w)) return (int)cudaErrorInvalidValue;
+                             int narrow, int prologue, long long* out) {
+  if (!dense_args(groups, dil_h, dil_w) || narrow != 0)
+    return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);
@@ -615,11 +617,13 @@ int conv2d_stream_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
 int conv2d_stream_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
-  if (!dense_args(p[20], p[21], p[22])) return (int)cudaErrorInvalidValue;
+  // the narrow rows (p[23]) are the window kernel's alone
+  if (!dense_args(p[20], p[21], p[22]) || p[23] != 0)
+    return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
-      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[23],
-      z != nullptr, p[24]);
+      p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[24],
+      z != nullptr, p[25]);
   return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
                             (float*)ws, (float*)out, (int*)counters, geo,
@@ -632,9 +636,10 @@ int conv2d_stream_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int hso, int wob, int wgs,
                                   int mpw, int lanes, int splits, int groups,
-                                  int dil_h, int dil_w, int prologue,
-                                  long long* out) {
-  if (!dense_args(groups, dil_h, dil_w)) return (int)cudaErrorInvalidValue;
+                                  int dil_h, int dil_w, int narrow,
+                                  int prologue, long long* out) {
+  if (!dense_args(groups, dil_h, dil_w) || narrow != 0)
+    return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, hso, wob, wgs, mpw, lanes, splits, 0, prologue, 0);

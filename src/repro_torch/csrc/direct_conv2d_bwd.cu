@@ -317,9 +317,32 @@ wgrad_kernel_bf16(const __grid_constant__ CUtensorMap tmx,
                            geo, steps);
 }
 
+// The same GEMM on the narrow rows (wgrad_tile.cuh, bf16 `run_narrow`,
+// narrow_rows.cuh): an m-tile a group of filter rows whose (dw, c) runs the
+// producer builds into 128-byte rows from the tile's staged input rows.
+template <int N, int MPW>
+__global__ void __launch_bounds__(wtile::bf16::max_threads(N, MPW), 1)
+wgrad_kernel_bf16_narrow(const __grid_constant__ CUtensorMap tmx,
+                         const __grid_constant__ CUtensorMap tmd,
+                         const __nv_bfloat16* __restrict__ x,
+                         const __nv_bfloat16* __restrict__ dz, float* ws,
+                         float* out, int* counters, wtile::Geometry geo,
+                         const __grid_constant__ wtile::bf16::Steps steps) {
+  extern __shared__ __align__(16) char smem_bf16[];
+  wtile::bf16::run_narrow<N, MPW>(smem_bf16, &tmd, x, ws, out, counters,
+                                  geo, steps);
+}
+
 // The compiled bf16 wgrad instances: wgmma widths 64 and 128 (Cob up to 64
-// takes 64), one or two m-tiles a warpgroup (one at 128).
-wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw) {
+// takes 64), one or two m-tiles a warpgroup (one at 128); on the narrow
+// rows where `narrow`, 64 lanes and an m-tile a warpgroup (the first
+// layers' Cob is 64 or less; the wider instances spilled their
+// accumulators).
+wtile::KernelBf16 pick_wgrad_bf16(int lanes, int mpw, int narrow = 0) {
+  if (narrow) {
+    return lanes == 64 && mpw == 1 ? wgrad_kernel_bf16_narrow<64, 1>
+                                   : nullptr;
+  }
   switch (lanes * 4 + mpw) {
     case 64 * 4 + 1: return wgrad_kernel_bf16<64, 1>;
     case 64 * 4 + 2: return wgrad_kernel_bf16<64, 2>;
@@ -569,16 +592,16 @@ int direct_conv2d_dgrad_plan(int n, int coblk, int cob, int ho, int wo,
 // `counters`: a zeroed int32 a column (wgrad_tile::columns).  plan, built
 // once per shape by the wrapper: n, ciblk, hi, wi, cib, coblk, cob, ho,
 // wo, hf, wf, stride, pad_top, pad_left, th, tw, wgs, mpw, lanes, splits,
-// groups, dil_h, dil_w, act, with_db (as the _plan entry's ints, then
-// those two).
+// groups, dil_h, dil_w, narrow (the bf16 build's narrow rows; 0 here),
+// act, with_db (as the _plan entry's ints, then those two).
 int direct_conv2d_wgrad(const void* x, const void* g, const void* z, void* ws,
                         void* out, void* counters, const int* p,
                         void* stream) {
-  if (p[20] < 1) return (int)cudaErrorInvalidValue;
+  if (p[20] < 1 || p[23] != 0) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      p[21], p[22], p[23], z != nullptr, p[24]);
+      p[21], p[22], p[24], z != nullptr, p[25]);
   return wtile::launch(pick_wgrad(geo.lanes, geo.mpw), (const float*)x,
                        (const float*)g, (const float*)z, (float*)ws,
                        (float*)out, (int*)counters, geo,
@@ -593,8 +616,8 @@ int direct_conv2d_wgrad_plan(int n, int ciblk, int hi, int wi, int cib,
                              int wf, int stride, int pad_top, int pad_left,
                              int th, int tw, int wgs, int mpw, int lanes,
                              int splits, int groups, int dil_h, int dil_w,
-                             int prologue, long long* out) {
-  if (groups < 1) return (int)cudaErrorInvalidValue;
+                             int narrow, int prologue, long long* out) {
+  if (groups < 1 || narrow != 0) return (int)cudaErrorInvalidValue;
   const wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, th, tw, wgs, mpw, lanes, splits, groups, dil_h, dil_w, 0,
@@ -651,16 +674,18 @@ int direct_conv2d_dgrad_bf16_plan(int n, int coblk, int cob, int ho, int wo,
 
 // The bf16 build of direct_conv2d_wgrad on dz (`g` takes dz; `z` must be
 // null and the plan's with_db 0: the dz pass forms dz and db), the f32
-// workspace and sums, the same plan.
+// workspace and sums, the same plan; narrow (p[23]) 1 runs the narrow
+// rows (wgrad_kernel_bf16_narrow).
 int direct_conv2d_wgrad_bf16(const void* x, const void* g, const void* z,
                              void* ws, void* out, void* counters,
                              const int* p, void* stream) {
   if (p[20] < 1) return (int)cudaErrorInvalidValue;
-  const wtile::Geometry geo = wgrad_geometry(
+  wtile::Geometry geo = wgrad_geometry(
       p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8], p[9], p[10],
       p[11], p[12], p[13], p[14], p[15], p[16], p[17], p[18], p[19], p[20],
-      p[21], p[22], p[23], z != nullptr, p[24]);
-  return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw),
+      p[21], p[22], p[24], z != nullptr, p[25]);
+  geo.narrow = p[23];
+  return wtile::launch_bf16(pick_wgrad_bf16(geo.lanes, geo.mpw, geo.narrow),
                             (const __nv_bfloat16*)x, (const __nv_bfloat16*)g,
                             (float*)ws, (float*)out, (int*)counters, geo,
                             (cudaStream_t)stream);
@@ -672,14 +697,16 @@ int direct_conv2d_wgrad_bf16_plan(int n, int ciblk, int hi, int wi, int cib,
                                   int wf, int stride, int pad_top,
                                   int pad_left, int th, int tw, int wgs,
                                   int mpw, int lanes, int splits, int groups,
-                                  int dil_h, int dil_w, int prologue,
-                                  long long* out) {
+                                  int dil_h, int dil_w, int narrow,
+                                  int prologue, long long* out) {
   if (groups < 1) return (int)cudaErrorInvalidValue;
-  const wtile::Geometry geo = wgrad_geometry(
+  wtile::Geometry geo = wgrad_geometry(
       n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, stride, pad_top,
       pad_left, th, tw, wgs, mpw, lanes, splits, groups, dil_h, dil_w, 0,
       prologue, 0);
-  if (!wtile::valid_bf16(geo) || pick_wgrad_bf16(lanes, mpw) == nullptr)
+  geo.narrow = narrow;
+  if (!wtile::valid_bf16(geo)
+      || pick_wgrad_bf16(lanes, mpw, narrow) == nullptr)
     return (int)cudaErrorInvalidValue;
   wtile::bf16::plan(geo, out);
   return 0;

@@ -102,8 +102,36 @@ const void* const kKernelsBf16[] = {
     (const void*)fwd_kernel_bf16<32>, (const void*)fwd_kernel_bf16<64>,
     (const void*)fwd_kernel_bf16<128>};
 
-// by a plan's operand type (fwd_tile's kOperandF32, kOperandBf16)
-const void* const* const kTables[] = {kKernels, kKernelsBf16};
+// The bf16 build on the narrow rows (fwd_tile.cuh, bf16 `run_narrow`;
+// narrow_rows.cuh): where a filter row's (dw, c) run fits one 128-byte row
+// (Cib 3 at 11x11 and 3x3), A is a row an output position and filter-row
+// group that the producer builds from the tile's staged input rows, K the
+// group's packed (dh, dw, c); widths 16 to 128.
+template <int N>
+__global__ void __launch_bounds__(ft::bf16::max_threads(N), 1)
+fwd_kernel_bf16_narrow(const __grid_constant__ CUtensorMap tmw,
+                       const __grid_constant__ CUtensorMap tmx,
+                       const __nv_bfloat16* __restrict__ x,
+                       const __nv_bfloat16* __restrict__ w,
+                       const float* __restrict__ bias,
+                       const __nv_bfloat16* __restrict__ residual,
+                       __nv_bfloat16* __restrict__ out, float* partials,
+                       __nv_bfloat16* __restrict__ pooled, int* counters,
+                       ft::Geometry g, int n) {
+  extern __shared__ __align__(16) char smem_narrow[];
+  ft::bf16::run_narrow<N>(smem_narrow, &tmw, x, bias, residual, out,
+                          partials, pooled, counters, g, n);
+}
+
+const void* const kKernelsNarrow[] = {
+    nullptr, (const void*)fwd_kernel_bf16_narrow<16>,
+    (const void*)fwd_kernel_bf16_narrow<32>,
+    (const void*)fwd_kernel_bf16_narrow<64>,
+    (const void*)fwd_kernel_bf16_narrow<128>};
+
+// by a plan's operand type (fwd_tile's kOperandF32, kOperandBf16), then the
+// bf16 narrow rows (kOperandNarrow)
+const void* const* const kTables[] = {kKernels, kKernelsBf16, kKernelsNarrow};
 
 }  // namespace
 

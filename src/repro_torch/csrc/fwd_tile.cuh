@@ -104,10 +104,11 @@
 // What bounds the new widths on this card (H100 80GB HBM3 at 700 W,
 // PERF.md, PR 31): Cob 48 and 96 take no 64-lane TMA row, so the bf16
 // chooser splits them 3 x 16 and 3 x 32 lanes, whose rows land by TMA (the
-// two-way splits' 2-byte weight copies ran 1.3x and 2.6x slower); Cib 3 at
-// stride 4 (conv1) lands its 16 phase planes by copies (2.61x cuDNN bf16),
-// and the f32 tile issues 12.4x conv1's MACs (Cib padded to 8, 48 lanes to
-// 64, a stage a filter row).
+// two-way splits' 2-byte weight copies ran 1.3x and 2.6x slower); the f32
+// tile issues 12.4x conv1's MACs (Cib 3 padded to 8, 48 lanes to 64, a
+// stage a filter row).  The bf16 build takes Cib 3 (conv1) on the narrow
+// rows (`run_narrow`, narrow_rows.cuh), which stage no phase plane: a run
+// of a filter row is contiguous in the unphased input row.
 //
 // Epilogue: the reference's order (+ b, activation, + r, one store); with
 // GAP each CTA writes its tile's sums of the stored values (a thread's two
@@ -128,6 +129,7 @@
 #include <string.h>
 
 #include "dgrad_tile.cuh"
+#include "narrow_rows.cuh"
 #include "split_sum.cuh"
 
 namespace fwd_tile {
@@ -185,6 +187,8 @@ struct Geometry {
   int dil_h, dil_w;                 // filter dilation
   int frows;                        // filter rows a stage (f32 tile; hf
                                     // unless a stage's taps do not fit)
+  int narrow;                       // the bf16 build's narrow rows (a
+                                    // filter row's run a 128-byte row)
 };
 constexpr int kGeometryInts = sizeof(Geometry) / sizeof(int);
 
@@ -879,6 +883,22 @@ __host__ __device__ inline int lane_slot(int lanes) {
 //   compiler wait for each HGMMA (wgrad_tile.cuh, bf16).  With one
 //   accumulator a 128-lane consumer holds 64 registers, so a CTA takes
 //   three consumers at every width (`max_threads`).
+// * The narrow rows (`run_narrow`, the kernel fwd_kernel_bf16_narrow;
+//   narrow_rows.cuh), where a filter row's run of wf Cib values fits a
+//   128-byte row at dilation 1 (Cib 3 at 11x11 and 3x3): A is a row a
+//   position of the tile and group of r filter rows, K the group's packed
+//   (dh, dw, c), a run of Lp lanes each, padded to k16 slices (3 slices a
+//   group at conv1, where the per-tap tile ran 11 at a chunk of 16 for 3
+//   channels); B the group's weight rows, a TMA box of L rows a run as they
+//   lie in [taps * Cib][Cob].  The producer stages the item's input rows by
+//   16-byte copies into a ring of 2-3 raw buffers (the window slots; 6-byte
+//   pixels take no TMA, and AlexNet's 227-wide rows start 2 bytes
+//   aligned), clears their pads, and builds each group's rows into a weight
+//   slot beside its weights; A's values past the runs and its rows past the
+//   tile stay the slot's zeros, so the next filter row's weights in B's
+//   padding meet zeros.  Both are read as the bf16 build reads its cells
+//   and weights (K-major A, MN-major B), one wgmma group a filter-row
+//   group into the one accumulator, the same epilogue (`pitch` tw).
 // * Warp roles.  One producer warpgroup: where x's and w's pencils are
 //   multiples of 8 channels (TMA's 16-byte strides), its warp 0 issues
 //   every TMA copy in the consumers' order and its other warps leave; else
@@ -941,6 +961,7 @@ constexpr int kMaxRows = db::kMaxRows;
 constexpr int kBarBytes = db::kBarBytes;
 constexpr int kSmemBlock = db::kSmemBlock;
 constexpr int kMaxStride = 8;          // a TMA map's element stride at most
+constexpr int kNarrowRaw = 3;          // the narrow rows' raw buffers at most
 
 // threads of the largest CTA (the launch bound): three consumers at every
 // width, the accumulator 64 registers at 128 lanes
@@ -982,6 +1003,16 @@ __host__ __device__ inline bool streamed(const Geometry& g) {
   return g.strips > 1;
 }
 
+// The narrow rows (narrow_rows.cuh, `run_narrow`): the window kernel's A a
+// 128-byte row an output position and filter-row group, K the group's
+// packed (dh, dw, c), padded to k16 slices (`nkpad`).
+__host__ __device__ inline bool narrow(const Geometry& g) {
+  return g.narrow != 0;
+}
+__host__ __device__ inline int nkpad(const Geometry& g) {
+  return narrow_rows::kpad(g.hf, g.wf, g.cib);
+}
+
 __host__ __device__ inline int planes(const Geometry& g) {
   return g.stride * g.stride;
 }
@@ -1019,8 +1050,13 @@ __host__ __device__ inline int line_cells(const Geometry& g) {
 
 // cells from one plane row to the next: the plane's width, or where a
 // strip's boxes land at each row, rounded up to whole 128 bytes (a TMA
-// destination's alignment)
+// destination's alignment).  The layout helpers below take the narrow
+// rows' layout as a compile-time kNarrow (run_narrow's), so that the
+// per-tap kernels' code tests no `narrow` field; the host's dispatch on
+// it (`smem_bytes`, `valid`, `plan`).
+template <bool kNarrow = false>
 __host__ __device__ inline int wpitch(const Geometry& g) {
+  if (kNarrow) return g.tw;               // a row a position of the tile
   const int per = line_cells(g);
   return streamed(g) ? ceil_div(plane_cols(g), per) * per : plane_cols(g);
 }
@@ -1068,11 +1104,23 @@ __host__ __device__ inline int round_atom(int bytes) {
 
 // bytes of a window slot and of a weight slot (one filter row's wf taps x N
 // lanes), each in whole swizzle periods
+// The narrow rows: a window slot is a raw buffer of the tile's input rows
+// (the producer's alone, two of them), a weight slot a group's weights
+// (nkpad rows of `lanes`) and the group's A rows (64 a consumer).
+template <bool kNarrow = false>
 __host__ __device__ inline int window_bytes(const Geometry& g) {
+  if (kNarrow) {
+    return round_atom(narrow_rows::raw_bytes(hwin(g), g.cib, wwin(g)));
+  }
   return round_atom(window_cells(g) * cell_bytes(g));
 }
+template <bool kNarrow = false>
 __host__ __device__ inline int row_weight_bytes(const Geometry& g,
                                                 int lanes) {
+  if (kNarrow) {
+    return round_atom(nkpad(g) * lanes * 2)
+           + kRows * g.wgs * narrow_rows::kRowBytes;
+  }
   return round_atom(g.wf * lanes * cell_bytes(g));
 }
 
@@ -1088,25 +1136,36 @@ __host__ __device__ inline int gap_bytes(const Geometry& g, int lanes) {
 __host__ __device__ inline int room(const Geometry& g, int lanes) {
   return kSmemBlock - kAtom - kBarBytes - gap_bytes(g, lanes);
 }
+template <bool kNarrow = false>
 __host__ __device__ inline int row_slots(const Geometry& g, int lanes) {
-  const int left = room(g, lanes) - 2 * window_bytes(g);
-  const int fit = left > 0 ? left / row_weight_bytes(g, lanes) : 0;
+  const int left = room(g, lanes) - 2 * window_bytes<kNarrow>(g);
+  const int fit = left > 0 ? left / row_weight_bytes<kNarrow>(g, lanes) : 0;
   return fit < kMaxRows ? fit : kMaxRows;
 }
+template <bool kNarrow = false>
 __host__ __device__ inline int window_slots(const Geometry& g, int lanes) {
-  const int left = room(g, lanes)
-                   - row_slots(g, lanes) * row_weight_bytes(g, lanes);
-  const int fit = left > 0 ? left / window_bytes(g) : 0;
-  return fit < kMaxWindows ? fit : kMaxWindows;
+  const int left = room(g, lanes) - row_slots<kNarrow>(g, lanes)
+                                        * row_weight_bytes<kNarrow>(g, lanes);
+  const int fit = left > 0 ? left / window_bytes<kNarrow>(g) : 0;
+  // the narrow rows' raw buffers: two or three
+  const int most = kNarrow ? kNarrowRaw : kMaxWindows;
+  return fit < most ? fit : most;
 }
 
 // Dynamic shared memory of one CTA (core/blocking.py fwd_smem_bytes at
 // op_bytes 2): a swizzle period to align the base, the window slots, the
 // weight slots, the mbarriers, the GAP sums.
-__host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
-  return (size_t)kAtom + (size_t)window_slots(g, lanes) * window_bytes(g)
-         + (size_t)row_slots(g, lanes) * row_weight_bytes(g, lanes)
+template <bool kNarrow>
+__host__ inline size_t smem_bytes_of(const Geometry& g, int lanes) {
+  return (size_t)kAtom
+         + (size_t)window_slots<kNarrow>(g, lanes) * window_bytes<kNarrow>(g)
+         + (size_t)row_slots<kNarrow>(g, lanes)
+               * row_weight_bytes<kNarrow>(g, lanes)
          + kBarBytes + gap_bytes(g, lanes);
+}
+__host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
+  return narrow(g) ? smem_bytes_of<true>(g, lanes)
+                   : smem_bytes_of<false>(g, lanes);
 }
 
 // Whether the kernels take this geometry at wgmma width `lanes` (the
@@ -1116,6 +1175,11 @@ __host__ inline size_t smem_bytes(const Geometry& g, int lanes) {
 // swizzle row dividing the padded Cib, boxes within TMA's 256 elements an
 // index, two slots or more in each ring.
 __host__ inline bool valid(const Geometry& g, int lanes) {
+  if (narrow(g)
+      && (streamed(g) || lanes < 16 || g.cob % 8 != 0
+          || !narrow_rows::fits(g.hf, g.wf, g.cib, g.dil_h, g.dil_w))) {
+    return false;
+  }
   if (!valid_map(g) || g.frows != g.hf || lane_slot(lanes) < 0 || g.wgs < 1
       || g.wgs > kMaxConsumers
       || (g.chunk != 16 && g.chunk != 32 && g.chunk != 64)
@@ -1123,10 +1187,16 @@ __host__ inline bool valid(const Geometry& g, int lanes) {
       || g.stride < 1 || g.stride > kMaxStride || g.hf < 1 || g.wf < 1
       || g.nsplit < 1 || (g.nsplit - 1) * lanes >= g.cob
       || g.nsplit * lanes < g.cob || g.act < 0 || g.act > kActGelu
-      || g.stride * wpitch(g) > 256 || g.wf > 256) {
+      || g.stride * (narrow(g) ? wpitch<true>(g) : wpitch(g)) > 256
+      || g.wf > 256) {
     return false;
   }
-  if (streamed(g)) {
+  if (narrow(g)) {
+    if (g.strips != 1 || (g.th - 1) * wpitch<true>(g) + g.tw > kRows * g.wgs
+        || row_slots<true>(g, lanes) < 2 || window_slots<true>(g, lanes) < 2) {
+      return false;
+    }
+  } else if (streamed(g)) {
     if (g.strips != g.wgs || g.wgs < 2 || g.th % g.strips != 0
         || (bf16::hso(g) - 1) * wpitch(g) + g.tw > kRows) {
       return false;
@@ -1135,8 +1205,9 @@ __host__ inline bool valid(const Geometry& g, int lanes) {
              || (g.th - 1) * wpitch(g) + g.tw > kRows * g.wgs) {
     return false;
   }
-  return g.stride * box_rows(g) <= 256 && row_slots(g, lanes) >= 2
-         && window_slots(g, lanes) >= 2
+  return g.stride * box_rows(g) <= 256
+         && (narrow(g) || (row_slots(g, lanes) >= 2
+                           && window_slots(g, lanes) >= 2))
          && bf16::smem_bytes(g, lanes) <= (size_t)kSmemBlock;
 }
 
@@ -1144,8 +1215,9 @@ __host__ inline bool valid(const Geometry& g, int lanes) {
 // image's tiles, out[1] the function's MACs (a grouped conv's: over its
 // group's Cig), out[2] the tensor-core MACs the items issue (every
 // consumer's 64 m-tile rows by `lanes` over every tap and the group's Cib
-// padded to k16 slices, one product each), out[3] a CTA's shared memory,
-// out[4] and out[5] its window and weight slots.
+// padded to k16 slices, one product each; on the narrow rows over every
+// filter-row group's packed K padded to k16 slices), out[3] a CTA's shared
+// memory, out[4] and out[5] its window and weight slots.
 __host__ inline void plan(const Geometry& g, int n, int lanes,
                           long long* out) {
   const long long t = tiles(g);
@@ -1153,10 +1225,13 @@ __host__ inline void plan(const Geometry& g, int n, int lanes,
   out[1] = (long long)n * g.ho * g.wo * taps(g) * cigblk(g) * g.cib * g.coblk
            * g.cob;
   out[2] = (long long)n * t * g.coblk * g.nsplit * kRows * g.wgs * lanes
-           * taps(g) * cigblk(g) * bf16::kpad(g);
+           * (narrow(g) ? (long long)narrow_rows::groups(g.hf, g.wf, g.cib)
+                              * nkpad(g)
+                        : (long long)taps(g) * bf16::kpad(g))
+           * cigblk(g);
   out[3] = (long long)bf16::smem_bytes(g, lanes);
-  out[4] = window_slots(g, lanes);
-  out[5] = row_slots(g, lanes);
+  out[4] = narrow(g) ? window_slots<true>(g, lanes) : window_slots(g, lanes);
+  out[5] = narrow(g) ? row_slots<true>(g, lanes) : row_slots(g, lanes);
 }
 
 // The carve-up of one CTA (smem_bytes): the window slots, the weight
@@ -1174,14 +1249,14 @@ struct Smem {
   int wslot, rslot, nw, nr;
 };
 
-template <int N>
+template <int N, bool kNarrow = false>
 __device__ inline Smem carve(char* raw, const Geometry& g) {
   Smem m;
   m.win0 = raw + ((kAtom - (dt::smem_u32(raw) & (kAtom - 1))) & (kAtom - 1));
-  m.wslot = window_bytes(g);
-  m.rslot = row_weight_bytes(g, N);
-  m.nw = window_slots(g, N);
-  m.nr = row_slots(g, N);
+  m.wslot = window_bytes<kNarrow>(g);
+  m.rslot = row_weight_bytes<kNarrow>(g, N);
+  m.nw = window_slots<kNarrow>(g, N);
+  m.nr = row_slots<kNarrow>(g, N);
   m.row0 = m.win0 + m.nw * m.wslot;
   m.wfull = reinterpret_cast<uint64_t*>(m.row0 + m.nr * m.rslot);
   m.wready = m.wfull + kMaxWindows * kMaxGroups;
@@ -1458,7 +1533,7 @@ __device__ __forceinline__ Item item_of(const Geometry& g, int tiles, int i) {
 // (in the streamed band, in strip c) and the map.  With GAP, the tile's sums
 // of the stored values into `partials` and the (image, output block)'s last
 // item's fold into `pooled`.
-template <int N, int kAct, bool kGap>
+template <int N, int kAct, bool kGap, bool kNarrow>
 __device__ __forceinline__ void store_out(float (&acc)[N / 2],
                                           const Geometry& g, const Item& it,
                                           int c, int tiles, const Smem& m,
@@ -1470,7 +1545,7 @@ __device__ __forceinline__ void store_out(float (&acc)[N / 2],
                                           int* counters) {
   const int lane = threadIdx.x % 32;
   const int local = threadIdx.x % kWarpgroup / 32 * 16 + lane / 4;
-  const int wp = wpitch(g);
+  const int wp = wpitch<kNarrow>(g);
   const int strip = streamed(g) ? bf16::hso(g) * wp : kRows;
   const int o0 = it.split * N;
   const int col0 = 2 * (lane % 4);
@@ -1629,7 +1704,7 @@ __device__ __forceinline__ void store_out(float (&acc)[N / 2],
 // store_out at the geometry's activation and GAP, each a compile-time
 // constant of its own copy (a runtime test an element cost the epilogue,
 // which the tensor cores wait out).
-template <int N>
+template <int N, bool kNarrow = false>
 __device__ __forceinline__ void store_any(float (&acc)[N / 2],
                                           const Geometry& g, const Item& it,
                                           int c, int tiles, const Smem& m,
@@ -1640,8 +1715,8 @@ __device__ __forceinline__ void store_any(float (&acc)[N / 2],
                                           bf* __restrict__ pooled,
                                           int* counters) {
 #define FWD_STORE(act, gap)                                                \
-  store_out<N, act, gap>(acc, g, it, c, tiles, m, bias, residual, out,      \
-                         partials, pooled, counters)
+  store_out<N, act, gap, kNarrow>(acc, g, it, c, tiles, m, bias, residual, \
+                                  out, partials, pooled, counters)
   if (g.gap) {
     if (g.act == kActRelu) {
       FWD_STORE(kActRelu, true);
@@ -1837,6 +1912,171 @@ __device__ __forceinline__ void run(char* raw, const CUtensorMap* tmw,
   }
 }
 
+// A filter-row group of the narrow rows: one wgmma group of `steps` k16
+// slices (1-4, the group's packed K), A the group's rows of this consumer's
+// 64 positions, K-major in the 128-byte swizzle, B its weights' rows as
+// they lie.
+template <int N>
+__device__ __forceinline__ void mma_narrow(float (&acc)[N / 2], uint32_t a,
+                                           uint32_t b, int steps,
+                                           uint64_t adesc, uint64_t bdesc) {
+  if (steps == 4) {
+    mma_row<N, 4, 1>(acc, a, b, 0, 0, adesc, bdesc);
+  } else if (steps == 3) {
+    mma_row<N, 3, 1>(acc, a, b, 0, 0, adesc, bdesc);
+  } else if (steps == 2) {
+    mma_row<N, 2, 1>(acc, a, b, 0, 0, adesc, bdesc);
+  } else {
+    mma_row<N, 1, 1>(acc, a, b, 0, 0, adesc, bdesc);
+  }
+}
+
+// The window kernel on the narrow rows (`fwd_kernel_bf16_narrow`;
+// narrow_rows.cuh): the same persistent walk of items and the same
+// epilogue, a stage an input block of the group.  A stage ahead the
+// producer stages the item's input rows into one of two raw buffers (the
+// window slots, its own) and clears their pads; then for each filter-row
+// group j it waits for a weight slot, lands the group's weight rows there
+// by TMA (a box of L rows (j r + k) L .. of the block's [taps * Cib][Cob] a
+// run k, at row k Lp) and builds the group's A rows beside them, one
+// 128-byte row a position of the tile;
+// the slot's `full` mbarrier completes with the box and the producer's 128
+// arrivals.  A consumer runs each group's k16 slices into its one
+// accumulator and frees the group before (wait<1>), as `run` frees rows.
+// B's rows in a run's gap and past the group's runs are the slots' zeros
+// (zeroed once, never written), as are A's rows past the tile.
+template <int N>
+__device__ __forceinline__ void run_narrow(char* raw,
+                                           const CUtensorMap* tmw,
+                                           const bf* __restrict__ x,
+                                           const float* __restrict__ bias,
+                                           const bf* __restrict__ residual,
+                                           bf* __restrict__ out,
+                                           float* partials,
+                                           bf* __restrict__ pooled,
+                                           int* counters, const Geometry& g,
+                                           int n_images) {
+  const int nth = blockDim.x;
+  const int consumers = g.wgs * kWarpgroup;
+  const Smem m = carve<N, true>(raw, g);
+  const int nr = m.nr;
+  const int count = cigblk(g);
+  const int ng = narrow_rows::groups(g.hf, g.wf, g.cib);
+  const int kp = nkpad(g);
+  const int bbytes = round_atom(kp * N * 2);
+  const int tiles = fwd_tile::tiles(g);
+  const int items = tiles * g.coblk * g.nsplit * n_images;
+  {
+    uint4* p = reinterpret_cast<uint4*>(m.row0);
+    const int n16 = nr * m.rslot / 16;
+    for (int i = threadIdx.x; i < n16; i += nth) p[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kMaxRows; ++i) {
+      dt::mbar_init(&m.rfull[i], kWarpgroup + 1);
+      dt::mbar_init(&m.rempty[i], consumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  dt::fence_proxy_async();      // the zeros, before TMA and wgmma see them
+  __syncthreads();
+
+  if (threadIdx.x >= consumers) {             // the producer warpgroup
+    const int tid = threadIdx.x - consumers;
+    const int hw = hwin(g), ww = wwin(g);
+    const int L = narrow_rows::run_values(g.wf, g.cib);
+    const int Lp = narrow_rows::run_pad(g.wf, g.cib);
+    const int r = narrow_rows::rows_a_group(g.hf, g.wf, g.cib);
+    constexpr int nin = b_lanes(N);
+    // the CTA's stages (items x input blocks); stage q's rows go to raw
+    // buffer q % nw, nw - 1 stages ahead, one copy group a stage (empty
+    // past the last)
+    const int total = blockIdx.x < items
+        ? ((items - 1 - (int)blockIdx.x) / (int)gridDim.x + 1) * count : 0;
+    auto stage_raw = [&](int q) {
+      if (q < total) {
+        const Item it = item_of(g, tiles, blockIdx.x + q / count * gridDim.x);
+        narrow_rows::stage(m.win0 + q % m.nw * m.wslot,
+                           x + (size_t)(it.n * g.ciblk
+                                        + x_block(g, it.o_b, q % count))
+                                   * g.hi * g.wi * g.cib,
+                           g.hi, g.wi, g.cib, it.oh0 * g.stride - g.pad_top,
+                           it.ow0 * g.stride - g.pad_left, hw, ww, tid);
+      }
+      narrow_rows::cp_async_commit();
+    };
+    for (int q = 0; q < m.nw - 1; ++q) stage_raw(q);
+    int gq = 0, gr = 0;       // stages and groups so far
+    for (int i = blockIdx.x; i < items; i += gridDim.x) {
+      const Item it = item_of(g, tiles, i);
+      for (int s = 0; s < count; ++s, ++gq) {
+        stage_raw(gq + m.nw - 1);           // later stages' rows in flight
+        narrow_rows::cp_async_wait(m.nw - 1);
+        dt::bar_sync(kBarProducer, kWarpgroup);   // stage gq's rows landed
+        char* rows = m.win0 + gq % m.nw * m.wslot;
+        narrow_rows::clear(rows, hw, ww, g.cib, tid);
+        dt::bar_sync(kBarProducer, kWarpgroup);
+        for (int j = 0; j < ng; ++j, ++gr) {
+          const int rs = gr % nr;
+          if (gr >= nr) dt::mbar_wait(&m.rempty[rs], ((gr / nr) & 1) ^ 1);
+          char* slot = m.row0 + rs * m.rslot;
+          if (tid == 0) {
+            // a box of L weight rows a run of the group, at row k Lp
+            const int live = min(r, g.hf - j * r);
+            dt::mbar_expect_tx(&m.rfull[rs], live * L * N * 2);
+            for (int k = 0; k < live; ++k) {
+              for (int b = 0; b < N / nin; ++b) {
+                db::tma_load_3d(slot + (b * kp + k * Lp) * nin * 2, tmw,
+                                &m.rfull[rs], it.split * N + b * nin,
+                                (j * r + k) * L, it.o_b * cigblk(g) + s);
+              }
+            }
+          }
+          narrow_rows::build(dt::smem_u32(slot) + bbytes, rows, hw, ww,
+                             g.cib, g.stride, g.hf, g.wf, j, g.tw,
+                             g.th * g.tw, tid);
+          dt::fence_proxy_async();    // the rows, for wgmma's reads
+          db::mbar_arrive(&m.rfull[rs]);
+        }
+        dt::bar_sync(kBarProducer, kWarpgroup);   // its raw rows all read
+      }
+    }
+    return;
+  }
+
+  // a consumer: rows 64c.. of the tile, its index read warp-uniform so
+  // that the descriptors are uniform
+  const int c = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0);
+  const uint32_t row0 = bbytes + c * kRows * narrow_rows::kRowBytes;
+  const uint64_t adesc = db::desc_of(narrow_rows::kRowBytes);
+  const uint64_t bdesc = b_desc<N>(kp);
+  const int steps = kp / 16;
+  int gr = 0;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const Item it = item_of(g, tiles, i);
+    float acc[N / 2];
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) acc[j] = 0.0f;
+    for (int s = 0; s < count; ++s) {
+      for (int j = 0; j < ng; ++j, ++gr) {
+        const int rs = gr % nr;
+        dt::mbar_wait(&m.rfull[rs], (gr / nr) & 1);
+        const uint32_t b = dt::smem_u32(m.row0 + rs * m.rslot);
+        mma_narrow<N>(acc, b + row0, b, steps, adesc, bdesc);
+        if (s > 0 || j > 0) {
+          dt::wgmma_wait<1>();    // the group before is done: free its slot
+          db::mbar_arrive(&m.rempty[(gr - 1) % nr]);
+        }
+      }
+    }
+    dt::wgmma_wait<0>();
+    if (count > 0) db::mbar_arrive(&m.rempty[(gr - 1) % nr]);
+    dt::fence_regs<N / 2>(acc);
+    store_any<N, true>(acc, g, it, c, tiles, m, bias, residual, out,
+                 partials, pooled, counters);
+  }
+}
+
 // The weights' tensor map: [blocks][taps][Cib][Cob / nin][nin] bf16 with a
 // box of one filter row, [wf][chunk][lanes / nin][nin] (landing [wf][lanes /
 // nin][chunk][nin] in the swizzle of nin * 2 bytes), where tma_weights.  ->
@@ -1854,6 +2094,20 @@ inline bool encode_weights(CUtensorMap* tmw, const void* w, const Geometry& g,
                       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
   }
   return db::encode_swizzled(tmw, w, 5, dims, strides, box, nin * 2);
+}
+
+// The narrow rows' weights: [blocks][taps * Cib][Cob] bf16 with a box of
+// {nin, L, 1} (a run's L rows, `nin` lanes of them, landing [L][nin] in the
+// swizzle of nin * 2 bytes at row k Lp of the group's [nkpad][nin]; lanes
+// past Cob land as zeros), where Cob is a multiple of 8.
+inline bool encode_weights_narrow(CUtensorMap* tmw, const void* w,
+                                  const Geometry& g, int lanes) {
+  const int nin = b_lanes(lanes);
+  const long long cob = g.cob, blocks = (long long)g.coblk * cigblk(g);
+  const long long dims[3] = {cob, (long long)taps(g) * g.cib, blocks};
+  const long long strides[2] = {cob * 2, taps(g) * g.cib * cob * 2};
+  const int box[3] = {nin, narrow_rows::run_values(g.wf, g.cib), 1};
+  return db::encode_swizzled(tmw, w, 3, dims, strides, box, nin * 2);
 }
 
 // x's tensor map: [N][Ci/Cib][Hi][Wi][Cib] bf16 with a box of {chunk, s
@@ -1924,6 +2178,8 @@ __host__ inline bool valid(const Geometry& g, int lanes, bool streamed) {
 // build.
 constexpr int kOperandF32 = 0;
 constexpr int kOperandBf16 = 1;
+// the bf16 narrow rows' kernels, a third table (the window library's)
+constexpr int kOperandNarrow = 2;
 
 // A plan's int array read: the Geometry fields in order, then the wgmma
 // width, the images, the dynamic shared memory and the operand type.
@@ -1985,9 +2241,16 @@ inline int launch_bf16(const void* kernel, const Plan& p, const void* x,
   CUtensorMap tmw, tmx;
   memset(&tmw, 0, sizeof(tmw));
   memset(&tmx, 0, sizeof(tmx));
-  if ((bf16::tma_weights(g, p.lanes)
-       && !bf16::encode_weights(&tmw, w, g, p.lanes))
-      || (bf16::tma_window(g) && !bf16::encode_window(&tmx, x, g, p.n))) {
+  if (bf16::narrow(g)) {
+    // the narrow rows copy x by 16-byte chunks from its aligned start
+    if (reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+    if (!bf16::encode_weights_narrow(&tmw, w, g, p.lanes))
+      return (int)cudaErrorNotSupported;
+  } else if ((bf16::tma_weights(g, p.lanes)
+              && !bf16::encode_weights(&tmw, w, g, p.lanes))
+             || (bf16::tma_window(g)
+                 && !bf16::encode_window(&tmx, x, g, p.n))) {
     return (int)cudaErrorNotSupported;     // the encoder refused a map
   }
   const int threads = kWarpgroup * (g.wgs + 1);
@@ -2025,7 +2288,12 @@ inline int launch(const void* const* const* kernels, bool streamed,
   }
   if (p.n == 0) return 0;
   const int slot = lane_slot(p.lanes);
-  const void* kernel = kernels[p.operand][slot];
+  // the bf16 narrow rows' kernels: the window library's third table
+  const void* kernel =
+      kernels[p.operand == kOperandBf16 && bf16::narrow(p.g) ? kOperandNarrow
+                                                             : p.operand]
+             [slot];
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   if (p.operand == kOperandBf16) {
     return launch_bf16(kernel, p, x, w, bias, residual, out, partials,
                        pooled, counters, stream);

@@ -94,6 +94,7 @@
 #include <stdint.h>
 
 #include "dgrad_tile.cuh"
+#include "narrow_rows.cuh"
 #include "split_sum.cuh"
 
 namespace wgrad_tile {
@@ -131,6 +132,8 @@ struct Geometry {
   int groups;                       // channel groups (1: dense; `groups()`
                                     // below counts m-tile groups)
   int dil_h, dil_w;                 // filter dilation
+  int narrow;                       // the bf16 build's narrow rows (a
+                                    // filter row's run a 128-byte row)
 };
 
 __host__ __device__ inline int tiles_h(const Geometry& g) {
@@ -787,20 +790,37 @@ __device__ void run(float* smem, const CUtensorMap* tmx,
 //   the address bits themselves (on the H100 a one-tap unit launch read a
 //   start at any row and any gap right with the field 0, and wrong with
 //   it (addr >> 7) & 7; `probe` holds the tile's descriptors so).
-// * At stride s the window is staged in s column phases (a TMA tensor map
-//   over x whose W index splits into (W / s, s), so each box walks one
-//   phase): tap (dh, dw) reads phase dw % s at column offset dw / s, and
-//   its positions are consecutive cells there.
+// * At stride s the window is staged in s column phases, each by a TMA box
+//   that traverses W at element stride s (the forward's boxes, fwd_tile.cuh
+//   `encode_window`), from column iw0 + phase on (negative columns, the
+//   pads, land as zeros), so any width takes it (AlexNet's conv2 and conv3
+//   are 27 and 13 wide at stride 2): tap (dh, dw) reads phase dw % s at
+//   column offset dw / s, and its positions are consecutive cells there.
 // * B, the dz tile [K][Cob], lands the same way, a box per 64 lanes (Cob
 //   128 is two 64-lane blocks `kpos * 128` bytes apart), MN-major through
 //   the transpose bit.  K (positions) pads to 16; the padding rows are
 //   zeroed once and never written, positions outside the map land as TMA's
 //   zeros.
-// * Where TMA cannot take a stride (Cib or Cob not a multiple of 8, or W
-//   not a multiple of the stride) the producer copies the same cells into
-//   the same swizzled rows: 4-byte cp.async of channel pairs where the
-//   pencil is even, 2-byte loads and stores where it is odd (Cib 3, Cb 3;
-//   Cob 6 and 125 take the pairs).
+// * Where TMA cannot take a stride (Cib or Cob not a multiple of 8, or a
+//   box past 256 elements) the producer copies the same cells into the same
+//   swizzled rows: 4-byte cp.async of channel pairs where the pencil is
+//   even, 2-byte loads and stores where it is odd (Cib 3, Cb 3; Cob 6 and
+//   125 take the pairs).
+// * The narrow rows (`run_narrow`, the kernel wgrad_kernel_bf16_narrow;
+//   narrow_rows.cuh), where a filter row's run of wf Cib values fits a
+//   128-byte row at dilation 1 (Cib 3 at 11x11 and 3x3): an m-tile of 64
+//   lanes is a group of r filter rows, (dh, dw, c) packed a run of Lp
+//   lanes each (one m-tile, not one a tap: conv1's 121 become 11, VGG-16's
+//   and MobileNet's 9 become 1), and its A is a 128-byte row a position of
+//   the tile, built by the producer from the tile's input rows (staged by
+//   16-byte copies a stage ahead into two raw buffers, their pads cleared),
+//   read MN-major as the window is; positions run on across row breaks, so
+//   any tile width takes it.  A CTA's `ntpg` groups each hold their own K
+//   rows of the slot; B (dz) lands by TMA as above.  The rows past a run's
+//   values, past the filter and K's padding are zeros: no NaN of a stale
+//   slot meets a zero of B, and the rows past a group's runs are not stored.
+//   One m-tile a warpgroup at 64 lanes (the first layers' Cob is 64 or
+//   less; the wider instances spilled).
 //
 // A stage holds up to kMaxPositions positions in a ring of 2-4 slots (as
 // many as fit); consumers wait on the slot's mbarrier, run every k16 step
@@ -904,44 +924,92 @@ __host__ __device__ inline int slots(const Geometry& g) {
   const int fit = (kSmemBlock - kAtomBytes - kTableBytes) / slot_bytes(g);
   return fit < kMaxSlots ? fit : kMaxSlots;
 }
-// x and dz arrive by TMA where their global strides are whole 16 bytes
-// (and W splits into its phases), else by the producer's copies
+// x and dz arrive by TMA where their global strides are whole 16 bytes, x
+// by element-strided boxes (a column phase's cells, each the stride on,
+// within TMA's 256 elements and stride 8), else by the producer's copies
 __host__ __device__ inline bool tma_x(const Geometry& g) {
-  return g.cib % 8 == 0 && g.wi % g.stride == 0;
+  return g.cib % 8 == 0 && g.stride <= 8 && g.stride * wph(g) <= 256;
 }
 __host__ __device__ inline bool tma_d(const Geometry& g) {
   return g.cob % 8 == 0;
 }
 
+// The narrow rows (narrow_rows.cuh; `run_narrow`, the kernel
+// wgrad_kernel_bf16_narrow): an m-tile is a group of filter rows (`nunits`
+// of them), a CTA's `ntpg` groups' rows K rows of 128 bytes each, in place
+// of the window, and two raw buffers of the tile's input rows after the
+// slots (staged a stage ahead, read by the producer alone).  Functions of
+// their own, so that the per-tap kernels' code is untouched by them.
+__host__ __device__ inline bool narrow(const Geometry& g) {
+  return g.narrow != 0;
+}
+__host__ __device__ inline int nunits(const Geometry& g) {
+  return narrow_rows::groups(g.hf, g.wf, g.cib);
+}
+__host__ __device__ inline int ntpg(const Geometry& g) {
+  const int span = g.wgs * g.mpw;
+  return span < nunits(g) ? span : nunits(g);
+}
+__host__ __device__ inline int ngroups(const Geometry& g) {
+  return ceil_div(nunits(g), ntpg(g));
+}
+__host__ __device__ inline int nslot_bytes(const Geometry& g) {
+  return ntpg(g) * bf16::kpos(g) * kRowBytes + b_bytes(g);
+}
+__host__ __device__ inline int raw_slot_bytes(const Geometry& g) {
+  return ceil_div(narrow_rows::raw_bytes(hwin(g), g.cib, wwin(g)), kRowBytes)
+         * kRowBytes;
+}
+__host__ __device__ inline int nslots(const Geometry& g) {
+  const int fit = (kSmemBlock - kAtomBytes - kTableBytes
+                   - 2 * raw_slot_bytes(g)) / nslot_bytes(g);
+  return fit < kMaxSlots ? fit : kMaxSlots;
+}
+
 // Dynamic shared memory of one CTA (core/blocking.py wgrad_smem_bytes at
-// op_bytes 2): a swizzle atom to align the base, the slots, the tables.
+// op_bytes 2): a swizzle atom to align the base, the slots (the narrow rows'
+// raw buffers after them), the tables.
 __host__ inline size_t smem_bytes(const Geometry& g) {
+  if (narrow(g)) {
+    return (size_t)kAtomBytes + (size_t)nslots(g) * nslot_bytes(g)
+           + 2 * raw_slot_bytes(g) + kTableBytes;
+  }
   return (size_t)kAtomBytes + (size_t)slots(g) * slot_bytes(g) + kTableBytes;
 }
 
 // wgrad_tile::plan at one bf16 product a MAC: K padded to 16, the
-// (half, tap) m-tiles, every one of the wgmma's N lanes.
+// (half, tap) m-tiles (the narrow rows' groups), every one of the wgmma's N
+// lanes.
 __host__ inline void plan(const Geometry& g, long long* out) {
   out[0] = tiles(g);
   out[1] = (long long)g.n * g.ho * g.wo * g.hf * g.wf * g.cib * cigblk(g)
            * g.cob * g.coblk;
   out[2] = (long long)cigblk(g) * g.coblk * tiles(g) * bf16::kpos(g)
-           * bf16::mtiles(g) * kRows * g.lanes;
+           * (narrow(g) ? nunits(g) : bf16::mtiles(g)) * kRows * g.lanes;
   out[3] = (long long)bf16::smem_bytes(g);
 }
 
 // Whether the bf16 kernels take this geometry: dz alone (no z, no db), the
-// compiled widths, 8 consecutive cells a position group, two slots.
+// compiled widths, 8 consecutive cells a position group (positions run on
+// at 1x1 stride 1 and in the narrow rows), two slots; the narrow rows where
+// a filter row's run fits a row and dz lands by TMA.
 __host__ inline bool valid(const Geometry& g) {
+  if (narrow(g) && !(narrow_rows::fits(g.hf, g.wf, g.cib, g.dil_h, g.dil_w)
+                     && bf16::tma_d(g) && g.lanes == kLanes && g.mpw == 1
+                     && nslots(g) >= kMinSlots)) {
+    return false;
+  }
   return valid_map(g) && g.n >= 1 && g.wgs >= 1 && g.mpw >= 1
          && g.prologue == 0
          && g.with_db == 0 && kWarpgroup * (g.wgs + 1)
                                   <= max_threads(g.lanes, g.mpw)
          && (g.lanes == 64 || g.lanes == 128) && g.lanes >= g.cob
          && g.lanes * g.mpw <= kWarpgroup && g.th >= 1 && g.tw >= 1
-         && g.th * g.tw <= kMaxPositions && (flat(g) || g.tw % 8 == 0)
+         && g.th * g.tw <= kMaxPositions
+         && (flat(g) || narrow(g) || g.tw % 8 == 0)
          && g.stride >= 1 && wph(g) <= 256 && hwin(g) <= 256
-         && g.splits >= 1 && g.splits <= tiles(g) && slots(g) >= kMinSlots;
+         && g.splits >= 1 && g.splits <= tiles(g)
+         && (narrow(g) || slots(g) >= kMinSlots);
 }
 
 // A wgmma operand in 128-byte swizzle: `lbo` bytes between 64-element
@@ -1032,7 +1100,10 @@ struct Steps {
 
 __host__ inline Steps steps_of(const Geometry& g) {
   Steps st = {};
-  auto cell = [&](int p) { return (p / g.tw) * g.stride * wph(g) + p % g.tw; };
+  // the narrow rows: a row a position, in the tile's order
+  auto cell = [&](int p) {
+    return narrow(g) ? p : (p / g.tw) * g.stride * wph(g) + p % g.tw;
+  };
   for (int j = 0; j < bf16::kpos(g) / 16; ++j) {
     st.off[j] = cell(16 * j) * kRowBytes;
     st.sbo[j] = 16 * j + 8 < g.th * g.tw
@@ -1048,6 +1119,25 @@ __device__ inline Smem carve(char* raw, const Geometry& g) {
                    & (kAtomBytes - 1));
   m.full = reinterpret_cast<uint64_t*>(m.slot0
                                        + (size_t)slots(g) * slot_bytes(g));
+  m.flag = reinterpret_cast<int*>(m.full + kMaxSlots);
+  return m;
+}
+
+// The narrow rows' carve-up: the slots, the two raw buffers, the slots'
+// mbarriers and the flag.
+struct NarrowSmem {
+  char* slot0;
+  char* raw;            // [2] raw buffers of raw_slot_bytes
+  uint64_t* full;       // [kMaxSlots] slot s landed
+  int* flag;
+};
+
+__device__ inline NarrowSmem ncarve(char* raw, const Geometry& g) {
+  NarrowSmem m;
+  m.slot0 = raw + ((kAtomBytes - (dt::smem_u32(raw) & (kAtomBytes - 1)))
+                   & (kAtomBytes - 1));
+  m.raw = m.slot0 + (size_t)nslots(g) * nslot_bytes(g);
+  m.full = reinterpret_cast<uint64_t*>(m.raw + 2 * raw_slot_bytes(g));
   m.flag = reinterpret_cast<int*>(m.full + kMaxSlots);
   return m;
 }
@@ -1133,10 +1223,10 @@ __device__ void issue(const Smem& m, const CUtensorMap* tmx,
     if (bf16::tma_x(g)) {
       for (int h = 0; h < nh; ++h) {
         for (int ph = 0; ph < np; ++ph) {
-          const int iw = iw0 + ph;
-          const int gp = ((iw % g.stride) + g.stride) % g.stride;
-          dt::tma_load_5d(xs + (h * np + ph) * region_bytes(g), tmx, bar,
-                          kLanes * (h0 + h), gp, (iw - gp) / g.stride, ih0,
+          // phase ph: the cells iw0 + ph, iw0 + ph + s, ... (a box that
+          // steps s along W; negative columns land as zeros)
+          dt::tma_load_4d(xs + (h * np + ph) * region_bytes(g), tmx, bar,
+                          kLanes * (h0 + h), iw0 + ph, ih0,
                           t.n * g.ciblk + x_b);
         }
       }
@@ -1210,6 +1300,69 @@ __device__ void produce(const Smem& m, const CUtensorMap* tmx,
   }
 }
 
+// The narrow rows' producer (narrow_rows.cuh): a stage ahead, the tile's
+// input rows into a raw buffer by 16-byte copies; for each stage, once the
+// consumers have freed its slot, the dz boxes by TMA onto the slot's
+// mbarrier, then each of the CTA's groups' rows built from the raw rows
+// into the slot, one 128-byte row a position, and the mbarrier's second
+// arrival.
+__device__ void produce_narrow(const NarrowSmem& m, const CUtensorMap* tmd,
+                               const bf* __restrict__ x, const Geometry& g,
+                               long long first, int stages, int ci_b,
+                               int co_b, int group) {
+  const int tid = threadIdx.x - g.wgs * kWarpgroup;
+  const int ns = nslots(g);
+  const int hw = hwin(g), ww = wwin(g);
+  const int rb = raw_slot_bytes(g);
+  const int bh = g.lanes / kLanes;
+  const int x_b = x_block(g, co_b, ci_b);
+  const int u0 = group * ntpg(g);
+  const int nu = min(ntpg(g), nunits(g) - u0);
+  const int xb = ntpg(g) * bf16::kpos(g) * kRowBytes;   // the rows' bytes
+  auto stage_raw = [&](int s) {
+    const Tile t = tile_of(g, first + s);
+    narrow_rows::stage(m.raw + (s & 1) * rb,
+                       x + (size_t)(t.n * g.ciblk + x_b) * g.hi * g.wi
+                               * g.cib,
+                       g.hi, g.wi, g.cib, t.oh0 * g.stride - g.pad_top,
+                       t.ow0 * g.stride - g.pad_left, hw, ww, tid);
+    narrow_rows::cp_async_commit();
+  };
+  if (stages > 0) stage_raw(0);
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % ns;
+    if (s >= ns) dt::bar_sync(kBarEmpty + slot, blockDim.x);
+    char* xs = m.slot0 + (size_t)slot * nslot_bytes(g);
+    uint64_t* bar = m.full + slot;
+    const Tile t = tile_of(g, first + s);
+    if (tid == 0) {
+      dt::mbar_expect_tx(bar, bh * g.th * g.tw * kRowBytes);
+      for (int b = 0; b < bh; ++b) {
+        dt::tma_load_5d(xs + xb + b * bf16::kpos(g) * kRowBytes, tmd,
+                        bar, kLanes * b, t.ow0, t.oh0, co_b, t.n);
+      }
+    }
+    // the next stage's rows in flight while this one's are built
+    if (s + 1 < stages) {
+      stage_raw(s + 1);
+      narrow_rows::cp_async_wait(1);
+    } else {
+      narrow_rows::cp_async_wait(0);
+    }
+    dt::bar_sync(kBarProducer, kWarpgroup);     // stage s's raw rows landed
+    narrow_rows::clear(m.raw + (s & 1) * rb, hw, ww, g.cib, tid);
+    dt::bar_sync(kBarProducer, kWarpgroup);
+    for (int u = 0; u < nu; ++u) {
+      narrow_rows::build(dt::smem_u32(xs) + u * bf16::kpos(g) * kRowBytes,
+                         m.raw + (s & 1) * rb, hw, ww, g.cib, g.stride, g.hf,
+                         g.wf, u0 + u, g.tw, g.th * g.tw, tid);
+    }
+    dt::fence_proxy_async();                    // the rows, for wgmma
+    dt::bar_sync(kBarProducer, kWarpgroup);
+    if (tid == 0) dt::mbar_expect_tx(bar, 0);   // the rows' arrival
+  }
+}
+
 // Store a consumer's m-tiles into its share's workspace row: m-tile t is
 // (half hh[t], tap tp[t]); its row 16 * warp + lane / 4 (+ 8) is channel
 // 64 * hh + row of that tap, stored where it is < Cib, lanes < Cob.
@@ -1230,6 +1383,42 @@ __device__ void store_dw(float* __restrict__ row,
       if (c >= g.cib) continue;
       float* out = row + (((size_t)dw_block(g, co_b, ci_b) * taps(g) + tp[t])
                           * g.cib + c) * g.cob;
+#pragma unroll
+      for (int jj = 0; jj < N / 8; ++jj) {
+        const int col = 8 * jj + col0;
+        if (col < g.cob) out[col] = acc[t][4 * jj + 2 * h];
+        if (col + 1 < g.cob) out[col + 1] = acc[t][4 * jj + 2 * h + 1];
+      }
+    }
+  }
+}
+
+// store_dw for the narrow rows: m-tile t is group un[t], whose row m (16 *
+// warp + lane / 4, + 8) is value e = m % Lp of run k = m / Lp, row (un[t] r
+// + k) L + e of the block's (tap, c) rows, (dh wf + dw) Cib + c; stored
+// where e < L and the filter has the row.
+template <int N, int MPW>
+__device__ void store_dw_narrow(float* __restrict__ row,
+                                const float (&acc)[MPW][N / 2],
+                                const Geometry& g, int ci_b, int co_b,
+                                const bool (&on)[MPW], const int (&un)[MPW]) {
+  const int lane = threadIdx.x % 32;
+  const int col0 = 2 * (lane % 4);
+  const int L = narrow_rows::run_values(g.wf, g.cib);
+  const int Lp = narrow_rows::run_pad(g.wf, g.cib);
+  const int per = narrow_rows::rows_a_group(g.hf, g.wf, g.cib);
+  const int rows = taps(g) * g.cib;
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+    if (!on[t]) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int mr = threadIdx.x % kWarpgroup / 32 * 16 + lane / 4 + 8 * h;
+      const int k = mr / Lp;
+      const int e = mr - k * Lp;
+      const int r = (un[t] * per + k) * L + e;
+      if (k >= per || e >= L || r >= rows) continue;
+      float* out = row + ((size_t)dw_block(g, co_b, ci_b) * rows + r) * g.cob;
 #pragma unroll
       for (int jj = 0; jj < N / 8; ++jj) {
         const int col = 8 * jj + col0;
@@ -1321,6 +1510,72 @@ __device__ __forceinline__ void consume(const Smem& m, const Geometry& g,
   store_dw<N, MPW>(row, total, g, ci_b, co_b, on, hh, tp);
 }
 
+// The consumers of `run_narrow`: consume's walk on the narrow rows, m-tile
+// t of the warpgroup group u = group * ntpg + first + t of filter rows,
+// whose A is its own kpos rows of the slot, read from position 0 on.
+template <int N, int MPW>
+__device__ __forceinline__ void consume_narrow(const NarrowSmem& m,
+                                               const Geometry& g,
+                                               const Steps& st, int group,
+                                               int stages, float* row,
+                                               int ci_b, int co_b) {
+  const int ns = nslots(g);
+  const int steps = bf16::kpos(g) / 16;
+  const int first = __shfl_sync(0xffffffffu, threadIdx.x / kWarpgroup, 0)
+                    * MPW;
+  bool on[MPW];
+  int un[MPW];
+  uint32_t abase[MPW];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+    const int i = first + t;
+    un[t] = group * ntpg(g) + i;
+    on[t] = i < ntpg(g) && un[t] < nunits(g);
+    abase[t] = i * bf16::kpos(g) * kRowBytes;
+  }
+  float total[MPW][N / 2];
+#pragma unroll
+  for (int t = 0; t < MPW; ++t) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) total[t][i] = 0.0f;
+  }
+  const uint32_t lbo = bf16::kpos(g) * kRowBytes;     // B's second 64 lanes
+  for (int s = 0; s < stages; ++s) {
+    const int slot = s % ns;
+    const uint32_t xs = dt::smem_u32(m.slot0) + slot * nslot_bytes(g);
+    const uint32_t bs = xs + ntpg(g) * bf16::kpos(g) * kRowBytes;
+    dt::mbar_wait(m.full + slot, s / ns & 1);
+    float acc[MPW][N / 2];
+    dt::wgmma_fence();
+#pragma unroll
+    for (int t = 0; t < MPW; ++t) {
+      if (!on[t]) continue;
+      for (int j0 = 0; j0 < steps; j0 += kUnroll) {
+#pragma unroll
+        for (int k = 0; k < kUnroll; ++k) {
+          const int j = j0 + k;
+          if (j < steps) {
+            wgmma_tt<N>(
+                acc[t], sw128_desc(xs + abase[t] + st.off[j], 16, st.sbo[j]),
+                sw128_desc(bs + j * 16 * kRowBytes, lbo, kAtomBytes), j > 0);
+          }
+        }
+      }
+      dt::wgmma_commit();
+    }
+    dt::wgmma_wait<0>();
+#pragma unroll
+    for (int t = 0; t < MPW; ++t) {
+      if (!on[t]) continue;
+      dt::fence_regs<N / 2>(acc[t]);
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) total[t][i] += acc[t][i];
+    }
+    if (s + ns < stages) dt::bar_arrive(kBarEmpty + slot, blockDim.x);
+  }
+  store_dw_narrow<N, MPW>(row, total, g, ci_b, co_b, on, un);
+}
+
 // One CTA: m-tile group blockIdx.x % groups, share blockIdx.x / groups, Ci
 // block blockIdx.y, Co block blockIdx.z; its sums go to its share's row of
 // the f32 `ws` ([splits, |dw|]); the column's last CTA sums the rows of
@@ -1385,6 +1640,63 @@ __device__ void run(char* smem, const CUtensorMap* tmx,
   }
 }
 
+// `run` on the narrow rows (the kernel `wgrad_kernel_bf16_narrow`): the
+// same grid, shares, ring and fold, an m-tile a group of filter rows whose
+// operand rows the producer builds (produce_narrow); the column's last CTA
+// sums its groups' rows, one run of (tap, c) rows.
+template <int N, int MPW>
+__device__ void run_narrow(char* smem, const CUtensorMap* tmd,
+                           const bf* __restrict__ x,
+                           float* ws, float* out, int* counters,
+                           const Geometry& geo, const Steps& st) {
+  const int cgroups = ngroups(geo);
+  const int group = blockIdx.x % cgroups;
+  const int split = blockIdx.x / cgroups;
+  const int ci_b = blockIdx.y;
+  const int co_b = blockIdx.z;
+  const long long total = tiles(geo);
+  const long long first = total * split / geo.splits;
+  const int stages = (int)(total * (split + 1) / geo.splits - first);
+  const int nth = blockDim.x;
+  const NarrowSmem m = ncarve(smem, geo);
+  // the slots zeroed once: the rows past a row's values, K's padding
+  {
+    uint4* p = reinterpret_cast<uint4*>(m.slot0);
+    const int n16 = nslots(geo) * nslot_bytes(geo) / 16;
+    for (int i = threadIdx.x; i < n16; i += nth) p[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kMaxSlots; ++i) dt::mbar_init(m.full + i, 2);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  dt::fence_proxy_async();      // the zeros, before TMA and wgmma see them
+  __syncthreads();
+  const size_t dw_size = (size_t)geo.coblk * cigblk(geo) * taps(geo)
+                         * geo.cib * geo.cob;
+  float* row = ws + (size_t)split * dw_size;
+
+  if (threadIdx.x >= geo.wgs * kWarpgroup) {
+    produce_narrow(m, tmd, x, geo, first, stages, ci_b, co_b, group);
+  } else {
+    consume_narrow<N, MPW>(m, geo, st, group, stages, row, ci_b, co_b);
+  }
+
+  const int column = dw_block(geo, co_b, ci_b) * cgroups + group;
+  if (!split_sum::arrive(counters + column, geo.splits, m.flag, 0, nth,
+                         threadIdx.x == 0)) {
+    return;
+  }
+  // the groups' rows: one run of the block's (tap, c) rows
+  const int per = narrow_rows::values(geo.hf, geo.wf, geo.cib);
+  const int rows = taps(geo) * geo.cib;
+  const int r0 = group * ntpg(geo) * per;
+  const int r1 = min(r0 + ntpg(geo) * per, rows);
+  const size_t base = ((size_t)dw_block(geo, co_b, ci_b) * rows + r0)
+                      * geo.cob;
+  split_sum::sum_rows(ws + base, dw_size, geo.splits, out + base,
+                      (r1 - r0) * geo.cob, 1.0f, threadIdx.x, nth);
+}
+
 // A one-tap unit of the tile (the launch `direct_conv2d_wgrad_bf16_probe`
 // makes): x [64][64] and d [16][64] bf16 land by TMA in the swizzle, and one
 // wgmma reads A from row `shift` of x with its second 8 rows `gap` rows on,
@@ -1447,8 +1759,9 @@ using Kernel = void (*)(const CUtensorMap, const CUtensorMap,
 namespace {
 
 constexpr int kMaxDevices = 64;
-// (wgmma width, m-tiles a warpgroup) of the f32 build, then of the bf16 one
-constexpr int kInstances = 20;
+// (wgmma width, m-tiles a warpgroup) of the f32 build, of the bf16 one, then
+// of the bf16 narrow rows' (kernels of their own)
+constexpr int kInstances = 30;
 
 // Raise a kernel's dynamic shared-memory limit once per device to the most
 // any launch has asked of it (the attribute is the kernel's, per device),
@@ -1456,7 +1769,7 @@ constexpr int kInstances = 20;
 // named by its build (`bf16`), width and m-tiles.
 inline cudaError_t allow_smem(const void* kernel, const Geometry& g,
                               int device, int bytes, bool bf16 = false) {
-  int slot = g.mpw - 1 + (bf16 ? kInstances / 2 : 0);
+  int slot = g.mpw - 1 + (bf16 ? (g.narrow ? 20 : 10) : 0);
   for (int l = g.lanes; l > 8; l /= 2) slot += 2;
   if (device >= kMaxDevices || slot >= kInstances) {
     return cudaFuncSetAttribute(
@@ -1564,11 +1877,12 @@ inline bool encode_sw128(CUtensorMap* map, const void* base,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// launch for the bf16 build on dz (no z, no db): x as [N * Ci/Cib, Hi,
-// Wi / s, s, Cib] (a box a (64-channel half, phase): 64 channels, one
-// phase, the phase's cells of each window row), dz as [N, Co/Cob, Ho, Wo,
-// Cob] (a box a 64-lane block of the tile), both 128-byte swizzled; the f32
-// workspace and sums.
+// launch for the bf16 build on dz (no z, no db): x as [N * Ci/Cib, Hi, Wi,
+// Cib] (a box a (64-channel half, phase): 64 channels, the phase's wph cells
+// of each window row, traversing W at element stride s, so any width
+// takes it), dz as [N, Co/Cob, Ho, Wo, Cob] (a box a 64-lane block of the
+// tile), both 128-byte swizzled; the f32 workspace and sums.  The narrow
+// rows read x by the producer's copies (its tensor on 16 bytes).
 inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
                        const __nv_bfloat16* dz, float* ws, float* out,
                        int* counters, const Geometry& geo,
@@ -1581,14 +1895,19 @@ inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
   if (err == cudaSuccess) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   CUtensorMap tmx = {}, tmd = {};
-  if (bf16::tma_x(geo)) {
-    const long long cib = geo.cib, s = geo.stride;
-    const long long dims[5] = {cib, s, geo.wi / s, geo.hi,
+  if (bf16::narrow(geo) && reinterpret_cast<uintptr_t>(x) % 16 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (!bf16::narrow(geo) && bf16::tma_x(geo)) {
+    const long long cib = geo.cib;
+    const long long dims[4] = {cib, geo.wi, geo.hi,
                                (long long)geo.n * geo.ciblk};
-    const long long str[4] = {cib * 2, s * cib * 2, geo.wi * cib * 2,
+    const long long str[3] = {cib * 2, geo.wi * cib * 2,
                               (long long)geo.hi * geo.wi * cib * 2};
-    const int box[5] = {bf16::kLanes, 1, bf16::wph(geo), hwin(geo), 1};
-    if (!encode_sw128(&tmx, x, dims, str, box))
+    const int box[4] = {bf16::kLanes, geo.stride * bf16::wph(geo),
+                        hwin(geo), 1};
+    const int steps[4] = {1, geo.stride, 1, 1};
+    if (!dt::bf16::encode_swizzled(&tmx, x, 4, dims, str, box, 128, steps))
       return (int)cudaErrorNotSupported;   // the encoder refused the map
   }
   if (bf16::tma_d(geo)) {
@@ -1605,7 +1924,9 @@ inline int launch_bf16(KernelBf16 kernel, const __nv_bfloat16* x,
   const size_t smem = bf16::smem_bytes(geo);
   err = allow_smem((const void*)kernel, geo, device, (int)smem, true);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bf16::groups(geo) * geo.splits, cigblk(geo), geo.coblk);
+  const dim3 grid((bf16::narrow(geo) ? bf16::ngroups(geo)
+                                     : bf16::groups(geo)) * geo.splits,
+                  cigblk(geo), geo.coblk);
   kernel<<<grid, kWarpgroup * (geo.wgs + 1), smem, stream>>>(
       tmx, tmd, x, dz, ws, out, counters, geo, bf16::steps_of(geo));
   return (int)cudaGetLastError();

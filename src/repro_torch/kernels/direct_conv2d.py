@@ -104,7 +104,7 @@ from repro_torch.kernels import split_sum
 from repro_torch.kernels._build import library
 from repro_torch.kernels.conv_autograd import BlockedConvFunction
 
-__all__ = ["LAUNCHES", "reset_launches", "check_machine", "build_dtype",
+__all__ = ["LAUNCHES", "NARROW_LAUNCHES", "reset_launches", "check_machine", "build_dtype",
            "bf16_operands",
            "direct_conv2d_blocked", "FwdLaunch", "fwd_launch", "fwd_plans",
            "gap_forward", "direct_conv2d_dgrad", "dgrad_plans",
@@ -115,6 +115,11 @@ LAUNCHES = {"direct_conv2d_fwd": 0, "direct_conv2d_fwd_bf16": 0,
             "direct_conv2d_dgrad": 0, "direct_conv2d_dgrad_bf16": 0,
             "direct_conv2d_wgrad": 0, "direct_conv2d_wgrad_bf16": 0,
             "direct_conv2d_dz_bf16": 0}
+# of those launches, the bf16 window kernels' on the narrow rows
+# (csrc/narrow_rows.cuh; the kernel instances of their own that the same C
+# entries launch)
+NARROW_LAUNCHES = {"fwd_kernel_bf16_narrow": 0,
+                   "wgrad_kernel_bf16_narrow": 0}
 
 _ACT_CODES = {None: 0, "linear": 0, "relu": 1, "gelu": 2}
 _GRID_YZ_MAX = 65535
@@ -131,8 +136,9 @@ _FWD_BUILDS = {torch.float32: (0, ""), torch.bfloat16: (1, "_bf16")}
 
 
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in (LAUNCHES, NARROW_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
 
 
 # the libraries whose signatures are declared and geometry checked, by name
@@ -194,7 +200,7 @@ def declare_backward(lib, prefix: str, ptr, i32) -> None:
         entry.argtypes = [ptr] * 6 + [ctypes.POINTER(i32), ptr]
         entry.restype = i32
         entry = getattr(lib, f"{prefix}_wgrad{build}_plan")
-        entry.argtypes = [i32] * 24 + [ctypes.POINTER(ctypes.c_longlong)]
+        entry.argtypes = [i32] * 25 + [ctypes.POINTER(ctypes.c_longlong)]
         entry.restype = i32
 
 
@@ -523,13 +529,14 @@ def fwd_launch(spec: ConvSpec, cib: int, cob: int, act: int, gap: bool,
                else choose_fwd_blocking(*args, op_bytes, spec.dilation))
     smem = fwd_smem_bytes(blk.th, blk.tw, spec.hf, spec.wf, spec.stride,
                           blk.chunk, blk.lanes, blk.wgs, gap, op_bytes,
-                          blk.strips, spec.dilation, blk.frows)
+                          blk.strips, spec.dilation, blk.frows, blk.narrow,
+                          cib)
     (pt, _), (pl, _) = spec.pads
     ints = (ciblk, cib, spec.hi, spec.wi, coblk, cob, spec.ho, spec.wo,
             spec.hf, spec.wf, spec.stride, pt, pl, blk.th, blk.tw, blk.wgs,
             blk.strips, blk.nsplit, blk.chunk, act, int(gap), spec.groups,
-            *spec.dilation, blk.stage_rows(spec.hf), blk.lanes, spec.n, smem,
-            code)
+            *spec.dilation, blk.stage_rows(spec.hf), blk.narrow, blk.lanes,
+            spec.n, smem, code)
     return FwdLaunch(blk=blk, ints=(ctypes.c_int * len(ints))(*ints),
                      gap=gap, dtype=dtype)
 
@@ -597,6 +604,7 @@ def _fwd_cuda(x: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     err, out, _, pooled = fwd_run(lib.direct_conv2d_fwd, plan, x, w, bias,
                                   residual, spec)
     LAUNCHES[name] += 1
+    NARROW_LAUNCHES["fwd_kernel_bf16_narrow"] += plan.blk.narrow
     _check(err, lib, name)
     return pooled if gap else out
 
@@ -636,6 +644,7 @@ def gap_forward(x: torch.Tensor, w: torch.Tensor,
     err, out, partials, pooled = fwd_run(entry, plan, x, w, bias, residual,
                                          spec)
     counts[name] += 1
+    NARROW_LAUNCHES["fwd_kernel_bf16_narrow"] += plan.blk.narrow
     _check(err, lib, name)
     if with_map:
         return pooled, partials, out, plan.blk
@@ -977,6 +986,7 @@ def bf16_wgrad(entry, blk: WgradBlocking, x: torch.Tensor, g: torch.Tensor,
                               db_out=out[plan.cols:] if with_db else None)
     err, ws, _ = wgrad_launch(entry, plan, x, g, None, torch.bfloat16, out)
     launches[name] += 1
+    NARROW_LAUNCHES["wgrad_kernel_bf16_narrow"] += blk.narrow
     _check(err, lib, name)
     return ws, out
 
@@ -1128,12 +1138,13 @@ def wgrad_launch(entry, plan: WgradLaunch, x: torch.Tensor, g: torch.Tensor,
 def _wgrad_ints(blk: WgradBlocking, x_shape, g_shape, hf: int, wf: int,
                 spec: ConvSpec) -> tuple:
     """The geometry arguments of a wgrad kernel's C entries: the map's, the
-    tiles, the groups and the dilation."""
+    tiles, the groups, the dilation and the bf16 GEMM's narrow rows."""
     n, ciblk, hi, wi, cib = x_shape
     _, coblk, ho, wo, cob = g_shape
     return (n, ciblk, hi, wi, cib, coblk, cob, ho, wo, hf, wf, spec.stride,
             spec.pads[0][0], spec.pads[1][0], blk.th, blk.tw, blk.wgs,
-            blk.mpw, blk.lanes, blk.splits, spec.groups, *spec.dilation)
+            blk.mpw, blk.lanes, blk.splits, spec.groups, *spec.dilation,
+            blk.narrow)
 
 
 def wgrad_plans(x: torch.Tensor, g: torch.Tensor, hf: int, wf: int,

@@ -9,13 +9,22 @@ layer times its dz pass with its GEMM; where the tree has the dz pass
 (VGG-16's and the pointwise one) with their prologue and on dz; then VGG-16's bf16 train step on both
 routes (the median of 8 host-clock steps) and its peak device memory above
 the parameters, gradients and moments.  Every time is a CUDA-graph replay
-(eager beside it for the wgrads and the dgrads on dz).  Prints the card's name and power
-limit and the tree it imported.  To hold two trees in one call, run it
-with each tree's ``src`` first on ``PYTHONPATH``, in turns (parent, this,
-this, parent)::
+(eager beside it for the wgrads and the dgrads on dz).  With ``--alexnet``
+it times instead the bf16 wgrads (their dz pass included) of AlexNet's five
+two-tower convs (``configs.cnn.alexnet_blocked``, batch 8, 227x227) and of
+VGG-16's conv1_1 and MobileNet's conv1 (the first layers, Cib 3), and the
+bf16 dgrads of AlexNet's conv2-5, each beside cuDNN bf16's
+``convolution_backward`` (channels-last; the wgrad without db), then the
+three nets' train steps at batch 32 (``net_steps``: AlexNet in bf16 and
+f32, VGG-16 and MobileNet in bf16; host-clock medians and the device-busy
+ms under ``torch.profiler``).  Prints the card's name and power limit and
+the tree it imported.  To hold two trees in one call, run it (with
+``bf16_forward_ab.py``, which imports it, copied beside it) with each
+tree's ``src`` first on ``PYTHONPATH``, in turns (parent, this, this,
+parent)::
 
     PYTHONPATH=src python -m repro_torch.launch.bf16_backward_ab \\
-        [--out bf16_backward.json]
+        [--alexnet] [--out bf16_backward.json]
 """
 from __future__ import annotations
 
@@ -70,20 +79,29 @@ def pointwise_legs():
 
 
 def device_split(fn, top: int = 12):
-    """One call of ``fn`` under ``torch.profiler``: (device-busy ms, the
+    """One call of ``fn`` under ``torch.profiler``, recorded after a call in
+    the profiler's warm-up cycle (a profile that records from its first
+    call can miss the kernels launched as it starts): (device-busy ms, the
     ``top`` kernels by device time as (name, ms, launches)), or None where
     the profiler records no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    saved = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: saved.append(
+                     p.key_averages())) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
+                   for e in (saved[0] if saved else [])
                    if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0), key=lambda r: -r[1])
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
     if not rows:
         return None
     return sum(r[1] for r in rows), rows[:top]
@@ -149,8 +167,144 @@ def train_steps(dev) -> dict:
     return out
 
 
+def net_steps(dev, n: int = 32) -> dict:
+    """AlexNet's train step in bf16 and in f32 (227x227), VGG-16's and
+    MobileNet v1's in bf16 (224x224), at batch ``n``: each trainer warmed
+    by a step, then the median of 6 host-clock steps and one step under
+    ``torch.profiler`` (device-busy ms and the kernels that take it)."""
+    from repro_torch.configs.cnn import alexnet_blocked, mobilenet_v1_blocked
+    from repro_torch.core.context import ConvContext
+    from repro_torch.train.optimizer import AdamW
+    from repro_torch.train.trainstep import make_train_step
+    rng = np.random.default_rng(0)
+    out = {}
+    for name, build, entry, prec in (
+            ("alexnet", alexnet_blocked, 227, "bf16"),
+            ("alexnet", alexnet_blocked, 227, "f32"),
+            ("vgg16", vgg16_blocked, ENTRY, "bf16"),
+            ("mobilenet", mobilenet_v1_blocked, ENTRY, "bf16")):
+        batches = [{"images": torch.from_numpy(rng.standard_normal(
+            (n, entry, entry, 3), dtype=np.float32)).to(dev),
+            "targets": torch.from_numpy(rng.integers(0, 1000, n)).to(dev)}
+            for _ in range(3)]
+        model = build(1000, device=dev,
+                      generator=torch.Generator().manual_seed(1))
+        opt = AdamW(lr=lambda step: 1e-5)
+        state = opt.init(dict(model.named_parameters()))
+        step = make_train_step(model, opt,
+                               context=ConvContext(precision=prec))
+        step(state, batches[0])                 # warm-up and builds
+        times = []
+        for k in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, batches[k % 3])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        split = device_split(lambda: step(state, batches[1]))
+        key = f"{name}_{prec}"
+        out[key] = {"ms": times, "median_ms": float(np.median(times)),
+                    "device_busy_ms": None if split is None else split[0]}
+        print(f"[steps] {name} {prec} train step n{n} {entry}x{entry}: "
+              f"median {np.median(times):.3f} ms of "
+              f"{[round(t, 3) for t in times]}; device busy "
+              f"{'not measured' if split is None else f'{split[0]:.3f} ms'}",
+              flush=True)
+        if split is not None:
+            for kname, ms, count in split[1][:6]:
+                print(f"[steps]   {key} kernel {ms:.3f} ms x{count} "
+                      f"{kname[:90]}", flush=True)
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+    return out
+
+
+def first_and_alexnet_layers(n: int = 8):
+    """AlexNet's five convs (a 227x227 entry, lane 64), VGG-16's conv1_1 and
+    MobileNet's conv1, as ``(name, ConvSpec, cib, cob)``."""
+    from repro_torch.launch.fwd_tiles_ab import grouped_layers
+    kind, ci, co, s = mobilenet_v1_layers()[0]
+    return grouped_layers(n)[:5] + [
+        ("vgg16.conv1_1", ConvSpec.make(n, ENTRY, ENTRY, 3, 64, 3, 3, 1,
+                                        "SAME"), 3, 64),
+        ("mobilenet.conv1", ConvSpec.make(n, ENTRY, ENTRY, ci, co, 3, 3, s,
+                                          "SAME"), ci, co)]
+
+
+def alexnet(dev, gen, res) -> None:
+    """``--alexnet``: the wgrads and dgrads (module docstring) into
+    ``res``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import direct_conv2d as dck
+    bf = torch.bfloat16
+    cl = torch.channels_last
+    res["alexnet"] = []
+    for name, spec, cib, cob in first_and_alexnet_layers():
+        n, s, g = spec.n, spec.stride, spec.groups
+        x = torch.randn((n, spec.ci // cib, spec.hi, spec.wi, cib),
+                        device=dev, generator=gen).to(bf)
+        w = (torch.randn((spec.co // cob, spec.cig // cib, spec.hf, spec.wf,
+                          cib, cob), device=dev, generator=gen)
+             / (spec.hf * spec.wf * spec.cig) ** 0.5).to(bf)
+        z = torch.randn((n, spec.co // cob, spec.ho, spec.wo, cob),
+                        device=dev, generator=gen).to(bf)
+        gg = torch.randn(z.shape, device=dev, generator=gen).to(bf)
+        (pt, pb), (pl, pr) = spec.pads
+        xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(n, spec.ci, spec.hi,
+                                                    spec.wi),
+                   (pl, pr, pt, pb)).contiguous(memory_format=cl)
+        w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(
+            spec.co, spec.cig, spec.hf, spec.wf).contiguous(memory_format=cl))
+        dz_nchw = (gg.permute(0, 1, 4, 2, 3).reshape(n, spec.co, spec.ho,
+                                                     spec.wo)
+                   .contiguous(memory_format=cl))
+        row = {"layer": name}
+
+        def wgrad():
+            return dck.direct_conv2d_wgrad(x, gg, spec.hf, spec.wf, s,
+                                           spec.pads, z, "relu", True,
+                                           precision="bf16", groups=g)
+
+        def lib_wgrad():
+            return torch.ops.aten.convolution_backward(
+                dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                [0, 0], g, [False, True, False])
+        row["wgrad"] = graph_ms(wgrad, 10)
+        row["wgrad_eager"] = eager_ms(wgrad)
+        row["wgrad_cudnn"] = graph_ms(lib_wgrad, 10)
+        if name.startswith("alexnet") and name != "alexnet.conv1":
+            def dgrad():
+                return dck.direct_conv2d_dgrad(gg, w, (spec.hi, spec.wi), s,
+                                               spec.pads, z, "relu",
+                                               precision="bf16", groups=g)
+
+            def lib_dgrad():
+                return torch.ops.aten.convolution_backward(
+                    dz_nchw, xp, w_oihw, None, [s, s], [0, 0], [1, 1], False,
+                    [0, 0], g, [True, False, False])
+            row["dgrad"] = graph_ms(dgrad, 10)
+            row["dgrad_eager"] = eager_ms(dgrad)
+            row["dgrad_cudnn"] = graph_ms(lib_dgrad, 10)
+        res["alexnet"].append(row)
+        print("[bf16-ab] " + " ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items()), flush=True)
+        del x, w, z, gg, xp, w_oihw, dz_nchw
+    five = res["alexnet"][:5]
+    sums = {k: sum(r.get(k, 0.0) for r in five) for k in five[1]
+            if k != "layer"}
+    res["alexnet_sums"] = sums
+    print("[bf16-ab] AlexNet's five convs summed (ms; graphs unless _eager;"
+          " dgrads over conv2-5): " + " ".join(
+              f"{k} {v:.4f}" for k, v in sums.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--alexnet", action="store_true",
+                    help="AlexNet's and the first layers' bf16 wgrads and "
+                         "dgrads, then the three nets' train steps at "
+                         "batch 32, instead")
     ap.add_argument("--out", default=None, help="write the times as JSON")
     ap.add_argument("--no-steps", action="store_true",
                     help="skip the train steps")
@@ -173,6 +327,15 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     res = {"card": card, "tree": tree, "vgg": [], "pointwise": []}
+    if args.alexnet:
+        if not args.steps_only:
+            alexnet(dev, gen, res)
+        if not args.no_steps:
+            res["steps"] = net_steps(dev)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     if args.steps_only:
         res["steps"] = train_steps(dev)
         if args.out:

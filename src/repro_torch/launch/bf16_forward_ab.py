@@ -19,13 +19,20 @@ against the plain version, beside the dense bf16 forward at a 1x1 filter
 ``fwd_kernel_bf16``: the control), cuDNN bf16 in channels-last and the
 bound; then MobileNet's bf16 serving forward at batch 8 (eager and graph)
 and its bf16 train step at batch 32 (host-clock median and the device-busy
-ms under ``torch.profiler``).  Prints the card's name and power limit and
-the tree it imported.  To hold two trees in one call, copy this file into
+ms under ``torch.profiler``).  With ``--alexnet`` it times instead the bf16
+forward of AlexNet's five two-tower convs (batch 8, 227x227, lane 64) and
+of VGG-16's conv1_1 and MobileNet's conv1 (the first layers, Cib 3) through
+``direct_conv2d_blocked(precision="bf16", groups=...)``, each checked
+against the plain version, eager and as a graph beside cuDNN bf16 and the
+bound, then AlexNet's bf16 serving forward (batch 8) and, with ``--steps``,
+the three nets' train steps at batch 32 (``bf16_backward_ab.net_steps``).
+Prints the card's name and power limit and the tree it imported.  To hold
+two trees in one call, copy this file (and ``bf16_backward_ab.py``) into
 the other tree and run it there with that tree's ``src`` first on
 ``PYTHONPATH``, in turns (parent, this, this, parent)::
 
     PYTHONPATH=src python -m repro_torch.launch.bf16_forward_ab \\
-        [--steps | --mobilenet] [--out bf16_forward.json]
+        [--steps | --mobilenet | --alexnet] [--out bf16_forward.json]
 """
 from __future__ import annotations
 
@@ -44,7 +51,8 @@ from repro_torch.configs.cnn import (mobilenet_v1_blocked,
                                      vgg16_layers)
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.launch.bf16_backward_ab import (device_split, eager_ms,
-                                                train_steps)
+                                                first_and_alexnet_layers,
+                                                net_steps, train_steps)
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
 from repro_torch.launch.separable_parts_ab import pw_legs
 
@@ -194,6 +202,81 @@ def mobilenet(dev, gen, res) -> None:
                   flush=True)
 
 
+def alexnet(dev, gen, res) -> None:
+    """``--alexnet``: the layers and the serving forward (module docstring)
+    into ``res``."""
+    from repro_torch.configs.cnn import alexnet_blocked
+    from repro_torch.core.context import ConvContext
+    from repro_torch.core.direct_conv import direct_conv_blocked
+    from repro_torch.kernels.direct_conv2d import direct_conv2d_blocked
+    bf = torch.bfloat16
+    res["alexnet"] = []
+    with torch.no_grad():
+        for name, spec, cib, cob in first_and_alexnet_layers(N):
+            n, s, g = spec.n, spec.stride, spec.groups
+            x = torch.randn((n, spec.ci // cib, spec.hi, spec.wi, cib),
+                            device=dev, generator=gen).to(bf)
+            w = (torch.randn((spec.co // cob, spec.cig // cib, spec.hf,
+                              spec.wf, cib, cob), device=dev, generator=gen)
+                 / (spec.hf * spec.wf * spec.cig) ** 0.5).to(bf)
+            b = 0.1 * torch.randn((spec.co // cob, cob), device=dev,
+                                  generator=gen)
+            want = direct_conv_blocked(x, w, s, spec.pads, b, "relu", "bf16",
+                                       g)
+            scale = want.float().abs().max().item()
+
+            def fwd():
+                return direct_conv2d_blocked(x, w, b, s, spec.pads, "relu",
+                                             precision="bf16", groups=g)
+            err = (fwd().float() - want.float()).abs().max().item()
+            if err > 2.0 ** -7 * (1 + scale):
+                raise RuntimeError(f"{name}: |out - plain| = {err} (max "
+                                   f"|out| {scale})")
+            (pt, pb), (pl, pr) = spec.pads
+            xp = F.pad(x.permute(0, 1, 4, 2, 3).reshape(n, spec.ci, spec.hi,
+                                                        spec.wi),
+                       (pl, pr, pt, pb)).contiguous(
+                memory_format=torch.channels_last)
+            w_oihw = (w.permute(0, 5, 1, 4, 2, 3).reshape(
+                spec.co, spec.cig, spec.hf, spec.wf)
+                .contiguous(memory_format=torch.channels_last))
+            b_flat = b.reshape(spec.co).to(bf)
+
+            def cudnn():
+                return F.conv2d(xp, w_oihw, b_flat, stride=s, groups=g)
+            nbytes = 2 * (x.numel() + w.numel() + want.numel()) + 4 * spec.co
+            row = {"layer": name, "window": graph_ms(fwd, 10),
+                   "window_eager": eager_ms(fwd),
+                   "cudnn": graph_ms(cudnn, 10),
+                   "cudnn_eager": eager_ms(cudnn),
+                   "bound_ms": 1e3 * max(spec.flops() / PEAK_BF16_FLOPS,
+                                         nbytes / PEAK_BYTES)}
+            res["alexnet"].append(row)
+            print("[fwd-ab] " + " ".join(
+                f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in row.items()), flush=True)
+            del x, w, b, want, xp, w_oihw
+        five = res["alexnet"][:5]
+        sums = {k: sum(r[k] for r in five) for k in five[0] if k != "layer"}
+        res["alexnet_sums"] = sums
+        print("[fwd-ab] AlexNet's five convs summed (ms; graphs unless "
+              "_eager): " + " ".join(f"{k} {v:.4f}" for k, v in sums.items()),
+              flush=True)
+        model = alexnet_blocked(1000, device=dev,
+                                generator=torch.Generator().manual_seed(1))
+        img = torch.randn((N, 227, 227, 3), device=dev, generator=gen)
+        ctx = ConvContext(precision="bf16")
+
+        def forward():
+            return model(img, context=ctx)
+        res["alexnet_forward"] = graph_ms(forward, 5)
+        res["alexnet_forward_eager"] = eager_ms(forward, 5)
+        print(f"[fwd-ab] AlexNet bf16 serving forward n{N}: "
+              f"{res['alexnet_forward_eager']:.4f} ms eager, "
+              f"{res['alexnet_forward']:.4f} ms as a graph (weight casts "
+              "included)", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", action="store_true",
@@ -201,6 +284,10 @@ def main(argv=None) -> int:
     ap.add_argument("--mobilenet", action="store_true",
                     help="time MobileNet's bf16 pointwise legs, serving "
                     "forward and train step instead")
+    ap.add_argument("--alexnet", action="store_true",
+                    help="time AlexNet's and the first layers' bf16 forwards "
+                    "and AlexNet's serving forward instead (--steps: the "
+                    "three nets' train steps at batch 32)")
     ap.add_argument("--out", default=None, help="write the times as JSON")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -218,6 +305,14 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     res = {"card": card, "tree": tree, "layers": []}
+    if args.alexnet:
+        alexnet(dev, gen, res)
+        if args.steps:
+            res["steps"] = net_steps(dev)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(res, f, indent=1)
+        return 0
     if args.mobilenet:
         mobilenet(dev, gen, res)
         if args.out:

@@ -17,10 +17,15 @@ under ``BF16``), and with ``--mobilenet`` MobileNet v1's ``conv1`` as well.
 ``--grouped`` times instead the window kernel's grouped and dilated
 geometry: AlexNet's five two-tower layers (``configs.cnn.alexnet_blocked``,
 its pencils at lane 64; a 227x227 entry) and DeepLab-LargeFOV's dilated
-conv5 and fc6 on a 41x41 map.  Needs an H100 and nvcc::
+conv5 and fc6 on a 41x41 map.  ``--first`` times the bf16 window kernel at
+the three nets' first layers (AlexNet's conv1, VGG-16's conv1_1,
+MobileNet's conv1: Cib 3, where the narrow rows of ``csrc/narrow_rows.cuh``
+apply) and AlexNet's conv2 and conv3, the cheapest candidates of each path
+(narrow rows and per tap) among them, and prints each layer's fastest tile
+of each path beside the chosen one.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.fwd_tiles_ab \\
-        [--dtype bf16] [--mobilenet | --grouped]
+        [--dtype bf16] [--mobilenet | --grouped | --first]
 """
 from __future__ import annotations
 
@@ -65,30 +70,55 @@ def grouped_layers(n: int = 8):
     return out
 
 
+def first_layers(n: int = 8):
+    """The three nets' first layers (Cib 3), AlexNet's conv2 and conv3, and
+    two shapes off the nets that the narrow rows fit: Cib 3 at 7x7 stride 2
+    and Cib 8 at 5x5 (40-value runs), as ``(name, ConvSpec, cib, cob)``."""
+    alexnet = grouped_layers(n)
+    _, ci, co, s = mobilenet_v1_layers()[0]
+    return [alexnet[0],
+            ("vgg16.conv1_1", ConvSpec.make(n, 224, 224, 3, 64, 3, 3, 1,
+                                            "SAME"), 3, 64),
+            ("mobilenet.conv1", ConvSpec.make(n, 224, 224, ci, co, 3, 3, s,
+                                              "SAME"), ci, co),
+            *alexnet[1:3],
+            ("cib3.7x7s2", ConvSpec.make(n, 112, 112, 3, 64, 7, 7, 2,
+                                         ((3, 3), (3, 3))), 3, 64),
+            ("cib8.5x5", ConvSpec.make(n, 56, 56, 8, 64, 5, 5, 1, "SAME"), 8,
+             64)]
+
+
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
                     streamed: bool, top: int, per_kind: int,
-                    op_bytes: int = 4, spec=None, cib=None, cob=None):
+                    op_bytes: int = 4, spec=None, cib=None, cob=None,
+                    both: bool = False):
     """The tiles to time at ``op_bytes`` operands, as ``(model cost,
     FwdBlocking)``, the chooser's first: the ``top`` of least cost and the
     ``per_kind`` cheapest of each (consumer count, lane split), and at 2-byte
-    operands of each chunk too.  ``spec`` (with its pencils ``cib``,
+    operands of each chunk too; with ``both`` the same of the bf16 build's
+    other path after them (the per-tap tiles where the narrow rows fit, each
+    path's cost its own model's).  ``spec`` (with its pencils ``cib``,
     ``cob``) gives any geometry, grouped and dilated included, in place of
     a 3x3 SAME layer."""
     if spec is None:
         cib, cob = min(ci, 128), min(co, 128)
         spec = ConvSpec.make(n, h, h, ci, co, 3, 3, stride, "SAME")
-    found = sorted(fwd_candidates(n, spec.ho, spec.wo, spec.hf, spec.wf,
-                                  spec.stride, spec.cig // cib, cib,
-                                  spec.co // cob, cob, H100_SXM, False,
-                                  streamed, op_bytes=op_bytes,
-                                  dilation=spec.dilation),
-                   key=lambda kb: kb[0])
-    keep = [b for _, b in found[:top]]
+
     def kind(b):
         return (b.wgs, b.nsplit) + ((b.chunk,) if op_bytes == 2 else ())
-    for k in sorted({kind(b) for _, b in found}):
-        keep += [b for _, b in found if kind(b) == k][:per_kind]
-    cost = {b: k[0] for k, b in found}
+    keep, cost = [], {}
+    for path in (None, True, False) if both else (None,):
+        found = sorted(fwd_candidates(n, spec.ho, spec.wo, spec.hf, spec.wf,
+                                      spec.stride, spec.cig // cib, cib,
+                                      spec.co // cob, cob, H100_SXM, False,
+                                      streamed, op_bytes=op_bytes,
+                                      dilation=spec.dilation, narrow=path),
+                       key=lambda kb: kb[0])
+        keep += [b for _, b in found[:top]]
+        for k in sorted({kind(b) for _, b in found}):
+            keep += [b for _, b in found if kind(b) == k][:per_kind]
+        for k, b in found:
+            cost.setdefault(b, k[0])
     return [(cost[b], b) for b in dict.fromkeys(keep)]
 
 
@@ -101,7 +131,13 @@ def main(argv=None) -> int:
     parser.add_argument("--grouped", action="store_true",
                         help="AlexNet's and DeepLab-LargeFOV's grouped and "
                              "dilated layers, window kernel, instead")
+    parser.add_argument("--first", action="store_true",
+                        help="the bf16 window kernel's narrow rows and "
+                             "per-tap tiles at the first layers and "
+                             "AlexNet's conv2-3, instead")
     args = parser.parse_args(argv)
+    if args.first:
+        args.dtype = "bf16"
     dtype = torch.bfloat16 if args.dtype == "bf16" else torch.float32
     # the bf16 build rounds its output once: one bf16 ulp of the magnitude
     tol = 2.0 ** -7 if args.dtype == "bf16" else 1e-4
@@ -127,9 +163,9 @@ def main(argv=None) -> int:
         _, ci, co, s = mobilenet_v1_layers()[0]
         layers.append(("mobilenet.conv1", ConvSpec.make(
             n, 224, 224, ci, co, 3, 3, s, "SAME"), ci, co))
-    if args.grouped:            # the streamed kernels are dense-only
-        layers, entries = grouped_layers(n), {False: entries[False]}
-        sums = {False: [0.0, 0.0]}
+    if args.grouped or args.first:    # the streamed kernels: dense, per tap
+        layers = first_layers(n) if args.first else grouped_layers(n)
+        entries, sums = {False: entries[False]}, {False: [0.0, 0.0]}
     for name, spec, cib, cob in layers:
         ci, co, s, h = spec.ci, spec.co, spec.stride, spec.hi
         g, f = spec.groups, spec.hf
@@ -147,7 +183,7 @@ def main(argv=None) -> int:
             runs = []
             for cost, blk in tile_candidates(n, ci, co, s, h, streamed, TOP,
                                              PER_KIND, dtype.itemsize, spec,
-                                             cib, cob):
+                                             cib, cob, both=args.first):
                 plan = direct_conv2d.fwd_launch(spec, cib, cob, 1, False,
                                                 streamed, blk=blk,
                                                 dtype=dtype)
@@ -172,8 +208,8 @@ def main(argv=None) -> int:
             for (cost, blk, _), t in zip(runs, ms):
                 print(f"[tile] {name} {route} th {blk.th} tw {blk.tw} wgs "
                       f"{blk.wgs} nsplit {blk.nsplit} lanes {blk.lanes} chunk "
-                      f"{blk.chunk} frows {blk.stage_rows(f)} model_cost "
-                      f"{cost:.0f} graph_ms {t:.4f}")
+                      f"{blk.chunk} frows {blk.stage_rows(f)} narrow "
+                      f"{blk.narrow} model_cost {cost:.0f} graph_ms {t:.4f}")
             times = [(t, blk) for t, (_, blk, _) in zip(ms, runs)]
             chosen, best = times[0], min(times, key=lambda t: t[0])
             sums[streamed][0] += chosen[0]
@@ -181,11 +217,17 @@ def main(argv=None) -> int:
 
             def text(blk):
                 return (f"(th {blk.th}, tw {blk.tw}, wgs {blk.wgs}, nsplit "
-                        f"{blk.nsplit}, lanes {blk.lanes}, chunk {blk.chunk})")
+                        f"{blk.nsplit}, lanes {blk.lanes}, chunk {blk.chunk}"
+                        f"{', narrow rows' if blk.narrow else ''})")
             print(f"[layer] {name} {route} {ci}->{co} in {h}x{h} s{s}: "
                   f"chosen {text(chosen[1])} {chosen[0]:.4f} ms; fastest "
                   f"{text(best[1])} {best[0]:.4f} ms, ratio "
                   f"{chosen[0] / best[0]:.3f}", flush=True)
+            for path in sorted({b.narrow for _, b in times}):
+                t, b = min((tb for tb in times if tb[1].narrow == path),
+                           key=lambda tb: tb[0])
+                print(f"[path] {name} {'narrow rows' if path else 'per tap'}"
+                      f": fastest {text(b)} {t:.4f} ms", flush=True)
         del x, w, b, want
     for streamed, (chosen, best) in sums.items():
         print(f"[sum] {'stream' if streamed else 'window'}: chosen tiles "

@@ -19,10 +19,15 @@ dz pass, which no candidate changes), against the f64 sums of the same
 bf16 operands.  ``--grouped`` times instead the window kernel's grouped and
 dilated geometry: AlexNet's five layers (``alexnet_blocked``, a 227x227
 entry) and DeepLab-LargeFOV's conv5 (dilation 2) and fc6 (dilation 12) on
-a 41x41 map (``grouped_layers``).  Needs an H100 and nvcc::
+a 41x41 map (``grouped_layers``).  ``--first`` times the bf16 window GEMM
+at the three nets' first layers (Cib 3: the narrow rows of
+``csrc/narrow_rows.cuh``) and AlexNet's conv2 and conv3 (odd widths at
+stride 2: x by element-strided TMA boxes), the cheapest candidates of each
+path among them, and prints each layer's fastest tile of each path beside
+the chosen one.  Needs an H100 and nvcc::
 
     PYTHONPATH=src python -m repro_torch.launch.wgrad_tiles_ab \
-        [--dtype bf16] [--grouped]
+        [--dtype bf16] [--grouped | --first]
 """
 from __future__ import annotations
 
@@ -35,7 +40,7 @@ from repro_torch.configs.cnn import vgg16_layers
 from repro_torch.core.blocking import H100_SXM, wgrad_candidates
 from repro_torch.core.convspec import ConvSpec
 from repro_torch.launch.dgrad_tiles_ab import NAMES, graph_ms
-from repro_torch.launch.fwd_tiles_ab import grouped_layers
+from repro_torch.launch.fwd_tiles_ab import first_layers, grouped_layers
 
 TOP, PER_COUNT, ITERS = 8, 2, 10
 REL = 1e-5
@@ -52,14 +57,21 @@ def wgrad_layers(entry: int = 224):
 
 
 def grouped_candidates(spec: ConvSpec, cib: int, cob: int, op_bytes: int,
-                       top: int = TOP, per_count: int = PER_COUNT):
+                       top: int = TOP, per_count: int = PER_COUNT,
+                       both: bool = False):
     """``tile_candidates`` of the window wgrad at ``spec``'s grouped and
-    dilated geometry (``grouped_layers``), with the relu prologue."""
-    return _keep(wgrad_candidates(spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
-                                  spec.stride, spec.ci // cib, cib,
-                                  spec.co // cob, cob, H100_SXM, True, False,
-                                  None, op_bytes, spec.groups, spec.dilation),
-                 top, per_count)
+    dilated geometry (``grouped_layers``), with the relu prologue; with
+    ``both`` the bf16 GEMM's other path's after them (the per-tap tiles
+    where the narrow rows fit, each path's cost its own model's)."""
+    out = {}
+    for path in (None, True, False) if both else (None,):
+        for cost, b in _keep(wgrad_candidates(
+                spec.n, spec.ho, spec.wo, spec.hf, spec.wf, spec.stride,
+                spec.ci // cib, cib, spec.co // cob, cob, H100_SXM, True,
+                False, None, op_bytes, spec.groups, spec.dilation, path),
+                top, per_count):
+            out.setdefault(b, cost)
+    return [(cost, b) for b, cost in out.items()]
 
 
 def tile_candidates(n: int, ci: int, co: int, stride: int, h: int,
@@ -96,7 +108,12 @@ def main(argv=None) -> int:
     ap.add_argument("--grouped", action="store_true",
                     help="AlexNet's and DeepLab-LargeFOV's grouped and "
                          "dilated wgrads, the window kernel")
+    ap.add_argument("--first", action="store_true",
+                    help="the bf16 window GEMM's narrow rows and per-tap "
+                         "tiles at the first layers and AlexNet's conv2-3")
     args = ap.parse_args(argv)
+    if args.first:
+        args.dtype = "bf16"
     bf16 = args.dtype == "bf16"
     dtype = torch.bfloat16 if bf16 else torch.float32
     suffix = "_bf16" if args.dtype == "bf16" else ""
@@ -116,9 +133,9 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     n = 8
-    if args.grouped:            # the streamed kernels are dense-only
+    if args.grouped or args.first:    # the streamed kernels: dense, per tap
         entries = {False: entries[False]}
-        layers = grouped_layers(n)
+        layers = first_layers(n) if args.first else grouped_layers(n)
     else:
         layers = [(name, ConvSpec.make(n, h, h, ci, co, 3, 3, s, "SAME"),
                    min(ci, 128), min(co, 128))
@@ -154,8 +171,9 @@ def main(argv=None) -> int:
             entry = getattr(lib(), symbol)
             runs = []
             for cost, blk in (
-                    grouped_candidates(spec, cib, cob, dtype.itemsize)
-                    if args.grouped else
+                    grouped_candidates(spec, cib, cob, dtype.itemsize,
+                                       both=args.first)
+                    if args.grouped or args.first else
                     tile_candidates(n, ci, co, s, h, streamed, TOP,
                                     PER_COUNT, dtype.itemsize)):
                 # the bf16 GEMM takes dz alone, no db
@@ -186,7 +204,8 @@ def main(argv=None) -> int:
             for (cost, blk, _), t in zip(runs, ms):
                 print(f"[tile] {name} {route} th {blk.th} tw {blk.tw} wgs "
                       f"{blk.wgs} mpw {blk.mpw} groups {blk.groups} splits "
-                      f"{blk.splits} model_cost {cost:.0f} graph_ms {t:.4f}")
+                      f"{blk.splits} narrow {blk.narrow} model_cost "
+                      f"{cost:.0f} graph_ms {t:.4f}")
             times = [(t, blk) for t, (_, blk, _) in zip(ms, runs)]
             chosen, best = times[0], min(times, key=lambda t: t[0])
             timed[key][streamed] = (chosen[0], best[0])
@@ -195,12 +214,18 @@ def main(argv=None) -> int:
 
             def tile(b):
                 return (f"(th {b.th}, tw {b.tw}, wgs {b.wgs}, mpw {b.mpw}, "
-                        f"splits {b.splits})")
+                        f"splits {b.splits}"
+                        f"{', narrow rows' if b.narrow else ''})")
             print(f"[layer] {name} {route} {ci}->{co} in {h}x{h} s{s} "
                   f"groups {gr} dilation {dil[0]}: "
                   f"chosen {tile(chosen[1])} {chosen[0]:.4f} ms; fastest "
                   f"{tile(best[1])} {best[0]:.4f} ms, ratio "
                   f"{chosen[0] / best[0]:.3f}", flush=True)
+            for path in sorted({b.narrow for _, b in times}):
+                t, b = min((tb for tb in times if tb[1].narrow == path),
+                           key=lambda tb: tb[0])
+                print(f"[path] {name} {'narrow rows' if path else 'per tap'}"
+                      f": fastest {tile(b)} {t:.4f} ms", flush=True)
         del x, w, z, g, want, dz, scale
     for streamed, (chosen, best) in sums.items():
         print(f"[sum] {'stream' if streamed else 'window'} {args.dtype} "

@@ -108,9 +108,14 @@ def _mtile_rows(blk, streamed):
 def _tile_forward(x, wt, b, r, pads, stride, act, gap, blk, streamed,
                   f32=False):
     """The bf16 forward as the kernels compute and store it (module
-    docstring) -> the stored map, or with ``gap`` the pooled features, as
-    bf16 torch tensors; with ``f32`` the f32 sums before the epilogue, as
-    an f32 numpy map."""
+    docstring; a narrow-row tile as ``test_torch_narrow_runs`` emulates
+    ``fwd_kernel_bf16_narrow``) -> the stored map, or with ``gap`` the
+    pooled features, as bf16 torch tensors; with ``f32`` the f32 sums
+    before the epilogue, as an f32 numpy map."""
+    if blk.narrow:
+        from test_torch_narrow_runs import narrow_forward
+        assert not streamed
+        return narrow_forward(x, wt, b, r, pads, stride, act, gap, blk, f32)
     x, wt = _bf16(x), _bf16(wt)
     r = None if r is None else _bf16(r)
     n, ciblk, hi, wi, cib = x.shape
@@ -217,24 +222,34 @@ def _reshaped(blk, spec, streamed, **changes):
     return dataclasses.replace(
         blk, tiles=-(-spec.ho // blk.th) * -(-spec.wo // blk.tw),
         hwin=(blk.th - 1) * s + 3, wwin=(blk.tw - 1) * s + 3,
-        pitch=blocking.fwd_bf16_pitch(blk.tw, 3, s, blk.chunk, streamed))
+        pitch=blk.tw if blk.narrow else blocking.fwd_bf16_pitch(
+            blk.tw, 3, s, blk.chunk, streamed))
 
 
 def _tiles(n, spec, cib, cob, gap, streamed):
     """The bf16 chooser's tile, then a small one that overhangs the map at
     chunk 16 (the streamed band: strips of one row), then one of three
-    consumers with its rows past the map."""
+    consumers with its rows past the map; where the chooser takes the
+    narrow rows, the same three of the best per-tap tile too."""
     args = (n, spec.ho, spec.wo, 3, 3, spec.stride, spec.ci // cib, cib,
             spec.co // cob, cob)
     chosen = (blocking.choose_stream_fwd_blocking(*args, gap=gap,
                                                   op_bytes=2)
               if streamed else blocking.choose_fwd_blocking(*args, gap=gap,
                                                             op_bytes=2))
-    small = _reshaped(chosen, spec, streamed, th=chosen.strips if streamed
-                      else 2, tw=3, chunk=16)
-    three = _reshaped(chosen, spec, streamed, wgs=3, th=3 if streamed else 5,
-                      tw=5, chunk=16)
-    return [chosen, small, three]
+    picks = [chosen]
+    if chosen.narrow:
+        picks.append(min(blocking.fwd_candidates(
+            *args, blocking.H100_SXM, gap, streamed, op_bytes=2,
+            narrow=False), key=lambda kb: kb[0])[1])
+    out = []
+    for pick in picks:
+        small = _reshaped(pick, spec, streamed, th=pick.strips if streamed
+                          else 2, tw=3, chunk=16)
+        three = _reshaped(pick, spec, streamed, wgs=3,
+                          th=3 if streamed else 5, tw=5, chunk=16)
+        out += [pick, small, three]
+    return out
 
 
 def _bf16_close(got, want):
@@ -456,8 +471,22 @@ def _main_path_shapes():
                               for e in (224, 160)]
 
 
-def _kernel_rules(blk, s, gap, streamed):
-    """``fwd_tile::bf16::valid``'s rules on a chooser's tile (3x3)."""
+def _kernel_rules(blk, s, gap, streamed, cib=3):
+    """``fwd_tile::bf16::valid``'s rules on a chooser's tile (3x3); a
+    narrow-row tile's on ``cib`` pencils: a row a position, the window
+    kernel's, 16 lanes or more."""
+    if blk.narrow:
+        lay = blocking.fwd_bf16_layout(blk.th, blk.tw, 3, 3, s, blk.chunk,
+                                       blk.lanes, blk.wgs, blk.strips, gap,
+                                       narrow=1, cib=cib)
+        assert not streamed and blk.strips == 1 and 1 <= blk.wgs <= 3
+        assert blocking.narrow_fits(3, 3, cib) and blk.lanes >= 16
+        assert blk.pitch == lay.pitch == blk.tw
+        assert 2 <= lay.windows <= 3 and lay.rows >= 2
+        assert lay.smem <= blocking.H100_SXM.smem_block == 232448
+        assert 64 * (blk.wgs - 1) < blk.th * blk.tw <= 64 * blk.wgs
+        assert s * blk.tw <= 256
+        return lay
     lay = blocking.fwd_bf16_layout(blk.th, blk.tw, 3, 3, s, blk.chunk,
                                    blk.lanes, blk.wgs, blk.strips, gap)
     assert blk.pitch == lay.pitch == blocking.fwd_bf16_pitch(
@@ -488,9 +517,10 @@ def test_bf16_choosers_fit_and_take_no_less_a_stage(gap, streamed):
         args = (8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob)
         f32 = choose(*args, gap=gap)
         bf = choose(*args, gap=gap, op_bytes=2)
-        lay = _kernel_rules(bf, s, gap, streamed)
+        lay = _kernel_rules(bf, s, gap, streamed, cib)
         smem = blocking.fwd_smem_bytes(bf.th, bf.tw, 3, 3, s, bf.chunk,
-                                       bf.lanes, bf.wgs, gap, 2, bf.strips)
+                                       bf.lanes, bf.wgs, gap, 2, bf.strips,
+                                       narrow=bf.narrow, cib=cib)
         assert smem == lay.smem, name
         assert blocking.fwd_kpad(cib, 2) % bf.chunk == 0, name
         # never less a stage: no fewer channels contracted a stage than the
@@ -503,12 +533,14 @@ def test_bf16_choosers_fit_and_take_no_less_a_stage(gap, streamed):
                                                           lay.rows)
         assert plan.function_macs == 8 * ho * ho * 9 * ci * co
         assert plan.issued_macs >= plan.function_macs
-        if cib == 3:                      # k16 slices: 3 channels of 16
+        if cib == 3 and bf.narrow:        # 27 values of 32 a row
+            assert plan.padding_share >= 1 - 27 / 32
+        elif cib == 3:                    # k16 slices: 3 channels of 16
             assert plan.padding_share >= 1 - 3 / 16
         # every candidate the search weighs is one the kernels take
         for _, blk in blocking.fwd_candidates(*args, blocking.H100_SXM, gap,
                                               streamed, op_bytes=2):
-            _kernel_rules(blk, s, gap, streamed)
+            _kernel_rules(blk, s, gap, streamed, cib)
         assert route_stream("fwd", ConvSpec.make(8, ho * s, ho * s, ci, co,
                                                  3, 3, s, "SAME"),
                             cib, cob, blocking.H100_SXM, gap=gap,
@@ -530,7 +562,7 @@ def test_bf16_choosers_fit_every_main_path_shape_of_both_buckets(streamed):
         for gap in (False, True):
             blk = choose(8, ho, ho, 3, 3, s, ci // cib, cib, co // cob, cob,
                          gap=gap, op_bytes=2)
-            _kernel_rules(blk, s, gap, streamed)
+            _kernel_rules(blk, s, gap, streamed, cib)
             if blk.lanes == 128:
                 widest = max(widest, blk.wgs)
         found = blocking.fwd_candidates(8, ho, ho, 3, 3, s, ci // cib, cib,
@@ -547,11 +579,16 @@ def test_bf16_choosers_fit_every_main_path_shape_of_both_buckets(streamed):
 # 224x224), each with its time over the fastest candidate's in `python -m
 # repro_torch.launch.fwd_tiles_ab --dtype bf16 --mobilenet` on an H100 80GB
 # HBM3 at 700 W (PERF.md): summed over VGG-16's layers, 1.027
-# (window) and 1.034 (streamed) of the fastest tile measured at each.  A
-# change to the cost model that moves a tile shows here; time it with that
-# script before repinning.
+# (window) and 1.034 (streamed) of the fastest tile measured at each.  The
+# window kernel's tiles at conv1_1 and MobileNet's conv1 (Cib 3) are the
+# narrow rows' (csrc/narrow_rows.cuh), timed by `python -m
+# repro_torch.launch.fwd_tiles_ab --first` beside the per-tap tiles on the
+# same card (PERF.md: the per-tap tiles pinned here before, (7, 25,
+# 3, 1, 16) and (23, 7, 3, 1, 16), ran 1.40x and 1.60x the narrow tiles'
+# time).  A change to the cost model that moves a tile shows here; time it
+# with that script before repinning.
 CHOSEN_BF16_FWD_TILES = {
-    "conv1_1": ((7, 25, 3, 1, 16), 1.033, (12, 14, 3, 1, 16), 1.000),
+    "conv1_1": ((4, 45, 3, 1, 16), 1.008, (12, 14, 3, 1, 16), 1.000),
     "conv1_2": ((4, 46, 3, 1, 64), 1.000, (9, 20, 3, 1, 64), 1.021),
     "conv2_1": ((23, 7, 3, 1, 32), 1.000, (9, 19, 3, 1, 32), 1.015),
     "conv2_2": ((6, 30, 3, 1, 64), 1.006, (6, 31, 3, 1, 64), 1.008),
@@ -564,7 +601,7 @@ CHOSEN_BF16_FWD_TILES = {
     "conv5_1": ((14, 7, 2, 2, 64), 1.000, (14, 7, 2, 2, 64), 1.000),
     "conv5_2": ((14, 7, 2, 2, 64), 1.042, (14, 7, 2, 2, 64), 1.002),
     "conv5_3": ((14, 7, 2, 2, 64), 1.033, (14, 7, 2, 2, 64), 1.000),
-    "mobilenet.conv1": ((23, 7, 3, 1, 16), 1.008, (9, 19, 3, 1, 16), 1.000),
+    "mobilenet.conv1": ((3, 56, 3, 1, 16), 1.000, (9, 19, 3, 1, 16), 1.000),
 }
 
 

@@ -350,8 +350,13 @@ def _tile_wgrad_bf16(x, dz, blk, hf, wf, stride, pads, streamed):
     (each group 8 consecutive cells of the tap's phase, the second group's
     offset 0 past the tile), each step's exact sum added into a fresh f32
     accumulator rounding toward zero, the stage's accumulator then added
-    into the running f32 sum; the shares' rows added in split order.
-    -> dw."""
+    into the running f32 sum; the shares' rows added in split order; a
+    narrow-row tile as ``test_torch_narrow_runs`` emulates
+    ``wgrad_kernel_bf16_narrow``.  -> dw."""
+    if blk.narrow:
+        from test_torch_narrow_runs import narrow_wgrad
+        assert not streamed
+        return narrow_wgrad(x, dz, blk, hf, wf, stride, pads)
     n, ciblk, hi, wi, cib = x.shape
     _, coblk, ho, wo, cob = dz.shape
     (pt, _), (pl, _) = pads
@@ -602,11 +607,19 @@ def test_bf16_wgrad_tile_arithmetic_matches_plain_version(
               else blocking.choose_wgrad_blocking)
     blk = choose(n, spec.ho, spec.wo, 3, 3, stride, ci // cib, cib,
                  co // cob, cob, prologue=act is not None, op_bytes=2)
-    # a small tile: two rows of 8 (K 16, no padding group), two shares
-    small = dataclasses.replace(blk, th=2, tw=8, splits=2,
-                                tiles=n * -(-spec.ho // 2)
-                                * -(-spec.wo // 8))
-    for b in (blk, small):
+    picks = [blk]
+    if blk.narrow:              # the best per-tap tile as well
+        picks.append(min(blocking.wgrad_candidates(
+            n, spec.ho, spec.wo, 3, 3, stride, ci // cib, cib, co // cob,
+            cob, blocking.H100_SXM, act is not None, streamed, op_bytes=2,
+            narrow=False), key=lambda kb: kb[0])[1])
+    tiles = []
+    for pick in picks:
+        # a small tile: two rows of 8 (K 16, no padding group), two shares
+        tiles += [pick, dataclasses.replace(
+            pick, th=2, tw=8, splits=2,
+            tiles=n * -(-spec.ho // 2) * -(-spec.wo // 8))]
+    for b in tiles:
         dw = _tile_wgrad_bf16(x, dz, b, 3, 3, stride, pads, streamed)
         _close_to_max(dw, np.asarray(want_dw), 1e-5)
         _close_to_max(dw, plain_dw.numpy(), 1e-5)

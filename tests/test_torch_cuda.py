@@ -2235,3 +2235,207 @@ def test_gathered_dilated_windows_match_plain_version(cuda):
                 "relu")
             assert err == 0
             torch.testing.assert_close(dx, want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# the narrow rows (csrc/narrow_rows.cuh) and the bf16 wgrad's element-strided
+# boxes: phase 27's shapes at batch 2
+# ---------------------------------------------------------------------------
+
+# (n, ci, co, h, filter, stride, padding, groups, cib, cob)
+NARROW_CASES = [
+    (2, 3, 96, 63, 11, 4, "VALID", 1, 3, 48),       # AlexNet's conv1
+    (2, 96, 256, 27, 5, 2, ((1, 1), (1, 1)), 2, 48, 64),   # conv2 (wgrad)
+    (2, 256, 384, 13, 3, 2, "VALID", 1, 64, 64),    # conv3 (wgrad)
+    (2, 3, 64, 32, 3, 1, "SAME", 1, 3, 64),         # VGG-16's conv1_1
+    (2, 3, 32, 32, 3, 2, "SAME", 1, 3, 32),         # MobileNet's conv1
+    (2, 3, 64, 30, 7, 2, ((3, 3), (3, 3)), 1, 3, 64),
+    (2, 8, 64, 20, 5, 1, "SAME", 1, 8, 64),         # 40-value runs
+    (2, 64, 64, 31, 3, 2, "SAME", 1, 64, 64),       # odd widths
+    (2, 48, 64, 31, 3, 2, "SAME", 1, 48, 64),
+]
+
+
+def _narrow_operands(dev, n, ci, co, h, f, stride, padding, groups, cib, cob,
+                     seed=17):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = ConvSpec.make(n, h, h, ci, co, f, f, stride, padding, groups)
+    x = torch.randn((n, ci // cib, h, h, cib), device=dev,
+                    generator=gen).bfloat16()
+    w = torch.randn((co // cob, ci // groups // cib, f, f, cib, cob),
+                    device=dev, generator=gen) / (f * f * ci) ** 0.5
+    b = torch.randn((co // cob, cob), device=dev, generator=gen)
+    g = torch.randn((n, co // cob, spec.ho, spec.wo, cob), device=dev,
+                    generator=gen).bfloat16()
+    return spec, x, w, b, g
+
+
+def _least(found):
+    """The least-cost candidate."""
+    return min(found, key=lambda kb: kb[0])[1]
+
+
+def _fwd_tiles(spec, cib, cob, narrow):
+    """One path's forward tiles (the narrow rows or per tap)."""
+    from repro_torch.core import blocking as B
+    return B.fwd_candidates(spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
+                            spec.stride, spec.cig // cib, cib, spec.co // cob,
+                            cob, B.H100_SXM, False, False, op_bytes=2,
+                            narrow=narrow)
+
+
+def _wgrad_tiles(spec, cib, cob, narrow):
+    from repro_torch.core import blocking as B
+    return B.wgrad_candidates(spec.n, spec.ho, spec.wo, spec.hf, spec.wf,
+                              spec.stride, spec.ci // cib, cib,
+                              spec.co // cob, cob, B.H100_SXM, False, False,
+                              op_bytes=2, groups=spec.groups, narrow=narrow)
+
+
+def _fwd_with(blk, x, w, b, spec):
+    plan = dck.fwd_launch(spec, x.shape[4], w.shape[5], 1, False, False,
+                          blk=blk, dtype=torch.bfloat16)
+    err, out, _, _ = dck.fwd_run(dck._lib().direct_conv2d_fwd, plan, x, w, b,
+                                 None, spec)
+    assert err == 0
+    return out
+
+
+def _wgrad_with(blk, x, g, spec):
+    lib = dck._bwd_lib()
+    _, out = dck.bf16_wgrad(lib.direct_conv2d_wgrad_bf16, blk, x, g, spec,
+                            None, None, False, dck.H100_SXM, LAUNCHES,
+                            "direct_conv2d_wgrad_bf16", lib)
+    return dck.split_wgrad(out, x.shape, g.shape, spec.hf, spec.wf, False,
+                           spec.groups)[0]
+
+
+@pytest.mark.parametrize("n,ci,co,h,f,stride,padding,groups,cib,cob",
+                         NARROW_CASES)
+def test_narrow_rows_and_strided_boxes_match_plain_versions(
+        cuda, n, ci, co, h, f, stride, padding, groups, cib, cob):
+    from repro_torch.core import blocking as B
+    spec, x, w, b, g = _narrow_operands(cuda, n, ci, co, h, f, stride,
+                                        padding, groups, cib, cob)
+    narrow = B.narrow_fits(f, f, cib)
+    want_dw, _ = direct_conv_wgrad_blocked(x.double(), g.double(), f, f,
+                                           stride, padding, groups=groups)
+    scale, _ = direct_conv_wgrad_blocked(x.abs().double(), g.abs().double(),
+                                         f, f, stride, padding, groups=groups)
+    # the chooser's wgrad tile and, where the rows fit, the least-cost
+    # narrow one; each twice, bit for bit
+    wtiles = [B.choose_wgrad_blocking(n, spec.ho, spec.wo, f, f, stride,
+                                      ci // cib, cib, co // cob, cob,
+                                      op_bytes=2, groups=groups)]
+    if narrow:
+        wtiles.append(_least(_wgrad_tiles(spec, cib, cob, True)))
+    for blk in wtiles:
+        reset_launches()
+        dw, dw2 = (_wgrad_with(blk, x, g, spec) for _ in range(2))
+        torch.cuda.synchronize()
+        assert dck.NARROW_LAUNCHES["wgrad_kernel_bf16_narrow"] == \
+            2 * blk.narrow
+        assert ((dw.double() - want_dw).abs() <= WGRAD_REL * scale).all()
+        assert torch.equal(dw, dw2)
+    if not narrow:
+        return
+    want = direct_conv_blocked(x, w, stride, padding, b, "relu", "bf16")
+    for blk in (B.choose_fwd_blocking(n, spec.ho, spec.wo, f, f, stride,
+                                      ci // cib, cib, co // cob, cob,
+                                      op_bytes=2),
+                _least(_fwd_tiles(spec, cib, cob, True))):
+        reset_launches()
+        got, again = (_fwd_with(blk, x, w, b, spec) for _ in range(2))
+        torch.cuda.synchronize()
+        _bf16_close(got, want)
+        assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n,ci,co,h,f,stride,padding,groups,cib,cob",
+                         [c for c in NARROW_CASES if c[8] == 3])
+def test_narrow_rows_against_the_per_tap_tiles(cuda, n, ci, co, h, f, stride,
+                                               padding, groups, cib, cob):
+    # at Cib 3 the narrow rows and the per-tap tile (pinned) compute the
+    # same function: each within phase 23's rules of the other
+    spec, x, w, b, g = _narrow_operands(cuda, n, ci, co, h, f, stride,
+                                        padding, groups, cib, cob, seed=19)
+    fwd = [_fwd_with(_least(_fwd_tiles(spec, cib, cob, k)), x, w, b, spec)
+           for k in (True, False)]
+    _bf16_close(fwd[0], fwd[1])
+    dws = [_wgrad_with(_least(_wgrad_tiles(spec, cib, cob, k)), x, g, spec)
+           for k in (True, False)]
+    scale, _ = direct_conv_wgrad_blocked(x.abs().double(), g.abs().double(),
+                                         f, f, stride, padding)
+    assert ((dws[0].double() - dws[1].double()).abs()
+            <= 2 * WGRAD_REL * scale).all()
+
+
+def test_dense_bf16_tiles_keep_their_per_tap_tiles_past_conv1(cuda):
+    # VGG-16's layers past conv1_1 take no narrow row: the chooser's bf16
+    # forward and wgrad tiles are the per-tap ones, each within phase 23's
+    # rules of the plain version and bit for bit across two runs (their
+    # bits against the parent build: launch/bits_ab.py)
+    from repro_torch.core import blocking as B
+    for ci, co, s, h in ((64, 64, 1, 20), (64, 128, 2, 21), (128, 128, 1, 9)):
+        spec, x, w, b, g = _narrow_operands(cuda, 2, ci, co, h, 3, s, "SAME",
+                                            1, ci, co)
+        fwd = B.choose_fwd_blocking(2, spec.ho, spec.wo, 3, 3, s, 1, ci, 1,
+                                    co, op_bytes=2)
+        wgr = B.choose_wgrad_blocking(2, spec.ho, spec.wo, 3, 3, s, 1, ci, 1,
+                                      co, op_bytes=2)
+        assert not fwd.narrow and not wgr.narrow
+        got, again = (_fwd_with(fwd, x, w, b, spec) for _ in range(2))
+        _bf16_close(got, direct_conv_blocked(x, w, s, "SAME", b, "relu",
+                                             "bf16"))
+        assert torch.equal(got, again)
+        dw, dw2 = (_wgrad_with(wgr, x, g, spec) for _ in range(2))
+        want, _ = direct_conv_wgrad_blocked(x.double(), g.double(), 3, 3, s,
+                                            "SAME")
+        scale, _ = direct_conv_wgrad_blocked(x.abs().double(),
+                                             g.abs().double(), 3, 3, s,
+                                             "SAME")
+        assert ((dw.double() - want).abs() <= WGRAD_REL * scale).all()
+        assert torch.equal(dw, dw2)
+
+
+def test_narrow_row_instances_hold_wgmma_and_spill_nothing(cuda):
+    # phase 2's rules on the new instances: HGMMA in each, the forward's
+    # fewer WARPGROUP.DEPBAR than HGMMA, no spill (ptxas's report)
+    import re
+    import shutil
+    import subprocess
+    from repro_torch.kernels._build import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    for name, kernel in (("direct_conv2d_fwd", "fwd_kernel_bf16_narrow"),
+                         ("direct_conv2d_bwd", "wgrad_kernel_bf16_narrow")):
+        res = build(name)
+        spills = {}
+        fn = None
+        for line in res.log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and fn is not None and kernel in fn:
+                spills[fn] = (int(m.group(1)), int(m.group(2)))
+        assert spills and all(v == (0, 0) for v in spills.values()), spills
+        sass = subprocess.run([tool, "-sass", str(res.path)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        counts, fn = {}, None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = [0, 0]
+            elif fn is not None and "HGMMA" in line:
+                counts[fn][0] += 1
+            elif fn is not None and "WARPGROUP.DEPBAR" in line:
+                counts[fn][1] += 1
+        mine = {k: v for k, v in counts.items() if kernel in k}
+        assert mine
+        for k, (hg, dep) in mine.items():
+            assert hg > 0, k
+            if "fwd" in kernel:
+                assert dep < hg, (k, hg, dep)

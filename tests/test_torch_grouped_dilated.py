@@ -280,13 +280,27 @@ def test_bf16_producer_map_matches_the_twin(name, n, ci, co, h, w, f, stride,
                                             pad, groups, dil, lane):
     _, _, _, lay, xb, wb, bb = _case(2, n, ci, co, h, w, f, groups, lane)
     spec = ConvSpec.make(n, h, w, ci, co, f, f, stride, pad, groups, dil)
-    plan = fwd_launch(spec, lay.cb_in, lay.cb_out, 1, False, False,
+    # the per-tap tile (at conv2's Cib 12 the chooser takes the narrow rows,
+    # which tests/test_torch_narrow_runs.py emulates: held here as well)
+    cib, cob = lay.cb_in, lay.cb_out
+    per_tap = min(blocking.fwd_candidates(
+        n, spec.ho, spec.wo, f, f, stride, spec.cig // cib, cib,
+        spec.co // cob, cob, blocking.H100_SXM, False, False, op_bytes=2,
+        dilation=spec.dilation, narrow=False), key=lambda kb: kb[0])[1]
+    plan = fwd_launch(spec, cib, cob, 1, False, False, blk=per_tap,
                       dtype=torch.bfloat16)
     got = _bf16_window_forward(xb.numpy(), wb.numpy(), bb.numpy(), spec.pads,
                                stride, spec.dilation, groups, plan.blk)
     want = direct_conv_blocked(xb, wb, stride, pad, bb, "relu", "bf16",
                                groups, dil)
     _close(got.float().numpy(), want.float().numpy(), True)
+    chosen = fwd_launch(spec, cib, cob, 1, False, False,
+                        dtype=torch.bfloat16).blk
+    if chosen.narrow:
+        from test_torch_narrow_runs import narrow_forward
+        got = narrow_forward(xb.numpy(), wb.numpy(), bb.numpy(), None,
+                             spec.pads, stride, "relu", False, chosen)
+        _close(got.float().numpy(), want.float().numpy(), True)
 
 
 # ---------------------------------------------------------------------------
@@ -406,13 +420,18 @@ def test_choosers_fit_alexnet_and_deeplab(n, ho, wo, f, s, cigblk, cib,
                                        op_bytes, dil)
     smem = blocking.fwd_smem_bytes(blk.th, blk.tw, f, f, s, blk.chunk,
                                    blk.lanes, blk.wgs, gap, op_bytes,
-                                   blk.strips, dil, blk.frows)
+                                   blk.strips, dil, blk.frows, blk.narrow,
+                                   cib)
     assert smem <= 232448
     # the window counts the dilated reach
     assert blk.hwin == (blk.th - 1) * s + (f - 1) * d + 1
     assert blk.wwin == (blk.tw - 1) * s + (f - 1) * d + 1
     if op_bytes == 2:
-        assert blk.pitch == blk.tw + ((f - 1) * d) // s
+        # the bf16 build's planes, or at conv1 the narrow rows: a 128-byte
+        # row an output position (tests/test_torch_narrow_runs.py)
+        assert blk.narrow == int(blocking.narrow_fits(f, f, cib, dil))
+        assert blk.pitch == (blk.tw if blk.narrow
+                             else blk.tw + ((f - 1) * d) // s)
         assert blk.frows == 0
     plan = blocking.fwd_plan(blk, n, ho, wo, f, f, s, cigblk, cib, coblk,
                              cob, gap, op_bytes, dil)
